@@ -1,0 +1,631 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (`dllama_tpu_torch`) on one NVIDIA GPU.
+
+Run from the repository root, with no arguments:
+
+    python3 chip_smoke.py
+
+It drives the port's main path at the full width of Llama-3.1-8B Q40 (random
+weights from a seed) and exits 0 only if every phase passed:
+
+1. card       the card's name and power limit (nvidia-smi), then the CUDA
+              kernels built from dllama_tpu_torch/ops/csrc, one nvcc per
+              source, all at once.
+2. kernels    every kernel's wrapper against its plain PyTorch version on the
+              card at the 8B shapes of the main path, each error beside its
+              stated tolerance; CUDA-event medians of the kernel, the plain
+              version and a one-call PyTorch yardstick (never used by the
+              port), with the L2 cache flushed before every timed run, and
+              the bound max(bytes / HBM rate, operations / bf16 tensor rate).
+3. forward    a synthetic 8B Q40 `.m` + `.t` written to a temp dir and loaded
+              with load_model; a 256-token prefill and 8 decode steps through
+              the kernels against the same forward with the plain versions.
+4. serve      make_server (the function `serve` runs) over real HTTP: a greedy
+              chat completion, the same again (identical content), an SSE
+              stream, and a second turn that hits the prefix cache. This is
+              the main path: the launch counters are zeroed before it and read
+              after it.
+5. inference  the CLI's `inference` mode on the same files.
+
+The line before the last is the card's name and power limit; before that, one
+JSON object lists every ported kernel with its numbers; the last line is
+{"ok": true, "device": {...}}. Options cut the run for quicker checks.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import http.client
+import io
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+
+HBM_BYTES_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
+BF16_OPS_S = 989e12  # H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
+TOL_K1 = 5e-3  # x max|ref|: exact codes + f32 scales vs a bf16-rounded weight
+TOL_K2 = 2e-3  # x max|ref|: the same bf16 weights, only the order of sums differs
+TOL_K7 = 2e-3  # absolute: both f32 from the same bf16 inputs
+TOL_FWD = 5e-2  # x max|logit|: the K1-vs-plain rounding compounds over 32 layers
+N_LAYERS_8B = 32
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    raise SystemExit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    if out.returncode:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def llama31_8b(n_layers: int):
+    from dllama_tpu_torch.models.config import LlamaConfig, RopeType
+    from dllama_tpu_torch.ops.quant import FloatType
+
+    return LlamaConfig(
+        dim=4096, hidden_dim=14336, n_layers=n_layers, n_heads=32, n_kv_heads=8,
+        vocab_size=128256, seq_len=131072, rope_theta=500000.0,
+        rope_type=RopeType.LLAMA3_1, rope_scaling_factor=8.0,
+        rope_scaling_low_freq_factor=1.0, rope_scaling_high_freq_factor=4.0,
+        rope_scaling_orig_max_seq_len=8192, weight_type=FloatType.Q40)
+
+
+# ------------------------------------------------------------------ timing
+
+
+class Timer:
+    """CUDA-event median of `reps` runs after `warmup`, the L2 cache
+    flushed (a 256 MB write) before each timed run, as a decode step finds
+    each weight cold. A spin kernel after the flush keeps the card busy
+    while the host enqueues the timed call, so the events measure device
+    time, not the wrapper's Python."""
+
+    def __init__(self, device, reps: int, warmup: int = 3):
+        import torch
+
+        self.reps, self.warmup = reps, warmup
+        self.flush = torch.empty(64 << 20, dtype=torch.float32, device=device)
+
+    def __call__(self, fn) -> float | None:
+        import torch
+
+        if self.reps <= 0:
+            return None
+        for _ in range(self.warmup):
+            fn()
+        times = []
+        for _ in range(self.reps):
+            self.flush.zero_()
+            torch.cuda._sleep(1_000_000)  # ~0.5 ms of clock cycles
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+
+def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    tb, to = nbytes / HBM_BYTES_S * 1e3, ops / BF16_OPS_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def _r(v):
+    return None if v is None else round(v, 6)
+
+
+# ------------------------------------------------------------ phase 2
+
+
+def random_q40(gen, lead, k, n, device):
+    """Random packed nibbles + small positive f16 scales (the JAX package's
+    random_params_fast recipe), stacked over `lead`."""
+    import torch
+
+    from dllama_tpu_torch.ops.quant import QTensor
+
+    packed = torch.randint(0, 256, (*lead, k // 2, n), generator=gen, device=device,
+                           dtype=torch.uint8)
+    scales = (torch.rand((*lead, k // 32, n), generator=gen, device=device) * 0.02
+              + 1e-3).to(torch.float16)
+    return QTensor(packed, scales)
+
+
+def phase_kernels(cfg, device, timer, layer=1):
+    """Each kernel against its plain version at the main path's shapes.
+    Returns {kernel: [case dicts]}."""
+    import torch
+    import torch.nn.functional as F
+
+    from dllama_tpu_torch.ops.flash_attention import flash_gqa_attention
+    from dllama_tpu_torch.ops.layers import gqa_attention
+    from dllama_tpu_torch.ops.q40_matmul import DECODE_MAX_M, q40_matmul, q40_matmul_plain
+    from dllama_tpu_torch.ops.quant import QTensor
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    d, f, kvd, v = cfg.dim, cfg.hidden_dim, cfg.kv_dim, cfg.vocab_size
+    weights = {"wq": (d, d), "wk": (d, kvd), "w1": (d, f), "w2": (f, d), "wcls": (d, v)}
+    results: dict[str, list] = {"q40_decode": [], "q40_prefill": [], "flash_attention": []}
+    plan = [("q40_decode", name, m) for name in weights for m in (1, 8)]
+    plan += [("q40_prefill", name, m) for name in ("w1", "w2") for m in (32, 256)]
+    for kernel, name, m in plan:
+        k, n = weights[name]
+        w = random_q40(gen, (2,), k, n, device)  # stacked [L=2]; layer 1 is used
+        x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+        assert (m <= DECODE_MAX_M) == (kernel == "q40_decode")
+        got = q40_matmul(x, w, layer, out_dtype=torch.float32)
+        ref = q40_matmul_plain(x, w, layer, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        tol = (TOL_K1 if kernel == "q40_decode" else TOL_K2) * scale
+        wd = QTensor(w.packed[layer], w.scales[layer]).dequantize(torch.bfloat16)
+        nbytes = m * k * 2 + k * n // 2 + (k // 32) * n * 2 + m * n * 2
+        b, by = bound_ms(nbytes, 2.0 * m * k * n)
+        case = dict(case=f"{name} {k}x{n} m={m}", max_abs_err=err, tol=tol,
+                    ms=timer(lambda: q40_matmul(x, w, layer)),
+                    plain_ms=timer(lambda: q40_matmul_plain(x, w, layer)),
+                    library_ms=timer(lambda: torch.matmul(x, wd)),
+                    bound_ms=b, bound_by=by)
+        results[kernel].append(case)
+        print(f"  {kernel:15s} {case['case']:28s} err {err:.3e} <= tol {tol:.3e}  "
+              f"ms {case['ms']}  plain {case['plain_ms']}  lib {case['library_ms']}  "
+              f"bound {b:.4f} ({by})", flush=True)
+        if not err <= tol:
+            fail(f"{kernel} {case['case']}: max error {err} over tolerance {tol}")
+        del w, wd, x, got, ref
+
+    hq, hkv, hd, s = cfg.n_heads, cfg.n_kv_heads, cfg.head_size, 4096
+    group = hq // hkv
+    kc = torch.randn((1, hkv, s, hd), generator=gen, device=device).to(torch.bfloat16)
+    vc = torch.randn((1, hkv, s, hd), generator=gen, device=device).to(torch.bfloat16)
+    for t, pos, cache_dtype in ((1, 0, torch.bfloat16), (1, 1000, torch.bfloat16),
+                                (1, 4095, torch.bfloat16), (256, 0, torch.bfloat16),
+                                (256, 2048, torch.bfloat16), (1, 1000, torch.float32)):
+        q = torch.randn((1, t, hq, hd), generator=gen, device=device).to(torch.bfloat16)
+        kc, vc = kc.to(cache_dtype), vc.to(cache_dtype)
+        got = flash_gqa_attention(q, kc, vc, pos, out_dtype=torch.float32)
+        ref = gqa_attention(q.float(), kc.float(), vc.float(), pos)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        live = pos + t
+        qt, kl, vl = q.transpose(1, 2).to(kc.dtype), kc[:, :, :live], vc[:, :, :live]
+        mask = (torch.arange(live, device=device)[None, :]
+                <= pos + torch.arange(t, device=device)[:, None])
+        nbytes = 2 * q.numel() * 2 + 2 * hkv * live * hd * kc.element_size()
+        ops = 4.0 * hd * hq * sum(pos + i + 1 for i in range(t))
+        b, by = bound_ms(nbytes, ops)
+        tag = "" if cache_dtype == torch.bfloat16 else " f32 cache"
+        case = dict(case=f"T={t} pos={pos} S={s} group={group}{tag}", max_abs_err=err,
+                    tol=TOL_K7,
+                    ms=timer(lambda: flash_gqa_attention(q, kc, vc, pos)),
+                    plain_ms=timer(lambda: gqa_attention(q, kc, vc, pos)),
+                    library_ms=timer(lambda: F.scaled_dot_product_attention(
+                        qt, kl, vl, attn_mask=mask, enable_gqa=True)),
+                    bound_ms=b, bound_by=by)
+        results["flash_attention"].append(case)
+        print(f"  flash_attention {case['case']:28s} err {err:.3e} <= tol {TOL_K7:.0e}  "
+              f"ms {case['ms']}  plain {case['plain_ms']}  lib {case['library_ms']}  "
+              f"bound {b:.4f} ({by})", flush=True)
+        if not err <= TOL_K7:
+            fail(f"flash_attention {case['case']}: max error {err} over {TOL_K7}")
+    return results
+
+
+def phase_edges(device) -> None:
+    """Untimed checks of the kernels' edge paths, which the 8B shapes never
+    take: row counts between template sizes, ragged n (with and without
+    aligned loads), an odd number of 32-row blocks of k, a 2-D weight,
+    head size 64, a ragged cache length, per-row positions, f32 q/cache."""
+    import torch
+
+    from dllama_tpu_torch.ops.flash_attention import flash_gqa_attention
+    from dllama_tpu_torch.ops.layers import gqa_attention
+    from dllama_tpu_torch.ops.q40_matmul import q40_matmul, q40_matmul_plain
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    f32 = torch.float32
+    for m, k, n, stacked in ((12, 4096, 4096, True), (3, 4128, 1000, True),
+                             (5, 256, 1002, False), (100, 4128, 1000, True),
+                             (40, 512, 1003, False)):
+        w = random_q40(gen, (2,) if stacked else (), k, n, device)
+        layer = 1 if stacked else None
+        x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+        got = q40_matmul(x, w, layer, out_dtype=f32)
+        ref = q40_matmul_plain(x, w, layer, out_dtype=f32)
+        tol = (TOL_K1 if m <= 16 else TOL_K2) * ref.abs().max().item()
+        err = (got - ref).abs().max().item()
+        print(f"  edge q40 m={m} k={k} n={n}{'' if stacked else ' 2-D'}: "
+              f"err {err:.3e} <= tol {tol:.3e}", flush=True)
+        if not err <= tol:
+            fail(f"q40 edge m={m} k={k} n={n}: max error {err} over {tol}")
+    for b, t, hq, hkv, hd, s, pos, dt in (
+            (2, 1, 8, 4, 64, 1000, [5, 900], torch.bfloat16),
+            (2, 7, 8, 4, 64, 1000, [0, 990], torch.bfloat16),
+            (1, 3, 4, 1, 128, 130, 70, f32)):
+        q = torch.randn((b, t, hq, hd), generator=gen, device=device).to(dt)
+        kc = torch.randn((b, hkv, s, hd), generator=gen, device=device).to(dt)
+        vc = torch.randn((b, hkv, s, hd), generator=gen, device=device).to(dt)
+        pv = torch.tensor(pos, dtype=torch.int32, device=device) if isinstance(pos, list) else pos
+        got = flash_gqa_attention(q, kc, vc, pv, out_dtype=f32)
+        ref = gqa_attention(q.float(), kc.float(), vc.float(), pv)
+        err = (got - ref).abs().max().item()
+        print(f"  edge flash B={b} T={t} heads={hq}/{hkv} hd={hd} S={s} pos={pos} {dt}: "
+              f"err {err:.3e} <= tol {TOL_K7:.0e}", flush=True)
+        if not err <= TOL_K7:
+            fail(f"flash edge B={b} T={t} hd={hd} S={s}: max error {err} over {TOL_K7}")
+
+
+# ------------------------------------------------------------ phase 3
+
+
+def write_model(path: str, cfg, device, seed: int = 0) -> None:
+    """A `.m` of `cfg` with random Q40 records (packed bytes + small positive
+    f16 scales) and a small f32 embedding, generated on the device."""
+    import numpy as np
+    import torch
+
+    from dllama_tpu_torch.models.formats import tensor_plan, write_header
+    from dllama_tpu_torch.ops.quant import FloatType
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with open(path, "wb") as f:
+        write_header(f, cfg)
+        for name, shape, ft in tensor_plan(cfg):
+            n = int(np.prod(shape))
+            if ft == FloatType.Q40:
+                nb = n // 32
+                scales = (torch.rand(nb, generator=gen, device=device) * 0.02
+                          + 1e-3).to(torch.float16)
+                rec = torch.empty((nb, 18), dtype=torch.uint8, device=device)
+                rec[:, :2] = scales.view(torch.uint8).reshape(nb, 2)
+                rec[:, 2:] = torch.randint(0, 256, (nb, 16), generator=gen, device=device,
+                                           dtype=torch.uint8)
+                f.write(rec.cpu().numpy().tobytes())
+            elif name == "embedding":
+                for r0 in range(0, shape[0], 8192):
+                    rows = min(8192, shape[0] - r0)
+                    e = (torch.rand((rows, shape[1]), generator=gen, device=device) - 0.5) * 0.04
+                    f.write(e.cpu().numpy().tobytes())
+            else:  # norm weights
+                f.write(np.ones(n, np.float32).tobytes())
+
+
+def write_tokenizer(path: str, vocab_size: int) -> None:
+    """A Llama-3-layout `.t`: 256 byte tokens, inert filler pieces up to the
+    128000 regular ids (so every id the random model emits decodes), the 256
+    Llama-3 special tokens, and a Llama-3 chat template."""
+    from dllama_tpu_torch.tokenizer.tokenizer import Tokenizer
+
+    n_special = 256
+    n_regular = vocab_size - n_special
+    vocab = [bytes([i]) for i in range(256)]
+    vocab += [f"<f{i}>".encode() for i in range(256, n_regular)]
+    named = ["<|begin_of_text|>", "<|end_of_text|>", "<|reserved_special_token_0|>",
+             "<|reserved_special_token_1|>", "<|reserved_special_token_2|>",
+             "<|reserved_special_token_3|>", "<|start_header_id|>", "<|end_header_id|>",
+             "<|reserved_special_token_4|>", "<|eot_id|>"]
+    named += [f"<|reserved_special_token_{i}|>" for i in range(5, n_special - 5)]
+    vocab += [s.encode() for s in named]
+    scores = [0.0] * len(vocab)
+    template = ("{% for message in messages %}<|start_header_id|>{{ message['role'] }}"
+                "<|end_header_id|>\n\n{{ message['content'] }}<|eot_id|>{% endfor %}")
+    bos = n_regular
+    Tokenizer(vocab, scores, bos, [bos + 1, bos + 9], chat_template=template,
+              special_ids=list(range(n_regular, len(vocab)))).save(path)
+
+
+def phase_forward(loaded, device, prefill: int = 256, decode: int = 8) -> float:
+    """Kernels vs plain versions through the whole forward; returns the
+    largest |logit difference| / max|logit| over the prefill and decode
+    steps."""
+    import functools
+
+    import torch
+
+    from dllama_tpu_torch.models.llama import KVCache, forward
+    from dllama_tpu_torch.ops.layers import gqa_attention
+    from dllama_tpu_torch.ops.matmul import matmul
+
+    eng = loaded.engine
+    cfg = loaded.config
+    gen = torch.Generator(device=device).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (1, prefill + decode), generator=gen,
+                         device=device)
+    runs = {}
+    for label, mm, attn in (
+            ("kernels", eng.mm, eng.attn_fn),
+            ("plain", functools.partial(matmul, backend="torch"), gqa_attention)):
+        cache = KVCache.create(cfg, 1, torch.bfloat16, eng.seq_len, device)
+        outs = []
+        with torch.no_grad():
+            logits, _ = forward(cfg, eng.params, toks[:, :prefill], 0, cache,
+                                eng.rope_cache, attn, mm, last_only=True)
+            outs.append(logits[:, -1])
+            for i in range(decode):
+                p = prefill + i
+                logits, _ = forward(cfg, eng.params, toks[:, p : p + 1], p, cache,
+                                    eng.rope_cache, attn, mm, last_only=True)
+                outs.append(logits[:, -1])
+        runs[label] = torch.stack(outs)
+        del cache
+    ref = runs["plain"]
+    if not torch.isfinite(runs["kernels"]).all():
+        fail("forward: non-finite logits through the kernels")
+    return ((runs["kernels"] - ref).abs().max() / ref.abs().max()).item()
+
+
+def phase_profile(loaded, prompt_tokens: list[int], steps: int = 8) -> dict:
+    """torch.profiler over one decode chunk of `steps` tokens after a
+    prefill: wall time, device time summed over kernels, and the kernels
+    that take the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dllama_tpu_torch.engine.sampling import Sampler
+
+    eng = loaded.engine
+    eng.reset(0)
+    logits = eng.prefill(prompt_tokens)
+    tok = int(torch.argmax(logits[0]))
+    eng.decode_sample_n([[tok]], steps, Sampler(0.0, 0.9, 0))  # warm
+    eng.reset(len(prompt_tokens))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.decode_sample_n([[tok]], steps, Sampler(0.0, 0.9, 0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    from torch.autograd import DeviceType
+
+    by_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:  # kernels, memcpys, memsets on the card
+            agg = by_name.setdefault(e.name, [0.0, 0])
+            agg[0] += e.time_range.elapsed_us()
+            agg[1] += 1
+    rows = sorted(((us, name, n) for name, (us, n) in by_name.items()), reverse=True)
+    device_s = sum(r[0] for r in rows) / 1e6
+    return {"steps": steps, "wall_ms_per_token": wall / steps * 1e3,
+            "device_ms_per_token": device_s / steps * 1e3,
+            "device_busy_share": device_s / wall if wall else None,
+            "top": [(k[:60], c, round(us / steps / 1e3, 4)) for us, k, c in rows[:10]]}
+
+
+# ------------------------------------------------------------ phase 4
+
+
+def _post(port: int, body: dict) -> tuple[int, bytes]:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request("POST", "/v1/chat/completions", json.dumps(body),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = resp.read()
+    conn.close()
+    return resp.status, data
+
+
+def phase_serve(loaded, prompt: str) -> dict:
+    """Four requests over HTTP; returns TTFT / decode-rate figures."""
+    from dllama_tpu_torch.serve.api import make_server
+
+    httpd, api = make_server(loaded, host="127.0.0.1", port=0)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    port = httpd.server_address[1]
+    try:
+        msgs = [{"role": "user", "content": prompt}]
+        body = {"messages": msgs, "temperature": 0, "max_tokens": 32}
+        st, raw = _post(port, body)
+        if st != 200:
+            fail(f"serve: first completion answered {st}: {raw[:300]!r}")
+        first = json.loads(raw)
+        if first["usage"]["prompt_tokens"] < 64:
+            fail(f"serve: prompt of {first['usage']['prompt_tokens']} tokens, want >= 64")
+        st, raw = _post(port, body)
+        again = json.loads(raw)
+        c1 = first["choices"][0]["message"]["content"]
+        if st != 200 or again["choices"][0]["message"]["content"] != c1:
+            fail("serve: the same greedy request gave different content")
+        st, raw = _post(port, dict(body, stream=True))
+        events = [ln for ln in raw.decode().split("\n") if ln.startswith("data: ")]
+        if st != 200 or not events or events[-1] != "data: [DONE]":
+            fail(f"serve: SSE stream did not end in [DONE]: {events[-2:]}")
+        streamed = "".join(json.loads(e[6:])["choices"][0]["delta"].get("content", "")
+                           for e in events[:-1])
+        if streamed != c1:
+            fail("serve: streamed content differs from the non-stream completion")
+        turn2 = msgs + [{"role": "assistant", "content": c1},
+                        {"role": "user", "content": "And then?"}]
+        st, raw = _post(port, {"messages": turn2, "temperature": 0, "max_tokens": 8})
+        second = json.loads(raw)
+        from dllama_tpu_torch.tokenizer.chat import ChatItem
+
+        full = len(loaded.tokenizer.encode(api.template.generate(
+            [ChatItem(m["role"], m["content"]) for m in turn2]).content))
+        if st != 200 or second["usage"]["prompt_tokens"] >= full:
+            fail(f"serve: second turn missed the prefix cache "
+                 f"({second['usage'].get('prompt_tokens')} of {full} tokens)")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    t = first["timings"]
+    n = first["usage"]["completion_tokens"]
+    decode_s = (t["e2e_ms"] - t["ttft_ms"]) / 1e3
+    return {"ttft_ms": t["ttft_ms"], "completion_tokens": n,
+            "decode_tok_s": (n - 1) / decode_s if n > 1 and decode_s > 0 else None,
+            "prefix_hit_prompt_tokens": second["usage"]["prompt_tokens"],
+            "full_conversation_tokens": full}
+
+
+# ------------------------------------------------------------ main
+
+
+def counters() -> dict:
+    from dllama_tpu_torch.ops import flash_attention, q40_matmul
+
+    return {**q40_matmul.LAUNCHES, **flash_attention.LAUNCHES}
+
+
+def reset_counters() -> None:
+    from dllama_tpu_torch.ops import flash_attention, q40_matmul
+
+    for d in (q40_matmul.LAUNCHES, flash_attention.LAUNCHES):
+        for k in d:
+            d[k] = 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--reps", type=int, default=20, help="timed runs per case (0: no timing)")
+    ap.add_argument("--phases", default="card,kernels,forward,serve,inference",
+                    help="comma list; 'profile' (not in the default) adds a "
+                         "torch.profiler pass over one decode chunk")
+    args = ap.parse_args(argv)
+    phases = set(args.phases.split(","))
+
+    try:
+        import torch
+
+        import dllama_tpu_torch  # noqa: F401  (run from the repository root)
+        from dllama_tpu_torch.ops import build
+    except ImportError as e:
+        fail(f"cannot import the port ({e}); run from the repository root")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke needs an NVIDIA GPU")
+    device = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
+          f"cuda {torch.version.cuda}", flush=True)
+
+    t0 = time.perf_counter()
+    logs = build.build(ptxas_info=True)
+    print(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(sorted(logs)) or 'cached'})",
+          flush=True)
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+
+    cfg = llama31_8b(N_LAYERS_8B)
+    timer = Timer(device, args.reps)
+    results = {}
+    if "kernels" in phases:
+        print("phase kernels (8B shapes, stacked layer 1, bf16 in, f32 compared):", flush=True)
+        results = phase_kernels(cfg, device, timer)
+        phase_edges(device)
+
+    launches = None
+    if phases & {"forward", "serve", "profile", "inference"}:
+        from dllama_tpu_torch.engine.loader import load_model
+
+        tmp = tempfile.TemporaryDirectory(prefix="dllama_smoke_")
+        mpath, tpath = os.path.join(tmp.name, "llama31_8b_q40.m"), os.path.join(tmp.name, "tok.t")
+        t0 = time.perf_counter()
+        write_model(mpath, cfg, device)
+        write_tokenizer(tpath, cfg.vocab_size)
+        print(f"wrote synthetic {cfg.describe()} ({os.path.getsize(mpath) / 1e9:.2f} GB) "
+              f"in {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        loaded = load_model(mpath, tpath, max_seq_len=4096, device=device)
+        print(f"load_model: {time.perf_counter() - t0:.1f} s; kernels={loaded.engine.backend} "
+              f"attention={loaded.engine.attn_route}", flush=True)
+        prompt = ("Summarize the plot of a long story about a lighthouse keeper, "
+                  "a storm, and a ship that never arrives.")
+
+        if "forward" in phases:
+            rel = phase_forward(loaded, device)
+            print(f"forward: prefill 256 + 8 decode, max|logit diff|/max|logit| = "
+                  f"{rel:.3e} <= {TOL_FWD}", flush=True)
+            if not rel <= TOL_FWD:
+                fail(f"forward: kernels vs plain logits differ by {rel} of max|logit|")
+
+        if "serve" in phases:
+            f0 = loaded.engine.forwards
+            reset_counters()
+            serve = phase_serve(loaded, prompt)
+            launches = counters()
+            fwd = loaded.engine.forwards - f0
+            print(f"serve: {serve}; forwards {fwd}; launches {launches}", flush=True)
+            q40 = launches["q40_decode"] + launches["q40_prefill"]
+            per_fwd = 7 * cfg.n_layers + 1
+            if q40 < per_fwd * fwd or launches["flash_attention"] < cfg.n_layers * fwd:
+                fail(f"serve: {q40} Q40 / {launches['flash_attention']} flash launches "
+                     f"for {fwd} forwards (want >= {per_fwd} / {cfg.n_layers} each)")
+            for k, v in launches.items():
+                if v == 0:
+                    fail(f"serve: kernel {k} was never launched on the main path")
+
+        if "profile" in phases:
+            prof = phase_profile(loaded, loaded.tokenizer.encode(prompt))
+            print(f"profile: {prof['wall_ms_per_token']:.3f} ms/token wall, "
+                  f"{prof['device_ms_per_token']:.3f} ms/token device time, busy share "
+                  f"{prof['device_busy_share']}", flush=True)
+            for key, count, ms in prof["top"]:
+                print(f"  {ms:9.4f} ms/token  x{count:<6d} {key}")
+
+        if "inference" in phases:
+            from dllama_tpu_torch.cli.main import main as cli
+
+            reset_counters()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+                rc = cli(["inference", "--model", mpath, "--tokenizer", tpath,
+                          "--prompt", prompt, "--temperature", "0", "--steps", "32",
+                          "--max-seq-len", "4096"])
+            inf_launches = counters()
+            stats = [ln for ln in buf.getvalue().splitlines()
+                     if ln.startswith(("Prefill:", "Decode:"))]
+            print(f"inference: rc {rc}; {' | '.join(stats)}; launches {inf_launches}",
+                  flush=True)
+            if rc != 0 or min(inf_launches.values()) == 0:
+                fail("inference: the CLI failed or skipped a kernel")
+        del loaded
+        tmp.cleanup()
+
+    if results:
+        rep = {"q40_decode": "w1 4096x14336 m=1", "q40_prefill": "w1 4096x14336 m=256",
+               "flash_attention": "T=1 pos=4095 S=4096 group=4"}
+        where = {"q40_decode": ("dllama_tpu_torch/ops/csrc/q40_decode.cu",
+                                "dllama_tpu/ops/pallas/q40_matmul.py:143"),
+                 "q40_prefill": ("dllama_tpu_torch/ops/csrc/q40_prefill.cu",
+                                 "dllama_tpu/ops/pallas/q40_matmul.py:125"),
+                 "flash_attention": ("dllama_tpu_torch/ops/csrc/flash_attention.cu",
+                                     "dllama_tpu/ops/pallas/flash_attention.py:49")}
+        line = []
+        for name, cases in results.items():
+            c = next(c for c in cases if c["case"] == rep[name])
+            line.append({
+                "name": name, "route": "cuda", "source": where[name][0],
+                "replaces": where[name][1],
+                "launches": None if launches is None else launches[name],
+                "max_abs_err": max(x["max_abs_err"] for x in cases),
+                "ms": _r(c["ms"]), "plain_ms": _r(c["plain_ms"]),
+                "bound_ms": _r(c["bound_ms"]), "bound_by": c["bound_by"],
+                "library_ms": _r(c["library_ms"]), "case": c["case"]})
+        print(json.dumps({"kernels": line}))
+    print(f"total: {time.perf_counter() - t_start:.1f} s")
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,59 @@
+"""Matmul dispatch: the CUDA Q40 kernels, or plain PyTorch.
+
+Two backends, resolved once per engine from the ``--kernels`` flag:
+
+* ``cuda``  — Q40 weights go through the hand-written kernels
+              (ops/q40_matmul.py). Their wrappers run the plain version for
+              CPU tensors, so this backend is also correct on the CPU.
+* ``torch`` — dequantize-then-dot in plain PyTorch everywhere: the
+              counterpart of the JAX package's ``xla`` backend, taken only
+              when asked for explicitly.
+
+Dense (unquantized) weights go to ``torch.matmul`` on either backend, with
+an f32 product cast back to the activation dtype.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from dllama_tpu_torch.ops.q40_matmul import q40_matmul, q40_matmul_plain
+from dllama_tpu_torch.ops.quant import Q8Tensor, QTensor, slice_leaf
+
+BACKENDS = ("auto", "cuda", "torch")
+
+
+def resolve_backend(backend: str, device) -> str:
+    """'cuda' or 'torch'. 'auto' is 'cuda' on a CUDA device and the plain
+    'torch' path on the CPU."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown kernels backend {backend!r} (one of {BACKENDS})")
+    if backend == "auto":
+        return "cuda" if torch.device(device).type == "cuda" else "torch"
+    return backend
+
+
+def engine_matmul(backend: str) -> functools.partial:
+    """The bound matmul of one engine: ``mm(x, w, layer)``."""
+    return functools.partial(matmul, backend=backend)
+
+
+def matmul(x: torch.Tensor, w, layer=None, backend: str = "cuda") -> torch.Tensor:
+    """``x @ w`` (or ``x @ w[layer]`` for a layer-stacked weight) where ``w``
+    is a QTensor/Q8Tensor or a dense tensor. Returns ``x.dtype``."""
+    if isinstance(w, QTensor):
+        if backend == "cuda":
+            return q40_matmul(x, w, layer)
+        return q40_matmul_plain(x, w, layer)
+    if layer is not None and len(w.shape) == 3:
+        w = slice_leaf(w, layer)
+    if isinstance(w, Q8Tensor):
+        if x.device.type != "cpu":
+            raise NotImplementedError("Q80 weights are not yet ported to the "
+                                      "PyTorch/CUDA package on a GPU")
+        wd = w.dequantize(x.dtype)
+    else:
+        wd = w.to(x.dtype)
+    return torch.matmul(x.to(torch.float32), wd.to(torch.float32)).to(x.dtype)

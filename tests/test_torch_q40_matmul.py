@@ -1,0 +1,106 @@
+"""The Q40 matmul's plain version (what the CUDA kernels are held against on
+the card) against the JAX package: the Pallas kernel in interpret mode for a
+decode-shaped and a prefill-shaped call, and QTensor.dequantize + dot for
+more row counts. f32 throughout; rel. 1e-5 of max|ref| because only the
+order of the f32 sums differs."""
+
+import numpy as np
+import pytest
+import torch
+
+from dllama_tpu_torch.convert import params_from_numpy
+from dllama_tpu_torch.ops.q40_matmul import (
+    DECODE_MAX_M,
+    LAUNCHES,
+    decode_splits,
+    prefill_splits,
+    q40_matmul,
+    q40_matmul_plain,
+)
+
+torch.set_num_threads(1)
+
+K, N, LAYER = 256, 256, 1
+RTOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def weights():
+    """A stacked L=2 Q40 weight in both packages (layer 1 is used)."""
+    import jax
+    import jax.numpy as jnp
+
+    from dllama_tpu.ops.quant import QTensor
+
+    rng = np.random.default_rng(4)
+    ws = [QTensor.quantize(rng.standard_normal((K, N)).astype(np.float32) * 0.05)
+          for _ in range(2)]
+    jw = jax.tree.map(lambda *xs: jnp.stack(xs), *ws)
+    return jw, params_from_numpy(jax.tree.map(np.asarray, jw))
+
+
+def _x(m, seed=5):
+    return np.random.default_rng(seed + m).standard_normal((m, K)).astype(np.float32)
+
+
+def _close(got: torch.Tensor, want) -> None:
+    want = np.asarray(want, dtype=np.float32)
+    assert got.shape == want.shape
+    assert np.abs(got.numpy() - want).max() <= RTOL * np.abs(want).max()
+
+
+@pytest.mark.parametrize("m", [5, 32])  # 5 pads to 8 -> blockdot; 32 -> deq
+def test_plain_matches_pallas_interpret(weights, m):
+    import jax.numpy as jnp
+
+    from dllama_tpu.ops.pallas.q40_matmul import q40_matmul as pallas_q40
+
+    jw, tw = weights
+    x = _x(m)
+    want = pallas_q40(jnp.asarray(x), jw, jnp.int32(LAYER), interpret=True)
+    _close(q40_matmul_plain(torch.from_numpy(x), tw, LAYER), want)
+
+
+@pytest.mark.parametrize("m", [1, 8, 17])
+def test_plain_matches_dequantize_dot(weights, m):
+    import jax.numpy as jnp
+
+    from dllama_tpu.ops.quant import slice_leaf
+
+    jw, tw = weights
+    x = _x(m)
+    wd = slice_leaf(jw, LAYER).dequantize(jnp.float32)
+    want = jnp.dot(jnp.asarray(x), wd, preferred_element_type=jnp.float32)
+    _close(q40_matmul_plain(torch.from_numpy(x), tw, LAYER), want)
+
+
+def test_wrapper_runs_plain_on_cpu_and_refuses_other_devices(weights):
+    _, tw = weights
+    x = torch.from_numpy(_x(3)).reshape(1, 3, K).to(torch.bfloat16)
+    before = dict(LAUNCHES)
+    got = q40_matmul(x, tw, LAYER)
+    assert got.dtype == torch.bfloat16 and got.shape == (1, 3, N)
+    assert torch.equal(got, q40_matmul_plain(x, tw, LAYER))
+    assert LAUNCHES == before  # the plain version is no launch
+    with pytest.raises(ValueError, match="CUDA"):
+        q40_matmul(x.to("meta"), tw, LAYER)
+    with pytest.raises(ValueError, match="layer index"):
+        q40_matmul(x, tw)
+
+
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 1024), (14336, 4096), (4096, 128256)])
+def test_decode_split_k_covers_k_once(k, n):
+    splits, per = decode_splits(k, n, sms=132)
+    nkb = k // 32
+    assert (splits - 1) * per < nkb <= splits * per
+    # a block per SM at least, unless each split is down to 4 blocks of k
+    assert splits == nkb // 4 or -(-n // 256) * splits >= 132
+    assert DECODE_MAX_M == 16
+
+
+@pytest.mark.parametrize("m,k,n", [(32, 14336, 4096), (256, 4096, 4096), (256, 4096, 14336)])
+def test_prefill_split_k_covers_k_once(m, k, n):
+    splits, per = prefill_splits(m, k, n, sms=132)
+    steps = k // 64
+    assert (splits - 1) * per < steps <= splits * per
+    assert splits == 1 or per >= 8
