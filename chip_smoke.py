@@ -17,15 +17,27 @@ weights from a seed) and exits 0 only if every phase passed:
               version and a one-call PyTorch yardstick (never used by the
               port), with the L2 cache flushed before every timed run, and
               the bound max(bytes / HBM rate, operations / bf16 tensor rate).
+              The paged attention kernel (K9, and K8 as its read-only mode)
+              also leaves the pools bit-equal to the plain scatter's; then
+              untimed edge cases of every kernel.
 3. forward    a synthetic 8B Q40 `.m` + `.t` written to a temp dir and loaded
               with load_model; a 256-token prefill and 8 decode steps through
               the kernels against the same forward with the plain versions.
-4. serve      make_server (the function `serve` runs) over real HTTP: a greedy
-              chat completion, the same again (identical content), an SSE
-              stream, and a second turn that hits the prefix cache. This is
-              the main path: the launch counters are zeroed before it and read
-              after it.
-5. inference  the CLI's `inference` mode on the same files.
+4. serve      make_server (the function `serve` runs) over real HTTP on the
+              single-engine tier: a greedy chat completion, the same again
+              (identical content), an SSE stream, and a second turn that hits
+              the prefix cache.
+5. batch      make_server with 8 slots (`serve --slots 8`): the auto KV layout
+              must be paged at page 128; 8 concurrent greedy chat requests,
+              the same 8 again (identical contents), an SSE stream; every
+              batched forward launches the paged attention kernel in every
+              layer and the Q40 kernels, no dense flash attention; after the
+              drain the page pool audits clean with every page free.
+6. inference  the CLI's `inference` mode on the same files.
+
+`serve` and `batch` are the main paths: the launch counters are zeroed just
+before each and read just after it. `profile` (not in the default) adds a
+torch.profiler pass over one single-stream and one 8-slot decode chunk.
 
 The line before the last is the card's name and power limit; before that, one
 JSON object lists every ported kernel with its numbers; the last line is
@@ -53,7 +65,27 @@ TOL_K1 = 5e-3  # x max|ref|: exact codes + f32 scales vs a bf16-rounded weight
 TOL_K2 = 2e-3  # x max|ref|: the same bf16 weights, only the order of sums differs
 TOL_K7 = 2e-3  # absolute: both f32 from the same bf16 inputs
 TOL_FWD = 5e-2  # x max|logit|: the K1-vs-plain rounding compounds over 32 layers
+TOL_K9 = 2e-3  # absolute, as K7: both f32 from the same bf16 (or f32) inputs
 N_LAYERS_8B = 32
+#: batch phase: one request at a time would give exactly 1 live slot a chunk
+MIN_BATCH_SLOTS = 2.0
+SERVE_KERNELS = ("q40_decode", "q40_prefill", "flash_attention")
+#: kernel -> (case of its row, source, TPU kernel it replaces, main path that
+#: launches it; None: no path routes it, as in the JAX package)
+KERNEL_ROWS = {
+    "q40_decode": ("w1 4096x14336 m=1", "dllama_tpu_torch/ops/csrc/q40_decode.cu",
+                   "dllama_tpu/ops/pallas/q40_matmul.py:143", "batch"),
+    "q40_prefill": ("w1 4096x14336 m=256", "dllama_tpu_torch/ops/csrc/q40_prefill.cu",
+                    "dllama_tpu/ops/pallas/q40_matmul.py:125", "batch"),
+    "flash_attention": ("T=1 pos=4095 S=4096 group=4",
+                        "dllama_tpu_torch/ops/csrc/flash_attention.cu",
+                        "dllama_tpu/ops/pallas/flash_attention.py:49", "serve"),
+    "paged_attention": ("decode B=8 fused scatter", "dllama_tpu_torch/ops/csrc/paged_attention.cu",
+                        "dllama_tpu/ops/pallas/paged_attention.py:95", "batch"),
+    "paged_flash_attention": ("read-only decode B=8",
+                              "dllama_tpu_torch/ops/csrc/paged_attention.cu",
+                              "dllama_tpu/ops/pallas/flash_attention.py:257", None),
+}
 
 
 def fail(msg: str) -> None:
@@ -108,7 +140,9 @@ class Timer:
         times = []
         for _ in range(self.reps):
             self.flush.zero_()
-            torch.cuda._sleep(1_000_000)  # ~0.5 ms of clock cycles
+            # ~2 ms of clock cycles: longer than the slowest wrapper takes to
+            # enqueue its launches (the paged prefill's plain pre-scatter)
+            torch.cuda._sleep(4_000_000)
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             a.record()
             fn()
@@ -222,7 +256,123 @@ def phase_kernels(cfg, device, timer, layer=1):
               f"bound {b:.4f} ({by})", flush=True)
         if not err <= TOL_K7:
             fail(f"flash_attention {case['case']}: max error {err} over {TOL_K7}")
+
+    # K9 and K8 over a page pool at page 128 (Llama-3.1-8B's heads, bf16)
+    results["paged_attention"], results["paged_flash_attention"] = [], []
+    spread = [0, 127, 128, 1000, 2047, 2900, 3500, 4095]  # 8 slots, up to the last row
+    some_inactive = [True, False, True, True, False, True, False, True]
+    for kernel, label, b, t, pos, active in (
+            ("paged_attention", "decode B=8 fused scatter", 8, 1, spread, None),
+            ("paged_attention", "decode B=8 fused scatter, 3 inactive", 8, 1, spread,
+             some_inactive),
+            ("paged_attention", "prefill T=256 pos=2048 pre-scatter", 1, 256, [2048], None),
+            ("paged_flash_attention", "read-only decode B=8", 8, 1, spread, None)):
+        case = paged_case(gen, device, timer, kernel, label, b, t, hq, hkv, hd, 128,
+                          s // 128, pos, active, torch.bfloat16)
+        results[kernel].append(case)
     return results
+
+
+def paged_inputs(gen, device, b, t, hq, hkv, hd, page, nb, dtype, q_dtype=None):
+    """q, pools with a trash page, shuffled tables and new rows."""
+    import torch
+
+    def rnd(*shape, dt=dtype):
+        return torch.randn(shape, generator=gen, device=device).to(dt)
+
+    n_pool = b * nb + 1
+    tables = torch.randperm(n_pool - 1, generator=gen, device=device)[: b * nb]
+    return (rnd(b, t, hq, hd, dt=q_dtype or dtype), rnd(n_pool, hkv, page, hd),
+            rnd(n_pool, hkv, page, hd), tables.reshape(b, nb).to(torch.int32),
+            rnd(b, hkv, t, hd), rnd(b, hkv, t, hd))
+
+
+def paged_check(kernel, q, kp, vp, tables, pos, nk, nv, active):
+    """One call of K9 (with the new rows when given) or K8 against its plain
+    version on copies of the pools -> (max |out error| in f32, pools equal)."""
+    import torch
+
+    from dllama_tpu_torch.models.llama import _paged_cache_update
+    from dllama_tpu_torch.ops.flash_attention import paged_flash_gqa_attention
+    from dllama_tpu_torch.ops.layers import paged_gqa_attention
+    from dllama_tpu_torch.ops.paged_attention import paged_decode_attention
+
+    kk, vk, kr, vr = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    f32 = torch.float32
+    if kernel == "paged_flash_attention":
+        got = paged_flash_gqa_attention(q, kk, vk, tables, pos, out_dtype=f32)
+    elif nk is None:
+        got = paged_decode_attention(q, kk, vk, tables, pos, out_dtype=f32)
+    else:
+        got, _, _ = paged_decode_attention(q, kk, vk, tables, pos, nk, nv, active,
+                                           out_dtype=f32)
+        _paged_cache_update(kr, nk, tables, pos, active)
+        _paged_cache_update(vr, nv, tables, pos, active)
+    ref = paged_gqa_attention(q.float(), kr.float(), vr.float(), tables, pos)
+    torch.cuda.synchronize()
+    same = torch.equal(kk, kr) and torch.equal(vk, vr)
+    return (got - ref).abs().max().item(), same
+
+
+def paged_case(gen, device, timer, kernel, label, b, t, hq, hkv, hd, page, nb, pos, active,
+               dtype) -> dict:
+    """A K9/K8 case at the main path's shapes: the kernel against its plain
+    version (pools bit-equal, output within TOL_K9), then timed beside the
+    plain version and SDPA over a contiguous copy of the same live rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from dllama_tpu_torch.ops.flash_attention import paged_flash_gqa_attention
+    from dllama_tpu_torch.ops.layers import paged_view
+    from dllama_tpu_torch.ops.paged_attention import (
+        paged_decode_attention,
+        paged_decode_attention_plain,
+    )
+
+    q, kp, vp, tables, nk, nv = paged_inputs(gen, device, b, t, hq, hkv, hd, page, nb, dtype)
+    if kernel == "paged_flash_attention":
+        nk = nv = None
+    posv = torch.tensor(pos, dtype=torch.int32, device=device)
+    act = None if active is None else torch.tensor(active, device=device)
+    err, same = paged_check(kernel, q, kp, vp, tables, posv, nk, nv, act)
+    if not same:
+        fail(f"{kernel} {label}: the pools differ from the plain scatter's")
+    if not err <= TOL_K9:
+        fail(f"{kernel} {label}: max error {err} over {TOL_K9}")
+
+    if kernel == "paged_flash_attention":
+        def run():
+            return paged_flash_gqa_attention(q, kp, vp, tables, posv)
+    else:
+        def run():
+            return paged_decode_attention(q, kp, vp, tables, posv, nk, nv, act)
+    # the library yardstick reads a contiguous copy of the live rows, made
+    # here (untimed), padded to the longest slot and masked per row
+    live = max(pos) + t
+    kc = paged_view(kp, tables)[:, :, :live].contiguous()
+    vc = paged_view(vp, tables)[:, :, :live].contiguous()
+    mask = (torch.arange(live, device=device)[None, None, None, :]
+            <= posv[:, None, None, None] + torch.arange(t, device=device)[None, None, :, None])
+    qt = q.transpose(1, 2)
+    rows = [p + t for p in pos]
+    nbytes = (q.numel() * 2 * q.element_size() + 2 * hkv * hd * sum(rows) * kp.element_size()
+              + tables.numel() * 4 + posv.numel() * 4)
+    if nk is not None:  # the new rows, read once and written once
+        nbytes += 4 * nk.numel() * nk.element_size()
+    ops = 4.0 * hd * hq * sum(p + i + 1 for p in pos for i in range(t))
+    bnd, by = bound_ms(nbytes, ops)
+    case = dict(case=label, max_abs_err=err, tol=TOL_K9, pools_bit_equal=same,
+                ms=timer(run),
+                plain_ms=timer(lambda: paged_decode_attention_plain(
+                    q, kp, vp, tables, posv, nk, nv, act)),
+                library_ms=timer(lambda: F.scaled_dot_product_attention(
+                    qt, kc, vc, attn_mask=mask, enable_gqa=True)),
+                library="sdpa(enable_gqa) over a contiguous copy of the live rows",
+                bound_ms=bnd, bound_by=by)
+    print(f"  {kernel:15s} {label:36s} err {err:.3e} <= tol {TOL_K9:.0e}  pools equal  "
+          f"ms {case['ms']}  plain {case['plain_ms']}  lib {case['library_ms']}  "
+          f"bound {bnd:.4f} ({by})", flush=True)
+    return case
 
 
 def phase_edges(device) -> None:
@@ -267,6 +417,37 @@ def phase_edges(device) -> None:
               f"err {err:.3e} <= tol {TOL_K7:.0e}", flush=True)
         if not err <= TOL_K7:
             fail(f"flash edge B={b} T={t} hd={hd} S={s}: max error {err} over {TOL_K7}")
+    # paged: small and odd pages, head size 64, f32 pools, a chunk across a
+    # page boundary, the widest fused chunk and one past it, group 1, trash
+    # rows, and ragged tables (entries past a slot's pages left at page 0)
+    for kernel, page, nb, b, t, hq, hkv, hd, dt, pos, active, ragged in (
+            ("paged_attention", 8, 64, 3, 1, 32, 8, 128, torch.bfloat16, [0, 300, 511], None,
+             False),
+            ("paged_attention", 24, 10, 2, 5, 16, 4, 64, torch.bfloat16, [20, 230],
+             [True, False], False),
+            ("paged_attention", 64, 4, 2, 5, 8, 2, 128, f32, [61, 100], None, False),
+            ("paged_attention", 16, 8, 3, 1, 8, 2, 64, f32, [5, 40, 127], [True, True, False],
+             True),
+            ("paged_attention", 16, 8, 2, 16, 16, 4, 128, torch.bfloat16, [3, 100], None, True),
+            ("paged_attention", 16, 8, 2, 17, 4, 4, 64, torch.bfloat16, [0, 90], None, False),
+            ("paged_attention", 64, 4, 1, 100, 32, 8, 128, f32, [20], None, False),
+            ("paged_flash_attention", 128, 2, 2, 3, 8, 2, 64, f32, [5, 200], None, False)):
+        q, kp, vp, tables, nk, nv = paged_inputs(gen, device, b, t, hq, hkv, hd, page, nb, dt,
+                                                 q_dtype=torch.bfloat16)
+        posv = torch.tensor(pos, dtype=torch.int32, device=device)
+        if ragged:  # only the pages each slot's rows reach are allocated
+            used = (posv + t - 1) // page + 1
+            tables = torch.where(torch.arange(nb, device=device)[None] < used[:, None],
+                                 tables, 0).to(torch.int32)
+        act = None if active is None else torch.tensor(active, device=device)
+        if kernel == "paged_flash_attention":
+            nk = nv = None
+        err, same = paged_check(kernel, q, kp, vp, tables, posv, nk, nv, act)
+        tag = (f"edge {kernel} page={page} B={b} T={t} heads={hq}/{hkv} hd={hd} {dt} "
+               f"pos={pos}{' ragged' if ragged else ''}{' inactive' if active else ''}")
+        print(f"  {tag}: err {err:.3e} <= tol {TOL_K9:.0e}, pools equal {same}", flush=True)
+        if not (same and err <= TOL_K9):
+            fail(f"{tag}: pools equal {same}, max error {err} (tol {TOL_K9})")
 
 
 # ------------------------------------------------------------ phase 3
@@ -409,13 +590,19 @@ def phase_profile(loaded, prompt_tokens: list[int], steps: int = 8) -> dict:
 
 
 def _post(port: int, body: dict) -> tuple[int, bytes]:
+    return _post_timed(port, body)[:2]
+
+
+def _post_timed(port: int, body: dict) -> tuple[int, bytes, float]:
+    """-> (status, body, time.perf_counter() when the request was sent)."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t_sent = time.perf_counter()
     conn.request("POST", "/v1/chat/completions", json.dumps(body),
                  {"Content-Type": "application/json"})
     resp = conn.getresponse()
     data = resp.read()
     conn.close()
-    return resp.status, data
+    return resp.status, data, t_sent
 
 
 def phase_serve(loaded, prompt: str) -> dict:
@@ -471,19 +658,209 @@ def phase_serve(loaded, prompt: str) -> dict:
             "full_conversation_tokens": full}
 
 
+# ------------------------------------------------------------ phase 5
+
+
+def batch_prompts(n: int) -> list[str]:
+    """n distinct chat prompts of at least 64 tokens each."""
+    topics = ["a lighthouse keeper", "a desert caravan", "a clockmaker's apprentice",
+              "a deep-sea station", "a mountain village", "a city of canals",
+              "an orbital greenhouse", "a winter market"]
+    return [f"Request {i}: write a long and careful summary of a story about "
+            f"{topics[i % len(topics)]}, a storm that lasts for seven days, a ship that never "
+            f"arrives, three letters that are never sent, and a quiet ending by the sea."
+            for i in range(n)]
+
+
+def _concurrently(fn, args_list) -> list:
+    out = [None] * len(args_list)
+
+    def run(i, args):
+        out[i] = fn(*args)
+
+    threads = [threading.Thread(target=run, args=(i, a)) for i, a in enumerate(args_list)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+        if th.is_alive():
+            fail("batch: a request thread did not finish within 600 s")
+    return out
+
+
+def phase_batch(loaded, n_slots: int = 8, max_tokens: int = 32) -> dict:
+    """make_server with slots (what `serve --slots 8` runs) over real HTTP:
+    the auto layout, n concurrent greedy chat requests twice (identical
+    contents), one SSE stream, a seeded sampled request alone and among
+    penalized batch-mates (the same stream), and the page pool after the
+    drain. The launch counters are zeroed before the requests and read
+    after them. Decode must really run batched: the first round's decode
+    chunks must carry more than MIN_BATCH_SLOTS live slots on average."""
+    from dllama_tpu_torch.serve.api import graceful_drain, make_server
+
+    import torch
+
+    from dllama_tpu_torch.engine.sampling import philox_uniforms
+
+    # the per-slot generator gives the same bits on the CPU and the card
+    seeds = torch.tensor([0, 1, 2**40 + 5, 2**62 + 3, 2**63 - 1], dtype=torch.int64)
+    ctrs = torch.tensor([0, 1, 2**31, 2**33 + 7, 2**62], dtype=torch.int64)
+    if not torch.equal(philox_uniforms(seeds, ctrs),
+                       philox_uniforms(seeds.to(loaded.engine.device),
+                                       ctrs.to(loaded.engine.device)).cpu()):
+        fail("batch: Philox uniforms differ between the CPU and the card")
+    httpd, api = make_server(loaded, host="127.0.0.1", port=0, n_slots=n_slots)
+    eng = api.scheduler.engine
+    if (eng.kv_layout, eng.page_size, eng.attn_route) != ("paged", 128, "paged_kernel"):
+        fail(f"batch: --kv-layout auto resolved to {eng.kv_layout} page {eng.page_size} "
+             f"route {eng.attn_route}; want paged, 128, paged_kernel")
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    port = httpd.server_address[1]
+    bodies = [{"messages": [{"role": "user", "content": p}], "temperature": 0,
+               "max_tokens": max_tokens} for p in batch_prompts(n_slots)]
+    try:
+        sched = api.scheduler
+        f0 = eng.forwards
+        reset_counters()
+        rounds, walls, sent, occupancy = [], [], [], []
+        for _ in range(2):
+            c0, s0 = sched.chunks, sched.chunk_slots
+            t0 = time.perf_counter()
+            replies = _concurrently(_post_timed, [(port, b) for b in bodies])
+            walls.append(time.perf_counter() - t0)
+            chunks = sched.chunks - c0
+            occupancy.append((sched.chunk_slots - s0) / chunks if chunks else 0.0)
+            bad = [(st, raw[:200]) for st, raw, _ in replies if st != 200]
+            if bad:
+                fail(f"batch: {len(bad)} of {n_slots} requests failed: {bad[:2]}")
+            rounds.append([json.loads(raw) for _, raw, _ in replies])
+            sent.append([t for _, _, t in replies])
+        st, raw = _post(port, dict(bodies[0], stream=True))
+        # a seeded sampled request gives one stream alone and among 7
+        # batch-mates that decode penalized-greedy in the same chunks
+        sampled = {"messages": [{"role": "user", "content": "Sample: " + batch_prompts(1)[0]}],
+                   "temperature": 0.8, "top_p": 0.9, "seed": 11, "max_tokens": 16}
+        mates = [dict(b, frequency_penalty=0.5, presence_penalty=0.3) for b in bodies[1:]]
+        mixed = [_post(port, sampled)] + _concurrently(
+            _post, [(port, sampled)] + [(port, b) for b in mates])
+        launches = counters()
+        forwards = eng.forwards - f0
+    finally:
+        clean = graceful_drain(httpd, api, timeout_s=120)
+        httpd.server_close()
+    if not occupancy[0] > MIN_BATCH_SLOTS:
+        fail(f"batch: the first round's decode chunks carried {occupancy[0]:.2f} live slots "
+             f"on average, want > {MIN_BATCH_SLOTS}: decode did not run batched")
+    contents = [[r["choices"][0]["message"]["content"] for r in rnd] for rnd in rounds]
+    if contents[0] != contents[1]:
+        fail("batch: the same greedy requests gave different contents")
+    bad = [(st, raw[:200]) for st, raw in mixed if st != 200]
+    if bad:
+        fail(f"batch: {len(bad)} sampled/penalized requests failed: {bad[:2]}")
+    alone, among = (json.loads(raw)["choices"][0]["message"]["content"] for _, raw in mixed[:2])
+    if alone != among:
+        fail("batch: a seeded sampled stream changed with its batch-mates")
+    prompt_tokens = min(r["usage"]["prompt_tokens"] for r in rounds[0])
+    if prompt_tokens < 64:
+        fail(f"batch: a prompt of {prompt_tokens} tokens, want >= 64")
+    events = [ln for ln in raw.decode().split("\n") if ln.startswith("data: ")]
+    if st != 200 or not events or events[-1] != "data: [DONE]":
+        fail(f"batch: SSE stream did not end in [DONE]: {events[-2:]}")
+    streamed = "".join(json.loads(e[6:])["choices"][0]["delta"].get("content", "")
+                       for e in events[:-1])
+    if streamed != contents[0][0]:
+        fail("batch: streamed content differs from the non-stream completion")
+    q40 = launches["q40_decode"] + launches["q40_prefill"]
+    per_fwd = 7 * loaded.config.n_layers + 1
+    if (launches["paged_attention"] < loaded.config.n_layers * forwards
+            or q40 < per_fwd * forwards or launches["flash_attention"]):
+        fail(f"batch: {launches} for {forwards} batched forwards (want >= "
+             f"{loaded.config.n_layers} paged_attention and >= {per_fwd} Q40 launches each, "
+             f"0 flash_attention)")
+    report = eng.pool.audit(raise_on_fail=False)
+    if not (clean and report["ok"] and report["free"] == report["total"]):
+        fail(f"batch: drain clean {clean}, pool after it {report}")
+    summary = api.scheduler.latency_summary()
+    # the first round's decode window on one clock: from the first request's
+    # first token to the last request's end (each request's own submit time
+    # plus its server-side ttft / e2e). Its decode tokens are those after
+    # each request's first token, which comes from prefill.
+    first = rounds[0]
+    n_tok = [r["usage"]["completion_tokens"] for r in first]
+    window_s = (max(t + r["timings"]["e2e_ms"] / 1e3 for r, t in zip(first, sent[0]))
+                - min(t + r["timings"]["ttft_ms"] / 1e3 for r, t in zip(first, sent[0])))
+    return {"slots": n_slots, "forwards": forwards, "launches": launches,
+            "completion_tokens": sum(n_tok), "decode_tokens": sum(n - 1 for n in n_tok),
+            "decode_window_s": window_s,
+            "agg_decode_tok_s": sum(n - 1 for n in n_tok) / window_s if window_s > 0 else None,
+            "decode_slots_mean": occupancy,
+            "agg_tok_s_with_prefill": sum(n_tok) / walls[0],
+            "ttft_ms_p50": summary["ttft_ms_p50"], "ttft_ms_max": summary["ttft_ms_max"],
+            "round_wall_s": walls, "reused_prefix_tokens": summary["reused_prefix_tokens"],
+            "pool_after_drain": {k: report[k] for k in ("total", "free", "ok")}}
+
+
+def phase_profile_batch(loaded, n_slots: int = 8, steps: int = 8) -> dict:
+    """torch.profiler over one n_slots-slot decode chunk of `steps` tokens
+    on a paged BatchEngine, every slot live after a prefill."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dllama_tpu_torch.engine.batch import BatchEngine
+
+    eng = loaded.engine
+    be = BatchEngine(loaded.config, eng.params, n_slots=n_slots, cache_dtype=torch.bfloat16,
+                     max_seq_len=eng.seq_len, kv_layout="paged", page_size=128,
+                     device=eng.device)
+    for slot, p in enumerate(batch_prompts(n_slots)):
+        be.add(slot, loaded.tokenizer.encode(p), temperature=0.0)
+    be.decode(steps)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    be.decode(steps)  # the same chunk without the profiler's cost
+    torch.cuda.synchronize()
+    bare = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        be.decode(steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    device_us = sum(by_name.values())
+    del be
+    torch.cuda.empty_cache()
+    top = sorted(((us, name) for name, us in by_name.items()), reverse=True)[:6]
+    return {"slots": n_slots, "steps": steps, "wall_ms_per_step": wall / steps * 1e3,
+            "device_ms_per_step": device_us / steps / 1e3,
+            "device_busy_share": device_us / 1e6 / wall if wall else None,
+            "agg_tok_s": n_slots * steps / wall,
+            "unprofiled_ms_per_step": bare / steps * 1e3,
+            "unprofiled_agg_tok_s": n_slots * steps / bare,
+            "top": [(name[:60], round(us / steps / 1e3, 4)) for us, name in top]}
+
+
 # ------------------------------------------------------------ main
 
 
-def counters() -> dict:
-    from dllama_tpu_torch.ops import flash_attention, q40_matmul
+def _launch_tables():
+    from dllama_tpu_torch.ops import flash_attention, paged_attention, q40_matmul
 
-    return {**q40_matmul.LAUNCHES, **flash_attention.LAUNCHES}
+    return (q40_matmul.LAUNCHES, flash_attention.LAUNCHES, paged_attention.LAUNCHES)
+
+
+def counters() -> dict:
+    out = {}
+    for d in _launch_tables():
+        out.update(d)
+    return out
 
 
 def reset_counters() -> None:
-    from dllama_tpu_torch.ops import flash_attention, q40_matmul
-
-    for d in (q40_matmul.LAUNCHES, flash_attention.LAUNCHES):
+    for d in _launch_tables():
         for k in d:
             d[k] = 0
 
@@ -491,9 +868,10 @@ def reset_counters() -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=20, help="timed runs per case (0: no timing)")
-    ap.add_argument("--phases", default="card,kernels,forward,serve,inference",
+    ap.add_argument("--phases", default="card,kernels,forward,serve,batch,inference",
                     help="comma list; 'profile' (not in the default) adds a "
-                         "torch.profiler pass over one decode chunk")
+                         "torch.profiler pass over one decode chunk, single-stream "
+                         "and 8-slot")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -530,8 +908,8 @@ def main(argv=None) -> int:
         results = phase_kernels(cfg, device, timer)
         phase_edges(device)
 
-    launches = None
-    if phases & {"forward", "serve", "profile", "inference"}:
+    paths: dict[str, dict] = {}  # launch counts of each path, read just after it
+    if phases & {"forward", "serve", "profile", "batch", "inference"}:
         from dllama_tpu_torch.engine.loader import load_model
 
         tmp = tempfile.TemporaryDirectory(prefix="dllama_smoke_")
@@ -567,9 +945,10 @@ def main(argv=None) -> int:
             if q40 < per_fwd * fwd or launches["flash_attention"] < cfg.n_layers * fwd:
                 fail(f"serve: {q40} Q40 / {launches['flash_attention']} flash launches "
                      f"for {fwd} forwards (want >= {per_fwd} / {cfg.n_layers} each)")
-            for k, v in launches.items():
-                if v == 0:
-                    fail(f"serve: kernel {k} was never launched on the main path")
+            for k in SERVE_KERNELS:
+                if launches[k] == 0:
+                    fail(f"serve: kernel {k} was never launched on the single-engine path")
+            paths["serve"] = launches
 
         if "profile" in phases:
             prof = phase_profile(loaded, loaded.tokenizer.encode(prompt))
@@ -578,6 +957,25 @@ def main(argv=None) -> int:
                   f"{prof['device_busy_share']}", flush=True)
             for key, count, ms in prof["top"]:
                 print(f"  {ms:9.4f} ms/token  x{count:<6d} {key}")
+            bprof = phase_profile_batch(loaded)
+            print(f"profile batch: {bprof['slots']} slots, {bprof['wall_ms_per_step']:.3f} ms/step "
+                  f"wall, {bprof['device_ms_per_step']:.3f} ms/step device time, busy share "
+                  f"{bprof['device_busy_share']}, {bprof['agg_tok_s']:.1f} tok/s; without the "
+                  f"profiler {bprof['unprofiled_ms_per_step']:.3f} ms/step, "
+                  f"{bprof['unprofiled_agg_tok_s']:.1f} tok/s", flush=True)
+            for key, ms in bprof["top"]:
+                print(f"  {ms:9.4f} ms/step  {key}")
+
+        if "batch" in phases:
+            batch = phase_batch(loaded)
+            paths["batch"] = batch.pop("launches")
+            print(f"batch: {batch}; launches {paths['batch']}", flush=True)
+            print(f"batch: aggregate decode {batch['agg_decode_tok_s']:.1f} tok/s over "
+                  f"{batch['slots']} slots ({batch['decode_tokens']} decode tokens in "
+                  f"{batch['decode_window_s']:.3f} s); live slots per decode chunk "
+                  f"{batch['decode_slots_mean'][0]:.2f} and {batch['decode_slots_mean'][1]:.2f} "
+                  f"in rounds 1 and 2; TTFT p50 {batch['ttft_ms_p50']:.1f} ms, max "
+                  f"{batch['ttft_ms_max']:.1f} ms", flush=True)
 
         if "inference" in phases:
             from dllama_tpu_torch.cli.main import main as cli
@@ -593,27 +991,21 @@ def main(argv=None) -> int:
                      if ln.startswith(("Prefill:", "Decode:"))]
             print(f"inference: rc {rc}; {' | '.join(stats)}; launches {inf_launches}",
                   flush=True)
-            if rc != 0 or min(inf_launches.values()) == 0:
+            if rc != 0 or min(inf_launches[k] for k in SERVE_KERNELS) == 0:
                 fail("inference: the CLI failed or skipped a kernel")
         del loaded
         tmp.cleanup()
 
     if results:
-        rep = {"q40_decode": "w1 4096x14336 m=1", "q40_prefill": "w1 4096x14336 m=256",
-               "flash_attention": "T=1 pos=4095 S=4096 group=4"}
-        where = {"q40_decode": ("dllama_tpu_torch/ops/csrc/q40_decode.cu",
-                                "dllama_tpu/ops/pallas/q40_matmul.py:143"),
-                 "q40_prefill": ("dllama_tpu_torch/ops/csrc/q40_prefill.cu",
-                                 "dllama_tpu/ops/pallas/q40_matmul.py:125"),
-                 "flash_attention": ("dllama_tpu_torch/ops/csrc/flash_attention.cu",
-                                     "dllama_tpu/ops/pallas/flash_attention.py:49")}
         line = []
         for name, cases in results.items():
-            c = next(c for c in cases if c["case"] == rep[name])
+            rep, source, replaces, path = KERNEL_ROWS[name]
+            c = next(c for c in cases if c["case"] == rep)
+            by_path = {p: counts[name] for p, counts in paths.items()}
             line.append({
-                "name": name, "route": "cuda", "source": where[name][0],
-                "replaces": where[name][1],
-                "launches": None if launches is None else launches[name],
+                "name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": by_path.get(path, 0 if path is None else None),
+                "launches_by_path": by_path, "main_path": path,
                 "max_abs_err": max(x["max_abs_err"] for x in cases),
                 "ms": _r(c["ms"]), "plain_ms": _r(c["plain_ms"]),
                 "bound_ms": _r(c["bound_ms"]), "bound_by": c["bound_by"],

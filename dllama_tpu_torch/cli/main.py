@@ -10,7 +10,10 @@ Modes:
 Everything runs on one device, `--device cuda` (the default) or
 `--device cpu`. Without a CUDA device the CLI stops with an error unless the
 CPU was asked for. Options of the JAX package that this package has not
-ported yet are accepted by name and refused with a clear message.
+ported yet are accepted by name and refused with a clear message (exit 2);
+the batched tier's `auto` defaults for features not yet ported (radix prefix
+tree, hybrid chunked prefill, preemption) resolve to off, with one logged
+line each.
 """
 
 from __future__ import annotations
@@ -68,12 +71,37 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--replica-id", default=None,
                    help="serve mode: identity stamped on every response")
     p.add_argument("--drain-timeout-s", type=float, default=30.0,
-                   help="serve mode: on SIGTERM, give the in-flight request this long")
+                   help="serve mode: on SIGTERM, give the in-flight requests this long")
+    p.add_argument("--slots", type=int, default=0,
+                   help="serve mode: continuous-batching slots (0 = the single-engine tier)")
+    p.add_argument("--kv-layout", choices=["auto", "dense", "paged"], default="auto",
+                   help="batched KV cache layout; auto = paged where the paged "
+                        "attention kernel takes the configuration")
+    p.add_argument("--page-size", type=int, default=128, help="paged KV: rows per page")
+    p.add_argument("--kv-pages", type=int, default=0,
+                   help="paged KV: pool size in pages (0 = every slot's full context)")
+    p.add_argument("--max-queue", type=int, default=0,
+                   help="serve mode: shed requests with 429 beyond this queue depth "
+                        "(0 = unbounded)")
+    p.add_argument("--overlap", choices=["on", "off"], default="on",
+                   help="batched tier: launch decode chunk N+1 before consuming chunk N")
     # accepted by name, refused until ported
     p.add_argument("--frontend", choices=["aio", "threads"], default="threads",
                    help="serve mode transport (aio is not yet ported)")
-    p.add_argument("--slots", type=int, default=0,
-                   help="continuous-batching slots (not yet ported: 0 only)")
+    p.add_argument("--radix-cache", choices=["auto", "on", "off"], default="auto",
+                   help="radix prefix tree (not yet ported: auto resolves to off)")
+    p.add_argument("--prefill-budget", default="auto",
+                   help="hybrid chunked prefill (not yet ported: auto resolves to 0)")
+    p.add_argument("--preempt", choices=["auto", "on", "off"], default="auto",
+                   help="preemption (not yet ported: auto resolves to off)")
+    p.add_argument("--kv-host-pages", type=int, default=0,
+                   help="host-RAM KV spill tier (not yet ported)")
+    p.add_argument("--tenant-weight", action="append", default=[],
+                   help="fair-queue tenant weight NAME=W (not yet ported)")
+    p.add_argument("--warmup", choices=["auto", "off"], default="off",
+                   help="boot precompile (not yet ported)")
+    p.add_argument("--restart-max", type=int, default=0,
+                   help="warm engine restarts (not yet ported)")
     p.add_argument("--spec", type=int, default=0,
                    help="speculative decoding draft length (not yet ported: 0 only)")
     p.add_argument("--mesh", default=None, help="device mesh (not yet ported)")
@@ -86,8 +114,20 @@ def _refuse_unported(args) -> None:
         raise NotPorted("--cache-dtype f8")
     if args.spec:
         raise NotPorted("--spec (speculative decoding)")
-    if args.slots:
-        raise NotPorted("--slots > 0 (continuous batching)")
+    if args.radix_cache == "on":
+        raise NotPorted("--radix-cache on (the radix prefix tree)")
+    if args.prefill_budget not in ("auto", "0"):
+        raise NotPorted("--prefill-budget N > 0 (hybrid chunked prefill)")
+    if args.preempt == "on":
+        raise NotPorted("--preempt on")
+    if args.kv_host_pages:
+        raise NotPorted("--kv-host-pages (the host-RAM KV spill tier)")
+    if args.tenant_weight:
+        raise NotPorted("--tenant-weight")
+    if args.warmup != "off":
+        raise NotPorted("--warmup")
+    if args.restart_max:
+        raise NotPorted("--restart-max (warm engine restarts)")
     if args.mesh is not None:
         raise NotPorted("--mesh (multi-device meshes)")
     if args.frontend == "aio":
@@ -164,8 +204,7 @@ def cmd_chat(args) -> int:
         ChatItem,
         ChatTemplate,
         ChatTemplateType,
-        EosDetector,
-        EosResult,
+        TokenAssembler,
         chat_stops,
     )
 
@@ -199,24 +238,18 @@ def cmd_chat(args) -> int:
         first = False
         if generated.public_prompt:
             print(generated.public_prompt, end="")
-        detector = EosDetector(tok.eos_ids, stops, padding_left=2, padding_right=2)
-        tok.reset_decoder()
+        asm = TokenAssembler(tok, stops)
         print("🤖 assistant: ", end="", flush=True)
         budget = m.engine.seq_len - m.engine.pos - len(prompt_tokens) - 1
         if budget <= 0:
             print("(context window exhausted)")
             break
         for t in m.engine.generate(prompt_tokens, budget, sampler):
-            res = detector.append(t, tok.decode(t))
-            delta = detector.get_delta()
-            if delta:
-                print(delta, end="", flush=True)
-            if res == EosResult.EOS:
+            print(asm.feed(t), end="", flush=True)
+            if asm.eos:
                 break
         else:
-            delta = detector.flush()
-            if delta:
-                print(delta, end="", flush=True)
+            print(asm.flush(), end="", flush=True)
         print()
     return 0
 
@@ -228,12 +261,21 @@ def cmd_serve(args) -> int:
         print("serve mode requires --tokenizer", file=sys.stderr)
         return 1
     m = _load(args)
+    if args.slots > 0:
+        log = logging.getLogger("dllama_tpu_torch.cli")
+        for flag, value in (("--radix-cache", "off"), ("--prefill-budget", "0"),
+                            ("--preempt", "off")):
+            if getattr(args, flag[2:].replace("-", "_")) == "auto":
+                log.warning("%s auto -> %s: the feature is not yet ported to the "
+                            "PyTorch/CUDA package", flag, value)
     return run_server(
         m, host=args.host, port=args.port, n_slots=args.slots,
         default_temperature=args.temperature, default_topp=args.topp,
         default_seed=args.seed, frontend=args.frontend,
         sse_heartbeat_s=args.sse_heartbeat_s, replica_id=args.replica_id,
-        drain_timeout_s=args.drain_timeout_s,
+        drain_timeout_s=args.drain_timeout_s, kv_layout=args.kv_layout,
+        page_size=args.page_size, kv_pages=args.kv_pages, max_queue=args.max_queue,
+        overlap=args.overlap == "on",
     )
 
 

@@ -7,6 +7,11 @@ arrives as an object with ``packed``/``scales`` attributes (the JAX
 ``QTensor`` after the tree map) or as a ``{"packed", "scales"}`` dict; a Q80
 weight likewise with ``codes``/``scales``. Bytes are unchanged: the same
 device layout, f16 scales, and bf16 leaves bit for bit.
+
+``paged_cache_from_numpy(cache, device)`` does the same for a JAX
+``PagedKVCache`` (its k, v and tables as numpy arrays, or the cache itself
+after ``jax.tree.map(np.asarray, cache)``), so tests hand one pool state to
+both packages.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dllama_tpu_torch.models.llama import PagedKVCache
 from dllama_tpu_torch.ops.quant import Q8Tensor, QTensor
 
 
@@ -46,3 +52,11 @@ def params_from_numpy(tree, device="cpu"):
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return _tensor(tree, device)
+
+
+def paged_cache_from_numpy(cache, device="cpu") -> PagedKVCache:
+    """A JAX PagedKVCache with numpy leaves (k, v [L, P+1, Hkv, page, hd],
+    tables i32 [n_slots, max_blocks]) -> this package's PagedKVCache."""
+    k, v, tables = _fields(cache, ("k", "v", "tables"))
+    return PagedKVCache(_tensor(k, device), _tensor(v, device),
+                        _tensor(tables, device).to(torch.int32))

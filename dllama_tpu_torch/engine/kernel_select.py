@@ -1,11 +1,17 @@
-"""Per-engine kernel selection: the one place the ``--kernels`` flag and the
-device turn into the matmul and attention callables an engine runs.
+"""Per-engine kernel selection: the one place the ``--kernels`` flag, the
+device and the KV layout turn into the matmul and attention callables an
+engine runs.
 
-Rules (the unsharded dense branch of the JAX package's resolve_kernels):
+Rules (the unsharded branches of the JAX package's resolve_kernels):
 
 * ``auto`` on a CUDA device, or ``cuda``: the Q40 kernels and flash
   attention. Their wrappers run the plain versions for CPU tensors.
 * ``auto`` on the CPU, or ``torch``: plain PyTorch matmuls and attention.
+* Paged KV layout: route ``paged_kernel`` (the paged attention kernel with
+  its fused KV scatter) on a CUDA device with ``auto``/``cuda``; a paged
+  layout the kernel does not take raises there, naming ``--kernels torch``.
+  ``--kernels torch``, or the CPU, gives ``paged_gather`` (the plain
+  block-table gather). K8 (``paged_flash_gqa_attention``) is not routed.
 """
 
 from __future__ import annotations
@@ -16,25 +22,49 @@ from typing import Callable
 import torch
 
 from dllama_tpu_torch.models.config import LlamaConfig
-from dllama_tpu_torch.ops import flash_attention
-from dllama_tpu_torch.ops.layers import gqa_attention
+from dllama_tpu_torch.ops import flash_attention, paged_attention
+from dllama_tpu_torch.ops.layers import gqa_attention, paged_gqa_attention
 from dllama_tpu_torch.ops.matmul import engine_matmul, resolve_backend
 
 
 @dataclass
 class KernelSelection:
     mm: Callable  # (x, w, layer) -> x @ w[layer]
-    attn_fn: Callable  # (q, k_cache, v_cache, pos) -> attention output
+    attn_fn: Callable  # dense: (q, k_cache, v_cache, pos); paged: see ops.paged_attention
     backend: str  # 'cuda' | 'torch': what the quantized matmuls run on
-    attn_route: str  # 'flash' | 'torch': what attention runs on
+    attn_route: str  # 'flash' | 'torch' | 'paged_kernel' | 'paged_gather'
+    fused_scatter_max_t: int | None = None  # paged_kernel only: widest chunk
+    # whose new-KV rows the kernel launch writes itself
 
 
-def resolve_kernels(cfg: LlamaConfig, kernels: str = "auto", device="cpu") -> KernelSelection:
+def _paged_kernel_attn(q, k_pool, v_pool, tables, pos, new_k, new_v, active):
+    """The engine's paged attention: the kernel with its fused scatter."""
+    return paged_attention.paged_decode_attention(q, k_pool, v_pool, tables, pos, new_k,
+                                                  new_v, active)
+
+
+_paged_kernel_attn.fused_kv_scatter = True
+
+
+def resolve_kernels(cfg: LlamaConfig, kernels: str = "auto", device="cpu", paged: bool = False,
+                    page_size: int = 0, cache_dtype=torch.bfloat16) -> KernelSelection:
     backend = resolve_backend(kernels, device)
     mm = engine_matmul(backend)
+    on_cuda = torch.device(device).type == "cuda"
+    if paged:
+        if backend == "torch" or not on_cuda:
+            return KernelSelection(mm, paged_gqa_attention, backend, "paged_gather")
+        if not paged_attention.paged_decode_supported((cfg.n_heads, cfg.head_size), page_size,
+                                                      cache_dtype):
+            raise NotImplementedError(
+                f"the paged attention kernel does not take page size {page_size}, head "
+                f"size {cfg.head_size} and {cache_dtype} pools (page >= 8, page % 8 == 0, "
+                f"head size in {paged_attention.HEAD_SIZES}, bf16/f32); use --kernels torch")
+        return KernelSelection(mm, _paged_kernel_attn, backend, "paged_kernel",
+                               paged_attention.FUSED_SCATTER_MAX_T)
     if backend == "torch":
         return KernelSelection(mm, gqa_attention, backend, "torch")
-    if torch.device(device).type == "cuda" and not flash_attention.supported(cfg.head_size):
+    if on_cuda and not flash_attention.supported(cfg.head_size):
         raise NotImplementedError(
             f"head size {cfg.head_size} has no CUDA attention kernel yet "
             f"({flash_attention.HEAD_SIZES} are built); use --kernels torch")

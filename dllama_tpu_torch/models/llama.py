@@ -5,7 +5,8 @@ Per layer (the reference's att+ff segments):
   x += w2( act(w1 h) * w3 h )                                 [ff segment]
 with pre-RMSNorm before each block. A Python loop walks the layers; the
 weights stay stacked [L, ...] and each layer takes views of its slice.
-Unlike the functional JAX version, the KV cache is updated in place.
+Unlike the functional JAX version, the KV cache (dense, or the paged pool)
+is updated in place where JAX donates its buffers.
 """
 
 from __future__ import annotations
@@ -15,7 +16,14 @@ import dataclasses
 import torch
 
 from dllama_tpu_torch.models.config import LlamaConfig
-from dllama_tpu_torch.ops.layers import activation, apply_rope, gqa_attention, rms_norm
+from dllama_tpu_torch.ops.layers import (
+    activation,
+    apply_rope,
+    gqa_attention,
+    paged_gqa_attention,
+    paged_write_targets,
+    rms_norm,
+)
 from dllama_tpu_torch.ops.matmul import matmul
 from dllama_tpu_torch.ops.quant import QTensor
 
@@ -35,23 +43,87 @@ class KVCache:
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _cache_update(cache: torch.Tensor, new: torch.Tensor, pos_base) -> None:
+@dataclasses.dataclass
+class PagedKVCache:
+    """Paged KV layout: one global page pool
+    [n_layers, n_pages + 1, n_kv_heads, page_size, head_size] per tensor plus
+    per-slot block tables i32 [n_slots, max_blocks] (logical block j of slot
+    s lives in pool page tables[s, j]). The allocator (engine/batch.PagePool)
+    hands out pages as positions advance and refcounts them. The LAST pool
+    page is the trash page: masked writes (inactive slots) land there and
+    the allocator never hands it out. Unallocated table entries point at
+    page 0; reads through them are masked by position."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    tables: torch.Tensor  # i32 [n_slots, max_blocks]
+
+    @classmethod
+    def create(cls, cfg: LlamaConfig, n_slots: int, n_pages: int, page_size: int,
+               dtype=torch.bfloat16, max_blocks: int = 0, device="cpu") -> "PagedKVCache":
+        shape = (cfg.n_layers, n_pages + 1, cfg.n_kv_heads, page_size, cfg.head_size)
+        tables = torch.zeros((n_slots, max_blocks or 1), dtype=torch.int32, device=device)
+        return cls(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device), tables)
+
+    @property
+    def page_size(self) -> int:
+        return self.k.shape[3]
+
+    @property
+    def n_pages(self) -> int:
+        """Usable pages (the +1 trash page is excluded)."""
+        return self.k.shape[1] - 1
+
+
+def _cache_update(cache: torch.Tensor, new: torch.Tensor, pos_base,
+                  active: torch.Tensor | None = None) -> None:
     """Write new [B, H, T, hd] rows into one layer's cache [B, H, S, hd] at
-    pos (an int, or a [B] tensor of per-row positions), in place."""
+    pos (an int, or a [B] tensor of per-row positions), in place. Rows with
+    active == False keep their old contents (frozen slots of a batch)."""
     new = new.to(cache.dtype)
     t = new.shape[2]
     if isinstance(pos_base, torch.Tensor) and pos_base.dim() == 1:
         rows = pos_base.to(torch.long)[:, None] + torch.arange(t, device=cache.device)
         bidx = torch.arange(cache.shape[0], device=cache.device)[:, None]
-        cache[bidx, :, rows] = new.permute(0, 2, 1, 3)
+        vals = new.permute(0, 2, 1, 3)  # [B, T, H, hd]
+        if active is not None:
+            vals = torch.where(active[:, None, None, None], vals, cache[bidx, :, rows])
+        cache[bidx, :, rows] = vals
+    elif active is not None:
+        old = cache[:, :, pos_base : pos_base + t]
+        cache[:, :, pos_base : pos_base + t] = torch.where(active[:, None, None, None], new, old)
     else:
         cache[:, :, pos_base : pos_base + t] = new
 
 
+def _paged_cache_update(pool: torch.Tensor, new: torch.Tensor, tables: torch.Tensor,
+                        pos_base, active: torch.Tensor | None = None) -> None:
+    """Write new [B, H, T, hd] rows into one layer's pool [P, H, page, hd] at
+    block-table positions (ops.layers.paged_write_targets), in place; rows of
+    inactive slots go to the trash page P-1. Two rows with one target (only
+    inactive slots sharing the trash page, or a row past the table width)
+    resolve as if written in (slot, t) order, last row winning: every
+    duplicate writes the last one's values, so the result does not depend on
+    the order in which index_put_ applies them."""
+    b, h, t, hd = new.shape
+    pages, off = paged_write_targets(tables, pos_base, t, pool.shape[2], pool.shape[0], active)
+    flat = (pages.long() * pool.shape[2] + off.long()).reshape(-1)  # [B*T]
+    vals = new.to(pool.dtype).permute(0, 2, 1, 3).reshape(b * t, h, hd)
+    if b * t > 1:
+        order = torch.arange(b * t, device=flat.device)
+        last = torch.where(flat[None, :] == flat[:, None], order[None, :], -1).amax(dim=1)
+        vals = vals[last]
+    pool[pages.long().reshape(-1), :, off.long().reshape(-1)] = vals
+
+
 def _layer(cfg: LlamaConfig, x, layers, li, k_cache, v_cache, rope, pos_base,
-           attn_fn, mm):
+           attn_fn, mm, active=None, tables=None):
     """One decoder layer; `layers` holds the stacked weights and `li` the
-    layer index (the matmul takes the layer's view of each stack)."""
+    layer index (the matmul takes the layer's view of each stack). With
+    `tables` the caches are one layer's page pools [P, Hkv, page, hd]; an
+    `attn_fn` marked ``fused_kv_scatter`` writes the new rows itself, inside
+    its kernel launch, instead of a separate scatter."""
     b, t, d = x.shape
     kvd = cfg.kv_dim
     h = rms_norm(x, layers["rms_att"][li], cfg.norm_epsilon)
@@ -65,9 +137,18 @@ def _layer(cfg: LlamaConfig, x, layers, li, k_cache, v_cache, rope, pos_base,
     q = apply_rope(q.reshape(b, t, cfg.n_heads, cfg.head_size), rope)
     k = apply_rope(k.reshape(b, t, cfg.n_kv_heads, cfg.head_size), rope)
     v = v.reshape(b, t, cfg.n_kv_heads, cfg.head_size)
-    _cache_update(k_cache, k.transpose(1, 2), pos_base)
-    _cache_update(v_cache, v.transpose(1, 2), pos_base)
-    att = attn_fn(q, k_cache, v_cache, pos_base).reshape(b, t, d)
+    if tables is None:
+        _cache_update(k_cache, k.transpose(1, 2), pos_base, active)
+        _cache_update(v_cache, v.transpose(1, 2), pos_base, active)
+        att = attn_fn(q, k_cache, v_cache, pos_base)
+    elif getattr(attn_fn, "fused_kv_scatter", False):
+        att, _, _ = attn_fn(q, k_cache, v_cache, tables, pos_base, k.transpose(1, 2),
+                            v.transpose(1, 2), active)
+    else:
+        _paged_cache_update(k_cache, k.transpose(1, 2), tables, pos_base, active)
+        _paged_cache_update(v_cache, v.transpose(1, 2), tables, pos_base, active)
+        att = attn_fn(q, k_cache, v_cache, tables, pos_base)
+    att = att.reshape(b, t, d)
     x = x + mm(att, layers["wo"], li)
     h = rms_norm(x, layers["rms_ffn"][li], cfg.norm_epsilon)
     if "w13" in layers:  # fused launch (fuse_layer_weights)
@@ -101,13 +182,18 @@ def fuse_layer_weights(layers: dict) -> dict:
     return out
 
 
-def run_layers(cfg: LlamaConfig, layer_params: dict, x, pos_base, cache: KVCache,
-               rope, attn_fn=None, mm=None) -> torch.Tensor:
-    attn_fn = attn_fn or gqa_attention
+def run_layers(cfg: LlamaConfig, layer_params: dict, x, pos_base, cache, rope,
+               attn_fn=None, mm=None, active=None) -> torch.Tensor:
+    """Walk the decoder layers over a KVCache or a PagedKVCache (whose block
+    tables select the paged branch of each layer). `active` [B] bool masks
+    the cache writes of frozen rows."""
+    tables = cache.tables if isinstance(cache, PagedKVCache) else None
+    if attn_fn is None:
+        attn_fn = gqa_attention if tables is None else paged_gqa_attention
     mm = mm or matmul
     for li in range(cache.k.shape[0]):
         x = _layer(cfg, x, layer_params, li, cache.k[li], cache.v[li], rope,
-                   pos_base, attn_fn, mm)
+                   pos_base, attn_fn, mm, active, tables)
     return x
 
 
@@ -116,16 +202,18 @@ def forward(
     params: dict,
     tokens: torch.Tensor,  # i64 [B, T] on the params' device
     pos_base,  # int, or a [B] tensor of per-row positions
-    cache: KVCache,
+    cache,  # KVCache, or PagedKVCache (the paged layout)
     rope_cache: torch.Tensor,  # [seq, head_size/2, 2]
-    attn_fn=None,  # (q, k_cache, v_cache, pos) -> out; default plain gqa_attention
+    attn_fn=None,  # attention; default the plain gqa_attention / paged_gqa_attention
     mm=None,  # (x, w, layer) -> out; default ops.matmul
     last_only: bool = False,  # project logits for the last position only
-) -> tuple[torch.Tensor, KVCache]:
+    active: torch.Tensor | None = None,  # [B] bool cache-write mask (batch mode)
+):
     """Returns (logits f32 [B, T or 1, vocab], cache), the cache updated in
     place. ``mm`` / ``attn_fn`` override the kernels (the plain versions run
     the same forward on the card for comparison). ``last_only`` slices to
-    the final position before the lm-head, which is all prefill needs."""
+    the final position before the lm-head, which is all prefill needs. A
+    paged attn_fn takes (q, k_pool, v_pool, tables, pos)."""
     x = params["embedding"][tokens]  # [B, T, D]
     t = tokens.shape[1]
     if isinstance(pos_base, torch.Tensor) and pos_base.dim() == 1:
@@ -133,7 +221,7 @@ def forward(
         rope = rope_cache[idx.clamp(0, rope_cache.shape[0] - 1)]
     else:
         rope = rope_cache[pos_base : pos_base + t]
-    x = run_layers(cfg, params["layers"], x, pos_base, cache, rope, attn_fn, mm)
+    x = run_layers(cfg, params["layers"], x, pos_base, cache, rope, attn_fn, mm, active)
     if last_only:
         x = x[:, -1:]
     x = rms_norm(x, params["final_norm"], cfg.norm_epsilon)

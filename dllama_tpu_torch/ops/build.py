@@ -32,6 +32,8 @@ SIGNATURES = {
     "q40_prefill": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "flash_attention": (_P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -104,4 +106,4 @@ def check(name: str, err: int) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}"
-                           + (" (unsupported dtype/head size)" if err < 0 else ""))
+                           + (" (unsupported dtype/head size/tile)" if err < 0 else ""))

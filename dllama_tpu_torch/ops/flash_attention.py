@@ -7,6 +7,13 @@ cache ``[B, Hkv, S, hd]``, ``pos`` an int or an i32 ``[B]`` tensor), which is
 its plain version. On a CUDA tensor it launches ``csrc/flash_attention.cu``
 (replaces ``dllama_tpu/ops/pallas/flash_attention.py:_kernel``); on a CPU
 tensor it runs the plain version.
+
+``paged_flash_gqa_attention`` is the block-table variant (replaces
+``dllama_tpu/ops/pallas/flash_attention.py:_paged_kernel``, K8): the signature
+and semantics of :func:`dllama_tpu_torch.ops.layers.paged_gqa_attention` over
+pages of whole 64-row tiles. It is the read-only mode of the paged kernel
+(``csrc/paged_attention.cu``), with its own launch count; like the JAX
+package, kernel selection does not route it.
 """
 
 from __future__ import annotations
@@ -15,8 +22,8 @@ import math
 
 import torch
 
-from dllama_tpu_torch.ops import build
-from dllama_tpu_torch.ops.layers import gqa_attention
+from dllama_tpu_torch.ops import build, paged_attention
+from dllama_tpu_torch.ops.layers import gqa_attention, paged_gqa_attention
 from dllama_tpu_torch.ops.q40_matmul import _sm_count
 
 TQ = 64  # folded query rows per block (csrc/flash_attention.cu)
@@ -26,7 +33,7 @@ MIN_TILES_PER_SPLIT = 2
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 #: kernel launches made through the wrapper (a plain int under one key)
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "paged_flash_attention": 0}
 
 
 def supported(head_size: int) -> bool:
@@ -108,3 +115,25 @@ def flash_gqa_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.T
     build.check("flash_attention", err)
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+def paged_supported(q_shape: tuple[int, ...], page_size: int) -> bool:
+    """K8's rule, the JAX package's paged_supported: a page holds a whole
+    number of 64-row tiles (and the head sizes built)."""
+    return page_size % TS == 0 and q_shape[-1] in HEAD_SIZES
+
+
+def paged_flash_gqa_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                              tables: torch.Tensor, pos_base, out_dtype=None) -> torch.Tensor:
+    """Paged attention output in ``out_dtype`` (default ``q.dtype``) over one
+    layer's pools [P, Hkv, page, hd] through tables i32 [B, nb]; read-only."""
+    if q.device.type == "cpu":
+        if out_dtype == torch.float32:
+            q = q.float()
+        return paged_gqa_attention(q, k_pool, v_pool, tables, pos_base)
+    if not paged_supported(q.shape, k_pool.shape[2]):
+        raise ValueError(f"paged_flash_gqa_attention: page {k_pool.shape[2]} is not a "
+                         f"multiple of {TS} rows, or head size {q.shape[-1]} not in "
+                         f"{HEAD_SIZES}")
+    return paged_attention.launch(q, k_pool, v_pool, tables, pos_base, None, None, None,
+                                  out_dtype, TS, LAUNCHES, "paged_flash_attention")

@@ -111,3 +111,49 @@ def gqa_attention(
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgts,bhsd->bthgd", probs, vf)
     return out.reshape(b, t, hq, hd).to(q.dtype)
+
+
+def paged_view(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """Gather a [B, Hkv, max_blocks*page, hd] contiguous cache view from a
+    [P, Hkv, page, hd] page pool through [B, max_blocks] block tables:
+    logical row r of slot b reads pool[tables[b, r // page], :, r % page].
+    Rows behind unallocated table entries surface stale page contents; the
+    causal mask gives them probability exactly 0.0 (pool values are always
+    finite), so a view-based attention is bit-exact against dense."""
+    b, nb = tables.shape
+    _, hkv, page, hd = pool.shape
+    kv = pool[tables.long()]  # [B, nb, Hkv, page, hd]
+    return kv.permute(0, 2, 1, 3, 4).reshape(b, hkv, nb * page, hd)
+
+
+def paged_write_targets(tables: torch.Tensor, pos_base, t: int, page: int, n_pool: int,
+                        active: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(pages, offsets) i32 [B, T] for writing T new KV rows at block-table
+    positions: THE single definition of paged write addressing. Logical row
+    pos+tt of slot b lands in pool page tables[b, (pos+tt) // page] at offset
+    (pos+tt) % page, the block index clipped to the table width, and rows of
+    inactive slots go to the trash page (n_pool - 1, never allocated). Shared
+    by models.llama._paged_cache_update (the plain scatter) and
+    ops.paged_attention (the kernel's fused scatter), so the two write paths
+    cannot drift apart. Device tensors in, device tensors out: no host sync."""
+    b, nb = tables.shape
+    dev = tables.device
+    if isinstance(pos_base, torch.Tensor):
+        pos = pos_base.to(device=dev, dtype=torch.int64).reshape(-1).expand(b)
+    else:
+        pos = torch.full((b,), int(pos_base), dtype=torch.int64, device=dev)
+    rows = pos[:, None] + torch.arange(t, device=dev)[None]  # [B, T]
+    blk = torch.clamp(rows // page, 0, nb - 1)
+    off = rows % page
+    pages = torch.gather(tables.long(), 1, blk)
+    if active is not None:
+        pages = torch.where(active.to(dev)[:, None], pages, n_pool - 1)
+    return pages.to(torch.int32), off.to(torch.int32)
+
+
+def paged_gqa_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                        tables: torch.Tensor, pos_base) -> torch.Tensor:
+    """Causal GQA over the paged KV cache: gather the block-table view, then
+    the dense attention math unchanged. The plain version of the paged
+    attention kernels; it re-materializes the whole view every call."""
+    return gqa_attention(q, paged_view(k_pool, tables), paged_view(v_pool, tables), pos_base)

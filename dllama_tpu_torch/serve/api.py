@@ -1,5 +1,7 @@
-"""OpenAI-compatible HTTP API server, single-engine tier — the `dllama-api`
-binary's role (dllama-api.cpp:509-581).
+"""OpenAI-compatible HTTP API server — the `dllama-api` binary's role
+(dllama-api.cpp:509-581) — in two tiers: the single-engine tier
+(``n_slots == 0``) and the continuous-batching tier (``n_slots > 0``: a
+BatchEngine behind a Scheduler, concurrent requests sharing the card).
 
 Routes: POST /v1/chat/completions and the legacy POST /v1/completions (both
 stream + non-stream), GET /v1/models, GET /health (+ /health/live,
@@ -12,14 +14,17 @@ The **prefix cache** reproduces NaiveCache (dllama-api.cpp:264-309): the
 previous request's chat history is kept with its KV-cache position; when a
 new request's messages extend the cached ones, only the delta is encoded and
 prefilled. Requests are serialized with a lock because one engine owns the
-KV cache, as the reference is single-request. The JSON and SSE bodies are
-those of the JAX package's single-engine tier.
+KV cache, as the reference is single-request. On the batched tier the
+scheduler's per-slot prefix cache does the same at the token level, for many
+conversations at once. The JSON and SSE bodies are those of the JAX
+package's tiers; a full admission queue answers 429 with Retry-After.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import math
 import re
 import select
 import signal
@@ -32,12 +37,12 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from dllama_tpu_torch import __version__
 from dllama_tpu_torch.engine.sampling import Sampler
+from dllama_tpu_torch.serve.scheduler import QueueFull, SchedulerRejected
 from dllama_tpu_torch.tokenizer.chat import (
     ChatItem,
     ChatTemplate,
     ChatTemplateType,
-    EosDetector,
-    EosResult,
+    TokenAssembler,
     chat_stops,
 )
 
@@ -142,7 +147,9 @@ class PrefixCache:
 
 class ApiServer:
     def __init__(self, loaded, default_temperature=0.8, default_topp=0.9,
-                 default_seed=None, replica_id: str = "", sse_heartbeat_s: float = 0.0):
+                 default_seed=None, replica_id: str = "", sse_heartbeat_s: float = 0.0,
+                 scheduler=None):
+        self.scheduler = scheduler
         self.engine = loaded.engine
         self.tokenizer = loaded.tokenizer
         self.config = loaded.config
@@ -156,21 +163,33 @@ class ApiServer:
         self.lock = threading.Lock()
         self.model_name = "dllama-tpu"
         self.draining = False
-        self.build_info = {"version": __version__, "backend": self.engine.device.type,
-                           "kernels": self.engine.backend,
-                           "attention": self.engine.attn_route}
+        eng = scheduler.engine if scheduler is not None else self.engine
+        self.build_info = {"version": __version__, "backend": eng.device.type,
+                           "kernels": eng.backend, "attention": eng.attn_route}
+        if scheduler is not None:
+            self.build_info["kv_layout"] = eng.kv_layout
 
     def health(self) -> dict:
-        h = {"live": True, "ready": not self.draining, "queue_depth": 0,
-             "busy_slots": 0, "n_slots": 0, "status": "ok", "mode": "single",
-             "build": self.build_info}
+        if self.scheduler is not None:
+            h = self.scheduler.health()
+        else:
+            h = {"live": True, "ready": True, "queue_depth": 0, "busy_slots": 0,
+                 "n_slots": 0}
         if self.draining:
+            h["ready"] = False
             h["draining"] = True
+        h["status"] = "ok" if h["live"] else "unhealthy"
+        h["mode"] = "continuous" if self.scheduler is not None else "single"
+        h["build"] = self.build_info
         return h
 
     def precheck_capacity(self) -> None:
+        """Raise what a submit would raise, without submitting: stream
+        handlers call it before their 200/chunked headers go out."""
         if self.draining:
             raise Draining("server is draining")
+        if self.scheduler is not None:
+            self.scheduler.check_admission()
 
     # ------------------------------------------------------------------ core
 
@@ -178,61 +197,38 @@ class ApiServer:
         """Run one chat completion. `emit(text)` streams deltas when given;
         `probe()` returns True when the client socket is gone. Returns the
         non-streaming response dict (also when streaming, for the usage)."""
-        t_submit = time.monotonic()
-        if body.get("resume") is not None:
-            raise ApiError(400, "resume requires the batched scheduler tier")
-        messages = [(m["role"], str(m["content"])) for m in body.get("messages", [])]
-        if not messages:
-            raise ApiError(400, "messages must be a non-empty array")
-        temperature = float(body.get("temperature", self.defaults["temperature"]))
-        topp = float(body.get("top_p", self.defaults["topp"]))
-        # `or 0.0`: OpenAI treats an explicit JSON null as "use default"
-        presence = float(body.get("presence_penalty") or 0.0)
-        frequency = float(body.get("frequency_penalty") or 0.0)
-        seed = body.get("seed", self.defaults["seed"])
-        max_tokens = int(body.get("max_tokens") or body.get("max_completion_tokens") or 0)
-        timeout_s = _parse_timeout(body)
-        _validate_extras(body)
-        extra_stops = body.get("stop") or []
-        if isinstance(extra_stops, str):
-            extra_stops = [extra_stops]
+        return self._completion(body, False, emit, probe, req_id)
 
-        with self.lock:
-            t_admit = time.monotonic()
-            delta, start_pos, add_bos = self.cache.resolve(messages)
-            if start_pos == 0:
-                self.cache.clear()
-            self.engine.reset(start_pos)
-            generated = self.template.generate(
-                [ChatItem(r, c) for r, c in delta], append_generation_prompt=True)
-            prompt_tokens = self.tokenizer.encode(generated.content, add_bos=add_bos)
-            budget, sampler = self._budget_and_sampler(
-                len(prompt_tokens), max_tokens, temperature, topp, seed, presence, frequency)
-            content, finish, n_generated, t_first = self._run_single(
-                prompt_tokens, budget, sampler, self.stops + list(extra_stops), emit,
-                probe=probe, deadline=None if timeout_s is None else t_submit + timeout_s)
-            if not (finish == "timeout" and n_generated == 0):
-                # cache the full conversation incl. the reply for the next
-                # turn (a request that expired on the lock prefilled nothing)
-                self.cache.messages = messages + [("assistant", content)]
-                self.cache.pos = self.engine.pos
-                self.cache.bos_sent = True
-        timings = self._timings(t_submit, t_admit, t_first, n_generated, finish, timeout_s)
+    def complete_legacy(self, body: dict, emit=None, probe=None, req_id: str = "") -> dict:
+        """POST /v1/completions: a RAW prompt string, no chat template,
+        `text` in the choices."""
+        return self._completion(body, True, emit, probe, req_id)
+
+    def _completion(self, body: dict, legacy: bool, emit, probe, req_id: str) -> dict:
+        t_submit = time.monotonic()
+        p = self.prepare_request(body, legacy=legacy)
+        if self.scheduler is not None:
+            content, finish, n_generated, timings = self._run_batched(p, emit, probe, req_id)
+        else:
+            content, finish, n_generated, timings = self._serve_single(p, emit, probe, t_submit)
+        n_prompt = len(p["prompt_tokens"])
+        if legacy:
+            head = {"id": f"cmpl-{uuid.uuid4().hex[:16]}", "object": "text_completion"}
+            choice = {"index": 0, "text": content, "logprobs": None, "finish_reason": finish}
+        else:
+            head = {"id": f"chatcmpl-{uuid.uuid4().hex[:16]}", "object": "chat.completion"}
+            choice = {"index": 0, "message": {"role": "assistant", "content": content},
+                      "finish_reason": finish}
         return {
             "timings": timings,
-            "id": f"chatcmpl-{uuid.uuid4().hex[:16]}",
-            "object": "chat.completion",
+            **head,
             "created": int(time.time()),
             "model": body.get("model", self.model_name),
-            "choices": [{
-                "index": 0,
-                "message": {"role": "assistant", "content": content},
-                "finish_reason": finish,
-            }],
+            "choices": [choice],
             "usage": {
-                "prompt_tokens": len(prompt_tokens),
+                "prompt_tokens": n_prompt,
                 "completion_tokens": n_generated,
-                "total_tokens": len(prompt_tokens) + n_generated,
+                "total_tokens": n_prompt + n_generated,
             },
         }
 
@@ -262,20 +258,84 @@ class ApiServer:
             raise ApiError(400, "messages must be a non-empty array of "
                                 "{role, content} objects")
 
-    def _budget_and_sampler(self, prompt_len, max_tokens, temperature, topp, seed,
-                            presence, frequency):
-        budget = self.engine.seq_len - self.engine.pos - prompt_len - 1
-        if budget <= 0:
-            raise ApiError(400, "context window exhausted")
-        if max_tokens > 0:
-            budget = min(budget, max_tokens)
-        sampler = Sampler(temperature, topp,
-                          seed if seed is not None else int(time.time()),
-                          presence=presence, frequency=frequency)
-        return budget, sampler
+    def _encode_chat(self, messages, add_bos: bool) -> list[int]:
+        generated = self.template.generate([ChatItem(r, c) for r, c in messages],
+                                           append_generation_prompt=True)
+        return self.tokenizer.encode(generated.content, add_bos=add_bos)
 
-    def _timings(self, t_submit, t_admit, t_first, n_generated, finish,
-                 timeout_s=None) -> dict:
+    def prepare_request(self, body: dict, legacy: bool = False) -> dict:
+        """Parse a completions body, for either tier, into the sampling
+        parameters, ``stops`` (chat adds the template's stops, the legacy
+        raw-prompt endpoint only explicit ones) and the prompt:
+        ``prompt_tokens`` for a raw prompt, ``messages`` for chat, which each
+        tier encodes itself (the batched tier whole, the single-engine tier
+        as the delta past its prefix cache)."""
+        if body.get("resume") is not None:
+            raise ApiError(400, "resume is not yet ported to the PyTorch/CUDA package")
+        timeout_s = _parse_timeout(body)
+        _validate_extras(body)
+        extra_stops = body.get("stop") or []
+        if isinstance(extra_stops, str):
+            extra_stops = [extra_stops]
+        p = dict(temperature=float(body.get("temperature", self.defaults["temperature"])),
+                 topp=float(body.get("top_p", self.defaults["topp"])),
+                 # `or 0.0`: OpenAI treats an explicit JSON null as "use default"
+                 presence=float(body.get("presence_penalty") or 0.0),
+                 frequency=float(body.get("frequency_penalty") or 0.0),
+                 seed=body.get("seed", self.defaults["seed"]), timeout_s=timeout_s)
+        if legacy:
+            p["prompt_tokens"] = self.tokenizer.encode(self._normalize_legacy_prompt(body),
+                                                       add_bos=True)
+            p["stops"] = list(extra_stops)
+            p["max_tokens"] = int(body.get("max_tokens") or 16)  # OpenAI legacy default
+        else:
+            messages = [(m["role"], str(m["content"])) for m in body.get("messages", [])]
+            if not messages:
+                raise ApiError(400, "messages must be a non-empty array")
+            p["messages"] = messages
+            p["stops"] = self.stops + list(extra_stops)
+            p["max_tokens"] = int(body.get("max_tokens") or body.get("max_completion_tokens")
+                                  or 0)
+        return p
+
+    # -------------------------------------------------- single-engine tier
+
+    def _serve_single(self, p: dict, emit, probe, t_submit: float):
+        """One request on the single engine, under the lock -> (content,
+        finish_reason, n_tokens, timings). A chat request extending the
+        cached conversation prefills only the delta (``p["prompt_tokens"]``
+        is set to it); a raw prompt drops the cache's claim."""
+        timeout_s = p["timeout_s"]
+        with self.lock:
+            t_admit = time.monotonic()
+            messages = p.get("messages")
+            if messages is not None:
+                delta, start_pos, add_bos = self.cache.resolve(messages)
+                if start_pos == 0:
+                    self.cache.clear()
+                self.engine.reset(start_pos)
+                p["prompt_tokens"] = self._encode_chat(delta, add_bos)
+            else:
+                self.cache.clear()  # raw-prompt rows overwrite the chat cache's claim
+                self.engine.reset(0)
+            budget = self.engine.seq_len - self.engine.pos - len(p["prompt_tokens"]) - 1
+            if budget <= 0:
+                raise ApiError(400, "context window exhausted")
+            if p["max_tokens"] > 0:
+                budget = min(budget, p["max_tokens"])
+            seed = p["seed"]
+            sampler = Sampler(p["temperature"], p["topp"],
+                              seed if seed is not None else int(time.time()),
+                              presence=p["presence"], frequency=p["frequency"])
+            content, finish, n_generated, t_first = self._run_single(
+                p["prompt_tokens"], budget, sampler, p["stops"], emit, probe=probe,
+                deadline=None if timeout_s is None else t_submit + timeout_s)
+            if messages is not None and not (finish == "timeout" and n_generated == 0):
+                # cache the full conversation incl. the reply for the next
+                # turn (a request that expired on the lock prefilled nothing)
+                self.cache.messages = messages + [("assistant", content)]
+                self.cache.pos = self.engine.pos
+                self.cache.bos_sent = True
         t_done = time.monotonic()
         timings = {
             "queue_wait_ms": round((t_admit - t_submit) * 1000.0, 3),
@@ -289,7 +349,7 @@ class ApiServer:
             timings["deadline_exceeded"] = finish == "timeout"
         if self.replica_id:
             timings["replica"] = self.replica_id
-        return timings
+        return content, finish, n_generated, timings
 
     def _run_single(self, prompt_tokens, budget, sampler, stops, emit, probe=None,
                     deadline=None) -> tuple[str, str, int, float | None]:
@@ -299,21 +359,10 @@ class ApiServer:
         positioned the engine."""
         if deadline is not None and time.monotonic() >= deadline:
             return "", "timeout", 0, None  # expired on the lock: no engine work
-        detector = EosDetector(self.tokenizer.eos_ids, stops, padding_left=2, padding_right=2)
-        self.tokenizer.reset_decoder()
-        parts: list[str] = []
-        n_generated = 0
+        asm = TokenAssembler(self.tokenizer, stops)
         finish = "length"
         t_first = None
-        timed_out = False
         probe_at = time.monotonic() + 0.25
-
-        def out(text):
-            if text:
-                parts.append(text)
-                if emit is not None:
-                    emit(text)
-
         for t in self.engine.generate(prompt_tokens, budget, sampler):
             if t_first is None:
                 t_first = time.monotonic()
@@ -321,65 +370,94 @@ class ApiServer:
                 probe_at = time.monotonic() + 0.25
                 if probe():
                     raise ClientDisconnected()
-            n_generated += 1
-            res = detector.append(t, self.tokenizer.decode(t))
-            out(detector.get_delta())
-            if res == EosResult.EOS:
+            text = asm.feed(t)
+            if text and emit is not None:
+                emit(text)
+            if asm.eos:
                 finish = "stop"
                 break
             if deadline is not None and time.monotonic() >= deadline:
                 finish = "timeout"
-                timed_out = True
                 break
-        else:
-            out(detector.flush())  # budget exhausted mid-held-prefix
-        if timed_out:
-            out(detector.flush())
-        return "".join(parts), finish, n_generated, t_first
+        if not asm.eos:
+            text = asm.flush()  # budget or deadline hit mid-held-prefix
+            if text and emit is not None:
+                emit(text)
+        return asm.content(), finish, asm.n, t_first
 
-    def complete_legacy(self, body: dict, emit=None, probe=None, req_id: str = "") -> dict:
-        """POST /v1/completions: a RAW prompt string, no chat template,
-        `text` in the choices."""
-        t_submit = time.monotonic()
-        if body.get("resume") is not None:
-            raise ApiError(400, "resume requires the batched scheduler tier")
-        prompt = self._normalize_legacy_prompt(body)
-        temperature = float(body.get("temperature", self.defaults["temperature"]))
-        topp = float(body.get("top_p", self.defaults["topp"]))
-        presence = float(body.get("presence_penalty") or 0.0)
-        frequency = float(body.get("frequency_penalty") or 0.0)
-        seed = body.get("seed", self.defaults["seed"])
-        max_tokens = int(body.get("max_tokens") or 16)  # legacy default
-        timeout_s = _parse_timeout(body)
-        _validate_extras(body)
-        extra_stops = body.get("stop") or []
-        if isinstance(extra_stops, str):
-            extra_stops = [extra_stops]
-        prompt_tokens = self.tokenizer.encode(prompt, add_bos=True)
-        with self.lock:
-            t_admit = time.monotonic()
-            self.cache.clear()  # raw-prompt rows overwrite the chat cache's claim
-            self.engine.reset(0)
-            budget, sampler = self._budget_and_sampler(
-                len(prompt_tokens), max_tokens, temperature, topp, seed, presence, frequency)
-            content, finish, n_generated, t_first = self._run_single(
-                prompt_tokens, budget, sampler, list(extra_stops), emit, probe=probe,
-                deadline=None if timeout_s is None else t_submit + timeout_s)
-        timings = self._timings(t_submit, t_admit, t_first, n_generated, finish, timeout_s)
-        return {
-            "timings": timings,
-            "id": f"cmpl-{uuid.uuid4().hex[:16]}",
-            "object": "text_completion",
-            "created": int(time.time()),
-            "model": body.get("model", self.model_name),
-            "choices": [{"index": 0, "text": content, "logprobs": None,
-                         "finish_reason": finish}],
-            "usage": {
-                "prompt_tokens": len(prompt_tokens),
-                "completion_tokens": n_generated,
-                "total_tokens": len(prompt_tokens) + n_generated,
-            },
-        }
+    # ------------------------------------------------------- batched tier
+
+    def batched_submit(self, p: dict, req_id: str = ""):
+        """Budget-clamp and submit one parsed request -> the live Request.
+        Raises ApiError when the context cannot fit the prompt, and the
+        SchedulerRejected family when admission sheds it."""
+        if "prompt_tokens" not in p:
+            p["prompt_tokens"] = self._encode_chat(p["messages"], add_bos=True)
+        prompt_tokens = p["prompt_tokens"]
+        budget = self.scheduler.engine.seq_len - len(prompt_tokens) - 1
+        if budget <= 0:
+            raise ApiError(400, "context window exhausted")
+        if p["max_tokens"] > 0:
+            budget = min(budget, p["max_tokens"])
+        seed = p["seed"]
+        return self.scheduler.submit(
+            prompt_tokens, p["temperature"], p["topp"], budget, self.tokenizer.eos_ids,
+            presence=p["presence"], frequency=p["frequency"],
+            seed=int(seed) if seed is not None else None, req_id=req_id,
+            timeout_s=p["timeout_s"])
+
+    def finish_batched(self, req, ended_on_eos: bool, n_generated: int) -> tuple[str, dict]:
+        """Release a batched request's slot and derive the client's
+        (finish_reason, timings). A release after the detector saw a string
+        stop sequence is a successful stop, not a cancellation."""
+        self.scheduler.cancel(req, reason="stop" if ended_on_eos else "cancelled")
+        finish = (req.finish_reason if req.finish_reason in ("stop", "length", "timeout")
+                  else "stop")
+        timings = req.timings()
+        if timings["e2e_ms"] is None:
+            # a stop-string release is finished by the worker later; for the
+            # client the request is over now
+            timings["e2e_ms"] = round((time.monotonic() - req.submitted_at) * 1000.0, 3)
+        timings["decode_tokens"] = n_generated  # what the client received
+        if self.replica_id:
+            timings["replica"] = self.replica_id
+        return finish, timings
+
+    def _run_batched(self, p: dict, emit, probe=None,
+                     req_id: str = "") -> tuple[str, str, int, dict]:
+        """Submit, stream the tokens through EOS/stop detection, finish ->
+        (content, finish_reason, n_tokens, timings)."""
+        asm = TokenAssembler(self.tokenizer, p["stops"])
+        req = self.batched_submit(p, req_id=req_id)
+        probe_at = time.monotonic() + 0.25
+
+        def probe_tick():
+            # runs while the stream is quiet (queued, mid-prefill): a dead
+            # client cancels even before its first token exists
+            if probe():
+                raise ClientDisconnected()
+
+        try:
+            for t in req.tokens(poll=probe_tick if probe is not None else None):
+                if probe is not None and time.monotonic() >= probe_at:
+                    probe_at = time.monotonic() + 0.25
+                    if probe():
+                        raise ClientDisconnected()
+                text = asm.feed(t)
+                if text and emit is not None:
+                    emit(text)
+                if asm.eos:
+                    break
+            if not asm.eos:
+                text = asm.flush()
+                if text and emit is not None:
+                    emit(text)
+            finish, timings = self.finish_batched(req, asm.eos, asm.n)
+        except BaseException:
+            # disconnect/shed/crash: the slot must still be released
+            self.scheduler.cancel(req, reason="stop" if asm.eos else "cancelled")
+            raise
+        return asm.content(), finish, asm.n, timings
 
     def models(self) -> dict:
         return {"object": "list", "data": [{
@@ -494,9 +572,10 @@ class RequestRoutes:
         except ApiError as e:
             log.info("request %s rejected: %s", rid, e.message)
             self._send_json(e.status, {"error": {"message": e.message}})
-        except Draining as e:
-            self._send_json(503, {"error": {"message": str(e)}},
-                            {"Retry-After": str(int(e.retry_after_s))})
+        except (Draining, SchedulerRejected) as e:
+            status = 429 if isinstance(e, QueueFull) else 503
+            self._send_json(status, {"error": {"message": str(e)}},
+                            {"Retry-After": str(max(1, math.ceil(e.retry_after_s)))})
         except ClientDisconnected:
             log.info("client disconnected; request %s cancelled", rid)
         except CLIENT_GONE:
@@ -605,12 +684,11 @@ class _Handler(RequestRoutes, BaseHTTPRequestHandler):
 
 
 def make_server(loaded, host="127.0.0.1", port=0, n_slots: int = 0, **defaults):
-    """-> (server, api): the single-engine tier on a ThreadingHTTPServer.
-    The continuous-batching tier (n_slots > 0), speculative decoding and the
-    aio front end are not yet ported and raise."""
-    if n_slots > 0:
-        raise NotImplementedError("--slots > 0 (continuous batching) is not yet "
-                                  "ported to the PyTorch/CUDA package")
+    """-> (server, api) on a ThreadingHTTPServer. n_slots > 0 is the
+    continuous-batching tier: a BatchEngine with that many cache slots behind
+    a Scheduler. n_slots == 0 keeps the single-engine tier with the
+    NaiveCache prefix reuse. Speculative decoding and the aio front end are
+    not yet ported and raise."""
     if int(defaults.get("spec") or 0) > 0:
         raise NotImplementedError("speculative decoding (--spec) is not yet "
                                   "ported to the PyTorch/CUDA package")
@@ -618,6 +696,9 @@ def make_server(loaded, host="127.0.0.1", port=0, n_slots: int = 0, **defaults):
     if frontend != "threads":
         raise NotImplementedError(f"--frontend {frontend} is not yet ported to the "
                                   "PyTorch/CUDA package (threads is)")
+    scheduler = None
+    if n_slots > 0:
+        scheduler = _make_scheduler(loaded, n_slots, defaults)
     api = ApiServer(
         loaded,
         default_temperature=defaults.get("default_temperature", 0.8),
@@ -625,6 +706,7 @@ def make_server(loaded, host="127.0.0.1", port=0, n_slots: int = 0, **defaults):
         default_seed=defaults.get("default_seed"),
         replica_id=defaults.get("replica_id") or "",
         sse_heartbeat_s=defaults.get("sse_heartbeat_s") or 0.0,
+        scheduler=scheduler,
     )
     handler = type("Handler", (_Handler,), {"api": api})
     httpd = ThreadingHTTPServer((host, port), handler)
@@ -634,13 +716,60 @@ def make_server(loaded, host="127.0.0.1", port=0, n_slots: int = 0, **defaults):
     return httpd, api
 
 
+def resolve_kv_layout(loaded, kv_layout: str = "auto", page_size: int = 128) -> tuple[str, int]:
+    """(layout, page size) of the batched tier. ``auto`` resolves to paged
+    where the paged attention kernel takes the configuration
+    (ops.paged_attention.paged_decode_supported), with the page shrunk to
+    gcd(page_size, context) so short contexts stay paged; a gcd under 8 rows
+    or a configuration the kernel refuses resolves to dense. An explicit
+    layout is kept as given."""
+    from dllama_tpu_torch.ops.paged_attention import paged_decode_supported
+
+    page_size = int(page_size or 128)
+    if kv_layout != "auto":
+        return kv_layout, page_size
+    eng = loaded.engine
+    g = math.gcd(page_size, eng.seq_len)
+    capable = g >= 8 and paged_decode_supported(
+        (loaded.config.n_heads, loaded.config.head_size), g, eng.cache.k.dtype)
+    if capable and g != page_size:
+        log.info("kv-layout auto: page size %d does not divide context %d; using %d",
+                 page_size, eng.seq_len, g)
+    layout = "paged" if capable else "dense"
+    log.info("kv-layout auto -> %s", layout)
+    return layout, g if capable else page_size
+
+
+def _make_scheduler(loaded, n_slots: int, defaults: dict):
+    from dllama_tpu_torch.engine.batch import BatchEngine
+    from dllama_tpu_torch.serve.scheduler import Scheduler
+
+    kv_layout, page_size = resolve_kv_layout(loaded, defaults.get("kv_layout") or "auto",
+                                             defaults.get("page_size") or 128)
+    eng = loaded.engine
+    be = BatchEngine(loaded.config, eng.params, n_slots=n_slots, cache_dtype=eng.cache.k.dtype,
+                     max_seq_len=eng.seq_len, max_prefill_chunk=eng.max_prefill_chunk,
+                     kernels=eng.backend, kv_layout=kv_layout, page_size=page_size,
+                     kv_pages=int(defaults.get("kv_pages") or 0), device=eng.device)
+    sched_kw = {}
+    if defaults.get("max_queue"):
+        sched_kw["max_queue"] = int(defaults["max_queue"])
+    if defaults.get("overlap") is not None:
+        sched_kw["overlap"] = bool(defaults["overlap"])
+    return Scheduler(be, **sched_kw)
+
+
 def graceful_drain(httpd, api, timeout_s: float = 30.0) -> bool:
-    """Stop admission (503), let the in-flight request finish (bounded by
-    `timeout_s`), stop the accept loop. True when it finished in time."""
+    """Stop admission (503), let the in-flight requests finish (bounded by
+    `timeout_s`; on the batched tier the scheduler drains and audits its page
+    pool), stop the accept loop. True when they finished in time."""
     api.draining = True
-    clean = api.lock.acquire(timeout=max(0.0, timeout_s))
-    if clean:
-        api.lock.release()
+    if api.scheduler is not None:
+        clean = api.scheduler.drain(timeout_s)
+    else:
+        clean = api.lock.acquire(timeout=max(0.0, timeout_s))
+        if clean:
+            api.lock.release()
     httpd.shutdown()
     return clean
 
@@ -668,14 +797,16 @@ def install_sigterm_drain(httpd, api, timeout_s: float = 30.0) -> bool:
 def run_server(loaded, host="127.0.0.1", port=9990, n_slots: int = 0, **defaults) -> int:
     httpd, api = make_server(loaded, host, port, n_slots=n_slots, **defaults)
     install_sigterm_drain(httpd, api, float(defaults.get("drain_timeout_s") or 30.0))
-    log.info("serving on http://%s:%d (single-request + prefix cache)",
-             host, httpd.server_address[1])
-    print(f"🚀 http://{host}:{httpd.server_address[1]}/v1/chat/completions "
-          "(single-request + prefix cache)")
+    mode = (f"continuous batching, {n_slots} slots, {api.build_info['kv_layout']} KV"
+            if n_slots else "single-request + prefix cache")
+    log.info("serving on http://%s:%d (%s)", host, httpd.server_address[1], mode)
+    print(f"🚀 http://{host}:{httpd.server_address[1]}/v1/chat/completions ({mode})")
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
+        if api.scheduler is not None:
+            api.scheduler.shutdown()
         httpd.server_close()
     return 0

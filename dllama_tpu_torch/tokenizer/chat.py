@@ -170,3 +170,43 @@ class EosDetector:
     def reset(self) -> None:
         self.buffer = ""
         self._delta = None
+
+
+class TokenAssembler:
+    """EOS/stop-string assembly of one token stream: the detector, an
+    incremental decoder of its own (concurrent streams share the tokenizer)
+    and the emitted text. The single-engine and batched serving tiers and the
+    chat REPL all assemble their streams through it."""
+
+    __slots__ = ("detector", "decoder", "parts", "n", "eos")
+
+    def __init__(self, tokenizer: Tokenizer, stops: list[str]):
+        self.detector = EosDetector(tokenizer.eos_ids, stops, padding_left=2, padding_right=2)
+        self.decoder = tokenizer.make_stream_decoder()
+        self.parts: list[str] = []
+        self.n = 0
+        self.eos = False
+
+    def feed(self, t: int) -> str:
+        """Process one token -> the text delta to emit now ("" while the
+        detector holds a possible stop prefix); sets ``eos`` when the token
+        completed an EOS/stop sequence."""
+        self.n += 1
+        res = self.detector.append(t, self.decoder.decode(t))
+        text = self.detector.get_delta() or ""
+        if text:
+            self.parts.append(text)
+        if res == EosResult.EOS:
+            self.eos = True
+        return text
+
+    def flush(self) -> str:
+        """End of stream without EOS (budget/timeout): release any held stop
+        prefix -> the final text delta."""
+        text = self.detector.flush() or ""
+        if text:
+            self.parts.append(text)
+        return text
+
+    def content(self) -> str:
+        return "".join(self.parts)

@@ -85,8 +85,17 @@ def test_cli_on_the_cpu_when_asked(tmp_path):
 
 
 def test_unported_options_are_refused():
-    for flag in (["--cache-dtype", "f8"], ["--slots", "2"], ["--spec", "4"],
-                 ["--mesh", "tp=2"], ["--frontend", "aio"]):
-        from dllama_tpu_torch.cli.main import main
+    from dllama_tpu_torch.cli.main import main
 
-        assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", *flag]) == 2
+    for flag in (["--cache-dtype", "f8"], ["--spec", "4"], ["--mesh", "tp=2"],
+                 ["--frontend", "aio"], ["--slots", "2", "--spec", "4"],
+                 ["--slots", "2", "--radix-cache", "on"],
+                 ["--slots", "2", "--prefill-budget", "64"],
+                 ["--slots", "2", "--preempt", "on"], ["--slots", "2", "--kv-host-pages", "8"],
+                 ["--slots", "2", "--tenant-weight", "a=2"], ["--slots", "2", "--warmup", "auto"],
+                 ["--slots", "2", "--restart-max", "1"]):
+        assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", *flag]) == 2, flag
+    # the batched tier is ported: --slots passes the refusal and stops only
+    # at the missing tokenizer (exit 1)
+    assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", "--slots", "2",
+                 "--kv-layout", "paged", "--radix-cache", "auto", "--preempt", "off"]) == 1
