@@ -5,8 +5,8 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It drives the port's main path at the full width of Llama-3.1-8B Q40 (random
-weights from a seed) and exits 0 only if every phase passed:
+It drives the port's main paths at the full width of Llama-3.1-8B, Q40 and
+Q80 (random weights from a seed), and exits 0 only if every phase passed:
 
 1. card       the card's name and power limit (nvidia-smi), then the CUDA
               kernels built from dllama_tpu_torch/ops/csrc, one nvcc per
@@ -18,8 +18,9 @@ weights from a seed) and exits 0 only if every phase passed:
               port), with the L2 cache flushed before every timed run, and
               the bound max(bytes / HBM rate, operations / bf16 tensor rate).
               The paged attention kernel (K9, and K8 as its read-only mode)
-              also leaves the pools bit-equal to the plain scatter's; then
-              untimed edge cases of every kernel.
+              also leaves the pools bit-equal to the plain scatter's. The Q80
+              kernels (K5 decode, K6 prefill), RMSNorm (K10) and K7's f8 mode
+              come after; then untimed edge cases of every kernel.
 3. forward    a synthetic 8B Q40 `.m` + `.t` written to a temp dir and loaded
               with load_model; a 256-token prefill and 8 decode steps through
               the kernels against the same forward with the plain versions.
@@ -34,10 +35,20 @@ weights from a seed) and exits 0 only if every phase passed:
               layer and the Q40 kernels, no dense flash attention; after the
               drain the page pool audits clean with every page free.
 6. inference  the CLI's `inference` mode on the same files.
+7. f8         the same Q40 file loaded with the f8 (e4m3) KV cache: the
+              forward against the plain versions and HTTP serve, K7's f8 mode
+              in every layer of every forward.
+8. q80        after the Q40 files are gone, a synthetic 8B Q80 `.m` loaded
+              packed: the forward against the plain versions, HTTP serve on
+              the single-engine tier, the 8-slot batched server with the
+              RMSNorm switch at 'cuda' (K10), and the CLI's `inference
+              --fuse-weights`, whose greedy text must equal the unfused
+              engine's; Q80 kernels on every forward and no Q40 launch.
 
-`serve` and `batch` are the main paths: the launch counters are zeroed just
-before each and read just after it. `profile` (not in the default) adds a
-torch.profiler pass over one single-stream and one 8-slot decode chunk.
+`serve`, `batch`, `f8` and `q80` are the main paths: the launch counters are
+zeroed just before each of their runs and read just after it. `profile` (not
+in the default) adds a torch.profiler pass over one single-stream and one
+8-slot decode chunk.
 
 The line before the last is the card's name and power limit; before that, one
 JSON object lists every ported kernel with its numbers; the last line is
@@ -66,10 +77,16 @@ TOL_K2 = 2e-3  # x max|ref|: the same bf16 weights, only the order of sums diffe
 TOL_K7 = 2e-3  # absolute: both f32 from the same bf16 inputs
 TOL_FWD = 5e-2  # x max|logit|: the K1-vs-plain rounding compounds over 32 layers
 TOL_K9 = 2e-3  # absolute, as K7: both f32 from the same bf16 (or f32) inputs
+# K5/K6 take K1's/K2's tolerances for the same reasons (TOL_K1, TOL_K2); the
+# f8 mode of K7 takes TOL_K7: both sides widen the same e4m3 bytes to f32
+TOL_K10 = 2.0 ** -7  # x max|ref|: one bf16 ulp at the largest value (a sum
+# order or 1/sqrt vs rsqrt can move one rounding across a tie)
 N_LAYERS_8B = 32
 #: batch phase: one request at a time would give exactly 1 live slot a chunk
 MIN_BATCH_SLOTS = 2.0
 SERVE_KERNELS = ("q40_decode", "q40_prefill", "flash_attention")
+Q40_KERNELS = ("q40_decode", "q40_prefill")
+Q80_KERNELS = ("q80_decode", "q80_prefill")
 #: kernel -> (case of its row, source, TPU kernel it replaces, main path that
 #: launches it; None: no path routes it, as in the JAX package)
 KERNEL_ROWS = {
@@ -85,6 +102,15 @@ KERNEL_ROWS = {
     "paged_flash_attention": ("read-only decode B=8",
                               "dllama_tpu_torch/ops/csrc/paged_attention.cu",
                               "dllama_tpu/ops/pallas/flash_attention.py:257", None),
+    "q80_decode": ("w1 4096x14336 m=1", "dllama_tpu_torch/ops/csrc/q80_decode.cu",
+                   "dllama_tpu/ops/pallas/q80_matmul.py:47", "q80"),
+    "q80_prefill": ("w1 4096x14336 m=256", "dllama_tpu_torch/ops/csrc/q80_prefill.cu",
+                    "dllama_tpu/ops/pallas/q80_matmul.py:29", "q80"),
+    "rms_norm": ("m=1 x 4096", "dllama_tpu_torch/ops/csrc/rms_norm.cu",
+                 "dllama_tpu/ops/pallas/rms_norm.py:23", "q80"),
+    "flash_attention_f8": ("T=1 pos=4095 S=4096 group=4 f8 cache",
+                           "dllama_tpu_torch/ops/csrc/flash_attention.cu",
+                           "dllama_tpu/ops/pallas/flash_attention.py:49", "f8"),
 }
 
 
@@ -102,7 +128,7 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def llama31_8b(n_layers: int):
+def llama31_8b(n_layers: int, weight_type: str = "Q40"):
     from dllama_tpu_torch.models.config import LlamaConfig, RopeType
     from dllama_tpu_torch.ops.quant import FloatType
 
@@ -111,7 +137,7 @@ def llama31_8b(n_layers: int):
         vocab_size=128256, seq_len=131072, rope_theta=500000.0,
         rope_type=RopeType.LLAMA3_1, rope_scaling_factor=8.0,
         rope_scaling_low_freq_factor=1.0, rope_scaling_high_freq_factor=4.0,
-        rope_scaling_orig_max_seq_len=8192, weight_type=FloatType.Q40)
+        rope_scaling_orig_max_seq_len=8192, weight_type=FloatType[weight_type])
 
 
 # ------------------------------------------------------------------ timing
@@ -178,6 +204,138 @@ def random_q40(gen, lead, k, n, device):
     return QTensor(packed, scales)
 
 
+def random_q80(gen, lead, k, n, device):
+    """Random int8 codes over the whole range, -128 included, and small
+    positive f16 scales, stacked over `lead`."""
+    import torch
+
+    from dllama_tpu_torch.ops.quant import Q8Tensor
+
+    codes = torch.randint(-128, 128, (*lead, k, n), generator=gen, device=device,
+                          dtype=torch.int8)
+    codes.view(-1)[:: 4099] = -128
+    scales = (torch.rand((*lead, k // 32, n), generator=gen, device=device) * 0.02
+              + 1e-3).to(torch.float16)
+    return Q8Tensor(codes, scales)
+
+
+def report(kernel: str, case: dict) -> None:
+    print(f"  {kernel:18s} {case['case']:36s} err {case['max_abs_err']:.3e} <= tol "
+          f"{case['tol']:.3e}  ms {case['ms']}  plain {case['plain_ms']}  lib "
+          f"{case['library_ms']}  bound {case['bound_ms']:.4f} ({case['bound_by']})",
+          flush=True)
+    if not case["max_abs_err"] <= case["tol"]:
+        fail(f"{kernel} {case['case']}: max error {case['max_abs_err']} over {case['tol']}")
+
+
+def matmul_cases(cfg, device, timer, gen, fmt: str, plan, layer: int = 1) -> dict:
+    """The decode and prefill kernels of weight format `fmt` ('q40': K1/K2,
+    'q80': K5/K6) at the 8B shapes of `plan` [(kernel, weight, m)], each
+    weight stacked [L=2] with layer 1 used."""
+    import torch
+
+    from dllama_tpu_torch.ops import q40_matmul, q80_matmul
+    from dllama_tpu_torch.ops.quant import slice_leaf
+
+    mod, rand, weight_bytes = {"q40": (q40_matmul, random_q40, 0.5),
+                               "q80": (q80_matmul, random_q80, 1.0)}[fmt]
+    kernel_fn, plain_fn = getattr(mod, f"{fmt}_matmul"), getattr(mod, f"{fmt}_matmul_plain")
+    d, f, kvd, v = cfg.dim, cfg.hidden_dim, cfg.kv_dim, cfg.vocab_size
+    weights = {"wq": (d, d), "wk": (d, kvd), "w1": (d, f), "w2": (f, d), "wcls": (d, v)}
+    results: dict[str, list] = {}
+    for kernel, name, m in plan:
+        k, n = weights[name]
+        w = rand(gen, (2,), k, n, device)
+        x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+        decode = kernel.endswith("_decode")
+        assert (m <= mod.DECODE_MAX_M) == decode
+        got = kernel_fn(x, w, layer, out_dtype=torch.float32)
+        ref = plain_fn(x, w, layer, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        wd = slice_leaf(w, layer).dequantize(torch.bfloat16)
+        nbytes = m * k * 2 + int(k * n * weight_bytes) + (k // 32) * n * 2 + m * n * 2
+        b, by = bound_ms(nbytes, 2.0 * m * k * n)
+        case = dict(case=f"{name} {k}x{n} m={m}", max_abs_err=(got - ref).abs().max().item(),
+                    tol=(TOL_K1 if decode else TOL_K2) * ref.abs().max().item(),
+                    ms=timer(lambda: kernel_fn(x, w, layer)),
+                    plain_ms=timer(lambda: plain_fn(x, w, layer)),
+                    library_ms=timer(lambda: torch.matmul(x, wd)),
+                    bound_ms=b, bound_by=by)
+        report(kernel, case)
+        results.setdefault(kernel, []).append(case)
+        del w, wd, x, got, ref
+    return results
+
+
+def rms_norm_cases(cfg, device, timer) -> dict:
+    """K10 on bf16 rows of the model width, against its plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from dllama_tpu_torch.ops.layers import rms_norm_plain
+    from dllama_tpu_torch.ops.rms_norm import rms_norm
+
+    gen = torch.Generator(device=device).manual_seed(4)
+    d, eps = cfg.dim, cfg.norm_epsilon
+    w = 1.0 + 0.1 * torch.randn((d,), generator=gen, device=device)
+    cases = []
+    for m in (1, 8, 256):
+        x = (torch.randn((m, d), generator=gen, device=device) * 3).to(torch.bfloat16)
+        got, ref = rms_norm(x, w, eps), rms_norm_plain(x, w, eps)
+        torch.cuda.synchronize()
+        wb = w.to(torch.bfloat16)
+        b, by = bound_ms(2 * m * d * 2 + d * 4, 4.0 * m * d)
+        case = dict(case=f"m={m} x {d}", max_abs_err=(got.float() - ref.float()).abs().max().item(),
+                    tol=TOL_K10 * ref.float().abs().max().item(),
+                    ms=timer(lambda: rms_norm(x, w, eps)),
+                    plain_ms=timer(lambda: rms_norm_plain(x, w, eps)),
+                    library_ms=timer(lambda: F.rms_norm(x, (d,), wb, eps)),
+                    library="F.rms_norm with the weight in bf16", bound_ms=b, bound_by=by)
+        report("rms_norm", case)
+        cases.append(case)
+    return {"rms_norm": cases}
+
+
+def flash_f8_cases(cfg, device, timer) -> dict:
+    """K7's f8 mode: bf16 q over an e4m3 cache [1, Hkv, 4096, hd]."""
+    import torch
+    import torch.nn.functional as F
+
+    from dllama_tpu_torch.ops.flash_attention import flash_gqa_attention
+    from dllama_tpu_torch.ops.layers import gqa_attention
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    hq, hkv, hd, s = cfg.n_heads, cfg.n_kv_heads, cfg.head_size, 4096
+    f8 = torch.float8_e4m3fn
+    kc = torch.randn((1, hkv, s, hd), generator=gen, device=device).to(f8)
+    vc = torch.randn((1, hkv, s, hd), generator=gen, device=device).to(f8)
+    cases = []
+    for t, pos in ((1, 4095), (256, 2048)):
+        q = torch.randn((1, t, hq, hd), generator=gen, device=device).to(torch.bfloat16)
+        got = flash_gqa_attention(q, kc, vc, pos, out_dtype=torch.float32)
+        ref = gqa_attention(q.float(), kc.float(), vc.float(), pos)
+        torch.cuda.synchronize()
+        live = pos + t
+        # the yardstick reads a bf16 copy of the live rows, made here (untimed)
+        qt, kl, vl = (q.transpose(1, 2), kc[:, :, :live].to(torch.bfloat16),
+                      vc[:, :, :live].to(torch.bfloat16))
+        mask = (torch.arange(live, device=device)[None, :]
+                <= pos + torch.arange(t, device=device)[:, None])
+        nbytes = 2 * q.numel() * 2 + 2 * hkv * live * hd * 1
+        b, by = bound_ms(nbytes, 4.0 * hd * hq * sum(pos + i + 1 for i in range(t)))
+        case = dict(case=f"T={t} pos={pos} S={s} group={hq // hkv} f8 cache",
+                    max_abs_err=(got - ref).abs().max().item(), tol=TOL_K7,
+                    ms=timer(lambda: flash_gqa_attention(q, kc, vc, pos)),
+                    plain_ms=timer(lambda: gqa_attention(q, kc, vc, pos)),
+                    library_ms=timer(lambda: F.scaled_dot_product_attention(
+                        qt, kl, vl, attn_mask=mask, enable_gqa=True)),
+                    library="sdpa(enable_gqa) over a bf16 copy of the live f8 rows",
+                    bound_ms=b, bound_by=by)
+        report("flash_attention_f8", case)
+        cases.append(case)
+    return {"flash_attention_f8": cases}
+
+
 def phase_kernels(cfg, device, timer, layer=1):
     """Each kernel against its plain version at the main path's shapes.
     Returns {kernel: [case dicts]}."""
@@ -186,41 +344,13 @@ def phase_kernels(cfg, device, timer, layer=1):
 
     from dllama_tpu_torch.ops.flash_attention import flash_gqa_attention
     from dllama_tpu_torch.ops.layers import gqa_attention
-    from dllama_tpu_torch.ops.q40_matmul import DECODE_MAX_M, q40_matmul, q40_matmul_plain
-    from dllama_tpu_torch.ops.quant import QTensor
 
     gen = torch.Generator(device=device).manual_seed(0)
-    d, f, kvd, v = cfg.dim, cfg.hidden_dim, cfg.kv_dim, cfg.vocab_size
-    weights = {"wq": (d, d), "wk": (d, kvd), "w1": (d, f), "w2": (f, d), "wcls": (d, v)}
-    results: dict[str, list] = {"q40_decode": [], "q40_prefill": [], "flash_attention": []}
-    plan = [("q40_decode", name, m) for name in weights for m in (1, 8)]
+    names = ("wq", "wk", "w1", "w2", "wcls")
+    plan = [("q40_decode", name, m) for name in names for m in (1, 8)]
     plan += [("q40_prefill", name, m) for name in ("w1", "w2") for m in (32, 256)]
-    for kernel, name, m in plan:
-        k, n = weights[name]
-        w = random_q40(gen, (2,), k, n, device)  # stacked [L=2]; layer 1 is used
-        x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
-        assert (m <= DECODE_MAX_M) == (kernel == "q40_decode")
-        got = q40_matmul(x, w, layer, out_dtype=torch.float32)
-        ref = q40_matmul_plain(x, w, layer, out_dtype=torch.float32)
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        scale = ref.abs().max().item()
-        tol = (TOL_K1 if kernel == "q40_decode" else TOL_K2) * scale
-        wd = QTensor(w.packed[layer], w.scales[layer]).dequantize(torch.bfloat16)
-        nbytes = m * k * 2 + k * n // 2 + (k // 32) * n * 2 + m * n * 2
-        b, by = bound_ms(nbytes, 2.0 * m * k * n)
-        case = dict(case=f"{name} {k}x{n} m={m}", max_abs_err=err, tol=tol,
-                    ms=timer(lambda: q40_matmul(x, w, layer)),
-                    plain_ms=timer(lambda: q40_matmul_plain(x, w, layer)),
-                    library_ms=timer(lambda: torch.matmul(x, wd)),
-                    bound_ms=b, bound_by=by)
-        results[kernel].append(case)
-        print(f"  {kernel:15s} {case['case']:28s} err {err:.3e} <= tol {tol:.3e}  "
-              f"ms {case['ms']}  plain {case['plain_ms']}  lib {case['library_ms']}  "
-              f"bound {b:.4f} ({by})", flush=True)
-        if not err <= tol:
-            fail(f"{kernel} {case['case']}: max error {err} over tolerance {tol}")
-        del w, wd, x, got, ref
+    results = matmul_cases(cfg, device, timer, gen, "q40", plan, layer)
+    results["flash_attention"] = []
 
     hq, hkv, hd, s = cfg.n_heads, cfg.n_kv_heads, cfg.head_size, 4096
     group = hq // hkv
@@ -234,7 +364,6 @@ def phase_kernels(cfg, device, timer, layer=1):
         got = flash_gqa_attention(q, kc, vc, pos, out_dtype=torch.float32)
         ref = gqa_attention(q.float(), kc.float(), vc.float(), pos)
         torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
         live = pos + t
         qt, kl, vl = q.transpose(1, 2).to(kc.dtype), kc[:, :, :live], vc[:, :, :live]
         mask = (torch.arange(live, device=device)[None, :]
@@ -243,19 +372,15 @@ def phase_kernels(cfg, device, timer, layer=1):
         ops = 4.0 * hd * hq * sum(pos + i + 1 for i in range(t))
         b, by = bound_ms(nbytes, ops)
         tag = "" if cache_dtype == torch.bfloat16 else " f32 cache"
-        case = dict(case=f"T={t} pos={pos} S={s} group={group}{tag}", max_abs_err=err,
-                    tol=TOL_K7,
+        case = dict(case=f"T={t} pos={pos} S={s} group={group}{tag}",
+                    max_abs_err=(got - ref).abs().max().item(), tol=TOL_K7,
                     ms=timer(lambda: flash_gqa_attention(q, kc, vc, pos)),
                     plain_ms=timer(lambda: gqa_attention(q, kc, vc, pos)),
                     library_ms=timer(lambda: F.scaled_dot_product_attention(
                         qt, kl, vl, attn_mask=mask, enable_gqa=True)),
                     bound_ms=b, bound_by=by)
+        report("flash_attention", case)
         results["flash_attention"].append(case)
-        print(f"  flash_attention {case['case']:28s} err {err:.3e} <= tol {TOL_K7:.0e}  "
-              f"ms {case['ms']}  plain {case['plain_ms']}  lib {case['library_ms']}  "
-              f"bound {b:.4f} ({by})", flush=True)
-        if not err <= TOL_K7:
-            fail(f"flash_attention {case['case']}: max error {err} over {TOL_K7}")
 
     # K9 and K8 over a page pool at page 128 (Llama-3.1-8B's heads, bf16)
     results["paged_attention"], results["paged_flash_attention"] = [], []
@@ -270,6 +395,13 @@ def phase_kernels(cfg, device, timer, layer=1):
         case = paged_case(gen, device, timer, kernel, label, b, t, hq, hkv, hd, 128,
                           s // 128, pos, active, torch.bfloat16)
         results[kernel].append(case)
+    plan = [("q80_decode", name, m) for name, m in (("wq", 1), ("wk", 1), ("w1", 1),
+                                                    ("w1", 8), ("w2", 1), ("wcls", 1))]
+    plan += [("q80_prefill", name, m) for name, m in (("w1", 32), ("w1", 256), ("w2", 256))]
+    results.update(matmul_cases(cfg, device, timer, torch.Generator(device=device).manual_seed(3),
+                                "q80", plan, layer))
+    results.update(rms_norm_cases(cfg, device, timer))
+    results.update(flash_f8_cases(cfg, device, timer))
     return results
 
 
@@ -448,14 +580,117 @@ def phase_edges(device) -> None:
         print(f"  {tag}: err {err:.3e} <= tol {TOL_K9:.0e}, pools equal {same}", flush=True)
         if not (same and err <= TOL_K9):
             fail(f"{tag}: pools equal {same}, max error {err} (tol {TOL_K9})")
+    edges_slice3(device)
+
+
+def edges_slice3(device) -> None:
+    """Untimed edges of K5/K6, K10 and K7's f8 mode: random int8 codes with
+    -128, m = 16 and 17 on either side of the decode/prefill split (each
+    launching its kernel), a ragged n with and without aligned loads, an odd
+    count of 32-row k blocks, 2-D weights; a wide weight's first columns
+    bit-equal to the narrow weight's (the fused wqkv/w13 case) at decode and
+    at prefill row counts that split one and not the other; RMSNorm on f32,
+    on a strided row slice and on a width that is no multiple of 1024; the
+    f8 cache at head size 64 with per-row positions and T = 7."""
+    import torch
+
+    from dllama_tpu_torch.ops import q80_matmul as q80
+    from dllama_tpu_torch.ops.flash_attention import flash_gqa_attention
+    from dllama_tpu_torch.ops.layers import gqa_attention, rms_norm_plain
+    from dllama_tpu_torch.ops.quant import Q8Tensor
+    from dllama_tpu_torch.ops.rms_norm import rms_norm
+
+    gen = torch.Generator(device=device).manual_seed(6)
+    f32 = torch.float32
+    for m, k, n, stacked in ((16, 4096, 4096, True), (17, 4096, 1024, True),
+                             (3, 4128, 1000, True), (5, 256, 1002, False),
+                             (40, 512, 1003, False), (100, 4128, 1000, True)):
+        w = random_q80(gen, (2,) if stacked else (), k, n, device)
+        layer = 1 if stacked else None
+        x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+        before = dict(q80.LAUNCHES)
+        got = q80.q80_matmul(x, w, layer, out_dtype=f32)
+        ref = q80.q80_matmul_plain(x, w, layer, out_dtype=f32)
+        kernel = "q80_decode" if m <= 16 else "q80_prefill"
+        if q80.LAUNCHES[kernel] != before[kernel] + 1:
+            fail(f"q80 edge m={m}: {kernel} was not the kernel launched")
+        tol = (TOL_K1 if m <= 16 else TOL_K2) * ref.abs().max().item()
+        err = (got - ref).abs().max().item()
+        print(f"  edge q80 m={m} k={k} n={n}{'' if stacked else ' 2-D'} ({kernel}): "
+              f"err {err:.3e} <= tol {tol:.3e}", flush=True)
+        if not err <= tol:
+            fail(f"q80 edge m={m} k={k} n={n}: max error {err} over {tol}")
+    wide = random_q80(gen, (), 4096, 14336, device)
+    narrow = Q8Tensor(wide.codes[:, :1024].contiguous(), wide.scales[:, :1024].contiguous())
+    for m in (1, 8, 32, 256):
+        x = torch.randn((m, 4096), generator=gen, device=device).to(torch.bfloat16)
+        same = torch.equal(q80.q80_matmul(x, wide, out_dtype=f32)[:, :1024],
+                           q80.q80_matmul(x, narrow, out_dtype=f32))
+        print(f"  edge q80 m={m}: the first 1024 of 14336 columns bit-equal to a 1024-wide "
+              f"weight's: {same}", flush=True)
+        if not same:
+            fail(f"q80 edge m={m}: a column's sum depends on the weight's width")
+    w = 1.0 + 0.1 * torch.randn((4096,), generator=gen, device=device)
+    for label, x, wt in (
+            ("f32 3x5x4096", torch.randn((3, 5, 4096), generator=gen, device=device), w),
+            ("bf16 row slice x[:, -1:] of 2x7x4096",
+             torch.randn((2, 7, 4096), generator=gen, device=device).to(torch.bfloat16)[:, -1:],
+             w),
+            ("bf16 9x264", torch.randn((9, 264), generator=gen, device=device).to(torch.bfloat16),
+             w[:264])):
+        got, ref = rms_norm(x, wt, 1e-5), rms_norm_plain(x, wt, 1e-5)
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = (1e-5 if x.dtype == f32 else TOL_K10) * ref.float().abs().max().item()
+        print(f"  edge rms_norm {label}: err {err:.3e} <= tol {tol:.3e}", flush=True)
+        if not (got.shape == x.shape and err <= tol):
+            fail(f"rms_norm edge {label}: max error {err} over {tol}")
+    f8 = torch.float8_e4m3fn
+    for b, t, hq, hkv, hd, s, pos in ((2, 1, 8, 4, 64, 1000, [5, 900]),
+                                      (2, 7, 8, 4, 64, 1000, [0, 990]),
+                                      (1, 3, 4, 1, 128, 130, 70)):
+        q = torch.randn((b, t, hq, hd), generator=gen, device=device).to(torch.bfloat16)
+        kc = torch.randn((b, hkv, s, hd), generator=gen, device=device).to(f8)
+        vc = torch.randn((b, hkv, s, hd), generator=gen, device=device).to(f8)
+        pv = torch.tensor(pos, dtype=torch.int32, device=device) if isinstance(pos, list) else pos
+        got = flash_gqa_attention(q, kc, vc, pv, out_dtype=f32)
+        ref = gqa_attention(q.float(), kc.float(), vc.float(), pv)
+        err = (got - ref).abs().max().item()
+        print(f"  edge flash f8 B={b} T={t} heads={hq}/{hkv} hd={hd} S={s} pos={pos}: "
+              f"err {err:.3e} <= tol {TOL_K7:.0e}", flush=True)
+        if not err <= TOL_K7:
+            fail(f"flash f8 edge B={b} T={t} hd={hd} S={s}: max error {err} over {TOL_K7}")
 
 
 # ------------------------------------------------------------ phase 3
 
 
+def q80_records(scales, packed):
+    """Q40 blocks (f16 scales [nb], packed nibbles [nb, 16] in the file's
+    order) re-quantized to Q80 file records [nb, 34] as the converter does
+    (ops/quant.quantize_q80_np): f16 absmax/127, codes round(w / delta)."""
+    import torch
+
+    codes4 = torch.cat([(packed & 15).to(torch.int8) - 8, (packed >> 4).to(torch.int8) - 8],
+                       dim=1)
+    w = codes4.to(torch.float32) * scales.to(torch.float32)[:, None]
+    delta = w.abs().amax(dim=1) / 127.0
+    inv = torch.where(delta != 0, 1.0 / delta, torch.zeros_like(delta))
+    rec = torch.empty((w.shape[0], 34), dtype=torch.uint8, device=w.device)
+    rec[:, :2] = delta.to(torch.float16).view(torch.uint8).reshape(-1, 2)
+    rec[:, 2:] = torch.round(w * inv[:, None]).to(torch.int8).view(torch.uint8)
+    return rec
+
+
 def write_model(path: str, cfg, device, seed: int = 0) -> None:
     """A `.m` of `cfg` with random Q40 records (packed bytes + small positive
-    f16 scales) and a small f32 embedding, generated on the device."""
+    f16 scales) and a small f32 embedding, generated on the device. A Q80
+    `cfg` gets the same seed's Q40 weights re-quantized to Q80 (q80_records):
+    the same network, whose forward is as well conditioned as the Q40 one's.
+    (Uniform random int8 codes make a zero-mean random network that
+    amplifies the kernels' exact codes against the plain path's bf16-rounded
+    weights to 0.17 of max|logit| over 32 layers, where this recipe's nibbles,
+    whose mean is -s/2, keep it near 6.5e-3; the kernels phase feeds the Q80
+    kernels such codes, -128 included.)"""
     import numpy as np
     import torch
 
@@ -467,14 +702,16 @@ def write_model(path: str, cfg, device, seed: int = 0) -> None:
         write_header(f, cfg)
         for name, shape, ft in tensor_plan(cfg):
             n = int(np.prod(shape))
-            if ft == FloatType.Q40:
+            if ft in (FloatType.Q40, FloatType.Q80):
                 nb = n // 32
                 scales = (torch.rand(nb, generator=gen, device=device) * 0.02
                           + 1e-3).to(torch.float16)
-                rec = torch.empty((nb, 18), dtype=torch.uint8, device=device)
-                rec[:, :2] = scales.view(torch.uint8).reshape(nb, 2)
-                rec[:, 2:] = torch.randint(0, 256, (nb, 16), generator=gen, device=device,
-                                           dtype=torch.uint8)
+                packed = torch.randint(0, 256, (nb, 16), generator=gen, device=device,
+                                       dtype=torch.uint8)
+                if ft == FloatType.Q80:
+                    rec = q80_records(scales, packed)
+                else:
+                    rec = torch.cat([scales.view(torch.uint8).reshape(nb, 2), packed], dim=1)
                 f.write(rec.cpu().numpy().tobytes())
             elif name == "embedding":
                 for r0 in range(0, shape[0], 8192):
@@ -510,9 +747,9 @@ def write_tokenizer(path: str, vocab_size: int) -> None:
 
 
 def phase_forward(loaded, device, prefill: int = 256, decode: int = 8) -> float:
-    """Kernels vs plain versions through the whole forward; returns the
-    largest |logit difference| / max|logit| over the prefill and decode
-    steps."""
+    """Kernels vs plain versions through the whole forward, each on a fresh
+    cache of the engine's cache dtype; returns the largest |logit
+    difference| / max|logit| over the prefill and decode steps."""
     import functools
 
     import torch
@@ -530,7 +767,7 @@ def phase_forward(loaded, device, prefill: int = 256, decode: int = 8) -> float:
     for label, mm, attn in (
             ("kernels", eng.mm, eng.attn_fn),
             ("plain", functools.partial(matmul, backend="torch"), gqa_attention)):
-        cache = KVCache.create(cfg, 1, torch.bfloat16, eng.seq_len, device)
+        cache = KVCache.create(cfg, 1, eng.cache.k.dtype, eng.seq_len, device)
         outs = []
         with torch.no_grad():
             logits, _ = forward(cfg, eng.params, toks[:, :prefill], 0, cache,
@@ -688,14 +925,17 @@ def _concurrently(fn, args_list) -> list:
     return out
 
 
-def phase_batch(loaded, n_slots: int = 8, max_tokens: int = 32) -> dict:
+def phase_batch(loaded, n_slots: int = 8, max_tokens: int = 32,
+                mm_kernels: tuple = Q40_KERNELS) -> dict:
     """make_server with slots (what `serve --slots 8` runs) over real HTTP:
     the auto layout, n concurrent greedy chat requests twice (identical
     contents), one SSE stream, a seeded sampled request alone and among
     penalized batch-mates (the same stream), and the page pool after the
     drain. The launch counters are zeroed before the requests and read
-    after them. Decode must really run batched: the first round's decode
-    chunks must carry more than MIN_BATCH_SLOTS live slots on average."""
+    after them: every forward launches the model's matmul kernels
+    (`mm_kernels`, those of its weight format, and no other format's).
+    Decode must really run batched: the first round's decode chunks must
+    carry more than MIN_BATCH_SLOTS live slots on average."""
     from dllama_tpu_torch.serve.api import graceful_drain, make_server
 
     import torch
@@ -770,13 +1010,14 @@ def phase_batch(loaded, n_slots: int = 8, max_tokens: int = 32) -> dict:
                        for e in events[:-1])
     if streamed != contents[0][0]:
         fail("batch: streamed content differs from the non-stream completion")
-    q40 = launches["q40_decode"] + launches["q40_prefill"]
+    mm = sum(launches[k] for k in mm_kernels)
+    other = sum(launches[k] for k in Q40_KERNELS + Q80_KERNELS if k not in mm_kernels)
     per_fwd = 7 * loaded.config.n_layers + 1
     if (launches["paged_attention"] < loaded.config.n_layers * forwards
-            or q40 < per_fwd * forwards or launches["flash_attention"]):
+            or mm < per_fwd * forwards or other or launches["flash_attention"]):
         fail(f"batch: {launches} for {forwards} batched forwards (want >= "
-             f"{loaded.config.n_layers} paged_attention and >= {per_fwd} Q40 launches each, "
-             f"0 flash_attention)")
+             f"{loaded.config.n_layers} paged_attention and >= {per_fwd} {mm_kernels} launches "
+             f"each, no other matmul kernel, 0 flash_attention)")
     report = eng.pool.audit(raise_on_fail=False)
     if not (clean and report["ok"] and report["free"] == report["total"]):
         fail(f"batch: drain clean {clean}, pool after it {report}")
@@ -843,13 +1084,170 @@ def phase_profile_batch(loaded, n_slots: int = 8, steps: int = 8) -> dict:
             "top": [(name[:60], round(us / steps / 1e3, 4)) for us, name in top]}
 
 
+# ------------------------------------------------------------ phases 7-8
+
+
+def check_forward(loaded, device, label: str) -> float:
+    rel = phase_forward(loaded, device)
+    print(f"{label}: prefill 256 + 8 decode, max|logit diff|/max|logit| = {rel:.3e} <= "
+          f"{TOL_FWD}", flush=True)
+    if not rel <= TOL_FWD:
+        fail(f"{label}: kernels vs plain logits differ by {rel} of max|logit|")
+    return rel
+
+
+def serve_checked(loaded, prompt: str, label: str, mm_kernels: tuple, per_fwd: int,
+                  attn: str) -> dict:
+    """phase_serve with the launch counters zeroed just before and read just
+    after: at least `per_fwd` launches of `mm_kernels` and n_layers of
+    `attn` per forward, none of the other weight format's kernels."""
+    n_layers = loaded.config.n_layers
+    f0 = loaded.engine.forwards
+    reset_counters()
+    serve = phase_serve(loaded, prompt)
+    launches = counters()
+    fwd = loaded.engine.forwards - f0
+    print(f"{label}: {serve}; forwards {fwd}; launches {launches}", flush=True)
+    mm = sum(launches[k] for k in mm_kernels)
+    other = sum(launches[k] for k in Q40_KERNELS + Q80_KERNELS if k not in mm_kernels)
+    if mm < per_fwd * fwd or launches[attn] < n_layers * fwd or other:
+        fail(f"{label}: {mm} {mm_kernels} / {launches[attn]} {attn} launches for {fwd} "
+             f"forwards (want >= {per_fwd} / {n_layers} each and no other matmul kernel)")
+    return launches
+
+
+def phase_f8(mpath: str, tpath: str, device, prompt: str) -> dict:
+    """The Q40 8B file with the f8 (e4m3) KV cache on the dense layout: the
+    forward through the kernels against the plain versions, then HTTP on the
+    single-engine tier, every forward launching K7's f8 mode in every layer
+    (and never its bf16 mode). Returns the launches of the serve run."""
+    import torch
+
+    from dllama_tpu_torch.engine.loader import load_model
+
+    loaded = load_model(mpath, tpath, max_seq_len=4096, cache_dtype=torch.float8_e4m3fn,
+                        device=device)
+    eng = loaded.engine
+    if eng.cache.k.dtype != torch.float8_e4m3fn or eng.attn_route != "flash":
+        fail(f"f8: cache {eng.cache.k.dtype}, attention {eng.attn_route}; want e4m3, flash")
+    check_forward(loaded, device, "f8 forward")
+    launches = serve_checked(loaded, prompt, "f8 serve", Q40_KERNELS,
+                             7 * loaded.config.n_layers + 1, "flash_attention_f8")
+    if launches["flash_attention"]:
+        fail(f"f8 serve: {launches['flash_attention']} launches of K7's bf16 mode")
+    del loaded, eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_q80(device, prompt: str) -> dict:
+    """A synthetic Llama-3.1-8B Q80 `.m` at full width and depth, loaded
+    packed: the forward through K5/K6 against the plain versions; HTTP on
+    the single-engine tier; `serve --slots 8` (paged, K9) with the RMSNorm
+    switch at 'cuda' (K10 on a served path; restored after); the CLI's
+    `inference --fuse-weights`, whose greedy text must equal the unfused
+    engine's. Every sub-check zeroes the launch counters just before it and
+    reads them just after: Q80 kernels on every forward (>= 7L+1 unfused,
+    >= 4L+1 fused per forward) and no Q40 launch; >= 2L+1 rms_norm launches
+    per forward with the switch on. Returns the launches summed over the
+    sub-checks."""
+    import torch
+
+    from dllama_tpu_torch.cli.main import main as cli
+    from dllama_tpu_torch.engine.loader import load_model
+    from dllama_tpu_torch.engine.sampling import Sampler
+    from dllama_tpu_torch.ops import layers
+    from dllama_tpu_torch.ops.quant import Q8Tensor
+
+    cfg = llama31_8b(N_LAYERS_8B, "Q80")
+    n_layers = cfg.n_layers
+    with tempfile.TemporaryDirectory(prefix="dllama_smoke_q80_") as tmp:
+        mpath, tpath = os.path.join(tmp, "llama31_8b_q80.m"), os.path.join(tmp, "tok.t")
+        t0 = time.perf_counter()
+        write_model(mpath, cfg, device)
+        write_tokenizer(tpath, cfg.vocab_size)
+        print(f"q80: wrote synthetic {cfg.describe()} ({os.path.getsize(mpath) / 1e9:.2f} GB) "
+              f"in {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        loaded = load_model(mpath, tpath, max_seq_len=4096, device=device)
+        print(f"q80: load_model {time.perf_counter() - t0:.1f} s; kernels={loaded.engine.backend} "
+              f"attention={loaded.engine.attn_route}", flush=True)
+        layers_p = loaded.engine.params["layers"]
+        if not all(isinstance(layers_p[k], Q8Tensor) for k in ("wq", "wk", "wv", "wo", "w1",
+                                                               "w2", "w3")):
+            fail("q80: the weights did not load as packed Q8Tensors")
+        check_forward(loaded, device, "q80 forward")
+        total: dict[str, int] = {}
+
+        def add(launches):
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+
+        add(serve_checked(loaded, prompt, "q80 serve", Q80_KERNELS, 7 * n_layers + 1,
+                          "flash_attention"))
+        layers.RMS_NORM_IMPL = "cuda"
+        try:
+            batch = phase_batch(loaded, mm_kernels=Q80_KERNELS)
+        finally:
+            layers.RMS_NORM_IMPL = "torch"
+        launches = batch.pop("launches")
+        print(f"q80 batch: {batch}; launches {launches}", flush=True)
+        if launches["rms_norm"] < (2 * n_layers + 1) * batch["forwards"]:
+            fail(f"q80 batch: {launches['rms_norm']} rms_norm launches for "
+                 f"{batch['forwards']} forwards (want >= {2 * n_layers + 1} each)")
+        add(launches)
+
+        # the unfused engine's greedy text, as the CLI prints it
+        eng, tok = loaded.engine, loaded.tokenizer
+        eng.reset(0)
+        tok.reset_decoder()
+        ids = list(eng.generate(tok.encode(prompt, add_bos=True), 32, Sampler(0.0, 0.9, 0),
+                                stop_fn=tok.is_eos))
+        want = "".join(p for p in (tok.decode(t) for t in ids) if p) + "\n"
+        del loaded, eng
+        torch.cuda.empty_cache()
+
+        reset_counters()
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli(["inference", "--model", mpath, "--tokenizer", tpath, "--prompt", prompt,
+                      "--temperature", "0", "--steps", "32", "--max-seq-len", "4096",
+                      "--fuse-weights"])
+        launches = counters()
+        stats = [ln for ln in err.getvalue().splitlines()
+                 if ln.startswith(("Prefill:", "Decode:"))]
+        print(f"q80 inference --fuse-weights: rc {rc}; {' | '.join(stats)}; launches {launches}",
+              flush=True)
+        decode_tokens = len(ids) - 1  # every token after the first takes a decode forward
+        mm = sum(launches[k] for k in Q80_KERNELS)
+        if rc != 0 or mm < (4 * n_layers + 1) * (decode_tokens + 1) or any(
+                launches[k] for k in Q40_KERNELS):
+            fail(f"q80 inference: rc {rc}, launches {launches} for >= {decode_tokens + 1} "
+                 f"forwards (want >= {4 * n_layers + 1} Q80 and no Q40 launches each)")
+        if out.getvalue() != want:
+            fail(f"q80 inference: the fused CLI's greedy text differs from the unfused "
+                 f"engine's: {out.getvalue()[:200]!r} vs {want[:200]!r}")
+        print(f"q80 inference: fused greedy text equals the unfused engine's "
+              f"({len(ids)} tokens)", flush=True)
+        add(launches)
+    torch.cuda.empty_cache()
+    return total
+
+
 # ------------------------------------------------------------ main
 
 
 def _launch_tables():
-    from dllama_tpu_torch.ops import flash_attention, paged_attention, q40_matmul
+    from dllama_tpu_torch.ops import (
+        flash_attention,
+        paged_attention,
+        q40_matmul,
+        q80_matmul,
+        rms_norm,
+    )
 
-    return (q40_matmul.LAUNCHES, flash_attention.LAUNCHES, paged_attention.LAUNCHES)
+    return (q40_matmul.LAUNCHES, q80_matmul.LAUNCHES, flash_attention.LAUNCHES,
+            paged_attention.LAUNCHES, rms_norm.LAUNCHES)
 
 
 def counters() -> dict:
@@ -868,7 +1266,7 @@ def reset_counters() -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=20, help="timed runs per case (0: no timing)")
-    ap.add_argument("--phases", default="card,kernels,forward,serve,batch,inference",
+    ap.add_argument("--phases", default="card,kernels,forward,serve,batch,inference,f8,q80",
                     help="comma list; 'profile' (not in the default) adds a "
                          "torch.profiler pass over one decode chunk, single-stream "
                          "and 8-slot")
@@ -909,7 +1307,9 @@ def main(argv=None) -> int:
         phase_edges(device)
 
     paths: dict[str, dict] = {}  # launch counts of each path, read just after it
-    if phases & {"forward", "serve", "profile", "batch", "inference"}:
+    prompt = ("Summarize the plot of a long story about a lighthouse keeper, "
+              "a storm, and a ship that never arrives.")
+    if phases & {"forward", "serve", "profile", "batch", "inference", "f8"}:
         from dllama_tpu_torch.engine.loader import load_model
 
         tmp = tempfile.TemporaryDirectory(prefix="dllama_smoke_")
@@ -923,28 +1323,13 @@ def main(argv=None) -> int:
         loaded = load_model(mpath, tpath, max_seq_len=4096, device=device)
         print(f"load_model: {time.perf_counter() - t0:.1f} s; kernels={loaded.engine.backend} "
               f"attention={loaded.engine.attn_route}", flush=True)
-        prompt = ("Summarize the plot of a long story about a lighthouse keeper, "
-                  "a storm, and a ship that never arrives.")
 
         if "forward" in phases:
-            rel = phase_forward(loaded, device)
-            print(f"forward: prefill 256 + 8 decode, max|logit diff|/max|logit| = "
-                  f"{rel:.3e} <= {TOL_FWD}", flush=True)
-            if not rel <= TOL_FWD:
-                fail(f"forward: kernels vs plain logits differ by {rel} of max|logit|")
+            check_forward(loaded, device, "forward")
 
         if "serve" in phases:
-            f0 = loaded.engine.forwards
-            reset_counters()
-            serve = phase_serve(loaded, prompt)
-            launches = counters()
-            fwd = loaded.engine.forwards - f0
-            print(f"serve: {serve}; forwards {fwd}; launches {launches}", flush=True)
-            q40 = launches["q40_decode"] + launches["q40_prefill"]
-            per_fwd = 7 * cfg.n_layers + 1
-            if q40 < per_fwd * fwd or launches["flash_attention"] < cfg.n_layers * fwd:
-                fail(f"serve: {q40} Q40 / {launches['flash_attention']} flash launches "
-                     f"for {fwd} forwards (want >= {per_fwd} / {cfg.n_layers} each)")
+            launches = serve_checked(loaded, prompt, "serve", Q40_KERNELS,
+                                     7 * cfg.n_layers + 1, "flash_attention")
             for k in SERVE_KERNELS:
                 if launches[k] == 0:
                     fail(f"serve: kernel {k} was never launched on the single-engine path")
@@ -994,7 +1379,13 @@ def main(argv=None) -> int:
             if rc != 0 or min(inf_launches[k] for k in SERVE_KERNELS) == 0:
                 fail("inference: the CLI failed or skipped a kernel")
         del loaded
-        tmp.cleanup()
+        torch.cuda.empty_cache()
+        if "f8" in phases:
+            paths["f8"] = phase_f8(mpath, tpath, device, prompt)
+        tmp.cleanup()  # the Q40 model and its files go before the Q80 ones come
+
+    if "q80" in phases:
+        paths["q80"] = phase_q80(device, prompt)
 
     if results:
         line = []

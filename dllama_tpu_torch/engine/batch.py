@@ -354,8 +354,7 @@ class BatchEngine:
         device=None,  # default: the device the params lie on
     ):
         if cache_dtype not in CACHE_DTYPES:
-            raise NotImplementedError(f"KV cache dtype {cache_dtype} is not yet ported to "
-                                      "the PyTorch/CUDA package (bf16 and f32 are)")
+            raise ValueError(f"KV cache dtype {cache_dtype} is not one of {CACHE_DTYPES}")
         self.cfg = cfg
         self.device = torch.device(device) if device is not None else params["embedding"].device
         self.params = params  # fused wqkv/w13 when the caller's engine fused them

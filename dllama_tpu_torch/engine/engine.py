@@ -22,7 +22,8 @@ from dllama_tpu_torch.models.config import LlamaConfig
 from dllama_tpu_torch.models.llama import KVCache, forward, fuse_layer_weights
 from dllama_tpu_torch.ops.layers import build_rope_cache
 
-CACHE_DTYPES = (torch.bfloat16, torch.float32)
+#: KV cache element types; e4m3 is the f8 cache (--cache-dtype f8)
+CACHE_DTYPES = (torch.bfloat16, torch.float32, torch.float8_e4m3fn)
 
 
 def pow2_chunk(remaining: int, max_chunk: int) -> int:
@@ -76,9 +77,7 @@ class InferenceEngine:
         device=None,
     ):
         if cache_dtype not in CACHE_DTYPES:
-            raise NotImplementedError(
-                f"KV cache dtype {cache_dtype} is not yet ported to the "
-                f"PyTorch/CUDA package (bf16 and f32 are)")
+            raise ValueError(f"KV cache dtype {cache_dtype} is not one of {CACHE_DTYPES}")
         self.cfg = cfg
         self.device = torch.device(device) if device is not None else params["embedding"].device
         self.params = params

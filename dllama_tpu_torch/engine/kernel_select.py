@@ -4,12 +4,14 @@ engine runs.
 
 Rules (the unsharded branches of the JAX package's resolve_kernels):
 
-* ``auto`` on a CUDA device, or ``cuda``: the Q40 kernels and flash
-  attention. Their wrappers run the plain versions for CPU tensors.
+* ``auto`` on a CUDA device, or ``cuda``: the Q40/Q80 kernels and flash
+  attention, which takes bf16, f32 and e4m3 (``--cache-dtype f8``) dense
+  caches. Their wrappers run the plain versions for CPU tensors.
 * ``auto`` on the CPU, or ``torch``: plain PyTorch matmuls and attention.
 * Paged KV layout: route ``paged_kernel`` (the paged attention kernel with
   its fused KV scatter) on a CUDA device with ``auto``/``cuda``; a paged
-  layout the kernel does not take raises there, naming ``--kernels torch``.
+  layout the kernel does not take (an f8 pool among them: the kernel keeps
+  the JAX package's bf16/f32 rule) raises there, naming ``--kernels torch``.
   ``--kernels torch``, or the CPU, gives ``paged_gather`` (the plain
   block-table gather). K8 (``paged_flash_gqa_attention``) is not routed.
 """

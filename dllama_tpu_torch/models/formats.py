@@ -12,10 +12,10 @@ order (llm.cpp:453-468):
   wcls [vocab, dim]                                            (weight_type)
 
 Matmul tensors are stored [out, in] row-major and load as transposed
-``x @ W`` operands ([in, out]): Q40 becomes a :class:`QTensor`, f32/f16
-become dense tensors. Loading is eager and goes straight to one device: the
-raw Q40 records are uploaded as they are and rearranged into the device
-layout there.
+``x @ W`` operands ([in, out]): Q40 becomes a :class:`QTensor`, Q80 a
+:class:`Q8Tensor`, f32/f16 become dense tensors. Loading is eager and goes
+straight to one device: the raw Q40/Q80 records are uploaded as they are and
+rearranged into the device layout there.
 """
 
 from __future__ import annotations
@@ -221,13 +221,10 @@ def _load_matmul(raw: np.ndarray, shape: tuple[int, int], ft: FloatType, dtype, 
         scales = rec[:, :2].contiguous().view(torch.float16)
         return QTensor.from_file_layout(rec[:, 2:], scales, n_out, k_in, device)
     if ft == FloatType.Q80:
-        if device.type != "cpu":
-            raise NotImplementedError(
-                "Q80 weight files are not yet ported to the PyTorch/CUDA "
-                "package on a GPU (no Q80 kernel); load them with --device cpu")
-        rec = raw.reshape(n_out * k_in // Q_BLOCK, 2 + Q_BLOCK)
-        scales = rec[:, :2].copy().view(np.float16)
-        return Q8Tensor.from_file_layout(rec[:, 2:].view(np.int8), scales, n_out, k_in, device)
+        rec = _to_device(raw, device).view(n_out * k_in // Q_BLOCK, 2 + Q_BLOCK)
+        scales = rec[:, :2].contiguous().view(torch.float16)
+        return Q8Tensor.from_file_layout(rec[:, 2:].view(torch.int8), scales, n_out, k_in,
+                                         device)
     return _to_device(decode_dense(raw, shape, ft).T, device, dtype)
 
 

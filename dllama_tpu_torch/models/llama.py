@@ -6,7 +6,10 @@ Per layer (the reference's att+ff segments):
 with pre-RMSNorm before each block. A Python loop walks the layers; the
 weights stay stacked [L, ...] and each layer takes views of its slice.
 Unlike the functional JAX version, the KV cache (dense, or the paged pool)
-is updated in place where JAX donates its buffers.
+is updated in place where JAX donates its buffers. An f8 (e4m3) cache takes
+its new rows cast once, then written as bytes (``_as_bytes``): some indexing
+ops have no float8 kernel, and the byte copy is exact. Casting saturates at
+±448 in torch where JAX gives NaN; values in range round identically.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from dllama_tpu_torch.ops.layers import (
     rms_norm,
 )
 from dllama_tpu_torch.ops.matmul import matmul
-from dllama_tpu_torch.ops.quant import QTensor
+from dllama_tpu_torch.ops.quant import Q8Tensor, QTensor
 
 
 @dataclasses.dataclass
@@ -39,8 +42,24 @@ class KVCache:
     def create(cls, cfg: LlamaConfig, batch: int, dtype=torch.bfloat16,
                seq_len: int | None = None, device="cpu") -> "KVCache":
         shape = (cfg.n_layers, batch, cfg.n_kv_heads, seq_len or cfg.seq_len, cfg.head_size)
-        return cls(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device))
+        return cls(_zeros(shape, dtype, device), _zeros(shape, dtype, device))
+
+
+def _zeros(shape, dtype, device) -> torch.Tensor:
+    """A zero cache buffer; an e4m3 one as zero bytes (+0.0), which needs no
+    float8 fill kernel."""
+    if dtype == torch.float8_e4m3fn:
+        return torch.zeros(shape, dtype=torch.uint8, device=device).view(dtype)
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def _as_bytes(cache: torch.Tensor, new: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cache, new) to write: ``new`` cast to the cache's dtype; for an f8
+    cache both as u8 views of the same bytes."""
+    new = new.to(cache.dtype)
+    if cache.dtype == torch.float8_e4m3fn:
+        return cache.view(torch.uint8), new.view(torch.uint8)
+    return cache, new
 
 
 @dataclasses.dataclass
@@ -63,8 +82,7 @@ class PagedKVCache:
                dtype=torch.bfloat16, max_blocks: int = 0, device="cpu") -> "PagedKVCache":
         shape = (cfg.n_layers, n_pages + 1, cfg.n_kv_heads, page_size, cfg.head_size)
         tables = torch.zeros((n_slots, max_blocks or 1), dtype=torch.int32, device=device)
-        return cls(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device), tables)
+        return cls(_zeros(shape, dtype, device), _zeros(shape, dtype, device), tables)
 
     @property
     def page_size(self) -> int:
@@ -81,7 +99,7 @@ def _cache_update(cache: torch.Tensor, new: torch.Tensor, pos_base,
     """Write new [B, H, T, hd] rows into one layer's cache [B, H, S, hd] at
     pos (an int, or a [B] tensor of per-row positions), in place. Rows with
     active == False keep their old contents (frozen slots of a batch)."""
-    new = new.to(cache.dtype)
+    cache, new = _as_bytes(cache, new)
     t = new.shape[2]
     if isinstance(pos_base, torch.Tensor) and pos_base.dim() == 1:
         rows = pos_base.to(torch.long)[:, None] + torch.arange(t, device=cache.device)
@@ -107,9 +125,10 @@ def _paged_cache_update(pool: torch.Tensor, new: torch.Tensor, tables: torch.Ten
     duplicate writes the last one's values, so the result does not depend on
     the order in which index_put_ applies them."""
     b, h, t, hd = new.shape
+    pool, new = _as_bytes(pool, new)
     pages, off = paged_write_targets(tables, pos_base, t, pool.shape[2], pool.shape[0], active)
     flat = (pages.long() * pool.shape[2] + off.long()).reshape(-1)  # [B*T]
-    vals = new.to(pool.dtype).permute(0, 2, 1, 3).reshape(b * t, h, hd)
+    vals = new.permute(0, 2, 1, 3).reshape(b * t, h, hd)
     if b * t > 1:
         order = torch.arange(b * t, device=flat.device)
         last = torch.where(flat[None, :] == flat[:, None], order[None, :], -1).amax(dim=1)
@@ -165,13 +184,17 @@ def _layer(cfg: LlamaConfig, x, layers, li, k_cache, v_cache, rope, pos_base,
 
 def fuse_layer_weights(layers: dict) -> dict:
     """wq/wk/wv -> wqkv and w1/w3 -> w13, concatenated on the output dim:
-    five matmul launches per layer become two. Exact for QTensors (packed
-    nibbles and f16 scales both carry the output dim last)."""
+    five matmul launches per layer become two. Exact for QTensors and
+    Q8Tensors (packed nibbles or int8 codes, and f16 scales, all carry the
+    output dim last)."""
 
     def cat(*ws):
         if isinstance(ws[0], QTensor):
             return QTensor(torch.cat([w.packed for w in ws], dim=-1),
                            torch.cat([w.scales for w in ws], dim=-1))
+        if isinstance(ws[0], Q8Tensor):
+            return Q8Tensor(torch.cat([w.codes for w in ws], dim=-1),
+                            torch.cat([w.scales for w in ws], dim=-1))
         return torch.cat(ws, dim=-1)
 
     out = dict(layers)

@@ -23,13 +23,16 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 #: C entry point of each library (named like its source) -> argument types.
 #: Every pointer and the stream are c_void_p; every entry returns the CUDA
 #: error state after its launches as an int (0 = success).
 SIGNATURES = {
     "q40_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "q40_prefill": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "q80_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "q80_prefill": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "rms_norm": (_P, _P, _P, _I, _I, _LL, _F, _I, _P),
     "flash_attention": (_P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

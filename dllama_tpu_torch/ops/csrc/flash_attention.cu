@@ -28,8 +28,13 @@
 //    rows padded by one word so lanes reading different keys hit different
 //    banks). Scores and the online softmax are f32, masked entries take
 //    -1e30, and a row whose sum is 0 divides by 1, as on the TPU.
+//  * The cache element has its own type beside q's: bf16 or f32 as q, or
+//    e4m3 under a bf16 q (the f8 KV cache, --cache-dtype f8). An e4m3 value
+//    widens to f32 exactly (cuda_fp8.h), so everything after the load stays
+//    f32, as in the TPU kernel, and the f8 mode moves half the cache bytes.
 //  * Still simple: CUDA-core FMAs, no tensor cores, one tile in flight.
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -43,6 +48,7 @@ constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 v) { return static_cast<float>(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
@@ -68,9 +74,9 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src, int 
   }
 }
 
-template <typename T, typename TO, int HD>
+template <typename T, typename TC, typename TO, int HD>
 __global__ void __launch_bounds__(kThreads) flash_kernel(
-    const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
+    const T* __restrict__ q, const TC* __restrict__ kc, const TC* __restrict__ vc,
     TO* __restrict__ out, float* __restrict__ o_part, float* __restrict__ ml_part,
     const int* __restrict__ pos_vec, int pos_scalar, int T_, int Hq, int Hkv, int S,
     int tiles_per_split, float scale) {
@@ -122,8 +128,8 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
   for (int tile = tile0; tile < tile1; ++tile) {
     const int s0 = tile * TS;
     __syncthreads();  // Q is loaded / the previous tile's reads are done
-    load_tile<T, HD>(Ks, HD + 1, kc + head_off + (size_t)s0 * HD, TS, S - s0);
-    load_tile<T, HD>(Vs, HD, vc + head_off + (size_t)s0 * HD, TS, S - s0);
+    load_tile<TC, HD>(Ks, HD + 1, kc + head_off + (size_t)s0 * HD, TS, S - s0);
+    load_tile<TC, HD>(Vs, HD, vc + head_off + (size_t)s0 * HD, TS, S - s0);
     __syncthreads();
     if (!warp_live) continue;
 
@@ -253,21 +259,21 @@ __global__ void flash_combine(const float* __restrict__ o_part,
         num / (den == 0.f ? 1.f : den));
 }
 
-template <typename T, typename TO, int HD>
+template <typename T, typename TC, typename TO, int HD>
 int launch(const void* q, const void* k, const void* v, void* out, void* o_part,
            void* ml_part, const void* pos_vec, int pos_scalar, int B, int T_, int Hq,
            int Hkv, int S, int splits, int tiles_per_split, cudaStream_t st) {
   constexpr int kSmem = (TQ * HD + TS * (HD + 1) + TS * HD + TQ * TS) * 4;
   static bool configured = false;
   if (!configured) {
-    cudaFuncSetAttribute(flash_kernel<T, TO, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaFuncSetAttribute(flash_kernel<T, TC, TO, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          kSmem);
     configured = true;
   }
   const int rows = T_ * (Hq / Hkv);
   dim3 grid((rows + TQ - 1) / TQ, B * Hkv, splits);
-  flash_kernel<T, TO, HD><<<grid, kThreads, kSmem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+  flash_kernel<T, TC, TO, HD><<<grid, kThreads, kSmem, st>>>(
+      static_cast<const T*>(q), static_cast<const TC*>(k), static_cast<const TC*>(v),
       static_cast<TO*>(out), static_cast<float*>(o_part), static_cast<float*>(ml_part),
       static_cast<const int*>(pos_vec), pos_scalar, T_, Hq, Hkv, S, tiles_per_split,
       1.0f / sqrtf((float)HD));
@@ -282,8 +288,9 @@ int launch(const void* q, const void* k, const void* v, void* out, void* o_part,
 
 }  // namespace
 
-// q [B, T, Hq, hd]; k, v [B, Hkv, S, hd] of one dtype (0 = bf16, 1 = f32);
-// out [B, T, Hq, hd] in that dtype, or in f32 when out_f32; hd 64 or 128. pos_vec: i32 [B] on the device,
+// q [B, T, Hq, hd]; k, v [B, Hkv, S, hd]; dtype 0 = q and cache bf16, 1 =
+// both f32, 2 = bf16 q over an e4m3 cache; out [B, T, Hq, hd] in q's dtype,
+// or in f32 when out_f32; hd 64 or 128. pos_vec: i32 [B] on the device,
 // or null to use pos_scalar for every sequence. o_part f32 [splits, B*Hkv,
 // rows_pad, hd] and ml_part f32 [splits, B*Hkv, rows_pad, 2] are scratch,
 // unused when splits == 1. Returns the CUDA error state after the launches
@@ -298,12 +305,17 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
   q, k, v, out, o_part, ml_part, pos_vec, pos_scalar, B, T_, Hq, Hkv, S, splits, \
       tiles_per_split, st
   using bf16 = __nv_bfloat16;
-  if (dtype == 0 && !out_f32 && hd == 128) return launch<bf16, bf16, 128>(DLLAMA_FLASH_ARGS);
-  if (dtype == 0 && !out_f32 && hd == 64) return launch<bf16, bf16, 64>(DLLAMA_FLASH_ARGS);
-  if (dtype == 0 && out_f32 && hd == 128) return launch<bf16, float, 128>(DLLAMA_FLASH_ARGS);
-  if (dtype == 0 && out_f32 && hd == 64) return launch<bf16, float, 64>(DLLAMA_FLASH_ARGS);
-  if (dtype == 1 && hd == 128) return launch<float, float, 128>(DLLAMA_FLASH_ARGS);
-  if (dtype == 1 && hd == 64) return launch<float, float, 64>(DLLAMA_FLASH_ARGS);
+  using f8 = __nv_fp8_e4m3;
+  if (dtype == 0 && !out_f32 && hd == 128) return launch<bf16, bf16, bf16, 128>(DLLAMA_FLASH_ARGS);
+  if (dtype == 0 && !out_f32 && hd == 64) return launch<bf16, bf16, bf16, 64>(DLLAMA_FLASH_ARGS);
+  if (dtype == 0 && out_f32 && hd == 128) return launch<bf16, bf16, float, 128>(DLLAMA_FLASH_ARGS);
+  if (dtype == 0 && out_f32 && hd == 64) return launch<bf16, bf16, float, 64>(DLLAMA_FLASH_ARGS);
+  if (dtype == 1 && hd == 128) return launch<float, float, float, 128>(DLLAMA_FLASH_ARGS);
+  if (dtype == 1 && hd == 64) return launch<float, float, float, 64>(DLLAMA_FLASH_ARGS);
+  if (dtype == 2 && !out_f32 && hd == 128) return launch<bf16, f8, bf16, 128>(DLLAMA_FLASH_ARGS);
+  if (dtype == 2 && !out_f32 && hd == 64) return launch<bf16, f8, bf16, 64>(DLLAMA_FLASH_ARGS);
+  if (dtype == 2 && out_f32 && hd == 128) return launch<bf16, f8, float, 128>(DLLAMA_FLASH_ARGS);
+  if (dtype == 2 && out_f32 && hd == 64) return launch<bf16, f8, float, 64>(DLLAMA_FLASH_ARGS);
 #undef DLLAMA_FLASH_ARGS
   return -1;
 }

@@ -6,7 +6,9 @@ wrapper.
 cache ``[B, Hkv, S, hd]``, ``pos`` an int or an i32 ``[B]`` tensor), which is
 its plain version. On a CUDA tensor it launches ``csrc/flash_attention.cu``
 (replaces ``dllama_tpu/ops/pallas/flash_attention.py:_kernel``); on a CPU
-tensor it runs the plain version.
+tensor it runs the plain version. A bf16 ``q`` over an e4m3 cache (the f8 KV
+cache) is the kernel's f8 mode, which widens the cache bytes to f32 as the
+TPU kernel does; its launches count under ``flash_attention_f8``.
 
 ``paged_flash_gqa_attention`` is the block-table variant (replaces
 ``dllama_tpu/ops/pallas/flash_attention.py:_paged_kernel``, K8): the signature
@@ -31,9 +33,11 @@ TS = 64  # cache rows per KV tile
 HEAD_SIZES = (64, 128)
 MIN_TILES_PER_SPLIT = 2
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+F8_MODE = 2  # the source's dtype code of a bf16 q over an e4m3 cache
 
-#: kernel launches made through the wrapper (a plain int under one key)
-LAUNCHES = {"flash_attention": 0, "paged_flash_attention": 0}
+#: kernel launches made through the wrappers (plain ints; the f8 mode counts
+#: apart from the bf16/f32 modes)
+LAUNCHES = {"flash_attention": 0, "flash_attention_f8": 0, "paged_flash_attention": 0}
 
 
 def supported(head_size: int) -> bool:
@@ -70,9 +74,12 @@ def flash_gqa_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.T
         return out.to(out_dtype or q.dtype)
     if k_cache.device != q.device or v_cache.device != q.device:
         raise ValueError("flash_gqa_attention: q and the cache are on different devices")
-    if q.dtype not in _DTYPES or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
-        raise ValueError("flash_gqa_attention: q and the cache must share one dtype "
-                         f"of bf16/f32, got {q.dtype}/{k_cache.dtype}/{v_cache.dtype}")
+    f8 = q.dtype == torch.bfloat16 and k_cache.dtype == torch.float8_e4m3fn
+    same = q.dtype in _DTYPES and k_cache.dtype == q.dtype
+    if not (f8 or same) or v_cache.dtype != k_cache.dtype:
+        raise ValueError("flash_gqa_attention: q and the cache must share one dtype of "
+                         "bf16/f32, or be a bf16 q over an e4m3 cache, got "
+                         f"{q.dtype}/{k_cache.dtype}/{v_cache.dtype}")
     if hd not in HEAD_SIZES:
         raise ValueError(f"flash_gqa_attention: head size {hd} not in {HEAD_SIZES}")
     if (tuple(k_cache.shape) != (b, hkv, s, hd) or v_cache.shape != k_cache.shape
@@ -109,11 +116,11 @@ def flash_gqa_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.T
         o_part.data_ptr() if o_part is not None else None,
         ml_part.data_ptr() if ml_part is not None else None,
         pos_vec.data_ptr() if pos_vec is not None else None, pos_scalar,
-        b, t, hq, hkv, s, hd, _DTYPES[q.dtype], int(out_dtype == torch.float32),
-        splits, per,
+        b, t, hq, hkv, s, hd, F8_MODE if f8 else _DTYPES[q.dtype],
+        int(out_dtype == torch.float32), splits, per,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check("flash_attention", err)
-    LAUNCHES["flash_attention"] += 1
+    LAUNCHES["flash_attention_f8" if f8 else "flash_attention"] += 1
     return out
 
 

@@ -17,8 +17,25 @@ import torch.nn.functional as F
 from dllama_tpu_torch.models.config import HiddenAct, LlamaConfig, RopeType
 
 
+#: 'torch' (the default) runs the plain norm below; 'cuda' routes through
+#: ops/rms_norm (the CUDA kernel, K10), as the JAX package's 'pallas' switch
+#: routes its Pallas kernel. Off by default there too: flip only with a
+#: recorded win.
+RMS_NORM_IMPL = "torch"
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     """y = x * w / rms(x) with f32 accumulation (nn-cpu-ops.cpp:108-183)."""
+    if RMS_NORM_IMPL == "cuda":
+        from dllama_tpu_torch.ops.rms_norm import rms_norm as cuda_rms_norm
+
+        return cuda_rms_norm(x, weight, eps)
+    return rms_norm_plain(x, weight, eps)
+
+
+def rms_norm_plain(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """The plain version of the RMSNorm kernel: mean of squares in f32,
+    rsqrt(+eps), times the f32 weight, one cast to ``x.dtype``."""
     xf = x.to(torch.float32)
     inv = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     return (xf * inv * weight.to(torch.float32)).to(x.dtype)

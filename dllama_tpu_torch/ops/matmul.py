@@ -1,10 +1,12 @@
-"""Matmul dispatch: the CUDA Q40 kernels, or plain PyTorch.
+"""Matmul dispatch: the CUDA Q40/Q80 kernels, or plain PyTorch.
 
 Two backends, resolved once per engine from the ``--kernels`` flag:
 
-* ``cuda``  — Q40 weights go through the hand-written kernels
-              (ops/q40_matmul.py). Their wrappers run the plain version for
-              CPU tensors, so this backend is also correct on the CPU.
+* ``cuda``  — Q40 and Q80 weights go through the hand-written kernels
+              (ops/q40_matmul.py, ops/q80_matmul.py), as the JAX package
+              routes both to its Pallas kernels. Their wrappers run the plain
+              version for CPU tensors, so this backend is also correct on the
+              CPU.
 * ``torch`` — dequantize-then-dot in plain PyTorch everywhere: the
               counterpart of the JAX package's ``xla`` backend, taken only
               when asked for explicitly.
@@ -20,6 +22,7 @@ import functools
 import torch
 
 from dllama_tpu_torch.ops.q40_matmul import q40_matmul, q40_matmul_plain
+from dllama_tpu_torch.ops.q80_matmul import q80_matmul, q80_matmul_plain
 from dllama_tpu_torch.ops.quant import Q8Tensor, QTensor, slice_leaf
 
 BACKENDS = ("auto", "cuda", "torch")
@@ -47,13 +50,11 @@ def matmul(x: torch.Tensor, w, layer=None, backend: str = "cuda") -> torch.Tenso
         if backend == "cuda":
             return q40_matmul(x, w, layer)
         return q40_matmul_plain(x, w, layer)
-    if layer is not None and len(w.shape) == 3:
-        w = slice_leaf(w, layer)
     if isinstance(w, Q8Tensor):
-        if x.device.type != "cpu":
-            raise NotImplementedError("Q80 weights are not yet ported to the "
-                                      "PyTorch/CUDA package on a GPU")
-        wd = w.dequantize(x.dtype)
-    else:
-        wd = w.to(x.dtype)
+        if backend == "cuda":
+            return q80_matmul(x, w, layer)
+        return q80_matmul_plain(x, w, layer)
+    if layer is not None and w.dim() == 3:
+        w = slice_leaf(w, layer)
+    wd = w.to(x.dtype)
     return torch.matmul(x.to(torch.float32), wd.to(torch.float32)).to(x.dtype)

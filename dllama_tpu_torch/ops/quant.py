@@ -165,8 +165,10 @@ class QTensor:
 @dataclasses.dataclass
 class Q8Tensor:
     """A Q80 weight for ``x @ W``: ``codes: i8[(L,) k, n]``, ``scales:
-    f16[(L,) k/32, n]`` — the same output-dim-last layout as :class:`QTensor`.
-    Only the CPU path reads it: no kernel is written for it yet."""
+    f16[(L,) k/32, n]`` — the same output-dim-last layout as :class:`QTensor`,
+    so neighbouring threads of the Q80 kernels (ops/q80_matmul.py) read
+    neighbouring output columns. ``codes[li]`` of the contiguous stack is a
+    view, never a copy."""
 
     codes: torch.Tensor
     scales: torch.Tensor

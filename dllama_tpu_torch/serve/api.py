@@ -721,8 +721,8 @@ def resolve_kv_layout(loaded, kv_layout: str = "auto", page_size: int = 128) -> 
     where the paged attention kernel takes the configuration
     (ops.paged_attention.paged_decode_supported), with the page shrunk to
     gcd(page_size, context) so short contexts stay paged; a gcd under 8 rows
-    or a configuration the kernel refuses resolves to dense. An explicit
-    layout is kept as given."""
+    or a configuration the kernel refuses (an f8 cache among them) resolves
+    to dense. An explicit layout is kept as given."""
     from dllama_tpu_torch.ops.paged_attention import paged_decode_supported
 
     page_size = int(page_size or 128)

@@ -80,8 +80,9 @@ def test_truncated_file_names_the_tensor(tmp_path):
 
 
 def test_q80_file_loads_like_jax(tmp_path):
-    """A Q80 `.m` keeps its weights packed on the CPU (codes + f16 scales,
-    byte-equal to the JAX package's Q8Tensor leaves); a GPU refuses them."""
+    """A Q80 `.m` keeps its weights packed (codes + f16 scales, byte-equal
+    to the JAX package's Q8Tensor leaves), and loads packed on another
+    device too (the raw records are uploaded, then rearranged there)."""
     from dllama_tpu.models.config import LlamaConfig
     from dllama_tpu.ops.quant import FloatType
 
@@ -95,5 +96,12 @@ def test_q80_file_loads_like_jax(tmp_path):
     cfg, hs = tf.read_header(path)
     _assert_same(jf.load_params(path, *jf.read_header(path), q80_packed=True),
                  tf.load_params(path, cfg, hs))
-    with pytest.raises(NotImplementedError, match="Q80"):
-        tf.load_params(path, cfg, hs, device="meta")
+    from dllama_tpu_torch.ops.quant import Q8Tensor
+
+    meta = tf.load_params(path, cfg, hs, device="meta")
+    for w in [meta["wcls"], *(meta["layers"][n] for n in ("wq", "wk", "w1", "w2"))]:
+        assert isinstance(w, Q8Tensor)
+        assert w.codes.device.type == "meta" and w.codes.dtype == torch.int8
+        assert w.scales.dtype == torch.float16
+        assert w.scales.shape[-2:] == (w.codes.shape[-2] // 32, w.codes.shape[-1])
+    assert meta["layers"]["w1"].codes.shape == (1, 64, 96)
