@@ -22,7 +22,8 @@ Q80 (random weights from a seed), and exits 0 only if every phase passed:
               kernels (K5 decode, K6 prefill), RMSNorm (K10) and K7's f8 mode
               come after; then untimed edge cases of every kernel.
 3. forward    a synthetic 8B Q40 `.m` + `.t` written to a temp dir and loaded
-              with load_model; a 256-token prefill and 8 decode steps through
+              with load_model; a 256-token prefill, 8 decode steps and a
+              9-row spec verify forward (every position's logits) through
               the kernels against the same forward with the plain versions.
 4. serve      make_server (the function `serve` runs) over real HTTP on the
               single-engine tier: a greedy chat completion, the same again
@@ -44,11 +45,28 @@ Q80 (random weights from a seed), and exits 0 only if every phase passed:
               RMSNorm switch at 'cuda' (K10), and the CLI's `inference
               --fuse-weights`, whose greedy text must equal the unfused
               engine's; Q80 kernels on every forward and no Q40 launch.
+9. kbench     the kernel benchmark (dllama_tpu_torch.experiments.kbench):
+              `suite`, then `8 w1 B D`; no FAILED row, KBENCH DONE at the end;
+              its kernels K11-B/K11-D launched.
+10. styles    the Q40 8B model with q40_matmul.STYLE at maskdot, loopdot and
+              deq: the forward against the plain versions, 32 greedy tokens
+              through the `inference` CLI; decode forwards launch K3 (K4) in
+              every matmul and K1 never, prefill chunks launch K2.
+11. spec      `inference --spec 8` on a repetitive prompt (its emitted tokens
+              and verify forwards printed; K1 and K7 launched); the greedy ids
+              of spec 8 and spec 0 equal, or first differ at a near-tie of the
+              plain run's logits; HTTP serve with --spec 8 and a spec_k 0
+              request.
 
-`serve`, `batch`, `f8` and `q80` are the main paths: the launch counters are
-zeroed just before each of their runs and read just after it. `profile` (not
-in the default) adds a torch.profiler pass over one single-stream and one
-8-slot decode chunk.
+The kernels phase also holds K3 (maskdot, tensor cores) and K4 (loopdot, CUDA
+cores) against their plain versions and against K1, and K11-B/K11-D against
+theirs; K1 at 9 rows and K7 at 9 query rows (the spec verify forward); and
+every kernel the kbench phase launches on kbench's own inputs (each variant
+of its suite rows and of `8 w1 B D`, the tile sweep, the flash rows), since
+the benchmark checks no result. `serve`, `batch`, `f8`, `q80`, `kbench`, `styles` and `spec` are the
+main paths: the launch counters are zeroed just before each of their runs and
+read just after it. `profile` (not in the default) adds a torch.profiler pass
+over one single-stream and one 8-slot decode chunk.
 
 The line before the last is the card's name and power limit; before that, one
 JSON object lists every ported kernel with its numbers; the last line is
@@ -72,6 +90,7 @@ import time
 
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 BF16_OPS_S = 989e12  # H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
+F32_OPS_S = 67e12  # H100 SXM f32 rate outside the tensor cores (NVIDIA data sheet)
 TOL_K1 = 5e-3  # x max|ref|: exact codes + f32 scales vs a bf16-rounded weight
 TOL_K2 = 2e-3  # x max|ref|: the same bf16 weights, only the order of sums differs
 TOL_K7 = 2e-3  # absolute: both f32 from the same bf16 inputs
@@ -81,11 +100,16 @@ TOL_K9 = 2e-3  # absolute, as K7: both f32 from the same bf16 (or f32) inputs
 # f8 mode of K7 takes TOL_K7: both sides widen the same e4m3 bytes to f32
 TOL_K10 = 2.0 ** -7  # x max|ref|: one bf16 ulp at the largest value (a sum
 # order or 1/sqrt vs rsqrt can move one rounding across a tie)
+TOL_K34 = 1e-4  # x max|ref|: K3/K4 vs their plain versions and vs K1, all f32
+# sums of the same exact-code products, only the order differs
+TOL_K11 = 1e-4  # x max|ref|: K11-B/K11-D vs plain, the same f32 products
 N_LAYERS_8B = 32
 #: batch phase: one request at a time would give exactly 1 live slot a chunk
 MIN_BATCH_SLOTS = 2.0
 SERVE_KERNELS = ("q40_decode", "q40_prefill", "flash_attention")
-Q40_KERNELS = ("q40_decode", "q40_prefill")
+Q40_KERNELS = ("q40_decode", "q40_prefill", "q40_maskdot", "q40_loopdot")
+#: kernel of each forced decode style of q40_matmul.STYLE
+STYLE_KERNELS = {"maskdot": "q40_maskdot", "loopdot": "q40_loopdot", "deq": "q40_prefill"}
 Q80_KERNELS = ("q80_decode", "q80_prefill")
 #: kernel -> (case of its row, source, TPU kernel it replaces, main path that
 #: launches it; None: no path routes it, as in the JAX package)
@@ -111,6 +135,14 @@ KERNEL_ROWS = {
     "flash_attention_f8": ("T=1 pos=4095 S=4096 group=4 f8 cache",
                            "dllama_tpu_torch/ops/csrc/flash_attention.cu",
                            "dllama_tpu/ops/pallas/flash_attention.py:49", "f8"),
+    "q40_maskdot": ("w1 4096x14336 m=1", "dllama_tpu_torch/ops/csrc/q40_maskdot.cu",
+                    "dllama_tpu/ops/pallas/q40_matmul.py:208", "styles-maskdot"),
+    "q40_loopdot": ("w1 4096x14336 m=1", "dllama_tpu_torch/ops/csrc/q40_loopdot.cu",
+                    "dllama_tpu/ops/pallas/q40_matmul.py:234", "styles-loopdot"),
+    "kbench_fma_f32": ("w1 4096x14336 m=8", "dllama_tpu_torch/ops/csrc/kbench_fma_f32.cu",
+                       "experiments/kbench.py:40", "kbench"),
+    "kbench_bf16_gemm": ("w1 4096x14336 m=8", "dllama_tpu_torch/ops/csrc/kbench_bf16_gemm.cu",
+                         "experiments/kbench.py:66", "kbench"),
 }
 
 
@@ -178,8 +210,8 @@ class Timer:
         return statistics.median(times)
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    tb, to = nbytes / HBM_BYTES_S * 1e3, ops / BF16_OPS_S * 1e3
+def bound_ms(nbytes: float, ops: float, ops_s: float = BF16_OPS_S) -> tuple[float, str]:
+    tb, to = nbytes / HBM_BYTES_S * 1e3, ops / ops_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -347,7 +379,8 @@ def phase_kernels(cfg, device, timer, layer=1):
 
     gen = torch.Generator(device=device).manual_seed(0)
     names = ("wq", "wk", "w1", "w2", "wcls")
-    plan = [("q40_decode", name, m) for name in names for m in (1, 8)]
+    # m = 9: the spec verify forward (k + 1 rows at --spec 8)
+    plan = [("q40_decode", name, m) for name in names for m in (1, 8, 9)]
     plan += [("q40_prefill", name, m) for name in ("w1", "w2") for m in (32, 256)]
     results = matmul_cases(cfg, device, timer, gen, "q40", plan, layer)
     results["flash_attention"] = []
@@ -358,7 +391,8 @@ def phase_kernels(cfg, device, timer, layer=1):
     vc = torch.randn((1, hkv, s, hd), generator=gen, device=device).to(torch.bfloat16)
     for t, pos, cache_dtype in ((1, 0, torch.bfloat16), (1, 1000, torch.bfloat16),
                                 (1, 4095, torch.bfloat16), (256, 0, torch.bfloat16),
-                                (256, 2048, torch.bfloat16), (1, 1000, torch.float32)):
+                                (256, 2048, torch.bfloat16), (9, 1000, torch.bfloat16),
+                                (1, 1000, torch.float32)):  # T=9: a spec verify forward
         q = torch.randn((1, t, hq, hd), generator=gen, device=device).to(torch.bfloat16)
         kc, vc = kc.to(cache_dtype), vc.to(cache_dtype)
         got = flash_gqa_attention(q, kc, vc, pos, out_dtype=torch.float32)
@@ -661,6 +695,258 @@ def edges_slice3(device) -> None:
             fail(f"flash f8 edge B={b} T={t} hd={hd} S={s}: max error {err} over {TOL_K7}")
 
 
+def style_case(style: str, x, w, layer, label: str):
+    """One call of the `style` kernel (K3/K4) through q40_matmul, checked
+    to launch that kernel, against its plain version and against K1 on the
+    same inputs -> (out, error vs plain, error vs K1, tolerance)."""
+    import torch
+
+    from dllama_tpu_torch.ops import q40_matmul as q40
+
+    plain = q40.STYLE_PLAIN[style]
+    kernel = STYLE_KERNELS[style]
+    before = q40.LAUNCHES[kernel]
+    with q40.forced_style(style):
+        got = q40.q40_matmul(x, w, layer, out_dtype=torch.float32)
+    if q40.LAUNCHES[kernel] != before + 1:
+        fail(f"{label}: STYLE={style} did not launch {kernel}")
+    with q40.forced_style("blockdot"):
+        k1 = q40.q40_matmul(x, w, layer, out_dtype=torch.float32)
+    ref = plain(x, w, layer, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    tol = TOL_K34 * ref.abs().max().item()
+    err, err_k1 = (got - ref).abs().max().item(), (got - k1).abs().max().item()
+    if not (err <= tol and err_k1 <= tol):
+        fail(f"{label}: max error {err} vs plain, {err_k1} vs K1, over {tol}")
+    return got, err, err_k1, tol
+
+
+def style_cases(cfg, device, timer, layer: int = 1) -> dict:
+    """K3 (maskdot) and K4 (loopdot) at the 8B decode shapes, m = 1 and 8
+    (K3 also 16), each weight stacked [L=2] with layer 1 used: against the
+    plain versions and K1, then timed beside the plain version and
+    torch.matmul on the pre-dequantized bf16 weight."""
+    import torch
+
+    from dllama_tpu_torch.ops import q40_matmul as q40
+    from dllama_tpu_torch.ops.quant import slice_leaf
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    d, f, kvd, v = cfg.dim, cfg.hidden_dim, cfg.kv_dim, cfg.vocab_size
+    weights = {"wq": (d, d), "wk": (d, kvd), "w1": (d, f), "w2": (f, d), "wcls": (d, v)}
+    results: dict[str, list] = {"q40_maskdot": [], "q40_loopdot": []}
+    for name, (k, n) in weights.items():
+        w = random_q40(gen, (2,), k, n, device)
+        wd = slice_leaf(w, layer).dequantize(torch.bfloat16)
+        for style, ms in (("maskdot", (1, 8, 16)), ("loopdot", (1, 8))):
+            kernel = STYLE_KERNELS[style]
+            plain = q40.STYLE_PLAIN[style]
+            for m in ms:
+                x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+                _, err, err_k1, tol = style_case(style, x, w, layer, f"{kernel} {name} m={m}")
+
+                def run(x=x):
+                    with q40.forced_style(style):
+                        return q40.q40_matmul(x, w, layer)
+
+                nbytes = m * k * 2 + k * n // 2 + (k // 32) * n * 2 + m * n * 2
+                b, by = bound_ms(nbytes, 2.0 * m * k * n)
+                case = dict(case=f"{name} {k}x{n} m={m}", max_abs_err=err, err_vs_k1=err_k1,
+                            tol=tol, ms=timer(run),
+                            plain_ms=timer(lambda x=x: plain(x, w, layer)),
+                            library_ms=timer(lambda x=x: torch.matmul(x, wd)),
+                            bound_ms=b, bound_by=by)
+                report(kernel, case)
+                results[kernel].append(case)
+        del w, wd
+    return results
+
+
+def kbench_cases(cfg, device, timer) -> dict:
+    """K11-B (f32-FMA Q40) and K11-D (bf16 weights) at w1, m = 8 and 256,
+    against their plain versions; the library yardsticks are torch.matmul on
+    the f32 dequantized weight (K11-B) and on the bf16 one (K11-D)."""
+    import torch
+
+    from dllama_tpu_torch.experiments import kbench
+
+    gen = torch.Generator(device=device).manual_seed(8)
+    k, n = cfg.dim, cfg.hidden_dim
+    w = random_q40(gen, (), k, n, device)
+    scales32 = w.scales.to(torch.float32)
+    wf = kbench.fma_dequantize(w.packed, scales32)
+    wb = w.dequantize(torch.bfloat16)
+    results: dict[str, list] = {"kbench_fma_f32": [], "kbench_bf16_gemm": []}
+    for m in (8, 256):
+        x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+        for kernel, fn, plain, lib, nbytes, ops_s in (
+                ("kbench_fma_f32", lambda x: kbench.fma_f32(x, w.packed, scales32),
+                 lambda x: kbench.fma_f32_plain(x, w.packed, scales32),
+                 lambda x: torch.matmul(x.float(), wf),
+                 m * k * 2 + k * n // 2 + (k // 32) * n * 4 + m * n * 4, F32_OPS_S),
+                ("kbench_bf16_gemm", lambda x: kbench.bf16_gemm(x, wb),
+                 lambda x: kbench.bf16_gemm_plain(x, wb), lambda x: torch.matmul(x, wb),
+                 m * k * 2 + k * n * 2 + m * n * 4, BF16_OPS_S)):
+            before = kbench.LAUNCHES[kernel]
+            got, ref = fn(x), plain(x)
+            torch.cuda.synchronize()
+            if kbench.LAUNCHES[kernel] != before + 1:
+                fail(f"{kernel}: the wrapper did not launch its kernel")
+            b, by = bound_ms(nbytes, 2.0 * m * k * n, ops_s)
+            case = dict(case=f"w1 {k}x{n} m={m}", max_abs_err=(got - ref).abs().max().item(),
+                        tol=TOL_K11 * ref.abs().max().item(),
+                        ms=timer(lambda x=x, fn=fn: fn(x)),
+                        plain_ms=timer(lambda x=x, plain=plain: plain(x)),
+                        library_ms=timer(lambda x=x, lib=lib: lib(x)), bound_ms=b, bound_by=by)
+            report(kernel, case)
+            results[kernel].append(case)
+    return results
+
+
+def kbench_shape_checks() -> None:
+    """Every kernel the kbench phase launches, held against its plain
+    version on the benchmark's own inputs (kbench.make_inputs at
+    kbench.SHAPES, kbench.flash_inputs): each kernel variant of each SUITE
+    row and of `8 w1 B D`, K1 under each tile of the sweep, and K7 on every
+    flash row. Untimed: kbench only times."""
+    import torch
+
+    from dllama_tpu_torch.experiments import kbench
+    from dllama_tpu_torch.ops import q40_matmul as q40
+    from dllama_tpu_torch.ops import q80_matmul as q80
+    from dllama_tpu_torch.ops.flash_attention import flash_gqa_attention
+    from dllama_tpu_torch.ops.layers import gqa_attention
+
+    f32 = torch.float32
+
+    def check(what, got, ref, tol):
+        torch.cuda.synchronize()
+        err, tol = (got - ref).abs().max().item(), tol * ref.abs().max().item()
+        print(f"  kbench inputs {what}: err {err:.3e} <= tol {tol:.3e}", flush=True)
+        if not err <= tol:
+            fail(f"kbench inputs {what}: max error {err} over {tol}")
+
+    def style_tol(style):
+        return {"blockdot": TOL_K1, "deq": TOL_K2}.get(style, TOL_K34)
+
+    for m, label, variants in [*kbench.SUITE, (8, "w1", ["B", "D"])]:
+        w, x, _ = kbench.make_inputs(m, label)
+        k, n = kbench.SHAPES[label]
+        for v in variants:
+            what = f"m={m} {label} {v}"
+            if v in kbench.STYLE_OF:
+                style = q40.resolve_style(kbench.STYLE_OF[v], m)
+                with q40.forced_style(kbench.STYLE_OF[v]):
+                    got = q40.q40_matmul(x, w, out_dtype=f32)
+                ref = q40.STYLE_PLAIN.get(style, q40.q40_matmul_plain)(x, w, out_dtype=f32)
+                check(f"{what} ({style})", got, ref, style_tol(style))
+            elif v == "B":
+                s32 = w.scales.to(f32)
+                check(what, kbench.fma_f32(x, w.packed, s32),
+                      kbench.fma_f32_plain(x, w.packed, s32), TOL_K11)
+            elif v == "D":
+                wb = w.dequantize(torch.bfloat16)
+                check(what, kbench.bf16_gemm(x, wb), kbench.bf16_gemm_plain(x, wb), TOL_K11)
+                del wb
+            elif v == "Q8":
+                w8 = kbench.make_q80(k, n)
+                check(what, q80.q80_matmul(x, w8, out_dtype=f32),
+                      q80.q80_matmul_plain(x, w8, out_dtype=f32),
+                      TOL_K1 if m <= q80.DECODE_MAX_M else TOL_K2)
+                del w8
+        del w, x
+    w, x, _ = kbench.make_inputs(8, "w1")
+    k, n = kbench.SHAPES["w1"]
+    ref = q40.q40_matmul_plain(x, w, out_dtype=f32)
+    for tk in kbench.SWEEP_TK:
+        for tn in kbench.SWEEP_TN:
+            if k % tk or n % tn:
+                continue
+            with q40.forced_style("blockdot", tk, tn):
+                got = q40.q40_matmul(x, w, out_dtype=f32)
+            check(f"tile sweep m=8 w1 tk={tk} tn={tn}", got, ref, TOL_K1)
+    for section, label, q, kc, vc, pos in kbench.flash_inputs():
+        got = flash_gqa_attention(q, kc, vc, pos, out_dtype=f32)
+        ref = gqa_attention(q.float(), kc.float(), vc.float(), pos)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        print(f"  kbench inputs flash {section} {label}: err {err:.3e} <= tol {TOL_K7:.0e}",
+              flush=True)
+        if not err <= TOL_K7:
+            fail(f"kbench inputs flash {label}: max error {err} over {TOL_K7}")
+
+
+def edges_slice4(device) -> None:
+    """Untimed edges of the decode-style ladder: K2 at m = 1 and 8 under
+    STYLE=deq (its row mask); K1 tile overrides that do not divide k or are
+    not compiled falling back to the default launch bit for bit, and valid
+    ones within K1's tolerance; K3 at m = 9 and K3/K4 on ragged n, an odd
+    count of 32-row k blocks and a 2-D weight; K11-B/K11-D at ragged m and n."""
+    import torch
+
+    from dllama_tpu_torch.experiments import kbench
+    from dllama_tpu_torch.ops import q40_matmul as q40
+
+    gen = torch.Generator(device=device).manual_seed(9)
+    f32 = torch.float32
+    for m, k, n in ((1, 4096, 1024), (8, 4096, 4096), (8, 4128, 1000)):
+        w = random_q40(gen, (2,), k, n, device)
+        x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+        before = q40.LAUNCHES["q40_prefill"]
+        with q40.forced_style("deq"):
+            got = q40.q40_matmul(x, w, 1, out_dtype=f32)
+        ref = q40.q40_matmul_plain(x, w, 1, out_dtype=f32)
+        err, tol = (got - ref).abs().max().item(), TOL_K2 * ref.abs().max().item()
+        print(f"  edge STYLE=deq m={m} k={k} n={n} (K2): err {err:.3e} <= tol {tol:.3e}",
+              flush=True)
+        if q40.LAUNCHES["q40_prefill"] != before + 1 or not err <= tol:
+            fail(f"deq edge m={m}: K2 not launched, or max error {err} over {tol}")
+    w = random_q40(gen, (2,), 4096, 14336, device)
+    x = torch.randn((8, 4096), generator=gen, device=device).to(torch.bfloat16)
+    with q40.forced_style("blockdot"):
+        default = q40.q40_matmul(x, w, 1, out_dtype=f32)
+    ref = q40.q40_matmul_plain(x, w, 1, out_dtype=f32)
+    for tk, tn in ((96, 384), (100, 64), (4096 * 2, 128), (512, 512), (1024, 128), (2048, 256)):
+        before = q40.LAUNCHES["q40_decode"]
+        with q40.forced_style("blockdot", tk, tn):
+            got = q40.q40_matmul(x, w, 1, out_dtype=f32)
+        applied = q40.blockdot_tiles(4096, 14336, tk, tn)
+        err, tol = (got - ref).abs().max().item(), TOL_K1 * ref.abs().max().item()
+        same = torch.equal(got, default)
+        print(f"  edge BLOCKDOT_TK/TN={tk}/{tn} -> {applied}: err {err:.3e} <= tol {tol:.3e}, "
+              f"bit-equal to the default launch {same}", flush=True)
+        if q40.LAUNCHES["q40_decode"] != before + 1 or not err <= tol or (
+                applied == (None, None) and not same):
+            fail(f"K1 tile override {tk}/{tn}: launches, error {err} (tol {tol}) or fallback")
+    for style, m, k, n, stacked in (("maskdot", 9, 4096, 1024, True),
+                                    ("maskdot", 3, 4128, 1000, True),
+                                    ("maskdot", 16, 256, 1002, False),
+                                    ("loopdot", 3, 4128, 1000, True),
+                                    ("loopdot", 16, 256, 1002, False),
+                                    ("loopdot", 9, 4096, 1024, True)):
+        w = random_q40(gen, (2,) if stacked else (), k, n, device)
+        x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+        _, err, err_k1, tol = style_case(style, x, w, 1 if stacked else None,
+                                         f"edge {style} m={m} k={k} n={n}")
+        print(f"  edge {STYLE_KERNELS[style]} m={m} k={k} n={n}{'' if stacked else ' 2-D'}: "
+              f"err {err:.3e}, vs K1 {err_k1:.3e} <= tol {tol:.3e}", flush=True)
+    for m, k, n in ((5, 4096, 1000), (100, 256, 1024), (1, 4128, 136)):
+        w = random_q40(gen, (), k, n, device)
+        x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+        s32, wb = w.scales.to(f32), w.dequantize(torch.bfloat16)
+        for kernel, got, ref in (
+                ("kbench_fma_f32", kbench.fma_f32(x, w.packed, s32),
+                 kbench.fma_f32_plain(x, w.packed, s32)),
+                ("kbench_fma_f32 (f32 x)", kbench.fma_f32(x.float(), w.packed, s32),
+                 kbench.fma_f32_plain(x.float(), w.packed, s32)),
+                ("kbench_bf16_gemm", kbench.bf16_gemm(x, wb), kbench.bf16_gemm_plain(x, wb))):
+            err, tol = (got - ref).abs().max().item(), TOL_K11 * ref.abs().max().item()
+            print(f"  edge {kernel} m={m} k={k} n={n}: err {err:.3e} <= tol {tol:.3e}",
+                  flush=True)
+            if not err <= tol:
+                fail(f"{kernel} edge m={m} k={k} n={n}: max error {err} over {tol}")
+
+
 # ------------------------------------------------------------ phase 3
 
 
@@ -746,10 +1032,12 @@ def write_tokenizer(path: str, vocab_size: int) -> None:
               special_ids=list(range(n_regular, len(vocab)))).save(path)
 
 
-def phase_forward(loaded, device, prefill: int = 256, decode: int = 8) -> float:
+def phase_forward(loaded, device, prefill: int = 256, decode: int = 8, verify: int = 9) -> float:
     """Kernels vs plain versions through the whole forward, each on a fresh
-    cache of the engine's cache dtype; returns the largest |logit
-    difference| / max|logit| over the prefill and decode steps."""
+    cache of the engine's cache dtype: a prefill, decode steps, then one
+    forward of `verify` tokens with every position's logits, the shape of a
+    spec verify forward (k + 1 rows at --spec 8). Returns the largest
+    |logit difference| / max|logit| over all of them."""
     import functools
 
     import torch
@@ -761,7 +1049,7 @@ def phase_forward(loaded, device, prefill: int = 256, decode: int = 8) -> float:
     eng = loaded.engine
     cfg = loaded.config
     gen = torch.Generator(device=device).manual_seed(1)
-    toks = torch.randint(0, cfg.vocab_size, (1, prefill + decode), generator=gen,
+    toks = torch.randint(0, cfg.vocab_size, (1, prefill + decode + verify), generator=gen,
                          device=device)
     runs = {}
     for label, mm, attn in (
@@ -778,6 +1066,10 @@ def phase_forward(loaded, device, prefill: int = 256, decode: int = 8) -> float:
                 logits, _ = forward(cfg, eng.params, toks[:, p : p + 1], p, cache,
                                     eng.rope_cache, attn, mm, last_only=True)
                 outs.append(logits[:, -1])
+            p = prefill + decode
+            logits, _ = forward(cfg, eng.params, toks[:, p : p + verify], p, cache,
+                                eng.rope_cache, attn, mm, last_only=False)
+            outs.extend(logits.unbind(1))
         runs[label] = torch.stack(outs)
         del cache
     ref = runs["plain"]
@@ -1089,7 +1381,8 @@ def phase_profile_batch(loaded, n_slots: int = 8, steps: int = 8) -> dict:
 
 def check_forward(loaded, device, label: str) -> float:
     rel = phase_forward(loaded, device)
-    print(f"{label}: prefill 256 + 8 decode, max|logit diff|/max|logit| = {rel:.3e} <= "
+    print(f"{label}: prefill 256 + 8 decode + a 9-row verify, max|logit diff|/max|logit| = "
+          f"{rel:.3e} <= "
           f"{TOL_FWD}", flush=True)
     if not rel <= TOL_FWD:
         fail(f"{label}: kernels vs plain logits differ by {rel} of max|logit|")
@@ -1234,10 +1527,189 @@ def phase_q80(device, prompt: str) -> dict:
     return total
 
 
+# ------------------------------------------------------------ phases 9-11
+
+
+def phase_kbench() -> dict:
+    """The port's kernel benchmark in this process (its launch counts are
+    read here): `suite`, then `8 w1 B D` (the suite runs B only in its smoke
+    form). Fails on a FAILED row, a missing KBENCH DONE or an unlaunched
+    K11 kernel. Returns the launches."""
+    from dllama_tpu_torch.experiments import kbench
+
+    reset_counters()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rcs = [kbench.main(["suite"]), kbench.main(["8", "w1", "B", "D"])]
+    launches = counters()
+    lines = buf.getvalue().splitlines()
+    for ln in lines:
+        print(f"  kbench| {ln}")
+    print(f"kbench: {time.perf_counter() - t0:.1f} s; launches {launches}", flush=True)
+    if any(rcs) or [ln for ln in lines if "FAILED" in ln] or "KBENCH DONE" not in lines:
+        fail(f"kbench: exit codes {rcs}, a FAILED row or no KBENCH DONE")
+    if not any(ln.startswith("m=8 w1: B fma-f32=") and "D bf16-ref=" in ln for ln in lines):
+        fail("kbench: no `8 w1 B D` row")
+    if not (launches["kbench_fma_f32"] and launches["kbench_bf16_gemm"]):
+        fail(f"kbench: K11-B/K11-D were not launched: {launches}")
+    return launches
+
+
+def _cli(argv: list[str]) -> tuple[int, str, list[str]]:
+    """The CLI in this process -> (exit code, stdout, its stats lines)."""
+    from dllama_tpu_torch.cli.main import main as cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli(argv)
+    stats = [ln for ln in err.getvalue().splitlines()
+             if ln.startswith(("Prefill:", "Decode:", "Speculation:"))]
+    return rc, out.getvalue(), stats
+
+
+def _stat(stats: list[str], head: str) -> int:
+    """The first integer of the stats line starting with `head` (0 if none)."""
+    line = next((ln for ln in stats if ln.startswith(head)), "")
+    return int(line.split()[1]) if line else 0
+
+
+def phase_styles(loaded, device, mpath: str, tpath: str, prompt: str) -> dict:
+    """The Q40 8B model under q40_matmul.STYLE = maskdot, loopdot and deq:
+    the forward (256-token prefill, 8 decode steps, a 9-row verify forward)
+    against the plain versions, with its exact launch counts (a decode or
+    verify forward launches the style's kernel 7L+1 times, a prefill chunk
+    K2 in its 7L layer matmuls and the style's kernel for its one-row
+    lm-head), then 32 greedy tokens
+    through the `inference` CLI: no K1 launch, the style's kernel 7L+1 times
+    per decode forward, K2 on prefill chunks. Returns {style: launches}."""
+    from dllama_tpu_torch.ops import q40_matmul as q40
+
+    n_layers = loaded.config.n_layers
+    per_fwd = 7 * n_layers + 1
+    argv = ["inference", "--model", mpath, "--tokenizer", tpath, "--prompt", prompt,
+            "--temperature", "0", "--steps", "32", "--max-seq-len", "4096"]
+    out = {}
+    for style in ("maskdot", "loopdot", "deq"):
+        kernel = STYLE_KERNELS[style]
+        with q40.forced_style(style):
+            reset_counters()
+            check_forward(loaded, device, f"styles {style} forward")
+            fwd = counters()
+            rc, text, stats = _cli(argv)
+            launches = counters()
+        # 8 decode forwards and the 9-row verify forward take the style's
+        # kernel in every matmul, the prefill its lm-head row only
+        want = ({"q40_prefill": 10 * per_fwd} if style == "deq"
+                else {kernel: 9 * per_fwd + 1, "q40_prefill": 7 * n_layers})
+        got = {k: fwd[k] for k in Q40_KERNELS + Q80_KERNELS if fwd[k]}
+        if got != want:
+            fail(f"styles {style} forward: launches {got}, want {want}")
+        cli_l = {k: launches[k] - fwd[k] for k in launches}
+        decode = _stat(stats, "Decode:")
+        print(f"styles {style} inference: rc {rc}; {' | '.join(stats)}; text {text[:60]!r}; "
+              f"launches {cli_l}", flush=True)
+        others = [k for k in Q40_KERNELS if k not in (kernel, "q40_prefill") and cli_l[k]]
+        if rc or decode < 1 or others or cli_l[kernel] < per_fwd * decode or not cli_l["q40_prefill"]:
+            fail(f"styles {style} inference: rc {rc}, {decode} decode forwards, launches {cli_l} "
+                 f"(want >= {per_fwd} {kernel} each, K2 on prefill, none of {others})")
+        out[style] = launches
+    return out
+
+
+def phase_spec(loaded, mpath: str, tpath: str) -> dict:
+    """Speculative decoding on the Q40 8B model: `inference --spec 8` on a
+    repetitive prompt (its emitted tokens and verify forwards; every verify
+    forward launches K1 7L+1 times and K7 L times); the greedy ids of spec 8
+    and spec 0 through the engine, which must be equal or first differ where
+    the plain run's top-2 logit gap is under TOL_FWD * max|logit| (a near
+    tie the verify forward's sum order may flip); the CLI's text equal to
+    the spec run's; HTTP on the single-engine tier with --spec 8, a default
+    request and a spec_k 0 one. Returns the launches of the CLI and serve
+    runs."""
+    import torch
+
+    from dllama_tpu_torch.engine.sampling import Sampler
+    from dllama_tpu_torch.serve.api import make_server
+
+    eng, tok = loaded.engine, loaded.tokenizer
+    n_layers = loaded.config.n_layers
+    prompt = "The bell rings at noon. " * 10 + "The bell rings"
+    reset_counters()
+    rc, text, stats = _cli(["inference", "--model", mpath, "--tokenizer", tpath, "--prompt",
+                            prompt, "--temperature", "0", "--steps", "32", "--max-seq-len",
+                            "4096", "--spec", "8"])
+    launches = counters()
+    emitted, cycles = _stat(stats, "Speculation:"), 0
+    if emitted:
+        cycles = int(next(ln for ln in stats if ln.startswith("Speculation:")).split()[4])
+    print(f"spec inference --spec 8: rc {rc}; {' | '.join(stats)}; launches {launches}",
+          flush=True)
+    print(f"spec: emitted {emitted} tokens in {cycles} verify forwards", flush=True)
+    if (rc or not cycles or launches["q40_decode"] < (7 * n_layers + 1) * cycles
+            or launches["flash_attention"] < n_layers * cycles):
+        fail(f"spec inference: rc {rc}, {cycles} verify forwards, launches {launches}")
+
+    ptoks = tok.encode(prompt, add_bos=True)
+    ids = {}
+    for k in (8, 0):
+        eng.reset(0)
+        ids[k] = list(eng.generate(ptoks, 32, Sampler(0.0, 0.9, 0), stop_fn=tok.is_eos, spec=k))
+    tok.reset_decoder()
+    spec_text = "".join(p for p in (tok.decode(t) for t in ids[8]) if p) + "\n"
+    if spec_text != text:
+        fail("spec: the CLI's text differs from the engine's spec 8 run")
+    near_tie = False
+    if ids[8] != ids[0]:
+        i = next((j for j, (a, b) in enumerate(zip(ids[8], ids[0])) if a != b),
+                 min(len(ids[8]), len(ids[0])))
+        eng.reset(0)
+        logits = eng.prefill(ptoks)  # replay the plain run up to token i
+        for t in ids[0][:i]:
+            logits = eng.decode_step([[t]])
+        top2 = torch.topk(logits[0].float(), 2).values
+        gap, scale = (top2[0] - top2[1]).item(), logits.abs().max().item()
+        print(f"spec: ids first differ at token {i} ({ids[8][i:i + 1]} vs {ids[0][i:i + 1]}); "
+              f"plain run's top-2 logit gap there {gap:.4e}, TOL_FWD * max|logit| "
+              f"{TOL_FWD * scale:.4e}", flush=True)
+        if not gap < TOL_FWD * scale:
+            fail(f"spec: greedy ids of spec 8 and spec 0 differ at token {i} with no near tie")
+        near_tie = True
+    else:
+        print(f"spec: greedy ids of spec 8 equal spec 0's ({len(ids[0])} tokens)", flush=True)
+
+    httpd, api = make_server(loaded, host="127.0.0.1", port=0, spec=8)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    body = {"messages": [{"role": "user", "content": prompt}], "temperature": 0,
+            "max_tokens": 32}
+    reset_counters()
+    try:
+        eng._spec_stats = None
+        st1, raw1 = _post(httpd.server_address[1], body)
+        used_spec = eng._spec_stats is not None
+        eng._spec_stats = None
+        st0, raw0 = _post(httpd.server_address[1], dict(body, spec_k=0))
+        opted_out = eng._spec_stats is None
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    serve_l = counters()
+    if st1 != 200 or st0 != 200 or not used_spec or not opted_out:
+        fail(f"spec serve: status {st1}/{st0}, speculated {used_spec}, spec_k 0 opted out "
+             f"{opted_out}")
+    c1, c0 = (json.loads(r)["choices"][0]["message"]["content"] for r in (raw1, raw0))
+    print(f"spec serve --spec 8: content equal to the spec_k 0 request's: {c1 == c0}; "
+          f"launches {serve_l}", flush=True)
+    if c1 != c0 and not near_tie:
+        fail("spec serve: --spec 8 and spec_k 0 gave different content")
+    return {k: launches[k] + serve_l[k] for k in launches}
+
+
 # ------------------------------------------------------------ main
 
 
 def _launch_tables():
+    from dllama_tpu_torch.experiments import kbench
     from dllama_tpu_torch.ops import (
         flash_attention,
         paged_attention,
@@ -1247,7 +1719,7 @@ def _launch_tables():
     )
 
     return (q40_matmul.LAUNCHES, q80_matmul.LAUNCHES, flash_attention.LAUNCHES,
-            paged_attention.LAUNCHES, rms_norm.LAUNCHES)
+            paged_attention.LAUNCHES, rms_norm.LAUNCHES, kbench.LAUNCHES)
 
 
 def counters() -> dict:
@@ -1266,7 +1738,8 @@ def reset_counters() -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=20, help="timed runs per case (0: no timing)")
-    ap.add_argument("--phases", default="card,kernels,forward,serve,batch,inference,f8,q80",
+    ap.add_argument("--phases",
+                    default="card,kernels,kbench,forward,serve,batch,inference,styles,spec,f8,q80",
                     help="comma list; 'profile' (not in the default) adds a "
                          "torch.profiler pass over one decode chunk, single-stream "
                          "and 8-slot")
@@ -1304,12 +1777,18 @@ def main(argv=None) -> int:
     if "kernels" in phases:
         print("phase kernels (8B shapes, stacked layer 1, bf16 in, f32 compared):", flush=True)
         results = phase_kernels(cfg, device, timer)
+        results.update(style_cases(cfg, device, timer))
+        results.update(kbench_cases(cfg, device, timer))
+        kbench_shape_checks()
         phase_edges(device)
+        edges_slice4(device)
 
     paths: dict[str, dict] = {}  # launch counts of each path, read just after it
+    if "kbench" in phases:
+        paths["kbench"] = phase_kbench()
     prompt = ("Summarize the plot of a long story about a lighthouse keeper, "
               "a storm, and a ship that never arrives.")
-    if phases & {"forward", "serve", "profile", "batch", "inference", "f8"}:
+    if phases & {"forward", "serve", "profile", "batch", "inference", "styles", "spec", "f8"}:
         from dllama_tpu_torch.engine.loader import load_model
 
         tmp = tempfile.TemporaryDirectory(prefix="dllama_smoke_")
@@ -1378,6 +1857,13 @@ def main(argv=None) -> int:
                   flush=True)
             if rc != 0 or min(inf_launches[k] for k in SERVE_KERNELS) == 0:
                 fail("inference: the CLI failed or skipped a kernel")
+
+        if "styles" in phases:
+            for style, launches in phase_styles(loaded, device, mpath, tpath, prompt).items():
+                paths[f"styles-{style}"] = launches
+
+        if "spec" in phases:
+            paths["spec"] = phase_spec(loaded, mpath, tpath)
         del loaded
         torch.cuda.empty_cache()
         if "f8" in phases:

@@ -13,7 +13,8 @@ CPU was asked for. Options of the JAX package that this package has not
 ported yet are accepted by name and refused with a clear message (exit 2);
 the batched tier's `auto` defaults for features not yet ported (radix prefix
 tree, hybrid chunked prefill, preemption) resolve to off, with one logged
-line each.
+line each. `--spec K` (prompt-lookup speculative decoding) drives the
+single-engine paths; with `--slots > 0` it is refused.
 """
 
 from __future__ import annotations
@@ -103,16 +104,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="boot precompile (not yet ported)")
     p.add_argument("--restart-max", type=int, default=0,
                    help="warm engine restarts (not yet ported)")
-    p.add_argument("--spec", type=int, default=0,
-                   help="speculative decoding draft length (not yet ported: 0 only)")
+    p.add_argument("--spec", type=int, default=0, metavar="K",
+                   help="prompt-lookup speculative decoding with K-token drafts for "
+                        "greedy runs (inference, chat, serve on the single-engine "
+                        "tier; a request's spec_k clamps to K); same tokens, fewer "
+                        "forwards on repetitive text. Not yet ported with --slots > 0")
     p.add_argument("--mesh", default=None, help="device mesh (not yet ported)")
     p.add_argument("-v", "--verbose", action="store_true")
     return p
 
 
 def _refuse_unported(args) -> None:
-    if args.spec:
-        raise NotPorted("--spec (speculative decoding)")
+    if args.spec and args.mode == "serve" and args.slots > 0:
+        raise NotPorted("--spec with --slots > 0 (batched speculative decoding)")
     if args.radix_cache == "on":
         raise NotPorted("--radix-cache on (the radix prefix tree)")
     if args.prefill_budget not in ("auto", "0"):
@@ -189,7 +193,7 @@ def cmd_inference(args) -> int:
     stats = GenerationStats()
     tok.reset_decoder()
     for t in m.engine.generate(prompt_tokens, max_tokens, sampler, stop_fn=tok.is_eos,
-                               stats=stats):
+                               stats=stats, spec=args.spec):
         piece = tok.decode(t)
         if piece:
             print(piece, end="", flush=True)
@@ -243,7 +247,7 @@ def cmd_chat(args) -> int:
         if budget <= 0:
             print("(context window exhausted)")
             break
-        for t in m.engine.generate(prompt_tokens, budget, sampler):
+        for t in m.engine.generate(prompt_tokens, budget, sampler, spec=args.spec):
             print(asm.feed(t), end="", flush=True)
             if asm.eos:
                 break
@@ -274,7 +278,7 @@ def cmd_serve(args) -> int:
         sse_heartbeat_s=args.sse_heartbeat_s, replica_id=args.replica_id,
         drain_timeout_s=args.drain_timeout_s, kv_layout=args.kv_layout,
         page_size=args.page_size, kv_pages=args.kv_pages, max_queue=args.max_queue,
-        overlap=args.overlap == "on",
+        overlap=args.overlap == "on", spec=args.spec,
     )
 
 

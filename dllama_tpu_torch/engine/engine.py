@@ -18,6 +18,7 @@ import torch
 
 from dllama_tpu_torch.engine.kernel_select import resolve_kernels
 from dllama_tpu_torch.engine.sampling import Sampler, apply_penalties, sample_logits
+from dllama_tpu_torch.engine.speculative import spec_decode
 from dllama_tpu_torch.models.config import LlamaConfig
 from dllama_tpu_torch.models.llama import KVCache, forward, fuse_layer_weights
 from dllama_tpu_torch.ops.layers import build_rope_cache
@@ -42,6 +43,8 @@ class GenerationStats:
     prefill_s: float = 0.0
     decode_tokens: int = 0
     decode_s: float = 0.0
+    spec_tokens: int = 0  # decode tokens that speculative cycles produced
+    spec_cycles: int = 0  # their verify forwards
 
     @property
     def prefill_tok_s(self) -> float:
@@ -57,7 +60,9 @@ class GenerationStats:
             f"({self.prefill_tok_s:.1f} tok/s)\n"
             f"Decode:  {self.decode_tokens} tokens in {self.decode_s*1000:.0f} ms "
             f"({self.decode_tok_s:.1f} tok/s, {1000*self.decode_s/max(1,self.decode_tokens):.2f} ms/token)"
-        )
+        ) + (f"\nSpeculation: {self.spec_tokens} tokens in {self.spec_cycles} verify forwards "
+             f"({self.spec_tokens / self.spec_cycles:.2f} tokens/forward)"
+             if self.spec_cycles else "")
 
 
 class InferenceEngine:
@@ -93,15 +98,18 @@ class InferenceEngine:
         self.mm, self.attn_fn = sel.mm, sel.attn_fn
         self.backend, self.attn_route = sel.backend, sel.attn_route
         self.forwards = 0  # forward passes run (each is one token column)
+        self._spec_h = None  # (device history, pos, cur): chunked-call reuse
+        self._spec_stats = None  # {emitted, cycles} of the last speculative call
 
     @torch.no_grad()
-    def _forward(self, tokens: torch.Tensor, pos: int) -> torch.Tensor:
-        """One forward at `pos`; returns last-position logits [B, V] f32."""
+    def _forward(self, tokens: torch.Tensor, pos: int, last_only: bool = True) -> torch.Tensor:
+        """One forward at `pos`; returns f32 logits: the last position's [B,
+        V], or with ``last_only=False`` every position's [B, T, V]."""
         self.forwards += 1
         logits, self.cache = forward(self.cfg, self.params, tokens, pos, self.cache,
                                      self.rope_cache, self.attn_fn, self.mm,
-                                     last_only=True)
-        return logits[:, -1]
+                                     last_only=last_only)
+        return logits[:, -1] if last_only else logits
 
     def _check_room(self, n: int) -> None:
         if self.pos + n > self.seq_len:
@@ -154,6 +162,58 @@ class InferenceEngine:
         self.pos += n
         return torch.cat(out, dim=1).T.cpu().numpy()
 
+    def decode_spec_greedy_n(self, history, token: int, n: int, k: int = 8,
+                             ngram: int = 2) -> np.ndarray:
+        """n exact-greedy tokens via prompt-lookup speculative decoding
+        (engine/speculative.py): up to k tokens drafted from the sequence's
+        own n-gram statistics are verified per forward, so repetitive text
+        decodes several tokens per weight sweep. The tokens are
+        decode_greedy_n's; only the forward count changes.
+
+        ``history``: the tokens already FED, most recent last — the full
+        prompt and continuation, or any suffix of it (a chat turn's delta:
+        earlier positions are marked unknown and cannot be drafted from).
+        ``token``: the last sampled, not yet fed token. Batch-1 engines only.
+        ``_spec_stats`` records {emitted, cycles} of the call (emitted /
+        cycles is the realised speedup). A call that continues exactly where
+        the last one stopped reuses the history on the device. Each verify
+        cycle reads its accepted count on the host (speculative.spec_decode).
+        Returns the tokens [<= n]; fewer than n only where the context has no
+        room for another (k+1)-row window."""
+        if self.batch != 1:
+            raise ValueError(
+                f"decode_spec_greedy_n drives a single sequence (batch==1, got batch="
+                f"{self.batch}); batched speculation is not yet ported to the "
+                "PyTorch/CUDA package")
+        self._check_room(n)
+        cached = self._spec_h
+        if cached is not None and cached[1] == self.pos and cached[2] == token:
+            h = cached[0]  # continue the device-resident history
+        else:
+            hist = np.asarray(history, dtype=np.int64).reshape(-1)
+            if hist.shape[0] > self.pos:
+                raise ValueError(f"history length {hist.shape[0]} > pos {self.pos}")
+            # unknown earlier positions hold -1: no real token id equals -1,
+            # so the n-gram matcher can never draft across the unknown region
+            hb = np.full(self.seq_len + 1, -1, np.int64)
+            hb[self.pos - hist.shape[0] : self.pos] = hist
+            hb[self.pos] = token
+            h = torch.from_numpy(hb).to(self.device)
+
+        def fwd(toks, pos):
+            return self._forward(toks, pos, last_only=False)
+
+        toks, cnt, cyc, h = spec_decode(fwd, h, int(token), self.pos, n, k, ngram,
+                                        self.seq_len)
+        m = min(n, cnt)
+        # overshoot rewind: emitted tokens beyond n were fed rows we do not
+        # keep (the stale-row invariant of generate's mid-chunk rewind); h
+        # stays valid for the rewound position: index pos+m holds toks[m-1]
+        self.pos += m
+        self._spec_stats = {"emitted": cnt, "cycles": cyc}
+        self._spec_h = (h, self.pos, toks[m - 1]) if m else None
+        return np.asarray(toks[:m], dtype=np.int64)
+
     def decode_sample_n(self, token, n: int, sampler: Sampler,
                         counts: np.ndarray | None = None) -> np.ndarray:
         """n sampled decode steps on the device; returns tokens [n, B].
@@ -189,14 +249,24 @@ class InferenceEngine:
         stop_fn: Callable[[int], bool] | None = None,
         stats: GenerationStats | None = None,
         chunk: int = 8,
+        spec: int = 0,
     ) -> Iterator[int]:
         """Host generation loop: prefill the prompt, then decode in device
         chunks of up to `chunk` tokens. Yields each token id; stops at
         max_tokens, seq_len, or when `stop_fn(token)` returns True. On an
         early stop mid-chunk the position is rewound so the KV cache stays
         prefix-consistent (rows past pos are masked, so over-decoded rows are
-        harmless)."""
+        harmless).
+
+        ``spec`` > 0 decodes GREEDY runs (temperature 0, no penalties) by
+        prompt-lookup speculation with that draft length
+        (decode_spec_greedy_n): the same tokens in fewer forwards on
+        repetitive text. Sampled or penalized runs ignore it, and so does a
+        chunk with no room left for a draft window."""
         assert self.batch == 1, "generate() drives a single sequence; use step() for batches"
+        # penalized greedy is the argmax of MODIFIED logits: drafts are
+        # verified against the raw argmax, so penalties take the plain loop
+        use_spec = spec > 0 and sampler.temperature == 0.0 and not sampler.has_penalties
         penalized = sampler.has_penalties
         t0 = time.perf_counter()
         logits = self.prefill(np.asarray([prompt_tokens], dtype=np.int64))
@@ -211,6 +281,7 @@ class InferenceEngine:
             stats.prefill_tokens += len(prompt_tokens)
             stats.prefill_s += t1 - t0
 
+        fed = list(prompt_tokens) if use_spec else None
         produced = 0
         yield token
         produced += 1
@@ -220,7 +291,19 @@ class InferenceEngine:
             c = min(chunk, max_tokens - produced, self.seq_len - self.pos)
             start_pos = self.pos
             t2 = time.perf_counter()
-            if penalized:
+            if use_spec and self.pos + c + spec + 1 > self.seq_len:
+                use_spec = False  # no head-room for a draft window
+            if use_spec:
+                flat = self.decode_spec_greedy_n(fed, token, c, k=spec)
+                c = len(flat)
+                if c == 0:
+                    break
+                if stats is not None:
+                    stats.spec_tokens += c
+                    stats.spec_cycles += self._spec_stats["cycles"]
+                fed.extend([token] + [int(t) for t in flat[:-1]])
+                toks = flat[:, None]
+            elif penalized:
                 counts = np.bincount(text, minlength=v)[None, :v]
                 toks = self.decode_sample_n(np.array([[token]]), c, sampler, counts=counts)
                 text.append(token)

@@ -3,8 +3,8 @@
 Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper (sm_90a) into
 its own shared library with a plain C interface, loaded with ``ctypes``. The
 libraries land in ``dllama_tpu_torch/build/``, named by a hash of their
-source and flags, so a changed source is rebuilt and an unchanged one is
-reused. :func:`build` starts one ``nvcc`` per missing library, all at once.
+source, the shared headers (``csrc/*.cuh``) and the flags, so a changed
+source is rebuilt and an unchanged one is reused. :func:`build` starts one ``nvcc`` per missing library, all at once.
 Nothing here runs at import time.
 """
 
@@ -28,8 +28,10 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 #: Every pointer and the stream are c_void_p; every entry returns the CUDA
 #: error state after its launches as an int (0 = success).
 SIGNATURES = {
-    "q40_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "q40_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "q40_prefill": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "q40_maskdot": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "q40_loopdot": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "q80_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "q80_prefill": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "rms_norm": (_P, _P, _P, _I, _I, _LL, _F, _I, _P),
@@ -37,6 +39,8 @@ SIGNATURES = {
                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "kbench_fma_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "kbench_bf16_gemm": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -58,6 +62,8 @@ def _library_path(name: str) -> Path:
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS).encode())
     h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # the shared helpers (common.cuh)
+        h.update(header.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -18,8 +18,8 @@
 //    block the kernel forms the partial dot of x with the exact codes, then
 //    applies the f16 scale (widened exactly to f32) to that partial, as the
 //    TPU blockdot does. The row sums stay in f32 registers.
-//  * k is split across blocks so that about 16 two-warp blocks per SM are in
-//    flight, enough loads to cover the memory latency, even where n is narrow
+//  * k is split across blocks so that about 16 blocks per SM are in
+//    flight (two warps each at the default 256 columns a block), enough loads to cover the memory latency, even where n is narrow
 //    (wk/wv: n = 1024 fills only 4 column blocks).
 //    Split-k partials are reduced by a second pass in a fixed order, with no
 //    float atomics, so greedy output is the same from run to run.
@@ -29,29 +29,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
-constexpr int kThreads = 64;
 constexpr int kCols = 4;                          // output columns per thread
-constexpr int kColsPerBlock = kThreads * kCols;   // 256
 constexpr int kChunkBlocks = 8;                   // 32-row blocks of x staged at once
 
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-__device__ __forceinline__ float code_f32(uint32_t nib) {
-  // 2^23 has an ulp of exactly 1: OR-ing q in gives 2^23 + q, and subtracting
-  // 2^23 + 8 is exact (Sterbenz), leaving the signed code q - 8.
-  return __uint_as_float(0x4B000000u | nib) - 8388616.0f;
-}
-
-template <int M, typename TO>
-__global__ void __launch_bounds__(kThreads) q40_decode_kernel(
+// THREADS * kCols output columns per block: 256 by default (64 threads);
+// 128 and 512 are the BLOCKDOT_TN overrides of the ops wrapper.
+template <int M, int THREADS, typename TO>
+__global__ void __launch_bounds__(THREADS) q40_decode_kernel(
     const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ packed,
     const __half* __restrict__ scales, float* __restrict__ partial,
     TO* __restrict__ out, int m, int k, int n, int kb_per_split) {
   __shared__ float xs[M][kChunkBlocks * 32];
-  const int col0 = (blockIdx.x * kThreads + threadIdx.x) * kCols;
+  const int col0 = (blockIdx.x * THREADS + threadIdx.x) * kCols;
   const int nkb = k / 32;
   const int kb0 = blockIdx.y * kb_per_split;
   const int kb1 = min(nkb, kb0 + kb_per_split);
@@ -68,7 +61,7 @@ __global__ void __launch_bounds__(kThreads) q40_decode_kernel(
     const int kx0 = kbc * 32;
     const int kxn = (kbe - kbc) * 32;
     __syncthreads();  // the previous chunk's reads of xs are done
-    for (int i = threadIdx.x; i < M * kxn; i += kThreads) {
+    for (int i = threadIdx.x; i < M * kxn; i += THREADS) {
       const int r = i / kxn, c = i - r * kxn;
       xs[r][c] = r < m ? __bfloat162float(x[(size_t)r * k + kx0 + c]) : 0.f;
     }
@@ -112,8 +105,8 @@ __global__ void __launch_bounds__(kThreads) q40_decode_kernel(
 #pragma unroll
           for (int c = 0; c < kCols; ++c) {
             const uint32_t byte = p[j] >> (8 * c);
-            part[c] = fmaf(code_f32(byte & 15u), xlo, part[c]);
-            part[c] = fmaf(code_f32((byte >> 4) & 15u), xhi, part[c]);
+            part[c] = fmaf(q40_code(byte & 15u), xlo, part[c]);
+            part[c] = fmaf(q40_code((byte >> 4) & 15u), xhi, part[c]);
           }
         }
 #pragma unroll
@@ -138,57 +131,64 @@ __global__ void __launch_bounds__(kThreads) q40_decode_kernel(
   }
 }
 
-// out[r, col] = sum over splits, in split order, of partial[split, r, col].
-template <typename TO>
-__global__ void q40_decode_reduce(const float* __restrict__ partial, TO* __restrict__ out,
-                                  int m, int n, int splits) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t mn = (size_t)m * n;
-  if (i >= mn) return;
-  float sum = 0.f;
-#pragma unroll 8
-  for (int s = 0; s < splits; ++s) sum += partial[(size_t)s * mn + i];
-  store(out + i, sum);
-}
-
-template <typename TO>
+template <int THREADS, typename TO>
 void launch(const void* x, const void* packed, const void* scales, void* partial,
             void* out, int m, int k, int n, int splits, int kb_per_split,
             cudaStream_t st) {
-  dim3 grid((n + kColsPerBlock - 1) / kColsPerBlock, splits);
+  dim3 grid((n + THREADS * kCols - 1) / (THREADS * kCols), splits);
   const auto* xp = static_cast<const __nv_bfloat16*>(x);
   const auto* pp = static_cast<const uint8_t*>(packed);
   const auto* sp = static_cast<const __half*>(scales);
   auto* part = static_cast<float*>(partial);
   auto* o = static_cast<TO*>(out);
   if (m <= 1)
-    q40_decode_kernel<1, TO><<<grid, kThreads, 0, st>>>(xp, pp, sp, part, o, m, k, n, kb_per_split);
+    q40_decode_kernel<1, THREADS, TO><<<grid, THREADS, 0, st>>>(xp, pp, sp, part, o, m, k, n, kb_per_split);
   else if (m <= 2)
-    q40_decode_kernel<2, TO><<<grid, kThreads, 0, st>>>(xp, pp, sp, part, o, m, k, n, kb_per_split);
+    q40_decode_kernel<2, THREADS, TO><<<grid, THREADS, 0, st>>>(xp, pp, sp, part, o, m, k, n, kb_per_split);
   else if (m <= 4)
-    q40_decode_kernel<4, TO><<<grid, kThreads, 0, st>>>(xp, pp, sp, part, o, m, k, n, kb_per_split);
+    q40_decode_kernel<4, THREADS, TO><<<grid, THREADS, 0, st>>>(xp, pp, sp, part, o, m, k, n, kb_per_split);
   else if (m <= 8)
-    q40_decode_kernel<8, TO><<<grid, kThreads, 0, st>>>(xp, pp, sp, part, o, m, k, n, kb_per_split);
+    q40_decode_kernel<8, THREADS, TO><<<grid, THREADS, 0, st>>>(xp, pp, sp, part, o, m, k, n, kb_per_split);
   else
-    q40_decode_kernel<16, TO><<<grid, kThreads, 0, st>>>(xp, pp, sp, part, o, m, k, n, kb_per_split);
+    q40_decode_kernel<16, THREADS, TO><<<grid, THREADS, 0, st>>>(xp, pp, sp, part, o, m, k, n, kb_per_split);
   if (splits > 1) {
     const size_t mn = (size_t)m * n;
-    q40_decode_reduce<TO><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(part, o, m, n, splits);
+    launch_splitk_reduce<TO>(part, o, mn, splits, st);
   }
+}
+
+template <typename TO>
+int launch_cols(const void* x, const void* packed, const void* scales, void* partial,
+                void* out, int m, int k, int n, int splits, int kb_per_split,
+                int cols_per_block, cudaStream_t st) {
+  switch (cols_per_block) {
+    case 128:
+      launch<32, TO>(x, packed, scales, partial, out, m, k, n, splits, kb_per_split, st);
+      return 0;
+    case 256:
+      launch<64, TO>(x, packed, scales, partial, out, m, k, n, splits, kb_per_split, st);
+      return 0;
+    case 512:
+      launch<128, TO>(x, packed, scales, partial, out, m, k, n, splits, kb_per_split, st);
+      return 0;
+  }
+  return -1;  // a column tile the library was not built for
 }
 
 }  // namespace
 
 // x bf16 [m, k]; packed u8 [k/2, n]; scales f16 [k/32, n]; out [m, n] in
 // bf16 (out_f32 == 0) or f32; partial f32 [splits, m, n] (unused when
-// splits == 1). Returns the CUDA error state after the launches (0 = success).
+// splits == 1); cols_per_block 128, 256 or 512. Returns the CUDA error state
+// after the launches (0 = success; -1 = a column tile not built).
 extern "C" int q40_decode(const void* x, const void* packed, const void* scales,
                           void* partial, void* out, int m, int k, int n, int splits,
-                          int kb_per_split, int out_f32, void* stream) {
+                          int kb_per_split, int out_f32, int cols_per_block, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (out_f32)
-    launch<float>(x, packed, scales, partial, out, m, k, n, splits, kb_per_split, st);
-  else
-    launch<__nv_bfloat16>(x, packed, scales, partial, out, m, k, n, splits, kb_per_split, st);
-  return (int)cudaGetLastError();
+  const int bad = out_f32
+      ? launch_cols<float>(x, packed, scales, partial, out, m, k, n, splits, kb_per_split,
+                           cols_per_block, st)
+      : launch_cols<__nv_bfloat16>(x, packed, scales, partial, out, m, k, n, splits,
+                                   kb_per_split, cols_per_block, st);
+  return bad ? bad : (int)cudaGetLastError();
 }

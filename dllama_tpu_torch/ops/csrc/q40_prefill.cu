@@ -28,6 +28,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 using namespace nvcuda;
@@ -40,13 +42,6 @@ constexpr int LDC = BN + 4;                // f32 per shared row of the output t
 constexpr int kSmemAB = (BM * LDA + BK * LDB) * 2;
 constexpr int kSmemC = BM * LDC * 4;
 constexpr int kSmem = kSmemAB > kSmemC ? kSmemAB : kSmemC;
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-__device__ __forceinline__ float code_f32(uint32_t nib) {
-  return __uint_as_float(0x4B000000u | nib) - 8388616.0f;  // exact q - 8
-}
 
 // One step's global data held in registers: two 8-element rows of the x
 // tile, and for each of the two Q40 blocks one packed row of 8 columns with
@@ -110,8 +105,8 @@ __device__ __forceinline__ void store_stage(const Stage& st, __nv_bfloat16* As,
       const __half2 h = *reinterpret_cast<const __half2*>(&sw[i / 2]);
       const float s = (i % 2) ? __high2float(h) : __low2float(h);
       // rows 32*qb + br and 32*qb + br + 16: the low and high nibble
-      Bs[(qb * 32 + br) * LDB + bc + i] = __float2bfloat16(code_f32(byte & 15u) * s);
-      Bs[(qb * 32 + br + 16) * LDB + bc + i] = __float2bfloat16(code_f32(byte >> 4) * s);
+      Bs[(qb * 32 + br) * LDB + bc + i] = __float2bfloat16(q40_code(byte & 15u) * s);
+      Bs[(qb * 32 + br + 16) * LDB + bc + i] = __float2bfloat16(q40_code(byte >> 4) * s);
     }
   }
 }
@@ -184,18 +179,6 @@ __global__ void __launch_bounds__(kThreads) q40_prefill_kernel(
   }
 }
 
-// out[i] = sum over splits, in split order, of partial[split, i].
-template <typename TO>
-__global__ void q40_prefill_reduce(const float* __restrict__ partial, TO* __restrict__ out,
-                                   size_t mn, int splits) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float sum = 0.f;
-#pragma unroll 8
-  for (int s = 0; s < splits; ++s) sum += partial[(size_t)s * mn + i];
-  store(out + i, sum);
-}
-
 template <typename TO>
 void launch(const void* x, const void* packed, const void* scales, void* partial,
             void* out, int m, int k, int n, int splits, int steps_per_split,
@@ -208,7 +191,7 @@ void launch(const void* x, const void* packed, const void* scales, void* partial
       static_cast<const __half*>(scales), part, o, m, k, n, steps_per_split);
   if (splits > 1) {
     const size_t mn = (size_t)m * n;
-    q40_prefill_reduce<TO><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(part, o, mn, splits);
+    launch_splitk_reduce<TO>(part, o, mn, splits, st);
   }
 }
 

@@ -39,15 +39,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 64;
 constexpr int kCols = 4;                          // output columns per thread
 constexpr int kColsPerBlock = kThreads * kCols;   // 256
 constexpr int kChunkBlocks = 8;                   // 32-row blocks of x staged at once
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 // Signed code of byte c (0..3) of a little-endian word, exactly.
 __device__ __forceinline__ float code_f32(uint32_t w, int c) {
@@ -143,18 +142,6 @@ __global__ void __launch_bounds__(kThreads) q80_decode_kernel(
   }
 }
 
-// out[r, col] = sum over splits, in split order, of partial[split, r, col].
-template <typename TO>
-__global__ void q80_decode_reduce(const float* __restrict__ partial, TO* __restrict__ out,
-                                  size_t mn, int splits) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float sum = 0.f;
-#pragma unroll 8
-  for (int s = 0; s < splits; ++s) sum += partial[(size_t)s * mn + i];
-  store(out + i, sum);
-}
-
 template <typename TO>
 void launch(const void* x, const void* codes, const void* scales, void* partial,
             void* out, int m, int k, int n, int splits, int kb_per_split,
@@ -183,7 +170,7 @@ void launch(const void* x, const void* codes, const void* scales, void* partial,
 #undef DLLAMA_Q80_DECODE
   if (splits > 1) {
     const size_t mn = (size_t)m * n;
-    q80_decode_reduce<TO><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(part, o, mn, splits);
+    launch_splitk_reduce<TO>(part, o, mn, splits, st);
   }
 }
 

@@ -36,6 +36,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 using namespace nvcuda;
@@ -49,9 +51,6 @@ constexpr int LDC = BN + 4;                // f32 per shared row of the output t
 constexpr int kSmemAB = (BM * LDA + BK * LDB) * 2;
 constexpr int kSmemC = BM * LDC * 4;
 constexpr int kSmem = kSmemAB > kSmemC ? kSmemAB : kSmemC;
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 // One step's global data held in registers: two 8-element rows of the x
 // tile; code rows br, br + 16, br + 32 and br + 48 of the 64-row step at 8
@@ -213,18 +212,6 @@ __global__ void __launch_bounds__(kThreads) q80_prefill_kernel(
   }
 }
 
-// out[i] = sum over splits, in split order, of partial[split, i].
-template <typename TO>
-__global__ void q80_prefill_reduce(const float* __restrict__ partial, TO* __restrict__ out,
-                                   size_t mn, int splits) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float sum = 0.f;
-#pragma unroll 8
-  for (int s = 0; s < splits; ++s) sum += partial[(size_t)s * mn + i];
-  store(out + i, sum);
-}
-
 template <typename TO>
 void launch(const void* x, const void* codes, const void* scales, void* partial,
             void* out, int m, int k, int n, int splits, int steps_per_split,
@@ -239,7 +226,7 @@ void launch(const void* x, const void* codes, const void* scales, void* partial,
       static_cast<const __half*>(scales), part, o, m, k, n, steps_per_split, aligned);
   if (splits > 1) {
     const size_t mn = (size_t)m * n;
-    q80_prefill_reduce<TO><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(part, o, mn, splits);
+    launch_splitk_reduce<TO>(part, o, mn, splits, st);
   }
 }
 

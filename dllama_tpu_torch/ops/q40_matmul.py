@@ -1,29 +1,44 @@
-"""Q40 matmul: the CUDA kernels' wrappers and their plain version.
+"""Q40 matmul: the CUDA kernels' wrappers and their plain versions.
 
 ``q40_matmul(x, w, layer)`` computes ``x @ w[layer]`` for a Q40 weight in
 the device layout of :class:`~dllama_tpu_torch.ops.quant.QTensor` and
-returns ``x.dtype``. On a CUDA tensor it launches one of two kernels, split
-by the number of rows as on the TPU:
+returns ``x.dtype``. On a CUDA tensor it launches one of four kernels,
+chosen by :func:`resolve_style` from the module knob ``STYLE`` and the
+number of rows, with the JAX package's rule (``auto`` splits decode from
+prefill at 16 rows as on the TPU; a forced decode style applies only to
+decode-shaped calls):
 
-* ``csrc/q40_decode.cu`` for m <= 16 (decode): exact codes, per-block
+* ``blockdot`` — ``csrc/q40_decode.cu`` (K1): exact codes, per-block
   partial dots scaled in f32, split-k with a fixed-order reduction
   (replaces ``dllama_tpu/ops/pallas/q40_matmul.py:_blockdot_kernel``);
-* ``csrc/q40_prefill.cu`` for m > 16 (prefill chunks): weight tiles
-  dequantized to bf16 in shared memory, tensor-core products with f32
-  accumulation (replaces ``_deq_kernel``).
+  ``BLOCKDOT_TK`` / ``BLOCKDOT_TN`` override its k rows per split and its
+  columns per block (:func:`blockdot_tiles`);
+* ``maskdot`` — ``csrc/q40_maskdot.cu`` (K3): blockdot's math on the
+  tensor cores, ``mma.sync`` per 32-row block (replaces ``_maskdot_kernel``);
+* ``loopdot`` — ``csrc/q40_loopdot.cu`` (K4): blockdot's math on the CUDA
+  cores, one thread a column, blocks in ascending order (replaces
+  ``_loopdot_kernel``);
+* ``deq`` — ``csrc/q40_prefill.cu`` (K2): weight tiles dequantized to bf16
+  in shared memory, tensor-core products with f32 accumulation (replaces
+  ``_deq_kernel``); every prefill chunk, and every row count under
+  ``STYLE = "deq"``.
 
 Unlike the TPU kernels no row padding is needed (the (8, 128) tiling was a
 TPU constraint), and a stacked ``[L, k/2, n]`` weight is addressed by taking
 the view ``packed[layer]`` — a free view of the contiguous stack, so the
 TPU's scalar-prefetch layer indexing has no counterpart.
 
-On a CPU tensor the wrapper runs :func:`q40_matmul_plain`, the JAX XLA
-path's arithmetic: dequantize to f32, cast to the activation dtype, f32 dot,
-cast back. A CUDA tensor never reaches it through the wrapper.
+On a CPU tensor the wrapper runs the plain version of the kernel the style
+picks: :func:`q40_maskdot_plain` (K3) and :func:`q40_loopdot_plain` (K4),
+f32 sums of exact-code partials as those kernels form them, and otherwise
+:func:`q40_matmul_plain`, the JAX XLA path's arithmetic (dequantize to f32,
+cast to the activation dtype, f32 dot, cast back). A CUDA tensor never
+reaches a plain version through the wrappers.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 
@@ -41,9 +56,65 @@ DECODE_MIN_BLOCKS_PER_SPLIT = 4
 #: fewest 64-row steps of k one prefill split walks
 PREFILL_MIN_STEPS_PER_SPLIT = 8
 
+#: kernel styles of q40_matmul (the JAX package's q40_matmul.STYLE values)
+STYLES = ("auto", "deq", "blockdot", "maskdot", "loopdot")
+#: kernel-style override for benchmarks (experiments/kbench.py sets it)
+STYLE = "auto"
+#: K1 tile overrides for autotuning (None = the defaults): k rows per split
+#: and output columns per block; see blockdot_tiles for when they apply
+BLOCKDOT_TK: int | None = None
+BLOCKDOT_TN: int | None = None
+#: columns per block that K1 is compiled for (256 is the default)
+DECODE_TILES_N = (128, 256, 512)
+DECODE_COLS = 256
+#: columns per block of K3 (csrc/q40_maskdot.cu: 4 warps of 32 columns)
+MASKDOT_COLS = 128
+
 #: kernel launches made through the wrappers (plain ints; reset by callers
 #: that want to see which kernels a run went through)
-LAUNCHES = {"q40_decode": 0, "q40_prefill": 0}
+LAUNCHES = {"q40_decode": 0, "q40_prefill": 0, "q40_maskdot": 0, "q40_loopdot": 0}
+
+
+def resolve_style(style: str, m: int) -> str:
+    """The kernel style that serves ``m`` rows under ``style``: the JAX
+    package's rule (dllama_tpu/ops/pallas/q40_matmul.py, q40_matmul), which
+    pads m to a multiple of 8 first. ``auto`` is blockdot up to 16 rows and
+    deq above; a forced decode style (blockdot/maskdot/loopdot) applies only
+    up to 16 rows, and a larger m goes to deq; ``deq`` takes every m."""
+    if style not in STYLES:
+        raise ValueError(f"unknown Q40 kernel style {style!r} (one of {STYLES})")
+    mp = m + (-m) % 8
+    if style == "auto":
+        return "blockdot" if mp <= DECODE_MAX_M else "deq"
+    if style != "deq" and mp > DECODE_MAX_M:
+        return "deq"
+    return style
+
+
+@contextlib.contextmanager
+def forced_style(style: str, tk: int | None = None, tn: int | None = None):
+    """``STYLE``, ``BLOCKDOT_TK`` and ``BLOCKDOT_TN`` set for the duration
+    of the ``with`` block, and the caller's values restored after it."""
+    global STYLE, BLOCKDOT_TK, BLOCKDOT_TN
+    if style not in STYLES:
+        raise ValueError(f"unknown Q40 kernel style {style!r} (one of {STYLES})")
+    saved = STYLE, BLOCKDOT_TK, BLOCKDOT_TN
+    STYLE, BLOCKDOT_TK, BLOCKDOT_TN = style, tk, tn
+    try:
+        yield
+    finally:
+        STYLE, BLOCKDOT_TK, BLOCKDOT_TN = saved
+
+
+def blockdot_tiles(k: int, n: int, tk: int | None = None,
+                   tn: int | None = None) -> tuple[int | None, int | None]:
+    """The K1 tile overrides that apply to a [k, n] weight (None = the
+    default). ``tk`` (k rows per split) applies when it divides k and is a
+    multiple of 32, as in the JAX package; ``tn`` (columns per block) when it
+    divides n and K1 is compiled for it (DECODE_TILES_N)."""
+    tk = tk if (tk and k % tk == 0 and tk % Q_BLOCK == 0) else None
+    tn = tn if (tn and tn in DECODE_TILES_N and n % tn == 0) else None
+    return tk, tn
 
 
 def _layer_view(w: QTensor, layer) -> tuple[torch.Tensor, torch.Tensor]:
@@ -66,19 +137,64 @@ def q40_matmul_plain(x: torch.Tensor, w: QTensor, layer=None, out_dtype=None) ->
     return out.to(out_dtype or x.dtype)
 
 
+def _exact_codes(w: QTensor, layer) -> tuple[torch.Tensor, torch.Tensor]:
+    """(exact codes q - 8 as f32 [nb, 32, n], f32 scales [nb, n]) of one
+    layer: the operands of blockdot's math."""
+    packed, scales = _layer_view(w, layer)
+    nb, n = scales.shape
+    p = packed.reshape(nb, Q_BLOCK // 2, n)
+    codes = torch.cat([(p & 0x0F).to(torch.int8) - 8, (p >> 4).to(torch.int8) - 8], dim=1)
+    return codes.to(torch.float32), scales.to(torch.float32)
+
+
+def q40_maskdot_plain(x: torch.Tensor, w: QTensor, layer=None, out_dtype=None) -> torch.Tensor:
+    """Plain version of K3 (the maskdot style): every block's partial dot
+    ``y_b = x_b @ codes_b`` of exact codes in f32 at once, then
+    ``sum_b s_b * y_b``; cast to ``out_dtype`` (default ``x.dtype``)."""
+    codes, scales = _exact_codes(w, layer)
+    *lead, k = x.shape
+    xb = x.reshape(-1, k // Q_BLOCK, Q_BLOCK).to(torch.float32).transpose(0, 1)  # [nb, m, 32]
+    y = torch.bmm(xb, codes)  # [nb, m, n]
+    out = (y * scales[:, None, :]).sum(dim=0)
+    return out.reshape(*lead, -1).to(out_dtype or x.dtype)
+
+
+def q40_loopdot_plain(x: torch.Tensor, w: QTensor, layer=None, out_dtype=None) -> torch.Tensor:
+    """Plain version of K4 (the loopdot style): the blocks of k in ascending
+    order, each a plain ``[m, 32] x [32, n]`` dot of exact codes in f32 whose
+    result, times the block's f32 scale, is added to the sum."""
+    codes, scales = _exact_codes(w, layer)
+    *lead, k = x.shape
+    x2 = x.reshape(-1, k).to(torch.float32)
+    acc = torch.zeros((x2.shape[0], codes.shape[-1]), dtype=torch.float32, device=x.device)
+    for b in range(codes.shape[0]):
+        acc = acc + (x2[:, b * Q_BLOCK : (b + 1) * Q_BLOCK] @ codes[b]) * scales[b]
+    return acc.reshape(*lead, -1).to(out_dtype or x.dtype)
+
+
+#: the plain version of each forced decode style's own kernel (K3, K4); the
+#: other styles' kernels are held against q40_matmul_plain
+STYLE_PLAIN = {"maskdot": q40_maskdot_plain, "loopdot": q40_loopdot_plain}
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def decode_splits(k: int, n: int, sms: int) -> tuple[int, int]:
-    """(splits, 32-row blocks per split) of the decode kernel's split-k:
-    about DECODE_BLOCKS_PER_SM blocks of two warps on every SM — enough
-    loads in flight to cover the memory latency — each split a whole
-    number of 32-row blocks, at least DECODE_MIN_BLOCKS_PER_SPLIT of them
-    (the fixed-order reduction reads every split's partial row)."""
-    col_blocks = -(-n // 256)
+def decode_splits(k: int, n: int, sms: int, cols: int = DECODE_COLS,
+                  tk: int | None = None) -> tuple[int, int]:
+    """(splits, 32-row blocks per split) of the decode kernels' split-k (K1
+    with `cols` columns per block, K3): about DECODE_BLOCKS_PER_SM blocks on
+    every SM — enough loads in flight to cover the memory latency — each
+    split a whole number of 32-row blocks, at least
+    DECODE_MIN_BLOCKS_PER_SPLIT of them (the fixed-order reduction reads
+    every split's partial row). `tk`, a divisor of k, fixes the k rows per
+    split instead (BLOCKDOT_TK)."""
     nkb = k // Q_BLOCK
+    if tk:
+        return nkb // (tk // Q_BLOCK), tk // Q_BLOCK
+    col_blocks = -(-n // cols)
     splits = min(max(1, nkb // DECODE_MIN_BLOCKS_PER_SPLIT),
                  max(1, math.ceil(DECODE_BLOCKS_PER_SM * sms / col_blocks)))
     per = -(-nkb // splits)
@@ -114,9 +230,25 @@ def _check_cuda(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> 
         raise ValueError("q40_matmul: x must be 16-byte aligned")
 
 
+def _split_k_launch(name: str, x2, packed, scales, out, out_f32: int, splits: int, per: int,
+                    *extra) -> None:
+    """Launch a split-k kernel (K1, K2, K3) with its f32 partials."""
+    m, k = x2.shape
+    n = packed.shape[1]
+    partial = (torch.empty((splits, m, n), dtype=torch.float32, device=x2.device)
+               if splits > 1 else None)
+    err = getattr(build.library(name), name)(
+        x2.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+        partial.data_ptr() if partial is not None else None, out.data_ptr(),
+        m, k, n, splits, per, out_f32, *extra, torch.cuda.current_stream(x2.device).cuda_stream)
+    build.check(name, err)
+    LAUNCHES[name] += 1
+
+
 def q40_matmul(x: torch.Tensor, w: QTensor, layer=None, out_dtype=None) -> torch.Tensor:
     """``x[..., k] @ w[layer]`` -> ``[..., n]`` in ``out_dtype`` (default
-    ``x.dtype``; the kernels also write f32, the sum before its rounding)."""
+    ``x.dtype``; the kernels also write f32, the sum before its rounding),
+    through the kernel that ``resolve_style(STYLE, m)`` picks."""
     packed, scales = _layer_view(w, layer)
     *lead, k = x.shape
     n = packed.shape[1]
@@ -124,36 +256,34 @@ def q40_matmul(x: torch.Tensor, w: QTensor, layer=None, out_dtype=None) -> torch
         raise ValueError(f"q40_matmul: x [..., {k}] against packed "
                          f"{tuple(packed.shape)} / scales {tuple(scales.shape)}")
     out_dtype = out_dtype or x.dtype
+    m = math.prod(lead)
+    style = resolve_style(STYLE, m)
     if x.device.type == "cpu":
-        return q40_matmul_plain(x, w, layer, out_dtype)
+        return STYLE_PLAIN.get(style, q40_matmul_plain)(x, w, layer, out_dtype)
     _check_cuda(x, packed, scales)
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"q40_matmul: out_dtype {out_dtype} (bf16 or f32)")
     x2 = x.reshape(-1, k)
-    m = x2.shape[0]
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     out_f32 = int(out_dtype == torch.float32)
     if m == 0:
         return out.reshape(*lead, n)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    if m <= DECODE_MAX_M:
-        splits, per = decode_splits(k, n, _sm_count(x.device.index or 0))
-        partial = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-                   if splits > 1 else None)
-        err = build.library("q40_decode").q40_decode(
-            x2.data_ptr(), packed.data_ptr(), scales.data_ptr(),
-            partial.data_ptr() if partial is not None else None, out.data_ptr(),
-            m, k, n, splits, per, out_f32, stream)
-        build.check("q40_decode", err)
-        LAUNCHES["q40_decode"] += 1
+    sms = _sm_count(x.device.index or 0)
+    if style == "blockdot":
+        tk, tn = blockdot_tiles(k, n, BLOCKDOT_TK, BLOCKDOT_TN)
+        cols = tn or DECODE_COLS
+        splits, per = decode_splits(k, n, sms, cols, tk)
+        _split_k_launch("q40_decode", x2, packed, scales, out, out_f32, splits, per, cols)
+    elif style == "maskdot":
+        splits, per = decode_splits(k, n, sms, MASKDOT_COLS)
+        _split_k_launch("q40_maskdot", x2, packed, scales, out, out_f32, splits, per)
+    elif style == "loopdot":
+        err = build.library("q40_loopdot").q40_loopdot(
+            x2.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(), m, k, n,
+            out_f32, torch.cuda.current_stream(x.device).cuda_stream)
+        build.check("q40_loopdot", err)
+        LAUNCHES["q40_loopdot"] += 1
     else:
-        splits, per = prefill_splits(m, k, n, _sm_count(x.device.index or 0))
-        partial = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-                   if splits > 1 else None)
-        err = build.library("q40_prefill").q40_prefill(
-            x2.data_ptr(), packed.data_ptr(), scales.data_ptr(),
-            partial.data_ptr() if partial is not None else None, out.data_ptr(),
-            m, k, n, splits, per, out_f32, stream)
-        build.check("q40_prefill", err)
-        LAUNCHES["q40_prefill"] += 1
+        splits, per = prefill_splits(m, k, n, sms)
+        _split_k_launch("q40_prefill", x2, packed, scales, out, out_f32, splits, per)
     return out.reshape(*lead, n)

@@ -96,17 +96,27 @@ def _parse_timeout(body: dict) -> float | None:
     return v
 
 
-def _validate_extras(body: dict) -> None:
-    """Fields the batched tier acts on and this tier accepts inert: validated
-    like the JAX package validates them, so a malformed one is a 400."""
+def _parse_spec_k(body: dict) -> int | None:
+    """Per-request speculation: ``spec_k`` in the body, the draft length of
+    this request (0 disables speculation for it; values above the server's
+    --spec clamp down to it). None = the server's --spec."""
     v = body.get("spec_k")
-    if v is not None:
-        try:
-            ok = int(v) >= 0
-        except (TypeError, ValueError):
-            ok = False
-        if not ok:
-            raise ApiError(400, "spec_k must be an integer >= 0")
+    if v is None:
+        return None
+    try:
+        v = int(v)
+    except (TypeError, ValueError):
+        raise ApiError(400, "spec_k must be an integer >= 0") from None
+    if v < 0:
+        raise ApiError(400, "spec_k must be an integer >= 0")
+    return v
+
+
+def _validate_extras(body: dict) -> None:
+    """Fields the batched tier accepts inert (priority, tenant) and spec_k:
+    validated like the JAX package validates them, so a malformed one is a
+    400."""
+    _parse_spec_k(body)
     p = body.get("priority")
     if p is not None:
         names = {"low", "normal", "high"}
@@ -148,8 +158,11 @@ class PrefixCache:
 class ApiServer:
     def __init__(self, loaded, default_temperature=0.8, default_topp=0.9,
                  default_seed=None, replica_id: str = "", sse_heartbeat_s: float = 0.0,
-                 scheduler=None):
+                 scheduler=None, spec: int = 0):
         self.scheduler = scheduler
+        # prompt-lookup speculative decoding of greedy single-engine
+        # requests: the draft length, and the cap of a request's spec_k
+        self.spec = int(spec)
         self.engine = loaded.engine
         self.tokenizer = loaded.tokenizer
         self.config = loaded.config
@@ -282,7 +295,8 @@ class ApiServer:
                  # `or 0.0`: OpenAI treats an explicit JSON null as "use default"
                  presence=float(body.get("presence_penalty") or 0.0),
                  frequency=float(body.get("frequency_penalty") or 0.0),
-                 seed=body.get("seed", self.defaults["seed"]), timeout_s=timeout_s)
+                 seed=body.get("seed", self.defaults["seed"]), timeout_s=timeout_s,
+                 spec_k=_parse_spec_k(body))
         if legacy:
             p["prompt_tokens"] = self.tokenizer.encode(self._normalize_legacy_prompt(body),
                                                        add_bos=True)
@@ -327,9 +341,12 @@ class ApiServer:
             sampler = Sampler(p["temperature"], p["topp"],
                               seed if seed is not None else int(time.time()),
                               presence=p["presence"], frequency=p["frequency"])
+            # a request's spec_k clamps to the server's --spec, as in the JAX
+            # package
+            spec = self.spec if p["spec_k"] is None else min(p["spec_k"], self.spec)
             content, finish, n_generated, t_first = self._run_single(
                 p["prompt_tokens"], budget, sampler, p["stops"], emit, probe=probe,
-                deadline=None if timeout_s is None else t_submit + timeout_s)
+                deadline=None if timeout_s is None else t_submit + timeout_s, spec=spec)
             if messages is not None and not (finish == "timeout" and n_generated == 0):
                 # cache the full conversation incl. the reply for the next
                 # turn (a request that expired on the lock prefilled nothing)
@@ -352,7 +369,7 @@ class ApiServer:
         return content, finish, n_generated, timings
 
     def _run_single(self, prompt_tokens, budget, sampler, stops, emit, probe=None,
-                    deadline=None) -> tuple[str, str, int, float | None]:
+                    deadline=None, spec: int = 0) -> tuple[str, str, int, float | None]:
         """Token loop of a completion (generate + EOS/stop detection +
         held-prefix flush) -> (content, finish_reason, n_tokens,
         first_token_monotonic_or_None). The caller holds self.lock and has
@@ -363,7 +380,7 @@ class ApiServer:
         finish = "length"
         t_first = None
         probe_at = time.monotonic() + 0.25
-        for t in self.engine.generate(prompt_tokens, budget, sampler):
+        for t in self.engine.generate(prompt_tokens, budget, sampler, spec=spec):
             if t_first is None:
                 t_first = time.monotonic()
             if probe is not None and time.monotonic() >= probe_at:
@@ -687,11 +704,13 @@ def make_server(loaded, host="127.0.0.1", port=0, n_slots: int = 0, **defaults):
     """-> (server, api) on a ThreadingHTTPServer. n_slots > 0 is the
     continuous-batching tier: a BatchEngine with that many cache slots behind
     a Scheduler. n_slots == 0 keeps the single-engine tier with the
-    NaiveCache prefix reuse. Speculative decoding and the aio front end are
-    not yet ported and raise."""
-    if int(defaults.get("spec") or 0) > 0:
-        raise NotImplementedError("speculative decoding (--spec) is not yet "
-                                  "ported to the PyTorch/CUDA package")
+    NaiveCache prefix reuse, and ``spec`` > 0 (--spec) its speculative
+    decoding of greedy requests. Batched speculation (spec with n_slots > 0)
+    and the aio front end are not yet ported and raise."""
+    spec = int(defaults.get("spec") or 0)
+    if spec > 0 and n_slots > 0:
+        raise NotImplementedError("batched speculative decoding (--spec with --slots > 0) "
+                                  "is not yet ported to the PyTorch/CUDA package")
     frontend = str(defaults.get("frontend") or "threads")
     if frontend != "threads":
         raise NotImplementedError(f"--frontend {frontend} is not yet ported to the "
@@ -707,6 +726,7 @@ def make_server(loaded, host="127.0.0.1", port=0, n_slots: int = 0, **defaults):
         replica_id=defaults.get("replica_id") or "",
         sse_heartbeat_s=defaults.get("sse_heartbeat_s") or 0.0,
         scheduler=scheduler,
+        spec=spec,
     )
     handler = type("Handler", (_Handler,), {"api": api})
     httpd = ThreadingHTTPServer((host, port), handler)

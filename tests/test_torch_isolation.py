@@ -87,7 +87,7 @@ def test_cli_on_the_cpu_when_asked(tmp_path):
 def test_unported_options_are_refused():
     from dllama_tpu_torch.cli.main import main
 
-    for flag in (["--warmup", "auto"], ["--spec", "4"], ["--mesh", "tp=2"],
+    for flag in (["--warmup", "auto"], ["--mesh", "tp=2"],
                  ["--frontend", "aio"], ["--slots", "2", "--spec", "4"],
                  ["--slots", "2", "--radix-cache", "on"],
                  ["--slots", "2", "--prefill-budget", "64"],
@@ -99,3 +99,5 @@ def test_unported_options_are_refused():
     # at the missing tokenizer (exit 1)
     assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", "--slots", "2",
                  "--kv-layout", "paged", "--radix-cache", "auto", "--preempt", "off"]) == 1
+    # so is speculation on the single-engine tier (--spec without --slots)
+    assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", "--spec", "4"]) == 1
