@@ -24,7 +24,9 @@ Q80 (random weights from a seed), and exits 0 only if every phase passed:
 3. forward    a synthetic 8B Q40 `.m` + `.t` written to a temp dir and loaded
               with load_model; a 256-token prefill, 8 decode steps and a
               9-row spec verify forward (every position's logits) through
-              the kernels against the same forward with the plain versions.
+              the kernels against the same forward with the plain versions;
+              then the device time of one 256-token prefill chunk through
+              the kernels at cache positions 0 and 2048 (CUDA events).
 4. serve      make_server (the function `serve` runs) over real HTTP on the
               single-engine tier: a greedy chat completion, the same again
               (identical content), an SSE stream, and a second turn that hits
@@ -66,7 +68,9 @@ of its suite rows and of `8 w1 B D`, the tile sweep, the flash rows), since
 the benchmark checks no result. `serve`, `batch`, `f8`, `q80`, `kbench`, `styles` and `spec` are the
 main paths: the launch counters are zeroed just before each of their runs and
 read just after it. `profile` (not in the default) adds a torch.profiler pass
-over one single-stream and one 8-slot decode chunk.
+over one single-stream and one 8-slot decode chunk; `chunk` (not in the
+default) runs only the forward phase's prefill-chunk timing, so that it can
+be taken from another checkout of the package as well.
 
 The line before the last is the card's name and power limit; before that, one
 JSON object lists every ported kernel with its numbers; the last line is
@@ -263,7 +267,8 @@ def report(kernel: str, case: dict) -> None:
 def matmul_cases(cfg, device, timer, gen, fmt: str, plan, layer: int = 1) -> dict:
     """The decode and prefill kernels of weight format `fmt` ('q40': K1/K2,
     'q80': K5/K6) at the 8B shapes of `plan` [(kernel, weight, m)], each
-    weight stacked [L=2] with layer 1 used."""
+    weight stacked [L=2] with layer 1 used; K2 at m <= 16 under STYLE deq.
+    Each case must launch its own kernel."""
     import torch
 
     from dllama_tpu_torch.ops import q40_matmul, q80_matmul
@@ -280,19 +285,26 @@ def matmul_cases(cfg, device, timer, gen, fmt: str, plan, layer: int = 1) -> dic
         w = rand(gen, (2,), k, n, device)
         x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
         decode = kernel.endswith("_decode")
-        assert (m <= mod.DECODE_MAX_M) == decode
-        got = kernel_fn(x, w, layer, out_dtype=torch.float32)
-        ref = plain_fn(x, w, layer, out_dtype=torch.float32)
-        torch.cuda.synchronize()
-        wd = slice_leaf(w, layer).dequantize(torch.bfloat16)
-        nbytes = m * k * 2 + int(k * n * weight_bytes) + (k // 32) * n * 2 + m * n * 2
-        b, by = bound_ms(nbytes, 2.0 * m * k * n)
-        case = dict(case=f"{name} {k}x{n} m={m}", max_abs_err=(got - ref).abs().max().item(),
-                    tol=(TOL_K1 if decode else TOL_K2) * ref.abs().max().item(),
-                    ms=timer(lambda: kernel_fn(x, w, layer)),
-                    plain_ms=timer(lambda: plain_fn(x, w, layer)),
-                    library_ms=timer(lambda: torch.matmul(x, wd)),
-                    bound_ms=b, bound_by=by)
+        # the prefill kernel at decode row counts: the deq style (K2 only)
+        deq = not decode and m <= mod.DECODE_MAX_M
+        assert decode == (m <= mod.DECODE_MAX_M) or (deq and kernel == "q40_prefill")
+        with (q40_matmul.forced_style("deq") if deq else contextlib.nullcontext()):
+            before = mod.LAUNCHES[kernel]
+            got = kernel_fn(x, w, layer, out_dtype=torch.float32)
+            if mod.LAUNCHES[kernel] != before + 1:
+                fail(f"{kernel} {name} m={m}: another kernel was launched")
+            ref = plain_fn(x, w, layer, out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            wd = slice_leaf(w, layer).dequantize(torch.bfloat16)
+            nbytes = m * k * 2 + int(k * n * weight_bytes) + (k // 32) * n * 2 + m * n * 2
+            b, by = bound_ms(nbytes, 2.0 * m * k * n)
+            case = dict(case=f"{name} {k}x{n} m={m}{' deq' if deq else ''}",
+                        max_abs_err=(got - ref).abs().max().item(),
+                        tol=(TOL_K1 if decode else TOL_K2) * ref.abs().max().item(),
+                        ms=timer(lambda: kernel_fn(x, w, layer)),
+                        plain_ms=timer(lambda: plain_fn(x, w, layer)),
+                        library_ms=timer(lambda: torch.matmul(x, wd)),
+                        bound_ms=b, bound_by=by)
         report(kernel, case)
         results.setdefault(kernel, []).append(case)
         del w, wd, x, got, ref
@@ -382,6 +394,9 @@ def phase_kernels(cfg, device, timer, layer=1):
     # m = 9: the spec verify forward (k + 1 rows at --spec 8)
     plan = [("q40_decode", name, m) for name in names for m in (1, 8, 9)]
     plan += [("q40_prefill", name, m) for name in ("w1", "w2") for m in (32, 256)]
+    # narrow n (split-k) and wq at a chunk; the deq style's decode rows
+    plan += [("q40_prefill", "wk", 256), ("q40_prefill", "wq", 256),
+             ("q40_prefill", "w1", 1), ("q40_prefill", "w1", 16)]
     results = matmul_cases(cfg, device, timer, gen, "q40", plan, layer)
     results["flash_attention"] = []
 
@@ -392,6 +407,8 @@ def phase_kernels(cfg, device, timer, layer=1):
     for t, pos, cache_dtype in ((1, 0, torch.bfloat16), (1, 1000, torch.bfloat16),
                                 (1, 4095, torch.bfloat16), (256, 0, torch.bfloat16),
                                 (256, 2048, torch.bfloat16), (9, 1000, torch.bfloat16),
+                                (64, 0, torch.bfloat16), (128, 0, torch.bfloat16),
+                                (256, 3840, torch.bfloat16),
                                 (1, 1000, torch.float32)):  # T=9: a spec verify forward
         q = torch.randn((1, t, hq, hd), generator=gen, device=device).to(torch.bfloat16)
         kc, vc = kc.to(cache_dtype), vc.to(cache_dtype)
@@ -550,22 +567,27 @@ def phase_edges(device) -> None:
 
     from dllama_tpu_torch.ops.flash_attention import flash_gqa_attention
     from dllama_tpu_torch.ops.layers import gqa_attention
+    from dllama_tpu_torch.ops.q40_matmul import forced_style as q40_forced_style
     from dllama_tpu_torch.ops.q40_matmul import q40_matmul, q40_matmul_plain
 
     gen = torch.Generator(device=device).manual_seed(2)
     f32 = torch.float32
-    for m, k, n, stacked in ((12, 4096, 4096, True), (3, 4128, 1000, True),
-                             (5, 256, 1002, False), (100, 4128, 1000, True),
-                             (40, 512, 1003, False)):
+    for m, k, n, stacked, style in ((12, 4096, 4096, True, "auto"), (3, 4128, 1000, True, "auto"),
+                                    (5, 256, 1002, False, "auto"),
+                                    (100, 4128, 1000, True, "auto"),
+                                    (40, 512, 1003, False, "auto"),
+                                    (33, 4096, 1000, True, "auto"),
+                                    (1, 4128, 1000, True, "deq"), (16, 512, 1003, False, "deq")):
         w = random_q40(gen, (2,) if stacked else (), k, n, device)
         layer = 1 if stacked else None
         x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
-        got = q40_matmul(x, w, layer, out_dtype=f32)
+        with q40_forced_style(style):
+            got = q40_matmul(x, w, layer, out_dtype=f32)
         ref = q40_matmul_plain(x, w, layer, out_dtype=f32)
-        tol = (TOL_K1 if m <= 16 else TOL_K2) * ref.abs().max().item()
+        tol = (TOL_K1 if m <= 16 and style == "auto" else TOL_K2) * ref.abs().max().item()
         err = (got - ref).abs().max().item()
-        print(f"  edge q40 m={m} k={k} n={n}{'' if stacked else ' 2-D'}: "
-              f"err {err:.3e} <= tol {tol:.3e}", flush=True)
+        print(f"  edge q40 m={m} k={k} n={n}{'' if stacked else ' 2-D'}"
+              f"{' deq' if style == 'deq' else ''}: err {err:.3e} <= tol {tol:.3e}", flush=True)
         if not err <= tol:
             fail(f"q40 edge m={m} k={k} n={n}: max error {err} over {tol}")
     for b, t, hq, hkv, hd, s, pos, dt in (
@@ -1076,6 +1098,70 @@ def phase_forward(loaded, device, prefill: int = 256, decode: int = 8, verify: i
     if not torch.isfinite(runs["kernels"]).all():
         fail("forward: non-finite logits through the kernels")
     return ((runs["kernels"] - ref).abs().max() / ref.abs().max()).item()
+
+
+def prefill_chunk_ms(loaded, device, positions=(0, 2048), chunk: int = 256,
+                     reps: int = 5) -> dict:
+    """Device time of one `chunk`-token prefill forward through the kernels
+    at each cache position of `positions`: CUDA events around `forward`,
+    the median of `reps` runs taken in turns across the positions after a
+    warm-up. A spin kernel longer than the host takes to enqueue the forward
+    runs first, so the events measure the card's time for the forward's
+    launches, not the host's pace. Then one forward per position under
+    torch.profiler splits the device time by kernel: K2
+    (q40_prefill_kernel), K7 (flash_*) and everything else."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dllama_tpu_torch.models.llama import KVCache, forward
+
+    eng, cfg = loaded.engine, loaded.config
+    cache = KVCache.create(cfg, 1, eng.cache.k.dtype, eng.seq_len, device)
+    toks = torch.randint(0, cfg.vocab_size, (1, chunk),
+                         generator=torch.Generator(device=device).manual_seed(9), device=device)
+
+    def run(pos):
+        forward(cfg, eng.params, toks, pos, cache, eng.rope_cache, eng.attn_fn, eng.mm,
+                last_only=True)
+
+    # the spin's clock: cycles per ms of torch.cuda._sleep
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    torch.cuda._sleep(20_000_000)
+    b.record()
+    b.synchronize()
+    cycles_per_ms = 20_000_000 / a.elapsed_time(b)
+    out = {pos: {"times": []} for pos in positions}
+    with torch.no_grad():
+        for pos in positions:  # warm-up, and the host's enqueue time
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(pos)
+            out[pos]["host_ms"] = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+        for _ in range(reps):
+            for pos in positions:
+                torch.cuda._sleep(int(2 * out[pos]["host_ms"] * cycles_per_ms))
+                a.record()
+                run(pos)
+                b.record()
+                b.synchronize()
+                out[pos]["times"].append(a.elapsed_time(b))
+        for pos in positions:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                run(pos)
+                torch.cuda.synchronize()
+            split = {"k2_ms": 0.0, "k7_ms": 0.0, "other_ms": 0.0}
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA:
+                    key = ("k2_ms" if "q40_prefill_kernel" in e.name else
+                           "k7_ms" if "flash_" in e.name else "other_ms")
+                    split[key] += e.time_range.elapsed_us() / 1e3
+            out[pos].update(split, ms=statistics.median(out[pos].pop("times")))
+    del cache
+    return out
 
 
 def phase_profile(loaded, prompt_tokens: list[int], steps: int = 8) -> dict:
@@ -1742,7 +1828,8 @@ def main(argv=None) -> int:
                     default="card,kernels,kbench,forward,serve,batch,inference,styles,spec,f8,q80",
                     help="comma list; 'profile' (not in the default) adds a "
                          "torch.profiler pass over one decode chunk, single-stream "
-                         "and 8-slot")
+                         "and 8-slot; 'chunk' (not in the default) is the forward "
+                         "phase's prefill-chunk timing alone")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -1788,7 +1875,8 @@ def main(argv=None) -> int:
         paths["kbench"] = phase_kbench()
     prompt = ("Summarize the plot of a long story about a lighthouse keeper, "
               "a storm, and a ship that never arrives.")
-    if phases & {"forward", "serve", "profile", "batch", "inference", "styles", "spec", "f8"}:
+    if phases & {"forward", "chunk", "serve", "profile", "batch", "inference", "styles", "spec",
+                  "f8"}:
         from dllama_tpu_torch.engine.loader import load_model
 
         tmp = tempfile.TemporaryDirectory(prefix="dllama_smoke_")
@@ -1805,6 +1893,13 @@ def main(argv=None) -> int:
 
         if "forward" in phases:
             check_forward(loaded, device, "forward")
+        if phases & {"forward", "chunk"}:
+            chunk = prefill_chunk_ms(loaded, device)
+            print("prefill chunk (256 tokens, 32 layers, through the kernels): device "
+                  + "; ".join(f"{c['ms']:.3f} ms at pos {p} (profiled kernels: K2 "
+                              f"{c['k2_ms']:.3f}, K7 {c['k7_ms']:.3f}, other "
+                              f"{c['other_ms']:.3f} ms; host enqueue {c['host_ms']:.1f} ms)"
+                              for p, c in chunk.items()), flush=True)
 
         if "serve" in phases:
             launches = serve_checked(loaded, prompt, "serve", Q40_KERNELS,

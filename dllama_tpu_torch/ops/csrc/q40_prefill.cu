@@ -1,198 +1,457 @@
-// Q40 prefill GEMM for Hopper: out[m, n] = x[m, k] @ W[k, n], m > 16.
+// Q40 prefill GEMM for Hopper: out[m, n] = x[m, k] @ W[k, n], m > 16 (and
+// every m under STYLE = "deq").
 //
 // Replaces dllama_tpu/ops/pallas/q40_matmul.py:_deq_kernel (called by
-// _deq_call, and by q40_matmul_2d), the TPU's prefill-shaped Q40 kernel.
+// _deq_call, and by q40_matmul_2d), the TPU's prefill-shaped Q40 kernel. As
+// there, each weight is its exact code q - 8 times the f32 scale, rounded
+// once to bf16, and the dot accumulates in f32 — the plain version's
+// rounding, so only the order of the sums differs.
 //
 // What bounds it on this card: tensor-core operations. At m >= 256 a
 // product does 2*m*k*n operations against k*n*0.5625 weight bytes, more than
 // the ~300 operations per byte at which the card's bf16 rate, not its
-// memory, is the limit.
+// memory, is the limit. The full bf16 rate is reached only through wgmma,
+// and the dequantization and the copies compete with it for the SM's issue
+// slots.
 //
-// What the design does about it: output tiles of 64 x 128 per block of 8
-// warps, each warp 32 x 32 of f32 accumulators in nvcuda::wmma fragments
-// (bf16 inputs, f32 accumulation on the tensor cores). Per step of 64 input
-// dims (two Q40 blocks) the block stages its x tile and dequantizes the
-// weight tile into shared memory: code q - 8 times the f32 scale, rounded
-// once to bf16 — the same rounding as the plain version (dequantize, cast to
-// the activation dtype, then an f32 dot), so only the order of the sums
-// differs. The next step's global loads are issued into registers before the
-// current step's products, so their latency hides behind the tensor-core
-// work. Where the output tiles alone would leave SMs idle (a narrow n or a
-// 32-row chunk), k is split across blocks and a second pass sums the f32
-// partials in a fixed order. The epilogue rounds once, through shared
-// memory. Not yet here: a TMA/cp.async ring and wgmma, which is where the
-// remaining gap to the tensor-core bound lies.
+// What the design does about it:
+//  * A block of two warpgroups owns a BM x 128 output tile (BM = 256 rows
+//    for a chunk of 256 rows or more, else 128); each warpgroup runs
+//    wgmma.mma_async m64n128k16 (bf16 in, f32 accumulators in registers)
+//    over BM / 2 rows. A 256-row chunk dequantizes each weight tile once.
+//  * A ring of kStages stages, filled by TMA (one thread issues the copies,
+//    an mbarrier per stage counts their bytes): per step of 64 input dims,
+//    the x tile [BM x 64] bf16 in the 128-byte-swizzled K-major layout that
+//    the wgmma descriptor of A reads, and the raw Q40 tile, packed nibbles
+//    [32 x 128] u8 and f16 scales [2 x 128]: 0.5625 bytes a weight. TMA
+//    zero-fills past m, k and n. Where it cannot describe the weight (rows
+//    of n bytes with n % 16 != 0) the threads load the raw tile themselves.
+//  * The warpgroups dequantize each raw stage into a bf16 B tile [64 x 128]
+//    in the 128-byte-swizzled MN-major layout (n contiguous, as the Q40
+//    layout is) that wgmma reads with its B transpose bit. There are two B
+//    tiles: step j + 1 is dequantized while the wgmma of step j runs. One
+//    mask-or turns two nibbles into the bf16 values 128 + q, one bf16x2 add
+//    into the codes q - 8, and with the f16 scale split into bf16 parts
+//    s = s_hi + s_lo, (q - 8) s_lo is exact in bf16 and one bf16x2 FMA
+//    (q - 8) s_hi + (q - 8) s_lo rounds (q - 8) s once: the plain version's
+//    weight, two weights per instruction.
+//  * Where the output tiles alone leave SMs idle (a narrow n, a 32-row
+//    chunk), k is split across blocks and a second pass sums the f32
+//    partials in a fixed order (launch_splitk_reduce): no float atomics.
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "common.cuh"
 
 namespace {
 
-using namespace nvcuda;
+constexpr int BM = 256;  // rows of x per block at m >= 256 (two warpgroups)
+constexpr int BM_SMALL = 128;  // ... and below
+constexpr int BN = 128;  // output columns per block (the wgmma width)
+constexpr int BK = 64;   // input dims per step: two 32-row Q40 blocks
+constexpr int kStages = 4;  // steps in the copy ring
+constexpr int kThreads = 256;
+constexpr int kMinBlocksPerSm = 1;
 
-constexpr int BM = 64, BN = 128, BK = 64;  // BK: two 32-row Q40 blocks
-constexpr int kThreads = 256;              // 8 warps: 2 along m x 4 along n
-constexpr int LDA = BK + 8;                // bf16 per shared row of the x tile
-constexpr int LDB = BN + 8;                // bf16 per shared row of the weight tile
-constexpr int LDC = BN + 4;                // f32 per shared row of the output tile
-constexpr int kSmemAB = (BM * LDA + BK * LDB) * 2;
-constexpr int kSmemC = BM * LDC * 4;
-constexpr int kSmem = kSmemAB > kSmemC ? kSmemAB : kSmemC;
-
-// One step's global data held in registers: two 8-element rows of the x
-// tile, and for each of the two Q40 blocks one packed row of 8 columns with
-// their 8 f16 scales.
-struct Stage {
-  uint4 a[2];
-  uint2 p[2];
-  uint4 s[2];
+// Shared memory of a BM-row block: x stages and B tiles, each 1024-byte
+// aligned (the 128-byte swizzle repeats every 8 rows of 128 bytes, and the
+// wgmma descriptors assume base offset 0), then the raw stages and the
+// stages' mbarriers.
+constexpr int kBBytes = BK * BN * 2;       // one bf16 B tile, 16 KB
+constexpr int kPBytes = BK / 2 * BN;       // one stage of packed nibbles, 4 KB
+constexpr int kSBytes = BK / 32 * BN * 2;  // one stage of f16 scales, 512 B
+template <int M>
+struct Layout {
+  static constexpr int kXBytes = M * BK * 2;  // one x stage
+  static constexpr int kOffB = kStages * kXBytes;
+  static constexpr int kOffP = kOffB + 2 * kBBytes;
+  static constexpr int kOffS = kOffP + kStages * kPBytes;
+  static constexpr int kOffBar = kOffS + kStages * kSBytes;
+  static constexpr int kSmem = kOffBar + kStages * 8 + 1024;  // + room to align the base
 };
 
-__device__ __forceinline__ void load_stage(Stage& st, const __nv_bfloat16* x,
-                                           const uint8_t* packed, const __half* scales,
-                                           int m, int k, int n, int row0, int col0,
-                                           int step, int tid) {
+// Byte offset of the 16-byte chunk `chunk` of 128-byte row `row` in a
+// 128-byte-swizzled tile: the chunk index XOR the row's index within its
+// group of 8 rows (what TMA's 128-byte swizzle writes).
+__device__ __forceinline__ int swz(int row, int chunk) {
+  return row * 128 + ((chunk ^ (row & 7)) << 4);
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start address,
+// leading and stride byte offsets (in 16-byte units), layout 1 = 128B swizzle.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// the generic-proxy stores to shared memory become visible to the async
+// proxy that wgmma reads through
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// keeps the compiler from moving accumulator registers across a wgmma
+__device__ __forceinline__ void fence_acc(float (&d)[BN / 2]) {
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+// one arrival that also expects `bytes` of copies to complete the phase
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+// TMA: the box of `map` at coordinates (c0 innermost, c1) into shared
+// memory at dst, its bytes counted on mbarrier bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// d += A[64 x 16] (K-major, from desc_a) * B[16 x 128] (MN-major, from desc_b)
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[BN / 2], uint64_t desc_a,
+                                                 uint64_t desc_b) {
+  static_assert(BN == 128, "the wgmma width is the block's");
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"  // scale-d: accumulate into d
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"  // A K-major, B MN-major (transposed)
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// The raw Q40 tile of step `step` loaded by the threads themselves (n % 16
+// != 0: packed rows are not 16-byte aligned): zero past k and n.
+__device__ __forceinline__ void load_w_plain(unsigned char* ps, __half* ss, int step,
+                                             const uint8_t* packed, const __half* scales,
+                                             int k, int n, int col0, int tid) {
   const int nkb = k / 32;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {  // x tile: rows ar and ar + 32, 8 dims from ac
-    const int ar = tid / 8 + h * 32, ac = (tid % 8) * 8;
-    const int gr = row0 + ar, gk = step * BK + ac;
-    st.a[h] = (gr < m && gk < k)
-                  ? *reinterpret_cast<const uint4*>(x + (size_t)gr * k + gk)
-                  : make_uint4(0u, 0u, 0u, 0u);
+  for (int i = tid; i < BK / 2 * BN; i += kThreads) {
+    const int pr = i / BN, c = i % BN;
+    const int kb = step * 2 + pr / 16;
+    ps[i] = kb < nkb && col0 + c < n ? packed[((size_t)kb * 16 + pr % 16) * n + col0 + c] : 0;
   }
-  const int br = tid / 16, gc = col0 + (tid % 16) * 8;
+  for (int i = tid; i < BK / 32 * BN; i += kThreads) {
+    const int kb = step * 2 + i / BN, c = i % BN;
+    ss[i] = kb < nkb && col0 + c < n ? scales[(size_t)kb * n + col0 + c] : __float2half(0.f);
+  }
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ __nv_bfloat162 bf2(uint32_t v) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&v);
+}
+
+// Dequantize raw stage (ps, ss) into B tile `bt`. Thread -> 8 columns from
+// 8 cg and kRows consecutive packed rows of one Q40 block, so that it splits
+// its 8 scales once. Packed row pr of a step holds k rows 32 (pr / 16) +
+// pr % 16 (low nibbles) and that + 16 (high nibbles).
+__device__ __forceinline__ void dequant_step(const unsigned char* ps, const __half* ss,
+                                             unsigned char* bt, int tid) {
+  constexpr int kGroups = BN / 8;
+  constexpr int kRows = BK / 2 * kGroups / kThreads;  // packed rows a thread
+  static_assert(16 % kRows == 0, "a thread's rows stay in one Q40 block");
+  const int cg = tid % kGroups, pr0 = (tid / kGroups) * kRows;
+  // the 8 scales as bf16 pairs s_hi + s_lo = s, exactly
+  const uint4 sv = *reinterpret_cast<const uint4*>(ss + (pr0 / 16) * BN + cg * 8);
+  const __half2* sh = reinterpret_cast<const __half2*>(&sv);
+  __nv_bfloat162 s_hi[4], s_lo[4];
 #pragma unroll
-  for (int qb = 0; qb < 2; ++qb) {  // weight tile: packed row br of block qb
-    const int kb = step * 2 + qb;
-    const uint8_t* prow = packed + ((size_t)kb * 16 + br) * n;
-    const __half* srow = scales + (size_t)kb * n;
-    if (kb < nkb && (n & 7) == 0 && gc + 8 <= n) {
-      st.p[qb] = __ldg(reinterpret_cast<const uint2*>(prow + gc));
-      st.s[qb] = __ldg(reinterpret_cast<const uint4*>(srow + gc));
-    } else {  // ragged right edge, n not a multiple of 8, or past k
-      alignas(8) uint8_t b[8];
-      alignas(16) __half sh[8];
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __half22float2(sh[e]);
+    s_hi[e] = __floats2bfloat162_rn(f.x, f.y);
+    const float2 h = __bfloat1622float2(s_hi[e]);
+    s_lo[e] = __floats2bfloat162_rn(f.x - h.x, f.y - h.y);
+  }
+  const __nv_bfloat162 k136 = __floats2bfloat162_rn(136.f, 136.f);
+  unsigned char* atom = bt + (cg / 8) * (BK * 128);  // 64-column atom of the MN-major tile
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const bool in = kb < nkb && gc + i < n;
-        b[i] = in ? prow[gc + i] : (uint8_t)0x88;  // code 0 outside
-        sh[i] = in ? srow[gc + i] : __float2half(0.f);
+  for (int r = 0; r < kRows; ++r) {
+    const int pr = pr0 + r;
+    const uint2 p = *reinterpret_cast<const uint2*>(ps + pr * BN + cg * 8);
+    uint32_t lo[4], hi[4];  // k rows klo and klo + 16, column pairs 0-1 .. 6-7
+#pragma unroll
+    for (int w = 0; w < 2; ++w) {
+      // bytes b0 b2 b1 b3, so that a 0x000F000F mask takes two neighbouring
+      // columns' nibbles into the low bits of the two 16-bit halves, which
+      // with 0x4300 are the bf16 values 128 + q
+      const uint32_t wp = __byte_perm(w ? p.y : p.x, 0, 0x3120);
+      const uint32_t c[4] = {(wp & 0x000F000Fu) | 0x43004300u,
+                             ((wp >> 8) & 0x000F000Fu) | 0x43004300u,
+                             ((wp >> 4) & 0x000F000Fu) | 0x43004300u,
+                             ((wp >> 12) & 0x000F000Fu) | 0x43004300u};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int e = 2 * w + i % 2;  // column pair
+        const __nv_bfloat162 code = __hsub2(bf2(c[i]), k136);  // q - 8, exact
+        const uint32_t v = bits(__hfma2(code, s_hi[e], __hmul2(code, s_lo[e])));
+        (i < 2 ? lo : hi)[e] = v;
       }
-      st.p[qb] = *reinterpret_cast<const uint2*>(b);
-      st.s[qb] = *reinterpret_cast<const uint4*>(sh);
     }
+    const int klo = (pr / 16) * 32 + pr % 16;
+    *reinterpret_cast<uint4*>(atom + swz(klo, cg % 8)) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    *reinterpret_cast<uint4*>(atom + swz(klo + 16, cg % 8)) =
+        make_uint4(hi[0], hi[1], hi[2], hi[3]);
   }
 }
 
-__device__ __forceinline__ void store_stage(const Stage& st, __nv_bfloat16* As,
-                                            __nv_bfloat16* Bs, int tid) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-    *reinterpret_cast<uint4*>(As + (tid / 8 + h * 32) * LDA + (tid % 8) * 8) = st.a[h];
-  const int br = tid / 16, bc = (tid % 16) * 8;
-#pragma unroll
-  for (int qb = 0; qb < 2; ++qb) {
-    const uint32_t pw[2] = {st.p[qb].x, st.p[qb].y};
-    const uint32_t sw[4] = {st.s[qb].x, st.s[qb].y, st.s[qb].z, st.s[qb].w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const uint32_t byte = (pw[i / 4] >> (8 * (i % 4))) & 0xFFu;
-      const __half2 h = *reinterpret_cast<const __half2*>(&sw[i / 2]);
-      const float s = (i % 2) ? __high2float(h) : __low2float(h);
-      // rows 32*qb + br and 32*qb + br + 16: the low and high nibble
-      Bs[(qb * 32 + br) * LDB + bc + i] = __float2bfloat16(q40_code(byte & 15u) * s);
-      Bs[(qb * 32 + br + 16) * LDB + bc + i] = __float2bfloat16(q40_code(byte >> 4) * s);
-    }
-  }
-}
-
-template <typename TO>
-__global__ void __launch_bounds__(kThreads) q40_prefill_kernel(
-    const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ packed,
+template <typename TO, int M>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm) q40_prefill_kernel(
+    const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_p,
+    const __grid_constant__ CUtensorMap map_s, const uint8_t* __restrict__ packed,
     const __half* __restrict__ scales, float* __restrict__ partial, TO* __restrict__ out,
-    int m, int k, int n, int steps_per_split) {
-  __shared__ __align__(128) unsigned char smem[kSmem];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = As + BM * LDA;
-  float* Cs = reinterpret_cast<float*>(smem);
+    int m, int k, int n, int steps_per_split, int tma_w) {
+  using L = Layout<M>;
+  constexpr int kMTiles = M / 128;  // m64 tiles of each warpgroup
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t sm_addr = static_cast<uint32_t>(__cvta_generic_to_shared(sm));
+  const uint32_t bar0 = sm_addr + L::kOffBar;
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 4, wn = warp % 4;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+  const int wg = tid / 128;
+  const int row0 = blockIdx.x * M, col0 = blockIdx.y * BN;
   const int n_steps = (k + BK - 1) / BK;
   const int step0 = blockIdx.z * steps_per_split;
-  const int step1 = min(n_steps, step0 + steps_per_split);
+  const int nst = max(0, min(n_steps, step0 + steps_per_split) - step0);
+  const uint32_t stage_bytes = L::kXBytes + (tma_w ? kPBytes + kSBytes : 0);
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  Stage st;
-  if (step0 < step1) load_stage(st, x, packed, scales, m, k, n, row0, col0, step0, tid);
-  for (int step = step0; step < step1; ++step) {
-    store_stage(st, As, Bs, tid);
-    __syncthreads();
-    if (step + 1 < step1)  // in flight while the tensor cores work
-      load_stage(st, x, packed, scales, m, k, n, row0, col0, step + 1, tid);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bf[j], Bs + kk * LDB + wn * 32 + j * 16, LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], bf[j], acc[i][j]);
+  // stage s of step `step`: TMA copies issued by thread 0 (and the raw tile
+  // by every thread where TMA cannot describe it)
+  auto fill = [&](int step) {
+    const int s = step % kStages;
+    const int gs = step0 + step;
+    if (tid == 0) {
+      mbar_expect(bar0 + 8 * s, stage_bytes);
+      tma_load(sm_addr + s * L::kXBytes, &map_x, bar0 + 8 * s, gs * BK, row0);
+      if (tma_w) {
+        tma_load(sm_addr + L::kOffP + s * kPBytes, &map_p, bar0 + 8 * s, col0, gs * BK / 2);
+        tma_load(sm_addr + L::kOffS + s * kSBytes, &map_s, bar0 + 8 * s, col0, gs * BK / 32);
+      }
     }
+    if (!tma_w)
+      load_w_plain(sm + L::kOffP + s * kPBytes,
+                   reinterpret_cast<__half*>(sm + L::kOffS + s * kSBytes), gs, packed, scales,
+                   k, n, col0, tid);
+  };
+  auto dequant = [&](int step) {
+    const int s = step % kStages;
+    dequant_step(sm + L::kOffP + s * kPBytes,
+                 reinterpret_cast<const __half*>(sm + L::kOffS + s * kSBytes),
+                 sm + L::kOffB + (step & 1) * kBBytes, tid);
+  };
+
+  float acc[kMTiles][BN / 2];
+#pragma unroll
+  for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[mt][i] = 0.f;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(bar0 + 8 * s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  for (int j = 0; j < kStages - 1 && j < nst; ++j) fill(j);
+  if (nst > 0) {
+    mbar_wait(bar0, 0);
+    __syncthreads();  // (the raw tile some threads loaded themselves)
+    dequant(0);
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  // step j: its products run while step j + 1 is dequantized; its stage is
+  // refilled with step j + kStages - 1 one step later, once they are done
+  for (int j = 0; j < nst; ++j) {
+    const uint32_t a_base = sm_addr + (j % kStages) * L::kXBytes + wg * (M / 2) * 128;
+    const uint32_t b_base = sm_addr + L::kOffB + (j & 1) * kBBytes;
+#pragma unroll
+    for (int mt = 0; mt < kMTiles; ++mt) fence_acc(acc[mt]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int mt = 0; mt < kMTiles; ++mt)
+        // A: +32 bytes per k16 within the swizzled 128-byte rows, 1024-byte
+        // groups of 8 rows, 64 rows per m64 tile. B: +16 rows per k16;
+        // 64-column atoms 8 KB apart, groups of 8 k rows 1024 bytes apart.
+        wgmma_m64n128k16(acc[mt], desc_sw128(a_base + mt * 64 * 128 + kk * 32, 16, 1024),
+                         desc_sw128(b_base + kk * 16 * 128, BK * 128, 1024));
+    wgmma_commit();
+    if (j + kStages - 1 < nst) fill(j + kStages - 1);  // the stage of step j - 1
+    if (j + 1 < nst) {
+      mbar_wait(bar0 + 8 * ((j + 1) % kStages), ((j + 1) / kStages) & 1);
+      __syncthreads();
+      dequant(j + 1);
+      fence_proxy_async();
+    }
+    wgmma_wait();
+#pragma unroll
+    for (int mt = 0; mt < kMTiles; ++mt) fence_acc(acc[mt]);
     __syncthreads();
   }
 
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16,
-                              acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
+  // accumulator fragment of m64 tile mt: warp w of the warpgroup holds rows
+  // 16 w + lane / 4 (+ 8); n8 tile t holds columns 8 t + 2 (lane % 4) (+ 1)
+  const int warp = (tid % 128) / 32, lane = tid % 32;
   const bool direct = gridDim.z == 1;
-  for (int i = tid; i < BM * BN; i += kThreads) {
-    const int r = i / BN, c = i % BN;
-    const int gr = row0 + r, gc = col0 + c;
-    if (gr >= m || gc >= n) continue;
-    if (direct)
-      store(out + (size_t)gr * n + gc, Cs[r * LDC + c]);
-    else
-      partial[((size_t)blockIdx.z * m + gr) * n + gc] = Cs[r * LDC + c];
+  const bool pairs = (n & 1) == 0;
+#pragma unroll
+  for (int mh = 0; mh < 2 * kMTiles; ++mh) {
+    const int mt = mh / 2, h = mh % 2;
+    const int gr = row0 + wg * (M / 2) + mt * 64 + warp * 16 + lane / 4 + 8 * h;
+    if (gr >= m) continue;
+#pragma unroll
+    for (int t = 0; t < BN / 8; ++t) {
+      const int gc = col0 + 8 * t + 2 * (lane % 4);
+      const float v0 = acc[mt][4 * t + 2 * h], v1 = acc[mt][4 * t + 2 * h + 1];
+      if (direct) {
+        TO* dst = out + (size_t)gr * n + gc;
+        if (pairs && gc + 1 < n) {
+          if constexpr (sizeof(TO) == 4)
+            *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+          else
+            *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+        } else {
+          if (gc < n) store(dst, v0);
+          if (gc + 1 < n) store(dst + 1, v1);
+        }
+      } else {
+        float* dst = partial + ((size_t)blockIdx.z * m + gr) * n + gc;
+        if (pairs && gc + 1 < n) {
+          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+        } else {
+          if (gc < n) dst[0] = v0;
+          if (gc + 1 < n) dst[1] = v1;
+        }
+      }
+    }
   }
 }
 
-template <typename TO>
-void launch(const void* x, const void* packed, const void* scales, void* partial,
-            void* out, int m, int k, int n, int splits, int steps_per_split,
-            cudaStream_t st) {
-  dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, splits);
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no
+// link against libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 2-D row-major [rows, cols] map with a box of [box_rows, box_cols];
+// reads past the edges fill zeros.
+bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* base,
+              uint64_t rows, uint64_t cols, uint32_t box_rows, uint32_t box_cols,
+              CUtensorMapSwizzle swizzle) {
+  EncodeTiled fn = encoder();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * elem};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t one[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, one,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename TO, int M>
+int launch(const void* x, const void* packed, const void* scales, void* partial, void* out,
+           int m, int k, int n, int splits, int steps_per_split, cudaStream_t st) {
+  // the raw tile goes by TMA where its rows are 16-byte aligned
+  const int tma_w = n % 16 == 0 && reinterpret_cast<uintptr_t>(packed) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(scales) % 16 == 0;
+  CUtensorMap map_x, map_p, map_s;
+  if (!make_map(&map_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, m, k, M, BK,
+                CU_TENSOR_MAP_SWIZZLE_128B))
+    return -2;
+  map_p = map_s = map_x;  // unused unless tma_w
+  if (tma_w && !(make_map(&map_p, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, packed, k / 2, n, BK / 2,
+                          BN, CU_TENSOR_MAP_SWIZZLE_NONE) &&
+                 make_map(&map_s, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 2, scales, k / 32, n,
+                          BK / 32, BN, CU_TENSOR_MAP_SWIZZLE_NONE)))
+    return -2;
+  static bool configured = false;
+  if (!configured) {
+    cudaFuncSetAttribute(q40_prefill_kernel<TO, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         Layout<M>::kSmem);
+    configured = true;
+  }
+  // row tiles fastest: the blocks that share a weight tile run together
+  dim3 grid((m + M - 1) / M, (n + BN - 1) / BN, splits);
   auto* part = static_cast<float*>(partial);
   auto* o = static_cast<TO*>(out);
-  q40_prefill_kernel<TO><<<grid, kThreads, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(packed),
-      static_cast<const __half*>(scales), part, o, m, k, n, steps_per_split);
+  q40_prefill_kernel<TO, M><<<grid, kThreads, Layout<M>::kSmem, st>>>(
+      map_x, map_p, map_s, static_cast<const uint8_t*>(packed),
+      static_cast<const __half*>(scales), part, o, m, k, n, steps_per_split, tma_w);
   if (splits > 1) {
     const size_t mn = (size_t)m * n;
     launch_splitk_reduce<TO>(part, o, mn, splits, st);
   }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -200,16 +459,18 @@ void launch(const void* x, const void* packed, const void* scales, void* partial
 // x bf16 [m, k] (16-byte aligned rows, k % 32 == 0); packed u8 [k/2, n];
 // scales f16 [k/32, n]; out [m, n] in bf16 (out_f32 == 0) or f32; partial
 // f32 [splits, m, n] for the split-k sums (unused when splits == 1), each
-// split walking steps_per_split steps of 64 input dims. Returns the CUDA
-// error state after the launches (0 = success).
+// split walking steps_per_split steps of 64 input dims; blocks of BM rows
+// where m >= BM, else of BM_SMALL. Returns the CUDA error state after the
+// launches (0 = success; -2 = a tensor map could not be made).
 extern "C" int q40_prefill(const void* x, const void* packed, const void* scales,
                            void* partial, void* out, int m, int k, int n, int splits,
                            int steps_per_split, int out_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (out_f32)
-    launch<float>(x, packed, scales, partial, out, m, k, n, splits, steps_per_split, st);
-  else
-    launch<__nv_bfloat16>(x, packed, scales, partial, out, m, k, n, splits,
-                          steps_per_split, st);
-  return (int)cudaGetLastError();
+#define DLLAMA_Q40_ARGS x, packed, scales, partial, out, m, k, n, splits, steps_per_split, st
+  if (m >= BM)
+    return out_f32 ? launch<float, BM>(DLLAMA_Q40_ARGS)
+                   : launch<__nv_bfloat16, BM>(DLLAMA_Q40_ARGS);
+  return out_f32 ? launch<float, BM_SMALL>(DLLAMA_Q40_ARGS)
+                 : launch<__nv_bfloat16, BM_SMALL>(DLLAMA_Q40_ARGS);
+#undef DLLAMA_Q40_ARGS
 }

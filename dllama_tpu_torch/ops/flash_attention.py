@@ -6,9 +6,12 @@ wrapper.
 cache ``[B, Hkv, S, hd]``, ``pos`` an int or an i32 ``[B]`` tensor), which is
 its plain version. On a CUDA tensor it launches ``csrc/flash_attention.cu``
 (replaces ``dllama_tpu/ops/pallas/flash_attention.py:_kernel``); on a CPU
-tensor it runs the plain version. A bf16 ``q`` over an e4m3 cache (the f8 KV
-cache) is the kernel's f8 mode, which widens the cache bytes to f32 as the
-TPU kernel does; its launches count under ``flash_attention_f8``.
+tensor it runs the plain version. The bf16 mode runs both products on the
+tensor cores (P at f32's precision as a bf16 hi + lo pair); a bf16 ``q``
+over an e4m3 cache (the f8 KV cache) is the kernel's f8 mode, which widens
+the cache bytes to bf16 in shared memory, exactly, and shares that path; its
+launches count under ``flash_attention_f8``. The f32 mode keeps f32 products
+on the CUDA cores.
 
 ``paged_flash_gqa_attention`` is the block-table variant (replaces
 ``dllama_tpu/ops/pallas/flash_attention.py:_paged_kernel``, K8): the signature
@@ -30,6 +33,7 @@ from dllama_tpu_torch.ops.q40_matmul import _sm_count
 
 TQ = 64  # folded query rows per block (csrc/flash_attention.cu)
 TS = 64  # cache rows per KV tile
+BLOCKS_PER_SM = 2  # blocks an SM holds (the source's kMinBlocksPerSm)
 HEAD_SIZES = (64, 128)
 MIN_TILES_PER_SPLIT = 2
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
@@ -45,12 +49,15 @@ def supported(head_size: int) -> bool:
 
 
 def kv_splits(rows: int, bhkv: int, live_tiles: int, sms: int) -> tuple[int, int]:
-    """(splits, tiles per split) of the split-KV sweep: enough blocks for
-    about two per SM, each split at least MIN_TILES_PER_SPLIT live KV tiles
-    (the merge pass reads every split's partial row)."""
+    """(splits, tiles per split) of the split-KV sweep: enough blocks to
+    fill the BLOCKS_PER_SM each SM holds, each split at least
+    MIN_TILES_PER_SPLIT live KV tiles (the merge pass reads every split's
+    partial row). It depends on the rows only through the number of query
+    tiles, so decode (4 rows) and a spec verify forward (36 rows) split a
+    row's keys alike."""
     q_tiles = -(-rows // TQ)
     splits = min(max(1, live_tiles // MIN_TILES_PER_SPLIT),
-                 max(1, math.ceil(2 * sms / (q_tiles * bhkv))))
+                 max(1, math.ceil(BLOCKS_PER_SM * sms / (q_tiles * bhkv))))
     per = -(-live_tiles // splits)
     return -(-live_tiles // per), per
 

@@ -18,10 +18,10 @@ decode-shaped calls):
 * ``loopdot`` — ``csrc/q40_loopdot.cu`` (K4): blockdot's math on the CUDA
   cores, one thread a column, blocks in ascending order (replaces
   ``_loopdot_kernel``);
-* ``deq`` — ``csrc/q40_prefill.cu`` (K2): weight tiles dequantized to bf16
-  in shared memory, tensor-core products with f32 accumulation (replaces
-  ``_deq_kernel``); every prefill chunk, and every row count under
-  ``STYLE = "deq"``.
+* ``deq`` — ``csrc/q40_prefill.cu`` (K2): x and raw Q40 tiles through a
+  TMA ring, dequantized to bf16 in shared memory, wgmma products with f32
+  accumulation (replaces ``_deq_kernel``); every prefill chunk, and every
+  row count under ``STYLE = "deq"``.
 
 Unlike the TPU kernels no row padding is needed (the (8, 128) tiling was a
 TPU constraint), and a stacked ``[L, k/2, n]`` weight is addressed by taking
@@ -53,7 +53,16 @@ DECODE_MAX_M = 16
 DECODE_BLOCKS_PER_SM = 16
 #: fewest 32-row blocks of k one decode split walks
 DECODE_MIN_BLOCKS_PER_SPLIT = 4
-#: fewest 64-row steps of k one prefill split walks
+#: the prefill kernel's tile (csrc/q40_prefill.cu BM, BM_SMALL, BN, BK):
+#: output rows per block where m >= PREFILL_TILE_M (else
+#: PREFILL_TILE_M_SMALL), output columns per block, input dims per step
+PREFILL_TILE_M = 256
+PREFILL_TILE_M_SMALL = 128
+PREFILL_TILE_N = 128
+PREFILL_STEP_K = 64
+#: prefill-kernel blocks an SM holds (its __launch_bounds__)
+PREFILL_BLOCKS_PER_SM = 1
+#: fewest steps of k one prefill split walks
 PREFILL_MIN_STEPS_PER_SPLIT = 8
 
 #: kernel styles of q40_matmul (the JAX package's q40_matmul.STYLE values)
@@ -201,14 +210,22 @@ def decode_splits(k: int, n: int, sms: int, cols: int = DECODE_COLS,
     return -(-nkb // per), per
 
 
+def prefill_tile_m(m: int) -> int:
+    """Output rows per block of the prefill kernel for an m-row call."""
+    return PREFILL_TILE_M if m >= PREFILL_TILE_M else PREFILL_TILE_M_SMALL
+
+
 def prefill_splits(m: int, k: int, n: int, sms: int) -> tuple[int, int]:
-    """(splits, 64-row steps per split) of the prefill kernel's split-k:
-    only where its 64 x 128 output tiles alone would give fewer than two
-    blocks per SM, and never below PREFILL_MIN_STEPS_PER_SPLIT steps."""
-    tiles = -(-m // 64) * -(-n // 128)
-    steps = -(-k // 64)
-    splits = min(max(1, steps // PREFILL_MIN_STEPS_PER_SPLIT),
-                 max(1, math.ceil(2 * sms / tiles)))
+    """(splits, PREFILL_STEP_K-row steps per split) of the prefill kernel's
+    split-k: only where its output tiles alone would leave more than half the
+    card idle, then as many splits as one wave of blocks holds, never below
+    PREFILL_MIN_STEPS_PER_SPLIT steps a split."""
+    tiles = -(-m // prefill_tile_m(m)) * -(-n // PREFILL_TILE_N)
+    steps = -(-k // PREFILL_STEP_K)
+    slots = PREFILL_BLOCKS_PER_SM * sms
+    if 2 * tiles > slots:
+        return 1, steps
+    splits = min(max(1, steps // PREFILL_MIN_STEPS_PER_SPLIT), slots // tiles)
     per = -(-steps // splits)
     return -(-steps // per), per
 

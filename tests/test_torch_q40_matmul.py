@@ -4,6 +4,9 @@ decode-shaped and a prefill-shaped call, and QTensor.dequantize + dot for
 more row counts. f32 throughout; rel. 1e-5 of max|ref| because only the
 order of the f32 sums differs."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -12,8 +15,15 @@ from dllama_tpu_torch.convert import params_from_numpy
 from dllama_tpu_torch.ops.q40_matmul import (
     DECODE_MAX_M,
     LAUNCHES,
+    PREFILL_BLOCKS_PER_SM,
+    PREFILL_MIN_STEPS_PER_SPLIT,
+    PREFILL_STEP_K,
+    PREFILL_TILE_M,
+    PREFILL_TILE_M_SMALL,
+    PREFILL_TILE_N,
     decode_splits,
     prefill_splits,
+    prefill_tile_m,
     q40_matmul,
     q40_matmul_plain,
 )
@@ -98,9 +108,33 @@ def test_decode_split_k_covers_k_once(k, n):
     assert DECODE_MAX_M == 16
 
 
-@pytest.mark.parametrize("m,k,n", [(32, 14336, 4096), (256, 4096, 4096), (256, 4096, 14336)])
+@pytest.mark.parametrize("m,k,n", [(32, 14336, 4096), (256, 4096, 4096), (256, 4096, 14336),
+                                   (256, 4096, 1024), (1, 4096, 14336), (33, 4128, 1000),
+                                   (1024, 4096, 4096)])
 def test_prefill_split_k_covers_k_once(m, k, n):
     splits, per = prefill_splits(m, k, n, sms=132)
-    steps = k // 64
+    steps = -(-k // PREFILL_STEP_K)
     assert (splits - 1) * per < steps <= splits * per
-    assert splits == 1 or per >= 8
+    assert splits == 1 or per >= PREFILL_MIN_STEPS_PER_SPLIT
+    tiles = -(-m // prefill_tile_m(m)) * -(-n // PREFILL_TILE_N)
+    # k is split only where the output tiles alone leave most of the card
+    # idle, and then into no more blocks than one wave holds
+    slots = PREFILL_BLOCKS_PER_SM * 132
+    assert splits == 1 or (2 * tiles <= slots and tiles * splits <= slots)
+
+
+def _source_constants(name: str) -> dict[str, int]:
+    text = (Path(__file__).resolve().parents[1] / "dllama_tpu_torch" / "ops" / "csrc"
+            / name).read_text()
+    return {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", text)}
+
+
+def test_prefill_tile_constants_match_the_kernel():
+    """prefill_splits cuts k in the kernel's own steps and counts its own
+    output tiles and blocks per SM."""
+    c = _source_constants("q40_prefill.cu")
+    assert (c["BM"], c["BM_SMALL"], c["BN"], c["BK"], c["kMinBlocksPerSm"]) == (
+        PREFILL_TILE_M, PREFILL_TILE_M_SMALL, PREFILL_TILE_N, PREFILL_STEP_K,
+        PREFILL_BLOCKS_PER_SM)
+    assert prefill_tile_m(PREFILL_TILE_M) == PREFILL_TILE_M
+    assert prefill_tile_m(PREFILL_TILE_M - 1) == PREFILL_TILE_M_SMALL
