@@ -26,7 +26,9 @@ Q80 (random weights from a seed), and exits 0 only if every phase passed:
               9-row spec verify forward (every position's logits) through
               the kernels against the same forward with the plain versions;
               then the device time of one 256-token prefill chunk through
-              the kernels at cache positions 0 and 2048 (CUDA events).
+              the kernels at cache positions 0 and 2048 (CUDA events), on
+              the dense cache (K2 + K7) and on a page pool at page 128 read
+              through one slot's table (K2 + K9).
 4. serve      make_server (the function `serve` runs) over real HTTP on the
               single-engine tier: a greedy chat completion, the same again
               (identical content), an SSE stream, and a second turn that hits
@@ -42,7 +44,8 @@ Q80 (random weights from a seed), and exits 0 only if every phase passed:
               forward against the plain versions and HTTP serve, K7's f8 mode
               in every layer of every forward.
 8. q80        after the Q40 files are gone, a synthetic 8B Q80 `.m` loaded
-              packed: the forward against the plain versions, HTTP serve on
+              packed: the forward against the plain versions, the prefill
+              chunk's device time (K6 + K7) as in `forward`, HTTP serve on
               the single-engine tier, the 8-slot batched server with the
               RMSNorm switch at 'cuda' (K10), and the CLI's `inference
               --fuse-weights`, whose greedy text must equal the unfused
@@ -67,10 +70,10 @@ every kernel the kbench phase launches on kbench's own inputs (each variant
 of its suite rows and of `8 w1 B D`, the tile sweep, the flash rows), since
 the benchmark checks no result. `serve`, `batch`, `f8`, `q80`, `kbench`, `styles` and `spec` are the
 main paths: the launch counters are zeroed just before each of their runs and
-read just after it. `profile` (not in the default) adds a torch.profiler pass
-over one single-stream and one 8-slot decode chunk; `chunk` (not in the
-default) runs only the forward phase's prefill-chunk timing, so that it can
-be taken from another checkout of the package as well.
+read just after it. Not in the default: `profile` adds a torch.profiler pass
+over one single-stream and one 8-slot decode chunk; `chunk` runs only the
+prefill-chunk timings (Q40 dense and paged, then Q80), so that they can be
+taken from another checkout of the package as well.
 
 The line before the last is the card's name and power limit; before that, one
 JSON object lists every ported kernel with its numbers; the last line is
@@ -108,6 +111,8 @@ TOL_K34 = 1e-4  # x max|ref|: K3/K4 vs their plain versions and vs K1, all f32
 # sums of the same exact-code products, only the order differs
 TOL_K11 = 1e-4  # x max|ref|: K11-B/K11-D vs plain, the same f32 products
 N_LAYERS_8B = 32
+#: the batched decode cases' slot positions: 8 slots, up to the last row of 4096
+SPREAD = [0, 127, 128, 1000, 2047, 2900, 3500, 4095]
 #: batch phase: one request at a time would give exactly 1 live slot a chunk
 MIN_BATCH_SLOTS = 2.0
 SERVE_KERNELS = ("q40_decode", "q40_prefill", "flash_attention")
@@ -435,20 +440,24 @@ def phase_kernels(cfg, device, timer, layer=1):
 
     # K9 and K8 over a page pool at page 128 (Llama-3.1-8B's heads, bf16)
     results["paged_attention"], results["paged_flash_attention"] = [], []
-    spread = [0, 127, 128, 1000, 2047, 2900, 3500, 4095]  # 8 slots, up to the last row
     some_inactive = [True, False, True, True, False, True, False, True]
     for kernel, label, b, t, pos, active in (
-            ("paged_attention", "decode B=8 fused scatter", 8, 1, spread, None),
-            ("paged_attention", "decode B=8 fused scatter, 3 inactive", 8, 1, spread,
+            ("paged_attention", "decode B=8 fused scatter", 8, 1, SPREAD, None),
+            ("paged_attention", "decode B=8 fused scatter, 3 inactive", 8, 1, SPREAD,
              some_inactive),
+            ("paged_attention", "decode B=8 fused scatter, all pos=4095", 8, 1, [4095] * 8,
+             None),
+            ("paged_attention", "prefill T=256 pos=0 pre-scatter", 1, 256, [0], None),
             ("paged_attention", "prefill T=256 pos=2048 pre-scatter", 1, 256, [2048], None),
-            ("paged_flash_attention", "read-only decode B=8", 8, 1, spread, None)):
+            ("paged_attention", "prefill T=256 pos=3840 pre-scatter", 1, 256, [3840], None),
+            ("paged_flash_attention", "read-only decode B=8", 8, 1, SPREAD, None)):
         case = paged_case(gen, device, timer, kernel, label, b, t, hq, hkv, hd, 128,
                           s // 128, pos, active, torch.bfloat16)
         results[kernel].append(case)
     plan = [("q80_decode", name, m) for name, m in (("wq", 1), ("wk", 1), ("w1", 1),
                                                     ("w1", 8), ("w2", 1), ("wcls", 1))]
-    plan += [("q80_prefill", name, m) for name, m in (("w1", 32), ("w1", 256), ("w2", 256))]
+    plan += [("q80_prefill", name, m) for name, m in (("w1", 32), ("w1", 256), ("w2", 256),
+                                                      ("wq", 256), ("wk", 256))]
     results.update(matmul_cases(cfg, device, timer, torch.Generator(device=device).manual_seed(3),
                                 "q80", plan, layer))
     results.update(rms_norm_cases(cfg, device, timer))
@@ -1100,29 +1109,51 @@ def phase_forward(loaded, device, prefill: int = 256, decode: int = 8, verify: i
     return ((runs["kernels"] - ref).abs().max() / ref.abs().max()).item()
 
 
-def prefill_chunk_ms(loaded, device, positions=(0, 2048), chunk: int = 256,
-                     reps: int = 5) -> dict:
+#: kernel-name fragments of the chunk's device-time split: the prefill GEMM
+#: (K2, K6), the attention kernels with their combine and scatter passes (K7,
+#: K9, under the names of this tree and of earlier ones), everything else
+CHUNK_MATMUL = ("q40_prefill_kernel", "q80_prefill_kernel")
+CHUNK_ATTENTION = ("attn_", "flash_", "paged_kernel", "paged_combine", "scatter_kernel")
+
+
+def prefill_chunk_ms(loaded, device, positions=(0, 2048), chunk: int = 256, reps: int = 5,
+                     page: int = 0) -> dict:
     """Device time of one `chunk`-token prefill forward through the kernels
     at each cache position of `positions`: CUDA events around `forward`,
     the median of `reps` runs taken in turns across the positions after a
     warm-up. A spin kernel longer than the host takes to enqueue the forward
     runs first, so the events measure the card's time for the forward's
-    launches, not the host's pace. Then one forward per position under
-    torch.profiler splits the device time by kernel: K2
-    (q40_prefill_kernel), K7 (flash_*) and everything else."""
+    launches, not the host's pace, as long as the launch queue holds the
+    whole forward (past about a thousand pending launches the host waits
+    for the card, and the events then follow the host). Then one forward
+    per position under torch.profiler splits the device time by kernel
+    name: the prefill GEMM, attention, everything else; their sum is the
+    card's busy time, beside the number of device operations. With `page`, the cache is a page pool of
+    that page size and the chunk reads it through one slot's block table,
+    as BatchEngine.add_step runs a chunk (the paged attention kernel);
+    else the engine's dense cache (flash attention)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from dllama_tpu_torch.models.llama import KVCache, forward
+    from dllama_tpu_torch.engine.kernel_select import resolve_kernels
+    from dllama_tpu_torch.models.llama import KVCache, PagedKVCache, forward
 
     eng, cfg = loaded.engine, loaded.config
-    cache = KVCache.create(cfg, 1, eng.cache.k.dtype, eng.seq_len, device)
-    toks = torch.randint(0, cfg.vocab_size, (1, chunk),
-                         generator=torch.Generator(device=device).manual_seed(9), device=device)
+    gen = torch.Generator(device=device).manual_seed(9)
+    attn_fn = eng.attn_fn
+    if page:
+        n_pages = eng.seq_len // page
+        cache = PagedKVCache.create(cfg, 1, n_pages, page, eng.cache.k.dtype, n_pages, device)
+        cache.tables[0] = torch.randperm(n_pages, generator=gen, device=device).to(torch.int32)
+        attn_fn = resolve_kernels(cfg, "auto", device, paged=True, page_size=page,
+                                  cache_dtype=eng.cache.k.dtype).attn_fn
+    else:
+        cache = KVCache.create(cfg, 1, eng.cache.k.dtype, eng.seq_len, device)
+    toks = torch.randint(0, cfg.vocab_size, (1, chunk), generator=gen, device=device)
 
     def run(pos):
-        forward(cfg, eng.params, toks, pos, cache, eng.rope_cache, eng.attn_fn, eng.mm,
+        forward(cfg, eng.params, toks, pos, cache, eng.rope_cache, attn_fn, eng.mm,
                 last_only=True)
 
     # the spin's clock: cycles per ms of torch.cuda._sleep
@@ -1153,15 +1184,26 @@ def prefill_chunk_ms(loaded, device, positions=(0, 2048), chunk: int = 256,
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 run(pos)
                 torch.cuda.synchronize()
-            split = {"k2_ms": 0.0, "k7_ms": 0.0, "other_ms": 0.0}
+            split = {"matmul_ms": 0.0, "attention_ms": 0.0, "other_ms": 0.0, "kernels": 0}
             for e in prof.events():
                 if e.device_type == DeviceType.CUDA:
-                    key = ("k2_ms" if "q40_prefill_kernel" in e.name else
-                           "k7_ms" if "flash_" in e.name else "other_ms")
+                    key = ("matmul_ms" if any(k in e.name for k in CHUNK_MATMUL) else
+                           "attention_ms" if any(k in e.name for k in CHUNK_ATTENTION) else
+                           "other_ms")
                     split[key] += e.time_range.elapsed_us() / 1e3
+                    split["kernels"] += 1
             out[pos].update(split, ms=statistics.median(out[pos].pop("times")))
     del cache
     return out
+
+
+def report_chunk(label: str, chunk: dict) -> None:
+    print(f"prefill chunk {label} (256 tokens, 32 layers, through the kernels): device "
+          + "; ".join(f"{c['ms']:.3f} ms at pos {p} (profiled: busy "
+                      f"{c['matmul_ms'] + c['attention_ms'] + c['other_ms']:.3f} ms in "
+                      f"{c['kernels']} device ops: matmul {c['matmul_ms']:.3f}, attention "
+                      f"{c['attention_ms']:.3f}, other {c['other_ms']:.3f} ms; host enqueue "
+                      f"{c['host_ms']:.1f} ms)" for p, c in chunk.items()), flush=True)
 
 
 def phase_profile(loaded, prompt_tokens: list[int], steps: int = 8) -> dict:
@@ -1519,6 +1561,30 @@ def phase_f8(mpath: str, tpath: str, device, prompt: str) -> dict:
     return launches
 
 
+def q80_model(tmp: str, device):
+    """The synthetic Llama-3.1-8B Q80 `.m` and its `.t`, written to `tmp`
+    and loaded packed -> (loaded, model path, tokenizer path)."""
+    from dllama_tpu_torch.engine.loader import load_model
+    from dllama_tpu_torch.ops.quant import Q8Tensor
+
+    cfg = llama31_8b(N_LAYERS_8B, "Q80")
+    mpath, tpath = os.path.join(tmp, "llama31_8b_q80.m"), os.path.join(tmp, "tok.t")
+    t0 = time.perf_counter()
+    write_model(mpath, cfg, device)
+    write_tokenizer(tpath, cfg.vocab_size)
+    print(f"q80: wrote synthetic {cfg.describe()} ({os.path.getsize(mpath) / 1e9:.2f} GB) "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    loaded = load_model(mpath, tpath, max_seq_len=4096, device=device)
+    print(f"q80: load_model {time.perf_counter() - t0:.1f} s; kernels={loaded.engine.backend} "
+          f"attention={loaded.engine.attn_route}", flush=True)
+    layers_p = loaded.engine.params["layers"]
+    if not all(isinstance(layers_p[k], Q8Tensor) for k in ("wq", "wk", "wv", "wo", "w1",
+                                                           "w2", "w3")):
+        fail("q80: the weights did not load as packed Q8Tensors")
+    return loaded, mpath, tpath
+
+
 def phase_q80(device, prompt: str) -> dict:
     """A synthetic Llama-3.1-8B Q80 `.m` at full width and depth, loaded
     packed: the forward through K5/K6 against the plain versions; HTTP on
@@ -1533,29 +1599,14 @@ def phase_q80(device, prompt: str) -> dict:
     import torch
 
     from dllama_tpu_torch.cli.main import main as cli
-    from dllama_tpu_torch.engine.loader import load_model
     from dllama_tpu_torch.engine.sampling import Sampler
     from dllama_tpu_torch.ops import layers
-    from dllama_tpu_torch.ops.quant import Q8Tensor
 
-    cfg = llama31_8b(N_LAYERS_8B, "Q80")
-    n_layers = cfg.n_layers
+    n_layers = N_LAYERS_8B
     with tempfile.TemporaryDirectory(prefix="dllama_smoke_q80_") as tmp:
-        mpath, tpath = os.path.join(tmp, "llama31_8b_q80.m"), os.path.join(tmp, "tok.t")
-        t0 = time.perf_counter()
-        write_model(mpath, cfg, device)
-        write_tokenizer(tpath, cfg.vocab_size)
-        print(f"q80: wrote synthetic {cfg.describe()} ({os.path.getsize(mpath) / 1e9:.2f} GB) "
-              f"in {time.perf_counter() - t0:.1f} s", flush=True)
-        t0 = time.perf_counter()
-        loaded = load_model(mpath, tpath, max_seq_len=4096, device=device)
-        print(f"q80: load_model {time.perf_counter() - t0:.1f} s; kernels={loaded.engine.backend} "
-              f"attention={loaded.engine.attn_route}", flush=True)
-        layers_p = loaded.engine.params["layers"]
-        if not all(isinstance(layers_p[k], Q8Tensor) for k in ("wq", "wk", "wv", "wo", "w1",
-                                                               "w2", "w3")):
-            fail("q80: the weights did not load as packed Q8Tensors")
+        loaded, mpath, tpath = q80_model(tmp, device)
         check_forward(loaded, device, "q80 forward")
+        report_chunk("Q80 dense (K6 + K7)", prefill_chunk_ms(loaded, device))
         total: dict[str, int] = {}
 
         def add(launches):
@@ -1826,10 +1877,10 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20, help="timed runs per case (0: no timing)")
     ap.add_argument("--phases",
                     default="card,kernels,kbench,forward,serve,batch,inference,styles,spec,f8,q80",
-                    help="comma list; 'profile' (not in the default) adds a "
+                    help="comma list; not in the default: 'profile' adds a "
                          "torch.profiler pass over one decode chunk, single-stream "
-                         "and 8-slot; 'chunk' (not in the default) is the forward "
-                         "phase's prefill-chunk timing alone")
+                         "and 8-slot; 'chunk' is the prefill-chunk timing alone (Q40 "
+                         "dense and paged, Q80)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -1855,7 +1906,7 @@ def main(argv=None) -> int:
           flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "arning" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
     cfg = llama31_8b(N_LAYERS_8B)
@@ -1894,12 +1945,9 @@ def main(argv=None) -> int:
         if "forward" in phases:
             check_forward(loaded, device, "forward")
         if phases & {"forward", "chunk"}:
-            chunk = prefill_chunk_ms(loaded, device)
-            print("prefill chunk (256 tokens, 32 layers, through the kernels): device "
-                  + "; ".join(f"{c['ms']:.3f} ms at pos {p} (profiled kernels: K2 "
-                              f"{c['k2_ms']:.3f}, K7 {c['k7_ms']:.3f}, other "
-                              f"{c['other_ms']:.3f} ms; host enqueue {c['host_ms']:.1f} ms)"
-                              for p, c in chunk.items()), flush=True)
+            report_chunk("Q40 dense (K2 + K7)", prefill_chunk_ms(loaded, device))
+            report_chunk("Q40 paged, page 128 (K2 + K9)",
+                         prefill_chunk_ms(loaded, device, page=128))
 
         if "serve" in phases:
             launches = serve_checked(loaded, prompt, "serve", Q40_KERNELS,
@@ -1967,6 +2015,12 @@ def main(argv=None) -> int:
 
     if "q80" in phases:
         paths["q80"] = phase_q80(device, prompt)
+    elif "chunk" in phases:  # the Q80 chunk alone
+        with tempfile.TemporaryDirectory(prefix="dllama_smoke_q80_") as tmp:
+            loaded, _, _ = q80_model(tmp, device)
+            report_chunk("Q80 dense (K6 + K7)", prefill_chunk_ms(loaded, device))
+            del loaded
+        torch.cuda.empty_cache()
 
     if results:
         line = []

@@ -33,12 +33,12 @@ SIGNATURES = {
     "q40_maskdot": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "q40_loopdot": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "q80_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "q80_prefill": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "q80_prefill": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "rms_norm": (_P, _P, _P, _I, _I, _LL, _F, _I, _P),
     "flash_attention": (_P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    "paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "kbench_fma_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "kbench_bf16_gemm": (_P, _P, _P, _I, _I, _I, _P),
 }

@@ -12,631 +12,12 @@
 // entries take -1e30, P meets V at f32's precision, and a row whose sum is 0
 // divides by 1.
 //
-// What bounds it on this card: at decode, device-memory bytes — each step
-// reads 2 * Hkv * (pos + 1) * hd cache elements once per layer, with only
-// group * hd * 4 operations per element pair. At a 256-token prefill chunk
-// it does 4 * rows * keys * hd operations, which is tensor-core work.
-//
-// What the design does about it, in the bf16 and f8 modes (flash_mma_kernel):
-//  * Q.K^T and P.V run on the tensor cores, mma.sync.m16n8k16 with bf16
-//    operands (fed by ldmatrix) and f32 accumulators. A product of two bf16
-//    values is exact in f32, so Q.K^T differs from the plain version only in
-//    the order of its sums. P is f32; it enters the tensor cores as
-//    P_hi + P_lo, two bf16 values whose sum holds P to about 2^-17, and both
-//    products go into the same f32 accumulator: one more MMA on the P.V half
-//    of the work, and no bf16 rounding of P (a single bf16 P would be off by
-//    up to 2^-9 of |v| on rows that see few keys).
-//  * Tiles stay bf16 in shared memory (rows padded by 16 bytes, so the eight
-//    rows an ldmatrix reads fall in eight different bank groups). Each warp
-//    owns 16 query rows and keeps its Q fragments in registers; the online
-//    softmax runs on the score fragments in registers, a row's max and sum
-//    reduced across its quad by shuffles.
-//  * KV tiles arrive through a two-stage cp.async ring: the copy of the next
-//    tile is in flight while this one's products run. Rows past the block's
-//    horizon or past S are zero-filled, not read. An e4m3 cache (the f8 KV
-//    cache) is copied raw into the ring, half the bytes, and widened to bf16
-//    in shared memory before the products: e4m3's values are a subset of
-//    bf16's, so this is exact and the f8 mode shares the bf16 mode's path.
-//  * Only live KV tiles are read: a block walks 64-row tiles up to the
-//    horizon of its last REAL query row (pad rows do not widen it), and a
-//    warp skips the products of a tile past its own rows' horizon (a fully
-//    masked tile leaves max, sum and output bit-for-bit as they were), so
-//    decode cost follows pos, not S.
-//  * Split-KV: the live tiles of one (sequence, KV head, query tile) are
-//    divided among several blocks so that a decode step (B * Hkv = 8 blocks
-//    without a split) fills the card. Each split keeps its own online-softmax
-//    state (max, sum, unnormalized output) and flash_combine merges the
-//    splits in a fixed order; with one split the block writes the output
-//    directly.
-//  * A query row's sum order does not depend on how many rows the call has:
-//    every call takes 64-row query tiles, the same instruction shapes, and a
-//    KV split that depends on the number of query tiles only, so T = 1
-//    decode (4 folded rows a KV head) and a T = 9 spec verify forward (36
-//    rows) sum a row alike.
-//
-// The f32 mode (--cache-dtype f32; flash_f32_kernel) keeps the CUDA-core
-// body: on the tensor cores f32 operands would be rounded to TF32, which is
-// not the TPU kernel's f32 product. It stages K/V tiles as f32 and runs the
-// same mask, online softmax and split-KV merge with FMAs.
-#include <cuda_bf16.h>
-#include <cuda_fp8.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include "common.cuh"
-
-namespace {
-
-constexpr int TQ = 64;  // folded query rows per block
-constexpr int TS = 64;  // cache rows per KV tile
-constexpr int kThreads = 128;  // 4 warps x 16 query rows
-constexpr int kMinBlocksPerSm = 2;  // blocks an SM holds (shared memory and registers)
-constexpr int kStages = 2;  // KV tiles in the copy ring
-constexpr int RPW = TQ / (kThreads / 32);
-constexpr float kNegInf = -1e30f;
-
-using bf16 = __nv_bfloat16;
-using f8 = __nv_fp8_e4m3;
-
-// ------------------------------------------------ tensor-core mode (bf16, f8)
-
-// cp.async of 16 bytes from global to shared memory, zero-filling the 16
-// bytes instead when `valid` is false (src is then not read, but must be a
-// mapped address). A thread's copies form groups with cp_async_commit_group;
-// cp_async_wait_group<N> waits until at most N of its groups are in flight.
-__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit_group() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait_group() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// bf16 per shared row of a Q/K/V tile: hd plus 16 bytes of padding.
-template <int HD>
-constexpr int kLdh = HD + 8;
-
-// Shared bytes of the MMA kernel: the ring of kStages (K, V) tiles in the
-// cache's own type (bf16 tiles padded, e4m3 tiles raw), plus for e4m3 one
-// bf16 (K, V) tile widened from the ring. The Q tile is read once into
-// registers before the ring fills, so it borrows stage 1's K tile (bf16) or
-// the widened K tile (f8).
-template <typename TC, int HD>
-constexpr int mma_smem_bytes() {
-  return sizeof(TC) == 2 ? kStages * 2 * TS * kLdh<HD> * 2
-                         : kStages * 2 * TS * HD + 2 * TS * kLdh<HD> * 2;
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Two f32 values as bf16x2 hi and lo parts: hi = bf16(v), lo = bf16(v - hi).
-__device__ __forceinline__ void split_bf16x2(float v0, float v1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16x2(v0 - __low2float(h), v1 - __high2float(h));
-}
-
-// Sixteen e4m3 values (one 16-byte chunk) widened to bf16, exactly.
-__device__ __forceinline__ void widen16(bf16* dst, uint4 raw) {
-  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-  uint32_t o[8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const __half2 v = __half2(__nv_cvt_fp8x2_to_halfraw2(
-          static_cast<__nv_fp8x2_storage_t>(w[i] >> (16 * h)), __NV_E4M3));
-      const float2 f = __half22float2(v);
-      o[2 * i + h] = pack_bf16x2(f.x, f.y);
-    }
-  }
-  *reinterpret_cast<uint4*>(dst) = make_uint4(o[0], o[1], o[2], o[3]);
-  *reinterpret_cast<uint4*>(dst + 8) = make_uint4(o[4], o[5], o[6], o[7]);
-}
-
-template <typename TC, typename TO, int HD>
-__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm) flash_mma_kernel(
-    const bf16* __restrict__ q, const TC* __restrict__ kc, const TC* __restrict__ vc,
-    TO* __restrict__ out, float* __restrict__ o_part, float* __restrict__ ml_part,
-    const int* __restrict__ pos_vec, int pos_scalar, int T_, int Hq, int Hkv, int S,
-    int tiles_per_split, float scale) {
-  constexpr bool kF8 = sizeof(TC) == 1;
-  constexpr int LD = kLdh<HD>;
-  constexpr int KT = HD / 16;  // k16 steps of Q.K^T
-  constexpr int NT = HD / 8;   // n8 tiles of the output
-  constexpr int kChunks = HD * static_cast<int>(sizeof(TC)) / 16;  // 16-byte chunks a row
-  extern __shared__ __align__(16) unsigned char smem[];
-  TC* ring = reinterpret_cast<TC*>(smem);  // [kStages][K, V][TS][kF8 ? HD : LD]
-  constexpr int kRingLd = kF8 ? HD : LD;
-  bf16* wide = reinterpret_cast<bf16*>(smem + kStages * 2 * TS * HD);  // f8: [K, V][TS][LD]
-  bf16* Qs = kF8 ? wide : reinterpret_cast<bf16*>(ring + (2 + 0) * TS * kRingLd);
-
-  const int group = Hq / Hkv;
-  const int bh = blockIdx.y;
-  const int b = bh / Hkv, kv = bh % Hkv;
-  const int rows = T_ * group;
-  const int r0 = blockIdx.x * TQ;
-  const int pos_b = pos_vec ? pos_vec[b] : pos_scalar;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-
-  // horizon of this query tile: the last REAL row's last visible cache slot
-  const int last_row = min(r0 + TQ - 1, rows - 1);
-  const int horizon = min(pos_b + last_row / group, S - 1);
-  const int n_tiles = horizon / TS + 1;
-  const int tile0 = blockIdx.z * tiles_per_split;
-  const int tile1 = min(n_tiles, tile0 + tiles_per_split);
-  // this warp's 16 rows: real ones, and the horizon of its last real row
-  const int wrow0 = r0 + warp * RPW;
-  const bool warp_live = wrow0 < rows;
-  const int warp_horizon = min(pos_b + (min(wrow0 + RPW, rows) - 1) / group, S - 1);
-
-  const size_t head_off = (size_t)bh * S * HD;
-  // one KV tile into ring stage `st`: rows past the horizon are zero-filled
-  auto load_kv = [&](int tile, int st) {
-    const int s0 = tile * TS;
-    TC* ks = ring + (size_t)st * 2 * TS * kRingLd;
-    TC* vs = ks + TS * kRingLd;
-    for (int i = tid; i < TS * kChunks; i += kThreads) {
-      const int r = i / kChunks, c = (i % kChunks) * (16 / sizeof(TC));
-      const bool in = s0 + r <= horizon;
-      const size_t src = in ? head_off + (size_t)(s0 + r) * HD + c : 0;
-      cp_async16_zfill(ks + r * kRingLd + c, kc + src, in);
-      cp_async16_zfill(vs + r * kRingLd + c, vc + src, in);
-    }
-  };
-
-  // the query tile's rows, gathered from q[b, t, kv * group + g, :]; pad
-  // rows are zero (their results are never written)
-  for (int i = tid; i < TQ * (HD / 8); i += kThreads) {
-    const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
-    const int R = r0 + r;
-    const bool in = R < rows;
-    const size_t src =
-        in ? ((size_t)(b * T_ + R / group) * Hq + kv * group + R % group) * HD + c : 0;
-    cp_async16_zfill(Qs + r * LD + c, q + src, in);
-  }
-  if (tile0 < tile1) load_kv(tile0, 0);
-  cp_async_commit_group();
-  cp_async_wait_group<0>();
-  __syncthreads();
-  uint32_t qa[KT][4];
-#pragma unroll
-  for (int kk = 0; kk < KT; ++kk)
-    ldmatrix_x4(qa[kk], Qs + (warp * RPW + lane % 16) * LD + kk * 16 + (lane / 16) * 8);
-  __syncthreads();  // Q's shared rows are free for the ring
-
-  float acc[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f};
-  // rows of this thread's fragment elements: e < 2 and e >= 2
-  const int rowa = wrow0 + lane / 4;
-  const int qpos[2] = {pos_b + rowa / group, pos_b + (rowa + 8) / group};
-
-  for (int tile = tile0, it = 0; tile < tile1; ++tile, ++it) {
-    const int st = it & 1;
-    if (tile + 1 < tile1) load_kv(tile + 1, st ^ 1);
-    cp_async_commit_group();
-    cp_async_wait_group<1>();  // this tile has landed; the next may be in flight
-    __syncthreads();
-    const bf16* Ks;
-    const bf16* Vs;
-    if constexpr (kF8) {  // widen the raw tile to bf16
-      const TC* raw = ring + (size_t)st * 2 * TS * HD;
-      for (int i = tid; i < 2 * TS * (HD / 16); i += kThreads) {
-        const int r = i / (HD / 16), c = (i % (HD / 16)) * 16;  // r < 2 * TS: K rows, then V
-        widen16(wide + r * LD + c, *reinterpret_cast<const uint4*>(raw + r * HD + c));
-      }
-      __syncthreads();
-      Ks = wide;
-      Vs = wide + TS * LD;
-    } else {
-      Ks = ring + (size_t)st * 2 * TS * LD;
-      Vs = Ks + TS * LD;
-    }
-    const int s0 = tile * TS;
-    if (warp_live && s0 <= warp_horizon) {
-      // S = Q K^T for 16 rows x 64 keys: n8 tile j holds keys s0 + 8j ..
-      float sc[TS / 8][4];
-#pragma unroll
-      for (int j = 0; j < TS / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KT; ++kk) {
-#pragma unroll
-        for (int jp = 0; jp < TS / 16; ++jp) {
-          uint32_t kb[4];
-          ldmatrix_x4(kb, Ks + (jp * 16 + lane % 8 + (lane / 16) * 8) * LD + kk * 16 +
-                              ((lane / 8) % 2) * 8);
-          mma_bf16(sc[2 * jp], qa[kk], kb[0], kb[1]);
-          mma_bf16(sc[2 * jp + 1], qa[kk], kb[2], kb[3]);
-        }
-      }
-      // mask, online softmax: element e of tile j is row (e < 2 ? rowa :
-      // rowa + 8), key s0 + 8j + 2 (lane % 4) + e % 2
-      float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-      for (int j = 0; j < TS / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = s0 + 8 * j + 2 * (lane % 4) + e % 2;
-          const bool ok = key <= qpos[e / 2] && key < S;
-          sc[j][e] = ok ? sc[j][e] * scale : kNegInf;
-          mx[e / 2] = fmaxf(mx[e / 2], sc[j][e]);
-        }
-      float alpha[2], m_new[2], ps[2] = {0.f, 0.f};
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-        m_new[h] = fmaxf(m_i[h], mx[h]);
-        alpha[h] = expf(m_i[h] - m_new[h]);
-      }
-#pragma unroll
-      for (int j = 0; j < TS / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = s0 + 8 * j + 2 * (lane % 4) + e % 2;
-          const bool ok = key <= qpos[e / 2] && key < S;
-          sc[j][e] = ok ? expf(sc[j][e] - m_new[e / 2]) : 0.f;
-          ps[e / 2] += sc[j][e];
-        }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        ps[h] += __shfl_xor_sync(0xffffffffu, ps[h], 1);
-        ps[h] += __shfl_xor_sync(0xffffffffu, ps[h], 2);
-        l_i[h] = alpha[h] * l_i[h] + ps[h];
-        m_i[h] = m_new[h];
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        acc[j][0] *= alpha[0];
-        acc[j][1] *= alpha[0];
-        acc[j][2] *= alpha[1];
-        acc[j][3] *= alpha[1];
-      }
-      // O += P V, P as hi + lo bf16 parts; k16 step ks covers keys 16 ks ..
-#pragma unroll
-      for (int ks = 0; ks < TS / 16; ++ks) {
-        uint32_t ph[4], pl[4];
-        split_bf16x2(sc[2 * ks][0], sc[2 * ks][1], ph[0], pl[0]);
-        split_bf16x2(sc[2 * ks][2], sc[2 * ks][3], ph[1], pl[1]);
-        split_bf16x2(sc[2 * ks + 1][0], sc[2 * ks + 1][1], ph[2], pl[2]);
-        split_bf16x2(sc[2 * ks + 1][2], sc[2 * ks + 1][3], ph[3], pl[3]);
-#pragma unroll
-        for (int dp = 0; dp < HD / 16; ++dp) {
-          uint32_t vb[4];
-          ldmatrix_x4_trans(vb, Vs + (ks * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD +
-                                    dp * 16 + (lane / 16) * 8);
-          mma_bf16(acc[2 * dp], ph, vb[0], vb[1]);
-          mma_bf16(acc[2 * dp], pl, vb[0], vb[1]);
-          mma_bf16(acc[2 * dp + 1], ph, vb[2], vb[3]);
-          mma_bf16(acc[2 * dp + 1], pl, vb[2], vb[3]);
-        }
-      }
-    }
-    __syncthreads();  // every warp is done with this stage before it is refilled
-  }
-
-  if (!warp_live) return;
-  const bool direct = gridDim.z == 1;
-  const int rows_pad = gridDim.x * TQ;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int R = rowa + 8 * h;
-    if (R >= rows) continue;
-    if (direct) {
-      const int t = R / group, g = R % group;
-      const float inv = 1.f / (l_i[h] == 0.f ? 1.f : l_i[h]);
-      TO* dst = out + ((size_t)(b * T_ + t) * Hq + kv * group + g) * HD + 2 * (lane % 4);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        store(dst + 8 * j, acc[j][2 * h] * inv);
-        store(dst + 8 * j + 1, acc[j][2 * h + 1] * inv);
-      }
-    } else {
-      const size_t row = ((size_t)blockIdx.z * gridDim.y + bh) * rows_pad + R;
-      float* dst = o_part + row * HD + 2 * (lane % 4);
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-        *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
-      if (lane % 4 == 0) {
-        ml_part[row * 2] = m_i[h];
-        ml_part[row * 2 + 1] = l_i[h];
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------- CUDA-core mode (f32)
-
-// Copy n_rows x HD f32 (row stride HD in global memory) into shared rows of
-// stride ld, zero-filling rows at or past `valid`. 16-byte loads.
-template <int HD>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const float* src, int n_rows,
-                                          int valid) {
-  constexpr int kPerRow = HD / 4;
-  for (int i = threadIdx.x; i < n_rows * kPerRow; i += kThreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * 4;
-    const float4 v = r < valid ? *reinterpret_cast<const float4*>(src + (size_t)r * HD + c)
-                               : make_float4(0.f, 0.f, 0.f, 0.f);
-    dst[r * ld + c] = v.x;
-    dst[r * ld + c + 1] = v.y;
-    dst[r * ld + c + 2] = v.z;
-    dst[r * ld + c + 3] = v.w;
-  }
-}
-
-template <int HD>
-constexpr int f32_smem_bytes() {
-  return (TQ * HD + TS * (HD + 1) + TS * HD + TQ * TS) * 4;
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads) flash_f32_kernel(
-    const float* __restrict__ q, const float* __restrict__ kc, const float* __restrict__ vc,
-    float* __restrict__ out, float* __restrict__ o_part, float* __restrict__ ml_part,
-    const int* __restrict__ pos_vec, int pos_scalar, int T_, int Hq, int Hkv, int S,
-    int tiles_per_split, float scale) {
-  constexpr int DPL = HD / 32;  // output dims per lane
-  extern __shared__ __align__(16) float smem_f32[];
-  float* Qs = smem_f32;             // [TQ][HD]
-  float* Ks = Qs + TQ * HD;         // [TS][HD + 1]
-  float* Vs = Ks + TS * (HD + 1);   // [TS][HD]
-  float* Ps = Vs + TS * HD;         // [TQ][TS]
-
-  const int group = Hq / Hkv;
-  const int bh = blockIdx.y;
-  const int b = bh / Hkv, kv = bh % Hkv;
-  const int rows = T_ * group;
-  const int r0 = blockIdx.x * TQ;
-  const int pos_b = pos_vec ? pos_vec[b] : pos_scalar;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  // horizon of this query tile: the last REAL row's last visible cache slot
-  const int last_row = min(r0 + TQ - 1, rows - 1);
-  const int horizon = min(pos_b + last_row / group, S - 1);
-  const int n_tiles = horizon / TS + 1;
-  const int tile0 = blockIdx.z * tiles_per_split;
-  const int tile1 = min(n_tiles, tile0 + tiles_per_split);
-
-  // the query tile's real rows, gathered from q[b, t, kv * group + g, :]
-  // (pad rows are never read unmasked: their scores take -1e30)
-  const int live_rows = min(TQ, rows - r0);
-  for (int i = threadIdx.x; i < live_rows * HD; i += kThreads) {
-    const int r = i / HD, d = i % HD;
-    const int R = r0 + r;
-    const int t = R / group, g = R % group;
-    Qs[r * HD + d] = q[((size_t)(b * T_ + t) * Hq + kv * group + g) * HD + d];
-  }
-
-  const int wrow0 = warp * RPW;  // this warp's first row within the tile
-  const int nrw = min(RPW, rows - (r0 + wrow0));  // its real rows (warp-uniform)
-  const bool warp_live = nrw > 0;
-  float m_i[RPW], l_i[RPW], acc[RPW][DPL];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    m_i[i] = kNegInf;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) acc[i][c] = 0.f;
-  }
-
-  const size_t head_off = (size_t)bh * S * HD;
-  for (int tile = tile0; tile < tile1; ++tile) {
-    const int s0 = tile * TS;
-    __syncthreads();  // Q is loaded / the previous tile's reads are done
-    load_tile<HD>(Ks, HD + 1, kc + head_off + (size_t)s0 * HD, TS, S - s0);
-    load_tile<HD>(Vs, HD, vc + head_off + (size_t)s0 * HD, TS, S - s0);
-    __syncthreads();
-    if (!warp_live) continue;
-
-    // scores for this warp's rows against keys s0 + lane and s0 + lane + 32
-    float sc[RPW][2];
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) sc[i][0] = sc[i][1] = 0.f;
-    for (int d = 0; d < HD; d += 4) {
-      float k0[4], k1[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        k0[e] = Ks[lane * (HD + 1) + d + e];
-        k1[e] = Ks[(lane + 32) * (HD + 1) + d + e];
-      }
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        if (i >= nrw) break;
-        const float4 qv = *reinterpret_cast<const float4*>(Qs + (wrow0 + i) * HD + d);
-        sc[i][0] += qv.x * k0[0] + qv.y * k0[1] + qv.z * k0[2] + qv.w * k0[3];
-        sc[i][1] += qv.x * k1[0] + qv.y * k1[1] + qv.z * k1[2] + qv.w * k1[3];
-      }
-    }
-
-    // online softmax, one row at a time across the warp
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      if (i >= nrw) break;
-      const int R = r0 + wrow0 + i;
-      const int qpos = pos_b + R / group;
-      const int sa = s0 + lane, sb = s0 + lane + 32;
-      const bool ma = sa <= qpos && sa < S;
-      const bool mb = sb <= qpos && sb < S;
-      const float a = ma ? sc[i][0] * scale : kNegInf;
-      const float bb = mb ? sc[i][1] * scale : kNegInf;
-      float mx = fmaxf(a, bb);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m_i[i], mx);
-      const float alpha = expf(m_i[i] - m_new);
-      const float pa = ma ? expf(a - m_new) : 0.f;
-      const float pb = mb ? expf(bb - m_new) : 0.f;
-      float ps = pa + pb;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) ps += __shfl_xor_sync(0xffffffffu, ps, o);
-      l_i[i] = alpha * l_i[i] + ps;
-      m_i[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DPL; ++c) acc[i][c] *= alpha;
-      Ps[(wrow0 + i) * TS + lane] = pa;
-      Ps[(wrow0 + i) * TS + lane + 32] = pb;
-    }
-    __syncwarp();
-
-    // acc += P @ V over this tile's live keys, 4 keys at a time
-    const int n_keys = min(TS, horizon - s0 + 1);
-    for (int j = 0; j < n_keys; j += 4) {
-      float v[4][DPL];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-#pragma unroll
-        for (int c = 0; c < DPL; ++c) v[e][c] = Vs[(j + e) * HD + c * 32 + lane];
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        if (i >= nrw) break;
-        const float4 p = *reinterpret_cast<const float4*>(Ps + (wrow0 + i) * TS + j);
-#pragma unroll
-        for (int c = 0; c < DPL; ++c)
-          acc[i][c] += p.x * v[0][c] + p.y * v[1][c] + p.z * v[2][c] + p.w * v[3][c];
-      }
-    }
-  }
-
-  if (!warp_live) return;
-  const bool direct = gridDim.z == 1;
-  const int rows_pad = gridDim.x * TQ;
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int R = r0 + wrow0 + i;
-    if (R >= rows) break;
-    if (direct) {
-      const int t = R / group, g = R % group;
-      const float inv = 1.f / (l_i[i] == 0.f ? 1.f : l_i[i]);
-      float* dst = out + ((size_t)(b * T_ + t) * Hq + kv * group + g) * HD;
-#pragma unroll
-      for (int c = 0; c < DPL; ++c) dst[c * 32 + lane] = acc[i][c] * inv;
-    } else {
-      const size_t row = ((size_t)blockIdx.z * gridDim.y + bh) * rows_pad + R;
-#pragma unroll
-      for (int c = 0; c < DPL; ++c) o_part[row * HD + c * 32 + lane] = acc[i][c];
-      if (lane == 0) {
-        ml_part[row * 2] = m_i[i];
-        ml_part[row * 2 + 1] = l_i[i];
-      }
-    }
-  }
-}
-
-// ------------------------------------------------------------- both modes
-
-// Merge the splits of each row, in split order: out = sum_s w_s o_s /
-// sum_s w_s l_s with w_s = exp(m_s - max_s m_s).
-template <typename TO>
-__global__ void flash_combine(const float* __restrict__ o_part,
-                              const float* __restrict__ ml_part, TO* __restrict__ out,
-                              int splits, int BHkv, int rows_pad, int T_, int Hq,
-                              int Hkv, int HD) {
-  const int group = Hq / Hkv;
-  const int rows = T_ * group;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)BHkv * rows * HD) return;
-  const int d = (int)(i % HD);
-  const int R = (int)((i / HD) % rows);
-  const int bh = (int)(i / ((size_t)HD * rows));
-  float mmax = kNegInf;
-#pragma unroll 8
-  for (int s = 0; s < splits; ++s)
-    mmax = fmaxf(mmax, ml_part[(((size_t)s * BHkv + bh) * rows_pad + R) * 2]);
-  float num = 0.f, den = 0.f;
-#pragma unroll 8
-  for (int s = 0; s < splits; ++s) {
-    const size_t row = ((size_t)s * BHkv + bh) * rows_pad + R;
-    const float w = expf(ml_part[row * 2] - mmax);
-    num += w * o_part[row * HD + d];
-    den += w * ml_part[row * 2 + 1];
-  }
-  const int b = bh / Hkv, kv = bh % Hkv;
-  const int t = R / group, g = R % group;
-  store(out + ((size_t)(b * T_ + t) * Hq + kv * group + g) * HD + d,
-        num / (den == 0.f ? 1.f : den));
-}
-
-template <typename KernelFn>
-void set_smem(KernelFn* fn, int bytes, bool& configured) {
-  if (!configured) {
-    cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    configured = true;
-  }
-}
-
-// T: q's element type; TC: the cache's; TO: the output's.
-template <typename T, typename TC, typename TO, int HD>
-int launch(const void* q, const void* k, const void* v, void* out, void* o_part,
-           void* ml_part, const void* pos_vec, int pos_scalar, int B, int T_, int Hq,
-           int Hkv, int S, int splits, int tiles_per_split, cudaStream_t st) {
-  const int rows = T_ * (Hq / Hkv);
-  dim3 grid((rows + TQ - 1) / TQ, B * Hkv, splits);
-  const float scale = 1.0f / sqrtf((float)HD);
-  static bool configured = false;
-  if constexpr (sizeof(T) == 4) {
-    constexpr int kSmem = f32_smem_bytes<HD>();
-    set_smem(flash_f32_kernel<HD>, kSmem, configured);
-    flash_f32_kernel<HD><<<grid, kThreads, kSmem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), static_cast<float*>(o_part),
-        static_cast<float*>(ml_part), static_cast<const int*>(pos_vec), pos_scalar, T_, Hq,
-        Hkv, S, tiles_per_split, scale);
-  } else {
-    constexpr int kSmem = mma_smem_bytes<TC, HD>();
-    set_smem(flash_mma_kernel<TC, TO, HD>, kSmem, configured);
-    flash_mma_kernel<TC, TO, HD><<<grid, kThreads, kSmem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const TC*>(k), static_cast<const TC*>(v),
-        static_cast<TO*>(out), static_cast<float*>(o_part), static_cast<float*>(ml_part),
-        static_cast<const int*>(pos_vec), pos_scalar, T_, Hq, Hkv, S, tiles_per_split, scale);
-  }
-  if (splits > 1) {
-    const size_t total = (size_t)B * Hkv * rows * HD;
-    flash_combine<TO><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
-        static_cast<const float*>(o_part), static_cast<const float*>(ml_part),
-        static_cast<TO*>(out), splits, B * Hkv, grid.x * TQ, T_, Hq, Hkv, HD);
-  }
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
+// The body is attention.cuh's (shared with the paged kernels K9/K8), over a
+// contiguous cache through DenseRows: there the design is set out. The
+// bf16 and f8 modes run attn_mma_kernel (tensor cores, a two-stage cp.async
+// ring, split-KV over live 64-row tiles); the f32 mode runs attn_f32_kernel
+// (CUDA cores, f32 products).
+#include "attention.cuh"
 
 // q [B, T, Hq, hd]; k, v [B, Hkv, S, hd]; dtype 0 = q and cache bf16, 1 =
 // both f32, 2 = bf16 q over an e4m3 cache; out [B, T, Hq, hd] in q's dtype,
@@ -651,19 +32,19 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
                                int hd, int dtype, int out_f32, int splits,
                                int tiles_per_split, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define DLLAMA_FLASH_ARGS \
-  q, k, v, out, o_part, ml_part, pos_vec, pos_scalar, B, T_, Hq, Hkv, S, splits, \
-      tiles_per_split, st
-  if (dtype == 0 && !out_f32 && hd == 128) return launch<bf16, bf16, bf16, 128>(DLLAMA_FLASH_ARGS);
-  if (dtype == 0 && !out_f32 && hd == 64) return launch<bf16, bf16, bf16, 64>(DLLAMA_FLASH_ARGS);
-  if (dtype == 0 && out_f32 && hd == 128) return launch<bf16, bf16, float, 128>(DLLAMA_FLASH_ARGS);
-  if (dtype == 0 && out_f32 && hd == 64) return launch<bf16, bf16, float, 64>(DLLAMA_FLASH_ARGS);
-  if (dtype == 1 && hd == 128) return launch<float, float, float, 128>(DLLAMA_FLASH_ARGS);
-  if (dtype == 1 && hd == 64) return launch<float, float, float, 64>(DLLAMA_FLASH_ARGS);
-  if (dtype == 2 && !out_f32 && hd == 128) return launch<bf16, f8, bf16, 128>(DLLAMA_FLASH_ARGS);
-  if (dtype == 2 && !out_f32 && hd == 64) return launch<bf16, f8, bf16, 64>(DLLAMA_FLASH_ARGS);
-  if (dtype == 2 && out_f32 && hd == 128) return launch<bf16, f8, float, 128>(DLLAMA_FLASH_ARGS);
-  if (dtype == 2 && out_f32 && hd == 64) return launch<bf16, f8, float, 64>(DLLAMA_FLASH_ARGS);
-#undef DLLAMA_FLASH_ARGS
+#define DLLAMA_FLASH(T, TC, TO, HD)                                                          \
+  launch_attention<T, TC, TO, HD>(q, k, v, DenseRows<HD>{S}, out, o_part, ml_part, pos_vec,   \
+                                  pos_scalar, B, T_, Hq, Hkv, S, splits, tiles_per_split, st)
+  if (dtype == 0 && !out_f32 && hd == 128) return DLLAMA_FLASH(bf16, bf16, bf16, 128);
+  if (dtype == 0 && !out_f32 && hd == 64) return DLLAMA_FLASH(bf16, bf16, bf16, 64);
+  if (dtype == 0 && out_f32 && hd == 128) return DLLAMA_FLASH(bf16, bf16, float, 128);
+  if (dtype == 0 && out_f32 && hd == 64) return DLLAMA_FLASH(bf16, bf16, float, 64);
+  if (dtype == 1 && hd == 128) return DLLAMA_FLASH(float, float, float, 128);
+  if (dtype == 1 && hd == 64) return DLLAMA_FLASH(float, float, float, 64);
+  if (dtype == 2 && !out_f32 && hd == 128) return DLLAMA_FLASH(bf16, f8, bf16, 128);
+  if (dtype == 2 && !out_f32 && hd == 64) return DLLAMA_FLASH(bf16, f8, bf16, 64);
+  if (dtype == 2 && out_f32 && hd == 128) return DLLAMA_FLASH(bf16, f8, float, 128);
+  if (dtype == 2 && out_f32 && hd == 64) return DLLAMA_FLASH(bf16, f8, float, 64);
+#undef DLLAMA_FLASH
   return -1;
 }

@@ -38,13 +38,13 @@
 //  * Where the output tiles alone leave SMs idle (a narrow n, a 32-row
 //    chunk), k is split across blocks and a second pass sums the f32
 //    partials in a fixed order (launch_splitk_reduce): no float atomics.
-#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -72,100 +72,6 @@ struct Layout {
   static constexpr int kOffBar = kOffS + kStages * kSBytes;
   static constexpr int kSmem = kOffBar + kStages * 8 + 1024;  // + room to align the base
 };
-
-// Byte offset of the 16-byte chunk `chunk` of 128-byte row `row` in a
-// 128-byte-swizzled tile: the chunk index XOR the row's index within its
-// group of 8 rows (what TMA's 128-byte swizzle writes).
-__device__ __forceinline__ int swz(int row, int chunk) {
-  return row * 128 + ((chunk ^ (row & 7)) << 4);
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start address,
-// leading and stride byte offsets (in 16-byte units), layout 1 = 128B swizzle.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// the generic-proxy stores to shared memory become visible to the async
-// proxy that wgmma reads through
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// keeps the compiler from moving accumulator registers across a wgmma
-__device__ __forceinline__ void fence_acc(float (&d)[BN / 2]) {
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
-}
-// one arrival that also expects `bytes` of copies to complete the phase
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-// TMA: the box of `map` at coordinates (c0 innermost, c1) into shared
-// memory at dst, its bytes counted on mbarrier bar
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// d += A[64 x 16] (K-major, from desc_a) * B[16 x 128] (MN-major, from desc_b)
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[BN / 2], uint64_t desc_a,
-                                                 uint64_t desc_b) {
-  static_assert(BN == 128, "the wgmma width is the block's");
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"  // scale-d: accumulate into d
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n"  // A K-major, B MN-major (transposed)
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
-}
 
 // The raw Q40 tile of step `step` loaded by the threads themselves (n % 16
 // != 0: packed rows are not 16-byte aligned): zero past k and n.
@@ -327,7 +233,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm) q40_prefill_kernel(
         // groups of 8 rows, 64 rows per m64 tile. B: +16 rows per k16;
         // 64-column atoms 8 KB apart, groups of 8 k rows 1024 bytes apart.
         wgmma_m64n128k16(acc[mt], desc_sw128(a_base + mt * 64 * 128 + kk * 32, 16, 1024),
-                         desc_sw128(b_base + kk * 16 * 128, BK * 128, 1024));
+                         desc_sw128(b_base + kk * 16 * 128, BK * 128, 1024), 1);
     wgmma_commit();
     if (j + kStages - 1 < nst) fill(j + kStages - 1);  // the stage of step j - 1
     if (j + 1 < nst) {
@@ -378,44 +284,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm) q40_prefill_kernel(
       }
     }
   }
-}
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime (no
-// link against libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 2-D row-major [rows, cols] map with a box of [box_rows, box_cols];
-// reads past the edges fill zeros.
-bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* base,
-              uint64_t rows, uint64_t cols, uint32_t box_rows, uint32_t box_cols,
-              CUtensorMapSwizzle swizzle) {
-  EncodeTiled fn = encoder();
-  if (!fn) return false;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * elem};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t one[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, one,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename TO, int M>

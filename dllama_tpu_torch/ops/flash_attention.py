@@ -150,4 +150,4 @@ def paged_flash_gqa_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: tor
                          f"multiple of {TS} rows, or head size {q.shape[-1]} not in "
                          f"{HEAD_SIZES}")
     return paged_attention.launch(q, k_pool, v_pool, tables, pos_base, None, None, None,
-                                  out_dtype, TS, LAUNCHES, "paged_flash_attention")
+                                  out_dtype, LAUNCHES, "paged_flash_attention")

@@ -146,13 +146,15 @@ def paged_view(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
 def paged_write_targets(tables: torch.Tensor, pos_base, t: int, page: int, n_pool: int,
                         active: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
     """(pages, offsets) i32 [B, T] for writing T new KV rows at block-table
-    positions: THE single definition of paged write addressing. Logical row
+    positions: the definition of paged write addressing. Logical row
     pos+tt of slot b lands in pool page tables[b, (pos+tt) // page] at offset
     (pos+tt) % page, the block index clipped to the table width, and rows of
-    inactive slots go to the trash page (n_pool - 1, never allocated). Shared
-    by models.llama._paged_cache_update (the plain scatter) and
-    ops.paged_attention (the kernel's fused scatter), so the two write paths
-    cannot drift apart. Device tensors in, device tensors out: no host sync."""
+    inactive slots go to the trash page (n_pool - 1, never allocated). Used
+    by models.llama._paged_cache_update (the plain scatter); the paged
+    kernel's fused scatter (csrc/paged_attention.cu write_target) computes
+    the same targets on the card, and chip_smoke.py holds its pools bit-equal
+    to the plain scatter's. Device tensors in, device tensors out: no host
+    sync."""
     b, nb = tables.shape
     dev = tables.device
     if isinstance(pos_base, torch.Tensor):

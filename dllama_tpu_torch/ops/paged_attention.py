@@ -5,15 +5,19 @@ package's ``ops/pallas/paged_attention.paged_decode_attention``. Without
 ``new_k`` it is a drop-in for :func:`dllama_tpu_torch.ops.layers.paged_gqa_attention`
 and returns the output. With ``new_k``/``new_v`` it is the fused decode step:
 the new rows are written at their block-table positions (inactive rows to the
-trash page) and the sweep reads them; it returns ``(out, k_pool, v_pool)``
-with the pools updated in place (JAX aliases them, so in place is the same
-contract). Chunks longer than ``FUSED_SCATTER_MAX_T`` rows are scattered first
-by the plain scatter, then swept read-only, as JAX scatters them in XLA.
+trash page; the kernel computes the targets of
+``ops.layers.paged_write_targets`` itself) and the sweep reads them; it
+returns ``(out, k_pool, v_pool)`` with the pools updated in place (JAX
+aliases them, so in place is the same contract). Chunks longer than
+``FUSED_SCATTER_MAX_T`` rows are scattered first by the plain scatter, then
+swept read-only, as JAX scatters them in XLA.
 
 On a CUDA tensor it launches ``csrc/paged_attention.cu`` (replaces
-``dllama_tpu/ops/pallas/paged_attention.py:_kernel``); on a CPU tensor it runs
-the plain version, ``models.llama._paged_cache_update`` followed by
-``paged_gqa_attention``. Nothing here reads a device value back to the host.
+``dllama_tpu/ops/pallas/paged_attention.py:_kernel``), whose sweep is the
+tensor-core body of flash attention (``csrc/attention.cuh``) with KV rows
+gathered through the block table; on a CPU tensor it runs the plain version,
+``models.llama._paged_cache_update`` followed by ``paged_gqa_attention``.
+Nothing here reads a device value back to the host.
 """
 
 from __future__ import annotations
@@ -24,14 +28,18 @@ import torch
 
 from dllama_tpu_torch.models.llama import _paged_cache_update
 from dllama_tpu_torch.ops import build
-from dllama_tpu_torch.ops.layers import paged_gqa_attention, paged_write_targets
+from dllama_tpu_torch.ops.layers import paged_gqa_attention
 from dllama_tpu_torch.ops.q40_matmul import _sm_count
 
 #: widest chunk (query rows per slot) whose new-KV rows are written by the
 #: kernel launch itself; wider chunks (prefill) are scattered first
 FUSED_SCATTER_MAX_T = 16
-TQ = 64  # folded query rows per block (csrc/paged_attention.cu)
-TS = 64  # most pool rows per sub-tile
+TQ = 64  # folded query rows per block (csrc/attention.cuh)
+TS = 64  # cache rows per KV tile
+BLOCKS_PER_SM = 2  # blocks an SM holds (the source's kMinBlocksPerSm)
+#: waves of blocks the split rule aims for when every slot's table is full
+WAVES = 2
+MIN_TILES_PER_SPLIT = 2
 HEAD_SIZES = (64, 128)
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
@@ -49,19 +57,22 @@ def paged_decode_supported(q_shape: tuple[int, ...], page_size: int,
             and kv_dtype in _DTYPES)
 
 
-def sub_tile(page: int) -> int:
-    """Rows per sub-tile: the largest multiple of 8, at most TS, that divides
-    the page (so a sub-tile never spans two pages)."""
-    return next(ts for ts in range(min(TS, page), 7, -8) if page % ts == 0)
-
-
-def kv_splits(rows: int, bhkv: int, max_tiles: int, sms: int) -> int:
-    """Splits of the KV sweep: about two blocks per SM over the whole grid,
-    at most one per sub-tile of the table. Split z walks sub-tiles z,
-    z + splits, ... of the live horizon, so the count needs no horizon from
-    the device."""
+def kv_splits(rows: int, bhkv: int, table_tiles: int, sms: int) -> tuple[int, int]:
+    """(splits, tiles per split) of the KV sweep, from the table width in
+    64-row tiles (no horizon from the device): split z walks tiles
+    [z * per, (z + 1) * per) of each query tile's live ones, and a split past
+    a slot's horizon exits at once, so a long slot gets many blocks and a
+    short one few. Enough splits for WAVES waves of the BLOCKS_PER_SM blocks
+    each SM holds when every slot is full, each at least MIN_TILES_PER_SPLIT
+    tiles: at mixed positions the longest slot's blocks then hold half the
+    tiles one wave would give them. It depends on the rows only through the
+    number of query tiles, so decode (4 rows) and a spec verify forward (36)
+    split a row's keys alike."""
     q_tiles = -(-rows // TQ)
-    return max(1, min(max_tiles, math.ceil(2 * sms / (q_tiles * bhkv))))
+    splits = min(max(1, table_tiles // MIN_TILES_PER_SPLIT),
+                 max(1, math.ceil(WAVES * BLOCKS_PER_SM * sms / (q_tiles * bhkv))))
+    per = -(-table_tiles // splits)
+    return -(-table_tiles // per), per
 
 
 def paged_decode_attention_plain(q, k_pool, v_pool, tables, pos_base, new_k=None,
@@ -94,14 +105,13 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.
         _paged_cache_update(v_pool, new_v, tables, pos_base, active)
         write = False
     out = launch(q, k_pool, v_pool, tables, pos_base, new_k if write else None,
-                 new_v if write else None, active, out_dtype, sub_tile(k_pool.shape[2]),
-                 LAUNCHES, "paged_attention")
+                 new_v if write else None, active, out_dtype, LAUNCHES, "paged_attention")
     if new_k is None:
         return out
     return out, k_pool, v_pool
 
 
-def launch(q, k_pool, v_pool, tables, pos_base, new_k, new_v, active, out_dtype, ts,
+def launch(q, k_pool, v_pool, tables, pos_base, new_k, new_v, active, out_dtype,
            counter: dict, key: str) -> torch.Tensor:
     """One call of the C entry point (scatter when ``new_k`` is given, then
     the sweep); counts it under ``counter[key]``. Shared with the read-only
@@ -114,7 +124,7 @@ def launch(q, k_pool, v_pool, tables, pos_base, new_k, new_v, active, out_dtype,
         # f32 pools: the kernel reads one dtype, and widening q is exact;
         # the output is rounded once, at the end
         out = launch(q.float(), k_pool, v_pool, tables, pos_base, new_k, new_v, active,
-                     None, ts, counter, key)
+                     None, counter, key)
         return out.to(out_dtype or q.dtype)
     for name, x in (("k_pool", k_pool), ("v_pool", v_pool), ("tables", tables)):
         if x.device != q.device:
@@ -142,16 +152,20 @@ def launch(q, k_pool, v_pool, tables, pos_base, new_k, new_v, active, out_dtype,
         pos = pos_base.to(torch.int32).reshape(-1).expand(b).contiguous()
     else:
         pos = torch.full((b,), int(pos_base), dtype=torch.int32, device=q.device)
-    wpages = woffs = nk = nv = None
+    nk = nv = act = None
     if new_k is not None:
         if new_k.shape != (b, hkv, t, hd) or new_v.shape != new_k.shape:
             raise ValueError(f"paged attention: new rows {tuple(new_k.shape)}, want "
                              f"{(b, hkv, t, hd)}")
-        wpages, woffs = paged_write_targets(tables, pos, t, page, n_pool, active)
-        nk = new_k.to(k_pool.dtype).contiguous()
-        nv = new_v.to(v_pool.dtype).contiguous()
+        # the kernel reads [B, T, Hkv, hd]: the layer's own layout, so the
+        # engine's k.transpose(1, 2) comes back without a copy
+        nk = new_k.transpose(1, 2).to(k_pool.dtype).contiguous()
+        nv = new_v.transpose(1, 2).to(v_pool.dtype).contiguous()
+        if active is not None:
+            act = active.to(device=q.device, dtype=torch.bool).reshape(b).contiguous()
     rows = t * (hq // hkv)
-    splits = kv_splits(rows, b * hkv, nb * page // ts, _sm_count(q.device.index or 0))
+    splits, per = kv_splits(rows, b * hkv, -(-nb * page // TS),
+                            _sm_count(q.device.index or 0))
     out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     o_part = ml_part = None
     if splits > 1:
@@ -165,11 +179,10 @@ def launch(q, k_pool, v_pool, tables, pos_base, new_k, new_v, active, out_dtype,
         return None if x is None else x.data_ptr()
 
     err = build.library("paged_attention").paged_attention(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ptr(nk), ptr(nv), ptr(wpages),
-        ptr(woffs), tables.data_ptr(), pos.data_ptr(), out.data_ptr(), ptr(o_part),
-        ptr(ml_part), b, t, hq, hkv, page, nb, hd, ts, _DTYPES[q.dtype],
-        int(out_dtype == torch.float32), splits,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ptr(nk), ptr(nv), ptr(act),
+        tables.data_ptr(), pos.data_ptr(), out.data_ptr(), ptr(o_part), ptr(ml_part), b, t,
+        hq, hkv, page, nb, n_pool, hd, _DTYPES[q.dtype], int(out_dtype == torch.float32),
+        splits, per, torch.cuda.current_stream(q.device).cuda_stream)
     build.check("paged_attention", err)
     counter[key] += 1
     return out

@@ -10,13 +10,15 @@ gives the same cut):
 * ``csrc/q80_decode.cu`` for m <= 16 (decode): exact int8 codes, per-block
   partial dots scaled in f32, split-k with a fixed-order reduction
   (replaces ``dllama_tpu/ops/pallas/q80_matmul.py:_blockdot_kernel``);
-* ``csrc/q80_prefill.cu`` for m > 16 (prefill chunks): weight tiles
-  dequantized to bf16 in shared memory, tensor-core products with f32
-  accumulation (replaces ``_deq_kernel``).
+* ``csrc/q80_prefill.cu`` for m > 16 (prefill chunks): x and raw Q80 tiles
+  through a TMA ring, dequantized to bf16 in shared memory with the plain
+  version's rounding, wgmma products with f32 accumulation in runs of
+  PREFILL_RUN_STEPS steps (replaces ``_deq_kernel``).
 
-Both kernels share the Q40 kernels' tiles (256 columns per decode block, 64
-x 128 prefill tiles with a 64-row k step), but not their split-k rule: where
-a split starts depends on k alone (:func:`decode_splits`,
+The decode kernel shares K1's 256 columns per block; the prefill kernel
+tiles the output in PREFILL_TILE_M (or PREFILL_TILE_M_SMALL) x
+PREFILL_TILE_N blocks with a 64-row k step. Neither shares the Q40 kernels'
+split-k rule: where a split starts depends on k alone (:func:`decode_splits`,
 :func:`prefill_splits`), so every output column is summed in the same order
 whatever n is, and fused wqkv/w13 weights (``--fuse-weights``) give the
 bit-equal columns of their parts. A stacked ``[L, k, n]`` weight is
@@ -40,6 +42,13 @@ DECODE_BLOCKS_PER_SPLIT = 4
 #: 64-row steps the prefill kernel sums from zero before adding them to its
 #: total (csrc/q80_prefill.cu kRunSteps): the unit of its split-k
 PREFILL_RUN_STEPS = 8
+#: the prefill kernel's tile (csrc/q80_prefill.cu BM, BM_SMALL, BN, BK):
+#: output rows per block (see prefill_tile_m), output columns per block,
+#: input dims per step
+PREFILL_TILE_M = 256
+PREFILL_TILE_M_SMALL = 128
+PREFILL_TILE_N = 64
+PREFILL_STEP_K = 64
 
 #: kernel launches made through the wrappers (plain ints; reset by callers
 #: that want to see which kernels a run went through)
@@ -74,14 +83,25 @@ def decode_splits(k: int) -> tuple[int, int]:
     return -(-nkb // DECODE_BLOCKS_PER_SPLIT), DECODE_BLOCKS_PER_SPLIT
 
 
+def prefill_tile_m(m: int, n: int, sms: int) -> int:
+    """Output rows per prefill block: PREFILL_TILE_M (each weight tile
+    dequantized once per 256 rows) where m reaches it and its tiles still
+    give every SM one, else PREFILL_TILE_M_SMALL. A column's sum does not
+    depend on the block's rows, so this choice too changes no bit."""
+    if m >= PREFILL_TILE_M and -(-m // PREFILL_TILE_M) * -(-n // PREFILL_TILE_N) >= sms:
+        return PREFILL_TILE_M
+    return PREFILL_TILE_M_SMALL
+
+
 def prefill_splits(m: int, k: int, n: int, sms: int) -> tuple[int, int]:
     """(splits, 64-row steps per split) of the prefill kernel: one split per
-    PREFILL_RUN_STEPS-step run where the 64 x 128 output tiles would leave
-    more than half the SMs idle, else one split for all of k. The kernel
-    sums the runs in k order either way, so the choice (which follows n)
-    changes no bit of a column."""
-    steps = -(-k // 64)
-    if -(-m // 64) * -(-n // 128) * 2 < sms:
+    PREFILL_RUN_STEPS-step run where the output tiles would leave more than
+    half the SMs idle, else one split for all of k. The kernel sums the runs
+    in k order either way, so the choice (which follows n) changes no bit of
+    a column."""
+    steps = -(-k // PREFILL_STEP_K)
+    tiles = -(-m // prefill_tile_m(m, n, sms)) * -(-n // PREFILL_TILE_N)
+    if tiles * 2 < sms:
         return -(-steps // PREFILL_RUN_STEPS), PREFILL_RUN_STEPS
     return 1, steps
 
@@ -124,16 +144,17 @@ def q80_matmul(x: torch.Tensor, w: Q8Tensor, layer=None, out_dtype=None) -> torc
     if m == 0:
         return out.reshape(*lead, n)
     if m <= DECODE_MAX_M:
-        name, (splits, per) = "q80_decode", decode_splits(k)
+        name, (splits, per), extra = "q80_decode", decode_splits(k), ()
     else:
-        name, (splits, per) = "q80_prefill", prefill_splits(m, k, n,
-                                                            _sm_count(x.device.index or 0))
+        sms = _sm_count(x.device.index or 0)
+        name, (splits, per) = "q80_prefill", prefill_splits(m, k, n, sms)
+        extra = (prefill_tile_m(m, n, sms),)
     partial = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
                if splits > 1 else None)
     err = getattr(build.library(name), name)(
         x2.data_ptr(), codes.data_ptr(), scales.data_ptr(),
         partial.data_ptr() if partial is not None else None, out.data_ptr(),
-        m, k, n, splits, per, int(out_dtype == torch.float32),
+        m, k, n, splits, per, int(out_dtype == torch.float32), *extra,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(name, err)
     LAUNCHES[name] += 1

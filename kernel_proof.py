@@ -1,0 +1,153 @@
+#!/usr/bin/env python3
+"""Two one-off proofs about the attention and GEMM kernels, on one NVIDIA GPU.
+
+Run from the repository root (it reuses chip_smoke.py's inputs and timer):
+
+    python3 kernel_proof.py splits [--reps N]
+    python3 kernel_proof.py parity --save FILE      # in one checkout
+    python3 kernel_proof.py parity --against FILE   # in another
+
+`splits` times the paged attention kernel (K9) under its own split rule and
+under fixed tile counts per split, on decode B=8 at chip_smoke's SPREAD
+positions, decode B=8 with every slot at pos 4095 and a 256-token chunk at
+pos 2048 (page 128, Llama-3.1-8B heads, bf16), each checked against the
+plain version within TOL_K9. The fixed counts replace the wrapper's rule
+only inside this script.
+
+`parity` computes the K2 (Q40 prefill GEMM) and K7 (flash attention) f32
+outputs of seeded inputs at the 8B shapes of chip_smoke's kernels phase and
+saves them, or compares them bit for bit with a file saved by another
+checkout of the package (copy this script and chip_smoke.py into it): the
+proof that a refactor of a kernel's source changed no bit of its result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import math
+
+import chip_smoke as cs
+
+
+@contextlib.contextmanager
+def fixed_tiles_per_split(pa, per: int | None):
+    """The paged wrapper's split rule replaced by `per` tiles a split (None:
+    the rule itself)."""
+    rule = pa.kv_splits
+    if per is not None:
+        def fixed(rows, bhkv, table_tiles, sms):
+            p = max(1, min(per, table_tiles))
+            return math.ceil(table_tiles / p), p
+        pa.kv_splits = fixed
+    try:
+        yield pa.kv_splits
+    finally:
+        pa.kv_splits = rule
+
+
+def splits(cfg, device, timer) -> None:
+    import torch
+
+    from dllama_tpu_torch.ops import paged_attention as pa
+    from dllama_tpu_torch.ops.q40_matmul import _sm_count
+
+    gen = torch.Generator(device=device).manual_seed(8)
+    sms = _sm_count(device.index or 0)
+    hq, hkv, hd, page, nb = cfg.n_heads, cfg.n_kv_heads, cfg.head_size, 128, 32
+    for label, t, pos, pers in (("decode B=8 spread", 1, cs.SPREAD, (1, 2, 4, 8, 16, 32)),
+                                ("decode B=8 all pos=4095", 1, [4095] * 8, (1, 2, 4, 8, 16, 32)),
+                                ("prefill T=256 pos=2048", 256, [2048], (4, 8, 16, 32, 64))):
+        b = len(pos)
+        q, kp, vp, tables, nk, nv = cs.paged_inputs(gen, device, b, t, hq, hkv, hd, page, nb,
+                                                    torch.bfloat16)
+        posv = torch.tensor(pos, dtype=torch.int32, device=device)
+        if t > pa.FUSED_SCATTER_MAX_T:  # the chunk's rows are scattered before the sweep
+            nk = nv = None
+        want = pa.paged_decode_attention_plain(q.float(), kp.clone().float(), vp.clone().float(),
+                                               tables, posv, *(() if nk is None else
+                                                               (nk.float(), nv.float())))
+        want = want if nk is None else want[0]
+        line = []
+        for per in (None, *pers):
+            with fixed_tiles_per_split(pa, per) as rule:
+                n_splits, per_used = rule(t * hq // hkv, b * hkv, nb * page // pa.TS, sms)
+                count = {"x": 0}
+                got = pa.launch(q, kp.clone(), vp.clone(), tables, posv, nk, nv, None,
+                                torch.float32, count, "x")
+                err = (got - want).abs().max().item()
+                if not err <= cs.TOL_K9:
+                    cs.fail(f"splits {label} per={per}: max error {err} over {cs.TOL_K9}")
+                ms = timer(lambda: pa.launch(q, kp, vp, tables, posv, nk, nv, None, None, count,
+                                             "x"))
+            line.append(f"{'rule' if per is None else per}: {n_splits}x{per_used} {cs._r(ms)} ms")
+        print(f"  splits {label} (each err <= {cs.TOL_K9:.0e}; splits x tiles a split): "
+              + "; ".join(line), flush=True)
+
+
+def parity(cfg, device, save: str | None, against: str | None) -> None:
+    import torch
+
+    from dllama_tpu_torch.ops.flash_attention import flash_gqa_attention
+    from dllama_tpu_torch.ops.q40_matmul import forced_style, q40_matmul
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    outs = {}
+    d, f, kvd = cfg.dim, cfg.hidden_dim, cfg.kv_dim
+    for name, k, n, m in (("w1", d, f, 256), ("w1", d, f, 32), ("w2", f, d, 256),
+                          ("wq", d, d, 256), ("wk", d, kvd, 256), ("w1", d, f, 1)):
+        w = cs.random_q40(gen, (2,), k, n, device)
+        x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+        with forced_style("deq"):
+            outs[f"q40_prefill {name} m={m}"] = q40_matmul(x, w, 1, out_dtype=torch.float32)
+    hq, hkv, hd, s = cfg.n_heads, cfg.n_kv_heads, cfg.head_size, 4096
+    for dt in (torch.bfloat16, torch.float8_e4m3fn, torch.float32):
+        kc = torch.randn((1, hkv, s, hd), generator=gen, device=device).to(dt)
+        vc = torch.randn((1, hkv, s, hd), generator=gen, device=device).to(dt)
+        for t, pos in ((1, 0), (1, 1000), (1, 4095), (256, 0), (256, 2048), (9, 1000),
+                       (64, 0), (128, 0), (256, 3840)):
+            q = torch.randn((1, t, hq, hd), generator=gen, device=device).to(torch.bfloat16)
+            outs[f"flash_attention {dt} T={t} pos={pos}"] = flash_gqa_attention(
+                q, kc, vc, pos, out_dtype=torch.float32)
+    outs = {k: v.cpu() for k, v in outs.items()}
+    if save:
+        torch.save(outs, save)
+        print(f"parity: saved {len(outs)} K2/K7 outputs to {save}", flush=True)
+    if against:
+        ref = torch.load(against)
+        differ = [k for k in outs if not torch.equal(outs[k], ref[k])]
+        print(f"parity: {len(outs) - len(differ)} of {len(outs)} K2/K7 outputs bit-equal to "
+              f"{against}", flush=True)
+        if differ:
+            cs.fail(f"parity: outputs differ from {against}: {differ}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    sub = ap.add_subparsers(dest="proof", required=True)
+    sp = sub.add_parser("splits", help="K9's split rule against fixed tiles per split")
+    sp.add_argument("--reps", type=int, default=20, help="timed runs per case")
+    pp = sub.add_parser("parity", help="save or compare K2/K7 outputs bit for bit")
+    pp.add_argument("--save", help="save the outputs here")
+    pp.add_argument("--against", help="compare the outputs with this file")
+    args = ap.parse_args(argv)
+    if args.proof == "parity" and not (args.save or args.against):
+        ap.error("parity needs --save or --against")
+
+    import torch
+
+    if not torch.cuda.is_available():
+        cs.fail("torch.cuda.is_available() is false: these proofs need an NVIDIA GPU")
+    device = torch.device("cuda", 0)
+    print(f"card: {cs.card_line()}", flush=True)
+    cfg = cs.llama31_8b(cs.N_LAYERS_8B)
+    if args.proof == "splits":
+        print("splits (K9, page 128, Llama-3.1-8B heads, bf16):", flush=True)
+        splits(cfg, device, cs.Timer(device, args.reps))
+    else:
+        parity(cfg, device, args.save, args.against)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

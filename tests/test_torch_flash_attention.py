@@ -95,8 +95,13 @@ def test_kv_splits_of_decode_and_verify_rows_agree(live):
 
 
 def test_tile_constants_match_the_kernel():
-    text = (Path(__file__).resolve().parents[1] / "dllama_tpu_torch" / "ops" / "csrc"
-            / "flash_attention.cu").read_text()
+    """The tiles the wrapper counts are those of the source and of the
+    attention body it includes (attention.cuh, shared with the paged
+    kernels)."""
+    csrc = Path(__file__).resolve().parents[1] / "dllama_tpu_torch" / "ops" / "csrc"
+    text = (csrc / "flash_attention.cu").read_text()
+    assert '#include "attention.cuh"' in text
+    text += (csrc / "attention.cuh").read_text()
     c = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", text)}
     assert (c["TQ"], c["TS"], c["kMinBlocksPerSm"]) == (TQ, TS, BLOCKS_PER_SM)
 

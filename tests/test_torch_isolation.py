@@ -1,5 +1,5 @@
 """The port stands alone: no module of `dllama_tpu_torch`, and nothing in
-`chip_smoke.py`, imports JAX or the JAX package; its CLI runs on the CPU
+`chip_smoke.py` or `kernel_proof.py`, imports JAX or the JAX package; its CLI runs on the CPU
 only when asked to, and says so when no CUDA device is there."""
 
 import ast
@@ -16,7 +16,8 @@ torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted(p for p in (ROOT / "dllama_tpu_torch").rglob("*.py")
-                    if "build" not in p.parts) + [ROOT / "chip_smoke.py"]
+                    if "build" not in p.parts) + [ROOT / "chip_smoke.py",
+                                                  ROOT / "kernel_proof.py"]
 
 
 def _env():
@@ -42,7 +43,7 @@ def test_no_jax_or_jax_package_import_in_the_source():
 def test_importing_every_module_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
-        "import dllama_tpu_torch, chip_smoke\n"
+        "import dllama_tpu_torch, chip_smoke, kernel_proof\n"
         "for m in pkgutil.walk_packages(dllama_tpu_torch.__path__, 'dllama_tpu_torch.'):\n"
         "    if not m.name.endswith('__main__'):\n"
         "        importlib.import_module(m.name)\n"

@@ -7,6 +7,9 @@ bit-equal, and K8's wrapper against the Pallas block-table flash kernel in
 interpret mode. Outputs within 2e-5 absolute and relative: both compute the
 same f32 softmax, in another order of sums."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -19,7 +22,6 @@ from dllama_tpu_torch.ops.paged_attention import (
     kv_splits,
     paged_decode_attention,
     paged_decode_supported,
-    sub_tile,
 )
 
 torch.set_num_threads(1)
@@ -157,13 +159,135 @@ def test_capability_rules():
     assert not paged_decode_supported((32, 96), 128)  # head size not built
     assert not paged_decode_supported((32, 128), 128, torch.float16)
     assert paged_supported((32, 128), 128) and not paged_supported((32, 128), 24)
-    assert [sub_tile(p) for p in (8, 16, 24, 64, 120, 128, 256)] == [8, 16, 24, 64, 40, 64, 64]
     assert FUSED_SCATTER_MAX_T == 16
 
 
 @pytest.mark.parametrize("rows,bhkv,max_tiles", [(4, 64, 64), (4, 8, 1), (1024, 8, 64)])
 def test_kv_splits_fill_the_card_within_the_table(rows, bhkv, max_tiles):
-    splits = kv_splits(rows, bhkv, max_tiles, sms=132)
+    """Splits of whole tiles that cover the table's tiles once; a decode
+    step at full tables puts at least one block on every SM; a verify
+    forward's rows (one query tile too) split alike."""
+    splits, per = kv_splits(rows, bhkv, max_tiles, sms=132)
     assert 1 <= splits <= max_tiles
+    assert (splits - 1) * per < max_tiles <= splits * per
     if max_tiles > 1 and rows <= 64:
         assert bhkv * splits >= 132  # at least one block per SM where the table allows
+        assert kv_splits(36, bhkv, max_tiles, sms=132) == (splits, per)
+    if max_tiles >= paged_attention.MIN_TILES_PER_SPLIT:
+        assert per >= paged_attention.MIN_TILES_PER_SPLIT
+
+
+def test_tile_constants_match_the_kernel():
+    """The wrapper's tiles and blocks per SM are those of the attention body
+    the paged source includes (attention.cuh, shared with flash attention),
+    and the paged source has no tile of its own."""
+    csrc = Path(__file__).resolve().parents[1] / "dllama_tpu_torch" / "ops" / "csrc"
+    own = (csrc / "paged_attention.cu").read_text()
+    assert '#include "attention.cuh"' in own
+    assert not re.findall(r"constexpr int (\w+) = (\d+);", own)
+    c = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);",
+                                          (csrc / "attention.cuh").read_text())}
+    assert (c["TQ"], c["TS"], c["kMinBlocksPerSm"]) == (
+        paged_attention.TQ, paged_attention.TS, paged_attention.BLOCKS_PER_SM)
+
+
+class _Table:
+    """A slot's table row that fails the test when an entry past `live`
+    (the pages the slot's rows reach) is read, as the kernel must never do."""
+
+    def __init__(self, row, live):
+        self.row, self.live = row, live
+
+    def __getitem__(self, i):
+        assert i < self.live, f"table entry {i} read past the slot's {self.live} live pages"
+        return int(self.row[i])
+
+
+def _k9_sweep_model(q, kp, vp, tables, pos, live_pages, sms=132):
+    """The kernel's sweep rebuilt in torch (f32): per (slot, KV head, 64-row
+    query tile), 64-row KV tiles gathered row by row through the table up to
+    the tile's horizon, split z taking tiles [z per, (z + 1) per) of the
+    split rule, an online softmax per split, and the live splits merged in
+    split order as attn_combine merges them."""
+    b, t, hq, hd = q.shape
+    hkv, page = kp.shape[1], kp.shape[2]
+    nb = tables.shape[1]
+    group, rows, S = hq // hkv, t * (hq // hkv), nb * page
+    TQ, TS = paged_attention.TQ, paged_attention.TS
+    splits, per = kv_splits(rows, b * hkv, -(-S // TS), sms)
+    out = torch.zeros((b, t, hq, hd))
+    for bi in range(b):
+        tab = _Table(tables[bi], live_pages[bi])
+        for kv in range(hkv):
+            qf = q[bi, :, kv * group:(kv + 1) * group].reshape(rows, hd)  # t-major fold
+            for r0 in range(0, rows, TQ):
+                qt = qf[r0:r0 + TQ]
+                qpos = pos[bi] + torch.arange(r0, r0 + qt.shape[0]) // group
+                horizon = min(int(qpos[-1]), S - 1)
+                n_tiles = horizon // TS + 1
+                parts = []
+                for z in range(splits):
+                    if z * per >= n_tiles:
+                        break  # the block exits; the combine skips it
+                    m = torch.full((qt.shape[0], 1), -1e30)
+                    l = torch.zeros((qt.shape[0], 1))
+                    acc = torch.zeros((qt.shape[0], hd))
+                    for tile in range(z * per, min(n_tiles, (z + 1) * per)):
+                        keys = torch.arange(tile * TS, (tile + 1) * TS)
+                        kt, vt = torch.zeros((TS, hd)), torch.zeros((TS, hd))
+                        for r, s in enumerate(keys.tolist()):
+                            if s <= horizon:
+                                pg = tab[s // page]
+                                kt[r], vt[r] = kp[pg, kv, s % page], vp[pg, kv, s % page]
+                        ok = (keys[None, :] <= qpos[:, None]) & (keys[None, :] < S)
+                        sc = torch.where(ok, qt @ kt.T / hd ** 0.5, torch.tensor(-1e30))
+                        m_new = torch.maximum(m, sc.max(dim=1, keepdim=True).values)
+                        p = torch.where(ok, torch.exp(sc - m_new), torch.tensor(0.0))
+                        alpha = torch.exp(m - m_new)
+                        l = alpha * l + p.sum(dim=1, keepdim=True)
+                        acc = acc * alpha + p @ vt
+                        m = m_new
+                    parts.append((m, l, acc))
+                if splits == 1:
+                    m, l, acc = parts[0]
+                    o = acc * (1 / torch.where(l == 0, torch.tensor(1.0), l))
+                else:
+                    mmax = torch.stack([p[0] for p in parts]).amax(dim=0)
+                    num = torch.zeros_like(parts[0][2])
+                    den = torch.zeros_like(parts[0][1])
+                    for m, l, acc in parts:
+                        w = torch.exp(m - mmax)
+                        num, den = num + w * acc, den + w * l
+                    o = num / torch.where(den == 0, torch.tensor(1.0), den)
+                for i, R in enumerate(range(r0, r0 + qt.shape[0])):
+                    out[bi, R // group, kv * group + R % group] = o[i]
+    return out
+
+
+@pytest.mark.parametrize("page,nb,t,pos,active", [
+    (8, 48, 1, [0, 150, 383], [True, False, True]),   # a tile spans 8 pages
+    (24, 16, 1, [23, 200, 330], None),                # pages across tile edges
+    (128, 3, 1, [5, 127, 370], [False, True, True]),  # a page holds two tiles
+    (8, 48, 20, [290, 40], [True, True]),              # a chunk: 2 query tiles, causal
+    (24, 16, 17, [0, 333], [True, False]),
+    (128, 3, 20, [200, 64], None),
+])
+def test_k9_sweep_model_matches_the_plain_gather(page, nb, t, pos, active):
+    """The kernel's sweep (tiles gathered through ragged tables, the split
+    rule, the combine order) against paged_gqa_attention after the plain
+    scatter, inactive rows to the trash page; the model reads no table
+    entry past a slot's live pages, which hold a bad page id."""
+    b, hq, hkv = len(pos), 8, 2
+    q, kp, vp, tables, nk, nv = _setup(page + t + nb, page, nb, b, t, hq, hkv)
+    pos_np = np.array(pos, np.int32)
+    live = [(min(p + t - 1, nb * page - 1)) // page + 1 for p in pos]
+    ragged = tables.copy()
+    for bi, n in enumerate(live):
+        ragged[bi, n:] = 10 ** 6  # unallocated: any id; the model must not read it
+    tq, tk, tv, tnk, tnv = _t(q, kp, vp, nk, nv)
+    act = None if active is None else torch.tensor(active)
+    alloc = torch.from_numpy(np.where(ragged == 10 ** 6, 0, ragged))  # the engine's zeros
+    want, _, _ = paged_decode_attention(tq, tk, tv, alloc, torch.from_numpy(pos_np), tnk, tnv,
+                                        act)
+    got = _k9_sweep_model(tq, tk, tv, torch.from_numpy(ragged), pos, live)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL, rtol=TOL)

@@ -9,6 +9,9 @@ sums differs); bf16 inputs within 5e-3 of max|ref| against the TPU kernels
 each weight to bf16, and their output is rounded to bf16) and within 1e-5
 against the XLA path, whose arithmetic is the plain version's."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -18,8 +21,13 @@ from dllama_tpu_torch.ops.q80_matmul import (
     DECODE_BLOCKS_PER_SPLIT,
     LAUNCHES,
     PREFILL_RUN_STEPS,
+    PREFILL_STEP_K,
+    PREFILL_TILE_M,
+    PREFILL_TILE_M_SMALL,
+    PREFILL_TILE_N,
     decode_splits,
     prefill_splits,
+    prefill_tile_m,
     q80_matmul,
     q80_matmul_plain,
 )
@@ -154,5 +162,80 @@ def test_prefill_splits_cut_k_only_at_run_boundaries(m, k, n):
     steps = -(-k // 64)
     assert (splits - 1) * per < steps <= splits * per
     assert (splits, per) == (1, steps) or per == PREFILL_RUN_STEPS
-    tiles = -(-m // 64) * -(-n // 128)
+    tiles = -(-m // prefill_tile_m(m, n, 132)) * -(-n // PREFILL_TILE_N)
     assert (splits > 1) == (2 * tiles < 132 and steps > PREFILL_RUN_STEPS)
+
+
+def _source_constants(name: str) -> dict[str, int]:
+    text = (Path(__file__).resolve().parents[1] / "dllama_tpu_torch" / "ops" / "csrc"
+            / name).read_text()
+    return {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", text)}
+
+
+def test_prefill_tile_constants_match_the_kernel():
+    """prefill_splits and prefill_tile_m count the kernel's own tiles, steps
+    and runs."""
+    c = _source_constants("q80_prefill.cu")
+    assert (c["BM"], c["BM_SMALL"], c["BN"], c["BK"], c["kRunSteps"]) == (
+        PREFILL_TILE_M, PREFILL_TILE_M_SMALL, PREFILL_TILE_N, PREFILL_STEP_K, PREFILL_RUN_STEPS)
+    assert prefill_tile_m(256, 14336, 132) == PREFILL_TILE_M  # 224 tiles fill the card
+    assert prefill_tile_m(256, 4096, 132) == PREFILL_TILE_M_SMALL  # 64 would not
+    assert prefill_tile_m(PREFILL_TILE_M - 1, 14336, 132) == PREFILL_TILE_M_SMALL
+
+
+def _finite_f16_scales() -> np.ndarray:
+    bits = np.arange(1 << 16, dtype=np.uint32).astype(np.uint16)
+    s = bits.view(np.float16)
+    return s[np.isfinite(s)]
+
+
+def _bf16_rne(x: np.ndarray) -> np.ndarray:
+    """f32 -> bf16 with round-to-nearest-even (cvt.rn.bf16x2.f32), as the
+    f32 holding the bf16 value."""
+    b = x.astype(np.float32).view(np.uint32)
+    r = ((b + np.uint32(0x7FFF) + ((b >> 16) & 1)) >> 16) << 16
+    return r.astype(np.uint32).view(np.float32)
+
+
+def _k6_weights(codes: np.ndarray, scales: np.ndarray) -> np.ndarray:
+    """K6's dequantization, step by step: XOR 0x80 and a byte permute give
+    the float 2^23 + q + 128; subtracting 2^23 + 128 leaves the exact code;
+    one f32 multiply by the f16 scale; one bf16 rounding."""
+    u = (codes.view(np.uint8).astype(np.uint32) ^ 0x80) | 0x4B000000
+    code = u.view(np.float32) - np.float32(8388736.0)
+    return _bf16_rne(code * scales.astype(np.float32))
+
+
+def test_k6_dequant_equals_the_plain_weight_for_every_code_and_scale():
+    """All 256 int8 codes x every finite f16 scale: the kernel's formula
+    gives Q8Tensor.dequantize's bf16 weight bit for bit."""
+    codes = np.arange(-128, 128, dtype=np.int8)
+    scales = _finite_f16_scales()
+    assert scales.size == 63488
+    # codes [256, n] against the same scale row in each of the 8 blocks
+    w = Q8Tensor(torch.from_numpy(np.repeat(codes[:, None], scales.size, axis=1)),
+                 torch.from_numpy(np.repeat(scales[None, :], 256 // 32, axis=0)))
+    plain = w.dequantize(torch.bfloat16).float().numpy()
+    got = _k6_weights(codes[:, None], scales[None, :])
+    assert np.array_equal(got.view(np.uint32), plain.view(np.uint32))
+
+
+def test_q40_split_scale_fma_is_not_exact_for_int8_codes():
+    """K2's dequant, bf16(q s_hi + bf16(q s_lo)) with s = s_hi + s_lo in
+    bf16, rounds (q - 8) s once because a 4-bit code times s_lo is exact in
+    bf16. An int8 code times s_lo can need 10 significant bits, so the trick
+    must not be carried over to K6: q = -125 at s = 7.8857e-05 already
+    differs from the plain weight."""
+    q = np.array([-125.0])
+    s = np.array([np.float16(7.8857e-05)], np.float16)
+    sf = s.astype(np.float64)
+    s_hi = _bf16_rne(sf.astype(np.float32)).astype(np.float64)
+    s_lo = _bf16_rne((sf - s_hi).astype(np.float32)).astype(np.float64)
+    lo = _bf16_rne((q * s_lo).astype(np.float32)).astype(np.float64)  # exact in f32
+    exact = q * s_hi + lo  # the FMA's exact sum (fits f64), rounded once to bf16:
+    e = np.floor(np.log2(np.abs(exact)))
+    quantum = 2.0 ** (e - 7)
+    fma = np.round(exact / quantum) * quantum  # round half to even
+    plain = _bf16_rne((q * sf).astype(np.float32))
+    assert fma[0] != plain[0]
+    assert _k6_weights(q.astype(np.int8), s)[0] == plain[0]
