@@ -63,15 +63,20 @@ Q80 (random weights from a seed), and exits 0 only if every phase passed:
               plain run's logits; HTTP serve with --spec 8 and a spec_k 0
               request.
 
-The kernels phase also holds K3 (maskdot, tensor cores) and K4 (loopdot, CUDA
-cores) against their plain versions and against K1, and K11-B/K11-D against
-theirs; K1 at 9 rows and K7 at 9 query rows (the spec verify forward); and
+The kernels phase also holds K1 and K5 (the decode body csrc/decode.cuh)
+against the plain version of their own arithmetic (exact-code partials,
+TOL_K34) besides the bf16-weight plain versions, and each row of an m-row
+call bit-equal to the row alone; K3 (maskdot, tensor cores) and K4 (loopdot,
+CUDA cores) against their plain versions and against K1, and K11-B/K11-D
+against theirs; K1 at 9 rows and K7 at 9 query rows (the spec verify
+forward); and
 every kernel the kbench phase launches on kbench's own inputs (each variant
 of its suite rows and of `8 w1 B D`, the tile sweep, the flash rows), since
 the benchmark checks no result. `serve`, `batch`, `f8`, `q80`, `kbench`, `styles` and `spec` are the
 main paths: the launch counters are zeroed just before each of their runs and
 read just after it. Not in the default: `profile` adds a torch.profiler pass
-over one single-stream and one 8-slot decode chunk; `chunk` runs only the
+over one single-stream and one 8-slot decode chunk (device time and
+operations a step, K1's share, and no split-k second pass); `chunk` runs only the
 prefill-chunk timings (Q40 dense and paged, then Q80), so that they can be
 taken from another checkout of the package as well.
 
@@ -261,12 +266,38 @@ def random_q80(gen, lead, k, n, device):
 
 
 def report(kernel: str, case: dict) -> None:
+    exact = (f" exact-code err {case['err_exact']:.3e} <= {case['tol_exact']:.3e}"
+             if "err_exact" in case else "")
     print(f"  {kernel:18s} {case['case']:36s} err {case['max_abs_err']:.3e} <= tol "
-          f"{case['tol']:.3e}  ms {case['ms']}  plain {case['plain_ms']}  lib "
+          f"{case['tol']:.3e}{exact}  ms {case['ms']}  plain {case['plain_ms']}  lib "
           f"{case['library_ms']}  bound {case['bound_ms']:.4f} ({case['bound_by']})",
           flush=True)
     if not case["max_abs_err"] <= case["tol"]:
         fail(f"{kernel} {case['case']}: max error {case['max_abs_err']} over {case['tol']}")
+    if not case.get("err_exact", 0.0) <= case.get("tol_exact", 0.0):
+        fail(f"{kernel} {case['case']}: {case['err_exact']} from the exact-code plain version, "
+             f"over {case['tol_exact']}")
+
+
+def exact_plain(kernel: str):
+    """The plain version of a decode kernel's own arithmetic (exact-code
+    partials per 32-row block, scaled and summed in f32): K1 shares K3's."""
+    from dllama_tpu_torch.ops import q40_matmul, q80_matmul
+
+    return {"q40_decode": q40_matmul.q40_maskdot_plain,
+            "q80_decode": q80_matmul.q80_blockdot_plain}[kernel]
+
+
+def exact_check(kernel: str, got, x, w, layer, label: str) -> tuple[float, float]:
+    """K1/K5 output `got` (f32) against the exact-code plain version at
+    TOL_K34 -> (error, tolerance); fails past it."""
+    import torch
+
+    ref = exact_plain(kernel)(x, w, layer, out_dtype=torch.float32)
+    err, tol = (got - ref).abs().max().item(), TOL_K34 * ref.abs().max().item()
+    if not err <= tol:
+        fail(f"{label}: {err} from the exact-code plain version, over {tol}")
+    return err, tol
 
 
 def matmul_cases(cfg, device, timer, gen, fmt: str, plan, layer: int = 1) -> dict:
@@ -310,6 +341,11 @@ def matmul_cases(cfg, device, timer, gen, fmt: str, plan, layer: int = 1) -> dic
                         plain_ms=timer(lambda: plain_fn(x, w, layer)),
                         library_ms=timer(lambda: torch.matmul(x, wd)),
                         bound_ms=b, bound_by=by)
+            if decode:  # K1/K5 also against their own arithmetic, exact codes
+                ex = exact_plain(kernel)(x, w, layer, out_dtype=torch.float32)
+                case.update(err_exact=(got - ex).abs().max().item(),
+                            tol_exact=TOL_K34 * ex.abs().max().item())
+                del ex
         report(kernel, case)
         results.setdefault(kernel, []).append(case)
         del w, wd, x, got, ref
@@ -455,7 +491,8 @@ def phase_kernels(cfg, device, timer, layer=1):
                           s // 128, pos, active, torch.bfloat16)
         results[kernel].append(case)
     plan = [("q80_decode", name, m) for name, m in (("wq", 1), ("wk", 1), ("w1", 1),
-                                                    ("w1", 8), ("w2", 1), ("wcls", 1))]
+                                                    ("w1", 8), ("w2", 1), ("wcls", 1),
+                                                    ("wk", 8), ("w2", 8), ("wcls", 8))]
     plan += [("q80_prefill", name, m) for name, m in (("w1", 32), ("w1", 256), ("w2", 256),
                                                       ("wq", 256), ("wk", 256))]
     results.update(matmul_cases(cfg, device, timer, torch.Generator(device=device).manual_seed(3),
@@ -582,7 +619,7 @@ def phase_edges(device) -> None:
     gen = torch.Generator(device=device).manual_seed(2)
     f32 = torch.float32
     for m, k, n, stacked, style in ((12, 4096, 4096, True, "auto"), (3, 4128, 1000, True, "auto"),
-                                    (5, 256, 1002, False, "auto"),
+                                    (5, 256, 1002, False, "auto"), (16, 4096, 1024, True, "auto"),
                                     (100, 4128, 1000, True, "auto"),
                                     (40, 512, 1003, False, "auto"),
                                     (33, 4096, 1000, True, "auto"),
@@ -595,8 +632,13 @@ def phase_edges(device) -> None:
         ref = q40_matmul_plain(x, w, layer, out_dtype=f32)
         tol = (TOL_K1 if m <= 16 and style == "auto" else TOL_K2) * ref.abs().max().item()
         err = (got - ref).abs().max().item()
+        exact = ""
+        if m <= 16 and style == "auto":  # K1 also against its own arithmetic
+            e2, t2 = exact_check("q40_decode", got, x, w, layer, f"q40 edge m={m} k={k} n={n}")
+            exact = f", exact-code err {e2:.3e} <= {t2:.3e}"
         print(f"  edge q40 m={m} k={k} n={n}{'' if stacked else ' 2-D'}"
-              f"{' deq' if style == 'deq' else ''}: err {err:.3e} <= tol {tol:.3e}", flush=True)
+              f"{' deq' if style == 'deq' else ''}: err {err:.3e} <= tol {tol:.3e}{exact}",
+              flush=True)
         if not err <= tol:
             fail(f"q40 edge m={m} k={k} n={n}: max error {err} over {tol}")
     for b, t, hq, hkv, hd, s, pos, dt in (
@@ -646,6 +688,39 @@ def phase_edges(device) -> None:
         if not (same and err <= TOL_K9):
             fail(f"{tag}: pools equal {same}, max error {err} (tol {TOL_K9})")
     edges_slice3(device)
+    edges_decode(device)
+
+
+def edges_decode(device) -> None:
+    """Untimed edges of the decode body shared by K1 and K5: each row of an
+    m-row call (m = 2, 8, 9, 16) bit-equal to that row computed alone, at
+    the w1 and wk shapes (a verify row summed like a decode row); m = 0; the
+    bf16 output equal to the f32 output rounded."""
+    import torch
+
+    from dllama_tpu_torch.ops import q40_matmul as q40
+    from dllama_tpu_torch.ops import q80_matmul as q80
+
+    gen = torch.Generator(device=device).manual_seed(10)
+    f32 = torch.float32
+    for fmt, fn, rand in (("q40", q40.q40_matmul, random_q40), ("q80", q80.q80_matmul, random_q80)):
+        for name, k, n in (("w1", 4096, 14336), ("wk", 4096, 1024)):
+            w = rand(gen, (2,), k, n, device)
+            x = torch.randn((16, k), generator=gen, device=device).to(torch.bfloat16)
+            alone = torch.cat([fn(x[r : r + 1], w, 1, out_dtype=f32) for r in range(16)])
+            for m in (2, 8, 9, 16):
+                same = torch.equal(fn(x[:m], w, 1, out_dtype=f32), alone[:m])
+                print(f"  edge {fmt}_decode {name} m={m}: every row bit-equal to the row alone: "
+                      f"{same}", flush=True)
+                if not same:
+                    fail(f"{fmt}_decode {name} m={m}: a row depends on the other rows")
+            bf = fn(x[:9], w, 1)
+            empty = fn(x[:0], w, 1, out_dtype=f32)
+            torch.cuda.synchronize()
+            if not (torch.equal(bf, alone[:9].to(torch.bfloat16)) and empty.shape == (0, n)):
+                fail(f"{fmt}_decode {name}: bf16 output is not the f32 one rounded, or m = 0 "
+                     f"gave {tuple(empty.shape)}")
+            del w
 
 
 def edges_slice3(device) -> None:
@@ -681,8 +756,12 @@ def edges_slice3(device) -> None:
             fail(f"q80 edge m={m}: {kernel} was not the kernel launched")
         tol = (TOL_K1 if m <= 16 else TOL_K2) * ref.abs().max().item()
         err = (got - ref).abs().max().item()
+        exact = ""
+        if m <= 16:  # K5 also against its own arithmetic
+            e2, t2 = exact_check("q80_decode", got, x, w, layer, f"q80 edge m={m} k={k} n={n}")
+            exact = f", exact-code err {e2:.3e} <= {t2:.3e}"
         print(f"  edge q80 m={m} k={k} n={n}{'' if stacked else ' 2-D'} ({kernel}): "
-              f"err {err:.3e} <= tol {tol:.3e}", flush=True)
+              f"err {err:.3e} <= tol {tol:.3e}{exact}", flush=True)
         if not err <= tol:
             fail(f"q80 edge m={m} k={k} n={n}: max error {err} over {tol}")
     wide = random_q80(gen, (), 4096, 14336, device)
@@ -871,6 +950,9 @@ def kbench_shape_checks() -> None:
                     got = q40.q40_matmul(x, w, out_dtype=f32)
                 ref = q40.STYLE_PLAIN.get(style, q40.q40_matmul_plain)(x, w, out_dtype=f32)
                 check(f"{what} ({style})", got, ref, style_tol(style))
+                if style == "blockdot":  # K1 also against its own arithmetic
+                    check(f"{what} (blockdot, exact codes)", got,
+                          exact_plain("q40_decode")(x, w, None, out_dtype=f32), TOL_K34)
             elif v == "B":
                 s32 = w.scales.to(f32)
                 check(what, kbench.fma_f32(x, w.packed, s32),
@@ -881,14 +963,18 @@ def kbench_shape_checks() -> None:
                 del wb
             elif v == "Q8":
                 w8 = kbench.make_q80(k, n)
-                check(what, q80.q80_matmul(x, w8, out_dtype=f32),
-                      q80.q80_matmul_plain(x, w8, out_dtype=f32),
+                got = q80.q80_matmul(x, w8, out_dtype=f32)
+                check(what, got, q80.q80_matmul_plain(x, w8, out_dtype=f32),
                       TOL_K1 if m <= q80.DECODE_MAX_M else TOL_K2)
+                if m <= q80.DECODE_MAX_M:  # K5 also against its own arithmetic
+                    check(f"{what} (exact codes)", got,
+                          exact_plain("q80_decode")(x, w8, None, out_dtype=f32), TOL_K34)
                 del w8
         del w, x
     w, x, _ = kbench.make_inputs(8, "w1")
     k, n = kbench.SHAPES["w1"]
     ref = q40.q40_matmul_plain(x, w, out_dtype=f32)
+    exact = exact_plain("q40_decode")(x, w, None, out_dtype=f32)
     for tk in kbench.SWEEP_TK:
         for tn in kbench.SWEEP_TN:
             if k % tk or n % tn:
@@ -896,6 +982,7 @@ def kbench_shape_checks() -> None:
             with q40.forced_style("blockdot", tk, tn):
                 got = q40.q40_matmul(x, w, out_dtype=f32)
             check(f"tile sweep m=8 w1 tk={tk} tn={tn}", got, ref, TOL_K1)
+            check(f"tile sweep m=8 w1 tk={tk} tn={tn} (exact codes)", got, exact, TOL_K34)
     for section, label, q, kc, vc, pos in kbench.flash_inputs():
         got = flash_gqa_attention(q, kc, vc, pos, out_dtype=f32)
         ref = gqa_attention(q.float(), kc.float(), vc.float(), pos)
@@ -944,8 +1031,10 @@ def edges_slice4(device) -> None:
         applied = q40.blockdot_tiles(4096, 14336, tk, tn)
         err, tol = (got - ref).abs().max().item(), TOL_K1 * ref.abs().max().item()
         same = torch.equal(got, default)
+        e2, t2 = exact_check("q40_decode", got, x, w, 1, f"K1 tile override {tk}/{tn}")
         print(f"  edge BLOCKDOT_TK/TN={tk}/{tn} -> {applied}: err {err:.3e} <= tol {tol:.3e}, "
-              f"bit-equal to the default launch {same}", flush=True)
+              f"exact-code err {e2:.3e} <= {t2:.3e}, bit-equal to the default launch {same}",
+              flush=True)
         if q40.LAUNCHES["q40_decode"] != before + 1 or not err <= tol or (
                 applied == (None, None) and not same):
             fail(f"K1 tile override {tk}/{tn}: launches, error {err} (tol {tol}) or fallback")
@@ -1227,20 +1316,46 @@ def phase_profile(loaded, prompt_tokens: list[int], steps: int = 8) -> dict:
         eng.decode_sample_n([[tok]], steps, Sampler(0.0, 0.9, 0))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    from torch.autograd import DeviceType
-
-    by_name: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:  # kernels, memcpys, memsets on the card
-            agg = by_name.setdefault(e.name, [0.0, 0])
-            agg[0] += e.time_range.elapsed_us()
-            agg[1] += 1
+    by_name = device_ops(prof)
     rows = sorted(((us, name, n) for name, (us, n) in by_name.items()), reverse=True)
     device_s = sum(r[0] for r in rows) / 1e6
     return {"steps": steps, "wall_ms_per_token": wall / steps * 1e3,
             "device_ms_per_token": device_s / steps * 1e3,
             "device_busy_share": device_s / wall if wall else None,
+            **decode_split(by_name, steps),
             "top": [(k[:60], c, round(us / steps / 1e3, 4)) for us, k, c in rows[:10]]}
+
+
+#: kernel-name fragments of K1 in the profiler (this tree's decode body over
+#: the Q40 policy, and the name of the earlier kernel) and of the split-k
+#: second pass that K1 and K5 no longer launch
+K1_NAMES = ("Q40Codes", "q40_decode_kernel")
+SPLITK_NAME = "splitk_reduce"
+
+
+def device_ops(prof) -> dict:
+    """{name: [device us, count]} of the operations on the card (kernels,
+    memcpys, memsets) in a torch.profiler run."""
+    from torch.autograd import DeviceType
+
+    by_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            agg = by_name.setdefault(e.name, [0.0, 0])
+            agg[0] += e.time_range.elapsed_us()
+            agg[1] += 1
+    return by_name
+
+
+def decode_split(by_name: dict, steps: int) -> dict:
+    """Device operations, K1's device ms and split-k second passes, each
+    per decode step (a token of one stream, or one batched step)."""
+    k1 = [v for name, v in by_name.items() if any(f in name for f in K1_NAMES)]
+    return {"device_ops_per_step": sum(v[1] for v in by_name.values()) / steps,
+            "k1_ms_per_step": sum(v[0] for v in k1) / steps / 1e3,
+            "k1_launches_per_step": sum(v[1] for v in k1) / steps,
+            "splitk_reduce_per_step": sum(v[1] for name, v in by_name.items()
+                                          if SPLITK_NAME in name) / steps}
 
 
 # ------------------------------------------------------------ phase 4
@@ -1465,7 +1580,6 @@ def phase_profile_batch(loaded, n_slots: int = 8, steps: int = 8) -> dict:
     """torch.profiler over one n_slots-slot decode chunk of `steps` tokens
     on a paged BatchEngine, every slot live after a prefill."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from dllama_tpu_torch.engine.batch import BatchEngine
@@ -1487,20 +1601,18 @@ def phase_profile_batch(loaded, n_slots: int = 8, steps: int = 8) -> dict:
         be.decode(steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_name: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    device_us = sum(by_name.values())
+    by_name = device_ops(prof)
+    device_us = sum(v[0] for v in by_name.values())
     del be
     torch.cuda.empty_cache()
-    top = sorted(((us, name) for name, us in by_name.items()), reverse=True)[:6]
+    top = sorted(((v[0], name) for name, v in by_name.items()), reverse=True)[:6]
     return {"slots": n_slots, "steps": steps, "wall_ms_per_step": wall / steps * 1e3,
             "device_ms_per_step": device_us / steps / 1e3,
             "device_busy_share": device_us / 1e6 / wall if wall else None,
             "agg_tok_s": n_slots * steps / wall,
             "unprofiled_ms_per_step": bare / steps * 1e3,
             "unprofiled_agg_tok_s": n_slots * steps / bare,
+            **decode_split(by_name, steps),
             "top": [(name[:60], round(us / steps / 1e3, 4)) for us, name in top]}
 
 
@@ -1961,7 +2073,10 @@ def main(argv=None) -> int:
             prof = phase_profile(loaded, loaded.tokenizer.encode(prompt))
             print(f"profile: {prof['wall_ms_per_token']:.3f} ms/token wall, "
                   f"{prof['device_ms_per_token']:.3f} ms/token device time, busy share "
-                  f"{prof['device_busy_share']}", flush=True)
+                  f"{prof['device_busy_share']}; {prof['device_ops_per_step']:.1f} device ops, "
+                  f"K1 {prof['k1_ms_per_step']:.3f} ms in {prof['k1_launches_per_step']:.1f} "
+                  f"launches, {prof['splitk_reduce_per_step']:.1f} splitk_reduce a token",
+                  flush=True)
             for key, count, ms in prof["top"]:
                 print(f"  {ms:9.4f} ms/token  x{count:<6d} {key}")
             bprof = phase_profile_batch(loaded)
@@ -1969,9 +2084,19 @@ def main(argv=None) -> int:
                   f"wall, {bprof['device_ms_per_step']:.3f} ms/step device time, busy share "
                   f"{bprof['device_busy_share']}, {bprof['agg_tok_s']:.1f} tok/s; without the "
                   f"profiler {bprof['unprofiled_ms_per_step']:.3f} ms/step, "
-                  f"{bprof['unprofiled_agg_tok_s']:.1f} tok/s", flush=True)
+                  f"{bprof['unprofiled_agg_tok_s']:.1f} tok/s; {bprof['device_ops_per_step']:.1f} "
+                  f"device ops, K1 {bprof['k1_ms_per_step']:.3f} ms in "
+                  f"{bprof['k1_launches_per_step']:.1f} launches, "
+                  f"{bprof['splitk_reduce_per_step']:.1f} splitk_reduce a step", flush=True)
             for key, ms in bprof["top"]:
                 print(f"  {ms:9.4f} ms/step  {key}")
+            from dllama_tpu_torch.ops import q40_matmul
+
+            # the decode body makes one launch a call (an earlier checkout of the
+            # package, timed with this script for comparison, still has a second pass)
+            if hasattr(q40_matmul, "decode_geometry") and (
+                    prof["splitk_reduce_per_step"] or bprof["splitk_reduce_per_step"]):
+                fail("profile: splitk_reduce ran on the Q40 decode path")
 
         if "batch" in phases:
             batch = phase_batch(loaded)

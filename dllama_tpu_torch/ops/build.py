@@ -28,11 +28,11 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 #: Every pointer and the stream are c_void_p; every entry returns the CUDA
 #: error state after its launches as an int (0 = success).
 SIGNATURES = {
-    "q40_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "q40_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "q40_prefill": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "q40_maskdot": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "q40_loopdot": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "q80_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "q80_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "q80_prefill": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "rms_norm": (_P, _P, _P, _I, _I, _LL, _F, _I, _P),
     "flash_attention": (_P, _P, _P, _P, _P, _P, _P,

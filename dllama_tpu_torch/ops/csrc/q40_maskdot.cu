@@ -14,7 +14,7 @@
 //    block's partial dot y_b;
 //  * then acc += s_b * y_b in f32, with the f16 scale widened exactly, as
 //    blockdot applies the scale to the partial;
-//  * k is split across blocks by K1's rule (ops.q40_matmul.decode_splits)
+//  * k is split across blocks by ops.q40_matmul.maskdot_splits
 //    and the f32 partials are summed by a second pass in split order: no
 //    float atomics, so greedy output repeats from run to run.
 //

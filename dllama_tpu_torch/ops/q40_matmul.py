@@ -8,11 +8,13 @@ number of rows, with the JAX package's rule (``auto`` splits decode from
 prefill at 16 rows as on the TPU; a forced decode style applies only to
 decode-shaped calls):
 
-* ``blockdot`` — ``csrc/q40_decode.cu`` (K1): exact codes, per-block
-  partial dots scaled in f32, split-k with a fixed-order reduction
-  (replaces ``dllama_tpu/ops/pallas/q40_matmul.py:_blockdot_kernel``);
-  ``BLOCKDOT_TK`` / ``BLOCKDOT_TN`` override its k rows per split and its
-  columns per block (:func:`blockdot_tiles`);
+* ``blockdot`` — ``csrc/q40_decode.cu`` (K1, the body ``csrc/decode.cuh``
+  shared with K5): exact codes on the tensor cores, per-block partial dots
+  scaled in f32, split-k summed in split order inside the one launch
+  (replaces ``dllama_tpu/ops/pallas/q40_matmul.py:_blockdot_kernel``); its
+  geometry is :func:`decode_geometry`, and ``BLOCKDOT_TK`` /
+  ``BLOCKDOT_TN`` override its k rows per split and its columns per block
+  (:func:`blockdot_tiles`);
 * ``maskdot`` — ``csrc/q40_maskdot.cu`` (K3): blockdot's math on the
   tensor cores, ``mma.sync`` per 32-row block (replaces ``_maskdot_kernel``);
 * ``loopdot`` — ``csrc/q40_loopdot.cu`` (K4): blockdot's math on the CUDA
@@ -41,6 +43,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -49,10 +52,17 @@ from dllama_tpu_torch.ops.quant import Q_BLOCK, QTensor
 
 #: widest row count the decode kernel takes (the TPU's blockdot split)
 DECODE_MAX_M = 16
-#: decode-kernel blocks (64 threads each) to aim for on every SM
-DECODE_BLOCKS_PER_SM = 16
-#: fewest 32-row blocks of k one decode split walks
-DECODE_MIN_BLOCKS_PER_SPLIT = 4
+#: column tiles of the decode body (csrc/decode.cuh: 16 I columns a warp,
+#: I = 8, 4, 2), widest first; a column's sum does not depend on its tile
+DECODE_COLS = (128, 64, 32)
+#: decode blocks (4 warps each) K1 keeps to on every SM: more splits would
+#: shorten each warp's run of k
+DECODE_BLOCKS_PER_SM = 2
+#: fewest 32-row blocks of k one decode split walks (two slots of the ring)
+DECODE_MIN_BLOCKS_PER_SPLIT = 8
+#: most splits of a decode launch (csrc/decode.cuh kMaxSplits: the last block
+#: of a column tile reads every split's partial at once)
+DECODE_MAX_SPLITS = 8
 #: the prefill kernel's tile (csrc/q40_prefill.cu BM, BM_SMALL, BN, BK):
 #: output rows per block where m >= PREFILL_TILE_M (else
 #: PREFILL_TILE_M_SMALL), output columns per block, input dims per step
@@ -73,11 +83,15 @@ STYLE = "auto"
 #: and output columns per block; see blockdot_tiles for when they apply
 BLOCKDOT_TK: int | None = None
 BLOCKDOT_TN: int | None = None
-#: columns per block that K1 is compiled for (256 is the default)
+#: columns per block that BLOCKDOT_TN may set (K1 is compiled for them: one,
+#: two or four 128-column warps side by side)
 DECODE_TILES_N = (128, 256, 512)
-DECODE_COLS = 256
 #: columns per block of K3 (csrc/q40_maskdot.cu: 4 warps of 32 columns)
 MASKDOT_COLS = 128
+#: K3's blocks (128 threads) to aim for on every SM, and the fewest 32-row
+#: blocks of k one of its splits walks
+MASKDOT_BLOCKS_PER_SM = 16
+MASKDOT_MIN_BLOCKS_PER_SPLIT = 4
 
 #: kernel launches made through the wrappers (plain ints; reset by callers
 #: that want to see which kernels a run went through)
@@ -191,23 +205,84 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def decode_splits(k: int, n: int, sms: int, cols: int = DECODE_COLS,
-                  tk: int | None = None) -> tuple[int, int]:
-    """(splits, 32-row blocks per split) of the decode kernels' split-k (K1
-    with `cols` columns per block, K3): about DECODE_BLOCKS_PER_SM blocks on
-    every SM — enough loads in flight to cover the memory latency — each
-    split a whole number of 32-row blocks, at least
-    DECODE_MIN_BLOCKS_PER_SPLIT of them (the fixed-order reduction reads
-    every split's partial row). `tk`, a divisor of k, fixes the k rows per
-    split instead (BLOCKDOT_TK)."""
+def maskdot_splits(k: int, n: int, sms: int) -> tuple[int, int]:
+    """(splits, 32-row blocks per split) of K3's split-k, MASKDOT_COLS columns
+    a block: about MASKDOT_BLOCKS_PER_SM blocks on every SM — enough loads
+    in flight to cover the memory latency — each split a whole number of
+    32-row blocks, at least MASKDOT_MIN_BLOCKS_PER_SPLIT of them (its
+    fixed-order second pass reads every split's partial row)."""
     nkb = k // Q_BLOCK
-    if tk:
-        return nkb // (tk // Q_BLOCK), tk // Q_BLOCK
-    col_blocks = -(-n // cols)
-    splits = min(max(1, nkb // DECODE_MIN_BLOCKS_PER_SPLIT),
-                 max(1, math.ceil(DECODE_BLOCKS_PER_SM * sms / col_blocks)))
+    col_blocks = -(-n // MASKDOT_COLS)
+    splits = min(max(1, nkb // MASKDOT_MIN_BLOCKS_PER_SPLIT),
+                 max(1, math.ceil(MASKDOT_BLOCKS_PER_SM * sms / col_blocks)))
     per = -(-nkb // splits)
     return -(-nkb // per), per
+
+
+class DecodeGeometry(NamedTuple):
+    """A launch of the decode body (K1, K5): grid (ceil(n / cols), splits),
+    each split walking kb_per_split 32-row blocks of k. No thread-block
+    cluster: the splits meet through counters in one launch."""
+
+    splits: int
+    kb_per_split: int
+    cols: int
+
+
+def decode_cols(n: int, splits: int, sms: int) -> int:
+    """The widest column tile of DECODE_COLS whose blocks, at `splits` splits,
+    give every SM one (else the narrowest)."""
+    return next((c for c in DECODE_COLS if -(-n // c) * splits >= sms), DECODE_COLS[-1])
+
+
+@functools.lru_cache(maxsize=None)
+def decode_geometry(k: int, n: int, sms: int, tk: int | None = None,
+                    tn: int | None = None) -> DecodeGeometry:
+    """K1's launch for a [k, n] weight, whatever m is: the widest column tile
+    that fills the card at the most splits allowed (DECODE_MAX_SPLITS, each of
+    at least DECODE_MIN_BLOCKS_PER_SPLIT blocks of k), then the most splits
+    that keep to DECODE_BLOCKS_PER_SM blocks an SM (one split where the
+    column tiles alone pass that), so that wide weights walk long runs of k
+    and narrow ones (wk/wv) still reach every SM. BLOCKDOT_TK (`tk`, a
+    divisor of k) fixes the k rows per split, raised to k / DECODE_MAX_SPLITS
+    where it would make more splits than that; BLOCKDOT_TN (`tn`) fixes the
+    columns per block."""
+    nkb = k // Q_BLOCK
+    most = min(DECODE_MAX_SPLITS, max(1, nkb // DECODE_MIN_BLOCKS_PER_SPLIT))
+    cols = tn or decode_cols(n, most, sms)
+    if tk:
+        per = max(tk // Q_BLOCK, -(-nkb // DECODE_MAX_SPLITS))
+    else:
+        per = -(-nkb // max(1, min(most, DECODE_BLOCKS_PER_SM * sms // -(-n // cols))))
+    return DecodeGeometry(-(-nkb // per), per, cols)
+
+
+#: the decode body's split-k scratch on each (device, stream): f32 partials
+#: and the column tiles' arrival counters (0 between launches: the last block
+#: of a tile sets its counter back)
+_DECODE_SCRATCH: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def decode_launch(name: str, x2: torch.Tensor, weight: torch.Tensor, scales: torch.Tensor,
+                  out: torch.Tensor, geo: DecodeGeometry) -> None:
+    """Launch the decode body `name` (q40_decode, q80_decode) on x2 [m, k]."""
+    m, k = x2.shape
+    n = weight.shape[1]
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    partial = counters = None
+    if geo.splits > 1:
+        key = (x2.device.index or 0, stream)
+        part, count = _DECODE_SCRATCH.get(key, (None, None))
+        if part is None or part.numel() < geo.splits * m * n:
+            part = torch.empty(geo.splits * m * n, dtype=torch.float32, device=x2.device)
+        if count is None or count.numel() < -(-n // geo.cols):
+            count = torch.zeros(-(-n // geo.cols), dtype=torch.int32, device=x2.device)
+        _DECODE_SCRATCH[key] = part, count
+        partial, counters = part.data_ptr(), count.data_ptr()
+    err = getattr(build.library(name), name)(
+        x2.data_ptr(), weight.data_ptr(), scales.data_ptr(), partial, counters, out.data_ptr(),
+        m, k, n, geo.splits, geo.kb_per_split, int(out.dtype == torch.float32), geo.cols, stream)
+    build.check(name, err)
 
 
 def prefill_tile_m(m: int) -> int:
@@ -249,7 +324,8 @@ def _check_cuda(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> 
 
 def _split_k_launch(name: str, x2, packed, scales, out, out_f32: int, splits: int, per: int,
                     *extra) -> None:
-    """Launch a split-k kernel (K1, K2, K3) with its f32 partials."""
+    """Launch a split-k kernel with a second pass (K2, K3) and its f32
+    partials."""
     m, k = x2.shape
     n = packed.shape[1]
     partial = (torch.empty((splits, m, n), dtype=torch.float32, device=x2.device)
@@ -287,12 +363,11 @@ def q40_matmul(x: torch.Tensor, w: QTensor, layer=None, out_dtype=None) -> torch
         return out.reshape(*lead, n)
     sms = _sm_count(x.device.index or 0)
     if style == "blockdot":
-        tk, tn = blockdot_tiles(k, n, BLOCKDOT_TK, BLOCKDOT_TN)
-        cols = tn or DECODE_COLS
-        splits, per = decode_splits(k, n, sms, cols, tk)
-        _split_k_launch("q40_decode", x2, packed, scales, out, out_f32, splits, per, cols)
+        geo = decode_geometry(k, n, sms, *blockdot_tiles(k, n, BLOCKDOT_TK, BLOCKDOT_TN))
+        decode_launch("q40_decode", x2, packed, scales, out, geo)
+        LAUNCHES["q40_decode"] += 1
     elif style == "maskdot":
-        splits, per = decode_splits(k, n, sms, MASKDOT_COLS)
+        splits, per = maskdot_splits(k, n, sms)
         _split_k_launch("q40_maskdot", x2, packed, scales, out, out_f32, splits, per)
     elif style == "loopdot":
         err = build.library("q40_loopdot").q40_loopdot(

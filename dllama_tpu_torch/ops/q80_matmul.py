@@ -1,4 +1,4 @@
-"""Q80 matmul: the CUDA kernels' wrappers and their plain version.
+"""Q80 matmul: the CUDA kernels' wrappers and their plain versions.
 
 ``q80_matmul(x, w, layer)`` computes ``x @ w[layer]`` for a Q80 weight in
 the device layout of :class:`~dllama_tpu_torch.ops.quant.Q8Tensor` (int8
@@ -7,38 +7,53 @@ codes ``[(L,) k, n]``, f16 scales ``[(L,) k/32, n]``) and returns
 number of rows as on the TPU (JAX splits on the row count padded to 8, which
 gives the same cut):
 
-* ``csrc/q80_decode.cu`` for m <= 16 (decode): exact int8 codes, per-block
-  partial dots scaled in f32, split-k with a fixed-order reduction
+* ``csrc/q80_decode.cu`` for m <= 16 (decode; the body ``csrc/decode.cuh``
+  shared with K1): exact int8 codes on the tensor cores, per-block partial
+  dots scaled in f32, split-k summed in split order inside the one launch
   (replaces ``dllama_tpu/ops/pallas/q80_matmul.py:_blockdot_kernel``);
 * ``csrc/q80_prefill.cu`` for m > 16 (prefill chunks): x and raw Q80 tiles
   through a TMA ring, dequantized to bf16 in shared memory with the plain
   version's rounding, wgmma products with f32 accumulation in runs of
   PREFILL_RUN_STEPS steps (replaces ``_deq_kernel``).
 
-The decode kernel shares K1's 256 columns per block; the prefill kernel
-tiles the output in PREFILL_TILE_M (or PREFILL_TILE_M_SMALL) x
-PREFILL_TILE_N blocks with a 64-row k step. Neither shares the Q40 kernels'
-split-k rule: where a split starts depends on k alone (:func:`decode_splits`,
-:func:`prefill_splits`), so every output column is summed in the same order
-whatever n is, and fused wqkv/w13 weights (``--fuse-weights``) give the
-bit-equal columns of their parts. A stacked ``[L, k, n]`` weight is
-addressed by the free view ``codes[layer]``.
+The decode kernel takes K1's column tiles (32, 64 or 128 columns a block,
+by n); the prefill kernel tiles the output in PREFILL_TILE_M (or
+PREFILL_TILE_M_SMALL) x PREFILL_TILE_N blocks with a 64-row k step. Neither
+shares K1's split-k rule: where a split starts depends on k alone
+(:func:`decode_geometry`, :func:`prefill_splits`), so every output column is
+summed in the same order whatever n is, and fused wqkv/w13 weights
+(``--fuse-weights``) give the bit-equal columns of their parts. A stacked
+``[L, k, n]`` weight is addressed by the free view ``codes[layer]``.
 
 On a CPU tensor the wrapper runs :func:`q80_matmul_plain`, the JAX XLA
 path's arithmetic: dequantize to f32, cast to the activation dtype, f32 dot,
 cast back. A CUDA tensor never reaches it through the wrapper.
+:func:`q80_blockdot_plain` is the decode kernel's own arithmetic (exact-code
+partials per 32-row block, scaled and summed in f32), which the card holds
+it against as well.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from dllama_tpu_torch.ops import build
-from dllama_tpu_torch.ops.q40_matmul import DECODE_MAX_M, _sm_count
+from dllama_tpu_torch.ops.q40_matmul import (
+    DECODE_MAX_M,
+    DECODE_MIN_BLOCKS_PER_SPLIT,
+    DecodeGeometry,
+    _sm_count,
+    decode_cols,
+    decode_launch,
+)
 from dllama_tpu_torch.ops.quant import Q_BLOCK, Q8Tensor
 
-#: 32-row blocks of k per decode split: every run of 4 is its own split
-DECODE_BLOCKS_PER_SPLIT = 4
+#: splits the decode kernel cuts every k into (fewer where a split would walk
+#: under DECODE_MIN_BLOCKS_PER_SPLIT blocks): the fewest that still give
+#: narrow n (wk/wv, 1024 columns at 32 a block) a block on each of 132 SMs
+DECODE_SPLITS = 5
 #: 64-row steps the prefill kernel sums from zero before adding them to its
 #: total (csrc/q80_prefill.cu kRunSteps): the unit of its split-k
 PREFILL_RUN_STEPS = 8
@@ -75,12 +90,30 @@ def q80_matmul_plain(x: torch.Tensor, w: Q8Tensor, layer=None, out_dtype=None) -
     return out.to(out_dtype or x.dtype)
 
 
-def decode_splits(k: int) -> tuple[int, int]:
-    """(splits, 32-row blocks per split) of the decode kernel: one split per
-    DECODE_BLOCKS_PER_SPLIT blocks, whatever n is (wq/wk at k = 4096: 32
-    splits, enough blocks in flight for the narrowest n)."""
+def q80_blockdot_plain(x: torch.Tensor, w: Q8Tensor, layer=None, out_dtype=None) -> torch.Tensor:
+    """Plain version of the decode kernel's arithmetic (the TPU blockdot's):
+    every block's partial dot ``y_b = x_b @ codes_b`` of exact int8 codes in
+    f32, then ``sum_b s_b * y_b`` with the f16 scales widened to f32; cast to
+    ``out_dtype`` (default ``x.dtype``)."""
+    codes, scales = _layer_view(w, layer)
+    nb, n = scales.shape
+    *lead, k = x.shape
+    xb = x.reshape(-1, nb, Q_BLOCK).to(torch.float32).transpose(0, 1)  # [nb, m, 32]
+    y = torch.bmm(xb, codes.reshape(nb, Q_BLOCK, n).to(torch.float32))  # [nb, m, n]
+    out = (y * scales.to(torch.float32)[:, None, :]).sum(dim=0)
+    return out.reshape(*lead, n).to(out_dtype or x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def decode_geometry(k: int, n: int, sms: int) -> DecodeGeometry:
+    """The decode kernel's launch for a [k, n] weight, whatever m is: its
+    split boundaries follow k alone (DECODE_SPLITS splits of at least
+    DECODE_MIN_BLOCKS_PER_SPLIT 32-row blocks), so a column's sum has the
+    same order in any weight; the column tile (decode_cols) follows n."""
     nkb = k // Q_BLOCK
-    return -(-nkb // DECODE_BLOCKS_PER_SPLIT), DECODE_BLOCKS_PER_SPLIT
+    per = max(DECODE_MIN_BLOCKS_PER_SPLIT, -(-nkb // DECODE_SPLITS))
+    splits = -(-nkb // per)
+    return DecodeGeometry(splits, per, decode_cols(n, splits, sms))
 
 
 def prefill_tile_m(m: int, n: int, sms: int) -> int:
@@ -143,19 +176,19 @@ def q80_matmul(x: torch.Tensor, w: Q8Tensor, layer=None, out_dtype=None) -> torc
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0:
         return out.reshape(*lead, n)
+    sms = _sm_count(x.device.index or 0)
     if m <= DECODE_MAX_M:
-        name, (splits, per), extra = "q80_decode", decode_splits(k), ()
-    else:
-        sms = _sm_count(x.device.index or 0)
-        name, (splits, per) = "q80_prefill", prefill_splits(m, k, n, sms)
-        extra = (prefill_tile_m(m, n, sms),)
+        decode_launch("q80_decode", x2, codes, scales, out, decode_geometry(k, n, sms))
+        LAUNCHES["q80_decode"] += 1
+        return out.reshape(*lead, n)
+    splits, per = prefill_splits(m, k, n, sms)
     partial = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
                if splits > 1 else None)
-    err = getattr(build.library(name), name)(
+    err = build.library("q80_prefill").q80_prefill(
         x2.data_ptr(), codes.data_ptr(), scales.data_ptr(),
         partial.data_ptr() if partial is not None else None, out.data_ptr(),
-        m, k, n, splits, per, int(out_dtype == torch.float32), *extra,
+        m, k, n, splits, per, int(out_dtype == torch.float32), prefill_tile_m(m, n, sms),
         torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(name, err)
-    LAUNCHES[name] += 1
+    build.check("q80_prefill", err)
+    LAUNCHES["q80_prefill"] += 1
     return out.reshape(*lead, n)

@@ -13,15 +13,20 @@ import torch
 
 from dllama_tpu_torch.convert import params_from_numpy
 from dllama_tpu_torch.ops.q40_matmul import (
+    DECODE_COLS,
     DECODE_MAX_M,
+    DECODE_MAX_SPLITS,
     LAUNCHES,
+    MASKDOT_COLS,
+    MASKDOT_MIN_BLOCKS_PER_SPLIT,
     PREFILL_BLOCKS_PER_SM,
     PREFILL_MIN_STEPS_PER_SPLIT,
     PREFILL_STEP_K,
     PREFILL_TILE_M,
     PREFILL_TILE_M_SMALL,
     PREFILL_TILE_N,
-    decode_splits,
+    decode_geometry,
+    maskdot_splits,
     prefill_splits,
     prefill_tile_m,
     q40_matmul,
@@ -100,12 +105,23 @@ def test_wrapper_runs_plain_on_cpu_and_refuses_other_devices(weights):
 
 @pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 1024), (14336, 4096), (4096, 128256)])
 def test_decode_split_k_covers_k_once(k, n):
-    splits, per = decode_splits(k, n, sms=132)
+    splits, per, cols = decode_geometry(k, n, sms=132)
     nkb = k // 32
     assert (splits - 1) * per < nkb <= splits * per
-    # a block per SM at least, unless each split is down to 4 blocks of k
-    assert splits == nkb // 4 or -(-n // 256) * splits >= 132
+    # a block per SM at least, in the widest column tile that allows it
+    assert cols in DECODE_COLS and -(-n // cols) * splits >= 132
+    assert cols == DECODE_COLS[0] or -(-n // (2 * cols)) * min(DECODE_MAX_SPLITS, nkb // 8) < 132
+    assert splits <= DECODE_MAX_SPLITS  # the partials the last block reads at once
     assert DECODE_MAX_M == 16
+
+
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 1024), (14336, 4096), (4096, 128256)])
+def test_maskdot_split_k_covers_k_once(k, n):
+    """K3 keeps its own rule: 16 blocks an SM, splits of at least 4 blocks."""
+    splits, per = maskdot_splits(k, n, sms=132)
+    nkb = k // 32
+    assert (splits - 1) * per < nkb <= splits * per
+    assert splits == nkb // MASKDOT_MIN_BLOCKS_PER_SPLIT or -(-n // MASKDOT_COLS) * splits >= 132
 
 
 @pytest.mark.parametrize("m,k,n", [(32, 14336, 4096), (256, 4096, 4096), (256, 4096, 14336),

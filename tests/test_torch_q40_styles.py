@@ -93,7 +93,7 @@ def test_blockdot_tile_overrides_fall_back_as_in_jax(jax_route):
     assert tq.blockdot_tiles(k, n, None, 64) == (None, None)
     assert tq.blockdot_tiles(4096, 128256, 512, 512) == (512, None)  # 128256 % 512 != 0
     # the overrides set K1's k rows per split and columns per block
-    assert tq.decode_splits(4096, 14336, 132, 128, 512) == (8, 16)
+    assert tq.decode_geometry(4096, 14336, 132, 512, 128) == (8, 16, 128)
 
 
 @pytest.mark.parametrize("style", ["maskdot", "loopdot"])

@@ -17,15 +17,16 @@ import pytest
 import torch
 
 from dllama_tpu_torch.convert import params_from_numpy
+from dllama_tpu_torch.ops.q40_matmul import DECODE_MIN_BLOCKS_PER_SPLIT
 from dllama_tpu_torch.ops.q80_matmul import (
-    DECODE_BLOCKS_PER_SPLIT,
+    DECODE_SPLITS,
     LAUNCHES,
     PREFILL_RUN_STEPS,
     PREFILL_STEP_K,
     PREFILL_TILE_M,
     PREFILL_TILE_M_SMALL,
     PREFILL_TILE_N,
-    decode_splits,
+    decode_geometry,
     prefill_splits,
     prefill_tile_m,
     q80_matmul,
@@ -145,11 +146,15 @@ def test_matmul_dispatch_routes_q80(weights):
 
 @pytest.mark.parametrize("k", [256, 4096, 4128, 14336])
 def test_decode_splits_follow_k_alone(k):
-    """Every split is one run of DECODE_BLOCKS_PER_SPLIT 32-row blocks (the
-    last one may be short), so no split boundary depends on n."""
-    splits, per = decode_splits(k)
+    """k is cut into DECODE_SPLITS runs of 32-row blocks (fewer where a run
+    would be under DECODE_MIN_BLOCKS_PER_SPLIT blocks; the last one may be
+    short), and no split boundary depends on n."""
+    splits, per, _ = decode_geometry(k, 1024, 132)
     nkb = k // 32
-    assert per == DECODE_BLOCKS_PER_SPLIT and (splits - 1) * per < nkb <= splits * per
+    assert (splits - 1) * per < nkb <= splits * per
+    assert splits == DECODE_SPLITS or per == DECODE_MIN_BLOCKS_PER_SPLIT or splits == 1
+    for n in (1000, 4096, 14336, 128256):
+        assert decode_geometry(k, n, 132)[:2] == (splits, per)
 
 
 @pytest.mark.parametrize("m,k,n", [(17, 4096, 1024), (32, 4096, 14336), (256, 4096, 1024),
