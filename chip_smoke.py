@@ -55,8 +55,9 @@ Q80 (random weights from a seed), and exits 0 only if every phase passed:
               its kernels K11-B/K11-D launched.
 10. styles    the Q40 8B model with q40_matmul.STYLE at maskdot, loopdot and
               deq: the forward against the plain versions, 32 greedy tokens
-              through the `inference` CLI; decode forwards launch K3 (K4) in
-              every matmul and K1 never, prefill chunks launch K2.
+              through the `inference` CLI (their text printed beside auto's);
+              decode forwards launch K3 (K4) in every matmul and K1 never,
+              prefill chunks launch K2.
 11. spec      `inference --spec 8` on a repetitive prompt (its emitted tokens
               and verify forwards printed; K1 and K7 launched); the greedy ids
               of spec 8 and spec 0 equal, or first differ at a near-tie of the
@@ -66,9 +67,10 @@ Q80 (random weights from a seed), and exits 0 only if every phase passed:
 The kernels phase also holds K1 and K5 (the decode body csrc/decode.cuh)
 against the plain version of their own arithmetic (exact-code partials,
 TOL_K34) besides the bf16-weight plain versions, and each row of an m-row
-call bit-equal to the row alone; K3 (maskdot, tensor cores) and K4 (loopdot,
-CUDA cores) against their plain versions and against K1, and K11-B/K11-D
-against theirs; K1 at 9 rows and K7 at 9 query rows (the spec verify
+call bit-equal to the row alone, for K3 and K4 (the same body in its Maskdot
+and Loopdot styles) too; K3 and K4 against their plain versions and against
+K1, K4 bit-equal under the geometries of 78, 114 and 132 SMs, K3 and K4 one
+device kernel a call under the profiler, and K11-B/K11-D against theirs; K1 at 9 rows and K7 at 9 query rows (the spec verify
 forward); and
 every kernel the kbench phase launches on kbench's own inputs (each variant
 of its suite rows and of `8 w1 B D`, the tile sweep, the flash rows), since
@@ -76,7 +78,8 @@ the benchmark checks no result. `serve`, `batch`, `f8`, `q80`, `kbench`, `styles
 main paths: the launch counters are zeroed just before each of their runs and
 read just after it. Not in the default: `profile` adds a torch.profiler pass
 over one single-stream and one 8-slot decode chunk (device time and
-operations a step, K1's share, and no split-k second pass); `chunk` runs only the
+operations a step, K1's share, and no split-k second pass; then one
+single-stream chunk under STYLE maskdot and loopdot); `chunk` runs only the
 prefill-chunk timings (Q40 dense and paged, then Q80), so that they can be
 taken from another checkout of the package as well.
 
@@ -268,9 +271,10 @@ def random_q80(gen, lead, k, n, device):
 def report(kernel: str, case: dict) -> None:
     exact = (f" exact-code err {case['err_exact']:.3e} <= {case['tol_exact']:.3e}"
              if "err_exact" in case else "")
+    total = f"  sum {case['sum_ms']}" if "sum_ms" in case else ""
     print(f"  {kernel:18s} {case['case']:36s} err {case['max_abs_err']:.3e} <= tol "
           f"{case['tol']:.3e}{exact}  ms {case['ms']}  plain {case['plain_ms']}  lib "
-          f"{case['library_ms']}  bound {case['bound_ms']:.4f} ({case['bound_by']})",
+          f"{case['library_ms']}{total}  bound {case['bound_ms']:.4f} ({case['bound_by']})",
           flush=True)
     if not case["max_abs_err"] <= case["tol"]:
         fail(f"{kernel} {case['case']}: max error {case['max_abs_err']} over {case['tol']}")
@@ -692,7 +696,7 @@ def phase_edges(device) -> None:
 
 
 def edges_decode(device) -> None:
-    """Untimed edges of the decode body shared by K1 and K5: each row of an
+    """Untimed edges of the decode body of K1, K5, K3 and K4: each row of an
     m-row call (m = 2, 8, 9, 16) bit-equal to that row computed alone, at
     the w1 and wk shapes (a verify row summed like a decode row); m = 0; the
     bf16 output equal to the f32 output rounded."""
@@ -701,26 +705,83 @@ def edges_decode(device) -> None:
     from dllama_tpu_torch.ops import q40_matmul as q40
     from dllama_tpu_torch.ops import q80_matmul as q80
 
+    def styled(style):
+        def fn(*args, **kw):
+            with q40.forced_style(style):
+                return q40.q40_matmul(*args, **kw)
+        return fn
+
     gen = torch.Generator(device=device).manual_seed(10)
     f32 = torch.float32
-    for fmt, fn, rand in (("q40", q40.q40_matmul, random_q40), ("q80", q80.q80_matmul, random_q80)):
+    for kernel, fn, rand in (("q40_decode", q40.q40_matmul, random_q40),
+                             ("q80_decode", q80.q80_matmul, random_q80),
+                             ("q40_maskdot", styled("maskdot"), random_q40),
+                             ("q40_loopdot", styled("loopdot"), random_q40)):
         for name, k, n in (("w1", 4096, 14336), ("wk", 4096, 1024)):
             w = rand(gen, (2,), k, n, device)
             x = torch.randn((16, k), generator=gen, device=device).to(torch.bfloat16)
             alone = torch.cat([fn(x[r : r + 1], w, 1, out_dtype=f32) for r in range(16)])
             for m in (2, 8, 9, 16):
                 same = torch.equal(fn(x[:m], w, 1, out_dtype=f32), alone[:m])
-                print(f"  edge {fmt}_decode {name} m={m}: every row bit-equal to the row alone: "
+                print(f"  edge {kernel} {name} m={m}: every row bit-equal to the row alone: "
                       f"{same}", flush=True)
                 if not same:
-                    fail(f"{fmt}_decode {name} m={m}: a row depends on the other rows")
+                    fail(f"{kernel} {name} m={m}: a row depends on the other rows")
             bf = fn(x[:9], w, 1)
             empty = fn(x[:0], w, 1, out_dtype=f32)
             torch.cuda.synchronize()
             if not (torch.equal(bf, alone[:9].to(torch.bfloat16)) and empty.shape == (0, n)):
-                fail(f"{fmt}_decode {name}: bf16 output is not the f32 one rounded, or m = 0 "
+                fail(f"{kernel} {name}: bf16 output is not the f32 one rounded, or m = 0 "
                      f"gave {tuple(empty.shape)}")
             del w
+
+
+def edges_styles(device) -> None:
+    """Untimed edges of K3 and K4 on the decode body: K4's output bit-equal
+    under the geometries loopdot_geometry gives for 78, 114 and 132 SMs (its
+    sum order follows k alone; the column tile may change with the SMs), and
+    each of K3 and K4 one device kernel a call under torch.profiler, at a
+    split launch (wk, w1) and an unsplit one (wcls): no second pass."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dllama_tpu_torch.ops import q40_matmul as q40
+
+    gen = torch.Generator(device=device).manual_seed(12)
+    f32 = torch.float32
+    for k, n in ((4096, 1024), (4096, 14336), (4128, 1000)):
+        w = random_q40(gen, (), k, n, device)
+        x = torch.randn((8, k), generator=gen, device=device).to(torch.bfloat16)
+        with q40.forced_style("loopdot"):
+            want = q40.q40_matmul(x, w, out_dtype=f32)
+        for sms in (78, 114, 132):
+            geo = q40.loopdot_geometry(k, n, sms)
+            got = torch.empty_like(want)
+            q40.decode_launch("q40_loopdot", x, w.packed, w.scales, got, geo)
+            same = torch.equal(got, want)
+            print(f"  edge q40_loopdot k={k} n={n} m=8, the geometry of {sms} SMs "
+                  f"{tuple(geo)}: bit-equal to the wrapper's launch {same}", flush=True)
+            if not same:
+                fail(f"q40_loopdot k={k} n={n}: the geometry of {sms} SMs changed the sums")
+    for style in ("maskdot", "loopdot"):
+        name = STYLE_NAMES[style][0]
+        for k, n in ((4096, 1024), (4096, 14336), (4096, 128256)):
+            w = random_q40(gen, (), k, n, device)
+            x = torch.randn((1, k), generator=gen, device=device).to(torch.bfloat16)
+            with q40.forced_style(style):
+                q40.q40_matmul(x, w)  # the split-k scratch exists after this call
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    q40.q40_matmul(x, w)
+                    torch.cuda.synchronize()
+            ops = device_ops(prof)
+            geo = (q40.loopdot_geometry if style == "loopdot" else q40.decode_geometry)(
+                k, n, q40._sm_count(device.index or 0))
+            print(f"  edge {STYLE_KERNELS[style]} k={k} n={n} m=1 ({geo.splits} splits): "
+                  f"{sum(v[1] for v in ops.values())} device operation(s) a call", flush=True)
+            if len(ops) != 1 or any(v[1] != 1 or name not in op for op, v in ops.items()):
+                fail(f"{STYLE_KERNELS[style]} k={k} n={n}: one call ran {ops}, want one "
+                     f"{name} kernel")
 
 
 def edges_slice3(device) -> None:
@@ -834,8 +895,10 @@ def style_case(style: str, x, w, layer, label: str):
 def style_cases(cfg, device, timer, layer: int = 1) -> dict:
     """K3 (maskdot) and K4 (loopdot) at the 8B decode shapes, m = 1 and 8
     (K3 also 16), each weight stacked [L=2] with layer 1 used: against the
-    plain versions and K1, then timed beside the plain version and
-    torch.matmul on the pre-dequantized bf16 weight."""
+    plain versions and K1, then timed beside the plain version, torch.matmul
+    on the pre-dequantized bf16 weight and a torch.sum over the layer's
+    packed bytes read as f32 (what reading the weight alone takes under this
+    timer)."""
     import torch
 
     from dllama_tpu_torch.ops import q40_matmul as q40
@@ -848,6 +911,7 @@ def style_cases(cfg, device, timer, layer: int = 1) -> dict:
     for name, (k, n) in weights.items():
         w = random_q40(gen, (2,), k, n, device)
         wd = slice_leaf(w, layer).dequantize(torch.bfloat16)
+        sum_ms = timer(lambda: torch.sum(w.packed[layer].view(torch.float32)))
         for style, ms in (("maskdot", (1, 8, 16)), ("loopdot", (1, 8))):
             kernel = STYLE_KERNELS[style]
             plain = q40.STYLE_PLAIN[style]
@@ -865,7 +929,7 @@ def style_cases(cfg, device, timer, layer: int = 1) -> dict:
                             tol=tol, ms=timer(run),
                             plain_ms=timer(lambda x=x: plain(x, w, layer)),
                             library_ms=timer(lambda x=x: torch.matmul(x, wd)),
-                            bound_ms=b, bound_by=by)
+                            sum_ms=sum_ms, bound_ms=b, bound_by=by)
                 report(kernel, case)
                 results[kernel].append(case)
         del w, wd
@@ -1295,10 +1359,11 @@ def report_chunk(label: str, chunk: dict) -> None:
                       f"{c['host_ms']:.1f} ms)" for p, c in chunk.items()), flush=True)
 
 
-def phase_profile(loaded, prompt_tokens: list[int], steps: int = 8) -> dict:
+def phase_profile(loaded, prompt_tokens: list[int], steps: int = 8, names=None) -> dict:
     """torch.profiler over one decode chunk of `steps` tokens after a
-    prefill: wall time, device time summed over kernels, and the kernels
-    that take the most device time."""
+    prefill: wall time, device time summed over kernels, the Q40 decode
+    kernel's share (kernel names with a fragment of `names`, default
+    K1_NAMES), and the kernels that take the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1322,7 +1387,7 @@ def phase_profile(loaded, prompt_tokens: list[int], steps: int = 8) -> dict:
     return {"steps": steps, "wall_ms_per_token": wall / steps * 1e3,
             "device_ms_per_token": device_s / steps * 1e3,
             "device_busy_share": device_s / wall if wall else None,
-            **decode_split(by_name, steps),
+            **decode_split(by_name, steps, names or K1_NAMES),
             "top": [(k[:60], c, round(us / steps / 1e3, 4)) for us, k, c in rows[:10]]}
 
 
@@ -1330,6 +1395,11 @@ def phase_profile(loaded, prompt_tokens: list[int], steps: int = 8) -> dict:
 #: the Q40 policy, and the name of the earlier kernel) and of the split-k
 #: second pass that K1 and K5 no longer launch
 K1_NAMES = ("Q40Codes", "q40_decode_kernel")
+#: the same for K3 and K4 (this tree's decode body over the Q40 policy, whose
+#: name K3 shares with K1, and in the Loopdot walk; the names of the earlier
+#: kernels)
+STYLE_NAMES = {"maskdot": ("Q40Codes", "q40_maskdot_kernel"),
+               "loopdot": ("Loopdot", "q40_loopdot_kernel")}
 SPLITK_NAME = "splitk_reduce"
 
 
@@ -1347,13 +1417,15 @@ def device_ops(prof) -> dict:
     return by_name
 
 
-def decode_split(by_name: dict, steps: int) -> dict:
-    """Device operations, K1's device ms and split-k second passes, each
-    per decode step (a token of one stream, or one batched step)."""
-    k1 = [v for name, v in by_name.items() if any(f in name for f in K1_NAMES)]
+def decode_split(by_name: dict, steps: int, names=K1_NAMES) -> dict:
+    """Device operations, the Q40 decode kernel's device ms and launches
+    (kernel names with a fragment of `names`: K1's by default) and split-k
+    second passes, each per decode step (a token of one stream, or one
+    batched step)."""
+    mm = [v for name, v in by_name.items() if any(f in name for f in names)]
     return {"device_ops_per_step": sum(v[1] for v in by_name.values()) / steps,
-            "k1_ms_per_step": sum(v[0] for v in k1) / steps / 1e3,
-            "k1_launches_per_step": sum(v[1] for v in k1) / steps,
+            "q40_ms_per_step": sum(v[0] for v in mm) / steps / 1e3,
+            "q40_launches_per_step": sum(v[1] for v in mm) / steps,
             "splitk_reduce_per_step": sum(v[1] for name, v in by_name.items()
                                           if SPLITK_NAME in name) / steps}
 
@@ -1838,6 +1910,8 @@ def phase_styles(loaded, device, mpath: str, tpath: str, prompt: str) -> dict:
     per_fwd = 7 * n_layers + 1
     argv = ["inference", "--model", mpath, "--tokenizer", tpath, "--prompt", prompt,
             "--temperature", "0", "--steps", "32", "--max-seq-len", "4096"]
+    rc, auto_text, _ = _cli(argv)
+    print(f"styles auto inference: rc {rc}; text {auto_text[:60]!r}", flush=True)
     out = {}
     for style in ("maskdot", "loopdot", "deq"):
         kernel = STYLE_KERNELS[style]
@@ -1856,8 +1930,8 @@ def phase_styles(loaded, device, mpath: str, tpath: str, prompt: str) -> dict:
             fail(f"styles {style} forward: launches {got}, want {want}")
         cli_l = {k: launches[k] - fwd[k] for k in launches}
         decode = _stat(stats, "Decode:")
-        print(f"styles {style} inference: rc {rc}; {' | '.join(stats)}; text {text[:60]!r}; "
-              f"launches {cli_l}", flush=True)
+        print(f"styles {style} inference: rc {rc}; {' | '.join(stats)}; text {text[:60]!r} "
+              f"(auto's: {text == auto_text}); launches {cli_l}", flush=True)
         others = [k for k in Q40_KERNELS if k not in (kernel, "q40_prefill") and cli_l[k]]
         if rc or decode < 1 or others or cli_l[kernel] < per_fwd * decode or not cli_l["q40_prefill"]:
             fail(f"styles {style} inference: rc {rc}, {decode} decode forwards, launches {cli_l} "
@@ -2032,6 +2106,7 @@ def main(argv=None) -> int:
         kbench_shape_checks()
         phase_edges(device)
         edges_slice4(device)
+        edges_styles(device)
 
     paths: dict[str, dict] = {}  # launch counts of each path, read just after it
     if "kbench" in phases:
@@ -2074,7 +2149,7 @@ def main(argv=None) -> int:
             print(f"profile: {prof['wall_ms_per_token']:.3f} ms/token wall, "
                   f"{prof['device_ms_per_token']:.3f} ms/token device time, busy share "
                   f"{prof['device_busy_share']}; {prof['device_ops_per_step']:.1f} device ops, "
-                  f"K1 {prof['k1_ms_per_step']:.3f} ms in {prof['k1_launches_per_step']:.1f} "
+                  f"K1 {prof['q40_ms_per_step']:.3f} ms in {prof['q40_launches_per_step']:.1f} "
                   f"launches, {prof['splitk_reduce_per_step']:.1f} splitk_reduce a token",
                   flush=True)
             for key, count, ms in prof["top"]:
@@ -2085,8 +2160,8 @@ def main(argv=None) -> int:
                   f"{bprof['device_busy_share']}, {bprof['agg_tok_s']:.1f} tok/s; without the "
                   f"profiler {bprof['unprofiled_ms_per_step']:.3f} ms/step, "
                   f"{bprof['unprofiled_agg_tok_s']:.1f} tok/s; {bprof['device_ops_per_step']:.1f} "
-                  f"device ops, K1 {bprof['k1_ms_per_step']:.3f} ms in "
-                  f"{bprof['k1_launches_per_step']:.1f} launches, "
+                  f"device ops, K1 {bprof['q40_ms_per_step']:.3f} ms in "
+                  f"{bprof['q40_launches_per_step']:.1f} launches, "
                   f"{bprof['splitk_reduce_per_step']:.1f} splitk_reduce a step", flush=True)
             for key, ms in bprof["top"]:
                 print(f"  {ms:9.4f} ms/step  {key}")
@@ -2097,6 +2172,21 @@ def main(argv=None) -> int:
             if hasattr(q40_matmul, "decode_geometry") and (
                     prof["splitk_reduce_per_step"] or bprof["splitk_reduce_per_step"]):
                 fail("profile: splitk_reduce ran on the Q40 decode path")
+            for style, names in STYLE_NAMES.items():  # K3 and K4 in every decode matmul
+                with q40_matmul.forced_style(style):
+                    sp = phase_profile(loaded, loaded.tokenizer.encode(prompt), names=names)
+                print(f"profile STYLE={style}: {sp['wall_ms_per_token']:.3f} ms/token wall, "
+                      f"{sp['device_ms_per_token']:.3f} ms/token device time; "
+                      f"{sp['device_ops_per_step']:.1f} device ops, {STYLE_KERNELS[style]} "
+                      f"{sp['q40_ms_per_step']:.3f} ms in {sp['q40_launches_per_step']:.1f} "
+                      f"launches, {sp['splitk_reduce_per_step']:.1f} splitk_reduce a token",
+                      flush=True)
+                # this tree's K3 and K4 make one launch a call (an earlier checkout
+                # of the package, timed with this script, may not)
+                if hasattr(q40_matmul, "loopdot_geometry") and (
+                        sp["splitk_reduce_per_step"] or not sp["q40_launches_per_step"]):
+                    fail(f"profile STYLE={style}: no {STYLE_KERNELS[style]} launch, or a "
+                         "splitk_reduce pass")
 
         if "batch" in phases:
             batch = phase_batch(loaded)

@@ -1,15 +1,17 @@
-// Decode body shared by q40_decode.cu (K1) and q80_decode.cu (K5): the
-// product out[m, n] = x[m, k] @ W[k, n] for m <= 16, W a block-quantized
-// weight (32-row blocks of k, one f16 scale per block and column). Included
-// by those sources, never built alone. A code-format policy (Q40Codes,
-// Q80Codes) is the template parameter: it says how a block's codes are
-// stored and how a thread turns its bytes into tensor-core fragments.
+// Decode body shared by q40_decode.cu (K1), q80_decode.cu (K5),
+// q40_maskdot.cu (K3) and q40_loopdot.cu (K4): the product out[m, n] = x[m,
+// k] @ W[k, n] for m <= 16, W a block-quantized weight (32-row blocks of k,
+// one f16 scale per block and column). Included by those sources, never
+// built alone. Two template parameters: a code-format policy (Q40Codes,
+// Q80Codes) says how a block's codes are stored and how a thread turns its
+// bytes into tensor-core fragments; a walk (Blockdot, Loopdot) says how a
+// split's blocks of k are dealt to the warps, and so the order of the sums.
 //
 // Semantics (the TPU blockdot's, dllama_tpu/ops/pallas/q40_matmul.py and
-// q80_matmul.py _blockdot_kernel): per 32-row block b of k, the exact
-// integer codes meet x in a partial dot y_b = x_b . codes_b, and the f16
-// scale, widened exactly to f32, multiplies that partial: out = sum_b s_b *
-// y_b in f32.
+// q80_matmul.py _blockdot_kernel, and of its maskdot and loopdot forms): per
+// 32-row block b of k, the exact integer codes meet x in a partial dot y_b =
+// x_b . codes_b, and the f16 scale, widened exactly to f32, multiplies that
+// partial: out = sum_b s_b * y_b in f32.
 //
 // What bounds it on this card: device-memory bytes. A call streams the weight
 // once, 0.5625 bytes a weight in Q40 and 1.0625 in Q80, and does 2m
@@ -56,6 +58,17 @@
 //    a row of an m-row call equals that row computed alone.
 //  * Where the rows cannot be copied in 16-byte pieces (n % 16 != 0, or a
 //    weight not 16-byte aligned), the threads copy bytes into the same slots.
+//
+// The walks (a walk changes the order of the f32 sums, never the function):
+//  * Blockdot (K1, K5, K3): warp wk takes blocks wk, wk + WK, ... of its
+//    split, as above.
+//  * Loopdot (K4; the TPU kernel adds its blocks' scaled partials one plain
+//    dot after another, in ascending k): warp wk of a block walks the wk-th
+//    of WK equal runs of its split, in ascending k, so a column's sum is the
+//    runs' ascending sums added in k order. Its wrapper's split boundaries
+//    follow k alone (ops/q40_matmul.loopdot_geometry), and every column tile
+//    it takes has the same WK, so that order does too: the same bits
+//    whatever n, m, the column tile or the card's SM count.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -222,6 +235,15 @@ struct Q80Codes {
   };
 };
 
+// The walks (see the head of this file): whether a warp walks a contiguous
+// run of its split, or every WK-th block of it.
+struct Blockdot {
+  static constexpr bool kRuns = false;
+};
+struct Loopdot {
+  static constexpr bool kRuns = true;
+};
+
 // The shape of one instantiation: I n16 tiles a warp (16 I columns), WC
 // column groups a block, MT n8 tiles of x rows (M = 8 MT). Each warp owns a
 // ring of kStages slots in shared memory, a slot one 32-row block of its
@@ -251,7 +273,7 @@ __device__ __forceinline__ void store_out(void* out, size_t i, float v, int out_
     static_cast<bf16*>(out)[i] = __float2bfloat16(v);
 }
 
-template <class Codes, int I, int WC, int MT>
+template <class Codes, class Walk, int I, int WC, int MT>
 __global__ void __launch_bounds__(kThreads, MT == 1 ? 3 : 2) decode_kernel(
     const bf16* __restrict__ x, const uint8_t* __restrict__ w,
     const __half* __restrict__ scales, float* __restrict__ partial,
@@ -267,9 +289,14 @@ __global__ void __launch_bounds__(kThreads, MT == 1 ? 3 : 2) decode_kernel(
   const int g = lane >> 2, t = lane & 3;
   const int wc = warp % WC, wk = warp / WC;
   const int col0 = blockIdx.x * BN, wcol = col0 + wc * GC;  // the block's, the warp's
-  const int kb0 = blockIdx.y * kb_per_split + wk;           // this warp's first block
-  const int kb1 = min(k / 32, blockIdx.y * kb_per_split + kb_per_split);
-  const int blocks = kb0 < kb1 ? (kb1 - kb0 + WK - 1) / WK : 0;  // this warp walks
+  // this warp's first block of k, the end of its walk, and the step between
+  // two of its blocks: every WK-th block of the split, or the wk-th run
+  constexpr int KS = Walk::kRuns ? 1 : WK;
+  const int split0 = blockIdx.y * kb_per_split, end = min(k / 32, split0 + kb_per_split);
+  const int run = Walk::kRuns ? ceil_div(kb_per_split, WK) : 1;
+  const int kb0 = split0 + wk * run;
+  const int kb1 = Walk::kRuns ? min(end, kb0 + run) : end;
+  const int blocks = kb0 < kb1 ? (kb1 - kb0 + KS - 1) / KS : 0;  // this warp walks
   uint8_t* ring = smem + warp * S::RING;
 
   // x rows m..M-1 stay zero: the copies write only rows < m (5 pieces of
@@ -283,31 +310,31 @@ __global__ void __launch_bounds__(kThreads, MT == 1 ? 3 : 2) decode_kernel(
   // Copy sources: lane l takes 16-byte piece l + 32 it of a block's weight
   // rows (row l / WCH + it * 32 / WCH, piece l % WCH), scales piece l (l <
   // GC / 8) and x piece l + 32 it (row l / 4 + 8 it, piece l % 4); each
-  // pointer moves by one block of k (WK blocks for this warp) a step.
+  // pointer moves by KS blocks of k a step.
   constexpr int WCH = GC / 16, WROWS = 32 / WCH;  // pieces a weight row, rows a pass
   const int wr = lane / WCH, wch = lane % WCH;
   const bool w_in = wcol + wch * 16 < n;  // n % 16 == 0: a piece is all in or all out
   const bool s_in = lane < GC / 8 && wcol + lane * 8 < n;
-  const size_t wstep = (size_t)WK * ROWS * n, wpass = (size_t)WROWS * n;
+  const size_t wstep = (size_t)KS * ROWS * n, wpass = (size_t)WROWS * n;
   const uint8_t* wsrc = w + ((size_t)kb0 * ROWS + wr) * n + wcol + wch * 16;
   const __half* ssrc = scales + (size_t)kb0 * n + wcol + lane * 8;
   const bf16* xsrc = x + (size_t)(lane / 4) * k + kb0 * 32 + (lane % 4) * 8;
   const int wdst = wr * LDW + wch * 16;
   const int xdst = S::W_BYTES + S::S_BYTES + ((lane / 4) * kXLd + (lane % 4) * 8) * 2;
 
-  // this warp's j-th block of k (kb0 + j WK) into slot j % NS; one commit
+  // this warp's j-th block of k (kb0 + j KS) into slot j % NS; one commit
   // group a block, empty past the last
   auto fill = [&](int j) {
     if (j < blocks) {
       uint8_t* slot = ring + (j % NS) * S::SLOT;
-      const size_t kb = kb0 + j * WK;
+      const size_t kb = kb0 + j * KS;
       if (vec) {
         const uint8_t* src = wsrc + j * wstep;
 #pragma unroll
         for (int it = 0; it < ceil_div(ROWS * WCH, 32); ++it)
           cp_async16(slot + wdst + it * WROWS * LDW, w_in ? src + it * wpass : w, w_in ? 16 : 0);
         if (lane < GC / 8)
-          cp_async16(slot + S::W_BYTES + lane * 16, s_in ? ssrc + j * (size_t)WK * n : scales,
+          cp_async16(slot + S::W_BYTES + lane * 16, s_in ? ssrc + j * (size_t)KS * n : scales,
                      s_in ? 16 : 0);
       } else {  // rows that 16-byte copies cannot describe: bytes, zero past n
         for (int i = lane; i < ROWS * GC; i += 32) {
@@ -321,7 +348,7 @@ __global__ void __launch_bounds__(kThreads, MT == 1 ? 3 : 2) decode_kernel(
 #pragma unroll
       for (int it = 0; it < ceil_div(M * 4, 32); ++it)  // x: 4 pieces a row
         if (lane / 4 + 8 * it < m)
-          cp_async16(slot + xdst + it * 8 * kXLd * 2, xsrc + j * WK * 32 + (size_t)it * 8 * k, 16);
+          cp_async16(slot + xdst + it * 8 * kXLd * 2, xsrc + j * KS * 32 + (size_t)it * 8 * k, 16);
     }
     cp_async_commit();
   };
@@ -423,13 +450,13 @@ __global__ void __launch_bounds__(kThreads, MT == 1 ? 3 : 2) decode_kernel(
   if (tid == 0) counters[blockIdx.x] = 0;  // ready for the next launch
 }
 
-template <class Codes, int I, int WC, int MT>
+template <class Codes, class Walk, int I, int WC, int MT>
 int launch_decode(const void* x, const void* w, const void* scales, void* partial,
                   void* counters, void* out, int out_f32, int m, int k, int n, int splits,
                   int kb_per_split, int vec, cudaStream_t st) {
   using S = DecodeShape<Codes, I, WC, MT>;
   if (splits < 1 || splits > kMaxSplits) return -1;
-  const auto kernel = decode_kernel<Codes, I, WC, MT>;
+  const auto kernel = decode_kernel<Codes, Walk, I, WC, MT>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
   if (attr != cudaSuccess) return (int)attr;
@@ -441,13 +468,14 @@ int launch_decode(const void* x, const void* w, const void* scales, void* partia
   return 0;
 }
 
-template <class Codes, int MT>
+template <class Codes, class Walk, int MT>
 int launch_decode_cols(const void* x, const void* w, const void* scales, void* partial,
                        void* counters, void* out, int out_f32, int m, int k, int n,
                        int splits, int kb_per_split, int cols, int vec, cudaStream_t st) {
 #define DLLAMA_DECODE(I, WC)                                                              \
-  return launch_decode<Codes, I, WC, MT>(x, w, scales, partial, counters, out, out_f32, m, \
-                                         k, n, splits, kb_per_split, vec, st)
+  return launch_decode<Codes, Walk, I, WC, MT>(x, w, scales, partial, counters, out,      \
+                                               out_f32, m, k, n, splits, kb_per_split, vec, \
+                                               st)
   switch (cols) {
     case 32:
       DLLAMA_DECODE(2, 1);
@@ -468,7 +496,7 @@ int launch_decode_cols(const void* x, const void* w, const void* scales, void* p
   return -1;  // a column tile the library was not built for
 }
 
-// The C entry of both sources: x bf16 [m, k] (m <= 16, 16-byte aligned, k %
+// The C entry of the four sources: x bf16 [m, k] (m <= 16, 16-byte aligned, k %
 // 32 == 0); w the codes of one layer; scales f16 [k/32, n]; out [m, n] in
 // bf16 (out_f32 == 0) or f32; partial f32 [splits, m, n] and counters i32
 // [ceil(n / cols)], all 0, are scratch, unused when splits == 1; each of at
@@ -476,19 +504,19 @@ int launch_decode_cols(const void* x, const void* w, const void* scales, void* p
 // block's column tile.
 // Returns the CUDA error state after the launch (0 = success; -1 = a column
 // tile not built, or more than kMaxSplits splits).
-template <class Codes>
+template <class Codes, class Walk>
 int decode(const void* x, const void* w, const void* scales, void* partial, void* counters,
            void* out, int m, int k, int n, int splits, int kb_per_split, int out_f32, int cols,
            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int vec = n % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(scales) % 16 == 0;
-  const int bad = m > 8 ? launch_decode_cols<Codes, 2>(x, w, scales, partial, counters, out,
-                                                       out_f32, m, k, n, splits, kb_per_split,
-                                                       cols, vec, st)
-                        : launch_decode_cols<Codes, 1>(x, w, scales, partial, counters, out,
-                                                       out_f32, m, k, n, splits, kb_per_split,
-                                                       cols, vec, st);
+  const int bad = m > 8 ? launch_decode_cols<Codes, Walk, 2>(x, w, scales, partial, counters,
+                                                              out, out_f32, m, k, n, splits,
+                                                              kb_per_split, cols, vec, st)
+                        : launch_decode_cols<Codes, Walk, 1>(x, w, scales, partial, counters,
+                                                              out, out_f32, m, k, n, splits,
+                                                              kb_per_split, cols, vec, st);
   return bad ? bad : (int)cudaGetLastError();
 }
 

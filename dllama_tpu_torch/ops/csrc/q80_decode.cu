@@ -5,11 +5,11 @@
 // included), per 32-row block a partial dot scaled by the block's f16 scale
 // in f32.
 //
-// The body is decode.cuh's (shared with K1, q40_decode.cu) over the Q80
-// policy: there the design is set out. What bounds it on this card is
-// device-memory bytes (1.0625 a weight); the body streams them through a
-// cp.async ring into tensor-core products, with split-k summed in split
-// order inside the one launch. The wrapper's split boundaries follow k alone and
+// The body is decode.cuh's (shared with K1, K3 and K4) over the Q80 policy
+// and the Blockdot walk: there the design is set out. What bounds it on this
+// card is device-memory bytes (1.0625 a weight); the body streams them
+// through a cp.async ring into tensor-core products, with split-k summed in
+// split order inside the one launch. The wrapper's split boundaries follow k alone and
 // a column's sum order does not depend on its tile (32, 64 or 128 columns a
 // block), so fused wqkv/w13 weights (--fuse-weights) give the bit-equal
 // columns of their parts. A weight whose rows are not 16-byte
@@ -21,6 +21,6 @@
 extern "C" int q80_decode(const void* x, const void* codes, const void* scales,
                           void* partial, void* counters, void* out, int m, int k, int n,
                           int splits, int kb_per_split, int out_f32, int cols, void* stream) {
-  return decode<Q80Codes>(x, codes, scales, partial, counters, out, m, k, n, splits,
-                          kb_per_split, out_f32, cols, stream);
+  return decode<Q80Codes, Blockdot>(x, codes, scales, partial, counters, out, m, k, n, splits,
+                                    kb_per_split, out_f32, cols, stream);
 }

@@ -15,10 +15,13 @@ decode-shaped calls):
   geometry is :func:`decode_geometry`, and ``BLOCKDOT_TK`` /
   ``BLOCKDOT_TN`` override its k rows per split and its columns per block
   (:func:`blockdot_tiles`);
-* ``maskdot`` — ``csrc/q40_maskdot.cu`` (K3): blockdot's math on the
-  tensor cores, ``mma.sync`` per 32-row block (replaces ``_maskdot_kernel``);
-* ``loopdot`` — ``csrc/q40_loopdot.cu`` (K4): blockdot's math on the CUDA
-  cores, one thread a column, blocks in ascending order (replaces
+* ``maskdot`` — ``csrc/q40_maskdot.cu`` (K3, the same body): blockdot's math
+  with x padded by zero rows to a whole ``mma.sync`` operand (the redundant
+  products of the TPU's masked dot), in K1's orientation and geometry, so
+  with K1's bits (replaces ``_maskdot_kernel``);
+* ``loopdot`` — ``csrc/q40_loopdot.cu`` (K4, the same body): blockdot's math
+  in one sum order that follows k alone, each warp's run of k in ascending
+  order and the splits of :func:`loopdot_geometry` (replaces
   ``_loopdot_kernel``);
 * ``deq`` — ``csrc/q40_prefill.cu`` (K2): x and raw Q40 tiles through a
   TMA ring, dequantized to bf16 in shared memory, wgmma products with f32
@@ -86,12 +89,12 @@ BLOCKDOT_TN: int | None = None
 #: columns per block that BLOCKDOT_TN may set (K1 is compiled for them: one,
 #: two or four 128-column warps side by side)
 DECODE_TILES_N = (128, 256, 512)
-#: columns per block of K3 (csrc/q40_maskdot.cu: 4 warps of 32 columns)
-MASKDOT_COLS = 128
-#: K3's blocks (128 threads) to aim for on every SM, and the fewest 32-row
-#: blocks of k one of its splits walks
-MASKDOT_BLOCKS_PER_SM = 16
-MASKDOT_MIN_BLOCKS_PER_SPLIT = 4
+#: splits K4 cuts every k into (fewer where a split would walk under
+#: DECODE_MIN_BLOCKS_PER_SPLIT blocks): of the counts that give narrow n
+#: (wk/wv, 1024 columns at 32 a block) a block on each of 132 SMs (5 or
+#: more), the one whose launches at the 8B shapes took the least time on an
+#: H100 (kernel_proof.py loopdot; fewer splits would leave SMs idle at wk)
+LOOPDOT_SPLITS = 8
 
 #: kernel launches made through the wrappers (plain ints; reset by callers
 #: that want to see which kernels a run went through)
@@ -205,22 +208,8 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def maskdot_splits(k: int, n: int, sms: int) -> tuple[int, int]:
-    """(splits, 32-row blocks per split) of K3's split-k, MASKDOT_COLS columns
-    a block: about MASKDOT_BLOCKS_PER_SM blocks on every SM — enough loads
-    in flight to cover the memory latency — each split a whole number of
-    32-row blocks, at least MASKDOT_MIN_BLOCKS_PER_SPLIT of them (its
-    fixed-order second pass reads every split's partial row)."""
-    nkb = k // Q_BLOCK
-    col_blocks = -(-n // MASKDOT_COLS)
-    splits = min(max(1, nkb // MASKDOT_MIN_BLOCKS_PER_SPLIT),
-                 max(1, math.ceil(MASKDOT_BLOCKS_PER_SM * sms / col_blocks)))
-    per = -(-nkb // splits)
-    return -(-nkb // per), per
-
-
 class DecodeGeometry(NamedTuple):
-    """A launch of the decode body (K1, K5): grid (ceil(n / cols), splits),
+    """A launch of the decode body (K1, K3, K4, K5): grid (ceil(n / cols), splits),
     each split walking kb_per_split 32-row blocks of k. No thread-block
     cluster: the splits meet through counters in one launch."""
 
@@ -257,6 +246,19 @@ def decode_geometry(k: int, n: int, sms: int, tk: int | None = None,
     return DecodeGeometry(-(-nkb // per), per, cols)
 
 
+@functools.lru_cache(maxsize=None)
+def loopdot_geometry(k: int, n: int, sms: int) -> DecodeGeometry:
+    """K4's launch for a [k, n] weight, whatever m is: its split boundaries
+    follow k alone (LOOPDOT_SPLITS splits of at least
+    DECODE_MIN_BLOCKS_PER_SPLIT 32-row blocks), so a column's sum has one
+    order whatever n and the SM count are; the column tile (decode_cols,
+    all of whose tiles have four warps along k) follows n and the SMs."""
+    nkb = k // Q_BLOCK
+    per = max(DECODE_MIN_BLOCKS_PER_SPLIT, -(-nkb // LOOPDOT_SPLITS))
+    splits = -(-nkb // per)
+    return DecodeGeometry(splits, per, decode_cols(n, splits, sms))
+
+
 #: the decode body's split-k scratch on each (device, stream): f32 partials
 #: and the column tiles' arrival counters (0 between launches: the last block
 #: of a tile sets its counter back)
@@ -265,7 +267,8 @@ _DECODE_SCRATCH: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
 def decode_launch(name: str, x2: torch.Tensor, weight: torch.Tensor, scales: torch.Tensor,
                   out: torch.Tensor, geo: DecodeGeometry) -> None:
-    """Launch the decode body `name` (q40_decode, q80_decode) on x2 [m, k]."""
+    """Launch the decode body `name` (q40_decode, q40_maskdot, q40_loopdot,
+    q80_decode) on x2 [m, k]."""
     m, k = x2.shape
     n = weight.shape[1]
     stream = torch.cuda.current_stream(x2.device).cuda_stream
@@ -324,7 +327,7 @@ def _check_cuda(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> 
 
 def _split_k_launch(name: str, x2, packed, scales, out, out_f32: int, splits: int, per: int,
                     *extra) -> None:
-    """Launch a split-k kernel with a second pass (K2, K3) and its f32
+    """Launch the prefill kernel (K2) with its split-k second pass and f32
     partials."""
     m, k = x2.shape
     n = packed.shape[1]
@@ -367,13 +370,10 @@ def q40_matmul(x: torch.Tensor, w: QTensor, layer=None, out_dtype=None) -> torch
         decode_launch("q40_decode", x2, packed, scales, out, geo)
         LAUNCHES["q40_decode"] += 1
     elif style == "maskdot":
-        splits, per = maskdot_splits(k, n, sms)
-        _split_k_launch("q40_maskdot", x2, packed, scales, out, out_f32, splits, per)
+        decode_launch("q40_maskdot", x2, packed, scales, out, decode_geometry(k, n, sms))
+        LAUNCHES["q40_maskdot"] += 1
     elif style == "loopdot":
-        err = build.library("q40_loopdot").q40_loopdot(
-            x2.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(), m, k, n,
-            out_f32, torch.cuda.current_stream(x.device).cuda_stream)
-        build.check("q40_loopdot", err)
+        decode_launch("q40_loopdot", x2, packed, scales, out, loopdot_geometry(k, n, sms))
         LAUNCHES["q40_loopdot"] += 1
     else:
         splits, per = prefill_splits(m, k, n, sms)

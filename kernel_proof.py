@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Two one-off proofs about the attention and GEMM kernels, on one NVIDIA GPU.
+"""Three one-off proofs about the attention and matmul kernels, on one NVIDIA GPU.
 
 Run from the repository root (it reuses chip_smoke.py's inputs and timer):
 
     python3 kernel_proof.py splits [--reps N]
+    python3 kernel_proof.py loopdot [--reps N]
     python3 kernel_proof.py parity --save FILE      # in one checkout
     python3 kernel_proof.py parity --against FILE   # in another
 
@@ -14,11 +15,22 @@ pos 2048 (page 128, Llama-3.1-8B heads, bf16), each checked against the
 plain version within TOL_K9. The fixed counts replace the wrapper's rule
 only inside this script.
 
-`parity` computes the K2 (Q40 prefill GEMM) and K7 (flash attention) f32
-outputs of seeded inputs at the 8B shapes of chip_smoke's kernels phase and
-saves them, or compares them bit for bit with a file saved by another
-checkout of the package (copy this script and chip_smoke.py into it): the
-proof that a refactor of a kernel's source changed no bit of its result.
+`loopdot` times the Q40 loopdot kernel (K4) at the 8B shapes, m = 1 and 8,
+under split counts that follow k alone (4, 5, 6 and 8: LOOPDOT_SPLITS is the
+best of those that give wk a block on every SM) and under the strictly
+ascending walk of all of k (one split, a 512-column tile: one warp along k),
+each checked against its plain version within TOL_K34, beside K1's own
+launch and a torch.sum over the layer's packed bytes read as f32 (what
+reading the weight alone takes under this timer), on the same inputs in one
+call. The candidate geometries replace the wrapper's only inside this
+script.
+
+`parity` computes the K2 (Q40 prefill GEMM), K7 (flash attention), K1 (Q40
+decode) and K5 (Q80 decode) f32 outputs of seeded inputs at the 8B shapes of
+chip_smoke's kernels phase and saves them, or compares them bit for bit with
+a file saved by another checkout of the package (copy this script and
+chip_smoke.py into it): the proof that a refactor of a kernel's source
+changed no bit of its result.
 """
 
 from __future__ import annotations
@@ -85,11 +97,50 @@ def splits(cfg, device, timer) -> None:
               + "; ".join(line), flush=True)
 
 
+def loopdot(cfg, device, timer) -> None:
+    import torch
+
+    from dllama_tpu_torch.ops import q40_matmul as q40
+
+    gen = torch.Generator(device=device).manual_seed(13)
+    sms = q40._sm_count(device.index or 0)
+    d, f, kvd, v = cfg.dim, cfg.hidden_dim, cfg.kv_dim, cfg.vocab_size
+    for name, k, n in (("wq", d, d), ("wk", d, kvd), ("w1", d, f), ("w2", f, d),
+                       ("wcls", d, v)):
+        w = cs.random_q40(gen, (), k, n, device)
+        nkb = k // 32
+        total = timer(lambda: torch.sum(w.packed.view(torch.float32)))
+        cands = [("K1", "q40_decode", q40.decode_geometry(k, n, sms))]
+        for s in (4, 5, 6, 8):
+            per = max(q40.DECODE_MIN_BLOCKS_PER_SPLIT, -(-nkb // s))
+            geo = q40.DecodeGeometry(-(-nkb // per), per, q40.decode_cols(n, -(-nkb // per), sms))
+            cands.append((f"K4 {s} splits", "q40_loopdot", geo))
+        cands.append(("K4 one walk", "q40_loopdot", q40.DecodeGeometry(1, nkb, 512)))
+        for m in (1, 8):
+            x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+            plain = q40.q40_loopdot_plain(x, w, out_dtype=torch.float32)
+            tol = cs.TOL_K34 * plain.abs().max().item()
+            line = []
+            for label, lib, geo in cands:
+                out = torch.empty((m, n), dtype=torch.float32, device=device)
+                q40.decode_launch(lib, x, w.packed, w.scales, out, geo)
+                err = (out - plain).abs().max().item()
+                if not err <= tol:
+                    cs.fail(f"loopdot {label} {name} m={m} {tuple(geo)}: max error {err} over {tol}")
+                out = torch.empty((m, n), dtype=torch.bfloat16, device=device)
+                ms = timer(lambda: q40.decode_launch(lib, x, w.packed, w.scales, out, geo))
+                line.append(f"{label} {tuple(geo)} {cs._r(ms)}")
+            print(f"  loopdot {name} {k}x{n} m={m} (each err <= TOL_K34; splits, blocks a split, "
+                  f"columns; ms): torch.sum {cs._r(total)}; " + "; ".join(line), flush=True)
+        del w
+
+
 def parity(cfg, device, save: str | None, against: str | None) -> None:
     import torch
 
     from dllama_tpu_torch.ops.flash_attention import flash_gqa_attention
     from dllama_tpu_torch.ops.q40_matmul import forced_style, q40_matmul
+    from dllama_tpu_torch.ops.q80_matmul import q80_matmul
 
     gen = torch.Generator(device=device).manual_seed(11)
     outs = {}
@@ -109,15 +160,35 @@ def parity(cfg, device, save: str | None, against: str | None) -> None:
             q = torch.randn((1, t, hq, hd), generator=gen, device=device).to(torch.bfloat16)
             outs[f"flash_attention {dt} T={t} pos={pos}"] = flash_gqa_attention(
                 q, kc, vc, pos, out_dtype=torch.float32)
+        del kc, vc
+    shapes = {"wq": (d, d), "wk": (d, kvd), "w1": (d, f), "w2": (f, d), "wcls": (d, cfg.vocab_size)}
+    for fmt, fn, rand, cases in (
+            ("q40_decode", q40_matmul, cs.random_q40,
+             [(name, m) for name in shapes for m in (1, 8, 9)]),
+            ("q80_decode", q80_matmul, cs.random_q80,
+             [("wq", 1), ("wk", 1), ("w1", 1), ("w1", 8), ("w2", 1), ("wcls", 1), ("wk", 8),
+              ("w2", 8), ("wcls", 8)])):
+        for name, m in cases:  # the kernels phase's decode cases (K1 at STYLE auto)
+            k, n = shapes[name]
+            w = rand(gen, (2,), k, n, device)
+            x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+            outs[f"{fmt} {name} m={m}"] = fn(x, w, 1, out_dtype=torch.float32)
+            del w
     outs = {k: v.cpu() for k, v in outs.items()}
     if save:
         torch.save(outs, save)
-        print(f"parity: saved {len(outs)} K2/K7 outputs to {save}", flush=True)
+        print(f"parity: saved {len(outs)} K2/K7/K1/K5 outputs to {save}", flush=True)
     if against:
         ref = torch.load(against)
         differ = [k for k in outs if not torch.equal(outs[k], ref[k])]
-        print(f"parity: {len(outs) - len(differ)} of {len(outs)} K2/K7 outputs bit-equal to "
-              f"{against}", flush=True)
+        groups = {}
+        for key in outs:
+            kern = key.split()[0]
+            groups.setdefault(kern, [0, 0])[0] += key not in differ
+            groups[kern][1] += 1
+        print(f"parity: {len(outs) - len(differ)} of {len(outs)} outputs bit-equal to {against} ("
+              + ", ".join(f"{kern} {a} of {b}" for kern, (a, b) in groups.items()) + ")",
+              flush=True)
         if differ:
             cs.fail(f"parity: outputs differ from {against}: {differ}")
 
@@ -127,7 +198,9 @@ def main(argv=None) -> int:
     sub = ap.add_subparsers(dest="proof", required=True)
     sp = sub.add_parser("splits", help="K9's split rule against fixed tiles per split")
     sp.add_argument("--reps", type=int, default=20, help="timed runs per case")
-    pp = sub.add_parser("parity", help="save or compare K2/K7 outputs bit for bit")
+    st = sub.add_parser("loopdot", help="K4's split counts and one ascending walk, timed")
+    st.add_argument("--reps", type=int, default=20, help="timed runs per case")
+    pp = sub.add_parser("parity", help="save or compare K2/K7/K1/K5 outputs bit for bit")
     pp.add_argument("--save", help="save the outputs here")
     pp.add_argument("--against", help="compare the outputs with this file")
     args = ap.parse_args(argv)
@@ -144,6 +217,9 @@ def main(argv=None) -> int:
     if args.proof == "splits":
         print("splits (K9, page 128, Llama-3.1-8B heads, bf16):", flush=True)
         splits(cfg, device, cs.Timer(device, args.reps))
+    elif args.proof == "loopdot":
+        print("loopdot (K4 on the decode body, Llama-3.1-8B shapes):", flush=True)
+        loopdot(cfg, device, cs.Timer(device, args.reps))
     else:
         parity(cfg, device, args.save, args.against)
     return 0

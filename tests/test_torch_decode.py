@@ -1,5 +1,5 @@
-"""The decode body of K1 and K5 (dllama_tpu_torch/ops/csrc/decode.cuh) on the
-CPU, where no kernel runs:
+"""The decode body of K1, K5, K3 and K4 (dllama_tpu_torch/ops/csrc/decode.cuh)
+on the CPU, where no kernel runs:
 
 * its plain versions, the kernels' own arithmetic (exact-code partials per
   32-row block, scaled and summed in f32: q40_maskdot_plain for K1,
@@ -13,8 +13,12 @@ CPU, where no kernel runs:
 * one warp's tensor-core fragments, assembled from those bit operations with
   the kernel's thread, byte and column arithmetic, equal to the block's
   plain partial dot x_b . codes_b;
-* the launch geometry of both wrappers at every Llama-3.1-8B shape and every
-  row count 1-16, read from the wrappers themselves on meta tensors;
+* each walk of a split's blocks of k over the warps, modelled with
+  the kernel's index arithmetic: every block once, and K4's runs in
+  ascending k;
+* the launch geometry of the wrappers (K1, K5, and K3/K4 under STYLE) at
+  every Llama-3.1-8B shape and every row count 1-16, read from the wrappers
+  themselves on meta tensors;
 * the constants the wrappers share with decode.cuh and its launchers.
 """
 
@@ -245,13 +249,49 @@ def test_warp_fragments_form_the_blocks_partial_dot(fmt, m, n_tiles):
     assert np.array_equal(got, x_block @ codes)
 
 
+def _walk(runs: bool, kb_per_split: int, splits: int, nkb: int, wk_count: int) -> list:
+    """The blocks of k each warp of each split sums, in the order a column's
+    sum meets them, with decode_kernel's index arithmetic (kb0, kb1, the
+    step KS): [[blocks of split s, warp wk] for wk] for s]."""
+    out = []
+    for y in range(splits):
+        split0 = y * kb_per_split
+        end = min(nkb, split0 + kb_per_split)
+        run = -(-kb_per_split // wk_count) if runs else 1
+        step = 1 if runs else wk_count
+        warps = []
+        for wk in range(wk_count):
+            kb0 = split0 + wk * run
+            kb1 = min(end, kb0 + run) if runs else end
+            warps.append(list(range(kb0, kb1, step)))
+        out.append(warps)
+    return out
+
+
+@pytest.mark.parametrize("k", [256, 1024, 4096, 4128, 14336])
+def test_walks_cover_k_once_and_loopdot_runs_ascend(k):
+    """Blockdot (K1/K3) deals a split's blocks to its warps in turn, Loopdot
+    (K4) in runs: both walk every 32-row block once, and K4's runs, read in
+    the order the kernel adds them (warps of a split, then splits), are
+    k ascending."""
+    nkb = k // 32
+    for runs, geo in ((False, tq.decode_geometry(k, 1024, SMS)),
+                      (True, tq.loopdot_geometry(k, 1024, SMS))):
+        walk = _walk(runs, geo.kb_per_split, geo.splits, nkb, 4)
+        flat = [b for split in walk for warp in split for b in warp]
+        assert sorted(flat) == list(range(nkb))
+        assert not runs or flat == list(range(nkb))
+
+
 # ------------------------------------------------------------------ geometry
 
 
-def _launches(module, fmt, k, n, rows, monkeypatch):
+def _launches(module, fmt, k, n, rows, monkeypatch, style="auto"):
     """The geometry each wrapper hands decode_launch for an m-row call, for
-    m in `rows`, read by running the wrapper on meta tensors."""
+    m in `rows` (under q40_matmul.STYLE `style`), read by running the
+    wrapper on meta tensors."""
     seen = []
+    monkeypatch.setattr(tq, "STYLE", style)
     monkeypatch.setattr(module, "LAUNCHES", dict(module.LAUNCHES))
     monkeypatch.setattr(module, "_check_cuda", lambda *a: None)
     monkeypatch.setattr(module, "_sm_count", lambda index: SMS)
@@ -271,19 +311,26 @@ def _launches(module, fmt, k, n, rows, monkeypatch):
     return seen
 
 
-@pytest.mark.parametrize("fmt", ["q40", "q80"])
+#: the decode body's launches: (format, STYLE) -> the library the wrapper launches
+DECODE_LIBS = {("q40", "auto"): "q40_decode", ("q80", "auto"): "q80_decode",
+               ("q40", "maskdot"): "q40_maskdot", ("q40", "loopdot"): "q40_loopdot"}
+
+
+@pytest.mark.parametrize("fmt,style", list(DECODE_LIBS))
 @pytest.mark.parametrize("name", list(SHAPES_8B))
-def test_decode_geometry_at_every_8b_shape_and_row_count(fmt, name, monkeypatch):
+def test_decode_geometry_at_every_8b_shape_and_row_count(fmt, style, name, monkeypatch):
     """For m = 1..16 the wrapper launches the decode body with one geometry:
     its splits cover the 32-row blocks of k once, its grid gives each of the
     132 SMs a block, no split walks fewer than DECODE_MIN_BLOCKS_PER_SPLIT
     blocks unless k has fewer, the column tile is one the body is built for,
     and a launch has at most 8 splits (the partials the last block of a
-    column tile reads at once); no thread-block cluster is used."""
+    column tile reads at once); no thread-block cluster is used. K3 takes
+    K1's geometry, K4 loopdot_geometry's."""
     k, n = SHAPES_8B[name]
     module = tq if fmt == "q40" else t8
-    seen = _launches(module, fmt, k, n, range(1, 17), monkeypatch)
-    assert [(nm, m) for nm, m, _ in seen] == [(f"{fmt}_decode", m) for m in range(1, 17)]
+    seen = _launches(module, fmt, k, n, range(1, 17), monkeypatch, style)
+    lib = DECODE_LIBS[fmt, style]
+    assert [(nm, m) for nm, m, _ in seen] == [(lib, m) for m in range(1, 17)]
     geos = {geo for _, _, geo in seen}
     assert len(geos) == 1  # nothing depends on m
     (geo,) = geos
@@ -293,8 +340,12 @@ def test_decode_geometry_at_every_8b_shape_and_row_count(fmt, name, monkeypatch)
     assert -(-n // geo.cols) * geo.splits >= SMS
     assert geo.cols in tq.DECODE_COLS
     assert geo.splits <= tq.DECODE_MAX_SPLITS <= 8
+    if lib == "q40_maskdot":
+        assert geo == tq.decode_geometry(k, n, SMS)
+    if lib == "q40_loopdot":
+        assert geo == tq.loopdot_geometry(k, n, SMS)
     # long runs of k where n alone fills the card: one split at the lm-head
-    assert name != "wcls" or geo.splits == 1 or fmt == "q80"
+    assert name != "wcls" or geo.splits == 1 or lib in ("q80_decode", "q40_loopdot")
 
 
 @pytest.mark.parametrize("k", [256, 4096, 4128, 14336])
@@ -321,7 +372,9 @@ def test_decode_constants_match_the_body():
     16 I columns a warp for I = 2, 4, 8; 128-column warps side by side for
     the BLOCKDOT_TN tiles; each launcher builds exactly those tiles; a split
     walks at least two ring slots of one block a warp; and no launch has
-    more splits than the last block reads at once."""
+    more splits than the last block reads at once. Each of the four sources
+    instantiates the body over its format and walk, and the walks' flags are
+    the ones the walk model above assumes."""
     text = (CSRC / "decode.cuh").read_text()
     c = _constants(text)
     assert tq.DECODE_COLS == (c["kMaxCols"], c["kMaxCols"] // 2, c["kMinCols"]) == (128, 64, 32)
@@ -334,5 +387,10 @@ def test_decode_constants_match_the_body():
     assert cases == set(tq.DECODE_COLS) | set(tq.DECODE_TILES_N)
     assert "kWideTiles = true" in text[text.index("struct Q40Codes"):text.index("struct Q80Codes")]
     assert "kWideTiles = false" in text[text.index("struct Q80Codes"):]
-    for src in ("q40_decode.cu", "q80_decode.cu"):
-        assert '#include "decode.cuh"' in (CSRC / src).read_text()
+    assert t8.DECODE_SPLITS <= c["kMaxSplits"] and tq.LOOPDOT_SPLITS <= c["kMaxSplits"]
+    for src, inst in (("q40_decode.cu", "Q40Codes, Blockdot"), ("q80_decode.cu", "Q80Codes, Blockdot"),
+                      ("q40_maskdot.cu", "Q40Codes, Blockdot"), ("q40_loopdot.cu", "Q40Codes, Loopdot")):
+        body = (CSRC / src).read_text()
+        assert '#include "decode.cuh"' in body and f"decode<{inst}>(" in body, src
+    runs = dict(re.findall(r"struct (\w+) \{\s*static constexpr bool kRuns = (\w+);", text))
+    assert runs == {"Blockdot": "false", "Loopdot": "true"}

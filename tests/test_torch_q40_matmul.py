@@ -16,9 +16,9 @@ from dllama_tpu_torch.ops.q40_matmul import (
     DECODE_COLS,
     DECODE_MAX_M,
     DECODE_MAX_SPLITS,
+    DECODE_MIN_BLOCKS_PER_SPLIT,
     LAUNCHES,
-    MASKDOT_COLS,
-    MASKDOT_MIN_BLOCKS_PER_SPLIT,
+    LOOPDOT_SPLITS,
     PREFILL_BLOCKS_PER_SM,
     PREFILL_MIN_STEPS_PER_SPLIT,
     PREFILL_STEP_K,
@@ -26,7 +26,7 @@ from dllama_tpu_torch.ops.q40_matmul import (
     PREFILL_TILE_M_SMALL,
     PREFILL_TILE_N,
     decode_geometry,
-    maskdot_splits,
+    loopdot_geometry,
     prefill_splits,
     prefill_tile_m,
     q40_matmul,
@@ -115,13 +115,37 @@ def test_decode_split_k_covers_k_once(k, n):
     assert DECODE_MAX_M == 16
 
 
-@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 1024), (14336, 4096), (4096, 128256)])
-def test_maskdot_split_k_covers_k_once(k, n):
-    """K3 keeps its own rule: 16 blocks an SM, splits of at least 4 blocks."""
-    splits, per = maskdot_splits(k, n, sms=132)
+#: Llama-3.1-8B's wq, wk, w1, w2 and wcls (k, n)
+SHAPES_8B = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]
+
+
+@pytest.mark.parametrize("style", ["maskdot", "loopdot"])
+@pytest.mark.parametrize("k,n", SHAPES_8B)
+def test_style_geometry_covers_k_once(style, k, n):
+    """K3 takes K1's geometry, K4 its own: either way the splits cover the
+    32-row blocks of k once in at most DECODE_MAX_SPLITS splits of at least
+    DECODE_MIN_BLOCKS_PER_SPLIT blocks, every SM gets a block, and the
+    column tile has four warps along k (so it changes no sum order)."""
+    geo = (decode_geometry if style == "maskdot" else loopdot_geometry)(k, n, 132)
     nkb = k // 32
-    assert (splits - 1) * per < nkb <= splits * per
-    assert splits == nkb // MASKDOT_MIN_BLOCKS_PER_SPLIT or -(-n // MASKDOT_COLS) * splits >= 132
+    assert (geo.splits - 1) * geo.kb_per_split < nkb <= geo.splits * geo.kb_per_split
+    assert geo.kb_per_split >= min(nkb, DECODE_MIN_BLOCKS_PER_SPLIT)
+    assert 1 <= geo.splits <= DECODE_MAX_SPLITS
+    assert geo.cols in DECODE_COLS and -(-n // geo.cols) * geo.splits >= 132
+    if style == "loopdot":  # the splits follow k alone, and k alone
+        assert geo.splits == min(LOOPDOT_SPLITS, -(-nkb // DECODE_MIN_BLOCKS_PER_SPLIT))
+
+
+@pytest.mark.parametrize("k", [256, 4096, 4128, 14336])
+def test_loopdot_split_boundaries_follow_k_alone(k):
+    """K4's splits and blocks a split are the same for every n and for 78,
+    114 and 132 SMs, so its sum order follows k alone; only the column
+    tile, which changes no sum, follows n and the SMs."""
+    geos = {loopdot_geometry(k, n, sms) for n in (128, 1000, 1024, 4096, 14336, 128256)
+            for sms in (78, 114, 132)}
+    assert len({g[:2] for g in geos}) == 1
+    assert {g.cols for g in geos} <= set(DECODE_COLS)
+    assert {g.cols for g in geos if g.cols != DECODE_COLS[0]}  # the tile did vary
 
 
 @pytest.mark.parametrize("m,k,n", [(32, 14336, 4096), (256, 4096, 4096), (256, 4096, 14336),
