@@ -16,7 +16,8 @@ Q80 (random weights from a seed), and exits 0 only if every phase passed:
               stated tolerance; CUDA-event medians of the kernel, the plain
               version and a one-call PyTorch yardstick (never used by the
               port), with the L2 cache flushed before every timed run, and
-              the bound max(bytes / HBM rate, operations / bf16 tensor rate).
+              the bound max(bytes / HBM rate, operations / bf16 tensor rate;
+              K11-B's f32 products are exact on the bf16 tensor cores).
               The paged attention kernel (K9, and K8 as its read-only mode)
               also leaves the pools bit-equal to the plain scatter's. The Q80
               kernels (K5 decode, K6 prefill), RMSNorm (K10) and K7's f8 mode
@@ -70,8 +71,10 @@ TOL_K34) besides the bf16-weight plain versions, and each row of an m-row
 call bit-equal to the row alone, for K3 and K4 (the same body in its Maskdot
 and Loopdot styles) too; K3 and K4 against their plain versions and against
 K1, K4 bit-equal under the geometries of 78, 114 and 132 SMs, K3 and K4 one
-device kernel a call under the profiler, and K11-B/K11-D against theirs; K1 at 9 rows and K7 at 9 query rows (the spec verify
-forward); and
+device kernel a call under the profiler, and K11-B/K11-D against theirs on
+both their routes (the decode body at m <= 16, the wgmma loop above: m = 16
+and 17, an f32 x for K11-B, k = 4104 for K11-D, one device kernel a call);
+K1 at 9 rows and K7 at 9 query rows (the spec verify forward); and
 every kernel the kbench phase launches on kbench's own inputs (each variant
 of its suite rows and of `8 w1 B D`, the tile sweep, the flash rows), since
 the benchmark checks no result. `serve`, `batch`, `f8`, `q80`, `kbench`, `styles` and `spec` are the
@@ -105,7 +108,6 @@ import time
 
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 BF16_OPS_S = 989e12  # H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
-F32_OPS_S = 67e12  # H100 SXM f32 rate outside the tensor cores (NVIDIA data sheet)
 TOL_K1 = 5e-3  # x max|ref|: exact codes + f32 scales vs a bf16-rounded weight
 TOL_K2 = 2e-3  # x max|ref|: the same bf16 weights, only the order of sums differs
 TOL_K7 = 2e-3  # absolute: both f32 from the same bf16 inputs
@@ -954,10 +956,13 @@ def kbench_cases(cfg, device, timer) -> dict:
     for m in (8, 256):
         x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
         for kernel, fn, plain, lib, nbytes, ops_s in (
+                # the bf16 rate: a bf16 x times a code q - 8 is exact in f32, so
+                # the tensor cores compute this f32 function (only the order of
+                # the f32 sums differs), and the card needs no f32 unit for it
                 ("kbench_fma_f32", lambda x: kbench.fma_f32(x, w.packed, scales32),
                  lambda x: kbench.fma_f32_plain(x, w.packed, scales32),
                  lambda x: torch.matmul(x.float(), wf),
-                 m * k * 2 + k * n // 2 + (k // 32) * n * 4 + m * n * 4, F32_OPS_S),
+                 m * k * 2 + k * n // 2 + (k // 32) * n * 4 + m * n * 4, BF16_OPS_S),
                 ("kbench_bf16_gemm", lambda x: kbench.bf16_gemm(x, wb),
                  lambda x: kbench.bf16_gemm_plain(x, wb), lambda x: torch.matmul(x, wb),
                  m * k * 2 + k * n * 2 + m * n * 4, BF16_OPS_S)):
@@ -1131,6 +1136,70 @@ def edges_slice4(device) -> None:
                 fail(f"{kernel} edge m={m} k={k} n={n}: max error {err} over {tol}")
 
 
+def edges_k11(device) -> None:
+    """Untimed edges of K11-B and K11-D on both routes: m = 16 and 17 on
+    either side of the route split, an f32 x (K11-B) on both routes, a k
+    that is a multiple of 8 but not of 32 (K11-D) on both routes, each
+    within TOL_K11 of its plain version and launching its kernel once; then
+    each kernel one device kernel a call under torch.profiler at w1, m = 8
+    and 256 (both routes; K11-B with bf16 and f32 x)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dllama_tpu_torch.experiments import kbench
+
+    if not hasattr(kbench, "route"):  # an earlier checkout of the package, timed with this script
+        print("  edges K11: this package's K11 kernels have no routes", flush=True)
+        return
+    gen = torch.Generator(device=device).manual_seed(10)
+    f32 = torch.float32
+    for m, k, n in ((16, 4096, 1024), (17, 4096, 1024), (16, 4128, 1000), (17, 4128, 1000),
+                    (3, 4104, 1000), (40, 4104, 1000)):
+        w = random_q40(gen, (), k - k % 32, n, device)
+        wb = torch.randn((k, n), generator=gen, device=device).to(torch.bfloat16) * 0.02
+        x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+        s32 = w.scales.to(f32)
+        cases = [("kbench_bf16_gemm", lambda: kbench.bf16_gemm(x, wb),
+                  lambda: kbench.bf16_gemm_plain(x, wb))]
+        if k % 32 == 0:
+            cases += [("kbench_fma_f32", lambda: kbench.fma_f32(x, w.packed, s32),
+                       lambda: kbench.fma_f32_plain(x, w.packed, s32)),
+                      ("kbench_fma_f32", lambda: kbench.fma_f32(x.float() * 1.001, w.packed, s32),
+                       lambda: kbench.fma_f32_plain(x.float() * 1.001, w.packed, s32))]
+        for i, (kernel, fn, plain) in enumerate(cases):
+            before = kbench.LAUNCHES[kernel]
+            got, ref = fn(), plain()
+            torch.cuda.synchronize()
+            err, tol = (got - ref).abs().max().item(), TOL_K11 * ref.abs().max().item()
+            tag = " (f32 x)" if i == 2 else ""
+            print(f"  edge {kernel}{tag} m={m} k={k} n={n} ({kbench.route(m)} route): "
+                  f"err {err:.3e} <= tol {tol:.3e}", flush=True)
+            if kbench.LAUNCHES[kernel] != before + 1 or not err <= tol:
+                fail(f"{kernel}{tag} edge m={m} k={k} n={n}: launches, or max error {err} "
+                     f"over {tol}")
+        del w, wb
+    k, n = 4096, 14336
+    w = random_q40(gen, (), k, n, device)
+    s32, wb = w.scales.to(f32), w.dequantize(torch.bfloat16)
+    for m in (8, 256):
+        x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+        xf = x.float()
+        name = "decode_kernel" if kbench.route(m) == "decode" else "prefill_kernel"
+        for kernel, fn in (("kbench_fma_f32", lambda: kbench.fma_f32(x, w.packed, s32)),
+                           ("kbench_fma_f32 (f32 x)", lambda: kbench.fma_f32(xf, w.packed, s32)),
+                           ("kbench_bf16_gemm", lambda: kbench.bf16_gemm(x, wb))):
+            fn()  # the split-k scratch exists after this call
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            ops = device_ops(prof)
+            print(f"  edge {kernel} w1 m={m} ({kbench.route(m)} route): "
+                  f"{sum(v[1] for v in ops.values())} device operation(s) a call", flush=True)
+            if len(ops) != 1 or any(v[1] != 1 or name not in op for op, v in ops.items()):
+                fail(f"{kernel} w1 m={m}: one call ran {ops}, want one {name}")
+
+
 # ------------------------------------------------------------ phase 3
 
 
@@ -1265,7 +1334,7 @@ def phase_forward(loaded, device, prefill: int = 256, decode: int = 8, verify: i
 #: kernel-name fragments of the chunk's device-time split: the prefill GEMM
 #: (K2, K6), the attention kernels with their combine and scatter passes (K7,
 #: K9, under the names of this tree and of earlier ones), everything else
-CHUNK_MATMUL = ("q40_prefill_kernel", "q80_prefill_kernel")
+CHUNK_MATMUL = ("prefill_kernel",)  # K2 (prefill.cuh's, or an earlier q40_prefill_kernel) and K6
 CHUNK_ATTENTION = ("attn_", "flash_", "paged_kernel", "paged_combine", "scatter_kernel")
 
 
@@ -2107,6 +2176,7 @@ def main(argv=None) -> int:
         phase_edges(device)
         edges_slice4(device)
         edges_styles(device)
+        edges_k11(device)
 
     paths: dict[str, dict] = {}  # launch counts of each path, read just after it
     if "kbench" in phases:

@@ -13,10 +13,18 @@ of its row still runs.
   variants: A  production dispatch (q40_matmul, STYLE auto: K1 for m<=16, K2 above)
             DQ forced deq (K2)      BD forced blockdot (K1)
             MD forced maskdot (K3)  LD forced loopdot (K4)
-            B  legacy fma-f32 kernel (K11-B, csrc/kbench_fma_f32.cu)
+            B  f32-FMA Q40 product, f32 scales (K11-B, csrc/kbench_fma_f32.cu)
             D  bf16-weight reference (K11-D, csrc/kbench_bf16_gemm.cu)
             E  dequantize + torch.matmul (a library yardstick)
             Q8 the Q80 matmul (K5 at m<=16, K6 above)
+The two K11 kernels each take two routes, split at m <= 16 as K1 against K2:
+the decode body (csrc/decode.cuh: a cp.async ring a warp, mma.sync, split-k
+summed inside the launch; bound by the weight's bytes) and K2's wgmma loop
+(csrc/prefill.cuh: a TMA ring, wgmma; at m = 256 still bound by the bytes
+for K11-D, by the bf16 tensor rate for K11-B). K11-B's products are exact
+on the bf16 tensor cores (a bf16 x times a code q - 8 is exact in f32; an
+f32 x enters as three bf16 terms, the weight as w_hi + w_lo on the wgmma
+route), so its bound is the bf16 rate's, not the CUDA cores' f32 rate.
 The forced decode styles apply only when m <= 16; a larger m runs deq, as
 in the JAX package. Rows give the time per call and the rate over the
 weight's bytes (packed nibbles + f16 scales for Q40).
@@ -55,6 +63,40 @@ LAUNCHES = {"kbench_fma_f32": 0, "kbench_bf16_gemm": 0}
 
 # ------------------------------------------------------------ K11-B, K11-D
 
+#: the two routes of each K11 kernel (the C entries' `route`): the decode
+#: body (csrc/decode.cuh) for m <= DECODE_MAX_M rows, K2's wgmma loop
+#: (csrc/prefill.cuh) above, the split of K1 against K2
+ROUTES = ("decode", "wgmma")
+DECODE_MAX_M = qmod.DECODE_MAX_M
+#: column tiles of the decode route for 2-byte weights (csrc/decode.cuh
+#: Bf16Weights: a 4-slot ring a warp, two blocks an SM) and for an f32 x
+#: (its three bf16 terms' registers), widest first
+NARROW_COLS = (64, 32)
+
+
+def route(m: int) -> str:
+    """The route of an m-row call: the decode body up to DECODE_MAX_M rows,
+    the wgmma loop above."""
+    return ROUTES[m > DECODE_MAX_M]
+
+
+def bf16_decode_geometry(k: int, n: int, sms: int) -> qmod.DecodeGeometry:
+    """K11-D's decode launch for a [k, n] weight (k % 8 == 0), whatever m is:
+    K1's rule (q40_matmul.decode_geometry) over NARROW_COLS, so a weight whose
+    column tiles alone fill the card walks all of k in one split (every split
+    cost time at w1, kernel_proof.py k11) and a narrow one is split until
+    every SM has a block."""
+    return qmod.decode_geometry(k, n, sms, cols=NARROW_COLS)
+
+
+def fma_decode_geometry(k: int, n: int, sms: int, x_f32: bool) -> qmod.DecodeGeometry:
+    """K11-B's decode launch: K1's (q40_matmul.decode_geometry), at most 64
+    columns a warp for an f32 x."""
+    geo = qmod.decode_geometry(k, n, sms)
+    if x_f32 and geo.cols > NARROW_COLS[0]:
+        geo = qmod.decode_geometry(k, n, sms, None, NARROW_COLS[0])
+    return geo
+
 
 def fma_dequantize(packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """K11-B's weight: w = f * s - 8 * s in f32 from the unsigned nibbles f
@@ -72,10 +114,38 @@ def fma_f32_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -
     return torch.matmul(x.to(torch.float32), fma_dequantize(packed, scales))
 
 
+def _launch(name: str, x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor | None,
+            out: torch.Tensor, route_: str, geo: qmod.DecodeGeometry | None) -> None:
+    """One launch of K11 kernel `name` on the route `route_` (the decode
+    route under `geo`)."""
+    m, k = x.shape
+    n = w.shape[1]
+    if route_ not in ROUTES or (route_ == "decode" and m > DECODE_MAX_M):
+        raise ValueError(f"{name}: route {route_!r} for {m} rows (the decode route takes at "
+                         f"most {DECODE_MAX_M})")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if route_ == "decode":
+        partial, counters = qmod.decode_scratch(x.device, stream, m, n, geo)
+        tile = (geo.splits, geo.kb_per_split, geo.cols)
+    else:
+        partial = counters = None
+        tile = (1, 0, 0)
+    lib = getattr(build.library(name), name)
+    if name == "kbench_fma_f32":
+        err = lib(x.data_ptr(), w.data_ptr(), scales.data_ptr(), partial, counters,
+                  out.data_ptr(), m, k, n, *tile, int(x.dtype == torch.float32),
+                  ROUTES.index(route_), stream)
+    else:
+        err = lib(x.data_ptr(), w.data_ptr(), partial, counters, out.data_ptr(), m, k, n, *tile,
+                  ROUTES.index(route_), stream)
+    build.check(name, err)
+
+
 def fma_f32(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """K11-B: ``x[m, k] @ (f * s - 8 * s)`` -> f32 [m, n], for any m; x in
-    bf16 or f32, ``packed`` u8 [k/2, n], ``scales`` f32 [k/32, n]. A CPU
-    tensor runs :func:`fma_f32_plain`."""
+    bf16 or f32, ``packed`` u8 [k/2, n], ``scales`` f32 [k/32, n]. One launch
+    on the route of m (:func:`route`). A CPU tensor runs
+    :func:`fma_f32_plain`."""
     m, k = x.shape
     n = packed.shape[-1]
     if k % Q_BLOCK or tuple(packed.shape) != (k // 2, n) or tuple(scales.shape) != (k // Q_BLOCK, n):
@@ -91,11 +161,15 @@ def fma_f32(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> torc
                          f"{packed.dtype} / {scales.dtype}")
     if not (x.is_contiguous() and packed.is_contiguous() and scales.is_contiguous()):
         raise ValueError("fma_f32: x, packed and scales must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError("fma_f32: x must be 16-byte aligned")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    err = build.library("kbench_fma_f32").kbench_fma_f32(
-        x.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(), m, k, n,
-        int(x.dtype == torch.float32), torch.cuda.current_stream(x.device).cuda_stream)
-    build.check("kbench_fma_f32", err)
+    if m == 0:
+        return out
+    r = route(m)
+    geo = (fma_decode_geometry(k, n, qmod._sm_count(x.device.index or 0),
+                               x.dtype == torch.float32) if r == "decode" else None)
+    _launch("kbench_fma_f32", x, packed, scales, out, r, geo)
     LAUNCHES["kbench_fma_f32"] += 1
     return out
 
@@ -108,8 +182,8 @@ def bf16_gemm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def bf16_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K11-D: ``x[m, k] @ w[k, n]`` with bf16 operands -> f32 [m, n], for
-    any m (k and n multiples of 8). A CPU tensor runs
-    :func:`bf16_gemm_plain`."""
+    any m (k and n multiples of 8). One launch on the route of m
+    (:func:`route`). A CPU tensor runs :func:`bf16_gemm_plain`."""
     m, k = x.shape
     if w.dim() != 2 or w.shape[0] != k:
         raise ValueError(f"bf16_gemm: x {tuple(x.shape)} against w {tuple(w.shape)}")
@@ -125,10 +199,12 @@ def bf16_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("bf16_gemm: operands must be 16-byte aligned")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    err = build.library("kbench_bf16_gemm").kbench_bf16_gemm(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check("kbench_bf16_gemm", err)
+    if m == 0:
+        return out
+    r = route(m)
+    geo = (bf16_decode_geometry(k, n, qmod._sm_count(x.device.index or 0))
+           if r == "decode" else None)
+    _launch("kbench_bf16_gemm", x, w, None, out, r, geo)
     LAUNCHES["kbench_bf16_gemm"] += 1
     return out
 

@@ -39,8 +39,8 @@ SIGNATURES = {
                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    "kbench_fma_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "kbench_bf16_gemm": (_P, _P, _P, _I, _I, _I, _P),
+    "kbench_fma_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "kbench_bf16_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -19,6 +19,19 @@ __device__ __forceinline__ float q40_code(uint32_t nib) {
   return __uint_as_float(0x4B000000u | nib) - 8388616.0f;
 }
 
+// An f32 pair as three bf16x2 terms, t[0] + t[1] + t[2] == v exactly (for
+// |v| >= 2^-110): each term is the bf16 rounding of what the terms before it
+// left, and each remainder is exact in f32 (24 significant bits, 8 a term).
+__device__ __forceinline__ void split_bf16x3(float2 v, uint32_t (&t)[3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const __nv_bfloat162 h = __float22bfloat162_rn(v);
+    t[i] = *reinterpret_cast<const uint32_t*>(&h);
+    const float2 f = __bfloat1622float2(h);
+    v = make_float2(v.x - f.x, v.y - f.y);
+  }
+}
+
 // The second pass of every split-k product: out[i] = the sum over splits,
 // in split order, of partial[split, i], for i < mn. No float atomics, so a
 // result is the same from run to run.

@@ -1,7 +1,8 @@
-// Hopper building blocks shared by the wgmma GEMMs (q40_prefill.cu K2,
-// q80_prefill.cu K6): 128-byte-swizzled tile offsets and wgmma descriptors,
-// wgmma and its fences, mbarriers, TMA tile loads and the tensor-map
-// encoder. Included by those sources, never built alone.
+// Hopper building blocks shared by the wgmma GEMMs (prefill.cuh: K2 and the
+// m > 16 routes of K11-B and K11-D; q80_prefill.cu K6): 128-byte-swizzled
+// tile offsets and wgmma descriptors, wgmma and its fences, mbarriers, TMA
+// tile loads and the tensor-map encoder. Included by those sources, never
+// built alone.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
@@ -30,8 +31,10 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
+// wait until at most N committed groups of this warpgroup are in flight
+template <int N = 0>
 __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // the generic-proxy stores to shared memory become visible to the async
 // proxy that wgmma reads through

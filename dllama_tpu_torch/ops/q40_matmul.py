@@ -218,27 +218,29 @@ class DecodeGeometry(NamedTuple):
     cols: int
 
 
-def decode_cols(n: int, splits: int, sms: int) -> int:
-    """The widest column tile of DECODE_COLS whose blocks, at `splits` splits,
-    give every SM one (else the narrowest)."""
-    return next((c for c in DECODE_COLS if -(-n // c) * splits >= sms), DECODE_COLS[-1])
+def decode_cols(n: int, splits: int, sms: int, cols: tuple[int, ...] = DECODE_COLS) -> int:
+    """The widest column tile of `cols` (widest first) whose blocks, at
+    `splits` splits, give every SM one (else the narrowest)."""
+    return next((c for c in cols if -(-n // c) * splits >= sms), cols[-1])
 
 
 @functools.lru_cache(maxsize=None)
-def decode_geometry(k: int, n: int, sms: int, tk: int | None = None,
-                    tn: int | None = None) -> DecodeGeometry:
+def decode_geometry(k: int, n: int, sms: int, tk: int | None = None, tn: int | None = None,
+                    cols: tuple[int, ...] = DECODE_COLS) -> DecodeGeometry:
     """K1's launch for a [k, n] weight, whatever m is: the widest column tile
-    that fills the card at the most splits allowed (DECODE_MAX_SPLITS, each of
-    at least DECODE_MIN_BLOCKS_PER_SPLIT blocks of k), then the most splits
-    that keep to DECODE_BLOCKS_PER_SM blocks an SM (one split where the
-    column tiles alone pass that), so that wide weights walk long runs of k
-    and narrow ones (wk/wv) still reach every SM. BLOCKDOT_TK (`tk`, a
-    divisor of k) fixes the k rows per split, raised to k / DECODE_MAX_SPLITS
-    where it would make more splits than that; BLOCKDOT_TN (`tn`) fixes the
-    columns per block."""
-    nkb = k // Q_BLOCK
+    of `cols` that fills the card at the most splits allowed
+    (DECODE_MAX_SPLITS, each of at least DECODE_MIN_BLOCKS_PER_SPLIT blocks
+    of k, a last block of a k that is no multiple of 32 included), then the
+    most splits that keep to DECODE_BLOCKS_PER_SM blocks an SM (one split
+    where the column tiles alone pass that), so that wide weights walk long
+    runs of k and narrow ones (wk/wv) still reach every SM. BLOCKDOT_TK
+    (`tk`, a divisor of k) fixes the k rows per split, raised to k /
+    DECODE_MAX_SPLITS where it would make more splits than that; BLOCKDOT_TN
+    (`tn`) fixes the columns per block. K3 and K11-B take it as K1 does,
+    K11-D with its own column tiles."""
+    nkb = -(-k // Q_BLOCK)
     most = min(DECODE_MAX_SPLITS, max(1, nkb // DECODE_MIN_BLOCKS_PER_SPLIT))
-    cols = tn or decode_cols(n, most, sms)
+    cols = tn or decode_cols(n, most, sms, cols)
     if tk:
         per = max(tk // Q_BLOCK, -(-nkb // DECODE_MAX_SPLITS))
     else:
@@ -247,22 +249,47 @@ def decode_geometry(k: int, n: int, sms: int, tk: int | None = None,
 
 
 @functools.lru_cache(maxsize=None)
-def loopdot_geometry(k: int, n: int, sms: int) -> DecodeGeometry:
-    """K4's launch for a [k, n] weight, whatever m is: its split boundaries
-    follow k alone (LOOPDOT_SPLITS splits of at least
-    DECODE_MIN_BLOCKS_PER_SPLIT 32-row blocks), so a column's sum has one
-    order whatever n and the SM count are; the column tile (decode_cols,
-    all of whose tiles have four warps along k) follows n and the SMs."""
+def k_split_geometry(k: int, n: int, sms: int, splits: int) -> DecodeGeometry:
+    """A decode-body launch for a [k, n] weight, whatever m is, whose split
+    boundaries follow k alone: `splits` splits of at least
+    DECODE_MIN_BLOCKS_PER_SPLIT 32-row blocks (fewer where k has fewer
+    blocks), so a column's sum has one order
+    whatever n and the SM count are; the column tile (decode_cols, each
+    tile with four warps along k) follows n and the SMs. K4 takes it with
+    LOOPDOT_SPLITS, K5 with q80_matmul.DECODE_SPLITS."""
     nkb = k // Q_BLOCK
-    per = max(DECODE_MIN_BLOCKS_PER_SPLIT, -(-nkb // LOOPDOT_SPLITS))
+    per = max(DECODE_MIN_BLOCKS_PER_SPLIT, -(-nkb // splits))
     splits = -(-nkb // per)
     return DecodeGeometry(splits, per, decode_cols(n, splits, sms))
+
+
+def loopdot_geometry(k: int, n: int, sms: int) -> DecodeGeometry:
+    """K4's launch for a [k, n] weight, whatever m is: LOOPDOT_SPLITS splits
+    that follow k alone (k_split_geometry)."""
+    return k_split_geometry(k, n, sms, LOOPDOT_SPLITS)
 
 
 #: the decode body's split-k scratch on each (device, stream): f32 partials
 #: and the column tiles' arrival counters (0 between launches: the last block
 #: of a tile sets its counter back)
 _DECODE_SCRATCH: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def decode_scratch(device: torch.device, stream: int, m: int, n: int,
+                   geo: DecodeGeometry) -> tuple[int | None, int | None]:
+    """Pointers to the decode body's split-k scratch for an [m, n] output
+    under `geo` on (device, stream): f32 partials and the column tiles'
+    arrival counters (None, None with one split)."""
+    if geo.splits == 1:
+        return None, None
+    key = (device.index or 0, stream)
+    part, count = _DECODE_SCRATCH.get(key, (None, None))
+    if part is None or part.numel() < geo.splits * m * n:
+        part = torch.empty(geo.splits * m * n, dtype=torch.float32, device=device)
+    if count is None or count.numel() < -(-n // geo.cols):
+        count = torch.zeros(-(-n // geo.cols), dtype=torch.int32, device=device)
+    _DECODE_SCRATCH[key] = part, count
+    return part.data_ptr(), count.data_ptr()
 
 
 def decode_launch(name: str, x2: torch.Tensor, weight: torch.Tensor, scales: torch.Tensor,
@@ -272,16 +299,7 @@ def decode_launch(name: str, x2: torch.Tensor, weight: torch.Tensor, scales: tor
     m, k = x2.shape
     n = weight.shape[1]
     stream = torch.cuda.current_stream(x2.device).cuda_stream
-    partial = counters = None
-    if geo.splits > 1:
-        key = (x2.device.index or 0, stream)
-        part, count = _DECODE_SCRATCH.get(key, (None, None))
-        if part is None or part.numel() < geo.splits * m * n:
-            part = torch.empty(geo.splits * m * n, dtype=torch.float32, device=x2.device)
-        if count is None or count.numel() < -(-n // geo.cols):
-            count = torch.zeros(-(-n // geo.cols), dtype=torch.int32, device=x2.device)
-        _DECODE_SCRATCH[key] = part, count
-        partial, counters = part.data_ptr(), count.data_ptr()
+    partial, counters = decode_scratch(x2.device, stream, m, n, geo)
     err = getattr(build.library(name), name)(
         x2.data_ptr(), weight.data_ptr(), scales.data_ptr(), partial, counters, out.data_ptr(),
         m, k, n, geo.splits, geo.kb_per_split, int(out.dtype == torch.float32), geo.cols, stream)

@@ -35,18 +35,15 @@ it against as well.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from dllama_tpu_torch.ops import build
 from dllama_tpu_torch.ops.q40_matmul import (
     DECODE_MAX_M,
-    DECODE_MIN_BLOCKS_PER_SPLIT,
     DecodeGeometry,
     _sm_count,
-    decode_cols,
     decode_launch,
+    k_split_geometry,
 )
 from dllama_tpu_torch.ops.quant import Q_BLOCK, Q8Tensor
 
@@ -104,16 +101,12 @@ def q80_blockdot_plain(x: torch.Tensor, w: Q8Tensor, layer=None, out_dtype=None)
     return out.reshape(*lead, n).to(out_dtype or x.dtype)
 
 
-@functools.lru_cache(maxsize=None)
 def decode_geometry(k: int, n: int, sms: int) -> DecodeGeometry:
-    """The decode kernel's launch for a [k, n] weight, whatever m is: its
-    split boundaries follow k alone (DECODE_SPLITS splits of at least
-    DECODE_MIN_BLOCKS_PER_SPLIT 32-row blocks), so a column's sum has the
-    same order in any weight; the column tile (decode_cols) follows n."""
-    nkb = k // Q_BLOCK
-    per = max(DECODE_MIN_BLOCKS_PER_SPLIT, -(-nkb // DECODE_SPLITS))
-    splits = -(-nkb // per)
-    return DecodeGeometry(splits, per, decode_cols(n, splits, sms))
+    """The decode kernel's launch for a [k, n] weight, whatever m is:
+    DECODE_SPLITS splits that follow k alone (k_split_geometry), so a
+    column's sum has the same order in any weight; the column tile follows
+    n."""
+    return k_split_geometry(k, n, sms, DECODE_SPLITS)
 
 
 def prefill_tile_m(m: int, n: int, sms: int) -> int:

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Three one-off proofs about the attention and matmul kernels, on one NVIDIA GPU.
+"""Four one-off proofs about the attention and matmul kernels, on one NVIDIA GPU.
 
 Run from the repository root (it reuses chip_smoke.py's inputs and timer):
 
@@ -7,6 +7,7 @@ Run from the repository root (it reuses chip_smoke.py's inputs and timer):
     python3 kernel_proof.py loopdot [--reps N]
     python3 kernel_proof.py parity --save FILE      # in one checkout
     python3 kernel_proof.py parity --against FILE   # in another
+    python3 kernel_proof.py k11 [--reps N]
 
 `splits` times the paged attention kernel (K9) under its own split rule and
 under fixed tile counts per split, on decode B=8 at chip_smoke's SPREAD
@@ -26,11 +27,22 @@ call. The candidate geometries replace the wrapper's only inside this
 script.
 
 `parity` computes the K2 (Q40 prefill GEMM), K7 (flash attention), K1 (Q40
-decode) and K5 (Q80 decode) f32 outputs of seeded inputs at the 8B shapes of
+decode), K5 (Q80 decode), K3 and K4 (the maskdot and loopdot styles) and K6
+(Q80 prefill GEMM) f32 outputs of seeded inputs at the 8B shapes of
 chip_smoke's kernels phase and saves them, or compares them bit for bit with
 a file saved by another checkout of the package (copy this script and
 chip_smoke.py into it): the proof that a refactor of a kernel's source
 changed no bit of its result.
+
+`k11` times the kernel benchmark's two kernels at w1 (4096 x 14336), m = 8
+and 16, on both their routes (the decode body, and the wgmma loop, whose
+smallest block pads x to 128 rows), K11-D's decode route under its own
+geometry (one split at w1) and under 2 and 5 splits at 64 and at 32 columns
+a warp, beside torch.matmul on the same inputs
+(bf16 for K11-D, f32 on the f32 weight for K11-B) and a torch.sum over the
+weight's bytes read as f32 (what reading the weight alone takes under this
+timer), each checked against its plain version within TOL_K11. The routes and splits are forced only
+inside this script.
 """
 
 from __future__ import annotations
@@ -162,22 +174,29 @@ def parity(cfg, device, save: str | None, against: str | None) -> None:
                 q, kc, vc, pos, out_dtype=torch.float32)
         del kc, vc
     shapes = {"wq": (d, d), "wk": (d, kvd), "w1": (d, f), "w2": (f, d), "wcls": (d, cfg.vocab_size)}
-    for fmt, fn, rand, cases in (
-            ("q40_decode", q40_matmul, cs.random_q40,
+    q80_decode_cases = [("wq", 1), ("wk", 1), ("w1", 1), ("w1", 8), ("w2", 1), ("wcls", 1),
+                        ("wk", 8), ("w2", 8), ("wcls", 8)]
+    for fmt, fn, rand, style, cases in (
+            ("q40_decode", q40_matmul, cs.random_q40, "auto",
              [(name, m) for name in shapes for m in (1, 8, 9)]),
-            ("q80_decode", q80_matmul, cs.random_q80,
-             [("wq", 1), ("wk", 1), ("w1", 1), ("w1", 8), ("w2", 1), ("wcls", 1), ("wk", 8),
-              ("w2", 8), ("wcls", 8)])):
-        for name, m in cases:  # the kernels phase's decode cases (K1 at STYLE auto)
+            ("q80_decode", q80_matmul, cs.random_q80, "auto", q80_decode_cases),
+            ("q40_maskdot", q40_matmul, cs.random_q40, "maskdot",
+             [(name, m) for name in shapes for m in (1, 8, 16)]),
+            ("q40_loopdot", q40_matmul, cs.random_q40, "loopdot",
+             [(name, m) for name in shapes for m in (1, 8, 16)]),
+            ("q80_prefill", q80_matmul, cs.random_q80, "auto",
+             [("w1", 256), ("w1", 32), ("w2", 256), ("wq", 256), ("wk", 256)])):
+        for name, m in cases:  # the kernels phase's cases of each kernel
             k, n = shapes[name]
             w = rand(gen, (2,), k, n, device)
             x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
-            outs[f"{fmt} {name} m={m}"] = fn(x, w, 1, out_dtype=torch.float32)
+            with forced_style(style):
+                outs[f"{fmt} {name} m={m}"] = fn(x, w, 1, out_dtype=torch.float32)
             del w
     outs = {k: v.cpu() for k, v in outs.items()}
     if save:
         torch.save(outs, save)
-        print(f"parity: saved {len(outs)} K2/K7/K1/K5 outputs to {save}", flush=True)
+        print(f"parity: saved {len(outs)} K2/K7/K1/K5/K3/K4/K6 outputs to {save}", flush=True)
     if against:
         ref = torch.load(against)
         differ = [k for k in outs if not torch.equal(outs[k], ref[k])]
@@ -193,6 +212,45 @@ def parity(cfg, device, save: str | None, against: str | None) -> None:
             cs.fail(f"parity: outputs differ from {against}: {differ}")
 
 
+def k11(cfg, device, timer) -> None:
+    import torch
+
+    from dllama_tpu_torch.experiments import kbench
+    from dllama_tpu_torch.ops import q40_matmul as q40
+
+    gen = torch.Generator(device=device).manual_seed(14)
+    sms = q40._sm_count(device.index or 0)
+    k, n = cfg.dim, cfg.hidden_dim
+    w = cs.random_q40(gen, (), k, n, device)
+    s32, wb = w.scales.to(torch.float32), w.dequantize(torch.bfloat16)
+    wf = kbench.fma_dequantize(w.packed, s32)
+    for m in (8, 16):
+        x = torch.randn((m, k), generator=gen, device=device).to(torch.bfloat16)
+        for name, wt, sc, plain, lib, geos in (
+                ("kbench_bf16_gemm", wb, None, kbench.bf16_gemm_plain(x, wb),
+                 lambda: torch.matmul(x, wb),
+                 [kbench.bf16_decode_geometry(k, n, sms)]
+                 + [q40.DecodeGeometry(s, -(-k // 32 // s), c) for c in kbench.NARROW_COLS
+                    for s in (2, 5)]),
+                ("kbench_fma_f32", w.packed, s32, kbench.fma_f32_plain(x, w.packed, s32),
+                 lambda: torch.matmul(x.float(), wf),
+                 [kbench.fma_decode_geometry(k, n, sms, False)])):
+            tol = cs.TOL_K11 * plain.abs().max().item()
+            line = [f"torch.matmul {cs._r(timer(lib))}",
+                    f"torch.sum over the weight's bytes as f32 "
+                    f"{cs._r(timer(lambda: torch.sum(wt.view(torch.float32))))}"]
+            for route, geo in [("decode", g) for g in geos] + [("wgmma", None)]:
+                out = torch.empty((m, n), dtype=torch.float32, device=device)
+                kbench._launch(name, x, wt, sc, out, route, geo)
+                err = (out - plain).abs().max().item()
+                if not err <= tol:
+                    cs.fail(f"k11 {name} m={m} {route} {geo}: max error {err} over {tol}")
+                ms = timer(lambda: kbench._launch(name, x, wt, sc, out, route, geo))
+                line.append(f"{route} {tuple(geo) if geo else ''} {cs._r(ms)}")
+            print(f"  k11 {name} w1 m={m} (each err <= TOL_K11; splits, blocks a split, "
+                  f"columns; ms): " + "; ".join(line), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="proof", required=True)
@@ -200,7 +258,9 @@ def main(argv=None) -> int:
     sp.add_argument("--reps", type=int, default=20, help="timed runs per case")
     st = sub.add_parser("loopdot", help="K4's split counts and one ascending walk, timed")
     st.add_argument("--reps", type=int, default=20, help="timed runs per case")
-    pp = sub.add_parser("parity", help="save or compare K2/K7/K1/K5 outputs bit for bit")
+    kp = sub.add_parser("k11", help="K11-B and K11-D on both routes, timed")
+    kp.add_argument("--reps", type=int, default=20, help="timed runs per case")
+    pp = sub.add_parser("parity", help="save or compare K2/K7/K1/K5/K3/K4/K6 outputs bit for bit")
     pp.add_argument("--save", help="save the outputs here")
     pp.add_argument("--against", help="compare the outputs with this file")
     args = ap.parse_args(argv)
@@ -220,6 +280,9 @@ def main(argv=None) -> int:
     elif args.proof == "loopdot":
         print("loopdot (K4 on the decode body, Llama-3.1-8B shapes):", flush=True)
         loopdot(cfg, device, cs.Timer(device, args.reps))
+    elif args.proof == "k11":
+        print("k11 (the kernel benchmark's K11-B and K11-D, both routes):", flush=True)
+        k11(cfg, device, cs.Timer(device, args.reps))
     else:
         parity(cfg, device, args.save, args.against)
     return 0

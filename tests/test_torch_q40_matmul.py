@@ -171,8 +171,11 @@ def _source_constants(name: str) -> dict[str, int]:
 
 def test_prefill_tile_constants_match_the_kernel():
     """prefill_splits cuts k in the kernel's own steps and counts its own
-    output tiles and blocks per SM."""
-    c = _source_constants("q40_prefill.cu")
+    output tiles and blocks per SM (the loop's constants, in the header
+    q40_prefill.cu includes)."""
+    src = Path(__file__).resolve().parents[1] / "dllama_tpu_torch" / "ops" / "csrc"
+    assert '#include "prefill.cuh"' in (src / "q40_prefill.cu").read_text()
+    c = _source_constants("prefill.cuh")
     assert (c["BM"], c["BM_SMALL"], c["BN"], c["BK"], c["kMinBlocksPerSm"]) == (
         PREFILL_TILE_M, PREFILL_TILE_M_SMALL, PREFILL_TILE_N, PREFILL_STEP_K,
         PREFILL_BLOCKS_PER_SM)
