@@ -64,6 +64,23 @@ Q80 (random weights from a seed), and exits 0 only if every phase passed:
               of spec 8 and spec 0 equal, or first differ at a near-tie of the
               plain run's logits; HTTP serve with --spec 8 and a spec_k 0
               request.
+12. graphs    decode chunks as CUDA graphs (engine/graphs.py) against the same
+              bodies launched from Python (`capture=False`), on the Q40 8B
+              model: one stream (greedy ids and a seeded sampled stream
+              equal), then eight paged slots (the same two checks); for
+              each, wall ms and device ms a step (profiler) and the busy
+              share, captured and not, and each kernel's launches in one
+              replayed chunk exactly those of the steps it ran; the graphs
+              captured and the seconds the captures took; then the CLI
+              `serve --slots 8 --warmup auto` in a child process: its boot
+              report (full coverage), and its first request's content equal
+              to a server's without warmup.
+
+Every path runs its decode chunks as captured CUDA graphs (the engines'
+default on a card); a replay adds the launches its capture recorded to each
+wrapper's count, so the launch counts below are counted through replays.
+The q80 phase also profiles one 8-slot chunk with the CUDA RMSNorm (K10's
+device time inside the graph).
 
 The kernels phase also holds K1 and K5 (the decode body csrc/decode.cuh)
 against the plain version of their own arithmetic (exact-code partials,
@@ -130,6 +147,13 @@ Q40_KERNELS = ("q40_decode", "q40_prefill", "q40_maskdot", "q40_loopdot")
 #: kernel of each forced decode style of q40_matmul.STYLE
 STYLE_KERNELS = {"maskdot": "q40_maskdot", "loopdot": "q40_loopdot", "deq": "q40_prefill"}
 Q80_KERNELS = ("q80_decode", "q80_prefill")
+#: graphs phase: decode tokens a stream for the id checks, steps of a timed
+#: chunk (one stream: generate's chunk; 8 slots: the scheduler's DECODE_CHUNK)
+GRAPH_TOKENS = 32
+GRAPH_CHUNK = {"single": 8, "batch": 4}
+#: clock cycles of the spin kernel that holds a timed chunk back until the
+#: host has enqueued it (~50 ms at the H100's 1.98 GHz)
+SPIN_CYCLES = 100_000_000
 #: kernel -> (case of its row, source, TPU kernel it replaces, main path that
 #: launches it; None: no path routes it, as in the JAX package)
 KERNEL_ROWS = {
@@ -163,6 +187,17 @@ KERNEL_ROWS = {
     "kbench_bf16_gemm": ("w1 4096x14336 m=8", "dllama_tpu_torch/ops/csrc/kbench_bf16_gemm.cu",
                          "experiments/kbench.py:66", "kbench"),
 }
+
+
+_PHASE_MARK = [time.perf_counter()]
+
+
+def phase_done(name: str, phases=None) -> None:
+    """Print the seconds since the previous phase ended, when `name` ran."""
+    now = time.perf_counter()
+    if phases is None or name in phases:
+        print(f"phase {name}: {now - _PHASE_MARK[0]:.1f} s", flush=True)
+    _PHASE_MARK[0] = now
 
 
 def fail(msg: str) -> None:
@@ -1707,6 +1742,7 @@ def phase_batch(loaded, n_slots: int = 8, max_tokens: int = 32,
     window_s = (max(t + r["timings"]["e2e_ms"] / 1e3 for r, t in zip(first, sent[0]))
                 - min(t + r["timings"]["ttft_ms"] / 1e3 for r, t in zip(first, sent[0])))
     return {"slots": n_slots, "forwards": forwards, "launches": launches,
+            "first_content": contents[0][0],
             "completion_tokens": sum(n_tok), "decode_tokens": sum(n - 1 for n in n_tok),
             "decode_window_s": window_s,
             "agg_decode_tok_s": sum(n - 1 for n in n_tok) / window_s if window_s > 0 else None,
@@ -1717,9 +1753,10 @@ def phase_batch(loaded, n_slots: int = 8, max_tokens: int = 32,
             "pool_after_drain": {k: report[k] for k in ("total", "free", "ok")}}
 
 
-def phase_profile_batch(loaded, n_slots: int = 8, steps: int = 8) -> dict:
+def phase_profile_batch(loaded, n_slots: int = 8, steps: int = 8, names=K1_NAMES) -> dict:
     """torch.profiler over one n_slots-slot decode chunk of `steps` tokens
-    on a paged BatchEngine, every slot live after a prefill."""
+    on a paged BatchEngine, every slot live after a prefill (the split of
+    decode_split by the kernel names `names`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1753,7 +1790,7 @@ def phase_profile_batch(loaded, n_slots: int = 8, steps: int = 8) -> dict:
             "agg_tok_s": n_slots * steps / wall,
             "unprofiled_ms_per_step": bare / steps * 1e3,
             "unprofiled_agg_tok_s": n_slots * steps / bare,
-            **decode_split(by_name, steps),
+            **decode_split(by_name, steps, names),
             "top": [(name[:60], round(us / steps / 1e3, 4)) for us, name in top]}
 
 
@@ -1871,9 +1908,16 @@ def phase_q80(device, prompt: str) -> dict:
         layers.RMS_NORM_IMPL = "cuda"
         try:
             batch = phase_batch(loaded, mm_kernels=Q80_KERNELS)
+            k10 = phase_profile_batch(loaded, names=("rms_norm_kernel",))
         finally:
             layers.RMS_NORM_IMPL = "torch"
+        k10_per = k10["q40_ms_per_step"] / max(k10["q40_launches_per_step"], 1)
+        print(f"q80 batch K10 inside the decode graph: {k10['q40_ms_per_step']:.4f} ms in "
+              f"{k10['q40_launches_per_step']:.1f} launches a step ({k10_per:.5f} ms a launch) "
+              f"of {k10['device_ms_per_step']:.3f} ms device time; {k10['wall_ms_per_step']:.3f} "
+              f"ms a step wall", flush=True)
         launches = batch.pop("launches")
+        batch.pop("first_content")
         print(f"q80 batch: {batch}; launches {launches}", flush=True)
         if launches["rms_norm"] < (2 * n_layers + 1) * batch["forwards"]:
             fail(f"q80 batch: {launches['rms_norm']} rms_norm launches for "
@@ -1964,7 +2008,14 @@ def _stat(stats: list[str], head: str) -> int:
     return int(line.split()[1]) if line else 0
 
 
-def phase_styles(loaded, device, mpath: str, tpath: str, prompt: str) -> dict:
+def inference_argv(mpath: str, tpath: str, prompt: str) -> list[str]:
+    """The CLI's greedy `inference` run of 32 tokens on the smoke's files."""
+    return ["inference", "--model", mpath, "--tokenizer", tpath, "--prompt", prompt,
+            "--temperature", "0", "--steps", "32", "--max-seq-len", "4096"]
+
+
+def phase_styles(loaded, device, mpath: str, tpath: str, prompt: str,
+                 auto_text: str | None = None) -> dict:
     """The Q40 8B model under q40_matmul.STYLE = maskdot, loopdot and deq:
     the forward (256-token prefill, 8 decode steps, a 9-row verify forward)
     against the plain versions, with its exact launch counts (a decode or
@@ -1972,15 +2023,17 @@ def phase_styles(loaded, device, mpath: str, tpath: str, prompt: str) -> dict:
     K2 in its 7L layer matmuls and the style's kernel for its one-row
     lm-head), then 32 greedy tokens
     through the `inference` CLI: no K1 launch, the style's kernel 7L+1 times
-    per decode forward, K2 on prefill chunks. Returns {style: launches}."""
+    per decode forward, K2 on prefill chunks; each text beside STYLE auto's
+    (`auto_text`, the inference phase's, or run here). Returns {style:
+    launches}."""
     from dllama_tpu_torch.ops import q40_matmul as q40
 
     n_layers = loaded.config.n_layers
     per_fwd = 7 * n_layers + 1
-    argv = ["inference", "--model", mpath, "--tokenizer", tpath, "--prompt", prompt,
-            "--temperature", "0", "--steps", "32", "--max-seq-len", "4096"]
-    rc, auto_text, _ = _cli(argv)
-    print(f"styles auto inference: rc {rc}; text {auto_text[:60]!r}", flush=True)
+    argv = inference_argv(mpath, tpath, prompt)
+    if auto_text is None:
+        rc, auto_text, _ = _cli(argv)
+    print(f"styles auto inference: text {auto_text[:60]!r}", flush=True)
     out = {}
     for style in ("maskdot", "loopdot", "deq"):
         kernel = STYLE_KERNELS[style]
@@ -2097,6 +2150,301 @@ def phase_spec(loaded, mpath: str, tpath: str) -> dict:
     return {k: launches[k] + serve_l[k] for k in launches}
 
 
+# ------------------------------------------------------------ phase 12
+
+
+def chunk_timing(run, steps: int, reps: int = 5) -> dict:
+    """One decode chunk of `steps` steps, `run` (which ends when its tokens
+    are on the host), a step's share of: the wall ms (host clock, median of
+    `reps` runs); the stream ms (CUDA events around a run that a ~50 ms
+    spin kernel holds back until the host has enqueued it, median of
+    `reps`: the chunk's device window with the host out of its way); the
+    device ms (the device operations torch.profiler saw in one more run,
+    summed); and the busy share device / wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()  # captures where needed
+    walls, streams = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        walls.append(time.perf_counter() - t0)
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        run()
+        b.record()
+        b.synchronize()
+        streams.append(a.elapsed_time(b))
+    wall = statistics.median(walls)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    ops = device_ops(prof)
+    device_s = sum(v[0] for v in ops.values()) / 1e6
+    return {"wall_ms": wall / steps * 1e3, "device_ms": device_s / steps * 1e3,
+            "busy": device_s / wall, "device_ops": sum(v[1] for v in ops.values()) / steps,
+            "stream_ms": statistics.median(streams) / steps}
+
+
+def graph_launch_ms(prog, reps: int = 5) -> float:
+    """Host ms of one `replay()` of a captured decode program, the card kept
+    busy by a spin kernel so the call never waits for it (median of
+    `reps`). The replays move the engine's device state: run it last."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        t0 = time.perf_counter()
+        prog.graph.replay()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e3
+
+
+def host_ms(dispatch, consume=None, reps: int = 5) -> float:
+    """Median host ms of `dispatch` alone, the card idle before each call
+    (`consume` then waits for what it launched)."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        launched = dispatch()
+        times.append(time.perf_counter() - t0)
+        if consume is not None:
+            consume(launched)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e3
+
+
+def replay_launches(run, want: dict, label: str) -> None:
+    """The launches of one more `run` (a chunk whose program is captured
+    already) must be exactly `want`: counted through the replay."""
+    reset_counters()
+    run()
+    got = {k: v for k, v in counters().items() if v}
+    if got != want:
+        fail(f"{label}: launches {got} in one chunk, want {want}")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def cli_warmup_serve(mpath: str, tpath: str, body: dict) -> tuple[dict, str, float]:
+    """`serve --slots 8 --warmup auto` in a child process (the CLI as a user
+    runs it): -> (its boot report, the content of `body`'s completion,
+    seconds from the start to the server's ready line)."""
+    import signal
+
+    port = _free_port()
+    cmd = [sys.executable, "-u", "-m", "dllama_tpu_torch", "serve", "--model", mpath,
+           "--tokenizer", tpath, "--slots", "8", "--warmup", "auto", "--port", str(port),
+           "--max-seq-len", "4096"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines: list[str] = []
+    ready = threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            if "/v1/chat/completions" in line:
+                ready.set()
+        ready.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        if not ready.wait(300) or proc.poll() is not None:
+            fail(f"graphs: serve --warmup auto did not come up: {lines[-20:]}")
+        boot_s = time.perf_counter() - t0
+        report = next((json.loads(ln[len("warmup: "):]) for ln in lines
+                       if ln.startswith("warmup: ")), None)
+        st, raw = _post(port, body)
+        if st != 200:
+            fail(f"graphs: serve --warmup auto answered {st}: {raw[:300]!r}")
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=10)
+    if report is None:
+        fail(f"graphs: serve --warmup auto printed no boot report: {lines[-20:]}")
+    return report, json.loads(raw)["choices"][0]["message"]["content"], boot_s
+
+
+def phase_graphs(loaded, mpath: str, tpath: str, prompt: str, want: str | None = None) -> dict:
+    """Decode chunks as CUDA graphs against the same bodies launched from
+    Python, on the loaded Q40 8B model: one stream, then eight paged slots
+    at page 128 (ids and timings, see the module's docstring), then the
+    CLI's `serve --slots 8 --warmup auto`, whose first request's content
+    must equal `want` (the batch phase's first content, from a server
+    without warmup; asked of one here when None). Returns the launches of
+    the captured runs."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from dllama_tpu_torch.engine.batch import BatchEngine
+    from dllama_tpu_torch.engine.engine import InferenceEngine
+    from dllama_tpu_torch.engine.sampling import Sampler
+    from dllama_tpu_torch.serve.api import graceful_drain, make_server
+    from dllama_tpu_torch.serve.scheduler import DECODE_CHUNK
+
+    cfg, eng, tok = loaded.config, loaded.engine, loaded.tokenizer
+    per_fwd = 7 * cfg.n_layers + 1
+    out: dict = {"launches": {}}
+
+    def add(launches):
+        for k, v in launches.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+
+    # ---- one stream: the loaded engine (captured) and one on its weights (not)
+    ptoks = tok.encode(prompt, add_bos=True)
+    single = {}
+    n = GRAPH_CHUNK["single"]
+    for label, capture in (("captured", True), ("uncaptured", False)):
+        e = InferenceEngine(cfg, eng.params, cache_dtype=eng.cache.k.dtype,
+                            max_seq_len=eng.seq_len, device=eng.device, capture=capture)
+        reset_counters()
+        ids = {}
+        for kind, sampler in (("greedy", Sampler(0.0, 0.9, 0)), ("sampled", Sampler(0.8, 0.9, 7))):
+            e.reset(0)
+            ids[kind] = list(e.generate(ptoks, GRAPH_TOKENS + 1, sampler, chunk=n))
+        if label == "captured":
+            add(counters())
+        start, last = len(ptoks), ids["greedy"][0]
+
+        def run(e=e, start=start, last=last):
+            e.reset(start)
+            return e.decode_greedy_n([[last]], n)
+
+        timing = chunk_timing(run, n, reps=5 if capture else 2)
+        replay_launches(run, {"q40_decode": per_fwd * n, "flash_attention": cfg.n_layers * n},
+                        f"graphs single-stream {label}")
+        stats = e.programs.stats()
+        single[label] = dict(ids=ids, host_ms=None, graphs=stats["graphs"],
+                             capture_s=stats["capture_s"], **timing)
+        if capture:
+            single[label]["launch_ms"] = graph_launch_ms(e.programs.find("greedy", n))
+        del e, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    for kind in ("greedy", "sampled"):
+        if single["captured"]["ids"][kind] != single["uncaptured"]["ids"][kind]:
+            fail(f"graphs: single-stream {kind} ids differ with and without capture")
+    # ---- eight paged slots
+    prompts = [tok.encode(p) for p in batch_prompts(8)]
+    batch = {}
+    n = GRAPH_CHUNK["batch"]
+    for label, capture in (("captured", True), ("uncaptured", False)):
+        be = BatchEngine(cfg, eng.params, n_slots=8, cache_dtype=eng.cache.k.dtype,
+                         max_seq_len=eng.seq_len, kv_layout="paged", page_size=128,
+                         device=eng.device, capture=capture)
+        reset_counters()
+        ids = {}
+        for kind, temp in (("greedy", 0.0), ("sampled", 0.8)):
+            for slot, p in enumerate(prompts):
+                be.release(slot)
+                be.add(slot, p, temperature=temp, seed=100 + slot)
+            ids[kind] = np.concatenate([be.decode(n) for _ in range(GRAPH_TOKENS // n)]).tolist()
+        for slot in range(8):
+            be.release(slot)
+        for slot, p in enumerate(prompts):
+            be.add(slot, p, temperature=0.0)
+        if capture:
+            add(counters())
+
+        def run(be=be):
+            return be.decode(n)
+
+        timing = chunk_timing(run, n, reps=5 if capture else 2)
+        replay_launches(run, {"q40_decode": per_fwd * n, "paged_attention": cfg.n_layers * n},
+                        f"graphs 8 slots {label}")
+        timing["host_ms"] = host_ms(lambda: be.decode_dispatch(n), be.decode_consume,
+                                    reps=5 if capture else 2)
+        stats = be.programs.stats()
+        batch[label] = dict(ids=ids, graphs=stats["graphs"], capture_s=stats["capture_s"],
+                            **timing)
+        if capture:
+            batch[label]["launch_ms"] = graph_launch_ms(be.programs.find("greedy", n))
+        del be, run
+        gc.collect()  # the engine and its programs' bodies refer to each other
+        torch.cuda.empty_cache()
+    for kind in ("greedy", "sampled"):
+        if batch["captured"]["ids"][kind] != batch["uncaptured"]["ids"][kind]:
+            fail(f"graphs: 8-slot {kind} ids differ with and without capture")
+    out["graphs"] = single["captured"]["graphs"] + batch["captured"]["graphs"]
+    out["capture_s"] = single["captured"]["capture_s"] + batch["captured"]["capture_s"]
+    for tier, res in (("single stream", single), ("8 slots", batch)):
+        for label in ("captured", "uncaptured"):
+            r = res[label]
+            print(f"graphs {tier} {label}: {r['wall_ms']:.3f} ms a step wall, "
+                  f"{r['stream_ms']:.3f} ms stream time (events, host held off), "
+                  f"{r['device_ms']:.3f} ms device time (profiler), busy share "
+                  f"{r['busy']:.3f}, {r['device_ops']:.1f} device ops a step"
+                  + (f"; host {r['host_ms']:.3f} ms a chunk in decode_dispatch"
+                     if r["host_ms"] is not None else "")
+                  + (f"; replay() {r['launch_ms']:.3f} ms of host time a chunk"
+                     if "launch_ms" in r else "")
+                  + "; greedy and sampled ids equal to the other's", flush=True)
+        out[tier] = {k: {m: res[k].get(m) for m in ("wall_ms", "stream_ms", "device_ms",
+                                                     "busy", "host_ms", "launch_ms")}
+                     for k in res}
+    print(f"graphs: {out['graphs']} graphs captured in {out['capture_s']:.2f} s "
+          f"(single stream {single['captured']['graphs']}, 8 slots "
+          f"{batch['captured']['graphs']})", flush=True)
+    # ---- the CLI with --warmup auto, against a server without warmup
+    body = {"messages": [{"role": "user", "content": batch_prompts(1)[0]}], "temperature": 0,
+            "max_tokens": GRAPH_TOKENS}
+    if want is None:
+        httpd, api = make_server(loaded, host="127.0.0.1", port=0, n_slots=8)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        try:
+            st, raw = _post(httpd.server_address[1], body)
+        finally:
+            graceful_drain(httpd, api, timeout_s=60)
+            httpd.server_close()
+        if st != 200:
+            fail(f"graphs: the server without warmup answered {st}")
+        want = json.loads(raw)["choices"][0]["message"]["content"]
+        del api, httpd
+        gc.collect()
+        torch.cuda.empty_cache()
+    report, got, boot_s = cli_warmup_serve(mpath, tpath, body)
+    print(f"graphs: serve --slots 8 --warmup auto ready in {boot_s:.1f} s; boot report "
+          f"{json.dumps(report)}", flush=True)
+    if got != want:
+        fail(f"graphs: the first request's content differs with --warmup auto: {got[:80]!r} "
+             f"vs {want[:80]!r}")
+    coverage = 3 * DECODE_CHUNK
+    if not report.get("full_coverage") or report.get("graphs_captured") != coverage:
+        fail(f"graphs: --warmup auto report {report}, want full coverage and {coverage} graphs")
+    print(f"graphs: --warmup auto first request's content equals the server's without "
+          f"warmup ({len(got)} characters)", flush=True)
+    out["warmup"] = report
+    return out
+
+
 # ------------------------------------------------------------ main
 
 
@@ -2131,7 +2479,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=20, help="timed runs per case (0: no timing)")
     ap.add_argument("--phases",
-                    default="card,kernels,kbench,forward,serve,batch,inference,styles,spec,f8,q80",
+                    default="card,kernels,kbench,forward,serve,batch,inference,styles,spec,"
+                            "graphs,f8,q80",
                     help="comma list; not in the default: 'profile' adds a "
                          "torch.profiler pass over one decode chunk, single-stream "
                          "and 8-slot; 'chunk' is the prefill-chunk timing alone (Q40 "
@@ -2163,6 +2512,7 @@ def main(argv=None) -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "arning" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    phase_done("card")
 
     cfg = llama31_8b(N_LAYERS_8B)
     timer = Timer(device, args.reps)
@@ -2177,14 +2527,16 @@ def main(argv=None) -> int:
         edges_slice4(device)
         edges_styles(device)
         edges_k11(device)
+    phase_done("kernels", phases)
 
     paths: dict[str, dict] = {}  # launch counts of each path, read just after it
     if "kbench" in phases:
         paths["kbench"] = phase_kbench()
+    phase_done("kbench", phases)
     prompt = ("Summarize the plot of a long story about a lighthouse keeper, "
               "a storm, and a ship that never arrives.")
     if phases & {"forward", "chunk", "serve", "profile", "batch", "inference", "styles", "spec",
-                  "f8"}:
+                  "graphs", "f8"}:
         from dllama_tpu_torch.engine.loader import load_model
 
         tmp = tempfile.TemporaryDirectory(prefix="dllama_smoke_")
@@ -2198,6 +2550,7 @@ def main(argv=None) -> int:
         loaded = load_model(mpath, tpath, max_seq_len=4096, device=device)
         print(f"load_model: {time.perf_counter() - t0:.1f} s; kernels={loaded.engine.backend} "
               f"attention={loaded.engine.attn_route}", flush=True)
+        phase_done("model")
 
         if "forward" in phases:
             check_forward(loaded, device, "forward")
@@ -2205,6 +2558,7 @@ def main(argv=None) -> int:
             report_chunk("Q40 dense (K2 + K7)", prefill_chunk_ms(loaded, device))
             report_chunk("Q40 paged, page 128 (K2 + K9)",
                          prefill_chunk_ms(loaded, device, page=128))
+        phase_done("forward", phases)
 
         if "serve" in phases:
             launches = serve_checked(loaded, prompt, "serve", Q40_KERNELS,
@@ -2213,6 +2567,7 @@ def main(argv=None) -> int:
                 if launches[k] == 0:
                     fail(f"serve: kernel {k} was never launched on the single-engine path")
             paths["serve"] = launches
+        phase_done("serve", phases)
 
         if "profile" in phases:
             prof = phase_profile(loaded, loaded.tokenizer.encode(prompt))
@@ -2257,10 +2612,13 @@ def main(argv=None) -> int:
                         sp["splitk_reduce_per_step"] or not sp["q40_launches_per_step"]):
                     fail(f"profile STYLE={style}: no {STYLE_KERNELS[style]} launch, or a "
                          "splitk_reduce pass")
+        phase_done("profile", phases)
 
+        batch_first = None  # round 1's first content: the server without warmup
         if "batch" in phases:
             batch = phase_batch(loaded)
             paths["batch"] = batch.pop("launches")
+            batch_first = batch.pop("first_content")
             print(f"batch: {batch}; launches {paths['batch']}", flush=True)
             print(f"batch: aggregate decode {batch['agg_decode_tok_s']:.1f} tok/s over "
                   f"{batch['slots']} slots ({batch['decode_tokens']} decode tokens in "
@@ -2268,34 +2626,37 @@ def main(argv=None) -> int:
                   f"{batch['decode_slots_mean'][0]:.2f} and {batch['decode_slots_mean'][1]:.2f} "
                   f"in rounds 1 and 2; TTFT p50 {batch['ttft_ms_p50']:.1f} ms, max "
                   f"{batch['ttft_ms_max']:.1f} ms", flush=True)
+        phase_done("batch", phases)
 
+        auto_text = None  # the greedy CLI text under STYLE auto, for the styles phase
         if "inference" in phases:
-            from dllama_tpu_torch.cli.main import main as cli
-
             reset_counters()
-            buf = io.StringIO()
-            with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
-                rc = cli(["inference", "--model", mpath, "--tokenizer", tpath,
-                          "--prompt", prompt, "--temperature", "0", "--steps", "32",
-                          "--max-seq-len", "4096"])
+            rc, auto_text, stats = _cli(inference_argv(mpath, tpath, prompt))
             inf_launches = counters()
-            stats = [ln for ln in buf.getvalue().splitlines()
-                     if ln.startswith(("Prefill:", "Decode:"))]
             print(f"inference: rc {rc}; {' | '.join(stats)}; launches {inf_launches}",
                   flush=True)
             if rc != 0 or min(inf_launches[k] for k in SERVE_KERNELS) == 0:
                 fail("inference: the CLI failed or skipped a kernel")
+        phase_done("inference")
 
         if "styles" in phases:
-            for style, launches in phase_styles(loaded, device, mpath, tpath, prompt).items():
+            for style, launches in phase_styles(loaded, device, mpath, tpath, prompt,
+                                                auto_text).items():
                 paths[f"styles-{style}"] = launches
+        phase_done("styles", phases)
 
         if "spec" in phases:
             paths["spec"] = phase_spec(loaded, mpath, tpath)
+        phase_done("spec", phases)
+
+        if "graphs" in phases:
+            paths["graphs"] = phase_graphs(loaded, mpath, tpath, prompt, batch_first)["launches"]
+        phase_done("graphs", phases)
         del loaded
         torch.cuda.empty_cache()
         if "f8" in phases:
             paths["f8"] = phase_f8(mpath, tpath, device, prompt)
+        phase_done("f8", phases)
         tmp.cleanup()  # the Q40 model and its files go before the Q80 ones come
 
     if "q80" in phases:
@@ -2306,6 +2667,7 @@ def main(argv=None) -> int:
             report_chunk("Q80 dense (K6 + K7)", prefill_chunk_ms(loaded, device))
             del loaded
         torch.cuda.empty_cache()
+    phase_done("q80", phases)
 
     if results:
         line = []

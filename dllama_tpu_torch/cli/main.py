@@ -14,7 +14,8 @@ ported yet are accepted by name and refused with a clear message (exit 2);
 the batched tier's `auto` defaults for features not yet ported (radix prefix
 tree, hybrid chunked prefill, preemption) resolve to off, with one logged
 line each. `--spec K` (prompt-lookup speculative decoding) drives the
-single-engine paths; with `--slots > 0` it is refused.
+single-engine paths; with `--slots > 0` it is refused. `serve --slots N
+--warmup auto` captures every decode program before the first request.
 """
 
 from __future__ import annotations
@@ -101,7 +102,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tenant-weight", action="append", default=[],
                    help="fair-queue tenant weight NAME=W (not yet ported)")
     p.add_argument("--warmup", choices=["auto", "off"], default="off",
-                   help="boot precompile (not yet ported)")
+                   help="serve --slots > 0: capture every decode program (CUDA graph) "
+                        "and run each prefill width once before the first request; "
+                        "ignored with a warning on the single-engine tier")
     p.add_argument("--restart-max", type=int, default=0,
                    help="warm engine restarts (not yet ported)")
     p.add_argument("--spec", type=int, default=0, metavar="K",
@@ -127,8 +130,6 @@ def _refuse_unported(args) -> None:
         raise NotPorted("--kv-host-pages (the host-RAM KV spill tier)")
     if args.tenant_weight:
         raise NotPorted("--tenant-weight")
-    if args.warmup != "off":
-        raise NotPorted("--warmup")
     if args.restart_max:
         raise NotPorted("--restart-max (warm engine restarts)")
     if args.mesh is not None:
@@ -278,7 +279,7 @@ def cmd_serve(args) -> int:
         sse_heartbeat_s=args.sse_heartbeat_s, replica_id=args.replica_id,
         drain_timeout_s=args.drain_timeout_s, kv_layout=args.kv_layout,
         page_size=args.page_size, kv_pages=args.kv_pages, max_queue=args.max_queue,
-        overlap=args.overlap == "on", spec=args.spec,
+        overlap=args.overlap == "on", spec=args.spec, warmup=args.warmup,
     )
 
 

@@ -11,12 +11,16 @@ leave at EOS: the scheduling core of continuous batching. Mechanics:
 * sampling parameters are per-slot vectors, and each slot draws from its OWN
   counter-based generator (sampling.CounterRNG): a request's sampled
   continuation follows from its seed whatever shares the batch.
-* decode state is DEVICE-RESIDENT: the per-slot vectors live as tensors
-  carried chunk to chunk (the numpy mirrors refresh at admission/commit/
-  release boundaries), so steady-state decode uploads nothing and reads
-  nothing back. decode_dispatch/decode_consume split a chunk into a launch
-  that returns at once and a wait on an event, so the serving scheduler runs
-  its Python work while the card computes.
+* decode state is DEVICE-RESIDENT: the per-slot vectors live in tensors
+  made once and updated in place chunk to chunk (the numpy mirrors refresh
+  at admission/commit/release boundaries), so steady-state decode uploads
+  nothing and reads nothing back. decode_dispatch/decode_consume split a
+  chunk into a launch that returns at once and a wait on an event, so the
+  serving scheduler runs its Python work while the card computes.
+* each n-step chunk is a decode program (engine/graphs.py) over those
+  tensors: on a CUDA device one CUDA graph per (variant, n), replayed;
+  ``capture=False`` launches the same body from Python instead. warmup()
+  captures every program the scheduler can ask for at boot.
 * KV layout: ``dense`` (a [seq_len] row range per slot) or ``paged`` (a global
   page pool with per-slot block tables and the refcounted PagePool
   allocator); the two give the same tokens.
@@ -30,12 +34,14 @@ engine's explicit device, and every method that runs device work enters
 from __future__ import annotations
 
 import logging
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from dllama_tpu_torch.engine.engine import CACHE_DTYPES, pow2_chunk
+from dllama_tpu_torch.engine.graphs import VARIANTS, Programs
 from dllama_tpu_torch.engine.kernel_select import resolve_kernels
 from dllama_tpu_torch.engine.sampling import CounterRNG, apply_penalties, sample_logits
 from dllama_tpu_torch.models.config import LlamaConfig
@@ -352,6 +358,7 @@ class BatchEngine:
         page_size: int = 128,  # paged: rows per page (must divide seq_len)
         kv_pages: int = 0,  # paged: pool size in pages; 0 = n_slots * seq_len / page_size
         device=None,  # default: the device the params lie on
+        capture: bool | None = None,  # decode chunks as CUDA graphs (None: on a CUDA device)
     ):
         if cache_dtype not in CACHE_DTYPES:
             raise ValueError(f"KV cache dtype {cache_dtype} is not one of {CACHE_DTYPES}")
@@ -400,39 +407,50 @@ class BatchEngine:
         self.chunk_seq = 0
         self.forwards = 0  # forward passes run (a decode step or a prefill chunk)
 
-        # device-resident decode state. pos, last token and the generator are
-        # device-authoritative (the decode loop moves them); host mutation
-        # sites write their slot's row in place. The other vectors are
-        # host-authoritative: re-uploaded (as NEW tensors, so a chunk in
-        # flight keeps reading the old ones) when _vec_dirty is set, i.e. at
-        # boundaries only.
+        # device-resident decode state: tensors made once and only ever
+        # updated in place, since the decode programs read and write them
+        # where they were when captured. pos, last token and the generator
+        # are device-authoritative (the decode loop moves them); host
+        # mutation sites write their slot's row in place. The other vectors
+        # (and the paged block tables) are host-authoritative: copied in, in
+        # stream order after any chunk in flight, when _vec_dirty is set,
+        # i.e. at boundaries only.
         self._vec_dirty = True
         self._pos_dev = torch.zeros(n_slots, dtype=torch.int32, device=self.device)
         self._last_dev = torch.zeros(n_slots, dtype=torch.int64, device=self.device)
         self.rng = CounterRNG(n_slots, self.device)
-        self._active_dev = self._temps_dev = self._topp_dev = None
-        self._pres_dev = self._freq_dev = self._limit_dev = None
+        self._active_dev = torch.zeros(n_slots, dtype=torch.bool, device=self.device)
+        self._limit_dev = torch.zeros(n_slots, dtype=torch.int32, device=self.device)
+        self._temps_dev, self._topp_dev, self._pres_dev, self._freq_dev = torch.zeros(
+            (4, n_slots), dtype=torch.float32, device=self.device)
         self._counts: torch.Tensor | None = None  # i32 [B, V], on the first penalized request
         self._rows = torch.arange(n_slots, device=self.device)
+        self.programs = Programs(self.device, capture)
 
     # ------------------------------------------------------------- helpers
 
-    def _h2d(self, arr: np.ndarray) -> torch.Tensor:
-        """A NEW device tensor holding a copy of `arr`. On a CUDA device the
-        copy goes through pinned memory and does not block the host (a
-        pageable copy would wait for every launch queued before it, which
-        serializes the overlapped pipeline); `arr` may be mutated at once."""
+    def _pinned(self, arr: np.ndarray) -> torch.Tensor:
+        """A fresh host copy of `arr`, pinned on a CUDA engine: a copy from
+        it to the device does not block the host (a pageable copy would
+        wait for every launch queued before it, which serializes the
+        overlapped pipeline), and `arr` may be mutated at once."""
         t = torch.from_numpy(np.array(arr, copy=True))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        return t.pin_memory() if self.device.type == "cuda" else t
 
-    def _fwd(self, tokens: torch.Tensor, pos, cache, active=None) -> torch.Tensor:
-        """One forward; returns last-position logits f32 [B, V]."""
-        self.forwards += 1
+    def _h2d(self, arr: np.ndarray) -> torch.Tensor:
+        """A NEW device tensor holding a copy of `arr` (see _pinned)."""
+        return self._pinned(arr).to(self.device, non_blocking=True)
+
+    def _logits(self, tokens: torch.Tensor, pos, cache, active=None) -> torch.Tensor:
+        """One forward; returns last-position logits f32 [B, V]. The caller
+        counts it in ``forwards``."""
         logits, _ = forward(self.cfg, self.params, tokens, pos, cache, self.rope_cache,
                             self.attn_fn, self.mm, last_only=True, active=active)
         return logits[:, -1]
+
+    def _fwd(self, tokens: torch.Tensor, pos, cache, active=None) -> torch.Tensor:
+        self.forwards += 1
+        return self._logits(tokens, pos, cache, active)
 
     # ------------------------------------------------------- paged-layout api
 
@@ -614,9 +632,7 @@ class BatchEngine:
         self._last_dev[slot] = first
         self._pos_dev[slot] = int(self.pos[slot])
         if presence or frequency:
-            if self._counts is None:
-                self._counts = torch.zeros((self.n_slots, self.cfg.vocab_size),
-                                           dtype=torch.int32, device=self.device)
+            self._ensure_counts()
             # a fresh request has sampled nothing yet (OpenAI counts exclude
             # the prompt); slots without penalties never read their row
             self._counts[slot] = 0
@@ -639,21 +655,73 @@ class BatchEngine:
                                frequency=frequency)
 
     def _sync_vectors(self) -> None:
-        """Refresh the device copies of the host-authoritative per-slot
-        vectors (and the paged block tables), as new tensors on the same
-        stream: a chunk already in flight keeps reading the old copies. A
-        no-op in steady-state decode."""
+        """Copy the host-authoritative per-slot vectors (and the paged block
+        tables) into their device tensors, in place, from fresh pinned
+        copies: the copies run in stream order, after any chunk already in
+        flight has read the old values. A no-op in steady-state decode."""
         if not self._vec_dirty:
             return
-        self._active_dev = self._h2d(self.active)
-        self._temps_dev = self._h2d(self.temperature)
-        self._topp_dev = self._h2d(self.topp)
-        self._pres_dev = self._h2d(self.presence)
-        self._freq_dev = self._h2d(self.frequency)
-        self._limit_dev = self._h2d(self._row_limit())
+        for dev, host in ((self._active_dev, self.active), (self._temps_dev, self.temperature),
+                          (self._topp_dev, self.topp), (self._pres_dev, self.presence),
+                          (self._freq_dev, self.frequency), (self._limit_dev, self._row_limit())):
+            dev.copy_(self._pinned(host), non_blocking=True)
         if self.pool is not None:
-            self.cache = PagedKVCache(self.cache.k, self.cache.v, self._h2d(self.pool.tables))
+            self.cache.tables.copy_(self._pinned(self.pool.tables), non_blocking=True)
         self._vec_dirty = False
+
+    def _ensure_counts(self) -> None:
+        if self._counts is None:
+            self._counts = torch.zeros((self.n_slots, self.cfg.vocab_size),
+                                       dtype=torch.int32, device=self.device)
+
+    def _make_program(self, variant: str, n: int):
+        """(body, buffers, state) of the n-step decode program `variant`
+        (engine/graphs.py) over the engine's device state: the tokens of
+        each step go to ``buffers["toks"]`` [n, B], the rows whose logits
+        went non-finite to ``buffers["bad"]`` [B]."""
+        toks = torch.zeros((n, self.n_slots), dtype=torch.int64, device=self.device)
+        bad = torch.zeros(self.n_slots, dtype=torch.bool, device=self.device)
+        penalized = variant == "penalized"
+
+        def body():
+            act0, lim = self._active_dev, self._limit_dev
+            lim_last = (lim - 1).clamp(min=0)
+            p0 = p = self._pos_dev
+            tok = self._last_dev
+            bad.zero_()
+            u = self.rng.uniforms(n) if variant != "greedy" else None
+            for i in range(n):
+                # per-row freeze: frozen rows behave like inactive ones (writes
+                # masked, token repeats, generator held); pos is clamped only
+                # for their rope/cache indexing
+                act = act0 & (p < lim)
+                logits = self._logits(tok[:, None], torch.minimum(p, lim_last), self.cache,
+                                      active=act)
+                bad.logical_or_(act & ~torch.isfinite(logits).all(dim=-1))
+                if penalized:
+                    # the fed token counts before its successor is sampled
+                    self._counts.index_put_((self._rows, tok), act.to(torch.int32),
+                                            accumulate=True)
+                    logits = apply_penalties(logits, self._counts, self._pres_dev,
+                                             self._freq_dev)
+                if u is None:
+                    nxt = torch.argmax(logits, dim=-1)
+                else:
+                    nxt = _sample_rows(logits, u[i], self._temps_dev, self._topp_dev)
+                tok = torch.where(act, nxt, tok)
+                toks[i].copy_(tok)
+                p = p + act.to(p.dtype)
+            self.rng.advance((p - p0).to(torch.int64))  # one draw per active step
+            self._pos_dev.copy_(p)
+            self._last_dev.copy_(tok)
+
+        state = (self._pos_dev, self._last_dev, self.rng.counter)
+        return body, {"toks": toks, "bad": bad}, state + ((self._counts,) if penalized else ())
+
+    def _program(self, variant: str, n: int):
+        if variant == "penalized":
+            self._ensure_counts()
+        return self.programs.get(variant, n, self._make_program)
 
     @torch.no_grad()
     def decode_dispatch(self, n: int) -> DecodeChunk:
@@ -678,42 +746,17 @@ class BatchEngine:
                              "exhausted page pool); release first")
         self._sync_vectors()
         live = self.active
-        sampled = bool((self.temperature[live] != 0.0).any())
         penalized = self._counts is not None and bool(
             ((self.presence[live] != 0.0) | (self.frequency[live] != 0.0)).any())
-        act0, lim = self._active_dev, self._limit_dev
-        lim_last = (lim - 1).clamp(min=0)
-        p0 = p = self._pos_dev
-        tok = self._last_dev
-        bad = torch.zeros(self.n_slots, dtype=torch.bool, device=self.device)
-        u = self.rng.uniforms(n) if sampled else None
-        steps = []
-        for i in range(n):
-            # per-row freeze: frozen rows behave like inactive ones (writes
-            # masked, token repeats, generator held); pos is clamped only for
-            # their rope/cache indexing
-            act = act0 & (p < lim)
-            logits = self._fwd(tok[:, None], torch.minimum(p, lim_last), self.cache,
-                               active=act)
-            bad |= act & ~torch.isfinite(logits).all(dim=-1)
-            if penalized:
-                # the fed token counts before its successor is sampled
-                self._counts.index_put_((self._rows, tok), act.to(torch.int32),
-                                        accumulate=True)
-                logits = apply_penalties(logits, self._counts, self._pres_dev,
-                                         self._freq_dev)
-            if sampled:
-                nxt = _sample_rows(logits, u[i], self._temps_dev, self._topp_dev)
-            else:
-                nxt = torch.argmax(logits, dim=-1)
-            tok = torch.where(act, nxt, tok)
-            steps.append(tok)
-            p = p + act.to(p.dtype)
-        self.rng.advance((p - p0).to(torch.int64))  # one draw per active step
-        self._pos_dev, self._last_dev = p, tok
-        toks = torch.stack(steps)
+        variant = ("penalized" if penalized else "sampled"
+                   if (self.temperature[live] != 0.0).any() else "greedy")
+        prog = self._program(variant, n)
+        prog.run()
+        self.forwards += n
+        toks, bad = prog.buffers["toks"], prog.buffers["bad"]
         event = None
         if self.device.type == "cuda":
+            # enqueued before the next replay can rewrite the program's outputs
             host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
             host.copy_(toks, non_blocking=True)
             bad_host = torch.empty(bad.shape, dtype=torch.bool, pin_memory=True)
@@ -721,6 +764,8 @@ class BatchEngine:
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))
             toks, bad = host, bad_host
+        else:
+            toks, bad = toks.clone(), bad.clone()
         start_pos = self.pos.copy()
         active = self.active.copy()
         advance = np.where(active, np.clip(limit - start_pos, 0, n), 0).astype(np.int32)
@@ -729,6 +774,62 @@ class BatchEngine:
         self.chunk_seq += 1
         return DecodeChunk(toks=toks, bad=bad, event=event, n=n, start_pos=start_pos,
                            active=active, advance=advance, seq=self.chunk_seq)
+
+    @torch.no_grad()
+    def warmup(self, chunk: int = 4) -> dict:
+        """``--warmup auto`` boot pass (the JAX package's BatchEngine.warmup):
+        capture every decode program the serving scheduler can ask for, n in
+        1..chunk times VARIANTS, and run each power-of-two prefill width
+        once, so the first request finds its graphs captured and the kernel
+        libraries loaded. Every operand is inert: with every slot inactive a
+        decode program freezes each row (cache writes masked, positions,
+        tokens and generator counters held) and the prefill widths write
+        through an all-False mask (the dense rows keep their values, the
+        paged rows go to the trash page). Must run before any slot is active.
+        Returns the report, under the JAX report's keys where the port has
+        the field, with the count of graphs captured."""
+        if self.active.any():
+            raise RuntimeError("warmup must run before any slot is active")
+        t0 = time.perf_counter()
+        self._ensure_counts()  # the penalized programs capture the counts
+        self._sync_vectors()
+        graphs0 = self.programs.stats()["graphs"]
+        per_fn: dict[str, int] = {}
+        cached = 0
+        fn_names = {"greedy": "decode", "sampled": "decode_sampled", "penalized": "decode_pen"}
+        for n in range(1, chunk + 1):
+            for variant in VARIANTS:
+                cached += self.programs.ready(variant, n)  # captured before this pass
+                self._program(variant, n).run()
+                per_fn[fn_names[variant]] = per_fn.get(fn_names[variant], 0) + 1
+        off = torch.zeros(1, dtype=torch.bool, device=self.device)
+        if self.pool is not None:
+            sub = PagedKVCache(self.cache.k, self.cache.v, self.cache.tables[:1])
+        else:
+            sub = KVCache(self.cache.k[:, :1], self.cache.v[:, :1])
+        width = 1
+        while width <= min(self.max_prefill_chunk, self.seq_len):
+            self._logits(torch.zeros((1, width), dtype=torch.int64, device=self.device), 0,
+                         sub, active=off)
+            per_fn["prefill_chunk"] = per_fn.get("prefill_chunk", 0) + 1
+            width *= 2
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        report = {
+            "mode": "auto",
+            "buckets": sum(per_fn.values()),
+            "graphs_captured": self.programs.stats()["graphs"] - graphs0,
+            "cached": cached,
+            "per_fn": per_fn,
+            "seconds": round(time.perf_counter() - t0, 3),
+            "full_coverage": all(self.programs.ready(v, n) for n in range(1, chunk + 1)
+                                 for v in VARIANTS),
+        }
+        log.info("warmup: %d decode programs (%d graphs captured, %d cached) and %d prefill "
+                 "widths in %.2fs; %s", chunk * len(VARIANTS), report["graphs_captured"],
+                 cached, per_fn.get("prefill_chunk", 0), report["seconds"],
+                 "full coverage" if report["full_coverage"] else "coverage INCOMPLETE")
+        return report
 
     def decode_consume(self, chunk: DecodeChunk) -> np.ndarray:
         """Wait for the chunk's tokens on the host; fold them into the host

@@ -4,7 +4,10 @@ generation loop (the reference's RootLlmInference loop, app.cpp:131-195).
 Prefill is chunked in power-of-two widths. Decode runs in chunks of up to
 ``chunk`` tokens: inside a chunk every sampled token stays on the device and
 feeds the next forward directly, and the chunk's tokens reach the host in
-one copy — one host round trip per chunk, not per token.
+one copy — one host round trip per chunk, not per token. Each chunk is a
+decode program (engine/graphs.py): on a CUDA device one CUDA graph per
+(variant, n), replayed; ``capture=False`` launches the same body from
+Python instead, for comparison.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
+from dllama_tpu_torch.engine.graphs import Programs
 from dllama_tpu_torch.engine.kernel_select import resolve_kernels
 from dllama_tpu_torch.engine.sampling import Sampler, apply_penalties, sample_logits
 from dllama_tpu_torch.engine.speculative import spec_decode
@@ -67,7 +71,9 @@ class GenerationStats:
 
 class InferenceEngine:
     """Owns params + KV cache + the resolved kernels for one model replica
-    on one device (``device``, default: the device the params lie on)."""
+    on one device (``device``, default: the device the params lie on).
+    ``capture`` (default: on for a CUDA device) runs each decode chunk as a
+    captured CUDA graph."""
 
     def __init__(
         self,
@@ -80,6 +86,7 @@ class InferenceEngine:
         kernels: str = "auto",  # 'auto' | 'cuda' | 'torch'
         fuse_weights: bool = False,  # wqkv/w13 fused launches (copies on the device)
         device=None,
+        capture: bool | None = None,  # decode chunks as CUDA graphs (None: on a CUDA device)
     ):
         if cache_dtype not in CACHE_DTYPES:
             raise ValueError(f"KV cache dtype {cache_dtype} is not one of {CACHE_DTYPES}")
@@ -100,16 +107,30 @@ class InferenceEngine:
         self.forwards = 0  # forward passes run (each is one token column)
         self._spec_h = None  # (device history, pos, cur): chunked-call reuse
         self._spec_stats = None  # {emitted, cycles} of the last speculative call
+        # the decode programs and their static inputs: the fed token, the
+        # position vector (a program advances it; _dev_pos is the host value
+        # it holds after the last program, None before any), the sampling
+        # rows (temperature, top-p, presence, frequency) and the occurrence
+        # counts (made at the first penalized chunk)
+        self.programs = Programs(self.device, capture)
+        self._dec_tok = torch.zeros((batch, 1), dtype=torch.int64, device=self.device)
+        self._dec_pos = torch.zeros(batch, dtype=torch.int32, device=self.device)
+        self._dev_pos: int | None = None
+        self._dec_samp = torch.zeros((4, batch), dtype=torch.float32, device=self.device)
+        self._dec_counts: torch.Tensor | None = None
+
+    def _logits(self, tokens: torch.Tensor, pos, last_only: bool = True) -> torch.Tensor:
+        """One forward at `pos` (an int, or a [B] tensor); returns f32
+        logits: the last position's [B, V], or with ``last_only=False``
+        every position's [B, T, V]. The caller counts it in ``forwards``."""
+        logits, _ = forward(self.cfg, self.params, tokens, pos, self.cache, self.rope_cache,
+                            self.attn_fn, self.mm, last_only=last_only)
+        return logits[:, -1] if last_only else logits
 
     @torch.no_grad()
     def _forward(self, tokens: torch.Tensor, pos: int, last_only: bool = True) -> torch.Tensor:
-        """One forward at `pos`; returns f32 logits: the last position's [B,
-        V], or with ``last_only=False`` every position's [B, T, V]."""
         self.forwards += 1
-        logits, self.cache = forward(self.cfg, self.params, tokens, pos, self.cache,
-                                     self.rope_cache, self.attn_fn, self.mm,
-                                     last_only=last_only)
-        return logits[:, -1] if last_only else logits
+        return self._logits(tokens, pos, last_only)
 
     def _check_room(self, n: int) -> None:
         if self.pos + n > self.seq_len:
@@ -146,21 +167,76 @@ class InferenceEngine:
     def decode_step(self, tokens) -> torch.Tensor:
         return self.step(np.asarray(tokens, dtype=np.int64).reshape(self.batch, 1))
 
-    def _token_tensor(self, token) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(token, dtype=np.int64)).reshape(
-            self.batch, 1).to(self.device)
+    def _make_program(self, variant: str, n: int):
+        """(body, buffers, state) of the n-step decode program `variant`
+        (engine/graphs.py): the n-step loop over the static inputs, each
+        step's token written into ``buffers["toks"]`` [n, B]."""
+        b = self.batch
+        toks = torch.zeros((n, b), dtype=torch.int64, device=self.device)
+        buffers = {"toks": toks}
+        if variant != "greedy":
+            buffers["uniforms"] = torch.zeros((n, b, 2), dtype=torch.float32,
+                                              device=self.device)
+        tok0, pos0, samp = self._dec_tok, self._dec_pos, self._dec_samp
+        counts = self._dec_counts if variant == "penalized" else None
+        rows = torch.arange(b, device=self.device)
+
+        def body():
+            tok, pos = tok0, pos0
+            for i in range(n):
+                logits = self._logits(tok, pos)
+                if counts is not None:
+                    # the fed token counts before its successor is sampled
+                    counts[rows, tok[:, 0]] += 1
+                    logits = apply_penalties(logits, counts, samp[2], samp[3])
+                if variant == "greedy":
+                    nxt = torch.argmax(logits, dim=-1)
+                else:
+                    nxt = sample_logits(logits, samp[0], samp[1],
+                                        uniforms=buffers["uniforms"][i])
+                toks[i].copy_(nxt)
+                tok, pos = nxt[:, None], pos + 1
+            tok0.copy_(tok)
+            pos0.copy_(pos)
+
+        return body, buffers, (tok0, pos0) + ((counts,) if counts is not None else ())
+
+    @torch.no_grad()
+    def _decode_chunk(self, variant: str, token, n: int, sampler: Sampler | None = None,
+                      counts=None) -> np.ndarray:
+        """Load the static inputs, run the n-step program `variant` and copy
+        its tokens [n, B] to the host. A sampled chunk draws its uniforms
+        [n, B, 2] from the sampler's generator in one call, before the
+        program runs (a graph cannot draw from a host-seeded generator)."""
+        self._check_room(n)
+        if variant == "penalized" and self._dec_counts is None:
+            self._dec_counts = torch.zeros((self.batch, self.cfg.vocab_size),
+                                           dtype=torch.int32, device=self.device)
+        prog = self.programs.get(variant, n, self._make_program)
+        self._dec_tok.copy_(torch.as_tensor(np.asarray(token, dtype=np.int64)).reshape(
+            self.batch, 1))
+        if self._dev_pos != self.pos:  # a rewind, a prefill or another path moved pos
+            self._dec_pos.fill_(self.pos)
+        if variant != "greedy":
+            self._dec_samp.copy_(torch.tensor(
+                [sampler.temperature, sampler.topp, sampler.presence, sampler.frequency],
+                dtype=torch.float32)[:, None].expand(4, self.batch))
+            if sampler.temperature != 0.0:
+                prog.buffers["uniforms"].uniform_(generator=sampler.generator(self.device))
+        if variant == "penalized":
+            self._dec_counts.copy_(torch.as_tensor(
+                np.asarray(counts, dtype=np.int32)).reshape(self.batch, -1))
+        self._dev_pos = None  # unknown until the program has run
+        prog.run()
+        self.forwards += n
+        self.pos += n
+        self._dev_pos = self.pos
+        return prog.buffers["toks"].cpu().numpy()
 
     def decode_greedy_n(self, token, n: int) -> np.ndarray:
         """n greedy decode steps; the tokens stay on the device until the one
         copy at the end. Returns tokens [n, B]."""
-        self._check_room(n)
-        tok = self._token_tensor(token)
-        out = []
-        for i in range(n):
-            tok = torch.argmax(self._forward(tok, self.pos + i), dim=-1, keepdim=True)
-            out.append(tok)
-        self.pos += n
-        return torch.cat(out, dim=1).T.cpu().numpy()
+        return self._decode_chunk("greedy", token, n)
 
     def decode_spec_greedy_n(self, history, token: int, n: int, k: int = 8,
                              ngram: int = 2) -> np.ndarray:
@@ -220,24 +296,11 @@ class InferenceEngine:
         ``counts`` ([B, V] occurrence counts of the text so far, EXCLUDING
         the unfed ``token``, which is counted before its successor is
         sampled) applies the sampler's presence/frequency penalties."""
-        self._check_room(n)
-        tok = self._token_tensor(token)
-        gen = sampler.generator(self.device)
-        penalized = counts is not None and sampler.has_penalties
-        if penalized:
-            cnt = torch.as_tensor(np.asarray(counts)).reshape(self.batch, -1).to(
-                self.device, torch.int32)
-            rows = torch.arange(self.batch, device=self.device)
-        out = []
-        for i in range(n):
-            logits = self._forward(tok, self.pos + i)
-            if penalized:
-                cnt[rows, tok[:, 0]] += 1
-                logits = apply_penalties(logits, cnt, sampler.presence, sampler.frequency)
-            tok = sample_logits(logits, sampler.temperature, sampler.topp, gen)[:, None]
-            out.append(tok)
-        self.pos += n
-        return torch.cat(out, dim=1).T.cpu().numpy()
+        if counts is not None and sampler.has_penalties:
+            return self._decode_chunk("penalized", token, n, sampler, counts)
+        if sampler.temperature == 0.0:
+            return self._decode_chunk("greedy", token, n)
+        return self._decode_chunk("sampled", token, n, sampler)
 
     # ------------------------------------------------------------- generation
 

@@ -1,0 +1,197 @@
+"""Decode chunks as device programs: the port's counterpart of the JAX
+package's ``lax.scan`` decode programs (``dllama_tpu/engine/engine.py``
+``_decode_n_impl`` and its sampled and penalized forms, and the fused scans
+behind ``BatchEngine.decode_dispatch``), one program per static chunk
+length n as JAX's jit compiles one.
+
+A :class:`DecodeProgram` is an n-step decode body of one variant (greedy,
+sampled, penalized) over static buffers: the body reads tensors that the
+engine owns and refills in place (the fed token, the positions, uniforms,
+the per-slot vectors, the block tables, the counter-based generator's
+state) and writes its tokens and NaN flags into output tensors made for it
+by the normal allocator, outside the pool the engine's graphs share, so
+that no other program's replay can overwrite tokens that have not reached
+the host yet.
+
+On a CUDA device with capture on, the first :meth:`DecodeProgram.run`
+warms the body once on the capture stream and puts back the engine state
+it moved (``state``), then captures the body with ``torch.cuda.graph``;
+every run replays the graph and adds the kernel launches the capture
+recorded to the wrappers' counts (:func:`replayed`). A capture or replay
+error raises: nothing falls back to launching the body from Python. On
+the CPU, or with capture off, run() calls the body.
+
+The warm-up also writes KV rows, at or past each live row's position: the
+replay writes the same rows before any forward reads them, so those need
+no putting back. It loads the kernel libraries and sizes the decode
+matmuls' split-k scratch, which ``ops.q40_matmul.decode_scratch`` keeps per
+stream, before the capture records their pointers.
+
+Module globals that the body reads when it runs are fixed in a graph at
+capture (:func:`knobs`); :class:`Programs` keys each program on them, so a
+changed knob captures another program instead of replaying a stale route.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Sequence
+
+import torch
+
+from dllama_tpu_torch.engine import sampling
+from dllama_tpu_torch.ops import (
+    flash_attention,
+    layers,
+    paged_attention,
+    q40_matmul,
+    q80_matmul,
+    rms_norm,
+)
+
+#: the decode programs' variants (the JAX package's three scans)
+VARIANTS = ("greedy", "sampled", "penalized")
+
+
+def knobs() -> tuple:
+    """The module globals a decode body reads when it runs: the Q40 style
+    and its tiles, K4's split count, the RMSNorm route and the nucleus
+    width."""
+    return (q40_matmul.STYLE, q40_matmul.BLOCKDOT_TK, q40_matmul.BLOCKDOT_TN,
+            q40_matmul.LOOPDOT_SPLITS, layers.RMS_NORM_IMPL, sampling.NUCLEUS_K)
+
+
+def launch_tables() -> tuple[dict, ...]:
+    """The launch counters of every kernel wrapper a decode body can call."""
+    return (q40_matmul.LAUNCHES, q80_matmul.LAUNCHES, flash_attention.LAUNCHES,
+            paged_attention.LAUNCHES, rms_norm.LAUNCHES)
+
+
+def launch_delta(before: Sequence[dict], after: Sequence[dict]) -> tuple[dict, ...]:
+    """Per counter table, the launches made between two snapshots (the
+    keys that moved only)."""
+    return tuple({k: n - b.get(k, 0) for k, n in a.items() if n != b.get(k, 0)}
+                 for b, a in zip(before, after))
+
+
+def replayed(counts: dict, delta: dict, times: int = 1) -> dict:
+    """The counts after `times` replays of a program whose capture recorded
+    `delta` (a pure function: the caller stores the result)."""
+    return {k: n + times * delta.get(k, 0) for k, n in counts.items()}
+
+
+_STREAMS: dict[int, torch.cuda.Stream] = {}
+
+
+def capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The one capture stream of a device, shared by every program: the
+    warm-up runs on it, so the split-k scratch it sizes is the one the
+    capture records."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    stream = _STREAMS.get(index)
+    if stream is None:
+        stream = _STREAMS[index] = torch.cuda.Stream(device=device)
+    return stream
+
+
+class DecodeProgram:
+    """One n-step decode body over static buffers (``buffers``: its own
+    inputs and outputs by name; ``state``: the engine tensors it moves)."""
+
+    def __init__(self, body: Callable[[], None], buffers: dict, state: Sequence[torch.Tensor],
+                 device: torch.device, capture: bool, pool=None):
+        self.body = body
+        self.buffers = buffers
+        self.state = tuple(state)
+        self.device = device
+        self.capture = capture
+        self.pool = pool
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.launches: tuple[dict, ...] = ()  # recorded at capture, added per replay
+        self.capture_s = 0.0
+
+    @property
+    def ready(self) -> bool:
+        """True once run() replays (always true without capture)."""
+        return not self.capture or self.graph is not None
+
+    def run(self) -> None:
+        if not self.capture:
+            self.body()
+            return
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        for table, delta in zip(launch_tables(), self.launches):
+            table.update(replayed(table, delta))
+
+    def _capture(self) -> None:
+        t0 = time.perf_counter()
+        main = torch.cuda.current_stream(self.device)
+        stream = capture_stream(self.device)
+        stream.wait_stream(main)
+        with torch.cuda.stream(stream):
+            saved = [t.clone() for t in self.state]
+            self.body()
+            for t, old in zip(self.state, saved):
+                t.copy_(old)
+        main.wait_stream(stream)
+        tables = launch_tables()
+        before = [dict(t) for t in tables]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool, stream=stream,
+                              capture_error_mode="thread_local"):
+            self.body()
+        after = [dict(t) for t in tables]
+        for table, counts in zip(tables, before):
+            table.update(counts)  # a capture launches nothing
+        self.launches = launch_delta(before, after)
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t0
+
+
+class Programs:
+    """An engine's decode programs, one per (variant, n, knobs()). With
+    ``capture`` None, capture is on exactly when the device is CUDA; it is
+    an error on another device."""
+
+    def __init__(self, device, capture: bool | None = None):
+        self.device = torch.device(device)
+        if capture is None:
+            capture = self.device.type == "cuda"
+        if capture and self.device.type != "cuda":
+            raise ValueError(f"CUDA-graph capture needs a CUDA device, not {self.device}")
+        self.capture = bool(capture)
+        self._pool = torch.cuda.graph_pool_handle() if self.capture else None
+        self._progs: dict[tuple, DecodeProgram] = {}
+
+    def get(self, variant: str, n: int,
+            make: Callable[[str, int], tuple[Callable[[], None], dict, Sequence]]
+            ) -> DecodeProgram:
+        """The program of (variant, n) under the current knobs; ``make``
+        builds (body, buffers, state) the first time."""
+        if variant not in VARIANTS:
+            raise ValueError(f"unknown decode variant {variant!r} (one of {VARIANTS})")
+        key = (variant, int(n), knobs())
+        prog = self._progs.get(key)
+        if prog is None:
+            body, buffers, state = make(variant, int(n))
+            prog = self._progs[key] = DecodeProgram(body, buffers, state, self.device,
+                                                    self.capture, self._pool)
+        return prog
+
+    def find(self, variant: str, n: int) -> DecodeProgram | None:
+        """The (variant, n) program under the current knobs, if built."""
+        return self._progs.get((variant, int(n), knobs()))
+
+    def ready(self, variant: str, n: int) -> bool:
+        """True when the (variant, n) program under the current knobs runs
+        without a capture."""
+        prog = self.find(variant, n)
+        return prog is not None and prog.ready
+
+    def stats(self) -> dict:
+        """Programs built, graphs captured and the seconds the captures took."""
+        graphs = [p for p in self._progs.values() if p.graph is not None]
+        return {"programs": len(self._progs), "graphs": len(graphs),
+                "capture_s": sum(p.capture_s for p in graphs)}

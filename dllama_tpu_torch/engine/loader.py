@@ -25,12 +25,15 @@ class LoadedModel:
 
 
 def resolve_device(device) -> torch.device:
-    """The device to run on. A CUDA device that is not there is an error:
-    nothing carries on on the CPU unless the CPU was asked for."""
+    """The device to run on, a CUDA one with its index (``cuda`` is the
+    current card). A CUDA device that is not there is an error: nothing
+    carries on on the CPU unless the CPU was asked for."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device was found; pass --device cpu "
                            "(device='cpu') to run on the CPU")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 

@@ -94,14 +94,29 @@ class PagedKVCache:
         return self.k.shape[1] - 1
 
 
+def _dense_write_index(pos: torch.Tensor, b: int, h: int, s: int, t: int) -> torch.Tensor:
+    """i64 [B*H*T]: the row of a layer cache [B, H, S, hd] seen as [B*H*S,
+    hd] that new row [b, h, j] goes to, (b*H + h)*S + pos[b] + j, in the
+    order of new.reshape(-1, hd). Made once a forward and shared by every
+    layer's writes."""
+    base = torch.arange(b * h, device=pos.device).view(b, h, 1) * s
+    offs = torch.arange(t, device=pos.device)
+    return (base + pos.to(torch.int64).view(b, 1, 1) + offs).reshape(-1)
+
+
 def _cache_update(cache: torch.Tensor, new: torch.Tensor, pos_base,
-                  active: torch.Tensor | None = None) -> None:
+                  active: torch.Tensor | None = None, index: torch.Tensor | None = None
+                  ) -> None:
     """Write new [B, H, T, hd] rows into one layer's cache [B, H, S, hd] at
     pos (an int, or a [B] tensor of per-row positions), in place. Rows with
-    active == False keep their old contents (frozen slots of a batch)."""
+    active == False keep their old contents (frozen slots of a batch).
+    ``index`` (_dense_write_index of a tensor pos, no mask) writes every
+    row with one index_copy_."""
     cache, new = _as_bytes(cache, new)
     t = new.shape[2]
-    if isinstance(pos_base, torch.Tensor) and pos_base.dim() == 1:
+    if index is not None:
+        cache.view(-1, cache.shape[-1]).index_copy_(0, index, new.reshape(-1, new.shape[-1]))
+    elif isinstance(pos_base, torch.Tensor) and pos_base.dim() == 1:
         rows = pos_base.to(torch.long)[:, None] + torch.arange(t, device=cache.device)
         bidx = torch.arange(cache.shape[0], device=cache.device)[:, None]
         vals = new.permute(0, 2, 1, 3)  # [B, T, H, hd]
@@ -137,12 +152,13 @@ def _paged_cache_update(pool: torch.Tensor, new: torch.Tensor, tables: torch.Ten
 
 
 def _layer(cfg: LlamaConfig, x, layers, li, k_cache, v_cache, rope, pos_base,
-           attn_fn, mm, active=None, tables=None):
+           attn_fn, mm, active=None, tables=None, index=None):
     """One decoder layer; `layers` holds the stacked weights and `li` the
     layer index (the matmul takes the layer's view of each stack). With
     `tables` the caches are one layer's page pools [P, Hkv, page, hd]; an
     `attn_fn` marked ``fused_kv_scatter`` writes the new rows itself, inside
-    its kernel launch, instead of a separate scatter."""
+    its kernel launch, instead of a separate scatter. `index`: the dense
+    caches' write rows (_dense_write_index)."""
     b, t, d = x.shape
     kvd = cfg.kv_dim
     h = rms_norm(x, layers["rms_att"][li], cfg.norm_epsilon)
@@ -157,8 +173,8 @@ def _layer(cfg: LlamaConfig, x, layers, li, k_cache, v_cache, rope, pos_base,
     k = apply_rope(k.reshape(b, t, cfg.n_kv_heads, cfg.head_size), rope)
     v = v.reshape(b, t, cfg.n_kv_heads, cfg.head_size)
     if tables is None:
-        _cache_update(k_cache, k.transpose(1, 2), pos_base, active)
-        _cache_update(v_cache, v.transpose(1, 2), pos_base, active)
+        _cache_update(k_cache, k.transpose(1, 2), pos_base, active, index)
+        _cache_update(v_cache, v.transpose(1, 2), pos_base, active, index)
         att = attn_fn(q, k_cache, v_cache, pos_base)
     elif getattr(attn_fn, "fused_kv_scatter", False):
         att, _, _ = attn_fn(q, k_cache, v_cache, tables, pos_base, k.transpose(1, 2),
@@ -214,9 +230,14 @@ def run_layers(cfg: LlamaConfig, layer_params: dict, x, pos_base, cache, rope,
     if attn_fn is None:
         attn_fn = gqa_attention if tables is None else paged_gqa_attention
     mm = mm or matmul
+    index = None
+    if (tables is None and active is None and isinstance(pos_base, torch.Tensor)
+            and pos_base.dim() == 1 and cache.k.is_contiguous() and cache.v.is_contiguous()):
+        _, b, h, s, _ = cache.k.shape
+        index = _dense_write_index(pos_base, b, h, s, x.shape[1])
     for li in range(cache.k.shape[0]):
         x = _layer(cfg, x, layer_params, li, cache.k[li], cache.v[li], rope,
-                   pos_base, attn_fn, mm, active, tables)
+                   pos_base, attn_fn, mm, active, tables, index)
     return x
 
 

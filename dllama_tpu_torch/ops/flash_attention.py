@@ -49,17 +49,27 @@ def supported(head_size: int) -> bool:
 
 
 def kv_splits(rows: int, bhkv: int, live_tiles: int, sms: int) -> tuple[int, int]:
-    """(splits, tiles per split) of the split-KV sweep: enough blocks to
-    fill the BLOCKS_PER_SM each SM holds, each split at least
-    MIN_TILES_PER_SPLIT live KV tiles (the merge pass reads every split's
-    partial row). It depends on the rows only through the number of query
-    tiles, so decode (4 rows) and a spec verify forward (36 rows) split a
-    row's keys alike."""
+    """(splits, tiles per split) of the split-KV sweep over `live_tiles`
+    64-row KV tiles: enough blocks to fill the BLOCKS_PER_SM each SM holds,
+    each split at least MIN_TILES_PER_SPLIT tiles (the merge pass reads
+    every split's partial row). It depends on the rows only through the
+    number of query tiles, so decode (4 rows) and a spec verify forward (36
+    rows) split a row's keys alike."""
     q_tiles = -(-rows // TQ)
     splits = min(max(1, live_tiles // MIN_TILES_PER_SPLIT),
                  max(1, math.ceil(BLOCKS_PER_SM * sms / (q_tiles * bhkv))))
     per = -(-live_tiles // splits)
     return -(-live_tiles // per), per
+
+
+def call_splits(rows: int, bhkv: int, s: int, sms: int) -> tuple[int, int]:
+    """(splits, tiles per split) of a call over an S-row cache, on both
+    position paths: from the cache's tile count, never from pos, so a
+    decode row with a device ``pos`` (a captured decode step) and a verify
+    row with a host ``pos`` sum a row's keys in the same splits. Blocks of
+    a split past a row's horizon exit at once, and the merge counts the
+    live splits from pos (csrc/attention.cuh)."""
+    return kv_splits(rows, bhkv, -(-s // TS), sms)
 
 
 def flash_gqa_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -104,12 +114,10 @@ def flash_gqa_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.T
             raise ValueError("flash_gqa_attention: pos must be [B] on q's device")
         pos_vec = pos_base.to(torch.int32).contiguous()
         pos_scalar = 0
-        live_tiles = -(-s // TS)
     else:
         pos_vec = None
         pos_scalar = int(pos_base)
-        live_tiles = max(0, min(s - 1, pos_scalar + t - 1)) // TS + 1
-    splits, per = kv_splits(rows, b * hkv, live_tiles, _sm_count(q.device.index or 0))
+    splits, per = call_splits(rows, b * hkv, s, _sm_count(q.device.index or 0))
     out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     o_part = ml_part = None
     if splits > 1:

@@ -273,6 +273,9 @@ def loopdot_geometry(k: int, n: int, sms: int) -> DecodeGeometry:
 #: and the column tiles' arrival counters (0 between launches: the last block
 #: of a tile sets its counter back)
 _DECODE_SCRATCH: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+#: scratch that a larger one replaced, kept alive: a captured decode program
+#: (engine/graphs.py) replays the pointers it was captured with
+_RETIRED_SCRATCH: list[torch.Tensor] = []
 
 
 def decode_scratch(device: torch.device, stream: int, m: int, n: int,
@@ -285,8 +288,12 @@ def decode_scratch(device: torch.device, stream: int, m: int, n: int,
     key = (device.index or 0, stream)
     part, count = _DECODE_SCRATCH.get(key, (None, None))
     if part is None or part.numel() < geo.splits * m * n:
+        if part is not None:
+            _RETIRED_SCRATCH.append(part)
         part = torch.empty(geo.splits * m * n, dtype=torch.float32, device=device)
     if count is None or count.numel() < -(-n // geo.cols):
+        if count is not None:
+            _RETIRED_SCRATCH.append(count)
         count = torch.zeros(-(-n // geo.cols), dtype=torch.int32, device=device)
     _DECODE_SCRATCH[key] = part, count
     return part.data_ptr(), count.data_ptr()

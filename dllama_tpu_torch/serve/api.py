@@ -715,6 +715,9 @@ def make_server(loaded, host="127.0.0.1", port=0, n_slots: int = 0, **defaults):
     if frontend != "threads":
         raise NotImplementedError(f"--frontend {frontend} is not yet ported to the "
                                   "PyTorch/CUDA package (threads is)")
+    if n_slots <= 0 and defaults.get("warmup") not in (None, "off"):
+        log.warning("--warmup needs --slots > 0; the single-engine tier has no "
+                    "BatchEngine shape contract to precompile — ignored")
     scheduler = None
     if n_slots > 0:
         scheduler = _make_scheduler(loaded, n_slots, defaults)
@@ -776,6 +779,8 @@ def _make_scheduler(loaded, n_slots: int, defaults: dict):
         sched_kw["max_queue"] = int(defaults["max_queue"])
     if defaults.get("overlap") is not None:
         sched_kw["overlap"] = bool(defaults["overlap"])
+    if defaults.get("warmup"):
+        sched_kw["warmup"] = str(defaults["warmup"])
     return Scheduler(be, **sched_kw)
 
 
@@ -820,7 +825,11 @@ def run_server(loaded, host="127.0.0.1", port=9990, n_slots: int = 0, **defaults
     mode = (f"continuous batching, {n_slots} slots, {api.build_info['kv_layout']} KV"
             if n_slots else "single-request + prefix cache")
     log.info("serving on http://%s:%d (%s)", host, httpd.server_address[1], mode)
-    print(f"🚀 http://{host}:{httpd.server_address[1]}/v1/chat/completions ({mode})")
+    report = api.scheduler.warmup_report if api.scheduler is not None else None
+    if report is not None:
+        print(f"warmup: {json.dumps(report)}", flush=True)
+    print(f"🚀 http://{host}:{httpd.server_address[1]}/v1/chat/completions ({mode})",
+          flush=True)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

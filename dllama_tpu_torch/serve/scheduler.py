@@ -158,7 +158,8 @@ ADMIT_STALL_BUDGET_MS = 250.0
 
 
 class Scheduler:
-    def __init__(self, engine: BatchEngine, max_queue: int = 0, overlap: bool = True):
+    def __init__(self, engine: BatchEngine, max_queue: int = 0, overlap: bool = True,
+                 warmup: str = "off"):
         self.engine = engine
         # overlapped decode pipeline (--overlap): launch chunk N+1 off chunk
         # N's device state BEFORE consuming chunk N's tokens, so the per-chunk
@@ -196,6 +197,14 @@ class Scheduler:
         self.join_failed = False
         self._draining = threading.Event()
         self._busy_worker = False  # the worker holds a request outside every container
+        # --warmup auto: capture every decode program this scheduler can ask
+        # for (n in 1..DECODE_CHUNK) BEFORE the worker starts, so the first
+        # request replays graphs instead of capturing them
+        if warmup not in ("auto", "off"):
+            raise ValueError(f"warmup must be auto|off, got {warmup!r}")
+        self.warmup = warmup
+        self.warmup_report: dict | None = (engine.warmup(chunk=DECODE_CHUNK)
+                                           if warmup == "auto" else None)
         self._heartbeat = time.monotonic()
         self._thread = threading.Thread(target=self._run, name="dllama-scheduler", daemon=True)
         self._thread.start()
@@ -629,7 +638,7 @@ class Scheduler:
         (finish_reason 'error', queues unblocked) and /health goes unhealthy;
         the process supervisor owns the restart."""
         try:
-            if self.engine.device.type == "cuda":
+            if self.engine.device.type == "cuda" and self.engine.device.index is not None:
                 torch.cuda.set_device(self.engine.device)
             with torch.no_grad():
                 self._loop()

@@ -88,12 +88,12 @@ def test_cli_on_the_cpu_when_asked(tmp_path):
 def test_unported_options_are_refused():
     from dllama_tpu_torch.cli.main import main
 
-    for flag in (["--warmup", "auto"], ["--mesh", "tp=2"],
+    for flag in (["--mesh", "tp=2"],
                  ["--frontend", "aio"], ["--slots", "2", "--spec", "4"],
                  ["--slots", "2", "--radix-cache", "on"],
                  ["--slots", "2", "--prefill-budget", "64"],
                  ["--slots", "2", "--preempt", "on"], ["--slots", "2", "--kv-host-pages", "8"],
-                 ["--slots", "2", "--tenant-weight", "a=2"], ["--slots", "2", "--warmup", "auto"],
+                 ["--slots", "2", "--tenant-weight", "a=2"],
                  ["--slots", "2", "--restart-max", "1"]):
         assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", *flag]) == 2, flag
     # the batched tier is ported: --slots passes the refusal and stops only
@@ -102,3 +102,7 @@ def test_unported_options_are_refused():
                  "--kv-layout", "paged", "--radix-cache", "auto", "--preempt", "off"]) == 1
     # so is speculation on the single-engine tier (--spec without --slots)
     assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", "--spec", "4"]) == 1
+    # and --warmup, on both tiers (the single-engine tier ignores it)
+    for slots in ("0", "2"):
+        assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", "--slots", slots,
+                     "--warmup", "auto"]) == 1
