@@ -29,7 +29,11 @@ Q80 (random weights from a seed), and exits 0 only if every phase passed:
               then the device time of one 256-token prefill chunk through
               the kernels at cache positions 0 and 2048 (CUDA events), on
               the dense cache (K2 + K7) and on a page pool at page 128 read
-              through one slot's table (K2 + K9).
+              through one slot's table (K2 + K9); then the same chunks as
+              captured prefill programs (64 and 256 tokens, the single
+              engine's `step` and one slot's `add_step`): wall, stream and
+              busy ms, and the captured slot chunk bit-equal to the
+              uncaptured one.
 4. serve      make_server (the function `serve` runs) over real HTTP on the
               single-engine tier: a greedy chat completion, the same again
               (identical content), an SSE stream, and a second turn that hits
@@ -39,32 +43,44 @@ Q80 (random weights from a seed), and exits 0 only if every phase passed:
               the same 8 again (identical contents), an SSE stream; every
               batched forward launches the paged attention kernel in every
               layer and the Q40 kernels, no dense flash attention; after the
-              drain the page pool audits clean with every page free.
-6. inference  the CLI's `inference` mode on the same files.
-7. f8         the same Q40 file loaded with the f8 (e4m3) KV cache: the
+              drain the page pool audits clean with every page free. The
+              server admits with hybrid chunked prefill, its default (the
+              check that decode ran batched, > 2 live slots a chunk in the
+              first round, holds the phase-split servers: the q80 phase's
+              and the hybrid phase's at budget 0).
+6. hybrid     the 8-slot server booted with --warmup auto at --prefill-budget
+              0, auto and 256: 7 greedy streams decoding and a ~2,048-token
+              prompt joining (its TTFT, the streams' ITL with no joiner and
+              during the join, live slots, hybrid chunks and tokens), then a
+              burst of 8 simultaneous ~85-token chats (TTFT, live slots a
+              chunk; at budget 0 more than 2); greedy contents identical
+              across the budgets, the pool clean after each drain.
+7. inference  the CLI's `inference` mode on the same files.
+8. f8         the same Q40 file loaded with the f8 (e4m3) KV cache: the
               forward against the plain versions and HTTP serve, K7's f8 mode
               in every layer of every forward.
-8. q80        after the Q40 files are gone, a synthetic 8B Q80 `.m` loaded
+9. q80        after the Q40 files are gone, a synthetic 8B Q80 `.m` loaded
               packed: the forward against the plain versions, the prefill
               chunk's device time (K6 + K7) as in `forward`, HTTP serve on
               the single-engine tier, the 8-slot batched server with the
-              RMSNorm switch at 'cuda' (K10), and the CLI's `inference
+              RMSNorm switch at 'cuda' (K10) and phase-split admission
+              (--prefill-budget 0), and the CLI's `inference
               --fuse-weights`, whose greedy text must equal the unfused
               engine's; Q80 kernels on every forward and no Q40 launch.
-9. kbench     the kernel benchmark (dllama_tpu_torch.experiments.kbench):
+10. kbench    the kernel benchmark (dllama_tpu_torch.experiments.kbench):
               `suite`, then `8 w1 B D`; no FAILED row, KBENCH DONE at the end;
               its kernels K11-B/K11-D launched.
-10. styles    the Q40 8B model with q40_matmul.STYLE at maskdot, loopdot and
+11. styles    the Q40 8B model with q40_matmul.STYLE at maskdot, loopdot and
               deq: the forward against the plain versions, 32 greedy tokens
               through the `inference` CLI (their text printed beside auto's);
               decode forwards launch K3 (K4) in every matmul and K1 never,
               prefill chunks launch K2.
-11. spec      `inference --spec 8` on a repetitive prompt (its emitted tokens
+12. spec      `inference --spec 8` on a repetitive prompt (its emitted tokens
               and verify forwards printed; K1 and K7 launched); the greedy ids
               of spec 8 and spec 0 equal, or first differ at a near-tie of the
               plain run's logits; HTTP serve with --spec 8 and a spec_k 0
               request.
-12. graphs    decode chunks as CUDA graphs (engine/graphs.py) against the same
+13. graphs    decode chunks as CUDA graphs (engine/graphs.py) against the same
               bodies launched from Python (`capture=False`), on the Q40 8B
               model: one stream (greedy ids and a seeded sampled stream
               equal), then eight paged slots (the same two checks); for
@@ -76,8 +92,8 @@ Q80 (random weights from a seed), and exits 0 only if every phase passed:
               report (full coverage), and its first request's content equal
               to a server's without warmup.
 
-Every path runs its decode chunks as captured CUDA graphs (the engines'
-default on a card); a replay adds the launches its capture recorded to each
+Every path runs its decode and prefill chunks as captured CUDA graphs (the
+engines' default on a card); a replay adds the launches its capture recorded to each
 wrapper's count, so the launch counts below are counted through replays.
 The q80 phase also profiles one 8-slot chunk with the CUDA RMSNorm (K10's
 device time inside the graph).
@@ -94,14 +110,15 @@ and 17, an f32 x for K11-B, k = 4104 for K11-D, one device kernel a call);
 K1 at 9 rows and K7 at 9 query rows (the spec verify forward); and
 every kernel the kbench phase launches on kbench's own inputs (each variant
 of its suite rows and of `8 w1 B D`, the tile sweep, the flash rows), since
-the benchmark checks no result. `serve`, `batch`, `f8`, `q80`, `kbench`, `styles` and `spec` are the
-main paths: the launch counters are zeroed just before each of their runs and
+the benchmark checks no result. `serve`, `batch`, `hybrid`, `f8`, `q80`, `kbench`, `styles` and
+`spec` are the main paths: the launch counters are zeroed just before each of their runs and
 read just after it. Not in the default: `profile` adds a torch.profiler pass
 over one single-stream and one 8-slot decode chunk (device time and
 operations a step, K1's share, and no split-k second pass; then one
 single-stream chunk under STYLE maskdot and loopdot); `chunk` runs only the
-prefill-chunk timings (Q40 dense and paged, then Q80), so that they can be
-taken from another checkout of the package as well.
+prefill-chunk timings (Q40 dense and paged, uncaptured and as programs, then
+Q80), so that they can be taken from another checkout of the package as
+well.
 
 The line before the last is the card's name and power limit; before that, one
 JSON object lists every ported kernel with its numbers; the last line is
@@ -151,6 +168,13 @@ Q80_KERNELS = ("q80_decode", "q80_prefill")
 #: chunk (one stream: generate's chunk; 8 slots: the scheduler's DECODE_CHUNK)
 GRAPH_TOKENS = 32
 GRAPH_CHUNK = {"single": 8, "batch": 4}
+#: the captured prefill chunks timed (forward/chunk phases): token widths and
+#: cache positions
+PROGRAM_WIDTHS = (64, 256)
+PROGRAM_POSITIONS = (0, 2048)
+#: prefill programs `--warmup auto` captures at the CLI's --max-prefill-chunk
+#: 256: the widths 1, 2, 4, ..., 256
+PREFILL_WIDTHS = 9
 #: clock cycles of the spin kernel that holds a timed chunk back until the
 #: host has enqueued it (~50 ms at the H100's 1.98 GHz)
 SPIN_CYCLES = 100_000_000
@@ -1637,16 +1661,20 @@ def _concurrently(fn, args_list) -> list:
 
 
 def phase_batch(loaded, n_slots: int = 8, max_tokens: int = 32,
-                mm_kernels: tuple = Q40_KERNELS) -> dict:
-    """make_server with slots (what `serve --slots 8` runs) over real HTTP:
-    the auto layout, n concurrent greedy chat requests twice (identical
+                mm_kernels: tuple = Q40_KERNELS, prefill_budget="auto") -> dict:
+    """make_server with slots (what `serve --slots 8` runs) over real HTTP,
+    at `prefill_budget` (the server's default, hybrid, unless given): the
+    auto layout, n concurrent greedy chat requests twice (identical
     contents), one SSE stream, a seeded sampled request alone and among
     penalized batch-mates (the same stream), and the page pool after the
     drain. The launch counters are zeroed before the requests and read
     after them: every forward launches the model's matmul kernels
     (`mm_kernels`, those of its weight format, and no other format's).
-    Decode must really run batched: the first round's decode chunks must
-    carry more than MIN_BATCH_SLOTS live slots on average."""
+    With phase-split admission (budget 0) decode must really run batched:
+    the first round's decode chunks must carry more than MIN_BATCH_SLOTS
+    live slots on average. (Hybrid admits the n prompts one after another,
+    each over several chunks, so its first round carries fewer by design;
+    phase_hybrid holds the same requests to MIN_BATCH_SLOTS at budget 0.)"""
     from dllama_tpu_torch.serve.api import graceful_drain, make_server
 
     import torch
@@ -1660,7 +1688,8 @@ def phase_batch(loaded, n_slots: int = 8, max_tokens: int = 32,
                        philox_uniforms(seeds.to(loaded.engine.device),
                                        ctrs.to(loaded.engine.device)).cpu()):
         fail("batch: Philox uniforms differ between the CPU and the card")
-    httpd, api = make_server(loaded, host="127.0.0.1", port=0, n_slots=n_slots)
+    httpd, api = make_server(loaded, host="127.0.0.1", port=0, n_slots=n_slots,
+                             prefill_budget=prefill_budget)
     eng = api.scheduler.engine
     if (eng.kv_layout, eng.page_size, eng.attn_route) != ("paged", 128, "paged_kernel"):
         fail(f"batch: --kv-layout auto resolved to {eng.kv_layout} page {eng.page_size} "
@@ -1699,7 +1728,7 @@ def phase_batch(loaded, n_slots: int = 8, max_tokens: int = 32,
     finally:
         clean = graceful_drain(httpd, api, timeout_s=120)
         httpd.server_close()
-    if not occupancy[0] > MIN_BATCH_SLOTS:
+    if prefill_budget == 0 and not occupancy[0] > MIN_BATCH_SLOTS:
         fail(f"batch: the first round's decode chunks carried {occupancy[0]:.2f} live slots "
              f"on average, want > {MIN_BATCH_SLOTS}: decode did not run batched")
     contents = [[r["choices"][0]["message"]["content"] for r in rnd] for rnd in rounds]
@@ -1907,7 +1936,8 @@ def phase_q80(device, prompt: str) -> dict:
                           "flash_attention"))
         layers.RMS_NORM_IMPL = "cuda"
         try:
-            batch = phase_batch(loaded, mm_kernels=Q80_KERNELS)
+            # phase-split admission: the Q80 server keeps the occupancy check
+            batch = phase_batch(loaded, mm_kernels=Q80_KERNELS, prefill_budget=0)
             k10 = phase_profile_batch(loaded, names=("rms_norm_kernel",))
         finally:
             layers.RMS_NORM_IMPL = "torch"
@@ -2192,6 +2222,121 @@ def chunk_timing(run, steps: int, reps: int = 5) -> dict:
             "stream_ms": statistics.median(streams) / steps}
 
 
+def prefill_timing(run, reps: int = 5) -> dict:
+    """One prefill chunk, `run` (which returns the chunk's logits on the
+    card): the wall ms (host clock around the run and a synchronize, median
+    of `reps`), the stream ms (CUDA events around a run that a spin kernel
+    holds back until the host has enqueued it, median of `reps`) and the
+    host ms of that enqueue (median), then the busy ms (the device
+    operations torch.profiler saw in one more run, summed) split into
+    matmul, attention and the rest, and the number of device operations."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()  # captures where needed
+    torch.cuda.synchronize()
+    walls, streams, hosts = [], [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        t0 = time.perf_counter()
+        run()
+        hosts.append(time.perf_counter() - t0)
+        b.record()
+        b.synchronize()
+        streams.append(a.elapsed_time(b))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    split = {"matmul_ms": 0.0, "attention_ms": 0.0, "other_ms": 0.0, "ops": 0}
+    for name, (us, count) in device_ops(prof).items():
+        key = ("matmul_ms" if any(k in name for k in CHUNK_MATMUL) else
+               "attention_ms" if any(k in name for k in CHUNK_ATTENTION) else "other_ms")
+        split[key] += us / 1e3
+        split["ops"] += count
+    return dict(split, wall_ms=statistics.median(walls) * 1e3,
+                stream_ms=statistics.median(streams), host_ms=statistics.median(hosts) * 1e3,
+                busy_ms=split["matmul_ms"] + split["attention_ms"] + split["other_ms"])
+
+
+def prefill_programs(loaded) -> dict:
+    """Prefill chunks as captured programs (one CUDA graph a token width,
+    the position a device input) at PROGRAM_WIDTHS x PROGRAM_POSITIONS:
+    through the single engine's `step` on its dense cache (K2 + K7), and
+    through `BatchEngine.add_step` of one slot on a page pool at page 128
+    (K2 + K9 after the plain pre-scatter). Each prints wall, stream and
+    busy ms (prefill_timing); the logits of a captured chunk must equal
+    the uncaptured body's on the same rows."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from dllama_tpu_torch.engine.batch import BatchEngine
+    from dllama_tpu_torch.engine.graphs import Programs
+
+    cfg, eng = loaded.config, loaded.engine
+    gen = np.random.default_rng(5)
+    be = BatchEngine(cfg, eng.params, n_slots=1, cache_dtype=eng.cache.k.dtype,
+                     max_seq_len=eng.seq_len, kv_layout="paged", page_size=128,
+                     device=eng.device)
+    uncaptured = Programs(eng.device, capture=False)
+    out: dict = {}
+    for width in PROGRAM_WIDTHS:
+        toks = gen.integers(0, cfg.vocab_size, (1, width))
+        for pos in PROGRAM_POSITIONS:
+
+            def single(pos=pos, toks=toks):
+                eng.reset(pos)
+                return eng.step(toks)
+
+            def paged(pos=pos, toks=toks, be=be):
+                be.release(0)
+                adm = be.add_begin(0, toks[0], start_pos=pos)
+                be.add_step(adm)
+                return adm.logits
+
+            for tier, run in (("single dense", single), ("paged slot", paged)):
+                res = out[(tier, width, pos)] = prefill_timing(run)
+                print(f"prefill program {tier}, {width} tokens at pos {pos}: wall "
+                      f"{res['wall_ms']:.3f} ms, stream {res['stream_ms']:.3f} ms (events, "
+                      f"host held off), busy {res['busy_ms']:.3f} ms in {res['ops']} device "
+                      f"ops (matmul {res['matmul_ms']:.3f}, attention "
+                      f"{res['attention_ms']:.3f}, other {res['other_ms']:.3f}); host "
+                      f"{res['host_ms']:.3f} ms to enqueue; wall/busy "
+                      f"{res['wall_ms'] / res['busy_ms']:.3f}", flush=True)
+            # the captured slot chunk against the same body launched from
+            # Python, each over a zeroed pool
+            logits, captured = [], be.programs
+            for programs in (captured, uncaptured):
+                be.programs = programs
+                be.cache.k.zero_()
+                be.cache.v.zero_()
+                logits.append(paged().clone())
+            be.programs = captured
+            if not torch.equal(*logits):
+                fail(f"prefill program: the captured {width}-token chunk at pos {pos} "
+                     "differs from the uncaptured body")
+    eng.reset(0)
+    stats = be.programs.stats()
+    print(f"prefill programs: {stats['graphs']} graphs on the page pool in "
+          f"{stats['capture_s']:.2f} s; captured and uncaptured slot chunks bit-equal",
+          flush=True)
+    del be, uncaptured
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def graph_launch_ms(prog, reps: int = 5) -> float:
     """Host ms of one `replay()` of a captured decode program, the card kept
     busy by a spin kernel so the call never waits for it (median of
@@ -2436,13 +2581,215 @@ def phase_graphs(loaded, mpath: str, tpath: str, prompt: str, want: str | None =
     if got != want:
         fail(f"graphs: the first request's content differs with --warmup auto: {got[:80]!r} "
              f"vs {want[:80]!r}")
-    coverage = 3 * DECODE_CHUNK
+    coverage = 3 * DECODE_CHUNK + PREFILL_WIDTHS
     if not report.get("full_coverage") or report.get("graphs_captured") != coverage:
         fail(f"graphs: --warmup auto report {report}, want full coverage and {coverage} graphs")
     print(f"graphs: --warmup auto first request's content equals the server's without "
           f"warmup ({len(got)} characters)", flush=True)
     out["warmup"] = report
     return out
+
+
+#: hybrid phase: the budgets compared, the running streams (a free slot of 8
+#: is left for the joiner), their decode tokens, the joining prompt's
+#: characters (one token a byte with the smoke's tokenizer), the tokens of
+#: the joiner and of each burst request, and the no-joiner window (s)
+HYBRID_BUDGETS = (0, "auto", 256)
+HYBRID_RUNNING = 7
+HYBRID_RUN_TOKENS = 448
+HYBRID_JOIN_CHARS = 2000
+HYBRID_TOKENS = 16
+HYBRID_BASELINE_S = 0.6
+
+
+def _stream(port: int, body: dict, first: threading.Event) -> tuple[int, str]:
+    """An SSE chat completion; sets `first` at its first content event.
+    -> (status, the streamed content)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request("POST", "/v1/chat/completions", json.dumps(dict(body, stream=True)),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    parts = []
+    while True:
+        line = resp.readline()  # through the chunked transfer decoding
+        if not line:
+            break
+        line = line.decode().strip()
+        if line == "data: [DONE]":
+            resp.read()  # the chunked body's end: the connection closes cleanly
+            break
+        if not line.startswith("data: "):
+            continue
+        delta = json.loads(line[6:])["choices"][0]["delta"].get("content")
+        if delta:
+            parts.append(delta)
+            first.set()
+    conn.close()
+    first.set()
+    return resp.status, "".join(parts)
+
+
+def _quantiles(xs: list) -> dict:
+    xs = sorted(xs)
+    if not xs:
+        return {"n": 0, "p50": None, "p95": None, "max": None}
+    return {"n": len(xs), "p50": statistics.median(xs),
+            "p95": xs[min(len(xs) - 1, int(round(0.95 * (len(xs) - 1))))], "max": xs[-1]}
+
+
+def phase_hybrid(loaded) -> dict:
+    """Hybrid chunked prefill against phase-split admission: the 8-slot
+    server on the page pool at page 128 (make_server, `serve --slots 8`),
+    booted with `--warmup auto`, at each --prefill-budget of
+    HYBRID_BUDGETS. Per budget: 7 greedy streams decode, and once they all
+    do a ~2,048-token prompt joins; the joiner's TTFT, and the running
+    streams' ITL with no joiner and during the join (each consumed decode
+    chunk's gap since the one before, over its steps: the wait between
+    tokens a running stream sees, spread over the chunk's tokens; p50, p95
+    and the largest gap), live slots a chunk, hybrid chunks and tokens.
+    Then, on the idle server, a burst of 8 simultaneous ~85-token chats
+    (the batch phase's prompts): TTFT p50/max, live slots a chunk, hybrid
+    chunks and tokens. Greedy contents must be identical across the
+    budgets, and the page pool must audit clean after each drain. Returns
+    the launches of the served requests, summed over the budgets."""
+    import gc
+
+    import torch
+
+    from dllama_tpu_torch.serve.api import graceful_drain, make_server
+
+    launches: dict = {}
+    results, contents = {}, {}
+    # the running streams' prompts share no more than the chat header with
+    # the burst's, so the burst finds nothing of them in the prefix cache
+    running = [{"messages": [{"role": "user", "content": "Stream on: " + p}],
+                "temperature": 0, "max_tokens": HYBRID_RUN_TOKENS}
+               for p in batch_prompts(HYBRID_RUNNING)]
+    words = " ".join(f"line {i}: the keeper logs the weather, the tide and the lamp."
+                     for i in range(200))[:HYBRID_JOIN_CHARS]
+    joiner = {"messages": [{"role": "user", "content": "Summarize this log. " + words}],
+              "temperature": 0, "max_tokens": HYBRID_TOKENS}
+    burst = [{"messages": [{"role": "user", "content": p}], "temperature": 0,
+              "max_tokens": 32} for p in batch_prompts(8)]
+    for budget in HYBRID_BUDGETS:
+        t_boot = time.perf_counter()
+        httpd, api = make_server(loaded, host="127.0.0.1", port=0, n_slots=8,
+                                 prefill_budget=budget, warmup="auto")
+        boot_s = time.perf_counter() - t_boot
+        sched, eng = api.scheduler, api.scheduler.engine
+        consumed = []  # (host time, steps, live slots) of each consumed decode chunk
+        consume = eng.decode_consume
+
+        def timed_consume(chunk, consume=consume, consumed=consumed):
+            toks = consume(chunk)
+            consumed.append((time.perf_counter(), chunk.n, int(chunk.active.sum())))
+            return toks
+
+        eng.decode_consume = timed_consume
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        port = httpd.server_address[1]
+        res: dict = {"boot_s": boot_s, "warmup": sched.warmup_report}
+        try:
+            reset_counters()
+            # ---- the join: 7 running streams, then the long prompt
+            firsts = [threading.Event() for _ in running]
+            out = [None] * len(running)
+
+            def run(i):
+                out[i] = _stream(port, running[i], firsts[i])
+
+            threads = [threading.Thread(target=run, args=(i,)) for i in range(len(running))]
+            for th in threads:
+                th.start()
+            for ev in firsts:
+                if not ev.wait(300):
+                    fail("hybrid: a running stream produced no token in 300 s")
+            time.sleep(HYBRID_BASELINE_S)
+            h0 = dict(sched.latency_summary()["hybrid"])
+            st, raw, t_join = _post_timed(port, joiner)
+            if st != 200:
+                fail(f"hybrid: the joiner answered {st}: {raw[:300]!r}")
+            jresp = json.loads(raw)
+            h1 = sched.latency_summary()["hybrid"]
+            for th in threads:
+                th.join(timeout=600)
+                if th.is_alive():
+                    fail("hybrid: a running stream did not finish within 600 s")
+            if any(st != 200 for st, _ in out):
+                fail(f"hybrid: a running stream failed: {[st for st, _ in out]}")
+            ttft_s = jresp["timings"]["ttft_ms"] / 1e3
+            join_end = t_join + ttft_s
+            # (host time, ms since the chunk before, steps, live slots)
+            gaps = [(t, (t - t0) * 1e3, n, live)
+                    for (t0, _, _), (t, n, live) in zip(consumed, consumed[1:])]
+            base = [ms / n for t, ms, n, live in gaps
+                    if t_join - HYBRID_BASELINE_S <= t < t_join and live == HYBRID_RUNNING]
+            # the join: every chunk consumed after the joiner was sent, up to
+            # and with the first one after its first token (a phase-split
+            # prefill's stall shows in that chunk)
+            after = [g[0] for g in gaps if g[0] > join_end]
+            during = [g for g in gaps if t_join <= g[0] <= (after[0] if after else join_end)]
+            res["join"] = {
+                "prompt_tokens": jresp["usage"]["prompt_tokens"],
+                "ttft_ms": jresp["timings"]["ttft_ms"],
+                "itl_ms_no_joiner": _quantiles(base),
+                "itl_ms_during_join": _quantiles([ms / n for _, ms, n, _ in during]),
+                "largest_gap_ms": max((ms for _, ms, _, _ in during), default=None),
+                "live_slots_in_join": (min((g[3] for g in during), default=None),
+                                       max((g[3] for g in during), default=None)),
+                "hybrid_chunks": h1["chunks"] - h0["chunks"],
+                "hybrid_tokens": h1["tokens"] - h0["tokens"],
+            }
+            contents.setdefault("running", []).append([c for _, c in out])
+            contents.setdefault("joiner", []).append(
+                jresp["choices"][0]["message"]["content"])
+            # ---- the burst on the idle server
+            c0, s0 = sched.chunks, sched.chunk_slots
+            h0 = dict(sched.latency_summary()["hybrid"])
+            replies = _concurrently(_post_timed, [(port, b) for b in burst])
+            if any(st != 200 for st, _, _ in replies):
+                fail(f"hybrid: a burst request failed: {[st for st, _, _ in replies]}")
+            rs = [json.loads(raw) for _, raw, _ in replies]
+            h1 = sched.latency_summary()["hybrid"]
+            chunks = sched.chunks - c0
+            ttfts = [r["timings"]["ttft_ms"] for r in rs]
+            res["burst"] = {"ttft_ms_p50": statistics.median(ttfts), "ttft_ms_max": max(ttfts),
+                            "live_slots_per_chunk": ((sched.chunk_slots - s0) / chunks
+                                                     if chunks else None),
+                            "decode_chunks": chunks,
+                            "hybrid_chunks": h1["chunks"] - h0["chunks"],
+                            "hybrid_tokens": h1["tokens"] - h0["tokens"]}
+            contents.setdefault("burst", []).append(
+                [r["choices"][0]["message"]["content"] for r in rs])
+            for k, v in counters().items():
+                launches[k] = launches.get(k, 0) + v
+            res["mode"] = sched.latency_summary()["hybrid"]["mode"]
+        finally:
+            clean = graceful_drain(httpd, api, timeout_s=120)
+            httpd.server_close()
+        report = eng.pool.audit(raise_on_fail=False)
+        if not (clean and report["ok"] and report["free"] == report["total"]):
+            fail(f"hybrid: budget {budget}: drain clean {clean}, pool after it {report}")
+        results[budget] = res
+        print(f"hybrid --prefill-budget {budget} ({res['mode']}): boot {boot_s:.1f} s "
+              f"({res['warmup']['graphs_captured']} graphs); join {json.dumps(res['join'])}; "
+              f"burst {json.dumps(res['burst'])}", flush=True)
+        del api, httpd, sched, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    for key, runs in contents.items():
+        if any(r != runs[0] for r in runs[1:]):
+            fail(f"hybrid: greedy {key} contents differ across the budgets {HYBRID_BUDGETS}")
+    if results["auto"]["join"]["hybrid_chunks"] <= 0 or results[0]["join"]["hybrid_chunks"]:
+        fail("hybrid: the joiner did not ride hybrid chunks under auto, or did at budget 0")
+    # the batch phase's requests on the same server, phase-split: decode batched
+    occupancy = results[0]["burst"]["live_slots_per_chunk"]
+    if not occupancy > MIN_BATCH_SLOTS:
+        fail(f"hybrid: the budget-0 burst's decode chunks carried {occupancy:.2f} live slots "
+             f"on average, want > {MIN_BATCH_SLOTS}: decode did not run batched")
+    print(f"hybrid: greedy contents identical across the budgets (running, joiner, burst); "
+          f"pool clean after each drain; launches {launches}", flush=True)
+    return launches
 
 
 # ------------------------------------------------------------ main
@@ -2479,12 +2826,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=20, help="timed runs per case (0: no timing)")
     ap.add_argument("--phases",
-                    default="card,kernels,kbench,forward,serve,batch,inference,styles,spec,"
-                            "graphs,f8,q80",
+                    default="card,kernels,kbench,forward,serve,batch,hybrid,inference,styles,"
+                            "spec,graphs,f8,q80",
                     help="comma list; not in the default: 'profile' adds a "
                          "torch.profiler pass over one decode chunk, single-stream "
                          "and 8-slot; 'chunk' is the prefill-chunk timing alone (Q40 "
-                         "dense and paged, Q80)")
+                         "dense and paged, uncaptured and as programs; Q80)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -2535,8 +2882,8 @@ def main(argv=None) -> int:
     phase_done("kbench", phases)
     prompt = ("Summarize the plot of a long story about a lighthouse keeper, "
               "a storm, and a ship that never arrives.")
-    if phases & {"forward", "chunk", "serve", "profile", "batch", "inference", "styles", "spec",
-                  "graphs", "f8"}:
+    if phases & {"forward", "chunk", "serve", "profile", "batch", "hybrid", "inference", "styles",
+                  "spec", "graphs", "f8"}:
         from dllama_tpu_torch.engine.loader import load_model
 
         tmp = tempfile.TemporaryDirectory(prefix="dllama_smoke_")
@@ -2558,6 +2905,7 @@ def main(argv=None) -> int:
             report_chunk("Q40 dense (K2 + K7)", prefill_chunk_ms(loaded, device))
             report_chunk("Q40 paged, page 128 (K2 + K9)",
                          prefill_chunk_ms(loaded, device, page=128))
+            prefill_programs(loaded)
         phase_done("forward", phases)
 
         if "serve" in phases:
@@ -2627,6 +2975,10 @@ def main(argv=None) -> int:
                   f"in rounds 1 and 2; TTFT p50 {batch['ttft_ms_p50']:.1f} ms, max "
                   f"{batch['ttft_ms_max']:.1f} ms", flush=True)
         phase_done("batch", phases)
+
+        if "hybrid" in phases:
+            paths["hybrid"] = phase_hybrid(loaded)
+        phase_done("hybrid", phases)
 
         auto_text = None  # the greedy CLI text under STYLE auto, for the styles phase
         if "inference" in phases:

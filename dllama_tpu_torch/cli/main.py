@@ -12,10 +12,12 @@ Everything runs on one device, `--device cuda` (the default) or
 CPU was asked for. Options of the JAX package that this package has not
 ported yet are accepted by name and refused with a clear message (exit 2);
 the batched tier's `auto` defaults for features not yet ported (radix prefix
-tree, hybrid chunked prefill, preemption) resolve to off, with one logged
-line each. `--spec K` (prompt-lookup speculative decoding) drives the
-single-engine paths; with `--slots > 0` it is refused. `serve --slots N
---warmup auto` captures every decode program before the first request.
+tree, preemption) resolve to off, with one logged line each. `serve --slots
+N` admits with hybrid chunked prefill (`--prefill-budget auto`, the JAX
+package's default; 0 restores phase-split admission). `--spec K`
+(prompt-lookup speculative decoding) drives the single-engine paths; with
+`--slots > 0` it is refused. `serve --slots N --warmup auto` captures every
+decode and prefill program before the first request.
 """
 
 from __future__ import annotations
@@ -88,13 +90,29 @@ def build_parser() -> argparse.ArgumentParser:
                         "(0 = unbounded)")
     p.add_argument("--overlap", choices=["on", "off"], default="on",
                    help="batched tier: launch decode chunk N+1 before consuming chunk N")
+    p.add_argument("--prefill-budget", default="auto", metavar="{auto,N,0}",
+                   help="serve --slots > 0: hybrid chunked prefill, each decode chunk "
+                        "preceded on the card by up to this many prompt tokens of an "
+                        "admitting request, so a long prompt never stalls running "
+                        "streams. 'auto' (default) steers the budget from the windowed "
+                        "ITL against --slo-itl-ms (holds 64 with no target); an integer "
+                        "pins it; 0 restores phase-split admission. Token streams are "
+                        "the same under every setting")
+    p.add_argument("--admit-budget-ms", type=float, default=None,
+                   help="serve --slots > 0, phase-split admission only (--prefill-budget "
+                        "0): the decode stall (ms) a joining prompt's prefill may insert "
+                        "a visit (default 250; 0 = one prefill chunk a decode chunk)")
+    p.add_argument("--admit-ttft-deadline-ms", type=float, default=None,
+                   help="serve --slots > 0: joiners older than this pump their prefill "
+                        "to completion despite the pacing (hard TTFT bound; default off)")
+    p.add_argument("--slo-itl-ms", type=float, default=None,
+                   help="serve --slots > 0: inter-token-latency target (ms) that "
+                        "--prefill-budget auto steers by")
     # accepted by name, refused until ported
     p.add_argument("--frontend", choices=["aio", "threads"], default="threads",
                    help="serve mode transport (aio is not yet ported)")
     p.add_argument("--radix-cache", choices=["auto", "on", "off"], default="auto",
                    help="radix prefix tree (not yet ported: auto resolves to off)")
-    p.add_argument("--prefill-budget", default="auto",
-                   help="hybrid chunked prefill (not yet ported: auto resolves to 0)")
     p.add_argument("--preempt", choices=["auto", "on", "off"], default="auto",
                    help="preemption (not yet ported: auto resolves to off)")
     p.add_argument("--kv-host-pages", type=int, default=0,
@@ -102,9 +120,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tenant-weight", action="append", default=[],
                    help="fair-queue tenant weight NAME=W (not yet ported)")
     p.add_argument("--warmup", choices=["auto", "off"], default="off",
-                   help="serve --slots > 0: capture every decode program (CUDA graph) "
-                        "and run each prefill width once before the first request; "
-                        "ignored with a warning on the single-engine tier")
+                   help="serve --slots > 0: capture every decode and prefill program "
+                        "(CUDA graph) before the first request; ignored with a warning "
+                        "on the single-engine tier")
     p.add_argument("--restart-max", type=int, default=0,
                    help="warm engine restarts (not yet ported)")
     p.add_argument("--spec", type=int, default=0, metavar="K",
@@ -122,8 +140,6 @@ def _refuse_unported(args) -> None:
         raise NotPorted("--spec with --slots > 0 (batched speculative decoding)")
     if args.radix_cache == "on":
         raise NotPorted("--radix-cache on (the radix prefix tree)")
-    if args.prefill_budget not in ("auto", "0"):
-        raise NotPorted("--prefill-budget N > 0 (hybrid chunked prefill)")
     if args.preempt == "on":
         raise NotPorted("--preempt on")
     if args.kv_host_pages:
@@ -264,11 +280,21 @@ def cmd_serve(args) -> int:
     if not args.tokenizer:
         print("serve mode requires --tokenizer", file=sys.stderr)
         return 1
+    prefill_budget = args.prefill_budget
+    if prefill_budget != "auto":
+        try:
+            prefill_budget = int(prefill_budget)
+        except ValueError:
+            print(f"--prefill-budget must be 'auto' or an integer, got "
+                  f"{prefill_budget!r}", file=sys.stderr)
+            return 1
+        if prefill_budget < 0:
+            print("--prefill-budget must be >= 0", file=sys.stderr)
+            return 1
     m = _load(args)
     if args.slots > 0:
         log = logging.getLogger("dllama_tpu_torch.cli")
-        for flag, value in (("--radix-cache", "off"), ("--prefill-budget", "0"),
-                            ("--preempt", "off")):
+        for flag, value in (("--radix-cache", "off"), ("--preempt", "off")):
             if getattr(args, flag[2:].replace("-", "_")) == "auto":
                 log.warning("%s auto -> %s: the feature is not yet ported to the "
                             "PyTorch/CUDA package", flag, value)
@@ -280,6 +306,8 @@ def cmd_serve(args) -> int:
         drain_timeout_s=args.drain_timeout_s, kv_layout=args.kv_layout,
         page_size=args.page_size, kv_pages=args.kv_pages, max_queue=args.max_queue,
         overlap=args.overlap == "on", spec=args.spec, warmup=args.warmup,
+        prefill_budget=prefill_budget, admit_stall_budget_ms=args.admit_budget_ms,
+        admit_ttft_deadline_ms=args.admit_ttft_deadline_ms, slo_itl_ms=args.slo_itl_ms,
     )
 
 

@@ -18,9 +18,15 @@ leave at EOS: the scheduling core of continuous batching. Mechanics:
   chunk into a launch that returns at once and a wait on an event, so the
   serving scheduler runs its Python work while the card computes.
 * each n-step chunk is a decode program (engine/graphs.py) over those
-  tensors: on a CUDA device one CUDA graph per (variant, n), replayed;
-  ``capture=False`` launches the same body from Python instead. warmup()
+  tensors, and each prompt chunk of one slot a prefill program of its
+  token width, with the slot and its position as device inputs: on a CUDA
+  device one CUDA graph per (variant, n) and per width, replayed;
+  ``capture=False`` launches the same bodies from Python instead. warmup()
   captures every program the scheduler can ask for at boot.
+* hybrid chunked prefill: hybrid_dispatch replays one prefill program of
+  the admitting slot and then the decode program, back to back on one
+  stream with no host read between them, so a joining prompt rides the
+  decode chunks in slices instead of stalling them.
 * KV layout: ``dense`` (a [seq_len] row range per slot) or ``paged`` (a global
   page pool with per-slot block tables and the refcounted PagePool
   allocator); the two give the same tokens.
@@ -298,6 +304,15 @@ class PagePool:
                    if self.refcount[int(self.tables[slot, b])] == 1)
 
 
+def _set_row(dev: torch.Tensor, row: int, value: int) -> None:
+    """dev[row] = value as a fill of a one-row slice: a kernel with the value
+    as its argument, in stream order. (``dev[row] = value`` on a CUDA tensor
+    copies a host scalar into the card, which waits for every launch queued
+    before it.)"""
+    row = int(row)
+    dev[row : row + 1].fill_(int(value))
+
+
 def _sample_rows(logits: torch.Tensor, uniforms: torch.Tensor, temps: torch.Tensor,
                  topps: torch.Tensor) -> torch.Tensor:
     """Per-row sampling with per-row uniforms: [B, V] x [B, 2] -> [B]. The JAX
@@ -335,6 +350,8 @@ class DecodeChunk:
     active: np.ndarray  # bool [B] active mask at dispatch
     advance: np.ndarray  # i32 [B] rows each slot really advances
     seq: int = 0
+    hybrid_slot: int = -1  # the admitting slot a hybrid chunk prefilled, or -1
+    hybrid_tokens: int = 0  # prompt tokens that chunk prefilled
 
     def nonfinite(self) -> np.ndarray | None:
         """bool [B] rows whose logits went non-finite in this chunk, or None
@@ -358,7 +375,7 @@ class BatchEngine:
         page_size: int = 128,  # paged: rows per page (must divide seq_len)
         kv_pages: int = 0,  # paged: pool size in pages; 0 = n_slots * seq_len / page_size
         device=None,  # default: the device the params lie on
-        capture: bool | None = None,  # decode chunks as CUDA graphs (None: on a CUDA device)
+        capture: bool | None = None,  # chunks as CUDA graphs (None: on a CUDA device)
     ):
         if cache_dtype not in CACHE_DTYPES:
             raise ValueError(f"KV cache dtype {cache_dtype} is not one of {CACHE_DTYPES}")
@@ -425,6 +442,12 @@ class BatchEngine:
             (4, n_slots), dtype=torch.float32, device=self.device)
         self._counts: torch.Tensor | None = None  # i32 [B, V], on the first penalized request
         self._rows = torch.arange(n_slots, device=self.device)
+        # the prefill programs' device inputs: [slot, position] of the chunk,
+        # and on the paged layout the slot's block-table row, gathered
+        # inside the program from the device tables
+        self._pf_in = torch.zeros(2, dtype=torch.int64, device=self.device)
+        self._pf_table = (torch.zeros((1, self.cache.tables.shape[1]), dtype=torch.int32,
+                                      device=self.device) if self.pool is not None else None)
         self.programs = Programs(self.device, capture)
 
     # ------------------------------------------------------------- helpers
@@ -437,20 +460,12 @@ class BatchEngine:
         t = torch.from_numpy(np.array(arr, copy=True))
         return t.pin_memory() if self.device.type == "cuda" else t
 
-    def _h2d(self, arr: np.ndarray) -> torch.Tensor:
-        """A NEW device tensor holding a copy of `arr` (see _pinned)."""
-        return self._pinned(arr).to(self.device, non_blocking=True)
-
     def _logits(self, tokens: torch.Tensor, pos, cache, active=None) -> torch.Tensor:
         """One forward; returns last-position logits f32 [B, V]. The caller
         counts it in ``forwards``."""
         logits, _ = forward(self.cfg, self.params, tokens, pos, cache, self.rope_cache,
                             self.attn_fn, self.mm, last_only=True, active=active)
         return logits[:, -1]
-
-    def _fwd(self, tokens: torch.Tensor, pos, cache, active=None) -> torch.Tensor:
-        self.forwards += 1
-        return self._logits(tokens, pos, cache, active)
 
     # ------------------------------------------------------- paged-layout api
 
@@ -525,7 +540,7 @@ class BatchEngine:
             return 0
         freed = self.pool.free_tail(slot, 0)
         self.pos[slot] = 0
-        self._pos_dev[slot] = 0
+        _set_row(self._pos_dev, slot, 0)
         self._vec_dirty = True
         return freed
 
@@ -549,7 +564,7 @@ class BatchEngine:
             for buf in (self.cache.k, self.cache.v):
                 buf[:, dst_slot, :, :rows] = buf[:, src_slot, :, :rows]
         self.pos[dst_slot] = rows
-        self._pos_dev[dst_slot] = int(rows)
+        _set_row(self._pos_dev, dst_slot, rows)
         self._vec_dirty = True
 
     def free_slot(self) -> int | None:
@@ -574,7 +589,7 @@ class BatchEngine:
             # every prompt row with a page (PageExhausted when it cannot)
             self.pool.prepare_admission(slot, start_pos, start_pos + n, self._pool_page_copy)
         self.pos[slot] = start_pos
-        self._pos_dev[slot] = int(start_pos)
+        _set_row(self._pos_dev, slot, start_pos)
         self._vec_dirty = True
         return Admission(slot=slot, toks=np.asarray(prompt_tokens, np.int64), req_id=req_id)
 
@@ -582,21 +597,63 @@ class BatchEngine:
     def add_step(self, adm: Admission) -> bool:
         """Prefill ONE power-of-two chunk of the admission's prompt at B=1;
         returns True when every prompt token's KV row is written."""
-        n, off, slot = len(adm.toks), adm.off, adm.slot
-        c = pow2_chunk(n - off, self.max_prefill_chunk)
-        if self.pool is not None:
-            # the slot's block table changed at add_begin: refresh the device
-            # copy before the chunk reads it
-            self._sync_vectors()
-            sub = PagedKVCache(self.cache.k, self.cache.v, self.cache.tables[slot : slot + 1])
+        self._prefill_slice(adm, pow2_chunk(len(adm.toks) - adm.off, self.max_prefill_chunk))
+        return adm.off >= len(adm.toks)
+
+    def _prefill_layout(self, slot: int):
+        """The prefill programs' layout key of `slot`: one set of programs
+        serves every slot of the page pool (the slot's table row is gathered
+        inside the program); on the dense layout each slot's cache rows are
+        a view whose address a graph fixes, so each slot has its own."""
+        return "paged" if self.pool is not None else ("dense", int(slot))
+
+    def _make_prefill(self, width: int, layout):
+        """(body, buffers, state) of the prefill program of `width` tokens on
+        `layout` (_prefill_layout): one B=1 forward of ``buffers["toks"]``
+        at the device position ``_pf_in[1]`` into the slot ``_pf_in[0]``
+        (paged: its table row, gathered from the device tables; dense: the
+        slot the layout names). The last position's logits go to
+        ``buffers["logits"]`` [1, V]. It moves no engine state: the slot's
+        positions and activity are the host's to set (add_commit)."""
+        toks = torch.zeros((1, width), dtype=torch.int64, device=self.device)
+        out = torch.zeros((1, self.cfg.vocab_size), dtype=torch.float32, device=self.device)
+        pos = self._pf_in[1:]
+        if layout == "paged":
+            table, slot = self._pf_table, self._pf_in[:1]
+            sub = PagedKVCache(self.cache.k, self.cache.v, table)
+
+            def body():
+                table.copy_(self.cache.tables.index_select(0, slot))
+                out.copy_(self._logits(toks, pos, sub))
         else:
-            sub = KVCache(self.cache.k[:, slot : slot + 1], self.cache.v[:, slot : slot + 1])
-        toks = self._h2d(adm.toks[None, off : off + c])
-        adm.logits = self._fwd(toks, int(self.pos[slot]), sub)
+            s = layout[1]
+            sub = KVCache(self.cache.k[:, s : s + 1], self.cache.v[:, s : s + 1])
+
+            def body():
+                out.copy_(self._logits(toks, pos, sub))
+
+        return body, {"toks": toks, "logits": out}, ()
+
+    def _prefill_slice(self, adm: Admission, c: int) -> None:
+        """Run the next `c` prompt tokens of `adm` through the prefill
+        program of width `c`: load its tokens and [slot, position] (copies
+        in stream order, from pinned memory), replay, and copy the logits
+        out before another replay can overwrite them. adm.off, adm.logits
+        and the slot's host pos advance."""
+        slot, off = adm.slot, adm.off
+        # add_begin may have changed the slot's block table: the device copy
+        # is refreshed, in stream order, before the program gathers its row
+        self._sync_vectors()
+        prog = self.programs.prefill(c, self._prefill_layout(slot), self._make_prefill)
+        prog.buffers["toks"].copy_(self._pinned(adm.toks[None, off : off + c]),
+                                   non_blocking=True)
+        self._pf_in.copy_(self._pinned(np.array([slot, self.pos[slot]], np.int64)),
+                          non_blocking=True)
+        prog.run()
+        self.forwards += 1
+        adm.logits = prog.buffers["logits"].clone()
         self.pos[slot] += c
         adm.off += c
-        self._vec_dirty = True
-        return adm.off >= n
 
     def _request_seed(self, seed: int | None) -> int:
         """The request's seed, or one derived from the engine seed and the
@@ -629,8 +686,8 @@ class BatchEngine:
         self.presence[slot] = presence
         self.frequency[slot] = frequency
         self._vec_dirty = True
-        self._last_dev[slot] = first
-        self._pos_dev[slot] = int(self.pos[slot])
+        _set_row(self._last_dev, slot, first)
+        _set_row(self._pos_dev, slot, self.pos[slot])
         if presence or frequency:
             self._ensure_counts()
             # a fresh request has sampled nothing yet (OpenAI counts exclude
@@ -735,6 +792,13 @@ class BatchEngine:
         its allocated pages) freezes per row while its batch-mates keep the
         whole chunk; `DecodeChunk.advance` holds each slot's real count.
         Raises only when no active slot has any room."""
+        n, limit = self._decode_rows(n)
+        self._sync_vectors()
+        return self._decode_launch(n, limit)
+
+    def _decode_rows(self, n: int) -> tuple[int, np.ndarray]:
+        """(n clipped to the roomiest active slot's room, the row limits)
+        after the paged top-up; raises when no active slot has any room."""
         if not self.active.any():
             raise ValueError("no active slots")
         self._alloc_decode_rows(n)
@@ -744,7 +808,12 @@ class BatchEngine:
         if n <= 0:
             raise ValueError("every active slot is at its row limit (seq_len, or an "
                              "exhausted page pool); release first")
-        self._sync_vectors()
+        return n, limit
+
+    def _decode_launch(self, n: int, limit: np.ndarray) -> DecodeChunk:
+        """Replay the n-step decode program of the active slots' variant and
+        queue the copy of its outputs to the host (decode_dispatch's body,
+        after the vectors are synced)."""
         live = self.active
         penalized = self._counts is not None and bool(
             ((self.presence[live] != 0.0) | (self.frequency[live] != 0.0)).any())
@@ -775,19 +844,75 @@ class BatchEngine:
         return DecodeChunk(toks=toks, bad=bad, event=event, n=n, start_pos=start_pos,
                            active=active, advance=advance, seq=self.chunk_seq)
 
+    @property
+    def supports_hybrid(self) -> bool:
+        """Whether hybrid_dispatch can run: always on one device (the JAX
+        package's gate is a sharded batch axis, which the port has not)."""
+        return True
+
     @torch.no_grad()
-    def warmup(self, chunk: int = 4) -> dict:
+    def hybrid_dispatch(self, n: int, adm: Admission, budget: int) -> DecodeChunk:
+        """Dispatch ONE hybrid step (the JAX package's fused
+        ``hybrid_dispatch``): up to `budget` prompt tokens of the in-flight
+        admission `adm`, then the n-step decode program of the active slots,
+        replayed back to back on one stream with no host read between them.
+        The prompt tokens run as the JAX package's slice,
+        ``pow2_chunk(min(budget, remaining), max_prefill_chunk)`` tokens
+        through the prefill program of that width, followed, while budget
+        and prompt are left, by further power-of-two slices of the same
+        prompt (JAX leaves that budget unused: an 85-token prompt at budget
+        64 is admitted in 2 chunks, 64 | 16 + 4 + 1, not 4). ``adm.off``,
+        ``adm.logits`` and the slot's host pos advance exactly as add_steps
+        of the same sizes would, so add_commit works unchanged once the
+        admission is fully pumped. The admitting slot is inactive in the
+        decode mask and every attention read is per slot, so the decode
+        rows' tokens are those of a plain decode_dispatch. Returns the
+        DecodeChunk, with hybrid_slot / hybrid_tokens recording the prompt
+        tokens it prefilled."""
+        slot = adm.slot
+        if self.active[slot]:
+            raise ValueError(f"slot {slot} is busy")
+        if not self.active.any():
+            raise ValueError("no active slots to fuse with; pump the admission with "
+                             "add_step instead")
+        if adm.off >= len(adm.toks):
+            raise ValueError("admission already fully pumped")
+        n, limit = self._decode_rows(n)
+        left, start = max(1, int(budget)), adm.off
+        while left > 0 and adm.off < len(adm.toks):
+            c = pow2_chunk(min(left, len(adm.toks) - adm.off), self.max_prefill_chunk)
+            self._prefill_slice(adm, c)  # syncs the vectors and the tables first
+            left -= c
+        chunk = self._decode_launch(n, limit)
+        chunk.hybrid_slot, chunk.hybrid_tokens = slot, adm.off - start
+        return chunk
+
+    def _prefill_widths(self) -> list[int]:
+        """Every token width add_step and hybrid_dispatch can run: the powers
+        of two up to min(max_prefill_chunk, seq_len)."""
+        widths, w = [], 1
+        while w <= min(self.max_prefill_chunk, self.seq_len):
+            widths.append(w)
+            w *= 2
+        return widths
+
+    @torch.no_grad()
+    def warmup(self, chunk: int = 4, hybrid_budget_hi: int = 0) -> dict:
         """``--warmup auto`` boot pass (the JAX package's BatchEngine.warmup):
-        capture every decode program the serving scheduler can ask for, n in
-        1..chunk times VARIANTS, and run each power-of-two prefill width
-        once, so the first request finds its graphs captured and the kernel
-        libraries loaded. Every operand is inert: with every slot inactive a
-        decode program freezes each row (cache writes masked, positions,
-        tokens and generator counters held) and the prefill widths write
-        through an all-False mask (the dense rows keep their values, the
-        paged rows go to the trash page). Must run before any slot is active.
-        Returns the report, under the JAX report's keys where the port has
-        the field, with the count of graphs captured."""
+        capture every program the serving scheduler can ask for, so the
+        first request finds its graphs captured and the kernel libraries
+        loaded: the decode programs, n in 1..chunk times VARIANTS, and the
+        prefill program of each power-of-two width (per slot on the dense
+        layout). A hybrid slice of at most ``hybrid_budget_hi`` tokens runs
+        one of those widths, so the pass covers hybrid chunks too. Every
+        operand is inert: with every slot inactive a decode program freezes
+        each row (cache writes masked, positions, tokens and generator
+        counters held), and a prefill program is captured without a replay,
+        its warm-up writing into the trash page (paged: slot 0's device
+        table row points there meanwhile) or into rows put back afterwards
+        (dense). Must run before any slot is active. Returns the report,
+        under the JAX report's keys where the port has the field, with the
+        count of graphs captured."""
         if self.active.any():
             raise RuntimeError("warmup must run before any slot is active")
         t0 = time.perf_counter()
@@ -802,17 +927,27 @@ class BatchEngine:
                 cached += self.programs.ready(variant, n)  # captured before this pass
                 self._program(variant, n).run()
                 per_fn[fn_names[variant]] = per_fn.get(fn_names[variant], 0) + 1
-        off = torch.zeros(1, dtype=torch.bool, device=self.device)
-        if self.pool is not None:
-            sub = PagedKVCache(self.cache.k, self.cache.v, self.cache.tables[:1])
-        else:
-            sub = KVCache(self.cache.k[:, :1], self.cache.v[:, :1])
-        width = 1
-        while width <= min(self.max_prefill_chunk, self.seq_len):
-            self._logits(torch.zeros((1, width), dtype=torch.int64, device=self.device), 0,
-                         sub, active=off)
-            per_fn["prefill_chunk"] = per_fn.get("prefill_chunk", 0) + 1
-            width *= 2
+        widths = self._prefill_widths()
+        layouts = ([self._prefill_layout(0)] if self.pool is not None
+                   else [self._prefill_layout(s) for s in range(self.n_slots)])
+        saved = None
+        if self.programs.capture:  # a capture's warm-up writes KV rows
+            self._pf_in.zero_()  # slot 0, position 0
+            if self.pool is not None:
+                self.cache.tables[0].fill_(self.pool.n_pages)  # the trash page
+            else:
+                saved = [buf[:, :, :, : widths[-1]].clone()
+                         for buf in (self.cache.k, self.cache.v)]
+        for layout in layouts:
+            for width in widths:
+                cached += self.programs.prefill_ready(width, layout)
+                self.programs.prefill(width, layout, self._make_prefill).prepare()
+                per_fn["prefill_chunk"] = per_fn.get("prefill_chunk", 0) + 1
+        if saved is not None:
+            for buf, old in zip((self.cache.k, self.cache.v), saved):
+                buf[:, :, :, : widths[-1]] = old
+        self._vec_dirty = True  # slot 0's table row goes back
+        self._sync_vectors()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         report = {
@@ -821,13 +956,16 @@ class BatchEngine:
             "graphs_captured": self.programs.stats()["graphs"] - graphs0,
             "cached": cached,
             "per_fn": per_fn,
+            "hybrid_budget_hi": int(hybrid_budget_hi),
             "seconds": round(time.perf_counter() - t0, 3),
             "full_coverage": all(self.programs.ready(v, n) for n in range(1, chunk + 1)
-                                 for v in VARIANTS),
+                                 for v in VARIANTS)
+                             and all(self.programs.prefill_ready(w, lay) for w in widths
+                                     for lay in layouts),
         }
-        log.info("warmup: %d decode programs (%d graphs captured, %d cached) and %d prefill "
-                 "widths in %.2fs; %s", chunk * len(VARIANTS), report["graphs_captured"],
-                 cached, per_fn.get("prefill_chunk", 0), report["seconds"],
+        log.info("warmup: %d decode programs and %d prefill programs (%d graphs captured, "
+                 "%d cached) in %.2fs; %s", chunk * len(VARIANTS), per_fn["prefill_chunk"],
+                 report["graphs_captured"], cached, report["seconds"],
                  "full coverage" if report["full_coverage"] else "coverage INCOMPLETE")
         return report
 
@@ -863,7 +1001,7 @@ class BatchEngine:
         elif self.pool is not None:
             self.pool.free_tail(slot, 0)
             self.pos[slot] = 0
-        self._pos_dev[slot] = int(self.pos[slot])
+        _set_row(self._pos_dev, slot, self.pos[slot])
         if self.pool is not None and self.pool.audit_on_release:
             self.pool.audit()
         self._vec_dirty = True

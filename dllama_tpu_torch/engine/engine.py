@@ -5,9 +5,10 @@ Prefill is chunked in power-of-two widths. Decode runs in chunks of up to
 ``chunk`` tokens: inside a chunk every sampled token stays on the device and
 feeds the next forward directly, and the chunk's tokens reach the host in
 one copy — one host round trip per chunk, not per token. Each chunk is a
-decode program (engine/graphs.py): on a CUDA device one CUDA graph per
-(variant, n), replayed; ``capture=False`` launches the same body from
-Python instead, for comparison.
+program (engine/graphs.py): a prefill chunk one per token width, reading
+its position from the device, a decode chunk one per (variant, n); on a
+CUDA device each is a CUDA graph, replayed; ``capture=False`` launches the
+same bodies from Python instead, for comparison.
 """
 
 from __future__ import annotations
@@ -72,8 +73,8 @@ class GenerationStats:
 class InferenceEngine:
     """Owns params + KV cache + the resolved kernels for one model replica
     on one device (``device``, default: the device the params lie on).
-    ``capture`` (default: on for a CUDA device) runs each decode chunk as a
-    captured CUDA graph."""
+    ``capture`` (default: on for a CUDA device) runs each prefill and
+    decode chunk as a captured CUDA graph."""
 
     def __init__(
         self,
@@ -107,11 +108,12 @@ class InferenceEngine:
         self.forwards = 0  # forward passes run (each is one token column)
         self._spec_h = None  # (device history, pos, cur): chunked-call reuse
         self._spec_stats = None  # {emitted, cycles} of the last speculative call
-        # the decode programs and their static inputs: the fed token, the
-        # position vector (a program advances it; _dev_pos is the host value
-        # it holds after the last program, None before any), the sampling
-        # rows (temperature, top-p, presence, frequency) and the occurrence
-        # counts (made at the first penalized chunk)
+        # the programs and their static inputs: the fed token, the position
+        # vector (every program advances it; _dev_pos is the host value it
+        # holds after the last program, None before any), the sampling rows
+        # (temperature, top-p, presence, frequency) and the occurrence counts
+        # (made at the first penalized chunk); a prefill program's tokens
+        # and logits are its own buffers
         self.programs = Programs(self.device, capture)
         self._dec_tok = torch.zeros((batch, 1), dtype=torch.int64, device=self.device)
         self._dec_pos = torch.zeros(batch, dtype=torch.int32, device=self.device)
@@ -139,12 +141,48 @@ class InferenceEngine:
     # ------------------------------------------------------------------ core
 
     def step(self, tokens) -> torch.Tensor:
-        """Run T tokens at the current position; returns last-pos logits [B, V]."""
-        tokens = np.asarray(tokens, dtype=np.int64)
-        self._check_room(tokens.shape[1])
-        logits = self._forward(torch.from_numpy(tokens).to(self.device), self.pos)
-        self.pos += tokens.shape[1]
-        return logits
+        """Run T tokens at the current position; returns last-pos logits [B, V].
+        The chunk is the prefill program of width T (the JAX package's
+        ``_step`` of that width): the tokens go into its static [B, T]
+        buffer, the position is the device vector the decode programs read,
+        and the logits are copied out of its static [B, V] buffer in stream
+        order, before another replay can overwrite them."""
+        tokens = np.asarray(tokens, dtype=np.int64).reshape(self.batch, -1)
+        width = tokens.shape[1]
+        self._check_room(width)
+        prog = self.programs.prefill(width, "dense", self._make_prefill)
+        host = torch.from_numpy(tokens)
+        if self.device.type == "cuda":
+            host = host.pin_memory()  # the copy then does not wait for the card
+        prog.buffers["toks"].copy_(host, non_blocking=True)
+        self._load_pos()
+        self._dev_pos = None  # unknown until the program has run
+        prog.run()
+        self.forwards += 1
+        self.pos += width
+        self._dev_pos = self.pos
+        return prog.buffers["logits"].clone()
+
+    def _load_pos(self) -> None:
+        """Point the device position vector at ``pos`` when a rewind or
+        another path moved it (no host read: the host knows what it holds)."""
+        if self._dev_pos != self.pos:
+            self._dec_pos.fill_(self.pos)
+
+    def _make_prefill(self, width: int, layout: str):
+        """(body, buffers, state) of the prefill program of `width` tokens:
+        one forward at the device position, which it advances by `width`;
+        the last position's logits go to ``buffers["logits"]`` [B, V]."""
+        toks = torch.zeros((self.batch, width), dtype=torch.int64, device=self.device)
+        out = torch.zeros((self.batch, self.cfg.vocab_size), dtype=torch.float32,
+                          device=self.device)
+        pos0 = self._dec_pos
+
+        def body():
+            out.copy_(self._logits(toks, pos0))
+            pos0.add_(width)
+
+        return body, {"toks": toks, "logits": out}, (pos0,)
 
     def reset(self, pos: int = 0) -> None:
         """Rewind to `pos` (prefix-cache reuse keeps cache contents <= pos valid)."""
@@ -215,8 +253,7 @@ class InferenceEngine:
         prog = self.programs.get(variant, n, self._make_program)
         self._dec_tok.copy_(torch.as_tensor(np.asarray(token, dtype=np.int64)).reshape(
             self.batch, 1))
-        if self._dev_pos != self.pos:  # a rewind, a prefill or another path moved pos
-            self._dec_pos.fill_(self.pos)
+        self._load_pos()
         if variant != "greedy":
             self._dec_samp.copy_(torch.tensor(
                 [sampler.temperature, sampler.topp, sampler.presence, sampler.frequency],

@@ -1,31 +1,43 @@
-"""Decode chunks as device programs: the port's counterpart of the JAX
-package's ``lax.scan`` decode programs (``dllama_tpu/engine/engine.py``
-``_decode_n_impl`` and its sampled and penalized forms, and the fused scans
-behind ``BatchEngine.decode_dispatch``), one program per static chunk
-length n as JAX's jit compiles one.
+"""Decode and prefill chunks as device programs: the port's counterpart of
+the JAX package's jitted steps, one program per static shape as JAX's jit
+compiles one.
 
-A :class:`DecodeProgram` is an n-step decode body of one variant (greedy,
-sampled, penalized) over static buffers: the body reads tensors that the
-engine owns and refills in place (the fed token, the positions, uniforms,
-the per-slot vectors, the block tables, the counter-based generator's
-state) and writes its tokens and NaN flags into output tensors made for it
-by the normal allocator, outside the pool the engine's graphs share, so
-that no other program's replay can overwrite tokens that have not reached
-the host yet.
+* A **decode program** is the ``lax.scan`` decode chunk
+  (``dllama_tpu/engine/engine.py`` ``_decode_n_impl`` and its sampled and
+  penalized forms, and the fused scans behind
+  ``BatchEngine.decode_dispatch``): an n-step body of one variant (greedy,
+  sampled, penalized), keyed (variant, n).
+* A **prefill program** is one prompt chunk of a static token width (the
+  single engine's ``_step``, ``BatchEngine.add_step``'s slot prefill and the
+  prefill half of a hybrid step), keyed ("prefill", width, layout): the
+  position (and on the batched tier the slot) is a device input, so one
+  program serves every position, and on the paged layout every slot.
 
-On a CUDA device with capture on, the first :meth:`DecodeProgram.run`
-warms the body once on the capture stream and puts back the engine state
-it moved (``state``), then captures the body with ``torch.cuda.graph``;
-every run replays the graph and adds the kernel launches the capture
-recorded to the wrappers' counts (:func:`replayed`). A capture or replay
-error raises: nothing falls back to launching the body from Python. On
-the CPU, or with capture off, run() calls the body.
+Each :class:`Program` runs over static buffers: the body reads tensors that
+the engine owns and refills in place (the fed tokens, the positions,
+uniforms, the per-slot vectors, the block tables, the counter-based
+generator's state) and writes its outputs (tokens and NaN flags, or the
+last position's logits) into tensors made for it by the normal allocator,
+outside the pool the engine's graphs share, so that no other program's
+replay can overwrite an output that has not been copied out yet. A
+program's own next replay does overwrite it: the engine copies a prefill
+program's logits out (a device clone, in stream order) before it returns.
+
+On a CUDA device with capture on, the first :meth:`Program.run` warms the
+body once on the capture stream and puts back the engine state it moved
+(``state``), then captures the body with ``torch.cuda.graph``; every run
+replays the graph and adds the kernel launches the capture recorded to the
+wrappers' counts (:func:`replayed`). :meth:`Program.prepare` captures
+without replaying (``BatchEngine.warmup``). A capture or replay error
+raises: nothing falls back to launching the body from Python. On the CPU,
+or with capture off, run() calls the body.
 
 The warm-up also writes KV rows, at or past each live row's position: the
 replay writes the same rows before any forward reads them, so those need
 no putting back. It loads the kernel libraries and sizes the decode
 matmuls' split-k scratch, which ``ops.q40_matmul.decode_scratch`` keeps per
-stream, before the capture records their pointers.
+stream, before the capture records their pointers: a decode step, and a
+prefill chunk of at most 16 tokens, run K1 (or K5) on the decode route.
 
 Module globals that the body reads when it runs are fixed in a graph at
 capture (:func:`knobs`); :class:`Programs` keys each program on them, so a
@@ -54,15 +66,15 @@ VARIANTS = ("greedy", "sampled", "penalized")
 
 
 def knobs() -> tuple:
-    """The module globals a decode body reads when it runs: the Q40 style
-    and its tiles, K4's split count, the RMSNorm route and the nucleus
-    width."""
+    """The module globals a program's body reads when it runs: the Q40
+    style and its tiles, K4's split count, the RMSNorm route and the
+    nucleus width."""
     return (q40_matmul.STYLE, q40_matmul.BLOCKDOT_TK, q40_matmul.BLOCKDOT_TN,
             q40_matmul.LOOPDOT_SPLITS, layers.RMS_NORM_IMPL, sampling.NUCLEUS_K)
 
 
 def launch_tables() -> tuple[dict, ...]:
-    """The launch counters of every kernel wrapper a decode body can call."""
+    """The launch counters of every kernel wrapper a program's body can call."""
     return (q40_matmul.LAUNCHES, q80_matmul.LAUNCHES, flash_attention.LAUNCHES,
             paged_attention.LAUNCHES, rms_norm.LAUNCHES)
 
@@ -94,8 +106,8 @@ def capture_stream(device: torch.device) -> torch.cuda.Stream:
     return stream
 
 
-class DecodeProgram:
-    """One n-step decode body over static buffers (``buffers``: its own
+class Program:
+    """One decode or prefill body over static buffers (``buffers``: its own
     inputs and outputs by name; ``state``: the engine tensors it moves)."""
 
     def __init__(self, body: Callable[[], None], buffers: dict, state: Sequence[torch.Tensor],
@@ -115,12 +127,18 @@ class DecodeProgram:
         """True once run() replays (always true without capture)."""
         return not self.capture or self.graph is not None
 
+    def prepare(self) -> None:
+        """Capture now, without replaying (a no-op without capture or once
+        captured). The warm-up writes what the body writes: the caller
+        points the inputs at rows nothing reads."""
+        if self.capture and self.graph is None:
+            self._capture()
+
     def run(self) -> None:
         if not self.capture:
             self.body()
             return
-        if self.graph is None:
-            self._capture()
+        self.prepare()
         self.graph.replay()
         for table, delta in zip(launch_tables(), self.launches):
             table.update(replayed(table, delta))
@@ -150,10 +168,14 @@ class DecodeProgram:
         self.capture_s = time.perf_counter() - t0
 
 
+Maker = Callable[..., tuple[Callable[[], None], dict, Sequence]]
+
+
 class Programs:
-    """An engine's decode programs, one per (variant, n, knobs()). With
-    ``capture`` None, capture is on exactly when the device is CUDA; it is
-    an error on another device."""
+    """An engine's device programs: decode programs keyed (variant, n,
+    knobs()) and prefill programs keyed ("prefill", width, layout,
+    knobs()). With ``capture`` None, capture is on exactly when the device
+    is CUDA; it is an error on another device."""
 
     def __init__(self, device, capture: bool | None = None):
         self.device = torch.device(device)
@@ -163,31 +185,45 @@ class Programs:
             raise ValueError(f"CUDA-graph capture needs a CUDA device, not {self.device}")
         self.capture = bool(capture)
         self._pool = torch.cuda.graph_pool_handle() if self.capture else None
-        self._progs: dict[tuple, DecodeProgram] = {}
+        self._progs: dict[tuple, Program] = {}
 
-    def get(self, variant: str, n: int,
-            make: Callable[[str, int], tuple[Callable[[], None], dict, Sequence]]
-            ) -> DecodeProgram:
-        """The program of (variant, n) under the current knobs; ``make``
-        builds (body, buffers, state) the first time."""
-        if variant not in VARIANTS:
-            raise ValueError(f"unknown decode variant {variant!r} (one of {VARIANTS})")
-        key = (variant, int(n), knobs())
+    def _get(self, key: tuple, make: Maker, *args) -> Program:
+        key = key + (knobs(),)
         prog = self._progs.get(key)
         if prog is None:
-            body, buffers, state = make(variant, int(n))
-            prog = self._progs[key] = DecodeProgram(body, buffers, state, self.device,
-                                                    self.capture, self._pool)
+            body, buffers, state = make(*args)
+            prog = self._progs[key] = Program(body, buffers, state, self.device,
+                                              self.capture, self._pool)
         return prog
 
-    def find(self, variant: str, n: int) -> DecodeProgram | None:
-        """The (variant, n) program under the current knobs, if built."""
+    def get(self, variant: str, n: int, make: Maker) -> Program:
+        """The decode program of (variant, n) under the current knobs;
+        ``make(variant, n)`` builds (body, buffers, state) the first time."""
+        if variant not in VARIANTS:
+            raise ValueError(f"unknown decode variant {variant!r} (one of {VARIANTS})")
+        return self._get((variant, int(n)), make, variant, int(n))
+
+    def prefill(self, width: int, layout, make: Maker) -> Program:
+        """The prefill program of `width` tokens on `layout` (a hashable the
+        engine names its cache view by) under the current knobs;
+        ``make(width, layout)`` builds (body, buffers, state) the first
+        time."""
+        return self._get(("prefill", int(width), layout), make, int(width), layout)
+
+    def find(self, variant: str, n: int) -> Program | None:
+        """The (variant, n) decode program under the current knobs, if built."""
         return self._progs.get((variant, int(n), knobs()))
 
     def ready(self, variant: str, n: int) -> bool:
-        """True when the (variant, n) program under the current knobs runs
-        without a capture."""
+        """True when the (variant, n) decode program under the current knobs
+        runs without a capture."""
         prog = self.find(variant, n)
+        return prog is not None and prog.ready
+
+    def prefill_ready(self, width: int, layout) -> bool:
+        """True when the prefill program of (width, layout) under the
+        current knobs runs without a capture."""
+        prog = self._progs.get(("prefill", int(width), layout, knobs()))
         return prog is not None and prog.ready
 
     def stats(self) -> dict:

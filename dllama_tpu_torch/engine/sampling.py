@@ -152,9 +152,10 @@ class CounterRNG:
         self.counter = torch.zeros(n, dtype=torch.int64, device=device)
 
     def reset(self, row: int, seed: int, counter: int = 0) -> None:
-        """Start row `row` at (seed, counter), in place (no host sync)."""
-        self.seed[row] = int(seed) & ((1 << 63) - 1)
-        self.counter[row] = int(counter)
+        """Start row `row` at (seed, counter), in place: fills of one-row
+        slices, in stream order (no host sync)."""
+        self.seed[row : row + 1].fill_(int(seed) & ((1 << 63) - 1))
+        self.counter[row : row + 1].fill_(int(counter))
 
     def uniforms(self, steps: int = 1, rows=None) -> torch.Tensor:
         """f32 [steps, n, 2] (or [steps, len(rows), 2]): step i of row r is

@@ -231,8 +231,11 @@ def run_layers(cfg: LlamaConfig, layer_params: dict, x, pos_base, cache, rope,
         attn_fn = gqa_attention if tables is None else paged_gqa_attention
     mm = mm or matmul
     index = None
+    # each layer's cache must be one block (one slot's view of a batched
+    # cache is, though the stack of layers is not)
     if (tables is None and active is None and isinstance(pos_base, torch.Tensor)
-            and pos_base.dim() == 1 and cache.k.is_contiguous() and cache.v.is_contiguous()):
+            and pos_base.dim() == 1 and cache.k[0].is_contiguous()
+            and cache.v[0].is_contiguous()):
         _, b, h, s, _ = cache.k.shape
         index = _dense_write_index(pos_base, b, h, s, x.shape[1])
     for li in range(cache.k.shape[0]):

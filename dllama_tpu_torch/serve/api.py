@@ -718,6 +718,13 @@ def make_server(loaded, host="127.0.0.1", port=0, n_slots: int = 0, **defaults):
     if n_slots <= 0 and defaults.get("warmup") not in (None, "off"):
         log.warning("--warmup needs --slots > 0; the single-engine tier has no "
                     "BatchEngine shape contract to precompile — ignored")
+    if n_slots <= 0 and (defaults.get("prefill_budget") not in (None, "auto")
+                         or any(defaults.get(k) is not None
+                                for k in ("admit_stall_budget_ms", "admit_ttft_deadline_ms",
+                                          "slo_itl_ms"))):
+        log.warning("--prefill-budget / --admit-budget-ms / --admit-ttft-deadline-ms / "
+                    "--slo-itl-ms need --slots > 0; the single-engine tier serves one "
+                    "request at a time and has no admission scheduler — ignored")
     scheduler = None
     if n_slots > 0:
         scheduler = _make_scheduler(loaded, n_slots, defaults)
@@ -781,6 +788,10 @@ def _make_scheduler(loaded, n_slots: int, defaults: dict):
         sched_kw["overlap"] = bool(defaults["overlap"])
     if defaults.get("warmup"):
         sched_kw["warmup"] = str(defaults["warmup"])
+    for key in ("prefill_budget", "admit_stall_budget_ms", "admit_ttft_deadline_ms",
+                "slo_itl_ms"):
+        if defaults.get(key) is not None:
+            sched_kw[key] = defaults[key]
     return Scheduler(be, **sched_kw)
 
 

@@ -19,8 +19,19 @@ dllama-api.cpp:264-309): released slots keep their KV rows and the token
 history that produced them; admission matches a new prompt against every
 slot's history at the token level and prefills only the delta, copying a
 longer prefix from another slot first when one holds it (on the paged layout
-by sharing its pages). Admission is interleaved: a joining prompt's prefill
-chunks run between decode chunks, paced by a stall budget.
+by sharing its pages).
+
+**Hybrid chunked prefill** (``prefill_budget``, ``--prefill-budget``; the
+JAX package's default): while a request is admitting and others decode,
+every device chunk is a hybrid step (``BatchEngine.hybrid_dispatch``) that
+prefills up to the budget's worth of the admission's prompt tokens right
+before the decode chunk, with no host read between the two, so a long
+prompt never stalls the running streams. ``"auto"`` steers the budget from
+the windowed ITL against ``slo_itl_ms`` (obs/perf.py; it holds 64 with no
+target). ``prefill_budget=0`` keeps the phase-split path: a joining
+prompt's prefill chunks run between decode chunks, paced by a stall budget
+(``admit_stall_budget_ms``) and an optional TTFT deadline
+(``admit_ttft_deadline_ms``), which also overrides the hybrid pacing.
 
 The worker thread enters ``torch.no_grad()`` itself (grad mode is
 thread-local) and the engine makes every tensor on its own device.
@@ -38,6 +49,7 @@ import numpy as np
 import torch
 
 from dllama_tpu_torch.engine.batch import BatchEngine
+from dllama_tpu_torch.obs import perf
 
 log = logging.getLogger("dllama_tpu_torch.serve")
 
@@ -152,14 +164,14 @@ class Request:
 DECODE_CHUNK = 4
 #: how long an idle worker sleeps between looks at the intake queue
 IDLE_WAIT_S = 0.05
-#: interleaved admission: while decoders run, each visit pumps a joining
-#: prompt's prefill chunks until about this much time has passed
-ADMIT_STALL_BUDGET_MS = 250.0
 
 
 class Scheduler:
     def __init__(self, engine: BatchEngine, max_queue: int = 0, overlap: bool = True,
-                 warmup: str = "off"):
+                 warmup: str = "off", prefill_budget="auto",
+                 admit_stall_budget_ms: float = 250.0,
+                 admit_ttft_deadline_ms: float | None = None,
+                 slo_itl_ms: float | None = None):
         self.engine = engine
         # overlapped decode pipeline (--overlap): launch chunk N+1 off chunk
         # N's device state BEFORE consuming chunk N's tokens, so the per-chunk
@@ -197,14 +209,46 @@ class Scheduler:
         self.join_failed = False
         self._draining = threading.Event()
         self._busy_worker = False  # the worker holds a request outside every container
-        # --warmup auto: capture every decode program this scheduler can ask
-        # for (n in 1..DECODE_CHUNK) BEFORE the worker starts, so the first
-        # request replays graphs instead of capturing them
+        # phase-split admission (prefill_budget=0, or no decoders to fuse
+        # with): while decoders run, each visit pumps a joining prompt's
+        # prefill chunks until about admit_stall_budget_ms has passed; an
+        # admission older than admit_ttft_deadline_ms pumps to completion
+        # whatever the pacing (hybrid included)
+        self.admit_stall_budget_ms = float(admit_stall_budget_ms)
+        self.admit_ttft_deadline_ms = (None if admit_ttft_deadline_ms is None
+                                       else float(admit_ttft_deadline_ms))
+        # hybrid chunked prefill: "auto" | int tokens a chunk (0 = phase split)
+        if isinstance(prefill_budget, str) and prefill_budget != "auto":
+            prefill_budget = int(prefill_budget)
+        if prefill_budget != "auto" and prefill_budget < 0:
+            raise ValueError(f"prefill_budget must be 'auto' or >= 0, got {prefill_budget}")
+        self._hybrid_on = prefill_budget != 0 and engine.supports_hybrid
+        self.slo = perf.SloPolicy(itl_ms=None if slo_itl_ms is None else float(slo_itl_ms))
+        self.itl_window = perf.WindowQuantiles()  # seconds, fed at each finish
+        self._budget_ctl: perf.PrefillBudgetController | None = None
+        if not self._hybrid_on:
+            self._budget_now = 0
+        elif prefill_budget == "auto":
+            self._budget_ctl = perf.PrefillBudgetController(
+                self.slo, hi=max(64, int(engine.max_prefill_chunk)))
+            self._budget_now = self._budget_ctl.current
+        else:
+            self._budget_now = max(1, int(prefill_budget))
+        self.hybrid_chunks = 0  # decode chunks that carried a prefill slice
+        self.hybrid_tokens = 0  # prompt tokens those slices prefilled
+        # --warmup auto: capture every program this scheduler can ask for
+        # (decode n in 1..DECODE_CHUNK, every prefill width, which covers
+        # the hybrid slices) BEFORE the worker starts, so the first request
+        # replays graphs instead of capturing them
         if warmup not in ("auto", "off"):
             raise ValueError(f"warmup must be auto|off, got {warmup!r}")
         self.warmup = warmup
-        self.warmup_report: dict | None = (engine.warmup(chunk=DECODE_CHUNK)
-                                           if warmup == "auto" else None)
+        hybrid_hi = 0
+        if self._hybrid_on:
+            hybrid_hi = self._budget_ctl.hi if self._budget_ctl is not None else self._budget_now
+        self.warmup_report: dict | None = (
+            engine.warmup(chunk=DECODE_CHUNK, hybrid_budget_hi=hybrid_hi)
+            if warmup == "auto" else None)
         self._heartbeat = time.monotonic()
         self._thread = threading.Thread(target=self._run, name="dllama-scheduler", daemon=True)
         self._thread.start()
@@ -269,6 +313,8 @@ class Scheduler:
             "in_flight_admissions": len(self._inflight),
             "kv_pages": self.engine.kv_page_stats(),
             "admission_deferred": self._deferred is not None,
+            # the live hybrid prefill budget a chunk (0 = phase-split admission)
+            "prefill_budget": self._budget_now,
             "last_step_age_s": round(time.monotonic() - self._heartbeat, 3),
             "draining": self._draining.is_set(),
             "crashed": repr(self.crashed) if self.crashed is not None else None,
@@ -336,6 +382,13 @@ class Scheduler:
             "decode_chunks": self.chunks,
             "decode_slots_mean": self.chunk_slots / self.chunks if self.chunks else None,
             "kv_pages": self.engine.kv_page_stats(),
+            "hybrid": {
+                "mode": ("off" if not self._hybrid_on
+                         else "auto" if self._budget_ctl is not None else "fixed"),
+                "prefill_budget": self._budget_now,
+                "chunks": self.hybrid_chunks,
+                "tokens": self.hybrid_tokens,
+            },
         }
 
     def cancel(self, req: Request, reason: str = "cancelled") -> None:
@@ -375,6 +428,8 @@ class Scheduler:
         with self._metrics_lock:
             self._completed.append(req)
             del self._completed[:-256]
+        if req.itl_ms is not None:  # the budget controller's window
+            self.itl_window.observe(req.itl_ms / 1000.0)
         req.out.put(_END)
 
     def _emit(self, req: Request, token: int, row_at_emit: int) -> bool:
@@ -577,11 +632,47 @@ class Scheduler:
         self.slots[adm.slot] = req
         self._emit(req, first, int(self.engine.pos[adm.slot]))
 
+    def _overdue(self, req: Request) -> bool:
+        """Past the TTFT deadline (admit_ttft_deadline_ms): the admission
+        pumps to completion whatever the pacing."""
+        return (self.admit_ttft_deadline_ms is not None
+                and (time.monotonic() - req.submitted_at) * 1000.0
+                >= self.admit_ttft_deadline_ms)
+
+    def _hybrid_now(self) -> bool:
+        """Whether in-flight admissions ride hybrid chunks now: hybrid is on
+        AND there are decoders to ride with (with none, the phase-split pump
+        prefills at full speed: nothing to protect)."""
+        return self._hybrid_on and bool(self.slots)
+
+    def _commit_ready_inflight(self) -> None:
+        """Early commit (overlapped loop, hybrid on): a fully pumped head
+        admission activates its slot while a chunk is in flight, instead of
+        draining the pipeline for a whole boundary. Its slot is inactive in
+        that chunk, and add_commit's device writes land after it in stream
+        order."""
+        while self._inflight:
+            req, adm, reuse = self._inflight[0]
+            if (adm.off < len(adm.toks) or req.cancelled.is_set()
+                    or (req.deadline_at is not None and time.monotonic() >= req.deadline_at)):
+                return  # mid-pump, or an abort for the boundary to handle
+            try:
+                self._commit_admission(req, adm, reuse)
+            except Exception as e:
+                log.exception("commit of request %s failed", req.req_id)
+                if self._inflight and self._inflight[0][1] is adm:
+                    self._inflight.pop(0)
+                self._abort_admission(req, adm, e)
+
     def _pump_admissions(self) -> bool:
-        """Advance in-flight admissions. While decoders run, pump prefill
-        chunks until ADMIT_STALL_BUDGET_MS is spent (decode chunks run
-        between calls); with no decoders to protect, the whole queue.
-        Returns True if any admission work ran."""
+        """Advance in-flight admissions. Under hybrid an admission's prefill
+        rides the decode chunks (_dispatch_chunk): the pump only commits
+        fully pumped admissions, and pumps one past the TTFT deadline to
+        completion. On the phase-split path (prefill_budget=0, or no
+        decoders): while decoders run, pump prefill chunks until
+        admit_stall_budget_ms is spent (decode chunks run between calls),
+        an overdue admission to completion; with no decoders to protect,
+        the whole queue. Returns True if any prefill ran."""
         worked = False
         t0 = time.monotonic()
         while self._inflight:
@@ -594,13 +685,19 @@ class Scheduler:
                 self._inflight.pop(0)
                 self._abort_admission(req, adm, "timeout")
                 continue
+            pumped = adm.off >= len(adm.toks)
+            if not pumped and self._hybrid_now() and not self._overdue(req):
+                return worked  # the hybrid chunks carry this prefill
             try:
-                done = self.engine.add_step(adm)
-                if self.slots and adm.logits is not None and adm.logits.is_cuda:
-                    # decoders are waiting: let the pacing clock see the
-                    # chunk's device time, not just its launch
-                    torch.cuda.current_stream(adm.logits.device).synchronize()
-                worked = True
+                done = pumped
+                if not pumped:
+                    done = self.engine.add_step(adm)
+                    if (self.slots and not self._hybrid_on and adm.logits is not None
+                            and adm.logits.is_cuda):
+                        # decoders are waiting: let the pacing clock see the
+                        # chunk's device time, not just its launch
+                        torch.cuda.current_stream(adm.logits.device).synchronize()
+                    worked = True
                 if done:
                     self._commit_admission(req, adm, reuse)
             except Exception as e:
@@ -609,8 +706,18 @@ class Scheduler:
                     self._inflight.pop(0)
                 self._abort_admission(req, adm, e)
                 continue
-            if self.slots and (time.monotonic() - t0) * 1000.0 >= ADMIT_STALL_BUDGET_MS:
-                return worked  # the budget is spent: let the decoders run
+            if not self.slots:
+                continue  # no decoders to protect: drain the queue
+            # judged after the chunk ran, so a deadline crossed during it
+            # counts this visit
+            overdue = self._overdue(req)
+            if done and overdue:
+                return worked  # one overdue admission a visit, then decode
+            if (time.monotonic() - t0) * 1000.0 < self.admit_stall_budget_ms:
+                continue
+            if not done and overdue:
+                continue  # the TTFT deadline: finish it despite the budget
+            return worked  # the budget is spent: let the decoders run
         return worked
 
     def _fail_all(self, exc: BaseException) -> None:
@@ -649,14 +756,24 @@ class Scheduler:
 
     def _needs_boundary(self, inflight_chunk=None) -> bool:
         """True when the next chunk must wait for a fully consumed pipeline:
-        admission work (a prefill must not interleave with a chunk in flight,
-        and commit/release need settled host mirrors), a pending cancel or
-        deadline, a slot at its row limit, or an emptied batch."""
+        admission work on the phase-split path (a prefill must not interleave
+        with a chunk in flight, and commit/release need settled host
+        mirrors), a pending cancel or deadline, a slot at its row limit, or
+        an emptied batch. Under hybrid a head admission mid-prefill rides the
+        pipelined chunks; its commit (done early by the loop), an abort and
+        the TTFT-deadline override need settled state."""
         if self._stop.is_set():
             return True
-        if (not self.slots or self._deferred is not None or self._inflight
-                or not self.pending.empty()):
+        if not self.slots or self._deferred is not None or not self.pending.empty():
             return True
+        if self._inflight:
+            if not self._hybrid_now():
+                return True
+            req, adm, _ = self._inflight[0]
+            if (adm.off >= len(adm.toks) or req.cancelled.is_set()
+                    or (req.deadline_at is not None and time.monotonic() >= req.deadline_at)
+                    or self._overdue(req)):
+                return True
         now = time.monotonic()
         if any(r.cancelled.is_set() or (r.deadline_at is not None and now >= r.deadline_at)
                for r in self.slots.values()):
@@ -673,19 +790,35 @@ class Scheduler:
         return False
 
     def _dispatch_chunk(self, pipeline_empty: bool = True, exclude_gap_s: float = 0.0):
-        """Launch the next decode chunk -> (chunk, slots snapshot). Records
-        the host gap: the time since the last chunk's tokens arrived when the
-        pipeline was empty (minus `exclude_gap_s` of admission work), 0 when
-        a chunk was still in flight. A failure here is not a per-request
-        problem (the cache was being written in place): it escalates to the
-        worker's crash path."""
+        """Launch the next decode chunk -> (chunk, slots snapshot): a hybrid
+        step carrying up to ``_budget_now`` prompt tokens of the head
+        admission while it is mid-prefill and decoders run, else a plain
+        decode chunk. Records the host gap: the time since the last chunk's
+        tokens arrived when the pipeline was empty (minus `exclude_gap_s`
+        of admission work), 0 when a chunk was still in flight. A failure
+        here is not a per-request problem (the cache was being written in
+        place): it escalates to the worker's crash path."""
+        hyb = None
+        if self._hybrid_now() and self._inflight:
+            req, adm, _ = self._inflight[0]
+            if (adm.off < len(adm.toks) and not req.cancelled.is_set()
+                    and (req.deadline_at is None or time.monotonic() < req.deadline_at)):
+                hyb = adm
         if self._t_consumed is not None:
             gap_s = (max(0.0, time.monotonic() - self._t_consumed - exclude_gap_s)
                      if pipeline_empty else 0.0)
             with self._metrics_lock:
                 self._host_gap_ms.append(gap_s * 1000.0)
                 del self._host_gap_ms[:-256]
-        return self.engine.decode_dispatch(DECODE_CHUNK), dict(self.slots)
+        if hyb is None:
+            return self.engine.decode_dispatch(DECODE_CHUNK), dict(self.slots)
+        if self._budget_ctl is not None:
+            # steered by the live ITL window (rate-limited in the controller)
+            self._budget_now = self._budget_ctl.update(self.itl_window)
+        chunk = self.engine.hybrid_dispatch(DECODE_CHUNK, hyb, self._budget_now)
+        self.hybrid_chunks += 1
+        self.hybrid_tokens += chunk.hybrid_tokens
+        return chunk, dict(self.slots)
 
     def _consume_chunk(self, chunk, snapshot) -> None:
         """Wait for a dispatched chunk's tokens and emit them to the requests
@@ -722,6 +855,19 @@ class Scheduler:
                 # keep the card busy: launch the successor off the device
                 # state BEFORE consuming, unless boundary work needs the
                 # settled state first
+                if self._hybrid_on:
+                    # early commit and early admission start: a fully pumped
+                    # admission activates its slot now, and a queued arrival
+                    # enters _inflight so its first hybrid slice rides the
+                    # very next chunk, neither waiting for a drained pipeline
+                    # (the admitting slot is inactive in the chunk in flight,
+                    # and every device write lands after it in stream order)
+                    self._busy_worker = True
+                    if self._inflight:
+                        self._commit_ready_inflight()
+                    if not self.pending.empty():
+                        self._admit_starts()
+                    self._busy_worker = False
                 nxt = (None if self._needs_boundary(pending[0])
                        else self._dispatch_chunk(pipeline_empty=False))
                 self._consume_chunk(*pending)

@@ -1,7 +1,8 @@
 """The port's continuous-batching server against the JAX package's, over real
 sockets: both serve the golden `.m` with 3 slots on the paged KV cache at
-page 16 (the JAX server with its radix tree, hybrid prefill and preemption
-off, the configuration the port has). Concurrent temperature-0 chat requests,
+page 16, both with hybrid chunked prefill on (`prefill_budget="auto"`, the
+port's default) and the JAX server with its radix tree and preemption off,
+the configuration the port has. Concurrent temperature-0 chat requests,
 plain and SSE, must carry the same content on both; a second turn must reuse
 cached rows; a full admission queue answers 429 with Retry-After; after a
 drain the page pool audits clean with every page free. Port only: the
@@ -60,7 +61,7 @@ def servers(tpath):
     httpd, api = make_server(load_model(FIXTURE_M, tpath, cache_dtype=torch.float32,
                                         device="cpu"), **PAGED)
     jhttpd, _ = jax_server(jax_load(FIXTURE_M, tpath, mesh=None, cache_dtype=jnp.float32),
-                           frontend="threads", radix_cache="off", prefill_budget=0,
+                           frontend="threads", radix_cache="off", prefill_budget="auto",
                            preempt="off", **PAGED)
     _start(httpd), _start(jhttpd)
     yield httpd.server_address[1], jhttpd.server_address[1], api

@@ -19,6 +19,14 @@ the card.
 * ``warmup`` leaves the engine untouched and the first request's ids as
   they are without it; the CLI takes ``--warmup auto`` and the single-engine
   tier warns and ignores it.
+* Prefill programs, one a power-of-two width with the position (and on the
+  batched tier the slot) as device inputs: for every width up to
+  ``max_prefill_chunk``, on the single engine and on both batched layouts,
+  their logits and cache rows are bit-equal to a forward at a host
+  position through a per-slot view (the path before the programs), and
+  within 1e-4 of max|logit| of the JAX package's ``_step`` and
+  ``BatchEngine.add_step``; the single engine still reproduces
+  ``GOLDEN_CONTINUATION`` with its prompt cut into widths 1, 2 and 4.
 """
 
 import http.client
@@ -212,6 +220,87 @@ def test_batch_programs_match_jax(batch_models, layout):
         eng.pool.audit()
 
 
+# --------------------------------------------------------- prefill programs
+
+WIDTHS = (1, 2, 4, 8, 16)
+START = 3  # each chunk runs at cache position 3, over rows nothing wrote
+
+
+def _tokens(width: int) -> np.ndarray:
+    return np.random.default_rng(width).integers(0, KW["vocab_size"], (1, width))
+
+
+def test_single_engine_prefill_programs_match_the_host_position_and_jax(batch_models):
+    import jax.numpy as jnp
+
+    from dllama_tpu.engine.engine import InferenceEngine as JaxEngine
+
+    jcfg, jparams, params = batch_models
+    jeng = JaxEngine(jcfg, jparams, cache_dtype=jnp.float32, max_prefill_chunk=16)
+    eng = InferenceEngine(CFG, params, cache_dtype=torch.float32, max_prefill_chunk=16)
+    ref = InferenceEngine(CFG, params, cache_dtype=torch.float32, max_prefill_chunk=16)
+    for width in WIDTHS:
+        toks = _tokens(width)
+        eng.reset(START)
+        got = eng.step(toks)
+        want = ref._forward(torch.from_numpy(toks), START)  # a host int position
+        assert torch.equal(got, want), width
+        assert torch.equal(eng.cache.k, ref.cache.k) and torch.equal(eng.cache.v, ref.cache.v)
+        assert eng.pos == START + width and eng._dev_pos == eng.pos
+        assert int(eng._dec_pos[0]) == eng.pos  # the program advanced the device position
+        jeng.reset(START)
+        jax_logits = np.asarray(jeng.step(toks))
+        np.testing.assert_allclose(got.numpy(), jax_logits,
+                                   atol=1e-4 * float(np.abs(jax_logits).max()))
+    assert eng.programs.stats()["programs"] == len(WIDTHS)
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_batched_prefill_programs_match_the_host_position_and_jax(batch_models, layout):
+    import jax.numpy as jnp
+
+    from dllama_tpu.engine.batch import BatchEngine as JaxEngine
+    from dllama_tpu_torch.models.llama import KVCache, PagedKVCache
+
+    jcfg, jparams, params = batch_models
+    kw = dict(n_slots=len(WIDTHS), kv_layout=layout, page_size=8, max_prefill_chunk=16)
+    jeng = JaxEngine(jcfg, jparams, cache_dtype=jnp.float32, radix_cache="off", **kw)
+    eng = BatchEngine(CFG, params, cache_dtype=torch.float32, **kw)
+    ref = BatchEngine(CFG, params, cache_dtype=torch.float32, **kw)
+    for slot, width in enumerate(WIDTHS):  # a slot each: fresh rows below START
+        toks = _tokens(width)
+        adm = eng.add_begin(slot, toks[0], start_pos=START)
+        assert eng.add_step(adm) and adm.off == width
+        assert int(eng.pos[slot]) == START + width
+        # the host-position path: a per-slot view of the cache
+        ref.add_begin(slot, toks[0], start_pos=START)
+        ref._sync_vectors()
+        sub = (PagedKVCache(ref.cache.k, ref.cache.v, ref.cache.tables[slot : slot + 1])
+               if layout == "paged" else
+               KVCache(ref.cache.k[:, slot : slot + 1], ref.cache.v[:, slot : slot + 1]))
+        want = ref._logits(torch.from_numpy(toks), START, sub)
+        assert torch.equal(adm.logits, want), width
+        assert torch.equal(eng.cache.k, ref.cache.k) and torch.equal(eng.cache.v, ref.cache.v)
+        jadm = jeng.add_begin(slot, toks[0], start_pos=START)
+        assert jeng.add_step(jadm)
+        jax_logits = np.asarray(jadm.logits)
+        np.testing.assert_allclose(adm.logits.numpy(), jax_logits,
+                                   atol=1e-4 * float(np.abs(jax_logits).max()))
+    # one program a width on the page pool; one a (slot, width) on dense
+    assert eng.programs.stats()["programs"] == len(WIDTHS)
+    assert eng.forwards == len(WIDTHS)
+
+
+@pytest.mark.parametrize("max_chunk", [1, 2, 4])
+def test_single_engine_reproduces_the_golden_continuation_in_program_widths(max_chunk):
+    eng = _port_engine(max_prefill_chunk=max_chunk)
+    got = list(eng.generate(GOLDEN_PROMPT, len(GOLDEN_CONTINUATION), Sampler(0.0, 0.9, 1),
+                            chunk=4))
+    assert got == GOLDEN_CONTINUATION
+    widths = {k[1] for k in eng.programs._progs if k[0] == "prefill"}
+    assert widths == {max_chunk}  # the 4-token prompt in chunks of max_chunk
+
+
 # ------------------------------------------------------------------- warmup
 
 
@@ -242,9 +331,12 @@ def test_warmup_leaves_the_engine_untouched(batch_models, layout):
             np.array_equal(val, after[key]))
         assert same, key
     assert report["full_coverage"] and report["graphs_captured"] == 0  # no capture on the CPU
+    # the prefill widths 1..16, one program set for the page pool, one a
+    # slot on the dense layout (a graph fixes the slot's cache view)
+    widths = 5 if layout == "paged" else 5 * 3
     assert report["per_fn"] == {"decode": 4, "decode_sampled": 4, "decode_pen": 4,
-                                "prefill_chunk": 5}
-    assert report["buckets"] == 17 and report["cached"] == 0
+                                "prefill_chunk": widths}
+    assert report["buckets"] == 12 + widths and report["cached"] == 0
     if warm.pool is not None:
         assert warm.pool.audit()["free"] == warm.pool.n_pages
 

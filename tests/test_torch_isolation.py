@@ -91,7 +91,6 @@ def test_unported_options_are_refused():
     for flag in (["--mesh", "tp=2"],
                  ["--frontend", "aio"], ["--slots", "2", "--spec", "4"],
                  ["--slots", "2", "--radix-cache", "on"],
-                 ["--slots", "2", "--prefill-budget", "64"],
                  ["--slots", "2", "--preempt", "on"], ["--slots", "2", "--kv-host-pages", "8"],
                  ["--slots", "2", "--tenant-weight", "a=2"],
                  ["--slots", "2", "--restart-max", "1"]):
@@ -100,6 +99,9 @@ def test_unported_options_are_refused():
     # at the missing tokenizer (exit 1)
     assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", "--slots", "2",
                  "--kv-layout", "paged", "--radix-cache", "auto", "--preempt", "off"]) == 1
+    # so is hybrid chunked prefill at any budget
+    assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", "--slots", "2",
+                 "--prefill-budget", "64"]) == 1
     # so is speculation on the single-engine tier (--spec without --slots)
     assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", "--spec", "4"]) == 1
     # and --warmup, on both tiers (the single-engine tier ignores it)
