@@ -55,11 +55,28 @@ Q80 (random weights from a seed), and exits 0 only if every phase passed:
               burst of 8 simultaneous ~85-token chats (TTFT, live slots a
               chunk; at budget 0 more than 2); greedy contents identical
               across the budgets, the pool clean after each drain.
-7. inference  the CLI's `inference` mode on the same files.
-8. f8         the same Q40 file loaded with the f8 (e4m3) KV cache: the
+7. radix      the 8-slot server at its defaults (the radix prefix tree on the
+              page pool at page 128, preemption, hybrid admission, --warmup
+              auto) against --radix-cache off --preempt off: (a) a
+              1,536-row system prompt shared by 8 user turns of 64-160
+              tokens, one alone then 8 at once (TTFT p50/max, rows
+              prefilled, hit tokens, peak pool pages); (b) 16 two-turn chats
+              over 8 slots (turn 2's hit tokens and TTFT); (d) a priority-2
+              request arriving over 8 priority-0 streams (its TTFT, the
+              preemptions and the rows each resume re-prefilled; every
+              stream's ids equal its uninterrupted run's); (c) on a 48-page
+              pool, 48 host pages against 0: prompt A, three more that push
+              A out, A again (pages spilled and restored, a page's copy ms
+              each way, the host ms of a spill, A's TTFT); (e) every pool
+              audits clean with the tree and host tier intact, frees every
+              page after its drain, and no spill is discarded. Greedy ids
+              compared across runs must be equal or first differ at a near
+              tie of the plain forward's logits (printed with the margin).
+8. inference  the CLI's `inference` mode on the same files.
+9. f8         the same Q40 file loaded with the f8 (e4m3) KV cache: the
               forward against the plain versions and HTTP serve, K7's f8 mode
               in every layer of every forward.
-9. q80        after the Q40 files are gone, a synthetic 8B Q80 `.m` loaded
+10. q80       after the Q40 files are gone, a synthetic 8B Q80 `.m` loaded
               packed: the forward against the plain versions, the prefill
               chunk's device time (K6 + K7) as in `forward`, HTTP serve on
               the single-engine tier, the 8-slot batched server with the
@@ -67,20 +84,20 @@ Q80 (random weights from a seed), and exits 0 only if every phase passed:
               (--prefill-budget 0), and the CLI's `inference
               --fuse-weights`, whose greedy text must equal the unfused
               engine's; Q80 kernels on every forward and no Q40 launch.
-10. kbench    the kernel benchmark (dllama_tpu_torch.experiments.kbench):
+11. kbench    the kernel benchmark (dllama_tpu_torch.experiments.kbench):
               `suite`, then `8 w1 B D`; no FAILED row, KBENCH DONE at the end;
               its kernels K11-B/K11-D launched.
-11. styles    the Q40 8B model with q40_matmul.STYLE at maskdot, loopdot and
+12. styles    the Q40 8B model with q40_matmul.STYLE at maskdot, loopdot and
               deq: the forward against the plain versions, 32 greedy tokens
               through the `inference` CLI (their text printed beside auto's);
               decode forwards launch K3 (K4) in every matmul and K1 never,
               prefill chunks launch K2.
-12. spec      `inference --spec 8` on a repetitive prompt (its emitted tokens
+13. spec      `inference --spec 8` on a repetitive prompt (its emitted tokens
               and verify forwards printed; K1 and K7 launched); the greedy ids
               of spec 8 and spec 0 equal, or first differ at a near-tie of the
               plain run's logits; HTTP serve with --spec 8 and a spec_k 0
               request.
-13. graphs    decode chunks as CUDA graphs (engine/graphs.py) against the same
+14. graphs    decode chunks as CUDA graphs (engine/graphs.py) against the same
               bodies launched from Python (`capture=False`), on the Q40 8B
               model: one stream (greedy ids and a seeded sampled stream
               equal), then eight paged slots (the same two checks); for
@@ -110,9 +127,9 @@ and 17, an f32 x for K11-B, k = 4104 for K11-D, one device kernel a call);
 K1 at 9 rows and K7 at 9 query rows (the spec verify forward); and
 every kernel the kbench phase launches on kbench's own inputs (each variant
 of its suite rows and of `8 w1 B D`, the tile sweep, the flash rows), since
-the benchmark checks no result. `serve`, `batch`, `hybrid`, `f8`, `q80`, `kbench`, `styles` and
-`spec` are the main paths: the launch counters are zeroed just before each of their runs and
-read just after it. Not in the default: `profile` adds a torch.profiler pass
+the benchmark checks no result. `serve`, `batch`, `hybrid`, `radix`, `f8`, `q80`, `kbench`,
+`styles` and `spec` are the main paths: the launch counters are zeroed just before each of
+their runs and read just after it. Not in the default: `profile` adds a torch.profiler pass
 over one single-stream and one 8-slot decode chunk (device time and
 operations a step, K1's share, and no split-k second pass; then one
 single-stream chunk under STYLE maskdot and loopdot); `chunk` runs only the
@@ -1561,16 +1578,78 @@ def decode_split(by_name: dict, steps: int, names=K1_NAMES) -> dict:
 # ------------------------------------------------------------ phase 4
 
 
+class IdTrace:
+    """The prompt ids and emitted ids of every request a batched scheduler
+    serves, by request id, in the order of their first tokens (a wrapper
+    around Scheduler._emit). With the radix tree on, a request can prefill
+    its suffix from another row than the same prompt did before, in other
+    pow2 slices, so K1's and K2's routes (m <= 16, m > 16) can change low
+    bits of its KV rows: greedy ids compared across such runs go through
+    near_tie."""
+
+    def __init__(self, sched):
+        self.runs: dict[str, tuple[list[int], list[int]]] = {}
+        emit = sched._emit
+
+        def rec(req, token, row, emit=emit):
+            self.runs.setdefault(req.req_id, (list(req.prompt), []))[1].append(int(token))
+            return emit(req, token, row)
+
+        sched._emit = rec
+
+    def of(self, prompt) -> list[list[int]]:
+        """The emitted ids of every request with `prompt`, in order."""
+        return [ids for p, ids in self.runs.values() if p == list(prompt)]
+
+
+def prompt_ids(api, body: dict) -> list[int]:
+    """The prompt ids the batched tier encodes for a chat body."""
+    return api._encode_chat([(m["role"], str(m["content"])) for m in body["messages"]],
+                            add_bos=True)
+
+
+def near_tie(loaded, prompt, ids, other, label: str) -> str | None:
+    """None when `ids` equals `other`; else the first position where they
+    differ and the single engine's top-2 logit margin there (its plain
+    replay of the prompt and the ids before it) beside TOL_FWD *
+    max|logit|, printed and returned. Fails when the margin is not a near
+    tie: then the runs differ by more than rounding."""
+    import torch
+
+    if ids == other:
+        return None
+    i = next((j for j, (a, b) in enumerate(zip(ids, other)) if a != b), min(len(ids), len(other)))
+    eng = loaded.engine
+    eng.reset(0)
+    logits = eng.prefill(list(prompt))
+    for t in ids[:i]:
+        logits = eng.decode_step([[t]])
+    top2 = torch.topk(logits[0].float(), 2).values
+    gap, scale = (top2[0] - top2[1]).item(), logits.abs().max().item()
+    eng.reset(0)
+    msg = (f"{label}: ids first differ at token {i} ({ids[i:i + 1]} vs {other[i:i + 1]}); "
+           f"top-2 logit margin there {gap:.4e}, TOL_FWD * max|logit| {TOL_FWD * scale:.4e}")
+    print(f"divergence {msg}", flush=True)
+    if not gap < TOL_FWD * scale:
+        fail(f"{msg}: not a near tie")
+    return msg
+
+
 def _post(port: int, body: dict) -> tuple[int, bytes]:
     return _post_timed(port, body)[:2]
 
 
-def _post_timed(port: int, body: dict) -> tuple[int, bytes, float]:
-    """-> (status, body, time.perf_counter() when the request was sent)."""
+def _headers(req_id: str = "") -> dict:
+    return {"Content-Type": "application/json", **({"X-Request-Id": req_id} if req_id else {})}
+
+
+def _post_timed(port: int, body: dict, req_id: str = "") -> tuple[int, bytes, float]:
+    """-> (status, body, time.perf_counter() when the request was sent);
+    `req_id` goes out as X-Request-Id."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     t_sent = time.perf_counter()
     conn.request("POST", "/v1/chat/completions", json.dumps(body),
-                 {"Content-Type": "application/json"})
+                 _headers(req_id))
     resp = conn.getresponse()
     data = resp.read()
     conn.close()
@@ -1696,6 +1775,7 @@ def phase_batch(loaded, n_slots: int = 8, max_tokens: int = 32,
              f"route {eng.attn_route}; want paged, 128, paged_kernel")
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
     port = httpd.server_address[1]
+    trace = IdTrace(api.scheduler)
     bodies = [{"messages": [{"role": "user", "content": p}], "temperature": 0,
                "max_tokens": max_tokens} for p in batch_prompts(n_slots)]
     try:
@@ -1717,10 +1797,13 @@ def phase_batch(loaded, n_slots: int = 8, max_tokens: int = 32,
             sent.append([t for _, _, t in replies])
         st, raw = _post(port, dict(bodies[0], stream=True))
         # a seeded sampled request gives one stream alone and among 7
-        # batch-mates that decode penalized-greedy in the same chunks
+        # batch-mates that decode penalized-greedy in the same chunks. It is
+        # sent once before, so that the tree holds its first page for both
+        # compared runs and both prefill the same rows in the same slices
         sampled = {"messages": [{"role": "user", "content": "Sample: " + batch_prompts(1)[0]}],
                    "temperature": 0.8, "top_p": 0.9, "seed": 11, "max_tokens": 16}
         mates = [dict(b, frequency_penalty=0.5, presence_penalty=0.3) for b in bodies[1:]]
+        _post(port, sampled)
         mixed = [_post(port, sampled)] + _concurrently(
             _post, [(port, sampled)] + [(port, b) for b in mates])
         launches = counters()
@@ -1732,8 +1815,12 @@ def phase_batch(loaded, n_slots: int = 8, max_tokens: int = 32,
         fail(f"batch: the first round's decode chunks carried {occupancy[0]:.2f} live slots "
              f"on average, want > {MIN_BATCH_SLOTS}: decode did not run batched")
     contents = [[r["choices"][0]["message"]["content"] for r in rnd] for rnd in rounds]
-    if contents[0] != contents[1]:
-        fail("batch: the same greedy requests gave different contents")
+    near_ties = []
+    if contents[0] != contents[1]:  # each pair equal, or apart at a near tie only
+        for i, b in enumerate(bodies):
+            p = prompt_ids(api, b)
+            first, second = trace.of(p)[:2]
+            near_ties.append(near_tie(loaded, p, second, first, f"batch round 2, request {i}"))
     bad = [(st, raw[:200]) for st, raw in mixed if st != 200]
     if bad:
         fail(f"batch: {len(bad)} sampled/penalized requests failed: {bad[:2]}")
@@ -1749,7 +1836,9 @@ def phase_batch(loaded, n_slots: int = 8, max_tokens: int = 32,
     streamed = "".join(json.loads(e[6:])["choices"][0]["delta"].get("content", "")
                        for e in events[:-1])
     if streamed != contents[0][0]:
-        fail("batch: streamed content differs from the non-stream completion")
+        p = prompt_ids(api, bodies[0])
+        runs = trace.of(p)
+        near_ties.append(near_tie(loaded, p, runs[2], runs[0], "batch SSE stream"))
     mm = sum(launches[k] for k in mm_kernels)
     other = sum(launches[k] for k in Q40_KERNELS + Q80_KERNELS if k not in mm_kernels)
     per_fwd = 7 * loaded.config.n_layers + 1
@@ -1771,7 +1860,6 @@ def phase_batch(loaded, n_slots: int = 8, max_tokens: int = 32,
     window_s = (max(t + r["timings"]["e2e_ms"] / 1e3 for r, t in zip(first, sent[0]))
                 - min(t + r["timings"]["ttft_ms"] / 1e3 for r, t in zip(first, sent[0])))
     return {"slots": n_slots, "forwards": forwards, "launches": launches,
-            "first_content": contents[0][0],
             "completion_tokens": sum(n_tok), "decode_tokens": sum(n - 1 for n in n_tok),
             "decode_window_s": window_s,
             "agg_decode_tok_s": sum(n - 1 for n in n_tok) / window_s if window_s > 0 else None,
@@ -1779,6 +1867,7 @@ def phase_batch(loaded, n_slots: int = 8, max_tokens: int = 32,
             "agg_tok_s_with_prefill": sum(n_tok) / walls[0],
             "ttft_ms_p50": summary["ttft_ms_p50"], "ttft_ms_max": summary["ttft_ms_max"],
             "round_wall_s": walls, "reused_prefix_tokens": summary["reused_prefix_tokens"],
+            "near_ties": [m for m in near_ties if m],
             "pool_after_drain": {k: report[k] for k in ("total", "free", "ok")}}
 
 
@@ -1947,7 +2036,6 @@ def phase_q80(device, prompt: str) -> dict:
               f"of {k10['device_ms_per_step']:.3f} ms device time; {k10['wall_ms_per_step']:.3f} "
               f"ms a step wall", flush=True)
         launches = batch.pop("launches")
-        batch.pop("first_content")
         print(f"q80 batch: {batch}; launches {launches}", flush=True)
         if launches["rms_norm"] < (2 * n_layers + 1) * batch["forwards"]:
             fail(f"q80 batch: {launches['rms_norm']} rms_norm launches for "
@@ -2436,14 +2524,14 @@ def cli_warmup_serve(mpath: str, tpath: str, body: dict) -> tuple[dict, str, flo
     return report, json.loads(raw)["choices"][0]["message"]["content"], boot_s
 
 
-def phase_graphs(loaded, mpath: str, tpath: str, prompt: str, want: str | None = None) -> dict:
+def phase_graphs(loaded, mpath: str, tpath: str, prompt: str) -> dict:
     """Decode chunks as CUDA graphs against the same bodies launched from
     Python, on the loaded Q40 8B model: one stream, then eight paged slots
     at page 128 (ids and timings, see the module's docstring), then the
     CLI's `serve --slots 8 --warmup auto`, whose first request's content
-    must equal `want` (the batch phase's first content, from a server
-    without warmup; asked of one here when None). Returns the launches of
-    the captured runs."""
+    must equal a server's without warmup (each the first request its
+    server serves, so both prefill the prompt from row 0). Returns the
+    launches of the captured runs."""
     import gc
 
     import numpy as np
@@ -2561,20 +2649,19 @@ def phase_graphs(loaded, mpath: str, tpath: str, prompt: str, want: str | None =
     # ---- the CLI with --warmup auto, against a server without warmup
     body = {"messages": [{"role": "user", "content": batch_prompts(1)[0]}], "temperature": 0,
             "max_tokens": GRAPH_TOKENS}
-    if want is None:
-        httpd, api = make_server(loaded, host="127.0.0.1", port=0, n_slots=8)
-        threading.Thread(target=httpd.serve_forever, daemon=True).start()
-        try:
-            st, raw = _post(httpd.server_address[1], body)
-        finally:
-            graceful_drain(httpd, api, timeout_s=60)
-            httpd.server_close()
-        if st != 200:
-            fail(f"graphs: the server without warmup answered {st}")
-        want = json.loads(raw)["choices"][0]["message"]["content"]
-        del api, httpd
-        gc.collect()
-        torch.cuda.empty_cache()
+    httpd, api = make_server(loaded, host="127.0.0.1", port=0, n_slots=8)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        st, raw = _post(httpd.server_address[1], body)
+    finally:
+        graceful_drain(httpd, api, timeout_s=60)
+        httpd.server_close()
+    if st != 200:
+        fail(f"graphs: the server without warmup answered {st}")
+    want = json.loads(raw)["choices"][0]["message"]["content"]
+    del api, httpd
+    gc.collect()
+    torch.cuda.empty_cache()
     report, got, boot_s = cli_warmup_serve(mpath, tpath, body)
     print(f"graphs: serve --slots 8 --warmup auto ready in {boot_s:.1f} s; boot report "
           f"{json.dumps(report)}", flush=True)
@@ -2602,12 +2689,13 @@ HYBRID_TOKENS = 16
 HYBRID_BASELINE_S = 0.6
 
 
-def _stream(port: int, body: dict, first: threading.Event) -> tuple[int, str]:
-    """An SSE chat completion; sets `first` at its first content event.
-    -> (status, the streamed content)."""
+def _stream(port: int, body: dict, first: threading.Event,
+            req_id: str = "") -> tuple[int, str]:
+    """An SSE chat completion (`req_id` as X-Request-Id); sets `first` at
+    its first content event. -> (status, the streamed content)."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     conn.request("POST", "/v1/chat/completions", json.dumps(dict(body, stream=True)),
-                 {"Content-Type": "application/json"})
+                 _headers(req_id))
     resp = conn.getresponse()
     parts = []
     while True:
@@ -2649,9 +2737,10 @@ def phase_hybrid(loaded) -> dict:
     and the largest gap), live slots a chunk, hybrid chunks and tokens.
     Then, on the idle server, a burst of 8 simultaneous ~85-token chats
     (the batch phase's prompts): TTFT p50/max, live slots a chunk, hybrid
-    chunks and tokens. Greedy contents must be identical across the
-    budgets, and the page pool must audit clean after each drain. Returns
-    the launches of the served requests, summed over the budgets."""
+    chunks and tokens. Greedy ids must be identical across the budgets or
+    first differ at a near tie (near_tie), and the page pool must audit
+    clean after each drain. Returns the launches of the served requests,
+    summed over the budgets."""
     import gc
 
     import torch
@@ -2659,7 +2748,7 @@ def phase_hybrid(loaded) -> dict:
     from dllama_tpu_torch.serve.api import graceful_drain, make_server
 
     launches: dict = {}
-    results, contents = {}, {}
+    results, traces, prompts = {}, {}, {}
     # the running streams' prompts share no more than the chat header with
     # the burst's, so the burst finds nothing of them in the prefix cache
     running = [{"messages": [{"role": "user", "content": "Stream on: " + p}],
@@ -2677,6 +2766,11 @@ def phase_hybrid(loaded) -> dict:
                                  prefill_budget=budget, warmup="auto")
         boot_s = time.perf_counter() - t_boot
         sched, eng = api.scheduler, api.scheduler.engine
+        traces[budget] = IdTrace(sched)
+        if not prompts:
+            prompts.update({"running": [prompt_ids(api, b) for b in running],
+                            "joiner": [prompt_ids(api, joiner)],
+                            "burst": [prompt_ids(api, b) for b in burst]})
         consumed = []  # (host time, steps, live slots) of each consumed decode chunk
         consume = eng.decode_consume
 
@@ -2740,9 +2834,6 @@ def phase_hybrid(loaded) -> dict:
                 "hybrid_chunks": h1["chunks"] - h0["chunks"],
                 "hybrid_tokens": h1["tokens"] - h0["tokens"],
             }
-            contents.setdefault("running", []).append([c for _, c in out])
-            contents.setdefault("joiner", []).append(
-                jresp["choices"][0]["message"]["content"])
             # ---- the burst on the idle server
             c0, s0 = sched.chunks, sched.chunk_slots
             h0 = dict(sched.latency_summary()["hybrid"])
@@ -2759,8 +2850,6 @@ def phase_hybrid(loaded) -> dict:
                             "decode_chunks": chunks,
                             "hybrid_chunks": h1["chunks"] - h0["chunks"],
                             "hybrid_tokens": h1["tokens"] - h0["tokens"]}
-            contents.setdefault("burst", []).append(
-                [r["choices"][0]["message"]["content"] for r in rs])
             for k, v in counters().items():
                 launches[k] = launches.get(k, 0) + v
             res["mode"] = sched.latency_summary()["hybrid"]["mode"]
@@ -2777,9 +2866,14 @@ def phase_hybrid(loaded) -> dict:
         del api, httpd, sched, eng
         gc.collect()
         torch.cuda.empty_cache()
-    for key, runs in contents.items():
-        if any(r != runs[0] for r in runs[1:]):
-            fail(f"hybrid: greedy {key} contents differ across the budgets {HYBRID_BUDGETS}")
+    # greedy ids equal across the budgets, or apart at a near tie only (a
+    # prompt whose admission mapped a sub-page boundary from the tree in one
+    # run prefills from another row, in other slices, than in another)
+    near_ties = [near_tie(loaded, p, traces[b].of(p)[0], traces[HYBRID_BUDGETS[0]].of(p)[0],
+                          f"hybrid {key} request {i}, budget {b}")
+                 for key, ps in prompts.items() for i, p in enumerate(ps)
+                 for b in HYBRID_BUDGETS[1:]]
+    near_ties = [m for m in near_ties if m]
     if results["auto"]["join"]["hybrid_chunks"] <= 0 or results[0]["join"]["hybrid_chunks"]:
         fail("hybrid: the joiner did not ride hybrid chunks under auto, or did at budget 0")
     # the batch phase's requests on the same server, phase-split: decode batched
@@ -2787,9 +2881,363 @@ def phase_hybrid(loaded) -> dict:
     if not occupancy > MIN_BATCH_SLOTS:
         fail(f"hybrid: the budget-0 burst's decode chunks carried {occupancy:.2f} live slots "
              f"on average, want > {MIN_BATCH_SLOTS}: decode did not run batched")
-    print(f"hybrid: greedy contents identical across the budgets (running, joiner, burst); "
+    print(f"hybrid: greedy ids identical across the budgets (running, joiner, burst) but "
+          f"{len(near_ties)} near ties; "
           f"pool clean after each drain; launches {launches}", flush=True)
     return launches
+
+
+# ------------------------------------------------------------ the radix phase
+
+#: radix phase: rows of the shared system prompt (12 pages of 128; the user
+#: turns diverge at this row), the user turns' lengths (one byte a token in
+#: the smoke's tokenizer), decode tokens a reply
+RADIX_SYSTEM_ROWS = 1536
+RADIX_TURNS = (64, 80, 96, 112, 128, 144, 160, 100)
+RADIX_TOKENS = 32
+#: (b) multi-turn: chats, turn-1 length and turn-2 addition (tokens)
+RADIX_CHATS, RADIX_TURN1, RADIX_TURN2 = 16, 300, 48
+#: (c) the spill tier: device pool pages and host pages (16.8 MB each at 8B)
+RADIX_KV_PAGES = RADIX_HOST_PAGES = 48
+#: (d) preemption: decode tokens of the 8 priority-0 streams (~2 s, so none
+#: ends before the priority-2 request has been served)
+RADIX_PREEMPT_TOKENS = 256
+
+
+def _filler(n: int, seed: str) -> str:
+    """n characters of readable filler (n tokens under the byte tokenizer)."""
+    words = " ".join(f"{seed} {i}: the keeper logs the weather, the tide and the lamp."
+                     for i in range(n // 40 + 2))
+    return words[:n]
+
+
+class RadixServer:
+    """An 8-slot server (make_server, `serve --slots 8 --warmup auto`) whose
+    scheduler records each request's prompt and emitted ids by request id
+    (IdTrace), the most pool pages in use at any emit, and the rows each
+    resume re-prefilled."""
+
+    def __init__(self, loaded, **kw):
+        from dllama_tpu_torch.serve.api import make_server
+
+        self.httpd, self.api = make_server(loaded, host="127.0.0.1", port=0, n_slots=8,
+                                           warmup="auto", **kw)
+        self.sched, self.eng = self.api.scheduler, self.api.scheduler.engine
+        self.trace, self.resume_rows = IdTrace(self.sched), []
+        self.peak_used = 0
+        emit, resume = self.sched._emit, self.eng.resume_commit
+
+        def rec_emit(req, token, row, emit=emit):
+            pool = self.eng.pool
+            self.peak_used = max(self.peak_used, pool.n_pages - pool.free_count)
+            return emit(req, token, row)
+
+        def rec_resume(adm, *a, resume=resume, **k):
+            self.resume_rows.append(len(adm.toks))
+            return resume(adm, *a, **k)
+
+        self.sched._emit, self.eng.resume_commit = rec_emit, rec_resume
+        threading.Thread(target=self.httpd.serve_forever, daemon=True).start()
+        self.port = self.httpd.server_address[1]
+
+    def ids(self, req_id: str) -> list[int]:
+        return self.trace.runs[req_id][1]
+
+    def post(self, body: dict, req_id: str) -> dict:
+        st, raw, _ = _post_timed(self.port, body, req_id)
+        if st != 200:
+            fail(f"radix: request {req_id} answered {st}: {raw[:300]!r}")
+        return json.loads(raw)
+
+    def burst(self, bodies: dict) -> dict:
+        """{req_id: body} at once -> {req_id: response}."""
+        keys = list(bodies)
+        out = _concurrently(self.post, [(bodies[k], k) for k in keys])
+        return dict(zip(keys, out))
+
+    def stats(self) -> dict:
+        s = self.sched.latency_summary()
+        return {"reused": s["reused_prefix_tokens"], "radix": s["radix"],
+                "preemptions": s["preemptions"], "resumed": s["resumed"],
+                "kv": s["kv_pages"]}
+
+    def close(self, label: str) -> dict:
+        """Audit the pool with the tree and the host tier intact, drain,
+        and check every page came back and no spill was discarded."""
+        from dllama_tpu_torch.serve.api import graceful_drain
+
+        report = self.eng.pool.audit(raise_on_fail=False)
+        clean = graceful_drain(self.httpd, self.api, timeout_s=120)
+        self.httpd.server_close()
+        after = self.eng.pool.audit(raise_on_fail=False)
+        host = after.get("host")
+        if not (report["ok"] and clean and after["ok"] and after["free"] == after["total"]):
+            fail(f"radix {label}: audit before the drain {report}, drain clean {clean}, "
+                 f"pool after it {after}")
+        if host is not None and host["discarded"]:
+            fail(f"radix {label}: {host['discarded']} spills discarded")
+        return {"audit_ok": True, "radix_pages": report["radix_pages"], "host": host}
+
+
+def _same_ids(loaded, a: RadixServer, b: RadixServer, pairs, label: str) -> list[str]:
+    """Compare the ids of (req_id on a, req_id on b) pairs (near_tie); the
+    divergence reports of those that differ."""
+    reports = [near_tie(loaded, a.trace.runs[ka][0], a.ids(ka), b.ids(kb), f"radix {label} {ka}")
+               for ka, kb in pairs]
+    return [m for m in reports if m]
+
+
+def _system_prompt(api) -> str:
+    """A system message whose chat encoding, with any user turn after it,
+    shares exactly RADIX_SYSTEM_ROWS leading tokens with another turn's."""
+    def lcp(n):
+        a, b = (api._encode_chat([("system", _filler(n, "sys")), ("user", c + " hello")],
+                                 add_bos=True) for c in ("A", "B"))
+        return next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+
+    n = RADIX_SYSTEM_ROWS - 40
+    n += RADIX_SYSTEM_ROWS - lcp(n)
+    if lcp(n) != RADIX_SYSTEM_ROWS:
+        fail(f"radix: could not align the system prompt to {RADIX_SYSTEM_ROWS} rows")
+    return _filler(n, "sys")
+
+
+def _chat(system: str | None, user: str, max_tokens: int = RADIX_TOKENS, **kw) -> dict:
+    msgs = ([{"role": "system", "content": system}] if system else [])
+    return dict({"messages": msgs + [{"role": "user", "content": user}], "temperature": 0,
+                 "max_tokens": max_tokens}, **kw)
+
+
+def _ttfts(resps) -> list[float]:
+    return [r["timings"]["ttft_ms"] for r in resps]
+
+
+def phase_radix(loaded) -> dict:
+    """The radix prefix tree, the host spill tier and preemption on the
+    8-slot server (page 128, hybrid admission, --warmup auto), each with
+    the tree on (the default) and with --radix-cache off (and --preempt off):
+    (a) a 1,536-row system prompt shared by 8 user turns: one alone, then 8
+    at once; (b) 16 two-turn chats over 8 slots; (c) on a 48-page pool with
+    48 host pages against 0: prompt A, three more that push A's pages out,
+    then A again; (d) 8 priority-0 streams, then a priority-2 arrival;
+    (e) every pool audits clean (tree and host tier intact) before its drain
+    and has every page free after it, with no spill discarded. Greedy ids
+    must match between the runs compared, or first differ at a near tie of
+    the plain forward's logits. Returns the launches of the whole phase."""
+    import gc
+
+    import torch
+
+    res: dict = {}
+    reports: list[str] = []
+    reset_counters()
+    on = RadixServer(loaded)
+    off = RadixServer(loaded, radix_cache="off", preempt="off")
+    if on.eng.radix is None or on.eng.page_size != 128 or off.eng.radix is not None:
+        fail("radix: the default 8-slot server has no tree at page 128, or --radix-cache off "
+             "has one")
+    system = _system_prompt(on.api)
+    turns = [f"{chr(65 + i)}) " + _filler(n - 3, f"turn {i}") for i, n in enumerate(RADIX_TURNS)]
+
+    # ---- (a) the shared system prompt
+    for label, srv in (("on", on), ("off", off)):
+        s0 = srv.stats()
+        alone = srv.post(_chat(system, turns[0]), "a-alone")
+        srv.peak_used = 0
+        burst = srv.burst({f"a-{i}": _chat(system, t) for i, t in enumerate(turns)})
+        s1 = srv.stats()
+        prompt = alone["usage"]["prompt_tokens"] + sum(r["usage"]["prompt_tokens"]
+                                                         for r in burst.values())
+        reused = s1["reused"] - s0["reused"]
+        res[f"a_{label}"] = {
+            "alone_ttft_ms": alone["timings"]["ttft_ms"],
+            "burst_ttft_ms_p50": statistics.median(_ttfts(burst.values())),
+            "burst_ttft_ms_max": max(_ttfts(burst.values())),
+            "prompt_tokens": prompt, "prefilled": prompt - reused,
+            "hit_tokens": (None if s1["radix"] is None
+                           else s1["radix"]["hit_tokens"] - s0["radix"]["hit_tokens"]),
+            "reused": reused, "peak_pages_used": srv.peak_used}
+    reports += _same_ids(loaded, on, off, [(k, k) for k in ["a-alone"] + [f"a-{i}" for i in
+                                                                        range(len(turns))]],
+                         "(a)")
+    print(f"radix (a) shared {RADIX_SYSTEM_ROWS}-row system prompt, tree on: "
+          f"{json.dumps(res['a_on'])}; off: {json.dumps(res['a_off'])}", flush=True)
+    if res["a_on"]["hit_tokens"] < RADIX_SYSTEM_ROWS * len(turns):
+        fail(f"radix (a): the tree served {res['a_on']['hit_tokens']} rows, want >= "
+             f"{RADIX_SYSTEM_ROWS * len(turns)}")
+
+    # ---- (b) multi-turn
+    users = [f"{i:02d} " + _filler(RADIX_TURN1 - 3, f"chat {i}") for i in range(RADIX_CHATS)]
+    for label, srv in (("on", on), ("off", off)):
+        first = srv.burst({f"b1-{i}": _chat(None, u) for i, u in enumerate(users)})
+        s0 = srv.stats()
+        second = srv.burst({
+            f"b2-{i}": {"messages": [
+                {"role": "user", "content": u},
+                {"role": "assistant",
+                 "content": first[f"b1-{i}"]["choices"][0]["message"]["content"]},
+                {"role": "user", "content": _filler(RADIX_TURN2, f"again {i}")}],
+                "temperature": 0, "max_tokens": RADIX_TOKENS}
+            for i, u in enumerate(users)})
+        s1 = srv.stats()
+        res[f"b_{label}"] = {
+            "turn2_ttft_ms_p50": statistics.median(_ttfts(second.values())),
+            "turn2_ttft_ms_max": max(_ttfts(second.values())),
+            "turn2_prompt_tokens": sum(r["usage"]["prompt_tokens"] for r in second.values()),
+            "hit_tokens": (None if s1["radix"] is None
+                           else s1["radix"]["hit_tokens"] - s0["radix"]["hit_tokens"]),
+            "reused": s1["reused"] - s0["reused"]}
+    same_b = all(on.ids(k) == off.ids(k) for k in on.trace.runs if k.startswith("b"))
+    res["b_ids_equal"] = same_b
+    print(f"radix (b) {RADIX_CHATS} two-turn chats over 8 slots, tree on: "
+          f"{json.dumps(res['b_on'])}; off: {json.dumps(res['b_off'])}; greedy ids equal "
+          f"on/off: {same_b}", flush=True)
+
+    # ---- (d) preemption: 8 priority-0 streams, then a priority-2 arrival
+    # turns of their own (the tree holds (a)'s replies, which would serve a
+    # resume every row), run uninterrupted on the server without the tree,
+    # so the victim's resume re-prefills what its suspension left out
+    streams = {f"d-{i}": _chat(system, f"{chr(97 + i)}) " + _filler(n - 3, f"stream {i}"),
+                               RADIX_PREEMPT_TOKENS, priority=0)
+               for i, n in enumerate(RADIX_TURNS)}
+    off.burst({f"base-{k}": b for k, b in streams.items()})
+    hi_body = _chat(system, "Z) " + _filler(90, "urgent"), 16, priority=2)
+    for label, srv in (("on", on), ("off", off)):
+        s0 = srv.stats()
+        firsts = [threading.Event() for _ in streams]
+        out: dict = {}
+
+        def run(i, k, srv=srv, out=out, firsts=firsts):
+            st, _ = _stream(srv.port, streams[k], firsts[i], f"{k}-{label}")
+            if st != 200:
+                fail(f"radix (d): stream {k} answered {st}")
+            out[k] = (st, time.perf_counter())  # (status, when it ended)
+
+        threads = [threading.Thread(target=run, args=(i, k)) for i, k in enumerate(streams)]
+        for th in threads:
+            th.start()
+        for ev in firsts:
+            if not ev.wait(300):
+                fail("radix (d): a priority-0 stream produced no token in 300 s")
+        st, raw, t_hi = _post_timed(srv.port, hi_body, f"d-hi-{label}")
+        if st != 200:
+            fail(f"radix (d): the priority-2 request answered {st}: {raw[:300]!r}")
+        hi = json.loads(raw)
+        t_hi_done = time.perf_counter()
+        for th in threads:
+            th.join(timeout=600)
+            if th.is_alive():
+                fail("radix (d): a priority-0 stream did not finish within 600 s")
+        s1 = srv.stats()
+        res[f"d_{label}"] = {
+            "hi_ttft_ms": hi["timings"]["ttft_ms"],
+            "hi_queue_wait_ms": hi["timings"]["queue_wait_ms"],
+            "streams_done_after_hi_s": max(t for _, t in out.values()) - t_hi_done,
+            # > 0: admitted while every priority-0 stream still ran
+            "hi_admitted_before_a_stream_ended_s": (
+                min(t for _, t in out.values())
+                - (t_hi + hi["timings"]["queue_wait_ms"] / 1e3)),
+            "preemptions": s1["preemptions"] - s0["preemptions"],
+            "resumed": s1["resumed"] - s0["resumed"]}
+    res["d_on"]["resume_rows"] = list(on.resume_rows)
+    reports += _same_ids(loaded, on, off, [(f"{k}-on", f"base-{k}") for k in streams], "(d)")
+    reports += _same_ids(loaded, off, off, [(f"{k}-off", f"base-{k}") for k in streams],
+                         "(d) off")
+    print(f"radix (d) a priority-2 arrival over 8 priority-0 streams, preempt on: "
+          f"{json.dumps(res['d_on'])}; preempt off: {json.dumps(res['d_off'])}", flush=True)
+    if (not res["d_on"]["preemptions"] or res["d_on"]["resumed"] != res["d_on"]["preemptions"]
+            or res["d_on"]["hi_admitted_before_a_stream_ended_s"] <= 0):
+        fail(f"radix (d): preemptions {res['d_on']['preemptions']}, resumed "
+             f"{res['d_on']['resumed']}, the first priority-0 stream ended "
+             f"{res['d_on']['hi_admitted_before_a_stream_ended_s']:.3f} s after the "
+             "priority-2 request was admitted")
+    if res["d_off"]["preemptions"]:
+        fail("radix (d): --preempt off preempted")
+    res["audit_on"], res["audit_off"] = on.close("on"), off.close("off")
+    del on, off
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (c) the host spill tier on a 48-page pool
+    # B, C and D share a 12-token prefix (one more than the chat header all
+    # four share), so their lookups offer each other, not A, as the
+    # sub-page boundary and leave A the coldest leaf
+    prompts = {k: _chat(_filler(RADIX_SYSTEM_ROWS, seed), turns[0])
+               for k, seed in (("A", "A"), ("B", "Zb"), ("C", "Zc"), ("D", "Zd"))}
+    a_runs = []  # A's second (prompt, ids) on each server
+    for label, host_pages in (("host", RADIX_HOST_PAGES), ("nohost", 0)):
+        srv = RadixServer(loaded, kv_pages=RADIX_KV_PAGES, kv_host_pages=host_pages)
+        first = srv.post(prompts["A"], "c-A1")
+        for k in "BCD":
+            srv.post(prompts[k], f"c-{k}")
+        again = srv.post(prompts["A"], "c-A2")
+        host = srv.eng.pool.host
+        out = {"A_first_ttft_ms": first["timings"]["ttft_ms"],
+               "A_again_ttft_ms": again["timings"]["ttft_ms"],
+               "A_again_prompt_tokens": again["usage"]["prompt_tokens"],
+               "radix": srv.stats()["radix"]}
+        if host is not None:
+            st = host.stats()
+            out.update(spilled=st["spilled"], restored=st["restored"], dropped=st["dropped"],
+                       spill_host_ms=st["spill_s"] * 1e3 / max(st["spilled"], 1),
+                       slab_mb=st["slab_bytes"] / 1e6, **page_copy_ms(srv.eng))
+            if not (st["spilled"] and st["restored"]):
+                fail(f"radix (c): the tier spilled {st['spilled']} and restored "
+                     f"{st['restored']} pages")
+        reports += _same_ids(loaded, srv, srv, [("c-A2", "c-A1")], f"(c) {label}")
+        res[f"c_{label}"] = out
+        res[f"c_{label}"]["close"] = srv.close(label)
+        a_runs.append(srv.trace.runs["c-A2"])
+        del srv
+        gc.collect()
+        torch.cuda.empty_cache()
+    (prompt, ids), (_, other) = a_runs
+    res["c_ids_equal"] = ids == other
+    reports += [m for m in [near_tie(loaded, prompt, ids, other, "radix (c) A with the tier "
+                                     "against without")] if m]
+    print(f"radix (c) spill tier ({RADIX_KV_PAGES} pool pages): {RADIX_HOST_PAGES} host "
+          f"pages {json.dumps(res['c_host'])}; 0 host pages {json.dumps(res['c_nohost'])}; "
+          f"A's ids equal across the two {res['c_ids_equal']}", flush=True)
+    launches = counters()
+    for k in ("q40_decode", "q40_prefill", "paged_attention"):
+        if not launches[k]:
+            fail(f"radix: kernel {k} was never launched")
+    res["divergences"] = reports
+    print(f"radix (e) every pool audited clean before its drain and freed every page after "
+          f"it, no spill discarded; divergences {len(reports)}; launches {launches}",
+          flush=True)
+    return launches
+
+
+def page_copy_ms(eng, reps: int = 10) -> dict:
+    """CUDA-event medians of one page's copy host-to-device (a restore: a
+    slab row into the trash page) and device-to-host (a spill: a page into a
+    pinned buffer of the slab's row shape)."""
+    import torch
+
+    host, trash = eng.pool.host, eng.pool.n_pages
+    buf_k, buf_v = torch.empty_like(host.k[0]), torch.empty_like(host.v[0])
+
+    def timed(fn):
+        times = []
+        for _ in range(reps):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+    def restore():
+        eng.cache.k[:, trash].copy_(host.k[0], non_blocking=True)
+        eng.cache.v[:, trash].copy_(host.v[0], non_blocking=True)
+
+    def spill():
+        buf_k.copy_(eng.cache.k[:, trash], non_blocking=True)
+        buf_v.copy_(eng.cache.v[:, trash], non_blocking=True)
+
+    return {"restore_page_ms": timed(restore), "spill_page_ms": timed(spill)}
 
 
 # ------------------------------------------------------------ main
@@ -2826,8 +3274,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=20, help="timed runs per case (0: no timing)")
     ap.add_argument("--phases",
-                    default="card,kernels,kbench,forward,serve,batch,hybrid,inference,styles,"
-                            "spec,graphs,f8,q80",
+                    default="card,kernels,kbench,forward,serve,batch,hybrid,radix,inference,"
+                            "styles,spec,graphs,f8,q80",
                     help="comma list; not in the default: 'profile' adds a "
                          "torch.profiler pass over one decode chunk, single-stream "
                          "and 8-slot; 'chunk' is the prefill-chunk timing alone (Q40 "
@@ -2882,8 +3330,8 @@ def main(argv=None) -> int:
     phase_done("kbench", phases)
     prompt = ("Summarize the plot of a long story about a lighthouse keeper, "
               "a storm, and a ship that never arrives.")
-    if phases & {"forward", "chunk", "serve", "profile", "batch", "hybrid", "inference", "styles",
-                  "spec", "graphs", "f8"}:
+    if phases & {"forward", "chunk", "serve", "profile", "batch", "hybrid", "radix", "inference",
+                  "styles", "spec", "graphs", "f8"}:
         from dllama_tpu_torch.engine.loader import load_model
 
         tmp = tempfile.TemporaryDirectory(prefix="dllama_smoke_")
@@ -2962,11 +3410,9 @@ def main(argv=None) -> int:
                          "splitk_reduce pass")
         phase_done("profile", phases)
 
-        batch_first = None  # round 1's first content: the server without warmup
         if "batch" in phases:
             batch = phase_batch(loaded)
             paths["batch"] = batch.pop("launches")
-            batch_first = batch.pop("first_content")
             print(f"batch: {batch}; launches {paths['batch']}", flush=True)
             print(f"batch: aggregate decode {batch['agg_decode_tok_s']:.1f} tok/s over "
                   f"{batch['slots']} slots ({batch['decode_tokens']} decode tokens in "
@@ -2979,6 +3425,10 @@ def main(argv=None) -> int:
         if "hybrid" in phases:
             paths["hybrid"] = phase_hybrid(loaded)
         phase_done("hybrid", phases)
+
+        if "radix" in phases:
+            paths["radix"] = phase_radix(loaded)
+        phase_done("radix", phases)
 
         auto_text = None  # the greedy CLI text under STYLE auto, for the styles phase
         if "inference" in phases:
@@ -3002,7 +3452,7 @@ def main(argv=None) -> int:
         phase_done("spec", phases)
 
         if "graphs" in phases:
-            paths["graphs"] = phase_graphs(loaded, mpath, tpath, prompt, batch_first)["launches"]
+            paths["graphs"] = phase_graphs(loaded, mpath, tpath, prompt)["launches"]
         phase_done("graphs", phases)
         del loaded
         torch.cuda.empty_cache()

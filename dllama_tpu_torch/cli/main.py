@@ -10,11 +10,13 @@ Modes:
 Everything runs on one device, `--device cuda` (the default) or
 `--device cpu`. Without a CUDA device the CLI stops with an error unless the
 CPU was asked for. Options of the JAX package that this package has not
-ported yet are accepted by name and refused with a clear message (exit 2);
-the batched tier's `auto` defaults for features not yet ported (radix prefix
-tree, preemption) resolve to off, with one logged line each. `serve --slots
-N` admits with hybrid chunked prefill (`--prefill-budget auto`, the JAX
-package's default; 0 restores phase-split admission). `--spec K`
+ported yet are accepted by name and refused with a clear message (exit 2).
+`serve --slots N` runs the JAX package's defaults: paged KV where the paged
+kernel takes the model, the radix prefix tree on it (`--radix-cache auto`),
+preemption with priority classes and tenant fair queueing (`--preempt auto`,
+`--tenant-weight NAME=W`), the host-RAM spill tier when `--kv-host-pages N`
+is given, and hybrid chunked prefill (`--prefill-budget auto`; 0 restores
+phase-split admission). `--spec K`
 (prompt-lookup speculative decoding) drives the single-engine paths; with
 `--slots > 0` it is refused. `serve --slots N --warmup auto` captures every
 decode and prefill program before the first request.
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import logging
+import math
 import sys
 import time
 
@@ -112,13 +115,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--frontend", choices=["aio", "threads"], default="threads",
                    help="serve mode transport (aio is not yet ported)")
     p.add_argument("--radix-cache", choices=["auto", "on", "off"], default="auto",
-                   help="radix prefix tree (not yet ported: auto resolves to off)")
+                   help="serve --slots > 0: cross-request radix prefix tree over the paged "
+                        "KV pool; admissions map the longest shared prefix by refcount and "
+                        "prefill only the rest, LRU leaves are reclaimed under page "
+                        "pressure. auto (default) = on whenever the KV layout is paged; "
+                        "on needs it paged. Token streams are the same on or off")
     p.add_argument("--preempt", choices=["auto", "on", "off"], default="auto",
-                   help="preemption (not yet ported: auto resolves to off)")
+                   help="serve --slots > 0: preempt-to-pages; a running lower-priority "
+                        "request is suspended at a chunk boundary when a strictly "
+                        "higher-priority one is blocked (no free slot or KV pages); its "
+                        "pages stay referenced and its stream resumes where it stopped. "
+                        "auto = on (default)")
     p.add_argument("--kv-host-pages", type=int, default=0,
-                   help="host-RAM KV spill tier (not yet ported)")
-    p.add_argument("--tenant-weight", action="append", default=[],
-                   help="fair-queue tenant weight NAME=W (not yet ported)")
+                   help="serve --slots > 0, needs the radix tree: host-RAM KV spill tier "
+                        "of this many pages (0 = off), one pinned slab made at boot. Tree "
+                        "eviction copies cold pages to it instead of discarding them; a "
+                        "returning prompt copies them back at admission")
+    p.add_argument("--tenant-weight", action="append", default=[], metavar="NAME=W",
+                   help="serve --slots > 0: weighted fair queueing across tenants (the "
+                        "`tenant` body field) within each priority class; repeatable, "
+                        "e.g. --tenant-weight paid=4 --tenant-weight free=1; unlisted "
+                        "tenants weigh 1")
     p.add_argument("--warmup", choices=["auto", "off"], default="off",
                    help="serve --slots > 0: capture every decode and prefill program "
                         "(CUDA graph) before the first request; ignored with a warning "
@@ -138,20 +155,31 @@ def build_parser() -> argparse.ArgumentParser:
 def _refuse_unported(args) -> None:
     if args.spec and args.mode == "serve" and args.slots > 0:
         raise NotPorted("--spec with --slots > 0 (batched speculative decoding)")
-    if args.radix_cache == "on":
-        raise NotPorted("--radix-cache on (the radix prefix tree)")
-    if args.preempt == "on":
-        raise NotPorted("--preempt on")
-    if args.kv_host_pages:
-        raise NotPorted("--kv-host-pages (the host-RAM KV spill tier)")
-    if args.tenant_weight:
-        raise NotPorted("--tenant-weight")
     if args.restart_max:
         raise NotPorted("--restart-max (warm engine restarts)")
     if args.mesh is not None:
         raise NotPorted("--mesh (multi-device meshes)")
     if args.frontend == "aio":
         raise NotPorted("--frontend aio")
+
+
+def _parse_tenant_weights(specs) -> dict[str, float] | None:
+    """--tenant-weight NAME=W (repeatable) -> {name: weight}; a malformed
+    spec stops startup with a clear message instead of weighing 1."""
+    if not specs:
+        return None
+    out: dict[str, float] = {}
+    for spec in specs:
+        name, sep, w = str(spec).partition("=")
+        try:
+            weight = float(w)
+        except ValueError:
+            weight = 0.0
+        # NaN poisons every tag comparison and inf zeroes a tenant's cost
+        if not sep or not name or not math.isfinite(weight) or weight <= 0:
+            raise SystemExit(f"--tenant-weight {spec!r}: expected NAME=W with finite W > 0")
+        out[name] = weight
+    return out
 
 
 def _load(args):
@@ -291,13 +319,8 @@ def cmd_serve(args) -> int:
         if prefill_budget < 0:
             print("--prefill-budget must be >= 0", file=sys.stderr)
             return 1
+    tenant_weights = _parse_tenant_weights(args.tenant_weight)
     m = _load(args)
-    if args.slots > 0:
-        log = logging.getLogger("dllama_tpu_torch.cli")
-        for flag, value in (("--radix-cache", "off"), ("--preempt", "off")):
-            if getattr(args, flag[2:].replace("-", "_")) == "auto":
-                log.warning("%s auto -> %s: the feature is not yet ported to the "
-                            "PyTorch/CUDA package", flag, value)
     return run_server(
         m, host=args.host, port=args.port, n_slots=args.slots,
         default_temperature=args.temperature, default_topp=args.topp,
@@ -308,6 +331,8 @@ def cmd_serve(args) -> int:
         overlap=args.overlap == "on", spec=args.spec, warmup=args.warmup,
         prefill_budget=prefill_budget, admit_stall_budget_ms=args.admit_budget_ms,
         admit_ttft_deadline_ms=args.admit_ttft_deadline_ms, slo_itl_ms=args.slo_itl_ms,
+        radix_cache=args.radix_cache, kv_host_pages=args.kv_host_pages, preempt=args.preempt,
+        tenant_weights=tenant_weights,
     )
 
 

@@ -30,6 +30,12 @@ leave at EOS: the scheduling core of continuous batching. Mechanics:
 * KV layout: ``dense`` (a [seq_len] row range per slot) or ``paged`` (a global
   page pool with per-slot block tables and the refcounted PagePool
   allocator); the two give the same tokens.
+* on the paged layout, the cross-request radix prefix tree
+  (engine/radix.py, ``radix_cache``) and its host-RAM spill tier
+  (HostKVPool, ``kv_host_pages``) act through the radix_* methods the
+  serving scheduler drives; direct add/decode/release use is the same
+  either way. resume_commit re-activates a preempted request's slot with
+  its last token and generator counter, sampling nothing.
 
 Device buffers are updated in place where the JAX package donates them (the
 cache or pool, the occurrence counts). Every device tensor is made on the
@@ -40,7 +46,9 @@ engine's explicit device, and every method that runs device work enters
 from __future__ import annotations
 
 import logging
+import threading
 import time
+from collections import OrderedDict
 from dataclasses import dataclass
 
 import numpy as np
@@ -49,6 +57,7 @@ import torch
 from dllama_tpu_torch.engine.engine import CACHE_DTYPES, pow2_chunk
 from dllama_tpu_torch.engine.graphs import VARIANTS, Programs
 from dllama_tpu_torch.engine.kernel_select import resolve_kernels
+from dllama_tpu_torch.engine.radix import RadixCache
 from dllama_tpu_torch.engine.sampling import CounterRNG, apply_penalties, sample_logits
 from dllama_tpu_torch.models.config import LlamaConfig
 from dllama_tpu_torch.models.llama import KVCache, PagedKVCache, forward
@@ -79,9 +88,13 @@ class PagePool:
     Owns the per-slot block tables (numpy mirrors of PagedKVCache.tables),
     the per-page refcounts and the free list. A slot's logical rows
     [0, n_blocks * page_size) are backed one page per block, and a page
-    referenced by several tables (prefix sharing) is freed only when its last
-    reference drops. Device copies that copy-on-write needs are made by the
-    engine's ``copy_fn(src_page, dst_page)`` callback."""
+    referenced by several tables (prefix sharing) or by the radix tree is
+    freed only when its last reference drops. Device copies that
+    copy-on-write needs are made by the engine's ``copy_fn(src_page,
+    dst_page)`` callback. The methods that read or change the tables and
+    refcounts hold one reentrant lock (``_mu``, shared with the radix tree
+    and the host tier): the scheduler's worker is the only writer, and
+    audit() and stats() are also read from HTTP handler threads."""
 
     def __init__(self, n_pages: int, page_size: int, n_slots: int, max_blocks: int):
         if n_pages < 2:
@@ -94,11 +107,19 @@ class PagePool:
         self.tables = np.zeros((n_slots, max_blocks), np.int32)
         self.n_blocks = np.zeros(n_slots, np.int32)
         self._free: list[int] = list(range(n_pages - 1, -1, -1))
+        self._mu = threading.RLock()
         #: run audit() after every release (tests turn it on)
         self.audit_on_release = False
+        #: provider of per-page TREE reference counts and the tree's own
+        #: problems (radix.RadixCache.audit_refs): audit() reconciles
+        #: refcount == table refs + tree refs
+        self.radix_refs = None
         #: provider of (slot, first writable row) for active slots (the
-        #: engine's): audit() checks those rows' pages are exclusively owned
+        #: engine's): audit() checks those rows' pages are exclusively owned,
+        #: which under the tree is what proves no shared page is written
         self.write_horizons = None
+        #: the host-RAM spill tier (HostKVPool), audited beside the pages
+        self.host: HostKVPool | None = None
 
     # ----------------------------------------------------------- accounting
 
@@ -118,17 +139,27 @@ class PagePool:
         return int(self.n_blocks[slot]) * self.page_size
 
     def stats(self) -> dict:
-        return {"total": self.n_pages, "free": self.free_count,
-                "used": self.n_pages - self.free_count, "shared": self.shared_count,
-                "page_size": self.page_size}
+        with self._mu:
+            return {"total": self.n_pages, "free": self.free_count,
+                    "used": self.n_pages - self.free_count, "shared": self.shared_count,
+                    "page_size": self.page_size}
 
     def audit(self, raise_on_fail: bool = True) -> dict:
         """Invariant check over the refcounts, block tables and free list:
-        each page's refcount equals its block-table references; the free list
-        holds exactly the refcount-0 pages, once each; no negative refcount;
-        rows an active slot may write next lie in exclusively owned pages.
-        Returns ``{"ok", "problems", ...stats}``; raises PoolAuditError on a
-        violation unless ``raise_on_fail`` is False."""
+        each page's refcount equals its block-table references plus its
+        radix-tree references; the free list holds exactly the refcount-0
+        pages, once each; no negative refcount; rows an active slot may
+        write next lie in exclusively owned pages; the host tier's own
+        invariants hold. Returns ``{"ok", "problems", "radix_pages",
+        ...stats}`` (and ``"host"`` with the tier on); raises PoolAuditError
+        on a violation unless ``raise_on_fail`` is False."""
+        with self._mu:
+            report = self._audit()
+        if report["problems"] and raise_on_fail:
+            raise PoolAuditError("kv page-pool audit failed: " + "; ".join(report["problems"]))
+        return report
+
+    def _audit(self) -> dict:
         problems: list[str] = []
         refs = np.zeros(self.n_pages, np.int64)
         for s in range(self.tables.shape[0]):
@@ -139,6 +170,16 @@ class PagePool:
                 else:
                     problems.append(f"slot {s} block {b} references page {p} outside the "
                                     f"pool [0, {self.n_pages})")
+        radix_pages = 0
+        if self.radix_refs is not None:
+            # a node reference the tree forgot (leak) or counted twice shows
+            # up as the same mismatch a corrupt table would
+            tree_refs, tree_problems = self.radix_refs()
+            problems.extend(tree_problems)
+            for p, c in tree_refs.items():
+                if 0 <= p < self.n_pages:
+                    refs[p] += c
+                    radix_pages += c
         bad = np.flatnonzero(refs != self.refcount)
         for p in bad[:8]:
             problems.append(f"page {int(p)}: refcount {int(self.refcount[p])} but "
@@ -167,9 +208,11 @@ class PagePool:
         if orphan:
             problems.append(f"leaked pages (refcount 0 but not on the free list): "
                             f"{sorted(orphan)[:8]}")
-        report = dict(self.stats(), ok=not problems, problems=problems)
-        if problems and raise_on_fail:
-            raise PoolAuditError("kv page-pool audit failed: " + "; ".join(problems))
+        if self.host is not None:
+            problems.extend(self.host.audit_problems())
+        report = dict(self.stats(), ok=not problems, problems=problems, radix_pages=radix_pages)
+        if self.host is not None:
+            report["host"] = self.host.stats()
         return report
 
     # ------------------------------------------------------------ primitives
@@ -195,113 +238,286 @@ class PagePool:
         """Extend `slot`'s table until its pages cover `rows` logical rows.
         All or nothing unless best_effort (then: allocate what the free list
         holds and stop). Returns True when the table changed."""
-        need = self.blocks_for(rows) - int(self.n_blocks[slot])
-        if need <= 0:
-            return False
-        if not best_effort and need > self.free_count:
-            raise PageExhausted(f"slot {slot} needs {need} pages to reach row {rows}; "
-                                f"{self.free_count} free of {self.n_pages}")
-        changed = False
-        for _ in range(need):
-            if not self._free:
-                break
-            self.tables[slot, self.n_blocks[slot]] = self._alloc_page()
-            self.n_blocks[slot] += 1
-            changed = True
-        return changed
+        with self._mu:
+            need = self.blocks_for(rows) - int(self.n_blocks[slot])
+            if need <= 0:
+                return False
+            if not best_effort and need > self.free_count:
+                raise PageExhausted(f"slot {slot} needs {need} pages to reach row {rows}; "
+                                    f"{self.free_count} free of {self.n_pages}")
+            changed = False
+            for _ in range(need):
+                if not self._free:
+                    break
+                self.tables[slot, self.n_blocks[slot]] = self._alloc_page()
+                self.n_blocks[slot] += 1
+                changed = True
+            return changed
 
     def free_tail(self, slot: int, keep_rows: int) -> int:
         """Drop `slot`'s blocks past the one holding row keep_rows-1 (all of
         them for keep_rows == 0). Returns the pages that went back to the
         free list (a shared page only loses one reference). keep_rows past
         the covered range keeps everything: n_blocks never grows here."""
-        keep = min(self.blocks_for(keep_rows), int(self.n_blocks[slot]))
-        freed = 0
-        for b in range(keep, int(self.n_blocks[slot])):
-            before = self.free_count
-            self._decref(int(self.tables[slot, b]))
-            freed += self.free_count - before
-            self.tables[slot, b] = 0
-        self.n_blocks[slot] = keep
-        return freed
+        with self._mu:
+            keep = min(self.blocks_for(keep_rows), int(self.n_blocks[slot]))
+            freed = 0
+            for b in range(keep, int(self.n_blocks[slot])):
+                before = self.free_count
+                self._decref(int(self.tables[slot, b]))
+                freed += self.free_count - before
+                self.tables[slot, b] = 0
+            self.n_blocks[slot] = keep
+            return freed
 
     def ensure_writable(self, slot: int, row: int, copy_fn) -> None:
         """Copy-on-write: make the page holding `row` exclusively `slot`'s
-        before it is (partly) rewritten; the other referents keep the
-        original bytes."""
-        b = int(row) // self.page_size
-        if b >= int(self.n_blocks[slot]):
-            return
-        old = int(self.tables[slot, b])
-        if self.refcount[old] <= 1:
-            return
-        new = self._alloc_page()
-        copy_fn(old, new)
-        self.refcount[old] -= 1  # > 1 before, so never frees
-        self.tables[slot, b] = new
+        before it is (partly) rewritten; the other referents (slots, the
+        tree) keep the original bytes."""
+        with self._mu:
+            b = int(row) // self.page_size
+            if b >= int(self.n_blocks[slot]):
+                return
+            old = int(self.tables[slot, b])
+            if self.refcount[old] <= 1:
+                return
+            new = self._alloc_page()
+            copy_fn(old, new)
+            self.refcount[old] -= 1  # > 1 before, so never frees
+            self.tables[slot, b] = new
 
     def cow_writable(self, slot: int, start_row: int, end_row: int, copy_fn) -> bool:
         """Copy-on-write every SHARED block of `slot` covering rows
         [start_row, end_row) before a decode writes there. Returns True when
         a page was split (the block tables changed)."""
-        first = int(start_row) // self.page_size
-        last = min(self.blocks_for(end_row), int(self.n_blocks[slot]))
-        changed = False
-        for b in range(first, last):
-            if self.refcount[int(self.tables[slot, b])] > 1:
-                self.ensure_writable(slot, b * self.page_size, copy_fn)
-                changed = True
-        return changed
+        with self._mu:
+            first = int(start_row) // self.page_size
+            last = min(self.blocks_for(end_row), int(self.n_blocks[slot]))
+            changed = False
+            for b in range(first, last):
+                if self.refcount[int(self.tables[slot, b])] > 1:
+                    self.ensure_writable(slot, b * self.page_size, copy_fn)
+                    changed = True
+            return changed
 
     def share_prefix(self, src: int, dst: int, rows: int, copy_fn) -> None:
         """Make dst's first `rows` rows alias src's pages: full pages are
         refcounted (no copy), a partial boundary page is cloned into a fresh
         page (its tail diverges at once). Drops whatever dst held."""
-        self.free_tail(dst, 0)
-        full, part = divmod(int(rows), self.page_size)
-        for b in range(full):
-            p = int(self.tables[src, b])
-            self.refcount[p] += 1
-            self.tables[dst, b] = p
-        self.n_blocks[dst] = full
-        if part:
-            new = self._alloc_page()
-            copy_fn(int(self.tables[src, full]), new)
-            self.tables[dst, full] = new
-            self.n_blocks[dst] = full + 1
+        with self._mu:
+            self.free_tail(dst, 0)
+            full, part = divmod(int(rows), self.page_size)
+            for b in range(full):
+                p = int(self.tables[src, b])
+                self.refcount[p] += 1
+                self.tables[dst, b] = p
+            self.n_blocks[dst] = full
+            if part:
+                new = self._alloc_page()
+                copy_fn(int(self.tables[src, full]), new)
+                self.tables[dst, full] = new
+                self.n_blocks[dst] = full + 1
+
+    def adopt_prefix(self, slot: int, pages: list[int]) -> None:
+        """Point `slot`'s first blocks at `pages` BY REFERENCE, the radix
+        tree's mapping primitive: refcounts bump, no device copy (a shared
+        partial boundary page among `pages` is copy-on-written later by
+        prepare_admission, before its divergent rows are written). Drops
+        whatever the slot held."""
+        with self._mu:
+            self.free_tail(slot, 0)
+            for i, p in enumerate(pages):
+                self.refcount[p] += 1
+                self.tables[slot, i] = p
+            self.n_blocks[slot] = len(pages)
 
     def prepare_admission(self, slot: int, start: int, end: int, copy_fn) -> None:
         """Position `slot` for a prefill of rows [start, end): drop the dead
         tail past start, copy-on-write the boundary page when it is kept and
         shared, then allocate pages through `end`."""
-        self.free_tail(slot, start)
-        if start % self.page_size:
-            self.ensure_writable(slot, start, copy_fn)
-        self.grow(slot, end)
+        with self._mu:
+            self.free_tail(slot, start)
+            if start % self.page_size:
+                self.ensure_writable(slot, start, copy_fn)
+            self.grow(slot, end)
 
     def admission_deficit(self, slot: int, reuse: int, total_rows: int, cross: bool) -> int:
         """Pages the pool is SHORT for admitting a `total_rows` prompt into
         `slot` with `reuse` prefix rows resolved (`cross`: the prefix comes
         by share_prefix from another slot), one decode page in reserve. 0
         means the admission fits."""
-        req = self.blocks_for(total_rows) + 1  # +1 decode-page reserve
-        if cross:
-            kept = int(reuse) // self.page_size  # full shared blocks are free
-            avail = self.free_count + self._tail_refund(slot, 0)
-        else:
-            kept = min(int(self.n_blocks[slot]), self.blocks_for(reuse))
-            avail = self.free_count + self._tail_refund(slot, reuse)
-            b = int(reuse) // self.page_size
-            if (reuse % self.page_size and b < int(self.n_blocks[slot])
-                    and self.refcount[int(self.tables[slot, b])] > 1):
-                req += 1  # boundary copy-on-write page
-        return max(0, req - kept - avail)
+        with self._mu:
+            req = self.blocks_for(total_rows) + 1  # +1 decode-page reserve
+            if cross:
+                kept = int(reuse) // self.page_size  # full shared blocks are free
+                avail = self.free_count + self._tail_refund(slot, 0)
+            else:
+                kept = min(int(self.n_blocks[slot]), self.blocks_for(reuse))
+                avail = self.free_count + self._tail_refund(slot, reuse)
+                b = int(reuse) // self.page_size
+                if (reuse % self.page_size and b < int(self.n_blocks[slot])
+                        and self.refcount[int(self.tables[slot, b])] > 1):
+                    req += 1  # boundary copy-on-write page
+            return max(0, req - kept - avail)
 
     def _tail_refund(self, slot: int, keep_rows: int) -> int:
         """Pages free_tail(slot, keep_rows) would return to the free list."""
         keep = self.blocks_for(keep_rows)
         return sum(1 for b in range(keep, int(self.n_blocks[slot]))
                    if self.refcount[int(self.tables[slot, b])] == 1)
+
+
+class HostKVPool:
+    """Host-RAM KV spill tier behind :class:`PagePool` (``--kv-host-pages``):
+    a bounded LRU of page payloads keyed by the FULL token-id prefix the
+    page's rows encode. When radix eviction drops the last reference to a
+    cold page, the engine copies its KV rows device-to-host into this tier
+    instead of discarding them; a later admission whose prompt walks past
+    the tree's resident prefix copies matching pages back (restore-on-hit),
+    so a returning multi-turn chat re-prefills only its partial boundary
+    page. Keying by the token path, not the page id, keeps an entry
+    meaningful whatever page it is restored into.
+
+    The payloads live in ONE slab a tensor, K and V each
+    [n_pages, L, H_kv, page, head] of the cache's dtype, made at
+    construction (pinned on a CUDA engine: a copy into it is asynchronous,
+    and a fresh pinned allocation a spill would cost milliseconds). An
+    entry is a slab row and the event recorded after the copy into it:
+    the copies run in stream order with the chunks, so the host never
+    waits for them, and reads a row's bytes (``read``) only after its
+    event. Shares the pool's reentrant lock: spills run under radix
+    eviction, restores under admission lookup, and audit_problems() under
+    PagePool.audit()."""
+
+    def __init__(self, n_pages: int, page_size: int, mu, page_shape: tuple, dtype,
+                 pin: bool = False):
+        if n_pages < 1:
+            raise ValueError(f"kv_host_pages={n_pages}: the host tier needs at least one "
+                             "page slot")
+        self.n_pages = int(n_pages)
+        self.page_size = int(page_size)
+        self._mu = mu
+        self.k = torch.empty((self.n_pages, *page_shape), dtype=dtype, pin_memory=pin)
+        self.v = torch.empty((self.n_pages, *page_shape), dtype=dtype, pin_memory=pin)
+        # token-path key (len % page_size == 0; the last page_size ids are
+        # the page's rows) -> (slab row, event after the copy into it)
+        self._entries: OrderedDict[tuple, tuple[int, object]] = OrderedDict()
+        self._free: list[int] = list(range(self.n_pages - 1, -1, -1))
+        # cumulative accounting
+        self.spilled = 0
+        self.restored = 0
+        self.dropped = 0  # LRU evictions of the host tier itself
+        self.discarded = 0  # spills lost to a copy error (the page is dropped)
+        self.spill_s = 0.0  # host seconds spent in put(), copies enqueued
+
+    @property
+    def used(self) -> int:
+        with self._mu:
+            return len(self._entries)
+
+    def put(self, key: tuple, write) -> bool:
+        """Admit one spilled page: take a free slab row (the coldest entry
+        makes room when the tier is full: losing ITS coldest page only
+        restores the discard for that prefix) and call ``write(k_row,
+        v_row)``, which queues the copies into it and returns the event
+        recorded after them (None where copies are synchronous). A copy
+        error gives the row back and counts a discard; returns False."""
+        t0 = time.perf_counter()
+        with self._mu:
+            key = tuple(int(t) for t in key)
+            old = self._entries.pop(key, None)
+            if old is not None:
+                self._free.append(old[0])
+            if not self._free:
+                _, (row, _) = self._entries.popitem(last=False)
+                self._free.append(row)
+                self.dropped += 1
+            row = self._free.pop()
+            try:
+                event = write(self.k[row], self.v[row])
+            except Exception:  # a copy error: the page is discarded, and counted
+                log.exception("kv spill of a %d-token prefix failed; page discarded", len(key))
+                self._free.append(row)
+                self.discarded += 1
+                return False
+            self._entries[key] = (row, event)
+            self.spilled += 1
+            self.spill_s += time.perf_counter() - t0
+            return True
+
+    def peek(self, key: tuple) -> int | None:
+        """The slab row of `key` without removing it (restore copies first,
+        then commits the take)."""
+        with self._mu:
+            entry = self._entries.get(tuple(int(t) for t in key))
+            return None if entry is None else entry[0]
+
+    def take(self, key: tuple) -> None:
+        """Commit a restore: the page is device-resident (tree-owned) again,
+        so the host copy retires and its row is free (a later spill's copy
+        into the row runs after the restore's copy out of it, in stream
+        order)."""
+        with self._mu:
+            entry = self._entries.pop(tuple(int(t) for t in key), None)
+            if entry is not None:
+                self._free.append(entry[0])
+                self.restored += 1
+
+    def read(self, key: tuple) -> tuple[torch.Tensor, torch.Tensor] | None:
+        """Host copies of `key`'s K and V rows, after its copy's event (for
+        audits and tests: the serving path never reads the slab)."""
+        with self._mu:
+            entry = self._entries.get(tuple(int(t) for t in key))
+        if entry is None:
+            return None
+        row, event = entry
+        if event is not None:
+            event.synchronize()
+        return self.k[row].clone(), self.v[row].clone()
+
+    def clear(self) -> int:
+        with self._mu:
+            n = len(self._entries)
+            self._free.extend(row for row, _ in self._entries.values())
+            self._entries.clear()
+            return n
+
+    def stats(self) -> dict:
+        with self._mu:
+            return {"total": self.n_pages, "used": len(self._entries),
+                    "page_size": self.page_size, "spilled": self.spilled,
+                    "restored": self.restored, "dropped": self.dropped,
+                    "discarded": self.discarded, "spill_s": self.spill_s,
+                    "slab_bytes": 2 * self.k.numel() * self.k.element_size()}
+
+    def audit_problems(self) -> list[str]:
+        """Invariant recount for PagePool.audit(): capacity respected, keys
+        page-aligned, every slab row either free or held by exactly one
+        entry (a row in neither is a leaked host page), the slab's geometry
+        intact."""
+        with self._mu:
+            problems: list[str] = []
+            if len(self._entries) > self.n_pages:
+                problems.append(f"host tier holds {len(self._entries)} pages over its "
+                                f"{self.n_pages}-page capacity")
+            if any(not key or len(key) % self.page_size for key in self._entries):
+                problems.append(f"host tier key not page-aligned (page_size "
+                                f"{self.page_size})")
+            rows = [row for row, _ in self._entries.values()]
+            held, free = set(rows), set(self._free)
+            if len(held) != len(rows) or len(free) != len(self._free) or held & free:
+                problems.append("host tier slab row held twice (by two entries, or by an "
+                                "entry and the free list)")
+            leaked = set(range(self.n_pages)) - held - free
+            if leaked:
+                problems.append(f"leaked host pages (neither free nor held): "
+                                f"{sorted(leaked)[:8]}")
+            if any(not 0 <= r < self.n_pages for r in held | free):
+                problems.append(f"host tier row outside the slab [0, {self.n_pages})")
+            if self.k.shape[-2] != self.page_size or self.k.shape != self.v.shape:
+                problems.append("host tier slab geometry corrupt (expected K and V of "
+                                f"{self.page_size} rows a page)")
+            return problems
 
 
 def _set_row(dev: torch.Tensor, row: int, value: int) -> None:
@@ -376,6 +592,11 @@ class BatchEngine:
         kv_pages: int = 0,  # paged: pool size in pages; 0 = n_slots * seq_len / page_size
         device=None,  # default: the device the params lie on
         capture: bool | None = None,  # chunks as CUDA graphs (None: on a CUDA device)
+        radix_cache: str = "auto",  # 'auto' | 'on' | 'off': the radix prefix tree
+        # over the page pool; auto = on whenever the layout is paged
+        kv_host_pages: int = 0,  # host-RAM spill tier: page slots radix eviction
+        # copies cold pages into, restored on a prefix hit; 0 = off, > 0 needs
+        # the paged layout with the tree on (its token paths are the keys)
     ):
         if cache_dtype not in CACHE_DTYPES:
             raise ValueError(f"KV cache dtype {cache_dtype} is not one of {CACHE_DTYPES}")
@@ -405,6 +626,25 @@ class BatchEngine:
                                              cache_dtype, max_blocks, self.device)
         else:
             self.cache = KVCache.create(cfg, n_slots, cache_dtype, self.seq_len, self.device)
+        if radix_cache not in ("auto", "on", "off"):
+            raise ValueError(f"radix_cache must be auto|on|off, got {radix_cache!r}")
+        if radix_cache == "on" and self.pool is None:
+            raise ValueError("--radix-cache on requires the paged KV layout (the tree's "
+                             "nodes own page-pool references)")
+        self.radix: RadixCache | None = None
+        if self.pool is not None and radix_cache != "off":
+            self.radix = RadixCache(self.pool)
+        self.kv_host_pages = int(kv_host_pages)
+        if self.kv_host_pages > 0:
+            if self.radix is None:
+                raise ValueError("kv_host_pages > 0 requires the paged KV layout with the "
+                                 "radix cache on (host-tier pages are keyed by the tree's "
+                                 "token paths)")
+            self.pool.host = HostKVPool(
+                self.kv_host_pages, self.page_size, self.pool._mu,
+                (cfg.n_layers, cfg.n_kv_heads, self.page_size, cfg.head_size), cache_dtype,
+                pin=self.device.type == "cuda")
+            self.radix.spill = self._host_spill
         sel = resolve_kernels(cfg, kernels, self.device, paged=self.pool is not None,
                               page_size=self.page_size, cache_dtype=cache_dtype)
         self.mm, self.attn_fn = sel.mm, sel.attn_fn
@@ -545,8 +785,129 @@ class BatchEngine:
         return freed
 
     def kv_page_stats(self) -> dict | None:
-        """Pool occupancy for /health and latency_summary(); None on dense."""
-        return None if self.pool is None else self.pool.stats()
+        """Pool occupancy for /health and latency_summary(); None on dense.
+        Gains a "host" sub-dict with the spill tier on."""
+        if self.pool is None:
+            return None
+        st = self.pool.stats()
+        if self.pool.host is not None:
+            st["host"] = self.pool.host.stats()
+        return st
+
+    # ------------------------------------------------------ radix prefix api
+    # (engine/radix.RadixCache over the page pool; the serving scheduler is
+    # their only caller, and they are no-ops or zeros with the tree off)
+
+    def radix_lookup(self, toks) -> tuple[int, object | None]:
+        """(reusable rows, hit handle) for `toks` against the tree; (0, None)
+        with the tree off. With the host tier on, a walk that ends short of
+        the prompt first grafts spilled pages back (restore-on-hit, copies
+        host-to-device), then walks again."""
+        if self.radix is None:
+            return 0, None
+        hit = self.radix.lookup(toks)
+        host = self.pool.host
+        if host is not None and host.used and hit.rows < len(toks) - 1:
+            if self.radix.restore_prefix(toks, host.peek, self._host_restore_install,
+                                         host.take):
+                hit = self.radix.lookup(toks, count=False)
+        return hit.rows, hit
+
+    def radix_map(self, slot: int, hit) -> None:
+        """Map a lookup hit into `slot`: the matched full pages enter its
+        block table BY REFERENCE, and a partial boundary page is mapped
+        shared too; the following add_begin's prepare_admission
+        copy-on-writes it before any divergent row is written. Positions
+        the slot at the reused row count, as copy_prefix_rows does."""
+        if self.active[slot]:
+            raise ValueError(f"slot {slot} is busy")
+        pages = list(hit.pages) + ([hit.boundary] if hit.part else [])
+        self.pool.adopt_prefix(slot, pages)
+        self.pos[slot] = hit.rows
+        _set_row(self._pos_dev, slot, hit.rows)
+        self._vec_dirty = True
+
+    def radix_insert(self, slot: int, toks) -> int:
+        """Insert the full-page prefix of `toks` (rows already written in
+        `slot`: the prompt at commit, the emitted prefix at release) into
+        the tree; adopted pages gain a tree reference that outlives the
+        slot. Returns the pages adopted (0 with the tree off)."""
+        if self.radix is None or not len(toks):
+            return 0
+        full = min(len(toks) // self.page_size, int(self.pool.n_blocks[slot]))
+        if full <= 0:
+            return 0
+        return self.radix.insert(list(toks)[: full * self.page_size],
+                                 self.pool.tables[slot, :full])
+
+    def radix_evict(self, need: int, protect=None) -> int:
+        """Reclaim up to `need` pool pages from the tree (LRU leaves, coldest
+        first); `protect` pins an admission's matched path. Returns the
+        pages freed."""
+        return 0 if self.radix is None else self.radix.evict(need, protect)
+
+    def radix_admission_deficit(self, total_rows: int, reuse_rows: int) -> int:
+        """Pages SHORT for a radix admission of `total_rows` rows with
+        `reuse_rows` mapped from the tree (the slot is empty: the tree, not
+        idle slots, holds the cache), the decode reserve page included; the
+        boundary copy-on-write page costs what a fresh page would."""
+        pool = self.pool
+        with pool._mu:
+            full = int(reuse_rows) // self.page_size
+            return max(0, pool.blocks_for(total_rows) + 1 - full - pool.free_count)
+
+    def radix_stats(self) -> dict | None:
+        """Tree occupancy and cumulative hit accounting; None with the tree off."""
+        return None if self.radix is None else self.radix.stats()
+
+    # --------------------------------------------------- host KV spill tier
+
+    def _event(self):
+        """An event recorded on the engine's stream (None on the CPU, where
+        copies are synchronous)."""
+        if self.device.type != "cuda":
+            return None
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return event
+
+    @torch.no_grad()
+    def _host_spill(self, key: tuple, page: int) -> bool:
+        """RadixCache.spill hook, called under the pool lock right before an
+        evicted leaf's last-reference page is dropped: copy the page's KV
+        rows (every layer) device-to-host into the host tier, keyed by the
+        full token path. The copies are queued on the stream the programs
+        replay on, behind any chunk in flight, and the host does not wait
+        for them. A copy error discards the page (the tier counts it)."""
+
+        def write(k_row, v_row):
+            k_row.copy_(self.cache.k[:, page], non_blocking=True)
+            v_row.copy_(self.cache.v[:, page], non_blocking=True)
+            return self._event()
+
+        return self.pool.host.put(key, write)
+
+    @torch.no_grad()
+    def _host_restore_install(self, row: int) -> int | None:
+        """restore_prefix's install callback: allocate a pool page and copy
+        the host tier's slab row `row` into it (host-to-device, in stream
+        order). Returns the page the tree grafts, or None when the pool has
+        no free page (the suffix then prefills as before; the host copy
+        stays until take())."""
+        pool, host = self.pool, self.pool.host
+        with pool._mu:
+            if not pool._free:
+                return None
+            page = pool._alloc_page()
+        self.cache.k[:, page].copy_(host.k[row], non_blocking=True)
+        self.cache.v[:, page].copy_(host.v[row], non_blocking=True)
+        return page
+
+    def read_page(self, page: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Host copies of pool page `page`'s K and V rows [L, H_kv, page,
+        head] (audits and tests; waits for the work queued before it)."""
+        return (self.cache.k[:, page].to("cpu", copy=True),
+                self.cache.v[:, page].to("cpu", copy=True))
 
     # ------------------------------------------------------------------- api
 
@@ -694,6 +1055,41 @@ class BatchEngine:
             # the prompt); slots without penalties never read their row
             self._counts[slot] = 0
         return first
+
+    @torch.no_grad()
+    def resume_commit(self, adm: Admission, last_token: int, seed: int, counter: int,
+                      temperature: float = 0.8, topp: float = 0.9, presence: float = 0.0,
+                      frequency: float = 0.0, counted=None) -> None:
+        """Re-activate a slot for a resumed (preempted) request. The
+        admission re-prefilled the rows the request had written, prompt and
+        every emitted token but the last (a sampled token's row exists only
+        once it is fed back); this commit installs that last token as the
+        one to feed and the request's generator at (`seed`, `counter`) as
+        it stood at the interruption, WITHOUT sampling: the resumed stream's
+        next token is the one the uninterrupted run would have drawn.
+        `counted` (penalized requests) lists the tokens fed so far, whose
+        occurrence counts are rebuilt. Every device write is a one-row
+        in-place update, in stream order."""
+        if adm.off < len(adm.toks):
+            raise ValueError("admission not pumped")
+        slot = adm.slot
+        self.seeds[slot] = int(seed)
+        self.rng.reset(slot, int(seed), int(counter))
+        self.active[slot] = True
+        self.last_token[slot] = int(last_token)
+        self.temperature[slot] = temperature
+        self.topp[slot] = topp
+        self.presence[slot] = presence
+        self.frequency[slot] = frequency
+        self._vec_dirty = True
+        _set_row(self._last_dev, slot, int(last_token))
+        _set_row(self._pos_dev, slot, self.pos[slot])
+        if presence or frequency:
+            self._ensure_counts()
+            row = np.zeros((1, self.cfg.vocab_size), np.int32)
+            if counted:
+                np.add.at(row[0], np.asarray(counted, np.int64), 1)
+            self._counts[slot : slot + 1].copy_(self._pinned(row), non_blocking=True)
 
     def add(self, slot: int, prompt_tokens, temperature: float = 0.8, topp: float = 0.9,
             start_pos: int = 0, seed: int | None = None, presence: float = 0.0,

@@ -15,9 +15,12 @@ previous request's chat history is kept with its KV-cache position; when a
 new request's messages extend the cached ones, only the delta is encoded and
 prefilled. Requests are serialized with a lock because one engine owns the
 KV cache, as the reference is single-request. On the batched tier the
-scheduler's per-slot prefix cache does the same at the token level, for many
-conversations at once. The JSON and SSE bodies are those of the JAX
-package's tiers; a full admission queue answers 429 with Retry-After.
+scheduler's radix prefix tree over the page pool (or, on the dense layout
+and with ``--radix-cache off``, its per-slot prefix cache) does the same at
+the token level, for many conversations at once, and a request's
+``priority`` and ``tenant`` steer its admission. The JSON and SSE bodies
+are those of the JAX package's tiers; a full admission queue answers 429
+with Retry-After.
 """
 
 from __future__ import annotations
@@ -112,24 +115,52 @@ def _parse_spec_k(body: dict) -> int | None:
     return v
 
 
-def _validate_extras(body: dict) -> None:
-    """Fields the batched tier accepts inert (priority, tenant) and spec_k:
-    validated like the JAX package validates them, so a malformed one is a
-    400."""
-    _parse_spec_k(body)
-    p = body.get("priority")
-    if p is not None:
-        names = {"low", "normal", "high"}
-        try:
-            ok = p in names if isinstance(p, str) else 0 <= int(p) <= 2
-        except (TypeError, ValueError):
-            ok = False
-        if not ok:
-            raise ApiError(400, "priority must be an integer 0..2 or one of "
-                                "low|normal|high")
-    t = body.get("tenant")
-    if t is not None and (not isinstance(t, str) or len(t) > 64):
+#: named priority classes the `priority` body field accepts beside the
+#: integers (0 low, 1 normal, 2 high)
+PRIORITY_NAMES = {"low": 0, "normal": 1, "high": 2}
+
+
+def _parse_priority(body: dict) -> int:
+    """Scheduling class: `priority` in the body, 0/'low', 1/'normal' (the
+    default) or 2/'high'. On the batched tier a higher class admits
+    strictly first and (with --preempt) may suspend a running lower-class
+    request at a chunk boundary; the single-engine tier serves one request
+    at a time and only validates it."""
+    v = body.get("priority")
+    if v is None:
+        return 1
+    msg = "priority must be an integer 0..2 or one of low|normal|high"
+    if isinstance(v, str):
+        if v not in PRIORITY_NAMES:
+            raise ApiError(400, msg)
+        return PRIORITY_NAMES[v]
+    try:
+        v = int(v)
+    except (TypeError, ValueError):
+        raise ApiError(400, msg) from None
+    if not 0 <= v <= 2:
+        raise ApiError(400, msg)
+    return v
+
+
+def _parse_tenant(body: dict) -> str:
+    """Fair-queueing key: `tenant` in the body. Requests of one tenant share
+    one weighted-fair-queue lane at admission ("" = the shared tenant;
+    weights from --tenant-weight)."""
+    v = body.get("tenant")
+    if v is None:
+        return ""
+    if not isinstance(v, str) or len(v) > 64:
         raise ApiError(400, "tenant must be a string of at most 64 chars")
+    return v
+
+
+def _validate_extras(body: dict) -> None:
+    """spec_k, priority and tenant, validated as the JAX package validates
+    them, so a malformed one is a 400 before any header goes out."""
+    _parse_spec_k(body)
+    _parse_priority(body)
+    _parse_tenant(body)
 
 
 @dataclass
@@ -296,7 +327,8 @@ class ApiServer:
                  presence=float(body.get("presence_penalty") or 0.0),
                  frequency=float(body.get("frequency_penalty") or 0.0),
                  seed=body.get("seed", self.defaults["seed"]), timeout_s=timeout_s,
-                 spec_k=_parse_spec_k(body))
+                 spec_k=_parse_spec_k(body), priority=_parse_priority(body),
+                 tenant=_parse_tenant(body))
         if legacy:
             p["prompt_tokens"] = self.tokenizer.encode(self._normalize_legacy_prompt(body),
                                                        add_bos=True)
@@ -421,7 +453,7 @@ class ApiServer:
             prompt_tokens, p["temperature"], p["topp"], budget, self.tokenizer.eos_ids,
             presence=p["presence"], frequency=p["frequency"],
             seed=int(seed) if seed is not None else None, req_id=req_id,
-            timeout_s=p["timeout_s"])
+            timeout_s=p["timeout_s"], priority=p["priority"], tenant=p["tenant"])
 
     def finish_batched(self, req, ended_on_eos: bool, n_generated: int) -> tuple[str, dict]:
         """Release a batched request's slot and derive the client's
@@ -703,10 +735,14 @@ class _Handler(RequestRoutes, BaseHTTPRequestHandler):
 def make_server(loaded, host="127.0.0.1", port=0, n_slots: int = 0, **defaults):
     """-> (server, api) on a ThreadingHTTPServer. n_slots > 0 is the
     continuous-batching tier: a BatchEngine with that many cache slots behind
-    a Scheduler. n_slots == 0 keeps the single-engine tier with the
-    NaiveCache prefix reuse, and ``spec`` > 0 (--spec) its speculative
-    decoding of greedy requests. Batched speculation (spec with n_slots > 0)
-    and the aio front end are not yet ported and raise."""
+    a Scheduler, with the radix prefix tree on the paged layout
+    (``radix_cache``, auto = on where paged), the host-RAM spill tier
+    (``kv_host_pages``), preemption (``preempt``, auto = on) and tenant
+    weights (``tenant_weights``), the JAX package's defaults. n_slots == 0
+    keeps the single-engine tier with the NaiveCache prefix reuse, and
+    ``spec`` > 0 (--spec) its speculative decoding of greedy requests.
+    Batched speculation (spec with n_slots > 0) and the aio front end are
+    not yet ported and raise."""
     spec = int(defaults.get("spec") or 0)
     if spec > 0 and n_slots > 0:
         raise NotImplementedError("batched speculative decoding (--spec with --slots > 0) "
@@ -718,13 +754,22 @@ def make_server(loaded, host="127.0.0.1", port=0, n_slots: int = 0, **defaults):
     if n_slots <= 0 and defaults.get("warmup") not in (None, "off"):
         log.warning("--warmup needs --slots > 0; the single-engine tier has no "
                     "BatchEngine shape contract to precompile — ignored")
+    if n_slots <= 0 and defaults.get("radix_cache") == "on":
+        log.warning("--radix-cache on needs --slots > 0; the single-engine tier's "
+                    "NaiveCache has no page pool to share — ignored")
+    if n_slots <= 0 and defaults.get("kv_host_pages"):
+        log.warning("--kv-host-pages needs --slots > 0; the single-engine tier has no "
+                    "page pool to spill from — ignored")
     if n_slots <= 0 and (defaults.get("prefill_budget") not in (None, "auto")
+                         or defaults.get("preempt") not in (None, "auto")
+                         or defaults.get("tenant_weights")
                          or any(defaults.get(k) is not None
                                 for k in ("admit_stall_budget_ms", "admit_ttft_deadline_ms",
                                           "slo_itl_ms"))):
         log.warning("--prefill-budget / --admit-budget-ms / --admit-ttft-deadline-ms / "
-                    "--slo-itl-ms need --slots > 0; the single-engine tier serves one "
-                    "request at a time and has no admission scheduler — ignored")
+                    "--slo-itl-ms / --preempt / --tenant-weight need --slots > 0; the "
+                    "single-engine tier serves one request at a time and has no admission "
+                    "scheduler — ignored (priority/tenant body fields are validated only)")
     scheduler = None
     if n_slots > 0:
         scheduler = _make_scheduler(loaded, n_slots, defaults)
@@ -777,10 +822,25 @@ def _make_scheduler(loaded, n_slots: int, defaults: dict):
     kv_layout, page_size = resolve_kv_layout(loaded, defaults.get("kv_layout") or "auto",
                                              defaults.get("page_size") or 128)
     eng = loaded.engine
+    # an explicit --radix-cache on (or --kv-host-pages) against a layout that
+    # cannot carry it warns and serves without it, as the JAX package's
+    # make_server does; BatchEngine raises only on a direct library misuse
+    radix_cache = str(defaults.get("radix_cache") or "auto")
+    if radix_cache == "on" and kv_layout == "dense":
+        log.warning("--radix-cache on requires the paged KV layout; this engine resolved "
+                    "dense — the per-slot prefix cache serves instead")
+        radix_cache = "off"
+    kv_host_pages = int(defaults.get("kv_host_pages") or 0)
+    if kv_host_pages > 0 and (kv_layout != "paged" or radix_cache == "off"):
+        log.warning("--kv-host-pages requires the paged KV layout with the radix cache on; "
+                    "this engine resolved %s/radix=%s — the host spill tier stays off",
+                    kv_layout, radix_cache)
+        kv_host_pages = 0
     be = BatchEngine(loaded.config, eng.params, n_slots=n_slots, cache_dtype=eng.cache.k.dtype,
                      max_seq_len=eng.seq_len, max_prefill_chunk=eng.max_prefill_chunk,
                      kernels=eng.backend, kv_layout=kv_layout, page_size=page_size,
-                     kv_pages=int(defaults.get("kv_pages") or 0), device=eng.device)
+                     kv_pages=int(defaults.get("kv_pages") or 0), device=eng.device,
+                     radix_cache=radix_cache, kv_host_pages=kv_host_pages)
     sched_kw = {}
     if defaults.get("max_queue"):
         sched_kw["max_queue"] = int(defaults["max_queue"])
@@ -789,7 +849,7 @@ def _make_scheduler(loaded, n_slots: int, defaults: dict):
     if defaults.get("warmup"):
         sched_kw["warmup"] = str(defaults["warmup"])
     for key in ("prefill_budget", "admit_stall_budget_ms", "admit_ttft_deadline_ms",
-                "slo_itl_ms"):
+                "slo_itl_ms", "preempt", "tenant_weights"):
         if defaults.get(key) is not None:
             sched_kw[key] = defaults[key]
     return Scheduler(be, **sched_kw)

@@ -14,12 +14,34 @@ one-chunk overrun: the in-flight chunk keeps decoding a finished slot, its
 tokens are discarded at consumption, and release(keep_rows=) rewinds the slot
 to the truly emitted prefix.
 
-**Prefix reuse** is the per-slot prefix cache (the batched NaiveCache,
-dllama-api.cpp:264-309): released slots keep their KV rows and the token
-history that produced them; admission matches a new prompt against every
-slot's history at the token level and prefills only the delta, copying a
-longer prefix from another slot first when one holds it (on the paged layout
-by sharing its pages).
+**Radix prefix cache** (engine/radix.py; the paged default, as in the JAX
+package): a GLOBAL radix tree over the KV page pool is the prefix cache.
+Admission walks the tree and maps the longest shared prefix by refcount
+(with the host tier on, spilled pages are copied back first), commit
+inserts the prompt's full pages at once, so concurrent requests sharing a
+system prompt hit it while the first still decodes, and release inserts the
+emitted prefix and hands every page of the slot back: idle slots stay
+empty. Page pressure evicts LRU tree leaves before a request defers.
+
+**Per-slot prefix reuse** (the dense layout and ``radix_cache="off"``): the
+batched NaiveCache (dllama-api.cpp:264-309). Released slots keep their KV
+rows and the token history that produced them; admission matches a new
+prompt against every slot's history at the token level and prefills only
+the delta, copying a longer prefix from another slot first when one holds
+it (on the paged layout by sharing its pages).
+
+**Admission policy**: arrivals move from the thread-safe intake queue into a
+backlog, picked by priority class first (``priority`` 0 low, 1 normal, 2
+high), then by weighted fair queueing across tenants within a class
+(start-time fair queueing: each admission charges its tenant
+(prompt + max_tokens) / weight of virtual time, ``tenant_weights``), FIFO
+within a tenant. **Preempt-to-pages** (``preempt``, on by default): at a
+settled chunk boundary, when a strictly higher-priority request waits and is
+blocked (no free slot, or its pages), the lowest-priority running request
+is suspended: its written prefix enters the tree (or stays in its slot's
+rows on dense), and it parks in the backlog with its resume record (emitted
+tokens, generator seed and counter). Its resume re-prefills only what the
+tree does not hold and continues the stream exactly where it stopped.
 
 **Hybrid chunked prefill** (``prefill_budget``, ``--prefill-budget``; the
 JAX package's default): while a request is admitting and others decode,
@@ -104,6 +126,22 @@ class Request:
     # running ones finish with finish_reason="timeout" at a chunk boundary
     timeout_s: float | None = None
     deadline_at: float | None = None
+    # scheduling class and tenant: `priority` (0 low, 1 normal, 2 high)
+    # picks strictly between classes at admission and makes a running
+    # lower-class request preemptible by a higher-class waiter; `tenant`
+    # keys the weighted fair queue within a class ("" = the shared tenant)
+    priority: int = 1
+    tenant: str = ""
+    # True between a boundary suspension and the commit that resumes it
+    preempted: bool = False
+    # the WFQ charge is paid once a request, not again at its resume
+    wfq_charged: bool = False
+    # resume record (preemption): the tokens already emitted (all but the
+    # last re-prefill; the last is fed next) and the slot's generator
+    # state at the interruption (the request's seed and counter)
+    resume_tokens: list[int] | None = None
+    resume_seed: int = 0
+    resume_counter: int = 0
     # latency marks (time.monotonic)
     submitted_at: float = 0.0
     admitted_at: float | None = None
@@ -171,7 +209,8 @@ class Scheduler:
                  warmup: str = "off", prefill_budget="auto",
                  admit_stall_budget_ms: float = 250.0,
                  admit_ttft_deadline_ms: float | None = None,
-                 slo_itl_ms: float | None = None):
+                 slo_itl_ms: float | None = None, preempt: str = "auto",
+                 tenant_weights: dict[str, float] | None = None):
         self.engine = engine
         # overlapped decode pipeline (--overlap): launch chunk N+1 off chunk
         # N's device state BEFORE consuming chunk N's tokens, so the per-chunk
@@ -182,6 +221,15 @@ class Scheduler:
         # wait (the API tier answers 429 + Retry-After); 0 = unbounded
         self.max_queue = int(max_queue)
         self.pending: queue.Queue[Request] = queue.Queue()
+        # the policy backlog: the worker moves `pending` (the thread-safe
+        # intake) here at each admission pass and picks by priority class,
+        # then by tenant WFQ virtual time, then FIFO; preempted requests
+        # park here too until priority and capacity let them resume
+        self._backlog: list[Request] = []
+        # per-tenant WFQ finish tags and the global virtual clock
+        self._tenant_vt: dict[str, float] = {}
+        self._vt_now = 0.0
+        self.tenant_weights = dict(tenant_weights or {})
         # capacity-aware admission (paged layout): the head request the pool
         # cannot cover yet waits here; later requests wait behind it
         self._deferred: Request | None = None
@@ -193,6 +241,9 @@ class Scheduler:
         # key); len(slot_tokens[s]) == engine.pos[s] for idle slots
         self.slot_tokens: dict[int, list[int]] = {}
         self.reused_prefix_tokens = 0  # prompt tokens served from the cache
+        # the radix tree (paged layout, radix_cache on): when the engine has
+        # one, it replaces the per-slot scan as the reuse mechanism
+        self._radix = engine.radix
         # decode-to-decode gaps that admission work inserted, and the host
         # gap between one chunk's tokens and the next dispatch
         self._admit_gaps_ms: list[float] = []
@@ -236,6 +287,12 @@ class Scheduler:
             self._budget_now = max(1, int(prefill_budget))
         self.hybrid_chunks = 0  # decode chunks that carried a prefill slice
         self.hybrid_tokens = 0  # prompt tokens those slices prefilled
+        # preempt-to-pages: "auto" = on, as in the JAX package
+        if preempt not in ("auto", "on", "off"):
+            raise ValueError(f"preempt must be auto|on|off, got {preempt!r}")
+        self._preempt_on = preempt != "off"
+        self.preempt_count = 0
+        self.resume_count = 0
         # --warmup auto: capture every program this scheduler can ask for
         # (decode n in 1..DECODE_CHUNK, every prefill width, which covers
         # the hybrid slices) BEFORE the worker starts, so the first request
@@ -257,11 +314,13 @@ class Scheduler:
 
     def submit(self, prompt, temperature, topp, max_tokens, eos_ids, seed: int | None = None,
                presence: float = 0.0, frequency: float = 0.0, req_id: str = "",
-               timeout_s: float | None = None) -> Request:
+               timeout_s: float | None = None, priority: int = 1,
+               tenant: str = "") -> Request:
         self.check_admission()
         req = Request(list(prompt), float(temperature), float(topp), int(max_tokens),
                       frozenset(eos_ids), seed=seed, presence=float(presence),
-                      frequency=float(frequency), submitted_at=time.monotonic(), req_id=req_id)
+                      frequency=float(frequency), submitted_at=time.monotonic(), req_id=req_id,
+                      priority=int(priority), tenant=str(tenant))
         if timeout_s is not None and timeout_s > 0:
             req.timeout_s = float(timeout_s)
             req.deadline_at = req.submitted_at + req.timeout_s
@@ -286,15 +345,17 @@ class Scheduler:
             raise QueueFull(f"admission queue full ({depth} >= --max-queue {self.max_queue})")
 
     def _queue_depth(self) -> int:
-        """Requests owed service but not admitted yet: the intake queue and
+        """Requests owed service but not admitted yet: the intake queue, the
+        policy backlog (preempted requests awaiting resume included) and
         the capacity-deferred head (one definition for /health and the
         --max-queue bound)."""
-        return self.pending.qsize() + (1 if self._deferred is not None else 0)
+        return (self.pending.qsize() + len(self._backlog)
+                + (1 if self._deferred is not None else 0))
 
     def _busy(self) -> bool:
         """Whether the worker owes anyone progress."""
         return (bool(self.slots) or bool(self._inflight) or self._deferred is not None
-                or not self.pending.empty() or self._busy_worker)
+                or bool(self._backlog) or not self.pending.empty() or self._busy_worker)
 
     def health(self) -> dict:
         """Liveness + readiness for the API tier's /health: `live` is false
@@ -315,6 +376,10 @@ class Scheduler:
             "admission_deferred": self._deferred is not None,
             # the live hybrid prefill budget a chunk (0 = phase-split admission)
             "prefill_budget": self._budget_now,
+            # preemption: lifetime totals, and suspended requests awaiting resume
+            "preemptions": self.preempt_count,
+            "resumed": self.resume_count,
+            "preempted_waiting": sum(1 for r in list(self._backlog) if r.preempted),
             "last_step_age_s": round(time.monotonic() - self._heartbeat, 3),
             "draining": self._draining.is_set(),
             "crashed": repr(self.crashed) if self.crashed is not None else None,
@@ -323,9 +388,11 @@ class Scheduler:
 
     def drain(self, timeout_s: float = 30.0) -> bool:
         """Graceful drain: stop admission (submit raises SchedulerDraining),
-        let running and queued requests finish, shut down, return the idle
-        slots' cached pages and audit the page pool. True when everything
-        completed inside the timeout."""
+        let running and queued requests finish, shut down and audit the page
+        pool with the radix tree (and host tier) intact; then return the
+        cached pages, the idle slots' and the tree's, so a clean drain
+        leaves every page free. True when everything completed inside the
+        timeout."""
         self._draining.set()
         self._wake.set()
         deadline = time.monotonic() + max(0.0, timeout_s)
@@ -342,16 +409,23 @@ class Scheduler:
                         "in flight; shutting down anyway", timeout_s, len(self.slots),
                         len(self._inflight), self.pending.qsize())
         self.shutdown()
-        if self.engine.pool is not None:
+        pool = self.engine.pool
+        if pool is not None:
+            report = pool.audit(raise_on_fail=False)
+            if not report["ok"]:
+                log.error("kv page-pool audit FAILED at drain: %s", "; ".join(report["problems"]))
             if not self._thread.is_alive():
                 # nothing is served after a drain: the idle slots' cached
-                # prefixes go back too, so a clean drain leaves every page free
+                # prefixes and the tree's pages go back too
                 for s in np.flatnonzero(~self.engine.active):
                     self.engine.drop_slot_pages(int(s))
                     self.slot_tokens[int(s)] = []
-            report = self.engine.pool.audit(raise_on_fail=False)
-            if not report["ok"]:
-                log.error("kv page-pool audit FAILED at drain: %s", "; ".join(report["problems"]))
+                if self._radix is not None:
+                    self._radix.clear()
+                report = pool.audit(raise_on_fail=False)
+                if not report["ok"]:
+                    log.error("kv page-pool audit FAILED after returning the cached pages: "
+                              "%s", "; ".join(report["problems"]))
         return clean
 
     def latency_summary(self) -> dict:
@@ -382,6 +456,9 @@ class Scheduler:
             "decode_chunks": self.chunks,
             "decode_slots_mean": self.chunk_slots / self.chunks if self.chunks else None,
             "kv_pages": self.engine.kv_page_stats(),
+            # radix prefix-cache accounting (None with the tree off or dense):
+            # hit_tokens is the prefill rows the tree saved
+            "radix": self.engine.radix_stats(),
             "hybrid": {
                 "mode": ("off" if not self._hybrid_on
                          else "auto" if self._budget_ctl is not None else "fixed"),
@@ -389,6 +466,9 @@ class Scheduler:
                 "chunks": self.hybrid_chunks,
                 "tokens": self.hybrid_tokens,
             },
+            # preempt-to-pages: lifetime suspensions and resumes
+            "preemptions": self.preempt_count,
+            "resumed": self.resume_count,
         }
 
     def cancel(self, req: Request, reason: str = "cancelled") -> None:
@@ -414,13 +494,24 @@ class Scheduler:
 
     def _finish(self, req: Request, reason: str, keep_rows: int | None = None) -> None:
         if req.slot >= 0:
-            self.engine.release(req.slot, keep_rows)
-            if keep_rows is not None:
-                # only the first keep_rows tokens have live KV rows (the last
-                # emitted token was sampled but never fed back)
-                self.slot_tokens[req.slot] = self.slot_tokens.get(req.slot, [])[:keep_rows]
+            if self._radix is not None:
+                # the tree is the cache: insert the emitted prefix (its full
+                # pages gain a tree reference), then hand every page of the
+                # slot back. keep_rows=None means the rows are unspecified
+                # (error paths): nothing enters the tree.
+                if keep_rows:
+                    self.engine.radix_insert(
+                        req.slot, self.slot_tokens.get(req.slot, [])[:keep_rows])
+                self.engine.release(req.slot, None)
+                self.slot_tokens[req.slot] = []
             else:
-                self.slot_tokens[req.slot] = []  # unknown state: never reuse
+                self.engine.release(req.slot, keep_rows)
+                if keep_rows is not None:
+                    # only the first keep_rows tokens have live KV rows (the
+                    # last emitted token was sampled but never fed back)
+                    self.slot_tokens[req.slot] = self.slot_tokens.get(req.slot, [])[:keep_rows]
+                else:
+                    self.slot_tokens[req.slot] = []  # unknown state: never reuse
             self.slots.pop(req.slot, None)
             req.slot = -1
         req.finish_reason = req.finish_reason or reason
@@ -493,6 +584,14 @@ class Scheduler:
         lens = np.cumprod(hit, axis=1).sum(axis=1)  # leading run of matches
         return {s: int(n) for s, n in zip(donors, lens)}
 
+    def _reclaim_pages(self, needed: int) -> bool:
+        """Free KV pages for the all-starved decode rescue: LRU tree leaves
+        when the tree is the cache, idle slots' kept pages otherwise. True
+        when anything came free."""
+        if self._radix is not None:
+            return self.engine.radix_evict(needed) > 0
+        return self._evict_idle_pages(needed, set())
+
     def _evict_idle_pages(self, needed: int, exclude: set) -> bool:
         """Paged prefix-cache reclaim: drop idle slots' cached pages
         (smallest caches first) until `needed` pages came free, then stop.
@@ -535,36 +634,179 @@ class Scheduler:
                 keep = [r for r in q if not expired(r)]
                 q.clear()
                 q.extend(keep)
+        if any(expired(r) for r in self._backlog):
+            # preempted requests whose deadline passed while suspended too
+            # (a clean 'timeout' finish; their emitted tokens stand)
+            dead.extend(r for r in self._backlog if expired(r))
+            self._backlog = [r for r in self._backlog if not expired(r)]
         if self._deferred is not None and expired(self._deferred):
             dead.append(self._deferred)
             self._deferred = None
         for req in dead:
             self._reject(req, "timeout")
 
-    def _admit_starts(self) -> None:
-        """Move pending requests into in-flight admissions while slots allow.
+    # ------------------------------------------------------ admission policy
+
+    def _drain_pending(self) -> None:
+        """Move intake-queue arrivals into the policy backlog (worker side;
+        submit() keeps the thread-safe queue as its entry point)."""
+        while True:
+            try:
+                self._backlog.append(self.pending.get_nowait())
+            except queue.Empty:
+                return
+
+    def _tenant_weight(self, tenant: str) -> float:
+        return max(float(self.tenant_weights.get(tenant, 1.0)), 1e-6)
+
+    def _select_next(self) -> Request | None:
+        """Policy pick from the backlog: the highest priority class present;
+        within it the tenant with the smallest WFQ virtual time; within a
+        tenant, FIFO. Pops and returns the pick (None on an empty backlog)."""
+        if not self._backlog:
+            return None
+        best_i, best_key = 0, None
+        for i, r in enumerate(self._backlog):
+            key = (-int(r.priority), self._tenant_vt.get(r.tenant, 0.0), i)
+            if best_key is None or key < best_key:
+                best_key, best_i = key, i
+        return self._backlog.pop(best_i)
+
+    def _charge_tenant(self, req: Request) -> None:
+        """Start-time fair queueing charge at admission: the start tag is
+        max(the tenant's own finish tag, the virtual clock), the tenant's
+        finish tag advances by (prompt + max_tokens) / weight from there,
+        and the clock moves to the start tag. A tenant back from idle gets
+        one immediate pick and then competes from 'now' (idle time banks no
+        credit). Charged once a request: a resume was already paid for."""
+        if req.wfq_charged:
+            return
+        req.wfq_charged = True
+        own = self._tenant_vt.get(req.tenant, 0.0)
+        start = max(own, self._vt_now)
+        cost = len(req.prompt) + max(int(req.max_tokens), 1)
+        self._tenant_vt[req.tenant] = start + cost / self._tenant_weight(req.tenant)
+        self._vt_now = start
+
+    def _record_resume(self, req: Request, slot: int) -> bool:
+        """Stamp `req` with its resume record off `slot`'s settled state:
+        the emitted tokens, the request's seed and the slot's generator
+        counter, which equals the tokens emitted (one draw at commit, one a
+        decode step). False when the emit record disagrees (no trustworthy
+        resume)."""
+        emitted = self.slot_tokens.get(slot, [])[len(req.prompt):]
+        if req.produced < 1 or len(emitted) != req.produced:
+            return False
+        req.resume_tokens = list(emitted)
+        req.resume_seed = int(self.engine.seeds[slot])
+        req.resume_counter = req.produced
+        return True
+
+    def _preempt(self, req: Request, reason: str) -> bool:
+        """Suspend a RUNNING request at this settled boundary: record its
+        resume point, then release the slot while its written rows stay
+        referenced: the tree adopts their full pages (the resume maps them
+        back; only a partial boundary page re-prefills), and on the dense
+        layout the slot keeps its rows for the per-slot prefix cache. The
+        request parks in the backlog; the policy decides when it resumes.
+        False when it has no trustworthy resume record (it runs on)."""
+        slot = req.slot
+        if not self._record_resume(req, slot):
+            return False
+        req.preempted = True
+        rows = int(self.engine.pos[slot])
+        if self._radix is not None:
+            self.engine.radix_insert(slot, self.slot_tokens[slot][:rows])
+            self.engine.release(slot, None)
+            self.slot_tokens[slot] = []
+        else:
+            self.engine.release(slot, rows)
+            self.slot_tokens[slot] = self.slot_tokens.get(slot, [])[:rows]
+        self.slots.pop(slot, None)
+        req.slot = -1
+        self._backlog.append(req)
+        self.preempt_count += 1
+        log.info("preempted request %s (reason=%s, %d tokens emitted; its pages stay "
+                 "referenced)", req.req_id, reason, req.produced)
+        return True
+
+    def _maybe_preempt(self) -> None:
+        """Boundary preemption check: when a STRICTLY higher-priority
+        request waits and is blocked (no free slot: reason 'slot'; or the
+        capacity-deferred head out-ranks a runner: 'capacity'), suspend the
+        lowest-priority running request (the most recently admitted among
+        ties: the least work lost). At most one a boundary; admission in the
+        same pass reuses the freed slot and pages."""
+        if not self._preempt_on or not self.slots:
+            return
+        now = time.monotonic()
+        waiting = [r for r in self._backlog + ([self._deferred] if self._deferred else [])
+                   if not r.cancelled.is_set()
+                   and (r.deadline_at is None or now < r.deadline_at)]
+        if not waiting:
+            return
+        top = max(waiting, key=lambda r: int(r.priority))
+        victims = [r for r in self.slots.values()
+                   if int(r.priority) < int(top.priority) and not r.cancelled.is_set()]
+        if not victims:
+            return
+        reserved = {adm.slot for _, adm, _ in self._inflight}
+        free_slots = sum(1 for s in range(self.engine.n_slots)
+                         if not self.engine.active[s] and s not in reserved)
+        if free_slots <= 0:
+            reason = "slot"
+        elif (self._deferred is not None
+              and int(self._deferred.priority) >= int(top.priority)):
+            # a slot is free but the top waiter is parked on KV pages: the
+            # runner's release hands its pages to the tree, where admission
+            # reclaim can evict them
+            reason = "capacity"
+        else:
+            return
+        victim = min(victims, key=lambda r: (int(r.priority), -(r.admitted_at or 0.0)))
+        self._preempt(victim, reason)
+
+    def _admit_starts(self, boundary: bool = True) -> None:
+        """Move backlog requests, in policy order, into in-flight admissions
+        while slots allow. ``boundary=False`` is the overlapped loop's early
+        start (hybrid on, a chunk in flight): the admitting slot is inactive
+        in that chunk and every device write of the start lands after it in
+        stream order; preemption waits for a settled boundary (releasing a
+        running slot needs settled mirrors).
+
         Paged layout: capacity is FREE PAGES as well as free slots. A request
-        the pool cannot cover first reclaims idle slots' cached pages, and if
-        still short waits in `_deferred` until releases free pages."""
+        the pool cannot cover first reclaims cache (LRU tree leaves, the
+        matched path protected; or idle slots' kept pages without the tree),
+        and if still short waits in `_deferred` until releases free pages."""
+        self._drain_pending()
         self._shed_expired_queued()
+        if boundary:
+            self._maybe_preempt()
+        if (self._deferred is not None and self._backlog
+                and max(int(r.priority) for r in self._backlog) > int(self._deferred.priority)):
+            # a capacity-parked lower-priority head must not gate a higher-
+            # priority arrival: it rejoins the backlog (deferral holds no pages)
+            self._backlog.append(self._deferred)
+            self._deferred = None
         reserved = len(self._inflight)
-        while self._deferred is not None or not self.pending.empty():
+        while self._deferred is not None or self._backlog:
             if int((~self.engine.active).sum()) - reserved <= 0:
                 return
             if self._deferred is not None:
                 req, self._deferred = self._deferred, None
             else:
-                try:
-                    req = self.pending.get_nowait()
-                except queue.Empty:
-                    return
+                req = self._select_next()
+                self._charge_tenant(req)
             if req.cancelled.is_set():
                 self._reject(req, req.cancel_reason)
                 continue
             if req.deadline_at is not None and time.monotonic() >= req.deadline_at:
                 self._reject(req, "timeout")
                 continue
-            toks = req.prompt
+            # the rows to write: the prompt, and for a resume every emitted
+            # token but the last (it becomes the token fed next)
+            toks = (req.prompt if req.resume_tokens is None
+                    else req.prompt + req.resume_tokens[:-1])
             if len(toks) >= self.engine.seq_len:
                 self._reject(req, "error", ValueError(
                     f"prompt ({len(toks)}) exceeds seq_len {self.engine.seq_len}"))
@@ -577,23 +819,49 @@ class Scheduler:
                     f"prompt ({len(toks)}) needs {self.engine.min_pages_for(len(toks))} KV "
                     f"pages; the pool holds {pool.n_pages}"))
                 continue
-            slot, reuse, donor = self._pick_slot(toks)
-            cross = donor is not None and donor != slot and reuse > 0
-            deficit = self.engine.admission_deficit(slot, reuse, len(toks), cross)
-            if deficit > 0:
-                # reclaim just enough idle cache (keeping the destination and
-                # donor), then pick again: eviction may change the best donor
-                if self._evict_idle_pages(deficit, {slot, donor}):
-                    slot, reuse, donor = self._pick_slot(toks)
-                    cross = donor is not None and donor != slot and reuse > 0
+            rhit, cross = None, False
+            if self._radix is not None:
+                # the GLOBAL tree is the cache: any idle slot serves (all are
+                # empty), and a shortfall evicts LRU leaves, the matched path
+                # protected, before the request parks
+                taken = {adm.slot for _, adm, _ in self._inflight}
+                slot = next(s for s in range(self.engine.n_slots)
+                            if not self.engine.active[s] and s not in taken)
+                reuse, rhit = self.engine.radix_lookup(toks)
+                deficit = self.engine.radix_admission_deficit(len(toks), reuse)
+                if deficit > 0 and self.engine.radix_evict(deficit, rhit) > 0:
+                    deficit = self.engine.radix_admission_deficit(len(toks), reuse)
+                if deficit > 0 and not self.slots and not self._inflight:
+                    # nothing running will ever free a page, so what the pool
+                    # lacks is held by this admission's own matched path:
+                    # give up the reuse instead of waiting forever (the JAX
+                    # scheduler defers here and never admits)
+                    self.engine.radix_evict(self.engine.radix_admission_deficit(len(toks), 0))
+                    reuse, rhit = 0, None
+                    deficit = self.engine.radix_admission_deficit(len(toks), 0)
+            else:
+                slot, reuse, donor = self._pick_slot(toks)
+                cross = donor is not None and donor != slot and reuse > 0
                 deficit = self.engine.admission_deficit(slot, reuse, len(toks), cross)
+                if deficit > 0:
+                    # reclaim just enough idle cache (keeping the destination
+                    # and donor), then pick again: eviction may change the
+                    # best donor
+                    if self._evict_idle_pages(deficit, {slot, donor}):
+                        slot, reuse, donor = self._pick_slot(toks)
+                        cross = donor is not None and donor != slot and reuse > 0
+                    deficit = self.engine.admission_deficit(slot, reuse, len(toks), cross)
             if deficit > 0:
                 # every missing page is held by RUNNING requests: wait at the
                 # head until releases free them
                 self._deferred = req
                 return
             try:
-                if cross:
+                if rhit is not None and reuse:
+                    # map the tree prefix by refcount; add_begin's
+                    # prepare_admission copy-on-writes a partial boundary page
+                    self.engine.radix_map(slot, rhit)
+                elif cross:
                     self.engine.copy_prefix_rows(donor, slot, reuse)
                     self.slot_tokens[slot] = list(self.slot_tokens.get(donor, [])[:reuse])
                 adm = self.engine.add_begin(slot, toks[reuse:], start_pos=reuse,
@@ -623,13 +891,38 @@ class Scheduler:
 
     def _commit_admission(self, req: Request, adm, reuse: int) -> None:
         """Commit the HEAD in-flight admission (fully pumped): activate the
-        slot and emit the first token."""
+        slot and emit the first token, or for a preempted request install its
+        resume record (the last emitted token and the generator state) and
+        sample nothing; with the tree on, insert the written rows' full
+        pages at once."""
         self._inflight.pop(0)
+        if req.resume_tokens is not None:
+            self.engine.resume_commit(
+                adm, req.resume_tokens[-1], req.resume_seed, req.resume_counter,
+                req.temperature, req.topp, presence=req.presence, frequency=req.frequency,
+                counted=req.resume_tokens[:-1] if (req.presence or req.frequency) else None)
+            self.slot_tokens[adm.slot] = list(req.prompt) + list(req.resume_tokens)
+            self.slots[adm.slot] = req
+            if self._radix is not None:
+                if reuse:
+                    self._radix.note_served(reuse)
+                self.engine.radix_insert(adm.slot,
+                                         list(req.prompt) + list(req.resume_tokens[:-1]))
+            req.preempted = False
+            self.resume_count += 1
+            return
         first = self.engine.add_commit(adm, req.temperature, req.topp, seed=req.seed,
                                        presence=req.presence, frequency=req.frequency)
         self.reused_prefix_tokens += reuse
         self.slot_tokens[adm.slot] = list(req.prompt)
         self.slots[adm.slot] = req
+        if self._radix is not None:
+            # saved-prefill accounting at commit (rows really served), and
+            # the prompt's full pages enter the tree now: concurrent requests
+            # sharing it hit it while this one decodes
+            if reuse:
+                self._radix.note_served(reuse)
+            self.engine.radix_insert(adm.slot, req.prompt)
         self._emit(req, first, int(self.engine.pos[adm.slot]))
 
     def _overdue(self, req: Request) -> bool:
@@ -723,9 +1016,11 @@ class Scheduler:
     def _fail_all(self, exc: BaseException) -> None:
         """Fail every queue a client could be blocked on, without touching
         the engine (its state is unknown after a crash)."""
-        reqs = [r for r, _, _ in self._inflight] + list(self.slots.values())
+        reqs = ([r for r, _, _ in self._inflight] + list(self.slots.values())
+                + self._backlog)
         if self._deferred is not None:
             reqs.append(self._deferred)
+        self._backlog = []
         while True:
             try:
                 reqs.append(self.pending.get_nowait())
@@ -764,7 +1059,8 @@ class Scheduler:
         the TTFT-deadline override need settled state."""
         if self._stop.is_set():
             return True
-        if not self.slots or self._deferred is not None or not self.pending.empty():
+        if (not self.slots or self._deferred is not None or self._backlog
+                or not self.pending.empty()):
             return True
         if self._inflight:
             if not self._hybrid_now():
@@ -865,8 +1161,8 @@ class Scheduler:
                     self._busy_worker = True
                     if self._inflight:
                         self._commit_ready_inflight()
-                    if not self.pending.empty():
-                        self._admit_starts()
+                    if self._backlog or not self.pending.empty():
+                        self._admit_starts(boundary=False)
                     self._busy_worker = False
                 nxt = (None if self._needs_boundary(pending[0])
                        else self._dispatch_chunk(pipeline_empty=False))
@@ -891,7 +1187,7 @@ class Scheduler:
                 # will free a page, so finish the most advanced one
                 starved = self.engine.page_starved()
                 if starved.any() and all(starved[s] for s in self.slots):
-                    if not self._evict_idle_pages(len(self.slots), set()):
+                    if not self._reclaim_pages(len(self.slots)):
                         victim = max((s for s in self.slots if starved[s]),
                                      key=lambda s: int(self.engine.pos[s]))
                         log.warning("kv page pool exhausted with every active slot starved; "
@@ -924,6 +1220,8 @@ class Scheduler:
         if self._deferred is not None:
             cut.append(self._deferred)
             self._deferred = None
+        cut.extend(self._backlog)
+        self._backlog = []
         while True:
             try:
                 cut.append(self.pending.get_nowait())

@@ -1,12 +1,14 @@
 """The port's continuous-batching server against the JAX package's, over real
 sockets: both serve the golden `.m` with 3 slots on the paged KV cache at
-page 16, both with hybrid chunked prefill on (`prefill_budget="auto"`, the
-port's default) and the JAX server with its radix tree and preemption off,
-the configuration the port has. Concurrent temperature-0 chat requests,
-plain and SSE, must carry the same content on both; a second turn must reuse
-cached rows; a full admission queue answers 429 with Retry-After; after a
-drain the page pool audits clean with every page free. Port only: the
-scheduler's streams are the same dense and paged, overlap on and off."""
+page 16 with hybrid chunked prefill on (`prefill_budget="auto"`), in two
+pairs: with the radix tree and preemption off (the per-slot prefix cache),
+and at both packages' defaults (`radix_cache="auto"`, `preempt="auto"`: the
+tree on the page pool, preemption on). Concurrent temperature-0 chat
+requests, plain and SSE, must carry the same content on both servers of a
+pair; a second turn must reuse cached rows; a full admission queue answers
+429 with Retry-After; after a drain the page pool audits clean with every
+page free. Port only: the scheduler's streams are the same dense and paged,
+overlap on and off."""
 
 import http.client
 import json
@@ -49,8 +51,8 @@ def tpath(tmp_path_factory):
     return _tokenizer_path(tmp_path_factory)
 
 
-@pytest.fixture(scope="module")
-def servers(tpath):
+def _server_pair(tpath, **kw):
+    """(port server, api, JAX server) on the golden model, both at `kw`."""
     import jax.numpy as jnp
 
     from dllama_tpu.engine.loader import load_model as jax_load
@@ -59,11 +61,27 @@ def servers(tpath):
     from dllama_tpu_torch.serve.api import make_server
 
     httpd, api = make_server(load_model(FIXTURE_M, tpath, cache_dtype=torch.float32,
-                                        device="cpu"), **PAGED)
+                                        device="cpu"), **PAGED, **kw)
     jhttpd, _ = jax_server(jax_load(FIXTURE_M, tpath, mesh=None, cache_dtype=jnp.float32),
-                           frontend="threads", radix_cache="off", prefill_budget="auto",
-                           preempt="off", **PAGED)
+                           frontend="threads", prefill_budget="auto", **PAGED, **kw)
     _start(httpd), _start(jhttpd)
+    return httpd, api, jhttpd
+
+
+@pytest.fixture(scope="module")
+def servers(tpath):
+    httpd, api, jhttpd = _server_pair(tpath, radix_cache="off", preempt="off")
+    yield httpd.server_address[1], jhttpd.server_address[1], api
+    for h in (httpd, jhttpd):
+        _stop(h)
+    api.scheduler.shutdown()
+
+
+@pytest.fixture(scope="module")
+def default_servers(tpath):
+    """Both packages' defaults: the radix tree on the page pool, preemption on."""
+    httpd, api, jhttpd = _server_pair(tpath, radix_cache="auto", preempt="auto")
+    assert api.scheduler.engine.radix is not None and api.scheduler._preempt_on
     yield httpd.server_address[1], jhttpd.server_address[1], api
     for h in (httpd, jhttpd):
         _stop(h)
@@ -110,8 +128,7 @@ def _concurrently(fn, args_list):
     return out
 
 
-@pytest.mark.parametrize("stream", [False, True])
-def test_concurrent_requests_same_content_as_jax_server(servers, stream):
+def _concurrent_same_content(servers, stream):
     port, jax_port, api = servers
     chats = [[{"role": "user", "content": p}] for p in PROMPTS]
     got = _concurrently(_content, [(port, c, stream) for c in chats])
@@ -120,7 +137,27 @@ def test_concurrent_requests_same_content_as_jax_server(servers, stream):
     assert api.scheduler.engine.attn_route == "paged_gather"  # the kernel's plain version
 
 
+@pytest.mark.parametrize("stream", [False, True])
+def test_concurrent_requests_same_content_as_jax_server(servers, stream):
+    _concurrent_same_content(servers, stream)
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_concurrent_requests_same_content_as_jax_server_at_defaults(default_servers, stream):
+    _concurrent_same_content(default_servers, stream)
+
+
 def test_second_turn_reuses_rows(servers):
+    _second_turn(servers)
+
+
+def test_second_turn_reuses_rows_at_defaults(default_servers):
+    _second_turn(default_servers)
+    radix = default_servers[2].scheduler.latency_summary()["radix"]
+    assert radix["hit_tokens"] > 0 and radix["pages"] > 0
+
+
+def _second_turn(servers):
     port, jax_port, api = servers
     chat = [{"role": "user", "content": "hello world"}]
     first = _content(port, chat)

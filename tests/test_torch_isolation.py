@@ -86,19 +86,41 @@ def test_cli_on_the_cpu_when_asked(tmp_path):
 
 
 def test_unported_options_are_refused():
-    from dllama_tpu_torch.cli.main import main
+    import pytest
+
+    from dllama_tpu_torch.cli.main import _parse_tenant_weights, main
+    from dllama_tpu_torch.engine.batch import BatchEngine
+    from dllama_tpu_torch.engine.loader import load_model
 
     for flag in (["--mesh", "tp=2"],
                  ["--frontend", "aio"], ["--slots", "2", "--spec", "4"],
-                 ["--slots", "2", "--radix-cache", "on"],
-                 ["--slots", "2", "--preempt", "on"], ["--slots", "2", "--kv-host-pages", "8"],
-                 ["--slots", "2", "--tenant-weight", "a=2"],
                  ["--slots", "2", "--restart-max", "1"]):
         assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", *flag]) == 2, flag
     # the batched tier is ported: --slots passes the refusal and stops only
     # at the missing tokenizer (exit 1)
     assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", "--slots", "2",
                  "--kv-layout", "paged", "--radix-cache", "auto", "--preempt", "off"]) == 1
+    # so are the radix tree, preemption, the host spill tier and tenant
+    # weights, and the two combinations the JAX server warns about and drops
+    for flag in (["--radix-cache", "on"], ["--preempt", "on"], ["--kv-host-pages", "8"],
+                 ["--tenant-weight", "a=2"],
+                 ["--radix-cache", "on", "--kv-layout", "dense"],
+                 ["--kv-host-pages", "8", "--radix-cache", "off"]):
+        assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", "--slots", "2",
+                     *flag]) == 1, flag
+    assert _parse_tenant_weights(["paid=4", "free=1"]) == {"paid": 4.0, "free": 1.0}
+    for bad in ("a", "a=0", "=2", "a=nan", "a=inf"):
+        with pytest.raises(SystemExit):
+            _parse_tenant_weights([bad])
+    # the engine raises JAX's two errors on a direct library misuse
+    loaded = load_model(FIXTURE_M, device="cpu")
+    kw = dict(n_slots=2, cache_dtype=torch.float32, page_size=16)
+    with pytest.raises(ValueError, match="requires the paged KV layout"):
+        BatchEngine(loaded.config, loaded.engine.params, kv_layout="dense", radix_cache="on",
+                    **kw)
+    with pytest.raises(ValueError, match="requires the paged KV layout with the radix"):
+        BatchEngine(loaded.config, loaded.engine.params, kv_layout="paged", radix_cache="off",
+                    kv_host_pages=8, **kw)
     # so is hybrid chunked prefill at any budget
     assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", "--slots", "2",
                  "--prefill-budget", "64"]) == 1
