@@ -72,11 +72,29 @@ Q80 (random weights from a seed), and exits 0 only if every phase passed:
               page after its drain, and no spill is discarded. Greedy ids
               compared across runs must be equal or first differ at a near
               tie of the plain forward's logits (printed with the margin).
-8. inference  the CLI's `inference` mode on the same files.
-9. f8         the same Q40 file loaded with the f8 (e4m3) KV cache: the
+8. obs        the observability stack on the 8-slot server at its defaults
+              (the aio front end, --warmup auto, --trace-buffer 2048, TTFT and
+              ITL SLO targets): /metrics scraped before and after a mixed run
+              (8 greedy priority-0 streams; a 1 s POST /debug/profile and a
+              /debug/perf read during their decode; a priority-2 arrival that
+              preempts one; a burst of 16 chats beside a stream whose client
+              hangs up): the token, finish-reason, TTFT, preemption and radix
+              counters equal what the clients and the scheduler saw; the time
+              ledger's states sum to the scheduler's wall time within 5 %
+              (shares printed); the bandwidth attainment is finite in (0,
+              1.05) against the card's peak; /debug/compile and /health show
+              the warm-up's 21 captures and none unexpected; /debug/trace
+              holds every request, the victim's preempted/resumed events and
+              the priority-2 admission; the profile names K1 and K9; then 256
+              SSE streams on 8 slots with dllama_process_threads bounded and
+              every content equal to its prompt served alone (or apart at a
+              near tie); then 8 streams' decode tokens/s on aio with tracing,
+              aio with --trace-buffer 0 and the threads server.
+9. inference  the CLI's `inference` mode on the same files.
+10. f8         the same Q40 file loaded with the f8 (e4m3) KV cache: the
               forward against the plain versions and HTTP serve, K7's f8 mode
               in every layer of every forward.
-10. q80       after the Q40 files are gone, a synthetic 8B Q80 `.m` loaded
+11. q80       after the Q40 files are gone, a synthetic 8B Q80 `.m` loaded
               packed: the forward against the plain versions, the prefill
               chunk's device time (K6 + K7) as in `forward`, HTTP serve on
               the single-engine tier, the 8-slot batched server with the
@@ -84,20 +102,20 @@ Q80 (random weights from a seed), and exits 0 only if every phase passed:
               (--prefill-budget 0), and the CLI's `inference
               --fuse-weights`, whose greedy text must equal the unfused
               engine's; Q80 kernels on every forward and no Q40 launch.
-11. kbench    the kernel benchmark (dllama_tpu_torch.experiments.kbench):
+12. kbench    the kernel benchmark (dllama_tpu_torch.experiments.kbench):
               `suite`, then `8 w1 B D`; no FAILED row, KBENCH DONE at the end;
               its kernels K11-B/K11-D launched.
-12. styles    the Q40 8B model with q40_matmul.STYLE at maskdot, loopdot and
+13. styles    the Q40 8B model with q40_matmul.STYLE at maskdot, loopdot and
               deq: the forward against the plain versions, 32 greedy tokens
               through the `inference` CLI (their text printed beside auto's);
               decode forwards launch K3 (K4) in every matmul and K1 never,
               prefill chunks launch K2.
-13. spec      `inference --spec 8` on a repetitive prompt (its emitted tokens
+14. spec      `inference --spec 8` on a repetitive prompt (its emitted tokens
               and verify forwards printed; K1 and K7 launched); the greedy ids
               of spec 8 and spec 0 equal, or first differ at a near-tie of the
               plain run's logits; HTTP serve with --spec 8 and a spec_k 0
               request.
-14. graphs    decode chunks as CUDA graphs (engine/graphs.py) against the same
+15. graphs    decode chunks as CUDA graphs (engine/graphs.py) against the same
               bodies launched from Python (`capture=False`), on the Q40 8B
               model: one stream (greedy ids and a seeded sampled stream
               equal), then eight paged slots (the same two checks); for
@@ -127,7 +145,7 @@ and 17, an f32 x for K11-B, k = 4104 for K11-D, one device kernel a call);
 K1 at 9 rows and K7 at 9 query rows (the spec verify forward); and
 every kernel the kbench phase launches on kbench's own inputs (each variant
 of its suite rows and of `8 w1 B D`, the tile sweep, the flash rows), since
-the benchmark checks no result. `serve`, `batch`, `hybrid`, `radix`, `f8`, `q80`, `kbench`,
+the benchmark checks no result. `serve`, `batch`, `hybrid`, `radix`, `obs`, `f8`, `q80`, `kbench`,
 `styles` and `spec` are the main paths: the launch counters are zeroed just before each of
 their runs and read just after it. Not in the default: `profile` adds a torch.profiler pass
 over one single-stream and one 8-slot decode chunk (device time and
@@ -146,6 +164,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import faulthandler
 import http.client
 import io
 import json
@@ -2693,28 +2712,9 @@ def _stream(port: int, body: dict, first: threading.Event,
             req_id: str = "") -> tuple[int, str]:
     """An SSE chat completion (`req_id` as X-Request-Id); sets `first` at
     its first content event. -> (status, the streamed content)."""
-    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
-    conn.request("POST", "/v1/chat/completions", json.dumps(dict(body, stream=True)),
-                 _headers(req_id))
-    resp = conn.getresponse()
-    parts = []
-    while True:
-        line = resp.readline()  # through the chunked transfer decoding
-        if not line:
-            break
-        line = line.decode().strip()
-        if line == "data: [DONE]":
-            resp.read()  # the chunked body's end: the connection closes cleanly
-            break
-        if not line.startswith("data: "):
-            continue
-        delta = json.loads(line[6:])["choices"][0]["delta"].get("content")
-        if delta:
-            parts.append(delta)
-            first.set()
-    conn.close()
+    out = _sse(port, body, req_id, first=first)
     first.set()
-    return resp.status, "".join(parts)
+    return out["status"], out["content"]
 
 
 def _quantiles(xs: list) -> dict:
@@ -3209,6 +3209,535 @@ def phase_radix(loaded) -> dict:
     return launches
 
 
+#: obs phase: decode tokens of each of the 8 priority-0 streams; the
+#: priority-2 request's, the burst's and the hung-up stream's budgets; the
+#: 256-stream drill (its distinct prompts and tokens a stream); the tokens of
+#: a stream of the cost runs; the SLO targets the server judges by
+OBS_STREAM_TOKENS = 256
+OBS_HI_TOKENS, OBS_BURST, OBS_BURST_TOKENS, OBS_CUT_FRAMES = 16, 16, 16, 8
+OBS_DRILL_STREAMS, OBS_DRILL_PROMPTS, OBS_DRILL_TOKENS = 256, 8, 8
+OBS_COST_TOKENS = 128
+OBS_SLO = {"slo_ttft_ms": 2000.0, "slo_itl_ms": 50.0}
+#: the profiler activity the capture must record, and the kernel-name
+#: fragments of the Q40 decode kernel (K1) and the paged attention kernel
+#: (K9) its trace must hold
+OBS_PROFILE_ACTIVITY = "cuda"
+OBS_PROFILE_NAMES = {"q40_decode": "Q40Codes", "paged_attention": "PagedRows"}
+#: the graphs `--warmup auto` captures on the 8-slot server: 3 decode
+#: variants x DECODE_CHUNK, and every prefill width
+OBS_CAPTURES = 12 + PREFILL_WIDTHS
+#: the obs phase's ceiling on dllama_process_threads over its idle value under
+#: 256 streams: the aio loop, its pump, 8 workers, 2 control threads and the
+#: client's reader thread
+OBS_THREAD_SLACK = 16
+
+
+def _get_json(port: int, path: str) -> tuple[int, dict]:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    data = resp.read()
+    conn.close()
+    return resp.status, json.loads(data)
+
+
+def _scrape(port: int) -> tuple[dict, float]:
+    """GET /metrics -> ({(name, labels): value}, ms the scrape took)."""
+    import re
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    conn.request("GET", "/metrics")
+    resp = conn.getresponse()
+    text = resp.read().decode()
+    conn.close()
+    ms = (time.perf_counter() - t0) * 1e3
+    if resp.status != 200:
+        fail(f"obs: /metrics answered {resp.status}")
+    out = {}
+    for line in text.splitlines():
+        m = re.match(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{.*\})? (\S+)$", line)
+        if m:
+            out[(m.group(1), m.group(2) or "")] = float(m.group(3))
+    return out, ms
+
+
+def _family_delta(before: dict, after: dict, name: str) -> dict:
+    """{labels: after - before} of one family's samples that moved."""
+    return {k[1]: v - before.get(k, 0.0) for k, v in after.items()
+            if k[0] == name and v != before.get(k, 0.0)}
+
+
+def _sse(port: int, body: dict, req_id: str, progress: list | None = None, i: int = 0,
+         hang_up_after: int = 0, first: threading.Event | None = None) -> dict:
+    """A streamed chat completion read frame by frame -> {status, content,
+    frames (content frames read), finish, timings, t_first, t_done, done}.
+    `progress[i]` follows the frames read and `first` is set at the first
+    one; with `hang_up_after` the client closes the connection after that
+    many content frames."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request("POST", "/v1/chat/completions", json.dumps(dict(body, stream=True)),
+                 _headers(req_id))
+    resp = conn.getresponse()
+    out = {"status": resp.status, "content": "", "frames": 0, "finish": None,
+           "timings": None, "t_first": None, "t_done": None, "done": False}
+    while True:
+        line = resp.readline()
+        if not line:
+            break
+        line = line.decode().strip()
+        if line == "data: [DONE]":
+            out["t_done"], out["done"] = time.perf_counter(), True
+            resp.read()
+            break
+        if not line.startswith("data: "):
+            continue
+        ev = json.loads(line[6:])
+        choice = ev["choices"][0]
+        text = choice["delta"].get("content")
+        if text:
+            out["content"] += text
+            out["frames"] += 1
+            if out["t_first"] is None:
+                out["t_first"] = time.perf_counter()
+                if first is not None:
+                    first.set()
+            if progress is not None:
+                progress[i] = out["frames"]
+            if hang_up_after and out["frames"] >= hang_up_after:
+                break  # the client goes away mid-stream
+        if choice.get("finish_reason"):
+            out["finish"], out["timings"] = choice["finish_reason"], ev.get("timings")
+    resp.close()
+    conn.close()
+    return out
+
+
+def _wait_for(cond, what: str, timeout_s: float = 120.0) -> None:
+    deadline = time.monotonic() + timeout_s
+    while not cond():
+        if time.monotonic() > deadline:
+            fail(f"obs: {what} did not happen within {timeout_s:.0f} s")
+        time.sleep(0.01)
+
+
+def _obs_server(loaded, **kw):
+    """The 8-slot server at its defaults (make_server: aio, the radix tree,
+    preemption, hybrid admission) with --warmup auto and the SLO targets,
+    serving in a thread -> (httpd, api, port)."""
+    from dllama_tpu_torch.serve.api import make_server
+
+    httpd, api = make_server(loaded, host="127.0.0.1", port=0, n_slots=8, warmup="auto",
+                             **OBS_SLO, **kw)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, api, httpd.server_address[1]
+
+
+def _obs_close(httpd, api, label: str) -> None:
+    """Drain the server; its pool must audit clean with every page free."""
+    from dllama_tpu_torch.serve.api import graceful_drain
+
+    if not graceful_drain(httpd, api, timeout_s=120):
+        fail(f"obs {label}: the drain did not finish in time")
+    httpd.server_close()
+    report = api.scheduler.engine.pool.audit(raise_on_fail=False)
+    if not (report["ok"] and report["free"] == report["total"]):
+        fail(f"obs {label}: the pool after the drain {report}")
+
+
+def _stream_rates(port: int, prompts: list[str], tokens: int, label: str) -> float:
+    """8 concurrent greedy streams -> their aggregate decode tokens/s (the
+    sum of each stream's (tokens - 1) / (last token - first token))."""
+    bodies = [{"messages": [{"role": "user", "content": p}], "temperature": 0,
+               "max_tokens": tokens} for p in prompts]
+    outs = _concurrently(lambda b, k: _sse(port, b, k),
+                         [(b, f"obs-{label}-{i}") for i, b in enumerate(bodies)])
+    rate = 0.0
+    for o in outs:
+        n = o["timings"]["decode_tokens"] if o["timings"] else 0
+        if not o["done"] or n < 2 or o["t_done"] <= o["t_first"]:
+            fail(f"obs {label}: a stream ended without [DONE] or with {n} tokens")
+        rate += (n - 1) / (o["t_done"] - o["t_first"])
+    return rate
+
+
+def _drill(port: int, api, trace_ids, loaded) -> dict:
+    """OBS_DRILL_STREAMS concurrent SSE streams over OBS_DRILL_PROMPTS
+    prompts, each prompt first served alone: every stream ends with
+    [DONE], its content equals its prompt's alone (or first differs at a
+    near tie), and dllama_process_threads stays within OBS_THREAD_SLACK of
+    its idle value. -> {threads_idle, threads_mid, connections_mid, s,
+    divergences}."""
+    import selectors
+    import socket
+
+    prompts = [f"Drill {k}: a short note about {t}." for k, t in enumerate(
+        ("rain", "tides", "maps", "lamps", "ships", "salt", "wind", "stars"))]
+    prompts = prompts[:OBS_DRILL_PROMPTS]
+    bodies = [{"messages": [{"role": "user", "content": p}], "temperature": 0,
+               "max_tokens": OBS_DRILL_TOKENS} for p in prompts]
+    alone = []
+    for k, b in enumerate(bodies):
+        st, raw, _ = _post_timed(port, b, f"obs-alone-{k}")
+        if st != 200:
+            fail(f"obs drill: prompt {k} alone answered {st}")
+        alone.append(json.loads(raw)["choices"][0]["message"]["content"])
+    idle = _scrape(port)[0][("dllama_process_threads", "")]
+    sel = selectors.DefaultSelector()
+    socks = {}
+    t0 = time.perf_counter()
+    for i in range(OBS_DRILL_STREAMS):
+        body = json.dumps(dict(bodies[i % len(bodies)], stream=True)).encode()
+        head = (f"POST /v1/chat/completions HTTP/1.1\r\nHost: 127.0.0.1:{port}\r\n"
+                f"Content-Type: application/json\r\nX-Request-Id: obs-drill-{i}\r\n"
+                f"Content-Length: {len(body)}\r\n\r\n").encode()
+        s = socket.create_connection(("127.0.0.1", port), timeout=60)
+        s.sendall(head + body)
+        s.setblocking(False)
+        socks[s] = (i, bytearray())
+        sel.register(s, selectors.EVENT_READ)
+    done, headered, mid = set(), set(), None
+    deadline = time.monotonic() + 300
+    while len(done) < OBS_DRILL_STREAMS and time.monotonic() < deadline:
+        for key, _ in sel.select(timeout=1.0):
+            s = key.fileobj
+            try:
+                data = s.recv(65536)
+            except (BlockingIOError, InterruptedError):
+                continue
+            except OSError:
+                data = b""
+            buf = socks[s][1]
+            if data:
+                buf += data
+                if b"text/event-stream" in buf:
+                    headered.add(s)
+            if not data or b"data: [DONE]" in buf:
+                sel.unregister(s)
+                s.close()
+                done.add(s)
+        if mid is None and len(headered) >= OBS_DRILL_STREAMS and len(done) < OBS_DRILL_STREAMS // 2:
+            m, _ = _scrape(port)
+            server = f'{{server="127.0.0.1:{port}"}}'
+            # the streams whose client has not closed yet are live
+            mid = (m[("dllama_process_threads", "")],
+                   m.get(("dllama_frontend_connections", server), 0.0),
+                   OBS_DRILL_STREAMS - len(done))
+    secs = time.perf_counter() - t0
+    if len(done) < OBS_DRILL_STREAMS:
+        fail(f"obs drill: {len(done)} of {OBS_DRILL_STREAMS} streams finished in 300 s")
+    if mid is None:
+        fail("obs drill: never saw every stream live at once")
+    if mid[0] - idle > OBS_THREAD_SLACK or mid[1] < mid[2]:
+        fail(f"obs drill: {mid[0]:.0f} threads (idle {idle:.0f}) and {mid[1]:.0f} connections "
+             f"under {mid[2]} live streams")
+    divergences = []
+    for s, (i, buf) in socks.items():
+        if b"data: [DONE]" not in buf:
+            fail(f"obs drill: stream {i} closed without [DONE]")
+        text = _sse_content(bytes(buf))
+        k = i % len(bodies)
+        if text != alone[k]:
+            prompt, ids = trace_ids.runs[f"obs-drill-{i}"]
+            msg = near_tie(loaded, prompt, ids, trace_ids.runs[f"obs-alone-{k}"][1],
+                           f"obs drill stream {i}")
+            if msg:
+                divergences.append(msg)
+    return {"threads_idle": idle, "threads_mid": mid[0], "connections_mid": mid[1],
+            "streams_live_mid": mid[2], "s": secs, "divergences": divergences}
+
+
+def _sse_content(raw: bytes) -> str:
+    """The streamed content of a raw chunked SSE response."""
+    out = []
+    for line in raw.decode(errors="replace").split("\n"):
+        if line.startswith("data: {"):
+            try:
+                ev = json.loads(line[6:].strip())
+            except ValueError:
+                continue  # a frame cut by the chunked framing's length lines
+            out.append(ev["choices"][0]["delta"].get("content") or "")
+    return "".join(out)
+
+
+def phase_obs(loaded, card: str) -> dict:
+    """The observability stack on the 8-slot server at its defaults (aio,
+    --warmup auto, --trace-buffer 2048, --slo-ttft-ms / --slo-itl-ms): a
+    mixed run (8 greedy priority-0 streams, a 1 s POST /debug/profile and a
+    /debug/perf read during their decode, a priority-2 arrival that
+    preempts one of them, then a burst of 16 chats beside a stream whose
+    client hangs up) scraped before and after; then the 256-stream drill;
+    then the decode tokens/s of 8 streams on aio with tracing, aio without
+    and the threads server. Returns the launches of the mixed run."""
+    import math
+    import tempfile as _tempfile
+
+    from dllama_tpu_torch.obs import compile as compile_obs
+    from dllama_tpu_torch.obs import trace
+    from dllama_tpu_torch.obs.perf import peak_hbm_gbs
+    from dllama_tpu_torch.serve.scheduler import DECODE_CHUNK
+
+    res: dict = {"card": card}
+    trace.configure(2048)
+    compile_obs.LEDGER.reset()
+    httpd, api, port = _obs_server(loaded)
+    if type(httpd).__name__ != "AioHttpServer":
+        fail(f"obs: make_server's default transport is {type(httpd).__name__}, not aio")
+    sched = api.scheduler
+    ids = IdTrace(sched)
+    warm = sched.warmup_report
+    m0, res["scrape_ms"] = _scrape(port)
+    led0, lat0, radix0 = sched.ledger.snapshot(), sched.latency_summary(), sched.engine.radix_stats()
+
+    # ---- (a) the mixed run
+    reset_counters()
+    prompts = batch_prompts(8)
+    streams = [{"messages": [{"role": "user", "content": p}], "temperature": 0,
+                "max_tokens": OBS_STREAM_TOKENS, "priority": 0} for p in prompts]
+    progress = [0] * len(streams)
+    outs: dict = {}
+
+    def run_stream(i):
+        outs[f"obs-s{i}"] = _sse(port, streams[i], f"obs-s{i}", progress, i)
+
+    # the first profiler capture pays CUPTI's initialization (seconds): a
+    # short one before the streams, so the timed one starts at once
+    prof_dir = _tempfile.mkdtemp(prefix="dllama_obs_profile_")
+    warm_dir = os.path.join(prof_dir, "warm")
+    _profile(port, 0.05, warm_dir)
+    _wait_for(lambda: _profile_done(os.path.join(warm_dir, "trace.json")), "the first profile")
+    threads = [threading.Thread(target=run_stream, args=(i,)) for i in range(len(streams))]
+    for th in threads:
+        th.start()
+    _wait_for(lambda: min(progress) >= 4, "every stream's 4th token")
+    hi = {}
+
+    def run_hi():
+        st, raw, _ = _post_timed(port, {"messages": [{"role": "user", "content":
+                                                      "Urgent: name three harbours."}],
+                                        "temperature": 0, "max_tokens": OBS_HI_TOKENS,
+                                        "priority": 2}, "obs-hi")
+        hi.update(status=st, body=json.loads(raw) if st == 200 else raw)
+
+    # the priority-2 arrival finds every slot decoding: it preempts one
+    hi_thread = threading.Thread(target=run_hi)
+    hi_thread.start()
+    _wait_for(lambda: min(progress) >= OBS_STREAM_TOKENS // 4, "a quarter of every stream")
+    # the roofline before the profile: stopping a profile and writing its
+    # trace holds the server's interpreter for seconds (measured below)
+    st, perf_mid = _get_json(port, "/debug/perf")
+    roof = perf_mid["roofline"]
+    att = roof["bandwidth_attainment"]
+    if st != 200 or att is None or not math.isfinite(att) or not 0 < att < 1.05:
+        fail(f"obs: bandwidth attainment during the 8-stream decode is {att} ({roof})")
+    res["roofline"] = {k: roof[k] for k in ("bandwidth_attainment", "achieved_gbs", "peak_gbs",
+                                           "window_chunks", "device_s", "bytes")}
+    t0 = time.perf_counter()
+    led_p0 = sched.ledger.snapshot()
+    prof = _profile(port, 1.0, prof_dir)
+    res["profile_start_ms"] = (time.perf_counter() - t0) * 1e3
+    res["streams_min_tokens_at_profile"] = min(progress)
+    hi_thread.join(timeout=600)
+    for th in threads:
+        th.join(timeout=600)
+    # the ledger's seconds from the profile's start to its trace on disk
+    # (its stop and write hold the interpreter), apart from the rest
+    _wait_for(lambda: _profile_done(prof["trace"]), "the profile's trace file")
+    led_p1 = sched.ledger.snapshot()
+    if hi.get("status") != 200 or any(not o["done"] for o in outs.values()):
+        fail(f"obs: the priority-2 request answered {hi.get('status')} or a stream ended "
+             "without [DONE]")
+    cut: dict = {}
+    burst_bodies = {f"obs-b{i}": {"messages": [{"role": "user", "content": p}],
+                                  "temperature": 0, "max_tokens": OBS_BURST_TOKENS}
+                    for i, p in enumerate(batch_prompts(OBS_BURST))}
+
+    def run_cut():
+        cut.update(_sse(port, {"messages": [{"role": "user", "content": prompts[0]}],
+                               "temperature": 0, "max_tokens": 512}, "obs-cut",
+                        hang_up_after=OBS_CUT_FRAMES))
+
+    cut_thread = threading.Thread(target=run_cut)
+    cut_thread.start()
+    burst = dict(zip(burst_bodies, _concurrently(
+        lambda b, k: _post_timed(port, b, k), [(b, k) for k, b in burst_bodies.items()])))
+    cut_thread.join(timeout=600)
+    if any(st != 200 for st, _, _ in burst.values()) or cut.get("frames") != OBS_CUT_FRAMES:
+        fail(f"obs: a burst request failed or the hung-up stream read {cut.get('frames')} "
+             "frames")
+    _wait_for(lambda: _get_json(port, "/debug/requests/obs-cut")[1].get("state")
+              == "finished", "the hung-up stream's cancel")
+    m1, scrape_ms = _scrape(port)
+    res["scrape_ms_loaded"] = scrape_ms
+    led1, lat1, radix1 = sched.ledger.snapshot(), sched.latency_summary(), sched.engine.radix_stats()
+    launches = counters()
+    for k in ("q40_decode", "q40_prefill", "paged_attention"):
+        if not launches[k]:
+            fail(f"obs: kernel {k} was never launched")
+    res["launches"] = {k: v for k, v in launches.items() if v}
+
+    # ---- counters against the clients
+    burst_out = {k: json.loads(raw) for k, (_, raw, _) in burst.items()}
+    cut_rec = _get_json(port, "/debug/requests/obs-cut")[1]
+    client_tokens = (sum(o["timings"]["decode_tokens"] for o in outs.values())
+                     + hi["body"]["usage"]["completion_tokens"]
+                     + sum(b["usage"]["completion_tokens"] for b in burst_out.values()))
+    cut_tokens = cut_rec["decode_tokens"]
+    tok_delta = _family_delta(m0, m1, "dllama_tokens_generated_total").get("", 0.0)
+    finish_client: dict = {}
+    for reason in ([o["finish"] for o in outs.values()]
+                   + [hi["body"]["choices"][0]["finish_reason"]]
+                   + [b["choices"][0]["finish_reason"] for b in burst_out.values()]
+                   + ["cancelled"]):
+        finish_client[f'{{reason="{reason}"}}'] = finish_client.get(f'{{reason="{reason}"}}', 0) + 1
+    finish_delta = _family_delta(m0, m1, "dllama_requests_finished_total")
+    ttft_delta = _family_delta(m0, m1, "dllama_ttft_seconds_count").get("", 0.0)
+    n_first = len(outs) + 1 + len(burst_out) + 1
+    pre_delta = sum(_family_delta(m0, m1, "dllama_preemptions_total").values())
+    res_delta = _family_delta(m0, m1, "dllama_resumed_total").get("", 0.0)
+    hit_delta = _family_delta(m0, m1, "dllama_radix_hit_tokens_total").get("", 0.0)
+    res["counters"] = {
+        "tokens_delta": tok_delta, "client_tokens": client_tokens, "cut_tokens": cut_tokens,
+        "cut_frames_read": cut["frames"], "finished_delta": finish_delta,
+        "finished_client": finish_client, "ttft_count_delta": ttft_delta,
+        "first_tokens": n_first, "preemptions_delta": pre_delta,
+        "preemptions_summary": lat1["preemptions"] - lat0["preemptions"],
+        "resumed_delta": res_delta, "resumed_summary": lat1["resumed"] - lat0["resumed"],
+        "radix_hit_delta": hit_delta,
+        "radix_hit_stats": radix1["hit_tokens"] - radix0["hit_tokens"]}
+    c = res["counters"]
+    if (tok_delta != client_tokens + cut_tokens
+            or not cut["frames"] <= cut_tokens <= cut["frames"] + 2 * DECODE_CHUNK
+            or finish_delta != finish_client or ttft_delta != n_first
+            or pre_delta != c["preemptions_summary"] or pre_delta < 1
+            or res_delta != c["resumed_summary"] or hit_delta != c["radix_hit_stats"]):
+        fail(f"obs: /metrics disagrees with the clients: {json.dumps(c)}")
+    print(f"obs counters against the clients: {json.dumps(c)}", flush=True)
+
+    # ---- the time ledger
+    sec = {k[1][len('{state="'):-2]: v for k, v in m1.items()
+           if k[0] == "dllama_scheduler_time_seconds_total"}
+    sec = {s: v - m0.get(("dllama_scheduler_time_seconds_total", f'{{state="{s}"}}'), 0.0)
+           for s, v in sec.items()}
+    wall = led1["wall_s"] - led0["wall_s"]
+    covered = sum(sec.values())
+    in_prof = {s: led_p1["seconds"][s] - led_p0["seconds"][s] for s in led_p1["seconds"]}
+    wall_prof = led_p1["wall_s"] - led_p0["wall_s"]
+    rest = wall - wall_prof
+    res["ledger"] = {"wall_s": wall, "covered_s": covered,
+                     "shares": {s: v / wall for s, v in sorted(sec.items()) if v},
+                     "profile_window_s": wall_prof,
+                     "shares_outside_profile": {s: (v - in_prof.get(s, 0.0)) / rest
+                                                for s, v in sorted(sec.items()) if v}}
+    if not abs(covered - wall) <= 0.05 * wall:
+        fail(f"obs: the ledger's states sum to {covered:.3f} s of {wall:.3f} s wall")
+    print(f"obs ledger over {wall:.3f} s of scheduler wall ({covered:.3f} s billed): "
+          f"{json.dumps(res['ledger']['shares'])}; outside the profile's {wall_prof:.3f} s "
+          f"(its start to its trace on disk): "
+          f"{json.dumps(res['ledger']['shares_outside_profile'])}", flush=True)
+
+    # ---- captures
+    st, comp = _get_json(port, "/debug/compile")
+    health = _get_json(port, "/health")[1]["compile"]
+    want = warm["graphs_captured"]
+    res["captures"] = {"warmup": want, "compiles": comp["compiles"],
+                       "unexpected": comp["unexpected"], "health": health,
+                       "full": comp["contract"]["full"]}
+    if not (want == OBS_CAPTURES == comp["compiles"] == health["compiles"]
+            and comp["unexpected"] == health["unexpected_compiles"] == 0
+            and (comp["contract"]["full"] or not OBS_CAPTURES)):
+        fail(f"obs: captures {json.dumps(res['captures'])}")
+
+    # ---- tracing
+    st, doc = _get_json(port, "/debug/trace")
+    by_req: dict = {}
+    for ev in doc["traceEvents"]:
+        rid = ev.get("args", {}).get("req_id")
+        if rid:
+            by_req.setdefault(rid, set()).add(ev["name"])
+    run_ids = list(outs) + ["obs-hi", "obs-cut"] + list(burst_out)
+    missing = [r for r in run_ids if r not in by_req]
+    victims = [r for r, names in by_req.items() if "request.preempted" in names]
+    hi_rec = _get_json(port, "/debug/requests/obs-hi")[1]
+    if (missing or not victims or not all("request.resumed" in by_req[v] for v in victims)
+            or hi_rec.get("state") != "finished" or hi_rec.get("slot") is None
+            or hi_rec.get("queue_wait_ms") is None):
+        fail(f"obs: trace spans missing for {missing}; victims {victims}; priority-2 record "
+             f"{hi_rec}")
+    res["trace"] = {"events": len(doc["traceEvents"]), "requests": len(run_ids),
+                    "victims": victims, "hi_queue_wait_ms": hi_rec["queue_wait_ms"],
+                    "hi_ttft_ms": hi_rec["ttft_ms"], "hi_slo": hi_rec["slo"]["ok"]}
+
+    # ---- profiling
+    path = prof["trace"]
+    with open(path) as f:
+        text = f.read()
+    names = {k: text.count(v) for k, v in OBS_PROFILE_NAMES.items()}
+    json.loads(text)  # Chrome trace JSON
+    from dllama_tpu_torch.utils import profiling
+
+    res["profile"] = {"trace_mb": len(text) / 1e6, "name_hits": names,
+                      "stop_and_write_s": profiling.profile_status()["last_written_s"]}
+    if not all(names.values()):
+        fail(f"obs: the profile holds no {[k for k, v in names.items() if not v]} kernel")
+    os.remove(path)
+    print(f"obs captures {json.dumps(res['captures'])}; trace {json.dumps(res['trace'])}; "
+          f"profile {json.dumps(res['profile'])}", flush=True)
+
+    # ---- the front end at scale
+    res["drill"] = _drill(port, api, ids, loaded)
+    print(f"obs drill {OBS_DRILL_STREAMS} SSE streams on 8 slots: "
+          f"{json.dumps(res['drill'])}", flush=True)
+
+    _obs_close(httpd, api, "the mixed run")
+
+    # ---- what the stack costs: fresh servers, aio traced, aio untraced,
+    # threads traced
+    cost_prompts = batch_prompts(8)
+    rates = {}
+    for label, buffer, frontend in (("aio_trace2048", 2048, "aio"), ("aio_trace0", 0, "aio"),
+                                    ("threads_trace2048", 2048, "threads")):
+        trace.configure(buffer)
+        httpd, api, port = _obs_server(loaded, frontend=frontend)
+        rates[label] = _stream_rates(port, cost_prompts, OBS_COST_TOKENS, label)
+        _obs_close(httpd, api, label)
+    trace.configure(2048)
+    res["decode_tok_s"] = rates
+    res["aio_over_threads"] = rates["aio_trace2048"] / rates["threads_trace2048"]
+    res["trace_over_untraced"] = rates["aio_trace2048"] / rates["aio_trace0"]
+    peak = peak_hbm_gbs()
+    print(f"obs on {card}: bandwidth attainment {att:.4f} of {peak} GB/s "
+          f"({roof['achieved_gbs']} GB/s over {roof['window_chunks']} chunks); "
+          f"decode tok/s of 8 streams {json.dumps(rates)}; aio/threads "
+          f"{res['aio_over_threads']:.4f}, traced/untraced {res['trace_over_untraced']:.4f}; "
+          f"/metrics scrape {res['scrape_ms']:.2f} ms idle, {scrape_ms:.2f} ms after the run",
+          flush=True)
+    print(f"obs: {json.dumps(res)}", flush=True)
+    return launches
+
+
+def _profile(port: int, seconds: float, log_dir: str) -> dict:
+    """POST /debug/profile; fails unless it answered 200 with the required
+    activity -> its `profiling` object."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    conn.request("POST", "/debug/profile", json.dumps({"duration_s": seconds, "dir": log_dir}),
+                 _headers())
+    resp = conn.getresponse()
+    body = json.loads(resp.read())
+    conn.close()
+    if resp.status != 200 or OBS_PROFILE_ACTIVITY not in body["profiling"]["activities"]:
+        fail(f"obs: POST /debug/profile answered {resp.status}: {body}")
+    return body["profiling"]
+
+
+def _profile_done(path: str) -> bool:
+    """True once a profile's Chrome trace is completely written."""
+    from dllama_tpu_torch.utils import profiling
+
+    st = profiling.profile_status()
+    return not st["active"] and st["last_trace"] == path
+
+
 def page_copy_ms(eng, reps: int = 10) -> dict:
     """CUDA-event medians of one page's copy host-to-device (a restore: a
     slab row into the trash page) and device-to-host (a spill: a page into a
@@ -3274,13 +3803,17 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=20, help="timed runs per case (0: no timing)")
     ap.add_argument("--phases",
-                    default="card,kernels,kbench,forward,serve,batch,hybrid,radix,inference,"
-                            "styles,spec,graphs,f8,q80",
+                    default="card,kernels,kbench,forward,serve,batch,hybrid,radix,obs,"
+                            "inference,styles,spec,graphs,f8,q80",
                     help="comma list; not in the default: 'profile' adds a "
                          "torch.profiler pass over one decode chunk, single-stream "
                          "and 8-slot; 'chunk' is the prefill-chunk timing alone (Q40 "
                          "dense and paged, uncaptured and as programs; Q80)")
+    ap.add_argument("--deadline-s", type=float, default=1150.0,
+                    help="after this many seconds, print every thread's stack and exit 1 "
+                         "(the run must end within its 1200 s limit, hung or not)")
     args = ap.parse_args(argv)
+    faulthandler.dump_traceback_later(args.deadline_s, exit=True)
     phases = set(args.phases.split(","))
 
     try:
@@ -3330,8 +3863,8 @@ def main(argv=None) -> int:
     phase_done("kbench", phases)
     prompt = ("Summarize the plot of a long story about a lighthouse keeper, "
               "a storm, and a ship that never arrives.")
-    if phases & {"forward", "chunk", "serve", "profile", "batch", "hybrid", "radix", "inference",
-                  "styles", "spec", "graphs", "f8"}:
+    if phases & {"forward", "chunk", "serve", "profile", "batch", "hybrid", "radix", "obs",
+                  "inference", "styles", "spec", "graphs", "f8"}:
         from dllama_tpu_torch.engine.loader import load_model
 
         tmp = tempfile.TemporaryDirectory(prefix="dllama_smoke_")
@@ -3429,6 +3962,10 @@ def main(argv=None) -> int:
         if "radix" in phases:
             paths["radix"] = phase_radix(loaded)
         phase_done("radix", phases)
+
+        if "obs" in phases:
+            paths["obs"] = phase_obs(loaded, card)
+        phase_done("obs", phases)
 
         auto_text = None  # the greedy CLI text under STYLE auto, for the styles phase
         if "inference" in phases:

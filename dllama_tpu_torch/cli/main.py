@@ -19,13 +19,18 @@ is given, and hybrid chunked prefill (`--prefill-budget auto`; 0 restores
 phase-split admission). `--spec K`
 (prompt-lookup speculative decoding) drives the single-engine paths; with
 `--slots > 0` it is refused. `serve --slots N --warmup auto` captures every
-decode and prefill program before the first request.
+decode and prefill program before the first request. `serve` runs on the
+aio front end (`--frontend aio`, the default, as in the JAX package; `threads`
+is the thread-per-connection server) and answers `/metrics` and the
+`/debug/*` family; `--log-format json`, `--trace DIR` (a torch.profiler
+Chrome trace of the run), `--trace-buffer N` (the request-flow tracer's
+ring; 0 turns it off), `--slo-ttft-ms`/`--slo-itl-ms` and `--report` (memory
+and per-token latency after `inference`) are the JAX package's.
 """
 
 from __future__ import annotations
 
 import argparse
-import logging
 import math
 import sys
 import time
@@ -109,11 +114,35 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serve --slots > 0: joiners older than this pump their prefill "
                         "to completion despite the pacing (hard TTFT bound; default off)")
     p.add_argument("--slo-itl-ms", type=float, default=None,
-                   help="serve --slots > 0: inter-token-latency target (ms) that "
-                        "--prefill-budget auto steers by")
+                   help="serve mode: inter-token-latency SLO target in ms (mean ITL per "
+                        "request): violations burn dllama_slo_violations_total{kind=itl}, "
+                        "and --prefill-budget auto steers by it (default: no target)")
+    p.add_argument("--slo-ttft-ms", type=float, default=None,
+                   help="serve mode: TTFT SLO target in ms; terminal requests over it burn "
+                        "dllama_slo_violations_total{kind=ttft} and drop out of goodput; "
+                        "windowed attainment at /debug/perf (default: no target)")
+    p.add_argument("--frontend", choices=["aio", "threads"], default="aio",
+                   help="serve mode transport: 'aio' (default) multiplexes every "
+                        "connection on one selectors event loop with a fixed worker "
+                        "pool and one SSE pump thread, so the thread count does not "
+                        "grow with connections; 'threads' is one thread a connection. "
+                        "Routes and HTTP semantics are the same")
+    p.add_argument("--aio-workers", type=int, default=0,
+                   help="serve mode, --frontend aio: request-handling worker threads "
+                        "(0 = min(8, cores); streams do not occupy workers)")
+    p.add_argument("--log-format", choices=["text", "json"], default="text",
+                   help="log line format: text, or json (one object a line, with "
+                        "request_id and other context as fields)")
+    p.add_argument("--trace", metavar="DIR",
+                   help="write a torch.profiler Chrome trace of the run to DIR/trace.json "
+                        "(serve mode can instead capture on demand: POST /debug/profile)")
+    p.add_argument("--trace-buffer", type=int, default=2048, metavar="N",
+                   help="request-flow span tracer: ring capacity in events (serve mode "
+                        "exports it at GET /debug/trace and GET /debug/requests); 0 turns "
+                        "tracing off (default 2048)")
+    p.add_argument("--report", action="store_true",
+                   help="inference mode: print the memory and per-token latency report")
     # accepted by name, refused until ported
-    p.add_argument("--frontend", choices=["aio", "threads"], default="threads",
-                   help="serve mode transport (aio is not yet ported)")
     p.add_argument("--radix-cache", choices=["auto", "on", "off"], default="auto",
                    help="serve --slots > 0: cross-request radix prefix tree over the paged "
                         "KV pool; admissions map the longest shared prefix by refcount and "
@@ -148,6 +177,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "tier; a request's spec_k clamps to K); same tokens, fewer "
                         "forwards on repetitive text. Not yet ported with --slots > 0")
     p.add_argument("--mesh", default=None, help="device mesh (not yet ported)")
+    p.add_argument("--transfer-guard", choices=["off", "log", "strict"], default="off",
+                   help="JAX's steady-state upload guard (not yet ported)")
     p.add_argument("-v", "--verbose", action="store_true")
     return p
 
@@ -159,8 +190,8 @@ def _refuse_unported(args) -> None:
         raise NotPorted("--restart-max (warm engine restarts)")
     if args.mesh is not None:
         raise NotPorted("--mesh (multi-device meshes)")
-    if args.frontend == "aio":
-        raise NotPorted("--frontend aio")
+    if args.transfer_guard != "off":
+        raise NotPorted(f"--transfer-guard {args.transfer_guard}")
 
 
 def _parse_tenant_weights(specs) -> dict[str, float] | None:
@@ -223,6 +254,7 @@ def cmd_info(args) -> int:
 
 def cmd_inference(args) -> int:
     from dllama_tpu_torch.engine.engine import GenerationStats
+    from dllama_tpu_torch.utils import profiling
 
     if not args.prompt:
         print("inference mode requires --prompt", file=sys.stderr)
@@ -236,14 +268,28 @@ def cmd_inference(args) -> int:
     prompt_tokens = tok.encode(args.prompt, add_bos=True)
     max_tokens = min(args.steps, m.engine.seq_len - len(prompt_tokens))
     stats = GenerationStats()
+    timer = profiling.TokenTimer()
     tok.reset_decoder()
-    for t in m.engine.generate(prompt_tokens, max_tokens, sampler, stop_fn=tok.is_eos,
-                               stats=stats, spec=args.spec):
-        piece = tok.decode(t)
-        if piece:
-            print(piece, end="", flush=True)
+    with profiling.trace(args.trace):
+        timer.start()
+        for t in m.engine.generate(prompt_tokens, max_tokens, sampler, stop_fn=tok.is_eos,
+                                   stats=stats, spec=args.spec):
+            timer.stop()
+            piece = tok.decode(t)
+            if piece:
+                print(piece, end="", flush=True)
+            timer.start()
     print()
     print(stats.summary(), file=sys.stderr)
+    if args.report:
+        print(profiling.memory_report(m.config, m.engine.params, m.engine.cache),
+              file=sys.stderr)
+        print(f"⏱  {timer.summary()}", file=sys.stderr)
+        est = profiling.collective_bytes_per_token(m.config)
+        print(f"🔗 est. inter-chip payload: {est['kb_per_token_per_chip']:.0f} "
+              "kB/token/chip (one device)", file=sys.stderr)
+    if args.trace:
+        print(f"trace: {profiling.profile_status()['last_trace']}", file=sys.stderr)
     return 0
 
 
@@ -321,25 +367,35 @@ def cmd_serve(args) -> int:
             return 1
     tenant_weights = _parse_tenant_weights(args.tenant_weight)
     m = _load(args)
-    return run_server(
-        m, host=args.host, port=args.port, n_slots=args.slots,
-        default_temperature=args.temperature, default_topp=args.topp,
-        default_seed=args.seed, frontend=args.frontend,
-        sse_heartbeat_s=args.sse_heartbeat_s, replica_id=args.replica_id,
-        drain_timeout_s=args.drain_timeout_s, kv_layout=args.kv_layout,
-        page_size=args.page_size, kv_pages=args.kv_pages, max_queue=args.max_queue,
-        overlap=args.overlap == "on", spec=args.spec, warmup=args.warmup,
-        prefill_budget=prefill_budget, admit_stall_budget_ms=args.admit_budget_ms,
-        admit_ttft_deadline_ms=args.admit_ttft_deadline_ms, slo_itl_ms=args.slo_itl_ms,
-        radix_cache=args.radix_cache, kv_host_pages=args.kv_host_pages, preempt=args.preempt,
-        tenant_weights=tenant_weights,
-    )
+    from dllama_tpu_torch.utils import profiling
+
+    with profiling.trace(args.trace):
+        return run_server(
+            m, host=args.host, port=args.port, n_slots=args.slots,
+            default_temperature=args.temperature, default_topp=args.topp,
+            default_seed=args.seed, frontend=args.frontend, aio_workers=args.aio_workers,
+            sse_heartbeat_s=args.sse_heartbeat_s, replica_id=args.replica_id,
+            drain_timeout_s=args.drain_timeout_s, kv_layout=args.kv_layout,
+            page_size=args.page_size, kv_pages=args.kv_pages, max_queue=args.max_queue,
+            overlap=args.overlap == "on", spec=args.spec, warmup=args.warmup,
+            prefill_budget=prefill_budget, admit_stall_budget_ms=args.admit_budget_ms,
+            admit_ttft_deadline_ms=args.admit_ttft_deadline_ms, slo_itl_ms=args.slo_itl_ms,
+            slo_ttft_ms=args.slo_ttft_ms, radix_cache=args.radix_cache,
+            kv_host_pages=args.kv_host_pages, preempt=args.preempt,
+            tenant_weights=tenant_weights,
+        )
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO if args.verbose else logging.WARNING,
-                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    from dllama_tpu_torch.obs import trace
+    from dllama_tpu_torch.utils.logs import setup_logging
+
+    # --log-format json switches every line to one object with request_id
+    # and the other context as fields
+    setup_logging(fmt=args.log_format, verbose=args.verbose)
+    # the request-flow tracer, configured before anything can emit a span
+    trace.configure(args.trace_buffer)
     try:
         _refuse_unported(args)
     except NotPorted as e:

@@ -61,6 +61,9 @@ from dllama_tpu_torch.engine.radix import RadixCache
 from dllama_tpu_torch.engine.sampling import CounterRNG, apply_penalties, sample_logits
 from dllama_tpu_torch.models.config import LlamaConfig
 from dllama_tpu_torch.models.llama import KVCache, PagedKVCache, forward
+from dllama_tpu_torch.obs import compile as compile_obs
+from dllama_tpu_torch.obs import instruments as ins
+from dllama_tpu_torch.obs import trace
 from dllama_tpu_torch.ops.layers import build_rope_cache
 
 log = logging.getLogger("dllama_tpu_torch.engine")
@@ -120,6 +123,7 @@ class PagePool:
         self.write_horizons = None
         #: the host-RAM spill tier (HostKVPool), audited beside the pages
         self.host: HostKVPool | None = None
+        self._publish()
 
     # ----------------------------------------------------------- accounting
 
@@ -155,9 +159,20 @@ class PagePool:
         on a violation unless ``raise_on_fail`` is False."""
         with self._mu:
             report = self._audit()
-        if report["problems"] and raise_on_fail:
-            raise PoolAuditError("kv page-pool audit failed: " + "; ".join(report["problems"]))
+        if report["problems"]:
+            ins.KV_AUDIT_FAILURES.inc()
+            if raise_on_fail:
+                raise PoolAuditError("kv page-pool audit failed: "
+                                     + "; ".join(report["problems"]))
         return report
+
+    def _publish(self) -> None:
+        """The dllama_kv_pages_{total,used,shared} gauges (the caller holds
+        the lock or owns the pool); every mutation of the tables or
+        refcounts ends here."""
+        ins.KV_PAGES_TOTAL.set(self.n_pages)
+        ins.KV_PAGES_USED.set(self.n_pages - self.free_count)
+        ins.KV_PAGES_SHARED.set(self.shared_count)
 
     def _audit(self) -> dict:
         problems: list[str] = []
@@ -228,6 +243,7 @@ class PagePool:
     def _decref(self, p: int) -> None:
         if self.refcount[p] <= 0:
             # a double release would hand the page to two owners at once
+            ins.KV_AUDIT_FAILURES.inc()
             raise PoolAuditError(f"double release of page {p} (refcount already "
                                  f"{int(self.refcount[p])})")
         self.refcount[p] -= 1
@@ -252,6 +268,8 @@ class PagePool:
                 self.tables[slot, self.n_blocks[slot]] = self._alloc_page()
                 self.n_blocks[slot] += 1
                 changed = True
+            if changed:
+                self._publish()
             return changed
 
     def free_tail(self, slot: int, keep_rows: int) -> int:
@@ -268,6 +286,7 @@ class PagePool:
                 freed += self.free_count - before
                 self.tables[slot, b] = 0
             self.n_blocks[slot] = keep
+            self._publish()
             return freed
 
     def ensure_writable(self, slot: int, row: int, copy_fn) -> None:
@@ -285,6 +304,7 @@ class PagePool:
             copy_fn(old, new)
             self.refcount[old] -= 1  # > 1 before, so never frees
             self.tables[slot, b] = new
+            self._publish()
 
     def cow_writable(self, slot: int, start_row: int, end_row: int, copy_fn) -> bool:
         """Copy-on-write every SHARED block of `slot` covering rows
@@ -317,6 +337,7 @@ class PagePool:
                 copy_fn(int(self.tables[src, full]), new)
                 self.tables[dst, full] = new
                 self.n_blocks[dst] = full + 1
+            self._publish()
 
     def adopt_prefix(self, slot: int, pages: list[int]) -> None:
         """Point `slot`'s first blocks at `pages` BY REFERENCE, the radix
@@ -330,6 +351,7 @@ class PagePool:
                 self.refcount[p] += 1
                 self.tables[slot, i] = p
             self.n_blocks[slot] = len(pages)
+            self._publish()
 
     def prepare_admission(self, slot: int, start: int, end: int, copy_fn) -> None:
         """Position `slot` for a prefill of rows [start, end): drop the dead
@@ -409,6 +431,12 @@ class HostKVPool:
         self.dropped = 0  # LRU evictions of the host tier itself
         self.discarded = 0  # spills lost to a copy error (the page is dropped)
         self.spill_s = 0.0  # host seconds spent in put(), copies enqueued
+        self._publish()
+
+    def _publish(self) -> None:
+        """The dllama_kv_host_pages_{total,used} gauges."""
+        ins.KV_HOST_PAGES_TOTAL.set(self.n_pages)
+        ins.KV_HOST_PAGES_USED.set(len(self._entries))
 
     @property
     def used(self) -> int:
@@ -443,6 +471,7 @@ class HostKVPool:
             self._entries[key] = (row, event)
             self.spilled += 1
             self.spill_s += time.perf_counter() - t0
+            self._publish()
             return True
 
     def peek(self, key: tuple) -> int | None:
@@ -462,6 +491,7 @@ class HostKVPool:
             if entry is not None:
                 self._free.append(entry[0])
                 self.restored += 1
+                self._publish()
 
     def read(self, key: tuple) -> tuple[torch.Tensor, torch.Tensor] | None:
         """Host copies of `key`'s K and V rows, after its copy's event (for
@@ -480,6 +510,7 @@ class HostKVPool:
             n = len(self._entries)
             self._free.extend(row for row, _ in self._entries.values())
             self._entries.clear()
+            self._publish()
             return n
 
     def stats(self) -> dict:
@@ -568,11 +599,18 @@ class DecodeChunk:
     seq: int = 0
     hybrid_slot: int = -1  # the admitting slot a hybrid chunk prefilled, or -1
     hybrid_tokens: int = 0  # prompt tokens that chunk prefilled
+    t0: float = 0.0  # dispatch (time.perf_counter; DECODE_CHUNK_SECONDS' clock)
+    t_disp: float = 0.0  # dispatch on the tracer's clock (the decode.device span)
+    # the chunk's exclusive window, stamped at consumption: from the later of
+    # its dispatch and the previous chunk's consumption to its tokens on the
+    # host (the roofline gauge's denominator)
+    device_s: float = 0.0
 
     def nonfinite(self) -> np.ndarray | None:
         """bool [B] rows whose logits went non-finite in this chunk, or None
         when every row is clean. The scheduler fails those requests."""
         out = self.bad.numpy()
+        compile_obs.note_transfer("d2h", "nan_guard", int(out.nbytes))
         return out.copy() if out.any() else None
 
 
@@ -689,6 +727,16 @@ class BatchEngine:
         self._pf_table = (torch.zeros((1, self.cache.tables.shape[1]), dtype=torch.int32,
                                       device=self.device) if self.pool is not None else None)
         self.programs = Programs(self.device, capture)
+        # the capture ledger's shape contract (obs/compile): the engine
+        # declares its prefill widths, the serving scheduler its decode
+        # chunk (declare_serving_buckets); a capture outside it is counted,
+        # logged and traced as unexpected
+        self.contract = compile_obs.ShapeContract()
+        for w in self._prefill_widths():
+            self.contract.declare("prefill_chunk", f"m{w}")
+        compile_obs.LEDGER.install_contract(self.contract)
+        # DECODE_CHUNK_SECONDS' clock: the previous chunk's consumption
+        self._t_last_consume: float | None = None
 
     # ------------------------------------------------------------- helpers
 
@@ -885,7 +933,16 @@ class BatchEngine:
             v_row.copy_(self.cache.v[:, page], non_blocking=True)
             return self._event()
 
-        return self.pool.host.put(key, write)
+        if not self.pool.host.put(key, write):
+            return False
+        compile_obs.note_transfer("d2h", "kv_spill", self._page_nbytes())
+        ins.KV_SPILL.labels(direction="out").inc()
+        return True
+
+    def _page_nbytes(self) -> int:
+        """Bytes of one pool page's K and V rows over every layer."""
+        k = self.cache.k
+        return 2 * (k[:, 0].numel() * k.element_size())
 
     @torch.no_grad()
     def _host_restore_install(self, row: int) -> int | None:
@@ -901,6 +958,8 @@ class BatchEngine:
             page = pool._alloc_page()
         self.cache.k[:, page].copy_(host.k[row], non_blocking=True)
         self.cache.v[:, page].copy_(host.v[row], non_blocking=True)
+        compile_obs.note_transfer("h2d", "kv_restore", self._page_nbytes())
+        ins.KV_SPILL.labels(direction="in").inc()
         return page
 
     def read_page(self, page: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -957,8 +1016,12 @@ class BatchEngine:
     @torch.no_grad()
     def add_step(self, adm: Admission) -> bool:
         """Prefill ONE power-of-two chunk of the admission's prompt at B=1;
-        returns True when every prompt token's KV row is written."""
+        returns True when every prompt token's KV row is written. Observes
+        dllama_prefill_chunk_seconds: the launch alone unless the caller
+        syncs (the scheduler syncs whenever decoders would stall)."""
+        t0 = time.perf_counter()
         self._prefill_slice(adm, pow2_chunk(len(adm.toks) - adm.off, self.max_prefill_chunk))
+        ins.PREFILL_CHUNK_SECONDS.observe(time.perf_counter() - t0)
         return adm.off >= len(adm.toks)
 
     def _prefill_layout(self, slot: int):
@@ -1010,8 +1073,10 @@ class BatchEngine:
                                    non_blocking=True)
         self._pf_in.copy_(self._pinned(np.array([slot, self.pos[slot]], np.int64)),
                           non_blocking=True)
+        compile_obs.note_transfer("h2d", "prefill", 8 * (c + 2))
         prog.run()
         self.forwards += 1
+        ins.PREFILL_TOKENS.inc(c)
         adm.logits = prog.buffers["logits"].clone()
         self.pos[slot] += c
         adm.off += c
@@ -1039,6 +1104,7 @@ class BatchEngine:
         self.rng.reset(slot, seed)
         u = self.rng.uniforms(1, rows=[slot])[0]
         first = int(sample_logits(adm.logits, float(temperature), float(topp), uniforms=u)[0])
+        compile_obs.note_transfer("d2h", "commit", 8)
         self.rng.advance_row(slot, 1)
         self.active[slot] = True
         self.last_token[slot] = first
@@ -1114,13 +1180,17 @@ class BatchEngine:
         flight has read the old values. A no-op in steady-state decode."""
         if not self._vec_dirty:
             return
+        nbytes = 0
         for dev, host in ((self._active_dev, self.active), (self._temps_dev, self.temperature),
                           (self._topp_dev, self.topp), (self._pres_dev, self.presence),
                           (self._freq_dev, self.frequency), (self._limit_dev, self._row_limit())):
             dev.copy_(self._pinned(host), non_blocking=True)
+            nbytes += host.nbytes
         if self.pool is not None:
             self.cache.tables.copy_(self._pinned(self.pool.tables), non_blocking=True)
+            nbytes += self.pool.tables.nbytes
         self._vec_dirty = False
+        compile_obs.note_transfer("h2d", "vectors", nbytes)
 
     def _ensure_counts(self) -> None:
         if self._counts is None:
@@ -1216,6 +1286,7 @@ class BatchEngine:
         variant = ("penalized" if penalized else "sampled"
                    if (self.temperature[live] != 0.0).any() else "greedy")
         prog = self._program(variant, n)
+        t0, t_disp = time.perf_counter(), trace.TRACER.now()
         prog.run()
         self.forwards += n
         toks, bad = prog.buffers["toks"], prog.buffers["bad"]
@@ -1238,7 +1309,8 @@ class BatchEngine:
         self.pos += advance
         self.chunk_seq += 1
         return DecodeChunk(toks=toks, bad=bad, event=event, n=n, start_pos=start_pos,
-                           active=active, advance=advance, seq=self.chunk_seq)
+                           active=active, advance=advance, seq=self.chunk_seq, t0=t0,
+                           t_disp=t_disp)
 
     @property
     def supports_hybrid(self) -> bool:
@@ -1283,6 +1355,34 @@ class BatchEngine:
         chunk.hybrid_slot, chunk.hybrid_tokens = slot, adm.off - start
         return chunk
 
+    def declare_serving_buckets(self, chunk: int) -> None:
+        """Declare the serving scheduler's decode programs into this
+        engine's contract (idempotent): every variant at n in 1..chunk,
+        the counts a chunk can carry once the row limit clamps n. A hybrid
+        chunk is a prefill program and a decode program, both declared."""
+        for fn in ("decode", "decode_pen"):
+            for n in range(1, max(1, int(chunk)) + 1):
+                self.contract.declare(fn, f"n{n}")
+
+    def chunk_cost_model(self):
+        """Frozen obs/perf.ChunkCostModel pricing this engine's decode steps
+        (the scheduler's roofline-attainment feed): the JAX package's byte
+        formula with ``weight_bytes`` = the resident parameter bytes. The
+        paged route prices the kernel's per-page reads (the K9 route) or
+        the plain gather's full view."""
+        from dllama_tpu_torch.obs.perf import ChunkCostModel
+        from dllama_tpu_torch.utils.profiling import params_nbytes
+
+        cfg = self.cfg
+        return ChunkCostModel(
+            n_layers=cfg.n_layers, dim=cfg.dim, hidden_dim=cfg.hidden_dim,
+            kv_dim=cfg.kv_dim, head_size=cfg.head_size, n_kv_heads=cfg.n_kv_heads,
+            vocab_size=cfg.vocab_size, seq_len=self.seq_len,
+            weight_bytes=int(params_nbytes(self.params)),
+            cache_bytes_per_el=int(self.cache.k.element_size()),
+            paged=self.kv_layout == "paged", page_size=self.page_size,
+            paged_impl="gather" if self.attn_route == "paged_gather" else "kernel")
+
     def _prefill_widths(self) -> list[int]:
         """Every token width add_step and hybrid_dispatch can run: the powers
         of two up to min(max_prefill_chunk, seq_len)."""
@@ -1315,6 +1415,33 @@ class BatchEngine:
         self._ensure_counts()  # the penalized programs capture the counts
         self._sync_vectors()
         graphs0 = self.programs.stats()["graphs"]
+        self.declare_serving_buckets(chunk)
+        with compile_obs.LEDGER.warmup_phase():
+            per_fn, cached, widths, layouts = self._warm_programs(chunk)
+        report = {
+            "mode": "auto",
+            "buckets": sum(per_fn.values()),
+            "graphs_captured": self.programs.stats()["graphs"] - graphs0,
+            "cached": cached,
+            "per_fn": per_fn,
+            "hybrid_budget_hi": int(hybrid_budget_hi),
+            "seconds": round(time.perf_counter() - t0, 3),
+            "full_coverage": all(self.programs.ready(v, n) for n in range(1, chunk + 1)
+                                 for v in VARIANTS)
+                             and all(self.programs.prefill_ready(w, lay) for w in widths
+                                     for lay in layouts),
+        }
+        compile_obs.LEDGER.warmup_report = report
+        log.info("warmup: %d decode programs and %d prefill programs (%d graphs captured, "
+                 "%d cached) in %.2fs; %s", chunk * len(VARIANTS), per_fn["prefill_chunk"],
+                 report["graphs_captured"], cached, report["seconds"],
+                 "full coverage" if report["full_coverage"] else "coverage INCOMPLETE")
+        return report
+
+    def _warm_programs(self, chunk: int):
+        """warmup()'s captures -> (per_fn, cached, widths, layouts): the
+        decode programs, then the prefill program of every width on every
+        prefill layout, with inert operands."""
         per_fn: dict[str, int] = {}
         cached = 0
         fn_names = {"greedy": "decode", "sampled": "decode_sampled", "penalized": "decode_pen"}
@@ -1346,24 +1473,7 @@ class BatchEngine:
         self._sync_vectors()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        report = {
-            "mode": "auto",
-            "buckets": sum(per_fn.values()),
-            "graphs_captured": self.programs.stats()["graphs"] - graphs0,
-            "cached": cached,
-            "per_fn": per_fn,
-            "hybrid_budget_hi": int(hybrid_budget_hi),
-            "seconds": round(time.perf_counter() - t0, 3),
-            "full_coverage": all(self.programs.ready(v, n) for n in range(1, chunk + 1)
-                                 for v in VARIANTS)
-                             and all(self.programs.prefill_ready(w, lay) for w in widths
-                                     for lay in layouts),
-        }
-        log.info("warmup: %d decode programs and %d prefill programs (%d graphs captured, "
-                 "%d cached) in %.2fs; %s", chunk * len(VARIANTS), per_fn["prefill_chunk"],
-                 report["graphs_captured"], cached, report["seconds"],
-                 "full coverage" if report["full_coverage"] else "coverage INCOMPLETE")
-        return report
+        return per_fn, cached, widths, layouts
 
     def decode_consume(self, chunk: DecodeChunk) -> np.ndarray:
         """Wait for the chunk's tokens on the host; fold them into the host
@@ -1372,6 +1482,23 @@ class BatchEngine:
         if chunk.event is not None:
             chunk.event.synchronize()
         toks = chunk.toks.numpy().copy()
+        compile_obs.note_transfer("d2h", "decode_tokens", int(toks.nbytes))
+        # the wait above is the sync: the chunk's window runs from the later
+        # of its dispatch and the previous chunk's consumption (a chunk
+        # dispatched while its predecessor still ran is not billed the
+        # predecessor's tail), to now
+        now = time.perf_counter()
+        start = (chunk.t0 if self._t_last_consume is None
+                 else max(chunk.t0, self._t_last_consume))
+        chunk.device_s = now - start
+        ins.DECODE_CHUNK_SECONDS.observe(chunk.device_s)
+        self._t_last_consume = now
+        ins.BATCH_OCCUPANCY.observe(int(chunk.active.sum()))
+        tr = trace.TRACER
+        if tr.enabled:
+            tr.span_at("decode.device", chunk.t_disp, tr.now(), cat="decode",
+                       track="device", chunk=chunk.seq, n=chunk.n,
+                       occupancy=int(chunk.active.sum()))
         self.last_token[chunk.active] = toks[-1, chunk.active]
         return toks
 

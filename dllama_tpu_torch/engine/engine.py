@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from dllama_tpu_torch.engine.graphs import Programs
+from dllama_tpu_torch.obs import instruments as ins
 from dllama_tpu_torch.engine.kernel_select import resolve_kernels
 from dllama_tpu_torch.engine.sampling import Sampler, apply_penalties, sample_logits
 from dllama_tpu_torch.engine.speculative import spec_decode
@@ -114,7 +115,7 @@ class InferenceEngine:
         # (temperature, top-p, presence, frequency) and the occurrence counts
         # (made at the first penalized chunk); a prefill program's tokens
         # and logits are its own buffers
-        self.programs = Programs(self.device, capture)
+        self.programs = Programs(self.device, capture, tier="single")
         self._dec_tok = torch.zeros((batch, 1), dtype=torch.int64, device=self.device)
         self._dec_pos = torch.zeros(batch, dtype=torch.int32, device=self.device)
         self._dev_pos: int | None = None
@@ -380,6 +381,11 @@ class InferenceEngine:
         if stats is not None:
             stats.prefill_tokens += len(prompt_tokens)
             stats.prefill_s += t1 - t0
+        # the registry's mirror of the stats marks (one sample for the whole
+        # chunked prefill; the token's copy to the host made it device-real)
+        ins.PREFILL_CHUNK_SECONDS.observe(t1 - t0)
+        ins.PREFILL_TOKENS.inc(len(prompt_tokens))
+        ins.TOKENS_GENERATED.inc()  # the prefill-sampled first token
 
         fed = list(prompt_tokens) if use_spec else None
         produced = 0
@@ -413,8 +419,12 @@ class InferenceEngine:
             if stats is not None:
                 stats.decode_tokens += c
                 stats.decode_s += time.perf_counter() - t2
+            ins.DECODE_CHUNK_SECONDS.observe(time.perf_counter() - t2)
             for i in range(c):
                 token = int(toks[i, 0])
+                # counted at hand-off: after the yield it would never run for
+                # the last token of a stop-terminated iteration
+                ins.TOKENS_GENERATED.inc()
                 yield token
                 produced += 1
                 stopped = stop_fn is not None and stop_fn(token)

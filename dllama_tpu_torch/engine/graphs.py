@@ -42,16 +42,22 @@ prefill chunk of at most 16 tokens, run K1 (or K5) on the decode route.
 Module globals that the body reads when it runs are fixed in a graph at
 capture (:func:`knobs`); :class:`Programs` keys each program on them, so a
 changed knob captures another program instead of replaying a stale route.
+
+Every capture is recorded in the capture ledger (``obs/compile.LEDGER``,
+the port's counterpart of the JAX package's compile ledger) under its
+function label and bucket key (:meth:`Programs.label`), with its seconds.
 """
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Sequence
 
 import torch
 
 from dllama_tpu_torch.engine import sampling
+from dllama_tpu_torch.obs import compile as compile_obs
 from dllama_tpu_torch.ops import (
     flash_attention,
     layers,
@@ -60,6 +66,7 @@ from dllama_tpu_torch.ops import (
     q80_matmul,
     rms_norm,
 )
+from dllama_tpu_torch.utils.profiling import GRAPH_GATE
 
 #: the decode programs' variants (the JAX package's three scans)
 VARIANTS = ("greedy", "sampled", "penalized")
@@ -111,8 +118,10 @@ class Program:
     inputs and outputs by name; ``state``: the engine tensors it moves)."""
 
     def __init__(self, body: Callable[[], None], buffers: dict, state: Sequence[torch.Tensor],
-                 device: torch.device, capture: bool, pool=None):
+                 device: torch.device, capture: bool, pool=None,
+                 label: tuple[str, str] | None = None):
         self.body = body
+        self.label = label  # (ledger fn, bucket key) of its capture
         self.buffers = buffers
         self.state = tuple(state)
         self.device = device
@@ -139,12 +148,27 @@ class Program:
             self.body()
             return
         self.prepare()
-        self.graph.replay()
+        with GRAPH_GATE:  # never beside a profiler's start or stop
+            self.graph.replay()
         for table, delta in zip(launch_tables(), self.launches):
             table.update(replayed(table, delta))
 
     def _capture(self) -> None:
-        t0 = time.perf_counter()
+        # no cyclic garbage collection while capturing: a collection on the
+        # capturing thread that frees another engine's graphs destroys them
+        # mid-capture, which the driver refuses and which invalidates the
+        # capture (torch's graph context no longer collects first)
+        gc_on = gc.isenabled()
+        gc.disable()
+        try:
+            with GRAPH_GATE:  # never beside a profiler's start or stop
+                self._capture_graph()
+        finally:
+            if gc_on:
+                gc.enable()
+
+    def _capture_graph(self) -> None:
+        t_mono, t0 = time.monotonic(), time.perf_counter()
         main = torch.cuda.current_stream(self.device)
         stream = capture_stream(self.device)
         stream.wait_stream(main)
@@ -166,6 +190,9 @@ class Program:
         self.launches = launch_delta(before, after)
         self.graph = graph
         self.capture_s = time.perf_counter() - t0
+        if self.label is not None:
+            compile_obs.LEDGER.record_capture(*self.label, self.capture_s, t_mono,
+                                              sig=compile_obs.sig_of(*self.buffers.values()))
 
 
 Maker = Callable[..., tuple[Callable[[], None], dict, Sequence]]
@@ -175,9 +202,13 @@ class Programs:
     """An engine's device programs: decode programs keyed (variant, n,
     knobs()) and prefill programs keyed ("prefill", width, layout,
     knobs()). With ``capture`` None, capture is on exactly when the device
-    is CUDA; it is an error on another device."""
+    is CUDA; it is an error on another device. ``tier`` ("batch" or
+    "single") picks the capture ledger's function labels."""
 
-    def __init__(self, device, capture: bool | None = None):
+    def __init__(self, device, capture: bool | None = None, tier: str = "batch"):
+        if tier not in ("batch", "single"):
+            raise ValueError(f"tier must be batch|single, got {tier!r}")
+        self.tier = tier
         self.device = torch.device(device)
         if capture is None:
             capture = self.device.type == "cuda"
@@ -187,13 +218,27 @@ class Programs:
         self._pool = torch.cuda.graph_pool_handle() if self.capture else None
         self._progs: dict[tuple, Program] = {}
 
+    def label(self, key: tuple) -> tuple[str, str]:
+        """(ledger fn, bucket key) of the program keyed `key` (without the
+        knobs), in obs/compile.COMPILE_FNS's grammar: decode programs n{n},
+        prefill programs m{width}."""
+        single = self.tier == "single"
+        if key[0] == "prefill":
+            fn = "single_step" if single else "prefill_chunk"
+            bucket = f"m{key[1]}"
+        else:
+            fn = ("single_decode" if single
+                  else "decode_pen" if key[0] == "penalized" else "decode")
+            bucket = f"n{key[1]}"
+        return fn, bucket
+
     def _get(self, key: tuple, make: Maker, *args) -> Program:
-        key = key + (knobs(),)
-        prog = self._progs.get(key)
+        full = key + (knobs(),)
+        prog = self._progs.get(full)
         if prog is None:
             body, buffers, state = make(*args)
-            prog = self._progs[key] = Program(body, buffers, state, self.device,
-                                              self.capture, self._pool)
+            prog = self._progs[full] = Program(body, buffers, state, self.device,
+                                               self.capture, self._pool, self.label(key))
         return prog
 
     def get(self, variant: str, n: int, make: Maker) -> Program:

@@ -44,8 +44,9 @@ Design constraints the page pool imposes (and how the tree meets them):
   (``spill``) before it is dropped.
 
 The cumulative counts (lookups, hits, hit tokens, inserted and evicted
-pages) are kept in ``stats()``; ``carry_from`` carries them into a tree
-rebuilt against a fresh pool.
+pages) are kept in ``stats()`` and published as the ``dllama_radix_*``
+series; ``carry_from`` carries them into a tree rebuilt against a fresh
+pool.
 
 Thread-safety: the scheduler worker is the only mutator, but ``stats()``,
 ``dump()`` and the audit provider are read from HTTP handler threads, so
@@ -57,6 +58,8 @@ from __future__ import annotations
 
 import heapq
 import time
+
+from dllama_tpu_torch.obs import instruments as ins
 
 
 def _lcp(a, b) -> int:
@@ -105,8 +108,11 @@ class RadixHit:
 class RadixCache:
     """The global prefix tree over one :class:`PagePool`.
 
-    ``carry_from`` preserves the cumulative accounting of a tree this one
-    replaces (the tree itself is rebuilt empty against the fresh pool)."""
+    Owns the ``dllama_radix_nodes`` / ``dllama_radix_pages`` gauges and the
+    ``dllama_radix_lookups_total{outcome}`` / ``dllama_radix_hit_tokens_total``
+    counters (single publication site). ``carry_from`` preserves the
+    cumulative accounting of a tree this one replaces (the tree itself is
+    rebuilt empty against the fresh pool)."""
 
     def __init__(self, pool, carry_from: "RadixCache | None" = None):
         self.pool = pool
@@ -132,12 +138,16 @@ class RadixCache:
         # host-tier spill hook (BatchEngine._host_spill when --kv-host-pages
         # is on): called under the pool lock with (token_path_key, page_id)
         # for each last-reference page right before eviction drops it; a
-        # False return (a copy error, counted by the tier) is the plain
-        # discard
+        # False/failed spill degrades to the plain discard
         self.spill = None
         pool.radix_refs = self.audit_refs  # audit reconciliation hook
+        self._publish()
 
     # ------------------------------------------------------------- internal
+
+    def _publish(self) -> None:
+        ins.RADIX_NODES.set(self.n_nodes)
+        ins.RADIX_PAGES.set(self.n_pages)
 
     def _iter_nodes(self):
         stack = list(self.root.children.values())
@@ -250,6 +260,9 @@ class RadixCache:
             rows = depth + part
             if rows > 0 and count:
                 self.hits += 1
+        if count:
+            ins.RADIX_LOOKUPS.labels(
+                outcome="hit" if rows > 0 else "miss").inc()
         return RadixHit(rows=rows, pages=pages, part=part, boundary=boundary,
                         path=tuple(path), tokens=toks[:rows])
 
@@ -261,6 +274,7 @@ class RadixCache:
             return
         with self._mu:
             self.hit_tokens += int(rows)
+        ins.RADIX_HIT_TOKENS.inc(int(rows))
 
     def insert(self, toks, slot_pages) -> int:
         """Insert the full-page prefix of ``toks`` — KV rows backed by
@@ -309,6 +323,8 @@ class RadixCache:
             self.n_nodes += 1
             self.n_pages += len(adopt)
             self.inserted_pages += len(adopt)
+            self.pool._publish()  # shared-pages gauge may have moved
+            self._publish()
             return len(adopt)
 
     def evict(self, need: int, protect=None) -> int:
@@ -359,7 +375,10 @@ class RadixCache:
                         heap,
                         ((parent.last_used, len(parent.pages), id(parent)),
                          parent))
-            self.evicted_pages += freed
+            if freed:
+                self.evicted_pages += freed
+                self.pool._publish()
+                self._publish()
         return freed
 
     def restore_prefix(self, toks, peek, install, take) -> int:
@@ -421,6 +440,9 @@ class RadixCache:
                 grafted += 1
                 node = new
                 depth += page
+            if grafted:
+                self.pool._publish()
+                self._publish()
         return grafted
 
     def clear(self) -> int:
@@ -434,6 +456,8 @@ class RadixCache:
             self.root = RadixNode()
             self.n_nodes = 0
             self.n_pages = 0
+            self.pool._publish()
+            self._publish()
             return self.pool.free_count - before
 
     # -------------------------------------------------------- observability
@@ -471,9 +495,9 @@ class RadixCache:
         return refs, problems
 
     def stats(self) -> dict:
-        """Occupancy + cumulative hit accounting (the scheduler's
-        latency_summary()). ``hit_tokens`` is the saved-prefill-rows
-        total."""
+        """Occupancy + cumulative hit accounting (latency_summary(),
+        /debug/perf, /debug/radix — and the gauges' source of truth).
+        ``hit_tokens`` is the saved-prefill-rows total."""
         with self._mu:
             return {
                 "nodes": self.n_nodes,
@@ -489,8 +513,7 @@ class RadixCache:
             }
 
     def dump(self, max_nodes: int = 512) -> dict:
-        """Bounded JSON tree dump (the JAX package serves it at ``GET
-        /debug/radix``): nested nodes
+        """Bounded JSON tree dump for ``GET /debug/radix``: nested nodes
         with their token labels (truncated past 16), page ids, and
         last-use age. ``truncated`` flags a cut-off subtree."""
         now = time.monotonic()

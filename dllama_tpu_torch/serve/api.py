@@ -5,10 +5,15 @@ BatchEngine behind a Scheduler, concurrent requests sharing the card).
 
 Routes: POST /v1/chat/completions and the legacy POST /v1/completions (both
 stream + non-stream), GET /v1/models, GET /health (+ /health/live,
-/health/ready). Every POST mints (or adopts from an inbound X-Request-Id) a
-request id returned as the X-Request-Id header. Request params override the
-CLI defaults as the reference's do (dllama-api.cpp:455-484): temperature,
-top_p, presence/frequency_penalty, seed, max_tokens, stop, stream.
+/health/ready), GET /metrics (the Prometheus text exposition of the process
+registry, obs/), the read-only /debug family (GET /debug/kv, /debug/radix,
+/debug/perf, /debug/compile, /debug/trace, /debug/requests[/{req_id}]) and
+POST /debug/profile (a timed torch.profiler capture). Every POST mints (or
+adopts from an inbound X-Request-Id) a request id returned as the
+X-Request-Id header and carried by the request's log lines (``request_id``)
+and trace spans. Request params override the CLI defaults as the
+reference's do (dllama-api.cpp:455-484): temperature, top_p,
+presence/frequency_penalty, seed, max_tokens, stop, stream.
 
 The **prefix cache** reproduces NaiveCache (dllama-api.cpp:264-309): the
 previous request's chat history is kept with its KV-cache position; when a
@@ -21,6 +26,11 @@ the token level, for many conversations at once, and a request's
 ``priority`` and ``tenant`` steer its admission. The JSON and SSE bodies
 are those of the JAX package's tiers; a full admission queue answers 429
 with Retry-After.
+
+Two transports serve the same routes (:class:`RequestRoutes`): the
+selectors event loop of serve/aio.py (``frontend="aio"``, the default, as
+in the JAX package) and the thread-per-connection ThreadingHTTPServer
+(``frontend="threads"``).
 """
 
 from __future__ import annotations
@@ -28,7 +38,6 @@ from __future__ import annotations
 import json
 import logging
 import math
-import re
 import select
 import signal
 import socket
@@ -40,7 +49,12 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from dllama_tpu_torch import __version__
 from dllama_tpu_torch.engine.sampling import Sampler
+from dllama_tpu_torch.obs import compile as compile_obs
+from dllama_tpu_torch.obs import instruments as ins
+from dllama_tpu_torch.obs import metrics, new_request_id, trace
+from dllama_tpu_torch.obs import perf as perfmod
 from dllama_tpu_torch.serve.scheduler import QueueFull, SchedulerRejected
+from dllama_tpu_torch.utils import locks
 from dllama_tpu_torch.tokenizer.chat import (
     ChatItem,
     ChatTemplate,
@@ -54,17 +68,6 @@ log = logging.getLogger("dllama_tpu_torch.serve")
 #: socket errors meaning "the client went away"
 CLIENT_GONE = (BrokenPipeError, ConnectionResetError, ConnectionAbortedError,
                TimeoutError, socket.timeout)
-
-_REQ_ID_RE = re.compile(r"^[A-Za-z0-9._:-]{1,128}$")
-
-
-def new_request_id(client_supplied: str | None = None) -> str:
-    """Mint a ``req_<hex>`` id, or adopt a well-formed client-supplied
-    ``X-Request-Id`` verbatim (a malformed one is replaced, never echoed)."""
-    if client_supplied and _REQ_ID_RE.match(client_supplied):
-        return client_supplied
-    return "req_" + uuid.uuid4().hex[:24]
-
 
 class ClientDisconnected(Exception):
     """Raised inside a completion when the disconnect probe sees the client
@@ -189,7 +192,8 @@ class PrefixCache:
 class ApiServer:
     def __init__(self, loaded, default_temperature=0.8, default_topp=0.9,
                  default_seed=None, replica_id: str = "", sse_heartbeat_s: float = 0.0,
-                 scheduler=None, spec: int = 0):
+                 scheduler=None, spec: int = 0, slo_ttft_ms: float | None = None,
+                 slo_itl_ms: float | None = None):
         self.scheduler = scheduler
         # prompt-lookup speculative decoding of greedy single-engine
         # requests: the draft length, and the cap of a request's spec_k
@@ -204,33 +208,61 @@ class ApiServer:
         self.cache = PrefixCache()
         self.replica_id = str(replica_id or "")
         self.sse_heartbeat_s = float(sse_heartbeat_s or 0.0)
-        self.lock = threading.Lock()
+        self.lock = locks.make_lock("api.single")
         self.model_name = "dllama-tpu"
         self.draining = False
+        # device-memory gauges (model_params_bytes / kv_cache_bytes) of the
+        # engine that serves: the BatchEngine on the batched tier
+        from dllama_tpu_torch.utils.profiling import set_memory_gauges
+
         eng = scheduler.engine if scheduler is not None else self.engine
+        self.model_params_bytes, self.kv_cache_bytes = set_memory_gauges(eng.params, eng.cache)
+        overlap = "n/a" if scheduler is None else ("on" if scheduler.overlap else "off")
+        warmup = "n/a" if scheduler is None else scheduler.warmup
         self.build_info = {"version": __version__, "backend": eng.device.type,
-                           "kernels": eng.backend, "attention": eng.attn_route}
+                           "kernels": eng.backend, "attention": eng.attn_route,
+                           "overlap": overlap, "warmup": warmup}
         if scheduler is not None:
             self.build_info["kv_layout"] = eng.kv_layout
+        # the build-info gauge (always 1; the labels are the payload), under
+        # the JAX package's label names: `jax` reads "none" on this package
+        ins.BUILD_INFO.labels(version=__version__, jax="none", backend=eng.device.type,
+                              overlap=overlap, warmup=warmup).set(1)
+        # the SLO policy of the /debug/requests/{id} verdict: the scheduler's
+        # aggregator owns it on the batched tier, the api on the single tier
+        self.slo = (scheduler.perf.slo if scheduler is not None
+                    else perfmod.SloPolicy(None if slo_ttft_ms is None else float(slo_ttft_ms),
+                                           None if slo_itl_ms is None else float(slo_itl_ms)))
 
     def health(self) -> dict:
         if self.scheduler is not None:
             h = self.scheduler.health()
         else:
             h = {"live": True, "ready": True, "queue_depth": 0, "busy_slots": 0,
-                 "n_slots": 0}
+                 "n_slots": 0,
+                 # the capture ledger rides the single tier's probe too
+                 "compile": {"warmup": "n/a",
+                             "compiles": compile_obs.LEDGER.total_compiles(),
+                             "unexpected_compiles": compile_obs.LEDGER.total_unexpected()}}
         if self.draining:
             h["ready"] = False
             h["draining"] = True
         h["status"] = "ok" if h["live"] else "unhealthy"
         h["mode"] = "continuous" if self.scheduler is not None else "single"
+        h["model_params_bytes"] = self.model_params_bytes
+        h["kv_cache_bytes"] = self.kv_cache_bytes
         h["build"] = self.build_info
+        # process self-metrics: uptime, RSS and threads without a scrape
+        h["process"] = ins.refresh_process_gauges()
+        h["clock"] = {"monotonic_s": time.monotonic(),
+                      "trace_epoch_s": getattr(trace.TRACER, "epoch", None)}
         return h
 
     def precheck_capacity(self) -> None:
         """Raise what a submit would raise, without submitting: stream
         handlers call it before their 200/chunked headers go out."""
         if self.draining:
+            ins.REQUESTS_SHED.labels(reason="draining").inc()
             raise Draining("server is draining")
         if self.scheduler is not None:
             self.scheduler.check_admission()
@@ -254,7 +286,8 @@ class ApiServer:
         if self.scheduler is not None:
             content, finish, n_generated, timings = self._run_batched(p, emit, probe, req_id)
         else:
-            content, finish, n_generated, timings = self._serve_single(p, emit, probe, t_submit)
+            content, finish, n_generated, timings = self._serve_single(p, emit, probe, t_submit,
+                                                                       req_id)
         n_prompt = len(p["prompt_tokens"])
         if legacy:
             head = {"id": f"cmpl-{uuid.uuid4().hex[:16]}", "object": "text_completion"}
@@ -346,12 +379,17 @@ class ApiServer:
 
     # -------------------------------------------------- single-engine tier
 
-    def _serve_single(self, p: dict, emit, probe, t_submit: float):
+    def _serve_single(self, p: dict, emit, probe, t_submit: float, req_id: str = ""):
         """One request on the single engine, under the lock -> (content,
         finish_reason, n_tokens, timings). A chat request extending the
         cached conversation prefills only the delta (``p["prompt_tokens"]``
-        is set to it); a raw prompt drops the cache's claim."""
+        is set to it); a raw prompt drops the cache's claim. The flight
+        recorder gets the request's marks (the lock wait plays the queue)."""
         timeout_s = p["timeout_s"]
+        tr = trace.TRACER
+        if tr.enabled and req_id:
+            tr.req_submit(req_id, t=t_submit)
+        start_pos = 0
         with self.lock:
             t_admit = time.monotonic()
             messages = p.get("messages")
@@ -398,6 +436,15 @@ class ApiServer:
             timings["deadline_exceeded"] = finish == "timeout"
         if self.replica_id:
             timings["replica"] = self.replica_id
+        if tr.enabled and req_id:
+            tr.req_admitted(req_id, t=t_admit)
+            tr.req_mark(req_id, prompt_tokens=len(p["prompt_tokens"]), reused_tokens=start_pos)
+            if t_first is not None:
+                tr.req_first_token(req_id, t=t_first)
+            if finish == "timeout":
+                tr.event("request.timeout", cat="deadline", track="requests", req_id=req_id,
+                         where="queued" if n_generated == 0 else "decoding")
+            tr.req_end(req_id, finish, t=t_done, **timings)
         return content, finish, n_generated, timings
 
     def _run_single(self, prompt_tokens, budget, sampler, stops, emit, probe=None,
@@ -514,6 +561,36 @@ class ApiServer:
             "owned_by": "dllama-tpu"}]}
 
 
+#: path -> bounded-cardinality endpoint label for the HTTP response counter
+_KNOWN_PATHS = {
+    "/v1/chat/completions": "/v1/chat/completions",
+    "/chat/completions": "/v1/chat/completions",
+    "/v1/completions": "/v1/completions",
+    "/completions": "/v1/completions",
+    "/v1/models": "/v1/models",
+    "/health": "/health",
+    "/health/live": "/health/live",
+    "/health/ready": "/health/ready",
+    "/metrics": "/metrics",
+    "/debug/trace": "/debug/trace",
+    "/debug/requests": "/debug/requests",
+    "/debug/profile": "/debug/profile",
+    "/debug/kv": "/debug/kv",
+    "/debug/perf": "/debug/perf",
+    "/debug/radix": "/debug/radix",
+    "/debug/compile": "/debug/compile",
+}
+
+
+def _endpoint(path: str) -> str:
+    """Label-safe endpoint name: unknown paths collapse to 'other' and
+    per-request flight-recorder lookups collapse their id, so a scanner
+    cannot explode the label cardinality."""
+    if path.startswith("/debug/requests/"):
+        return "/debug/requests/{req_id}"
+    return _KNOWN_PATHS.get(path, "other")
+
+
 #: SSE comment frame: the keep-alive heartbeat idle streams emit
 SSE_HEARTBEAT = b": keep-alive\n\n"
 
@@ -549,9 +626,13 @@ def sse_text_payload(cid: str, created: int, model: str, text: str, finish=None,
 
 
 class RequestRoutes:
-    """The HTTP routes, written against a transport seam (``_send_raw``,
-    ``_start_sse``, ``_write_chunk``, ``_read_body``, ``_client_gone``) plus
-    ``path``/``headers`` of the current request."""
+    """The HTTP routes, written against a transport seam so the
+    thread-per-connection tier (:class:`_Handler`) and the event-loop tier
+    (serve/aio.py) serve the same semantics from one definition site.
+    Subclasses provide ``_send_raw(status, headers, body)``, ``_start_sse()``,
+    ``_write_chunk(payload)`` (b"" ends the stream), ``_read_body()``,
+    ``_drain_body()`` and ``_client_gone()``, plus ``path``/``headers`` of
+    the current request."""
 
     api: ApiServer
     _req_id: str | None = None
@@ -574,6 +655,12 @@ class RequestRoutes:
         self._req_id = None
         if self.path == "/v1/models":
             self._send_json(200, self.api.models())
+        elif self.path == "/metrics":
+            self._metrics()
+        elif self.path.startswith("/debug/"):
+            # read-side observability: no request id, no admission counter
+            self._drain_body()
+            self._debug_get()
         elif self.path in ("/health", "/health/live", "/health/ready"):
             h = self.api.health()
             key = "ready" if self.path.endswith("/ready") else "live"
@@ -581,16 +668,147 @@ class RequestRoutes:
         else:
             self._send_json(404, {"error": {"message": "not found"}})
 
+    def _metrics(self) -> None:
+        """GET /metrics: refresh the scrape-time gauges (process, device
+        memory, the time ledger's open span, the aggregator's windows), then
+        render the registry. A render failure is a 500 and a log line, never
+        an empty 200."""
+        try:
+            ins.refresh_process_gauges()
+            compile_obs.refresh_device_gauges()
+            sched = self.api.scheduler
+            if sched is not None:
+                sched.ledger.poke()
+                sched.perf.refresh_gauges()
+            body = metrics.REGISTRY.render().encode()
+        except Exception:
+            log.exception("/metrics render failed")
+            self._send_json(500, {"error": {"message": "metrics render failed"}})
+            return
+        self._send_raw(200, [("Content-Type", "text/plain; version=0.0.4; charset=utf-8"),
+                             ("Content-Length", str(len(body)))], body)
+
+    def _debug_kv(self) -> None:
+        """GET /debug/kv: page-pool occupancy and an audit run on demand
+        (refcounts against the block tables and the tree, free-list
+        disjointness); 500 when the audit finds corruption."""
+        sched = self.api.scheduler
+        pool = sched.engine.pool if sched is not None else None
+        if pool is None:
+            self._send_json(200, {"layout": "dense", "pool": None, "audit": None})
+            return
+        report = pool.audit(raise_on_fail=False)
+        self._send_json(200 if report["ok"] else 500,
+                        {"layout": "paged", "page_size": pool.page_size, "pool": pool.stats(),
+                         "audit": report, "radix": sched.engine.radix_stats()})
+
+    def _debug_radix(self) -> None:
+        """GET /debug/radix: the prefix tree's hit accounting and a bounded
+        dump of the live tree; enabled=false with the tree off."""
+        sched = self.api.scheduler
+        radix = sched.engine.radix if sched is not None else None
+        if radix is None:
+            self._send_json(200, {"enabled": False, "stats": None, "tree": None})
+            return
+        self._send_json(200, {"enabled": True, "page_size": radix.page, "stats": radix.stats(),
+                              "tree": radix.dump()})
+
+    def _debug_perf(self) -> None:
+        """GET /debug/perf: windowed TTFT/ITL/e2e quantiles, SLO accounting,
+        the time ledger, the roofline (bandwidth attainment against the
+        card's peak) and the process self-metrics in one document."""
+        sched = self.api.scheduler
+        payload: dict = {"process": ins.refresh_process_gauges()}
+        if sched is None:
+            payload.update({"mode": "single",
+                            "slo": {"targets": {"ttft_ms": self.api.slo.ttft_ms,
+                                                "itl_ms": self.api.slo.itl_ms},
+                                    "enabled": self.api.slo.enabled()}})
+        else:
+            sched.ledger.poke()  # a long idle park reads as idle seconds now
+            sched.perf.refresh_gauges()  # /metrics and this document agree
+            payload["mode"] = "continuous"
+            payload.update(sched.perf.snapshot(ledger=sched.ledger))
+            payload["radix"] = sched.engine.radix_stats()
+            payload["spec"] = None  # batched speculation is not ported
+            payload["hybrid"] = {"prefill_budget": sched._budget_now,
+                                 "preemptions": sched.preempt_count,
+                                 "resumed": sched.resume_count}
+        payload["compile"] = compile_obs.LEDGER.summary()
+        self._send_json(200, payload)
+
+    def _debug_compile(self) -> None:
+        """GET /debug/compile: the capture ledger (per-fn totals, recent
+        captures), the shape contract's coverage, the boot warm-up report,
+        host/device transfer tallies and live device memory."""
+        sched = self.api.scheduler
+        self._send_json(200, compile_obs.debug_payload(
+            warmup_report=sched.warmup_report if sched is not None else None))
+
+    def _debug_get(self) -> None:
+        if self.path == "/debug/kv":
+            self._debug_kv()
+            return
+        if self.path == "/debug/perf":
+            self._debug_perf()
+            return
+        if self.path == "/debug/radix":
+            self._debug_radix()
+            return
+        if self.path == "/debug/compile":
+            self._debug_compile()
+            return
+        tr = trace.TRACER
+        if not tr.enabled:
+            self._send_json(404, {"error": {
+                "message": "tracing is disabled; restart with --trace-buffer N > 0"}})
+            return
+        if self.path == "/debug/trace":
+            self._send_json(200, tr.export_chrome())
+        elif self.path == "/debug/requests":
+            self._send_json(200, {"requests": tr.requests_summary()})
+        elif self.path.startswith("/debug/requests/"):
+            rid = self.path[len("/debug/requests/"):]
+            rec = tr.request_timeline(rid)
+            if rec is None:
+                self._send_json(404, {"error": {
+                    "message": f"no flight-recorder entry for {rid!r} "
+                               "(never seen, or evicted from the ring)"}})
+            else:
+                # the postmortem SLO verdict from the record's own marks
+                rec["slo"] = self.api.slo.verdict_from_marks(
+                    rec.get("ttft_ms"), rec.get("e2e_ms"), rec.get("decode_tokens"))
+                self._send_json(200, rec)
+        else:
+            self._send_json(404, {"error": {"message": "not found"}})
+
+    def _log_done(self, rid: str, result: dict) -> None:
+        u = result.get("usage", {})
+        log.info("completion %s done: %d prompt + %d completion tokens", rid,
+                 u.get("prompt_tokens", 0), u.get("completion_tokens", 0),
+                 extra=trace.log_extra(rid))
+
     def do_POST(self):
         rid = self._req_id = new_request_id(self.headers.get("X-Request-Id"))
         chat = self.path in ("/v1/chat/completions", "/chat/completions")
         legacy = self.path in ("/v1/completions", "/completions")
+        # a router hop header joins this request's record to the mesh trace;
+        # marked before admission, so even a shed request correlates
+        hopctx = trace.parse_hop(self.headers.get(trace.HOP_HEADER))
+        if hopctx is not None and (chat or legacy):
+            trace.TRACER.req_mark(rid, trace_id=hopctx[0], parent_span=hopctx[1],
+                                  hop=hopctx[2])
         # consume the body before any early answer: on a keep-alive
         # connection unread bytes would be parsed as the next request line
         try:
             raw = self._read_body()
         except (ValueError, OSError):
             self._send_json(400, {"error": {"message": "invalid request"}})
+            return
+        if self.path == "/debug/profile":
+            # not a serving request: no request id, no admission counters
+            self._req_id = None
+            self._handle_profile(raw)
             return
         if not (chat or legacy):
             self._send_json(404, {"error": {"message": "not found"}})
@@ -613,31 +831,70 @@ class RequestRoutes:
             elif legacy:
                 result = self.api.complete_legacy(body, probe=self._client_gone, req_id=rid)
                 result["request_id"] = rid
+                self._log_done(rid, result)
                 self._send_json(200, result)
             else:
                 result = self.api.complete(body, probe=self._client_gone, req_id=rid)
                 result["request_id"] = rid
+                self._log_done(rid, result)
                 self._send_json(200, result)
         except ApiError as e:
-            log.info("request %s rejected: %s", rid, e.message)
+            log.info("request %s rejected: %s", rid, e.message, extra=trace.log_extra(rid))
             self._send_json(e.status, {"error": {"message": e.message}})
         except (Draining, SchedulerRejected) as e:
             status = 429 if isinstance(e, QueueFull) else 503
+            log.warning("request %s shed (%s): %s", rid, e.__class__.__name__, e,
+                        extra=trace.log_extra(rid))
             self._send_json(status, {"error": {"message": str(e)}},
                             {"Retry-After": str(max(1, math.ceil(e.retry_after_s)))})
         except ClientDisconnected:
-            log.info("client disconnected; request %s cancelled", rid)
+            log.info("client disconnected; request %s cancelled", rid,
+                     extra=trace.log_extra(rid))
         except CLIENT_GONE:
-            log.info("client connection lost mid-response (request %s)", rid)
+            log.info("client connection lost mid-response (request %s)", rid,
+                     extra=trace.log_extra(rid))
         except Exception:
-            log.exception("completion %s failed", rid)
+            log.exception("completion %s failed", rid, extra=trace.log_extra(rid))
             try:
                 self._send_json(500, {"error": {"message": "internal error"}})
             except CLIENT_GONE:
                 pass
 
+    def _handle_profile(self, raw: bytes) -> None:
+        """POST /debug/profile: a duration-capped torch.profiler capture
+        (utils/profiling.start_profile, the profiler the CLI's --trace
+        uses), exported as a Chrome trace into its directory. Body:
+        {"duration_s": float, "dir": str}, both optional. 409 while a
+        capture runs; 503 when the card's activity cannot be recorded."""
+        from dllama_tpu_torch.utils import profiling
+
+        try:
+            body = json.loads(raw or b"{}")
+            if not isinstance(body, dict):
+                raise ValueError
+        except (ValueError, json.JSONDecodeError):
+            self._send_json(400, {"error": {"message": "invalid JSON body"}})
+            return
+        try:
+            info = profiling.start_profile(log_dir=body.get("dir"),
+                                           duration_s=body.get("duration_s", 2.0))
+        except profiling.ProfileBusy as e:
+            self._send_json(409, {"error": {"message": str(e)}}, {"Retry-After": "2"})
+            return
+        except profiling.ProfileUnavailable as e:
+            self._send_json(503, {"error": {"message": str(e)}})
+            return
+        except (TypeError, ValueError) as e:
+            self._send_json(400, {"error": {"message": f"bad profile request: {e}"}})
+            return
+        log.info("profile capture started: %.2fs -> %s", info["duration_s"], info["trace"])
+        self._send_json(200, {"profiling": info})
+
     def _stream(self, body: dict, legacy: bool = False) -> None:
-        """SSE chunked streaming (dllama-api.cpp:203-223's role)."""
+        """SSE chunked streaming (dllama-api.cpp:203-223's role). Blocking:
+        the threads tier runs every stream through it; the aio tier runs
+        only the single-engine tier's streams here (its batched streams go
+        to the SSE pump)."""
         rid = self._req_id
         self._start_sse()
         cid = f"{'cmpl' if legacy else 'chatcmpl'}-{uuid.uuid4().hex[:16]}"
@@ -673,12 +930,14 @@ class RequestRoutes:
                     req_id=rid)
                 emit_chat({}, finish=result["choices"][0]["finish_reason"],
                           timings=result.get("timings"))
+            self._log_done(rid or "-", result)
         except (ClientDisconnected, *CLIENT_GONE):
             raise
         except Exception as e:
             # the headers are out: report in-band and end the stream cleanly
-            log.exception("streamed completion %s failed mid-stream", rid)
-            msg = str(e) if isinstance(e, ApiError) else "internal error"
+            log.exception("streamed completion %s failed mid-stream", rid,
+                          extra=trace.log_extra(rid))
+            msg = str(e) if isinstance(e, (ApiError, SchedulerRejected)) else "internal error"
             err = {"message": msg or e.__class__.__name__, "type": "server_error"}
             if rid:
                 err["request_id"] = rid
@@ -701,6 +960,9 @@ class _Handler(RequestRoutes, BaseHTTPRequestHandler):
         for k, v in headers:
             self.send_header(k, v)
         self.end_headers()
+        # counted before the body write: once a client has read the
+        # response, the counter has moved
+        ins.HTTP_RESPONSES.labels(endpoint=_endpoint(self.path), code=str(status)).inc()
         self.wfile.write(body)
 
     def _start_sse(self) -> None:
@@ -713,6 +975,7 @@ class _Handler(RequestRoutes, BaseHTTPRequestHandler):
         if self.api.replica_id:
             self.send_header("X-Replica-Id", self.api.replica_id)
         self.end_headers()
+        ins.HTTP_RESPONSES.labels(endpoint=_endpoint(self.path), code="200").inc()
 
     def _write_chunk(self, payload: bytes) -> None:
         self.wfile.write(f"{len(payload):x}\r\n".encode() + payload + b"\r\n")
@@ -720,6 +983,20 @@ class _Handler(RequestRoutes, BaseHTTPRequestHandler):
 
     def _read_body(self) -> bytes:
         return self.rfile.read(int(self.headers.get("Content-Length", 0)))
+
+    def _drain_body(self) -> None:
+        """Read and discard a GET's body (legal, if unusual): unread bytes
+        would be parsed as the next request line on this keep-alive
+        connection."""
+        try:
+            length = int(self.headers.get("Content-Length") or 0)
+        except ValueError:
+            length = 0
+        if length > 0:
+            try:
+                self.rfile.read(length)
+            except OSError:
+                pass
 
     def _client_gone(self) -> bool:
         """A readable socket that MSG_PEEKs zero bytes is a closed peer."""
@@ -733,24 +1010,27 @@ class _Handler(RequestRoutes, BaseHTTPRequestHandler):
 
 
 def make_server(loaded, host="127.0.0.1", port=0, n_slots: int = 0, **defaults):
-    """-> (server, api) on a ThreadingHTTPServer. n_slots > 0 is the
-    continuous-batching tier: a BatchEngine with that many cache slots behind
-    a Scheduler, with the radix prefix tree on the paged layout
-    (``radix_cache``, auto = on where paged), the host-RAM spill tier
-    (``kv_host_pages``), preemption (``preempt``, auto = on) and tenant
-    weights (``tenant_weights``), the JAX package's defaults. n_slots == 0
-    keeps the single-engine tier with the NaiveCache prefix reuse, and
-    ``spec`` > 0 (--spec) its speculative decoding of greedy requests.
-    Batched speculation (spec with n_slots > 0) and the aio front end are
-    not yet ported and raise."""
+    """-> (server, api). n_slots > 0 is the continuous-batching tier: a
+    BatchEngine with that many cache slots behind a Scheduler, with the radix
+    prefix tree on the paged layout (``radix_cache``, auto = on where paged),
+    the host-RAM spill tier (``kv_host_pages``), preemption (``preempt``,
+    auto = on) and tenant weights (``tenant_weights``), the JAX package's
+    defaults. n_slots == 0 keeps the single-engine tier with the NaiveCache
+    prefix reuse, and ``spec`` > 0 (--spec) its speculative decoding of
+    greedy requests. ``frontend`` picks the transport: 'aio' (the default,
+    serve/aio.py's event loop; ``aio_workers`` sizes its pool) or 'threads'
+    (ThreadingHTTPServer); both answer the same routes and expose
+    serve_forever/shutdown/server_close/server_address. A bind or start
+    failure of either raises. ``slo_ttft_ms``/``slo_itl_ms`` are the SLO
+    targets the perf aggregator judges requests by. Batched speculation
+    (spec with n_slots > 0) is not yet ported and raises."""
     spec = int(defaults.get("spec") or 0)
     if spec > 0 and n_slots > 0:
         raise NotImplementedError("batched speculative decoding (--spec with --slots > 0) "
                                   "is not yet ported to the PyTorch/CUDA package")
-    frontend = str(defaults.get("frontend") or "threads")
-    if frontend != "threads":
-        raise NotImplementedError(f"--frontend {frontend} is not yet ported to the "
-                                  "PyTorch/CUDA package (threads is)")
+    frontend = str(defaults.get("frontend") or "aio")
+    if frontend not in ("aio", "threads"):
+        raise ValueError(f"unknown frontend {frontend!r} (aio|threads)")
     if n_slots <= 0 and defaults.get("warmup") not in (None, "off"):
         log.warning("--warmup needs --slots > 0; the single-engine tier has no "
                     "BatchEngine shape contract to precompile — ignored")
@@ -764,12 +1044,11 @@ def make_server(loaded, host="127.0.0.1", port=0, n_slots: int = 0, **defaults):
                          or defaults.get("preempt") not in (None, "auto")
                          or defaults.get("tenant_weights")
                          or any(defaults.get(k) is not None
-                                for k in ("admit_stall_budget_ms", "admit_ttft_deadline_ms",
-                                          "slo_itl_ms"))):
+                                for k in ("admit_stall_budget_ms", "admit_ttft_deadline_ms"))):
         log.warning("--prefill-budget / --admit-budget-ms / --admit-ttft-deadline-ms / "
-                    "--slo-itl-ms / --preempt / --tenant-weight need --slots > 0; the "
-                    "single-engine tier serves one request at a time and has no admission "
-                    "scheduler — ignored (priority/tenant body fields are validated only)")
+                    "--preempt / --tenant-weight need --slots > 0; the single-engine tier "
+                    "serves one request at a time and has no admission scheduler — ignored "
+                    "(priority/tenant body fields are validated only)")
     scheduler = None
     if n_slots > 0:
         scheduler = _make_scheduler(loaded, n_slots, defaults)
@@ -782,9 +1061,17 @@ def make_server(loaded, host="127.0.0.1", port=0, n_slots: int = 0, **defaults):
         sse_heartbeat_s=defaults.get("sse_heartbeat_s") or 0.0,
         scheduler=scheduler,
         spec=spec,
+        slo_ttft_ms=defaults.get("slo_ttft_ms"),
+        slo_itl_ms=defaults.get("slo_itl_ms"),
     )
-    handler = type("Handler", (_Handler,), {"api": api})
-    httpd = ThreadingHTTPServer((host, port), handler)
+    if frontend == "aio":
+        from dllama_tpu_torch.serve.aio import AioHttpServer
+
+        httpd = AioHttpServer((host, port), api,
+                              workers=int(defaults.get("aio_workers") or 0) or None)
+    else:
+        handler = type("Handler", (_Handler,), {"api": api})
+        httpd = ThreadingHTTPServer((host, port), handler)
     if not api.replica_id:
         ident = socket.gethostname() if host in ("0.0.0.0", "::", "") else host
         api.replica_id = f"{ident}:{httpd.server_address[1]}"
@@ -849,7 +1136,7 @@ def _make_scheduler(loaded, n_slots: int, defaults: dict):
     if defaults.get("warmup"):
         sched_kw["warmup"] = str(defaults["warmup"])
     for key in ("prefill_budget", "admit_stall_budget_ms", "admit_ttft_deadline_ms",
-                "slo_itl_ms", "preempt", "tenant_weights"):
+                "slo_itl_ms", "slo_ttft_ms", "preempt", "tenant_weights"):
         if defaults.get(key) is not None:
             sched_kw[key] = defaults[key]
     return Scheduler(be, **sched_kw)
@@ -895,7 +1182,8 @@ def run_server(loaded, host="127.0.0.1", port=9990, n_slots: int = 0, **defaults
     install_sigterm_drain(httpd, api, float(defaults.get("drain_timeout_s") or 30.0))
     mode = (f"continuous batching, {n_slots} slots, {api.build_info['kv_layout']} KV"
             if n_slots else "single-request + prefix cache")
-    log.info("serving on http://%s:%d (%s)", host, httpd.server_address[1], mode)
+    log.info("serving on http://%s:%d (%s); telemetry at /metrics, probes at /health/live "
+             "and /health/ready", host, httpd.server_address[1], mode)
     report = api.scheduler.warmup_report if api.scheduler is not None else None
     if report is not None:
         print(f"warmup: {json.dumps(report)}", flush=True)

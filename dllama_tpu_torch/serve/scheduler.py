@@ -55,6 +55,15 @@ prompt's prefill chunks run between decode chunks, paced by a stall budget
 (``admit_stall_budget_ms``) and an optional TTFT deadline
 (``admit_ttft_deadline_ms``), which also overrides the hybrid pacing.
 
+**Observability** (obs/, the JAX package's series): the scheduler is the
+single write point of the request counters (admitted, shed, finished by
+reason, tokens) and the TTFT/ITL/e2e histograms, records every request's
+flight-recorder timeline (``obs/trace``), bills every second of its worker
+loop to one state of a time ledger (``dllama_scheduler_time_seconds_total
+{state}``), and feeds a perf aggregator with request finishes (latency
+windows, SLO verdicts) and consumed decode chunks (bytes priced by the
+engine's cost model over each chunk's window: the bandwidth attainment).
+
 The worker thread enters ``torch.no_grad()`` itself (grad mode is
 thread-local) and the engine makes every tensor on its own device.
 """
@@ -71,7 +80,10 @@ import numpy as np
 import torch
 
 from dllama_tpu_torch.engine.batch import BatchEngine
-from dllama_tpu_torch.obs import perf
+from dllama_tpu_torch.obs import compile as compile_obs
+from dllama_tpu_torch.obs import instruments as ins
+from dllama_tpu_torch.obs import perf, trace
+from dllama_tpu_torch.utils import locks
 
 log = logging.getLogger("dllama_tpu_torch.serve")
 
@@ -197,6 +209,25 @@ class Request:
                 raise item
             yield item
 
+    def poll_tokens(self) -> tuple[list[int], bool]:
+        """NON-blocking drain of the token queue: the aio front end's SSE
+        pump seam (one thread multiplexes every stream, so nothing may
+        block). Returns ``(tokens, done)``: every token available now, and
+        whether the stream has ended (``finish_reason`` is authoritative
+        once True). A queued exception (shed, shutdown, crash) raises as in
+        :meth:`tokens`."""
+        toks: list[int] = []
+        while True:
+            try:
+                item = self.out.get_nowait()
+            except queue.Empty:
+                return toks, False
+            if item is _END:
+                return toks, True
+            if isinstance(item, Exception):
+                raise item
+            toks.append(item)
+
 
 #: decode steps per device chunk
 DECODE_CHUNK = 4
@@ -210,7 +241,8 @@ class Scheduler:
                  admit_stall_budget_ms: float = 250.0,
                  admit_ttft_deadline_ms: float | None = None,
                  slo_itl_ms: float | None = None, preempt: str = "auto",
-                 tenant_weights: dict[str, float] | None = None):
+                 tenant_weights: dict[str, float] | None = None,
+                 slo_ttft_ms: float | None = None):
         self.engine = engine
         # overlapped decode pipeline (--overlap): launch chunk N+1 off chunk
         # N's device state BEFORE consuming chunk N's tokens, so the per-chunk
@@ -251,7 +283,8 @@ class Scheduler:
         self._t_consumed: float | None = None
         self._t_dec_end: float | None = None
         self._completed: list[Request] = []  # ring of recent requests
-        self._metrics_lock = threading.Lock()
+        self._metrics_lock = locks.make_lock("scheduler.metrics")
+        ins.SLOTS_TOTAL.set(engine.n_slots)
         self.chunks = 0  # decode chunks consumed
         self.chunk_slots = 0  # live slots summed over those chunks (batch occupancy)
         self._wake = threading.Event()
@@ -274,17 +307,29 @@ class Scheduler:
         if prefill_budget != "auto" and prefill_budget < 0:
             raise ValueError(f"prefill_budget must be 'auto' or >= 0, got {prefill_budget}")
         self._hybrid_on = prefill_budget != 0 and engine.supports_hybrid
-        self.slo = perf.SloPolicy(itl_ms=None if slo_itl_ms is None else float(slo_itl_ms))
-        self.itl_window = perf.WindowQuantiles()  # seconds, fed at each finish
+        # the time ledger bills every second of the worker loop to one state
+        # (dllama_scheduler_time_seconds_total{state}); the aggregator joins
+        # the latency windows and SLO verdicts (fed at each finish) with the
+        # decode chunks' priced bytes over their windows (fed at each
+        # consume) against the card's peak bandwidth
+        self.ledger = perf.TimeLedger(counter=ins.SCHEDULER_TIME)
+        self.perf = perf.PerfAggregator(
+            slo=perf.SloPolicy(None if slo_ttft_ms is None else float(slo_ttft_ms),
+                               None if slo_itl_ms is None else float(slo_itl_ms)),
+            cost_model=engine.chunk_cost_model(),
+            peak_gbs=perf.peak_hbm_gbs(engine.device))
         self._budget_ctl: perf.PrefillBudgetController | None = None
         if not self._hybrid_on:
             self._budget_now = 0
+            ins.PREFILL_BUDGET.set(0)
         elif prefill_budget == "auto":
+            # reads the aggregator's ITL window (perf.itl), as in JAX
             self._budget_ctl = perf.PrefillBudgetController(
-                self.slo, hi=max(64, int(engine.max_prefill_chunk)))
+                self.perf.slo, hi=max(64, int(engine.max_prefill_chunk)))
             self._budget_now = self._budget_ctl.current
         else:
             self._budget_now = max(1, int(prefill_budget))
+            ins.PREFILL_BUDGET.set(self._budget_now)
         self.hybrid_chunks = 0  # decode chunks that carried a prefill slice
         self.hybrid_tokens = 0  # prompt tokens those slices prefilled
         # preempt-to-pages: "auto" = on, as in the JAX package
@@ -300,6 +345,9 @@ class Scheduler:
         if warmup not in ("auto", "off"):
             raise ValueError(f"warmup must be auto|off, got {warmup!r}")
         self.warmup = warmup
+        # the capture contract: the decode programs this scheduler asks for
+        engine.declare_serving_buckets(DECODE_CHUNK)
+        self._last_gap_ms: float | None = None  # the decode.dispatch span's host gap
         hybrid_hi = 0
         if self._hybrid_on:
             hybrid_hi = self._budget_ctl.hi if self._budget_ctl is not None else self._budget_now
@@ -309,6 +357,12 @@ class Scheduler:
         self._heartbeat = time.monotonic()
         self._thread = threading.Thread(target=self._run, name="dllama-scheduler", daemon=True)
         self._thread.start()
+
+    @property
+    def slo(self) -> perf.SloPolicy:
+        """The SLO targets (``--slo-ttft-ms``/``--slo-itl-ms``): the
+        aggregator's policy, which the budget controller steers by."""
+        return self.perf.slo
 
     # ------------------------------------------------------------------- api
 
@@ -324,7 +378,12 @@ class Scheduler:
         if timeout_s is not None and timeout_s > 0:
             req.timeout_s = float(timeout_s)
             req.deadline_at = req.submitted_at + req.timeout_s
+        # the flight-recorder record BEFORE the queue put: the worker may
+        # admit the request before this thread runs again
+        trace.TRACER.req_submit(req.req_id, prompt_tokens=len(req.prompt), t=req.submitted_at)
         self.pending.put(req)
+        ins.REQUESTS_ADMITTED.inc()
+        ins.QUEUE_DEPTH.set(self._queue_depth())
         if self.crashed is not None or not self._thread.is_alive():
             # lost the race with a worker crash: nobody would serve it
             raise SchedulerUnhealthy(f"scheduler worker died during submit ({self.crashed!r})")
@@ -336,12 +395,15 @@ class Scheduler:
         subclass when no new work may enter. The API tier also calls it to
         shed stream requests before their headers go out."""
         if self.crashed is not None or not self._thread.is_alive():
+            ins.REQUESTS_SHED.labels(reason="unhealthy").inc()
             raise SchedulerUnhealthy(f"scheduler worker is dead ({self.crashed!r}); "
                                      "refusing work")
         if self._draining.is_set():
+            ins.REQUESTS_SHED.labels(reason="draining").inc()
             raise SchedulerDraining("scheduler is draining; no new requests")
         depth = self._queue_depth()
         if self.max_queue and depth >= self.max_queue:
+            ins.REQUESTS_SHED.labels(reason="queue_full").inc()
             raise QueueFull(f"admission queue full ({depth} >= --max-queue {self.max_queue})")
 
     def _queue_depth(self) -> int:
@@ -384,6 +446,17 @@ class Scheduler:
             "draining": self._draining.is_set(),
             "crashed": repr(self.crashed) if self.crashed is not None else None,
             "join_failed": self.join_failed,
+            # capture observability: a capture storm shows in the probe
+            # without a scrape; unexpected > 0 means the contract broke
+            "compile": {
+                "warmup": self.warmup,
+                "warmed_buckets": (None if self.warmup_report is None
+                                   else self.warmup_report["graphs_captured"]),
+                "full_coverage": (None if self.warmup_report is None
+                                  else self.warmup_report["full_coverage"]),
+                "compiles": compile_obs.LEDGER.total_compiles(),
+                "unexpected_compiles": compile_obs.LEDGER.total_unexpected(),
+            },
         }
 
     def drain(self, timeout_s: float = 30.0) -> bool:
@@ -395,6 +468,8 @@ class Scheduler:
         timeout."""
         self._draining.set()
         self._wake.set()
+        trace.TRACER.event("drain.begin", cat="lifecycle", track="scheduler",
+                           timeout_s=float(timeout_s))
         deadline = time.monotonic() + max(0.0, timeout_s)
         clean = False
         while time.monotonic() < deadline:
@@ -408,6 +483,7 @@ class Scheduler:
             log.warning("drain timeout (%.1fs): %d slots / %d admissions / %d queued still "
                         "in flight; shutting down anyway", timeout_s, len(self.slots),
                         len(self._inflight), self.pending.qsize())
+        trace.TRACER.event("drain.end", cat="lifecycle", track="scheduler", clean=clean)
         self.shutdown()
         pool = self.engine.pool
         if pool is not None:
@@ -441,12 +517,19 @@ class Scheduler:
         def mean(xs):
             return sum(xs) / len(xs) if xs else None
 
+        def q_ms(w, q):  # the aggregator's sliding windows (obs/perf)
+            v = w.quantile(q)
+            return None if v is None else round(v * 1000.0, 3)
+
         return {
             "completed": len(done),
             "ttft_ms_mean": mean(ttfts),
             "ttft_ms_p50": ttfts[len(ttfts) // 2] if ttfts else None,
+            "ttft_ms_p95": q_ms(self.perf.ttft, 0.95),
             "ttft_ms_max": ttfts[-1] if ttfts else None,
             "itl_ms_mean": mean(itls),
+            "itl_ms_p50": q_ms(self.perf.itl, 0.5),
+            "itl_ms_p95": q_ms(self.perf.itl, 0.95),
             "reused_prefix_tokens": self.reused_prefix_tokens,
             "admission_gaps": len(gaps),
             "admission_stall_ms_max": max(gaps) if gaps else None,
@@ -469,6 +552,9 @@ class Scheduler:
             # preempt-to-pages: lifetime suspensions and resumes
             "preemptions": self.preempt_count,
             "resumed": self.resume_count,
+            # the capture ledger: lifetime captures, seconds and unexpected
+            # ones, the host-side view of the dllama_jit_* series
+            "compile": dict(compile_obs.LEDGER.summary(), warmup_mode=self.warmup),
         }
 
     def cancel(self, req: Request, reason: str = "cancelled") -> None:
@@ -491,6 +577,27 @@ class Scheduler:
                         "unrecoverable, /health reports live=false", self.join_timeout_s)
 
     # ------------------------------------------------------------------ loop
+
+    def _observe_finish(self, req: Request) -> None:
+        """The single registry write point for a terminal request: the
+        finish counter, the TTFT/ITL/e2e histograms and the aggregator's
+        windows and SLO verdicts from the request's own marks, and the
+        flight recorder's end record (every terminal path comes here)."""
+        ins.REQUESTS_FINISHED.labels(reason=req.finish_reason or "unknown").inc()
+        trace.TRACER.req_end(req.req_id, req.finish_reason or "unknown",
+                             t=req.finished_at, **req.timings())
+        if req.first_token_at is not None:
+            ins.TTFT_SECONDS.observe(req.first_token_at - req.submitted_at)
+        if req.finished_at is not None:
+            ins.E2E_SECONDS.observe(req.finished_at - req.submitted_at)
+        itl = req.itl_ms
+        if itl is not None:
+            ins.ITL_SECONDS.observe(itl / 1000.0)
+        self.perf.observe_finish(
+            finish_reason=req.finish_reason or "unknown", ttft_ms=req.ttft_ms, itl_ms=itl,
+            e2e_ms=(None if req.finished_at is None
+                    else (req.finished_at - req.submitted_at) * 1000.0),
+            tokens=req.produced)
 
     def _finish(self, req: Request, reason: str, keep_rows: int | None = None) -> None:
         if req.slot >= 0:
@@ -519,16 +626,18 @@ class Scheduler:
         with self._metrics_lock:
             self._completed.append(req)
             del self._completed[:-256]
-        if req.itl_ms is not None:  # the budget controller's window
-            self.itl_window.observe(req.itl_ms / 1000.0)
+        self._observe_finish(req)
+        ins.BUSY_SLOTS.set(len(self.slots))
         req.out.put(_END)
 
     def _emit(self, req: Request, token: int, row_at_emit: int) -> bool:
         """Queue one token; returns True when the request just finished."""
         if req.first_token_at is None:
             req.first_token_at = time.monotonic()
+            trace.TRACER.req_first_token(req.req_id, t=req.first_token_at)
         req.out.put(int(token))
         req.produced += 1
+        ins.TOKENS_GENERATED.inc()
         if req.slot >= 0:
             self.slot_tokens.setdefault(req.slot, []).append(int(token))
         if token in req.eos_ids:
@@ -617,6 +726,14 @@ class Scheduler:
             req.out.put(exc)
         self._finish(req, reason)
 
+    def _shed_timeout(self, req: Request, where: str = "queued") -> None:
+        """Terminal 'timeout' finish of a request not admitted yet: shed
+        before prefill (no slot, no pages, no device work)."""
+        ins.REQUESTS_SHED.labels(reason="timeout").inc()
+        trace.TRACER.event("request.timeout", cat="deadline", track="requests",
+                           req_id=req.req_id, where=where)
+        self._finish(req, "timeout")
+
     def _shed_expired_queued(self) -> None:
         """Deadline sweep over requests not admitted yet, once per boundary:
         a saturated server may pop nothing for a long time, and timeout_s
@@ -643,7 +760,7 @@ class Scheduler:
             dead.append(self._deferred)
             self._deferred = None
         for req in dead:
-            self._reject(req, "timeout")
+            self._shed_timeout(req)
 
     # ------------------------------------------------------ admission policy
 
@@ -726,8 +843,12 @@ class Scheduler:
         req.slot = -1
         self._backlog.append(req)
         self.preempt_count += 1
-        log.info("preempted request %s (reason=%s, %d tokens emitted; its pages stay "
-                 "referenced)", req.req_id, reason, req.produced)
+        ins.BUSY_SLOTS.set(len(self.slots))
+        ins.PREEMPTIONS.labels(reason=reason).inc()
+        trace.TRACER.event("request.preempted", cat="scheduling", track="requests",
+                           req_id=req.req_id, reason=reason, tokens=req.produced)
+        log.info("preempted request (reason=%s, %d tokens emitted; its pages stay "
+                 "referenced)", reason, req.produced, extra=trace.log_extra(req.req_id))
         return True
 
     def _maybe_preempt(self) -> None:
@@ -801,7 +922,7 @@ class Scheduler:
                 self._reject(req, req.cancel_reason)
                 continue
             if req.deadline_at is not None and time.monotonic() >= req.deadline_at:
-                self._reject(req, "timeout")
+                self._shed_timeout(req)
                 continue
             # the rows to write: the prompt, and for a resume every emitted
             # token but the last (it becomes the token fed next)
@@ -867,7 +988,7 @@ class Scheduler:
                 adm = self.engine.add_begin(slot, toks[reuse:], start_pos=reuse,
                                             req_id=req.req_id)
             except Exception as e:  # a bad request (too long, ...): fail just this one
-                log.exception("admission of request %s rejected", req.req_id)
+                log.exception("admission rejected", extra=trace.log_extra(req.req_id))
                 # the slot's cache state is unknown now: drop the claim and
                 # the pages, losing only this slot's prefix reuse
                 self.slot_tokens[slot] = []
@@ -876,6 +997,8 @@ class Scheduler:
                 continue
             req.slot = slot
             req.admitted_at = time.monotonic()
+            trace.TRACER.req_admitted(req.req_id, slot=slot, reused_tokens=reuse,
+                                      t=req.admitted_at)
             self._inflight.append((req, adm, reuse))
             reserved += 1
 
@@ -895,6 +1018,7 @@ class Scheduler:
         resume record (the last emitted token and the generator state) and
         sample nothing; with the tree on, insert the written rows' full
         pages at once."""
+        self.ledger.transition("commit")
         self._inflight.pop(0)
         if req.resume_tokens is not None:
             self.engine.resume_commit(
@@ -908,12 +1032,18 @@ class Scheduler:
                     self._radix.note_served(reuse)
                 self.engine.radix_insert(adm.slot,
                                          list(req.prompt) + list(req.resume_tokens[:-1]))
+            trace.TRACER.req_prefill_done(req.req_id, tokens=len(adm.toks) + reuse,
+                                          reused=reuse)
             req.preempted = False
             self.resume_count += 1
+            ins.RESUMED.inc()
+            trace.TRACER.event("request.resumed", cat="scheduling", track="requests",
+                               req_id=req.req_id, tokens=req.produced)
             return
         first = self.engine.add_commit(adm, req.temperature, req.topp, seed=req.seed,
                                        presence=req.presence, frequency=req.frequency)
         self.reused_prefix_tokens += reuse
+        ins.REUSED_PREFIX_TOKENS.inc(reuse)
         self.slot_tokens[adm.slot] = list(req.prompt)
         self.slots[adm.slot] = req
         if self._radix is not None:
@@ -923,6 +1053,7 @@ class Scheduler:
             if reuse:
                 self._radix.note_served(reuse)
             self.engine.radix_insert(adm.slot, req.prompt)
+        trace.TRACER.req_prefill_done(req.req_id, tokens=len(req.prompt), reused=reuse)
         self._emit(req, first, int(self.engine.pos[adm.slot]))
 
     def _overdue(self, req: Request) -> bool:
@@ -952,7 +1083,7 @@ class Scheduler:
             try:
                 self._commit_admission(req, adm, reuse)
             except Exception as e:
-                log.exception("commit of request %s failed", req.req_id)
+                log.exception("commit failed", extra=trace.log_extra(req.req_id))
                 if self._inflight and self._inflight[0][1] is adm:
                     self._inflight.pop(0)
                 self._abort_admission(req, adm, e)
@@ -975,26 +1106,36 @@ class Scheduler:
                 self._abort_admission(req, adm, req.cancel_reason)
                 continue
             if req.deadline_at is not None and time.monotonic() >= req.deadline_at:
+                # the deadline crossed mid-prefill: stop spending chunks on it
                 self._inflight.pop(0)
+                trace.TRACER.event("request.timeout", cat="deadline", track="requests",
+                                   req_id=req.req_id, where="prefill")
                 self._abort_admission(req, adm, "timeout")
                 continue
             pumped = adm.off >= len(adm.toks)
             if not pumped and self._hybrid_now() and not self._overdue(req):
                 return worked  # the hybrid chunks carry this prefill
             try:
+                tr = trace.TRACER
                 done = pumped
                 if not pumped:
+                    t_ch = tr.now() if tr.enabled else 0.0
+                    self.ledger.transition("prefill")
                     done = self.engine.add_step(adm)
                     if (self.slots and not self._hybrid_on and adm.logits is not None
                             and adm.logits.is_cuda):
                         # decoders are waiting: let the pacing clock see the
                         # chunk's device time, not just its launch
                         torch.cuda.current_stream(adm.logits.device).synchronize()
+                    if tr.enabled:
+                        tr.span_at("prefill.chunk", t_ch, tr.now(), cat="prefill",
+                                   track="scheduler", req_id=req.req_id, slot=adm.slot,
+                                   off=int(adm.off), total=len(adm.toks))
                     worked = True
                 if done:
                     self._commit_admission(req, adm, reuse)
             except Exception as e:
-                log.exception("prefill of request %s failed", req.req_id)
+                log.exception("prefill failed", extra=trace.log_extra(req.req_id))
                 if self._inflight and self._inflight[0][1] is adm:
                     self._inflight.pop(0)
                 self._abort_admission(req, adm, e)
@@ -1048,6 +1189,9 @@ class Scheduler:
             self.crashed = e
             log.exception("scheduler worker crashed; failing all in-flight requests")
             self._fail_all(e)
+        finally:
+            # stop the ledger clock with the worker: its last span is billed
+            self.ledger.close()
 
     def _needs_boundary(self, inflight_chunk=None) -> bool:
         """True when the next chunk must wait for a fully consumed pipeline:
@@ -1095,25 +1239,49 @@ class Scheduler:
         here is not a per-request problem (the cache was being written in
         place): it escalates to the worker's crash path."""
         hyb = None
+        hyb_req = None
         if self._hybrid_now() and self._inflight:
             req, adm, _ = self._inflight[0]
             if (adm.off < len(adm.toks) and not req.cancelled.is_set()
                     and (req.deadline_at is None or time.monotonic() < req.deadline_at)):
-                hyb = adm
+                hyb, hyb_req = adm, req
+        self.ledger.transition("hybrid" if hyb is not None else "decode_dispatch")
+        self._last_gap_ms = None
         if self._t_consumed is not None:
             gap_s = (max(0.0, time.monotonic() - self._t_consumed - exclude_gap_s)
                      if pipeline_empty else 0.0)
+            ins.DECODE_HOST_GAP_SECONDS.observe(gap_s)
+            self._last_gap_ms = gap_s * 1000.0
             with self._metrics_lock:
                 self._host_gap_ms.append(gap_s * 1000.0)
                 del self._host_gap_ms[:-256]
+        tr = trace.TRACER
+        t0 = tr.now() if tr.enabled else 0.0
         if hyb is None:
-            return self.engine.decode_dispatch(DECODE_CHUNK), dict(self.slots)
-        if self._budget_ctl is not None:
-            # steered by the live ITL window (rate-limited in the controller)
-            self._budget_now = self._budget_ctl.update(self.itl_window)
-        chunk = self.engine.hybrid_dispatch(DECODE_CHUNK, hyb, self._budget_now)
-        self.hybrid_chunks += 1
-        self.hybrid_tokens += chunk.hybrid_tokens
+            chunk = self.engine.decode_dispatch(DECODE_CHUNK)
+        else:
+            if self._budget_ctl is not None:
+                # steered by the live ITL window (rate-limited in the controller)
+                self._budget_now = self._budget_ctl.update(self.perf.itl)
+            off0 = hyb.off
+            chunk = self.engine.hybrid_dispatch(DECODE_CHUNK, hyb, self._budget_now)
+            self.hybrid_chunks += 1
+            self.hybrid_tokens += chunk.hybrid_tokens
+        if tr.enabled:
+            # the dispatch span is host work; under overlap it lands inside
+            # the previous chunk's decode.device span
+            tr.span_at("decode.dispatch", t0, tr.now(), cat="decode", track="scheduler",
+                       chunk=chunk.seq, n=chunk.n, occupancy=len(self.slots),
+                       pipelined=not pipeline_empty,
+                       hybrid_tokens=(chunk.hybrid_tokens or None),
+                       host_gap_ms=(None if self._last_gap_ms is None
+                                    else round(self._last_gap_ms, 3)))
+            if chunk.hybrid_tokens:
+                # the admitting request's prefill story stays complete under
+                # hybrid: each slice is a prefill.chunk span of its own
+                tr.span_at("prefill.chunk", t0, tr.now(), cat="prefill", track="scheduler",
+                           req_id=hyb_req.req_id, slot=chunk.hybrid_slot, off=int(off0),
+                           total=len(hyb.toks), hybrid=True)
         return chunk, dict(self.slots)
 
     def _consume_chunk(self, chunk, snapshot) -> None:
@@ -1121,32 +1289,60 @@ class Scheduler:
         captured at dispatch. A slot whose request finished while the chunk
         was in flight is skipped: its tokens are the one-chunk overrun, and
         release(keep_rows=) already rewound the slot."""
+        tr = trace.TRACER
+        t0 = tr.now() if tr.enabled else 0.0
+        self.ledger.transition("decode_wait")
         toks = self.engine.decode_consume(chunk)
         self.chunks += 1
         self.chunk_slots += len(snapshot)
         self._t_dec_end = self._t_consumed = time.monotonic()
+        self.ledger.transition("emit")
+        if chunk.active.any():
+            # roofline feed: the chunk's HBM traffic at its dispatch-time
+            # occupancy and mean live-KV horizon, over the window
+            # decode_consume measured
+            self.perf.observe_chunk(
+                occupancy=int(chunk.active.sum()),
+                live_rows=float(chunk.start_pos[chunk.active].mean()) + (chunk.n + 1) / 2.0,
+                steps=chunk.n, tokens=int(chunk.advance.sum()), device_s=chunk.device_s)
+        if tr.enabled:
+            tr.span_at("decode.consume", t0, tr.now(), cat="decode", track="scheduler",
+                       chunk=chunk.seq, n=chunk.n)
+            t_emit = tr.now()
         bad = chunk.nonfinite()  # NaN guard: fail THOSE requests, not the engine
         for slot, req in snapshot.items():
             if self.slots.get(slot) is not req:
                 continue
             if bad is not None and bad[slot]:
                 log.error("non-finite logits in decode chunk %d (slot %d); failing the "
-                          "request, engine stays up", chunk.seq, slot)
+                          "request, engine stays up", chunk.seq, slot,
+                          extra=trace.log_extra(req.req_id))
                 self.slot_tokens[slot] = []  # poisoned rows: never reuse
                 req.finish_reason = "error"
                 req.out.put(RuntimeError(f"non-finite logits in decode chunk {chunk.seq}; "
                                          "request failed (engine healthy)"))
                 self._finish(req, "error")
                 continue
+            if tr.enabled and chunk.advance[slot]:
+                # the flight-recorder chunk entry BEFORE the tokens reach the
+                # client queue: a response never races its own record
+                tr.req_chunk(req.req_id, chunk.seq, int(chunk.advance[slot]))
             for i in range(int(chunk.advance[slot])):
                 # the row written when sampling token i: start + i (+1 = prefix length)
                 if self._emit(req, toks[i, slot], int(chunk.start_pos[slot]) + i + 1):
                     break
+        if tr.enabled:
+            tr.span_at("emit.scan", t_emit, tr.now(), cat="decode", track="scheduler",
+                       chunk=chunk.seq)
 
     def _loop(self) -> None:
+        # from here until close(), every instant is billed to one state
+        self.ledger.start("idle")
         pending = None  # overlap mode: the dispatched, unconsumed chunk
         while not self._stop.is_set():
             self._heartbeat = time.monotonic()
+            ins.QUEUE_DEPTH.set(self._queue_depth())
+            ins.BUSY_SLOTS.set(len(self.slots))
             if pending is not None:
                 # keep the card busy: launch the successor off the device
                 # state BEFORE consuming, unless boundary work needs the
@@ -1162,6 +1358,7 @@ class Scheduler:
                     if self._inflight:
                         self._commit_ready_inflight()
                     if self._backlog or not self.pending.empty():
+                        self.ledger.transition("admission")
                         self._admit_starts(boundary=False)
                     self._busy_worker = False
                 nxt = (None if self._needs_boundary(pending[0])
@@ -1171,13 +1368,19 @@ class Scheduler:
                 continue
             t_boundary = time.monotonic()
             self._busy_worker = True
+            self.ledger.transition("admission")
             self._admit_starts()
             admitted = self._pump_admissions()
+            # the boundary scans below are admission-side work; this also
+            # bills the pump's open tail
+            self.ledger.transition("admission")
             self._busy_worker = False
             for slot, req in list(self.slots.items()):
                 if req.cancelled.is_set():
                     self._finish(req, req.cancel_reason, keep_rows=int(self.engine.pos[slot]))
                 elif req.deadline_at is not None and time.monotonic() >= req.deadline_at:
+                    trace.TRACER.event("request.timeout", cat="deadline", track="requests",
+                                       req_id=req.req_id, where="decoding")
                     self._finish(req, "timeout", keep_rows=int(self.engine.pos[slot]))
                 elif int(self.engine.pos[slot]) >= self.engine.seq_len:
                     self._finish(req, "length")
@@ -1196,6 +1399,7 @@ class Scheduler:
             if not self.slots:
                 self._t_dec_end = None
                 if not self._inflight:
+                    self.ledger.transition("idle")
                     self._wake.wait(timeout=IDLE_WAIT_S)
                     self._wake.clear()
                 continue
@@ -1204,6 +1408,7 @@ class Scheduler:
                 with self._metrics_lock:
                     self._admit_gaps_ms.append(gap_ms)
                     del self._admit_gaps_ms[:-256]
+                ins.ADMISSION_STALL_SECONDS.observe(gap_ms / 1000.0)
             chunk = self._dispatch_chunk(exclude_gap_s=time.monotonic() - t_boundary)
             if self.overlap:
                 pending = chunk

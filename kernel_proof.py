@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Four one-off proofs about the attention and matmul kernels, on one NVIDIA GPU.
+"""Five one-off proofs about the kernels and the programs that launch them, on one NVIDIA GPU.
 
 Run from the repository root (it reuses chip_smoke.py's inputs and timer):
 
@@ -8,6 +8,7 @@ Run from the repository root (it reuses chip_smoke.py's inputs and timer):
     python3 kernel_proof.py parity --save FILE      # in one checkout
     python3 kernel_proof.py parity --against FILE   # in another
     python3 kernel_proof.py k11 [--reps N]
+    python3 kernel_proof.py profile [--iters N] [--seconds S]
 
 `splits` times the paged attention kernel (K9) under its own split rule and
 under fixed tile counts per split, on decode B=8 at chip_smoke's SPREAD
@@ -43,13 +44,26 @@ a warp, beside torch.matmul on the same inputs
 weight's bytes read as f32 (what reading the weight alone takes under this
 timer), each checked against its plain version within TOL_K11. The routes and splits are forced only
 inside this script.
+
+`profile` boots chip_smoke's 8-slot obs server on the synthetic 8B Q40 model
+and, N times, starts 8 greedy streams of 128 tokens and a `POST
+/debug/profile` of S seconds at their 8th token: every stream must end and
+every trace be written within 120 s, else every thread's stack is printed
+and the script exits 1. It prints each round's seconds and the seconds the
+profile's stop and write took (a stop beside a CUDA-graph replay on another
+thread hung before `utils/profiling.GRAPH_GATE` kept them apart).
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import faulthandler
 import math
+import os
+import tempfile
+import threading
+import time
 
 import chip_smoke as cs
 
@@ -251,6 +265,47 @@ def k11(cfg, device, timer) -> None:
                   f"columns; ms): " + "; ".join(line), flush=True)
 
 
+def profile_rounds(cfg, device, iters: int, seconds: float) -> None:
+    from dllama_tpu_torch.engine.loader import load_model
+    from dllama_tpu_torch.ops import build
+    from dllama_tpu_torch.utils import profiling
+
+    build.build()  # every source at once, one nvcc each
+    tmp = tempfile.mkdtemp(prefix="dllama_proof_profile_")
+    mpath, tpath = os.path.join(tmp, "m.m"), os.path.join(tmp, "t.t")
+    cs.write_model(mpath, cfg, device)
+    cs.write_tokenizer(tpath, cfg.vocab_size)
+    loaded = load_model(mpath, tpath, max_seq_len=4096, device=device)
+    httpd, api, port = cs._obs_server(loaded)
+    prompts = cs.batch_prompts(8)
+    for it in range(iters):
+        t0 = time.perf_counter()
+        progress = [0] * len(prompts)
+
+        def run(i, it=it, progress=progress):
+            cs._sse(port, {"messages": [{"role": "user", "content": prompts[i]}],
+                           "temperature": 0, "max_tokens": 128}, f"p{it}-{i}", progress, i)
+
+        threads = [threading.Thread(target=run, args=(i,), daemon=True)
+                   for i in range(len(prompts))]
+        for th in threads:
+            th.start()
+        cs._wait_for(lambda: min(progress) >= 8, "every stream's 8th token")
+        prof = cs._profile(port, seconds, tempfile.mkdtemp(prefix="dllama_proof_trace_"))
+        for th in threads:
+            th.join(timeout=120)
+            if th.is_alive():
+                print(f"round {it}: a stream stalled at {progress} tokens", flush=True)
+                faulthandler.dump_traceback(all_threads=True)
+                os._exit(1)
+        cs._wait_for(lambda: cs._profile_done(prof["trace"]), "the trace", 120)
+        os.remove(prof["trace"])
+        print(f"round {it}: {time.perf_counter() - t0:.1f} s, the profile's stop and write "
+              f"{profiling.profile_status()['last_written_s']:.1f} s", flush=True)
+    cs._obs_close(httpd, api, "profile")
+    print(f"profile: {iters} rounds, no stall", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="proof", required=True)
@@ -260,6 +315,9 @@ def main(argv=None) -> int:
     st.add_argument("--reps", type=int, default=20, help="timed runs per case")
     kp = sub.add_parser("k11", help="K11-B and K11-D on both routes, timed")
     kp.add_argument("--reps", type=int, default=20, help="timed runs per case")
+    fp = sub.add_parser("profile", help="profiles during 8-stream decode, N rounds, no stall")
+    fp.add_argument("--iters", type=int, default=30, help="rounds")
+    fp.add_argument("--seconds", type=float, default=0.5, help="each profile's duration")
     pp = sub.add_parser("parity", help="save or compare K2/K7/K1/K5/K3/K4/K6 outputs bit for bit")
     pp.add_argument("--save", help="save the outputs here")
     pp.add_argument("--against", help="compare the outputs with this file")
@@ -283,6 +341,10 @@ def main(argv=None) -> int:
     elif args.proof == "k11":
         print("k11 (the kernel benchmark's K11-B and K11-D, both routes):", flush=True)
         k11(cfg, device, cs.Timer(device, args.reps))
+    elif args.proof == "profile":
+        print(f"profile ({args.iters} rounds of a {args.seconds} s profile during 8-stream "
+              "decode):", flush=True)
+        profile_rounds(cfg, device, args.iters, args.seconds)
     else:
         parity(cfg, device, args.save, args.against)
     return 0

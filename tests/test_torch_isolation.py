@@ -93,7 +93,7 @@ def test_unported_options_are_refused():
     from dllama_tpu_torch.engine.loader import load_model
 
     for flag in (["--mesh", "tp=2"],
-                 ["--frontend", "aio"], ["--slots", "2", "--spec", "4"],
+                 ["--transfer-guard", "strict"], ["--slots", "2", "--spec", "4"],
                  ["--slots", "2", "--restart-max", "1"]):
         assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", *flag]) == 2, flag
     # the batched tier is ported: --slots passes the refusal and stops only
