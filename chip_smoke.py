@@ -113,9 +113,25 @@ Q80 (random weights from a seed), and exits 0 only if every phase passed:
 14. spec      `inference --spec 8` on a repetitive prompt (its emitted tokens
               and verify forwards printed; K1 and K7 launched); the greedy ids
               of spec 8 and spec 0 equal, or first differ at a near-tie of the
-              plain run's logits; HTTP serve with --spec 8 and a spec_k 0
-              request.
-15. graphs    decode chunks as CUDA graphs (engine/graphs.py) against the same
+              plain run's logits; 32 tokens at --spec 8 through the captured
+              verify cycles (tokens, cycles, replays) and at --spec 0 (4
+              decode chunks of 8), ms a token wall, stream and device; HTTP
+              serve with --spec 8 and a spec_k 0 request.
+15. spec_batch the 8-slot server at its defaults with --warmup auto and
+              --spec-k 4 (`serve --slots 8 --spec 4`, paged at page 128):
+              8 concurrent streams of 128 tokens on repetitive prompts (two
+              sampled, one sampled with penalties, one spec_k 0, one
+              priority 0) and a priority-2 arrival that preempts the priority-0
+              one, on two --spec-k 4 servers and a --spec-k 0 server: greedy
+              ids equal across spec 4 and 0 or first apart at a near tie,
+              sampled streams equal across the two spec runs, dllama_spec_* on
+              /metrics equal to spec_stats() and bounding the responses' spec
+              records, a preemption resumed, no unexpected capture, clean
+              pools; tokens a cycle, accept mean, aggregate tok/s against the
+              --spec-k 0 server; then one 8-slot verify cycle's device ms
+              against one plain step's at K = 4 (40 rows: K2) and K = 1 (16
+              rows: K1).
+16. graphs    decode chunks as CUDA graphs (engine/graphs.py) against the same
               bodies launched from Python (`capture=False`), on the Q40 8B
               model: one stream (greedy ids and a seeded sampled stream
               equal), then eight paged slots (the same two checks); for
@@ -146,7 +162,7 @@ K1 at 9 rows and K7 at 9 query rows (the spec verify forward); and
 every kernel the kbench phase launches on kbench's own inputs (each variant
 of its suite rows and of `8 w1 B D`, the tile sweep, the flash rows), since
 the benchmark checks no result. `serve`, `batch`, `hybrid`, `radix`, `obs`, `f8`, `q80`, `kbench`,
-`styles` and `spec` are the main paths: the launch counters are zeroed just before each of
+`styles`, `spec` and `spec_batch` are the main paths: the launch counters are zeroed just before each of
 their runs and read just after it. Not in the default: `profile` adds a torch.profiler pass
 over one single-stream and one 8-slot decode chunk (device time and
 operations a step, K1's share, and no split-k second pass; then one
@@ -536,6 +552,8 @@ def phase_kernels(cfg, device, timer, layer=1):
     # m = 9: the spec verify forward (k + 1 rows at --spec 8)
     plan = [("q40_decode", name, m) for name in names for m in (1, 8, 9)]
     plan += [("q40_prefill", name, m) for name in ("w1", "w2") for m in (32, 256)]
+    # m = 40: the batched verify forward at 8 slots and --spec-k 4 (K2's route)
+    plan += [("q40_prefill", "w1", 40)]
     # narrow n (split-k) and wq at a chunk; the deq style's decode rows
     plan += [("q40_prefill", "wk", 256), ("q40_prefill", "wq", 256),
              ("q40_prefill", "w1", 1), ("q40_prefill", "w1", 16)]
@@ -578,7 +596,13 @@ def phase_kernels(cfg, device, timer, layer=1):
     # K9 and K8 over a page pool at page 128 (Llama-3.1-8B's heads, bf16)
     results["paged_attention"], results["paged_flash_attention"] = [], []
     some_inactive = [True, False, True, True, False, True, False, True]
+    # the batched spec verify forward: 8 slots of K+1 = 5 rows at mixed
+    # positions, one slot inactive (its rows go to the trash page)
+    spec_pos = [0, 127, 128, 1000, 2047, 2900, 3500, 4091]
+    spec_active = [True, True, True, True, True, False, True, True]
     for kernel, label, b, t, pos, active in (
+            ("paged_attention", "spec verify B=8 T=5 fused scatter, 1 inactive", 8, 5,
+             spec_pos, spec_active),
             ("paged_attention", "decode B=8 fused scatter", 8, 1, SPREAD, None),
             ("paged_attention", "decode B=8 fused scatter, 3 inactive", 8, 1, SPREAD,
              some_inactive),
@@ -1608,9 +1632,11 @@ class IdTrace:
 
     def __init__(self, sched):
         self.runs: dict[str, tuple[list[int], list[int]]] = {}
+        self.reqs: dict = {}  # the Request objects, by request id
         emit = sched._emit
 
         def rec(req, token, row, emit=emit):
+            self.reqs[req.req_id] = req
             self.runs.setdefault(req.req_id, (list(req.prompt), []))[1].append(int(token))
             return emit(req, token, row)
 
@@ -1652,6 +1678,47 @@ def near_tie(loaded, prompt, ids, other, label: str) -> str | None:
     if not gap < TOL_FWD * scale:
         fail(f"{msg}: not a near tie")
     return msg
+
+
+def spec_lockstep_check(eng, admits: list, want: int, script=(("spec", 4), ("plain", 2))
+                        ) -> dict:
+    """The batched spec programs' tokens held against plain decode's, bit
+    for bit, on one BatchEngine whose verify forward stays on the decode
+    kernel's route (n_slots * (K+1) <= 16 rows: K1, as plain decode): the
+    slots `admits` ([(prompt ids, add() keywords)], greedy, sampled and
+    penalized) run `script` over and over (spec chunks with plain chunks
+    between them, so the generator counter crosses the switch) until every
+    slot has `want` tokens, then again from the same prompts in plain
+    chunks alone. Every slot's first `want` tokens must be equal: a
+    sampled row drawn at a wrong counter, or from a wrong row of the verify
+    forward, is a different token within a few draws. -> {"spec", "plain"
+    (the streams), "stats" (spec_stats() of the spec run), "chunks"}."""
+    def run(plan):
+        streams = {s: [eng.add(s, toks, **kw)] for s, (toks, kw) in enumerate(admits)}
+        s0, chunks = eng.spec_stats(), 0
+        while min(len(v) for v in streams.values()) < want:
+            for kind, n in plan:
+                chunk = eng.decode_dispatch(n, spec=kind == "spec")
+                toks = eng.decode_consume(chunk)
+                chunks += 1
+                for s in streams:
+                    streams[s] += [int(t) for t in toks[: int(chunk.advance[s]), s]]
+        s1 = eng.spec_stats()
+        for s in streams:
+            eng.release(s)
+        return ({s: v[:want] for s, v in streams.items()}, chunks,
+                {k: s1[k] - s0[k] for k in ("cycles", "drafted", "accepted", "emitted")})
+
+    spec, chunks, stats = run(script)
+    plain, _, _ = run((("plain", 4),))
+    if not stats["cycles"] or not stats["accepted"]:
+        fail(f"spec lockstep: the spec run ran {stats} (no accepted draft)")
+    for s in spec:
+        if spec[s] != plain[s]:
+            i = next(j for j, (x, y) in enumerate(zip(spec[s], plain[s])) if x != y)
+            fail(f"spec lockstep: slot {s} ({admits[s][1]}) differs from plain decode at "
+                 f"token {i}: {spec[s][i:i + 4]} vs {plain[s][i:i + 4]}")
+    return {"spec": spec, "plain": plain, "stats": stats, "chunks": chunks}
 
 
 def _post(port: int, body: dict) -> tuple[int, bytes]:
@@ -2206,9 +2273,12 @@ def phase_spec(loaded, mpath: str, tpath: str) -> dict:
     and spec 0 through the engine, which must be equal or first differ where
     the plain run's top-2 logit gap is under TOL_FWD * max|logit| (a near
     tie the verify forward's sum order may flip); the CLI's text equal to
-    the spec run's; HTTP on the single-engine tier with --spec 8, a default
-    request and a spec_k 0 one. Returns the launches of the CLI and serve
-    runs."""
+    the spec run's; then 32 tokens at --spec 8 (the captured verify cycles:
+    tokens, cycles and replays) and at --spec 0 (4 decode chunks of 8, as
+    generate runs them), ms a token wall, stream and device (chunk_timing),
+    after the repetitive prompt and after SPEC_PLAIN_PROMPT;
+    HTTP on the single-engine tier with --spec 8, a default request and a
+    spec_k 0 one. Returns the launches of the CLI and serve runs."""
     import torch
 
     from dllama_tpu_torch.engine.sampling import Sampler
@@ -2259,6 +2329,8 @@ def phase_spec(loaded, mpath: str, tpath: str) -> dict:
         near_tie = True
     else:
         print(f"spec: greedy ids of spec 8 equal spec 0's ({len(ids[0])} tokens)", flush=True)
+    spec_timing(eng, ptoks, "repetitive")
+    spec_timing(eng, tok.encode(SPEC_PLAIN_PROMPT, add_bos=True), "non-repetitive")
 
     httpd, api = make_server(loaded, host="127.0.0.1", port=0, spec=8)
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
@@ -2285,6 +2357,323 @@ def phase_spec(loaded, mpath: str, tpath: str) -> dict:
     if c1 != c0 and not near_tie:
         fail("spec serve: --spec 8 and spec_k 0 gave different content")
     return {k: launches[k] + serve_l[k] for k in launches}
+
+
+#: the spec phase's second timed prompt: prose that does not repeat itself
+#: (the first is one sentence ten times over)
+SPEC_PLAIN_PROMPT = ("Quick zephyrs blow, vexing daft Jim, while a wizard's job is to keep "
+                     "five dozen liquor jugs boxed for the night market at Grimsby.")
+
+
+def spec_timing(eng, ptoks: list[int], label: str, n: int = 32, k: int = 8) -> dict:
+    """n greedy tokens after the prompt `ptoks` through the single engine at
+    --spec k (decode_spec_greedy_n: captured verify cycles, one count read
+    a replay) and at --spec 0 (n / 8 decode chunks of 8, one host read
+    each, as generate runs them): tokens, cycles and replays, and the wall,
+    stream and device ms a token (chunk_timing, each run from the same
+    position). Prints (under `label`) and returns both."""
+    import torch
+
+    eng.reset(0)
+    first = int(torch.argmax(eng.prefill(ptoks)[0]))
+    p0 = eng.pos
+
+    def spec_run():
+        eng.reset(p0)
+        return eng.decode_spec_greedy_n(ptoks, first, n, k=k)
+
+    def plain_run():
+        eng.reset(p0)
+        tok = first
+        for _ in range(n // 8):
+            tok = int(eng.decode_greedy_n([[tok]], 8)[-1, 0])
+
+    out = {"spec": chunk_timing(spec_run, n), "plain": chunk_timing(plain_run, n)}
+    out["spec"].update(eng._spec_stats, replays=eng.spec_replays)
+    eng.reset(0)
+    s, p = out["spec"], out["plain"]
+    print(f"spec timing, {label} prompt, --spec {k}: {s['emitted']} tokens in {s['cycles']} "
+          f"cycles, {s['replays']} replays; {s['wall_ms']:.3f} ms/token wall, {s['stream_ms']:.3f} "
+          f"stream, {s['device_ms']:.3f} device (busy {s['busy']:.3f}); --spec 0: "
+          f"{p['wall_ms']:.3f} ms/token wall, {p['stream_ms']:.3f} stream, "
+          f"{p['device_ms']:.3f} device (busy {p['busy']:.3f})", flush=True)
+    if not s["cycles"] or s["replays"] > s["cycles"]:
+        fail(f"spec timing, {label} prompt: {s['cycles']} cycles in {s['replays']} replays")
+    return out
+
+
+#: spec_batch phase: the draft length, decode tokens a stream, and the
+#: cycles a timed spec chunk runs
+SPEC_BATCH_K = 4
+SPEC_BATCH_TOKENS = 128
+SPEC_BATCH_CYCLES = 4
+#: spec_batch phase: the tokens a slot of spec_lockstep_check compares
+SPEC_BATCH_LOCKSTEP = 48
+
+
+def _spec_batch_bodies() -> dict:
+    """The spec_batch traffic: 8 streams on repetitive prompts (s0 priority
+    0, the preemption's victim; s4 spec_k 0; s5, s6 sampled; s7 sampled with
+    penalties; the rest greedy) and the priority-2 arrival `hi`."""
+    out = {}
+    for i in range(8):
+        kw: dict = {}
+        if i == 0:
+            kw["priority"] = 0
+        if i == 4:
+            kw["spec_k"] = 0
+        if i in (5, 6, 7):
+            kw.update(temperature=0.8, seed=100 + i)
+        if i == 7:
+            kw.update(presence_penalty=0.5, frequency_penalty=0.3)
+        user = f"{chr(97 + i)}) " + "The bell rings at noon, and the keeper climbs. " * 2
+        out[f"s{i}"] = dict({"messages": [{"role": "user", "content": user}],
+                             "temperature": 0, "max_tokens": SPEC_BATCH_TOKENS}, **kw)
+    out["hi"] = {"messages": [{"role": "user", "content": "Z) urgent: the lamp is out. " * 3}],
+                 "temperature": 0, "max_tokens": 16, "priority": 2}
+    return out
+
+
+def _spec_batch_traffic(srv, tag: str) -> dict:
+    """The 8 streams over SSE, s1-s7 at once, then, once each of them has a
+    token, s0 (so that it still runs when the priority-2 request, sent once
+    s0 has a token, needs its slot). -> {"responses": {key: _sse result},
+    "launches",
+    "metrics" (the dllama_spec_* and unexpected-capture deltas), "wall_s",
+    "agg_tok_s" (the streams' decode tokens over the window from their
+    first token to their last)}."""
+    bodies = _spec_batch_bodies()
+    streams = [k for k in bodies if k != "hi"]
+    firsts = {k: threading.Event() for k in streams}
+    res: dict = {}
+    before, _ = _scrape(srv.port)
+    reset_counters()
+    t0 = time.perf_counter()
+
+    def run(k):
+        res[k] = _sse(srv.port, bodies[k], f"{k}-{tag}", first=firsts[k])
+
+    threads = {k: threading.Thread(target=run, args=(k,)) for k in streams}
+    for k in streams[1:] + streams[:1]:
+        if k == streams[0]:
+            for other in streams[1:]:
+                if not firsts[other].wait(300):
+                    fail(f"spec_batch {tag}: stream {other} produced no token in 300 s")
+        threads[k].start()
+    if not firsts[streams[0]].wait(300):
+        fail(f"spec_batch {tag}: stream {streams[0]} produced no token in 300 s")
+    res["hi"] = _sse(srv.port, bodies["hi"], f"hi-{tag}")
+    threads = list(threads.values())
+    for th in threads:
+        th.join(timeout=600)
+        if th.is_alive():
+            fail(f"spec_batch {tag}: a stream did not finish within 600 s")
+    wall = time.perf_counter() - t0
+    launches = counters()
+    after, _ = _scrape(srv.port)
+    for k, r in res.items():
+        if r["status"] != 200 or not r["done"] or r["finish"] != "length":
+            fail(f"spec_batch {tag}: {k} answered {r['status']}, finish {r['finish']}")
+    tokens = sum(r["timings"]["decode_tokens"] - 1 for k, r in res.items() if k != "hi")
+    window = (max(r["t_done"] for k, r in res.items() if k != "hi")
+              - min(r["t_first"] for k, r in res.items() if k != "hi"))
+    metrics = {
+        "cycles": after.get(("dllama_spec_cycles_total", ""), 0.0)
+        - before.get(("dllama_spec_cycles_total", ""), 0.0),
+        **{kind: v for kind, v in (
+            (lab.split('"')[1], d) for lab, d in
+            _family_delta(before, after, "dllama_spec_tokens_total").items())},
+        "unexpected": sum(_family_delta(before, after,
+                                        "dllama_jit_unexpected_compiles_total").values())}
+    return {"responses": res, "launches": launches, "metrics": metrics, "wall_s": wall,
+            "agg_tok_s": tokens / window}
+
+
+def _cycle_ms(eng, spec: bool, n: int = SPEC_BATCH_CYCLES) -> dict:
+    """chunk_timing of one n-cycle spec chunk (or n-step plain chunk) of
+    `eng`'s 8 active greedy slots, a cycle's (step's) share; with the
+    launches of one more chunk and, for spec, its tokens a cycle."""
+    def run():
+        return eng.decode_consume(eng.decode_dispatch(n, spec=spec))
+
+    t = chunk_timing(run, n)
+    reset_counters()
+    s0 = eng.spec_stats()
+    run()
+    t["launches"] = {k: v for k, v in counters().items() if v}
+    if spec:
+        s1 = eng.spec_stats()
+        t["tokens_per_cycle"] = (s1["emitted"] - s0["emitted"]) / (s1["cycles"] - s0["cycles"])
+    return t
+
+
+def _timed_cycles(eng, prompts: list[list[int]]) -> dict:
+    """8 greedy slots admitted into `eng` (idle, its server drained): one
+    spec cycle's and one plain step's device ms (_cycle_ms); the slots are
+    released after."""
+    for s, toks in enumerate(prompts):
+        eng.add(s, toks, temperature=0.0)
+    out = {"spec": _cycle_ms(eng, True), "plain": _cycle_ms(eng, False)}
+    for s in range(len(prompts)):
+        eng.release(s)
+    return out
+
+
+def phase_spec_batch(loaded) -> dict:
+    """Batched speculation on the 8B Q40 model at full width: the 8-slot
+    server at its defaults (make_server: aio, the radix tree, preemption,
+    hybrid admission, page 128) with --warmup auto and --spec-k 4. The same
+    traffic (_spec_batch_bodies: 8 streams of SPEC_BATCH_TOKENS tokens, a
+    priority-2 arrival preempting s0) on two --spec-k 4 servers and one
+    --spec-k 0 server: greedy ids equal the spec 0 server's or first differ
+    at a near tie (the verify forward's K2 rows against plain decode's K1
+    rows); the sampled streams' first differences between the two spec
+    servers (printed: their tokens take K1's or K2's route as the schedule
+    falls); the dllama_spec_* deltas equal the engine's spec_stats() deltas, and the
+    emitted tokens and (cycle, slot) pairs equal the responses' summed
+    timings().spec plus the discarded overrun (spec_rows); a preemption and
+    its resume; no
+    unexpected capture; a clean pool after each drain; the launches of the
+    first spec run (K2 and K9 in its verify cycles, K1 in its plain and
+    hybrid chunks). Then, on the drained spec server's engine and on a
+    --spec-k 1 engine (8 x 2 = 16 rows: K1's route), one cycle's device ms
+    against one plain step's, with tokens a cycle; and on a 3-slot K = 4
+    engine (15 rows: K1's route) greedy, sampled and penalized slots through
+    spec and plain chunks bit-equal to plain decode (spec_lockstep_check).
+    Returns the first spec run's launches."""
+    import gc
+
+    import torch
+
+    from dllama_tpu_torch.engine.batch import BatchEngine
+
+    runs, servers = {}, {}
+    for tag, spec in (("spec", SPEC_BATCH_K), ("spec2", SPEC_BATCH_K), ("plain", 0)):
+        srv = RadixServer(loaded, spec=spec)
+        if srv.eng.kv_layout != "paged" or srv.eng.page_size != 128:
+            fail(f"spec_batch: the server resolved {srv.eng.kv_layout} at page "
+                 f"{srv.eng.page_size}, not paged at 128")
+        if not srv.sched.warmup_report["full_coverage"]:
+            fail(f"spec_batch {tag}: the warm-up left programs uncaptured "
+                 f"{srv.sched.warmup_report}")
+        s0, r0 = srv.eng.spec_stats(), srv.eng.spec_rows()
+        runs[tag] = _spec_batch_traffic(srv, tag)
+        s1, r1 = srv.eng.spec_stats(), srv.eng.spec_rows()
+        runs[tag].update(stats=s1, preemptions=srv.sched.preempt_count,
+                         resumed=srv.sched.resume_count,
+                         rows={k: r1[k] - r0[k] for k in r1},
+                         delta=None if s1 is None else {
+                             k: s1[k] - s0[k] for k in ("cycles", "drafted", "accepted",
+                                                        "emitted")})
+        srv.close(tag)
+        servers[tag] = srv
+    spec, spec2, plain = runs["spec"], runs["spec2"], runs["plain"]
+    for tag, r in runs.items():
+        if r["metrics"]["unexpected"]:
+            fail(f"spec_batch {tag}: {r['metrics']['unexpected']} unexpected captures")
+        if not r["preemptions"] or r["resumed"] != r["preemptions"]:
+            fail(f"spec_batch {tag}: {r['preemptions']} preemptions, {r['resumed']} resumes")
+    reports = []
+    a, b, c = servers["spec"], servers["spec2"], servers["plain"]
+    for k in ("s0", "s1", "s2", "s3", "s4", "hi"):
+        msg = near_tie(loaded, a.trace.runs[f"{k}-spec"][0], a.ids(f"{k}-spec"),
+                       c.ids(f"{k}-plain"), f"spec_batch {k} spec 4 vs 0")
+        if msg:
+            reports.append(msg)
+    # a sampled stream's tokens run in verify cycles (K2 at 40 rows) or in
+    # plain or hybrid chunks (K1) as each run's schedule falls, and on the
+    # random weights' flat top-p candidates those routes' low bits move the
+    # draw: the two spec runs' sampled streams are printed, not compared
+    # (spec_lockstep_check holds the sampled rows on one route, exactly)
+    apart = {k: next((j for j, (x, y) in enumerate(zip(a.ids(f"{k}-spec"),
+                                                        b.ids(f"{k}-spec2"))) if x != y), None)
+             for k in ("s5", "s6", "s7")}
+    for tag in ("spec", "spec2"):
+        r, srv = runs[tag], servers[tag]
+        m, d, rows = r["metrics"], r["delta"], r["rows"]
+        if (m["cycles"] != d["cycles"] or m.get("emitted", 0) != d["emitted"]
+                or m.get("drafted", 0) != d["drafted"] or m.get("accepted", 0) != d["accepted"]):
+            fail(f"spec_batch {tag}: /metrics dllama_spec_* {m} against spec_stats() {d}")
+        # the emitted tokens and (cycle, slot) pairs are exactly the
+        # responses' spec records (s4's, at spec_k 0, from its Request:
+        # timings() leaves it out) plus the rows of slots released while
+        # their chunk was in flight (the overrun no request is credited)
+        summed = {"cycles": 0, "tokens": 0}
+        for k, resp in r["responses"].items():
+            t = (resp["timings"] or {}).get("spec")
+            if (k == "s4") != (t is None):
+                fail(f"spec_batch {tag}: {k}'s timings spec object {t}")
+            if t is None:
+                req = srv.trace.reqs[f"{k}-{tag}"]
+                t = {"cycles": req.spec_cycles, "tokens": req.spec_tokens}
+            summed["cycles"] += t["cycles"]
+            summed["tokens"] += t["tokens"]
+        if (d["emitted"] != summed["tokens"] + rows["discarded_tokens"]
+                or rows["slot_cycles"] != summed["cycles"] + rows["discarded_cycles"]):
+            fail(f"spec_batch {tag}: emitted {d['emitted']} tokens in {rows['slot_cycles']} "
+                 f"(cycle, slot) pairs against the responses' {summed} plus the discarded "
+                 f"{rows}")
+        r["summed"] = summed
+    launches = spec["launches"]
+    for kname in ("q40_prefill", "paged_attention", "q40_decode"):
+        if not launches.get(kname):
+            fail(f"spec_batch: kernel {kname} was never launched ({launches})")
+    st = spec["stats"]
+    print(f"spec_batch --spec-k {SPEC_BATCH_K}: {json.dumps(spec['delta'])}; tokens a cycle "
+          f"over the batch {st['tokens_per_cycle']}, accept mean {st['accept_mean']}; the "
+          f"responses' spec "
+          f"records {json.dumps(spec['summed'])}; /metrics {json.dumps(spec['metrics'])}; "
+          f"preemptions {spec['preemptions']}, resumed {spec['resumed']}; aggregate "
+          f"{spec['agg_tok_s']:.1f} tok/s (second spec run {spec2['agg_tok_s']:.1f}) against "
+          f"{plain['agg_tok_s']:.1f} at --spec-k 0; walls {spec['wall_s']:.2f} / "
+          f"{spec2['wall_s']:.2f} / {plain['wall_s']:.2f} s; near ties {len(reports)}; "
+          f"discarded overrun {json.dumps(spec['rows'])}; sampled streams of the two spec "
+          f"runs first apart at {apart}; launches {launches}", flush=True)
+
+    prompts = [prompt_ids(a.api, _spec_batch_bodies()[f"s{i}"]) for i in range(8)]
+    cyc = {SPEC_BATCH_K: _timed_cycles(a.eng, prompts)}
+    del a, b, c, servers
+    gc.collect()
+    torch.cuda.empty_cache()
+    e = loaded.engine
+    # 3 slots x (K+1) = 15 verify rows: the spec programs on K1's route, as
+    # plain decode, so their tokens must be plain decode's bit for bit
+    few = BatchEngine(loaded.config, e.params, n_slots=3, cache_dtype=e.cache.k.dtype,
+                      max_seq_len=e.seq_len, kv_layout="paged", page_size=128,
+                      device=e.device, spec=SPEC_BATCH_K)
+    admits = [(prompts[1], dict(temperature=0.0)),
+              (prompts[5], dict(temperature=0.8, seed=105)),
+              (prompts[7], dict(temperature=0.8, seed=107, presence=0.5, frequency=0.3))]
+    lock = spec_lockstep_check(few, admits, SPEC_BATCH_LOCKSTEP)
+    print(f"spec_batch lockstep, 3 slots, K={SPEC_BATCH_K} ({3 * (SPEC_BATCH_K + 1)} verify "
+          f"rows: K1): greedy, sampled and penalized slots' first {SPEC_BATCH_LOCKSTEP} "
+          f"tokens bit-equal to plain decode's over {lock['chunks']} spec and plain chunks; "
+          f"{json.dumps(lock['stats'])}", flush=True)
+    del few
+    gc.collect()
+    torch.cuda.empty_cache()
+    k1 = BatchEngine(loaded.config, e.params, n_slots=8, cache_dtype=e.cache.k.dtype,
+                     max_seq_len=e.seq_len, kv_layout="paged", page_size=128,
+                     device=e.device, spec=1)
+    cyc[1] = _timed_cycles(k1, prompts)
+    del k1
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, t in cyc.items():
+        s, p = t["spec"], t["plain"]
+        print(f"spec_batch cycle, 8 slots, K={k} ({8 * (k + 1)} verify rows): "
+              f"{s['device_ms']:.4f} ms device, {s['stream_ms']:.4f} stream, "
+              f"{s['wall_ms']:.4f} wall a cycle, {s['tokens_per_cycle']:.3f} tokens a cycle "
+              f"over the 8 slots; "
+              f"plain step {p['device_ms']:.4f} ms device, {p['stream_ms']:.4f} stream, "
+              f"{p['wall_ms']:.4f} wall; launches a spec chunk of {SPEC_BATCH_CYCLES} "
+              f"{s['launches']}, a plain chunk {p['launches']}", flush=True)
+    if cyc[1]["spec"]["launches"].get("q40_prefill") or not cyc[1]["spec"]["launches"].get(
+            "q40_decode"):
+        fail("spec_batch: at K=1 the 16-row verify forward left K1's route")
+    if not cyc[SPEC_BATCH_K]["spec"]["launches"].get("q40_prefill"):
+        fail(f"spec_batch: at K={SPEC_BATCH_K} the verify forward never ran K2")
+    return launches
 
 
 # ------------------------------------------------------------ phase 12
@@ -3804,7 +4193,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20, help="timed runs per case (0: no timing)")
     ap.add_argument("--phases",
                     default="card,kernels,kbench,forward,serve,batch,hybrid,radix,obs,"
-                            "inference,styles,spec,graphs,f8,q80",
+                            "inference,styles,spec,spec_batch,graphs,f8,q80",
                     help="comma list; not in the default: 'profile' adds a "
                          "torch.profiler pass over one decode chunk, single-stream "
                          "and 8-slot; 'chunk' is the prefill-chunk timing alone (Q40 "
@@ -3864,7 +4253,7 @@ def main(argv=None) -> int:
     prompt = ("Summarize the plot of a long story about a lighthouse keeper, "
               "a storm, and a ship that never arrives.")
     if phases & {"forward", "chunk", "serve", "profile", "batch", "hybrid", "radix", "obs",
-                  "inference", "styles", "spec", "graphs", "f8"}:
+                  "inference", "styles", "spec", "spec_batch", "graphs", "f8"}:
         from dllama_tpu_torch.engine.loader import load_model
 
         tmp = tempfile.TemporaryDirectory(prefix="dllama_smoke_")
@@ -3987,6 +4376,10 @@ def main(argv=None) -> int:
         if "spec" in phases:
             paths["spec"] = phase_spec(loaded, mpath, tpath)
         phase_done("spec", phases)
+
+        if "spec_batch" in phases:
+            paths["spec_batch"] = phase_spec_batch(loaded)
+        phase_done("spec_batch", phases)
 
         if "graphs" in phases:
             paths["graphs"] = phase_graphs(loaded, mpath, tpath, prompt)["launches"]

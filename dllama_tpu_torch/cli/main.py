@@ -17,9 +17,11 @@ preemption with priority classes and tenant fair queueing (`--preempt auto`,
 `--tenant-weight NAME=W`), the host-RAM spill tier when `--kv-host-pages N`
 is given, and hybrid chunked prefill (`--prefill-budget auto`; 0 restores
 phase-split admission). `--spec K`
-(prompt-lookup speculative decoding) drives the single-engine paths; with
-`--slots > 0` it is refused. `serve --slots N --warmup auto` captures every
-decode and prefill program before the first request. `serve` runs on the
+(prompt-lookup speculative decoding) drives the single-engine paths, and
+`serve --slots N --spec K` (or `--spec-k K`) speculates on the batched tier:
+every greedy request at K unless its body's `spec_k` asks for less.
+`serve --slots N --warmup auto` captures every decode, prefill and spec
+program before the first request. `serve` runs on the
 aio front end (`--frontend aio`, the default, as in the JAX package; `threads`
 is the thread-per-connection server) and answers `/metrics` and the
 `/debug/*` family; `--log-format json`, `--trace DIR` (a torch.profiler
@@ -173,9 +175,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="warm engine restarts (not yet ported)")
     p.add_argument("--spec", type=int, default=0, metavar="K",
                    help="prompt-lookup speculative decoding with K-token drafts for "
-                        "greedy runs (inference, chat, serve on the single-engine "
-                        "tier; a request's spec_k clamps to K); same tokens, fewer "
-                        "forwards on repetitive text. Not yet ported with --slots > 0")
+                        "greedy runs (inference, chat, serve; a request's spec_k "
+                        "clamps to K); same tokens, fewer forwards on repetitive text. "
+                        "In serve mode the alias of --spec-k")
+    p.add_argument("--spec-k", type=int, default=None, metavar="K",
+                   help="serve mode: speculative decoding's draft length and each "
+                        "request's default; with --slots > 0 the batched tier runs "
+                        "K-draft verify cycles, every request speculating at K unless "
+                        "its body passes its own spec_k (0..K; 0 opts out). Greedy "
+                        "streams are the same spec on or off; sampled and penalized "
+                        "requests ride the cycles one token at a time. Telemetry: "
+                        "dllama_spec_*, the spec objects of timings and /debug/perf "
+                        "(default: --spec)")
     p.add_argument("--mesh", default=None, help="device mesh (not yet ported)")
     p.add_argument("--transfer-guard", choices=["off", "log", "strict"], default="off",
                    help="JAX's steady-state upload guard (not yet ported)")
@@ -184,8 +195,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    if args.spec and args.mode == "serve" and args.slots > 0:
-        raise NotPorted("--spec with --slots > 0 (batched speculative decoding)")
     if args.restart_max:
         raise NotPorted("--restart-max (warm engine restarts)")
     if args.mesh is not None:
@@ -377,7 +386,9 @@ def cmd_serve(args) -> int:
             sse_heartbeat_s=args.sse_heartbeat_s, replica_id=args.replica_id,
             drain_timeout_s=args.drain_timeout_s, kv_layout=args.kv_layout,
             page_size=args.page_size, kv_pages=args.kv_pages, max_queue=args.max_queue,
-            overlap=args.overlap == "on", spec=args.spec, warmup=args.warmup,
+            overlap=args.overlap == "on", warmup=args.warmup,
+            # --spec-k is the serving knob; --spec its alias
+            spec=args.spec_k if args.spec_k is not None else args.spec,
             prefill_budget=prefill_budget, admit_stall_budget_ms=args.admit_budget_ms,
             admit_ttft_deadline_ms=args.admit_ttft_deadline_ms, slo_itl_ms=args.slo_itl_ms,
             slo_ttft_ms=args.slo_ttft_ms, radix_cache=args.radix_cache,

@@ -36,6 +36,17 @@ leave at EOS: the scheduling core of continuous batching. Mechanics:
   serving scheduler drives; direct add/decode/release use is the same
   either way. resume_commit re-activates a preempted request's slot with
   its last token and generator counter, sampling nothing.
+* batched speculative decoding (``spec`` = K, the JAX package's
+  ``_spec_cycle_core``): a device history [B, seq_len+1] per slot feeds the
+  n-gram proposer (engine/speculative.py), written wherever a slot's tokens
+  are (prompt chunks and decode tokens inside their programs, commits,
+  prefix copies and tree maps). decode_dispatch(n, spec=True) replays a
+  spec program of n verify cycles: each greedy slot accepts up to its own
+  draft length (``spec_k`` at commit, at most K), every other active slot
+  takes one exact token a cycle, and eligibility, the draft clamp, the
+  write mask and the positions are computed on the device every cycle, so
+  the advance is data-dependent and the host mirrors settle at
+  decode_consume.
 
 Device buffers are updated in place where the JAX package donates them (the
 cache or pool, the occurrence counts). Every device tensor is made on the
@@ -55,10 +66,11 @@ import numpy as np
 import torch
 
 from dllama_tpu_torch.engine.engine import CACHE_DTYPES, pow2_chunk
-from dllama_tpu_torch.engine.graphs import VARIANTS, Programs
+from dllama_tpu_torch.engine.graphs import SPEC_VARIANTS, VARIANTS, Programs
 from dllama_tpu_torch.engine.kernel_select import resolve_kernels
 from dllama_tpu_torch.engine.radix import RadixCache
 from dllama_tpu_torch.engine.sampling import CounterRNG, apply_penalties, sample_logits
+from dllama_tpu_torch.engine.speculative import SPEC_NGRAM, masked_put, propose_ngram
 from dllama_tpu_torch.models.config import LlamaConfig
 from dllama_tpu_torch.models.llama import KVCache, PagedKVCache, forward
 from dllama_tpu_torch.obs import compile as compile_obs
@@ -605,6 +617,17 @@ class DecodeChunk:
     # its dispatch and the previous chunk's consumption to its tokens on the
     # host (the roofline gauge's denominator)
     device_s: float = 0.0
+    # a spec chunk of `n` verify cycles: `toks` is the per-cycle emit tensor
+    # [n, B, K+1], `advance` a host lower bound at dispatch (1 an active
+    # row) and `start_pos` the host mirror; decode_consume overwrites both
+    # from the device's per-cycle counts (`adv_host` i32 [n, B]), drafts
+    # verified (`drafted_host` i32 [n, B]) and start positions
+    # (`start_host` i32 [B]), and keeps the counts in `adv_cycles`
+    spec: bool = False
+    adv_host: torch.Tensor | None = None
+    drafted_host: torch.Tensor | None = None
+    start_host: torch.Tensor | None = None
+    adv_cycles: np.ndarray | None = None
 
     def nonfinite(self) -> np.ndarray | None:
         """bool [B] rows whose logits went non-finite in this chunk, or None
@@ -635,6 +658,9 @@ class BatchEngine:
         kv_host_pages: int = 0,  # host-RAM spill tier: page slots radix eviction
         # copies cold pages into, restored on a prefix hit; 0 = off, > 0 needs
         # the paged layout with the tree on (its token paths are the keys)
+        spec: int = 0,  # K-token prompt-lookup speculative decoding for the
+        # batch (decode_dispatch(spec=True)); 0 = off. Greedy slots emit 1..K+1
+        # exact-argmax tokens a verify forward; sampled slots advance exactly 1
     ):
         if cache_dtype not in CACHE_DTYPES:
             raise ValueError(f"KV cache dtype {cache_dtype} is not one of {CACHE_DTYPES}")
@@ -697,6 +723,10 @@ class BatchEngine:
         self.presence = np.zeros(n_slots, np.float32)
         self.frequency = np.zeros(n_slots, np.float32)
         self.seeds = np.zeros(n_slots, np.int64)  # each slot's request seed (commit record)
+        # per-request speculation: each slot's own draft length, set at commit
+        # from the request's spec_k (clamped to K); 0 = the slot rides spec
+        # cycles one token a cycle, as sampled slots always do
+        self.spec_k_slot = np.zeros(n_slots, np.int32)
         self.seed = int(seed)
         self._admissions = 0
         self.chunk_seq = 0
@@ -727,6 +757,23 @@ class BatchEngine:
         self._pf_table = (torch.zeros((1, self.cache.tables.shape[1]), dtype=torch.int32,
                                       device=self.device) if self.pool is not None else None)
         self.programs = Programs(self.device, capture)
+        # batched speculation: K (the verify forward is K+1 rows wide), the
+        # device history (made once: the programs write it where it was when
+        # captured; unknown rows hold -1, which never matches a token), each
+        # slot's draft length on the device, the cumulative acceptance
+        # accounting (spec_stats; the dllama_spec_* series' mirror), where
+        # its emitted tokens went (spec_rows) and the dispatched, unconsumed
+        # spec chunks (while one is in flight the host pos mirror lags the
+        # device's, so a dispatch tops up pages for both)
+        self.spec_k = int(spec)
+        self._spec_totals = {"cycles": 0, "drafted": 0, "accepted": 0, "emitted": 0}
+        self._spec_rows = {"slot_cycles": 0, "discarded_tokens": 0, "discarded_cycles": 0}
+        self._spec_inflight = 0
+        self.history: torch.Tensor | None = None
+        self._speck_dev = torch.zeros(n_slots, dtype=torch.int32, device=self.device)
+        if self.spec_k:
+            self.history = torch.full((n_slots, self.seq_len + 1), -1, dtype=torch.int64,
+                                      device=self.device)
         # the capture ledger's shape contract (obs/compile): the engine
         # declares its prefill widths, the serving scheduler its decode
         # chunk (declare_serving_buckets); a capture outside it is counted,
@@ -873,6 +920,12 @@ class BatchEngine:
         self.pool.adopt_prefix(slot, pages)
         self.pos[slot] = hit.rows
         _set_row(self._pos_dev, slot, hit.rows)
+        if self.spec_k and hit.rows:
+            # the mapped prefix's token ids feed the n-gram proposer, as a
+            # prefilled prompt's do
+            toks = np.asarray(hit.tokens, np.int64)
+            self.history[slot, : toks.shape[0]].copy_(self._pinned(toks), non_blocking=True)
+            compile_obs.note_transfer("h2d", "history", int(toks.nbytes))
         self._vec_dirty = True
 
     def radix_insert(self, slot: int, toks) -> int:
@@ -983,6 +1036,10 @@ class BatchEngine:
         else:
             for buf in (self.cache.k, self.cache.v):
                 buf[:, dst_slot, :, :rows] = buf[:, src_slot, :, :rows]
+        if self.spec_k:
+            # the shared prefix's token ids come along, so the n-gram proposer
+            # drafts from it in the new slot too
+            self.history[dst_slot, :rows] = self.history[src_slot, :rows]
         self.pos[dst_slot] = rows
         _set_row(self._pos_dev, dst_slot, rows)
         self._vec_dirty = True
@@ -1037,8 +1094,11 @@ class BatchEngine:
         at the device position ``_pf_in[1]`` into the slot ``_pf_in[0]``
         (paged: its table row, gathered from the device tables; dense: the
         slot the layout names). The last position's logits go to
-        ``buffers["logits"]`` [1, V]. It moves no engine state: the slot's
-        positions and activity are the host's to set (add_commit)."""
+        ``buffers["logits"]`` [1, V]. With speculation on, the chunk's
+        tokens also go to the slot's history at their positions (the n-gram
+        proposer drafts from the prompt). It moves no other engine state:
+        the slot's positions and activity are the host's to set
+        (add_commit)."""
         toks = torch.zeros((1, width), dtype=torch.int64, device=self.device)
         out = torch.zeros((1, self.cfg.vocab_size), dtype=torch.float32, device=self.device)
         pos = self._pf_in[1:]
@@ -1046,17 +1106,27 @@ class BatchEngine:
             table, slot = self._pf_table, self._pf_in[:1]
             sub = PagedKVCache(self.cache.k, self.cache.v, table)
 
-            def body():
+            def forward_chunk():
                 table.copy_(self.cache.tables.index_select(0, slot))
                 out.copy_(self._logits(toks, pos, sub))
         else:
             s = layout[1]
             sub = KVCache(self.cache.k[:, s : s + 1], self.cache.v[:, s : s + 1])
 
-            def body():
+            def forward_chunk():
                 out.copy_(self._logits(toks, pos, sub))
 
-        return body, {"toks": toks, "logits": out}, ()
+        if not self.spec_k:
+            return forward_chunk, {"toks": toks, "logits": out}, ()
+        hist = self.history.view(-1)
+        offs = torch.arange(width, device=self.device)
+
+        def body():
+            forward_chunk()
+            at = self._pf_in[0] * self.history.shape[1] + self._pf_in[1] + offs
+            hist.index_copy_(0, at, toks[0])
+
+        return body, {"toks": toks, "logits": out}, (self.history,)
 
     def _prefill_slice(self, adm: Admission, c: int) -> None:
         """Run the next `c` prompt tokens of `adm` through the prefill
@@ -1091,10 +1161,11 @@ class BatchEngine:
     @torch.no_grad()
     def add_commit(self, adm: Admission, temperature: float = 0.8, topp: float = 0.9,
                    seed: int | None = None, presence: float = 0.0,
-                   frequency: float = 0.0) -> int:
+                   frequency: float = 0.0, spec_k: int | None = None) -> int:
         """Sample the first token from the finished admission (counter 0 of
         the slot's generator) and activate the slot. Must follow add_step
-        returning True."""
+        returning True. `spec_k` is the slot's draft length under batched
+        speculation, clamped to K (None: K; 0 opts the slot out)."""
         if adm.off < len(adm.toks) or adm.logits is None:
             raise ValueError("admission not pumped")
         slot = adm.slot
@@ -1115,6 +1186,7 @@ class BatchEngine:
         self._vec_dirty = True
         _set_row(self._last_dev, slot, first)
         _set_row(self._pos_dev, slot, self.pos[slot])
+        self._commit_spec(slot, first, spec_k)
         if presence or frequency:
             self._ensure_counts()
             # a fresh request has sampled nothing yet (OpenAI counts exclude
@@ -1122,10 +1194,19 @@ class BatchEngine:
             self._counts[slot] = 0
         return first
 
+    def _commit_spec(self, slot: int, token: int, spec_k: int | None) -> None:
+        """The slot's draft length (clamped to K), and with speculation on
+        its unfed token at its position in the history (a fill, in stream
+        order)."""
+        self.spec_k_slot[slot] = (min(int(spec_k), self.spec_k) if spec_k is not None
+                                  else self.spec_k)
+        if self.spec_k:
+            _set_row(self.history[slot], self.pos[slot], token)
+
     @torch.no_grad()
     def resume_commit(self, adm: Admission, last_token: int, seed: int, counter: int,
                       temperature: float = 0.8, topp: float = 0.9, presence: float = 0.0,
-                      frequency: float = 0.0, counted=None) -> None:
+                      frequency: float = 0.0, counted=None, spec_k: int | None = None) -> None:
         """Re-activate a slot for a resumed (preempted) request. The
         admission re-prefilled the rows the request had written, prompt and
         every emitted token but the last (a sampled token's row exists only
@@ -1134,8 +1215,8 @@ class BatchEngine:
         it stood at the interruption, WITHOUT sampling: the resumed stream's
         next token is the one the uninterrupted run would have drawn.
         `counted` (penalized requests) lists the tokens fed so far, whose
-        occurrence counts are rebuilt. Every device write is a one-row
-        in-place update, in stream order."""
+        occurrence counts are rebuilt; `spec_k` is add_commit's. Every device
+        write is a one-row in-place update, in stream order."""
         if adm.off < len(adm.toks):
             raise ValueError("admission not pumped")
         slot = adm.slot
@@ -1150,6 +1231,7 @@ class BatchEngine:
         self._vec_dirty = True
         _set_row(self._last_dev, slot, int(last_token))
         _set_row(self._pos_dev, slot, self.pos[slot])
+        self._commit_spec(slot, int(last_token), spec_k)
         if presence or frequency:
             self._ensure_counts()
             row = np.zeros((1, self.cfg.vocab_size), np.int32)
@@ -1181,9 +1263,12 @@ class BatchEngine:
         if not self._vec_dirty:
             return
         nbytes = 0
-        for dev, host in ((self._active_dev, self.active), (self._temps_dev, self.temperature),
-                          (self._topp_dev, self.topp), (self._pres_dev, self.presence),
-                          (self._freq_dev, self.frequency), (self._limit_dev, self._row_limit())):
+        pairs = [(self._active_dev, self.active), (self._temps_dev, self.temperature),
+                 (self._topp_dev, self.topp), (self._pres_dev, self.presence),
+                 (self._freq_dev, self.frequency), (self._limit_dev, self._row_limit())]
+        if self.spec_k:
+            pairs.append((self._speck_dev, self.spec_k_slot))
+        for dev, host in pairs:
             dev.copy_(self._pinned(host), non_blocking=True)
             nbytes += host.nbytes
         if self.pool is not None:
@@ -1205,6 +1290,7 @@ class BatchEngine:
         toks = torch.zeros((n, self.n_slots), dtype=torch.int64, device=self.device)
         bad = torch.zeros(self.n_slots, dtype=torch.bool, device=self.device)
         penalized = variant == "penalized"
+        offs = torch.arange(1, n + 1, device=self.device)
 
         def body():
             act0, lim = self._active_dev, self._limit_dev
@@ -1234,20 +1320,114 @@ class BatchEngine:
                 tok = torch.where(act, nxt, tok)
                 toks[i].copy_(tok)
                 p = p + act.to(p.dtype)
+            if self.spec_k:
+                # the chunk's tokens backfill the history at pos+1..pos+n, so
+                # later spec cycles draft from them; a row whose whole chunk
+                # would pass the history's end (a slot frozen at seq_len,
+                # where spec cycles freeze it anyway) is skipped
+                fits = act0 & (p0 + 1 + n <= self.seq_len + 1)
+                masked_put(self.history, p0.to(torch.int64)[:, None] + offs, toks.T,
+                           fits[:, None])
             self.rng.advance((p - p0).to(torch.int64))  # one draw per active step
             self._pos_dev.copy_(p)
             self._last_dev.copy_(tok)
 
         state = (self._pos_dev, self._last_dev, self.rng.counter)
+        if self.spec_k:
+            state += (self.history,)
         return body, {"toks": toks, "bad": bad}, state + ((self._counts,) if penalized else ())
 
+    def _make_spec_program(self, variant: str, n: int):
+        """(body, buffers, state) of the spec program of n verify cycles,
+        variant ``spec`` or ``spec_pen`` (the JAX package's
+        ``_spec_cycle_core`` under ``_spec_step_impl`` /
+        ``_spec_step_pen_impl``). Each cycle, on the device: a slot takes part
+        (``eff``) when it is active with a (K+1)-row window below its row
+        limit; the frozen rest write nothing and hold their position, token
+        and generator. Greedy rows (not penalized, in ``spec_pen``) accept up
+        to min(their draft length, K) drafts; every other row takes one
+        token a cycle from its offset-0 logits (``spec_pen``: penalized,
+        its fed token counted first). The generator keeps counter = tokens
+        emitted: a sampled row draws at its counter and advances it by 1, a
+        greedy row advances it by its a + 1 tokens and draws nothing. The
+        emitted tokens, and so each slot's next history rows, are written
+        for the taking-part rows. Outputs: ``toks`` [n, B, K+1] (each
+        cycle's emit rows), ``adv`` and ``drafted`` i32 [n, B] (tokens each
+        slot emitted, drafts it verified), ``start`` i32 [B] (the positions
+        the chunk started from) and ``bad`` [B] (non-finite logits of a
+        taking-part row, sticky over the chunk)."""
+        k, b = self.spec_k, self.n_slots
+        dev = self.device
+        emits = torch.zeros((n, b, k + 1), dtype=torch.int64, device=dev)
+        advs = torch.zeros((n, b), dtype=torch.int32, device=dev)
+        drafts = torch.zeros((n, b), dtype=torch.int32, device=dev)
+        start = torch.zeros(b, dtype=torch.int32, device=dev)
+        bad = torch.zeros(b, dtype=torch.bool, device=dev)
+        penalized = variant == "spec_pen"
+        offs = torch.arange(1, k + 2, device=dev)
+
+        def body():
+            act0, lim = self._active_dev, self._limit_dev.to(torch.int64)
+            speck, temps = self._speck_dev.to(torch.int64), self._temps_dev
+            accept_mask = temps == 0.0
+            if penalized:
+                # a penalized greedy row samples its penalized argmax instead
+                accept_mask = accept_mask & (self._pres_dev == 0.0) & (self._freq_dev == 0.0)
+            pos, cur = self._pos_dev, self._last_dev
+            start.copy_(pos)
+            bad.zero_()
+            for c in range(n):
+                p = pos.to(torch.int64)
+                eff = act0 & (p + k + 1 <= lim)
+                accept = accept_mask & eff
+                k_eff = torch.where(accept, torch.minimum(speck, lim - p - 1).clamp(0, k), 0)
+                draft, _ = propose_ngram(self.history, p + 1, k, SPEC_NGRAM)  # [B, K]
+                toks = torch.cat([cur[:, None], draft], dim=1)  # [B, K+1]
+                # frozen rows still flow through the forward (writes masked):
+                # clamp their rope and cache rows so the window stays in range
+                p_cl = torch.minimum(p, (lim - (k + 1)).clamp(min=0)).to(torch.int32)
+                logits, _ = forward(self.cfg, self.params, toks, p_cl, self.cache,
+                                    self.rope_cache, self.attn_fn, self.mm, last_only=False,
+                                    active=eff)  # [B, K+1, V]
+                g = torch.argmax(logits, dim=-1)
+                agree = torch.cumprod((draft == g[:, :k]).to(torch.int64), dim=1)
+                a = torch.minimum(agree.sum(dim=1), k_eff)
+                bad.logical_or_(eff & ~torch.isfinite(logits).all(dim=-1).all(dim=-1))
+                first = logits[:, 0]
+                if penalized:
+                    # the fed token counts before its successor is sampled
+                    self._counts.index_put_((self._rows, cur), eff.to(torch.int32),
+                                            accumulate=True)
+                    first = apply_penalties(first, self._counts, self._pres_dev,
+                                            self._freq_dev)
+                samp = _sample_rows(first, self.rng.uniforms(1)[0], temps, self._topp_dev)
+                emit = torch.where(accept[:, None], g, torch.cat([samp[:, None], g[:, 1:]], 1))
+                # the emitted tokens are also the history at pos+1..pos+K+1
+                # (entries past the new position are never read before they
+                # are written again)
+                masked_put(self.history, p[:, None] + offs, emit, eff[:, None])
+                adv = torch.where(eff, a + 1, 0)
+                cur = torch.where(eff, emit.gather(1, a[:, None])[:, 0], cur)
+                self.rng.advance(adv)
+                emits[c].copy_(emit)
+                advs[c].copy_(adv)
+                drafts[c].copy_(k_eff)
+                pos = pos + adv.to(pos.dtype)
+            self._pos_dev.copy_(pos)
+            self._last_dev.copy_(cur)
+
+        state = (self._pos_dev, self._last_dev, self.rng.counter, self.history)
+        buffers = {"toks": emits, "adv": advs, "drafted": drafts, "start": start, "bad": bad}
+        return body, buffers, state + ((self._counts,) if penalized else ())
+
     def _program(self, variant: str, n: int):
-        if variant == "penalized":
+        if variant in ("penalized", "spec_pen"):
             self._ensure_counts()
-        return self.programs.get(variant, n, self._make_program)
+        make = self._make_spec_program if variant in SPEC_VARIANTS else self._make_program
+        return self.programs.get(variant, n, make)
 
     @torch.no_grad()
-    def decode_dispatch(self, n: int) -> DecodeChunk:
+    def decode_dispatch(self, n: int, spec: bool = False) -> DecodeChunk:
         """Launch one n-step decode chunk across the active slots WITHOUT
         waiting for it. Tokens feed back on the device; the freeze, the
         generator's advance and the NaN guard are computed there; the chunk's
@@ -1257,7 +1437,18 @@ class BatchEngine:
         A slot that reaches its row limit mid-chunk (seq_len, or the end of
         its allocated pages) freezes per row while its batch-mates keep the
         whole chunk; `DecodeChunk.advance` holds each slot's real count.
-        Raises only when no active slot has any room."""
+        Raises only when no active slot has any room.
+
+        ``spec=True`` replays the spec program of n verify cycles instead
+        (_spec_dispatch): its counts are data-dependent and settle at
+        decode_consume, so a chunk dispatched off an unconsumed spec chunk
+        must itself be spec (the serving scheduler drains on a switch)."""
+        if spec:
+            if not self.spec_k:
+                raise ValueError("engine built with spec=0")
+            if not self.active.any():
+                raise ValueError("no active slots")
+            return self._spec_dispatch(max(1, int(n)))
         n, limit = self._decode_rows(n)
         self._sync_vectors()
         return self._decode_launch(n, limit)
@@ -1280,28 +1471,13 @@ class BatchEngine:
         """Replay the n-step decode program of the active slots' variant and
         queue the copy of its outputs to the host (decode_dispatch's body,
         after the vectors are synced)."""
-        live = self.active
-        penalized = self._counts is not None and bool(
-            ((self.presence[live] != 0.0) | (self.frequency[live] != 0.0)).any())
-        variant = ("penalized" if penalized else "sampled"
-                   if (self.temperature[live] != 0.0).any() else "greedy")
+        variant = ("penalized" if self._penalized_live() else "sampled"
+                   if (self.temperature[self.active] != 0.0).any() else "greedy")
         prog = self._program(variant, n)
         t0, t_disp = time.perf_counter(), trace.TRACER.now()
         prog.run()
         self.forwards += n
-        toks, bad = prog.buffers["toks"], prog.buffers["bad"]
-        event = None
-        if self.device.type == "cuda":
-            # enqueued before the next replay can rewrite the program's outputs
-            host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
-            host.copy_(toks, non_blocking=True)
-            bad_host = torch.empty(bad.shape, dtype=torch.bool, pin_memory=True)
-            bad_host.copy_(bad, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
-            toks, bad = host, bad_host
-        else:
-            toks, bad = toks.clone(), bad.clone()
+        (toks, bad), event = self._outputs_to_host(prog.buffers["toks"], prog.buffers["bad"])
         start_pos = self.pos.copy()
         active = self.active.copy()
         advance = np.where(active, np.clip(limit - start_pos, 0, n), 0).astype(np.int32)
@@ -1311,6 +1487,58 @@ class BatchEngine:
         return DecodeChunk(toks=toks, bad=bad, event=event, n=n, start_pos=start_pos,
                            active=active, advance=advance, seq=self.chunk_seq, t0=t0,
                            t_disp=t_disp)
+
+    def _outputs_to_host(self, *bufs: torch.Tensor) -> tuple[list[torch.Tensor], object]:
+        """Host copies of a program's outputs and the event behind them: on a
+        CUDA engine non-blocking copies into fresh pinned tensors, enqueued
+        before the next replay can rewrite the outputs; on the CPU clones
+        (event None)."""
+        if self.device.type != "cuda":
+            return [b.clone() for b in bufs], None
+        host = [torch.empty(b.shape, dtype=b.dtype, pin_memory=True) for b in bufs]
+        for h, b in zip(host, bufs):
+            h.copy_(b, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return host, event
+
+    def _penalized_live(self) -> bool:
+        """Whether an active slot has repetition penalties (its chunks take
+        the program that carries the occurrence counts)."""
+        live = self.active
+        return self._counts is not None and bool(
+            ((self.presence[live] != 0.0) | (self.frequency[live] != 0.0)).any())
+
+    def _spec_dispatch(self, n: int) -> DecodeChunk:
+        """decode_dispatch(n, spec=True)'s body (the JAX package's
+        _spec_dispatch): top up pages and split shared ones for n cycles of
+        K+1 rows (twice that while another spec chunk is unconsumed: the
+        host pos mirror then lags the device's by its rows; a row the pool
+        cannot back freezes on the device), replay the spec program, and
+        queue its outputs' copy to the host. The host pos mirror does not
+        move here: `advance` is the lower bound of 1 an active row, and both
+        it and `start_pos` are overwritten in decode_consume."""
+        k = self.spec_k
+        lag = 2 if self._spec_inflight else 1
+        self._alloc_decode_rows(lag * n * (k + 1))
+        if not self.spec_eligible().any():
+            raise ValueError("no active slot is spec-eligible (needs room for K+1 rows); use "
+                             "decode() or release the full slots")
+        self._sync_vectors()
+        prog = self._program("spec_pen" if self._penalized_live() else "spec", n)
+        t0, t_disp = time.perf_counter(), trace.TRACER.now()
+        prog.run()
+        self.forwards += n
+        b = prog.buffers
+        (toks, bad, adv, drafted, start), event = self._outputs_to_host(
+            b["toks"], b["bad"], b["adv"], b["drafted"], b["start"])
+        self._spec_inflight += 1
+        active = self.active.copy()
+        self.chunk_seq += 1
+        return DecodeChunk(toks=toks, bad=bad, event=event, n=n, start_pos=self.pos.copy(),
+                           active=active, advance=active.astype(np.int32), seq=self.chunk_seq,
+                           t0=t0, t_disp=t_disp, spec=True, adv_host=adv,
+                           drafted_host=drafted, start_host=start)
 
     @property
     def supports_hybrid(self) -> bool:
@@ -1359,10 +1587,21 @@ class BatchEngine:
         """Declare the serving scheduler's decode programs into this
         engine's contract (idempotent): every variant at n in 1..chunk,
         the counts a chunk can carry once the row limit clamps n. A hybrid
-        chunk is a prefill program and a decode program, both declared."""
+        chunk is a prefill program and a decode program, both declared.
+        With speculation on, the spec programs at n in {1, chunk}: the
+        scheduler's spec launches (the row limit never clamps their n)."""
         for fn in ("decode", "decode_pen"):
             for n in range(1, max(1, int(chunk)) + 1):
                 self.contract.declare(fn, f"n{n}")
+        for fn in SPEC_VARIANTS if self.spec_k else ():
+            for n in self._spec_counts(chunk):
+                self.contract.declare(fn, f"n{n}")
+
+    @staticmethod
+    def _spec_counts(chunk: int) -> list[int]:
+        """The cycle counts of the scheduler's spec launches: 1 (the tail
+        clamp) and the chunk."""
+        return sorted({1, max(1, int(chunk))})
 
     def chunk_cost_model(self):
         """Frozen obs/perf.ChunkCostModel pricing this engine's decode steps
@@ -1397,9 +1636,10 @@ class BatchEngine:
         """``--warmup auto`` boot pass (the JAX package's BatchEngine.warmup):
         capture every program the serving scheduler can ask for, so the
         first request finds its graphs captured and the kernel libraries
-        loaded: the decode programs, n in 1..chunk times VARIANTS, and the
-        prefill program of each power-of-two width (per slot on the dense
-        layout). A hybrid slice of at most ``hybrid_budget_hi`` tokens runs
+        loaded: the decode programs, n in 1..chunk times VARIANTS, with
+        speculation on the spec programs at n in {1, chunk} times
+        SPEC_VARIANTS, and the prefill program of each power-of-two width
+        (per slot on the dense layout). A hybrid slice of at most ``hybrid_budget_hi`` tokens runs
         one of those widths, so the pass covers hybrid chunks too. Every
         operand is inert: with every slot inactive a decode program freezes
         each row (cache writes masked, positions, tokens and generator
@@ -1428,12 +1668,15 @@ class BatchEngine:
             "seconds": round(time.perf_counter() - t0, 3),
             "full_coverage": all(self.programs.ready(v, n) for n in range(1, chunk + 1)
                                  for v in VARIANTS)
+                             and all(self.programs.ready(v, n) for n in self._spec_counts(chunk)
+                                     for v in (SPEC_VARIANTS if self.spec_k else ()))
                              and all(self.programs.prefill_ready(w, lay) for w in widths
                                      for lay in layouts),
         }
         compile_obs.LEDGER.warmup_report = report
         log.info("warmup: %d decode programs and %d prefill programs (%d graphs captured, "
-                 "%d cached) in %.2fs; %s", chunk * len(VARIANTS), per_fn["prefill_chunk"],
+                 "%d cached) in %.2fs; %s",
+                 report["buckets"] - per_fn["prefill_chunk"], per_fn["prefill_chunk"],
                  report["graphs_captured"], cached, report["seconds"],
                  "full coverage" if report["full_coverage"] else "coverage INCOMPLETE")
         return report
@@ -1444,12 +1687,15 @@ class BatchEngine:
         prefill layout, with inert operands."""
         per_fn: dict[str, int] = {}
         cached = 0
-        fn_names = {"greedy": "decode", "sampled": "decode_sampled", "penalized": "decode_pen"}
-        for n in range(1, chunk + 1):
-            for variant in VARIANTS:
-                cached += self.programs.ready(variant, n)  # captured before this pass
-                self._program(variant, n).run()
-                per_fn[fn_names[variant]] = per_fn.get(fn_names[variant], 0) + 1
+        fn_names = {"greedy": "decode", "sampled": "decode_sampled", "penalized": "decode_pen",
+                    "spec": "spec", "spec_pen": "spec_pen"}
+        work = [(v, n) for n in range(1, chunk + 1) for v in VARIANTS]
+        if self.spec_k:
+            work += [(v, n) for n in self._spec_counts(chunk) for v in SPEC_VARIANTS]
+        for variant, n in work:
+            cached += self.programs.ready(variant, n)  # captured before this pass
+            self._program(variant, n).run()
+            per_fn[fn_names[variant]] = per_fn.get(fn_names[variant], 0) + 1
         widths = self._prefill_widths()
         layouts = ([self._prefill_layout(0)] if self.pool is not None
                    else [self._prefill_layout(s) for s in range(self.n_slots)])
@@ -1478,7 +1724,14 @@ class BatchEngine:
     def decode_consume(self, chunk: DecodeChunk) -> np.ndarray:
         """Wait for the chunk's tokens on the host; fold them into the host
         mirrors. Returns tokens [n, B] (frozen rows repeat their last token;
-        callers use chunk.advance for per-slot counts)."""
+        callers use chunk.advance for per-slot counts).
+
+        A spec chunk's per-slot counts settle here: each slot's accepted runs
+        are flattened, cycle by cycle, into the same [rows, B] layout;
+        `advance`, `start_pos` and `adv_cycles` get the device's values; the
+        host pos and last-token mirrors move, except for slots released while
+        the chunk was in flight (their rows are the discarded overrun); and
+        the acceptance is recorded (dllama_spec_*, spec_stats())."""
         if chunk.event is not None:
             chunk.event.synchronize()
         toks = chunk.toks.numpy().copy()
@@ -1493,6 +1746,8 @@ class BatchEngine:
         chunk.device_s = now - start
         ins.DECODE_CHUNK_SECONDS.observe(chunk.device_s)
         self._t_last_consume = now
+        if chunk.spec:
+            return self._spec_consume(chunk, toks)
         ins.BATCH_OCCUPANCY.observe(int(chunk.active.sum()))
         tr = trace.TRACER
         if tr.enabled:
@@ -1502,11 +1757,114 @@ class BatchEngine:
         self.last_token[chunk.active] = toks[-1, chunk.active]
         return toks
 
+    def _spec_consume(self, chunk: DecodeChunk, emits: np.ndarray) -> np.ndarray:
+        """decode_consume's spec half: `emits` [n, B, K+1] from the host."""
+        self._spec_inflight = max(0, self._spec_inflight - 1)
+        advs = chunk.adv_host.numpy().astype(np.int32)  # [n, B]
+        drafted = chunk.drafted_host.numpy().astype(np.int32)
+        chunk.start_pos = chunk.start_host.numpy().astype(np.int32)
+        compile_obs.note_transfer("d2h", "spec_counts", int(advs.nbytes) + int(drafted.nbytes)
+                                  + int(chunk.start_pos.nbytes))
+        total = advs.sum(axis=0).astype(np.int32)  # [B]
+        chunk.advance = total
+        chunk.adv_cycles = advs
+        m_cycles, b = advs.shape
+        keep = np.arange(emits.shape[2])[None, None, :] < advs[:, :, None]  # [n, B, K+1]
+        out = np.zeros((max(1, int(total.max(initial=0))), b), np.int64)
+        for s in np.flatnonzero(total):
+            out[: total[s], s] = emits[:, s, :][keep[:, s, :]]
+        upd = chunk.active & self.active
+        self.pos[upd] = chunk.start_pos[upd] + total[upd]
+        emitted = np.flatnonzero(upd & (total > 0))
+        if emitted.size:
+            self.last_token[emitted] = out[total[emitted] - 1, emitted]
+        # the (cycle, slot) pairs that emitted, and the share of them and of
+        # the tokens that belonged to slots released in flight: the live rest
+        # is what the requests' records count (spec_rows)
+        gone = chunk.active & ~self.active
+        self._spec_rows["slot_cycles"] += int((advs > 0).sum())
+        self._spec_rows["discarded_tokens"] += int(total[gone].sum())
+        self._spec_rows["discarded_cycles"] += int((advs[:, gone] > 0).sum())
+        # acceptance telemetry, one site: every consumed verify cycle lands in
+        # the dllama_spec_* series and the engine totals
+        acc = advs - 1
+        msk = drafted > 0
+        n_drafted, n_acc, n_emit = int(drafted.sum()), int(acc[msk].sum()), int(total.sum())
+        for key, v in (("cycles", m_cycles), ("drafted", n_drafted), ("accepted", n_acc),
+                       ("emitted", n_emit)):
+            self._spec_totals[key] += v
+        ins.SPEC_CYCLES.inc(m_cycles)
+        ins.SPEC_TOKENS.labels(kind="drafted").inc(n_drafted)
+        ins.SPEC_TOKENS.labels(kind="accepted").inc(n_acc)
+        ins.SPEC_TOKENS.labels(kind="emitted").inc(n_emit)
+        for val, cnt in enumerate(np.bincount(acc[msk])):
+            ins.SPEC_ACCEPTED_LENGTH.observe_n(val, int(cnt))
+        occupancy = int((total > 0).sum())
+        ins.BATCH_OCCUPANCY.observe(occupancy)
+        tr = trace.TRACER
+        if tr.enabled:
+            tr.span_at("decode.spec", chunk.t_disp, tr.now(), cat="decode", track="device",
+                       chunk=chunk.seq, cycles=m_cycles, occupancy=occupancy,
+                       emitted=n_emit, accepted=n_acc)
+        return out
+
     def decode(self, n: int) -> np.ndarray:
         """n decode steps across the active slots; returns tokens [n', B] with
         n' = min(n, the roomiest active slot's room). Lockstep wrapper over
         decode_dispatch/decode_consume."""
         return self.decode_consume(self.decode_dispatch(n))
+
+    def spec_eligible(self) -> np.ndarray:
+        """bool [B], host view: slots the next spec cycle advances, the
+        active ones with K+1 backed rows below their row limit (sampled,
+        penalized and draft-length-0 slots advance one token a cycle; only
+        slots at the context edge or an exhausted pool freeze, and the
+        scheduler alternates plain chunks in for them). Exact at chunk
+        boundaries; the device recomputes it every cycle."""
+        return self.active & (self.pos + self.spec_k + 1 <= self._row_limit())
+
+    def spec_draft_k(self) -> np.ndarray:
+        """i32 [B], host view: each slot's draft length in the next cycle, 0
+        for sampled, penalized, draft-length-0 and ineligible slots. The
+        serving scheduler speculates while some live slot's entry is > 0."""
+        pen = (self.presence != 0) | (self.frequency != 0)
+        return np.where(self.spec_eligible() & (self.temperature == 0.0) & ~pen,
+                        np.minimum(self.spec_k_slot, self.spec_k), 0).astype(np.int32)
+
+    def spec_stats(self) -> dict | None:
+        """Cumulative acceptance accounting (None when built with spec=0), the
+        host mirror of the dllama_spec_* series: cycles, drafted, accepted,
+        emitted, K, tokens a cycle and the mean accepted share of drafts."""
+        if not self.spec_k:
+            return None
+        t = dict(self._spec_totals)
+        t["k"] = self.spec_k
+        cycles = t["cycles"]
+        t["tokens_per_cycle"] = round(t["emitted"] / cycles, 3) if cycles else None
+        t["accept_mean"] = round(t["accepted"] / t["drafted"], 3) if t["drafted"] else None
+        return t
+
+    def spec_rows(self) -> dict:
+        """Where the spec chunks' output went, cumulative: ``slot_cycles``,
+        the (cycle, slot) pairs that emitted (the sum of the requests'
+        timings().spec cycles, plus the discarded ones); ``discarded_tokens``
+        and ``discarded_cycles``, the tokens and (cycle, slot) pairs of
+        slots released while their chunk was in flight (the overrun no
+        request is credited with). spec_stats()["emitted"] is the requests'
+        summed spec tokens plus ``discarded_tokens``."""
+        return dict(self._spec_rows)
+
+    def spec_step(self) -> tuple[np.ndarray, np.ndarray]:
+        """One speculative verify cycle across the batch, lockstep (dispatch
+        and consume of decode_dispatch(1, spec=True)): returns (tokens [B,
+        K+1], counts [B]), slot i having emitted tokens[i, :counts[i]] —
+        1..K+1 exact-greedy tokens for a greedy slot (up to its own draft
+        length), exactly one sampled or penalized token otherwise."""
+        chunk = self.decode_dispatch(1, spec=True)
+        toks = self.decode_consume(chunk)  # [rows, B]
+        emit = np.zeros((self.n_slots, self.spec_k + 1), np.int64)
+        emit[:, : toks.shape[0]] = toks.T
+        return emit, chunk.advance
 
     def release(self, slot: int, keep_rows: int | None = None) -> None:
         """Free a slot. keep_rows rewinds pos to the valid prefix (a stop
@@ -1517,6 +1875,7 @@ class BatchEngine:
         unspecified: every page goes back."""
         self.active[slot] = False
         self.presence[slot] = self.frequency[slot] = 0.0
+        self.spec_k_slot[slot] = 0
         if keep_rows is not None:
             self.pos[slot] = keep_rows
             if self.pool is not None:

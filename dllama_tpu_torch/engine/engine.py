@@ -6,9 +6,10 @@ Prefill is chunked in power-of-two widths. Decode runs in chunks of up to
 feeds the next forward directly, and the chunk's tokens reach the host in
 one copy — one host round trip per chunk, not per token. Each chunk is a
 program (engine/graphs.py): a prefill chunk one per token width, reading
-its position from the device, a decode chunk one per (variant, n); on a
-CUDA device each is a CUDA graph, replayed; ``capture=False`` launches the
-same bodies from Python instead, for comparison.
+its position from the device, a decode chunk one per (variant, n), a run of
+speculative verify cycles one per (k, m); on a CUDA device each is a CUDA
+graph, replayed; ``capture=False`` launches the same bodies from Python
+instead, for comparison.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from dllama_tpu_torch.engine.graphs import Programs
 from dllama_tpu_torch.obs import instruments as ins
 from dllama_tpu_torch.engine.kernel_select import resolve_kernels
 from dllama_tpu_torch.engine.sampling import Sampler, apply_penalties, sample_logits
-from dllama_tpu_torch.engine.speculative import spec_decode
+from dllama_tpu_torch.engine.speculative import cycles_per_replay, spec_cycle
 from dllama_tpu_torch.models.config import LlamaConfig
 from dllama_tpu_torch.models.llama import KVCache, forward, fuse_layer_weights
 from dllama_tpu_torch.ops.layers import build_rope_cache
@@ -107,8 +108,20 @@ class InferenceEngine:
         self.mm, self.attn_fn = sel.mm, sel.attn_fn
         self.backend, self.attn_route = sel.backend, sel.attn_route
         self.forwards = 0  # forward passes run (each is one token column)
-        self._spec_h = None  # (device history, pos, cur): chunked-call reuse
+        # speculation (decode_spec_greedy_n): the device history, the
+        # (count, cycles) pair a replay leaves, the tokens wanted, and an
+        # output buffer a draft length, all made at the first call and only
+        # ever refilled in place (the spec programs read them where they
+        # were when captured); _spec_h = (pos, cur) when the history holds
+        # the sequence up to pos (chunked-call reuse)
+        self._spec_h = None
         self._spec_stats = None  # {emitted, cycles} of the last speculative call
+        self._spec_hist: torch.Tensor | None = None
+        self._spec_ctr: torch.Tensor | None = None
+        self._spec_n: torch.Tensor | None = None
+        self._spec_out: dict[int, torch.Tensor] = {}
+        self._spec_host: torch.Tensor | None = None
+        self.spec_replays = 0  # replays of the last speculative call
         # the programs and their static inputs: the fed token, the position
         # vector (every program advances it; _dev_pos is the host value it
         # holds after the last program, None before any), the sampling rows
@@ -290,20 +303,29 @@ class InferenceEngine:
         ``token``: the last sampled, not yet fed token. Batch-1 engines only.
         ``_spec_stats`` records {emitted, cycles} of the call (emitted /
         cycles is the realised speedup). A call that continues exactly where
-        the last one stopped reuses the history on the device. Each verify
-        cycle reads its accepted count on the host (speculative.spec_decode).
-        Returns the tokens [<= n]; fewer than n only where the context has no
-        room for another (k+1)-row window."""
+        the last one stopped reuses the history on the device.
+
+        The cycles run as spec programs (engine/graphs.py, keyed
+        ("single_spec", k, m, ngram)): each replay runs m cycles of
+        speculative.spec_cycle with the loop condition on the device, then
+        the host reads the count and the cycles once (one small copy behind
+        one event) and replays again while fewer than n tokens are out and a
+        (k+1)-row window still fits.
+        m is speculative.cycles_per_replay: the largest power of two no
+        larger than the cycles that cannot freeze even at full acceptance,
+        so no replay runs a frozen (wasted) forward. A 32-token call at k = 8
+        takes 1 replay (4 cycles) at full acceptance and 18 replays (32
+        cycles) at acceptance 0; ``spec_replays`` records the last call's.
+        Returns the tokens [<= n]; fewer than n only where the context has
+        no room for another (k+1)-row window."""
         if self.batch != 1:
             raise ValueError(
                 f"decode_spec_greedy_n drives a single sequence (batch==1, got batch="
-                f"{self.batch}); batched speculation is not yet ported to the "
-                "PyTorch/CUDA package")
+                f"{self.batch}); batched speculation runs on the continuous-batching "
+                "BatchEngine (spec=K)")
         self._check_room(n)
-        cached = self._spec_h
-        if cached is not None and cached[1] == self.pos and cached[2] == token:
-            h = cached[0]  # continue the device-resident history
-        else:
+        self._ensure_spec(k)
+        if self._spec_h != (self.pos, int(token)):
             hist = np.asarray(history, dtype=np.int64).reshape(-1)
             if hist.shape[0] > self.pos:
                 raise ValueError(f"history length {hist.shape[0]} > pos {self.pos}")
@@ -312,21 +334,79 @@ class InferenceEngine:
             hb = np.full(self.seq_len + 1, -1, np.int64)
             hb[self.pos - hist.shape[0] : self.pos] = hist
             hb[self.pos] = token
-            h = torch.from_numpy(hb).to(self.device)
-
-        def fwd(toks, pos):
-            return self._forward(toks, pos, last_only=False)
-
-        toks, cnt, cyc, h = spec_decode(fwd, h, int(token), self.pos, n, k, ngram,
-                                        self.seq_len)
+            host = torch.from_numpy(hb)
+            if self.device.type == "cuda":
+                host = host.pin_memory()
+            self._spec_hist.copy_(host, non_blocking=True)
+        self._dec_tok.fill_(int(token))
+        self._load_pos()
+        self._spec_ctr.zero_()
+        self._spec_n.fill_(int(n))
+        self._dev_pos = None  # unknown until the programs have run
+        pos0, cnt, cyc, self.spec_replays = self.pos, 0, 0, 0
+        while cnt < n and pos0 + cnt + k + 1 <= self.seq_len:
+            m = cycles_per_replay(n - cnt, pos0 + cnt, k, self.seq_len)
+            self.programs.spec(k, m, ngram, self._make_spec).run()
+            cnt, cyc = self._spec_read()
+            self.spec_replays += 1
+        self.forwards += cyc
+        self._dev_pos = pos0 + cnt
         m = min(n, cnt)
+        toks = self._spec_out[k][:m].cpu().numpy() if m else np.zeros(0, np.int64)
         # overshoot rewind: emitted tokens beyond n were fed rows we do not
-        # keep (the stale-row invariant of generate's mid-chunk rewind); h
-        # stays valid for the rewound position: index pos+m holds toks[m-1]
+        # keep (the stale-row invariant of generate's mid-chunk rewind); the
+        # history stays valid for the rewound position: index pos+m holds
+        # toks[m-1]
         self.pos += m
         self._spec_stats = {"emitted": cnt, "cycles": cyc}
-        self._spec_h = (h, self.pos, toks[m - 1]) if m else None
-        return np.asarray(toks[:m], dtype=np.int64)
+        self._spec_h = (self.pos, int(toks[m - 1])) if m else None
+        return toks.astype(np.int64)
+
+    def _ensure_spec(self, k: int) -> None:
+        """Make the spec programs' static tensors once (the output buffer
+        once a draft length)."""
+        dev = self.device
+        if self._spec_hist is None:
+            self._spec_hist = torch.full((self.seq_len + 1,), -1, dtype=torch.int64, device=dev)
+            self._spec_ctr = torch.zeros(2, dtype=torch.int64, device=dev)
+            self._spec_n = torch.zeros(1, dtype=torch.int64, device=dev)
+            if dev.type == "cuda":
+                self._spec_host = torch.zeros(2, dtype=torch.int64, pin_memory=True)
+        if k not in self._spec_out:
+            self._spec_out[k] = torch.zeros(self.seq_len + k + 1, dtype=torch.int64, device=dev)
+
+    def _spec_read(self) -> tuple[int, int]:
+        """(count, cycles) after a replay: the call's one read of a device
+        value a replay (a small copy to pinned memory behind an event)."""
+        if self._spec_host is None:
+            cnt, cyc = self._spec_ctr.tolist()
+            return int(cnt), int(cyc)
+        self._spec_host.copy_(self._spec_ctr, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        event.synchronize()
+        cnt, cyc = self._spec_host.tolist()
+        return int(cnt), int(cyc)
+
+    def _make_spec(self, k: int, m: int, ngram: int):
+        """(body, buffers, state) of the spec program of m cycles at draft
+        length k: speculative.spec_cycle m times over the static history,
+        the fed token and position vectors the decode programs share, the
+        (count, cycles) pair and the draft length's output buffer."""
+        h, ctr, n, out = self._spec_hist, self._spec_ctr, self._spec_n, self._spec_out[k]
+        cur, pos = self._dec_tok.view(-1), self._dec_pos
+        cnt, cyc = ctr[0:1], ctr[1:2]
+
+        def fwd(toks, p, live):
+            logits, _ = forward(self.cfg, self.params, toks, p, self.cache, self.rope_cache,
+                                self.attn_fn, self.mm, last_only=False, active=live)
+            return logits
+
+        def body():
+            for _ in range(m):
+                spec_cycle(fwd, h, cur, pos, cnt, cyc, out, n, k, ngram, self.seq_len)
+
+        return body, {"out": out, "ctr": ctr}, (h, self._dec_tok, pos, ctr, out)
 
     def decode_sample_n(self, token, n: int, sampler: Sampler,
                         counts: np.ndarray | None = None) -> np.ndarray:

@@ -12,6 +12,12 @@ compiles one.
   prefill half of a hybrid step), keyed ("prefill", width, layout): the
   position (and on the batched tier the slot) is a device input, so one
   program serves every position, and on the paged layout every slot.
+* A **spec program** is a run of speculative verify cycles
+  (engine/speculative.py): on the batched tier the JAX package's fused
+  spec chunk of n cycles (``_spec_step_impl``/``_spec_step_pen_impl``),
+  keyed ("spec" | "spec_pen", n); on the single engine m cycles of
+  ``make_spec_decode``'s loop body with the loop condition evaluated on
+  the device, keyed ("single_spec", k, m, ngram).
 
 Each :class:`Program` runs over static buffers: the body reads tensors that
 the engine owns and refills in place (the fed tokens, the positions,
@@ -70,6 +76,8 @@ from dllama_tpu_torch.utils.profiling import GRAPH_GATE
 
 #: the decode programs' variants (the JAX package's three scans)
 VARIANTS = ("greedy", "sampled", "penalized")
+#: the batched tier's spec programs' variants (the JAX package's two spec scans)
+SPEC_VARIANTS = ("spec", "spec_pen")
 
 
 def knobs() -> tuple:
@@ -220,12 +228,17 @@ class Programs:
 
     def label(self, key: tuple) -> tuple[str, str]:
         """(ledger fn, bucket key) of the program keyed `key` (without the
-        knobs), in obs/compile.COMPILE_FNS's grammar: decode programs n{n},
-        prefill programs m{width}."""
+        knobs), in obs/compile.COMPILE_FNS's grammar: decode and batched
+        spec programs n{n}, prefill programs m{width}, the single engine's
+        spec programs k{k}.m{m}."""
         single = self.tier == "single"
         if key[0] == "prefill":
             fn = "single_step" if single else "prefill_chunk"
             bucket = f"m{key[1]}"
+        elif key[0] == "single_spec":
+            fn, bucket = key[0], f"k{key[1]}.m{key[2]}"
+        elif key[0] in SPEC_VARIANTS:
+            fn, bucket = key[0], f"n{key[1]}"
         else:
             fn = ("single_decode" if single
                   else "decode_pen" if key[0] == "penalized" else "decode")
@@ -242,11 +255,20 @@ class Programs:
         return prog
 
     def get(self, variant: str, n: int, make: Maker) -> Program:
-        """The decode program of (variant, n) under the current knobs;
-        ``make(variant, n)`` builds (body, buffers, state) the first time."""
-        if variant not in VARIANTS:
-            raise ValueError(f"unknown decode variant {variant!r} (one of {VARIANTS})")
+        """The decode (or batched spec) program of (variant, n) under the
+        current knobs; ``make(variant, n)`` builds (body, buffers, state)
+        the first time."""
+        if variant not in VARIANTS + SPEC_VARIANTS:
+            raise ValueError(f"unknown decode variant {variant!r} (one of "
+                             f"{VARIANTS + SPEC_VARIANTS})")
         return self._get((variant, int(n)), make, variant, int(n))
+
+    def spec(self, k: int, m: int, ngram: int, make: Maker) -> Program:
+        """The single engine's spec program of m cycles at draft length k
+        under the current knobs; ``make(k, m, ngram)`` builds (body,
+        buffers, state) the first time."""
+        return self._get(("single_spec", int(k), int(m), int(ngram)), make, int(k), int(m),
+                         int(ngram))
 
     def prefill(self, width: int, layout, make: Maker) -> Program:
         """The prefill program of `width` tokens on `layout` (a hashable the

@@ -63,11 +63,17 @@ COMPILE_FNS = {
                    "width (keys m{T})",
     "single_decode": "the single-engine n-step decode programs, greedy, "
                      "sampled and penalized (keys n{n})",
+    "spec": "the batched spec program of n propose/verify cycles, plain "
+            "sampling (keys n{n} = verify cycles a replay; {1, chunk})",
+    "spec_pen": "the batched spec program with repetition-penalty counts "
+                "(keys n{n})",
+    "single_spec": "the single-engine speculative verify program of m "
+                   "cycles at draft length k (keys k{k}.m{m})",
 }
 
 #: transfer-accounting site labels (bounded cardinality)
-TRANSFER_SITES = ("vectors", "prefill", "commit", "decode_tokens",
-                  "nan_guard", "kv_spill", "kv_restore")
+TRANSFER_SITES = ("vectors", "prefill", "history", "commit", "decode_tokens",
+                  "spec_counts", "nan_guard", "kv_spill", "kv_restore")
 
 
 def sig_of(*args, max_leaves: int = 12) -> str:

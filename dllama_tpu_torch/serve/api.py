@@ -500,7 +500,9 @@ class ApiServer:
             prompt_tokens, p["temperature"], p["topp"], budget, self.tokenizer.eos_ids,
             presence=p["presence"], frequency=p["frequency"],
             seed=int(seed) if seed is not None else None, req_id=req_id,
-            timeout_s=p["timeout_s"], priority=p["priority"], tenant=p["tenant"])
+            timeout_s=p["timeout_s"], priority=p["priority"], tenant=p["tenant"],
+            # None takes the server's --spec-k (the engine's K); clamped to it
+            spec_k=p["spec_k"])
 
     def finish_batched(self, req, ended_on_eos: bool, n_generated: int) -> tuple[str, dict]:
         """Release a batched request's slot and derive the client's
@@ -730,7 +732,8 @@ class RequestRoutes:
             payload["mode"] = "continuous"
             payload.update(sched.perf.snapshot(ledger=sched.ledger))
             payload["radix"] = sched.engine.radix_stats()
-            payload["spec"] = None  # batched speculation is not ported
+            # speculation's acceptance record (None with --spec-k 0)
+            payload["spec"] = sched.engine.spec_stats()
             payload["hybrid"] = {"prefill_budget": sched._budget_now,
                                  "preemptions": sched.preempt_count,
                                  "resumed": sched.resume_count}
@@ -1016,18 +1019,16 @@ def make_server(loaded, host="127.0.0.1", port=0, n_slots: int = 0, **defaults):
     the host-RAM spill tier (``kv_host_pages``), preemption (``preempt``,
     auto = on) and tenant weights (``tenant_weights``), the JAX package's
     defaults. n_slots == 0 keeps the single-engine tier with the NaiveCache
-    prefix reuse, and ``spec`` > 0 (--spec) its speculative decoding of
-    greedy requests. ``frontend`` picks the transport: 'aio' (the default,
+    prefix reuse. ``spec`` > 0 (--spec-k, or --spec) is prompt-lookup
+    speculative decoding: on the batched tier the engine's draft length K,
+    each request's own ``spec_k`` clamped to it; on the single-engine tier
+    the draft length of greedy requests. ``frontend`` picks the transport: 'aio' (the default,
     serve/aio.py's event loop; ``aio_workers`` sizes its pool) or 'threads'
     (ThreadingHTTPServer); both answer the same routes and expose
     serve_forever/shutdown/server_close/server_address. A bind or start
     failure of either raises. ``slo_ttft_ms``/``slo_itl_ms`` are the SLO
-    targets the perf aggregator judges requests by. Batched speculation
-    (spec with n_slots > 0) is not yet ported and raises."""
+    targets the perf aggregator judges requests by."""
     spec = int(defaults.get("spec") or 0)
-    if spec > 0 and n_slots > 0:
-        raise NotImplementedError("batched speculative decoding (--spec with --slots > 0) "
-                                  "is not yet ported to the PyTorch/CUDA package")
     frontend = str(defaults.get("frontend") or "aio")
     if frontend not in ("aio", "threads"):
         raise ValueError(f"unknown frontend {frontend!r} (aio|threads)")
@@ -1127,7 +1128,8 @@ def _make_scheduler(loaded, n_slots: int, defaults: dict):
                      max_seq_len=eng.seq_len, max_prefill_chunk=eng.max_prefill_chunk,
                      kernels=eng.backend, kv_layout=kv_layout, page_size=page_size,
                      kv_pages=int(defaults.get("kv_pages") or 0), device=eng.device,
-                     radix_cache=radix_cache, kv_host_pages=kv_host_pages)
+                     radix_cache=radix_cache, kv_host_pages=kv_host_pages,
+                     spec=int(defaults.get("spec") or 0))
     sched_kw = {}
     if defaults.get("max_queue"):
         sched_kw["max_queue"] = int(defaults["max_queue"])

@@ -55,6 +55,15 @@ prompt's prefill chunks run between decode chunks, paced by a stall budget
 (``admit_stall_budget_ms``) and an optional TTFT deadline
 (``admit_ttft_deadline_ms``), which also overrides the hybrid pacing.
 
+**Batched speculation** (the engine built with ``spec`` = K): while some
+live slot can accept drafts (greedy, a draft length ``spec_k`` > 0, a
+K+1-row window) and no hybrid admission is mid-prefill, each chunk is a
+spec chunk of verify cycles (``decode_dispatch(spec=True)``); sampled,
+penalized and ``spec_k`` 0 requests ride its cycles one token at a time.
+While a live slot has no window (the context edge, an exhausted pool), spec
+and plain chunks alternate. A spec chunk's advance settles only when it is
+consumed, so a switch between spec and plain chunks drains the pipeline.
+
 **Observability** (obs/, the JAX package's series): the scheduler is the
 single write point of the request counters (admitted, shed, finished by
 reason, tokens) and the TTFT/ITL/e2e histograms, records every request's
@@ -148,6 +157,12 @@ class Request:
     preempted: bool = False
     # the WFQ charge is paid once a request, not again at its resume
     wfq_charged: bool = False
+    # per-request speculation: the draft length this request's slot runs at
+    # (the body's spec_k, or the engine's K; clamped to it; 0 opts out), and
+    # the verify cycles it took part in and the tokens they gave it
+    spec_k: int = 0
+    spec_cycles: int = 0
+    spec_tokens: int = 0
     # resume record (preemption): the tokens already emitted (all but the
     # last re-prefill; the last is fed next) and the slot's generator
     # state at the interruption (the request's seed and counter)
@@ -187,6 +202,12 @@ class Request:
         if self.timeout_s is not None:
             out["timeout_s"] = self.timeout_s
             out["deadline_exceeded"] = self.finish_reason == "timeout"
+        if self.spec_k > 0:
+            # tokens a verify forward is the speculation's speedup
+            out["spec"] = {"spec_k": self.spec_k, "cycles": self.spec_cycles,
+                           "tokens": self.spec_tokens,
+                           "tokens_per_cycle": (round(self.spec_tokens / self.spec_cycles, 3)
+                                                if self.spec_cycles else None)}
         return out
 
     def tokens(self, poll=None, poll_s: float = 0.25):
@@ -332,6 +353,9 @@ class Scheduler:
             ins.PREFILL_BUDGET.set(self._budget_now)
         self.hybrid_chunks = 0  # decode chunks that carried a prefill slice
         self.hybrid_tokens = 0  # prompt tokens those slices prefilled
+        # spec/plain alternation while a live slot has no K+1-row window: the
+        # turn is taken only by a dispatch that really launches
+        self._spec_tick = False
         # preempt-to-pages: "auto" = on, as in the JAX package
         if preempt not in ("auto", "on", "off"):
             raise ValueError(f"preempt must be auto|on|off, got {preempt!r}")
@@ -369,12 +393,16 @@ class Scheduler:
     def submit(self, prompt, temperature, topp, max_tokens, eos_ids, seed: int | None = None,
                presence: float = 0.0, frequency: float = 0.0, req_id: str = "",
                timeout_s: float | None = None, priority: int = 1,
-               tenant: str = "") -> Request:
+               tenant: str = "", spec_k: int | None = None) -> Request:
         self.check_admission()
+        # per-request speculation: None takes the engine's K (every greedy
+        # request speculates at it), an explicit value clamps to K, 0 opts out
+        cap = int(self.engine.spec_k)
+        spec_k = cap if spec_k is None else max(0, min(int(spec_k), cap))
         req = Request(list(prompt), float(temperature), float(topp), int(max_tokens),
                       frozenset(eos_ids), seed=seed, presence=float(presence),
                       frequency=float(frequency), submitted_at=time.monotonic(), req_id=req_id,
-                      priority=int(priority), tenant=str(tenant))
+                      priority=int(priority), tenant=str(tenant), spec_k=spec_k)
         if timeout_s is not None and timeout_s > 0:
             req.timeout_s = float(timeout_s)
             req.deadline_at = req.submitted_at + req.timeout_s
@@ -555,6 +583,9 @@ class Scheduler:
             # the capture ledger: lifetime captures, seconds and unexpected
             # ones, the host-side view of the dllama_jit_* series
             "compile": dict(compile_obs.LEDGER.summary(), warmup_mode=self.warmup),
+            # speculation's acceptance record (None with spec off), the
+            # dllama_spec_* series' host-side view
+            "spec": self.engine.spec_stats(),
         }
 
     def cancel(self, req: Request, reason: str = "cancelled") -> None:
@@ -1024,7 +1055,8 @@ class Scheduler:
             self.engine.resume_commit(
                 adm, req.resume_tokens[-1], req.resume_seed, req.resume_counter,
                 req.temperature, req.topp, presence=req.presence, frequency=req.frequency,
-                counted=req.resume_tokens[:-1] if (req.presence or req.frequency) else None)
+                counted=req.resume_tokens[:-1] if (req.presence or req.frequency) else None,
+                spec_k=req.spec_k)
             self.slot_tokens[adm.slot] = list(req.prompt) + list(req.resume_tokens)
             self.slots[adm.slot] = req
             if self._radix is not None:
@@ -1041,7 +1073,8 @@ class Scheduler:
                                req_id=req.req_id, tokens=req.produced)
             return
         first = self.engine.add_commit(adm, req.temperature, req.topp, seed=req.seed,
-                                       presence=req.presence, frequency=req.frequency)
+                                       presence=req.presence, frequency=req.frequency,
+                                       spec_k=req.spec_k)
         self.reused_prefix_tokens += reuse
         ins.REUSED_PREFIX_TOKENS.inc(reuse)
         self.slot_tokens[adm.slot] = list(req.prompt)
@@ -1224,20 +1257,33 @@ class Scheduler:
         if inflight_chunk is not None:
             # budget finishes are predictable on the host (unlike EOS): when
             # every live request runs out within the chunk in flight, a
-            # successor would be pure discarded overrun
+            # successor would be pure discarded overrun. A spec chunk's counts
+            # are still on the card: its optimistic bound (n cycles of K+1)
+            # skips a successor at worst one boundary early
+            if inflight_chunk.spec:
+                bound = inflight_chunk.n * (int(self.engine.spec_k) + 1)
+                return all(req.produced + bound >= req.max_tokens
+                           for req in self.slots.values())
             return all(req.produced + int(inflight_chunk.advance[slot]) >= req.max_tokens
                        for slot, req in self.slots.items())
         return False
 
-    def _dispatch_chunk(self, pipeline_empty: bool = True, exclude_gap_s: float = 0.0):
+    def _dispatch_chunk(self, pipeline_empty: bool = True, exclude_gap_s: float = 0.0,
+                        inflight=None):
         """Launch the next decode chunk -> (chunk, slots snapshot): a hybrid
         step carrying up to ``_budget_now`` prompt tokens of the head
-        admission while it is mid-prefill and decoders run, else a plain
-        decode chunk. Records the host gap: the time since the last chunk's
-        tokens arrived when the pipeline was empty (minus `exclude_gap_s`
-        of admission work), 0 when a chunk was still in flight. A failure
-        here is not a per-request problem (the cache was being written in
-        place): it escalates to the worker's crash path."""
+        admission while it is mid-prefill and decoders run; else a spec
+        chunk of verify cycles while some live slot can accept drafts
+        (alternating with plain chunks while a live slot has no K+1-row
+        window); else a plain decode chunk. Returns None, launching nothing,
+        when `inflight` (the unconsumed predecessor) is of the other kind
+        (spec or not): the host position mirror settles only when a spec
+        chunk is consumed, so the switch drains the pipeline first. Records
+        the host gap: the time since the last chunk's tokens arrived when
+        the pipeline was empty (minus `exclude_gap_s` of admission work), 0
+        when a chunk was still in flight. A failure here is not a
+        per-request problem (the cache was being written in place): it
+        escalates to the worker's crash path."""
         hyb = None
         hyb_req = None
         if self._hybrid_now() and self._inflight:
@@ -1245,6 +1291,33 @@ class Scheduler:
             if (adm.off < len(adm.toks) and not req.cancelled.is_set()
                     and (req.deadline_at is None or time.monotonic() < req.deadline_at)):
                 hyb, hyb_req = adm, req
+        use_spec = alternating = False
+        if self.engine.spec_k and hyb is None:
+            # speculate while some live slot can accept drafts; the others
+            # ride the cycles one token at a time (eligibility is per slot,
+            # on the card). A live slot with no K+1-row window freezes in
+            # spec cycles, so plain chunks alternate in until it finishes
+            draft = self.engine.spec_draft_k()
+            use_spec = any(draft[s] > 0 for s in self.slots)
+            if use_spec:
+                elig = self.engine.spec_eligible()
+                if not all(elig[s] for s in self.slots):
+                    alternating = True
+                    use_spec = not self._spec_tick
+        if inflight is not None and bool(inflight.spec) != use_spec:
+            # a mode switch consumes the chunk in flight first; the
+            # alternation's turn is not taken by a dispatch that launches
+            # nothing (else every launched chunk would be spec and the
+            # frozen slot would starve)
+            return None
+        if alternating:
+            self._spec_tick = use_spec
+        n_disp = DECODE_CHUNK
+        if use_spec and all(req.max_tokens - req.produced <= int(self.engine.spec_k) + 1
+                            for req in self.slots.values()):
+            # tail clamp: when every live request fits in one cycle's K+1
+            # tokens, one cycle instead of a chunk of overrun (n in {1, chunk})
+            n_disp = 1
         self.ledger.transition("hybrid" if hyb is not None else "decode_dispatch")
         self._last_gap_ms = None
         if self._t_consumed is not None:
@@ -1258,7 +1331,7 @@ class Scheduler:
         tr = trace.TRACER
         t0 = tr.now() if tr.enabled else 0.0
         if hyb is None:
-            chunk = self.engine.decode_dispatch(DECODE_CHUNK)
+            chunk = self.engine.decode_dispatch(n_disp, spec=use_spec)
         else:
             if self._budget_ctl is not None:
                 # steered by the live ITL window (rate-limited in the controller)
@@ -1272,7 +1345,7 @@ class Scheduler:
             # the previous chunk's decode.device span
             tr.span_at("decode.dispatch", t0, tr.now(), cat="decode", track="scheduler",
                        chunk=chunk.seq, n=chunk.n, occupancy=len(self.slots),
-                       pipelined=not pipeline_empty,
+                       spec=use_spec, pipelined=not pipeline_empty,
                        hybrid_tokens=(chunk.hybrid_tokens or None),
                        host_gap_ms=(None if self._last_gap_ms is None
                                     else round(self._last_gap_ms, 3)))
@@ -1323,6 +1396,11 @@ class Scheduler:
                                          "request failed (engine healthy)"))
                 self._finish(req, "error")
                 continue
+            if chunk.spec and chunk.advance[slot]:
+                # the request's acceptance record (timings()' spec object):
+                # the cycles it took part in and the tokens they gave it
+                req.spec_cycles += int((chunk.adv_cycles[:, slot] > 0).sum())
+                req.spec_tokens += int(chunk.advance[slot])
             if tr.enabled and chunk.advance[slot]:
                 # the flight-recorder chunk entry BEFORE the tokens reach the
                 # client queue: a response never races its own record
@@ -1347,13 +1425,14 @@ class Scheduler:
                 # keep the card busy: launch the successor off the device
                 # state BEFORE consuming, unless boundary work needs the
                 # settled state first
-                if self._hybrid_on:
+                if self._hybrid_on and not pending[0].spec:
                     # early commit and early admission start: a fully pumped
                     # admission activates its slot now, and a queued arrival
                     # enters _inflight so its first hybrid slice rides the
                     # very next chunk, neither waiting for a drained pipeline
                     # (the admitting slot is inactive in the chunk in flight,
-                    # and every device write lands after it in stream order)
+                    # and every device write lands after it in stream order;
+                    # not off a spec chunk, whose advance has not settled)
                     self._busy_worker = True
                     if self._inflight:
                         self._commit_ready_inflight()
@@ -1362,7 +1441,7 @@ class Scheduler:
                         self._admit_starts(boundary=False)
                     self._busy_worker = False
                 nxt = (None if self._needs_boundary(pending[0])
-                       else self._dispatch_chunk(pipeline_empty=False))
+                       else self._dispatch_chunk(pipeline_empty=False, inflight=pending[0]))
                 self._consume_chunk(*pending)
                 pending = nxt
                 continue

@@ -93,7 +93,7 @@ def test_unported_options_are_refused():
     from dllama_tpu_torch.engine.loader import load_model
 
     for flag in (["--mesh", "tp=2"],
-                 ["--transfer-guard", "strict"], ["--slots", "2", "--spec", "4"],
+                 ["--transfer-guard", "strict"],
                  ["--slots", "2", "--restart-max", "1"]):
         assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", *flag]) == 2, flag
     # the batched tier is ported: --slots passes the refusal and stops only
@@ -124,8 +124,11 @@ def test_unported_options_are_refused():
     # so is hybrid chunked prefill at any budget
     assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", "--slots", "2",
                  "--prefill-budget", "64"]) == 1
-    # so is speculation on the single-engine tier (--spec without --slots)
+    # so is speculation on the single-engine tier (--spec without --slots),
+    # and on the batched tier (--spec or --spec-k with --slots)
     assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", "--spec", "4"]) == 1
+    for flag in (["--slots", "2", "--spec", "4"], ["--slots", "2", "--spec-k", "4"]):
+        assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", *flag]) == 1, flag
     # and --warmup, on both tiers (the single-engine tier ignores it)
     for slots in ("0", "2"):
         assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", "--slots", slots,

@@ -8,9 +8,13 @@ forwards where the text repeats.
   repetitive histories with unknown (-1) regions;
 * decode_spec_greedy_n gives the JAX engine's ids and {emitted, cycles},
   and the ids of plain greedy decoding;
+* the captured cycle path (speculative.spec_cycle replayed as programs of m
+  cycles) against JAX's make_spec_decode for several (n, k) and at the
+  seq_len edge: tokens, count and cycles equal; one read of the count a
+  replay, and fewer replays than cycles;
 * the seq_len boundary, position accounting, the delta history of a chat
   turn, generate(spec=4), the CLI and the single-engine server with --spec
-  and per-request spec_k; --spec with --slots is refused.
+  and per-request spec_k; --spec with --slots passes the CLI's refusal.
 """
 
 import contextlib
@@ -78,11 +82,19 @@ def test_propose_ngram_bit_exact_with_jax():
                                           11, 3, 2)]
     for h, length, k, ngram in cases:
         want, wfound = jax_propose(jnp.asarray(h, jnp.int32), jnp.int32(length), k, ngram)
-        got, found = propose_ngram(torch.as_tensor(h, dtype=torch.int64), length, k, ngram)
-        assert got.tolist() == np.asarray(want).tolist(), (h, length, k, ngram)
-        assert bool(found) == bool(wfound)
-    draft, found = propose_ngram(torch.as_tensor(cases[-1][0]), 11, 3, 2)
-    assert bool(found) and draft.tolist() == [3, 5, 4]  # the LATEST match wins
+        got, found = propose_ngram(torch.as_tensor(h, dtype=torch.int64)[None],
+                                   torch.tensor([length]), k, ngram)
+        assert got[0].tolist() == np.asarray(want).tolist(), (h, length, k, ngram)
+        assert bool(found[0]) == bool(wfound)
+    # a batch of histories at per-row lengths drafts each row as alone
+    rows = [c for c in cases if c[0].shape[0] == 40][:6]
+    got, found = propose_ngram(torch.as_tensor(np.stack([c[0] for c in rows])),
+                               torch.tensor([c[1] for c in rows]), 3, 2)
+    for r, (h, length, _, _) in enumerate(rows):
+        want, wfound = jax_propose(jnp.asarray(h, jnp.int32), jnp.int32(length), 3, 2)
+        assert got[r].tolist() == np.asarray(want).tolist() and bool(found[r]) == bool(wfound)
+    draft, found = propose_ngram(torch.as_tensor(cases[-1][0])[None], torch.tensor(11), 3, 2)
+    assert bool(found[0]) and draft[0].tolist() == [3, 5, 4]  # the LATEST match wins
 
 
 def test_spec_matches_jax_engine_and_plain_greedy(model):
@@ -107,6 +119,67 @@ def test_spec_matches_jax_engine_and_plain_greedy(model):
         assert 1 <= cyc <= emitted <= 7 * cyc  # every cycle emits 1..k+1 tokens
         saved.append(emitted - cyc)
     assert max(saved) > 0  # drafts were accepted: fewer forwards than tokens
+
+
+@pytest.fixture(scope="module")
+def jax_engine():
+    import jax.numpy as jnp
+
+    from dllama_tpu.engine.engine import InferenceEngine as JaxEngine
+    from dllama_tpu.models import formats as jf
+
+    jcfg, jhs = jf.read_header(FIXTURE_M)
+    return JaxEngine(jcfg, jf.load_params(FIXTURE_M, jcfg, jhs), cache_dtype=jnp.float32)
+
+
+@pytest.mark.parametrize("prompt,n,k", [
+    (REPETITIVE, 5, 1), (REPETITIVE, 17, 3), (REPETITIVE, 32, 8), (RANDOM, 40, 4),
+    (REPETITIVE * 3 + [2], 24, 5),  # starts at 91 of 128: the context edge cuts it
+])
+def test_captured_cycles_equal_jax_make_spec_decode(model, jax_engine, prompt, n, k):
+    """Tokens, the emitted count and the cycles of the port's replayed
+    cycle programs equal JAX's while_loop decoder (make_spec_decode, through
+    the JAX engine), away from and at the seq_len edge."""
+    jax_engine.reset(0)
+    jfirst = int(np.argmax(np.asarray(jax_engine.prefill(np.asarray([prompt], np.int32)))[0]))
+    want = [int(t) for t in jax_engine.decode_spec_greedy_n(list(prompt), jfirst, n, k=k)]
+    eng = _engine(model)
+    first = _prefill(eng, prompt)
+    got = [int(t) for t in eng.decode_spec_greedy_n(list(prompt), first, n, k=k)]
+    assert first == jfirst and got == want
+    assert eng._spec_stats == jax_engine._spec_stats
+    assert eng.pos == jax_engine.pos
+
+
+def test_one_count_read_per_replay(model, monkeypatch):
+    """A call reads the device count once a replay, and a replay runs
+    several cycles: at acceptance 0 a 32-token call at k = 4 takes 13
+    replays for its 32 cycles (speculative.cycles_per_replay)."""
+    from dllama_tpu_torch.engine import graphs
+
+    eng = _engine(model)
+    first = _prefill(eng, RANDOM)
+    runs, run = [], graphs.Program.run
+
+    def counted(prog):
+        runs.append(prog.label)
+        run(prog)
+
+    monkeypatch.setattr(graphs.Program, "run", counted)
+    reads, read = [], eng._spec_read
+
+    def counted_read():
+        reads.append(1)
+        return read()
+
+    eng._spec_read = counted_read
+    eng.decode_spec_greedy_n(RANDOM, first, 32, k=4)
+    cycles = eng._spec_stats["cycles"]
+    assert len(runs) == eng.spec_replays == len(reads)
+    assert {label[0] for label in runs} == {"single_spec"}
+    assert len(runs) < cycles
+    if eng._spec_stats["emitted"] == cycles:  # no draft accepted
+        assert (cycles, len(runs)) == (32, 13)
 
 
 def test_spec_position_accounting_allows_continuation(model):
@@ -184,8 +257,10 @@ def test_cli_inference_spec_equals_spec_0(tmp_path):
         return out.getvalue()
 
     assert run(4) == run(0)
-    assert main(["serve", "--model", FIXTURE_M, "--tokenizer", tpath, "--device", "cpu",
-                 "--slots", "2", "--spec", "4"]) == 2
+    # batched speculation is ported: --slots with --spec passes the refusal
+    # and stops only at the missing tokenizer (exit 1)
+    assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", "--slots", "2",
+                 "--spec", "4"]) == 1
 
 
 def test_serve_spec_and_per_request_spec_k(tmp_path):
