@@ -142,6 +142,33 @@ Q80 (random weights from a seed), and exits 0 only if every phase passed:
               `serve --slots 8 --warmup auto` in a child process: its boot
               report (full coverage), and its first request's content equal
               to a server's without warmup.
+17. supervision the 8-slot server at its defaults with --warmup auto,
+              --restart-max 2 and --stall-deadline-s 2: (a) 8 streams of 128
+              tokens (5 greedy, 2 sampled, 1 penalized) run once, then again
+              with an engine.decode raise armed after 32 frames of the first:
+              one warm restart, every stream whole (each position once, its
+              budget reached), greedy ids equal to the first run's or apart
+              at a near tie, /debug/kv clean, no capture after the restart;
+              the crash-to-first-resumed-token ms; (b) an engine.decode
+              delay past the deadline: /health/live 503, then 200,
+              dllama_watchdog_stalls_total advanced; (c) decode.nan fails
+              exactly one of 8 streams; (d) the engine.restart fault kills
+              the restart: live false, 503; (e) the single engine: 32 greedy
+              tokens, save_session, a fresh engine, load_session, 32 more,
+              bit-equal to 64 uninterrupted (K1/K7); (f) a
+              --transfer-guard strict server serves 8 streams, and an
+              .item() put into its guarded window raises.
+18. router    two CLI `serve --slots 8 --warmup auto` replicas on the card
+              and the CLI `router --failover-max 2` in front: the handshake,
+              4 requests sharing a system prompt on one replica, a greedy and
+              a sampled stream through the router, then the same two with
+              SIGKILL sent to their replica after 8 frames: both whole with
+              at most one `: retrying` each, greedy ids equal to the baseline
+              or apart at a near tie, the sampled stream printed, not
+              compared; the gap across the failover in ms;
+              dllama_router_failovers_total{outcome="resumed"} advanced; the
+              survivor's /debug/kv clean; /router/metrics federating both
+              replicas, /router/fleet joining them.
 
 Every path runs its decode and prefill chunks as captured CUDA graphs (the
 engines' default on a card); a replay adds the launches its capture recorded to each
@@ -161,9 +188,11 @@ and 17, an f32 x for K11-B, k = 4104 for K11-D, one device kernel a call);
 K1 at 9 rows and K7 at 9 query rows (the spec verify forward); and
 every kernel the kbench phase launches on kbench's own inputs (each variant
 of its suite rows and of `8 w1 B D`, the tile sweep, the flash rows), since
-the benchmark checks no result. `serve`, `batch`, `hybrid`, `radix`, `obs`, `f8`, `q80`, `kbench`,
-`styles`, `spec` and `spec_batch` are the main paths: the launch counters are zeroed just before each of
-their runs and read just after it. Not in the default: `profile` adds a torch.profiler pass
+the benchmark checks no result. `serve`, `batch`, `hybrid`, `radix`, `obs`, `supervision`, `f8`,
+`q80`, `kbench`, `styles`, `spec` and `spec_batch` are the main paths: the launch counters are zeroed
+just before each of their runs and read just after it. The `router` phase's kernels run in its
+replica processes, whose counters this process cannot read: its entry in `launches_by_path` is
+null. Not in the default: `profile` adds a torch.profiler pass
 over one single-stream and one 8-slot decode chunk (device time and
 operations a step, K1's share, and no split-k second pass; then one
 single-stream chunk under STYLE maskdot and loopdot); `chunk` runs only the
@@ -2885,17 +2914,9 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def cli_warmup_serve(mpath: str, tpath: str, body: dict) -> tuple[dict, str, float]:
-    """`serve --slots 8 --warmup auto` in a child process (the CLI as a user
-    runs it): -> (its boot report, the content of `body`'s completion,
-    seconds from the start to the server's ready line)."""
-    import signal
-
-    port = _free_port()
-    cmd = [sys.executable, "-u", "-m", "dllama_tpu_torch", "serve", "--model", mpath,
-           "--tokenizer", tpath, "--slots", "8", "--warmup", "auto", "--port", str(port),
-           "--max-seq-len", "4096"]
-    t0 = time.perf_counter()
+def _spawn(cmd: list[str], marker: str):
+    """A CLI child process whose output is read by a thread -> (process,
+    its lines, an event set once `marker` is printed or the output ends)."""
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                             cwd=os.path.dirname(os.path.abspath(__file__)))
     lines: list[str] = []
@@ -2904,12 +2925,36 @@ def cli_warmup_serve(mpath: str, tpath: str, body: dict) -> tuple[dict, str, flo
     def read():
         for line in proc.stdout:
             lines.append(line.rstrip("\n"))
-            if "/v1/chat/completions" in line:
+            if marker in line:
                 ready.set()
         ready.set()
 
-    reader = threading.Thread(target=read, daemon=True)
-    reader.start()
+    threading.Thread(target=read, daemon=True).start()
+    return proc, lines, ready
+
+
+def _reap(proc, sig=None, timeout: float = 60.0) -> None:
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(sig or signal.SIGTERM)
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
+def cli_warmup_serve(mpath: str, tpath: str, body: dict) -> tuple[dict, str, float]:
+    """`serve --slots 8 --warmup auto` in a child process (the CLI as a user
+    runs it): -> (its boot report, the content of `body`'s completion,
+    seconds from the start to the server's ready line)."""
+    port = _free_port()
+    t0 = time.perf_counter()
+    proc, lines, ready = _spawn(
+        [sys.executable, "-u", "-m", "dllama_tpu_torch", "serve", "--model", mpath,
+         "--tokenizer", tpath, "--slots", "8", "--warmup", "auto", "--port", str(port),
+         "--max-seq-len", "4096"], "/v1/chat/completions")
     try:
         if not ready.wait(300) or proc.poll() is not None:
             fail(f"graphs: serve --warmup auto did not come up: {lines[-20:]}")
@@ -2920,13 +2965,7 @@ def cli_warmup_serve(mpath: str, tpath: str, body: dict) -> tuple[dict, str, flo
         if st != 200:
             fail(f"graphs: serve --warmup auto answered {st}: {raw[:300]!r}")
     finally:
-        proc.send_signal(signal.SIGTERM)
-        try:
-            proc.wait(timeout=120)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
-        reader.join(timeout=10)
+        _reap(proc, timeout=120)
     if report is None:
         fail(f"graphs: serve --warmup auto printed no boot report: {lines[-20:]}")
     return report, json.loads(raw)["choices"][0]["message"]["content"], boot_s
@@ -3657,24 +3696,31 @@ def _family_delta(before: dict, after: dict, name: str) -> dict:
             if k[0] == name and v != before.get(k, 0.0)}
 
 
-def _sse(port: int, body: dict, req_id: str, progress: list | None = None, i: int = 0,
-         hang_up_after: int = 0, first: threading.Event | None = None) -> dict:
+def _sse(port: int, body: dict, req_id: str = "", progress: list | None = None, i: int = 0,
+         hang_up_after: int = 0, first: threading.Event | None = None, on_frame=None) -> dict:
     """A streamed chat completion read frame by frame -> {status, content,
-    frames (content frames read), finish, timings, t_first, t_done, done}.
-    `progress[i]` follows the frames read and `first` is set at the first
-    one; with `hang_up_after` the client closes the connection after that
-    many content frames."""
+    frames (content frames read), finish, timings, t_first, t_done, done,
+    error (an in-band error event), retrying (`: retrying` comments), and
+    with include_token_ids ids, id_frames [(position, n ids)] and frame_t
+    (time.perf_counter() of each such frame)}. `progress[i]` follows the
+    frames read and `first` is set at the first one; `on_frame(k)` runs
+    after the k-th token-id frame; with `hang_up_after` the client closes
+    the connection after that many content frames."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     conn.request("POST", "/v1/chat/completions", json.dumps(dict(body, stream=True)),
                  _headers(req_id))
     resp = conn.getresponse()
     out = {"status": resp.status, "content": "", "frames": 0, "finish": None,
-           "timings": None, "t_first": None, "t_done": None, "done": False}
+           "timings": None, "t_first": None, "t_done": None, "done": False, "error": None,
+           "retrying": 0, "ids": [], "id_frames": [], "frame_t": []}
     while True:
         line = resp.readline()
         if not line:
             break
         line = line.decode().strip()
+        if line.startswith(": retrying"):
+            out["retrying"] += 1
+            continue
         if line == "data: [DONE]":
             out["t_done"], out["done"] = time.perf_counter(), True
             resp.read()
@@ -3682,6 +3728,15 @@ def _sse(port: int, body: dict, req_id: str, progress: list | None = None, i: in
         if not line.startswith("data: "):
             continue
         ev = json.loads(line[6:])
+        if "error" in ev:
+            out["error"] = ev["error"]
+            continue
+        if ev.get("token_ids"):
+            out["id_frames"].append((ev["position"], len(ev["token_ids"])))
+            out["ids"] += ev["token_ids"]
+            out["frame_t"].append(time.perf_counter())
+            if on_frame is not None:
+                on_frame(len(out["frame_t"]))
         choice = ev["choices"][0]
         text = choice["delta"].get("content")
         if text:
@@ -4158,6 +4213,460 @@ def page_copy_ms(eng, reps: int = 10) -> dict:
     return {"restore_page_ms": timed(restore), "spill_page_ms": timed(spill)}
 
 
+# ------------------------------------------------------------ phases 17-18
+
+#: supervision: the server's --stall-deadline-s, the tokens a stream of (a),
+#: the token frames stream 0 shows before engine.decode is armed, and the
+#: greedy tokens before and after the session round trip of (e)
+SUP_STALL_S = 2.0
+SUP_TOKENS = 128
+SUP_CRASH_AT = 32
+SESSION_TOKENS = 32
+#: router: tokens a stream, and the token frames the client holds before the
+#: serving replica is killed
+ROUTER_TOKENS = 64
+ROUTER_KILL_AT = 8
+
+
+def _sse_ids(port: int, body: dict, req_id: str = "", on_frame=None) -> dict:
+    """_sse with include_token_ids (the router's journal feed)."""
+    return _sse(port, dict(body, include_token_ids=True), req_id, on_frame=on_frame)
+
+
+def _whole(res: dict, n: int, label: str) -> None:
+    """A stream that ended cleanly at its budget of n tokens (the finish
+    frame's decode_tokens), each position of its token frames once. (Ids
+    ride the frame of their text: trailing tokens whose text is empty end
+    the stream in no frame, as in the JAX package.)"""
+    at = 0
+    for pos, k in res["id_frames"]:
+        if pos != at:
+            fail(f"{label}: a frame at position {pos} where {at} was next (a token lost or "
+                 f"repeated): {res['id_frames']}")
+        at += k
+    got = (res["timings"] or {}).get("decode_tokens")
+    if not (res["status"] == 200 and res["done"] and res["error"] is None
+            and res["finish"] == "length" and got == n and len(res["ids"]) <= n):
+        fail(f"{label}: the stream did not finish whole: status {res['status']}, finish "
+             f"{res['finish']}, error {res['error']}, {got} of {n} tokens, "
+             f"{len(res['ids'])} ids in frames")
+
+
+def _sup_bodies(prompts: list[str], tokens: int) -> list[dict]:
+    """Greedy streams, two sampled (seeded) and one penalized greedy."""
+    out = []
+    for i, p in enumerate(prompts):
+        b = {"messages": [{"role": "user", "content": p}], "max_tokens": tokens,
+             "temperature": 0.0, "seed": 100 + i}
+        if i in (5, 6):
+            b.update(temperature=0.8, top_p=0.9)
+        if i == 7:
+            b.update(presence_penalty=0.5, frequency_penalty=0.3)
+        out.append(b)
+    return out
+
+
+def phase_supervision(loaded, tmpdir: str) -> dict:
+    """Fault injection, the watchdog, warm restart, sessions and the
+    transfer guard on the 8B Q40 model. Returns the launch counts of the
+    drills, zeroed just before them and read just after."""
+    import numpy as np
+    import torch
+
+    from dllama_tpu_torch.engine.engine import InferenceEngine
+    from dllama_tpu_torch.engine.sampling import Sampler
+    from dllama_tpu_torch.obs import compile as compile_obs
+    from dllama_tpu_torch.serve.api import graceful_drain, make_server
+    from dllama_tpu_torch.utils import faults
+
+    t_boot = time.perf_counter()
+    httpd, api = make_server(loaded, host="127.0.0.1", port=0, n_slots=8, warmup="auto",
+                             restart_max=2, stall_deadline_s=SUP_STALL_S)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    port, sched = httpd.server_address[1], api.scheduler
+    print(f"supervision: server up in {time.perf_counter() - t_boot:.1f} s "
+          f"({sched.warmup_report['graphs_captured']} graphs captured)", flush=True)
+    marks: dict = {}
+    restart, warm_restart, emit = sched._try_restart, sched.engine.warm_restart, sched._emit
+
+    def stamped_restart(exc):
+        marks.setdefault("crash", time.perf_counter())
+        return restart(exc)
+
+    def timed_rebuild():
+        t0 = time.perf_counter()
+        warm_restart()
+        marks["rebuild_ms"] = (time.perf_counter() - t0) * 1e3
+
+    def stamped_emit(req, token, row):
+        if "crash" in marks and "resumed" not in marks:
+            marks["resumed"] = time.perf_counter()
+        return emit(req, token, row)
+
+    sched._try_restart, sched.engine.warm_restart, sched._emit = (
+        stamped_restart, timed_rebuild, stamped_emit)
+    reset_counters()
+    bodies = _sup_bodies(batch_prompts(8), SUP_TOKENS)
+    # (a) a crash in a decode dispatch with 8 streams mid-flight: one warm restart
+    base = _concurrently(lambda i: _sse_ids(port, bodies[i], f"sup-base-{i}"),
+                         [(i,) for i in range(8)])
+    for i, r in enumerate(base):
+        _whole(r, SUP_TOKENS, f"supervision (a) baseline stream {i}")
+    m0, _ = _scrape(port)
+    captures0, unexpected0 = (compile_obs.LEDGER.total_compiles(),
+                              compile_obs.LEDGER.total_unexpected())
+    armed = threading.Event()
+
+    def arm(k):
+        if k >= SUP_CRASH_AT and not armed.is_set():
+            armed.set()
+            faults.install("engine.decode", "raise", times=1)
+
+    crash = _concurrently(lambda i: _sse_ids(port, bodies[i], f"sup-crash-{i}",
+                                             on_frame=arm if i == 0 else None),
+                          [(i,) for i in range(8)])
+    faults.clear()
+    for i, r in enumerate(crash):
+        _whole(r, SUP_TOKENS, f"supervision (a) stream {i} across the restart")
+    if sched.restart_count != 1 or "resumed" not in marks:
+        fail(f"supervision (a): {sched.restart_count} restarts (want 1), marks {marks}")
+    m1, _ = _scrape(port)
+    restarts = _family_delta(m0, m1, "dllama_engine_restarts_total")
+    recovered = _family_delta(m0, m1, "dllama_requests_recovered_total")
+    if restarts != {"": 1.0} or sum(recovered.values()) < 1:
+        fail(f"supervision (a): restarts {restarts}, recovered {recovered}")
+    captures1, unexpected1 = (compile_obs.LEDGER.total_compiles(),
+                              compile_obs.LEDGER.total_unexpected())
+    if captures1 != captures0 or unexpected1 != unexpected0:
+        fail(f"supervision (a): the restart captured {captures1 - captures0} programs "
+             f"({unexpected1 - unexpected0} unexpected); it must recapture none")
+    st, kv = _get_json(port, "/debug/kv")
+    if st != 200 or not (kv.get("audit") or {}).get("ok"):
+        fail(f"supervision (a): /debug/kv after the restart {st} {kv}")
+    enc = api  # the batched tier's chat encoding, for near_tie's replay
+    kinds = ["greedy"] * 5 + ["sampled", "sampled", "penalized"]
+    parted = []
+    for i, kind in enumerate(kinds):
+        same = crash[i]["ids"] == base[i]["ids"]
+        if kind == "greedy" and not same:
+            near_tie(loaded, prompt_ids(enc, bodies[i]), crash[i]["ids"], base[i]["ids"],
+                     f"supervision (a) greedy stream {i}")
+        if not same:
+            j = next(j for j, (x, y) in enumerate(zip(crash[i]["ids"], base[i]["ids"]))
+                     if x != y)
+            parted.append(f"{i} ({kind}) at token {j}")
+    crash_ms = (marks["resumed"] - marks["crash"]) * 1e3
+    print(f"supervision (a): 8 streams of {SUP_TOKENS} tokens whole across 1 warm restart "
+          f"(the crash armed after {SUP_CRASH_AT} frames of stream 0); crash to the first "
+          f"resumed token {crash_ms:.1f} ms (the rebuild {marks['rebuild_ms']:.1f} ms, the "
+          f"backoff {sched.restart_backoff_s * 1e3:.0f} ms); recovered "
+          f"{sum(recovered.values()):.0f}; captures unchanged ({captures1}, 0 unexpected); "
+          f"/debug/kv clean; streams apart from the uninterrupted run: "
+          f"{', '.join(parted) or 'none'}", flush=True)
+    # (b) a decode dispatch delayed past the deadline: live goes false, then back
+    stalls0 = _scrape(port)[0]
+    prog = [0]
+    stall_ms = (SUP_STALL_S + 1.5) * 1e3
+
+    def arm_delay(k):
+        prog[0] = k
+        if k == 4:
+            faults.install("engine.decode", "delay", ms=stall_ms, times=1)
+
+    th = threading.Thread(target=lambda: marks.update(
+        stall_stream=_sse_ids(port, dict(bodies[0], max_tokens=48), "sup-stall",
+                              on_frame=arm_delay)))
+    th.start()
+    t0 = time.monotonic()
+    seen = []
+    while time.monotonic() - t0 < 60:
+        seen.append((time.monotonic() - t0, _get_json(port, "/health/live")[0]))
+        if seen[-1][1] == 200 and any(st == 503 for _, st in seen):
+            break  # down, then back
+        time.sleep(0.05)
+    th.join(timeout=120)
+    faults.clear()
+    _whole(marks["stall_stream"], 48, "supervision (b) the delayed stream")
+    stalls = _family_delta(stalls0, _scrape(port)[0], "dllama_watchdog_stalls_total")
+    down = [t for t, s in seen if s == 503]
+    if not down or seen[-1][1] != 200 or sum(stalls.values()) < 1:
+        fail(f"supervision (b): /health/live never went 503 and back ({seen[-5:]}), stalls "
+             f"{stalls}")
+    print(f"supervision (b): a {stall_ms:.0f} ms delay at a decode dispatch (deadline "
+          f"{SUP_STALL_S:.1f} s): /health/live 503 from {down[0]:.2f} s to {down[-1]:.2f} s "
+          f"after the watch began, 200 again; dllama_watchdog_stalls_total +"
+          f"{sum(stalls.values()):.0f}; the stream whole", flush=True)
+    # (c) decode.nan fails exactly one request; the rest finish
+    nan_armed = threading.Event()
+
+    def arm_nan(k):
+        if k >= 8 and not nan_armed.is_set():
+            nan_armed.set()
+            faults.install("decode.nan", "raise", times=1)
+
+    nan = _concurrently(lambda i: _sse_ids(port, dict(bodies[i], max_tokens=64), f"sup-nan-{i}",
+                                           on_frame=arm_nan if i == 0 else None),
+                        [(i,) for i in range(8)])
+    faults.clear()
+    failed = [i for i, r in enumerate(nan) if r["error"] is not None]
+    if len(failed) != 1:
+        fail(f"supervision (c): {len(failed)} requests failed under decode.nan (want 1)")
+    for i, r in enumerate(nan):
+        if i not in failed:
+            _whole(r, 64, f"supervision (c) stream {i}")
+    if _get_json(port, "/health/live")[0] != 200 or sched.restart_count != 1:
+        fail("supervision (c): the NaN drill touched the engine's health")
+    print(f"supervision (c): decode.nan failed request {failed[0]} alone "
+          f"({nan[failed[0]]['error']['message'][:60]!r}); 7 streams whole, live", flush=True)
+    # (d) a restart that itself dies ends supervision: live false, 503s
+    faults.install("engine.restart", "raise", times=1)
+    faults.install("scheduler.loop", "raise", times=1)
+    deadline = time.monotonic() + 30
+    while sched.crashed is None and time.monotonic() < deadline:
+        time.sleep(0.01)
+    faults.clear()
+    st_post, _ = _post(port, {"messages": [{"role": "user", "content": "hi"}], "max_tokens": 4})
+    if sched.crashed is None or _get_json(port, "/health/live")[0] != 503 or st_post != 503:
+        fail(f"supervision (d): crashed {sched.crashed!r}, POST {st_post}")
+    print(f"supervision (d): engine.restart killed the restart: live=false, POST 503 "
+          f"({sched.restart_count} restarts in all)", flush=True)
+    httpd.shutdown()
+    httpd.server_close()
+    sched.shutdown()
+    del httpd, api, sched, enc
+    torch.cuda.empty_cache()
+    # (e) a session round trip on the single engine: 32 tokens, save, a
+    # fresh engine loads it, 32 more, bit-equal to 64 uninterrupted
+    eng = loaded.engine
+    ptoks = loaded.tokenizer.encode(bodies[0]["messages"][0]["content"], add_bos=True)
+    greedy = Sampler(0.0, 0.9, 0)
+    eng.reset(0)
+    full = list(eng.generate(ptoks, 2 * SESSION_TOKENS, greedy))
+    eng.reset(0)
+    head = list(eng.generate(ptoks, SESSION_TOKENS, greedy))
+    path = os.path.join(tmpdir, "session.npz")
+    t0 = time.perf_counter()
+    eng.save_session(path)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    fresh = InferenceEngine(loaded.config, eng.params, cache_dtype=eng.cache.k.dtype,
+                            max_seq_len=eng.seq_len, max_prefill_chunk=eng.max_prefill_chunk,
+                            device=eng.device)
+    ptrs = (fresh.cache.k.data_ptr(), fresh.cache.v.data_ptr())
+    t0 = time.perf_counter()
+    fresh.load_session(path)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    tail = fresh.decode_greedy_n(np.array([head[-1]]), SESSION_TOKENS)[:, 0].tolist()
+    if head + tail != full or (fresh.cache.k.data_ptr(), fresh.cache.v.data_ptr()) != ptrs:
+        fail(f"supervision (e): the session round trip gave {head + tail} against {full}")
+    eng.reset(0)
+    print(f"supervision (e): {SESSION_TOKENS} + {SESSION_TOKENS} greedy tokens across "
+          f"save_session / a fresh engine / load_session bit-equal to "
+          f"{2 * SESSION_TOKENS} uninterrupted; save {save_ms:.0f} ms, load {load_ms:.0f} ms, "
+          f"{os.path.getsize(path) / 1e6:.1f} MB", flush=True)
+    os.remove(path)
+    del fresh
+    torch.cuda.empty_cache()
+    # (f) --transfer-guard strict serves 8 streams; a synchronizing read put
+    # into the guarded window raises
+    httpd2, api2 = make_server(loaded, host="127.0.0.1", port=0, n_slots=8, warmup="auto",
+                               transfer_guard="strict")
+    threading.Thread(target=httpd2.serve_forever, daemon=True).start()
+    port2 = httpd2.server_address[1]
+    strict = _concurrently(lambda i: _sse_ids(port2, dict(bodies[i], max_tokens=64),
+                                              f"sup-strict-{i}"), [(i,) for i in range(8)])
+    for i, r in enumerate(strict):
+        _whole(r, 64, f"supervision (f) strict stream {i}")
+    sched2 = api2.scheduler
+    if sched2.crashed is not None or sched2.restart_count:
+        fail(f"supervision (f): the strict server crashed: {sched2.crashed!r}")
+    if not graceful_drain(httpd2, api2, timeout_s=120):
+        fail("supervision (f): the drain did not finish")
+    httpd2.server_close()
+    eng2 = sched2.engine
+    outputs = eng2._outputs_to_host
+
+    def syncing(*bufs):
+        bufs[0].sum().item()  # a synchronizing read inside the guarded window
+        return outputs(*bufs)
+
+    eng2.add(0, ptoks[:16], temperature=0.0)
+    eng2._outputs_to_host = syncing
+    try:
+        eng2.decode_dispatch(1)
+        fail("supervision (f): a synchronizing read in the guarded window did not raise")
+    except RuntimeError as e:
+        if "synchroniz" not in str(e):
+            raise
+        msg = str(e).splitlines()[0][:80]
+    finally:
+        eng2._outputs_to_host = outputs
+    if torch.cuda.get_sync_debug_mode() != 0:
+        fail("supervision (f): the guard left the sync debug mode set")
+    print(f"supervision (f): --transfer-guard strict served 8 streams of 64 tokens "
+          f"untripped; an .item() in the window raised ({msg!r}); the mode restored",
+          flush=True)
+    launches = counters()
+    for k in ("q40_decode", "q40_prefill", "paged_attention", "flash_attention"):
+        if launches[k] == 0:
+            fail(f"supervision: kernel {k} was never launched")
+    del httpd2, api2, sched2, eng2
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _post_replica(port: int, body: dict) -> tuple[int, dict, str]:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request("POST", "/v1/chat/completions", json.dumps(body), _headers())
+    resp = conn.getresponse()
+    data = resp.read()
+    conn.close()
+    return resp.status, json.loads(data), resp.getheader("X-Replica-Id") or ""
+
+
+def phase_router(loaded, mpath: str, tpath: str) -> None:
+    """Two CLI `serve --slots 8 --warmup auto` replicas on the card and the
+    CLI `router --failover-max 2` in front: the handshake, affinity, a
+    greedy and a sampled stream through the router, the same two again
+    with SIGKILL sent to their replica mid-stream, federation and the
+    fleet view. The replicas' kernels run in their own processes."""
+    import signal
+
+    from dllama_tpu_torch.serve.api import ApiServer
+
+    ports = []
+    while len(ports) < 3:
+        p = _free_port()
+        if p not in ports:
+            ports.append(p)
+    t0 = time.perf_counter()
+    reps = {}
+    for p in ports[:2]:
+        reps[f"127.0.0.1:{p}"] = _spawn(
+            [sys.executable, "-u", "-m", "dllama_tpu_torch", "serve", "--model", mpath,
+             "--tokenizer", tpath, "--slots", "8", "--warmup", "auto", "--port", str(p),
+             "--max-seq-len", "4096"], "/v1/chat/completions")
+    router = None
+    try:
+        for rid, (proc, lines, ready) in reps.items():
+            if not ready.wait(400) or proc.poll() is not None:
+                fail(f"router: replica {rid} did not come up: {lines[-20:]}")
+        boot_s = time.perf_counter() - t0
+        rport = ports[2]
+        router = _spawn([sys.executable, "-u", "-m", "dllama_tpu_torch", "router",
+                         "--replica", f"127.0.0.1:{ports[0]}", "--replica",
+                         f"127.0.0.1:{ports[1]}", "--port", str(rport), "--failover-max", "2",
+                         "--poll-s", "0.5"], "/v1/chat/completions")
+        if not router[2].wait(120) or router[0].poll() is not None:
+            fail(f"router: the router did not come up: {router[1][-20:]}")
+        st, h = _get_json(rport, "/health")
+        if not (st == 200 and h["mode"] == "router" and len(h["replicas"]) == 2
+                and all(r["config_ok"] and r["ready"] for r in h["replicas"])
+                and h["mesh"] == {"model": "dllama-tpu", "version": "0.1.0"}):
+            fail(f"router: the handshake {st} {h}")
+        # affinity: requests sharing a system prompt land on one replica
+        system = {"role": "system", "content": "You are the router drill's narrator. " * 3}
+        landed = set()
+        for i in range(4):
+            st, resp, rid = _post_replica(rport, {"messages": [
+                system, {"role": "user", "content": f"Question {i}: name a colour."}],
+                "max_tokens": 8, "temperature": 0.0})
+            if st != 200:
+                fail(f"router: affinity request {i} answered {st}")
+            landed.add(rid)
+        if len(landed) != 1:
+            fail(f"router: the shared system prompt landed on {landed}")
+        victim = landed.pop()
+        survivor = next(r for r in reps if r != victim)
+        enc = ApiServer(loaded)
+        bodies = [{"messages": [system, {"role": "user", "content": batch_prompts(1)[0]}],
+                   "max_tokens": ROUTER_TOKENS, "temperature": 0.0, "seed": 5},
+                  {"messages": [system, {"role": "user", "content": batch_prompts(2)[1]}],
+                   "max_tokens": ROUTER_TOKENS, "temperature": 0.8, "top_p": 0.9, "seed": 7}]
+        base = _concurrently(lambda i: _sse_ids(rport, bodies[i]), [(0,), (1,)])
+        for i, r in enumerate(base):
+            _whole(r, ROUTER_TOKENS, f"router baseline stream {i}")
+            if (r["timings"] or {}).get("replica") != victim:
+                fail(f"router: baseline stream {i} was served by "
+                     f"{(r['timings'] or {}).get('replica')}, not the pinned {victim}")
+        before, _ = _scrape(rport)  # the federation holds both replicas' expositions
+        killed = {}
+
+        def kill(k):
+            if k >= ROUTER_KILL_AT and not killed:
+                killed["t"] = time.perf_counter()
+                victim_proc = reps[victim][0]
+                victim_proc.send_signal(signal.SIGKILL)
+                victim_proc.wait()
+                killed["exited"] = time.perf_counter()
+
+        res = _concurrently(lambda i: _sse_ids(rport, bodies[i], f"router-kill-{i}",
+                                               on_frame=kill if i == 0 else None),
+                            [(0,), (1,)])
+        if not killed:
+            fail("router: the kill never fired")
+        # the router's journal of the greedy stream on this host's monotonic
+        # clock (its attempts' at_ms count from its trace epoch): when it saw
+        # the death and when the survivor took the resume, from the kill
+        st_pm, pm = _get_json(rport, "/router/requests/router-kill-0")
+        _, rh = _get_json(rport, "/health")
+        kill_mono = killed["t"] + time.monotonic() - time.perf_counter()
+        legs = [(a["kind"], a["outcome"],
+                 round((rh["clock"]["trace_epoch_s"] + a["at_ms"] / 1e3 - kill_mono) * 1e3, 1))
+                for a in (pm.get("router") or {}).get("attempts", [])] if st_pm == 200 else pm
+        for i, r in enumerate(res):
+            _whole(r, ROUTER_TOKENS, f"router stream {i} across the failover")
+            if r["retrying"] > 1:
+                fail(f"router: stream {i} carried {r['retrying']} `: retrying` comments")
+        g, g0 = res[0], base[0]
+        if g["ids"] != g0["ids"]:
+            near_tie(loaded, prompt_ids(enc, bodies[0]), g["ids"], g0["ids"],
+                     "router greedy stream across the failover")
+        # the failover's gap: the longest wait between two token frames from
+        # the kill on (frames already on the wire arrive after it too)
+        ft = g["frame_t"]
+        k0 = max(1, sum(1 for t in ft if t <= killed["t"]))
+        gaps = [(b - a) * 1e3 for a, b in zip(ft[k0 - 1:], ft[k0:])]
+        gap_ms = max(gaps) if gaps else float("nan")
+        med_ms = statistics.median((b - a) * 1e3 for a, b in zip(ft, ft[1:]))
+        s, s0 = res[1]["ids"], base[1]["ids"]
+        s_part = next((j for j, (x, y) in enumerate(zip(s, s0)) if x != y), None)
+        after, _ = _scrape(rport)
+        resumed = _family_delta(before, after, "dllama_router_failovers_total")
+        if resumed.get('{outcome="resumed"}', 0.0) < 1:
+            fail(f"router: dllama_router_failovers_total moved {resumed}")
+        st, kv = _get_json(int(survivor.split(":")[1]), "/debug/kv")
+        if st != 200 or not (kv.get("audit") or {}).get("ok"):
+            fail(f"router: the survivor's /debug/kv {st} {kv.get('audit')}")
+        fed = {lbl for (n, lbl) in after if n == "dllama_fleet_scrape_age_seconds"}
+        if fed != {f'{{replica="{victim}"}}', f'{{replica="{survivor}"}}'}:
+            fail(f"router: /router/metrics federates {fed}")
+        st, fleet = _get_json(rport, "/router/fleet")
+        live = {r["id"]: r.get("live") for r in fleet["replicas"]}
+        if st != 200 or fleet["fleet"]["replicas"] != 2 or not live.get(survivor):
+            fail(f"router: /router/fleet {st} {fleet.get('fleet')} {live}")
+        print(f"router: 2 replicas up in {boot_s:.1f} s; handshake (dllama-tpu, 0.1.0); 4 "
+              f"requests sharing a system prompt on {victim}; SIGKILL to it after "
+              f"{ROUTER_KILL_AT} frames of the greedy stream: both streams whole on "
+              f"{survivor} ({res[0]['retrying']} and {res[1]['retrying']} `: retrying`), the "
+              f"greedy ids {'equal to' if g['ids'] == g0['ids'] else 'apart at a near tie from'} "
+              f"the baseline; the gap across the failover {gap_ms:.1f} ms (median frame gap "
+              f"{med_ms:.1f} ms; the resumed legs' queue wait / TTFT on the survivor "
+              f"{[(r['timings'] or {}).get('queue_wait_ms') for r in res]} / "
+              f"{[(r['timings'] or {}).get('ttft_ms') for r in res]} ms; the victim exited "
+              f"{(killed['exited'] - killed['t']) * 1e3:.1f} ms after the SIGKILL; the "
+              f"router's attempts, ms from the kill: {legs}); failovers "
+              f"{resumed}; the sampled stream "
+              f"{'equal' if s_part is None else f'apart from its baseline at token {s_part}'} "
+              f"(printed, not compared); the survivor's pool clean; /router/metrics "
+              f"federates both ({len(after)} samples), /router/fleet live {live}",
+              flush=True)
+    finally:
+        if router is not None:
+            _reap(router[0])
+        for proc, _, _ in reps.values():
+            _reap(proc)
+
+
 # ------------------------------------------------------------ main
 
 
@@ -4193,7 +4702,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20, help="timed runs per case (0: no timing)")
     ap.add_argument("--phases",
                     default="card,kernels,kbench,forward,serve,batch,hybrid,radix,obs,"
-                            "inference,styles,spec,spec_batch,graphs,f8,q80",
+                            "supervision,router,inference,styles,spec,spec_batch,graphs,f8,q80",
                     help="comma list; not in the default: 'profile' adds a "
                          "torch.profiler pass over one decode chunk, single-stream "
                          "and 8-slot; 'chunk' is the prefill-chunk timing alone (Q40 "
@@ -4253,7 +4762,8 @@ def main(argv=None) -> int:
     prompt = ("Summarize the plot of a long story about a lighthouse keeper, "
               "a storm, and a ship that never arrives.")
     if phases & {"forward", "chunk", "serve", "profile", "batch", "hybrid", "radix", "obs",
-                  "inference", "styles", "spec", "spec_batch", "graphs", "f8"}:
+                  "supervision", "router", "inference", "styles", "spec", "spec_batch",
+                  "graphs", "f8"}:
         from dllama_tpu_torch.engine.loader import load_model
 
         tmp = tempfile.TemporaryDirectory(prefix="dllama_smoke_")
@@ -4355,6 +4865,20 @@ def main(argv=None) -> int:
         if "obs" in phases:
             paths["obs"] = phase_obs(loaded, card)
         phase_done("obs", phases)
+
+        if "supervision" in phases:
+            paths["supervision"] = phase_supervision(loaded, tmp.name)
+            print(f"supervision: launches {paths['supervision']}", flush=True)
+        phase_done("supervision", phases)
+
+        if "router" in phases:
+            phase_router(loaded, mpath, tpath)
+            # its kernels ran in the replicas' own processes, whose counters
+            # this process cannot read: null in launches_by_path
+            paths["router"] = dict.fromkeys(counters())
+            print("router: the K1/K2/K9 launches of this path ran in the two CLI replica "
+                  "processes and are not counted here (launches_by_path null)", flush=True)
+        phase_done("router", phases)
 
         auto_text = None  # the greedy CLI text under STYLE auto, for the styles phase
         if "inference" in phases:

@@ -6,6 +6,9 @@ Modes:
   chat       REPL with chat template + streaming EOS detection
   serve      OpenAI-compatible HTTP server (the `dllama-api` binary's role)
   info       print the model header
+  router     one address over N `serve` replicas (serve/router.py): config
+             handshake, health polling, prefix-affinity routing, failover
+             and mid-stream failover, the fleet observability plane
 
 Everything runs on one device, `--device cuda` (the default) or
 `--device cpu`. Without a CUDA device the CLI stops with an error unless the
@@ -27,7 +30,12 @@ is the thread-per-connection server) and answers `/metrics` and the
 `/debug/*` family; `--log-format json`, `--trace DIR` (a torch.profiler
 Chrome trace of the run), `--trace-buffer N` (the request-flow tracer's
 ring; 0 turns it off), `--slo-ttft-ms`/`--slo-itl-ms` and `--report` (memory
-and per-token latency after `inference`) are the JAX package's.
+and per-token latency after `inference`) are the JAX package's. Supervision is
+too: `--stall-deadline-s` (the watchdog), `--restart-max`/`--restart-window-s`
+(warm restarts), `--transfer-guard` (the steady-state replays under
+`torch.cuda.set_sync_debug_mode`) and `--faults` / `$DLLAMA_FAULTS` (fault
+injection, utils/faults.py). `router --replica HOST:PORT ...` needs no
+`--model`: replicas own their weights.
 """
 
 from __future__ import annotations
@@ -52,8 +60,11 @@ def build_parser() -> argparse.ArgumentParser:
         prog="dllama-tpu-torch",
         description="distributed-llama inference on PyTorch + hand-written CUDA kernels",
     )
-    p.add_argument("mode", choices=["inference", "chat", "serve", "info"])
-    p.add_argument("--model", required=True, help=".m model file")
+    p.add_argument("mode", choices=["inference", "chat", "serve", "info", "router"])
+    # required by every mode but `router`, which owns no engine; main()
+    # enforces it per mode
+    p.add_argument("--model", default=None,
+                   help=".m model file (required for every mode except router)")
     p.add_argument("--tokenizer", help=".t tokenizer file")
     p.add_argument("--prompt", help="prompt text (inference mode)")
     p.add_argument("--steps", type=int, default=64, help="max tokens to generate")
@@ -79,12 +90,34 @@ def build_parser() -> argparse.ArgumentParser:
                         "on the CPU; torch = plain PyTorch everywhere")
     p.add_argument("--fuse-weights", action="store_true",
                    help="fused wqkv/w13 matmul launches")
-    p.add_argument("--port", type=int, default=9990, help="HTTP port (serve mode)")
-    p.add_argument("--host", default="127.0.0.1", help="HTTP bind address (serve mode)")
+    p.add_argument("--port", type=int, default=None,
+                   help="HTTP port (default: 9990 in serve mode, 9980 in router mode)")
+    p.add_argument("--host", default="127.0.0.1",
+                   help="HTTP bind address (serve/router modes)")
     p.add_argument("--sse-heartbeat-s", type=float, default=15.0,
                    help="serve mode: `: keep-alive` frame on streams idle this long")
     p.add_argument("--replica-id", default=None,
                    help="serve mode: identity stamped on every response")
+    p.add_argument("--replica", action="append", default=None, metavar="HOST:PORT",
+                   help="router mode (repeatable, at least one): an engine replica to "
+                        "front, a normal `serve` process; the router handshakes its "
+                        "config, polls its health, and routes and fails over across the set")
+    p.add_argument("--affinity", choices=["on", "off"], default="on",
+                   help="router mode: prefix-affinity routing, each request's prefix "
+                        "fingerprint pinned to the replica that served it last (off = "
+                        "least-loaded)")
+    p.add_argument("--poll-s", type=float, default=0.5,
+                   help="router mode: replica /health poll cadence in seconds")
+    p.add_argument("--router-workers", type=int, default=16,
+                   help="router mode: worker threads (each in-flight proxied request "
+                        "holds one for its upstream I/O)")
+    p.add_argument("--failover-max", type=int, default=2,
+                   help="router mode: resume attempts a journaled stream gets when its "
+                        "replica dies mid-stream (0 = fail it once with "
+                        "finish_reason=error)")
+    p.add_argument("--fleet-obs", choices=["on", "off"], default="on",
+                   help="router mode: trace propagation, router-side spans and clock-"
+                        "offset estimation; the /router/* endpoints stay up either way")
     p.add_argument("--drain-timeout-s", type=float, default=30.0,
                    help="serve mode: on SIGTERM, give the in-flight requests this long")
     p.add_argument("--slots", type=int, default=0,
@@ -98,6 +131,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-queue", type=int, default=0,
                    help="serve mode: shed requests with 429 beyond this queue depth "
                         "(0 = unbounded)")
+    p.add_argument("--stall-deadline-s", type=float, default=0.0,
+                   help="serve mode, needs --slots > 0: watchdog deadline; a worker "
+                        "silent this long with work in flight turns /health/live false "
+                        "(0 = watchdog off)")
+    p.add_argument("--restart-max", type=int, default=0,
+                   help="serve mode, needs --slots > 0: on a worker crash, warm-restart "
+                        "the engine in-process (cache, pools and slot state refilled in "
+                        "place against the resident weights; queued requests survive, "
+                        "running ones resume exactly) at most this many times per "
+                        "--restart-window-s, with exponential backoff (0 = a crash is "
+                        "permanent)")
+    p.add_argument("--restart-window-s", type=float, default=60.0,
+                   help="serve mode: the sliding window --restart-max counts restarts in")
+    p.add_argument("--faults", default=None, metavar="SPEC",
+                   help="arm deterministic fault injection (drills): comma-separated "
+                        "point:action[:k=v...] clauses, e.g. 'engine.decode:raise:after=2' "
+                        "(points and options: dllama_tpu_torch/utils/faults.py; also "
+                        "$DLLAMA_FAULTS)")
     p.add_argument("--overlap", choices=["on", "off"], default="on",
                    help="batched tier: launch decode chunk N+1 before consuming chunk N")
     p.add_argument("--prefill-budget", default="auto", metavar="{auto,N,0}",
@@ -144,7 +195,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "tracing off (default 2048)")
     p.add_argument("--report", action="store_true",
                    help="inference mode: print the memory and per-token latency report")
-    # accepted by name, refused until ported
     p.add_argument("--radix-cache", choices=["auto", "on", "off"], default="auto",
                    help="serve --slots > 0: cross-request radix prefix tree over the paged "
                         "KV pool; admissions map the longest shared prefix by refcount and "
@@ -171,8 +221,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serve --slots > 0: capture every decode and prefill program "
                         "(CUDA graph) before the first request; ignored with a warning "
                         "on the single-engine tier")
-    p.add_argument("--restart-max", type=int, default=0,
-                   help="warm engine restarts (not yet ported)")
     p.add_argument("--spec", type=int, default=0, metavar="K",
                    help="prompt-lookup speculative decoding with K-token drafts for "
                         "greedy runs (inference, chat, serve; a request's spec_k "
@@ -187,20 +235,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "requests ride the cycles one token at a time. Telemetry: "
                         "dllama_spec_*, the spec objects of timings and /debug/perf "
                         "(default: --spec)")
+    # accepted by name, refused until ported
     p.add_argument("--mesh", default=None, help="device mesh (not yet ported)")
     p.add_argument("--transfer-guard", choices=["off", "log", "strict"], default="off",
-                   help="JAX's steady-state upload guard (not yet ported)")
+                   help="serve mode, needs --slots > 0: run the steady-state decode and "
+                        "spec replays under torch.cuda.set_sync_debug_mode; 'strict' "
+                        "makes a synchronizing operation there (a blocking upload or "
+                        "read) raise, 'log' warns")
     p.add_argument("-v", "--verbose", action="store_true")
     return p
 
 
 def _refuse_unported(args) -> None:
-    if args.restart_max:
-        raise NotPorted("--restart-max (warm engine restarts)")
     if args.mesh is not None:
         raise NotPorted("--mesh (multi-device meshes)")
-    if args.transfer_guard != "off":
-        raise NotPorted(f"--transfer-guard {args.transfer_guard}")
 
 
 def _parse_tenant_weights(specs) -> dict[str, float] | None:
@@ -380,7 +428,8 @@ def cmd_serve(args) -> int:
 
     with profiling.trace(args.trace):
         return run_server(
-            m, host=args.host, port=args.port, n_slots=args.slots,
+            m, host=args.host, port=args.port if args.port is not None else 9990,
+            n_slots=args.slots,
             default_temperature=args.temperature, default_topp=args.topp,
             default_seed=args.seed, frontend=args.frontend, aio_workers=args.aio_workers,
             sse_heartbeat_s=args.sse_heartbeat_s, replica_id=args.replica_id,
@@ -393,12 +442,31 @@ def cmd_serve(args) -> int:
             admit_ttft_deadline_ms=args.admit_ttft_deadline_ms, slo_itl_ms=args.slo_itl_ms,
             slo_ttft_ms=args.slo_ttft_ms, radix_cache=args.radix_cache,
             kv_host_pages=args.kv_host_pages, preempt=args.preempt,
-            tenant_weights=tenant_weights,
+            tenant_weights=tenant_weights, stall_deadline_s=args.stall_deadline_s,
+            restart_max=args.restart_max, restart_window_s=args.restart_window_s,
+            transfer_guard=args.transfer_guard,
         )
+
+
+def cmd_router(args) -> int:
+    from dllama_tpu_torch.serve.router import run_router
+
+    if not args.replica:
+        print("router mode requires at least one --replica HOST:PORT", file=sys.stderr)
+        return 1
+    return run_router(
+        args.replica, host=args.host, port=args.port if args.port is not None else 9980,
+        poll_s=args.poll_s, affinity=args.affinity == "on", workers=args.router_workers,
+        drain_timeout_s=args.drain_timeout_s, failover_max=args.failover_max,
+        fleet_obs=args.fleet_obs == "on", trace_capacity=args.trace_buffer,
+        slo_ttft_ms=args.slo_ttft_ms, slo_itl_ms=args.slo_itl_ms)
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.mode != "router" and not args.model:
+        print(f"{args.mode} mode requires --model", file=sys.stderr)
+        return 1
     from dllama_tpu_torch.obs import trace
     from dllama_tpu_torch.utils.logs import setup_logging
 
@@ -407,11 +475,24 @@ def main(argv=None) -> int:
     setup_logging(fmt=args.log_format, verbose=args.verbose)
     # the request-flow tracer, configured before anything can emit a span
     trace.configure(args.trace_buffer)
+    from dllama_tpu_torch.utils import faults
+
+    # $DLLAMA_FAULTS first, --faults wins when both are set; a bad spec
+    # stops startup here rather than never firing
+    try:
+        faults.configure_from_env()
+        if args.faults:
+            faults.configure(args.faults)
+    except ValueError as e:
+        print(f"fault spec: {e}", file=sys.stderr)
+        return 2
     try:
         _refuse_unported(args)
     except NotPorted as e:
         print(f"{e} is not yet ported to the PyTorch/CUDA package", file=sys.stderr)
         return 2
+    if args.mode == "router":
+        return cmd_router(args)  # owns no device: the replicas do
     if args.mode != "info" and args.device == "cuda" and not torch.cuda.is_available():
         print("no CUDA device was found; pass --device cpu to run on the CPU",
               file=sys.stderr)

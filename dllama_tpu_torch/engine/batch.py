@@ -77,6 +77,7 @@ from dllama_tpu_torch.obs import compile as compile_obs
 from dllama_tpu_torch.obs import instruments as ins
 from dllama_tpu_torch.obs import trace
 from dllama_tpu_torch.ops.layers import build_rope_cache
+from dllama_tpu_torch.utils import faults
 
 log = logging.getLogger("dllama_tpu_torch.engine")
 
@@ -242,9 +243,21 @@ class PagePool:
             report["host"] = self.host.stats()
         return report
 
+    def reset(self) -> None:
+        """Every page free and every block table empty (a warm restart):
+        the object, its lock and its hooks stay, so the engine's device
+        tables keep their address."""
+        with self._mu:
+            self.refcount[:] = 0
+            self.tables[:] = 0
+            self.n_blocks[:] = 0
+            self._free = list(range(self.n_pages - 1, -1, -1))
+            self._publish()
+
     # ------------------------------------------------------------ primitives
 
     def _alloc_page(self) -> int:
+        faults.fire("pool.alloc")
         if not self._free:
             raise PageExhausted(f"page pool exhausted ({self.n_pages} pages of "
                                 f"{self.page_size} rows, all referenced)")
@@ -525,6 +538,15 @@ class HostKVPool:
             self._publish()
             return n
 
+    def reset(self) -> None:
+        """Drop every entry and free every slab row (a warm restart: a
+        half-poisoned chunk may have corrupted the very rows a spill kept).
+        The pinned slab stays where it is; the cumulative counts carry over."""
+        with self._mu:
+            self._entries.clear()
+            self._free = list(range(self.n_pages - 1, -1, -1))
+            self._publish()
+
     def stats(self) -> dict:
         with self._mu:
             return {"total": self.n_pages, "used": len(self._entries),
@@ -628,12 +650,17 @@ class DecodeChunk:
     drafted_host: torch.Tensor | None = None
     start_host: torch.Tensor | None = None
     adv_cycles: np.ndarray | None = None
+    # the decode.nan fault's overlay (utils/faults.py): a host-side mask
+    # OR-ed into the device's `bad` rows, set at dispatch
+    bad_inject: np.ndarray | None = None
 
     def nonfinite(self) -> np.ndarray | None:
         """bool [B] rows whose logits went non-finite in this chunk, or None
         when every row is clean. The scheduler fails those requests."""
         out = self.bad.numpy()
         compile_obs.note_transfer("d2h", "nan_guard", int(out.nbytes))
+        if self.bad_inject is not None:
+            out = out | self.bad_inject
         return out.copy() if out.any() else None
 
 
@@ -661,9 +688,16 @@ class BatchEngine:
         spec: int = 0,  # K-token prompt-lookup speculative decoding for the
         # batch (decode_dispatch(spec=True)); 0 = off. Greedy slots emit 1..K+1
         # exact-argmax tokens a verify forward; sampled slots advance exactly 1
+        transfer_guard: str = "off",  # 'off' | 'log' | 'strict' (--transfer-guard):
+        # the steady-state replays run under torch.cuda.set_sync_debug_mode, so a
+        # synchronizing operation there warns or raises (obs/compile.h2d_guard)
     ):
         if cache_dtype not in CACHE_DTYPES:
             raise ValueError(f"KV cache dtype {cache_dtype} is not one of {CACHE_DTYPES}")
+        if transfer_guard not in compile_obs.TRANSFER_GUARD_MODES:
+            raise ValueError(f"transfer_guard must be one of "
+                             f"{compile_obs.TRANSFER_GUARD_MODES}, got {transfer_guard!r}")
+        self.transfer_guard = transfer_guard
         self.cfg = cfg
         self.device = torch.device(device) if device is not None else params["embedding"].device
         self.params = params  # fused wqkv/w13 when the caller's engine fused them
@@ -986,6 +1020,12 @@ class BatchEngine:
             v_row.copy_(self.cache.v[:, page], non_blocking=True)
             return self._event()
 
+        try:
+            # an armed pool.spill degrades the eviction to the discard: the
+            # prefix re-prefills when it returns, which is always correct
+            faults.fire("pool.spill")
+        except faults.InjectedFault:
+            return False
         if not self.pool.host.put(key, write):
             return False
         compile_obs.note_transfer("d2h", "kv_spill", self._page_nbytes())
@@ -1005,10 +1045,16 @@ class BatchEngine:
         no free page (the suffix then prefills as before; the host copy
         stays until take())."""
         pool, host = self.pool, self.pool.host
-        with pool._mu:
-            if not pool._free:
-                return None
-            page = pool._alloc_page()
+        try:
+            # an armed pool.restore leaves the host copy where it is and the
+            # suffix re-prefills, as with no free page
+            faults.fire("pool.restore")
+            with pool._mu:
+                if not pool._free:
+                    return None
+                page = pool._alloc_page()
+        except faults.InjectedFault:
+            return None
         self.cache.k[:, page].copy_(host.k[row], non_blocking=True)
         self.cache.v[:, page].copy_(host.v[row], non_blocking=True)
         compile_obs.note_transfer("h2d", "kv_restore", self._page_nbytes())
@@ -1076,6 +1122,7 @@ class BatchEngine:
         returns True when every prompt token's KV row is written. Observes
         dllama_prefill_chunk_seconds: the launch alone unless the caller
         syncs (the scheduler syncs whenever decoders would stall)."""
+        faults.fire("engine.prefill")
         t0 = time.perf_counter()
         self._prefill_slice(adm, pow2_chunk(len(adm.toks) - adm.off, self.max_prefill_chunk))
         ins.PREFILL_CHUNK_SECONDS.observe(time.perf_counter() - t0)
@@ -1443,6 +1490,7 @@ class BatchEngine:
         (_spec_dispatch): its counts are data-dependent and settle at
         decode_consume, so a chunk dispatched off an unconsumed spec chunk
         must itself be spec (the serving scheduler drains on a switch)."""
+        faults.fire("engine.decode")
         if spec:
             if not self.spec_k:
                 raise ValueError("engine built with spec=0")
@@ -1475,9 +1523,11 @@ class BatchEngine:
                    if (self.temperature[self.active] != 0.0).any() else "greedy")
         prog = self._program(variant, n)
         t0, t_disp = time.perf_counter(), trace.TRACER.now()
-        prog.run()
+        with compile_obs.h2d_guard(self.transfer_guard, self.device):
+            prog.run()
+            (toks, bad), event = self._outputs_to_host(prog.buffers["toks"],
+                                                       prog.buffers["bad"])
         self.forwards += n
-        (toks, bad), event = self._outputs_to_host(prog.buffers["toks"], prog.buffers["bad"])
         start_pos = self.pos.copy()
         active = self.active.copy()
         advance = np.where(active, np.clip(limit - start_pos, 0, n), 0).astype(np.int32)
@@ -1486,7 +1536,17 @@ class BatchEngine:
         self.chunk_seq += 1
         return DecodeChunk(toks=toks, bad=bad, event=event, n=n, start_pos=start_pos,
                            active=active, advance=advance, seq=self.chunk_seq, t0=t0,
-                           t_disp=t_disp)
+                           t_disp=t_disp, bad_inject=self._nan_drill(active))
+
+    def _nan_drill(self, active: np.ndarray) -> np.ndarray | None:
+        """The decode.nan fault at dispatch: a host mask flagging the lowest
+        active slot as if its logits went non-finite (the scheduler's NaN
+        guard then fails that request), or None when it does not fire."""
+        if not faults.flag("decode.nan") or not active.any():
+            return None
+        out = np.zeros(self.n_slots, bool)
+        out[int(np.flatnonzero(active)[0])] = True
+        return out
 
     def _outputs_to_host(self, *bufs: torch.Tensor) -> tuple[list[torch.Tensor], object]:
         """Host copies of a program's outputs and the event behind them: on a
@@ -1527,18 +1587,20 @@ class BatchEngine:
         self._sync_vectors()
         prog = self._program("spec_pen" if self._penalized_live() else "spec", n)
         t0, t_disp = time.perf_counter(), trace.TRACER.now()
-        prog.run()
-        self.forwards += n
         b = prog.buffers
-        (toks, bad, adv, drafted, start), event = self._outputs_to_host(
-            b["toks"], b["bad"], b["adv"], b["drafted"], b["start"])
+        with compile_obs.h2d_guard(self.transfer_guard, self.device):
+            prog.run()
+            (toks, bad, adv, drafted, start), event = self._outputs_to_host(
+                b["toks"], b["bad"], b["adv"], b["drafted"], b["start"])
+        self.forwards += n
         self._spec_inflight += 1
         active = self.active.copy()
         self.chunk_seq += 1
         return DecodeChunk(toks=toks, bad=bad, event=event, n=n, start_pos=self.pos.copy(),
                            active=active, advance=active.astype(np.int32), seq=self.chunk_seq,
                            t0=t0, t_disp=t_disp, spec=True, adv_host=adv,
-                           drafted_host=drafted, start_host=start)
+                           drafted_host=drafted, start_host=start,
+                           bad_inject=self._nan_drill(active))
 
     @property
     def supports_hybrid(self) -> bool:
@@ -1565,6 +1627,10 @@ class BatchEngine:
         rows' tokens are those of a plain decode_dispatch. Returns the
         DecodeChunk, with hybrid_slot / hybrid_tokens recording the prompt
         tokens it prefilled."""
+        # both drills fire before any state moves: an engine.prefill fault
+        # leaves the engine clean, so the scheduler fails only the joiner
+        faults.fire("engine.decode")
+        faults.fire("engine.prefill")
         slot = adm.slot
         if self.active[slot]:
             raise ValueError(f"slot {slot} is busy")
@@ -1865,6 +1931,73 @@ class BatchEngine:
         emit = np.zeros((self.n_slots, self.spec_k + 1), np.int64)
         emit[:, : toks.shape[0]] = toks.T
         return emit, chunk.advance
+
+    def device_state(self) -> dict[str, torch.Tensor]:
+        """Every engine-owned tensor a decode, prefill or spec program reads
+        or writes, by name. A captured program holds their addresses, so no
+        method may replace one (warm_restart refills them in place)."""
+        out = {"cache.k": self.cache.k, "cache.v": self.cache.v, "pos": self._pos_dev,
+               "last": self._last_dev, "rng.seed": self.rng.seed,
+               "rng.counter": self.rng.counter, "active": self._active_dev,
+               "limit": self._limit_dev, "temps": self._temps_dev, "topp": self._topp_dev,
+               "presence": self._pres_dev, "frequency": self._freq_dev,
+               "spec_k": self._speck_dev, "prefill_in": self._pf_in}
+        if self.pool is not None:
+            out["cache.tables"] = self.cache.tables
+            out["prefill_table"] = self._pf_table
+        if self._counts is not None:
+            out["counts"] = self._counts
+        if self.history is not None:
+            out["history"] = self.history
+        return out
+
+    @torch.no_grad()
+    def warm_restart(self) -> None:
+        """Crash recovery without a model reload (the JAX package's
+        ``warm_restart``): everything a failed chunk may have poisoned is
+        rebuilt against the resident weights: the KV cache, the page pool
+        and its radix tree (rebuilt empty; the hit accounting carries
+        over), the host tier, every per-slot vector, the generator rows and
+        the spec history. Unlike the JAX package, which allocates fresh
+        buffers, every device tensor is refilled IN PLACE: the captured
+        programs hold their addresses, so they stay valid and a restart
+        recaptures nothing. The host tier keeps its pinned slab and drops
+        its index. On a card whose context a sticky error killed, the first
+        device write here raises, and the scheduler counts that against its
+        restart budget."""
+        self.cache.k.zero_()
+        self.cache.v.zero_()
+        if self.pool is not None:
+            self.pool.reset()
+            self.cache.tables.zero_()
+            self._pf_table.zero_()
+            if self.radix is not None:
+                spill = self.radix.spill
+                self.radix = RadixCache(self.pool, carry_from=self.radix)
+                self.radix.spill = spill
+            if self.pool.host is not None:
+                self.pool.host.reset()
+        for t in (self._pos_dev, self._last_dev, self.rng.seed, self.rng.counter,
+                  self._active_dev, self._limit_dev, self._temps_dev, self._pres_dev,
+                  self._freq_dev, self._speck_dev, self._pf_in):
+            t.zero_()
+        self._topp_dev.fill_(0.9)
+        if self._counts is not None:
+            self._counts.zero_()
+        if self.history is not None:
+            self.history.fill_(-1)
+        self.pos[:] = 0
+        self.active[:] = False
+        self.last_token[:] = 0
+        self.temperature[:] = 0.0
+        self.topp[:] = 0.9
+        self.presence[:] = 0.0
+        self.frequency[:] = 0.0
+        self.seeds[:] = 0
+        self.spec_k_slot[:] = 0
+        self._spec_inflight = 0  # an unconsumed chunk died with the crash
+        self._t_last_consume = None
+        self._vec_dirty = True
 
     def release(self, slot: int, keep_rows: int | None = None) -> None:
         """Free a slot. keep_rows rewinds pos to the valid prefix (a stop

@@ -202,6 +202,76 @@ class InferenceEngine:
         """Rewind to `pos` (prefix-cache reuse keeps cache contents <= pos valid)."""
         self.pos = pos
 
+    # -------------------------------------------------------------- sessions
+
+    def _session_fingerprint(self) -> str:
+        c = self.cfg
+        dtype = str(self.cache.k.dtype).removeprefix("torch.")
+        return (f"{c.dim}:{c.n_layers}:{c.n_kv_heads}:{c.head_size}:"
+                f"{self.seq_len}:{self.batch}:{dtype}:{self._params_digest()}")
+
+    def _params_digest(self) -> str:
+        """Cheap weight-identity hash over this package's own leaves, so a
+        session saved against one checkpoint refuses to resume on another of
+        the same geometry: every leaf's shape and dtype, plus the first four
+        values of up to 8 leaves (a handful of scalars, not a weights hash).
+        The JAX package hashes its own leaves the same way; the two digests
+        differ, as the two packages' sessions are their own."""
+        if not hasattr(self, "_digest"):
+            import dataclasses
+            import hashlib
+
+            def leaves(tree):
+                if isinstance(tree, torch.Tensor):
+                    yield tree
+                elif isinstance(tree, dict):
+                    for k in sorted(tree):
+                        yield from leaves(tree[k])
+                elif isinstance(tree, (list, tuple)):
+                    for v in tree:
+                        yield from leaves(v)
+                elif dataclasses.is_dataclass(tree):
+                    for f in dataclasses.fields(tree):
+                        yield from leaves(getattr(tree, f.name))
+
+            h = hashlib.sha1()
+            flat = list(leaves(self.params))
+            for leaf in flat:
+                h.update(f"{tuple(leaf.shape)}{leaf.dtype}".encode())
+            for leaf in flat[:: max(1, len(flat) // 8)]:
+                sample = leaf.reshape(-1)[:4].to("cpu")
+                h.update(sample.view(torch.uint8).numpy().tobytes())
+            self._digest = h.hexdigest()[:16]
+        return self._digest
+
+    def save_session(self, path: str) -> None:
+        """Persist the KV cache and the position (npz): the cache's bytes as
+        uint8 with the dtype's name (an f8 cache round-trips byte for byte),
+        ``pos`` and this engine's fingerprint."""
+        k = self.cache.k.detach().to("cpu").contiguous()
+        v = self.cache.v.detach().to("cpu").contiguous()
+        np.savez_compressed(path, fingerprint=self._session_fingerprint(),
+                            cache_dtype=str(k.dtype).removeprefix("torch."), pos=self.pos,
+                            k=k.view(torch.uint8).numpy(), v=v.view(torch.uint8).numpy())
+
+    @torch.no_grad()
+    def load_session(self, path: str) -> None:
+        """Restore a saved session INTO the existing cache tensors (``copy_``):
+        the captured prefill, decode and spec programs hold their addresses,
+        so the cache is never replaced. Raises ValueError when the file's
+        fingerprint (geometry, dtype, weights) is not this engine's."""
+        with np.load(path) as data:
+            fp = str(data["fingerprint"])
+            if fp != self._session_fingerprint():
+                raise ValueError(f"session file does not match this engine: {fp!r} != "
+                                 f"{self._session_fingerprint()!r}")
+            for dst, name in ((self.cache.k, "k"), (self.cache.v, "v")):
+                raw = torch.from_numpy(np.ascontiguousarray(data[name]))
+                dst.copy_(raw.view(dst.dtype).reshape(dst.shape))
+            self.pos = int(data["pos"])
+        self._dev_pos = None  # the device position is reloaded before the next program
+        self._spec_h = None  # the spec history no longer describes the cache
+
     def prefill(self, tokens) -> torch.Tensor:
         """Chunked prefill; returns logits after the last token."""
         tokens = np.atleast_2d(np.asarray(tokens, dtype=np.int64))

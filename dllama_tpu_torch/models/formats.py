@@ -46,6 +46,9 @@ class ModelFileError(ValueError):
 
 def read_header(path: str, max_seq_len: int | None = None) -> tuple[LlamaConfig, int]:
     """Returns (config, header_size_bytes). Mirrors loadLlmHeader (llm.cpp:26-98)."""
+    from dllama_tpu_torch.utils import faults
+
+    faults.fire("loader.read")
     with open(path, "rb") as f:
         head = f.read(8)
         if len(head) < 8:

@@ -27,10 +27,16 @@ asked for it) and near-zero steady-state host/device traffic.
 * **device-memory gauges**: :func:`refresh_device_gauges` publishes the
   CUDA caching allocator's live block count and bytes at scrape time.
 
-The JAX package's ``h2d_guard`` (``--transfer-guard``, a
-``jax.transfer_guard`` mode) has no torch counterpart with its meaning and
-is not here. Module import is stdlib only; torch is imported inside
-:func:`refresh_device_gauges`.
+* **the transfer guard** (``--transfer-guard``): :func:`h2d_guard` runs
+  the steady-state dispatch window under ``torch.cuda.set_sync_debug_mode``
+  ('warn' for ``log``, 'error' for ``strict``). JAX's
+  ``jax.transfer_guard_host_to_device`` flags implicit uploads; the torch
+  mode flags operations that synchronize the host with the card, blocking
+  uploads and reads included. The mode is process-wide: the guard sets it
+  on entry and restores the previous mode on exit.
+
+Module import is stdlib only; torch is imported inside the functions that
+touch the card.
 """
 
 from __future__ import annotations
@@ -346,6 +352,41 @@ def reset_transfers() -> None:
 
 
 # --------------------------------------------------------- device memory
+
+TRANSFER_GUARD_MODES = ("off", "log", "strict")
+
+
+class h2d_guard:
+    """Context manager for the steady-state dispatch window (the JAX
+    package's ``h2d_guard``, over ``torch.cuda.set_sync_debug_mode``):
+    'strict' makes a synchronizing operation inside the window raise,
+    'log' warns, 'off' (and any window on a CPU device, where nothing
+    synchronizes) does nothing. The mode is process-wide, so the window is
+    kept to the replays and their non-blocking output copies; entry saves
+    the previous mode and exit restores it (nested windows nest)."""
+
+    def __init__(self, mode: str, device=None):
+        if mode not in TRANSFER_GUARD_MODES:
+            raise ValueError(f"transfer_guard must be one of {TRANSFER_GUARD_MODES}, "
+                             f"got {mode!r}")
+        self.on = mode != "off" and device is not None and getattr(device, "type", "") == "cuda"
+        self.level = "error" if mode == "strict" else "warn"
+        self._prev = None
+
+    def __enter__(self):
+        if self.on:
+            import torch
+
+            self._prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(self.level)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.on:
+            import torch
+
+            torch.cuda.set_sync_debug_mode(self._prev)
+
 
 def refresh_device_gauges() -> dict:
     """Publish the CUDA caching allocator's live blocks and bytes

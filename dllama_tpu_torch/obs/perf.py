@@ -7,6 +7,8 @@ bandwidth peak.
 * :class:`WindowQuantiles` / :class:`WindowSums`: time-sliced sliding
   windows (bounded reservoirs; exact under the per-slice cap), queried at
   scrape time, never on the hot path.
+* :class:`ClockOffset`: the router's NTP-lite estimate of a replica's
+  clock offset from its health polls (the merged mesh trace's alignment).
 * :class:`TimeLedger`: every second of the scheduler worker loop billed to
   exactly one state of :data:`LEDGER_STATES`; ``transition(s)`` bills the
   time since the previous transition to the previous state, so the
@@ -20,8 +22,7 @@ bandwidth peak.
   :class:`PerfAggregator`: verdicts, the budget steering and the join that
   ``GET /debug/perf`` and the windowed gauges read.
 
-Host-side only; ``torch`` is imported only by :func:`peak_hbm_gbs`. The
-JAX package's ``ClockOffset`` belongs to the router and is not here.
+Host-side only; ``torch`` is imported only by :func:`peak_hbm_gbs`.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from __future__ import annotations
 import math
 import random
 import time
+from collections import deque
 from dataclasses import dataclass
 
 from dllama_tpu_torch.obs import instruments as ins
@@ -207,6 +209,50 @@ class WindowSums:
         process has lived that long, the process age before (rates must not
         read 6x too low during the first minute)."""
         return max(min(self.window_s, self._now() - self._t0), 1e-9)
+
+
+# ------------------------------------------------------- clock alignment
+
+
+class ClockOffset:
+    """NTP-lite remote-clock offset estimator over request/response
+    round-trips — the router runs one per replica, fed by its
+    health poller, to place each replica's monotonic clock on the router's
+    timeline for the merged mesh trace.
+
+    One :meth:`sample` per poll: ``t_send``/``t_recv`` are the local
+    monotonic marks around the round-trip, ``t_remote`` the remote clock
+    read the response carried. The classic single-exchange estimate assumes
+    the remote read happened at the round-trip midpoint, so
+
+        offset = t_remote - (t_send + t_recv) / 2
+
+    with the true offset inside ``offset ± rtt/2`` (the read can be
+    anywhere between send and receive). :meth:`estimate` returns the
+    MIN-RTT sample of the sliding window — the exchange least polluted by
+    queueing delay, whose error bound ``rtt/2`` is also the smallest.
+    Single-writer (the replica's poller thread) / multi-reader; the deque
+    append and snapshot are GIL-atomic, so no lock is needed."""
+
+    __slots__ = ("_samples",)
+
+    def __init__(self, window: int = 16):
+        self._samples: deque = deque(maxlen=int(window))
+
+    def sample(self, t_send: float, t_recv: float, t_remote: float) -> None:
+        rtt = max(float(t_recv) - float(t_send), 0.0)
+        offset = float(t_remote) - (float(t_send) + float(t_recv)) / 2.0
+        self._samples.append((rtt, offset))
+
+    def estimate(self) -> dict | None:
+        """-> {offset_s, uncertainty_s, rtt_s, samples} from the min-RTT
+        sample of the window, or None before the first sample."""
+        samples = list(self._samples)
+        if not samples:
+            return None
+        rtt, offset = min(samples)
+        return {"offset_s": offset, "uncertainty_s": rtt / 2.0,
+                "rtt_s": rtt, "samples": len(samples)}
 
 
 # ------------------------------------------------------------- time ledger

@@ -126,33 +126,46 @@ class _SseMachine:
         self.rid = ctx._req_id
         self.model = body.get("model", api.model_name)
         p = api.prepare_request(body, legacy=legacy)
-        self.req = api.batched_submit(p, req_id=self.rid or "")
         self.asm = TokenAssembler(api.tokenizer, p["stops"])
-        self.cid = f"{'cmpl' if legacy else 'chatcmpl'}-{uuid.uuid4().hex[:16]}"
-        self.created = int(time.time())
+        # failover resume: the journaled tokens replay through the fresh
+        # assembler (no emission: those deltas reached the client already),
+        # so the detector and the position counter continue where the dead
+        # replica stopped, and the stream keeps its identity (the blocking
+        # tier's _run_batched does the same)
+        self.want_ids = bool(p.get("token_ids"))
+        resume = p.get("resume_tokens")
+        self.resumed_done = bool(resume) and api_mod.replay_resume(self.asm, resume)
+        # a resume whose tokens already complete a stop sequence submits
+        # nothing: pump() emits the finish frame at once
+        self.req = None if self.resumed_done else api.batched_submit(p, req_id=self.rid or "")
+        self.cid = ((p.get("resume_id") or None) if resume else None) or (
+            f"{'cmpl' if legacy else 'chatcmpl'}-{uuid.uuid4().hex[:16]}")
+        self.created = int((p.get("resume_created") or 0) if resume else 0) or int(time.time())
         self.hb = api.sse_heartbeat_s
         self.done = False
         ctx._start_sse()
-        if not legacy:
+        if not legacy and not resume:
+            # a resumed stream's client got the role delta already
             self._emit({"role": "assistant"})
         self.last_write = time.monotonic()
 
     # ------------------------------------------------------------- emission
 
-    def _emit(self, delta_or_text, finish=None, timings=None) -> None:
+    def _emit(self, delta_or_text, finish=None, timings=None, ids=None) -> None:
         if self.legacy:
             payload = api_mod.sse_text_payload(
                 self.cid, self.created, self.model, delta_or_text,
-                finish=finish, timings=timings)
+                finish=finish, timings=timings, ids=ids)
         else:
             payload = api_mod.sse_chat_payload(
                 self.cid, self.created, self.model, delta_or_text,
-                finish=finish, timings=timings)
+                finish=finish, timings=timings, ids=ids)
         self.ctx._write_chunk(payload)
         self.last_write = time.monotonic()
 
     def _emit_text(self, text: str) -> None:
-        self._emit(text if self.legacy else {"content": text})
+        self._emit(text if self.legacy else {"content": text},
+                   ids=self.asm.take_ids() if self.want_ids else None)
 
     def _terminate(self) -> None:
         self.ctx._write_chunk(b"data: [DONE]\n\n")
@@ -177,8 +190,18 @@ class _SseMachine:
             # IS the probe
             log.info("client disconnected; request %s cancelled", self.rid,
                      extra=trace.log_extra(self.rid))
-            self.api.scheduler.cancel(self.req, reason="cancelled")
+            if self.req is not None:
+                self.api.scheduler.cancel(self.req, reason="cancelled")
             self._complete()
+            return True
+        if self.resumed_done:
+            # the journaled tokens already completed the stream: the finish
+            # frame, and nothing was submitted
+            timings: dict = {"e2e_ms": 0.0, "decode_tokens": 0}
+            if self.api.replica_id:
+                timings["replica"] = self.api.replica_id
+            self._emit("" if self.legacy else {}, finish="stop", timings=timings)
+            self._terminate()
             return True
         try:
             toks, ended = self.req.poll_tokens()
@@ -715,7 +738,7 @@ class AioHttpServer:
             conn.closing = True
         conn.busy = True
         ctx = self._ctx_factory(self, conn, command, path, headers, body)
-        control = command == "GET" and path.startswith(("/health", "/metrics"))
+        control = command == "GET" and path.startswith(("/health", "/metrics", "/router/"))
         (self._ctrl if control else self._pool).submit(self._run_ctx, ctx)
 
     def _run_ctx(self, ctx: _AioContext) -> None:

@@ -27,6 +27,19 @@ the token level, for many conversations at once, and a request's
 are those of the JAX package's tiers; a full admission queue answers 429
 with Retry-After.
 
+**Failover surface** (the router's, serve/router.py): a body's
+``include_token_ids`` makes every SSE frame carry the raw ``(position,
+token_ids)`` its text consumed, which the router journals; a ``resume``
+object (``tokens``, ``id``, ``created``) re-enters a journaled stream on
+this replica's batched tier: the prompt and the journaled tokens re-prefill
+through the scheduler's resume path with the generator at (seed, counter =
+tokens emitted), and the continuation keeps the stream's id and created,
+its first frame carrying ``position = len(tokens)``. A sampled resume
+needs the original seed; the single-engine tier answers a resume with 400.
+``/health/live`` goes false when the scheduler's worker stalls past
+``stall_deadline_s`` or its restart budget (``restart_max`` within
+``restart_window_s``) is spent.
+
 Two transports serve the same routes (:class:`RequestRoutes`): the
 selectors event loop of serve/aio.py (``frontend="aio"``, the default, as
 in the JAX package) and the thread-per-connection ThreadingHTTPServer
@@ -346,9 +359,11 @@ class ApiServer:
         raw-prompt endpoint only explicit ones) and the prompt:
         ``prompt_tokens`` for a raw prompt, ``messages`` for chat, which each
         tier encodes itself (the batched tier whole, the single-engine tier
-        as the delta past its prefix cache)."""
-        if body.get("resume") is not None:
-            raise ApiError(400, "resume is not yet ported to the PyTorch/CUDA package")
+        as the delta past its prefix cache). ``token_ids`` and the
+        ``resume_*`` fields carry the failover surface."""
+        resume = body.get("resume")
+        if resume is not None and self.scheduler is None:
+            raise ApiError(400, "resume requires the batched scheduler tier")
         timeout_s = _parse_timeout(body)
         _validate_extras(body)
         extra_stops = body.get("stop") or []
@@ -375,6 +390,23 @@ class ApiServer:
             p["stops"] = self.stops + list(extra_stops)
             p["max_tokens"] = int(body.get("max_tokens") or body.get("max_completion_tokens")
                                   or 0)
+        p["token_ids"] = bool(body.get("include_token_ids"))
+        p["resume_tokens"] = p["resume_id"] = p["resume_created"] = None
+        if resume is not None:
+            if not isinstance(resume, dict):
+                raise ApiError(400, "resume must be an object")
+            # empty tokens are legal: a stream that died after its role delta
+            # but before any token resumes to keep its id and created
+            toks = resume.get("tokens")
+            if not isinstance(toks, list) or not all(isinstance(t, int) for t in toks):
+                raise ApiError(400, "resume.tokens must be an int array")
+            if p["temperature"] > 0.0 and p["seed"] is None:
+                # an unseeded sampled stream cannot be replayed (the router
+                # pins a seed at its first proxy to keep its journal resumable)
+                raise ApiError(400, "sampled resume requires the original seed")
+            p["resume_tokens"] = [int(t) for t in toks]
+            p["resume_id"] = str(resume.get("id") or "")
+            p["resume_created"] = int(resume.get("created") or 0)
         return p
 
     # -------------------------------------------------- single-engine tier
@@ -502,7 +534,9 @@ class ApiServer:
             seed=int(seed) if seed is not None else None, req_id=req_id,
             timeout_s=p["timeout_s"], priority=p["priority"], tenant=p["tenant"],
             # None takes the server's --spec-k (the engine's K); clamped to it
-            spec_k=p["spec_k"])
+            spec_k=p["spec_k"],
+            # a failover resume: the journaled tokens to re-prefill first
+            resume_tokens=p.get("resume_tokens"))
 
     def finish_batched(self, req, ended_on_eos: bool, n_generated: int) -> tuple[str, dict]:
         """Release a batched request's slot and derive the client's
@@ -524,8 +558,30 @@ class ApiServer:
     def _run_batched(self, p: dict, emit, probe=None,
                      req_id: str = "") -> tuple[str, str, int, dict]:
         """Submit, stream the tokens through EOS/stop detection, finish ->
-        (content, finish_reason, n_tokens, timings)."""
+        (content, finish_reason, n_tokens, timings). With ``token_ids`` each
+        emit also gets the frame's ``ids=(position, token_ids)``."""
         asm = TokenAssembler(self.tokenizer, p["stops"])
+        want_ids = bool(p.get("token_ids"))
+        resume = p.get("resume_tokens")
+        if resume:
+            # failover re-entry: replay the journaled tokens through the
+            # fresh assembler (emitting nothing: those deltas reached the
+            # client already), so the stop detector and the position counter
+            # continue where the dead replica stopped
+            if replay_resume(asm, resume):
+                # the journaled tokens already complete a stop sequence
+                timings: dict = {"e2e_ms": 0.0, "decode_tokens": 0}
+                if self.replica_id:
+                    timings["replica"] = self.replica_id
+                return asm.content(), "stop", asm.n, timings
+
+        def out(text: str) -> None:
+            if text and emit is not None:
+                if want_ids:
+                    emit(text, ids=asm.take_ids())
+                else:
+                    emit(text)
+
         req = self.batched_submit(p, req_id=req_id)
         probe_at = time.monotonic() + 0.25
 
@@ -541,15 +597,11 @@ class ApiServer:
                     probe_at = time.monotonic() + 0.25
                     if probe():
                         raise ClientDisconnected()
-                text = asm.feed(t)
-                if text and emit is not None:
-                    emit(text)
+                out(asm.feed(t))
                 if asm.eos:
                     break
             if not asm.eos:
-                text = asm.flush()
-                if text and emit is not None:
-                    emit(text)
+                out(asm.flush())
             finish, timings = self.finish_batched(req, asm.eos, asm.n)
         except BaseException:
             # disconnect/shed/crash: the slot must still be released
@@ -584,6 +636,19 @@ _KNOWN_PATHS = {
 }
 
 
+def replay_resume(asm: TokenAssembler, tokens) -> bool:
+    """Feed a failover resume's journaled tokens through a fresh assembler
+    without emitting, and drain its ids (the continuation's first frame then
+    carries position = len(tokens)). True when they already complete a stop
+    sequence: the stream is over, with no engine work left."""
+    for t in tokens:
+        asm.feed(t)
+        if asm.eos:
+            break
+    asm.take_ids()
+    return asm.eos
+
+
 def _endpoint(path: str) -> str:
     """Label-safe endpoint name: unknown paths collapse to 'other' and
     per-request flight-recorder lookups collapse their id, so a scanner
@@ -598,8 +663,11 @@ SSE_HEARTBEAT = b": keep-alive\n\n"
 
 
 def sse_chat_payload(cid: str, created: int, model: str, delta: dict, finish=None,
-                     timings=None) -> bytes:
-    """One `chat.completion.chunk` SSE data frame."""
+                     timings=None, ids=None) -> bytes:
+    """One `chat.completion.chunk` SSE data frame. ``ids`` (include_token_ids
+    requests) is TokenAssembler.take_ids()'s ``(position, token_ids)``: the
+    raw ids this frame's text consumed and their stream offset, which the
+    router journals for a mid-stream failover."""
     data = {
         "id": cid,
         "object": "chat.completion.chunk",
@@ -607,14 +675,16 @@ def sse_chat_payload(cid: str, created: int, model: str, delta: dict, finish=Non
         "model": model,
         "choices": [{"index": 0, "delta": delta, "finish_reason": finish}],
     }
+    if ids is not None:
+        data["position"], data["token_ids"] = ids[0], list(ids[1])
     if timings is not None:
         data["timings"] = timings
     return b"data: " + json.dumps(data).encode() + b"\n\n"
 
 
 def sse_text_payload(cid: str, created: int, model: str, text: str, finish=None,
-                     timings=None) -> bytes:
-    """One legacy `text_completion` SSE data frame."""
+                     timings=None, ids=None) -> bytes:
+    """One legacy `text_completion` SSE data frame (see sse_chat_payload)."""
     data = {
         "id": cid,
         "object": "text_completion",
@@ -622,6 +692,8 @@ def sse_text_payload(cid: str, created: int, model: str, text: str, finish=None,
         "model": model,
         "choices": [{"index": 0, "text": text, "finish_reason": finish}],
     }
+    if ids is not None:
+        data["position"], data["token_ids"] = ids[0], list(ids[1])
     if timings is not None:
         data["timings"] = timings
     return b"data: " + json.dumps(data).encode() + b"\n\n"
@@ -900,19 +972,25 @@ class RequestRoutes:
         to the SSE pump)."""
         rid = self._req_id
         self._start_sse()
-        cid = f"{'cmpl' if legacy else 'chatcmpl'}-{uuid.uuid4().hex[:16]}"
-        created = int(time.time())
+        # a failover resume keeps the dead replica's stream identity: the
+        # client already saw this id and created on the journaled frames
+        resume = body.get("resume") if isinstance(body.get("resume"), dict) else None
+        cid = ((resume.get("id") if resume else None)
+               or f"{'cmpl' if legacy else 'chatcmpl'}-{uuid.uuid4().hex[:16]}")
+        created = int((resume.get("created") if resume else 0) or time.time())
         model = body.get("model", self.api.model_name)
         chunk = self._write_chunk
         last_write = [time.monotonic()]
         hb = self.api.sse_heartbeat_s
 
-        def emit_chat(delta: dict, finish=None, timings=None) -> None:
-            chunk(sse_chat_payload(cid, created, model, delta, finish=finish, timings=timings))
+        def emit_chat(delta: dict, finish=None, timings=None, ids=None) -> None:
+            chunk(sse_chat_payload(cid, created, model, delta, finish=finish, timings=timings,
+                                   ids=ids))
             last_write[0] = time.monotonic()
 
-        def emit_text(text: str, finish=None, timings=None) -> None:
-            chunk(sse_text_payload(cid, created, model, text, finish=finish, timings=timings))
+        def emit_text(text: str, finish=None, timings=None, ids=None) -> None:
+            chunk(sse_text_payload(cid, created, model, text, finish=finish, timings=timings,
+                                   ids=ids))
             last_write[0] = time.monotonic()
 
         def probe() -> bool:
@@ -927,10 +1005,12 @@ class RequestRoutes:
                 emit_text("", finish=result["choices"][0]["finish_reason"],
                           timings=result.get("timings"))
             else:
-                emit_chat({"role": "assistant"})
+                if resume is None:
+                    # a resumed stream's client got the role delta already
+                    emit_chat({"role": "assistant"})
                 result = self.api.complete(
-                    body, emit=lambda text: emit_chat({"content": text}), probe=probe,
-                    req_id=rid)
+                    body, emit=lambda text, ids=None: emit_chat({"content": text}, ids=ids),
+                    probe=probe, req_id=rid)
                 emit_chat({}, finish=result["choices"][0]["finish_reason"],
                           timings=result.get("timings"))
             self._log_done(rid or "-", result)
@@ -1027,7 +1107,10 @@ def make_server(loaded, host="127.0.0.1", port=0, n_slots: int = 0, **defaults):
     (ThreadingHTTPServer); both answer the same routes and expose
     serve_forever/shutdown/server_close/server_address. A bind or start
     failure of either raises. ``slo_ttft_ms``/``slo_itl_ms`` are the SLO
-    targets the perf aggregator judges requests by."""
+    targets the perf aggregator judges requests by. Supervision (batched
+    tier): ``stall_deadline_s`` (the watchdog), ``restart_max`` within
+    ``restart_window_s`` (warm restarts) and ``transfer_guard`` (off, log,
+    strict: the steady-state replays under torch's sync debug mode)."""
     spec = int(defaults.get("spec") or 0)
     frontend = str(defaults.get("frontend") or "aio")
     if frontend not in ("aio", "threads"):
@@ -1035,6 +1118,15 @@ def make_server(loaded, host="127.0.0.1", port=0, n_slots: int = 0, **defaults):
     if n_slots <= 0 and defaults.get("warmup") not in (None, "off"):
         log.warning("--warmup needs --slots > 0; the single-engine tier has no "
                     "BatchEngine shape contract to precompile — ignored")
+    if n_slots <= 0 and defaults.get("transfer_guard") not in (None, "off"):
+        log.warning("--transfer-guard needs --slots > 0; the single-engine tier has no "
+                    "steady-state decode window to guard — ignored")
+    if n_slots <= 0 and any(defaults.get(k) for k in ("max_queue", "stall_deadline_s")):
+        log.warning("--max-queue / --stall-deadline-s need --slots > 0; the single-engine "
+                    "tier has no admission queue or worker thread to watch — ignored")
+    if n_slots <= 0 and defaults.get("restart_max"):
+        log.warning("--restart-max needs --slots > 0; the single-engine tier has no "
+                    "scheduler worker to warm-restart — ignored")
     if n_slots <= 0 and defaults.get("radix_cache") == "on":
         log.warning("--radix-cache on needs --slots > 0; the single-engine tier's "
                     "NaiveCache has no page pool to share — ignored")
@@ -1129,7 +1221,10 @@ def _make_scheduler(loaded, n_slots: int, defaults: dict):
                      kernels=eng.backend, kv_layout=kv_layout, page_size=page_size,
                      kv_pages=int(defaults.get("kv_pages") or 0), device=eng.device,
                      radix_cache=radix_cache, kv_host_pages=kv_host_pages,
-                     spec=int(defaults.get("spec") or 0))
+                     spec=int(defaults.get("spec") or 0),
+                     # --transfer-guard: the steady-state replays under
+                     # torch.cuda.set_sync_debug_mode
+                     transfer_guard=str(defaults.get("transfer_guard") or "off"))
     sched_kw = {}
     if defaults.get("max_queue"):
         sched_kw["max_queue"] = int(defaults["max_queue"])
@@ -1137,6 +1232,14 @@ def _make_scheduler(loaded, n_slots: int, defaults: dict):
         sched_kw["overlap"] = bool(defaults["overlap"])
     if defaults.get("warmup"):
         sched_kw["warmup"] = str(defaults["warmup"])
+    # supervision: the stall watchdog (--stall-deadline-s) and warm restarts
+    # (--restart-max within --restart-window-s; 0 keeps a crash fatal)
+    if defaults.get("stall_deadline_s"):
+        sched_kw["stall_deadline_s"] = float(defaults["stall_deadline_s"])
+    if defaults.get("restart_max"):
+        sched_kw["restart_max"] = int(defaults["restart_max"])
+    if defaults.get("restart_window_s") is not None:
+        sched_kw["restart_window_s"] = float(defaults["restart_window_s"])
     for key in ("prefill_budget", "admit_stall_budget_ms", "admit_ttft_deadline_ms",
                 "slo_itl_ms", "slo_ttft_ms", "preempt", "tenant_weights"):
         if defaults.get(key) is not None:

@@ -64,6 +64,25 @@ While a live slot has no window (the context edge, an exhausted pool), spec
 and plain chunks alternate. A spec chunk's advance settles only when it is
 consumed, so a switch between spec and plain chunks drains the pipeline.
 
+**Supervision** (the JAX package's): with ``restart_max > 0`` a worker
+crash warm-restarts the engine in-process (``BatchEngine.warm_restart``:
+the cache, pools and per-slot state refilled in place against the resident
+weights, so every captured program stays valid), and the requests it held
+resume through the preemption resume path: queued ones untouched,
+mid-prefill ones from scratch, mid-stream ones by re-prefilling prompt and
+emitted tokens with their generator at (seed, counter = tokens emitted),
+so no client sees a token lost or repeated. The budget is ``restart_max``
+restarts within ``restart_window_s``, with capped exponential backoff;
+once it is spent, or a restart itself dies (a sticky device error), every
+request fails and ``/health`` reports ``live=false``. With
+``stall_deadline_s > 0`` a watchdog thread flags the worker ``stalled``
+(``live=false``, new work refused) when it owes progress and has not
+stamped its heartbeat for that long, and clears the flag when the
+heartbeat resumes. Fault points (utils/faults.py): ``scheduler.queue``,
+``scheduler.loop`` and ``engine.restart`` here, the engine's at dispatch.
+``submit(resume_tokens=)`` is the router's failover entry: a stream another
+replica started re-enters here through the same resume record.
+
 **Observability** (obs/, the JAX package's series): the scheduler is the
 single write point of the request counters (admitted, shed, finished by
 reason, tokens) and the TTFT/ITL/e2e histograms, records every request's
@@ -92,7 +111,7 @@ from dllama_tpu_torch.engine.batch import BatchEngine
 from dllama_tpu_torch.obs import compile as compile_obs
 from dllama_tpu_torch.obs import instruments as ins
 from dllama_tpu_torch.obs import perf, trace
-from dllama_tpu_torch.utils import locks
+from dllama_tpu_torch.utils import faults, locks
 
 log = logging.getLogger("dllama_tpu_torch.serve")
 
@@ -163,12 +182,16 @@ class Request:
     spec_k: int = 0
     spec_cycles: int = 0
     spec_tokens: int = 0
-    # resume record (preemption): the tokens already emitted (all but the
-    # last re-prefill; the last is fed next) and the slot's generator
-    # state at the interruption (the request's seed and counter)
+    # resume record (preemption, warm restart, router failover): the tokens
+    # already emitted (all but the last re-prefill; the last is fed next)
+    # and the slot's generator state at the interruption (the request's
+    # seed and counter)
     resume_tokens: list[int] | None = None
     resume_seed: int = 0
     resume_counter: int = 0
+    # a warm restart's (or a failover's) survivor, counted in
+    # dllama_requests_recovered_total when it is back in a slot
+    recovered: bool = False
     # latency marks (time.monotonic)
     submitted_at: float = 0.0
     admitted_at: float | None = None
@@ -263,7 +286,9 @@ class Scheduler:
                  admit_ttft_deadline_ms: float | None = None,
                  slo_itl_ms: float | None = None, preempt: str = "auto",
                  tenant_weights: dict[str, float] | None = None,
-                 slo_ttft_ms: float | None = None):
+                 slo_ttft_ms: float | None = None, stall_deadline_s: float = 0.0,
+                 restart_max: int = 0, restart_window_s: float = 60.0,
+                 restart_backoff_s: float = 0.5):
         self.engine = engine
         # overlapped decode pipeline (--overlap): launch chunk N+1 off chunk
         # N's device state BEFORE consuming chunk N's tokens, so the per-chunk
@@ -362,6 +387,18 @@ class Scheduler:
         self._preempt_on = preempt != "off"
         self.preempt_count = 0
         self.resume_count = 0
+        # warm restart (--restart-max within --restart-window-s, backoff
+        # restart_backoff_s * 2^(attempt-1) capped at restart_backoff_max_s);
+        # 0 keeps the crash fatal: every request fails, /health goes live=false
+        self.restart_max = int(restart_max)
+        self.restart_window_s = float(restart_window_s)
+        self.restart_backoff_s = float(restart_backoff_s)
+        self._restarts: list[float] = []  # restart stamps inside the window
+        self.restart_count = 0  # lifetime total
+        # a restart's survivors, re-admitted before anything else
+        self._recover: list[Request] = []
+        self.stalled = False  # the watchdog's verdict
+        self.stall_count = 0  # lifetime watchdog trips
         # --warmup auto: capture every program this scheduler can ask for
         # (decode n in 1..DECODE_CHUNK, every prefill width, which covers
         # the hybrid slices) BEFORE the worker starts, so the first request
@@ -378,9 +415,21 @@ class Scheduler:
         self.warmup_report: dict | None = (
             engine.warmup(chunk=DECODE_CHUNK, hybrid_budget_hi=hybrid_hi)
             if warmup == "auto" else None)
+        # the worker's heartbeat, stamped once a loop iteration (and during a
+        # restart's backoff) by the worker only: a device call that hangs
+        # stops it while work exists, which the watchdog reads as a stall
         self._heartbeat = time.monotonic()
         self._thread = threading.Thread(target=self._run, name="dllama-scheduler", daemon=True)
         self._thread.start()
+        # the stall watchdog (--stall-deadline-s): detection only, as in the
+        # JAX package: nothing can preempt a replaying graph; /health says
+        # live=false and the operator (or the router) acts on it
+        self.stall_deadline_s = float(stall_deadline_s)
+        self._watchdog = None
+        if self.stall_deadline_s > 0:
+            self._watchdog = threading.Thread(target=self._watch, name="dllama-watchdog",
+                                              daemon=True)
+            self._watchdog.start()
 
     @property
     def slo(self) -> perf.SloPolicy:
@@ -393,7 +442,8 @@ class Scheduler:
     def submit(self, prompt, temperature, topp, max_tokens, eos_ids, seed: int | None = None,
                presence: float = 0.0, frequency: float = 0.0, req_id: str = "",
                timeout_s: float | None = None, priority: int = 1,
-               tenant: str = "", spec_k: int | None = None) -> Request:
+               tenant: str = "", spec_k: int | None = None,
+               resume_tokens=None) -> Request:
         self.check_admission()
         # per-request speculation: None takes the engine's K (every greedy
         # request speculates at it), an explicit value clamps to K, 0 opts out
@@ -403,6 +453,17 @@ class Scheduler:
                       frozenset(eos_ids), seed=seed, presence=float(presence),
                       frequency=float(frequency), submitted_at=time.monotonic(), req_id=req_id,
                       priority=int(priority), tenant=str(tenant), spec_k=spec_k)
+        if resume_tokens:
+            # cross-replica failover: the router replays a dead replica's
+            # journal here. The resume record a warm restart builds, with the
+            # generator at the request's seed (an unseeded greedy resume pins
+            # 0: greedy rows never read it) and counter = tokens emitted
+            n = len(resume_tokens)
+            req.resume_tokens = [int(t) for t in resume_tokens]
+            req.produced = n
+            req.resume_seed = int(seed) if seed is not None else 0
+            req.resume_counter = n
+            req.recovered = True
         if timeout_s is not None and timeout_s > 0:
             req.timeout_s = float(timeout_s)
             req.deadline_at = req.submitted_at + req.timeout_s
@@ -426,6 +487,12 @@ class Scheduler:
             ins.REQUESTS_SHED.labels(reason="unhealthy").inc()
             raise SchedulerUnhealthy(f"scheduler worker is dead ({self.crashed!r}); "
                                      "refusing work")
+        if self.stalled:
+            # the watchdog says the worker is wedged mid-chunk: more work
+            # would strand more clients (503 + Retry-After until it clears)
+            ins.REQUESTS_SHED.labels(reason="unhealthy").inc()
+            raise SchedulerUnhealthy("scheduler worker is stalled (device chunk past "
+                                     "--stall-deadline-s); refusing work")
         if self._draining.is_set():
             ins.REQUESTS_SHED.labels(reason="draining").inc()
             raise SchedulerDraining("scheduler is draining; no new requests")
@@ -433,6 +500,12 @@ class Scheduler:
         if self.max_queue and depth >= self.max_queue:
             ins.REQUESTS_SHED.labels(reason="queue_full").inc()
             raise QueueFull(f"admission queue full ({depth} >= --max-queue {self.max_queue})")
+        try:
+            faults.fire("scheduler.queue")
+        except faults.InjectedFault as e:
+            # the drill impersonates overflow, so it counts as overflow
+            ins.REQUESTS_SHED.labels(reason="queue_full").inc()
+            raise QueueFull(str(e)) from e
 
     def _queue_depth(self) -> int:
         """Requests owed service but not admitted yet: the intake queue, the
@@ -445,14 +518,17 @@ class Scheduler:
     def _busy(self) -> bool:
         """Whether the worker owes anyone progress."""
         return (bool(self.slots) or bool(self._inflight) or self._deferred is not None
-                or bool(self._backlog) or not self.pending.empty() or self._busy_worker)
+                or bool(self._backlog) or bool(self._recover) or not self.pending.empty()
+                or self._busy_worker)
 
     def health(self) -> dict:
         """Liveness + readiness for the API tier's /health: `live` is false
-        when the worker cannot make progress, `ready` also while draining or
-        saturated."""
+        when the worker cannot make progress (dead, crashed past its restart
+        budget, or stalled past the watchdog's deadline), `ready` also while
+        draining or saturated."""
         qdepth = self._queue_depth()
-        live = self._thread.is_alive() and self.crashed is None and not self.join_failed
+        live = (self._thread.is_alive() and self.crashed is None and not self.join_failed
+                and not self.stalled)
         saturated = bool(self.max_queue) and qdepth >= self.max_queue
         return {
             "live": live,
@@ -471,6 +547,14 @@ class Scheduler:
             "resumed": self.resume_count,
             "preempted_waiting": sum(1 for r in list(self._backlog) if r.preempted),
             "last_step_age_s": round(time.monotonic() - self._heartbeat, 3),
+            "stall_deadline_s": self.stall_deadline_s,
+            "stalled": self.stalled,
+            "stall_count": self.stall_count,
+            # warm-restart supervision: lifetime restarts, the budget, and
+            # the recovered requests still awaiting re-admission
+            "restarts": self.restart_count,
+            "restart_max": self.restart_max,
+            "recovering": len(self._recover),
             "draining": self._draining.is_set(),
             "crashed": repr(self.crashed) if self.crashed is not None else None,
             "join_failed": self.join_failed,
@@ -597,6 +681,10 @@ class Scheduler:
 
     #: how long shutdown() waits for the worker before declaring it wedged
     join_timeout_s: float = 10.0
+
+    #: ceiling on the exponential restart backoff (an attribute: drills
+    #: shrink it so many injected crashes stay fast)
+    restart_backoff_max_s: float = 5.0
 
     def shutdown(self) -> None:
         self._stop.set()
@@ -787,6 +875,9 @@ class Scheduler:
             # (a clean 'timeout' finish; their emitted tokens stand)
             dead.extend(r for r in self._backlog if expired(r))
             self._backlog = [r for r in self._backlog if not expired(r)]
+        if any(expired(r) for r in self._recover):
+            dead.extend(r for r in self._recover if expired(r))
+            self._recover = [r for r in self._recover if not expired(r)]
         if self._deferred is not None and expired(self._deferred):
             dead.append(self._deferred)
             self._deferred = None
@@ -941,10 +1032,15 @@ class Scheduler:
             self._backlog.append(self._deferred)
             self._deferred = None
         reserved = len(self._inflight)
-        while self._deferred is not None or self._backlog:
+        while self._recover or self._deferred is not None or self._backlog:
             if int((~self.engine.active).sum()) - reserved <= 0:
                 return
-            if self._deferred is not None:
+            from_recover = False
+            if self._recover:
+                # a restart's survivors re-admit first (the oldest work)
+                req = self._recover.pop(0)
+                from_recover = True
+            elif self._deferred is not None:
                 req, self._deferred = self._deferred, None
             else:
                 req = self._select_next()
@@ -1005,8 +1101,12 @@ class Scheduler:
                     deficit = self.engine.admission_deficit(slot, reuse, len(toks), cross)
             if deficit > 0:
                 # every missing page is held by RUNNING requests: wait at the
-                # head until releases free them
-                self._deferred = req
+                # head until releases free them (a survivor at the recover
+                # head: the deferred box may hold the pre-crash head already)
+                if from_recover:
+                    self._recover.insert(0, req)
+                else:
+                    self._deferred = req
                 return
             try:
                 if rhit is not None and reuse:
@@ -1066,6 +1166,10 @@ class Scheduler:
                                          list(req.prompt) + list(req.resume_tokens[:-1]))
             trace.TRACER.req_prefill_done(req.req_id, tokens=len(adm.toks) + reuse,
                                           reused=reuse)
+            if req.recovered:
+                req.preempted = False
+                self._note_recovered(req)
+                return
             req.preempted = False
             self.resume_count += 1
             ins.RESUMED.inc()
@@ -1088,6 +1192,17 @@ class Scheduler:
             self.engine.radix_insert(adm.slot, req.prompt)
         trace.TRACER.req_prefill_done(req.req_id, tokens=len(req.prompt), reused=reuse)
         self._emit(req, first, int(self.engine.pos[adm.slot]))
+        if req.recovered:  # a restart's mid-prefill survivor: no token had reached it
+            self._note_recovered(req)
+
+    def _note_recovered(self, req: Request) -> None:
+        """A restart's (or a failover's) survivor is back in a slot: counted
+        now, not at the restart (it could still fail or be cancelled during
+        re-admission)."""
+        req.recovered = False
+        ins.REQUESTS_RECOVERED.inc()
+        trace.TRACER.event("request.recovered", cat="supervision", track="requests",
+                           req_id=req.req_id, tokens=req.produced)
 
     def _overdue(self, req: Request) -> bool:
         """Past the TTFT deadline (admit_ttft_deadline_ms): the admission
@@ -1187,44 +1302,171 @@ class Scheduler:
             return worked  # the budget is spent: let the decoders run
         return worked
 
+    def _fail_req(self, req: Request, exc: BaseException) -> None:
+        """Crash-path finish: mark the request failed and unblock its
+        consumer WITHOUT touching the engine (its state is unknown after a
+        crash)."""
+        req.finish_reason = "error"
+        req.finished_at = time.monotonic()
+        with self._metrics_lock:
+            self._completed.append(req)
+            del self._completed[:-256]
+        self._observe_finish(req)
+        req.out.put(exc)
+        req.out.put(_END)
+
     def _fail_all(self, exc: BaseException) -> None:
-        """Fail every queue a client could be blocked on, without touching
-        the engine (its state is unknown after a crash)."""
+        """Fail every queue a client could be blocked on: in-flight
+        admissions, decoding slots, a restart's survivors, the backlog, the
+        capacity-deferred head and the intake queue. Nobody hangs on a dead
+        worker."""
         reqs = ([r for r, _, _ in self._inflight] + list(self.slots.values())
-                + self._backlog)
+                + self._recover + self._backlog)
         if self._deferred is not None:
             reqs.append(self._deferred)
+        self._inflight.clear()
+        self.slots.clear()
+        self._recover = []
         self._backlog = []
+        self._deferred = None
         while True:
             try:
                 reqs.append(self.pending.get_nowait())
             except queue.Empty:
                 break
-        self._inflight.clear()
-        self.slots.clear()
-        self._deferred = None
         for req in reqs:
-            req.finish_reason = "error"
-            req.finished_at = time.monotonic()
-            req.out.put(exc)
-            req.out.put(_END)
+            self._fail_req(req, exc)
+
+    def _watch(self) -> None:
+        """The stall watchdog: flag `stalled` when the worker owes progress
+        and its heartbeat is older than the deadline; clear it when the
+        heartbeat resumes (stall_count keeps the record either way)."""
+        poll = max(0.01, min(0.25, self.stall_deadline_s / 4.0))
+        while not self._stop.is_set():
+            time.sleep(poll)
+            if self.crashed is not None:
+                return  # crash supervision owns the health verdict
+            age = time.monotonic() - self._heartbeat
+            if self._busy() and age > self.stall_deadline_s:
+                if not self.stalled:
+                    self.stalled = True
+                    self.stall_count += 1
+                    ins.WATCHDOG_STALLS.inc()
+                    trace.TRACER.event("watchdog.stall", cat="supervision", track="scheduler",
+                                       age_s=round(age, 3))
+                    log.error("watchdog: scheduler worker silent for %.2fs with work in "
+                              "flight (deadline %.2fs); device chunk presumed hung, /health "
+                              "reports live=false", age, self.stall_deadline_s)
+            elif self.stalled and age <= self.stall_deadline_s:
+                self.stalled = False
+                ins.WATCHDOG_RECOVERIES.inc()
+                trace.TRACER.event("watchdog.recover", cat="supervision", track="scheduler")
+                log.warning("watchdog: worker heartbeat resumed; clearing the stall flag "
+                            "(%d stalls in all)", self.stall_count)
 
     def _run(self) -> None:
-        """Worker entry: a crash fails every in-flight request at once
-        (finish_reason 'error', queues unblocked) and /health goes unhealthy;
-        the process supervisor owns the restart."""
+        """Supervised worker entry: an escape from the serving loop first
+        tries a warm restart under the restart budget (engine state rebuilt
+        in place against the resident weights, survivors recovered, the loop
+        re-entered); with no budget left, or a restart that itself dies,
+        every request fails at once (finish_reason 'error', queues
+        unblocked) and /health goes live=false for good."""
         try:
             if self.engine.device.type == "cuda" and self.engine.device.index is not None:
                 torch.cuda.set_device(self.engine.device)
             with torch.no_grad():
-                self._loop()
-        except BaseException as e:  # noqa: BLE001 - supervision must be total
-            self.crashed = e
-            log.exception("scheduler worker crashed; failing all in-flight requests")
-            self._fail_all(e)
+                while True:
+                    try:
+                        self._loop()
+                        return
+                    except BaseException as e:  # noqa: BLE001 - supervision must be total
+                        try:
+                            if self._try_restart(e):
+                                continue
+                        except BaseException as e2:  # noqa: BLE001 - the restart died too
+                            log.exception("warm restart failed; giving up")
+                            e = e2
+                        self.crashed = e
+                        log.exception("scheduler worker crashed; failing all in-flight "
+                                      "requests, /health reports live=false")
+                        self._fail_all(e)
+                        return
         finally:
             # stop the ledger clock with the worker: its last span is billed
             self.ledger.close()
+
+    def _try_restart(self, exc: BaseException) -> bool:
+        """Warm restart after a worker crash; False when restarts are off or
+        the budget (restart_max within restart_window_s) is spent. Queued
+        and capacity-deferred requests survive untouched; mid-prefill
+        admissions re-prefill from scratch; mid-stream requests resume by
+        re-prefilling prompt and emitted tokens with their generator at
+        (seed, counter = tokens emitted), so the stream continues exactly;
+        a request whose emit record disagrees fails alone."""
+        if self.restart_max <= 0 or self._stop.is_set():
+            return False
+        now = time.monotonic()
+        self._restarts = [t for t in self._restarts if now - t < self.restart_window_s]
+        if len(self._restarts) >= self.restart_max:
+            log.error("restart budget exhausted (%d within --restart-window-s %.1fs); "
+                      "staying down", self.restart_max, self.restart_window_s)
+            return False
+        self._restarts.append(now)
+        # until the loop re-anchors the ledger, every instant is restart time
+        self.ledger.transition("restart_backoff")
+        self.restart_count += 1
+        attempt = len(self._restarts)
+        ins.ENGINE_RESTARTS.inc()
+        trace.TRACER.event("engine.restart", cat="supervision", track="scheduler",
+                           attempt=attempt, error=repr(exc))
+        log.warning("scheduler worker crashed (%r); warm restart %d/%d (window %.1fs)",
+                    exc, attempt, self.restart_max, self.restart_window_s)
+        faults.fire("engine.restart")  # drill: a restart that itself dies
+        # capped exponential backoff: the budget, not the backoff, gives up
+        delay = min(self.restart_backoff_s * (2 ** min(attempt - 1, 10)),
+                    self.restart_backoff_max_s)
+        deadline = now + delay
+        while time.monotonic() < deadline and not self._stop.is_set():
+            # a heartbeat-stamped sleep: restarting is progress, not a hang
+            self._heartbeat = time.monotonic()
+            time.sleep(min(0.05, max(0.0, deadline - time.monotonic())))
+        # the recovery set comes from the host records BEFORE the engine is
+        # touched (only device state is suspect)
+        recover: list[Request] = []
+        for slot, req in sorted(self.slots.items(), key=lambda kv: kv[1].submitted_at):
+            ok = self._record_resume(req, slot)
+            req.slot = -1
+            if not ok:
+                self._fail_req(req, RuntimeError(
+                    "request not recoverable across the engine restart (its emitted-token "
+                    f"record disagrees with produced {req.produced})"))
+                continue
+            req.recovered = True
+            recover.append(req)
+        self.slots.clear()
+        for req, _adm, _ in self._inflight:
+            # mid-prefill: its rows died with the cache; re-prefill it whole
+            req.slot = -1
+            req.recovered = True
+            recover.append(req)
+        self._inflight.clear()
+        self.slot_tokens.clear()
+        self.engine.warm_restart()
+        self._radix = self.engine.radix  # rebuilt empty against the reset pool
+        pool = self.engine.pool
+        if pool is not None:
+            # a reset pool failing its audit means the rebuild is broken:
+            # crash the restart (budget-counted) rather than serve from it
+            pool.audit()
+        self._recover = recover + self._recover
+        self._busy_worker = False
+        self._t_dec_end = None
+        self._t_consumed = None
+        self._heartbeat = time.monotonic()
+        self._wake.set()
+        log.warning("warm restart complete: %d request(s) recovered for re-admission, %d "
+                    "queued untouched", len(recover), self.pending.qsize())
+        return True
 
     def _needs_boundary(self, inflight_chunk=None) -> bool:
         """True when the next chunk must wait for a fully consumed pipeline:
@@ -1337,9 +1579,21 @@ class Scheduler:
                 # steered by the live ITL window (rate-limited in the controller)
                 self._budget_now = self._budget_ctl.update(self.perf.itl)
             off0 = hyb.off
-            chunk = self.engine.hybrid_dispatch(DECODE_CHUNK, hyb, self._budget_now)
-            self.hybrid_chunks += 1
-            self.hybrid_tokens += chunk.hybrid_tokens
+            try:
+                chunk = self.engine.hybrid_dispatch(DECODE_CHUNK, hyb, self._budget_now)
+            except faults.InjectedFault as e:
+                if e.point != "engine.prefill":
+                    raise  # a decode drill keeps the fatal contract
+                # the engine.prefill drill fires before hybrid_dispatch moves
+                # any state: fail just the joiner and run a plain chunk (a
+                # real failure inside the replays stays engine-fatal)
+                self._inflight.pop(0)
+                self._abort_admission(hyb_req, hyb, e)
+                hyb = None
+                chunk = self.engine.decode_dispatch(DECODE_CHUNK)
+            if hyb is not None:
+                self.hybrid_chunks += 1
+                self.hybrid_tokens += chunk.hybrid_tokens
         if tr.enabled:
             # the dispatch span is host work; under overlap it lands inside
             # the previous chunk's decode.device span
@@ -1349,7 +1603,7 @@ class Scheduler:
                        hybrid_tokens=(chunk.hybrid_tokens or None),
                        host_gap_ms=(None if self._last_gap_ms is None
                                     else round(self._last_gap_ms, 3)))
-            if chunk.hybrid_tokens:
+            if chunk.hybrid_tokens and hyb is not None:
                 # the admitting request's prefill story stays complete under
                 # hybrid: each slice is a prefill.chunk span of its own
                 tr.span_at("prefill.chunk", t0, tr.now(), cat="prefill", track="scheduler",
@@ -1421,6 +1675,7 @@ class Scheduler:
             self._heartbeat = time.monotonic()
             ins.QUEUE_DEPTH.set(self._queue_depth())
             ins.BUSY_SLOTS.set(len(self.slots))
+            faults.fire("scheduler.loop")
             if pending is not None:
                 # keep the card busy: launch the successor off the device
                 # state BEFORE consuming, unless boundary work needs the
@@ -1504,7 +1759,8 @@ class Scheduler:
         if self._deferred is not None:
             cut.append(self._deferred)
             self._deferred = None
-        cut.extend(self._backlog)
+        cut.extend(self._recover + self._backlog)
+        self._recover = []
         self._backlog = []
         while True:
             try:

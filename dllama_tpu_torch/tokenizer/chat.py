@@ -178,7 +178,7 @@ class TokenAssembler:
     and the emitted text. The single-engine and batched serving tiers and the
     chat REPL all assemble their streams through it."""
 
-    __slots__ = ("detector", "decoder", "parts", "n", "eos")
+    __slots__ = ("detector", "decoder", "parts", "n", "eos", "pending_ids", "taken")
 
     def __init__(self, tokenizer: Tokenizer, stops: list[str]):
         self.detector = EosDetector(tokenizer.eos_ids, stops, padding_left=2, padding_right=2)
@@ -186,12 +186,17 @@ class TokenAssembler:
         self.parts: list[str] = []
         self.n = 0
         self.eos = False
+        # the token-id journal feed (include_token_ids): raw ids fed since the
+        # last take_ids(), and the count already taken
+        self.pending_ids: list[int] = []
+        self.taken = 0
 
     def feed(self, t: int) -> str:
         """Process one token -> the text delta to emit now ("" while the
         detector holds a possible stop prefix); sets ``eos`` when the token
         completed an EOS/stop sequence."""
         self.n += 1
+        self.pending_ids.append(int(t))
         res = self.detector.append(t, self.decoder.decode(t))
         text = self.detector.get_delta() or ""
         if text:
@@ -199,6 +204,18 @@ class TokenAssembler:
         if res == EosResult.EOS:
             self.eos = True
         return text
+
+    def take_ids(self) -> tuple[int, list[int]]:
+        """Drain the pending raw ids for the frame about to go out:
+        ``(position, ids)``, ``position`` counting the ids taken by all
+        prior frames. A journaling router appends exactly when position
+        equals its journal's length, so duplicate frames after a failover
+        suppress themselves. Ids held with a stop prefix ride the next
+        emitted frame (a frame and the text it carries stay atomic)."""
+        pos, ids = self.taken, self.pending_ids
+        self.taken += len(ids)
+        self.pending_ids = []
+        return pos, ids
 
     def flush(self) -> str:
         """End of stream without EOS (budget/timeout): release any held stop

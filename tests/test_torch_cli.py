@@ -1,8 +1,9 @@
-"""The port's CLI flags of the observability slice: `--frontend` defaults
+"""The port's CLI flags of the observability and supervision slices: `--frontend` defaults
 to aio (as in the JAX package's CLI), `--log-format json` lines of a served
 request carry its request_id, `--trace DIR` writes a torch.profiler Chrome
 trace and `--report` prints the memory and per-token report, and
-`--transfer-guard` is refused with the NotPorted message."""
+`--transfer-guard`, `--restart-max` and the other supervision flags pass the
+refusal (only `--mesh` is refused), with the JAX parser's defaults."""
 
 import contextlib
 import http.client
@@ -30,20 +31,41 @@ def test_frontend_defaults_to_aio_like_the_jax_cli():
     jargs = jax_parser().parse_args(["serve", "--model", "m"])
     assert args.frontend == jargs.frontend == "aio"
     for flag in ("aio_workers", "log_format", "trace", "trace_buffer", "slo_ttft_ms",
-                 "slo_itl_ms", "report", "transfer_guard"):
+                 "slo_itl_ms", "report", "transfer_guard", "faults", "stall_deadline_s",
+                 "restart_max", "restart_window_s", "port", "model"):
+        assert getattr(args, flag) == getattr(jargs, flag), flag
+    # the router mode: --model optional, the JAX parser's defaults
+    argv = ["router", "--replica", "127.0.0.1:9990", "--replica", "127.0.0.1:9991"]
+    args, jargs = build_parser().parse_args(argv), jax_parser().parse_args(argv)
+    for flag in ("mode", "model", "replica", "affinity", "poll_s", "router_workers",
+                 "failover_max", "fleet_obs", "port", "host", "drain_timeout_s"):
         assert getattr(args, flag) == getattr(jargs, flag), flag
 
 
 def test_transfer_guard_is_refused(capsys):
+    """--transfer-guard is ported now: every mode passes the refusal and
+    stops only at the missing tokenizer (exit 1); --mesh is still refused
+    (exit 2); a bad --faults spec stops startup (exit 2)."""
     from dllama_tpu_torch.cli.main import main
+    from dllama_tpu_torch.utils import faults
 
-    for mode in ("strict", "log"):
+    for mode in ("strict", "log", "off"):
         assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", "--slots", "2",
-                     "--transfer-guard", mode]) == 2
-        err = capsys.readouterr().err
-        assert f"--transfer-guard {mode} is not yet ported" in err
+                     "--transfer-guard", mode]) == 1
+        assert "not yet ported" not in capsys.readouterr().err
+    assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", "--mesh", "tp=2"]) == 2
+    assert "--mesh (multi-device meshes) is not yet ported" in capsys.readouterr().err
+    try:
+        assert main(["serve", "--model", FIXTURE_M, "--device", "cpu",
+                     "--faults", "nope.where:raise"]) == 2
+        assert main(["serve", "--model", FIXTURE_M, "--device", "cpu",
+                     "--faults", "engine.decode:raise:after=1000"]) == 1
+        assert faults.active("engine.decode")
+    finally:
+        faults.clear()
     # --frontend aio is no longer refused: it stops at the missing tokenizer
     assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", "--frontend", "aio"]) == 1
+    assert main(["serve", "--device", "cpu"]) == 1  # --model is required outside router
 
 
 @contextlib.contextmanager

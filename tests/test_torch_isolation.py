@@ -92,10 +92,17 @@ def test_unported_options_are_refused():
     from dllama_tpu_torch.engine.batch import BatchEngine
     from dllama_tpu_torch.engine.loader import load_model
 
-    for flag in (["--mesh", "tp=2"],
-                 ["--transfer-guard", "strict"],
-                 ["--slots", "2", "--restart-max", "1"]):
-        assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", *flag]) == 2, flag
+    assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", "--mesh", "tp=2"]) == 2
+    # supervision is ported: the transfer guard, warm restarts, the watchdog
+    # and fault injection pass the refusal and stop at the missing tokenizer
+    for flag in (["--transfer-guard", "strict"], ["--restart-max", "1"],
+                 ["--stall-deadline-s", "2", "--restart-window-s", "30"],
+                 ["--faults", "engine.decode:raise:after=1000000"]):
+        assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", "--slots", "2",
+                     *flag]) == 1, flag
+    from dllama_tpu_torch.utils import faults
+
+    faults.clear()  # the --faults case armed the process-wide plan
     # the batched tier is ported: --slots passes the refusal and stops only
     # at the missing tokenizer (exit 1)
     assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", "--slots", "2",

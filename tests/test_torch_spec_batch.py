@@ -19,13 +19,12 @@ route on this jax (its Pallas paged kernel does not).
   emitted tokens are the requests' records plus the discarded overrun,
   exactly; a preempted spec stream resumes bit-equal to an uninterrupted
   one; the card smoke's lockstep check of spec against plain chunks passes
-  and fails under a skewed generator counter.
+  and fails under a skewed generator counter; a worker crash mid-stream
+  warm-restarts and resumes a greedy spec stream and a sampled batch-mate
+  bit-equal, speculation still live after the restart.
 * Entry points: ``serve --slots 2 --spec-k 4`` over HTTP on the golden model,
   both front ends: a body's ``spec_k`` reaches the scheduler and clamps,
   ``/debug/perf`` serves the spec stats and ``dllama_spec_*`` advance.
-
-The JAX suite's ``test_warm_restart_resumes_spec_streams`` waits for warm
-restart, which the port has not yet (supervision, ROADMAP §A item 5).
 """
 
 import http.client
@@ -469,8 +468,8 @@ def test_smoke_spec_lockstep_check(models):
 
 
 def _slow_spec(sched, ms):
-    """Slow every spec dispatch by `ms` (the port has no fault injection),
-    so an arrival lands while a stream runs."""
+    """Slow every spec dispatch by `ms`, so an arrival (or a fault) lands
+    while a stream runs."""
     eng = sched.engine
     spec_dispatch = eng._spec_dispatch
 
@@ -517,6 +516,41 @@ def test_preempted_spec_stream_resumes_bit_equal(models, case):
     finally:
         sched.shutdown()
     assert out_lo == uninterrupted()
+
+
+def test_warm_restart_resumes_spec_streams(models):
+    """The JAX suite's drill: a worker crash mid-stream warm-restarts and
+    resumes a greedy spec stream and a sampled one bit-equal to an
+    uninterrupted run, with speculation live after the restart (the resumed
+    slot keeps its spec_k; its counter equals the tokens emitted)."""
+    from dllama_tpu_torch.utils import faults
+
+    def run(crash):
+        sched = _sched(models, layout="paged", radix="on", n_slots=2, restart_max=2)
+        sched.restart_backoff_s = 0.01
+        # slowed spec chunks: the crash lands mid-stream on a busy host too,
+        # and enough of the stream is left after it to speculate again
+        _slow_spec(sched, 20.0)
+        try:
+            r1 = sched.submit(REP, 0.0, 0.9, 32, frozenset(), seed=1)
+            r2 = sched.submit([9, 8, 7], 1.0, 0.9, 24, frozenset(), seed=9)
+            it1, it2 = r1.tokens(), r2.tokens()
+            head1 = [next(it1) for _ in range(3)]
+            head2 = [next(it2) for _ in range(2)]
+            if crash:
+                faults.install("engine.decode", "raise", times=1)
+            out1, out2 = head1 + list(it1), head2 + list(it2)
+            assert r1.finish_reason == r2.finish_reason == "length"
+            if crash:
+                assert sched.restart_count >= 1, "the crash never fired"
+                assert r1.spec_cycles > 0 and sched.engine.spec_stats()["cycles"] > 0
+                assert sched.engine.pool.audit()["ok"]
+            return out1, out2
+        finally:
+            faults.clear()
+            sched.shutdown()
+
+    assert run(crash=True) == run(crash=False)
 
 
 # ------------------------------------------------------------ entry points
