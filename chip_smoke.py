@@ -6,7 +6,8 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It drives the port's main paths at the full width of Llama-3.1-8B, Q40 and
-Q80 (random weights from a seed), and exits 0 only if every phase passed:
+Q80, and of Mixtral-8x7B, Q40 (random weights from a seed), and exits 0 only
+if every phase passed:
 
 1. card       the card's name and power limit (nvidia-smi), then the CUDA
               kernels built from dllama_tpu_torch/ops/csrc, one nvcc per
@@ -169,6 +170,26 @@ Q80 (random weights from a seed), and exits 0 only if every phase passed:
               dllama_router_failovers_total{outcome="resumed"} advanced; the
               survivor's /debug/kv clean; /router/metrics federating both
               replicas, /router/fleet joining them.
+19. golden    tests/fixtures/golden_tiny.m (head size 16, which no attention
+              kernel takes) under --kernels auto: the Q40 kernels with the
+              plain attention on the single engine and on an 8-slot
+              BatchEngine, 16 greedy tokens each equal to the JAX package's
+              pinned continuation or first apart at a near tie.
+20. dequantize the Q40 8B file loaded with --dequantize (dense bf16 weights,
+              torch.matmul): its forward within TOL_FWD of the kernels', no
+              Q40 launch; then the CLI's `inference --dequantize`.
+21. moe       Mixtral-8x7B at its published geometry (random Q40 weights from
+              seed 0, 26.7 GB, context cut to 4096; depth cut only where the
+              temp filesystem cannot hold the file, and then printed): the
+              forward against the plain versions, HTTP serve on the
+              single-engine tier, --moe dense against sort and dispatch
+              (greedy ids), the 8-slot server at its defaults with --warmup
+              auto (no unexpected capture, a clean pool), each forward at
+              least (4 + 3E)L + 1 Q40 launches and K7 or K9 in every layer
+              (a replayed chunk exactly that), then a captured decode step
+              at 1 and 8 slots and a 256-token chunk, wall, stream and busy,
+              and their device time split by launch order: expert products,
+              projections, attention, the MoE FFN's plain operations.
 
 Every path runs its decode and prefill chunks as captured CUDA graphs (the
 engines' default on a card); a replay adds the launches its capture recorded to each
@@ -189,7 +210,7 @@ K1 at 9 rows and K7 at 9 query rows (the spec verify forward); and
 every kernel the kbench phase launches on kbench's own inputs (each variant
 of its suite rows and of `8 w1 B D`, the tile sweep, the flash rows), since
 the benchmark checks no result. `serve`, `batch`, `hybrid`, `radix`, `obs`, `supervision`, `f8`,
-`q80`, `kbench`, `styles`, `spec` and `spec_batch` are the main paths: the launch counters are zeroed
+`q80`, `kbench`, `styles`, `spec`, `spec_batch`, `golden`, `dequantize` and `moe` are the main paths: the launch counters are zeroed
 just before each of their runs and read just after it. The `router` phase's kernels run in its
 replica processes, whose counters this process cannot read: its entry in `launches_by_path` is
 null. Not in the default: `profile` adds a torch.profiler pass
@@ -298,10 +319,17 @@ _PHASE_MARK = [time.perf_counter()]
 
 
 def phase_done(name: str, phases=None) -> None:
-    """Print the seconds since the previous phase ended, when `name` ran."""
+    """Print the seconds since the previous phase ended, and the device
+    memory tensors still hold, when `name` ran."""
+    import gc
+
+    import torch
+
     now = time.perf_counter()
+    gc.collect()  # an engine and its programs' bodies refer to each other
     if phases is None or name in phases:
-        print(f"phase {name}: {now - _PHASE_MARK[0]:.1f} s", flush=True)
+        print(f"phase {name}: {now - _PHASE_MARK[0]:.1f} s, "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated", flush=True)
     _PHASE_MARK[0] = now
 
 
@@ -317,6 +345,13 @@ def card_line() -> str:
     if out.returncode:
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def mm_per_forward(cfg) -> int:
+    """Matmul kernel launches a forward makes at the least: wq, wk, wv, wo
+    and the feed-forward's w1, w3, w2 a layer (an MoE layer: each expert's
+    three, every expert), then wcls."""
+    return (4 + 3 * max(1, cfg.n_experts)) * cfg.n_layers + 1
 
 
 def llama31_8b(n_layers: int, weight_type: str = "Q40"):
@@ -1399,7 +1434,7 @@ def write_model(path: str, cfg, device, seed: int = 0) -> None:
                     rec = q80_records(scales, packed)
                 else:
                     rec = torch.cat([scales.view(torch.uint8).reshape(nb, 2), packed], dim=1)
-                f.write(rec.cpu().numpy().tobytes())
+                f.write(rec.cpu().numpy().data)
             elif name == "embedding":
                 for r0 in range(0, shape[0], 8192):
                     rows = min(8192, shape[0] - r0)
@@ -1433,46 +1468,60 @@ def write_tokenizer(path: str, vocab_size: int) -> None:
               special_ids=list(range(n_regular, len(vocab)))).save(path)
 
 
-def phase_forward(loaded, device, prefill: int = 256, decode: int = 8, verify: int = 9) -> float:
-    """Kernels vs plain versions through the whole forward, each on a fresh
-    cache of the engine's cache dtype: a prefill, decode steps, then one
-    forward of `verify` tokens with every position's logits, the shape of a
-    spec verify forward (k + 1 rows at --spec 8). Returns the largest
-    |logit difference| / max|logit| over all of them."""
-    import functools
-
+def forward_logits(loaded, device, runs: dict, prefill: int = 256, decode: int = 8,
+                   verify: int = 9) -> dict:
+    """Every run of `runs` (label -> (params, mm, attn)) through the whole
+    forward on a fresh cache of the engine's cache dtype: a prefill, decode
+    steps, then one forward of `verify` tokens with every position's
+    logits, the shape of a spec verify forward (k + 1 rows at --spec 8), all
+    on the same random tokens. -> label -> the stacked logits."""
     import torch
 
     from dllama_tpu_torch.models.llama import KVCache, forward
-    from dllama_tpu_torch.ops.layers import gqa_attention
-    from dllama_tpu_torch.ops.matmul import matmul
 
     eng = loaded.engine
     cfg = loaded.config
     gen = torch.Generator(device=device).manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, (1, prefill + decode + verify), generator=gen,
                          device=device)
-    runs = {}
-    for label, mm, attn in (
-            ("kernels", eng.mm, eng.attn_fn),
-            ("plain", functools.partial(matmul, backend="torch"), gqa_attention)):
+    out = {}
+    for label, (params, mm, attn) in runs.items():
         cache = KVCache.create(cfg, 1, eng.cache.k.dtype, eng.seq_len, device)
         outs = []
         with torch.no_grad():
-            logits, _ = forward(cfg, eng.params, toks[:, :prefill], 0, cache,
+            logits, _ = forward(cfg, params, toks[:, :prefill], 0, cache,
                                 eng.rope_cache, attn, mm, last_only=True)
             outs.append(logits[:, -1])
             for i in range(decode):
                 p = prefill + i
-                logits, _ = forward(cfg, eng.params, toks[:, p : p + 1], p, cache,
+                logits, _ = forward(cfg, params, toks[:, p : p + 1], p, cache,
                                     eng.rope_cache, attn, mm, last_only=True)
                 outs.append(logits[:, -1])
             p = prefill + decode
-            logits, _ = forward(cfg, eng.params, toks[:, p : p + verify], p, cache,
+            logits, _ = forward(cfg, params, toks[:, p : p + verify], p, cache,
                                 eng.rope_cache, attn, mm, last_only=False)
             outs.extend(logits.unbind(1))
-        runs[label] = torch.stack(outs)
+        out[label] = torch.stack(outs)
         del cache
+    return out
+
+
+def phase_forward(loaded, device, prefill: int = 256, decode: int = 8, verify: int = 9) -> float:
+    """Kernels vs plain versions through the whole forward (forward_logits:
+    a prefill, decode steps and a verify forward). Returns the largest
+    |logit difference| / max|logit| over all of them."""
+    import functools
+
+    import torch
+
+    from dllama_tpu_torch.ops.layers import gqa_attention
+    from dllama_tpu_torch.ops.matmul import matmul
+
+    eng = loaded.engine
+    runs = forward_logits(loaded, device, {
+        "kernels": (eng.params, eng.mm, eng.attn_fn),
+        "plain": (eng.params, functools.partial(matmul, backend="torch"), gqa_attention)},
+        prefill, decode, verify)
     ref = runs["plain"]
     if not torch.isfinite(runs["kernels"]).all():
         fail("forward: non-finite logits through the kernels")
@@ -1855,7 +1904,7 @@ def _concurrently(fn, args_list) -> list:
 
 
 def phase_batch(loaded, n_slots: int = 8, max_tokens: int = 32,
-                mm_kernels: tuple = Q40_KERNELS, prefill_budget="auto") -> dict:
+                mm_kernels: tuple = Q40_KERNELS, prefill_budget="auto", **server_kw) -> dict:
     """make_server with slots (what `serve --slots 8` runs) over real HTTP,
     at `prefill_budget` (the server's default, hybrid, unless given): the
     auto layout, n concurrent greedy chat requests twice (identical
@@ -1863,7 +1912,10 @@ def phase_batch(loaded, n_slots: int = 8, max_tokens: int = 32,
     penalized batch-mates (the same stream), and the page pool after the
     drain. The launch counters are zeroed before the requests and read
     after them: every forward launches the model's matmul kernels
-    (`mm_kernels`, those of its weight format, and no other format's).
+    (`mm_kernels`, those of its weight format, and no other format's) at
+    least mm_per_forward times. `server_kw` goes to make_server (e.g.
+    warmup="auto"); the captures the server made and those outside its
+    warm-up's contract are returned.
     With phase-split admission (budget 0) decode must really run batched:
     the first round's decode chunks must carry more than MIN_BATCH_SLOTS
     live slots on average. (Hybrid admits the n prompts one after another,
@@ -1874,6 +1926,7 @@ def phase_batch(loaded, n_slots: int = 8, max_tokens: int = 32,
     import torch
 
     from dllama_tpu_torch.engine.sampling import philox_uniforms
+    from dllama_tpu_torch.obs import compile as compile_obs
 
     # the per-slot generator gives the same bits on the CPU and the card
     seeds = torch.tensor([0, 1, 2**40 + 5, 2**62 + 3, 2**63 - 1], dtype=torch.int64)
@@ -1882,8 +1935,9 @@ def phase_batch(loaded, n_slots: int = 8, max_tokens: int = 32,
                        philox_uniforms(seeds.to(loaded.engine.device),
                                        ctrs.to(loaded.engine.device)).cpu()):
         fail("batch: Philox uniforms differ between the CPU and the card")
+    captures0 = (compile_obs.LEDGER.total_compiles(), compile_obs.LEDGER.total_unexpected())
     httpd, api = make_server(loaded, host="127.0.0.1", port=0, n_slots=n_slots,
-                             prefill_budget=prefill_budget)
+                             prefill_budget=prefill_budget, **server_kw)
     eng = api.scheduler.engine
     if (eng.kv_layout, eng.page_size, eng.attn_route) != ("paged", 128, "paged_kernel"):
         fail(f"batch: --kv-layout auto resolved to {eng.kv_layout} page {eng.page_size} "
@@ -1926,6 +1980,8 @@ def phase_batch(loaded, n_slots: int = 8, max_tokens: int = 32,
     finally:
         clean = graceful_drain(httpd, api, timeout_s=120)
         httpd.server_close()
+    captures = (compile_obs.LEDGER.total_compiles() - captures0[0],
+                compile_obs.LEDGER.total_unexpected() - captures0[1])
     if prefill_budget == 0 and not occupancy[0] > MIN_BATCH_SLOTS:
         fail(f"batch: the first round's decode chunks carried {occupancy[0]:.2f} live slots "
              f"on average, want > {MIN_BATCH_SLOTS}: decode did not run batched")
@@ -1956,7 +2012,7 @@ def phase_batch(loaded, n_slots: int = 8, max_tokens: int = 32,
         near_ties.append(near_tie(loaded, p, runs[2], runs[0], "batch SSE stream"))
     mm = sum(launches[k] for k in mm_kernels)
     other = sum(launches[k] for k in Q40_KERNELS + Q80_KERNELS if k not in mm_kernels)
-    per_fwd = 7 * loaded.config.n_layers + 1
+    per_fwd = mm_per_forward(loaded.config)
     if (launches["paged_attention"] < loaded.config.n_layers * forwards
             or mm < per_fwd * forwards or other or launches["flash_attention"]):
         fail(f"batch: {launches} for {forwards} batched forwards (want >= "
@@ -1983,6 +2039,7 @@ def phase_batch(loaded, n_slots: int = 8, max_tokens: int = 32,
             "ttft_ms_p50": summary["ttft_ms_p50"], "ttft_ms_max": summary["ttft_ms_max"],
             "round_wall_s": walls, "reused_prefix_tokens": summary["reused_prefix_tokens"],
             "near_ties": [m for m in near_ties if m],
+            "captures": captures[0], "unexpected_captures": captures[1],
             "pool_after_drain": {k: report[k] for k in ("total", "free", "ok")}}
 
 
@@ -4667,6 +4724,416 @@ def phase_router(loaded, mpath: str, tpath: str) -> None:
             _reap(proc)
 
 
+# ------------------------------------------------------------ phases 19-21
+
+#: tests/fixtures/golden_tiny.m (head size 16) and its pinned temperature-0
+#: continuation, the JAX package's tests/test_golden.py constants
+GOLDEN_M = os.path.join("tests", "fixtures", "golden_tiny.m")
+GOLDEN_PROMPT = [801, 799, 777, 46]
+GOLDEN_CONTINUATION = [573, 932, 583, 990, 121, 209, 314, 633, 274, 831,
+                       499, 615, 643, 349, 143, 357]
+#: moe phase: greedy tokens a scheme, and decode steps of a timed chunk
+MOE_TOKENS = 16
+MOE_CHUNK = 4
+#: kernel-name fragments of the matmul kernels in the profiler (K1, K2)
+MM_NAMES = K1_NAMES + CHUNK_MATMUL
+#: spin kernels that open moe_split's profile
+SPLIT_SPINS = 32
+
+
+def phase_golden(device) -> dict:
+    """tests/fixtures/golden_tiny.m under --kernels auto on the card: its
+    head size (16) has no attention kernel, so the engines keep the Q40
+    kernels (K1) with the plain attention (route torch). 16 greedy tokens
+    from GOLDEN_PROMPT through the single engine and through an 8-slot
+    BatchEngine (dense layout: the paged kernel takes heads of 64 and 128),
+    both captured, must equal GOLDEN_CONTINUATION or first differ at a near
+    tie of the engine's replay. Returns the launches of the two runs."""
+    import gc
+
+    import torch
+
+    from dllama_tpu_torch.engine.batch import BatchEngine
+    from dllama_tpu_torch.engine.loader import load_model
+    from dllama_tpu_torch.engine.sampling import Sampler
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), GOLDEN_M)
+    loaded = load_model(path, None, device=device)
+    eng = loaded.engine
+    if (eng.backend, eng.attn_route) != ("cuda", "torch"):
+        fail(f"golden: kernels={eng.backend} attention={eng.attn_route}; want cuda, torch")
+    reset_counters()
+    single = list(eng.generate(GOLDEN_PROMPT, len(GOLDEN_CONTINUATION), Sampler(0.0, 0.9, 0)))
+    be = BatchEngine(loaded.config, eng.params, n_slots=8, cache_dtype=eng.cache.k.dtype,
+                     max_seq_len=eng.seq_len, device=eng.device)
+    if (be.backend, be.attn_route, be.kv_layout) != ("cuda", "torch", "dense"):
+        fail(f"golden batch: kernels={be.backend} attention={be.attn_route} "
+             f"layout={be.kv_layout}; want cuda, torch, dense")
+    first = be.add(3, GOLDEN_PROMPT, temperature=0.0)
+    batched = [int(first)] + [int(t) for t in be.decode(len(GOLDEN_CONTINUATION) - 1)[:, 3]]
+    launches = counters()
+    for label, ids in (("single engine", single), ("8-slot batch", batched)):
+        msg = near_tie(loaded, GOLDEN_PROMPT, ids, GOLDEN_CONTINUATION, f"golden {label}")
+        print(f"golden {label} (--kernels auto: cuda matmuls, torch attention): "
+              f"{'equal to GOLDEN_CONTINUATION' if msg is None else msg}", flush=True)
+    if launches["q40_decode"] == 0 or launches["flash_attention"] or launches["paged_attention"]:
+        fail(f"golden: launches {launches}; want K1 and no attention kernel")
+    print(f"golden: launches {launches}", flush=True)
+    del be, loaded, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_dequantize(loaded, device, mpath: str, tpath: str, prompt: str) -> dict:
+    """The Q40 8B file loaded with --dequantize: every matmul weight a dense
+    bf16 tensor, its forward (forward_logits) through torch.matmul within
+    TOL_FWD of the Q40 kernels' forward on the same tokens, no Q40 kernel
+    launched; then the CLI's `inference --dequantize`, greedy, whose text
+    is printed beside the kernels' CLI run's. Returns the launches of both
+    runs."""
+    import gc
+
+    import torch
+
+    from dllama_tpu_torch.engine.loader import load_model
+
+    eng = loaded.engine
+    t0 = time.perf_counter()
+    dq = load_model(mpath, tpath, max_seq_len=4096, dequantize=True, device=device)
+    print(f"dequantize: load_model {time.perf_counter() - t0:.1f} s", flush=True)
+    leaves = [dq.engine.params["wcls"]] + [dq.engine.params["layers"][k]
+                                           for k in ("wq", "wk", "wv", "wo", "w1", "w2", "w3")]
+    if not all(isinstance(w, torch.Tensor) and w.dtype == torch.bfloat16 for w in leaves):
+        fail("dequantize: the matmul weights did not load as dense bf16 tensors")
+    reset_counters()
+    runs = forward_logits(loaded, device, {"dequantized": (dq.engine.params, dq.engine.mm,
+                                                           dq.engine.attn_fn)})
+    launches = counters()
+    runs.update(forward_logits(loaded, device, {"kernels": (eng.params, eng.mm,
+                                                            eng.attn_fn)}))
+    ref = runs["kernels"]
+    rel = ((runs["dequantized"] - ref).abs().max() / ref.abs().max()).item()
+    print(f"dequantize forward: prefill 256 + 8 decode + a 9-row verify against the Q40 "
+          f"kernels, max|logit diff|/max|logit| = {rel:.3e} <= {TOL_FWD}; launches "
+          f"{launches}", flush=True)
+    if not rel <= TOL_FWD or any(launches[k] for k in Q40_KERNELS + Q80_KERNELS) or \
+            not launches["flash_attention"]:
+        fail(f"dequantize forward: {rel} of max|logit|, launches {launches} (want no Q40/Q80 "
+             "kernel and K7)")
+    del dq, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counters()
+    rc, text, stats = _cli(inference_argv(mpath, tpath, prompt) + ["--dequantize"])
+    cli = counters()
+    print(f"dequantize inference: rc {rc}; {' | '.join(stats)}; launches {cli}; text "
+          f"{text[:120]!r}", flush=True)
+    if rc != 0 or any(cli[k] for k in Q40_KERNELS + Q80_KERNELS) or not cli["flash_attention"]:
+        fail(f"dequantize inference: rc {rc}, launches {cli} (want no Q40/Q80 kernel and K7)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: launches[k] + cli[k] for k in launches}
+
+
+def mixtral_8x7b(n_layers: int):
+    """Mixtral-8x7B's published geometry (mistralai/Mixtral-8x7B-v0.1,
+    config.json): dim 4096, hidden 14336, 32 query and 8 KV heads, vocab
+    32000, 8 experts with 2 active, rope_theta 1e6, RMSNorm eps 1e-5, a
+    32768-row context; `n_layers` of its 32 layers."""
+    from dllama_tpu_torch.models.config import LlamaConfig
+    from dllama_tpu_torch.ops.quant import FloatType
+
+    return LlamaConfig(dim=4096, hidden_dim=14336, n_layers=n_layers, n_heads=32, n_kv_heads=8,
+                       vocab_size=32000, seq_len=32768, n_experts=8, n_active_experts=2,
+                       rope_theta=1e6, norm_epsilon=1e-5, weight_type=FloatType.Q40)
+
+
+def _file_bytes(cfg) -> int:
+    from dllama_tpu_torch.models.formats import tensor_plan
+
+    import numpy as np
+
+    return sum(ft.nbytes(int(np.prod(shape))) for _, shape, ft in tensor_plan(cfg))
+
+
+@contextlib.contextmanager
+def moe_capacity(capacity_factor: float):
+    """Every MoE layer's dispatch at `capacity_factor` while the block
+    runs (models.llama looks moe_ffn up in its module at each layer)."""
+    import functools
+
+    from dllama_tpu_torch.models import llama
+
+    orig = llama.moe_ffn
+    llama.moe_ffn = functools.partial(orig, capacity_factor=capacity_factor)
+    try:
+        yield
+    finally:
+        llama.moe_ffn = orig
+
+
+def moe_split(loaded, t: int, pos: int = 0) -> dict:
+    """One uncaptured forward of `t` tokens at `pos` on the single engine's
+    weights and attention (a fresh dense cache) under torch.profiler, its
+    device time split by where each kernel sits in the forward: between two
+    attention launches run wo, the layer's MoE FFN with its 3 * E expert
+    products, then the next layer's wq, wk and wv (before the first: layer
+    0's; after the last: wo, the FFN and wcls). -> the expert products, the
+    attention projections and wcls, attention (K7), the MoE FFN's plain
+    operations (the router's product, top-k and softmax, SwiGLU, the
+    combine, the residual and the next norm) and the attention block's
+    (norm, RoPE, the cache writes), with the launches the profiler saw."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dllama_tpu_torch.models.llama import KVCache, forward
+
+    eng, cfg = loaded.engine, loaded.config
+    cache = KVCache.create(cfg, 1, eng.cache.k.dtype, eng.seq_len, eng.device)
+    gen = torch.Generator(device=eng.device).manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (1, t), generator=gen, device=eng.device)
+
+    def run():
+        forward(cfg, eng.params, toks, pos, cache, eng.rope_cache, eng.attn_fn, eng.mm,
+                last_only=True, moe_impl=eng.moe_impl)
+        torch.cuda.synchronize()
+
+    with torch.no_grad():
+        run()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            # the first events of a profile can be lost: spin kernels take
+            # them, and the forward's kernels are those after the last spin
+            for _ in range(SPLIT_SPINS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            run()
+    kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    spins = [i for i, e in enumerate(kernels) if "spin" in e.name]
+    kernels = kernels[spins[-1] + 1:] if spins else kernels
+    del cache
+    return split_moe_forward([(e.name, e.time_range.elapsed_us() / 1e3) for e in kernels])
+
+
+def split_moe_forward(kernels: list) -> dict:
+    """moe_split's attribution of one MoE forward's (kernel name, ms) in
+    launch order."""
+    segments: list[list] = [[]]  # kernels between attention launches
+    for name, ms in kernels:
+        kind = ("mm" if any(f in name for f in MM_NAMES) else
+                "attn" if any(f in name for f in CHUNK_ATTENTION) else "plain")
+        if kind == "attn" and segments[-1] and segments[-1][-1][0] != "attn":
+            segments.append([])
+        segments[-1].append((kind, ms))
+    split = dict.fromkeys(("expert_mm_ms", "proj_mm_ms", "attention_ms", "moe_plain_ms",
+                           "attn_plain_ms"), 0.0)
+    counts = {"expert_mm": 0, "proj_mm": 0, "ops": len(kernels)}
+    for si, seg in enumerate(segments):
+        mms = [i for i, (kind, _) in enumerate(seg) if kind == "mm"]
+        last = si == len(segments) - 1
+        # projections: wo first, then the next layer's wq, wk, wv (wcls last)
+        proj = set(mms[:1] + mms[-1:] if last else mms[:1] + mms[-3:]) if si else set(mms)
+        moe = (mms[0], mms[-1] if last else mms[-3]) if si and len(mms) > 4 else None
+        for i, (kind, ms) in enumerate(seg):
+            if kind == "mm":
+                key = "proj_mm" if i in proj else "expert_mm"
+                counts[key] += 1
+            elif kind == "attn":
+                key = "attention"
+            else:
+                key = "moe_plain" if moe and moe[0] < i < moe[1] else "attn_plain"
+            split[f"{key}_ms"] += ms
+    return dict(split, busy_ms=sum(split.values()), **counts)
+
+
+def phase_moe(device, prompt: str) -> dict:
+    """Mixtral-8x7B at its published width (mixtral_8x7b), random Q40
+    weights from seed 0 written by write_model, context cut to 4096, depth
+    cut only where the temp filesystem cannot hold the file: (a) the
+    forward through the kernels against the plain versions (check_forward);
+    (d) HTTP serve on the single-engine tier (phase_serve); (c) 16 greedy
+    tokens under --moe dense, sort and dispatch at a capacity factor of
+    E/k (C = N: nothing dropped) on one prompt, equal or first apart at a
+    near tie; (e) the 8-slot server at its defaults with --warmup auto
+    (phase_batch: paged at page 128, hybrid admission, the radix tree), no
+    unexpected capture; (b) every forward of (d) and (e) launches at least
+    mm_per_forward K1/K2 (the attention projections, 3 * E * L expert
+    products, wcls) and K7 (single tier) or K9 (batched); one replayed
+    decode chunk exactly that many and no other; (f) device times: a
+    captured decode step at 1 and 8 slots (wall, stream, busy), a captured
+    256-token prefill chunk, and both split by kernel (moe_split). The
+    file is deleted at the end. Returns the launches of (d) and (e)."""
+    import gc
+    import shutil
+
+    import torch
+
+    from dllama_tpu_torch.engine.batch import BatchEngine
+    from dllama_tpu_torch.engine.engine import InferenceEngine
+    from dllama_tpu_torch.engine.loader import load_model
+    from dllama_tpu_torch.engine.sampling import Sampler
+    from dllama_tpu_torch.ops.quant import QTensor
+
+    total: dict[str, int] = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory(prefix="dllama_smoke_moe_") as tmp:
+        free = shutil.disk_usage(tmp).free
+        print(f"moe: {free / 1e9:.1f} GB free in {tmp}, "
+              f"{shutil.disk_usage(os.path.dirname(os.path.abspath(__file__))).free / 1e9:.1f} "
+              "GB beside the checkout", flush=True)
+        one, two = _file_bytes(mixtral_8x7b(1)), _file_bytes(mixtral_8x7b(2))
+        per_layer, fixed = two - one, 2 * one - two
+        depth = 32 if fixed + 32 * per_layer + 2e9 <= free else int(
+            (free - 2e9 - fixed) // per_layer)
+        if depth < 1:
+            fail(f"moe: {free / 1e9:.1f} GB free in {tmp} holds no Mixtral layer")
+        cfg = mixtral_8x7b(depth)
+        print(f"phase moe: Mixtral-8x7B, {depth} of its 32 layers (temp filesystem "
+              f"{free / 1e9:.1f} GB free for a {_file_bytes(cfg) / 1e9:.2f} GB file): "
+              f"{cfg.describe()}, context 4096", flush=True)
+        mpath, tpath = os.path.join(tmp, "mixtral_8x7b_q40.m"), os.path.join(tmp, "tok.t")
+        t0 = time.perf_counter()
+        write_model(mpath, cfg, device)
+        write_tokenizer(tpath, cfg.vocab_size)
+        print(f"moe: wrote {os.path.getsize(mpath) / 1e9:.2f} GB in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        loaded = load_model(mpath, tpath, max_seq_len=4096, device=device)
+        eng, tok = loaded.engine, loaded.tokenizer
+        w1 = eng.params["layers"].get("moe_w1")
+        print(f"moe: load_model {time.perf_counter() - t0:.1f} s; kernels={eng.backend} "
+              f"attention={eng.attn_route} moe={eng.moe_impl}; {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+              f"allocated", flush=True)
+        if not isinstance(w1, QTensor) or tuple(w1.packed.shape) != (depth, 8, 2048, 14336):
+            fail("moe: the experts did not load as a [L, E, in/2, out] Q40 stack")
+        per_fwd = mm_per_forward(cfg)
+        from dllama_tpu_torch.utils.profiling import params_nbytes
+
+        lay = eng.params["layers"]
+        experts = params_nbytes({k: lay[k] for k in ("moe_w1", "moe_w2", "moe_w3")})
+        rest = params_nbytes({"wcls": eng.params["wcls"], **{k: lay[k] for k in
+                                                             ("wq", "wk", "wv", "wo")}})
+        routed = experts * cfg.n_active_experts / cfg.n_experts
+        print(f"moe: a decode step's weight bytes: every expert {experts / 1e9:.3f} GB "
+              f"({experts / HBM_BYTES_S * 1e3:.3f} ms at {HBM_BYTES_S / 1e12:.2f} TB/s), one "
+              f"token's routed experts {routed / 1e9:.3f} GB ({routed / HBM_BYTES_S * 1e3:.3f} "
+              f"ms), projections and wcls {rest / 1e9:.3f} GB ({rest / HBM_BYTES_S * 1e3:.3f} "
+              "ms)", flush=True)
+        mark = [time.perf_counter()]
+
+        def took(step):
+            now = time.perf_counter()
+            print(f"moe: {step} took {now - mark[0]:.1f} s", flush=True)
+            mark[0] = now
+
+        check_forward(loaded, device, "moe forward")  # (a)
+        took("the forward check")
+        launches = serve_checked(loaded, prompt, "moe serve", Q40_KERNELS, per_fwd,  # (d), (b)
+                                 "flash_attention")
+        add(launches)
+        took("serve")
+
+        # (c) the three schemes' greedy ids on one prompt
+        ptoks = tok.encode(prompt, add_bos=True)
+        ids = {}
+        for impl in ("dense", "sort", "dispatch"):
+            e = InferenceEngine(cfg, eng.params, cache_dtype=eng.cache.k.dtype,
+                                max_seq_len=eng.seq_len, device=eng.device, moe_impl=impl)
+            with moe_capacity(cfg.n_experts / cfg.n_active_experts):
+                ids[impl] = list(e.generate(ptoks, MOE_TOKENS, Sampler(0.0, 0.9, 0)))
+            del e
+            gc.collect()
+            torch.cuda.empty_cache()
+        for impl in ("sort", "dispatch"):
+            msg = near_tie(loaded, ptoks, ids[impl], ids["dense"], f"moe {impl} vs dense")
+            print(f"moe --moe {impl}: {MOE_TOKENS} greedy ids "
+                  f"{'equal to dense' if msg is None else msg}", flush=True)
+        took("the schemes")
+
+        # (e) the 8-slot server at its defaults, warmed up
+        batch = phase_batch(loaded, warmup="auto")
+        launches = batch.pop("launches")
+        print(f"moe batch: {batch}; launches {launches}", flush=True)
+        if batch["unexpected_captures"]:
+            fail(f"moe batch: {batch['unexpected_captures']} unexpected captures")
+        add(launches)
+        took("the 8-slot server")
+
+        # (f) device times, captured: a decode step at 1 and 8 slots, a chunk
+        n = MOE_CHUNK
+        first = ids["dense"][0]
+
+        def run1():
+            eng.reset(len(ptoks))
+            return eng.decode_greedy_n([[first]], n)
+
+        times = {"1 slot": chunk_timing(run1, n)}
+        replay_launches(run1, {"q40_decode": per_fwd * n, "flash_attention": depth * n},
+                        "moe single-engine chunk")
+        be = BatchEngine(cfg, eng.params, n_slots=8, cache_dtype=eng.cache.k.dtype,
+                         max_seq_len=eng.seq_len, kv_layout="paged", page_size=128,
+                         device=eng.device, moe_impl=eng.moe_impl)
+        for slot, p in enumerate(batch_prompts(8)):
+            be.add(slot, tok.encode(p), temperature=0.0)
+
+        def run8():
+            return be.decode(n)
+
+        times["8 slots"] = chunk_timing(run8, n)
+        replay_launches(run8, {"q40_decode": per_fwd * n, "paged_attention": depth * n},
+                        "moe 8-slot chunk")
+        del be
+        gc.collect()
+        torch.cuda.empty_cache()
+        for label, tm in times.items():
+            print(f"moe decode step, {label}, captured: wall {tm['wall_ms']:.3f} ms, stream "
+                  f"{tm['stream_ms']:.3f} ms, busy {tm['device_ms']:.3f} ms "
+                  f"({tm['device_ops']:.1f} device ops a step, busy share {tm['busy']:.3f})",
+                  flush=True)
+        toks = torch.randint(0, cfg.vocab_size, (1, 256),
+                             generator=torch.Generator().manual_seed(6)).numpy()
+
+        def prefill():
+            eng.reset(0)
+            return eng.step(toks)
+
+        pre = prefill_timing(prefill)
+        print(f"moe prefill chunk, 256 tokens at pos 0, captured: wall {pre['wall_ms']:.3f} ms, "
+              f"stream {pre['stream_ms']:.3f} ms, busy {pre['busy_ms']:.3f} ms in {pre['ops']} "
+              f"device ops", flush=True)
+        for label, t in (("decode step (1 token at pos 512)", 1), ("prefill chunk (256)", 256)):
+            sp = moe_split(loaded, t, 512 if t == 1 else 0)
+            print(f"moe split, {label}, uncaptured, busy {sp['busy_ms']:.3f} ms in {sp['ops']} "
+                  f"device ops: expert products {sp['expert_mm_ms']:.3f} ms in "
+                  f"{sp['expert_mm']} launches, attention projections + wcls "
+                  f"{sp['proj_mm_ms']:.3f} ms in {sp['proj_mm']}, attention "
+                  f"{sp['attention_ms']:.3f} ms, the MoE FFN's plain ops (routing, SwiGLU, "
+                  f"combine) {sp['moe_plain_ms']:.3f} ms, the attention block's "
+                  f"{sp['attn_plain_ms']:.3f} ms", flush=True)
+            want = (3 * cfg.n_experts * depth, 4 * depth + 1)
+            if (sp["expert_mm"], sp["proj_mm"]) != want:
+                # the counters hold every launch (replay_launches above); a
+                # profiler that drops events only blurs the split's edges
+                print(f"moe split: the profiler saw {sp['expert_mm']} expert products and "
+                      f"{sp['proj_mm']} other matmul kernels of the {want[0]} and {want[1]} "
+                      "launched", flush=True)
+            if not sp["expert_mm"] > 0.9 * want[0]:
+                fail(f"moe split: {sp['expert_mm']} expert-product kernels seen, want "
+                     f"{want[0]}")
+        took("the timings")
+        eng.reset(0)
+        del loaded, eng, tok, w1
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
 # ------------------------------------------------------------ main
 
 
@@ -4701,8 +5168,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=20, help="timed runs per case (0: no timing)")
     ap.add_argument("--phases",
-                    default="card,kernels,kbench,forward,serve,batch,hybrid,radix,obs,"
-                            "supervision,router,inference,styles,spec,spec_batch,graphs,f8,q80",
+                    default="card,kernels,golden,kbench,forward,serve,batch,hybrid,radix,obs,"
+                            "supervision,router,inference,styles,spec,spec_batch,graphs,"
+                            "dequantize,f8,q80,moe",
                     help="comma list; not in the default: 'profile' adds a "
                          "torch.profiler pass over one decode chunk, single-stream "
                          "and 8-slot; 'chunk' is the prefill-chunk timing alone (Q40 "
@@ -4756,6 +5224,9 @@ def main(argv=None) -> int:
     phase_done("kernels", phases)
 
     paths: dict[str, dict] = {}  # launch counts of each path, read just after it
+    if "golden" in phases:
+        paths["golden"] = phase_golden(device)
+    phase_done("golden", phases)
     if "kbench" in phases:
         paths["kbench"] = phase_kbench()
     phase_done("kbench", phases)
@@ -4763,7 +5234,7 @@ def main(argv=None) -> int:
               "a storm, and a ship that never arrives.")
     if phases & {"forward", "chunk", "serve", "profile", "batch", "hybrid", "radix", "obs",
                   "supervision", "router", "inference", "styles", "spec", "spec_batch",
-                  "graphs", "f8"}:
+                  "graphs", "dequantize", "f8"}:
         from dllama_tpu_torch.engine.loader import load_model
 
         tmp = tempfile.TemporaryDirectory(prefix="dllama_smoke_")
@@ -4908,6 +5379,9 @@ def main(argv=None) -> int:
         if "graphs" in phases:
             paths["graphs"] = phase_graphs(loaded, mpath, tpath, prompt)["launches"]
         phase_done("graphs", phases)
+        if "dequantize" in phases:
+            paths["dequantize"] = phase_dequantize(loaded, device, mpath, tpath, prompt)
+        phase_done("dequantize", phases)
         del loaded
         torch.cuda.empty_cache()
         if "f8" in phases:
@@ -4924,6 +5398,10 @@ def main(argv=None) -> int:
             del loaded
         torch.cuda.empty_cache()
     phase_done("q80", phases)
+
+    if "moe" in phases:
+        paths["moe"] = phase_moe(device, prompt)
+    phase_done("moe", phases)
 
     if results:
         line = []

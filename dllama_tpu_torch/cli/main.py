@@ -35,7 +35,9 @@ too: `--stall-deadline-s` (the watchdog), `--restart-max`/`--restart-window-s`
 (warm restarts), `--transfer-guard` (the steady-state replays under
 `torch.cuda.set_sync_debug_mode`) and `--faults` / `$DLLAMA_FAULTS` (fault
 injection, utils/faults.py). `router --replica HOST:PORT ...` needs no
-`--model`: replicas own their weights.
+`--model`: replicas own their weights. A Mixtral-style MoE `.m` runs on every
+mode: `--moe` picks its expert scheme (ops.layers.moe_ffn), on both tiers.
+`--dequantize` loads the Q40/Q80 matmul weights as dense bf16.
 """
 
 from __future__ import annotations
@@ -90,6 +92,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "on the CPU; torch = plain PyTorch everywhere")
     p.add_argument("--fuse-weights", action="store_true",
                    help="fused wqkv/w13 matmul launches")
+    p.add_argument("--moe", choices=["auto", "dispatch", "sort", "dense"], default="auto",
+                   help="MoE compute: capacity-bucketed dispatch (O(k) FLOPs, rare "
+                        "capacity drops), sort (grouped-GEMM ragged segments — "
+                        "O(k) FLOPs AND exact), or exact dense all-experts")
+    p.add_argument("--dequantize", action="store_true",
+                   help="load Q40 weights as bf16 (faster prefill, 4x HBM)")
     p.add_argument("--port", type=int, default=None,
                    help="HTTP port (default: 9990 in serve mode, 9980 in router mode)")
     p.add_argument("--host", default="127.0.0.1",
@@ -282,7 +290,9 @@ def _load(args):
         max_seq_len=args.max_seq_len,
         cache_dtype=CACHE_DTYPES[args.cache_dtype],
         max_prefill_chunk=args.max_prefill_chunk,
+        dequantize=args.dequantize,
         kernels=args.kernels,
+        moe_impl=args.moe,
         fuse_weights=args.fuse_weights,
         device=args.device,
     )
@@ -306,6 +316,13 @@ def cmd_info(args) -> int:
     print(f"header: {header_size} B, weights: {total / 1e9:.2f} GB on disk")
     sel = resolve_kernels(cfg, args.kernels, args.device)
     print(f"device: {args.device}; kernels={sel.backend} attention={sel.attn_route}")
+    if cfg.n_experts:
+        scheme = args.moe
+        if scheme == "auto":
+            scheme = ("dense (fixed shapes, every expert)" if args.device == "cuda"
+                      else "sort for B*T >= experts, else dense")
+        print(f"moe: {cfg.n_experts} experts, {cfg.n_active_experts} active; --moe "
+              f"{args.moe}: {scheme}")
     return 0
 
 

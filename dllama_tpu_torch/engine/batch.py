@@ -67,7 +67,7 @@ import torch
 
 from dllama_tpu_torch.engine.engine import CACHE_DTYPES, pow2_chunk
 from dllama_tpu_torch.engine.graphs import SPEC_VARIANTS, VARIANTS, Programs
-from dllama_tpu_torch.engine.kernel_select import resolve_kernels
+from dllama_tpu_torch.engine.kernel_select import resolve_kernels, resolve_moe_impl
 from dllama_tpu_torch.engine.radix import RadixCache
 from dllama_tpu_torch.engine.sampling import CounterRNG, apply_penalties, sample_logits
 from dllama_tpu_torch.engine.speculative import SPEC_NGRAM, masked_put, propose_ngram
@@ -691,6 +691,8 @@ class BatchEngine:
         transfer_guard: str = "off",  # 'off' | 'log' | 'strict' (--transfer-guard):
         # the steady-state replays run under torch.cuda.set_sync_debug_mode, so a
         # synchronizing operation there warns or raises (obs/compile.h2d_guard)
+        moe_impl: str = "auto",  # 'auto' | 'dispatch' | 'sort' | 'dense' (ops.layers.moe_ffn):
+        # every program body runs it; fixed per engine, so no program key names it
     ):
         if cache_dtype not in CACHE_DTYPES:
             raise ValueError(f"KV cache dtype {cache_dtype} is not one of {CACHE_DTYPES}")
@@ -743,6 +745,7 @@ class BatchEngine:
                 (cfg.n_layers, cfg.n_kv_heads, self.page_size, cfg.head_size), cache_dtype,
                 pin=self.device.type == "cuda")
             self.radix.spill = self._host_spill
+        self.moe_impl = resolve_moe_impl(moe_impl)
         sel = resolve_kernels(cfg, kernels, self.device, paged=self.pool is not None,
                               page_size=self.page_size, cache_dtype=cache_dtype)
         self.mm, self.attn_fn = sel.mm, sel.attn_fn
@@ -833,7 +836,8 @@ class BatchEngine:
         """One forward; returns last-position logits f32 [B, V]. The caller
         counts it in ``forwards``."""
         logits, _ = forward(self.cfg, self.params, tokens, pos, cache, self.rope_cache,
-                            self.attn_fn, self.mm, last_only=True, active=active)
+                            self.attn_fn, self.mm, last_only=True, active=active,
+                            moe_impl=self.moe_impl)
         return logits[:, -1]
 
     # ------------------------------------------------------- paged-layout api
@@ -1435,7 +1439,7 @@ class BatchEngine:
                 p_cl = torch.minimum(p, (lim - (k + 1)).clamp(min=0)).to(torch.int32)
                 logits, _ = forward(self.cfg, self.params, toks, p_cl, self.cache,
                                     self.rope_cache, self.attn_fn, self.mm, last_only=False,
-                                    active=eff)  # [B, K+1, V]
+                                    active=eff, moe_impl=self.moe_impl)  # [B, K+1, V]
                 g = torch.argmax(logits, dim=-1)
                 agree = torch.cumprod((draft == g[:, :k]).to(torch.int64), dim=1)
                 a = torch.minimum(agree.sum(dim=1), k_eff)

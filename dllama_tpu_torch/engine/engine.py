@@ -23,7 +23,7 @@ import torch
 
 from dllama_tpu_torch.engine.graphs import Programs
 from dllama_tpu_torch.obs import instruments as ins
-from dllama_tpu_torch.engine.kernel_select import resolve_kernels
+from dllama_tpu_torch.engine.kernel_select import resolve_kernels, resolve_moe_impl
 from dllama_tpu_torch.engine.sampling import Sampler, apply_penalties, sample_logits
 from dllama_tpu_torch.engine.speculative import cycles_per_replay, spec_cycle
 from dllama_tpu_torch.models.config import LlamaConfig
@@ -90,6 +90,7 @@ class InferenceEngine:
         fuse_weights: bool = False,  # wqkv/w13 fused launches (copies on the device)
         device=None,
         capture: bool | None = None,  # decode chunks as CUDA graphs (None: on a CUDA device)
+        moe_impl: str = "auto",  # 'auto' | 'dispatch' | 'sort' | 'dense' (ops.layers.moe_ffn)
     ):
         if cache_dtype not in CACHE_DTYPES:
             raise ValueError(f"KV cache dtype {cache_dtype} is not one of {CACHE_DTYPES}")
@@ -104,6 +105,7 @@ class InferenceEngine:
         self.rope_cache = build_rope_cache(cfg, self.seq_len, self.device)
         self.cache = KVCache.create(cfg, batch, cache_dtype, self.seq_len, self.device)
         self.pos = 0
+        self.moe_impl = resolve_moe_impl(moe_impl)
         sel = resolve_kernels(cfg, kernels, self.device)
         self.mm, self.attn_fn = sel.mm, sel.attn_fn
         self.backend, self.attn_route = sel.backend, sel.attn_route
@@ -140,7 +142,8 @@ class InferenceEngine:
         logits: the last position's [B, V], or with ``last_only=False``
         every position's [B, T, V]. The caller counts it in ``forwards``."""
         logits, _ = forward(self.cfg, self.params, tokens, pos, self.cache, self.rope_cache,
-                            self.attn_fn, self.mm, last_only=last_only)
+                            self.attn_fn, self.mm, last_only=last_only,
+                            moe_impl=self.moe_impl)
         return logits[:, -1] if last_only else logits
 
     @torch.no_grad()
@@ -469,7 +472,8 @@ class InferenceEngine:
 
         def fwd(toks, p, live):
             logits, _ = forward(self.cfg, self.params, toks, p, self.cache, self.rope_cache,
-                                self.attn_fn, self.mm, last_only=False, active=live)
+                                self.attn_fn, self.mm, last_only=False, active=live,
+                                moe_impl=self.moe_impl)
             return logits
 
         def body():

@@ -6,7 +6,10 @@ Rules (the unsharded branches of the JAX package's resolve_kernels):
 
 * ``auto`` on a CUDA device, or ``cuda``: the Q40/Q80 kernels and flash
   attention, which takes bf16, f32 and e4m3 (``--cache-dtype f8``) dense
-  caches. Their wrappers run the plain versions for CPU tensors.
+  caches. Their wrappers run the plain versions for CPU tensors. A head
+  size the attention kernel does not take keeps the kernels' matmuls with
+  the plain attention (route ``torch``), as the JAX package keeps route
+  ``jnp`` there.
 * ``auto`` on the CPU, or ``torch``: plain PyTorch matmuls and attention.
 * Paged KV layout: route ``paged_kernel`` (the paged attention kernel with
   its fused KV scatter) on a CUDA device with ``auto``/``cuda``; a paged
@@ -25,7 +28,7 @@ import torch
 
 from dllama_tpu_torch.models.config import LlamaConfig
 from dllama_tpu_torch.ops import flash_attention, paged_attention
-from dllama_tpu_torch.ops.layers import gqa_attention, paged_gqa_attention
+from dllama_tpu_torch.ops.layers import MOE_IMPLS, gqa_attention, paged_gqa_attention
 from dllama_tpu_torch.ops.matmul import engine_matmul, resolve_backend
 
 
@@ -64,10 +67,16 @@ def resolve_kernels(cfg: LlamaConfig, kernels: str = "auto", device="cpu", paged
                 f"head size in {paged_attention.HEAD_SIZES}, bf16/f32); use --kernels torch")
         return KernelSelection(mm, _paged_kernel_attn, backend, "paged_kernel",
                                paged_attention.FUSED_SCATTER_MAX_T)
-    if backend == "torch":
+    if backend == "torch" or (on_cuda and not flash_attention.supported(cfg.head_size)):
         return KernelSelection(mm, gqa_attention, backend, "torch")
-    if on_cuda and not flash_attention.supported(cfg.head_size):
-        raise NotImplementedError(
-            f"head size {cfg.head_size} has no CUDA attention kernel yet "
-            f"({flash_attention.HEAD_SIZES} are built); use --kernels torch")
     return KernelSelection(mm, flash_attention.flash_gqa_attention, backend, "flash")
+
+
+def resolve_moe_impl(moe_impl: str) -> str:
+    """The MoE scheme both engines run (ops.layers.moe_ffn), checked: on one
+    device it is ``moe_impl`` itself, as in the JAX package with no mesh.
+    ``auto`` is resolved per call (ops.layers: JAX's size rule on the CPU,
+    dense on a CUDA device)."""
+    if moe_impl not in MOE_IMPLS:
+        raise ValueError(f"moe_impl must be one of {MOE_IMPLS}, got {moe_impl!r}")
+    return moe_impl

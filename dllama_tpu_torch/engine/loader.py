@@ -44,8 +44,10 @@ def load_model(
     max_seq_len: int | None = None,
     batch: int = 1,
     cache_dtype=torch.bfloat16,
+    dequantize: bool = False,  # Q40/Q80 matmul weights as dense bf16 (torch.matmul)
     max_prefill_chunk: int = 256,
     kernels: str = "auto",
+    moe_impl: str = "auto",  # MoE compute scheme (ops.layers.moe_ffn)
     fuse_weights: bool = False,
     device="cuda",
 ) -> LoadedModel:
@@ -57,7 +59,8 @@ def load_model(
     except (OSError, ValueError) as e:
         raise ModelFileError(f"{model_path}: unreadable .m model file: {e}") from e
     log.info("model: %s", cfg.describe())
-    params = load_params(model_path, cfg, header_size, dtype=torch.bfloat16, device=device)
+    params = load_params(model_path, cfg, header_size, dtype=torch.bfloat16, device=device,
+                         dequantize=dequantize)
     tokenizer = Tokenizer.load(tokenizer_path) if tokenizer_path else None
     if tokenizer is not None and tokenizer.regular_vocab_size > cfg.vocab_size:
         raise ValueError(
@@ -65,5 +68,5 @@ def load_model(
     engine = InferenceEngine(
         cfg, params, batch=batch, cache_dtype=cache_dtype, max_seq_len=max_seq_len,
         max_prefill_chunk=max_prefill_chunk, kernels=kernels,
-        fuse_weights=fuse_weights, device=device)
+        fuse_weights=fuse_weights, device=device, moe_impl=moe_impl)
     return LoadedModel(cfg, engine, tokenizer)

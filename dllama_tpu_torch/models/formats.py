@@ -7,6 +7,8 @@ order (llm.cpp:453-468):
   embedding f32 [vocab, dim]
   per layer: q [dim,dim] k [kv_dim,dim] v [kv_dim,dim] wo [dim,dim]
              w1 [hidden,dim] w2 [dim,hidden] w3 [hidden,dim]   (weight_type)
+             (an MoE model: moe_gate f32 [E,dim], then moe_w1 [E,hidden,dim]
+             moe_w2 [E,dim,hidden] moe_w3 [E,hidden,dim] in their place)
              rms_norm_0 f32 [dim], rms_norm_1 f32 [dim]
   final_rms_norm f32 [dim]
   wcls [vocab, dim]                                            (weight_type)
@@ -215,33 +217,77 @@ def _to_device(a: np.ndarray, device, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype, copy=True)
 
 
-def _load_matmul(raw: np.ndarray, shape: tuple[int, int], ft: FloatType, dtype, device):
-    """File [out, in] -> device x@W operand: QTensor/Q8Tensor or dense [in, out]."""
+def _load_matmul(raw: np.ndarray, shape: tuple[int, int], ft: FloatType, dtype, device,
+                 dequantize: bool = False):
+    """File [out, in] -> device x@W operand: QTensor/Q8Tensor or dense [in, out].
+    ``dequantize``: a Q40/Q80 weight as a dense ``dtype`` tensor instead
+    (exact f32 codes times scales, one cast: the JAX package's
+    ``decode_dense(...).T.astype(dtype)``, bit for bit)."""
     n_out, k_in = shape
     device = torch.device(device)
     if ft == FloatType.Q40:
         rec = _to_device(raw, device).view(n_out * k_in // Q_BLOCK, 2 + Q_BLOCK // 2)
         scales = rec[:, :2].contiguous().view(torch.float16)
-        return QTensor.from_file_layout(rec[:, 2:], scales, n_out, k_in, device)
+        w = QTensor.from_file_layout(rec[:, 2:], scales, n_out, k_in, device)
+        return w.dequantize(dtype) if dequantize else w
     if ft == FloatType.Q80:
         rec = _to_device(raw, device).view(n_out * k_in // Q_BLOCK, 2 + Q_BLOCK)
         scales = rec[:, :2].contiguous().view(torch.float16)
-        return Q8Tensor.from_file_layout(rec[:, 2:].view(torch.int8), scales, n_out, k_in,
-                                         device)
+        w = Q8Tensor.from_file_layout(rec[:, 2:].view(torch.int8), scales, n_out, k_in, device)
+        return w.dequantize(dtype) if dequantize else w
     return _to_device(decode_dense(raw, shape, ft).T, device, dtype)
 
 
+def _load_expert_matmul(raw: np.ndarray, shape: tuple[int, int, int], ft: FloatType, dtype,
+                        device, dequantize: bool = False) -> list:
+    """File [E, out, in] blob -> the E experts' x@W operands [in, out], in
+    expert order (each as _load_matmul makes it; the stack places them)."""
+    e, n_out, k_in = shape
+    per = ft.nbytes(n_out * k_in)
+    return [_load_matmul(raw[i * per : (i + 1) * per], (n_out, k_in), ft, dtype, device,
+                         dequantize) for i in range(e)]
+
+
+def _empty_stack(leaf, lead: tuple[int, ...]):
+    """An uninitialized stack of ``leaf``'s kind with leading axes ``lead``."""
+    def like(t):
+        return torch.empty((*lead, *t.shape), dtype=t.dtype, device=t.device)
+
+    if isinstance(leaf, QTensor):
+        return QTensor(like(leaf.packed), like(leaf.scales))
+    if isinstance(leaf, Q8Tensor):
+        return Q8Tensor(like(leaf.codes), like(leaf.scales))
+    return like(leaf)
+
+
+def _place(stack, index, leaf) -> None:
+    """Copy ``leaf`` into ``stack[index]``."""
+    if isinstance(leaf, QTensor):
+        stack.packed[index].copy_(leaf.packed)
+        stack.scales[index].copy_(leaf.scales)
+    elif isinstance(leaf, Q8Tensor):
+        stack.codes[index].copy_(leaf.codes)
+        stack.scales[index].copy_(leaf.scales)
+    else:
+        stack[index].copy_(leaf)
+
+
 def load_params(path: str, config: LlamaConfig, header_size: int,
-                dtype=torch.bfloat16, device="cpu") -> dict:
+                dtype=torch.bfloat16, device="cpu", dequantize: bool = False) -> dict:
     """Load the full parameter tree onto `device`.
 
     Per-layer tensors are stacked on a leading layer axis ([L, ...]); a
-    layer's weight is a view of the stack (``packed[li]``). The embedding
-    takes `dtype`; norms stay f32."""
-    if config.n_experts:
-        raise NotImplementedError(
-            "MoE checkpoints are not yet ported to the PyTorch/CUDA package")
-    layer_acc: dict[str, list] = {}
+    layer's weight is a view of the stack (``packed[li]``). Each stack is
+    made once at its full size and filled layer by layer, so loading never
+    holds a key's layers twice. An MoE layer's experts stack on a second
+    axis ([L, E, in, out]; the packed bytes and scales unchanged) and its
+    router ``moe_gate`` loads f32 as [dim, E]. The embedding takes `dtype`;
+    norms stay f32. ``dequantize`` loads every Q40/Q80 matmul weight, wcls
+    and the experts included, as a dense `dtype` tensor (the JAX package's
+    ``load_params(dequantize=True)``). Q80 experts stay packed otherwise,
+    where the JAX package loads them dense."""
+    n_layers = config.n_layers
+    layers: dict = {}
     params: dict = {}
     for name, shape, ft, raw in iter_tensors(path, config, header_size):
         if name == "embedding":
@@ -249,26 +295,23 @@ def load_params(path: str, config: LlamaConfig, header_size: int,
         elif name == "final_norm":
             params["final_norm"] = _to_device(decode_dense(raw, shape, ft), device)
         elif name == "wcls":
-            params["wcls"] = _load_matmul(raw, shape, ft, dtype, device)
+            params["wcls"] = _load_matmul(raw, shape, ft, dtype, device, dequantize)
         else:
-            short = name.split(".")[2]
+            _, li, short = name.split(".")
+            li = int(li)
             if short in ("rms_att", "rms_ffn"):
-                leaf = _to_device(decode_dense(raw, shape, ft), device)
+                leaves = [((li,), _to_device(decode_dense(raw, shape, ft), device))]
+            elif short == "moe_gate":  # router stays f32; file [E, dim] -> [dim, E]
+                leaves = [((li,), _to_device(decode_dense(raw, shape, ft).T, device))]
+            elif short.startswith("moe_"):
+                experts = _load_expert_matmul(raw, shape, ft, dtype, device, dequantize)
+                leaves = [((li, e), leaf) for e, leaf in enumerate(experts)]
             else:
-                leaf = _load_matmul(raw, shape, ft, dtype, device)
-            layer_acc.setdefault(short, []).append(leaf)
-
-    layers = {}
-    for short, leaves in layer_acc.items():
-        first = leaves[0]
-        if isinstance(first, QTensor):
-            layers[short] = QTensor(torch.stack([q.packed for q in leaves]),
-                                    torch.stack([q.scales for q in leaves]))
-        elif isinstance(first, Q8Tensor):
-            layers[short] = Q8Tensor(torch.stack([q.codes for q in leaves]),
-                                     torch.stack([q.scales for q in leaves]))
-        else:
-            layers[short] = torch.stack(leaves)
-        leaves.clear()
+                leaves = [((li,), _load_matmul(raw, shape, ft, dtype, device, dequantize))]
+            for index, leaf in leaves:
+                if short not in layers:
+                    lead = (n_layers, shape[0]) if len(index) == 2 else (n_layers,)
+                    layers[short] = _empty_stack(leaf, lead)
+                _place(layers[short], index, leaf)
     params["layers"] = layers
     return params

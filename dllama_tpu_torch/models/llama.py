@@ -3,7 +3,8 @@
 Per layer (the reference's att+ff segments):
   x += wo( attention( rope(q), rope(k)->cache, v->cache ) )   [att segment]
   x += w2( act(w1 h) * w3 h )                                 [ff segment]
-with pre-RMSNorm before each block. A Python loop walks the layers; the
+with pre-RMSNorm before each block; an MoE model's ff segment is the sparse
+expert FFN (ops.layers.moe_ffn). A Python loop walks the layers; the
 weights stay stacked [L, ...] and each layer takes views of its slice.
 Unlike the functional JAX version, the KV cache (dense, or the paged pool)
 is updated in place where JAX donates its buffers. An f8 (e4m3) cache takes
@@ -23,12 +24,13 @@ from dllama_tpu_torch.ops.layers import (
     activation,
     apply_rope,
     gqa_attention,
+    moe_ffn,
     paged_gqa_attention,
     paged_write_targets,
     rms_norm,
 )
 from dllama_tpu_torch.ops.matmul import matmul
-from dllama_tpu_torch.ops.quant import Q8Tensor, QTensor
+from dllama_tpu_torch.ops.quant import Q8Tensor, QTensor, slice_leaf
 
 
 @dataclasses.dataclass
@@ -152,9 +154,11 @@ def _paged_cache_update(pool: torch.Tensor, new: torch.Tensor, tables: torch.Ten
 
 
 def _layer(cfg: LlamaConfig, x, layers, li, k_cache, v_cache, rope, pos_base,
-           attn_fn, mm, active=None, tables=None, index=None):
+           attn_fn, mm, active=None, tables=None, index=None, moe_impl="auto"):
     """One decoder layer; `layers` holds the stacked weights and `li` the
-    layer index (the matmul takes the layer's view of each stack). With
+    layer index (the matmul takes the layer's view of each stack). A layer
+    with a ``moe_gate`` runs the sparse MoE FFN (ops.layers.moe_ffn, scheme
+    `moe_impl`) in place of the dense one. With
     `tables` the caches are one layer's page pools [P, Hkv, page, hd]; an
     `attn_fn` marked ``fused_kv_scatter`` writes the new rows itself, inside
     its kernel launch, instead of a separate scatter. `index`: the dense
@@ -186,6 +190,10 @@ def _layer(cfg: LlamaConfig, x, layers, li, k_cache, v_cache, rope, pos_base,
     att = att.reshape(b, t, d)
     x = x + mm(att, layers["wo"], li)
     h = rms_norm(x, layers["rms_ffn"][li], cfg.norm_epsilon)
+    if "moe_gate" in layers:
+        return x + moe_ffn(cfg, h, layers["moe_gate"][li], slice_leaf(layers["moe_w1"], li),
+                           slice_leaf(layers["moe_w2"], li), slice_leaf(layers["moe_w3"], li),
+                           impl=moe_impl, mm=mm)
     if "w13" in layers:  # fused launch (fuse_layer_weights)
         gu = mm(h, layers["w13"], li)
         f = cfg.hidden_dim
@@ -202,7 +210,8 @@ def fuse_layer_weights(layers: dict) -> dict:
     """wq/wk/wv -> wqkv and w1/w3 -> w13, concatenated on the output dim:
     five matmul launches per layer become two. Exact for QTensors and
     Q8Tensors (packed nibbles or int8 codes, and f16 scales, all carry the
-    output dim last)."""
+    output dim last). A layer without w1/w3 (an MoE model's) fuses wqkv
+    alone."""
 
     def cat(*ws):
         if isinstance(ws[0], QTensor):
@@ -222,7 +231,7 @@ def fuse_layer_weights(layers: dict) -> dict:
 
 
 def run_layers(cfg: LlamaConfig, layer_params: dict, x, pos_base, cache, rope,
-               attn_fn=None, mm=None, active=None) -> torch.Tensor:
+               attn_fn=None, mm=None, active=None, moe_impl: str = "auto") -> torch.Tensor:
     """Walk the decoder layers over a KVCache or a PagedKVCache (whose block
     tables select the paged branch of each layer). `active` [B] bool masks
     the cache writes of frozen rows."""
@@ -240,7 +249,7 @@ def run_layers(cfg: LlamaConfig, layer_params: dict, x, pos_base, cache, rope,
         index = _dense_write_index(pos_base, b, h, s, x.shape[1])
     for li in range(cache.k.shape[0]):
         x = _layer(cfg, x, layer_params, li, cache.k[li], cache.v[li], rope,
-                   pos_base, attn_fn, mm, active, tables, index)
+                   pos_base, attn_fn, mm, active, tables, index, moe_impl)
     return x
 
 
@@ -255,6 +264,7 @@ def forward(
     mm=None,  # (x, w, layer) -> out; default ops.matmul
     last_only: bool = False,  # project logits for the last position only
     active: torch.Tensor | None = None,  # [B] bool cache-write mask (batch mode)
+    moe_impl: str = "auto",  # MoE compute scheme (ops.layers.moe_ffn)
 ):
     """Returns (logits f32 [B, T or 1, vocab], cache), the cache updated in
     place. ``mm`` / ``attn_fn`` override the kernels (the plain versions run
@@ -268,7 +278,8 @@ def forward(
         rope = rope_cache[idx.clamp(0, rope_cache.shape[0] - 1)]
     else:
         rope = rope_cache[pos_base : pos_base + t]
-    x = run_layers(cfg, params["layers"], x, pos_base, cache, rope, attn_fn, mm, active)
+    x = run_layers(cfg, params["layers"], x, pos_base, cache, rope, attn_fn, mm, active,
+                   moe_impl)
     if last_only:
         x = x[:, -1:]
     x = rms_norm(x, params["final_norm"], cfg.norm_epsilon)

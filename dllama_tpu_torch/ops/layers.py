@@ -1,4 +1,4 @@
-"""Core model ops: RMSNorm, RoPE, GQA attention, activations.
+"""Core model ops: RMSNorm, RoPE, GQA attention, activations, the sparse MoE FFN.
 
 Plain PyTorch. Numerics follow the reference kernels (nn-cpu-ops.cpp) and
 the `dllama_tpu` package's casts: norms, RoPE, softmax and attention
@@ -97,6 +97,203 @@ def apply_rope(x: torch.Tensor, rope: torch.Tensor) -> torch.Tensor:
     r0 = x0 * cos - x1 * sin
     r1 = x0 * sin + x1 * cos
     return torch.stack([r0, r1], dim=-1).reshape(b, t, h, hs).to(x.dtype)
+
+
+#: --moe choices (ops.layers.moe_ffn's schemes)
+MOE_IMPLS = ("auto", "dispatch", "sort", "dense")
+
+
+def _dense_w(w, dtype) -> torch.Tensor:
+    """An expert stack [E, in, out] as a dense ``dtype`` tensor (a QTensor or
+    Q8Tensor dequantized: exact f32 codes times scales, one cast)."""
+    from dllama_tpu_torch.ops.quant import Q8Tensor, QTensor
+
+    return w.dequantize(dtype) if isinstance(w, (QTensor, Q8Tensor)) else w.to(dtype)
+
+
+def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (batched over leading axes) as an f32 sum."""
+    return torch.matmul(x.to(torch.float32), w.to(torch.float32))
+
+
+def moe_route(h: torch.Tensor, gate: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The router: f32 logits ``h @ gate``, the top k of them, a softmax over
+    those k. -> (probs f32 [..., k], expert ids i64 [..., k])."""
+    logits = _dot(h, gate)
+    topv, topi = torch.topk(logits, k, dim=-1)
+    return torch.softmax(topv, dim=-1), topi
+
+
+def moe_capacity(n: int, k: int, e: int, capacity_factor: float) -> int:
+    """dispatch's rows an expert: ceil(cf * k * n / e), at least 1 and at
+    most n, rounded up to a multiple of 8 above 8."""
+    c = min(n, max(1, math.ceil(capacity_factor * k * n / e)))
+    if c > 8:
+        c = min(n, -(-c // 8) * 8)
+    return c
+
+
+def moe_buffers(hf: torch.Tensor, topi: torch.Tensor, e: int, c: int):
+    """Capacity buffers of fixed shape, with no scatter and no host read.
+
+    Choice j = (token j // k, its (j % k)-th expert) arrives at expert
+    ``assign[j]`` with rank = the choices before it routed there, in
+    token-major order; ranks of c and above are dropped. Buffer row
+    (e, r) holds the token of the r-th choice routed to e, found by a
+    binary search of e's running count (the same rows JAX's stable sort
+    groups), zero where e got fewer than r + 1.
+    -> (expert i64 [N*k], rank i64 [N*k], keep bool [N*k], buf [E, c, D]);
+    a dropped choice reads (0, 0) and carries keep False."""
+    n, d = hf.shape
+    k = topi.shape[-1]
+    dev = hf.device
+    assign = topi.reshape(-1)
+    onehot = (assign[:, None] == torch.arange(e, device=dev)).to(torch.int64)  # [N*k, E]
+    csum = torch.cumsum(onehot, dim=0)
+    rank = ((csum - onehot) * onehot).sum(dim=-1)
+    keep = rank < c
+    count = csum[-1]  # [E]
+    r = torch.arange(c, device=dev)
+    idx = torch.searchsorted(csum.t().contiguous(), (r + 1).expand(e, c).contiguous())
+    src = torch.clamp(idx, max=n * k - 1) // k  # [E, c] token rows
+    buf = torch.where((r[None, :] < count[:, None])[..., None], hf[src],
+                      torch.zeros((), dtype=hf.dtype, device=dev))
+    return torch.where(keep, assign, 0), torch.where(keep, rank, 0), keep, buf
+
+
+def moe_ffn(
+    cfg: LlamaConfig,
+    h: torch.Tensor,  # [B, T, D] (already rms-normed)
+    gate: torch.Tensor,  # router [D, E] f32
+    w1, w2, w3,  # one layer's expert stacks: [E, D, F], [E, F, D], [E, D, F]
+    impl: str = "auto",  # 'auto' | 'dispatch' | 'sort' | 'dense'
+    capacity_factor: float = 2.0,
+    mm=None,  # the engine's matmul (x, w, layer, out_dtype=); CUDA tensors only
+) -> torch.Tensor:
+    """Mixtral-style sparse MoE FFN: top-k router (softmax over the top-k
+    logits), SwiGLU experts, probability-weighted combine.
+
+    Three schemes, as in the JAX package:
+
+    * ``sort``: the N*k (token, choice) rows grouped by expert (stable
+      argsort), one product per expert segment; exact.
+    * ``dispatch``: each expert takes a buffer of C = ~cf*k*N/E rows
+      (moe_capacity); a choice past its expert's capacity contributes
+      nothing.
+    * ``dense``: every expert on every token, the unrouted ones weighted 0;
+      exact.
+
+    ``auto`` is ``sort`` for N = B*T >= E and ``dense`` below, on the CPU.
+    On a CUDA device the schemes run as moe_ffn_static (fixed shapes, the
+    engine's matmul kernels on each expert), where ``auto`` is ``dense``.
+    On the CPU this is the JAX package's
+    arithmetic: the weights dequantized to ``h.dtype``; sort's products f32;
+    dispatch's and dense's products rounded to ``h.dtype``; the combines
+    f32. The dispatch combine sums each token's k choices in order (JAX
+    scatter-adds them)."""
+    if h.device.type == "cuda":
+        if mm is None:
+            from dllama_tpu_torch.ops.matmul import matmul as mm
+        return moe_ffn_static(cfg, h, gate, w1, w2, w3, mm, impl, capacity_factor)
+    e, k = cfg.n_experts, cfg.n_active_experts
+    b, t, d = h.shape
+    n = b * t
+    if impl == "auto":
+        impl = "sort" if n >= e else "dense"
+    if impl not in MOE_IMPLS:
+        raise ValueError(f"moe impl must be one of {MOE_IMPLS}, got {impl!r}")
+    hdt = h.dtype
+    probs, topi = moe_route(h, gate, k)
+    hf = h.reshape(n, d)
+    w1d, w2d, w3d = (_dense_w(w, hdt) for w in (w1, w2, w3))
+    act = cfg.hidden_act
+
+    if impl == "sort":
+        assign = topi.reshape(-1)
+        order = torch.argsort(assign, stable=True)  # segments stay token-ordered
+        inv = torch.argsort(order)
+        xs = hf[order // k]  # [N*k, D] rows grouped by expert
+        ys, s = [], 0
+        for ei, size in enumerate(torch.bincount(assign, minlength=e).tolist()):
+            x = xs[s : s + size]
+            s += size
+            a = activation(_dot(x, w1d[ei]), act).to(hdt) * _dot(x, w3d[ei]).to(hdt)
+            ys.append(_dot(a, w2d[ei]))
+        y = torch.cat(ys)[inv].reshape(n, k, d)
+        out = torch.sum(y * probs.reshape(n, k, 1), dim=1)
+        return out.reshape(b, t, d).to(hdt)
+
+    if impl == "dispatch":
+        c = moe_capacity(n, k, e, capacity_factor)
+        ei, ri, keep, buf = moe_buffers(hf, topi, e, c)
+        g = _dot(buf, w1d).to(hdt)
+        up = _dot(buf, w3d).to(hdt)
+        a = activation(g.to(torch.float32), act).to(hdt)
+        y = _dot(a * up, w2d).to(hdt)  # [E, C, D]
+        y_tok = y[ei, ri].to(torch.float32)  # [N*k, D]
+        wgt = probs.reshape(-1) * keep  # dropped choices contribute nothing
+        out = torch.sum((y_tok * wgt[:, None]).reshape(n, k, d), dim=1)
+        return out.reshape(b, t, d).to(hdt)
+
+    weights = _route_weights(probs, topi, e).reshape(n, e)
+    g = torch.einsum("nd,edf->nef", hf.to(torch.float32), w1d.to(torch.float32)).to(hdt)
+    up = torch.einsum("nd,edf->nef", hf.to(torch.float32), w3d.to(torch.float32)).to(hdt)
+    a = activation(g.to(torch.float32), act).to(hdt)
+    y = torch.einsum("nef,efd->ned", (a * up).to(torch.float32),
+                     w2d.to(torch.float32)).to(hdt)
+    out = torch.einsum("ned,ne->nd", y.to(torch.float32), weights)
+    return out.reshape(b, t, d).to(hdt)
+
+
+def _route_weights(probs: torch.Tensor, topi: torch.Tensor, e: int) -> torch.Tensor:
+    """[..., E] combine weights: each token's top-k probabilities at their
+    experts, 0 elsewhere."""
+    hit = topi[..., None] == torch.arange(e, device=topi.device)  # [..., k, E]
+    return torch.sum(hit.to(probs.dtype) * probs[..., None], dim=-2)
+
+
+def moe_ffn_static(cfg: LlamaConfig, h: torch.Tensor, gate: torch.Tensor, w1, w2, w3, mm,
+                   impl: str = "dense", capacity_factor: float = 2.0) -> torch.Tensor:
+    """moe_ffn with every shape fixed by (B, T) alone, so a captured CUDA
+    graph holds it: no host read of a group size anywhere. Each expert's
+    three products go through ``mm(x, w, e, out_dtype=float32)`` on the
+    expert's 2-D view of the stack (the Q40/Q80 kernels on the card; the
+    plain versions for CPU tensors), activation and up rounded to
+    ``h.dtype`` between them, as sort's are:
+
+    * ``dense`` (and ``auto``): every expert over all N rows, 3*E products,
+      then the combine weights;
+    * ``dispatch``: moe_buffers at moe_capacity rows an expert, 3*E
+      products of C rows, each token's k choices gathered back and summed
+      in order (no scatter-add, so the sums repeat run to run);
+    * ``sort``: dispatch at C = N, which drops nothing: exact, equal to
+      sort up to the order of sums.
+    """
+    e, k = cfg.n_experts, cfg.n_active_experts
+    b, t, d = h.shape
+    n = b * t
+    impl = "dense" if impl == "auto" else impl
+    if impl not in MOE_IMPLS:
+        raise ValueError(f"moe impl must be one of {MOE_IMPLS}, got {impl!r}")
+    hdt, f32 = h.dtype, torch.float32
+    probs, topi = moe_route(h, gate, k)
+    hf = h.reshape(n, d).contiguous()
+
+    def expert(x, ei):
+        g = mm(x, w1, ei, out_dtype=f32)
+        up = mm(x, w3, ei, out_dtype=f32)
+        return mm(activation(g, cfg.hidden_act).to(hdt) * up.to(hdt), w2, ei, out_dtype=f32)
+
+    if impl == "dense":
+        y = torch.stack([expert(hf, ei) for ei in range(e)])  # [E, N, D]
+        out = torch.einsum("end,ne->nd", y, _route_weights(probs, topi, e).reshape(n, e))
+        return out.reshape(b, t, d).to(hdt)
+    c = n if impl == "sort" else moe_capacity(n, k, e, capacity_factor)
+    ei, ri, keep, buf = moe_buffers(hf, topi, e, c)
+    y = torch.stack([expert(buf[x], x) for x in range(e)])  # [E, C, D]
+    wgt = probs.reshape(-1) * keep
+    out = torch.sum((y[ei, ri] * wgt[:, None]).reshape(n, k, d), dim=1)
+    return out.reshape(b, t, d).to(hdt)
 
 
 def gqa_attention(

@@ -43,18 +43,21 @@ def engine_matmul(backend: str) -> functools.partial:
     return functools.partial(matmul, backend=backend)
 
 
-def matmul(x: torch.Tensor, w, layer=None, backend: str = "cuda") -> torch.Tensor:
-    """``x @ w`` (or ``x @ w[layer]`` for a layer-stacked weight) where ``w``
-    is a QTensor/Q8Tensor or a dense tensor. Returns ``x.dtype``."""
+def matmul(x: torch.Tensor, w, layer=None, backend: str = "cuda",
+           out_dtype=None) -> torch.Tensor:
+    """``x @ w`` (or ``x @ w[layer]`` for a stacked weight; ``layer`` may be
+    a tuple, e.g. (layer, expert) of an expert stack) where ``w`` is a
+    QTensor/Q8Tensor or a dense tensor. Returns ``out_dtype`` (default
+    ``x.dtype``; f32 is the sum before its rounding)."""
     if isinstance(w, QTensor):
         if backend == "cuda":
-            return q40_matmul(x, w, layer)
-        return q40_matmul_plain(x, w, layer)
+            return q40_matmul(x, w, layer, out_dtype)
+        return q40_matmul_plain(x, w, layer, out_dtype)
     if isinstance(w, Q8Tensor):
         if backend == "cuda":
-            return q80_matmul(x, w, layer)
-        return q80_matmul_plain(x, w, layer)
-    if layer is not None and w.dim() == 3:
+            return q80_matmul(x, w, layer, out_dtype)
+        return q80_matmul_plain(x, w, layer, out_dtype)
+    if layer is not None and w.dim() > 2:
         w = slice_leaf(w, layer)
     wd = w.to(x.dtype)
-    return torch.matmul(x.to(torch.float32), wd.to(torch.float32)).to(x.dtype)
+    return torch.matmul(x.to(torch.float32), wd.to(torch.float32)).to(out_dtype or x.dtype)

@@ -1221,7 +1221,7 @@ def _make_scheduler(loaded, n_slots: int, defaults: dict):
                      kernels=eng.backend, kv_layout=kv_layout, page_size=page_size,
                      kv_pages=int(defaults.get("kv_pages") or 0), device=eng.device,
                      radix_cache=radix_cache, kv_host_pages=kv_host_pages,
-                     spec=int(defaults.get("spec") or 0),
+                     spec=int(defaults.get("spec") or 0), moe_impl=eng.moe_impl,
                      # --transfer-guard: the steady-state replays under
                      # torch.cuda.set_sync_debug_mode
                      transfer_guard=str(defaults.get("transfer_guard") or "off"))

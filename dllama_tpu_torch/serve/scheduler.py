@@ -616,6 +616,23 @@ class Scheduler:
                               "%s", "; ".join(report["problems"]))
         return clean
 
+    def reset_latency_stats(self) -> None:
+        """Drop the accumulated latency and stall samples (a benchmark calls
+        this after its warm-up, so that capture gaps stay out of the
+        measured record): the completed-request ring, the admission and
+        host-gap samples, the decode-gap anchors (the first gap after the
+        reset cannot span back to a chunk before it), and the aggregator's
+        sliding windows, swapped for a fresh one with the same SLO policy,
+        cost model and peak."""
+        with self._metrics_lock:
+            self._completed.clear()
+            self._admit_gaps_ms.clear()
+            self._host_gap_ms.clear()
+            self._t_dec_end = None
+            self._t_consumed = None
+            self.perf = perf.PerfAggregator(slo=self.perf.slo, cost_model=self.perf.cost_model,
+                                            peak_gbs=self.perf.peak_gbs)
+
     def latency_summary(self) -> dict:
         """TTFT / inter-token latency over completed requests, plus the
         admission-stall and host-gap records."""
