@@ -481,11 +481,13 @@ def exact_check(kernel: str, got, x, w, layer, label: str) -> tuple[float, float
     return err, tol
 
 
-def matmul_cases(cfg, device, timer, gen, fmt: str, plan, layer: int = 1) -> dict:
+def matmul_cases(cfg, device, timer, gen, fmt: str, plan, layer: int = 1, tp: int = 1) -> dict:
     """The decode and prefill kernels of weight format `fmt` ('q40': K1/K2,
     'q80': K5/K6) at the 8B shapes of `plan` [(kernel, weight, m)], each
     weight stacked [L=2] with layer 1 used; K2 at m <= 16 under STYLE deq.
-    Each case must launch its own kernel."""
+    Each case must launch its own kernel. ``tp`` > 1: one rank's shard of
+    each weight on a tp mesh (out dim / tp for wq, wk, w1, wcls; in dim /
+    tp for w2), the case named "tp=N"."""
     import torch
 
     from dllama_tpu_torch.ops import q40_matmul, q80_matmul
@@ -495,7 +497,9 @@ def matmul_cases(cfg, device, timer, gen, fmt: str, plan, layer: int = 1) -> dic
                                "q80": (q80_matmul, random_q80, 1.0)}[fmt]
     kernel_fn, plain_fn = getattr(mod, f"{fmt}_matmul"), getattr(mod, f"{fmt}_matmul_plain")
     d, f, kvd, v = cfg.dim, cfg.hidden_dim, cfg.kv_dim, cfg.vocab_size
-    weights = {"wq": (d, d), "wk": (d, kvd), "w1": (d, f), "w2": (f, d), "wcls": (d, v)}
+    weights = {"wq": (d, d // tp), "wk": (d, kvd // tp), "w1": (d, f // tp),
+               "w2": (f // tp, d), "wcls": (d, v // tp)}
+    tag = f"tp={tp} " if tp > 1 else ""
     results: dict[str, list] = {}
     for kernel, name, m in plan:
         k, n = weights[name]
@@ -515,7 +519,7 @@ def matmul_cases(cfg, device, timer, gen, fmt: str, plan, layer: int = 1) -> dic
             wd = slice_leaf(w, layer).dequantize(torch.bfloat16)
             nbytes = m * k * 2 + int(k * n * weight_bytes) + (k // 32) * n * 2 + m * n * 2
             b, by = bound_ms(nbytes, 2.0 * m * k * n)
-            case = dict(case=f"{name} {k}x{n} m={m}{' deq' if deq else ''}",
+            case = dict(case=f"{tag}{name} {k}x{n} m={m}{' deq' if deq else ''}",
                         max_abs_err=(got - ref).abs().max().item(),
                         tol=(TOL_K1 if decode else TOL_K2) * ref.abs().max().item(),
                         ms=timer(lambda: kernel_fn(x, w, layer)),
@@ -622,35 +626,49 @@ def phase_kernels(cfg, device, timer, layer=1):
     plan += [("q40_prefill", "wk", 256), ("q40_prefill", "wq", 256),
              ("q40_prefill", "w1", 1), ("q40_prefill", "w1", 16)]
     results = matmul_cases(cfg, device, timer, gen, "q40", plan, layer)
+    # one rank's shards on a tp=2 mesh (the mesh phase's shapes): wq n=2048,
+    # w2 k=7168, wcls n=64128, as a decode step and a 256-token chunk
+    tp2 = [(kernel, name, m) for kernel, m in (("q40_decode", 1), ("q40_prefill", 256))
+           for name in ("wq", "w2", "wcls")]
+    for kernel, cases in matmul_cases(cfg, device, timer, gen, "q40", tp2, layer,
+                                      tp=2).items():
+        results[kernel] += cases
     results["flash_attention"] = []
 
     hq, hkv, hd, s = cfg.n_heads, cfg.n_kv_heads, cfg.head_size, 4096
     group = hq // hkv
     kc = torch.randn((1, hkv, s, hd), generator=gen, device=device).to(torch.bfloat16)
     vc = torch.randn((1, hkv, s, hd), generator=gen, device=device).to(torch.bfloat16)
-    for t, pos, cache_dtype in ((1, 0, torch.bfloat16), (1, 1000, torch.bfloat16),
-                                (1, 4095, torch.bfloat16), (256, 0, torch.bfloat16),
-                                (256, 2048, torch.bfloat16), (9, 1000, torch.bfloat16),
-                                (64, 0, torch.bfloat16), (128, 0, torch.bfloat16),
-                                (256, 3840, torch.bfloat16),
-                                (1, 1000, torch.float32)):  # T=9: a spec verify forward
-        q = torch.randn((1, t, hq, hd), generator=gen, device=device).to(torch.bfloat16)
+    for t, pos, cache_dtype, heads in (
+            (1, 0, torch.bfloat16, 1), (1, 1000, torch.bfloat16, 1),
+            (1, 4095, torch.bfloat16, 1), (256, 0, torch.bfloat16, 1),
+            (256, 2048, torch.bfloat16, 1), (9, 1000, torch.bfloat16, 1),
+            (64, 0, torch.bfloat16, 1), (128, 0, torch.bfloat16, 1),
+            (256, 3840, torch.bfloat16, 1),
+            (1, 1000, torch.float32, 1),  # T=9: a spec verify forward
+            # one rank's heads on a tp=2 mesh: 16 query and 4 kv heads
+            (1, 1000, torch.bfloat16, 2), (256, 0, torch.bfloat16, 2)):
+        nq, nkv = hq // heads, hkv // heads  # one rank's heads at tp=heads
+        q = torch.randn((1, t, nq, hd), generator=gen, device=device).to(torch.bfloat16)
         kc, vc = kc.to(cache_dtype), vc.to(cache_dtype)
-        got = flash_gqa_attention(q, kc, vc, pos, out_dtype=torch.float32)
-        ref = gqa_attention(q.float(), kc.float(), vc.float(), pos)
+        kh, vh = kc[:, :nkv], vc[:, :nkv]
+        got = flash_gqa_attention(q, kh, vh, pos, out_dtype=torch.float32)
+        ref = gqa_attention(q.float(), kh.float(), vh.float(), pos)
         torch.cuda.synchronize()
         live = pos + t
-        qt, kl, vl = q.transpose(1, 2).to(kc.dtype), kc[:, :, :live], vc[:, :, :live]
+        qt, kl, vl = q.transpose(1, 2).to(kh.dtype), kh[:, :, :live], vh[:, :, :live]
         mask = (torch.arange(live, device=device)[None, :]
                 <= pos + torch.arange(t, device=device)[:, None])
-        nbytes = 2 * q.numel() * 2 + 2 * hkv * live * hd * kc.element_size()
-        ops = 4.0 * hd * hq * sum(pos + i + 1 for i in range(t))
+        nbytes = 2 * q.numel() * 2 + 2 * nkv * live * hd * kh.element_size()
+        ops = 4.0 * hd * nq * sum(pos + i + 1 for i in range(t))
         b, by = bound_ms(nbytes, ops)
         tag = "" if cache_dtype == torch.bfloat16 else " f32 cache"
+        if heads > 1:
+            tag += f" tp={heads} heads {nq}/{nkv}"
         case = dict(case=f"T={t} pos={pos} S={s} group={group}{tag}",
                     max_abs_err=(got - ref).abs().max().item(), tol=TOL_K7,
-                    ms=timer(lambda: flash_gqa_attention(q, kc, vc, pos)),
-                    plain_ms=timer(lambda: gqa_attention(q, kc, vc, pos)),
+                    ms=timer(lambda: flash_gqa_attention(q, kh, vh, pos)),
+                    plain_ms=timer(lambda: gqa_attention(q, kh, vh, pos)),
                     library_ms=timer(lambda: F.scaled_dot_product_attention(
                         qt, kl, vl, attn_mask=mask, enable_gqa=True)),
                     bound_ms=b, bound_by=by)
@@ -1403,7 +1421,7 @@ def q80_records(scales, packed):
     return rec
 
 
-def write_model(path: str, cfg, device, seed: int = 0) -> None:
+def write_model(path: str, cfg, device, seed: int = 0, zero_mean: bool = False) -> None:
     """A `.m` of `cfg` with random Q40 records (packed bytes + small positive
     f16 scales) and a small f32 embedding, generated on the device. A Q80
     `cfg` gets the same seed's Q40 weights re-quantized to Q80 (q80_records):
@@ -1412,7 +1430,9 @@ def write_model(path: str, cfg, device, seed: int = 0) -> None:
     amplifies the kernels' exact codes against the plain path's bf16-rounded
     weights to 0.17 of max|logit| over 32 layers, where this recipe's nibbles,
     whose mean is -s/2, keep it near 6.5e-3; the kernels phase feeds the Q80
-    kernels such codes, -128 included.)"""
+    kernels such codes, -128 included.) `zero_mean`: Q40 nibbles drawn from
+    1..15, codes -7..7 of mean 0, a network whose output moves with its
+    input (mesh_power)."""
     import numpy as np
     import torch
 
@@ -1428,8 +1448,13 @@ def write_model(path: str, cfg, device, seed: int = 0) -> None:
                 nb = n // 32
                 scales = (torch.rand(nb, generator=gen, device=device) * 0.02
                           + 1e-3).to(torch.float16)
-                packed = torch.randint(0, 256, (nb, 16), generator=gen, device=device,
-                                       dtype=torch.uint8)
+                if zero_mean:
+                    lo, hi = (torch.randint(1, 16, (nb, 16), generator=gen, device=device,
+                                            dtype=torch.uint8) for _ in range(2))
+                    packed = lo | (hi << 4)
+                else:
+                    packed = torch.randint(0, 256, (nb, 16), generator=gen, device=device,
+                                           dtype=torch.uint8)
                 if ft == FloatType.Q80:
                     rec = q80_records(scales, packed)
                 else:
@@ -2126,7 +2151,8 @@ def phase_f8(mpath: str, tpath: str, device, prompt: str) -> dict:
 
     from dllama_tpu_torch.engine.loader import load_model
 
-    loaded = load_model(mpath, tpath, max_seq_len=4096, cache_dtype=torch.float8_e4m3fn,
+    loaded = load_model(mpath, tpath, max_seq_len=4096, mesh=None,
+                        cache_dtype=torch.float8_e4m3fn,
                         device=device)
     eng = loaded.engine
     if eng.cache.k.dtype != torch.float8_e4m3fn or eng.attn_route != "flash":
@@ -2155,7 +2181,7 @@ def q80_model(tmp: str, device):
     print(f"q80: wrote synthetic {cfg.describe()} ({os.path.getsize(mpath) / 1e9:.2f} GB) "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    loaded = load_model(mpath, tpath, max_seq_len=4096, device=device)
+    loaded = load_model(mpath, tpath, max_seq_len=4096, mesh=None, device=device)
     print(f"q80: load_model {time.perf_counter() - t0:.1f} s; kernels={loaded.engine.backend} "
           f"attention={loaded.engine.attn_route}", flush=True)
     layers_p = loaded.engine.params["layers"]
@@ -2229,7 +2255,7 @@ def phase_q80(device, prompt: str) -> dict:
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
             rc = cli(["inference", "--model", mpath, "--tokenizer", tpath, "--prompt", prompt,
                       "--temperature", "0", "--steps", "32", "--max-seq-len", "4096",
-                      "--fuse-weights"])
+                      "--fuse-weights", "--no-mesh"])
         launches = counters()
         stats = [ln for ln in err.getvalue().splitlines()
                  if ln.startswith(("Prefill:", "Decode:"))]
@@ -2285,6 +2311,8 @@ def _cli(argv: list[str]) -> tuple[int, str, list[str]]:
     from dllama_tpu_torch.cli.main import main as cli
 
     out, err = io.StringIO(), io.StringIO()
+    if "--mesh" not in argv:
+        argv = argv + ["--no-mesh"]  # one device even on a machine with several
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = cli(argv)
     stats = [ln for ln in err.getvalue().splitlines()
@@ -3011,7 +3039,7 @@ def cli_warmup_serve(mpath: str, tpath: str, body: dict) -> tuple[dict, str, flo
     proc, lines, ready = _spawn(
         [sys.executable, "-u", "-m", "dllama_tpu_torch", "serve", "--model", mpath,
          "--tokenizer", tpath, "--slots", "8", "--warmup", "auto", "--port", str(port),
-         "--max-seq-len", "4096"], "/v1/chat/completions")
+         "--max-seq-len", "4096", "--no-mesh"], "/v1/chat/completions")
     try:
         if not ready.wait(300) or proc.poll() is not None:
             fail(f"graphs: serve --warmup auto did not come up: {lines[-20:]}")
@@ -4601,7 +4629,7 @@ def phase_router(loaded, mpath: str, tpath: str) -> None:
         reps[f"127.0.0.1:{p}"] = _spawn(
             [sys.executable, "-u", "-m", "dllama_tpu_torch", "serve", "--model", mpath,
              "--tokenizer", tpath, "--slots", "8", "--warmup", "auto", "--port", str(p),
-             "--max-seq-len", "4096"], "/v1/chat/completions")
+             "--max-seq-len", "4096", "--no-mesh"], "/v1/chat/completions")
     router = None
     try:
         for rid, (proc, lines, ready) in reps.items():
@@ -4758,7 +4786,7 @@ def phase_golden(device) -> dict:
     from dllama_tpu_torch.engine.sampling import Sampler
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), GOLDEN_M)
-    loaded = load_model(path, None, device=device)
+    loaded = load_model(path, None, mesh=None, device=device)
     eng = loaded.engine
     if (eng.backend, eng.attn_route) != ("cuda", "torch"):
         fail(f"golden: kernels={eng.backend} attention={eng.attn_route}; want cuda, torch")
@@ -4800,7 +4828,8 @@ def phase_dequantize(loaded, device, mpath: str, tpath: str, prompt: str) -> dic
 
     eng = loaded.engine
     t0 = time.perf_counter()
-    dq = load_model(mpath, tpath, max_seq_len=4096, dequantize=True, device=device)
+    dq = load_model(mpath, tpath, max_seq_len=4096, mesh=None, dequantize=True,
+                    device=device)
     print(f"dequantize: load_model {time.perf_counter() - t0:.1f} s", flush=True)
     leaves = [dq.engine.params["wcls"]] + [dq.engine.params["layers"][k]
                                            for k in ("wq", "wk", "wv", "wo", "w1", "w2", "w3")]
@@ -4948,7 +4977,7 @@ def split_moe_forward(kernels: list) -> dict:
     return dict(split, busy_ms=sum(split.values()), **counts)
 
 
-def phase_moe(device, prompt: str) -> dict:
+def phase_moe(device, prompt: str, mesh: bool = False) -> dict:
     """Mixtral-8x7B at its published width (mixtral_8x7b), random Q40
     weights from seed 0 written by write_model, context cut to 4096, depth
     cut only where the temp filesystem cannot hold the file: (a) the
@@ -4964,7 +4993,9 @@ def phase_moe(device, prompt: str) -> dict:
     decode chunk exactly that many and no other; (f) device times: a
     captured decode step at 1 and 8 slots (wall, stream, busy), a captured
     256-token prefill chunk, and both split by kernel (moe_split). The
-    file is deleted at the end. Returns the launches of (d) and (e)."""
+    file is deleted at the end. With ``mesh`` (the mesh phase), after the
+    engine is freed: Mixtral at tp=2 against the saved unsharded logits
+    (mesh_moe). Returns the launches of (d) and (e)."""
     import gc
     import shutil
 
@@ -5004,7 +5035,7 @@ def phase_moe(device, prompt: str) -> dict:
         print(f"moe: wrote {os.path.getsize(mpath) / 1e9:.2f} GB in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
-        loaded = load_model(mpath, tpath, max_seq_len=4096, device=device)
+        loaded = load_model(mpath, tpath, max_seq_len=4096, mesh=None, device=device)
         eng, tok = loaded.engine, loaded.tokenizer
         w1 = eng.params["layers"].get("moe_w1")
         print(f"moe: load_model {time.perf_counter() - t0:.1f} s; kernels={eng.backend} "
@@ -5128,10 +5159,459 @@ def phase_moe(device, prompt: str) -> dict:
                      f"{want[0]}")
         took("the timings")
         eng.reset(0)
+        if mesh:  # the unsharded logits of a prefill and 8 greedy steps, saved
+            ref = [eng.prefill(ptoks)[0].float().cpu()]
+            for _ in range(MESH_MOE_STEPS):
+                ref.append(eng.decode_step([[int(ref[-1].argmax())]])[0].float().cpu())
+            eng.reset(0)
         del loaded, eng, tok, w1
         gc.collect()
         torch.cuda.empty_cache()
+        if mesh:
+            mesh_moe(mpath, tpath, device, ptoks, ref)
+            took("Mixtral at tp=2")
     return total
+
+
+#: greedy decode steps of Mixtral at tp=2 (after its prefill)
+MESH_MOE_STEPS = 8
+
+
+def mesh_moe(mpath: str, tpath: str, device, ptoks: list[int], ref: list) -> None:
+    """Mixtral-8x7B at tp=2 (the mesh phase's mode: both ranks on one card
+    over gloo, or one a card over NCCL): a prefill and MESH_MOE_STEPS
+    decode steps fed the unsharded engine's greedy ids, each step's logits
+    within TOL_FWD of the unsharded logits `ref`, and the argmax equal or at
+    a near tie of `ref`. Prints each rank's lazy load."""
+    import gc
+
+    import torch
+
+    from dllama_tpu_torch.engine.loader import load_model
+
+    one_card = torch.cuda.device_count() < 2
+    t0 = time.perf_counter()
+    m = load_model(mpath, tpath, max_seq_len=4096, mesh="tp=2", device=device,
+                   devices=[device, device] if one_card else None)
+    try:
+        print(f"moe mesh: Mixtral at tp=2 ({m.world.mesh.backend}"
+              f"{', staged' if m.world.mesh.staged else ''}) loaded in "
+              f"{time.perf_counter() - t0:.1f} s; local FFN {m.engine.cfg.hidden_dim}, heads "
+              f"{m.engine.cfg.n_heads}/{m.engine.cfg.n_kv_heads}", flush=True)
+        for r in m.world.call_all("rank_report"):
+            print(f"moe mesh rank {r['rank']}: params {r['param_bytes'] / 1e9:.3f} GB, lazy "
+                  f"Q40 decode {r['lazy_decode_bytes'] / 1e9:.3f} GB in "
+                  f"{r['lazy_decode_s']:.1f} s, build {r['build_s']:.1f} s", flush=True)
+        eng = m.engine
+        eng.reset(0)
+        got = [eng.prefill(ptoks)[0].float().cpu()]
+        for i in range(MESH_MOE_STEPS):
+            got.append(eng.decode_step([[int(ref[i].argmax())]])[0].float().cpu())
+        for i, (a, b) in enumerate(zip(got, ref)):
+            err = _rel(a, b)
+            top2 = torch.topk(b, 2).values
+            gap, scale = (top2[0] - top2[1]).item(), b.abs().max().item()
+            same = int(a.argmax()) == int(b.argmax())
+            print(f"moe mesh: {'prefill' if i == 0 else f'decode {i}'}: max|diff|/max|logit| "
+                  f"{err:.3e} <= TOL_FWD {TOL_FWD}; argmax {'equal' if same else 'apart'} "
+                  f"(top-2 margin {gap:.3e})", flush=True)
+            if not err <= TOL_FWD:
+                fail("moe mesh: the tp=2 logits are off the unsharded kernels'")
+            if not same and not gap < TOL_FWD * scale:
+                fail("moe mesh: the tp=2 argmax differs where the margin is no near tie")
+    finally:
+        m.world.close()
+        del m
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------ mesh (tp=2)
+
+#: tokens of the mesh phase's greedy continuations (single engine and slots)
+MESH_TOKENS = 32
+
+
+def _cli_rc_err(argv: list[str]) -> tuple[int, str]:
+    """The CLI in this process -> (exit code, its stderr)."""
+    from dllama_tpu_torch.cli.main import main as cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli(argv)
+    return rc, err.getvalue()
+
+
+def _rel(a, b) -> float:
+    """max |a - b| over max |b| (f32)."""
+    a, b = a.float(), b.float()
+    return ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+
+
+def mesh_step_logits(eng, ptoks: list[int], n_decode: int = 2) -> list:
+    """[prefill logits, n_decode decode logits] of `ptoks`, the argmax fed."""
+    eng.reset(0)
+    out = [eng.prefill(ptoks)[0].float()]
+    for _ in range(n_decode):
+        out.append(eng.decode_step([[int(out[-1].argmax())]])[0].float())
+    eng.reset(0)
+    return out
+
+
+def phase_mesh(loaded, mpath: str, tpath: str, device, prompt: str) -> dict:
+    """Tensor parallelism at tp=2 on Llama-3.1-8B Q40 (the smoke's model).
+    With one card both ranks run on it over gloo, the exchange staged
+    through pinned host memory and the programs eager (NCCL refuses two
+    ranks on one card); with two or more, one rank a card over NCCL, the
+    programs captured, and then the CLI's `serve --mesh tp=2 --slots 8`
+    answers 8 streams. Checks: the CLI's --mesh tp=2 on one card exits 2
+    with the device-count message; each rank's parameter bytes are half
+    the matmul weights plus the replicated embedding and norms (2%); the
+    prefill and two decode logits within TOL_FWD of the unsharded
+    kernels'; 32 greedy ids equal to the unsharded engine's or first apart
+    at a near tie; the same for 8 slots of a dense BatchEngine; every
+    rank's K1/K2/K7 launches for a decode step and a 256-token chunk equal
+    the unsharded engine's; one decode step's measured exchange equals the
+    bytes of its shapes (printed beside collective_bytes_per_token's wire
+    model); every rank's token results digest equal; then mesh_power, the
+    checks' power on a model whose logits move with the input. Prints the decode
+    step's wall time and each rank's lazy load (bytes decoded, seconds).
+    With one card, then the NCCL path at one rank (mesh_nccl_one). Returns
+    rank 0's launches of the driven path (single engine and 8 slots)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from dllama_tpu_torch.engine.batch import BatchEngine
+    from dllama_tpu_torch.engine.loader import load_model
+    from dllama_tpu_torch.engine.sampling import Sampler
+    from dllama_tpu_torch.utils.profiling import collective_bytes_per_token, params_nbytes
+
+    cfg, eng, tok = loaded.config, loaded.engine, loaded.tokenizer
+    n_cards = torch.cuda.device_count()
+    one_card = n_cards < 2
+    mode = ("gloo, both ranks on cuda:0, the exchange staged through pinned host memory, "
+            "programs eager" if one_card else "NCCL, one rank a card, programs captured")
+    print(f"phase mesh: torch.cuda.device_count() = {n_cards}; tp=2 over {mode}", flush=True)
+    if one_card:
+        rc, err = _cli_rc_err(["inference", "--model", mpath, "--tokenizer", tpath,
+                               "--prompt", "x", "--mesh", "tp=2"])
+        msg = next((ln for ln in err.splitlines() if "--mesh" in ln), "")
+        print(f"mesh: the CLI's --mesh tp=2 on one card: rc {rc}: {msg}", flush=True)
+        if rc != 2 or "the mesh needs 2 devices, have 1" not in msg:
+            fail("mesh: the CLI did not refuse a mesh larger than the cards")
+    t0 = time.perf_counter()
+    m = load_model(mpath, tpath, max_seq_len=4096, mesh="tp=2", device=device,
+                   devices=[device, device] if one_card else None)
+    load_s = time.perf_counter() - t0
+    world, meng = m.world, m.engine
+    try:
+        print(f"mesh: load_model {load_s:.1f} s; backend {world.mesh.backend}, staged "
+              f"{world.mesh.staged}; programs {'captured' if meng.programs.capture else 'eager'}"
+              f" on both tiers; rank 0 kernels={meng.backend} attention={meng.attn_route}; "
+              f"local heads {meng.cfg.n_heads}/{meng.cfg.n_kv_heads}, FFN {meng.cfg.hidden_dim}",
+              flush=True)
+        if meng.backend != "cuda" or meng.attn_route != "flash":
+            fail("mesh: rank 0 does not run the CUDA kernels")
+        full = params_nbytes(eng.params)
+        repl = params_nbytes({k: eng.params[k] for k in ("embedding", "final_norm")}) + \
+            params_nbytes({k: eng.params["layers"][k] for k in ("rms_att", "rms_ffn")})
+        want = repl + (full - repl) / 2
+        for r in world.call_all("rank_report"):
+            print(f"mesh rank {r['rank']} ({r['device']}): params {r['param_bytes'] / 1e9:.3f} "
+                  f"GB (want {want / 1e9:.3f}: half of {(full - repl) / 1e9:.3f} GB of matmul "
+                  f"weights + {repl / 1e9:.3f} GB replicated), allocated "
+                  f"{r['allocated_bytes'] / 1e9:.3f} GB; lazy Q40 decode "
+                  f"{r['lazy_decode_bytes'] / 1e9:.3f} GB in {r['lazy_decode_s']:.1f} s; build "
+                  f"{r['build_s']:.1f} s", flush=True)
+            if abs(r["param_bytes"] - want) > 0.02 * want:
+                fail(f"mesh: rank {r['rank']} holds {r['param_bytes']} parameter bytes, "
+                     f"want about {want:.0f}")
+        ptoks = tok.encode(prompt, add_bos=True)
+        prompts = [tok.encode(p) for p in batch_prompts(8)]
+        kw = dict(n_slots=8, cache_dtype=torch.bfloat16, max_seq_len=4096, kv_layout="dense")
+
+        def drive(e, batch_engine):
+            """(a) the logits of a prefill and two decode steps, (b) greedy ids
+            of the single engine, (c) 8 slots of a dense BatchEngine."""
+            logits = mesh_step_logits(e, ptoks)
+            t0 = time.perf_counter()
+            ids = list(e.generate(ptoks, MESH_TOKENS, Sampler(0.0, 0.9, 0)))
+            gen_s = time.perf_counter() - t0
+            e.reset(0)
+            be = batch_engine()
+            first = [be.add(s, p, temperature=0.0) for s, p in enumerate(prompts)]
+            toks = be.decode(MESH_TOKENS - 1)
+            streams = [[f] + [int(t) for t in toks[:, s]] for s, f in enumerate(first)]
+            del be
+            gc.collect()
+            torch.cuda.empty_cache()
+            return logits, ids, gen_s, streams
+
+        # the mesh's path first, counted alone: this process also runs the
+        # unsharded reference afterwards
+        reset_counters()
+        world.call_all("rank_launches", True)
+        logits, ids, gen_s, streams = drive(meng, lambda: world.make("batch", **kw))
+        launches = counters()
+        ranks = world.call_all("rank_launches", True)
+        print(f"mesh: launches of the driven path, rank 0 {launches}; by rank "
+              f"{[{k: r.get(k, 0) for k in SERVE_KERNELS} for r in ranks]}", flush=True)
+        if any(r.get(k, 0) == 0 for r in ranks for k in SERVE_KERNELS):
+            fail("mesh: a rank never launched one of K1/K2/K7 on the driven path")
+        ref_logits, ref, _, ref_streams = drive(
+            eng, lambda: BatchEngine(cfg, eng.params, device=eng.device, **kw))
+        for i, (a, b) in enumerate(zip(logits, ref_logits)):
+            err = _rel(a, b)
+            print(f"mesh: {'prefill' if i == 0 else f'decode {i}'} logits, tp=2 vs one "
+                  f"device: max|diff|/max|logit| {err:.3e} <= TOL_FWD {TOL_FWD}", flush=True)
+            if not err <= TOL_FWD:
+                fail("mesh: the tp=2 logits are off the unsharded kernels'")
+        print(f"mesh: the unsharded logits move {_rel(ref_logits[1], ref_logits[0]):.3e} of "
+              "max|logit| from the prefill to decode 1 (see mesh_power)", flush=True)
+        msg = near_tie(loaded, ptoks, ids, ref, "mesh single engine")
+        print(f"mesh: {MESH_TOKENS} greedy ids {'equal to one device' if msg is None else msg}"
+              f" ({gen_s:.2f} s with the prefill)", flush=True)
+        apart = 0
+        for s, (a, b) in enumerate(zip(streams, ref_streams)):
+            if near_tie(loaded, prompts[s], a, b, f"mesh batch slot {s}") is not None:
+                apart += 1
+        print(f"mesh: 8 dense slots, {MESH_TOKENS} greedy ids each: {8 - apart} equal to one "
+              f"device, {apart} first apart at a near tie", flush=True)
+        # (d) a decode step and a 256-token chunk: each rank's launches
+        chunk = np.random.default_rng(6).integers(0, cfg.vocab_size, (1, 256))
+
+        def counted(e, fn):
+            fn(e)  # once first: a capture's warm-up launches are not a step's
+            reset_counters()
+            world.call_all("rank_launches", True)
+            fn(e)
+            return counters()
+
+        for label, fn in (("decode step", lambda e: (e.reset(len(ptoks)),
+                                                     e.decode_step([[ids[0]]]))),
+                          ("256-token chunk", lambda e: (e.reset(0), e.step(chunk)))):
+            ref_n = counted(eng, fn)
+            counted(meng, fn)
+            per_rank = world.call_all("rank_launches", True)
+            want_n = {k: ref_n.get(k, 0) for k in SERVE_KERNELS}
+            got = [{k: r.get(k, 0) for k in SERVE_KERNELS} for r in per_rank]
+            print(f"mesh: {label}: K1/K2/K7 launches by rank {got}, one device {want_n}",
+                  flush=True)
+            if any(g != want_n for g in got):
+                fail(f"mesh: a rank's launches for a {label} differ from one device's")
+        eng.reset(0)
+        # (e) one decode step's exchange
+        rep = meng.measured_collective_report()
+        shapes = cfg.n_layers * 2 * cfg.dim * 2 + cfg.vocab_size * 4
+        wire = collective_bytes_per_token(cfg, tp=2)["bytes_per_token_per_chip"]
+        print(f"mesh: one decode step's exchange, measured {rep['total_bytes']} B "
+              f"({rep['per_op']}); its shapes {shapes} B (2 bf16 all-reduces of dim a layer, "
+              f"the f32 logits gathered); collective_bytes_per_token's wire model "
+              f"{wire:.0f} B sent+received a chip", flush=True)
+        if rep["total_bytes"] != shapes:
+            fail("mesh: the measured exchange is not the bytes of its shapes")
+        # (f) a decode step's wall time
+        meng.reset(len(ptoks))
+        meng.decode_greedy_n([[ids[0]]], 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        meng.reset(len(ptoks))
+        meng.decode_greedy_n([[ids[0]]], 16)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / 16 * 1e3
+        print(f"mesh: decode step wall {step_ms:.3f} ms (tp=2, {mode})", flush=True)
+        digests = world.call_all("rank_digest")
+        if len(set(digests)) != 1:
+            fail(f"mesh: the ranks' token results differ: {digests}")
+        print(f"mesh: every rank's token results equal ({digests[0][:12]})", flush=True)
+        if not one_card:
+            mesh_cli_serve(mpath, tpath)
+    finally:
+        world.close()
+        del m, meng, world
+        gc.collect()
+        torch.cuda.empty_cache()
+    mesh_power(os.path.dirname(mpath), tpath, device, ptoks)
+    if one_card:
+        mesh_nccl_one(loaded, mpath, device, ptoks, ref_logits, ref, prompts, ref_streams)
+    return launches
+
+
+#: the depth of mesh_power's model (Llama-3.1-8B's widths, codes of mean 0)
+MESH_POWER_LAYERS = 2
+
+
+def mesh_power(tmp: str, tpath: str, device, ptoks: list[int]) -> None:
+    """What the mesh checks can see. The smoke's model (write_model's codes,
+    of mean -s/2) is nearly a constant function: every matmul's output
+    leans on one fixed direction whose scale the norms take out, so its
+    logits move about as far from one token to the next as tp=2 moves them,
+    and a fault that drops a partial sum hides there. The checks' power is
+    shown on a model of Llama-3.1-8B's widths whose codes have mean 0, cut
+    to MESH_POWER_LAYERS layers, at tp=2 (both ranks on one card over gloo,
+    the programs eager, whatever the cards): its logits (a prefill and two
+    decode steps) and every layer's K/V rows of the prompt on rank 0 (its
+    kv heads; a layer's rows read its input, the exchange's output) within
+    TOL_FWD of one device's. Then two faults are planted in rank 0's
+    exchange (its partial sums left out of the reduce, which both ranks
+    then share): at layer 0, and at every layer's wo. Both checks must
+    catch each."""
+    import gc
+
+    import torch
+
+    from dllama_tpu_torch.engine.loader import load_model
+
+    cfg = llama31_8b(MESH_POWER_LAYERS)
+    path = os.path.join(tmp, "llama31_8b_power.m")
+    t0 = time.perf_counter()
+    write_model(path, cfg, device, seed=1, zero_mean=True)
+    one = load_model(path, tpath, max_seq_len=4096, mesh=None, device=device).engine
+    m = load_model(path, tpath, max_seq_len=4096, mesh="tp=2", device=device,
+                   devices=[device, device])
+    meng, ex = m.engine, m.engine.exchange
+    n, kv, n_layers = len(ptoks), meng.cfg.n_kv_heads, cfg.n_layers
+    def steps(e, feed) -> list:
+        """[prefill logits, a decode step's for each token of `feed`]; the
+        prefill's rows [0, n) stay in the cache."""
+        e.reset(0)
+        out = [e.prefill(ptoks)[0].float()]
+        out += [e.decode_step([[t]])[0].float() for t in feed]
+        e.reset(0)
+        return out
+
+    try:
+        ref = mesh_step_logits(one, ptoks)
+        feed = [int(x.argmax()) for x in ref[:-1]]  # both sides fed one device's ids
+        ref = steps(one, feed)
+        ref_k = one.cache.k[:, 0, :kv, :n].float().clone()
+        ref_v = one.cache.v[:, 0, :kv, :n].float().clone()
+        print(f"mesh power: {cfg.describe()}, codes of mean 0, up in "
+              f"{time.perf_counter() - t0:.1f} s; its logits move "
+              f"{_rel(ref[1], ref[0]):.3e} of max|logit| from the prefill to decode 1",
+              flush=True)
+
+        def run() -> tuple[float, list[float]]:
+            logits = steps(meng, feed)
+            k, v = meng.cache.k[:, 0, :, :n].float(), meng.cache.v[:, 0, :, :n].float()
+            rows = [max(_rel(k[i], ref_k[i]), _rel(v[i], ref_v[i])) for i in range(n_layers)]
+            return max(_rel(a, b) for a, b in zip(logits, ref)), rows
+
+        logit_err, rows = run()
+        print(f"mesh power: tp=2 vs one device: logits {logit_err:.3e}, K/V rows by layer "
+              f"{[f'{e:.3e}' for e in rows]} <= TOL_FWD {TOL_FWD}", flush=True)
+        if not max(rows + [logit_err]) <= TOL_FWD:
+            fail("mesh power: the tp=2 logits or K/V rows are off one device's")
+        for label, skip in (("rank 0's wo and w2 partials left out at layer 0",
+                             lambda i: i % (2 * n_layers) < 2),
+                            ("rank 0's wo partial left out at every layer",
+                             lambda i: i % 2 == 0)):
+            calls = [0]
+
+            def faulty(x, skip=skip, calls=calls, reduce=ex.reduce_partial):
+                calls[0] += 1  # a forward reduces wo, then w2, a layer
+                return reduce(torch.zeros_like(x) if skip(calls[0] - 1) else x)
+
+            ex.reduce_partial = faulty
+            try:
+                logit_err, rows = run()
+            finally:
+                del ex.reduce_partial
+            print(f"mesh power: planted {label}: logits {logit_err:.3e}, K/V rows by layer "
+                  f"{[f'{e:.3e}' for e in rows]} (TOL_FWD {TOL_FWD})", flush=True)
+            if logit_err <= TOL_FWD or max(rows) <= TOL_FWD:
+                fail(f"mesh power: a check missed a planted fault ({label})")
+        digests = m.world.call_all("rank_digest")
+        if len(set(digests)) != 1:
+            fail(f"mesh power: the ranks' token results differ: {digests}")
+    finally:
+        m.world.close()
+        del m, meng, ex, one
+        gc.collect()
+        torch.cuda.empty_cache()
+        os.remove(path)
+
+
+def mesh_nccl_one(loaded, mpath: str, device, ptoks, ref_logits, ref, prompts,
+                  ref_streams) -> None:
+    """The NCCL path on one card: a world of one rank over NCCL (NCCL
+    refuses two ranks on one card), the engines built as on a mesh (the
+    exchange on, so every layer's wo all-reduce is an NCCL collective) and
+    their programs captured with it. Checks: both tiers' programs captured,
+    the logits of mesh_step_logits bit-equal to one device's (an all-reduce
+    over one rank adds nothing), the single engine's greedy ids and 8 dense
+    slots' equal to one device's."""
+    import gc
+
+    import torch
+
+    from dllama_tpu_torch.engine.sampling import Sampler
+    from dllama_tpu_torch.parallel import multihost
+    from dllama_tpu_torch.parallel.mesh import MeshConfig
+
+    t0 = time.perf_counter()
+    world = multihost.launch(
+        "dllama_tpu_torch.engine.loader:rank_engine",
+        dict(model_path=mpath, max_seq_len=4096, engine_kw={}), MeshConfig(tp=1),
+        device=device)
+    eng = world.engine
+    try:
+        print(f"mesh nccl: a one-rank world over {world.mesh.backend} up in "
+              f"{time.perf_counter() - t0:.1f} s; programs "
+              f"{'captured' if eng.programs.capture else 'eager'}", flush=True)
+        logits = mesh_step_logits(eng, ptoks)
+        same = all(torch.equal(a, b) for a, b in zip(logits, ref_logits))
+        ids = list(eng.generate(ptoks, MESH_TOKENS, Sampler(0.0, 0.9, 0)))
+        eng.reset(0)
+        be = world.make("batch", n_slots=8, cache_dtype=torch.bfloat16, max_seq_len=4096,
+                        kv_layout="dense")
+        first = [be.add(s, p, temperature=0.0) for s, p in enumerate(prompts)]
+        toks = be.decode(MESH_TOKENS - 1)
+        streams = [[f] + [int(t) for t in toks[:, s]] for s, f in enumerate(first)]
+        graphs = (eng.programs.stats()["graphs"], be.programs.stats()["graphs"])
+        rep = eng.measured_collective_report()
+        print(f"mesh nccl: graphs captured single {graphs[0]}, batched {graphs[1]}; logits "
+              f"{'bit-equal to' if same else 'apart from'} one device's; {MESH_TOKENS} greedy "
+              f"ids {'equal' if ids == ref else 'apart'}; 8 slots "
+              f"{'equal' if streams == ref_streams else 'apart'}; one decode step's "
+              f"all-reduces {rep['per_op']}", flush=True)
+        if eng.device.type == "cuda" and (world.mesh.backend != "nccl" or min(graphs) == 0):
+            fail("mesh nccl: the programs were not captured over NCCL")
+        if not same or ids != ref or streams != ref_streams:
+            near_tie(loaded, ptoks, ids, ref, "mesh nccl single engine")
+            fail("mesh nccl: a one-rank NCCL world is not one device, bit for bit")
+        del be
+    finally:
+        world.close()
+        del eng, world
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def mesh_cli_serve(mpath: str, tpath: str) -> None:
+    """The CLI's `serve --mesh tp=2 --slots 8` (two or more cards): 8
+    concurrent streams of 32 greedy tokens, each answered."""
+    port = _free_port()
+    proc, lines, ready = _spawn(
+        [sys.executable, "-u", "-m", "dllama_tpu_torch", "serve", "--model", mpath,
+         "--tokenizer", tpath, "--mesh", "tp=2", "--slots", "8", "--port", str(port),
+         "--max-seq-len", "4096"], "/v1/chat/completions")
+    try:
+        if not ready.wait(400) or proc.poll() is not None:
+            fail(f"mesh: serve --mesh tp=2 did not come up: {lines[-20:]}")
+        bodies = [{"messages": [{"role": "user", "content": p}], "max_tokens": MESH_TOKENS,
+                   "temperature": 0} for p in batch_prompts(8)]
+        out = _concurrently(lambda b: _post(port, b), [(b,) for b in bodies])
+        n = [json.loads(data)["usage"]["completion_tokens"] for status, data in out
+             if status == 200]
+        print(f"mesh: serve --mesh tp=2 --slots 8 answered {len(n)} of 8 streams, "
+              f"{sum(n)} tokens", flush=True)
+        if len(n) != 8:
+            fail("mesh: serve --mesh tp=2 did not answer every stream")
+    finally:
+        _reap(proc)
 
 
 # ------------------------------------------------------------ main
@@ -5170,7 +5650,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="card,kernels,golden,kbench,forward,serve,batch,hybrid,radix,obs,"
                             "supervision,router,inference,styles,spec,spec_batch,graphs,"
-                            "dequantize,f8,q80,moe",
+                            "dequantize,mesh,f8,q80,moe",
                     help="comma list; not in the default: 'profile' adds a "
                          "torch.profiler pass over one decode chunk, single-stream "
                          "and 8-slot; 'chunk' is the prefill-chunk timing alone (Q40 "
@@ -5234,7 +5714,7 @@ def main(argv=None) -> int:
               "a storm, and a ship that never arrives.")
     if phases & {"forward", "chunk", "serve", "profile", "batch", "hybrid", "radix", "obs",
                   "supervision", "router", "inference", "styles", "spec", "spec_batch",
-                  "graphs", "dequantize", "f8"}:
+                  "graphs", "dequantize", "mesh", "f8"}:
         from dllama_tpu_torch.engine.loader import load_model
 
         tmp = tempfile.TemporaryDirectory(prefix="dllama_smoke_")
@@ -5245,7 +5725,7 @@ def main(argv=None) -> int:
         print(f"wrote synthetic {cfg.describe()} ({os.path.getsize(mpath) / 1e9:.2f} GB) "
               f"in {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
-        loaded = load_model(mpath, tpath, max_seq_len=4096, device=device)
+        loaded = load_model(mpath, tpath, max_seq_len=4096, mesh=None, device=device)
         print(f"load_model: {time.perf_counter() - t0:.1f} s; kernels={loaded.engine.backend} "
               f"attention={loaded.engine.attn_route}", flush=True)
         phase_done("model")
@@ -5382,6 +5862,9 @@ def main(argv=None) -> int:
         if "dequantize" in phases:
             paths["dequantize"] = phase_dequantize(loaded, device, mpath, tpath, prompt)
         phase_done("dequantize", phases)
+        if "mesh" in phases:
+            paths["mesh"] = phase_mesh(loaded, mpath, tpath, device, prompt)
+        phase_done("mesh", phases)
         del loaded
         torch.cuda.empty_cache()
         if "f8" in phases:
@@ -5400,7 +5883,7 @@ def main(argv=None) -> int:
     phase_done("q80", phases)
 
     if "moe" in phases:
-        paths["moe"] = phase_moe(device, prompt)
+        paths["moe"] = phase_moe(device, prompt, mesh="mesh" in phases)
     phase_done("moe", phases)
 
     if results:

@@ -14,6 +14,8 @@ Layer map (each module mirrors its `dllama_tpu` counterpart):
   engine/     sampler, kernel selection, InferenceEngine, loader
   tokenizer/  `.t` format, byte-level BPE, chat templates, EOS detection
   serve/      OpenAI-compatible HTTP API (single-engine tier)
+  parallel/   tensor parallelism on torch.distributed: mesh, sharding rules,
+              collectives, one process a rank driven by rank 0
   cli/        `inference` / `chat` / `serve` / `info` frontends
 """
 

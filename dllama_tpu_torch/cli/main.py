@@ -10,10 +10,16 @@ Modes:
              handshake, health polling, prefix-affinity routing, failover
              and mid-stream failover, the fleet observability plane
 
-Everything runs on one device, `--device cuda` (the default) or
-`--device cpu`. Without a CUDA device the CLI stops with an error unless the
-CPU was asked for. Options of the JAX package that this package has not
-ported yet are accepted by name and refused with a clear message (exit 2).
+Everything runs on `--device cuda` (the default) or `--device cpu`. Without
+a CUDA device the CLI stops with an error unless the CPU was asked for.
+`--mesh tp=N` (default `auto`: every card on tp; `--no-mesh` pins one
+device) runs tensor parallelism, one process a rank with rank 0 driving
+(parallel/multihost.py), over NCCL on cards and gloo on the CPU; `--sync`
+picks the exchange's payload, and `--distributed --coordinator HOST:PORT
+--num-processes P --process-id I` joins processes across hosts. The other
+mesh axes, and `--faults`, `$DLLAMA_FAULTS` or `--restart-max` on the mesh
+that runs, exit 2 by name. Options of the JAX package that this package has
+not ported yet are accepted by name and refused with a clear message (exit 2).
 `serve --slots N` runs the JAX package's defaults: paged KV where the paged
 kernel takes the model, the radix prefix tree on it (`--radix-cache auto`),
 preemption with priority classes and tenant fair queueing (`--preempt auto`,
@@ -243,8 +249,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "requests ride the cycles one token at a time. Telemetry: "
                         "dllama_spec_*, the spec objects of timings and /debug/perf "
                         "(default: --spec)")
-    # accepted by name, refused until ported
-    p.add_argument("--mesh", default=None, help="device mesh (not yet ported)")
+    p.add_argument("--mesh", default="auto",
+                   help="device mesh 'tp=2' or 'auto' (every card on tp, capped by the kv "
+                        "heads); one process a rank, rank 0 drives (dp, sp, pp and ep are "
+                        "not ported). On the CPU ('--device cpu') each rank is a process")
+    p.add_argument("--no-mesh", action="store_true", help="one device even if more exist")
+    p.add_argument("--sync", choices=["bf16", "q80", "auto"], default="bf16",
+                   help="tp activation exchange: bf16 (exact, default), q80 (the "
+                        "reference's quantized payload), or auto (q80 only at tp=2)")
+    p.add_argument("--distributed", action="store_true",
+                   help="multi-host: run the same command on every host with "
+                        "--coordinator, --num-processes and --process-id; process 0 drives")
+    p.add_argument("--coordinator", default=None, help="host:port rendezvous of process 0")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--transfer-guard", choices=["off", "log", "strict"], default="off",
                    help="serve mode, needs --slots > 0: run the steady-state decode and "
                         "spec replays under torch.cuda.set_sync_debug_mode; 'strict' "
@@ -254,9 +272,40 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _resolve_mesh(args):
+    """The mesh the command runs (engine/loader.resolve_mesh over the model
+    file's header and the cards, or the processes of --distributed), or
+    None for one device. An unreadable file resolves to None here and is
+    reported by the load."""
+    from dllama_tpu_torch.engine.loader import resolve_mesh
+    from dllama_tpu_torch.models.formats import read_header
+
+    if args.no_mesh or args.mode not in ("inference", "chat", "serve"):
+        return None
+    try:
+        cfg, _ = read_header(args.model, args.max_seq_len)
+    except (OSError, ValueError):
+        return None
+    return resolve_mesh(args.mesh, cfg, args.device)
+
+
 def _refuse_unported(args) -> None:
-    if args.mesh is not None:
-        raise NotPorted("--mesh (multi-device meshes)")
+    """What this package does not carry: the mesh axes but tp, and on the
+    mesh that really runs, fault injection (--faults or $DLLAMA_FAULTS) and
+    warm restarts (a follower's recovery needs a design of its own)."""
+    from dllama_tpu_torch.parallel.mesh import NotPorted as MeshNotPorted
+    from dllama_tpu_torch.utils import faults
+
+    try:
+        mesh = _resolve_mesh(args)
+    except MeshNotPorted as e:
+        raise NotPorted(str(e)) from None
+    if mesh is None:
+        return
+    if any(faults.active(p) for p in faults.POINTS):
+        raise NotPorted(f"{'--faults' if args.faults else '$' + faults.ENV_VAR} on a mesh")
+    if args.restart_max:
+        raise NotPorted("--restart-max (warm restart) on a mesh")
 
 
 def _parse_tenant_weights(specs) -> dict[str, float] | None:
@@ -284,18 +333,26 @@ def _load(args):
 
     if args.exact_topp:
         sampling.NUCLEUS_K = None
-    return load_model(
+    m = load_model(
         args.model,
         args.tokenizer,
         max_seq_len=args.max_seq_len,
+        mesh=None if args.no_mesh else args.mesh,
         cache_dtype=CACHE_DTYPES[args.cache_dtype],
         max_prefill_chunk=args.max_prefill_chunk,
         dequantize=args.dequantize,
+        sync=args.sync,
         kernels=args.kernels,
         moe_impl=args.moe,
         fuse_weights=args.fuse_weights,
         device=args.device,
     )
+    if m.world is not None:
+        if not m.world.driver:
+            # a process of a --distributed world other than process 0: follow
+            raise SystemExit(m.world.follow())
+        m.world.link.fail_stop = True  # a dead rank ends this process non-zero
+    return m
 
 
 def _sampler(args):
@@ -359,9 +416,17 @@ def cmd_inference(args) -> int:
         print(profiling.memory_report(m.config, m.engine.params, m.engine.cache),
               file=sys.stderr)
         print(f"⏱  {timer.summary()}", file=sys.stderr)
-        est = profiling.collective_bytes_per_token(m.config)
+        tp = m.shardings.tp if m.shardings is not None else 1
+        est = profiling.collective_bytes_per_token(
+            m.config, tp=tp, exchange_bytes=34 / 32 if m.sync == "q80" else 2.0)
+        print(f"🔗 mesh: {m.shardings.mesh.shape if m.shardings else 'one device'} "
+              f"(sync {m.sync})", file=sys.stderr)
         print(f"🔗 est. inter-chip payload: {est['kb_per_token_per_chip']:.0f} "
-              "kB/token/chip (one device)", file=sys.stderr)
+              f"kB/token/chip (tp={tp})", file=sys.stderr)
+        meas = m.engine.measured_collective_report()
+        ops = ", ".join(f"{k}={v / 1024:.1f}kB" for k, v in meas["per_op"].items()) or "none"
+        print(f"🔗 measured in one decode step: {meas['total_bytes'] / 1024:.1f} kB ({ops})",
+              file=sys.stderr)
     if args.trace:
         print(f"trace: {profiling.profile_status()['last_trace']}", file=sys.stderr)
     return 0
@@ -503,17 +568,29 @@ def main(argv=None) -> int:
     except ValueError as e:
         print(f"fault spec: {e}", file=sys.stderr)
         return 2
-    try:
-        _refuse_unported(args)
-    except NotPorted as e:
-        print(f"{e} is not yet ported to the PyTorch/CUDA package", file=sys.stderr)
-        return 2
     if args.mode == "router":
         return cmd_router(args)  # owns no device: the replicas do
     if args.mode != "info" and args.device == "cuda" and not torch.cuda.is_available():
         print("no CUDA device was found; pass --device cpu to run on the CPU",
               file=sys.stderr)
         return 1
+    from dllama_tpu_torch.parallel.mesh import MeshTooLarge
+
+    try:
+        if args.distributed:
+            from dllama_tpu_torch.parallel.multihost import initialize
+
+            initialize(args.coordinator, args.num_processes, args.process_id)
+        _refuse_unported(args)
+    except NotPorted as e:
+        print(f"{e} is not yet ported to the PyTorch/CUDA package", file=sys.stderr)
+        return 2
+    except MeshTooLarge as e:
+        print(f"--mesh {args.mesh}: {e}", file=sys.stderr)
+        return 2
+    except ValueError as e:  # --distributed's settings
+        print(str(e), file=sys.stderr)
+        return 2
     return {
         "info": cmd_info,
         "inference": cmd_inference,

@@ -65,7 +65,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from dllama_tpu_torch.engine.engine import CACHE_DTYPES, pow2_chunk
+from dllama_tpu_torch.engine.engine import CACHE_DTYPES, _mesh_setup, pow2_chunk
 from dllama_tpu_torch.engine.graphs import SPEC_VARIANTS, VARIANTS, Programs
 from dllama_tpu_torch.engine.kernel_select import resolve_kernels, resolve_moe_impl
 from dllama_tpu_torch.engine.radix import RadixCache
@@ -77,6 +77,8 @@ from dllama_tpu_torch.obs import compile as compile_obs
 from dllama_tpu_torch.obs import instruments as ins
 from dllama_tpu_torch.obs import trace
 from dllama_tpu_torch.ops.layers import build_rope_cache
+from dllama_tpu_torch.parallel.collectives import resolve_sync
+from dllama_tpu_torch.parallel.multihost import mirrored, refuse_on_mesh
 from dllama_tpu_torch.utils import faults
 
 log = logging.getLogger("dllama_tpu_torch.engine")
@@ -693,6 +695,9 @@ class BatchEngine:
         # synchronizing operation there warns or raises (obs/compile.h2d_guard)
         moe_impl: str = "auto",  # 'auto' | 'dispatch' | 'sort' | 'dense' (ops.layers.moe_ffn):
         # every program body runs it; fixed per engine, so no program key names it
+        shardings=None,  # parallel/sharding.LlamaShardings: one rank of a tp mesh
+        # (dense layout only, as in the JAX package; see InferenceEngine)
+        sync: str = "bf16",  # the tp exchange: 'bf16' | 'q80' | 'auto'
     ):
         if cache_dtype not in CACHE_DTYPES:
             raise ValueError(f"KV cache dtype {cache_dtype} is not one of {CACHE_DTYPES}")
@@ -700,8 +705,17 @@ class BatchEngine:
             raise ValueError(f"transfer_guard must be one of "
                              f"{compile_obs.TRANSFER_GUARD_MODES}, got {transfer_guard!r}")
         self.transfer_guard = transfer_guard
-        self.cfg = cfg
         self.device = torch.device(device) if device is not None else params["embedding"].device
+        self.shardings = shardings
+        self.sync = resolve_sync(sync, shardings)
+        self.exchange, capture = _mesh_setup(self, shardings, capture)
+        if shardings is not None:
+            if kv_layout == "paged":
+                raise ValueError(
+                    "paged KV cache requires an unsharded engine (the page pool has no "
+                    "slot axis for a mesh to shard); use kv_layout='dense' on meshes")
+            cfg, params = shardings.local_config(), shardings.put_params(params, self.device)
+        self.cfg = cfg
         self.params = params  # fused wqkv/w13 when the caller's engine fused them
         self.n_slots = n_slots
         self.seq_len = min(max_seq_len or cfg.seq_len, cfg.seq_len)
@@ -837,7 +851,7 @@ class BatchEngine:
         counts it in ``forwards``."""
         logits, _ = forward(self.cfg, self.params, tokens, pos, cache, self.rope_cache,
                             self.attn_fn, self.mm, last_only=True, active=active,
-                            moe_impl=self.moe_impl)
+                            moe_impl=self.moe_impl, exchange=self.exchange)
         return logits[:, -1]
 
     # ------------------------------------------------------- paged-layout api
@@ -904,6 +918,7 @@ class BatchEngine:
             return 0
         return self.pool.blocks_for(prompt_len) + 1
 
+    @mirrored
     def drop_slot_pages(self, slot: int) -> int:
         """Evict an idle slot's cached pages (prefix-cache reclaim under pool
         pressure). Returns the pages that went back to the free list."""
@@ -946,6 +961,7 @@ class BatchEngine:
                 hit = self.radix.lookup(toks, count=False)
         return hit.rows, hit
 
+    @mirrored
     def radix_map(self, slot: int, hit) -> None:
         """Map a lookup hit into `slot`: the matched full pages enter its
         block table BY REFERENCE, and a partial boundary page is mapped
@@ -966,6 +982,7 @@ class BatchEngine:
             compile_obs.note_transfer("h2d", "history", int(toks.nbytes))
         self._vec_dirty = True
 
+    @mirrored
     def radix_insert(self, slot: int, toks) -> int:
         """Insert the full-page prefix of `toks` (rows already written in
         `slot`: the prompt at commit, the emitted prefix at release) into
@@ -979,6 +996,7 @@ class BatchEngine:
         return self.radix.insert(list(toks)[: full * self.page_size],
                                  self.pool.tables[slot, :full])
 
+    @mirrored
     def radix_evict(self, need: int, protect=None) -> int:
         """Reclaim up to `need` pool pages from the tree (LRU leaves, coldest
         first); `protect` pins an admission's matched path. Returns the
@@ -1073,6 +1091,7 @@ class BatchEngine:
 
     # ------------------------------------------------------------------- api
 
+    @mirrored
     @torch.no_grad()
     def copy_prefix_rows(self, src_slot: int, dst_slot: int, rows: int) -> None:
         """Cross-slot prefix share: make dst_slot's first `rows` KV rows equal
@@ -1098,6 +1117,7 @@ class BatchEngine:
         idle = np.flatnonzero(~self.active)
         return int(idle[0]) if idle.size else None
 
+    @mirrored
     @torch.no_grad()
     def add_begin(self, slot: int, prompt_tokens, start_pos: int = 0,
                   req_id: str = "") -> Admission:
@@ -1120,6 +1140,7 @@ class BatchEngine:
         self._vec_dirty = True
         return Admission(slot=slot, toks=np.asarray(prompt_tokens, np.int64), req_id=req_id)
 
+    @mirrored
     @torch.no_grad()
     def add_step(self, adm: Admission) -> bool:
         """Prefill ONE power-of-two chunk of the admission's prompt at B=1;
@@ -1209,6 +1230,7 @@ class BatchEngine:
             return int(seed)
         return (self.seed * 0x9E3779B97F4A7C15 + self._admissions + 1) & ((1 << 63) - 1)
 
+    @mirrored
     @torch.no_grad()
     def add_commit(self, adm: Admission, temperature: float = 0.8, topp: float = 0.9,
                    seed: int | None = None, presence: float = 0.0,
@@ -1254,6 +1276,7 @@ class BatchEngine:
         if self.spec_k:
             _set_row(self.history[slot], self.pos[slot], token)
 
+    @mirrored
     @torch.no_grad()
     def resume_commit(self, adm: Admission, last_token: int, seed: int, counter: int,
                       temperature: float = 0.8, topp: float = 0.9, presence: float = 0.0,
@@ -1290,6 +1313,7 @@ class BatchEngine:
                 np.add.at(row[0], np.asarray(counted, np.int64), 1)
             self._counts[slot : slot + 1].copy_(self._pinned(row), non_blocking=True)
 
+    @mirrored
     def add(self, slot: int, prompt_tokens, temperature: float = 0.8, topp: float = 0.9,
             start_pos: int = 0, seed: int | None = None, presence: float = 0.0,
             frequency: float = 0.0, abort=None) -> int:
@@ -1439,7 +1463,8 @@ class BatchEngine:
                 p_cl = torch.minimum(p, (lim - (k + 1)).clamp(min=0)).to(torch.int32)
                 logits, _ = forward(self.cfg, self.params, toks, p_cl, self.cache,
                                     self.rope_cache, self.attn_fn, self.mm, last_only=False,
-                                    active=eff, moe_impl=self.moe_impl)  # [B, K+1, V]
+                                    active=eff, moe_impl=self.moe_impl,
+                                    exchange=self.exchange)  # [B, K+1, V]
                 g = torch.argmax(logits, dim=-1)
                 agree = torch.cumprod((draft == g[:, :k]).to(torch.int64), dim=1)
                 a = torch.minimum(agree.sum(dim=1), k_eff)
@@ -1477,6 +1502,7 @@ class BatchEngine:
         make = self._make_spec_program if variant in SPEC_VARIANTS else self._make_program
         return self.programs.get(variant, n, make)
 
+    @mirrored
     @torch.no_grad()
     def decode_dispatch(self, n: int, spec: bool = False) -> DecodeChunk:
         """Launch one n-step decode chunk across the active slots WITHOUT
@@ -1612,6 +1638,7 @@ class BatchEngine:
         package's gate is a sharded batch axis, which the port has not)."""
         return True
 
+    @mirrored
     @torch.no_grad()
     def hybrid_dispatch(self, n: int, adm: Admission, budget: int) -> DecodeChunk:
         """Dispatch ONE hybrid step (the JAX package's fused
@@ -1653,6 +1680,7 @@ class BatchEngine:
         chunk.hybrid_slot, chunk.hybrid_tokens = slot, adm.off - start
         return chunk
 
+    @mirrored
     def declare_serving_buckets(self, chunk: int) -> None:
         """Declare the serving scheduler's decode programs into this
         engine's contract (idempotent): every variant at n in 1..chunk,
@@ -1701,6 +1729,7 @@ class BatchEngine:
             w *= 2
         return widths
 
+    @mirrored
     @torch.no_grad()
     def warmup(self, chunk: int = 4, hybrid_budget_hi: int = 0) -> dict:
         """``--warmup auto`` boot pass (the JAX package's BatchEngine.warmup):
@@ -1791,6 +1820,7 @@ class BatchEngine:
             torch.cuda.synchronize(self.device)
         return per_fn, cached, widths, layouts
 
+    @mirrored
     def decode_consume(self, chunk: DecodeChunk) -> np.ndarray:
         """Wait for the chunk's tokens on the host; fold them into the host
         mirrors. Returns tokens [n, B] (frozen rows repeat their last token;
@@ -1878,6 +1908,7 @@ class BatchEngine:
                        emitted=n_emit, accepted=n_acc)
         return out
 
+    @mirrored
     def decode(self, n: int) -> np.ndarray:
         """n decode steps across the active slots; returns tokens [n', B] with
         n' = min(n, the roomiest active slot's room). Lockstep wrapper over
@@ -1924,6 +1955,7 @@ class BatchEngine:
         summed spec tokens plus ``discarded_tokens``."""
         return dict(self._spec_rows)
 
+    @mirrored
     def spec_step(self) -> tuple[np.ndarray, np.ndarray]:
         """One speculative verify cycle across the batch, lockstep (dispatch
         and consume of decode_dispatch(1, spec=True)): returns (tokens [B,
@@ -1968,7 +2000,8 @@ class BatchEngine:
         recaptures nothing. The host tier keeps its pinned slab and drops
         its index. On a card whose context a sticky error killed, the first
         device write here raises, and the scheduler counts that against its
-        restart budget."""
+        restart budget. Not on a mesh (parallel.mesh.NotPorted)."""
+        refuse_on_mesh(self, "warm_restart")
         self.cache.k.zero_()
         self.cache.v.zero_()
         if self.pool is not None:
@@ -2003,6 +2036,7 @@ class BatchEngine:
         self._t_last_consume = None
         self._vec_dirty = True
 
+    @mirrored
     def release(self, slot: int, keep_rows: int | None = None) -> None:
         """Free a slot. keep_rows rewinds pos to the valid prefix (a stop
         mid-chunk, including rows a dispatched chunk overran), keeping the

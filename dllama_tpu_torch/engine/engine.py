@@ -29,6 +29,8 @@ from dllama_tpu_torch.engine.speculative import cycles_per_replay, spec_cycle
 from dllama_tpu_torch.models.config import LlamaConfig
 from dllama_tpu_torch.models.llama import KVCache, forward, fuse_layer_weights
 from dllama_tpu_torch.ops.layers import build_rope_cache
+from dllama_tpu_torch.parallel.collectives import TPExchange, resolve_sync
+from dllama_tpu_torch.parallel.multihost import mirrored, refuse_on_mesh
 
 #: KV cache element types; e4m3 is the f8 cache (--cache-dtype f8)
 CACHE_DTYPES = (torch.bfloat16, torch.float32, torch.float8_e4m3fn)
@@ -76,7 +78,17 @@ class InferenceEngine:
     """Owns params + KV cache + the resolved kernels for one model replica
     on one device (``device``, default: the device the params lie on).
     ``capture`` (default: on for a CUDA device) runs each prefill and
-    decode chunk as a captured CUDA graph."""
+    decode chunk as a captured CUDA graph.
+
+    ``shardings`` (parallel/sharding.LlamaShardings) makes it one rank of a
+    tensor-parallel mesh: ``cfg`` is the model's, ``params`` the full tree
+    or the rank's shards, and the engine runs the rank's view
+    (``self.cfg``: its heads and FFN width) with the exchange ``sync``
+    ('bf16' | 'q80' | 'auto', parallel/collectives.resolve_sync). Over
+    gloo with CUDA tensors (ranks that share a card) the programs run
+    eagerly; ``fuse_weights`` is ignored on a mesh, as in the JAX package.
+    The methods marked ``mirrored`` are the calls rank 0 sends to the
+    other ranks (parallel/multihost)."""
 
     def __init__(
         self,
@@ -91,11 +103,19 @@ class InferenceEngine:
         device=None,
         capture: bool | None = None,  # decode chunks as CUDA graphs (None: on a CUDA device)
         moe_impl: str = "auto",  # 'auto' | 'dispatch' | 'sort' | 'dense' (ops.layers.moe_ffn)
+        shardings=None,  # parallel/sharding.LlamaShardings: one rank of a tp mesh
+        sync: str = "bf16",  # the tp exchange: 'bf16' | 'q80' | 'auto'
     ):
         if cache_dtype not in CACHE_DTYPES:
             raise ValueError(f"KV cache dtype {cache_dtype} is not one of {CACHE_DTYPES}")
-        self.cfg = cfg
         self.device = torch.device(device) if device is not None else params["embedding"].device
+        self.shardings = shardings
+        self.sync = resolve_sync(sync, shardings)
+        self.exchange, capture = _mesh_setup(self, shardings, capture)
+        if shardings is not None:
+            cfg, params, fuse_weights = shardings.local_config(), shardings.put_params(
+                params, self.device), False
+        self.cfg = cfg
         self.params = params
         if fuse_weights:
             self.params = dict(params, layers=fuse_layer_weights(params["layers"]))
@@ -143,8 +163,18 @@ class InferenceEngine:
         every position's [B, T, V]. The caller counts it in ``forwards``."""
         logits, _ = forward(self.cfg, self.params, tokens, pos, self.cache, self.rope_cache,
                             self.attn_fn, self.mm, last_only=last_only,
-                            moe_impl=self.moe_impl)
+                            moe_impl=self.moe_impl, exchange=self.exchange)
         return logits[:, -1] if last_only else logits
+
+    def measured_collective_report(self) -> dict:
+        """The tp exchange of one decode step (a [batch, 1] forward) as this
+        rank's collectives counted it: the bytes of each collective's
+        result, by op (the JAX package's count of the compiled step's HLO
+        collectives). Empty before the first decode step, and on one
+        device."""
+        per_op = {} if self.exchange is None else dict(
+            self.exchange.forward_bytes.get((self.batch, 1), {}))
+        return {"total_bytes": sum(per_op.values()), "per_op": per_op}
 
     @torch.no_grad()
     def _forward(self, tokens: torch.Tensor, pos: int, last_only: bool = True) -> torch.Tensor:
@@ -157,6 +187,7 @@ class InferenceEngine:
 
     # ------------------------------------------------------------------ core
 
+    @mirrored
     def step(self, tokens) -> torch.Tensor:
         """Run T tokens at the current position; returns last-pos logits [B, V].
         The chunk is the prefill program of width T (the JAX package's
@@ -201,6 +232,7 @@ class InferenceEngine:
 
         return body, {"toks": toks, "logits": out}, (pos0,)
 
+    @mirrored
     def reset(self, pos: int = 0) -> None:
         """Rewind to `pos` (prefix-cache reuse keeps cache contents <= pos valid)."""
         self.pos = pos
@@ -250,7 +282,8 @@ class InferenceEngine:
     def save_session(self, path: str) -> None:
         """Persist the KV cache and the position (npz): the cache's bytes as
         uint8 with the dtype's name (an f8 cache round-trips byte for byte),
-        ``pos`` and this engine's fingerprint."""
+        ``pos`` and this engine's fingerprint. Not on a mesh."""
+        refuse_on_mesh(self, "save_session")
         k = self.cache.k.detach().to("cpu").contiguous()
         v = self.cache.v.detach().to("cpu").contiguous()
         np.savez_compressed(path, fingerprint=self._session_fingerprint(),
@@ -262,7 +295,9 @@ class InferenceEngine:
         """Restore a saved session INTO the existing cache tensors (``copy_``):
         the captured prefill, decode and spec programs hold their addresses,
         so the cache is never replaced. Raises ValueError when the file's
-        fingerprint (geometry, dtype, weights) is not this engine's."""
+        fingerprint (geometry, dtype, weights) is not this engine's. Not on
+        a mesh."""
+        refuse_on_mesh(self, "load_session")
         with np.load(path) as data:
             fp = str(data["fingerprint"])
             if fp != self._session_fingerprint():
@@ -275,6 +310,7 @@ class InferenceEngine:
         self._dev_pos = None  # the device position is reloaded before the next program
         self._spec_h = None  # the spec history no longer describes the cache
 
+    @mirrored
     def prefill(self, tokens) -> torch.Tensor:
         """Chunked prefill; returns logits after the last token."""
         tokens = np.atleast_2d(np.asarray(tokens, dtype=np.int64))
@@ -289,6 +325,7 @@ class InferenceEngine:
             off += chunk
         return logits
 
+    @mirrored
     def decode_step(self, tokens) -> torch.Tensor:
         return self.step(np.asarray(tokens, dtype=np.int64).reshape(self.batch, 1))
 
@@ -326,6 +363,7 @@ class InferenceEngine:
 
         return body, buffers, (tok0, pos0) + ((counts,) if counts is not None else ())
 
+    @mirrored
     @torch.no_grad()
     def _decode_chunk(self, variant: str, token, n: int, sampler: Sampler | None = None,
                       counts=None) -> np.ndarray:
@@ -362,6 +400,7 @@ class InferenceEngine:
         copy at the end. Returns tokens [n, B]."""
         return self._decode_chunk("greedy", token, n)
 
+    @mirrored
     def decode_spec_greedy_n(self, history, token: int, n: int, k: int = 8,
                              ngram: int = 2) -> np.ndarray:
         """n exact-greedy tokens via prompt-lookup speculative decoding
@@ -473,7 +512,7 @@ class InferenceEngine:
         def fwd(toks, p, live):
             logits, _ = forward(self.cfg, self.params, toks, p, self.cache, self.rope_cache,
                                 self.attn_fn, self.mm, last_only=False, active=live,
-                                moe_impl=self.moe_impl)
+                                moe_impl=self.moe_impl, exchange=self.exchange)
             return logits
 
         def body():
@@ -590,3 +629,20 @@ class InferenceEngine:
                     if stopped:
                         return
                     break
+
+
+def _mesh_setup(engine, shardings, capture):
+    """(exchange, capture) of an engine on `shardings` (None and `capture`
+    off a mesh): the rank's TPExchange, and capture off where the
+    exchange is staged through the host (gloo on CUDA tensors), which no
+    CUDA graph can hold."""
+    if shardings is None:
+        return None, capture
+    ex = TPExchange(shardings.mesh, engine.sync, shardings.ffn_sharded,
+                    shardings.logits_sharded)
+    if ex.staged:
+        if capture:
+            raise ValueError("a mesh over gloo on CUDA tensors runs its programs eagerly "
+                             "(capture=False): the exchange goes through host memory")
+        capture = False
+    return ex, capture

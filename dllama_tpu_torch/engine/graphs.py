@@ -49,6 +49,14 @@ Module globals that the body reads when it runs are fixed in a graph at
 capture (:func:`knobs`); :class:`Programs` keys each program on them, so a
 changed knob captures another program instead of replaying a stale route.
 
+On a tensor-parallel mesh (parallel/multihost) every rank builds the same
+programs in the same order, since rank 0 sends it every call that builds or
+runs one. Over NCCL a program captures its collectives with its kernels
+(the group's first collective runs when the world forms, before any
+capture, so the communicator exists); over gloo with CUDA tensors (ranks
+that share one card) the exchange goes through host memory, which no graph
+holds, so the engines run their programs eagerly (``capture=False``).
+
 Every capture is recorded in the capture ledger (``obs/compile.LEDGER``,
 the port's counterpart of the JAX package's compile ledger) under its
 function label and bucket key (:meth:`Programs.label`), with its seconds.

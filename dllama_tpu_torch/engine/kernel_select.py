@@ -17,6 +17,11 @@ Rules (the unsharded branches of the JAX package's resolve_kernels):
   the JAX package's bf16/f32 rule) raises there, naming ``--kernels torch``.
   ``--kernels torch``, or the CPU, gives ``paged_gather`` (the plain
   block-table gather). K8 (``paged_flash_gqa_attention``) is not routed.
+* On a tensor-parallel mesh each rank resolves the same rules on its own
+  view of the config (its heads, parallel/sharding.LocalLlamaConfig), so
+  the CUDA kernels run on each shard. The dense layout only, as in the JAX
+  package: the api resolves ``--kv-layout auto`` to dense and BatchEngine
+  raises on an explicit paged layout; ``--fuse-weights`` is ignored.
 """
 
 from __future__ import annotations

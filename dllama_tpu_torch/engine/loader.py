@@ -1,6 +1,14 @@
 """High-level model loading: file -> device params -> ready InferenceEngine
 (the reference's runInferenceApp bootstrap, app.cpp:197-260: header ->
-tokenizer -> weights -> engine), on one device."""
+tokenizer -> weights -> engine), on one device or on a tensor-parallel mesh.
+
+On a mesh (``mesh="tp=2"``, or ``"auto"`` on a machine with several cards)
+every rank loads shard-direct: each Q40 matmul weight decodes only the
+rank's byte ranges off the memmap (models/formats.LazyQ40 through the
+``put`` hook), and Q80 weights load dense bf16, as the JAX package's do on a
+mesh. The local ranks are spawned here (parallel/multihost.launch) and the
+returned engine is rank 0's, which drives the world.
+"""
 
 from __future__ import annotations
 
@@ -12,6 +20,9 @@ import torch
 from dllama_tpu_torch.engine.engine import InferenceEngine
 from dllama_tpu_torch.models.config import LlamaConfig
 from dllama_tpu_torch.models.formats import ModelFileError, load_params, read_header
+from dllama_tpu_torch.parallel import multihost
+from dllama_tpu_torch.parallel.mesh import MeshConfig, MeshTooLarge, auto_mesh_config
+from dllama_tpu_torch.parallel.sharding import LlamaShardings
 from dllama_tpu_torch.tokenizer.tokenizer import Tokenizer
 
 log = logging.getLogger("dllama_tpu_torch")
@@ -22,6 +33,9 @@ class LoadedModel:
     config: LlamaConfig
     engine: InferenceEngine
     tokenizer: Tokenizer | None
+    shardings: LlamaShardings | None = None
+    sync: str = "bf16"  # tp exchange mode, forwarded to the serving tier
+    world: multihost.World | None = None  # the mesh's process world (rank 0 drives)
 
 
 def resolve_device(device) -> torch.device:
@@ -37,19 +51,77 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def resolve_mesh(mesh_spec: str | None, cfg: LlamaConfig, device,
+                 devices: list | None = None) -> MeshConfig | None:
+    """The mesh to run, or None for one device: ``mesh_spec`` 'tp=2'-style,
+    'auto' or None. The devices are the cards this process sees (one for
+    the CPU) times the processes of a ``--distributed`` world. ``auto``
+    puts them on tp as the JAX package does (tp capped by the kv heads);
+    the rest, which JAX gives to dp, stays idle, as dp is not ported. A
+    mesh larger than the cards raises :class:`MeshTooLarge`, as JAX's
+    make_mesh refuses one larger than its devices; on the CPU each rank is
+    a process of its own. An axis not ported raises NotPorted.
+    ``devices`` (a harness's one device a local rank, ranks may share a
+    card) replaces the count of cards."""
+    if mesh_spec is None:
+        return None
+    device = torch.device(device)
+    multi = multihost.distributed()
+    local = (len(devices) if devices is not None
+             else torch.cuda.device_count() if device.type == "cuda" else 1)
+    n_dev = local * (multi["processes"] if multi else 1)
+    if mesh_spec == "auto":
+        if n_dev == 1:
+            return None
+        auto = auto_mesh_config(n_dev, cfg.n_kv_heads)
+        if auto.tp < n_dev:
+            log.warning("mesh auto: tp=%d over %d of %d devices (dp is not ported)",
+                        auto.tp, auto.tp, n_dev)
+        config = MeshConfig(tp=auto.tp)
+    else:
+        config = MeshConfig.parse(mesh_spec)
+        config.check_ported()
+        if device.type == "cuda" and config.n_devices > n_dev:
+            raise MeshTooLarge(f"the mesh needs {config.n_devices} devices, have {n_dev} "
+                               "(one card a rank)")
+    return None if config.n_devices == 1 else config
+
+
+def build_shardings(cfg: LlamaConfig, mesh) -> LlamaShardings | None:
+    """The placement rules of one rank (``mesh``: parallel/mesh.Mesh), or
+    None without a mesh (the JAX package's build_shardings, per rank)."""
+    return None if mesh is None else LlamaShardings(mesh, cfg)
+
+
+def rank_engine(mesh, device, model_path: str, max_seq_len=None, engine_kw=None,
+                dequantize: bool = False) -> InferenceEngine:
+    """One rank's engine (run on every rank by parallel/multihost.launch):
+    the shard-direct load of its weights and its InferenceEngine."""
+    cfg, header_size = read_header(model_path, max_seq_len)
+    sh = build_shardings(cfg, mesh)
+    params = load_params(model_path, cfg, header_size, dtype=torch.bfloat16,
+                         dequantize=dequantize,
+                         put=lambda name, leaf: sh.put(name, leaf, device))
+    return InferenceEngine(cfg, params, max_seq_len=max_seq_len, device=device,
+                           shardings=sh, **(engine_kw or {}))
+
+
 def load_model(
     model_path: str,
     tokenizer_path: str | None = None,
     *,
     max_seq_len: int | None = None,
+    mesh: str | None = "auto",  # 'tp=2'-style, 'auto' (every card on tp), None (one device)
     batch: int = 1,
     cache_dtype=torch.bfloat16,
     dequantize: bool = False,  # Q40/Q80 matmul weights as dense bf16 (torch.matmul)
     max_prefill_chunk: int = 256,
+    sync: str = "bf16",  # the tp exchange: 'bf16' | 'q80' | 'auto'
     kernels: str = "auto",
     moe_impl: str = "auto",  # MoE compute scheme (ops.layers.moe_ffn)
-    fuse_weights: bool = False,
+    fuse_weights: bool = False,  # ignored on a mesh, as in the JAX package
     device="cuda",
+    devices: list | None = None,  # mesh: one device a local rank (a harness's choice)
 ) -> LoadedModel:
     device = resolve_device(device)
     try:
@@ -59,12 +131,26 @@ def load_model(
     except (OSError, ValueError) as e:
         raise ModelFileError(f"{model_path}: unreadable .m model file: {e}") from e
     log.info("model: %s", cfg.describe())
-    params = load_params(model_path, cfg, header_size, dtype=torch.bfloat16, device=device,
-                         dequantize=dequantize)
     tokenizer = Tokenizer.load(tokenizer_path) if tokenizer_path else None
     if tokenizer is not None and tokenizer.regular_vocab_size > cfg.vocab_size:
         raise ValueError(
             f"tokenizer vocab ({len(tokenizer.vocab)}) exceeds model vocab ({cfg.vocab_size})")
+    mesh_cfg = resolve_mesh(mesh, cfg, device, devices)
+    if mesh_cfg is not None:
+        LlamaShardings.check(mesh_cfg, cfg)
+        log.info("mesh: %s over %d devices", mesh_cfg, mesh_cfg.n_devices)
+        engine_kw = dict(batch=batch, cache_dtype=cache_dtype,
+                         max_prefill_chunk=max_prefill_chunk, kernels=kernels,
+                         moe_impl=moe_impl, sync=sync)
+        world = multihost.launch(
+            "dllama_tpu_torch.engine.loader:rank_engine",
+            dict(model_path=model_path, max_seq_len=max_seq_len, engine_kw=engine_kw,
+                 dequantize=dequantize),
+            mesh_cfg, device=device, devices=devices)
+        eng = world.engine
+        return LoadedModel(cfg, eng, tokenizer, eng.shardings, eng.sync, world)
+    params = load_params(model_path, cfg, header_size, dtype=torch.bfloat16, device=device,
+                         dequantize=dequantize)
     engine = InferenceEngine(
         cfg, params, batch=batch, cache_dtype=cache_dtype, max_seq_len=max_seq_len,
         max_prefill_chunk=max_prefill_chunk, kernels=kernels,

@@ -195,9 +195,27 @@ class Sampler:
     def generator(self, device) -> torch.Generator:
         device = torch.device(device)
         if self._gen is None or self._gen.device != device:
+            state, self._gen_state = getattr(self, "_gen_state", None), None
             self._gen = torch.Generator(device=device)
-            self._gen.manual_seed(self.seed)
+            if state is not None and state[0] == device.type:
+                self._gen.set_state(state[1])
+            else:
+                self._gen.manual_seed(self.seed)
         return self._gen
+
+    def __getstate__(self) -> dict:
+        """A copy carries its generator's state, not the generator: a tp
+        rank that receives the sampler with a call (parallel/multihost)
+        draws the same numbers on its own device of the same type."""
+        state = dict(self.__dict__)
+        gen = state.pop("_gen")
+        if gen is not None:
+            state["_gen_state"] = (gen.device.type, gen.get_state())
+        return state
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self._gen = None
 
     def sample(self, logits: torch.Tensor) -> torch.Tensor:
         return sample_logits(logits, self.temperature, self.topp,

@@ -23,7 +23,8 @@ rearranged into the device layout there.
 from __future__ import annotations
 
 import struct
-from typing import Iterator
+import time
+from typing import Callable, Iterator
 
 import numpy as np
 import torch
@@ -38,6 +39,7 @@ from dllama_tpu_torch.ops.quant import (
     dequantize_q80_np,
     quantize_q40_np,
     quantize_q80_np,
+    slice_leaf,
 )
 
 
@@ -210,6 +212,114 @@ def decode_dense(raw: np.ndarray, shape: tuple, ft: FloatType) -> np.ndarray:
     raise ValueError(f"unsupported weight type: {ft}")
 
 
+class LazyQ40:
+    """A Q40 matmul weight still living as bytes on the `.m` memmap.
+
+    Shards decode on demand in the device layout (packed u8[k/2, n], scales
+    f16[k/32, n]), so a rank of a tensor-parallel mesh decodes only the byte
+    ranges of its own shard (parallel/sharding.LlamaShardings.put) and a
+    model bigger than one host's RAM never fully decodes anywhere: the
+    reference's slice-then-ship (nn-network.cpp:775-869) with the mmap as
+    the wire. Both device dims map to contiguous or strided ranges of the
+    file's [n_out, k_in/32, 18-byte block] record array. The JAX package's
+    ``LazyQ40``, in numpy alone; each shard is a contiguous array of its
+    own. A mesh rank takes its shard's :meth:`records` (one copy of its
+    byte ranges) and rearranges them into the device layout on its device
+    (``QTensor.from_records``), as the unsharded load does; ``LAZY_DECODE``
+    counts the bytes and seconds read."""
+
+    def __init__(self, raw: np.ndarray, n_out: int, k_in: int):
+        self.rec = raw.reshape(n_out, k_in // Q_BLOCK, 2 + Q_BLOCK // 2)
+        self.n_out = n_out
+        self.k_in = k_in
+
+    @property
+    def packed_shape(self) -> tuple[int, ...]:
+        return (self.k_in // 2, self.n_out)
+
+    @property
+    def scales_shape(self) -> tuple[int, ...]:
+        return (self.k_in // Q_BLOCK, self.n_out)
+
+    @staticmethod
+    def _aligned(sl: slice, total: int, unit: int) -> tuple[int, int]:
+        start = sl.start or 0
+        stop = total if sl.stop is None else sl.stop
+        assert start % unit == 0 and stop % unit == 0, (sl, unit)
+        return start // unit, stop // unit
+
+    def records(self, k2_sl: slice, n_sl: slice, out: np.ndarray | None = None) -> np.ndarray:
+        """The file's records of the shard [k2_sl, n_sl] (k2 in units of
+        half-blocks), u8 [n, nb, 18] (f16 scale, 16 bytes), copied off the
+        memmap into one contiguous array (``out`` when given): the only
+        bytes of the tensor read."""
+        t0 = time.perf_counter()
+        b0, b1 = self._aligned(k2_sl, self.k_in // 2, Q_BLOCK // 2)
+        n0, n1 = self._aligned(n_sl, self.n_out, 1)
+        src = self.rec[n0:n1, b0:b1]
+        if out is None:
+            out = np.ascontiguousarray(src)
+        else:
+            np.copyto(out, src)
+        LAZY_DECODE["bytes"] += int(out.nbytes)
+        LAZY_DECODE["seconds"] += time.perf_counter() - t0
+        return out
+
+    def packed_shard(self, k2_sl: slice, n_sl: slice) -> np.ndarray:
+        """Device-layout packed rows [k2_sl, n_sl] (k2 in units of half-blocks)."""
+        sub = self.records(k2_sl, n_sl)[:, :, 2:]  # [n, nb, 16]
+        return np.ascontiguousarray(np.transpose(sub, (1, 2, 0)).reshape(-1, sub.shape[0]))
+
+    def scales_shard(self, kb_sl: slice, n_sl: slice) -> np.ndarray:
+        k2_sl = slice(None if kb_sl.start is None else kb_sl.start * (Q_BLOCK // 2),
+                      None if kb_sl.stop is None else kb_sl.stop * (Q_BLOCK // 2))
+        sub = np.ascontiguousarray(self.records(k2_sl, n_sl)[:, :, :2])  # [n, nb, 2]
+        return np.ascontiguousarray(sub.view(np.float16)[..., 0].T)  # f16 [nb, n]
+
+    def eager(self) -> QTensor:
+        full = slice(None)
+        return QTensor(torch.from_numpy(self.packed_shard(full, full)),
+                       torch.from_numpy(self.scales_shard(full, full)))
+
+
+class LazyQ40Stack:
+    """Stacked lazy Q40 leaves (layers, or an MoE layer's experts): one more
+    leading axis on every shard request. Members may be stacks themselves
+    ([L, E, ...] expert stacks)."""
+
+    def __init__(self, members: list):
+        self.members = members
+
+    @property
+    def packed_shape(self) -> tuple[int, ...]:
+        return (len(self.members), *self.members[0].packed_shape)
+
+    @property
+    def scales_shape(self) -> tuple[int, ...]:
+        return (len(self.members), *self.members[0].scales_shape)
+
+    def records(self, l_sl: slice, *rest: slice, out: np.ndarray | None = None) -> np.ndarray:
+        """The members' records stacked, each copied once into the stack."""
+        members = self.members[l_sl]
+        for i, m in enumerate(members):
+            r = m.records(*rest, out=None if out is None else out[i])
+            if out is None:
+                out = np.empty((len(members), *r.shape), np.uint8)
+                out[0] = r
+        return out
+
+    def packed_shard(self, l_sl: slice, *rest: slice) -> np.ndarray:
+        return np.stack([m.packed_shard(*rest) for m in self.members[l_sl]])
+
+    def scales_shard(self, l_sl: slice, *rest: slice) -> np.ndarray:
+        return np.stack([m.scales_shard(*rest) for m in self.members[l_sl]])
+
+
+#: lazy Q40 shards read in this process since the last load: the bytes
+#: copied off the memmap and the seconds that took (a mesh rank's cost)
+LAZY_DECODE = {"bytes": 0, "seconds": 0.0}
+
+
 def _to_device(a: np.ndarray, device, dtype=None) -> torch.Tensor:
     """Copy a host array (possibly a memmap view) to `device` as its own
     storage, optionally cast there."""
@@ -273,7 +383,8 @@ def _place(stack, index, leaf) -> None:
 
 
 def load_params(path: str, config: LlamaConfig, header_size: int,
-                dtype=torch.bfloat16, device="cpu", dequantize: bool = False) -> dict:
+                dtype=torch.bfloat16, device="cpu", dequantize: bool = False,
+                put: Callable[[str, object], object] | None = None) -> dict:
     """Load the full parameter tree onto `device`.
 
     Per-layer tensors are stacked on a leading layer axis ([L, ...]); a
@@ -285,7 +396,18 @@ def load_params(path: str, config: LlamaConfig, header_size: int,
     norms stay f32. ``dequantize`` loads every Q40/Q80 matmul weight, wcls
     and the experts included, as a dense `dtype` tensor (the JAX package's
     ``load_params(dequantize=True)``). Q80 experts stay packed otherwise,
-    where the JAX package loads them dense."""
+    where the JAX package loads them dense.
+
+    ``put(name, leaf)`` (the JAX package's hook; a mesh passes
+    parallel/sharding.LlamaShardings.put) receives each leaf on the host
+    and returns what the rank keeps on its device: names are "embedding",
+    "final_norm", "wcls" and "layers.<short>", a layer's leaf carries a
+    leading layer axis of 1, and Q40 matmul weights arrive as lazy stacks
+    (:class:`LazyQ40Stack`), so only the rank's own shard is ever decoded.
+    Dense leaves arrive as CPU tensors in their load dtype; Q80 weights
+    load dense (the JAX package's rule on a mesh)."""
+    if put is not None:
+        return _load_params_put(path, config, header_size, dtype, dequantize, put)
     n_layers = config.n_layers
     layers: dict = {}
     params: dict = {}
@@ -313,5 +435,54 @@ def load_params(path: str, config: LlamaConfig, header_size: int,
                     lead = (n_layers, shape[0]) if len(index) == 2 else (n_layers,)
                     layers[short] = _empty_stack(leaf, lead)
                 _place(layers[short], index, leaf)
+    params["layers"] = layers
+    return params
+
+
+def _load_params_put(path: str, config: LlamaConfig, header_size: int, dtype,
+                     dequantize: bool, put) -> dict:
+    """load_params through the `put` hook (see load_params)."""
+
+    def host(a: np.ndarray, leaf_dtype=torch.float32) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(leaf_dtype)
+
+    def matmul_leaf(raw, shape, ft):
+        n_out, k_in = shape
+        if ft == FloatType.Q40 and not dequantize:
+            return LazyQ40(raw, n_out, k_in)
+        return host(decode_dense(raw, shape, ft).T, dtype)
+
+    def stacked(leaves: list):
+        if isinstance(leaves[0], (LazyQ40, LazyQ40Stack)):
+            return LazyQ40Stack(leaves)
+        return torch.stack(leaves)
+
+    n_layers = config.n_layers
+    layers: dict = {}
+    params: dict = {}
+    for name, shape, ft, raw in iter_tensors(path, config, header_size):
+        if name == "embedding":
+            params["embedding"] = put(name, host(decode_dense(raw, shape, ft), dtype))
+        elif name == "final_norm":
+            params["final_norm"] = put(name, host(decode_dense(raw, shape, ft)))
+        elif name == "wcls":
+            params["wcls"] = put(name, matmul_leaf(raw, shape, ft))
+        else:
+            _, li, short = name.split(".")
+            if short in ("rms_att", "rms_ffn"):
+                leaf = host(decode_dense(raw, shape, ft))
+            elif short == "moe_gate":
+                leaf = host(decode_dense(raw, shape, ft).T)
+            elif short.startswith("moe_"):
+                e, n_out, k_in = shape
+                per = ft.nbytes(n_out * k_in)
+                leaf = stacked([matmul_leaf(raw[i * per : (i + 1) * per], (n_out, k_in), ft)
+                                for i in range(e)])
+            else:
+                leaf = matmul_leaf(raw, shape, ft)
+            local = slice_leaf(put(f"layers.{short}", stacked([leaf])), 0)
+            if short not in layers:
+                layers[short] = _empty_stack(local, (n_layers,))
+            _place(layers[short], int(li), local)
     params["layers"] = layers
     return params

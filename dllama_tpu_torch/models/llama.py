@@ -154,7 +154,8 @@ def _paged_cache_update(pool: torch.Tensor, new: torch.Tensor, tables: torch.Ten
 
 
 def _layer(cfg: LlamaConfig, x, layers, li, k_cache, v_cache, rope, pos_base,
-           attn_fn, mm, active=None, tables=None, index=None, moe_impl="auto"):
+           attn_fn, mm, active=None, tables=None, index=None, moe_impl="auto",
+           exchange=None):
     """One decoder layer; `layers` holds the stacked weights and `li` the
     layer index (the matmul takes the layer's view of each stack). A layer
     with a ``moe_gate`` runs the sparse MoE FFN (ops.layers.moe_ffn, scheme
@@ -162,13 +163,19 @@ def _layer(cfg: LlamaConfig, x, layers, li, k_cache, v_cache, rope, pos_base,
     `tables` the caches are one layer's page pools [P, Hkv, page, hd]; an
     `attn_fn` marked ``fused_kv_scatter`` writes the new rows itself, inside
     its kernel launch, instead of a separate scatter. `index`: the dense
-    caches' write rows (_dense_write_index)."""
-    b, t, d = x.shape
-    kvd = cfg.kv_dim
+    caches' write rows (_dense_write_index).
+
+    On a tensor-parallel rank (``exchange``, parallel/collectives.TPExchange)
+    `cfg` is the rank's view (its heads, kv heads and FFN width) and the
+    weights its shards: the wo product and the FFN's are partial sums,
+    each all-reduced once here at the layer (one reduce for an MoE FFN of
+    tp-sharded experts, not one an expert)."""
+    b, t, _ = x.shape
+    qd, kvd = cfg.n_heads * cfg.head_size, cfg.kv_dim
     h = rms_norm(x, layers["rms_att"][li], cfg.norm_epsilon)
     if "wqkv" in layers:  # fused launch (fuse_layer_weights)
         qkv = mm(h, layers["wqkv"], li)
-        q, k, v = qkv[..., :d], qkv[..., d : d + kvd], qkv[..., d + kvd :]
+        q, k, v = qkv[..., :qd], qkv[..., qd : qd + kvd], qkv[..., qd + kvd :]
     else:
         q = mm(h, layers["wq"], li)
         k = mm(h, layers["wk"], li)
@@ -187,13 +194,17 @@ def _layer(cfg: LlamaConfig, x, layers, li, k_cache, v_cache, rope, pos_base,
         _paged_cache_update(k_cache, k.transpose(1, 2), tables, pos_base, active)
         _paged_cache_update(v_cache, v.transpose(1, 2), tables, pos_base, active)
         att = attn_fn(q, k_cache, v_cache, tables, pos_base)
-    att = att.reshape(b, t, d)
-    x = x + mm(att, layers["wo"], li)
+    o = mm(att.reshape(b, t, qd), layers["wo"], li)
+    x = x + (o if exchange is None else exchange.reduce_partial(o))
     h = rms_norm(x, layers["rms_ffn"][li], cfg.norm_epsilon)
+    reduce_ffn = exchange is not None and exchange.ffn_sharded
     if "moe_gate" in layers:
-        return x + moe_ffn(cfg, h, layers["moe_gate"][li], slice_leaf(layers["moe_w1"], li),
-                           slice_leaf(layers["moe_w2"], li), slice_leaf(layers["moe_w3"], li),
-                           impl=moe_impl, mm=mm)
+        y = moe_ffn(cfg, h, layers["moe_gate"][li], slice_leaf(layers["moe_w1"], li),
+                    slice_leaf(layers["moe_w2"], li), slice_leaf(layers["moe_w3"], li),
+                    impl=moe_impl, mm=mm)
+        # exact under --sync q80 too: the JAX package's q80 exchange
+        # replaces the wo and dense w2 products only
+        return x + (exchange.all_reduce(y) if reduce_ffn else y)
     if "w13" in layers:  # fused launch (fuse_layer_weights)
         gu = mm(h, layers["w13"], li)
         f = cfg.hidden_dim
@@ -203,7 +214,8 @@ def _layer(cfg: LlamaConfig, x, layers, li, k_cache, v_cache, rope, pos_base,
         gate = activation(mm(h, layers["w1"], li).to(torch.float32),
                           cfg.hidden_act).to(x.dtype)
         up = mm(h, layers["w3"], li)
-    return x + mm(gate * up, layers["w2"], li)
+    y = mm(gate * up, layers["w2"], li)
+    return x + (exchange.reduce_partial(y) if reduce_ffn else y)
 
 
 def fuse_layer_weights(layers: dict) -> dict:
@@ -231,7 +243,8 @@ def fuse_layer_weights(layers: dict) -> dict:
 
 
 def run_layers(cfg: LlamaConfig, layer_params: dict, x, pos_base, cache, rope,
-               attn_fn=None, mm=None, active=None, moe_impl: str = "auto") -> torch.Tensor:
+               attn_fn=None, mm=None, active=None, moe_impl: str = "auto",
+               exchange=None) -> torch.Tensor:
     """Walk the decoder layers over a KVCache or a PagedKVCache (whose block
     tables select the paged branch of each layer). `active` [B] bool masks
     the cache writes of frozen rows."""
@@ -249,7 +262,7 @@ def run_layers(cfg: LlamaConfig, layer_params: dict, x, pos_base, cache, rope,
         index = _dense_write_index(pos_base, b, h, s, x.shape[1])
     for li in range(cache.k.shape[0]):
         x = _layer(cfg, x, layer_params, li, cache.k[li], cache.v[li], rope,
-                   pos_base, attn_fn, mm, active, tables, index, moe_impl)
+                   pos_base, attn_fn, mm, active, tables, index, moe_impl, exchange)
     return x
 
 
@@ -265,12 +278,17 @@ def forward(
     last_only: bool = False,  # project logits for the last position only
     active: torch.Tensor | None = None,  # [B] bool cache-write mask (batch mode)
     moe_impl: str = "auto",  # MoE compute scheme (ops.layers.moe_ffn)
+    exchange=None,  # a tp rank's parallel/collectives.TPExchange
 ):
     """Returns (logits f32 [B, T or 1, vocab], cache), the cache updated in
     place. ``mm`` / ``attn_fn`` override the kernels (the plain versions run
     the same forward on the card for comparison). ``last_only`` slices to
     the final position before the lm-head, which is all prefill needs. A
-    paged attn_fn takes (q, k_pool, v_pool, tables, pos)."""
+    paged attn_fn takes (q, k_pool, v_pool, tables, pos). On a tp rank
+    (``exchange``) the logits of the rank's vocab shard are all-gathered,
+    so every rank returns the same full f32 logits."""
+    if exchange is not None:
+        exchange.open_forward()
     x = params["embedding"][tokens]  # [B, T, D]
     t = tokens.shape[1]
     if isinstance(pos_base, torch.Tensor) and pos_base.dim() == 1:
@@ -279,9 +297,13 @@ def forward(
     else:
         rope = rope_cache[pos_base : pos_base + t]
     x = run_layers(cfg, params["layers"], x, pos_base, cache, rope, attn_fn, mm, active,
-                   moe_impl)
+                   moe_impl, exchange)
     if last_only:
         x = x[:, -1:]
     x = rms_norm(x, params["final_norm"], cfg.norm_epsilon)
     logits = (mm or matmul)(x, params["wcls"]).to(torch.float32)
+    if exchange is not None:
+        if exchange.logits_sharded:
+            logits = exchange.gather_logits(logits)
+        exchange.close_forward(tokens.shape[0], t)
     return logits, cache

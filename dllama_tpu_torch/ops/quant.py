@@ -150,6 +150,16 @@ class QTensor:
         packed = packed.permute(1, 2, 0).reshape(k_in // 2, n_out).contiguous()
         return cls(packed, scales.t().contiguous())
 
+    @classmethod
+    def from_records(cls, rec: torch.Tensor) -> "QTensor":
+        """Build from the file's records u8 [..., n_out, k_in/32, 18] (f16
+        scale, 16 bytes, leading axes stacked), on ``rec``'s device: the
+        transpose of :meth:`from_file_layout` for a block of records."""
+        *lead, n, nb, _ = rec.shape
+        packed = rec[..., 2:].movedim(-3, -1).reshape(*lead, nb * (Q_BLOCK // 2), n)
+        scales = rec[..., :2].contiguous().view(torch.float16)[..., 0]  # [..., n, nb]
+        return cls(packed.contiguous(), scales.transpose(-1, -2).contiguous())
+
     def dequantize(self, dtype=torch.float32) -> torch.Tensor:
         """Plain dequantization -> [..., k, n]: codes q-8 times the f32
         scale, then one cast to ``dtype``."""

@@ -1183,6 +1183,11 @@ def resolve_kv_layout(loaded, kv_layout: str = "auto", page_size: int = 128) -> 
     page_size = int(page_size or 128)
     if kv_layout != "auto":
         return kv_layout, page_size
+    if getattr(loaded, "world", None) is not None:
+        # a mesh serves dense (the page pool has no slot axis to shard), as
+        # in the JAX package; an explicit paged layout raises in BatchEngine
+        log.info("kv-layout auto -> dense (a mesh)")
+        return "dense", page_size
     eng = loaded.engine
     g = math.gcd(page_size, eng.seq_len)
     capable = g >= 8 and paged_decode_supported(
@@ -1216,15 +1221,22 @@ def _make_scheduler(loaded, n_slots: int, defaults: dict):
                     "this engine resolved %s/radix=%s — the host spill tier stays off",
                     kv_layout, radix_cache)
         kv_host_pages = 0
-    be = BatchEngine(loaded.config, eng.params, n_slots=n_slots, cache_dtype=eng.cache.k.dtype,
-                     max_seq_len=eng.seq_len, max_prefill_chunk=eng.max_prefill_chunk,
-                     kernels=eng.backend, kv_layout=kv_layout, page_size=page_size,
-                     kv_pages=int(defaults.get("kv_pages") or 0), device=eng.device,
-                     radix_cache=radix_cache, kv_host_pages=kv_host_pages,
-                     spec=int(defaults.get("spec") or 0), moe_impl=eng.moe_impl,
-                     # --transfer-guard: the steady-state replays under
-                     # torch.cuda.set_sync_debug_mode
-                     transfer_guard=str(defaults.get("transfer_guard") or "off"))
+    kw = dict(n_slots=n_slots, cache_dtype=eng.cache.k.dtype,
+              max_seq_len=eng.seq_len, max_prefill_chunk=eng.max_prefill_chunk,
+              kernels=eng.backend, kv_layout=kv_layout, page_size=page_size,
+              kv_pages=int(defaults.get("kv_pages") or 0),
+              radix_cache=radix_cache, kv_host_pages=kv_host_pages,
+              spec=int(defaults.get("spec") or 0), moe_impl=eng.moe_impl,
+              # --transfer-guard: the steady-state replays under
+              # torch.cuda.set_sync_debug_mode
+              transfer_guard=str(defaults.get("transfer_guard") or "off"))
+    world = getattr(loaded, "world", None)
+    if world is not None:
+        # every rank builds its BatchEngine over its resident shards; rank
+        # 0's drives the others (parallel/multihost)
+        be = world.make("batch", sync=loaded.sync, **kw)
+    else:
+        be = BatchEngine(loaded.config, eng.params, device=eng.device, **kw)
     sched_kw = {}
     if defaults.get("max_queue"):
         sched_kw["max_queue"] = int(defaults["max_queue"])

@@ -240,11 +240,13 @@ class TokenTimer:
 
 def collective_bytes_per_token(cfg, tp: int = 1, sp: int = 1, exchange_bytes: float = 2.0) -> dict:
     """Analytic inter-chip payload per decoded token, per chip (the JAX
-    package's arithmetic; zero at tp = sp = 1, the port's one-device
-    layout). Tensor-parallel Llama all-gathers the wo and w2 partial sums
-    (dim elements each) a layer and the logits (vocab/tp) once a token;
-    sp > 1 adds the query broadcast and LSE merge of sequence-parallel
-    attention. Bytes are sent + received per chip."""
+    package's arithmetic; zero at tp = sp = 1). Tensor-parallel Llama
+    all-gathers the wo and w2 partial sums (dim elements each) a layer and
+    the logits (vocab/tp) once a token; sp > 1 adds the query broadcast and
+    LSE merge of sequence-parallel attention. Bytes are sent + received per
+    chip. The measured counterpart is a tp rank's count of its collectives'
+    result bytes (parallel/collectives.TPExchange, read by
+    ``InferenceEngine.measured_collective_report``)."""
     per_chip = 0.0
     if tp > 1:
         per_layer = 2 * 2 * (cfg.dim / tp) * (tp - 1) * exchange_bytes

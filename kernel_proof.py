@@ -275,7 +275,7 @@ def profile_rounds(cfg, device, iters: int, seconds: float) -> None:
     mpath, tpath = os.path.join(tmp, "m.m"), os.path.join(tmp, "t.t")
     cs.write_model(mpath, cfg, device)
     cs.write_tokenizer(tpath, cfg.vocab_size)
-    loaded = load_model(mpath, tpath, max_seq_len=4096, device=device)
+    loaded = load_model(mpath, tpath, max_seq_len=4096, mesh=None, device=device)
     httpd, api, port = cs._obs_server(loaded)
     prompts = cs.batch_prompts(8)
     for it in range(iters):

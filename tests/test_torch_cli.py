@@ -3,7 +3,8 @@ to aio (as in the JAX package's CLI), `--log-format json` lines of a served
 request carry its request_id, `--trace DIR` writes a torch.profiler Chrome
 trace and `--report` prints the memory and per-token report, and
 `--transfer-guard`, `--restart-max` and the other supervision flags pass the
-refusal (only `--mesh` is refused), with the JAX parser's defaults."""
+refusal (of the mesh axes only tp is ported: `--mesh dp=2` is refused), with
+the JAX parser's defaults."""
 
 import contextlib
 import http.client
@@ -44,8 +45,8 @@ def test_frontend_defaults_to_aio_like_the_jax_cli():
 
 def test_transfer_guard_is_refused(capsys):
     """--transfer-guard is ported now: every mode passes the refusal and
-    stops only at the missing tokenizer (exit 1); --mesh is still refused
-    (exit 2); a bad --faults spec stops startup (exit 2)."""
+    stops only at the missing tokenizer (exit 1); a mesh axis other than tp
+    is still refused (exit 2); a bad --faults spec stops startup (exit 2)."""
     from dllama_tpu_torch.cli.main import main
     from dllama_tpu_torch.utils import faults
 
@@ -53,8 +54,8 @@ def test_transfer_guard_is_refused(capsys):
         assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", "--slots", "2",
                      "--transfer-guard", mode]) == 1
         assert "not yet ported" not in capsys.readouterr().err
-    assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", "--mesh", "tp=2"]) == 2
-    assert "--mesh (multi-device meshes) is not yet ported" in capsys.readouterr().err
+    assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", "--mesh", "dp=2"]) == 2
+    assert "the mesh axis dp (dp=2) is not yet ported" in capsys.readouterr().err
     try:
         assert main(["serve", "--model", FIXTURE_M, "--device", "cpu",
                      "--faults", "nope.where:raise"]) == 2
