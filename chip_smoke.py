@@ -190,6 +190,20 @@ if every phase passed:
               at 1 and 8 slots and a 256-token chunk, wall, stream and busy,
               and their device time split by launch order: expert products,
               projections, attention, the MoE FFN's plain operations.
+22. mesh      tensor parallelism at tp=2 on the 8B widths cut to 8 layers, Q40
+              (one card: both ranks on it over gloo, exchanges staged
+              through host memory, programs eager; two or more: NCCL,
+              captured): logits, ids of
+              the single engine and 8 dense slots, each rank's launches and
+              exchange bytes, then the checks' power on a 2-layer model of
+              codes of mean 0 with two faults planted in the exchange.
+23. mesh_dp_sp the dp and sp axes on the 8B Q40 file, every rank on this
+              card over gloo (a harness): the CLI refusing --mesh dp=2 and
+              sp=2 by the device count; dp=2 with 8 dense slots (ids, each
+              replica's launches, the ranks' digests); dp=2 x tp=2 logits;
+              sp=2 through a 2,000-token prefill, a chunk across the shard
+              boundary (the ring) and 8 decode steps (the LSE merge); a
+              dropped partial planted in the merge on the power model.
 
 Every path runs its decode and prefill chunks as captured CUDA graphs (the
 engines' default on a card); a replay adds the launches its capture recorded to each
@@ -210,7 +224,7 @@ K1 at 9 rows and K7 at 9 query rows (the spec verify forward); and
 every kernel the kbench phase launches on kbench's own inputs (each variant
 of its suite rows and of `8 w1 B D`, the tile sweep, the flash rows), since
 the benchmark checks no result. `serve`, `batch`, `hybrid`, `radix`, `obs`, `supervision`, `f8`,
-`q80`, `kbench`, `styles`, `spec`, `spec_batch`, `golden`, `dequantize` and `moe` are the main paths: the launch counters are zeroed
+`q80`, `kbench`, `styles`, `spec`, `spec_batch`, `golden`, `dequantize`, `mesh`, `mesh_dp_sp` and `moe` are the main paths: the launch counters are zeroed
 just before each of their runs and read just after it. The `router` phase's kernels run in its
 replica processes, whose counters this process cannot read: its entry in `launches_by_path` is
 null. Not in the default: `profile` adds a torch.profiler pass
@@ -943,10 +957,9 @@ def edges_styles(device) -> None:
     """Untimed edges of K3 and K4 on the decode body: K4's output bit-equal
     under the geometries loopdot_geometry gives for 78, 114 and 132 SMs (its
     sum order follows k alone; the column tile may change with the SMs), and
-    each of K3 and K4 one device kernel a call under torch.profiler, at a
+    each of K3 and K4 one device kernel a call in a captured graph, at a
     split launch (wk, w1) and an unsplit one (wcls): no second pass."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from dllama_tpu_torch.ops import q40_matmul as q40
 
@@ -972,18 +985,13 @@ def edges_styles(device) -> None:
             w = random_q40(gen, (), k, n, device)
             x = torch.randn((1, k), generator=gen, device=device).to(torch.bfloat16)
             with q40.forced_style(style):
-                q40.q40_matmul(x, w)  # the split-k scratch exists after this call
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    q40.q40_matmul(x, w)
-                    torch.cuda.synchronize()
-            ops = device_ops(prof)
+                nodes = one_call_nodes(lambda: q40.q40_matmul(x, w))
             geo = (q40.loopdot_geometry if style == "loopdot" else q40.decode_geometry)(
                 k, n, q40._sm_count(device.index or 0))
             print(f"  edge {STYLE_KERNELS[style]} k={k} n={n} m=1 ({geo.splits} splits): "
-                  f"{sum(v[1] for v in ops.values())} device operation(s) a call", flush=True)
-            if len(ops) != 1 or any(v[1] != 1 or name not in op for op, v in ops.items()):
-                fail(f"{STYLE_KERNELS[style]} k={k} n={n}: one call ran {ops}, want one "
+                  f"{len(nodes)} device operation(s) a call", flush=True)
+            if len(nodes) != 1 or nodes[0][0] != "kernel" or name not in nodes[0][1]:
+                fail(f"{STYLE_KERNELS[style]} k={k} n={n}: one call ran {nodes}, want one "
                      f"{name} kernel")
 
 
@@ -1342,10 +1350,9 @@ def edges_k11(device) -> None:
     either side of the route split, an f32 x (K11-B) on both routes, a k
     that is a multiple of 8 but not of 32 (K11-D) on both routes, each
     within TOL_K11 of its plain version and launching its kernel once; then
-    each kernel one device kernel a call under torch.profiler at w1, m = 8
+    each kernel one device kernel a call in a captured graph at w1, m = 8
     and 256 (both routes; K11-B with bf16 and f32 x)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from dllama_tpu_torch.experiments import kbench
 
@@ -1389,16 +1396,11 @@ def edges_k11(device) -> None:
         for kernel, fn in (("kbench_fma_f32", lambda: kbench.fma_f32(x, w.packed, s32)),
                            ("kbench_fma_f32 (f32 x)", lambda: kbench.fma_f32(xf, w.packed, s32)),
                            ("kbench_bf16_gemm", lambda: kbench.bf16_gemm(x, wb))):
-            fn()  # the split-k scratch exists after this call
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            ops = device_ops(prof)
+            nodes = one_call_nodes(fn)
             print(f"  edge {kernel} w1 m={m} ({kbench.route(m)} route): "
-                  f"{sum(v[1] for v in ops.values())} device operation(s) a call", flush=True)
-            if len(ops) != 1 or any(v[1] != 1 or name not in op for op, v in ops.items()):
-                fail(f"{kernel} w1 m={m}: one call ran {ops}, want one {name}")
+                  f"{len(nodes)} device operation(s) a call", flush=True)
+            if len(nodes) != 1 or nodes[0][0] != "kernel" or name not in nodes[0][1]:
+                fail(f"{kernel} w1 m={m}: one call ran {nodes}, want one {name}")
 
 
 # ------------------------------------------------------------ phase 3
@@ -1578,7 +1580,6 @@ def prefill_chunk_ms(loaded, device, positions=(0, 2048), chunk: int = 256, reps
     else the engine's dense cache (flash attention)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from dllama_tpu_torch.engine.kernel_select import resolve_kernels
     from dllama_tpu_torch.models.llama import KVCache, PagedKVCache, forward
@@ -1625,12 +1626,12 @@ def prefill_chunk_ms(loaded, device, positions=(0, 2048), chunk: int = 256, reps
                 out[pos]["times"].append(a.elapsed_time(b))
         for pos in positions:
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with profiled() as prof:
                 run(pos)
                 torch.cuda.synchronize()
             split = {"matmul_ms": 0.0, "attention_ms": 0.0, "other_ms": 0.0, "kernels": 0}
             for e in prof.events():
-                if e.device_type == DeviceType.CUDA:
+                if e.device_type == DeviceType.CUDA and LEAD_IN_NAME not in e.name:
                     key = ("matmul_ms" if any(k in e.name for k in CHUNK_MATMUL) else
                            "attention_ms" if any(k in e.name for k in CHUNK_ATTENTION) else
                            "other_ms")
@@ -1656,7 +1657,6 @@ def phase_profile(loaded, prompt_tokens: list[int], steps: int = 8, names=None) 
     kernel's share (kernel names with a fragment of `names`, default
     K1_NAMES), and the kernels that take the most device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from dllama_tpu_torch.engine.sampling import Sampler
 
@@ -1667,7 +1667,7 @@ def phase_profile(loaded, prompt_tokens: list[int], steps: int = 8, names=None) 
     eng.decode_sample_n([[tok]], steps, Sampler(0.0, 0.9, 0))  # warm
     eng.reset(len(prompt_tokens))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         t0 = time.perf_counter()
         eng.decode_sample_n([[tok]], steps, Sampler(0.0, 0.9, 0))
         torch.cuda.synchronize()
@@ -1696,16 +1696,101 @@ SPLITK_NAME = "splitk_reduce"
 
 def device_ops(prof) -> dict:
     """{name: [device us, count]} of the operations on the card (kernels,
-    memcpys, memsets) in a torch.profiler run."""
+    memcpys, memsets) in a torch.profiler run, the lead-in's left out."""
     from torch.autograd import DeviceType
 
     by_name: dict[str, list] = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and LEAD_IN_NAME not in e.name:
             agg = by_name.setdefault(e.name, [0.0, 0])
             agg[0] += e.time_range.elapsed_us()
             agg[1] += 1
     return by_name
+
+
+#: how long the spin kernels that open every profiled block run, and their
+#: kernel's name (torch.cuda._sleep), which device_ops leaves out
+LEAD_IN_S = 0.2
+LEAD_IN_NAME = "spin"
+
+
+@contextlib.contextmanager
+def profiled(cuda_only: bool = False):
+    """torch.profiler over the block, which starts after LEAD_IN_S of short
+    spin kernels. On the card a session loses the device records of its
+    first milliseconds, more of them the longer the process has run: none
+    in a fresh process, every record of a one-kernel block after a minute
+    or two. The spins' records are the ones lost."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CUDA] if cuda_only else [ProfilerActivity.CPU,
+                                                       ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < LEAD_IN_S:
+            torch.cuda._sleep(20_000)
+            torch.cuda.synchronize()
+        yield prof
+
+
+#: CUgraphNodeType values (cuda.h) of the nodes a captured call may hold
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty",
+                    6: "wait_event", 7: "event_record", 10: "mem_alloc", 11: "mem_free"}
+
+
+def one_call_nodes(fn) -> list[tuple[str, str]]:
+    """The device operations of one call of fn, read from the CUDA graph
+    that captures it: [(node type, kernel name or "")]. A capture holds
+    every kernel, memset and memcpy the call enqueues, and needs no
+    profiler (torch.profiler on the card drops device events in a process
+    that has run for a while). fn runs once uncaptured first, on the
+    capture's stream, so that any scratch it keeps on that stream exists."""
+    import ctypes
+
+    import torch
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def ok(rc: int, what: str) -> None:
+        if rc != 0:
+            fail(f"{what} returned CUresult {rc}")
+
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, stream=s):
+        fn()
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    ok(cu.cuGraphGetNodes(graph, None, ctypes.byref(count)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * count.value)()
+    ok(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(count)), "cuGraphGetNodes")
+    out = []
+    for node in nodes:
+        kind = ctypes.c_int()
+        ok(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)), "cuGraphNodeGetType")
+        name = ""
+        if kind.value == 0:
+            # CUDA_KERNEL_NODE_PARAMS_v2: CUfunction func at 0, CUkernel kern at 56
+            params = (ctypes.c_uint8 * 128)()
+            ok(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params),
+               "cuGraphKernelNodeGetParams")
+            func = ctypes.c_void_p.from_buffer(params, 0).value
+            kern = ctypes.c_void_p.from_buffer(params, 56).value
+            text = ctypes.c_char_p()
+            if func:
+                ok(cu.cuFuncGetName(ctypes.byref(text), ctypes.c_void_p(func)), "cuFuncGetName")
+            else:
+                ok(cu.cuKernelGetName(ctypes.byref(text), ctypes.c_void_p(kern)),
+                   "cuKernelGetName")
+            name = text.value.decode()
+        out.append((GRAPH_NODE_TYPES.get(kind.value, str(kind.value)), name))
+    g.reset()
+    return out
 
 
 def decode_split(by_name: dict, steps: int, names=K1_NAMES) -> dict:
@@ -2073,7 +2158,6 @@ def phase_profile_batch(loaded, n_slots: int = 8, steps: int = 8, names=K1_NAMES
     on a paged BatchEngine, every slot live after a prefill (the split of
     decode_split by the kernel names `names`)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from dllama_tpu_torch.engine.batch import BatchEngine
 
@@ -2089,7 +2173,7 @@ def phase_profile_batch(loaded, n_slots: int = 8, steps: int = 8, names=K1_NAMES
     be.decode(steps)  # the same chunk without the profiler's cost
     torch.cuda.synchronize()
     bare = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         t0 = time.perf_counter()
         be.decode(steps)
         torch.cuda.synchronize()
@@ -2802,7 +2886,6 @@ def chunk_timing(run, steps: int, reps: int = 5) -> dict:
     device ms (the device operations torch.profiler saw in one more run,
     summed); and the busy share device / wall."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     run()  # captures where needed
     walls, streams = [], []
@@ -2822,7 +2905,7 @@ def chunk_timing(run, steps: int, reps: int = 5) -> dict:
         streams.append(a.elapsed_time(b))
     wall = statistics.median(walls)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profiled(cuda_only=True) as prof:
         run()
         torch.cuda.synchronize()
     ops = device_ops(prof)
@@ -2841,7 +2924,6 @@ def prefill_timing(run, reps: int = 5) -> dict:
     operations torch.profiler saw in one more run, summed) split into
     matmul, attention and the rest, and the number of device operations."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     run()  # captures where needed
     torch.cuda.synchronize()
@@ -2864,7 +2946,7 @@ def prefill_timing(run, reps: int = 5) -> dict:
         b.synchronize()
         streams.append(a.elapsed_time(b))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profiled(cuda_only=True) as prof:
         run()
         torch.cuda.synchronize()
     split = {"matmul_ms": 0.0, "attention_ms": 0.0, "other_ms": 0.0, "ops": 0}
@@ -2923,7 +3005,7 @@ def prefill_programs(loaded) -> dict:
                       f"ops (matmul {res['matmul_ms']:.3f}, attention "
                       f"{res['attention_ms']:.3f}, other {res['other_ms']:.3f}); host "
                       f"{res['host_ms']:.3f} ms to enqueue; wall/busy "
-                      f"{res['wall_ms'] / res['busy_ms']:.3f}", flush=True)
+                      f"{res['wall_ms'] / max(res['busy_ms'], 1e-9):.3f}", flush=True)
             # the captured slot chunk against the same body launched from
             # Python, each over a zeroed pool
             logits, captured = [], be.programs
@@ -4765,8 +4847,6 @@ MOE_TOKENS = 16
 MOE_CHUNK = 4
 #: kernel-name fragments of the matmul kernels in the profiler (K1, K2)
 MM_NAMES = K1_NAMES + CHUNK_MATMUL
-#: spin kernels that open moe_split's profile
-SPLIT_SPINS = 32
 
 
 def phase_golden(device) -> dict:
@@ -4915,7 +4995,6 @@ def moe_split(loaded, t: int, pos: int = 0) -> dict:
     (norm, RoPE, the cache writes), with the launches the profiler saw."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from dllama_tpu_torch.models.llama import KVCache, forward
 
@@ -4931,12 +5010,7 @@ def moe_split(loaded, t: int, pos: int = 0) -> dict:
 
     with torch.no_grad():
         run()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            # the first events of a profile can be lost: spin kernels take
-            # them, and the forward's kernels are those after the last spin
-            for _ in range(SPLIT_SPINS):
-                torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
+        with profiled() as prof:  # the forward's kernels are those after the last spin
             run()
     kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
                      key=lambda e: e.time_range.start)
@@ -5258,8 +5332,39 @@ def mesh_step_logits(eng, ptoks: list[int], n_decode: int = 2) -> list:
     return out
 
 
-def phase_mesh(loaded, mpath: str, tpath: str, device, prompt: str) -> dict:
-    """Tensor parallelism at tp=2 on Llama-3.1-8B Q40 (the smoke's model).
+#: the depth of the mesh phase's model: Llama-3.1-8B's widths cut to 8 of its 32
+#: layers, so the default smoke keeps its margin to the deadline beside mesh_dp_sp
+#: (which runs the full depth)
+MESH_LAYERS = 8
+
+
+def phase_mesh(tmp: str, tpath: str, device, prompt: str) -> dict:
+    """_phase_mesh on a model of Llama-3.1-8B's widths cut to MESH_LAYERS
+    layers (write_model's seed-0 recipe), written beside the smoke's files
+    and removed afterwards, with its unsharded engine as the reference."""
+    import gc
+
+    import torch
+
+    from dllama_tpu_torch.engine.loader import load_model
+
+    mpath = os.path.join(tmp, "llama31_8b_mesh.m")
+    cfg = llama31_8b(MESH_LAYERS)
+    write_model(mpath, cfg, device)
+    loaded = load_model(mpath, tpath, max_seq_len=4096, mesh=None, device=device)
+    print(f"phase mesh: {cfg.describe()} (the 8B widths, {MESH_LAYERS} of 32 layers)",
+          flush=True)
+    try:
+        return _phase_mesh(loaded, mpath, tpath, device, prompt)
+    finally:
+        del loaded
+        gc.collect()
+        torch.cuda.empty_cache()
+        os.remove(mpath)
+
+
+def _phase_mesh(loaded, mpath: str, tpath: str, device, prompt: str) -> dict:
+    """Tensor parallelism at tp=2 on Llama-3.1-8B Q40 (phase_mesh's model).
     With one card both ranks run on it over gloo, the exchange staged
     through pinned host memory and the programs eager (NCCL refuses two
     ranks on one card); with two or more, one rank a card over NCCL, the
@@ -5614,6 +5719,324 @@ def mesh_cli_serve(mpath: str, tpath: str) -> None:
         _reap(proc)
 
 
+# ------------------------------------------------------- mesh (dp and sp)
+
+#: mesh_dp_sp's sp run: the prompt prefilled, the chunk after it (rows
+#: 2000..2255 straddle the 2048-row shard boundary of a 4096 context at sp=2)
+#: and the decode steps after that
+SP_PREFILL, SP_CHUNK, SP_DECODE = 2000, 256, 8
+#: the plant's prompt on the power model: rank 1 of sp=2 then holds about
+#: half the live rows, so a dropped partial moves the attention, not a tail
+PLANT_PREFILL = 4000
+
+
+def _rank_bytes(world, label: str, want: float) -> None:
+    """Print each rank's parameter bytes and load; fail when one is off
+    `want` by more than 2%."""
+    for r in world.call_all("rank_report"):
+        print(f"{label} rank {r['rank']}: params {r['param_bytes'] / 1e9:.3f} GB (want "
+              f"{want / 1e9:.3f}), allocated {r['allocated_bytes'] / 1e9:.3f} GB; lazy Q40 "
+              f"decode {r['lazy_decode_bytes'] / 1e9:.3f} GB in {r['lazy_decode_s']:.1f} s; "
+              f"build {r['build_s']:.1f} s", flush=True)
+        if abs(r["param_bytes"] - want) > 0.02 * want:
+            fail(f"{label}: rank {r['rank']} holds {r['param_bytes']} parameter bytes, want "
+                 f"about {want:.0f}")
+
+
+def _close_world(m) -> None:
+    import gc
+
+    import torch
+
+    m.world.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _ids_check(ids: list, ref_ids: list, ref_logits: list, label: str) -> str:
+    """'equal', or where `ids` first leave `ref_ids` beside the reference's
+    top-2 margin there (a near tie when under TOL_FWD * max|logit|); fails
+    when it is not a near tie. ``ref_logits[i]`` chose ``ref_ids[i]``."""
+    import torch
+
+    if ids == ref_ids:
+        return "equal"
+    i = next(j for j, (a, b) in enumerate(zip(ids, ref_ids)) if a != b)
+    top2 = torch.topk(ref_logits[i], 2).values
+    gap, scale = (top2[0] - top2[1]).item(), ref_logits[i].abs().max().item()
+    msg = (f"first apart at {i} ({ids[i]} vs {ref_ids[i]}), top-2 margin {gap:.4e} vs "
+           f"TOL_FWD * max|logit| {TOL_FWD * scale:.4e}")
+    if not gap < TOL_FWD * scale:
+        fail(f"{label}: ids {msg}: not a near tie")
+    return msg
+
+
+def phase_mesh_dp_sp(loaded, mpath: str, tpath: str, device, prompt: str) -> dict:
+    """The dp and sp mesh axes on Llama-3.1-8B Q40 (the smoke's model, context
+    4096), every world's ranks on this card over gloo with the exchanges
+    staged through pinned host memory and the programs eager (a harness:
+    it shows correctness, loading and launches, not dp's or sp's speed).
+    (a) The CLI's --mesh dp=2 and --mesh sp=2 exit 2 with the device-count
+    message, not "not yet ported". (b) dp=2: a dense 8-slot BatchEngine, 4
+    slots a replica: 32 greedy ids a slot equal to the unsharded dense
+    engine's or first apart at a near tie; each replica's K1/K2/K7 launches
+    for a decode step equal an unsharded 4-slot engine's; every rank's
+    digest of its token results equal. (c) dp=2 x tp=2: the single engine's
+    prefill and two decode logits within TOL_FWD of the unsharded engine's.
+    (d) sp=2: a 2,000-token prefill, a 256-token chunk at position 2000 that
+    straddles the shard boundary (the ring), then 8 decode steps (the LSE
+    merge), both sides fed the unsharded engine's ids: the logits within
+    TOL_FWD at every step, the ids equal or apart at a near tie. (e) On the
+    power model (mesh_power's: the 8B widths, codes of mean 0, 2 layers) at
+    sp=2 after a 4,000-token prefill: a decode step within TOL_FWD of one
+    device's, then the same step with rank 1's partials dropped from rank
+    0's LSE merge at layer 0, which the logits check must catch. Prints each
+    rank's parameter bytes and load, the load seconds, a decode step's wall
+    time, and the measured dp/sp bytes beside collective_bytes_per_token.
+    Returns rank 0's launches of the mesh runs of (b) and (d)."""
+    import numpy as np
+    import torch
+
+    from dllama_tpu_torch.engine.batch import BatchEngine
+    from dllama_tpu_torch.engine.loader import load_model
+    from dllama_tpu_torch.utils.profiling import collective_bytes_per_token, params_nbytes
+
+    cfg, eng, tok = loaded.config, loaded.engine, loaded.tokenizer
+    print("phase mesh_dp_sp: every rank on cuda:0 over gloo, the exchanges staged through "
+          "pinned host memory, programs eager", flush=True)
+    # (a) a mesh larger than the cards is refused by its size, not by its axis
+    for spec in ("dp=2", "sp=2"):
+        rc, err = _cli_rc_err(["inference", "--model", mpath, "--tokenizer", tpath,
+                               "--prompt", "x", "--mesh", spec])
+        msg = next((ln for ln in err.splitlines() if "--mesh" in ln), "")
+        print(f"mesh_dp_sp: the CLI's --mesh {spec}: rc {rc}: {msg}", flush=True)
+        if torch.cuda.device_count() < 2 and (
+                rc != 2 or "the mesh needs 2 devices, have 1" not in msg
+                or "not yet ported" in err):
+            fail(f"mesh_dp_sp: the CLI did not refuse --mesh {spec} by the device count")
+    full = params_nbytes(eng.params)
+    ptoks = tok.encode(prompt, add_bos=True)
+    launches: dict = {}
+
+    def add(counts: dict) -> None:
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # (b) dp=2 on the batched tier
+    t0 = time.perf_counter()
+    m = load_model(mpath, tpath, max_seq_len=4096, mesh="dp=2", device=device,
+                   devices=[device, device])
+    print(f"mesh_dp_sp dp=2: load_model {time.perf_counter() - t0:.1f} s", flush=True)
+    prompts = [tok.encode(p) for p in batch_prompts(8)]
+    kw = dict(cache_dtype=torch.bfloat16, max_seq_len=4096, kv_layout="dense")
+    try:
+        _rank_bytes(m.world, "mesh_dp_sp dp=2", full)  # dp replicates the weights
+        reset_counters()
+        m.world.call_all("rank_launches", True)
+        be = m.world.make("batch", n_slots=8, **kw)
+        if be.block != (0, 4) or be.cache.k.shape[1] != 4:
+            fail(f"mesh_dp_sp: rank 0 holds slots {be.block}, want (0, 4)")
+        first = [be.add(s, p, temperature=0.0) for s, p in enumerate(prompts)]
+        toks = be.decode(MESH_TOKENS - 1)
+        streams = [[f] + [int(t) for t in toks[:, s]] for s, f in enumerate(first)]
+        add(counters())
+        ranks = m.world.call_all("rank_launches", True)
+        print(f"mesh_dp_sp dp=2: launches of 8 slots x {MESH_TOKENS} tokens, by rank "
+              f"{[{k: r.get(k, 0) for k in SERVE_KERNELS} for r in ranks]}", flush=True)
+        if any(r.get(k, 0) == 0 for r in ranks for k in SERVE_KERNELS):
+            fail("mesh_dp_sp: a dp replica never launched one of K1/K2/K7")
+        be.decode(1)  # the step counted below is not the first of its shape
+        reset_counters()
+        m.world.call_all("rank_launches", True)
+        be.decode(1)
+        per_rank = [{k: r.get(k, 0) for k in SERVE_KERNELS}
+                    for r in m.world.call_all("rank_launches", True)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        be.decode(8)
+        step_ms = (time.perf_counter() - t0) / 8 * 1e3
+        dp_bytes = dict(be.exchange.forward_bytes.get((8, 1), {}))
+        digests = m.world.call_all("rank_digest")
+        del be
+    finally:
+        _close_world(m)
+    ref_be = BatchEngine(cfg, eng.params, device=eng.device, n_slots=8, **kw)
+    ref_first = [ref_be.add(s, p, temperature=0.0) for s, p in enumerate(prompts)]
+    ref_toks = ref_be.decode(MESH_TOKENS - 1)
+    ref_streams = [[f] + [int(t) for t in ref_toks[:, s]] for s, f in enumerate(ref_first)]
+    del ref_be
+    one4 = BatchEngine(cfg, eng.params, device=eng.device, n_slots=4, **kw)
+    for s, p in enumerate(prompts[:4]):
+        one4.add(s, p, temperature=0.0)
+    one4.decode(1)
+    reset_counters()
+    one4.decode(1)
+    want_n = {k: counters().get(k, 0) for k in SERVE_KERNELS}
+    del one4
+    torch.cuda.empty_cache()
+    apart = sum(near_tie(loaded, prompts[s], a, b, f"mesh_dp_sp dp=2 slot {s}") is not None
+                for s, (a, b) in enumerate(zip(streams, ref_streams)))
+    print(f"mesh_dp_sp dp=2: 8 dense slots, {MESH_TOKENS} greedy ids each: {8 - apart} equal "
+          f"to one device, {apart} first apart at a near tie; a decode step's K1/K2/K7 by "
+          f"replica {per_rank}, an unsharded 4-slot engine's {want_n}; a step {step_ms:.3f} "
+          f"ms wall; its exchange {dp_bytes} (collective_bytes_per_token has no dp term: "
+          f"{collective_bytes_per_token(cfg)['bytes_per_token_per_chip']:.0f} B)", flush=True)
+    if any(r != want_n for r in per_rank):
+        fail("mesh_dp_sp: a replica's decode-step launches differ from a 4-slot engine's")
+    if len(set(digests)) != 1:
+        fail(f"mesh_dp_sp: the ranks' token results differ: {digests}")
+    print(f"mesh_dp_sp dp=2: every rank's token results equal ({digests[0][:12]})",
+          flush=True)
+
+    # (c) dp=2 x tp=2, the single engine
+    ref_logits = mesh_step_logits(eng, ptoks)
+    t0 = time.perf_counter()
+    m = load_model(mpath, tpath, max_seq_len=4096, mesh="dp=2,tp=2", device=device,
+                   devices=[device] * 4)
+    print(f"mesh_dp_sp dp=2,tp=2: load_model {time.perf_counter() - t0:.1f} s", flush=True)
+    try:
+        repl = params_nbytes({k: eng.params[k] for k in ("embedding", "final_norm")}) + \
+            params_nbytes({k: eng.params["layers"][k] for k in ("rms_att", "rms_ffn")})
+        _rank_bytes(m.world, "mesh_dp_sp dp=2,tp=2", repl + (full - repl) / 2)
+        logits = mesh_step_logits(m.engine, ptoks)
+        rep = m.engine.measured_collective_report()
+    finally:
+        _close_world(m)
+    errs = [_rel(a, b) for a, b in zip(logits, ref_logits)]
+    print(f"mesh_dp_sp dp=2,tp=2: prefill and 2 decode logits vs one device "
+          f"{[f'{e:.3e}' for e in errs]} <= TOL_FWD {TOL_FWD}; a decode step's exchange "
+          f"{rep['per_op']} ({rep['total_bytes']} B), collective_bytes_per_token(tp=2) "
+          f"{collective_bytes_per_token(cfg, tp=2)['bytes_per_token_per_chip']:.0f} B",
+          flush=True)
+    if not max(errs) <= TOL_FWD:
+        fail("mesh_dp_sp: the dp=2,tp=2 logits are off the unsharded kernels'")
+
+    # (d) sp=2: the ring (a straddling chunk) and the LSE merge (decode)
+    rng = np.random.default_rng(12)
+    long = [int(t) for t in rng.integers(1, cfg.vocab_size, SP_PREFILL + SP_CHUNK)]
+
+    def sp_run(e, feed=None):
+        e.reset(0)
+        out = [e.prefill([long[:SP_PREFILL]])[0].float()]
+        out.append(e.step(np.asarray([long[SP_PREFILL:]]))[0].float())
+        ids = []
+        for i in range(SP_DECODE):
+            ids.append(int(out[-1].argmax()) if feed is None else feed[i])
+            out.append(e.decode_step([[ids[-1]]])[0].float())
+        e.reset(0)
+        return out, ids
+
+    ref_out, ref_ids = sp_run(eng)
+    t0 = time.perf_counter()
+    m = load_model(mpath, tpath, max_seq_len=4096, mesh="sp=2", device=device,
+                   devices=[device, device])
+    print(f"mesh_dp_sp sp=2: load_model {time.perf_counter() - t0:.1f} s", flush=True)
+    meng = m.engine
+    try:
+        _rank_bytes(m.world, "mesh_dp_sp sp=2", full)  # sp replicates the weights
+        if meng.attn_route != "ring" or meng.backend != "cuda" or \
+                meng.cache.k.shape[3] != 4096 // 2 + 1:
+            fail(f"mesh_dp_sp: the sp engine runs {meng.backend}/{meng.attn_route} over "
+                 f"{meng.cache.k.shape[3]} rows a layer")
+        reset_counters()
+        m.world.call_all("rank_launches", True)
+        t0 = time.perf_counter()
+        out, _ = sp_run(meng, ref_ids)
+        run_s = time.perf_counter() - t0
+        add(counters())
+        ranks = m.world.call_all("rank_launches", True)
+        ids = [int(x.argmax()) for x in out[1:-1]]  # each step's own choice of the next id
+        rep = meng.measured_collective_report()
+        meng.reset(SP_PREFILL)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        meng.decode_greedy_n([[ref_ids[0]]], 4)
+        step_ms = (time.perf_counter() - t0) / 4 * 1e3
+        meng.reset(0)
+        if len(set(m.world.call_all("rank_digest"))) != 1:
+            fail("mesh_dp_sp: the sp ranks' token results differ")
+    finally:
+        _close_world(m)
+        del meng
+    errs = [_rel(a, b) for a, b in zip(out, ref_out)]
+    msg = _ids_check(ids, ref_ids, ref_out[1:-1], "mesh_dp_sp sp=2")
+    print(f"mesh_dp_sp sp=2: prefill {SP_PREFILL}, a {SP_CHUNK}-token chunk at {SP_PREFILL} "
+          f"(ring), {SP_DECODE} decode steps (LSE) in {run_s:.1f} s; logits vs one device "
+          f"{[f'{e:.3e}' for e in errs]} <= TOL_FWD {TOL_FWD}; ids {msg}; K1/K2 by rank "
+          f"{[{k: r.get(k, 0) for k in SERVE_KERNELS} for r in ranks]}; a decode step "
+          f"{step_ms:.3f} ms wall; its exchange {rep['per_op']}, "
+          f"collective_bytes_per_token(sp=2) "
+          f"{collective_bytes_per_token(cfg, sp=2)['bytes_per_token_per_chip']:.0f} B (kv "
+          f"heads; the merge moves the query heads' partials)", flush=True)
+    if not max(errs) <= TOL_FWD:
+        fail("mesh_dp_sp: the sp=2 logits are off the unsharded kernels'")
+    if any(r.get(k, 0) == 0 for r in ranks for k in ("q40_decode", "q40_prefill")):
+        fail("mesh_dp_sp: an sp rank never launched K1 or K2")
+    mesh_sp_plant(os.path.dirname(mpath), tpath, device)
+    return launches
+
+
+def mesh_sp_plant(tmp: str, tpath: str, device) -> None:
+    """mesh_dp_sp (e): the power model (mesh_power's recipe) at sp=2 after a
+    PLANT_PREFILL-token prefill; a decode step within TOL_FWD of one
+    device's, then the same step with rank 1's partials dropped from rank
+    0's LSE merge at layer 0 (rank 0 makes the exchange, then keeps its own
+    partial sums), which the logits check must catch."""
+    import numpy as np
+    import torch
+
+    from dllama_tpu_torch.engine.loader import load_model
+
+    cfg = llama31_8b(MESH_POWER_LAYERS)
+    path = os.path.join(tmp, "llama31_8b_power_sp.m")
+    t0 = time.perf_counter()
+    write_model(path, cfg, device, seed=1, zero_mean=True)
+    one = load_model(path, tpath, max_seq_len=4096, mesh=None, device=device).engine
+    m = load_model(path, tpath, max_seq_len=4096, mesh="sp=2", device=device,
+                   devices=[device, device])
+    meng, axis = m.engine, m.engine.exchange.sp
+    toks = [int(t) for t in np.random.default_rng(13).integers(1, cfg.vocab_size,
+                                                                PLANT_PREFILL)]
+
+    def step(e, feed: int):
+        """The decode step after the prompt, fed `feed`."""
+        e.reset(0)
+        e.prefill([toks])
+        return e.decode_step([[feed]])[0].float()
+
+    try:
+        feed = int(one.prefill([toks])[0].argmax())
+        ref = step(one, feed)
+        clean = _rel(step(meng, feed), ref)
+        calls = [0]
+
+        def dropped(x, op="sum", real=axis.all_reduce):
+            calls[0] += 1
+            out = real(x, op)  # every rank still takes part
+            return x if (calls[0] == 2 and op == "sum") else out  # layer 0's sums
+
+        meng.reset(0)
+        meng.prefill([toks])
+        axis.all_reduce = dropped
+        try:
+            planted = _rel(meng.decode_step([[feed]])[0].float(), ref)
+        finally:
+            del axis.all_reduce
+        print(f"mesh_dp_sp plant: {cfg.describe()}, codes of mean 0, up in "
+              f"{time.perf_counter() - t0:.1f} s; after {PLANT_PREFILL} tokens a decode step "
+              f"at sp=2 vs one device {clean:.3e} <= TOL_FWD {TOL_FWD}; with rank 1's "
+              f"partials dropped from rank 0's merge at layer 0: {planted:.3e}", flush=True)
+        if not clean <= TOL_FWD:
+            fail("mesh_dp_sp: the power model's sp=2 decode step is off one device's")
+        if planted <= TOL_FWD:
+            fail("mesh_dp_sp: the logits check missed the dropped partials")
+    finally:
+        _close_world(m)
+        del m, meng, one
+        torch.cuda.empty_cache()
+        os.remove(path)
+
+
 # ------------------------------------------------------------ main
 
 
@@ -5650,7 +6073,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="card,kernels,golden,kbench,forward,serve,batch,hybrid,radix,obs,"
                             "supervision,router,inference,styles,spec,spec_batch,graphs,"
-                            "dequantize,mesh,f8,q80,moe",
+                            "dequantize,mesh,mesh_dp_sp,f8,q80,moe",
                     help="comma list; not in the default: 'profile' adds a "
                          "torch.profiler pass over one decode chunk, single-stream "
                          "and 8-slot; 'chunk' is the prefill-chunk timing alone (Q40 "
@@ -5714,7 +6137,7 @@ def main(argv=None) -> int:
               "a storm, and a ship that never arrives.")
     if phases & {"forward", "chunk", "serve", "profile", "batch", "hybrid", "radix", "obs",
                   "supervision", "router", "inference", "styles", "spec", "spec_batch",
-                  "graphs", "dequantize", "mesh", "f8"}:
+                  "graphs", "dequantize", "mesh", "mesh_dp_sp", "f8"}:
         from dllama_tpu_torch.engine.loader import load_model
 
         tmp = tempfile.TemporaryDirectory(prefix="dllama_smoke_")
@@ -5863,8 +6286,11 @@ def main(argv=None) -> int:
             paths["dequantize"] = phase_dequantize(loaded, device, mpath, tpath, prompt)
         phase_done("dequantize", phases)
         if "mesh" in phases:
-            paths["mesh"] = phase_mesh(loaded, mpath, tpath, device, prompt)
+            paths["mesh"] = phase_mesh(tmp.name, tpath, device, prompt)
         phase_done("mesh", phases)
+        if "mesh_dp_sp" in phases:
+            paths["mesh_dp_sp"] = phase_mesh_dp_sp(loaded, mpath, tpath, device, prompt)
+        phase_done("mesh_dp_sp", phases)
         del loaded
         torch.cuda.empty_cache()
         if "f8" in phases:

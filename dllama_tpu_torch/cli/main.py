@@ -12,13 +12,14 @@ Modes:
 
 Everything runs on `--device cuda` (the default) or `--device cpu`. Without
 a CUDA device the CLI stops with an error unless the CPU was asked for.
-`--mesh tp=N` (default `auto`: every card on tp; `--no-mesh` pins one
-device) runs tensor parallelism, one process a rank with rank 0 driving
-(parallel/multihost.py), over NCCL on cards and gloo on the CPU; `--sync`
-picks the exchange's payload, and `--distributed --coordinator HOST:PORT
---num-processes P --process-id I` joins processes across hosts. The other
-mesh axes, and `--faults`, `$DLLAMA_FAULTS` or `--restart-max` on the mesh
-that runs, exit 2 by name. Options of the JAX package that this package has
+`--mesh tp=4,dp=2,sp=1` (default `auto`: the JAX package's factoring, tp
+capped by the kv heads and the rest on dp; `--no-mesh` pins one device)
+runs tensor, sequence (ring attention) and data parallelism, one process
+a rank with rank 0 driving (parallel/multihost.py), over NCCL on cards and
+gloo on the CPU; `--sync` picks the tp exchange's payload, and
+`--distributed --coordinator HOST:PORT --num-processes P --process-id I`
+joins processes across hosts. The pp and ep axes, and `--faults`,
+`$DLLAMA_FAULTS` or `--restart-max` on the mesh that runs, exit 2 by name. Options of the JAX package that this package has
 not ported yet are accepted by name and refused with a clear message (exit 2).
 `serve --slots N` runs the JAX package's defaults: paged KV where the paged
 kernel takes the model, the radix prefix tree on it (`--radix-cache auto`),
@@ -250,9 +251,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "dllama_spec_*, the spec objects of timings and /debug/perf "
                         "(default: --spec)")
     p.add_argument("--mesh", default="auto",
-                   help="device mesh 'tp=2' or 'auto' (every card on tp, capped by the kv "
-                        "heads); one process a rank, rank 0 drives (dp, sp, pp and ep are "
-                        "not ported). On the CPU ('--device cpu') each rank is a process")
+                   help="device mesh spec 'tp=4,dp=2,sp=1' or 'auto' (all devices on tp, "
+                        "capped by the kv heads, the rest on dp); one process a rank, rank 0 "
+                        "drives (pp and ep are not ported). On the CPU ('--device cpu') each "
+                        "rank is a process")
     p.add_argument("--no-mesh", action="store_true", help="one device even if more exist")
     p.add_argument("--sync", choices=["bf16", "q80", "auto"], default="bf16",
                    help="tp activation exchange: bf16 (exact, default), q80 (the "
@@ -290,7 +292,7 @@ def _resolve_mesh(args):
 
 
 def _refuse_unported(args) -> None:
-    """What this package does not carry: the mesh axes but tp, and on the
+    """What this package does not carry: the pp and ep mesh axes, and on the
     mesh that really runs, fault injection (--faults or $DLLAMA_FAULTS) and
     warm restarts (a follower's recovery needs a design of its own)."""
     from dllama_tpu_torch.parallel.mesh import NotPorted as MeshNotPorted
@@ -416,13 +418,13 @@ def cmd_inference(args) -> int:
         print(profiling.memory_report(m.config, m.engine.params, m.engine.cache),
               file=sys.stderr)
         print(f"⏱  {timer.summary()}", file=sys.stderr)
-        tp = m.shardings.tp if m.shardings is not None else 1
+        tp, sp = (m.shardings.tp, m.shardings.sp) if m.shardings is not None else (1, 1)
         est = profiling.collective_bytes_per_token(
-            m.config, tp=tp, exchange_bytes=34 / 32 if m.sync == "q80" else 2.0)
+            m.config, tp=tp, sp=sp, exchange_bytes=34 / 32 if m.sync == "q80" else 2.0)
         print(f"🔗 mesh: {m.shardings.mesh.shape if m.shardings else 'one device'} "
               f"(sync {m.sync})", file=sys.stderr)
         print(f"🔗 est. inter-chip payload: {est['kb_per_token_per_chip']:.0f} "
-              f"kB/token/chip (tp={tp})", file=sys.stderr)
+              f"kB/token/chip (tp={tp}, sp={sp})", file=sys.stderr)
         meas = m.engine.measured_collective_report()
         ops = ", ".join(f"{k}={v / 1024:.1f}kB" for k, v in meas["per_op"].items()) or "none"
         print(f"🔗 measured in one decode step: {meas['total_bytes'] / 1024:.1f} kB ({ops})",

@@ -695,8 +695,10 @@ class BatchEngine:
         # synchronizing operation there warns or raises (obs/compile.h2d_guard)
         moe_impl: str = "auto",  # 'auto' | 'dispatch' | 'sort' | 'dense' (ops.layers.moe_ffn):
         # every program body runs it; fixed per engine, so no program key names it
-        shardings=None,  # parallel/sharding.LlamaShardings: one rank of a tp mesh
-        # (dense layout only, as in the JAX package; see InferenceEngine)
+        shardings=None,  # parallel/sharding.LlamaShardings: one rank of a tp/dp mesh
+        # (dense layout only, as in the JAX package; see InferenceEngine). On dp
+        # a replica holds its block of the slots (``block``): their cache, and
+        # it runs and samples their rows; the tokens are all-gathered over dp
         sync: str = "bf16",  # the tp exchange: 'bf16' | 'q80' | 'auto'
     ):
         if cache_dtype not in CACHE_DTYPES:
@@ -708,6 +710,15 @@ class BatchEngine:
         self.device = torch.device(device) if device is not None else params["embedding"].device
         self.shardings = shardings
         self.sync = resolve_sync(sync, shardings)
+        if shardings is not None and (shardings.sp > 1 or shardings.mesh.shape["pp"] > 1):
+            # per-slot vector positions don't fit the sp masks or the GPipe
+            # schedule; continuous batching serves tp/dp meshes (the JAX
+            # package's refusal)
+            raise ValueError("BatchEngine supports tp/dp meshes (not sp/pp)")
+        if int(spec) and shardings is not None and shardings.dp > 1:
+            # history rows are slot-indexed on the host admission path; a dp
+            # mesh shards the slot axis
+            raise ValueError("spec batching supports unsharded/tp engines")
         self.exchange, capture = _mesh_setup(self, shardings, capture)
         if shardings is not None:
             if kv_layout == "paged":
@@ -718,6 +729,9 @@ class BatchEngine:
         self.cfg = cfg
         self.params = params  # fused wqkv/w13 when the caller's engine fused them
         self.n_slots = n_slots
+        # the slots [lo, hi) whose cache and forward this rank holds: a dp
+        # replica's block, or every slot (parallel/sharding.batch_block)
+        self.block = (0, n_slots) if shardings is None else shardings.batch_block(n_slots)
         self.seq_len = min(max_seq_len or cfg.seq_len, cfg.seq_len)
         self.max_prefill_chunk = max_prefill_chunk
         self.rope_cache = build_rope_cache(cfg, self.seq_len, self.device)
@@ -739,7 +753,8 @@ class BatchEngine:
             self.cache = PagedKVCache.create(cfg, n_slots, n_pages, self.page_size,
                                              cache_dtype, max_blocks, self.device)
         else:
-            self.cache = KVCache.create(cfg, n_slots, cache_dtype, self.seq_len, self.device)
+            self.cache = KVCache.create(cfg, self.block[1] - self.block[0], cache_dtype,
+                                        self.seq_len, self.device)
         if radix_cache not in ("auto", "on", "off"):
             raise ValueError(f"radix_cache must be auto|on|off, got {radix_cache!r}")
         if radix_cache == "on" and self.pool is None:
@@ -1097,7 +1112,11 @@ class BatchEngine:
         """Cross-slot prefix share: make dst_slot's first `rows` KV rows equal
         to src_slot's, so an admission into dst starts at rows. Dense: one
         on-device row copy. Paged: full pages are SHARED by refcount and only
-        a partial boundary page is cloned; divergence later copies on write."""
+        a partial boundary page is cloned; divergence later copies on write.
+        Not on a dp mesh (supports_cross_slot_copy)."""
+        if not self.supports_cross_slot_copy:
+            raise ValueError("cross-slot copy crosses dp shards; not supported on "
+                             "batch-sharded meshes")
         if self.active[dst_slot]:
             raise ValueError(f"dst slot {dst_slot} is busy")
         if self.pool is not None:
@@ -1182,7 +1201,7 @@ class BatchEngine:
                 table.copy_(self.cache.tables.index_select(0, slot))
                 out.copy_(self._logits(toks, pos, sub))
         else:
-            s = layout[1]
+            s = layout[1] - self.block[0]  # the slot's row of this rank's cache
             sub = KVCache(self.cache.k[:, s : s + 1], self.cache.v[:, s : s + 1])
 
             def forward_chunk():
@@ -1210,16 +1229,25 @@ class BatchEngine:
         # add_begin may have changed the slot's block table: the device copy
         # is refreshed, in stream order, before the program gathers its row
         self._sync_vectors()
-        prog = self.programs.prefill(c, self._prefill_layout(slot), self._make_prefill)
-        prog.buffers["toks"].copy_(self._pinned(adm.toks[None, off : off + c]),
-                                   non_blocking=True)
-        self._pf_in.copy_(self._pinned(np.array([slot, self.pos[slot]], np.int64)),
-                          non_blocking=True)
-        compile_obs.note_transfer("h2d", "prefill", 8 * (c + 2))
-        prog.run()
-        self.forwards += 1
+        lo, hi = self.block
+        if lo <= slot < hi:
+            prog = self.programs.prefill(c, self._prefill_layout(slot), self._make_prefill)
+            prog.buffers["toks"].copy_(self._pinned(adm.toks[None, off : off + c]),
+                                       non_blocking=True)
+            self._pf_in.copy_(self._pinned(np.array([slot, self.pos[slot]], np.int64)),
+                              non_blocking=True)
+            compile_obs.note_transfer("h2d", "prefill", 8 * (c + 2))
+            prog.run()
+            self.forwards += 1
+            adm.logits = prog.buffers["logits"].clone()
+        else:  # another replica's slot: its logits arrive below
+            adm.logits = torch.empty((1, self.cfg.vocab_size), dtype=torch.float32,
+                                     device=self.device)
+        if hi - lo < self.n_slots:
+            # the replica that holds the slot ran its B=1 prefill; every rank
+            # takes its logits, so each samples the same first token
+            self.exchange.dp.broadcast(adm.logits, slot // (hi - lo))
         ins.PREFILL_TOKENS.inc(c)
-        adm.logits = prog.buffers["logits"].clone()
         self.pos[slot] += c
         adm.off += c
 
@@ -1366,32 +1394,46 @@ class BatchEngine:
         bad = torch.zeros(self.n_slots, dtype=torch.bool, device=self.device)
         penalized = variant == "penalized"
         offs = torch.arange(1, n + 1, device=self.device)
+        # a dp replica runs and samples its block's rows; the tokens and the
+        # NaN-guard flags of every row are all-gathered over dp, so each rank
+        # moves the whole batch's state alike (rows [lo, hi) are every row
+        # off dp)
+        lo, hi = self.block
+        dp = self.exchange.dp if hi - lo < self.n_slots else None
+        bad_l = bad[lo:hi] if dp is None else torch.zeros(hi - lo, dtype=torch.bool,
+                                                          device=self.device)
 
         def body():
             act0, lim = self._active_dev, self._limit_dev
             lim_last = (lim - 1).clamp(min=0)
             p0 = p = self._pos_dev
             tok = self._last_dev
-            bad.zero_()
+            bad_l.zero_()
             u = self.rng.uniforms(n) if variant != "greedy" else None
             for i in range(n):
                 # per-row freeze: frozen rows behave like inactive ones (writes
                 # masked, token repeats, generator held); pos is clamped only
                 # for their rope/cache indexing
                 act = act0 & (p < lim)
-                logits = self._logits(tok[:, None], torch.minimum(p, lim_last), self.cache,
-                                      active=act)
-                bad.logical_or_(act & ~torch.isfinite(logits).all(dim=-1))
+                if dp is not None:
+                    self.exchange.open_forward()  # the gather counts with the step
+                logits = self._logits(tok[lo:hi, None], torch.minimum(p, lim_last)[lo:hi],
+                                      self.cache, active=act[lo:hi])
+                bad_l.logical_or_(act[lo:hi] & ~torch.isfinite(logits).all(dim=-1))
                 if penalized:
                     # the fed token counts before its successor is sampled
                     self._counts.index_put_((self._rows, tok), act.to(torch.int32),
                                             accumulate=True)
-                    logits = apply_penalties(logits, self._counts, self._pres_dev,
-                                             self._freq_dev)
+                    logits = apply_penalties(logits, self._counts[lo:hi],
+                                             self._pres_dev[lo:hi], self._freq_dev[lo:hi])
                 if u is None:
                     nxt = torch.argmax(logits, dim=-1)
                 else:
-                    nxt = _sample_rows(logits, u[i], self._temps_dev, self._topp_dev)
+                    nxt = _sample_rows(logits, u[i][lo:hi], self._temps_dev[lo:hi],
+                                       self._topp_dev[lo:hi])
+                if dp is not None:
+                    nxt = dp.all_gather(nxt).reshape(-1)
+                    self.exchange.close_forward(self.n_slots, 1)
                 tok = torch.where(act, nxt, tok)
                 toks[i].copy_(tok)
                 p = p + act.to(p.dtype)
@@ -1406,6 +1448,8 @@ class BatchEngine:
             self.rng.advance((p - p0).to(torch.int64))  # one draw per active step
             self._pos_dev.copy_(p)
             self._last_dev.copy_(tok)
+            if dp is not None:
+                bad.copy_(dp.all_gather(bad_l.to(torch.uint8)).reshape(-1) != 0)
 
         state = (self._pos_dev, self._last_dev, self.rng.counter)
         if self.spec_k:
@@ -1634,9 +1678,16 @@ class BatchEngine:
 
     @property
     def supports_hybrid(self) -> bool:
-        """Whether hybrid_dispatch can run: always on one device (the JAX
-        package's gate is a sharded batch axis, which the port has not)."""
-        return True
+        """Whether hybrid_dispatch can run: not on a dp mesh, whose replicas
+        hold blocks of the slots (the JAX package's gate, _use_slot_prefill);
+        the scheduler then admits phase-split."""
+        return self.shardings is None or self.shardings.dp == 1
+
+    @property
+    def supports_cross_slot_copy(self) -> bool:
+        """False on dp meshes: the batch axis is sharded, so a slot-to-slot
+        row copy would gather across shards (the JAX package's gate)."""
+        return self.shardings is None or self.shardings.dp == 1
 
     @mirrored
     @torch.no_grad()
@@ -1662,6 +1713,9 @@ class BatchEngine:
         # leaves the engine clean, so the scheduler fails only the joiner
         faults.fire("engine.decode")
         faults.fire("engine.prefill")
+        if not self.supports_hybrid:
+            raise ValueError("hybrid step needs an unsharded batch axis "
+                             "(dp meshes keep phase-split admission)")
         slot = adm.slot
         if self.active[slot]:
             raise ValueError(f"slot {slot} is busy")
@@ -1797,7 +1851,7 @@ class BatchEngine:
             per_fn[fn_names[variant]] = per_fn.get(fn_names[variant], 0) + 1
         widths = self._prefill_widths()
         layouts = ([self._prefill_layout(0)] if self.pool is not None
-                   else [self._prefill_layout(s) for s in range(self.n_slots)])
+                   else [self._prefill_layout(s) for s in range(*self.block)])
         saved = None
         if self.programs.capture:  # a capture's warm-up writes KV rows
             self._pf_in.zero_()  # slot 0, position 0

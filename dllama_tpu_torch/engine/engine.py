@@ -31,6 +31,7 @@ from dllama_tpu_torch.models.llama import KVCache, forward, fuse_layer_weights
 from dllama_tpu_torch.ops.layers import build_rope_cache
 from dllama_tpu_torch.parallel.collectives import TPExchange, resolve_sync
 from dllama_tpu_torch.parallel.multihost import mirrored, refuse_on_mesh
+from dllama_tpu_torch.parallel.ring_attention import make_sp_attention
 
 #: KV cache element types; e4m3 is the f8 cache (--cache-dtype f8)
 CACHE_DTYPES = (torch.bfloat16, torch.float32, torch.float8_e4m3fn)
@@ -81,14 +82,19 @@ class InferenceEngine:
     decode chunk as a captured CUDA graph.
 
     ``shardings`` (parallel/sharding.LlamaShardings) makes it one rank of a
-    tensor-parallel mesh: ``cfg`` is the model's, ``params`` the full tree
-    or the rank's shards, and the engine runs the rank's view
-    (``self.cfg``: its heads and FFN width) with the exchange ``sync``
-    ('bf16' | 'q80' | 'auto', parallel/collectives.resolve_sync). Over
-    gloo with CUDA tensors (ranks that share a card) the programs run
-    eagerly; ``fuse_weights`` is ignored on a mesh, as in the JAX package.
-    The methods marked ``mirrored`` are the calls rank 0 sends to the
-    other ranks (parallel/multihost)."""
+    mesh: ``cfg`` is the model's, ``params`` the full tree or the rank's
+    shards, and the engine runs the rank's view (``self.cfg``: its heads
+    and FFN width) with the tp exchange ``sync`` ('bf16' | 'q80' | 'auto',
+    parallel/collectives.resolve_sync). On dp the batch is replicated
+    unless dp divides it (JAX's ``_batch_axis``); a replica of a divided
+    batch runs its rows (``block``) and the logits are all-gathered over
+    dp, so every rank samples the same tokens. On sp the cache holds the
+    rank's sequence rows (and a trash row) and the attention is the ring's
+    (parallel/ring_attention). Over gloo with CUDA tensors (ranks that
+    share a card), and on any sp mesh, the programs run eagerly;
+    ``fuse_weights`` is ignored on a mesh, as in the JAX package. The
+    methods marked ``mirrored`` are the calls rank 0 sends to the other
+    ranks (parallel/multihost)."""
 
     def __init__(
         self,
@@ -123,10 +129,12 @@ class InferenceEngine:
         self.seq_len = min(max_seq_len or cfg.seq_len, cfg.seq_len)
         self.max_prefill_chunk = max_prefill_chunk
         self.rope_cache = build_rope_cache(cfg, self.seq_len, self.device)
-        self.cache = KVCache.create(cfg, batch, cache_dtype, self.seq_len, self.device)
+        self.block, rows, sp_attn = _mesh_layout(shardings, self.exchange, batch, self.seq_len)
+        self.cache = KVCache.create(cfg, self.block[1] - self.block[0], cache_dtype, rows,
+                                    self.device)
         self.pos = 0
         self.moe_impl = resolve_moe_impl(moe_impl)
-        sel = resolve_kernels(cfg, kernels, self.device)
+        sel = resolve_kernels(cfg, kernels, self.device, sp_attention=sp_attn)
         self.mm, self.attn_fn = sel.mm, sel.attn_fn
         self.backend, self.attn_route = sel.backend, sel.attn_route
         self.forwards = 0  # forward passes run (each is one token column)
@@ -160,18 +168,32 @@ class InferenceEngine:
     def _logits(self, tokens: torch.Tensor, pos, last_only: bool = True) -> torch.Tensor:
         """One forward at `pos` (an int, or a [B] tensor); returns f32
         logits: the last position's [B, V], or with ``last_only=False``
-        every position's [B, T, V]. The caller counts it in ``forwards``."""
+        every position's [B, T, V]. The caller counts it in ``forwards``.
+        A dp replica of a divided batch runs its rows and all-gathers the
+        logits over dp."""
+        lo, hi = self.block
+        sharded = hi - lo < self.batch
+        if sharded:
+            self.exchange.open_forward()  # the dp gather counts with the forward
+            tokens = tokens[lo:hi]
+            if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+                pos = pos[lo:hi]
         logits, _ = forward(self.cfg, self.params, tokens, pos, self.cache, self.rope_cache,
                             self.attn_fn, self.mm, last_only=last_only,
                             moe_impl=self.moe_impl, exchange=self.exchange)
-        return logits[:, -1] if last_only else logits
+        logits = logits[:, -1] if last_only else logits
+        if sharded:
+            logits = self.exchange.dp.all_gather(logits).reshape(
+                self.batch, *logits.shape[1:])
+            self.exchange.close_forward(self.batch, tokens.shape[1])
+        return logits
 
     def measured_collective_report(self) -> dict:
-        """The tp exchange of one decode step (a [batch, 1] forward) as this
+        """The exchange of one decode step (a [batch, 1] forward) as this
         rank's collectives counted it: the bytes of each collective's
         result, by op (the JAX package's count of the compiled step's HLO
-        collectives). Empty before the first decode step, and on one
-        device."""
+        collectives; an sp or dp op carries its axis, "sp:all-reduce").
+        Empty before the first decode step, and on one device."""
         per_op = {} if self.exchange is None else dict(
             self.exchange.forward_bytes.get((self.batch, 1), {}))
         return {"total_bytes": sum(per_op.values()), "per_op": per_op}
@@ -635,14 +657,29 @@ def _mesh_setup(engine, shardings, capture):
     """(exchange, capture) of an engine on `shardings` (None and `capture`
     off a mesh): the rank's TPExchange, and capture off where the
     exchange is staged through the host (gloo on CUDA tensors), which no
-    CUDA graph can hold."""
+    CUDA graph can hold, and on an sp mesh, whose ring's point-to-point
+    exchange runs eagerly."""
     if shardings is None:
         return None, capture
     ex = TPExchange(shardings.mesh, engine.sync, shardings.ffn_sharded,
                     shardings.logits_sharded)
-    if ex.staged:
+    if ex.staged or ex.sp is not None:
         if capture:
-            raise ValueError("a mesh over gloo on CUDA tensors runs its programs eagerly "
-                             "(capture=False): the exchange goes through host memory")
+            raise ValueError("a mesh over gloo on CUDA tensors, or with sp > 1, runs its "
+                             "programs eagerly (capture=False)")
         capture = False
     return ex, capture
+
+
+def _mesh_layout(shardings, exchange, batch: int, seq_len: int):
+    """(block, rows, sp attention) of an engine's cache: the batch rows
+    [lo, hi) it holds (parallel/sharding.batch_block), the rows a layer's
+    cache holds (an sp rank's sequence rows plus its trash row), and the
+    sp rank's attention (parallel/ring_attention.SPAttention), or None."""
+    if shardings is None:
+        return (0, batch), seq_len, None
+    block = shardings.batch_block(batch)
+    if exchange.sp is None:
+        return block, seq_len, None
+    _, rows = shardings.seq_block(seq_len)
+    return block, rows + 1, make_sp_attention(exchange, rows)

@@ -17,11 +17,17 @@ Rules (the unsharded branches of the JAX package's resolve_kernels):
   the JAX package's bf16/f32 rule) raises there, naming ``--kernels torch``.
   ``--kernels torch``, or the CPU, gives ``paged_gather`` (the plain
   block-table gather). K8 (``paged_flash_gqa_attention``) is not routed.
-* On a tensor-parallel mesh each rank resolves the same rules on its own
-  view of the config (its heads, parallel/sharding.LocalLlamaConfig), so
-  the CUDA kernels run on each shard. The dense layout only, as in the JAX
-  package: the api resolves ``--kv-layout auto`` to dense and BatchEngine
-  raises on an explicit paged layout; ``--fuse-weights`` is ignored.
+* On a mesh each rank resolves the same rules on its own view of the
+  config (its heads, parallel/sharding.LocalLlamaConfig), so the CUDA
+  kernels run on each shard; a dp replica runs them on its rows. The
+  dense layout only, as in the JAX package: the api resolves
+  ``--kv-layout auto`` to dense and BatchEngine raises on an explicit
+  paged layout; ``--fuse-weights`` is ignored.
+* On an sp mesh (``sp_attention``, parallel/ring_attention.SPAttention)
+  the attention is route ``ring``: the LSE merge and the ring over the
+  sequence-sharded cache, plain torch as JAX's is jnp. The matmuls keep
+  the backend's kernels on each rank (JAX's GSPMD runs XLA matmuls there,
+  as ``pallas_call`` has no partitioning rule; the function is the same).
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ class KernelSelection:
     mm: Callable  # (x, w, layer) -> x @ w[layer]
     attn_fn: Callable  # dense: (q, k_cache, v_cache, pos); paged: see ops.paged_attention
     backend: str  # 'cuda' | 'torch': what the quantized matmuls run on
-    attn_route: str  # 'flash' | 'torch' | 'paged_kernel' | 'paged_gather'
+    attn_route: str  # 'flash' | 'torch' | 'ring' | 'paged_kernel' | 'paged_gather'
     fused_scatter_max_t: int | None = None  # paged_kernel only: widest chunk
     # whose new-KV rows the kernel launch writes itself
 
@@ -57,10 +63,13 @@ _paged_kernel_attn.fused_kv_scatter = True
 
 
 def resolve_kernels(cfg: LlamaConfig, kernels: str = "auto", device="cpu", paged: bool = False,
-                    page_size: int = 0, cache_dtype=torch.bfloat16) -> KernelSelection:
+                    page_size: int = 0, cache_dtype=torch.bfloat16,
+                    sp_attention=None) -> KernelSelection:
     backend = resolve_backend(kernels, device)
     mm = engine_matmul(backend)
     on_cuda = torch.device(device).type == "cuda"
+    if sp_attention is not None:
+        return KernelSelection(mm, sp_attention, backend, "ring")
     if paged:
         if backend == "torch" or not on_cuda:
             return KernelSelection(mm, paged_gqa_attention, backend, "paged_gather")

@@ -1,8 +1,9 @@
 """High-level model loading: file -> device params -> ready InferenceEngine
 (the reference's runInferenceApp bootstrap, app.cpp:197-260: header ->
-tokenizer -> weights -> engine), on one device or on a tensor-parallel mesh.
+tokenizer -> weights -> engine), on one device or on a mesh of tp, sp and dp.
 
-On a mesh (``mesh="tp=2"``, or ``"auto"`` on a machine with several cards)
+On a mesh (``mesh="tp=2"``, ``"dp=2,tp=2"``, ``"sp=2"``, or ``"auto"`` on a
+machine with several cards)
 every rank loads shard-direct: each Q40 matmul weight decodes only the
 rank's byte ranges off the memmap (models/formats.LazyQ40 through the
 ``put`` hook), and Q80 weights load dense bf16, as the JAX package's do on a
@@ -56,11 +57,11 @@ def resolve_mesh(mesh_spec: str | None, cfg: LlamaConfig, device,
     """The mesh to run, or None for one device: ``mesh_spec`` 'tp=2'-style,
     'auto' or None. The devices are the cards this process sees (one for
     the CPU) times the processes of a ``--distributed`` world. ``auto``
-    puts them on tp as the JAX package does (tp capped by the kv heads);
-    the rest, which JAX gives to dp, stays idle, as dp is not ported. A
-    mesh larger than the cards raises :class:`MeshTooLarge`, as JAX's
-    make_mesh refuses one larger than its devices; on the CPU each rank is
-    a process of its own. An axis not ported raises NotPorted.
+    factors them as the JAX package's auto_mesh_config does: tp capped by
+    the kv heads, the rest on dp. A mesh larger than the cards raises
+    :class:`MeshTooLarge`, as JAX's make_mesh refuses one larger than its
+    devices; on the CPU each rank is a process of its own. An axis not
+    ported (pp, ep) raises NotPorted.
     ``devices`` (a harness's one device a local rank, ranks may share a
     card) replaces the count of cards."""
     if mesh_spec is None:
@@ -73,11 +74,7 @@ def resolve_mesh(mesh_spec: str | None, cfg: LlamaConfig, device,
     if mesh_spec == "auto":
         if n_dev == 1:
             return None
-        auto = auto_mesh_config(n_dev, cfg.n_kv_heads)
-        if auto.tp < n_dev:
-            log.warning("mesh auto: tp=%d over %d of %d devices (dp is not ported)",
-                        auto.tp, auto.tp, n_dev)
-        config = MeshConfig(tp=auto.tp)
+        config = auto_mesh_config(n_dev, cfg.n_kv_heads)
     else:
         config = MeshConfig.parse(mesh_spec)
         config.check_ported()
@@ -111,7 +108,7 @@ def load_model(
     tokenizer_path: str | None = None,
     *,
     max_seq_len: int | None = None,
-    mesh: str | None = "auto",  # 'tp=2'-style, 'auto' (every card on tp), None (one device)
+    mesh: str | None = "auto",  # 'tp=2'-style, 'auto' (JAX's factoring), None (one device)
     batch: int = 1,
     cache_dtype=torch.bfloat16,
     dequantize: bool = False,  # Q40/Q80 matmul weights as dense bf16 (torch.matmul)

@@ -253,9 +253,15 @@ def run_layers(cfg: LlamaConfig, layer_params: dict, x, pos_base, cache, rope,
         attn_fn = gqa_attention if tables is None else paged_gqa_attention
     mm = mm or matmul
     index = None
+    if tables is None and hasattr(attn_fn, "write_index"):
+        # a sequence-sharded cache (parallel/ring_attention.SPAttention): each
+        # rank writes the rows of [pos, pos+T) in its own range, at local
+        # offsets, the rest into its trash row
+        _, b, h, _, _ = cache.k.shape
+        index = attn_fn.write_index(pos_base, b, h, x.shape[1], x.device, active)
     # each layer's cache must be one block (one slot's view of a batched
     # cache is, though the stack of layers is not)
-    if (tables is None and active is None and isinstance(pos_base, torch.Tensor)
+    elif (tables is None and active is None and isinstance(pos_base, torch.Tensor)
             and pos_base.dim() == 1 and cache.k[0].is_contiguous()
             and cache.v[0].is_contiguous()):
         _, b, h, s, _ = cache.k.shape

@@ -17,10 +17,20 @@ A CUDA tensor on a gloo group (ranks that share one card) is staged
 through pinned host memory; a CPU tensor goes to gloo as it is; NCCL takes
 the CUDA tensor directly, also inside a CUDA-graph capture.
 
+The sp and dp axes (:class:`AxisGroup`, ``TPExchange.sp`` and
+``TPExchange.dp``) carry the sequence-parallel attention's exchanges
+(parallel/ring_attention: the LSE merge's all-reduces, the ring's permutes,
+the gather of a sharded chunk's output) and a dp replica's rows (its
+tokens, or its logits, gathered; an admission's logits broadcast from the
+replica that holds the slot).
+
 Every collective adds the bytes of its result to a per-op counter (the
 port's counterpart of the JAX package's ``measured_collective_bytes``,
 which sums the result shapes of the compiled HLO's collectives), per
-forward shape: ``forward_bytes[(B, T)]`` is one forward's exchange.
+forward shape: ``forward_bytes[(B, T)]`` is one forward's exchange. The tp
+exchange's ops are named as JAX's HLO names them ("all-reduce",
+"all-gather"); an sp or dp exchange's carry the axis ("sp:all-reduce",
+"sp:collective-permute", "dp:all-gather", ...).
 """
 
 from __future__ import annotations
@@ -85,12 +95,99 @@ def resolve_sync(sync: str, shardings) -> str:
     return "q80" if shape["tp"] == 2 else "bf16"
 
 
+def _count_issued() -> None:
+    global _issued
+    _issued += 1
+
+
+def _host(x: torch.Tensor, staged: bool) -> torch.Tensor:
+    """`x` as a collective of a staged group takes it: a pinned host copy
+    of a CUDA tensor (gloo takes no CUDA tensor), else `x` itself."""
+    if not (staged and x.device.type == "cuda"):
+        return x.contiguous()
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x)
+    return host
+
+
+class AxisGroup:
+    """One rank's collectives over one mesh axis other than tp (``sp`` or
+    ``dp``): the axis's process group, this rank's index on it and the
+    group's global ranks in index order (parallel/mesh.Mesh.axis_group).
+    Bytes are counted into the owning exchange's forward window under
+    "<axis>:<op>"."""
+
+    def __init__(self, mesh, axis: str, exchange=None):
+        self.axis = axis
+        self.group, self.index, self.ranks = mesh.axis_group(axis)
+        self.size = len(self.ranks)
+        self.staged = mesh.staged
+        self.exchange = exchange
+
+    def _count(self, op: str, out: torch.Tensor) -> None:
+        if self.exchange is not None:
+            self.exchange._count(f"{self.axis}:{op}", out.numel() * out.element_size())
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """The sum (``op`` "sum") or elementwise max ("max") of every index's x."""
+        _count_issued()
+        t = _host(x, self.staged)
+        t = t.clone() if t is x else t
+        dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                        group=self.group)
+        out = t.to(x.device)
+        self._count("all-reduce", out)
+        return out
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """[*s] -> [size, *s]: every index's x, in index order."""
+        _count_issued()
+        t = _host(x, self.staged)
+        out = torch.empty((self.size * t.numel(),), dtype=t.dtype, device=t.device)
+        _gather_into(out, t.reshape(-1), self.group)
+        out = out.reshape(self.size, *x.shape).to(x.device)
+        self._count("all-gather", out)
+        return out
+
+    def permute(self, *xs: torch.Tensor) -> list[torch.Tensor]:
+        """The ring step (JAX's ``ppermute`` with perm i -> i+1): every x goes
+        to the next index and the previous index's arrive, one paired send
+        and receive an x in one ``batch_isend_irecv`` (unpaired point-to-point
+        calls deadlock under gloo), each x its own tag."""
+        _count_issued()
+        nxt = self.ranks[(self.index + 1) % self.size]
+        prv = self.ranks[(self.index - 1) % self.size]
+        # as bytes: the payload's dtype (an f8 cache block) need not be one
+        # the backend reduces
+        sends = [_host(x, self.staged).reshape(-1).view(torch.uint8) for x in xs]
+        recvs = [torch.empty_like(t) for t in sends]
+        ops = [dist.P2POp(dist.isend, t, nxt, self.group, tag) for tag, t in enumerate(sends)]
+        ops += [dist.P2POp(dist.irecv, t, prv, self.group, tag) for tag, t in enumerate(recvs)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        out = [r.view(x.dtype).reshape(x.shape).to(x.device) for r, x in zip(recvs, xs)]
+        for o in out:
+            self._count("collective-permute", o)
+        return out
+
+    def broadcast(self, x: torch.Tensor, src: int) -> torch.Tensor:
+        """Index `src`'s x on every index (`x` is overwritten elsewhere)."""
+        _count_issued()
+        t = _host(x, self.staged)
+        dist.broadcast(t, src=self.ranks[src], group=self.group)
+        if t is not x:
+            x.copy_(t)
+        self._count("broadcast", x)
+        return x
+
+
 class TPExchange:
     """One rank's collectives over the mesh's tp group, with the byte
     counters. ``sync`` ('bf16' | 'q80') picks :meth:`reduce_partial`;
     ``ffn_sharded`` and ``logits_sharded`` say which outputs the layer
     reduces and the forward gathers (parallel/sharding: a dim tp does not
-    divide is replicated)."""
+    divide is replicated). ``sp`` and ``dp`` are the rank's
+    :class:`AxisGroup` on those axes (None on an axis of one)."""
 
     def __init__(self, mesh, sync: str = "bf16", ffn_sharded: bool = True,
                  logits_sharded: bool = True):
@@ -105,6 +202,10 @@ class TPExchange:
         self.logits_sharded = logits_sharded  # wcls holds a vocab shard
         self.forward_bytes: dict[tuple[int, int], dict[str, int]] = {}
         self._cur: dict[str, int] | None = None
+        self._nested = 0
+        shape = mesh.shape
+        self.sp = AxisGroup(mesh, "sp", self) if shape["sp"] > 1 else None
+        self.dp = AxisGroup(mesh, "dp", self) if shape["dp"] > 1 else None
 
     # ------------------------------------------------------------ counters
 
@@ -113,13 +214,21 @@ class TPExchange:
             self._cur[op] = self._cur.get(op, 0) + nbytes
 
     def open_forward(self) -> None:
-        self._cur = {}
+        """Open a counting window; a window opened inside another (a forward
+        inside an engine's step, which also gathers a dp replica's rows)
+        counts into the outer one."""
+        if self._nested == 0:
+            self._cur = {}
+        self._nested += 1
 
     def close_forward(self, rows: int, width: int) -> None:
-        """Keep the exchange of the forward that just ran under its (B, T)."""
-        if self._cur is not None:
-            self.forward_bytes[(rows, width)] = self._cur
-        self._cur = None
+        """Keep the exchange of the forward that just ran under its (B, T)
+        (the outermost window's)."""
+        self._nested = max(0, self._nested - 1)
+        if self._nested == 0:
+            if self._cur is not None:
+                self.forward_bytes[(rows, width)] = self._cur
+            self._cur = None
 
     # ---------------------------------------------------------- primitives
 
@@ -134,8 +243,7 @@ class TPExchange:
 
     def _all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         def run(t):
-            global _issued
-            _issued += 1
+            _count_issued()
             t = t.contiguous()
             dist.all_reduce(t, group=self.group)
             return t
@@ -147,8 +255,7 @@ class TPExchange:
     def _all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """[*s] -> [tp, *s]: every rank's x, in rank order."""
         def run(t):
-            global _issued
-            _issued += 1
+            _count_issued()
             t = t.contiguous()
             out = torch.empty((self.tp * t.numel(),), dtype=t.dtype, device=t.device)
             _gather_into(out, t.reshape(-1), self.group)
@@ -166,7 +273,11 @@ class TPExchange:
 
     def reduce_partial(self, x: torch.Tensor) -> torch.Tensor:
         """The wo / dense-w2 exchange: bf16 all-reduce, or under
-        ``--sync q80`` the Q80 all-gather and f32 merge."""
+        ``--sync q80`` the Q80 all-gather and f32 merge; nothing where the
+        rank has no tp group (tp of one in a dp or sp world, whose partial
+        sums are whole; a world of one rank reduces over itself)."""
+        if self.group is None:
+            return x
         if self.sync == "q80":
             return q80_all_reduce(x, self)
         return self.all_reduce(x)

@@ -1,22 +1,25 @@
 """The device mesh: the JAX package's five named axes, of which this
-package runs ``tp`` (the reference's one axis: the node count every matmul
-and the KV heads are split over, SURVEY.md §2.4).
+package runs ``dp`` (replicas over the batch), ``sp`` (the KV cache's
+sequence axis, ring attention) and ``tp`` (the reference's one axis: the
+node count every matmul and the KV heads are split over, SURVEY.md §2.4).
 
 :class:`MeshConfig`, :meth:`MeshConfig.parse` and :func:`auto_mesh_config`
 return what the JAX package's return (``dllama_tpu/parallel/mesh.py``).
 :class:`Mesh` is one rank's view of a world: its size, its rank, its
-coordinate on each axis and the ``tp`` process group. Under PyTorch each
-rank is a process of its own (``parallel/multihost.py``), where JAX drives
-every device from one controller.
+coordinate on each axis and the process group of each ported axis. Under
+PyTorch each rank is a process of its own (``parallel/multihost.py``),
+where JAX drives every device from one controller.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
+
 AXES = ("dp", "pp", "sp", "tp", "ep")
 #: the axes this package runs; a larger size on any other is NotPorted
-PORTED_AXES = ("tp",)
+PORTED_AXES = ("dp", "sp", "tp")
 
 
 class NotPorted(ValueError):
@@ -83,19 +86,32 @@ def auto_mesh_config(n_devices: int, n_kv_heads: int, want_sp: bool = False) -> 
     return MeshConfig(dp=rest, sp=sp, tp=tp)
 
 
+def axis_ranks(config: MeshConfig, axis: str) -> list[list[int]]:
+    """The global ranks of every group of `axis`, each in the order of its
+    coordinate on the axis, the groups in row-major order of the other
+    coordinates: the JAX package's device grid (row-major over AXES, tp
+    innermost) cut along one axis. Every rank makes every group in this
+    order (parallel/multihost)."""
+    sizes = config.axis_sizes()
+    i = AXES.index(axis)
+    ranks = np.moveaxis(np.arange(config.n_devices).reshape(sizes), i, -1)
+    return [[int(r) for r in row] for row in ranks.reshape(-1, sizes[i])]
+
+
 @dataclasses.dataclass
 class Mesh:
     """One rank's view of the world: ``config`` (the axis sizes), this
-    process's global ``rank``, the ``tp`` process group (None for a mesh of
-    one, or the default group) and the backend it runs over. Ranks are laid
-    out as the JAX package's device grid, tp innermost: with only tp ported
-    the tp coordinate is the rank."""
+    process's global ``rank``, the process group of each ported axis
+    (``groups``: None on an axis of one; ``group`` is the tp one) and the
+    backend they run over. Ranks are laid out as the JAX package's device
+    grid, row-major over AXES with tp innermost (:attr:`coords`)."""
 
     config: MeshConfig
     rank: int = 0
     group: object = None
     backend: str = "gloo"
     staged: bool = False  # gloo over CUDA tensors: exchanges through pinned host memory
+    groups: dict = dataclasses.field(default_factory=dict)  # axis -> its process group
 
     @property
     def shape(self) -> dict[str, int]:
@@ -108,6 +124,13 @@ class Mesh:
     @property
     def tp(self) -> int:
         return self.config.tp
+
+    def axis_group(self, axis: str):
+        """(process group, this rank's index on `axis`, the group's global
+        ranks in index order); the tp group is ``group``."""
+        ranks = next(r for r in axis_ranks(self.config, axis) if self.rank in r)
+        group = self.group if axis == "tp" else self.groups.get(axis)
+        return group, ranks.index(self.rank), ranks
 
     @property
     def coords(self) -> dict[str, int]:

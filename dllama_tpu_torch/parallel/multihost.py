@@ -1,5 +1,5 @@
-"""The process model of a tensor-parallel world: one process a rank, rank 0
-driving, on ``torch.distributed``.
+"""The process model of a mesh's world (tp, sp, dp and their products): one
+process a rank, rank 0 driving, on ``torch.distributed``.
 
 The JAX package drives every chip from one controller under GSPMD
 (``dllama_tpu/parallel/multihost.py``: every host runs the same command
@@ -18,8 +18,8 @@ and its workers, app.cpp:262-321):
   vectors, generator counters) is a function of the calls, so every
   rank's engine stays in the same state without a second protocol, and
   every rank computes the same tokens: the logits are all-gathered in f32
-  and the samplers' generators travel with the calls. Rank 0 alone talks
-  to clients.
+  over tp, a dp replica's tokens (or logits) over dp, and the samplers'
+  generators travel with the calls. Rank 0 alone talks to clients.
 * **Every call's outcome is checked.** A result that later calls may name
   (an admission, a decode chunk, an engine) lives on a follower exactly as
   long as rank 0 holds its own: rank 0's next message carries the ids of
@@ -80,7 +80,7 @@ import torch
 import torch.distributed as dist
 
 from dllama_tpu_torch.parallel import collectives
-from dllama_tpu_torch.parallel.mesh import Mesh, MeshConfig
+from dllama_tpu_torch.parallel.mesh import Mesh, MeshConfig, axis_ranks
 
 log = logging.getLogger("dllama_tpu_torch")
 
@@ -368,8 +368,8 @@ class World:
 
     def call_all(self, name: str, *args) -> list:
         """A rank function of this module (:func:`rank_report`,
-        :func:`rank_launches`, :func:`rank_digest`) on every rank, the
-        results in rank order."""
+        :func:`rank_launches`, :func:`rank_digest`, :func:`rank_objects`,
+        :func:`rank_cache`) on every rank, the results in rank order."""
         if name not in RANK_FUNCTIONS:
             raise ValueError(f"{name!r} is not one of {RANK_FUNCTIONS}")
         with self.link.lock:
@@ -524,7 +524,18 @@ def rank_objects(world) -> int:
     return len(world.objects)
 
 
-RANK_FUNCTIONS = ("rank_report", "rank_launches", "rank_digest", "rank_objects")
+def rank_cache(world) -> dict:
+    """One rank's base-engine KV cache on the host (k and v, the rank's
+    rows of its kv heads, an sp rank's trash row last) with its mesh
+    coordinates: for checks at small shapes; the copy is the whole cache."""
+    eng = world.engine
+    return {"rank": world.rank, "coords": world.mesh.coords,
+            "k": eng.cache.k.detach().to("cpu", copy=True),
+            "v": eng.cache.v.detach().to("cpu", copy=True)}
+
+
+RANK_FUNCTIONS = ("rank_report", "rank_launches", "rank_digest", "rank_objects",
+                  "rank_cache")
 
 
 # ------------------------------------------------------------------- launching
@@ -611,6 +622,32 @@ def _watch(world: World, every_s: float = 0.2) -> None:
         time.sleep(every_s)
 
 
+#: the axes whose process groups every rank makes, in this order
+GROUP_AXES = ("dp", "sp", "tp")
+
+
+def make_groups(config: MeshConfig, rank: int) -> dict:
+    """This rank's process group on each ported axis: the default group
+    where the axis spans the world (a world of one rank included, whose tp
+    exchange then runs over itself), None on another axis of one. Every
+    rank calls ``dist.new_group`` for every group of every axis, in one
+    fixed order (GROUP_AXES, then parallel/mesh.axis_ranks's), as the call
+    requires of all ranks: a rank that skipped one would hang the world."""
+    out = {}
+    for ax in GROUP_AXES:
+        if getattr(config, ax) == config.n_devices:
+            out[ax] = dist.group.WORLD
+            continue
+        if getattr(config, ax) == 1:
+            out[ax] = None
+            continue
+        for ranks in axis_ranks(config, ax):
+            group = dist.new_group(ranks=ranks, timeout=CHANNEL_TIMEOUT)
+            if rank in ranks:
+                out[ax] = group
+    return out
+
+
 def _join(spec: dict) -> World:
     """Init this rank's process group, build its engine, return its World."""
     rank, device = spec["rank"], torch.device(spec["device"])
@@ -618,14 +655,18 @@ def _join(spec: dict) -> World:
         torch.cuda.set_device(device)
     dist.init_process_group(spec["backend"], init_method=spec["rendezvous"], rank=rank,
                             world_size=spec["world"], timeout=CHANNEL_TIMEOUT)
-    group = dist.group.WORLD
     # a group of its own, so a message can never pair with an exchange
     cmd_group = dist.new_group(backend="gloo", timeout=CHANNEL_TIMEOUT)
-    mesh = Mesh(spec["config"], rank, group, spec["backend"], spec["staged"])
+    groups = make_groups(spec["config"], rank)
+    mesh = Mesh(spec["config"], rank, groups.get("tp"), spec["backend"], spec["staged"],
+                groups)
     if spec["backend"] == "nccl":
-        # the communicator exists before any capture records a collective
+        # every communicator exists before any capture records a collective:
+        # each rank warms its groups axis by axis, in the order they were made
         warm = torch.zeros(1, device=device)
-        dist.all_reduce(warm, group=group)
+        for ax in GROUP_AXES:
+            if groups.get(ax) is not None:
+                dist.all_reduce(warm, group=groups[ax])
         torch.cuda.synchronize(device)
     module, _, name = spec["build"].partition(":")
     fn = getattr(importlib.import_module(module), name)

@@ -1,4 +1,5 @@
-"""Sharding rules: the reference's TP decomposition, per rank.
+"""Sharding rules: the reference's TP decomposition, and the dp and sp axes,
+per rank.
 
 Maps one-to-one onto the reference's slicers (nn-core.cpp:170-238), as the
 JAX package's ``parallel/sharding.py`` does with PartitionSpecs:
@@ -13,6 +14,12 @@ block of every leaf: rank r of tp takes the r-th of tp equal blocks of each
 'tp' dim, as a contiguous tensor (the kernels refuse a strided weight).
 The wo and w2 partial sums are all-reduced by the layer
 (``models/llama.py``), the vocab-sharded logits all-gathered.
+
+Weights are replicated over dp and sp. The KV cache [L, B, Hkv, S, d] is
+JAX's ``P(None, dp?, "tp", "sp", None)`` (cache_spec): a dp replica holds
+its block of the batch (:meth:`LlamaShardings.batch_block`: replica d the
+slots [d B/dp, (d+1) B/dp) when dp divides B, every slot otherwise), an
+sp rank its block of the rows (:meth:`LlamaShardings.seq_block`).
 """
 
 from __future__ import annotations
@@ -53,7 +60,9 @@ class LocalLlamaConfig(LlamaConfig):
     """The config as one tp rank sees it: its heads, kv heads and FFN
     width (``hidden_dim``; the full width where the FFN is replicated),
     with ``dim`` the model's residual width. ``head_size`` and ``kv_dim``
-    follow the rank's heads."""
+    follow the rank's heads. ``seq_len`` stays the model's on sp
+    (positions and RoPE rows are global); the rows and slots a rank's
+    cache holds are :meth:`LlamaShardings.seq_block` and ``batch_block``."""
 
     tp: int = 1
 
@@ -88,10 +97,43 @@ class LlamaShardings:
             # the reference's hard requirement nNodes <= nKvHeads (app.cpp:201-203);
             # ours is divisibility of the kv-head axis.
             raise ValueError(f"n_kv_heads={cfg.n_kv_heads} not divisible by tp={config.tp}")
+        if cfg.seq_len % max(config.sp, 1) != 0:
+            raise ValueError(f"seq_len={cfg.seq_len} not divisible by sp={config.sp}")
 
     @property
     def tp(self) -> int:
         return self.mesh.shape["tp"]
+
+    @property
+    def sp(self) -> int:
+        return self.mesh.shape["sp"]
+
+    @property
+    def dp(self) -> int:
+        return self.mesh.shape["dp"]
+
+    def _batch_axis(self, batch: int) -> str | None:
+        """The batch shards over dp only when divisible (a single sequence
+        stays replicated over dp), as in the JAX package."""
+        return "dp" if batch % self.dp == 0 else None
+
+    def batch_block(self, batch: int) -> tuple[int, int]:
+        """[lo, hi) of the batch rows (slots) this rank holds: replica d of
+        dp the d-th of dp contiguous blocks, as ``P("dp")`` places them; the
+        whole batch where it is replicated over dp."""
+        if self.dp == 1 or self._batch_axis(batch) is None:
+            return 0, batch
+        n = batch // self.dp
+        d = self.mesh.coords["dp"]
+        return d * n, (d + 1) * n
+
+    def seq_block(self, seq_len: int) -> tuple[int, int]:
+        """(offset, rows) of the cache's sequence rows this rank holds: rank
+        r of sp the rows [r S/sp, (r+1) S/sp)."""
+        if seq_len % self.sp:
+            raise ValueError(f"seq_len={seq_len} not divisible by sp={self.sp}")
+        rows = seq_len // self.sp
+        return self.mesh.coords["sp"] * rows, rows
 
     # ---------------------------------------------------------------- specs
 
@@ -216,11 +258,15 @@ class LlamaShardings:
 
     def put_params(self, params: dict, device) -> dict:
         """This rank's tree on `device`: a full tree sliced leaf by leaf, an
-        already local one moved as it is."""
+        already local one moved as it is. Without tp every leaf is whole on
+        every rank, so a tree of tensors moves as it is (no copy on its own
+        device)."""
         full = self.is_full(params)
 
         def one(name, leaf):
-            if full:
+            mine = isinstance(leaf, (torch.Tensor, QTensor, Q8Tensor)) and \
+                (self.tp == 1 or not full)
+            if not mine:
                 return self.put(name, leaf, device)
             if isinstance(leaf, QTensor):
                 return QTensor(leaf.packed.to(device), leaf.scales.to(device))

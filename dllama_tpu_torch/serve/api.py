@@ -1221,12 +1221,20 @@ def _make_scheduler(loaded, n_slots: int, defaults: dict):
                     "this engine resolved %s/radix=%s — the host spill tier stays off",
                     kv_layout, radix_cache)
         kv_host_pages = 0
+    # batched speculation: dp meshes shard the slot axis, which the per-slot
+    # history path doesn't support; degrade to plain batched decode there
+    # instead of failing startup, as the JAX package does
+    spec_n = int(defaults.get("spec") or 0)
+    if spec_n and loaded.shardings is not None and loaded.shardings.dp > 1:
+        log.warning("--spec is unavailable on dp>1 meshes; the continuous-batching tier "
+                    "decodes without speculation")
+        spec_n = 0
     kw = dict(n_slots=n_slots, cache_dtype=eng.cache.k.dtype,
               max_seq_len=eng.seq_len, max_prefill_chunk=eng.max_prefill_chunk,
               kernels=eng.backend, kv_layout=kv_layout, page_size=page_size,
               kv_pages=int(defaults.get("kv_pages") or 0),
               radix_cache=radix_cache, kv_host_pages=kv_host_pages,
-              spec=int(defaults.get("spec") or 0), moe_impl=eng.moe_impl,
+              spec=spec_n, moe_impl=eng.moe_impl,
               # --transfer-guard: the steady-state replays under
               # torch.cuda.set_sync_debug_mode
               transfer_guard=str(defaults.get("transfer_guard") or "off"))

@@ -789,13 +789,16 @@ class Scheduler:
         history shares the longest prefix with `prompt`. When ANOTHER slot
         (idle or decoding) holds a longer match, the cheapest idle slot is
         chosen and `donor` names the slot to copy the prefix from. Slots
-        reserved by in-flight admissions are neither destinations nor donors."""
+        reserved by in-flight admissions are neither destinations nor donors.
+        Cross-slot donors need the engine's slot copy: on a dp mesh, which
+        shards the batch axis, the search stays within the idle slots."""
         reserved = {adm.slot for _, adm, _ in self._inflight}
         idle = [s for s in range(self.engine.n_slots)
                 if not self.engine.active[s] and s not in reserved]
         if not idle:
             return None, 0, None
-        donors = [s for s in range(self.engine.n_slots) if s not in reserved]
+        donors = ([s for s in range(self.engine.n_slots) if s not in reserved]
+                  if self.engine.supports_cross_slot_copy else idle)
         lcp = self._lcp_lengths(prompt, donors)
         best_idle = max(idle, key=lcp.__getitem__)
         best_any = max(donors, key=lcp.__getitem__)

@@ -244,9 +244,13 @@ def collective_bytes_per_token(cfg, tp: int = 1, sp: int = 1, exchange_bytes: fl
     all-gathers the wo and w2 partial sums (dim elements each) a layer and
     the logits (vocab/tp) once a token; sp > 1 adds the query broadcast and
     LSE merge of sequence-parallel attention. Bytes are sent + received per
-    chip. The measured counterpart is a tp rank's count of its collectives'
+    chip. The measured counterpart is a rank's count of its collectives'
     result bytes (parallel/collectives.TPExchange, read by
-    ``InferenceEngine.measured_collective_report``)."""
+    ``InferenceEngine.measured_collective_report``). The sp term is JAX's
+    as it stands: it counts kv heads, where the LSE merge's partials are
+    the query heads' (the measured "sp:all-reduce" is a layer's
+    n_heads/tp row maxima and n_heads/tp (head_size + 1) numerators and
+    denominators, f32); the two are printed side by side, not reconciled."""
     per_chip = 0.0
     if tp > 1:
         per_layer = 2 * 2 * (cfg.dim / tp) * (tp - 1) * exchange_bytes

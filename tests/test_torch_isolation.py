@@ -92,7 +92,7 @@ def test_unported_options_are_refused():
     from dllama_tpu_torch.engine.batch import BatchEngine
     from dllama_tpu_torch.engine.loader import load_model
 
-    assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", "--mesh", "dp=2"]) == 2
+    assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", "--mesh", "pp=2"]) == 2
     # supervision is ported: the transfer guard, warm restarts, the watchdog
     # and fault injection pass the refusal and stop at the missing tokenizer
     for flag in (["--transfer-guard", "strict"], ["--restart-max", "1"],

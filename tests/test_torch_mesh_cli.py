@@ -1,8 +1,9 @@
 """The CLI on a tensor-parallel mesh, on the CPU (each rank a process, gloo):
 
 * ``inference --device cpu --mesh tp=2`` prints the same greedy text as
-  ``--no-mesh``, and so do two ``--distributed`` processes on localhost;
-* ``--mesh dp=2`` / ``sp=2`` / ``pp=2`` / ``ep=2``, and ``--faults``,
+  ``--no-mesh``, and so do ``--mesh dp=2``, ``sp=2``, ``dp=2,tp=2`` and
+  ``sp=2,tp=2``, and two ``--distributed`` processes on localhost;
+* ``--mesh pp=2`` / ``ep=2``, and ``--faults``,
   ``$DLLAMA_FAULTS`` or ``--restart-max`` on the mesh that runs (the
   default ``--mesh auto`` on two cards included), exit 2 naming what is
   refused, and so does a mesh larger than the cards;
@@ -84,7 +85,20 @@ def test_two_distributed_processes_print_the_no_mesh_text(no_mesh_text):
     assert follower[0] == ""  # process 1 follows: the text is process 0's alone
 
 
-@pytest.mark.parametrize("axis", ["dp", "sp", "pp", "ep"])
+@pytest.mark.parametrize("mesh", ["dp=2", "sp=2", "dp=2,tp=2", "sp=2,tp=2"])
+def test_inference_dp_and_sp_print_the_no_mesh_text(no_mesh_text, mesh):
+    """dp and sp are ported: the greedy text on each mesh is --no-mesh's."""
+    tok, want = no_mesh_text
+    out = subprocess.run(_inference_argv(tok, "--mesh", mesh, "--report"), cwd=ROOT,
+                         env=_env(), capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout == want and want.strip()
+    for part in mesh.split(","):
+        ax, n = part.split("=")
+        assert f"'{ax}': {n}" in out.stderr
+
+
+@pytest.mark.parametrize("axis", ["pp", "ep"])
 def test_unported_mesh_axes_exit_2_by_name(axis, capsys):
     from dllama_tpu_torch.cli.main import main
 
@@ -206,6 +220,42 @@ def test_serve_tp2_a_killed_worker_ends_the_driver(tmp_path_factory):
         os.kill(workers[0], signal.SIGKILL)
         assert proc.wait(timeout=10) != 0
         assert "the world is broken" in proc.stdout.read()
+    finally:
+        proc.kill()
+        proc.wait()
+
+
+@pytest.mark.parametrize("mesh,slots", [("dp=2", 2), ("sp=2", 0)])
+def test_serve_dp_and_sp_answer(mesh, slots, tmp_path_factory):
+    """`serve --mesh dp=2 --slots 2 --spec 2` (speculation warned off on dp,
+    as in the JAX package) and `serve --mesh sp=2` answer a greedy chat
+    completion."""
+    tok = _tokenizer_path(tmp_path_factory)
+    port = _free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dllama_tpu_torch", "serve", "--model", FIXTURE_M,
+         "--tokenizer", tok, "--device", "cpu", "--mesh", mesh, "--slots", str(slots),
+         "--spec", "2", "--port", str(port), "--temperature", "0"],
+        cwd=ROOT, env=_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+    try:
+        deadline = time.monotonic() + 120
+        for line in proc.stdout:
+            lines.append(line)
+            if "/v1/chat/completions" in line or time.monotonic() > deadline:
+                break
+        assert proc.poll() is None, "".join(lines)
+        if slots:
+            assert any("--spec is unavailable on dp>1 meshes" in ln for ln in lines)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        body = {"messages": [{"role": "user", "content": "hi"}], "max_tokens": 6,
+                "temperature": 0}
+        conn.request("POST", "/v1/chat/completions", json.dumps(body),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        reply = json.loads(resp.read())
+        assert resp.status == 200, reply
+        assert reply["usage"]["completion_tokens"] >= 1
     finally:
         proc.kill()
         proc.wait()
