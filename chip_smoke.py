@@ -5051,7 +5051,7 @@ def split_moe_forward(kernels: list) -> dict:
     return dict(split, busy_ms=sum(split.values()), **counts)
 
 
-def phase_moe(device, prompt: str, mesh: bool = False) -> dict:
+def phase_moe(device, prompt: str, mesh: set = frozenset()) -> dict:
     """Mixtral-8x7B at its published width (mixtral_8x7b), random Q40
     weights from seed 0 written by write_model, context cut to 4096, depth
     cut only where the temp filesystem cannot hold the file: (a) the
@@ -5067,9 +5067,10 @@ def phase_moe(device, prompt: str, mesh: bool = False) -> dict:
     decode chunk exactly that many and no other; (f) device times: a
     captured decode step at 1 and 8 slots (wall, stream, busy), a captured
     256-token prefill chunk, and both split by kernel (moe_split). The
-    file is deleted at the end. With ``mesh`` (the mesh phase), after the
-    engine is freed: Mixtral at tp=2 against the saved unsharded logits
-    (mesh_moe). Returns the launches of (d) and (e)."""
+    file is deleted at the end. ``mesh``: the mesh phases that run; after
+    the engine is freed, the same file against its saved unsharded logits
+    at tp=2 (the mesh phase) and at ep=2 and ep=2 x tp=2 (mesh_pp_ep), each
+    mesh_moe. Returns the launches of (d) and (e)."""
     import gc
     import shutil
 
@@ -5233,69 +5234,155 @@ def phase_moe(device, prompt: str, mesh: bool = False) -> dict:
                      f"{want[0]}")
         took("the timings")
         eng.reset(0)
-        if mesh:  # the unsharded logits of a prefill and 8 greedy steps, saved
+        specs = (["tp=2"] if "mesh" in mesh else []) + \
+            (["ep=2", "ep=2,tp=2"] if "mesh_pp_ep" in mesh else [])
+        if specs:  # the unsharded logits of a prefill and 8 greedy steps, saved
             ref = [eng.prefill(ptoks)[0].float().cpu()]
             for _ in range(MESH_MOE_STEPS):
                 ref.append(eng.decode_step([[int(ref[-1].argmax())]])[0].float().cpu())
             eng.reset(0)
+            slots = moe_slot_reference(eng, tok) if "ep=2" in specs else None
+            took("the mesh runs' reference")
         del loaded, eng, tok, w1
         gc.collect()
         torch.cuda.empty_cache()
-        if mesh:
-            mesh_moe(mpath, tpath, device, ptoks, ref)
-            took("Mixtral at tp=2")
+        for spec in specs:
+            mesh_moe(mpath, tpath, device, ptoks, ref, spec, slots)
+            took(f"Mixtral at {spec}")
     return total
 
 
-#: greedy decode steps of Mixtral at tp=2 (after its prefill)
+#: the ep=2 BatchEngine's slots and the greedy ids a slot (mesh_moe)
+MOE_EP_SLOTS, MOE_EP_TOKENS = 4, 16
+
+
+def moe_slot_reference(eng, tok) -> dict:
+    """The unsharded dense BatchEngine's MOE_EP_TOKENS greedy ids on each of
+    MOE_EP_SLOTS slots, and the single engine's top-2 margin before each
+    id along that stream (for _ids_check)."""
+    import gc
+
+    import torch
+
+    from dllama_tpu_torch.engine.batch import BatchEngine
+
+    prompts = [tok.encode(p) for p in batch_prompts(MOE_EP_SLOTS)]
+    be = BatchEngine(eng.cfg, eng.params, n_slots=MOE_EP_SLOTS, cache_dtype=eng.cache.k.dtype,
+                     max_seq_len=eng.seq_len, kv_layout="dense", device=eng.device,
+                     moe_impl=eng.moe_impl)
+    first = [be.add(s, p, temperature=0.0) for s, p in enumerate(prompts)]
+    toks = be.decode(MOE_EP_TOKENS - 1)
+    streams = [[f] + [int(t) for t in toks[:, s]] for s, f in enumerate(first)]
+    del be
+    gc.collect()
+    torch.cuda.empty_cache()
+    margins = []
+    for p, ids in zip(prompts, streams):
+        eng.reset(0)
+        logits = [eng.prefill(p)[0]]
+        logits += [eng.decode_step([[t]])[0] for t in ids[:-1]]
+        margins.append(_margins(logits))
+    eng.reset(0)
+    return {"prompts": prompts, "streams": streams, "margins": margins}
+
+
+#: greedy decode steps of Mixtral on a mesh (after its prefill)
 MESH_MOE_STEPS = 8
 
 
-def mesh_moe(mpath: str, tpath: str, device, ptoks: list[int], ref: list) -> None:
-    """Mixtral-8x7B at tp=2 (the mesh phase's mode: both ranks on one card
-    over gloo, or one a card over NCCL): a prefill and MESH_MOE_STEPS
-    decode steps fed the unsharded engine's greedy ids, each step's logits
-    within TOL_FWD of the unsharded logits `ref`, and the argmax equal or at
-    a near tie of `ref`. Prints each rank's lazy load."""
+def mesh_moe(mpath: str, tpath: str, device, ptoks: list[int], ref: list, spec: str,
+             slots: dict | None = None) -> None:
+    """Mixtral-8x7B (`mpath`, the moe phase's file) on the mesh
+    `spec` (tp=2, ep=2 or ep=2 x tp=2; the mesh phases' mode: every rank on
+    one card over gloo, or one a card over NCCL where there are enough): a
+    prefill and MESH_MOE_STEPS decode steps fed
+    the unsharded engine's greedy ids, each step's logits within TOL_FWD of
+    the unsharded logits `ref`, and the argmax equal or at a near tie of
+    `ref`; each rank's expert products of one decode step 3 * E * L / ep
+    (dense); on ep=2, `slots` (moe_slot_reference): a dense BatchEngine of
+    MOE_EP_SLOTS slots whose greedy ids a slot equal the unsharded
+    engine's or first leave them at a near tie. Prints each rank's
+    parameter bytes and lazy load, the load seconds, a decode step's wall
+    time and its exchange beside collective_bytes_per_token."""
     import gc
 
     import torch
 
     from dllama_tpu_torch.engine.loader import load_model
+    from dllama_tpu_torch.parallel.mesh import MeshConfig
+    from dllama_tpu_torch.utils.profiling import collective_bytes_per_token
 
-    one_card = torch.cuda.device_count() < 2
+    config = MeshConfig.parse(spec)
+    n = config.n_devices
+    one_card = torch.cuda.device_count() < n
     t0 = time.perf_counter()
-    m = load_model(mpath, tpath, max_seq_len=4096, mesh="tp=2", device=device,
-                   devices=[device, device] if one_card else None)
+    m = load_model(mpath, tpath, max_seq_len=4096, mesh=spec, device=device,
+                   devices=[device] * n if one_card else None)
+    eng = m.engine
     try:
-        print(f"moe mesh: Mixtral at tp=2 ({m.world.mesh.backend}"
+        cfg = eng.cfg
+        print(f"moe mesh: Mixtral at {spec} ({m.world.mesh.backend}"
               f"{', staged' if m.world.mesh.staged else ''}) loaded in "
-              f"{time.perf_counter() - t0:.1f} s; local FFN {m.engine.cfg.hidden_dim}, heads "
-              f"{m.engine.cfg.n_heads}/{m.engine.cfg.n_kv_heads}", flush=True)
+              f"{time.perf_counter() - t0:.1f} s; local FFN {cfg.hidden_dim}, heads "
+              f"{cfg.n_heads}/{cfg.n_kv_heads}, experts {cfg.n_experts // cfg.ep} from "
+              f"{cfg.expert_offset}", flush=True)
         for r in m.world.call_all("rank_report"):
-            print(f"moe mesh rank {r['rank']}: params {r['param_bytes'] / 1e9:.3f} GB, lazy "
-                  f"Q40 decode {r['lazy_decode_bytes'] / 1e9:.3f} GB in "
+            print(f"moe mesh {spec} rank {r['rank']}: params {r['param_bytes'] / 1e9:.3f} GB, "
+                  f"lazy Q40 decode {r['lazy_decode_bytes'] / 1e9:.3f} GB in "
                   f"{r['lazy_decode_s']:.1f} s, build {r['build_s']:.1f} s", flush=True)
-        eng = m.engine
         eng.reset(0)
         got = [eng.prefill(ptoks)[0].float().cpu()]
         for i in range(MESH_MOE_STEPS):
             got.append(eng.decode_step([[int(ref[i].argmax())]])[0].float().cpu())
+        reset_counters()
+        m.world.call_all("rank_launches", True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.decode_step([[int(ref[-1].argmax())]])
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        per_rank = [r.get("q40_decode", 0) - (4 * cfg.n_layers + 1)
+                    for r in m.world.call_all("rank_launches", True)]
+        rep = eng.measured_collective_report()
         for i, (a, b) in enumerate(zip(got, ref)):
             err = _rel(a, b)
             top2 = torch.topk(b, 2).values
             gap, scale = (top2[0] - top2[1]).item(), b.abs().max().item()
             same = int(a.argmax()) == int(b.argmax())
-            print(f"moe mesh: {'prefill' if i == 0 else f'decode {i}'}: max|diff|/max|logit| "
-                  f"{err:.3e} <= TOL_FWD {TOL_FWD}; argmax {'equal' if same else 'apart'} "
-                  f"(top-2 margin {gap:.3e})", flush=True)
+            print(f"moe mesh {spec}: {'prefill' if i == 0 else f'decode {i}'}: max|diff|/max|"
+                  f"logit| {err:.3e} <= TOL_FWD {TOL_FWD}; argmax "
+                  f"{'equal' if same else 'apart'} (top-2 margin {gap:.3e})", flush=True)
             if not err <= TOL_FWD:
-                fail("moe mesh: the tp=2 logits are off the unsharded kernels'")
+                fail(f"moe mesh: the {spec} logits are off the unsharded kernels'")
             if not same and not gap < TOL_FWD * scale:
-                fail("moe mesh: the tp=2 argmax differs where the margin is no near tie")
+                fail(f"moe mesh: the {spec} argmax differs where the margin is no near tie")
+        want = 3 * cfg.n_experts * cfg.n_layers // cfg.ep
+        print(f"moe mesh {spec}: a decode step {step_ms:.3f} ms wall; expert products by rank "
+              f"{per_rank} (want {want}: 3 x {cfg.n_experts // cfg.ep} experts x "
+              f"{cfg.n_layers} layers); its exchange on rank 0 {rep['per_op']} "
+              f"({rep['total_bytes']} B), collective_bytes_per_token(tp={config.tp}) "
+              f"{collective_bytes_per_token(m.config, tp=config.tp)['bytes_per_token_per_chip']:.0f}"
+              " B (no ep term)", flush=True)
+        if any(x != want for x in per_rank):
+            fail(f"moe mesh: a rank's expert products at {spec} are not its experts'")
+        if config.ep > 1 and rep["per_op"].get("ep:all-reduce") != cfg.n_layers * cfg.dim * 4:
+            fail(f"moe mesh: the ep sums at {spec} are not a layer's f32 row each")
+        if slots is not None and spec == "ep=2":
+            be = m.world.make("batch", n_slots=MOE_EP_SLOTS, max_seq_len=4096,
+                              kv_layout="dense")
+            first = [be.add(s, p, temperature=0.0) for s, p in enumerate(slots["prompts"])]
+            toks = be.decode(MOE_EP_TOKENS - 1)
+            del be
+            msgs = [_ids_check([f] + [int(t) for t in toks[:, s]], slots["streams"][s],
+                               slots["margins"][s], f"moe mesh {spec} slot {s}")
+                    for s, f in enumerate(first)]
+            print(f"moe mesh {spec}: {MOE_EP_SLOTS} dense slots, {MOE_EP_TOKENS} greedy ids "
+                  f"each, against the unsharded engine's: {msgs}", flush=True)
+        if len(set(m.world.call_all("rank_digest"))) != 1:
+            fail(f"moe mesh: the {spec} ranks' token results differ")
     finally:
         m.world.close()
-        del m
+        del m, eng
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -5332,39 +5419,31 @@ def mesh_step_logits(eng, ptoks: list[int], n_decode: int = 2) -> list:
     return out
 
 
-#: the depth of the mesh phase's model: Llama-3.1-8B's widths cut to 8 of its 32
-#: layers, so the default smoke keeps its margin to the deadline beside mesh_dp_sp
-#: (which runs the full depth)
+#: the depth of the mesh phases' model (mesh_model): the 8B's widths cut to 8
+#: of its 32 layers, so the default smoke keeps
+#: its margin to the deadline (the mesh runs are eager harnesses: depth costs
+#: time and shows nothing the full-depth one-device phases do not)
 MESH_LAYERS = 8
 
 
-def phase_mesh(tmp: str, tpath: str, device, prompt: str) -> dict:
-    """_phase_mesh on a model of Llama-3.1-8B's widths cut to MESH_LAYERS
-    layers (write_model's seed-0 recipe), written beside the smoke's files
-    and removed afterwards, with its unsharded engine as the reference."""
-    import gc
-
-    import torch
-
+def mesh_model(tmp: str, tpath: str, device):
+    """The model of the mesh phases (mesh, mesh_dp_sp, mesh_pp_ep):
+    Llama-3.1-8B's widths cut to MESH_LAYERS layers (write_model's seed-0
+    recipe), written beside the smoke's files, and its unsharded engine,
+    the reference. -> (loaded, path); the caller removes the file."""
     from dllama_tpu_torch.engine.loader import load_model
 
     mpath = os.path.join(tmp, "llama31_8b_mesh.m")
     cfg = llama31_8b(MESH_LAYERS)
     write_model(mpath, cfg, device)
     loaded = load_model(mpath, tpath, max_seq_len=4096, mesh=None, device=device)
-    print(f"phase mesh: {cfg.describe()} (the 8B widths, {MESH_LAYERS} of 32 layers)",
+    print(f"mesh phases: {cfg.describe()} (the 8B widths, {MESH_LAYERS} of 32 layers)",
           flush=True)
-    try:
-        return _phase_mesh(loaded, mpath, tpath, device, prompt)
-    finally:
-        del loaded
-        gc.collect()
-        torch.cuda.empty_cache()
-        os.remove(mpath)
+    return loaded, mpath
 
 
-def _phase_mesh(loaded, mpath: str, tpath: str, device, prompt: str) -> dict:
-    """Tensor parallelism at tp=2 on Llama-3.1-8B Q40 (phase_mesh's model).
+def phase_mesh(loaded, mpath: str, tpath: str, device, prompt: str) -> dict:
+    """Tensor parallelism at tp=2 on Llama-3.1-8B Q40 (mesh_model's).
     With one card both ranks run on it over gloo, the exchange staged
     through pinned host memory and the programs eager (NCCL refuses two
     ranks on one card); with two or more, one rank a card over NCCL, the
@@ -5753,17 +5832,26 @@ def _close_world(m) -> None:
     torch.cuda.empty_cache()
 
 
-def _ids_check(ids: list, ref_ids: list, ref_logits: list, label: str) -> str:
-    """'equal', or where `ids` first leave `ref_ids` beside the reference's
-    top-2 margin there (a near tie when under TOL_FWD * max|logit|); fails
-    when it is not a near tie. ``ref_logits[i]`` chose ``ref_ids[i]``."""
+def _margins(logits: list) -> list[tuple[float, float]]:
+    """(top-2 gap, max|logit|) of each logits vector."""
     import torch
 
+    out = []
+    for x in logits:
+        top2 = torch.topk(x.float().reshape(-1), 2).values
+        out.append(((top2[0] - top2[1]).item(), x.abs().max().item()))
+    return out
+
+
+def _ids_check(ids: list, ref_ids: list, margins: list, label: str) -> str:
+    """'equal', or where `ids` first leave `ref_ids` beside the reference's
+    top-2 margin there (a near tie when under TOL_FWD * max|logit|); fails
+    when it is not a near tie. ``margins[i]`` (_margins) is of the logits
+    that chose ``ref_ids[i]``."""
     if ids == ref_ids:
         return "equal"
     i = next(j for j, (a, b) in enumerate(zip(ids, ref_ids)) if a != b)
-    top2 = torch.topk(ref_logits[i], 2).values
-    gap, scale = (top2[0] - top2[1]).item(), ref_logits[i].abs().max().item()
+    gap, scale = margins[i]
     msg = (f"first apart at {i} ({ids[i]} vs {ref_ids[i]}), top-2 margin {gap:.4e} vs "
            f"TOL_FWD * max|logit| {TOL_FWD * scale:.4e}")
     if not gap < TOL_FWD * scale:
@@ -5772,8 +5860,8 @@ def _ids_check(ids: list, ref_ids: list, ref_logits: list, label: str) -> str:
 
 
 def phase_mesh_dp_sp(loaded, mpath: str, tpath: str, device, prompt: str) -> dict:
-    """The dp and sp mesh axes on Llama-3.1-8B Q40 (the smoke's model, context
-    4096), every world's ranks on this card over gloo with the exchanges
+    """The dp and sp mesh axes on the mesh phases' model (mesh_model: the 8B
+    Q40 widths at MESH_LAYERS layers, context 4096), every world's ranks on this card over gloo with the exchanges
     staged through pinned host memory and the programs eager (a harness:
     it shows correctness, loading and launches, not dp's or sp's speed).
     (a) The CLI's --mesh dp=2 and --mesh sp=2 exit 2 with the device-count
@@ -5959,7 +6047,7 @@ def phase_mesh_dp_sp(loaded, mpath: str, tpath: str, device, prompt: str) -> dic
         _close_world(m)
         del meng
     errs = [_rel(a, b) for a, b in zip(out, ref_out)]
-    msg = _ids_check(ids, ref_ids, ref_out[1:-1], "mesh_dp_sp sp=2")
+    msg = _ids_check(ids, ref_ids, _margins(ref_out[1:-1]), "mesh_dp_sp sp=2")
     print(f"mesh_dp_sp sp=2: prefill {SP_PREFILL}, a {SP_CHUNK}-token chunk at {SP_PREFILL} "
           f"(ring), {SP_DECODE} decode steps (LSE) in {run_s:.1f} s; logits vs one device "
           f"{[f'{e:.3e}' for e in errs]} <= TOL_FWD {TOL_FWD}; ids {msg}; K1/K2 by rank "
@@ -6037,6 +6125,268 @@ def mesh_sp_plant(tmp: str, tpath: str, device) -> None:
         os.remove(path)
 
 
+# ------------------------------------------------------ mesh (pp and ep)
+
+#: mesh_pp_ep (b): the random prompt prefilled at pp=2 and the greedy decode
+#: steps after it
+PP_PREFILL, PP_DECODE = 256, 8
+
+
+def _stage_bytes(params, pp: int, tp: int) -> float:
+    """A rank's parameter bytes on a pp x tp mesh: the embedding and final
+    norm whole, wcls's tp shard, its stage's norms and its tp shard of its
+    stage's matmul weights."""
+    from dllama_tpu_torch.utils.profiling import params_nbytes
+
+    lay = params["layers"]
+    norms = params_nbytes({k: lay[k] for k in ("rms_att", "rms_ffn")})
+    mats = params_nbytes({k: v for k, v in lay.items() if k not in ("rms_att", "rms_ffn")})
+    return (params_nbytes({k: params[k] for k in ("embedding", "final_norm")})
+            + params_nbytes({"wcls": params["wcls"]}) / tp + norms / pp + mats / (pp * tp))
+
+
+def phase_mesh_pp_ep(loaded, mpath: str, tpath: str, device, prompt: str) -> dict:
+    """The pp and ep mesh axes, every world's ranks on this card over gloo
+    with the exchanges staged through pinned host memory and the programs
+    eager (a harness: correctness, loading and launches, not pp's or ep's
+    speed). (a) The CLI's --mesh pp=2 and --mesh ep=2 exit 2 with the
+    device-count message, not "not yet ported". (b) pp=2 on the mesh
+    phases' model (mesh_model, MESH_LAYERS / 2 layers a stage): a
+    PP_PREFILL-token prefill
+    and PP_DECODE greedy decode steps, both sides fed the unsharded engine's
+    ids: the logits within TOL_FWD at every step, the ids equal or first
+    apart at a near tie, each stage's K1/K2/K7 launches a decode step its
+    layers' share of the unsharded engine's (wcls on the last stage only).
+    (c) tp=2 x pp=2 (4 ranks): the prefill and two decode logits within
+    TOL_FWD. (d) pp_micro=2 at batch 2 within TOL_FWD of pp_micro=1. (e)
+    mesh_pp_ep_plants. Prints each rank's parameter bytes and load, the
+    load seconds, a decode step's wall time, and the measured pp bytes
+    beside collective_bytes_per_token. Returns rank 0's launches of (b)."""
+    import numpy as np
+    import torch
+
+    from dllama_tpu_torch.engine.loader import load_model
+    from dllama_tpu_torch.utils.profiling import collective_bytes_per_token
+
+    cfg, eng, tok = loaded.config, loaded.engine, loaded.tokenizer
+    print("phase mesh_pp_ep: every rank on cuda:0 over gloo, the exchanges staged through "
+          "pinned host memory, programs eager", flush=True)
+    for spec in ("pp=2", "ep=2"):  # (a)
+        rc, err = _cli_rc_err(["inference", "--model", mpath, "--tokenizer", tpath,
+                               "--prompt", "x", "--mesh", spec])
+        msg = next((ln for ln in err.splitlines() if "--mesh" in ln), "")
+        print(f"mesh_pp_ep: the CLI's --mesh {spec}: rc {rc}: {msg}", flush=True)
+        if torch.cuda.device_count() < 2 and (
+                rc != 2 or "the mesh needs 2 devices, have 1" not in msg
+                or "not yet ported" in err):
+            fail(f"mesh_pp_ep: the CLI did not refuse --mesh {spec} by the device count")
+    ptoks = tok.encode(prompt, add_bos=True)
+    toks = [int(t) for t in np.random.default_rng(14).integers(1, cfg.vocab_size, PP_PREFILL)]
+
+    def pp_run(e, feed=None):
+        e.reset(0)
+        out = [e.prefill([toks])[0].float()]
+        ids = []
+        for i in range(PP_DECODE):
+            ids.append(int(out[-1].argmax()) if feed is None else feed[i])
+            out.append(e.decode_step([[ids[-1]]])[0].float())
+        e.reset(0)
+        return out, ids
+
+    def step_launches(e, world=None) -> list[dict]:
+        """K1/K2/K7 launches of one decode step after the prompt (the
+        second of its shape): rank 0's alone, or every rank's."""
+        for _ in range(2):
+            reset_counters()
+            if world is not None:
+                world.call_all("rank_launches", True)
+            e.reset(PP_PREFILL)
+            e.decode_step([[toks[0]]])
+        e.reset(0)
+        got = [counters()] if world is None else world.call_all("rank_launches", True)
+        return [{k: r.get(k, 0) for k in SERVE_KERNELS} for r in got]
+
+    ref_out, ref_ids = pp_run(eng)
+    one_step = step_launches(eng)[0]
+    launches: dict = {}
+
+    # (b) pp=2, the single engine
+    t0 = time.perf_counter()
+    m = load_model(mpath, tpath, max_seq_len=4096, mesh="pp=2", device=device,
+                   devices=[device, device])
+    print(f"mesh_pp_ep pp=2: load_model {time.perf_counter() - t0:.1f} s", flush=True)
+    meng = m.engine
+    try:
+        if meng.cfg.n_layers != cfg.n_layers // 2 or meng.backend != "cuda" or \
+                meng.attn_route != "flash":
+            fail(f"mesh_pp_ep: stage 0 runs {meng.cfg.n_layers} layers on "
+                 f"{meng.backend}/{meng.attn_route}")
+        _rank_bytes(m.world, "mesh_pp_ep pp=2", _stage_bytes(eng.params, 2, 1))
+        reset_counters()
+        m.world.call_all("rank_launches", True)
+        t0 = time.perf_counter()
+        out, _ = pp_run(meng, ref_ids)
+        run_s = time.perf_counter() - t0
+        launches = counters()
+        ranks = m.world.call_all("rank_launches", True)
+        per_rank = step_launches(meng, m.world)
+        rep = meng.measured_collective_report()
+        meng.reset(PP_PREFILL)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        meng.decode_greedy_n([[ref_ids[0]]], 4)
+        step_ms = (time.perf_counter() - t0) / 4 * 1e3
+        if len(set(m.world.call_all("rank_digest"))) != 1:
+            fail("mesh_pp_ep: the pp ranks' token results differ")
+        # (d) GPipe microbatches at batch 2
+        rows = np.asarray([toks[:64], toks[64:128]])
+        micro = []
+        for n in (1, 2):
+            e2 = m.world.make("engine", batch=2, pp_micro=n, max_seq_len=256)
+            micro.append(e2.step(rows).float())
+            del e2
+        micro_err = _rel(micro[1], micro[0])
+    finally:
+        _close_world(m)
+        del meng
+    errs = [_rel(a, b) for a, b in zip(out, ref_out)]
+    ids = [int(x.argmax()) for x in out[:-1]]  # each step's own choice of the next id
+    msg = _ids_check(ids, ref_ids, _margins(ref_out[:-1]), "mesh_pp_ep pp=2")
+    last = cfg.n_layers // 2
+    want = [{"q40_decode": 7 * last + s, "q40_prefill": 0, "flash_attention": last}
+            for s in (0, 1)]
+    print(f"mesh_pp_ep pp=2: prefill {PP_PREFILL}, {PP_DECODE} decode steps in {run_s:.1f} s; "
+          f"logits vs one device {[f'{e:.3e}' for e in errs]} <= TOL_FWD {TOL_FWD}; ids {msg}; "
+          f"launches of the run by rank {[{k: r.get(k, 0) for k in SERVE_KERNELS} for r in ranks]}"
+          f"; a decode step's K1/K2/K7 by stage {per_rank} (want {want}; one device "
+          f"{one_step}); a decode step {step_ms:.3f} ms wall; its exchange on stage 0 "
+          f"{rep['per_op']} ({rep['total_bytes']} B), collective_bytes_per_token has no pp "
+          f"term: {collective_bytes_per_token(cfg)['bytes_per_token_per_chip']:.0f} B; "
+          f"pp_micro=2 vs 1 at batch 2 {micro_err:.3e}", flush=True)
+    if not max(errs) <= TOL_FWD:
+        fail("mesh_pp_ep: the pp=2 logits are off the unsharded kernels'")
+    if per_rank != want or one_step != {"q40_decode": 7 * cfg.n_layers + 1, "q40_prefill": 0,
+                                        "flash_attention": cfg.n_layers}:
+        fail("mesh_pp_ep: a stage's decode-step launches are not its layers' share")
+    if rep["per_op"] != {"pp:send": cfg.dim * eng.params["embedding"].element_size(),
+                         "pp:broadcast": cfg.vocab_size * 4}:
+        fail("mesh_pp_ep: stage 0's exchange is not the bytes of its shapes")
+    if not micro_err <= TOL_FWD:
+        fail("mesh_pp_ep: pp_micro=2 is off pp_micro=1")
+
+    # (c) tp=2 x pp=2, the single engine
+    ref_logits = mesh_step_logits(eng, ptoks)
+    t0 = time.perf_counter()
+    m = load_model(mpath, tpath, max_seq_len=4096, mesh="tp=2,pp=2", device=device,
+                   devices=[device] * 4)
+    print(f"mesh_pp_ep tp=2,pp=2: load_model {time.perf_counter() - t0:.1f} s", flush=True)
+    try:
+        _rank_bytes(m.world, "mesh_pp_ep tp=2,pp=2", _stage_bytes(eng.params, 2, 2))
+        logits = mesh_step_logits(m.engine, ptoks)
+        rep = m.engine.measured_collective_report()
+    finally:
+        _close_world(m)
+    errs = [_rel(a, b) for a, b in zip(logits, ref_logits)]
+    print(f"mesh_pp_ep tp=2,pp=2: prefill and 2 decode logits vs one device "
+          f"{[f'{e:.3e}' for e in errs]} <= TOL_FWD {TOL_FWD}; a decode step's exchange on "
+          f"stage 0 {rep['per_op']} ({rep['total_bytes']} B), collective_bytes_per_token(tp=2) "
+          f"{collective_bytes_per_token(cfg, tp=2)['bytes_per_token_per_chip']:.0f} B",
+          flush=True)
+    if not max(errs) <= TOL_FWD:
+        fail("mesh_pp_ep: the tp=2,pp=2 logits are off the unsharded kernels'")
+    mesh_pp_ep_plants(os.path.dirname(mpath), device)
+    return launches
+
+
+def mesh_pp_ep_plants(tmp: str, device) -> None:
+    """mesh_pp_ep (e): the checks' power on mesh_power's kind of model (codes
+    of mean 0, MESH_POWER_LAYERS layers) at Mixtral-8x7B's widths, so that
+    one file serves pp and ep. At pp=2 and at ep=2: the prefill and two
+    decode logits within TOL_FWD of one device's on a random 64-token
+    prompt of its vocabulary, both sides fed one device's ids; then the
+    second decode step again with a fault planted on rank 0, which the
+    logits check must catch: at pp=2, stage 0 sends the previous decode
+    step's activation (stage 1 receives a stale one); at ep=2, rank 0's
+    sum over ep at layer 0 loses one rank's expert partial (its own where
+    it routed the token to one of its experts, else rank 1's)."""
+    import numpy as np
+    import torch
+
+    from dllama_tpu_torch.engine.loader import load_model
+
+    cfg = mixtral_8x7b(MESH_POWER_LAYERS)
+    path = os.path.join(tmp, "mixtral_power.m")
+    t0 = time.perf_counter()
+    write_model(path, cfg, device, seed=1, zero_mean=True)
+    one = load_model(path, max_seq_len=4096, mesh=None, device=device).engine
+    ptoks = [int(t) for t in np.random.default_rng(15).integers(1, cfg.vocab_size, 64)]
+
+    def steps(e, feed) -> list:
+        e.reset(0)
+        out = [e.prefill(ptoks)[0].float()]
+        out += [e.decode_step([[t]])[0].float() for t in feed]
+        return out
+
+    try:
+        ref = mesh_step_logits(one, ptoks)
+        feed = [int(x.argmax()) for x in ref[:-1]]
+        ref = steps(one, feed)
+        print(f"mesh_pp_ep plants: {cfg.describe()}, codes of mean 0, up in "
+              f"{time.perf_counter() - t0:.1f} s; its logits move "
+              f"{_rel(ref[1], ref[0]):.3e} of max|logit| from the prefill to decode 1",
+              flush=True)
+        for spec in ("pp=2", "ep=2"):
+            m = load_model(path, max_seq_len=4096, mesh=spec, device=device,
+                           devices=[device, device])
+            meng, ex = m.engine, m.engine.exchange
+            try:
+                clean = max(_rel(a, b) for a, b in zip(steps(meng, feed), ref))
+                armed = [False]
+                if spec == "pp=2":
+                    axis, name, sent = ex.pp, "hop", []
+
+                    def planted(send, recv_like, real=ex.pp.hop):
+                        if send is not None:
+                            sent.append(send.clone())
+                            if armed[0] and len(sent) > 1:
+                                send = sent[-2]  # the previous step's activation
+                        return real(send, recv_like)
+                    label = "stage 1 receives the previous decode step's activation"
+                else:
+                    axis, name, calls = ex.ep, "all_reduce", [0]
+
+                    def planted(x, op="sum", real=ex.ep.all_reduce):
+                        calls[0] += armed[0]
+                        if calls[0] != 1:  # not the armed step's first layer
+                            return real(x, op)
+                        mine = bool(x.abs().max() > 0)  # rank 0 routed the token here
+                        out = real(torch.zeros_like(x) if mine else x, op)
+                        return out if mine else x
+                    label = "rank 0's ep sum at layer 0 loses one rank's expert partial"
+                setattr(axis, name, planted)
+                try:
+                    meng.reset(0)
+                    meng.prefill(ptoks)
+                    meng.decode_step([[feed[0]]])
+                    armed[0] = True
+                    hit = _rel(meng.decode_step([[feed[1]]])[0].float(), ref[2])
+                finally:
+                    delattr(axis, name)
+                print(f"mesh_pp_ep plants {spec}: clean, the worst step {clean:.3e} <= TOL_FWD "
+                      f"{TOL_FWD}; planted ({label}): decode 2 {hit:.3e}", flush=True)
+                if not clean <= TOL_FWD:
+                    fail(f"mesh_pp_ep plants: the power model at {spec} is off one device's")
+                if hit <= TOL_FWD:
+                    fail(f"mesh_pp_ep plants: the logits check missed the fault at {spec}")
+            finally:
+                _close_world(m)
+                del meng, ex
+    finally:
+        del one
+        torch.cuda.empty_cache()
+        os.remove(path)
+
+
 # ------------------------------------------------------------ main
 
 
@@ -6073,7 +6423,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="card,kernels,golden,kbench,forward,serve,batch,hybrid,radix,obs,"
                             "supervision,router,inference,styles,spec,spec_batch,graphs,"
-                            "dequantize,mesh,mesh_dp_sp,f8,q80,moe",
+                            "dequantize,mesh,mesh_dp_sp,mesh_pp_ep,f8,q80,moe",
                     help="comma list; not in the default: 'profile' adds a "
                          "torch.profiler pass over one decode chunk, single-stream "
                          "and 8-slot; 'chunk' is the prefill-chunk timing alone (Q40 "
@@ -6090,6 +6440,7 @@ def main(argv=None) -> int:
 
         import dllama_tpu_torch  # noqa: F401  (run from the repository root)
         from dllama_tpu_torch.ops import build
+        from dllama_tpu_torch.parallel import multihost
     except ImportError as e:
         fail(f"cannot import the port ({e}); run from the repository root")
     if not torch.cuda.is_available():
@@ -6137,7 +6488,7 @@ def main(argv=None) -> int:
               "a storm, and a ship that never arrives.")
     if phases & {"forward", "chunk", "serve", "profile", "batch", "hybrid", "radix", "obs",
                   "supervision", "router", "inference", "styles", "spec", "spec_batch",
-                  "graphs", "dequantize", "mesh", "mesh_dp_sp", "f8"}:
+                  "graphs", "dequantize", "mesh", "mesh_dp_sp", "mesh_pp_ep", "f8"}:
         from dllama_tpu_torch.engine.loader import load_model
 
         tmp = tempfile.TemporaryDirectory(prefix="dllama_smoke_")
@@ -6285,12 +6636,19 @@ def main(argv=None) -> int:
         if "dequantize" in phases:
             paths["dequantize"] = phase_dequantize(loaded, device, mpath, tpath, prompt)
         phase_done("dequantize", phases)
-        if "mesh" in phases:
-            paths["mesh"] = phase_mesh(tmp.name, tpath, device, prompt)
-        phase_done("mesh", phases)
-        if "mesh_dp_sp" in phases:
-            paths["mesh_dp_sp"] = phase_mesh_dp_sp(loaded, mpath, tpath, device, prompt)
-        phase_done("mesh_dp_sp", phases)
+        if phases & {"mesh", "mesh_dp_sp", "mesh_pp_ep"}:
+            # the mesh worlds (here and at the end of moe) come one after
+            # another: each finds its followers' processes started ahead,
+            # torch imported (seconds a process on the card's host)
+            multihost.keep_warm(3)
+            mloaded, mesh_path = mesh_model(tmp.name, tpath, device)
+            for name, fn in (("mesh", phase_mesh), ("mesh_dp_sp", phase_mesh_dp_sp),
+                             ("mesh_pp_ep", phase_mesh_pp_ep)):
+                if name in phases:
+                    paths[name] = fn(mloaded, mesh_path, tpath, device, prompt)
+                phase_done(name, phases)
+            del mloaded
+            os.remove(mesh_path)
         del loaded
         torch.cuda.empty_cache()
         if "f8" in phases:
@@ -6309,7 +6667,8 @@ def main(argv=None) -> int:
     phase_done("q80", phases)
 
     if "moe" in phases:
-        paths["moe"] = phase_moe(device, prompt, mesh="mesh" in phases)
+        paths["moe"] = phase_moe(device, prompt, mesh=phases & {"mesh", "mesh_pp_ep"})
+    multihost.keep_warm(0)
     phase_done("moe", phases)
 
     if results:

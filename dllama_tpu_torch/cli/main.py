@@ -14,12 +14,13 @@ Everything runs on `--device cuda` (the default) or `--device cpu`. Without
 a CUDA device the CLI stops with an error unless the CPU was asked for.
 `--mesh tp=4,dp=2,sp=1` (default `auto`: the JAX package's factoring, tp
 capped by the kv heads and the rest on dp; `--no-mesh` pins one device)
-runs tensor, sequence (ring attention) and data parallelism, one process
+runs tensor, sequence (ring attention), data, pipeline (GPipe stages:
+inference, chat and `serve --slots 0`) and expert parallelism, one process
 a rank with rank 0 driving (parallel/multihost.py), over NCCL on cards and
 gloo on the CPU; `--sync` picks the tp exchange's payload, and
 `--distributed --coordinator HOST:PORT --num-processes P --process-id I`
-joins processes across hosts. The pp and ep axes, and `--faults`,
-`$DLLAMA_FAULTS` or `--restart-max` on the mesh that runs, exit 2 by name. Options of the JAX package that this package has
+joins processes across hosts. `--faults`, `$DLLAMA_FAULTS` or
+`--restart-max` on the mesh that runs exit 2 by name. Options of the JAX package that this package has
 not ported yet are accepted by name and refused with a clear message (exit 2).
 `serve --slots N` runs the JAX package's defaults: paged KV where the paged
 kernel takes the model, the radix prefix tree on it (`--radix-cache auto`),
@@ -251,10 +252,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "dllama_spec_*, the spec objects of timings and /debug/perf "
                         "(default: --spec)")
     p.add_argument("--mesh", default="auto",
-                   help="device mesh spec 'tp=4,dp=2,sp=1' or 'auto' (all devices on tp, "
-                        "capped by the kv heads, the rest on dp); one process a rank, rank 0 "
-                        "drives (pp and ep are not ported). On the CPU ('--device cpu') each "
-                        "rank is a process")
+                   help="device mesh spec 'tp=4,dp=2,sp=1,pp=1,ep=1' or 'auto' (all devices "
+                        "on tp, capped by the kv heads, the rest on dp); one process a rank, "
+                        "rank 0 drives. On the CPU ('--device cpu') each rank is a process")
     p.add_argument("--no-mesh", action="store_true", help="one device even if more exist")
     p.add_argument("--sync", choices=["bf16", "q80", "auto"], default="bf16",
                    help="tp activation exchange: bf16 (exact, default), q80 (the "
@@ -292,16 +292,12 @@ def _resolve_mesh(args):
 
 
 def _refuse_unported(args) -> None:
-    """What this package does not carry: the pp and ep mesh axes, and on the
-    mesh that really runs, fault injection (--faults or $DLLAMA_FAULTS) and
-    warm restarts (a follower's recovery needs a design of its own)."""
-    from dllama_tpu_torch.parallel.mesh import NotPorted as MeshNotPorted
+    """What this package does not carry on the mesh that really runs: fault
+    injection (--faults or $DLLAMA_FAULTS) and warm restarts (a follower's
+    recovery needs a design of its own)."""
     from dllama_tpu_torch.utils import faults
 
-    try:
-        mesh = _resolve_mesh(args)
-    except MeshNotPorted as e:
-        raise NotPorted(str(e)) from None
+    mesh = _resolve_mesh(args)
     if mesh is None:
         return
     if any(faults.active(p) for p in faults.POINTS):

@@ -695,10 +695,13 @@ class BatchEngine:
         # synchronizing operation there warns or raises (obs/compile.h2d_guard)
         moe_impl: str = "auto",  # 'auto' | 'dispatch' | 'sort' | 'dense' (ops.layers.moe_ffn):
         # every program body runs it; fixed per engine, so no program key names it
-        shardings=None,  # parallel/sharding.LlamaShardings: one rank of a tp/dp mesh
+        shardings=None,  # parallel/sharding.LlamaShardings: one rank of a tp/dp/ep mesh
         # (dense layout only, as in the JAX package; see InferenceEngine). On dp
         # a replica holds its block of the slots (``block``): their cache, and
-        # it runs and samples their rows; the tokens are all-gathered over dp
+        # it runs and samples their rows; the tokens are all-gathered over dp.
+        # On ep every rank holds every slot and the whole cache, runs the same
+        # forward with its own experts (their partials summed over ep) and
+        # samples the same bits
         sync: str = "bf16",  # the tp exchange: 'bf16' | 'q80' | 'auto'
     ):
         if cache_dtype not in CACHE_DTYPES:
@@ -774,7 +777,7 @@ class BatchEngine:
                 (cfg.n_layers, cfg.n_kv_heads, self.page_size, cfg.head_size), cache_dtype,
                 pin=self.device.type == "cuda")
             self.radix.spill = self._host_spill
-        self.moe_impl = resolve_moe_impl(moe_impl)
+        self.moe_impl = resolve_moe_impl(moe_impl, shardings)
         sel = resolve_kernels(cfg, kernels, self.device, paged=self.pool is not None,
                               page_size=self.page_size, cache_dtype=cache_dtype)
         self.mm, self.attn_fn = sel.mm, sel.attn_fn

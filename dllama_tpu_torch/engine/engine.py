@@ -31,6 +31,7 @@ from dllama_tpu_torch.models.llama import KVCache, forward, fuse_layer_weights
 from dllama_tpu_torch.ops.layers import build_rope_cache
 from dllama_tpu_torch.parallel.collectives import TPExchange, resolve_sync
 from dllama_tpu_torch.parallel.multihost import mirrored, refuse_on_mesh
+from dllama_tpu_torch.parallel.pipeline import make_pp_forward
 from dllama_tpu_torch.parallel.ring_attention import make_sp_attention
 
 #: KV cache element types; e4m3 is the f8 cache (--cache-dtype f8)
@@ -90,9 +91,13 @@ class InferenceEngine:
     batch runs its rows (``block``) and the logits are all-gathered over
     dp, so every rank samples the same tokens. On sp the cache holds the
     rank's sequence rows (and a trash row) and the attention is the ring's
-    (parallel/ring_attention). Over gloo with CUDA tensors (ranks that
-    share a card), and on any sp mesh, the programs run eagerly;
-    ``fuse_weights`` is ignored on a mesh, as in the JAX package. The
+    (parallel/ring_attention). On pp the rank is one GPipe stage
+    (parallel/pipeline: its layers and their cache, ``pp_micro``
+    microbatches, the logits broadcast from the last stage); on ep an MoE
+    rank runs its experts and sums their partials over ep. Over gloo with
+    CUDA tensors (ranks that share a card), and on any sp or pp mesh, the
+    programs run eagerly; ``fuse_weights`` is ignored on a mesh, as in the
+    JAX package. The
     methods marked ``mirrored`` are the calls rank 0 sends to the other
     ranks (parallel/multihost)."""
 
@@ -111,12 +116,15 @@ class InferenceEngine:
         moe_impl: str = "auto",  # 'auto' | 'dispatch' | 'sort' | 'dense' (ops.layers.moe_ffn)
         shardings=None,  # parallel/sharding.LlamaShardings: one rank of a tp mesh
         sync: str = "bf16",  # the tp exchange: 'bf16' | 'q80' | 'auto'
+        pp_micro: int = 1,  # GPipe microbatches on a pp mesh (batch % pp_micro == 0)
     ):
         if cache_dtype not in CACHE_DTYPES:
             raise ValueError(f"KV cache dtype {cache_dtype} is not one of {CACHE_DTYPES}")
         self.device = torch.device(device) if device is not None else params["embedding"].device
         self.shardings = shardings
         self.sync = resolve_sync(sync, shardings)
+        check_pipeline(None if shardings is None else shardings.mesh.config, self.sync, batch,
+                       pp_micro)
         self.exchange, capture = _mesh_setup(self, shardings, capture)
         if shardings is not None:
             cfg, params, fuse_weights = shardings.local_config(), shardings.put_params(
@@ -133,10 +141,12 @@ class InferenceEngine:
         self.cache = KVCache.create(cfg, self.block[1] - self.block[0], cache_dtype, rows,
                                     self.device)
         self.pos = 0
-        self.moe_impl = resolve_moe_impl(moe_impl)
+        self.moe_impl = resolve_moe_impl(moe_impl, shardings)
         sel = resolve_kernels(cfg, kernels, self.device, sp_attention=sp_attn)
         self.mm, self.attn_fn = sel.mm, sel.attn_fn
         self.backend, self.attn_route = sel.backend, sel.attn_route
+        self._pp = None if self.exchange is None or self.exchange.pp is None else \
+            make_pp_forward(cfg, self.exchange, pp_micro, self.attn_fn, self.mm, self.moe_impl)
         self.forwards = 0  # forward passes run (each is one token column)
         # speculation (decode_spec_greedy_n): the device history, the
         # (count, cycles) pair a replay leaves, the tokens wanted, and an
@@ -178,9 +188,7 @@ class InferenceEngine:
             tokens = tokens[lo:hi]
             if isinstance(pos, torch.Tensor) and pos.dim() == 1:
                 pos = pos[lo:hi]
-        logits, _ = forward(self.cfg, self.params, tokens, pos, self.cache, self.rope_cache,
-                            self.attn_fn, self.mm, last_only=last_only,
-                            moe_impl=self.moe_impl, exchange=self.exchange)
+        logits = self._run(tokens, pos, last_only)
         logits = logits[:, -1] if last_only else logits
         if sharded:
             logits = self.exchange.dp.all_gather(logits).reshape(
@@ -188,12 +196,26 @@ class InferenceEngine:
             self.exchange.close_forward(self.batch, tokens.shape[1])
         return logits
 
+    def _run(self, tokens: torch.Tensor, pos, last_only: bool, active=None) -> torch.Tensor:
+        """The model's forward over this rank's cache -> f32 logits [B, T or
+        1, V]: a pp stage's GPipe schedule (parallel/pipeline), else
+        models/llama.forward."""
+        if self._pp is not None:
+            return self._pp(self.params, tokens, pos, self.cache, self.rope_cache, last_only,
+                            active)
+        logits, _ = forward(self.cfg, self.params, tokens, pos, self.cache, self.rope_cache,
+                            self.attn_fn, self.mm, last_only=last_only, active=active,
+                            moe_impl=self.moe_impl, exchange=self.exchange)
+        return logits
+
     def measured_collective_report(self) -> dict:
         """The exchange of one decode step (a [batch, 1] forward) as this
         rank's collectives counted it: the bytes of each collective's
         result, by op (the JAX package's count of the compiled step's HLO
-        collectives; an sp or dp op carries its axis, "sp:all-reduce").
-        Empty before the first decode step, and on one device."""
+        collectives; another axis's op carries its name: "sp:all-reduce",
+        "pp:send" (the bytes this stage sends), "pp:broadcast",
+        "ep:all-reduce"). Empty before the first decode step, and on one
+        device."""
         per_op = {} if self.exchange is None else dict(
             self.exchange.forward_bytes.get((self.batch, 1), {}))
         return {"total_bytes": sum(per_op.values()), "per_op": per_op}
@@ -532,10 +554,7 @@ class InferenceEngine:
         cnt, cyc = ctr[0:1], ctr[1:2]
 
         def fwd(toks, p, live):
-            logits, _ = forward(self.cfg, self.params, toks, p, self.cache, self.rope_cache,
-                                self.attn_fn, self.mm, last_only=False, active=live,
-                                moe_impl=self.moe_impl, exchange=self.exchange)
-            return logits
+            return self._run(toks, p, False, live)
 
         def body():
             for _ in range(m):
@@ -653,20 +672,34 @@ class InferenceEngine:
                     break
 
 
+def check_pipeline(config, sync: str, batch: int, pp_micro: int) -> None:
+    """Raise, with the JAX package's messages, for a pp mesh (``config``:
+    parallel/mesh.MeshConfig, or None) this engine cannot run: ``--sync
+    q80`` with tp > 1, or a ``pp_micro`` below 1 or not dividing the
+    batch. Off pp nothing is checked (pp_micro is ignored)."""
+    if config is None or config.pp == 1:
+        return
+    if sync == "q80" and config.tp > 1:
+        raise ValueError("--sync q80 is not supported on pp meshes yet")
+    if pp_micro < 1 or batch % pp_micro != 0:
+        raise ValueError(f"pp_micro must be >= 1 and divide batch; got pp_micro={pp_micro} "
+                         f"batch={batch}")
+
+
 def _mesh_setup(engine, shardings, capture):
     """(exchange, capture) of an engine on `shardings` (None and `capture`
     off a mesh): the rank's TPExchange, and capture off where the
     exchange is staged through the host (gloo on CUDA tensors), which no
-    CUDA graph can hold, and on an sp mesh, whose ring's point-to-point
-    exchange runs eagerly."""
+    CUDA graph can hold, and on an sp or pp mesh, whose ring's or stage
+    hop's point-to-point exchange runs eagerly."""
     if shardings is None:
         return None, capture
     ex = TPExchange(shardings.mesh, engine.sync, shardings.ffn_sharded,
                     shardings.logits_sharded)
-    if ex.staged or ex.sp is not None:
+    if ex.staged or ex.sp is not None or ex.pp is not None:
         if capture:
-            raise ValueError("a mesh over gloo on CUDA tensors, or with sp > 1, runs its "
-                             "programs eagerly (capture=False)")
+            raise ValueError("a mesh over gloo on CUDA tensors, or with sp > 1 or pp > 1, "
+                             "runs its programs eagerly (capture=False)")
         capture = False
     return ex, capture
 

@@ -23,6 +23,11 @@ Rules (the unsharded branches of the JAX package's resolve_kernels):
   dense layout only, as in the JAX package: the api resolves
   ``--kv-layout auto`` to dense and BatchEngine raises on an explicit
   paged layout; ``--fuse-weights`` is ignored.
+* A pp stage (parallel/pipeline) resolves the same rules over its own
+  layers, so K1/K2/K7 run on each stage where JAX's pipeline runs XLA
+  matmuls and jnp attention (``supports_sharded_pallas`` is False on pp:
+  a GSPMD limit, not a semantic). An ep rank runs its experts' products
+  on the same kernels.
 * On an sp mesh (``sp_attention``, parallel/ring_attention.SPAttention)
   the attention is route ``ring``: the LSE merge and the ring over the
   sequence-sharded cache, plain torch as JAX's is jnp. The matmuls keep
@@ -86,11 +91,22 @@ def resolve_kernels(cfg: LlamaConfig, kernels: str = "auto", device="cpu", paged
     return KernelSelection(mm, flash_attention.flash_gqa_attention, backend, "flash")
 
 
-def resolve_moe_impl(moe_impl: str) -> str:
-    """The MoE scheme both engines run (ops.layers.moe_ffn), checked: on one
-    device it is ``moe_impl`` itself, as in the JAX package with no mesh.
-    ``auto`` is resolved per call (ops.layers: JAX's size rule on the CPU,
-    dense on a CUDA device)."""
+def resolve_moe_impl(moe_impl: str, shardings=None) -> str:
+    """The MoE scheme both engines run (ops.layers.moe_ffn), checked, as the
+    JAX package resolves it: off an expert-parallel mesh it is ``moe_impl``
+    itself, ``auto`` resolved per call (ops.layers: JAX's size rule on the
+    CPU, dense on a CUDA device). On ep > 1 ``auto`` is ``dense`` on every
+    device and ``sort`` raises JAX's message (its ragged product does not
+    partition over a sharded expert axis there); ``dispatch`` runs."""
     if moe_impl not in MOE_IMPLS:
         raise ValueError(f"moe_impl must be one of {MOE_IMPLS}, got {moe_impl!r}")
+    ep = shardings.mesh.shape.get("ep", 1) if shardings is not None else 1
+    if ep > 1:
+        if moe_impl == "sort":
+            raise ValueError(
+                "moe_impl='sort' is unsupported on ep>1 meshes: ragged_dot "
+                "partitions incorrectly over a sharded expert axis; use "
+                "'dense' (exact) or 'dispatch'")
+        if moe_impl == "auto":
+            return "dense"
     return moe_impl

@@ -1,14 +1,16 @@
 """High-level model loading: file -> device params -> ready InferenceEngine
 (the reference's runInferenceApp bootstrap, app.cpp:197-260: header ->
-tokenizer -> weights -> engine), on one device or on a mesh of tp, sp and dp.
+tokenizer -> weights -> engine), on one device or on a mesh of any of the
+five axes.
 
-On a mesh (``mesh="tp=2"``, ``"dp=2,tp=2"``, ``"sp=2"``, or ``"auto"`` on a
-machine with several cards)
-every rank loads shard-direct: each Q40 matmul weight decodes only the
-rank's byte ranges off the memmap (models/formats.LazyQ40 through the
-``put`` hook), and Q80 weights load dense bf16, as the JAX package's do on a
-mesh. The local ranks are spawned here (parallel/multihost.launch) and the
-returned engine is rank 0's, which drives the world.
+On a mesh (``mesh="tp=2"``, ``"dp=2,tp=2"``, ``"sp=2"``, ``"tp=2,pp=2"``,
+``"ep=2"``, or ``"auto"`` on a machine with several cards) every rank loads
+shard-direct: each Q40 matmul weight decodes only the rank's byte ranges
+off the memmap (models/formats.LazyQ40 through the ``put`` hook; a pp
+stage only its layers, an ep rank only its experts), and Q80 weights load
+dense bf16, as the JAX package's do on a mesh. The local ranks are
+spawned here (parallel/multihost.launch) and the returned engine is rank
+0's, which drives the world.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import logging
 
 import torch
 
-from dllama_tpu_torch.engine.engine import InferenceEngine
+from dllama_tpu_torch.engine.engine import InferenceEngine, check_pipeline
 from dllama_tpu_torch.models.config import LlamaConfig
 from dllama_tpu_torch.models.formats import ModelFileError, load_params, read_header
 from dllama_tpu_torch.parallel import multihost
@@ -60,8 +62,8 @@ def resolve_mesh(mesh_spec: str | None, cfg: LlamaConfig, device,
     factors them as the JAX package's auto_mesh_config does: tp capped by
     the kv heads, the rest on dp. A mesh larger than the cards raises
     :class:`MeshTooLarge`, as JAX's make_mesh refuses one larger than its
-    devices; on the CPU each rank is a process of its own. An axis not
-    ported (pp, ep) raises NotPorted.
+    devices; on the CPU each rank is a process of its own. ``auto`` never
+    hands out pp or ep, as JAX's auto_mesh_config does not.
     ``devices`` (a harness's one device a local rank, ranks may share a
     card) replaces the count of cards."""
     if mesh_spec is None:
@@ -77,7 +79,6 @@ def resolve_mesh(mesh_spec: str | None, cfg: LlamaConfig, device,
         config = auto_mesh_config(n_dev, cfg.n_kv_heads)
     else:
         config = MeshConfig.parse(mesh_spec)
-        config.check_ported()
         if device.type == "cuda" and config.n_devices > n_dev:
             raise MeshTooLarge(f"the mesh needs {config.n_devices} devices, have {n_dev} "
                                "(one card a rank)")
@@ -93,11 +94,12 @@ def build_shardings(cfg: LlamaConfig, mesh) -> LlamaShardings | None:
 def rank_engine(mesh, device, model_path: str, max_seq_len=None, engine_kw=None,
                 dequantize: bool = False) -> InferenceEngine:
     """One rank's engine (run on every rank by parallel/multihost.launch):
-    the shard-direct load of its weights and its InferenceEngine."""
+    the shard-direct load of its weights (a pp stage's layers only) and its
+    InferenceEngine."""
     cfg, header_size = read_header(model_path, max_seq_len)
     sh = build_shardings(cfg, mesh)
     params = load_params(model_path, cfg, header_size, dtype=torch.bfloat16,
-                         dequantize=dequantize,
+                         dequantize=dequantize, layer_range=sh.layer_range(),
                          put=lambda name, leaf: sh.put(name, leaf, device))
     return InferenceEngine(cfg, params, max_seq_len=max_seq_len, device=device,
                            shardings=sh, **(engine_kw or {}))
@@ -116,6 +118,8 @@ def load_model(
     sync: str = "bf16",  # the tp exchange: 'bf16' | 'q80' | 'auto'
     kernels: str = "auto",
     moe_impl: str = "auto",  # MoE compute scheme (ops.layers.moe_ffn)
+    pp_micro: int = 1,  # GPipe microbatches on a pp mesh (library callers with batch > 1;
+    # the CLI drives batch 1 and has no flag for it, as in the JAX package)
     fuse_weights: bool = False,  # ignored on a mesh, as in the JAX package
     device="cuda",
     devices: list | None = None,  # mesh: one device a local rank (a harness's choice)
@@ -135,10 +139,11 @@ def load_model(
     mesh_cfg = resolve_mesh(mesh, cfg, device, devices)
     if mesh_cfg is not None:
         LlamaShardings.check(mesh_cfg, cfg)
+        check_pipeline(mesh_cfg, sync, batch, pp_micro)
         log.info("mesh: %s over %d devices", mesh_cfg, mesh_cfg.n_devices)
         engine_kw = dict(batch=batch, cache_dtype=cache_dtype,
                          max_prefill_chunk=max_prefill_chunk, kernels=kernels,
-                         moe_impl=moe_impl, sync=sync)
+                         moe_impl=moe_impl, sync=sync, pp_micro=pp_micro)
         world = multihost.launch(
             "dllama_tpu_torch.engine.loader:rank_engine",
             dict(model_path=model_path, max_seq_len=max_seq_len, engine_kw=engine_kw,

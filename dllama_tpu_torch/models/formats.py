@@ -384,7 +384,8 @@ def _place(stack, index, leaf) -> None:
 
 def load_params(path: str, config: LlamaConfig, header_size: int,
                 dtype=torch.bfloat16, device="cpu", dequantize: bool = False,
-                put: Callable[[str, object], object] | None = None) -> dict:
+                put: Callable[[str, object], object] | None = None,
+                layer_range: range | None = None) -> dict:
     """Load the full parameter tree onto `device`.
 
     Per-layer tensors are stacked on a leading layer axis ([L, ...]); a
@@ -405,9 +406,12 @@ def load_params(path: str, config: LlamaConfig, header_size: int,
     leading layer axis of 1, and Q40 matmul weights arrive as lazy stacks
     (:class:`LazyQ40Stack`), so only the rank's own shard is ever decoded.
     Dense leaves arrive as CPU tensors in their load dtype; Q80 weights
-    load dense (the JAX package's rule on a mesh)."""
+    load dense (the JAX package's rule on a mesh). With ``put``,
+    ``layer_range`` (a pp stage's layers, parallel/sharding.layer_range)
+    loads only those layers, stacked from 0; the others are never read."""
     if put is not None:
-        return _load_params_put(path, config, header_size, dtype, dequantize, put)
+        return _load_params_put(path, config, header_size, dtype, dequantize, put,
+                                layer_range or range(config.n_layers))
     n_layers = config.n_layers
     layers: dict = {}
     params: dict = {}
@@ -440,7 +444,7 @@ def load_params(path: str, config: LlamaConfig, header_size: int,
 
 
 def _load_params_put(path: str, config: LlamaConfig, header_size: int, dtype,
-                     dequantize: bool, put) -> dict:
+                     dequantize: bool, put, mine: range) -> dict:
     """load_params through the `put` hook (see load_params)."""
 
     def host(a: np.ndarray, leaf_dtype=torch.float32) -> torch.Tensor:
@@ -457,7 +461,6 @@ def _load_params_put(path: str, config: LlamaConfig, header_size: int, dtype,
             return LazyQ40Stack(leaves)
         return torch.stack(leaves)
 
-    n_layers = config.n_layers
     layers: dict = {}
     params: dict = {}
     for name, shape, ft, raw in iter_tensors(path, config, header_size):
@@ -469,6 +472,8 @@ def _load_params_put(path: str, config: LlamaConfig, header_size: int, dtype,
             params["wcls"] = put(name, matmul_leaf(raw, shape, ft))
         else:
             _, li, short = name.split(".")
+            if int(li) not in mine:
+                continue
             if short in ("rms_att", "rms_ffn"):
                 leaf = host(decode_dense(raw, shape, ft))
             elif short == "moe_gate":
@@ -482,7 +487,7 @@ def _load_params_put(path: str, config: LlamaConfig, header_size: int, dtype,
                 leaf = matmul_leaf(raw, shape, ft)
             local = slice_leaf(put(f"layers.{short}", stacked([leaf])), 0)
             if short not in layers:
-                layers[short] = _empty_stack(local, (n_layers,))
-            _place(layers[short], int(li), local)
+                layers[short] = _empty_stack(local, (len(mine),))
+            _place(layers[short], int(li) - mine.start, local)
     params["layers"] = layers
     return params

@@ -169,7 +169,9 @@ def _layer(cfg: LlamaConfig, x, layers, li, k_cache, v_cache, rope, pos_base,
     `cfg` is the rank's view (its heads, kv heads and FFN width) and the
     weights its shards: the wo product and the FFN's are partial sums,
     each all-reduced once here at the layer (one reduce for an MoE FFN of
-    tp-sharded experts, not one an expert)."""
+    tp-sharded experts, not one an expert). On an ep rank the MoE FFN runs
+    the rank's experts and sums their f32 partials over ep inside
+    moe_ffn, before the cast; the tp reduce follows here."""
     b, t, _ = x.shape
     qd, kvd = cfg.n_heads * cfg.head_size, cfg.kv_dim
     h = rms_norm(x, layers["rms_att"][li], cfg.norm_epsilon)
@@ -199,9 +201,12 @@ def _layer(cfg: LlamaConfig, x, layers, li, k_cache, v_cache, rope, pos_base,
     h = rms_norm(x, layers["rms_ffn"][li], cfg.norm_epsilon)
     reduce_ffn = exchange is not None and exchange.ffn_sharded
     if "moe_gate" in layers:
+        # the rank holds a share of the experts only where ep divides them
+        # (LlamaShardings.local_config); otherwise every rank runs them all
+        ep = exchange.ep if getattr(cfg, "ep", 1) > 1 else None
         y = moe_ffn(cfg, h, layers["moe_gate"][li], slice_leaf(layers["moe_w1"], li),
                     slice_leaf(layers["moe_w2"], li), slice_leaf(layers["moe_w3"], li),
-                    impl=moe_impl, mm=mm)
+                    impl=moe_impl, mm=mm, reduce=None if ep is None else ep.all_reduce)
         # exact under --sync q80 too: the JAX package's q80 exchange
         # replaces the wo and dense w2 products only
         return x + (exchange.all_reduce(y) if reduce_ffn else y)
@@ -247,7 +252,10 @@ def run_layers(cfg: LlamaConfig, layer_params: dict, x, pos_base, cache, rope,
                exchange=None) -> torch.Tensor:
     """Walk the decoder layers over a KVCache or a PagedKVCache (whose block
     tables select the paged branch of each layer). `active` [B] bool masks
-    the cache writes of frozen rows."""
+    the cache writes of frozen rows. The layers are those the weights and
+    the cache stack: a pipeline stage's (parallel/pipeline) are its own
+    [L/pp, ...] slices, indexed from 0, at global positions and RoPE
+    rows."""
     tables = cache.tables if isinstance(cache, PagedKVCache) else None
     if attn_fn is None:
         attn_fn = gqa_attention if tables is None else paged_gqa_attention
@@ -270,6 +278,15 @@ def run_layers(cfg: LlamaConfig, layer_params: dict, x, pos_base, cache, rope,
         x = _layer(cfg, x, layer_params, li, cache.k[li], cache.v[li], rope,
                    pos_base, attn_fn, mm, active, tables, index, moe_impl, exchange)
     return x
+
+
+def rope_rows(rope_cache: torch.Tensor, pos_base, t: int) -> torch.Tensor:
+    """The RoPE rows of T tokens at `pos_base`: [T, ...] for an int, [B, T,
+    ...] for a [B] tensor of per-row positions (clamped to the cache)."""
+    if isinstance(pos_base, torch.Tensor) and pos_base.dim() == 1:
+        idx = pos_base.to(torch.long)[:, None] + torch.arange(t, device=pos_base.device)
+        return rope_cache[idx.clamp(0, rope_cache.shape[0] - 1)]
+    return rope_cache[pos_base : pos_base + t]
 
 
 def forward(
@@ -297,11 +314,7 @@ def forward(
         exchange.open_forward()
     x = params["embedding"][tokens]  # [B, T, D]
     t = tokens.shape[1]
-    if isinstance(pos_base, torch.Tensor) and pos_base.dim() == 1:
-        idx = pos_base.to(torch.long)[:, None] + torch.arange(t, device=tokens.device)
-        rope = rope_cache[idx.clamp(0, rope_cache.shape[0] - 1)]
-    else:
-        rope = rope_cache[pos_base : pos_base + t]
+    rope = rope_rows(rope_cache, pos_base, t)
     x = run_layers(cfg, params["layers"], x, pos_base, cache, rope, attn_fn, mm, active,
                    moe_impl, exchange)
     if last_only:

@@ -161,6 +161,13 @@ def moe_buffers(hf: torch.Tensor, topi: torch.Tensor, e: int, c: int):
     return torch.where(keep, assign, 0), torch.where(keep, rank, 0), keep, buf
 
 
+def expert_range(cfg: LlamaConfig) -> tuple[int, int]:
+    """(first, count) of the experts whose stacks this rank holds: an ep
+    rank's block (parallel/sharding.LocalLlamaConfig), every expert
+    elsewhere."""
+    return getattr(cfg, "expert_offset", 0), cfg.n_experts // getattr(cfg, "ep", 1)
+
+
 def moe_ffn(
     cfg: LlamaConfig,
     h: torch.Tensor,  # [B, T, D] (already rms-normed)
@@ -169,6 +176,7 @@ def moe_ffn(
     impl: str = "auto",  # 'auto' | 'dispatch' | 'sort' | 'dense'
     capacity_factor: float = 2.0,
     mm=None,  # the engine's matmul (x, w, layer, out_dtype=); CUDA tensors only
+    reduce=None,  # an ep rank's f32 sum over ep (parallel/collectives.AxisGroup.all_reduce)
 ) -> torch.Tensor:
     """Mixtral-style sparse MoE FFN: top-k router (softmax over the top-k
     logits), SwiGLU experts, probability-weighted combine.
@@ -190,12 +198,22 @@ def moe_ffn(
     arithmetic: the weights dequantized to ``h.dtype``; sort's products f32;
     dispatch's and dense's products rounded to ``h.dtype``; the combines
     f32. The dispatch combine sums each token's k choices in order (JAX
-    scatter-adds them)."""
+    scatter-adds them).
+
+    On an ep rank (``cfg.ep`` > 1, expert_range) the stacks hold the rank's
+    experts only. The router still runs over all E; the rank computes its
+    own experts' products (dense: on every row; dispatch: their segments,
+    the capacity from the global E), sums its weighted outputs in f32, and
+    ``reduce`` sums those partials over ep before the one cast to
+    ``h.dtype``. ``sort`` takes whole stacks only: the engines resolve
+    ``auto`` to ``dense`` on ep and refuse ``sort``, as JAX does
+    (engine/kernel_select.resolve_moe_impl)."""
     if h.device.type == "cuda":
         if mm is None:
             from dllama_tpu_torch.ops.matmul import matmul as mm
-        return moe_ffn_static(cfg, h, gate, w1, w2, w3, mm, impl, capacity_factor)
+        return moe_ffn_static(cfg, h, gate, w1, w2, w3, mm, impl, capacity_factor, reduce)
     e, k = cfg.n_experts, cfg.n_active_experts
+    lo, ne = expert_range(cfg)
     b, t, d = h.shape
     n = b * t
     if impl == "auto":
@@ -207,6 +225,10 @@ def moe_ffn(
     hf = h.reshape(n, d)
     w1d, w2d, w3d = (_dense_w(w, hdt) for w in (w1, w2, w3))
     act = cfg.hidden_act
+
+    def finish(out: torch.Tensor) -> torch.Tensor:
+        out = out if reduce is None else reduce(out)
+        return out.reshape(b, t, d).to(hdt)
 
     if impl == "sort":
         assign = topi.reshape(-1)
@@ -220,29 +242,30 @@ def moe_ffn(
             a = activation(_dot(x, w1d[ei]), act).to(hdt) * _dot(x, w3d[ei]).to(hdt)
             ys.append(_dot(a, w2d[ei]))
         y = torch.cat(ys)[inv].reshape(n, k, d)
-        out = torch.sum(y * probs.reshape(n, k, 1), dim=1)
-        return out.reshape(b, t, d).to(hdt)
+        return finish(torch.sum(y * probs.reshape(n, k, 1), dim=1))
 
     if impl == "dispatch":
         c = moe_capacity(n, k, e, capacity_factor)
         ei, ri, keep, buf = moe_buffers(hf, topi, e, c)
+        buf = buf[lo : lo + ne]
         g = _dot(buf, w1d).to(hdt)
         up = _dot(buf, w3d).to(hdt)
         a = activation(g.to(torch.float32), act).to(hdt)
         y = _dot(a * up, w2d).to(hdt)  # [E, C, D]
-        y_tok = y[ei, ri].to(torch.float32)  # [N*k, D]
         wgt = probs.reshape(-1) * keep  # dropped choices contribute nothing
-        out = torch.sum((y_tok * wgt[:, None]).reshape(n, k, d), dim=1)
-        return out.reshape(b, t, d).to(hdt)
+        if ne < e:  # only this rank's experts' choices
+            wgt = wgt * ((ei >= lo) & (ei < lo + ne))
+            ei = (ei - lo).clamp(0, ne - 1)
+        y_tok = y[ei, ri].to(torch.float32)  # [N*k, D]
+        return finish(torch.sum((y_tok * wgt[:, None]).reshape(n, k, d), dim=1))
 
-    weights = _route_weights(probs, topi, e).reshape(n, e)
+    weights = _route_weights(probs, topi, e).reshape(n, e)[:, lo : lo + ne]
     g = torch.einsum("nd,edf->nef", hf.to(torch.float32), w1d.to(torch.float32)).to(hdt)
     up = torch.einsum("nd,edf->nef", hf.to(torch.float32), w3d.to(torch.float32)).to(hdt)
     a = activation(g.to(torch.float32), act).to(hdt)
     y = torch.einsum("nef,efd->ned", (a * up).to(torch.float32),
                      w2d.to(torch.float32)).to(hdt)
-    out = torch.einsum("ned,ne->nd", y.to(torch.float32), weights)
-    return out.reshape(b, t, d).to(hdt)
+    return finish(torch.einsum("ned,ne->nd", y.to(torch.float32), weights))
 
 
 def _route_weights(probs: torch.Tensor, topi: torch.Tensor, e: int) -> torch.Tensor:
@@ -253,7 +276,8 @@ def _route_weights(probs: torch.Tensor, topi: torch.Tensor, e: int) -> torch.Ten
 
 
 def moe_ffn_static(cfg: LlamaConfig, h: torch.Tensor, gate: torch.Tensor, w1, w2, w3, mm,
-                   impl: str = "dense", capacity_factor: float = 2.0) -> torch.Tensor:
+                   impl: str = "dense", capacity_factor: float = 2.0,
+                   reduce=None) -> torch.Tensor:
     """moe_ffn with every shape fixed by (B, T) alone, so a captured CUDA
     graph holds it: no host read of a group size anywhere. Each expert's
     three products go through ``mm(x, w, e, out_dtype=float32)`` on the
@@ -268,8 +292,12 @@ def moe_ffn_static(cfg: LlamaConfig, h: torch.Tensor, gate: torch.Tensor, w1, w2
       in order (no scatter-add, so the sums repeat run to run);
     * ``sort``: dispatch at C = N, which drops nothing: exact, equal to
       sort up to the order of sums.
+
+    On an ep rank only its E/ep experts run (3*E/ep products; expert_range)
+    and ``reduce`` sums the f32 partials over ep, as in moe_ffn.
     """
     e, k = cfg.n_experts, cfg.n_active_experts
+    lo, ne = expert_range(cfg)
     b, t, d = h.shape
     n = b * t
     impl = "dense" if impl == "auto" else impl
@@ -279,21 +307,27 @@ def moe_ffn_static(cfg: LlamaConfig, h: torch.Tensor, gate: torch.Tensor, w1, w2
     probs, topi = moe_route(h, gate, k)
     hf = h.reshape(n, d).contiguous()
 
-    def expert(x, ei):
-        g = mm(x, w1, ei, out_dtype=f32)
-        up = mm(x, w3, ei, out_dtype=f32)
-        return mm(activation(g, cfg.hidden_act).to(hdt) * up.to(hdt), w2, ei, out_dtype=f32)
+    def expert(x, j):
+        g = mm(x, w1, j, out_dtype=f32)
+        up = mm(x, w3, j, out_dtype=f32)
+        return mm(activation(g, cfg.hidden_act).to(hdt) * up.to(hdt), w2, j, out_dtype=f32)
+
+    def finish(out: torch.Tensor) -> torch.Tensor:
+        out = out if reduce is None else reduce(out)
+        return out.reshape(b, t, d).to(hdt)
 
     if impl == "dense":
-        y = torch.stack([expert(hf, ei) for ei in range(e)])  # [E, N, D]
-        out = torch.einsum("end,ne->nd", y, _route_weights(probs, topi, e).reshape(n, e))
-        return out.reshape(b, t, d).to(hdt)
+        y = torch.stack([expert(hf, j) for j in range(ne)])  # [E, N, D]
+        weights = _route_weights(probs, topi, e).reshape(n, e)[:, lo : lo + ne]
+        return finish(torch.einsum("end,ne->nd", y, weights))
     c = n if impl == "sort" else moe_capacity(n, k, e, capacity_factor)
     ei, ri, keep, buf = moe_buffers(hf, topi, e, c)
-    y = torch.stack([expert(buf[x], x) for x in range(e)])  # [E, C, D]
+    y = torch.stack([expert(buf[lo + j], j) for j in range(ne)])  # [E, C, D]
     wgt = probs.reshape(-1) * keep
-    out = torch.sum((y[ei, ri] * wgt[:, None]).reshape(n, k, d), dim=1)
-    return out.reshape(b, t, d).to(hdt)
+    if ne < e:  # only this rank's experts' choices
+        wgt = wgt * ((ei >= lo) & (ei < lo + ne))
+        ei = (ei - lo).clamp(0, ne - 1)
+    return finish(torch.sum((y[ei, ri] * wgt[:, None]).reshape(n, k, d), dim=1))
 
 
 def gqa_attention(

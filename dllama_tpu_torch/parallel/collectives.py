@@ -17,20 +17,23 @@ A CUDA tensor on a gloo group (ranks that share one card) is staged
 through pinned host memory; a CPU tensor goes to gloo as it is; NCCL takes
 the CUDA tensor directly, also inside a CUDA-graph capture.
 
-The sp and dp axes (:class:`AxisGroup`, ``TPExchange.sp`` and
-``TPExchange.dp``) carry the sequence-parallel attention's exchanges
+The other axes (:class:`AxisGroup`: ``TPExchange.sp``, ``.dp``, ``.pp``
+and ``.ep``) carry the sequence-parallel attention's exchanges
 (parallel/ring_attention: the LSE merge's all-reduces, the ring's permutes,
-the gather of a sharded chunk's output) and a dp replica's rows (its
-tokens, or its logits, gathered; an admission's logits broadcast from the
-replica that holds the slot).
+the gather of a sharded chunk's output), a dp replica's rows (its tokens,
+or its logits, gathered; an admission's logits broadcast from the replica
+that holds the slot), the pipeline's stage hop and its logits broadcast
+from the last stage (parallel/pipeline), and the sum of an MoE layer's
+expert partials over ep (ops/layers.moe_ffn).
 
 Every collective adds the bytes of its result to a per-op counter (the
 port's counterpart of the JAX package's ``measured_collective_bytes``,
 which sums the result shapes of the compiled HLO's collectives), per
 forward shape: ``forward_bytes[(B, T)]`` is one forward's exchange. The tp
 exchange's ops are named as JAX's HLO names them ("all-reduce",
-"all-gather"); an sp or dp exchange's carry the axis ("sp:all-reduce",
-"sp:collective-permute", "dp:all-gather", ...).
+"all-gather"); another axis's carry the axis ("sp:all-reduce",
+"sp:collective-permute", "dp:all-gather", "pp:send", "pp:broadcast",
+"ep:all-reduce", ...).
 """
 
 from __future__ import annotations
@@ -111,8 +114,8 @@ def _host(x: torch.Tensor, staged: bool) -> torch.Tensor:
 
 
 class AxisGroup:
-    """One rank's collectives over one mesh axis other than tp (``sp`` or
-    ``dp``): the axis's process group, this rank's index on it and the
+    """One rank's collectives over one mesh axis other than tp (``sp``,
+    ``dp``, ``pp`` or ``ep``): the axis's process group, this rank's index on it and the
     group's global ranks in index order (parallel/mesh.Mesh.axis_group).
     Bytes are counted into the owning exchange's forward window under
     "<axis>:<op>"."""
@@ -170,6 +173,37 @@ class AxisGroup:
             self._count("collective-permute", o)
         return out
 
+    def hop(self, send: torch.Tensor | None, recv_like: torch.Tensor | None
+            ) -> torch.Tensor | None:
+        """The pipeline's one-stage hop (JAX's non-cyclic ``ppermute`` with
+        perm i -> i+1): `send` goes to the next index and a tensor shaped
+        as `recv_like` arrives from the previous one, paired in one
+        ``batch_isend_irecv``. Either may be None (the first index
+        receives nothing, the last sends nothing, and a bubble step neither
+        sends nor receives): the two ends of a hop must agree on it, as an
+        unmatched point-to-point call hangs the group. The sender counts
+        the bytes under "send". Returns the received tensor (None when
+        none was posted)."""
+        ops, recv = [], None
+        if send is not None:
+            t = _host(send, self.staged).reshape(-1).view(torch.uint8)
+            ops.append(dist.P2POp(dist.isend, t, self.ranks[self.index + 1], self.group))
+        if recv_like is not None:
+            host = self.staged and recv_like.device.type == "cuda"
+            recv = torch.empty(recv_like.shape, dtype=recv_like.dtype,
+                               device="cpu" if host else recv_like.device,
+                               pin_memory=host)
+            ops.append(dist.P2POp(dist.irecv, recv.reshape(-1).view(torch.uint8),
+                                  self.ranks[self.index - 1], self.group))
+        if not ops:
+            return None
+        _count_issued()
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        if send is not None:
+            self._count("send", send)
+        return None if recv is None else recv.to(recv_like.device)
+
     def broadcast(self, x: torch.Tensor, src: int) -> torch.Tensor:
         """Index `src`'s x on every index (`x` is overwritten elsewhere)."""
         _count_issued()
@@ -186,8 +220,8 @@ class TPExchange:
     counters. ``sync`` ('bf16' | 'q80') picks :meth:`reduce_partial`;
     ``ffn_sharded`` and ``logits_sharded`` say which outputs the layer
     reduces and the forward gathers (parallel/sharding: a dim tp does not
-    divide is replicated). ``sp`` and ``dp`` are the rank's
-    :class:`AxisGroup` on those axes (None on an axis of one)."""
+    divide is replicated). ``sp``, ``dp``, ``pp`` and ``ep`` are the
+    rank's :class:`AxisGroup` on those axes (None on an axis of one)."""
 
     def __init__(self, mesh, sync: str = "bf16", ffn_sharded: bool = True,
                  logits_sharded: bool = True):
@@ -206,6 +240,8 @@ class TPExchange:
         shape = mesh.shape
         self.sp = AxisGroup(mesh, "sp", self) if shape["sp"] > 1 else None
         self.dp = AxisGroup(mesh, "dp", self) if shape["dp"] > 1 else None
+        self.pp = AxisGroup(mesh, "pp", self) if shape["pp"] > 1 else None
+        self.ep = AxisGroup(mesh, "ep", self) if shape["ep"] > 1 else None
 
     # ------------------------------------------------------------ counters
 

@@ -1,12 +1,14 @@
-"""The device mesh: the JAX package's five named axes, of which this
-package runs ``dp`` (replicas over the batch), ``sp`` (the KV cache's
-sequence axis, ring attention) and ``tp`` (the reference's one axis: the
-node count every matmul and the KV heads are split over, SURVEY.md §2.4).
+"""The device mesh: the JAX package's five named axes, all of which this
+package runs: ``dp`` (replicas over the batch), ``pp`` (GPipe stages over
+the layers, parallel/pipeline), ``sp`` (the KV cache's sequence axis, ring
+attention), ``tp`` (the reference's one axis: the node count every matmul
+and the KV heads are split over, SURVEY.md §2.4) and ``ep`` (an MoE
+model's experts split over ranks).
 
 :class:`MeshConfig`, :meth:`MeshConfig.parse` and :func:`auto_mesh_config`
 return what the JAX package's return (``dllama_tpu/parallel/mesh.py``).
 :class:`Mesh` is one rank's view of a world: its size, its rank, its
-coordinate on each axis and the process group of each ported axis. Under
+coordinate on each axis and the process group of each axis. Under
 PyTorch each rank is a process of its own (``parallel/multihost.py``),
 where JAX drives every device from one controller.
 """
@@ -18,12 +20,11 @@ import dataclasses
 import numpy as np
 
 AXES = ("dp", "pp", "sp", "tp", "ep")
-#: the axes this package runs; a larger size on any other is NotPorted
-PORTED_AXES = ("dp", "sp", "tp")
 
 
 class NotPorted(ValueError):
-    """A mesh axis (or an option on a mesh) this package does not run yet."""
+    """An option this package does not run on a mesh yet (faults, warm
+    restarts, sessions)."""
 
 
 class MeshTooLarge(ValueError):
@@ -57,13 +58,6 @@ class MeshConfig:
                 raise ValueError(f"unknown mesh axis {k!r}; valid: {AXES}")
             kwargs[k] = int(v)
         return cls(**kwargs)
-
-    def check_ported(self) -> None:
-        """Raise NotPorted naming the first axis larger than 1 that this
-        package does not run."""
-        for ax in AXES:
-            if ax not in PORTED_AXES and getattr(self, ax) > 1:
-                raise NotPorted(f"the mesh axis {ax} ({ax}={getattr(self, ax)})")
 
 
 def auto_mesh_config(n_devices: int, n_kv_heads: int, want_sp: bool = False) -> MeshConfig:
@@ -101,7 +95,7 @@ def axis_ranks(config: MeshConfig, axis: str) -> list[list[int]]:
 @dataclasses.dataclass
 class Mesh:
     """One rank's view of the world: ``config`` (the axis sizes), this
-    process's global ``rank``, the process group of each ported axis
+    process's global ``rank``, the process group of each axis
     (``groups``: None on an axis of one; ``group`` is the tp one) and the
     backend they run over. Ranks are laid out as the JAX package's device
     grid, row-major over AXES with tp innermost (:attr:`coords`)."""

@@ -1,5 +1,5 @@
-"""The process model of a mesh's world (tp, sp, dp and their products): one
-process a rank, rank 0 driving, on ``torch.distributed``.
+"""The process model of a mesh's world (any product of the dp, pp, sp, tp
+and ep axes): one process a rank, rank 0 driving, on ``torch.distributed``.
 
 The JAX package drives every chip from one controller under GSPMD
 (``dllama_tpu/parallel/multihost.py``: every host runs the same command
@@ -32,7 +32,9 @@ and its workers, app.cpp:262-321):
 * **Local ranks are spawned by the library** (:func:`launch`): one
   process a device, each the child of rank 0's process, with the death
   signal set (``prctl(PR_SET_PDEATHSIG)``), so a worker never outlives its
-  driver; a worker also exits when the command channel closes.
+  driver; a worker also exits when the command channel closes. A caller
+  that launches worlds one after another may keep spare ranks started
+  ahead (:func:`keep_warm`), each waiting with torch imported.
 * **Across hosts** (:func:`initialize`, the CLI's ``--distributed
   --coordinator host:port --num-processes P --process-id I``) every
   process runs the same command; process 0 drives, and its local ranks
@@ -552,7 +554,6 @@ def launch(build: str, kwargs: dict, config: MeshConfig, device="cpu",
     under the temporary directory; across hosts ``tcp://`` the
     coordinator). Returns this process's :class:`World`: on global rank 0
     the driver, elsewhere a follower (call :meth:`World.follow`)."""
-    config.check_ported()
     multi = distributed()
     processes = multi["processes"] if multi else 1
     process = multi["process"] if multi else 0
@@ -583,14 +584,8 @@ def launch(build: str, kwargs: dict, config: MeshConfig, device="cpu",
     children = []
     for i in range(1, n_local):
         rank_spec = dict(spec, rank=base + i, device=str(devices[i]))
-        payload = base64.b64encode(pickle.dumps(rank_spec)).decode()
-        env = dict(os.environ)
-        root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-        env["PYTHONPATH"] = os.pathsep.join(
-            [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
-        children.append(subprocess.Popen(
-            [sys.executable, "-m", "dllama_tpu_torch.parallel.multihost", payload],
-            stdin=subprocess.DEVNULL, stdout=sys.stderr.fileno(), env=env))
+        children.append(_start_rank(base64.b64encode(pickle.dumps(rank_spec)).decode()))
+    _top_up()
     try:
         world = _join(dict(spec, rank=base, device=str(devices[0])))
     except BaseException:
@@ -605,6 +600,80 @@ def launch(build: str, kwargs: dict, config: MeshConfig, device="cpu",
             threading.Thread(target=_watch, args=(world,), name="mesh-watch",
                              daemon=True).start()
     return world
+
+
+#: the module a local rank's process runs
+MODULE = "dllama_tpu_torch.parallel.multihost"
+#: local ranks started ahead of a launch (keep_warm): each has imported
+#: torch and this package and waits on its stdin for its rank's payload
+_SPARES: list[subprocess.Popen] = []
+_WARM = [0]
+
+
+def keep_warm(n: int) -> None:
+    """Keep `n` local ranks started ahead of the next :func:`launch`, which
+    hands its ranks to them before it starts any of its own and then
+    starts `n` more. A rank's process spends seconds importing torch; a
+    caller that launches worlds one after another (a test harness) hides
+    that behind its own work. ``keep_warm(0)`` ends the spares; so does
+    this process's exit (each reads EOF)."""
+    _WARM[0] = n
+    _top_up()
+
+
+def _rank_env() -> dict:
+    """A local rank's environment: this one, with the package's root first
+    on PYTHONPATH."""
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    return env
+
+
+def _start_rank(payload: str) -> subprocess.Popen:
+    """A local rank's process for `payload`: a spare started in this same
+    environment where there is one, else a new process."""
+    env = _rank_env()
+    while _SPARES:
+        p = _SPARES.pop(0)
+        if p.poll() is None and p.rank_env == env:
+            try:
+                p.stdin.write(payload.encode() + b"\n")
+                p.stdin.close()
+                return p
+            except OSError:
+                pass
+        _end_spare(p)
+    return subprocess.Popen([sys.executable, "-m", MODULE, payload],
+                            stdin=subprocess.DEVNULL, stdout=sys.stderr.fileno(), env=env)
+
+
+def _end_spare(p: subprocess.Popen) -> None:
+    try:
+        p.stdin.close()  # EOF: the spare exits
+        p.wait(timeout=30)
+    except (OSError, subprocess.TimeoutExpired):
+        p.kill()
+        p.wait()
+
+
+def _top_up() -> None:
+    """Start or end spares until keep_warm's count of them waits."""
+    _SPARES[:] = [p for p in _SPARES if p.poll() is None]
+    while len(_SPARES) > _WARM[0]:
+        _end_spare(_SPARES.pop())
+    while len(_SPARES) < _WARM[0]:
+        env = _rank_env()
+        p = subprocess.Popen([sys.executable, "-m", MODULE, "-"], stdin=subprocess.PIPE,
+                             stdout=sys.stderr.fileno(), env=env)
+        p.rank_env = env
+        _SPARES.append(p)
+
+
+@atexit.register
+def _end_spares() -> None:
+    keep_warm(0)
 
 
 def _watch(world: World, every_s: float = 0.2) -> None:
@@ -623,11 +692,11 @@ def _watch(world: World, every_s: float = 0.2) -> None:
 
 
 #: the axes whose process groups every rank makes, in this order
-GROUP_AXES = ("dp", "sp", "tp")
+GROUP_AXES = ("dp", "sp", "tp", "pp", "ep")
 
 
 def make_groups(config: MeshConfig, rank: int) -> dict:
-    """This rank's process group on each ported axis: the default group
+    """This rank's process group on each axis: the default group
     where the axis spans the world (a world of one rank included, whose tp
     exchange then runs over itself), None on another axis of one. Every
     rank calls ``dist.new_group`` for every group of every axis, in one
@@ -727,4 +796,11 @@ if __name__ == "__main__":
     # pickles name this module's classes (_Ref)
     from dllama_tpu_torch.parallel import multihost
 
-    raise SystemExit(multihost._rank_main(sys.argv[1]))
+    payload = sys.argv[1]
+    if payload == "-":  # a spare (keep_warm): torch is imported; wait for a rank
+        import dllama_tpu_torch.engine.loader  # noqa: F401  (the usual build)
+
+        payload = sys.stdin.readline().strip()
+        if not payload:  # let go unused
+            raise SystemExit(0)
+    raise SystemExit(multihost._rank_main(payload))

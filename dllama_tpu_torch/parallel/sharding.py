@@ -1,5 +1,5 @@
-"""Sharding rules: the reference's TP decomposition, and the dp and sp axes,
-per rank.
+"""Sharding rules: the reference's TP decomposition, and the dp, sp, pp and
+ep axes, per rank.
 
 Maps one-to-one onto the reference's slicers (nn-core.cpp:170-238), as the
 JAX package's ``parallel/sharding.py`` does with PartitionSpecs:
@@ -15,11 +15,20 @@ block of every leaf: rank r of tp takes the r-th of tp equal blocks of each
 The wo and w2 partial sums are all-reduced by the layer
 (``models/llama.py``), the vocab-sharded logits all-gathered.
 
+On pp every layer leaf's leading axis is 'pp' (stage s holds the layers
+[s L/pp, (s+1) L/pp), parallel/pipeline), the embedding, final norm and
+wcls keep their tp specs and are replicated over pp, as JAX's
+``pp_param_specs`` places them. On ep an MoE model's expert stacks
+[L, E, in, out] split their expert axis (rank e the experts
+[e E/ep, (e+1) E/ep)); everything else, the router included, is
+replicated over ep.
+
 Weights are replicated over dp and sp. The KV cache [L, B, Hkv, S, d] is
-JAX's ``P(None, dp?, "tp", "sp", None)`` (cache_spec): a dp replica holds
-its block of the batch (:meth:`LlamaShardings.batch_block`: replica d the
-slots [d B/dp, (d+1) B/dp) when dp divides B, every slot otherwise), an
-sp rank its block of the rows (:meth:`LlamaShardings.seq_block`).
+JAX's ``P(pp?, dp?, "tp", "sp", None)`` (cache_spec): a stage holds its
+layers, a dp replica its block of the batch
+(:meth:`LlamaShardings.batch_block`: replica d the slots
+[d B/dp, (d+1) B/dp) when dp divides B, every slot otherwise), an sp rank
+its block of the rows (:meth:`LlamaShardings.seq_block`).
 """
 
 from __future__ import annotations
@@ -47,7 +56,7 @@ LAYER_SPECS = {
     "rms_att": (None, None),
     "rms_ffn": (None, None),
     # MoE: leaves are [L, E, in, out]; per-expert in/out dims keep the tp
-    # pattern (the expert axis is 'ep', not ported); the gate is replicated
+    # pattern, the expert axis is 'ep'; the gate is replicated
     "moe_gate": (None, None, None),
     "moe_w1": (None, "ep", None, "tp"),
     "moe_w3": (None, "ep", None, "tp"),
@@ -57,14 +66,21 @@ LAYER_SPECS = {
 
 @dataclasses.dataclass
 class LocalLlamaConfig(LlamaConfig):
-    """The config as one tp rank sees it: its heads, kv heads and FFN
-    width (``hidden_dim``; the full width where the FFN is replicated),
-    with ``dim`` the model's residual width. ``head_size`` and ``kv_dim``
-    follow the rank's heads. ``seq_len`` stays the model's on sp
-    (positions and RoPE rows are global); the rows and slots a rank's
-    cache holds are :meth:`LlamaShardings.seq_block` and ``batch_block``."""
+    """The config as one rank sees it: its heads, kv heads and FFN width
+    (``hidden_dim``; the full width where the FFN is replicated), with
+    ``dim`` the model's residual width. ``head_size`` and ``kv_dim``
+    follow the rank's heads. On pp ``n_layers`` is the stage's layer count
+    (:meth:`LlamaShardings.layer_range` its global indices). On ep the rank
+    holds ``n_experts // ep`` experts from ``expert_offset``;
+    ``n_experts`` and ``n_active_experts`` stay the model's, as the
+    router's top-k runs over every expert. ``seq_len`` stays the model's
+    on sp (positions and RoPE rows are global); the rows and slots a
+    rank's cache holds are :meth:`LlamaShardings.seq_block` and
+    ``batch_block``."""
 
     tp: int = 1
+    ep: int = 1
+    expert_offset: int = 0
 
     @property
     def head_size(self) -> int:
@@ -90,15 +106,20 @@ class LlamaShardings:
     @staticmethod
     def check(config, cfg: LlamaConfig) -> None:
         """Raise for a mesh this package cannot run `cfg` on (before any
-        rank is spawned): an axis not ported, or a kv-head count tp does
-        not divide."""
-        config.check_ported()
+        rank is spawned), with the JAX package's messages: a kv-head count
+        tp does not divide, a context sp does not divide, a layer count pp
+        does not divide, pp with sp."""
         if cfg.n_kv_heads % config.tp != 0:
             # the reference's hard requirement nNodes <= nKvHeads (app.cpp:201-203);
             # ours is divisibility of the kv-head axis.
             raise ValueError(f"n_kv_heads={cfg.n_kv_heads} not divisible by tp={config.tp}")
         if cfg.seq_len % max(config.sp, 1) != 0:
             raise ValueError(f"seq_len={cfg.seq_len} not divisible by sp={config.sp}")
+        if config.pp > 1:
+            if cfg.n_layers % config.pp != 0:
+                raise ValueError(f"n_layers={cfg.n_layers} not divisible by pp={config.pp}")
+            if config.sp > 1:
+                raise ValueError("pp x sp composition is not supported; use pp with tp/dp")
 
     @property
     def tp(self) -> int:
@@ -111,6 +132,14 @@ class LlamaShardings:
     @property
     def dp(self) -> int:
         return self.mesh.shape["dp"]
+
+    @property
+    def pp(self) -> int:
+        return self.mesh.shape["pp"]
+
+    @property
+    def ep(self) -> int:
+        return self.mesh.shape["ep"]
 
     def _batch_axis(self, batch: int) -> str | None:
         """The batch shards over dp only when divisible (a single sequence
@@ -183,8 +212,16 @@ class LlamaShardings:
             spec = self._sanitize(spec, _shape(leaf))
         return spec
 
+    def layer_range(self) -> range:
+        """The global indices of the layers this rank's stage holds."""
+        n = self.cfg.n_layers // self.pp
+        return range(self.mesh.coords["pp"] * n, (self.mesh.coords["pp"] + 1) * n)
+
     def param_spec(self, name: str, leaf):
-        """Spec for a named param leaf ('embedding', 'wcls', 'layers.<short>')."""
+        """Spec for a named param leaf ('embedding', 'wcls', 'layers.<short>').
+        A layer leaf's leading axis is on 'pp'; the shard-direct load's
+        one-layer leaves (models/formats.load_params ``layer_range``) keep it
+        whole, as _sanitize replicates an axis pp does not divide."""
         if name == "embedding":
             spec = (None, None)  # replicated; vocab shard lives on wcls
         elif name == "final_norm":
@@ -193,6 +230,9 @@ class LlamaShardings:
             spec = (None, "tp")
         else:
             spec = LAYER_SPECS[name.split(".")[-1]]
+            if self.pp > 1:
+                # stage-split: the stacked layer axis shards over 'pp'
+                spec = ("pp", *spec[1:])
         return self._expand(spec, leaf)
 
     def param_spec_tree(self, params) -> dict:
@@ -230,12 +270,29 @@ class LlamaShardings:
         return out.clone() if out.untyped_storage().data_ptr() == \
             x.untyped_storage().data_ptr() else out
 
+    @property
+    def splits_weights(self) -> bool:
+        """Whether a rank holds less than the whole tree: tp splits the
+        matmuls, pp the layers, ep an MoE model's experts (dp and sp
+        replicate every weight)."""
+        return self.tp > 1 or self.pp > 1 or self.splits_experts
+
+    @property
+    def splits_experts(self) -> bool:
+        """ep splits an MoE model's expert stacks where it divides them;
+        otherwise _sanitize replicates them and every rank runs them all."""
+        return self.ep > 1 and self.cfg.n_experts > 0 and self.cfg.n_experts % self.ep == 0
+
     def is_full(self, params: dict) -> bool:
         """True when `params` is the model's full tree, False when it is
-        already one rank's (a shard-direct load's): wq's output dim tells,
-        as every mesh splits it."""
-        wq = params["layers"]["wq"]
-        return tuple(wq.shape)[-1] == self.cfg.dim
+        already one rank's (a shard-direct load's): wq's layer count and
+        output dim, and an MoE model's expert count, tell."""
+        layers = params["layers"]
+        wq = tuple(layers["wq"].shape)
+        full = wq[0] == self.cfg.n_layers and wq[-1] == self.cfg.dim
+        if "moe_w1" in layers:
+            full = full and tuple(layers["moe_w1"].shape)[1] == self.cfg.n_experts
+        return full
 
     def put(self, name: str, leaf, device, dtype=None):
         """This rank's shard of one full param leaf (a dense tensor or
@@ -258,14 +315,14 @@ class LlamaShardings:
 
     def put_params(self, params: dict, device) -> dict:
         """This rank's tree on `device`: a full tree sliced leaf by leaf, an
-        already local one moved as it is. Without tp every leaf is whole on
-        every rank, so a tree of tensors moves as it is (no copy on its own
-        device)."""
+        already local one moved as it is. Where no axis splits a weight
+        (:attr:`splits_weights`) every leaf is whole on every rank, so a
+        tree of tensors moves as it is (no copy on its own device)."""
         full = self.is_full(params)
 
         def one(name, leaf):
             mine = isinstance(leaf, (torch.Tensor, QTensor, Q8Tensor)) and \
-                (self.tp == 1 or not full)
+                (not self.splits_weights or not full)
             if not mine:
                 return self.put(name, leaf, device)
             if isinstance(leaf, QTensor):
@@ -297,13 +354,18 @@ class LlamaShardings:
         return self.tp > 1 and self.cfg.vocab_size % self.tp == 0
 
     def local_config(self) -> LocalLlamaConfig:
-        """The config one rank's forward runs: heads and kv heads / tp, and
-        the FFN width this rank holds."""
-        cfg, tp = self.cfg, self.tp
+        """The config one rank's forward runs: heads and kv heads / tp, the
+        FFN width this rank holds, its stage's layers (pp) and its experts
+        (ep, where ep divides them; otherwise _sanitize replicates the
+        stacks)."""
+        cfg, tp, pp = self.cfg, self.tp, self.pp
         fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
         if isinstance(cfg, LocalLlamaConfig):
             raise ValueError("the shardings take the model's config, not a rank's")
+        coords = self.mesh.coords
+        ep = self.ep if self.splits_experts else 1
         fields.update(n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp,
                       hidden_dim=cfg.hidden_dim // tp if self.ffn_sharded else cfg.hidden_dim,
-                      tp=tp)
+                      n_layers=cfg.n_layers // pp, tp=tp, ep=ep,
+                      expert_offset=coords["ep"] * (cfg.n_experts // ep) if ep > 1 else 0)
         return LocalLlamaConfig(**fields)

@@ -45,9 +45,9 @@ def test_frontend_defaults_to_aio_like_the_jax_cli():
 
 def test_transfer_guard_is_refused(capsys):
     """--transfer-guard is ported now: every mode passes the refusal and
-    stops only at the missing tokenizer (exit 1); a mesh axis not ported
-    (pp, ep) is still refused (exit 2); a bad --faults spec stops startup
-    (exit 2)."""
+    stops only at the missing tokenizer (exit 1); a warm restart on a mesh
+    is still refused (exit 2); a bad --faults spec stops startup (exit
+    2)."""
     from dllama_tpu_torch.cli.main import main
     from dllama_tpu_torch.utils import faults
 
@@ -55,8 +55,10 @@ def test_transfer_guard_is_refused(capsys):
         assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", "--slots", "2",
                      "--transfer-guard", mode]) == 1
         assert "not yet ported" not in capsys.readouterr().err
-    assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", "--mesh", "pp=2"]) == 2
-    assert "the mesh axis pp (pp=2) is not yet ported" in capsys.readouterr().err
+    assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", "--mesh", "tp=2",
+                 "--slots", "2", "--restart-max", "1"]) == 2
+    assert "--restart-max (warm restart) on a mesh is not yet ported" in \
+        capsys.readouterr().err
     try:
         assert main(["serve", "--model", FIXTURE_M, "--device", "cpu",
                      "--faults", "nope.where:raise"]) == 2

@@ -604,3 +604,28 @@ class TestProcessModel:
         assert world.link.closed
         with pytest.raises(RuntimeError, match="command channel is closed"):
             world.engine.prefill(np.asarray([PROMPT]))
+
+
+def test_a_spare_rank_serves_the_next_launch(tmp_path):
+    """keep_warm(1): the next tp=2 world's follower is the spare started
+    ahead (that process, not a new one), its logits equal one device's
+    within TOL, a new spare waits after the launch, and keep_warm(0) ends
+    it; each spare exits 0."""
+    tree = params_from_numpy(jax_tree(KW)[1])
+    multihost.keep_warm(1)
+    try:
+        spare = multihost._SPARES[0]
+        world = multihost.launch_tree(LlamaConfig(**KW), tree, pmesh.MeshConfig(tp=2),
+                                      str(tmp_path), cache_dtype=torch.float32)
+        try:
+            assert world.children == [spare] and len(multihost._SPARES) == 1
+            assert multihost._SPARES[0] is not spare
+            one = InferenceEngine(LlamaConfig(**KW), tree, cache_dtype=torch.float32)
+            close_all(steps(world.engine), steps(one))
+        finally:
+            world.close()
+        assert spare.returncode == 0
+        left = multihost._SPARES[0]
+    finally:
+        multihost.keep_warm(0)
+    assert multihost._SPARES == [] and left.returncode == 0
