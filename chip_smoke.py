@@ -204,6 +204,24 @@ if every phase passed:
               sp=2 through a 2,000-token prefill, a chunk across the shard
               boundary (the ring) and 8 decode steps (the LSE merge); a
               dropped partial planted in the merge on the power model.
+24. mesh_pp_ep the pp and ep axes on the same file (pp=2, tp=2 x pp=2,
+              pp_micro=2; with moe, Mixtral at ep=2 and ep=2 x tp=2), every
+              rank on this card over gloo, and two faults planted in the
+              stage hop and the expert partials.
+25. mesh_supervision supervision on a mesh, the same file, every rank on this
+              card over gloo (a harness): (a) a tp=2 4-slot dense Scheduler
+              with restart_max=2: 4 greedy streams of 64 tokens, then again
+              with engine.decode:raise armed after 16 chunks (rank 0's plan,
+              fired on every rank): one warm restart, every stream whole,
+              ids equal to the first run's or apart at a near tie, the
+              ranks' digests equal, no capture after the restart, and the
+              crash-to-first-resumed-token ms; (b) decode.nan fails exactly
+              one of 4 streams; (c) 32 greedy tokens, save_session on tp=2
+              and on pp=2, load_session into the unsharded engine, 32 more,
+              against 64 on one device (equal or apart at a near tie), and
+              a session saved on one device loaded on pp=2 and continued
+              there; the seconds of each save and load; (d) each rank's
+              K1/K2/K7 launches.
 
 Every path runs its decode and prefill chunks as captured CUDA graphs (the
 engines' default on a card); a replay adds the launches its capture recorded to each
@@ -224,7 +242,8 @@ K1 at 9 rows and K7 at 9 query rows (the spec verify forward); and
 every kernel the kbench phase launches on kbench's own inputs (each variant
 of its suite rows and of `8 w1 B D`, the tile sweep, the flash rows), since
 the benchmark checks no result. `serve`, `batch`, `hybrid`, `radix`, `obs`, `supervision`, `f8`,
-`q80`, `kbench`, `styles`, `spec`, `spec_batch`, `golden`, `dequantize`, `mesh`, `mesh_dp_sp` and `moe` are the main paths: the launch counters are zeroed
+`q80`, `kbench`, `styles`, `spec`, `spec_batch`, `golden`, `dequantize`, `mesh`, `mesh_dp_sp`,
+`mesh_pp_ep`, `mesh_supervision` and `moe` are the main paths: the launch counters are zeroed
 just before each of their runs and read just after it. The `router` phase's kernels run in its
 replica processes, whose counters this process cannot read: its entry in `launches_by_path` is
 null. Not in the default: `profile` adds a torch.profiler pass
@@ -6390,6 +6409,239 @@ def mesh_pp_ep_plants(tmp: str, device) -> None:
 # ------------------------------------------------------------ main
 
 
+# -------------------------------------------------------- mesh supervision
+
+#: mesh_supervision: the greedy streams of (a) and (b), their tokens, the
+#: decode chunks before (a)'s crash, and the tokens before and after (c)'s
+#: session round trips
+SUPM_STREAMS = 4
+SUPM_TOKENS = 64
+SUPM_CRASH_AFTER = 16
+SUPM_SESSION_TOKENS = 32
+
+
+def _drain(req, timeout: float = 300.0) -> tuple[list[int], BaseException | None]:
+    """A Scheduler request's tokens and its error (None when it ended
+    cleanly), with a deadline."""
+    toks, deadline = [], time.monotonic() + timeout
+    while True:
+        item = req.out.get(timeout=max(0.01, deadline - time.monotonic()))
+        if isinstance(item, BaseException):
+            return toks, item
+        if isinstance(item, int):
+            toks.append(item)
+        else:
+            return toks, None
+
+
+def phase_mesh_supervision(loaded, mpath: str, tpath: str, device, prompt: str) -> dict:
+    """Supervision on a mesh (the mesh phases' model, every rank on this
+    card over gloo, staged, eager): (a) a tp=2 dense Scheduler of
+    SUPM_STREAMS slots with restart_max=2 serves SUPM_STREAMS greedy
+    streams of SUPM_TOKENS, then the same with engine.decode:raise armed
+    (faults.install on rank 0) after SUPM_CRASH_AFTER chunks: one warm
+    restart, each stream whole, its ids equal to the first run's or apart at
+    a near tie, the ranks' digests equal, no capture after the restart, the
+    crash-to-first-resumed-token ms and the rebuild's; (b) decode.nan fails
+    exactly one stream; (c) sessions: SUPM_SESSION_TOKENS greedy tokens,
+    save_session on tp=2 and on pp=2, load_session into the unsharded
+    engine, as many more, against twice as many on one device; and one
+    saved on one device, loaded on pp=2 and continued there; each save and
+    load timed; (d) every rank's K1/K2/K7 launches of the phase. Returns
+    rank 0's launches of (a)-(c)."""
+    import torch
+
+    from dllama_tpu_torch.engine.loader import load_model
+    from dllama_tpu_torch.engine.sampling import Sampler
+    from dllama_tpu_torch.obs import compile as compile_obs
+    from dllama_tpu_torch.serve.scheduler import Scheduler
+    from dllama_tpu_torch.utils import faults
+
+    eng, tok = loaded.engine, loaded.tokenizer
+    one_card = torch.cuda.device_count() < 2
+    devices = [device, device] if one_card else None
+    print(f"phase mesh_supervision: tp=2 and pp=2 over "
+          f"{'gloo on cuda:0, staged, eager' if one_card else 'NCCL, one card a rank'}",
+          flush=True)
+    prompts = [tok.encode(p) for p in batch_prompts(SUPM_STREAMS)]
+    ptoks = tok.encode(prompt, add_bos=True)
+    greedy = Sampler(0.0, 0.9, 0)
+    eng.reset(0)
+    ref64 = list(eng.generate(ptoks, 2 * SUPM_SESSION_TOKENS, greedy))
+    eng.reset(0)
+    launches: dict = {}
+    ranks_n: dict = {}
+
+    def add(rank0: dict, ranks: list, label: str) -> None:
+        for k, v in rank0.items():
+            launches[k] = launches.get(k, 0) + v
+        ranks_n[label] = [{k: r.get(k, 0) for k in SERVE_KERNELS} for r in ranks]
+
+    t0 = time.perf_counter()
+    m = load_model(mpath, tpath, max_seq_len=4096, mesh="tp=2", device=device,
+                   devices=devices)
+    print(f"mesh_supervision tp=2: load_model {time.perf_counter() - t0:.1f} s", flush=True)
+    world = m.world
+    times: dict = {}
+    try:
+        reset_counters()
+        world.call_all("rank_launches", True)
+        be = world.make("batch", n_slots=SUPM_STREAMS, cache_dtype=torch.bfloat16,
+                        max_seq_len=4096, kv_layout="dense")
+        sched = Scheduler(be, restart_max=2)
+        marks: dict = {}
+        restart, warm_restart, emit = sched._try_restart, be.warm_restart, sched._emit
+
+        def stamped_restart(exc):
+            marks.setdefault("crash", time.perf_counter())
+            return restart(exc)
+
+        def timed_rebuild():
+            t1 = time.perf_counter()
+            warm_restart()
+            marks["rebuild_ms"] = (time.perf_counter() - t1) * 1e3
+
+        def stamped_emit(req, token, row):
+            if "crash" in marks and "resumed" not in marks:
+                marks["resumed"] = time.perf_counter()
+            return emit(req, token, row)
+
+        sched._try_restart, be.warm_restart, sched._emit = (stamped_restart, timed_rebuild,
+                                                            stamped_emit)
+
+        def run(point=None, after=0):
+            if point is not None:
+                faults.install(point, "raise", after=after, times=1)
+            try:
+                reqs = [sched.submit(p, 0.0, 0.9, SUPM_TOKENS, frozenset(), seed=100 + i)
+                        for i, p in enumerate(prompts)]
+                return [_drain(r) for r in reqs]
+            finally:
+                faults.clear()
+
+        try:
+            t1 = time.perf_counter()
+            base = run()
+            times["base_s"] = time.perf_counter() - t1
+            captures0 = compile_obs.LEDGER.total_compiles()
+            crash = run("engine.decode", SUPM_CRASH_AFTER)
+            captures1 = compile_obs.LEDGER.total_compiles()
+            nan = run("decode.nan", 4)
+            health = sched.health()
+        finally:
+            sched.shutdown()
+        for label, res in (("baseline", base), ("across the restart", crash)):
+            for i, (ids, exc) in enumerate(res):
+                if exc is not None or len(ids) != SUPM_TOKENS:
+                    fail(f"mesh_supervision (a) stream {i} {label}: {len(ids)} of "
+                         f"{SUPM_TOKENS} tokens, error {exc!r}")
+        if sched.restart_count != 1 or "resumed" not in marks or not health["live"]:
+            fail(f"mesh_supervision (a): {sched.restart_count} restarts (want 1), marks "
+                 f"{marks}, health {health}")
+        if captures1 != captures0:
+            fail(f"mesh_supervision (a): the restart captured {captures1 - captures0} programs")
+        parted = [msg for i in range(SUPM_STREAMS)
+                  if (msg := near_tie(loaded, prompts[i], crash[i][0], base[i][0],
+                                      f"mesh_supervision (a) stream {i}")) is not None]
+        failed = [i for i, (_, exc) in enumerate(nan) if exc is not None]
+        if len(failed) != 1 or any(len(nan[i][0]) != SUPM_TOKENS for i in range(SUPM_STREAMS)
+                                   if i not in failed):
+            fail(f"mesh_supervision (b): decode.nan failed streams {failed} (want one)")
+        digests = world.call_all("rank_digest")
+        if len(set(digests)) != 1:
+            fail(f"mesh_supervision: the ranks' token results differ: {digests}")
+        crash_ms = (marks["resumed"] - marks["crash"]) * 1e3
+        print(f"mesh_supervision (a): {SUPM_STREAMS} greedy streams of {SUPM_TOKENS} tokens "
+              f"({times['base_s']:.1f} s uninterrupted); engine.decode raised on every rank "
+              f"after {SUPM_CRASH_AFTER} chunks: 1 warm restart, every stream whole, "
+              f"{SUPM_STREAMS - len(parted)} equal to the uninterrupted run, {len(parted)} "
+              f"apart at a near tie; crash to the first resumed token {crash_ms:.1f} ms (the "
+              f"rebuild on every rank {marks['rebuild_ms']:.1f} ms, the backoff "
+              f"{sched.restart_backoff_s * 1e3:.0f} ms); captures unchanged ({captures1}); "
+              f"digests equal ({digests[0][:12]})", flush=True)
+        print(f"mesh_supervision (b): decode.nan failed stream {failed[0]} alone "
+              f"({nan[failed[0]][1]!r:.60}); the other {SUPM_STREAMS - 1} whole", flush=True)
+        del be, sched
+        # (c) the single engine's session, tp=2 -> one device
+        meng = m.engine
+        meng.reset(0)
+        head = list(meng.generate(ptoks, SUPM_SESSION_TOKENS, greedy))
+        path = os.path.join(os.path.dirname(mpath), "session_tp2.npz")
+        t1 = time.perf_counter()
+        meng.save_session(path)
+        times["tp2_save_s"] = time.perf_counter() - t1
+        fps = world.call_all("rank_fingerprint")
+        meng.reset(0)
+        add(counters(), world.call_all("rank_launches", True), "tp=2")
+    finally:
+        _close_world(m)
+    if len(set(fps)) != 1 or fps[0] != eng.session_fingerprint():
+        fail(f"mesh_supervision (c): the tp=2 ranks' fingerprints {fps} are not one device's")
+    session_checks = []
+
+    def into_one(path: str, head: list, label: str) -> None:
+        t1 = time.perf_counter()
+        eng.load_session(path)
+        times[f"{label}_load_s"] = time.perf_counter() - t1
+        tail = eng.decode_greedy_n([[head[-1]]], SUPM_SESSION_TOKENS)[:, 0].tolist()
+        eng.reset(0)
+        os.remove(path)
+        msg = near_tie(loaded, ptoks, head + tail, ref64, f"mesh_supervision (c) {label}")
+        session_checks.append(f"{label} {'equal' if msg is None else 'near tie'}")
+
+    into_one(path, head, "tp2")
+    # (c) pp=2 -> one device, and one device -> pp=2
+    eng.reset(0)
+    head_one = list(eng.generate(ptoks, SUPM_SESSION_TOKENS, greedy))
+    one_path = os.path.join(os.path.dirname(mpath), "session_one.npz")
+    t1 = time.perf_counter()
+    eng.save_session(one_path)
+    times["one_save_s"] = time.perf_counter() - t1
+    eng.reset(0)
+    t0 = time.perf_counter()
+    m = load_model(mpath, tpath, max_seq_len=4096, mesh="pp=2", device=device,
+                   devices=devices)
+    print(f"mesh_supervision pp=2: load_model {time.perf_counter() - t0:.1f} s", flush=True)
+    world, meng = m.world, m.engine
+    try:
+        reset_counters()
+        world.call_all("rank_launches", True)
+        meng.reset(0)
+        head = list(meng.generate(ptoks, SUPM_SESSION_TOKENS, greedy))
+        path = os.path.join(os.path.dirname(mpath), "session_pp2.npz")
+        t1 = time.perf_counter()
+        meng.save_session(path)
+        times["pp2_save_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        meng.load_session(one_path)
+        times["pp2_load_s"] = time.perf_counter() - t1
+        tail = meng.decode_greedy_n([[head_one[-1]]], SUPM_SESSION_TOKENS)[:, 0].tolist()
+        msg = near_tie(loaded, ptoks, head_one + tail, ref64, "mesh_supervision (c) one->pp2")
+        session_checks.append(f"one->pp2 {'equal' if msg is None else 'near tie'}")
+        fps = world.call_all("rank_fingerprint")
+        if len(set(world.call_all("rank_digest"))) != 1:
+            fail("mesh_supervision (c): the pp ranks' token results differ")
+        meng.reset(0)
+        add(counters(), world.call_all("rank_launches", True), "pp=2")
+    finally:
+        _close_world(m)
+        del meng, world
+    os.remove(one_path)
+    if len(set(fps)) != 1 or fps[0] != eng.session_fingerprint():
+        fail(f"mesh_supervision (c): the pp=2 ranks' fingerprints {fps} are not one device's")
+    into_one(path, head, "pp2")
+    print(f"mesh_supervision (c): {SUPM_SESSION_TOKENS} + {SUPM_SESSION_TOKENS} greedy tokens "
+          f"across sessions against {2 * SUPM_SESSION_TOKENS} on one device: "
+          f"{', '.join(session_checks)}; seconds "
+          f"{ {k: round(v, 3) for k, v in times.items() if k != 'base_s'} }; every rank's "
+          "fingerprint one device's", flush=True)
+    print(f"mesh_supervision (d): K1/K2/K7 launches by rank {ranks_n}; rank 0 {launches}",
+          flush=True)
+    if any(r.get(k, 0) == 0 for rs in ranks_n.values() for r in rs for k in SERVE_KERNELS):
+        fail("mesh_supervision: a rank never launched one of K1/K2/K7")
+    return launches
+
+
 def _launch_tables():
     from dllama_tpu_torch.experiments import kbench
     from dllama_tpu_torch.ops import (
@@ -6423,7 +6675,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases",
                     default="card,kernels,golden,kbench,forward,serve,batch,hybrid,radix,obs,"
                             "supervision,router,inference,styles,spec,spec_batch,graphs,"
-                            "dequantize,mesh,mesh_dp_sp,mesh_pp_ep,f8,q80,moe",
+                            "dequantize,mesh,mesh_dp_sp,mesh_pp_ep,mesh_supervision,f8,q80,"
+                            "moe",
                     help="comma list; not in the default: 'profile' adds a "
                          "torch.profiler pass over one decode chunk, single-stream "
                          "and 8-slot; 'chunk' is the prefill-chunk timing alone (Q40 "
@@ -6488,7 +6741,8 @@ def main(argv=None) -> int:
               "a storm, and a ship that never arrives.")
     if phases & {"forward", "chunk", "serve", "profile", "batch", "hybrid", "radix", "obs",
                   "supervision", "router", "inference", "styles", "spec", "spec_batch",
-                  "graphs", "dequantize", "mesh", "mesh_dp_sp", "mesh_pp_ep", "f8"}:
+                  "graphs", "dequantize", "mesh", "mesh_dp_sp", "mesh_pp_ep",
+                  "mesh_supervision", "f8"}:
         from dllama_tpu_torch.engine.loader import load_model
 
         tmp = tempfile.TemporaryDirectory(prefix="dllama_smoke_")
@@ -6636,14 +6890,15 @@ def main(argv=None) -> int:
         if "dequantize" in phases:
             paths["dequantize"] = phase_dequantize(loaded, device, mpath, tpath, prompt)
         phase_done("dequantize", phases)
-        if phases & {"mesh", "mesh_dp_sp", "mesh_pp_ep"}:
+        if phases & {"mesh", "mesh_dp_sp", "mesh_pp_ep", "mesh_supervision"}:
             # the mesh worlds (here and at the end of moe) come one after
             # another: each finds its followers' processes started ahead,
             # torch imported (seconds a process on the card's host)
             multihost.keep_warm(3)
             mloaded, mesh_path = mesh_model(tmp.name, tpath, device)
             for name, fn in (("mesh", phase_mesh), ("mesh_dp_sp", phase_mesh_dp_sp),
-                             ("mesh_pp_ep", phase_mesh_pp_ep)):
+                             ("mesh_pp_ep", phase_mesh_pp_ep),
+                             ("mesh_supervision", phase_mesh_supervision)):
                 if name in phases:
                     paths[name] = fn(mloaded, mesh_path, tpath, device, prompt)
                 phase_done(name, phases)

@@ -19,9 +19,8 @@ inference, chat and `serve --slots 0`) and expert parallelism, one process
 a rank with rank 0 driving (parallel/multihost.py), over NCCL on cards and
 gloo on the CPU; `--sync` picks the tp exchange's payload, and
 `--distributed --coordinator HOST:PORT --num-processes P --process-id I`
-joins processes across hosts. `--faults`, `$DLLAMA_FAULTS` or
-`--restart-max` on the mesh that runs exit 2 by name. Options of the JAX package that this package has
-not ported yet are accepted by name and refused with a clear message (exit 2).
+joins processes across hosts; rank 0 watches every rank's heartbeat, as
+JAX's coordination service does. A mesh larger than the cards exits 2.
 `serve --slots N` runs the JAX package's defaults: paged KV where the paged
 kernel takes the model, the radix prefix tree on it (`--radix-cache auto`),
 preemption with priority classes and tenant fair queueing (`--preempt auto`,
@@ -42,7 +41,9 @@ and per-token latency after `inference`) are the JAX package's. Supervision is
 too: `--stall-deadline-s` (the watchdog), `--restart-max`/`--restart-window-s`
 (warm restarts), `--transfer-guard` (the steady-state replays under
 `torch.cuda.set_sync_debug_mode`) and `--faults` / `$DLLAMA_FAULTS` (fault
-injection, utils/faults.py). `router --replica HOST:PORT ...` needs no
+injection, utils/faults.py), on one device and on every mesh: on a mesh the
+plan is rank 0's, sent to every rank, and a warm restart refills each
+rank's shard. `router --replica HOST:PORT ...` needs no
 `--model`: replicas own their weights. A Mixtral-style MoE `.m` runs on every
 mode: `--moe` picks its expert scheme (ops.layers.moe_ffn), on both tiers.
 `--dequantize` loads the Q40/Q80 matmul weights as dense bf16.
@@ -52,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import math
+import os
 import sys
 import time
 
@@ -59,10 +61,6 @@ import numpy as np
 import torch
 
 CACHE_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32, "f8": torch.float8_e4m3fn}
-
-
-class NotPorted(Exception):
-    """An option the PyTorch/CUDA package does not support yet."""
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -164,7 +162,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="arm deterministic fault injection (drills): comma-separated "
                         "point:action[:k=v...] clauses, e.g. 'engine.decode:raise:after=2' "
                         "(points and options: dllama_tpu_torch/utils/faults.py; also "
-                        "$DLLAMA_FAULTS)")
+                        "$DLLAMA_FAULTS); on a mesh the plan is rank 0's and reaches "
+                        "every rank")
     p.add_argument("--overlap", choices=["on", "off"], default="on",
                    help="batched tier: launch decode chunk N+1 before consuming chunk N")
     p.add_argument("--prefill-budget", default="auto", metavar="{auto,N,0}",
@@ -289,21 +288,6 @@ def _resolve_mesh(args):
     except (OSError, ValueError):
         return None
     return resolve_mesh(args.mesh, cfg, args.device)
-
-
-def _refuse_unported(args) -> None:
-    """What this package does not carry on the mesh that really runs: fault
-    injection (--faults or $DLLAMA_FAULTS) and warm restarts (a follower's
-    recovery needs a design of its own)."""
-    from dllama_tpu_torch.utils import faults
-
-    mesh = _resolve_mesh(args)
-    if mesh is None:
-        return
-    if any(faults.active(p) for p in faults.POINTS):
-        raise NotPorted(f"{'--faults' if args.faults else '$' + faults.ENV_VAR} on a mesh")
-    if args.restart_max:
-        raise NotPorted("--restart-max (warm restart) on a mesh")
 
 
 def _parse_tenant_weights(specs) -> dict[str, float] | None:
@@ -558,11 +542,17 @@ def main(argv=None) -> int:
     from dllama_tpu_torch.utils import faults
 
     # $DLLAMA_FAULTS first, --faults wins when both are set; a bad spec
-    # stops startup here rather than never firing
+    # stops startup here rather than never firing. A process of a
+    # --distributed world other than process 0 checks the spec and arms
+    # nothing: its ranks follow rank 0's plan
     try:
-        faults.configure_from_env()
-        if args.faults:
-            faults.configure(args.faults)
+        if args.distributed and args.process_id:
+            for spec in (os.environ.get(faults.ENV_VAR), args.faults):
+                faults.parse(spec or "")
+        else:
+            faults.configure_from_env()
+            if args.faults:
+                faults.configure(args.faults)
     except ValueError as e:
         print(f"fault spec: {e}", file=sys.stderr)
         return 2
@@ -579,10 +569,7 @@ def main(argv=None) -> int:
             from dllama_tpu_torch.parallel.multihost import initialize
 
             initialize(args.coordinator, args.num_processes, args.process_id)
-        _refuse_unported(args)
-    except NotPorted as e:
-        print(f"{e} is not yet ported to the PyTorch/CUDA package", file=sys.stderr)
-        return 2
+        _resolve_mesh(args)  # a mesh larger than the cards stops before a rank starts
     except MeshTooLarge as e:
         print(f"--mesh {args.mesh}: {e}", file=sys.stderr)
         return 2

@@ -78,7 +78,7 @@ from dllama_tpu_torch.obs import instruments as ins
 from dllama_tpu_torch.obs import trace
 from dllama_tpu_torch.ops.layers import build_rope_cache
 from dllama_tpu_torch.parallel.collectives import resolve_sync
-from dllama_tpu_torch.parallel.multihost import mirrored, refuse_on_mesh
+from dllama_tpu_torch.parallel.multihost import mirrored
 from dllama_tpu_torch.utils import faults
 
 log = logging.getLogger("dllama_tpu_torch.engine")
@@ -2044,6 +2044,7 @@ class BatchEngine:
             out["history"] = self.history
         return out
 
+    @mirrored(agree=True)
     @torch.no_grad()
     def warm_restart(self) -> None:
         """Crash recovery without a model reload (the JAX package's
@@ -2057,8 +2058,14 @@ class BatchEngine:
         recaptures nothing. The host tier keeps its pinned slab and drops
         its index. On a card whose context a sticky error killed, the first
         device write here raises, and the scheduler counts that against its
-        restart budget. Not on a mesh (parallel.mesh.NotPorted)."""
-        refuse_on_mesh(self, "warm_restart")
+        restart budget.
+
+        On a mesh every rank makes the call and refills its own shard (its
+        kv heads, its block of slots) and its device state in place; no
+        communicator is made again. The ranks first agree that the world is
+        in step (every last outcome rank 0's, the channel open): a world
+        that a failure inside an exchange broke is not restarted, and the
+        call raises (parallel/multihost.Link.agree)."""
         self.cache.k.zero_()
         self.cache.v.zero_()
         if self.pool is not None:

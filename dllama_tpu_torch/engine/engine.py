@@ -14,6 +14,8 @@ instead, for comparison.
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import time
 from dataclasses import dataclass
 from typing import Callable, Iterator
@@ -29,8 +31,9 @@ from dllama_tpu_torch.engine.speculative import cycles_per_replay, spec_cycle
 from dllama_tpu_torch.models.config import LlamaConfig
 from dllama_tpu_torch.models.llama import KVCache, forward, fuse_layer_weights
 from dllama_tpu_torch.ops.layers import build_rope_cache
-from dllama_tpu_torch.parallel.collectives import TPExchange, resolve_sync
-from dllama_tpu_torch.parallel.multihost import mirrored, refuse_on_mesh
+from dllama_tpu_torch.parallel.collectives import (TPExchange, host_gather, host_scatter,
+                                                   resolve_sync)
+from dllama_tpu_torch.parallel.multihost import mirrored
 from dllama_tpu_torch.parallel.pipeline import make_pp_forward
 from dllama_tpu_torch.parallel.ring_attention import make_sp_attention
 
@@ -283,74 +286,98 @@ class InferenceEngine:
 
     # -------------------------------------------------------------- sessions
 
-    def _session_fingerprint(self) -> str:
-        c = self.cfg
+    def session_fingerprint(self) -> str:
+        """The geometry, cache dtype and weights a session file is bound to:
+        the unsharded engine's on every rank of every mesh (the model's
+        config, the unsharded tree's digest), so a session crosses between
+        any mesh and one device."""
+        c = self.cfg if self.shardings is None else self.shardings.cfg
         dtype = str(self.cache.k.dtype).removeprefix("torch.")
         return (f"{c.dim}:{c.n_layers}:{c.n_kv_heads}:{c.head_size}:"
                 f"{self.seq_len}:{self.batch}:{dtype}:{self._params_digest()}")
 
     def _params_digest(self) -> str:
-        """Cheap weight-identity hash over this package's own leaves, so a
-        session saved against one checkpoint refuses to resume on another of
-        the same geometry: every leaf's shape and dtype, plus the first four
-        values of up to 8 leaves (a handful of scalars, not a weights hash).
-        The JAX package hashes its own leaves the same way; the two digests
-        differ, as the two packages' sessions are their own."""
+        """params_digest of this engine's tree: on a mesh the unsharded
+        tree's, which the world computed when it built its engines."""
+        if self.shardings is not None and self.shardings.params_digest is not None:
+            return self.shardings.params_digest
         if not hasattr(self, "_digest"):
-            import dataclasses
-            import hashlib
-
-            def leaves(tree):
-                if isinstance(tree, torch.Tensor):
-                    yield tree
-                elif isinstance(tree, dict):
-                    for k in sorted(tree):
-                        yield from leaves(tree[k])
-                elif isinstance(tree, (list, tuple)):
-                    for v in tree:
-                        yield from leaves(v)
-                elif dataclasses.is_dataclass(tree):
-                    for f in dataclasses.fields(tree):
-                        yield from leaves(getattr(tree, f.name))
-
-            h = hashlib.sha1()
-            flat = list(leaves(self.params))
-            for leaf in flat:
-                h.update(f"{tuple(leaf.shape)}{leaf.dtype}".encode())
-            for leaf in flat[:: max(1, len(flat) // 8)]:
-                sample = leaf.reshape(-1)[:4].to("cpu")
-                h.update(sample.view(torch.uint8).numpy().tobytes())
-            self._digest = h.hexdigest()[:16]
+            self._digest = params_digest(self.params, self.shardings)
         return self._digest
 
     def save_session(self, path: str) -> None:
         """Persist the KV cache and the position (npz): the cache's bytes as
         uint8 with the dtype's name (an f8 cache round-trips byte for byte),
-        ``pos`` and this engine's fingerprint. Not on a mesh."""
-        refuse_on_mesh(self, "save_session")
-        k = self.cache.k.detach().to("cpu").contiguous()
-        v = self.cache.v.detach().to("cpu").contiguous()
-        np.savez_compressed(path, fingerprint=self._session_fingerprint(),
-                            cache_dtype=str(k.dtype).removeprefix("torch."), pos=self.pos,
-                            k=k.view(torch.uint8).numpy(), v=v.view(torch.uint8).numpy())
+        ``pos`` and this engine's fingerprint. On a mesh every rank's block
+        is gathered to rank 0 (session_cache), which writes the file the
+        same model would write on one device; the file is on rank 0's host."""
+        k, v = self.session_cache()
+        np.savez_compressed(path, fingerprint=self.session_fingerprint(),
+                            cache_dtype=str(self.cache.k.dtype).removeprefix("torch."),
+                            pos=self.pos, k=k.numpy(), v=v.numpy())
 
+    @mirrored
     @torch.no_grad()
+    def session_cache(self) -> tuple[torch.Tensor, torch.Tensor] | None:
+        """The unsharded KV cache's bytes (k, v as uint8 on the host): on a
+        mesh each rank's block (parallel/sharding.cache_block, an sp rank's
+        trash row left out) gathered to rank 0; None on the other ranks."""
+        k, v = (t.detach().to("cpu").contiguous().view(torch.uint8)
+                for t in (self.cache.k, self.cache.v))
+        if self.shardings is None:
+            return k, v
+        sh = self.shardings
+        rows = sh.seq_block(self.seq_len)[1]
+        blocks = host_gather(sh.mesh, (sh.cache_block(self.batch, self.seq_len),
+                                       k[:, :, :, :rows].clone(), v[:, :, :, :rows].clone()))
+        if blocks is None:
+            return None
+        c = sh.cfg
+        shape = (c.n_layers, self.batch, c.n_kv_heads, self.seq_len, k.shape[-1])
+        full_k, full_v = torch.empty(shape, dtype=torch.uint8), torch.empty(shape,
+                                                                            dtype=torch.uint8)
+        for block, bk, bv in blocks:
+            full_k[block], full_v[block] = bk, bv
+        return full_k, full_v
+
     def load_session(self, path: str) -> None:
         """Restore a saved session INTO the existing cache tensors (``copy_``):
         the captured prefill, decode and spec programs hold their addresses,
         so the cache is never replaced. Raises ValueError when the file's
-        fingerprint (geometry, dtype, weights) is not this engine's. Not on
-        a mesh."""
-        refuse_on_mesh(self, "load_session")
+        fingerprint (geometry, dtype, weights) is not this engine's. On a
+        mesh rank 0 reads the file (session_restore): every rank checks the
+        fingerprint before any exchange, then takes its block."""
         with np.load(path) as data:
             fp = str(data["fingerprint"])
-            if fp != self._session_fingerprint():
-                raise ValueError(f"session file does not match this engine: {fp!r} != "
-                                 f"{self._session_fingerprint()!r}")
-            for dst, name in ((self.cache.k, "k"), (self.cache.v, "v")):
-                raw = torch.from_numpy(np.ascontiguousarray(data[name]))
-                dst.copy_(raw.view(dst.dtype).reshape(dst.shape))
-            self.pos = int(data["pos"])
+        self.session_restore(path, fp)
+
+    @mirrored
+    @torch.no_grad()
+    def session_restore(self, path: str, fingerprint: str) -> None:
+        """load_session's body on every rank: the fingerprint check (a
+        settled ValueError on every rank), then rank 0 reads the file and
+        each rank copies its block (parallel/sharding.cache_block) and the
+        position into place."""
+        if fingerprint != self.session_fingerprint():
+            raise ValueError(f"session file does not match this engine: {fingerprint!r} != "
+                             f"{self.session_fingerprint()!r}")
+        sh = self.shardings
+        if sh is None or sh.mesh.rank == 0:
+            with np.load(path) as data:
+                k, v = (torch.from_numpy(np.ascontiguousarray(data[n])) for n in ("k", "v"))
+                pos = int(data["pos"])
+        if sh is None:
+            blocks = (k, v, pos)
+        else:
+            blocks = host_scatter(sh.mesh, [
+                (k[b].clone(), v[b].clone(), pos)
+                for b in (sh.cache_block(self.batch, self.seq_len, r)
+                          for r in range(sh.mesh.size))] if sh.mesh.rank == 0 else None)
+        bk, bv, pos = blocks
+        for dst, raw in ((self.cache.k, bk), (self.cache.v, bv)):
+            raw = raw.view(dst.dtype)  # an sp rank's trash row stays as it is
+            dst[:, :, :, : raw.shape[3]].copy_(raw)
+        self.pos = pos
         self._dev_pos = None  # the device position is reloaded before the next program
         self._spec_h = None  # the spec history no longer describes the cache
 
@@ -670,6 +697,62 @@ class InferenceEngine:
                     if stopped:
                         return
                     break
+
+
+def _named_leaves(tree, name: str = ""):
+    """(name, tensor) of every leaf, dict keys sorted and a dataclass's
+    fields in order (a QTensor's packed bytes, then its scales), each named
+    as parallel/sharding names its leaf ('embedding', 'layers.wq')."""
+    if isinstance(tree, torch.Tensor):
+        yield name, tree
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], f"{name}.{k}" if name else k)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _named_leaves(v, name)
+    elif dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            yield from _named_leaves(getattr(tree, f.name), name)
+
+
+def params_digest(params: dict, shardings=None, gather=None) -> str:
+    """Cheap weight-identity hash of a parameter tree, so a session saved
+    against one checkpoint refuses to resume on another of the same
+    geometry: every leaf's shape and dtype, plus the first four values of
+    up to 8 leaves (a handful of scalars, not a weights hash). The JAX
+    package hashes its own leaves the same way; the two digests differ, as
+    the two packages' sessions are their own.
+
+    On a mesh (``shardings``: one rank's tree) the digest is the unsharded
+    tree's: each leaf's shape there (LlamaShardings.leaf_block), and each
+    sampled value from the rank that holds it, every rank's share pooled by
+    ``gather`` (a rank's list -> every rank's lists, as
+    collectives.host_all_gather; None: this rank's share alone)."""
+    flat = list(_named_leaves(params))
+    blocks = [((tuple(leaf.shape), (0,) * leaf.dim()) if shardings is None
+               else shardings.leaf_block(name, leaf.shape)) for name, leaf in flat]
+    h = hashlib.sha1()
+    for (full, _), (_, leaf) in zip(blocks, flat):
+        h.update(f"{full}{leaf.dtype}".encode())
+    picked = list(range(len(flat)))[:: max(1, len(flat) // 8)]
+    mine = []  # (leaf, flat index in the unsharded leaf, the value's bytes) held here
+    for i in picked:
+        leaf, (full, start) = flat[i][1], blocks[i]
+        for j in range(min(4, int(np.prod(full)))):
+            at = np.unravel_index(j, full)
+            local = tuple(int(a) - s for a, s in zip(at, start))
+            if all(0 <= a < n for a, n in zip(local, leaf.shape)):
+                mine.append((i, j, leaf[local].reshape(1).to("cpu").view(torch.uint8)
+                             .numpy().tobytes()))
+    held = {}
+    for share in (gather(mine) if gather is not None else [mine]):
+        for i, j, b in share:
+            held[i, j] = b
+    for i in picked:
+        h.update(b"".join(held.get((i, j), b"")
+                          for j in range(min(4, int(np.prod(blocks[i][0]))))))
+    return h.hexdigest()[:16]
 
 
 def check_pipeline(config, sync: str, batch: int, pp_micro: int) -> None:

@@ -92,11 +92,13 @@ def build_shardings(cfg: LlamaConfig, mesh) -> LlamaShardings | None:
 
 
 def rank_engine(mesh, device, model_path: str, max_seq_len=None, engine_kw=None,
-                dequantize: bool = False) -> InferenceEngine:
+                dequantize: bool = False, header=None) -> InferenceEngine:
     """One rank's engine (run on every rank by parallel/multihost.launch):
     the shard-direct load of its weights (a pp stage's layers only) and its
-    InferenceEngine."""
-    cfg, header_size = read_header(model_path, max_seq_len)
+    InferenceEngine. ``header``: the (config, header size) load_model read,
+    so the file's header is read (and the loader.read fault point passed)
+    once a load, as on one device."""
+    cfg, header_size = header or read_header(model_path, max_seq_len)
     sh = build_shardings(cfg, mesh)
     params = load_params(model_path, cfg, header_size, dtype=torch.bfloat16,
                          dequantize=dequantize, layer_range=sh.layer_range(),
@@ -147,7 +149,7 @@ def load_model(
         world = multihost.launch(
             "dllama_tpu_torch.engine.loader:rank_engine",
             dict(model_path=model_path, max_seq_len=max_seq_len, engine_kw=engine_kw,
-                 dequantize=dequantize),
+                 dequantize=dequantize, header=(cfg, header_size)),
             mesh_cfg, device=device, devices=devices)
         eng = world.engine
         return LoadedModel(cfg, eng, tokenizer, eng.shardings, eng.sync, world)

@@ -103,6 +103,35 @@ def _count_issued() -> None:
     _issued += 1
 
 
+def host_gather(mesh, obj) -> list | None:
+    """`obj` of every rank, pickled over the world's host channel (the gloo
+    group of parallel/multihost's commands, ``mesh.host_group``): the list
+    in rank order on rank 0, None elsewhere. For host-side values (a
+    session's cache blocks), not for the forward's tensors."""
+    _count_issued()
+    out = [None] * mesh.size if mesh.rank == 0 else None
+    dist.gather_object(obj, out, dst=0, group=mesh.host_group)
+    return out
+
+
+def host_scatter(mesh, objs: list | None):
+    """Rank r's item of rank 0's `objs` (one a rank, in rank order; None on
+    the other ranks), over the host channel as :func:`host_gather`."""
+    _count_issued()
+    out = [None]
+    dist.scatter_object_list(out, objs if mesh.rank == 0 else None, src=0,
+                             group=mesh.host_group)
+    return out[0]
+
+
+def host_all_gather(mesh, obj) -> list:
+    """`obj` of every rank on every rank, in rank order (host channel)."""
+    _count_issued()
+    out = [None] * mesh.size
+    dist.all_gather_object(out, obj, group=mesh.host_group)
+    return out
+
+
 def _host(x: torch.Tensor, staged: bool) -> torch.Tensor:
     """`x` as a collective of a staged group takes it: a pinned host copy
     of a CUDA tensor (gloo takes no CUDA tensor), else `x` itself."""

@@ -22,11 +22,6 @@ import numpy as np
 AXES = ("dp", "pp", "sp", "tp", "ep")
 
 
-class NotPorted(ValueError):
-    """An option this package does not run on a mesh yet (faults, warm
-    restarts, sessions)."""
-
-
 class MeshTooLarge(ValueError):
     """A mesh of more ranks than the cards the processes see."""
 
@@ -96,8 +91,10 @@ def axis_ranks(config: MeshConfig, axis: str) -> list[list[int]]:
 class Mesh:
     """One rank's view of the world: ``config`` (the axis sizes), this
     process's global ``rank``, the process group of each axis
-    (``groups``: None on an axis of one; ``group`` is the tp one) and the
-    backend they run over. Ranks are laid out as the JAX package's device
+    (``groups``: None on an axis of one; ``group`` is the tp one), the
+    backend they run over, and ``host_group``, the gloo group over every
+    rank that carries host objects (parallel/multihost's command channel;
+    collectives.host_gather). Ranks are laid out as the JAX package's device
     grid, row-major over AXES with tp innermost (:attr:`coords`)."""
 
     config: MeshConfig
@@ -106,6 +103,7 @@ class Mesh:
     backend: str = "gloo"
     staged: bool = False  # gloo over CUDA tensors: exchanges through pinned host memory
     groups: dict = dataclasses.field(default_factory=dict)  # axis -> its process group
+    host_group: object = None
 
     @property
     def shape(self) -> dict[str, int]:

@@ -27,8 +27,16 @@ and its workers, app.cpp:262-321):
   call raised; a follower whose own outcome differs, or that is named an
   object it does not hold, is out of step and exits non-zero. A call may
   raise and leave the world in step only by an argument or state check
-  made before its first exchange (no collective issued, no forward run);
-  any other error breaks the world.
+  made before its first exchange (no collective issued, no forward run),
+  or by an injected fault there; any other error breaks the world. A call
+  marked ``mirrored(agree=True)`` (a warm restart) first makes every rank
+  answer with its last outcome (:meth:`Link.agree`), so it runs only on a
+  world in step.
+* **One fault plan, rank 0's** (utils/faults.py). A message carries the
+  plan's engine points, counters included, whenever the plan changed
+  since the last one; a follower applies it before the call, and never
+  arms one of its own (``$DLLAMA_FAULTS`` included). Engine points fire on
+  every rank at the same call; driver points on rank 0 alone.
 * **Local ranks are spawned by the library** (:func:`launch`): one
   process a device, each the child of rank 0's process, with the death
   signal set (``prctl(PR_SET_PDEATHSIG)``), so a worker never outlives its
@@ -47,12 +55,14 @@ pinned host memory when ranks share a card, which only a harness builds
 it sees (engine/loader.resolve_mesh).
 
 A dead peer: the driver's death kills its local workers (the death
-signal) and closes every worker's channel. A local worker that exits
-non-zero breaks the world at once (rank 0 watches its children): a
-server then exits non-zero (the JAX package's fail-stop), and so does any
-driver under NCCL, whose next collective would wait on the dead rank
-forever. A worker on another host is seen only when rank 0's next call
-fails, which under NCCL may never happen: no watch spans hosts yet.
+signal) and closes every worker's channel. Rank 0 watches every follower
+(:func:`_watch`): a local worker that exits non-zero breaks the world at
+once, and so does a follower anywhere, on another host too, whose
+heartbeat (a counter in the world's store that a thread of its process
+bumps every tenth of the timeout) has not moved for HEARTBEAT_TIMEOUT_S,
+JAX's ``heartbeat_timeout_seconds`` default. A server then exits
+non-zero (the JAX package's fail-stop), and so does any driver under
+NCCL, whose next collective would wait on the dead rank forever.
 """
 
 from __future__ import annotations
@@ -83,12 +93,18 @@ import torch.distributed as dist
 
 from dllama_tpu_torch.parallel import collectives
 from dllama_tpu_torch.parallel.mesh import Mesh, MeshConfig, axis_ranks
+from dllama_tpu_torch.utils import faults
 
 log = logging.getLogger("dllama_tpu_torch")
 
 #: the command channel waits as long as a server idles between requests;
 #: a peer that dies closes its sockets, which ends the wait at once
 CHANNEL_TIMEOUT = datetime.timedelta(days=30)
+
+#: a follower whose heartbeat has not moved for this many seconds breaks the
+#: world (jax.distributed.initialize's heartbeat_timeout_seconds default,
+#: which the JAX package keeps); it beats every tenth of this
+HEARTBEAT_TIMEOUT_S = 100.0
 
 # multi-host settings (initialize): coordinator "host:port", processes, this process
 _DISTRIBUTED: dict | None = None
@@ -180,7 +196,8 @@ def _settled(e: Exception, obj, mark) -> bool:
     an exchange, is not."""
     if isinstance(e, (dist.DistError, OutOfStep)) or _marks(obj) != mark:
         return False
-    return isinstance(e, (ValueError, KeyError, IndexError, NotImplementedError)) or \
+    return isinstance(e, (ValueError, KeyError, IndexError, NotImplementedError,
+                          faults.InjectedFault)) or \
         type(e).__module__.startswith("dllama_tpu_torch.engine")
 
 
@@ -198,6 +215,7 @@ class Link:
         self.live: set[int] = set()  # ids of the named objects rank 0 holds
         self.dropped = collections.deque()  # ids of named objects rank 0 let go
         self.last: tuple[int, bool] | None = None  # (id, raised) of the last call or build
+        self.plan = None  # the fault plan's version the followers hold (faults.version)
         # a broken world ends the process (the CLI's fail-stop) instead of
         # raising to a caller that could go on serving from one rank
         self.fail_stop = False
@@ -229,13 +247,29 @@ class Link:
 
     def send(self, op: str, body: tuple = ()) -> None:
         """One message: the op and its body, the ids let go since the last
-        message, and the outcome of the last call."""
+        message, the outcome of the last call, and the fault plan's engine
+        points when the plan changed since the last message (else None)."""
         if self.closed:
             raise RuntimeError("the mesh's command channel is closed")
         drops = []
         while self.dropped:
             drops.append(self.dropped.popleft())
-        dist.broadcast_object_list([(op, body, drops, self.last)], src=0, group=self.group)
+        plan = None
+        with faults.edit_lock:
+            if faults.version() != self.plan:
+                plan, self.plan = faults.state(), faults.version()
+        dist.broadcast_object_list([(op, body, drops, self.last, plan)], src=0,
+                                   group=self.group)
+
+    def agree(self) -> None:
+        """Every rank answers with the outcome of its last call; raises
+        OutOfStep unless each equals rank 0's. (A follower out of step exits
+        on the message instead, which fails the gather.)"""
+        self.send("agree")
+        outs = [None] * dist.get_world_size(self.group)
+        dist.gather_object(self.last, outs, dst=0, group=self.group)
+        if any(o != self.last for o in outs):
+            raise OutOfStep(f"mesh: the ranks' last outcomes {outs} differ")
 
     def broken(self, e: Exception, stop: bool = False) -> None:
         """A call failed in its exchange (a peer died, a collective or a
@@ -247,16 +281,19 @@ class Link:
             logging.shutdown()
             os._exit(1)
 
-    def call(self, obj, name: str, fn: Callable, args, kwargs):
+    def call(self, obj, name: str, fn: Callable, args, kwargs, agree: bool = False):
         """Send ``obj.name(*args, **kwargs)`` to the followers, then make it
         here; a result later calls may name gets the id the followers keep
-        theirs under."""
-        with self.lock:
+        theirs under. The fault plan cannot change meanwhile. ``agree``:
+        the ranks agree first that the world is in step (:meth:`agree`)."""
+        with self.lock, faults.edit_lock:
             ret_id = self.next_id
             self.next_id += 1
             self.local.depth = self.depth + 1
             mark = _marks(obj)
             try:
+                if agree:
+                    self.agree()
                 self.send("call", (obj._mesh_id, name, self._encode(args),
                                    self._encode(kwargs), ret_id))
                 out = fn(obj, *args, **kwargs)
@@ -283,30 +320,25 @@ def _fold(digest, out) -> None:
         digest.update(str(int(out)).encode())
 
 
-def mirrored(fn: Callable) -> Callable:
+def mirrored(fn: Callable | None = None, *, agree: bool = False) -> Callable:
     """Mark an engine method as a call every rank makes: on rank 0 of a
     world it is sent to the followers first (engine objects there carry
     ``_mesh_link``); anywhere else, and nested in another mirrored call, it
-    runs as it is."""
+    runs as it is. ``mirrored(agree=True)``: the ranks agree first that
+    the world is in step (Link.agree), or the call raises and sends
+    nothing more."""
+    if fn is None:
+        return functools.partial(mirrored, agree=agree)
 
     @functools.wraps(fn)
     def wrapper(self, *args, **kwargs):
         link = self.__dict__.get("_mesh_link")
         if link is None or link.depth:
             return fn(self, *args, **kwargs)
-        return link.call(self, fn.__name__, fn, args, kwargs)
+        return link.call(self, fn.__name__, fn, args, kwargs, agree)
 
     wrapper.mirrored = True
     return wrapper
-
-
-def refuse_on_mesh(obj, what: str) -> None:
-    """Raise (before anything is sent) for a call this package does not carry
-    on a mesh: a follower's recovery would need a design of its own."""
-    if getattr(obj, "exchange", None) is not None:
-        from dllama_tpu_torch.parallel.mesh import NotPorted
-
-        raise NotPorted(f"{what} on a mesh")
 
 
 # ------------------------------------------------------------------ factories
@@ -346,6 +378,7 @@ class World:
         self.objects: dict[int, object] = {0: engine}  # a follower's named objects
         self.last: tuple[int, bool] | None = None  # a follower's (id, raised) of its last call
         self.build_s = 0.0  # seconds this rank's engine build took (_join)
+        self.store = None  # the world's store: the followers' heartbeats (_watch)
 
     @property
     def driver(self) -> bool:
@@ -439,16 +472,21 @@ class World:
             except Exception as e:  # the driver is gone: nothing to follow
                 log.info("mesh rank %d: command channel closed (%s)", self.rank, e)
                 return 0
-            op, body, drops, last = box[0]
+            op, body, drops, last, plan = box[0]
             if last != self.last:
                 raise OutOfStep(f"mesh rank {self.rank}: the last call (id, raised) was "
                                 f"{last} on rank 0 and {self.last} here")
             for ident in drops:
                 self.objects.pop(ident, None)
+            if plan is not None:  # rank 0's fault plan changed: it governs the call below
+                faults.apply(plan)
             if op == "stop":
                 if dist.is_initialized():
                     dist.destroy_process_group()
                 return 0
+            if op == "agree":
+                dist.gather_object(self.last, None, dst=0, group=self.cmd_group)
+                continue
             if op == "fn":
                 name, args = body
                 dist.gather_object(globals()[name](self, *args), None, dst=0,
@@ -536,8 +574,20 @@ def rank_cache(world) -> dict:
             "v": eng.cache.v.detach().to("cpu", copy=True)}
 
 
+def rank_faults(world) -> tuple:
+    """One rank's fault plan (utils/faults.state: the engine points and
+    their counters): a follower's is rank 0's as of rank 0's last message."""
+    return faults.state()
+
+
+def rank_fingerprint(world) -> str:
+    """One rank's session fingerprint of its base engine: the unsharded
+    engine's on every rank (engine/engine.py)."""
+    return world.engine.session_fingerprint()
+
+
 RANK_FUNCTIONS = ("rank_report", "rank_launches", "rank_digest", "rank_objects",
-                  "rank_cache")
+                  "rank_cache", "rank_faults", "rank_fingerprint")
 
 
 # ------------------------------------------------------------------- launching
@@ -596,7 +646,7 @@ def launch(build: str, kwargs: dict, config: MeshConfig, device="cpu",
     world.files = files
     if world.driver:
         atexit.register(world.close)
-        if children:
+        if world.mesh.size > 1:
             threading.Thread(target=_watch, args=(world,), name="mesh-watch",
                              daemon=True).start()
     return world
@@ -676,17 +726,61 @@ def _end_spares() -> None:
     keep_warm(0)
 
 
+def _beat_key(rank: int) -> str:
+    return f"dllama/heartbeat/{rank}"
+
+
+def _beat(store, rank: int) -> None:
+    """A follower's heartbeat (a daemon thread; the main thread waits in
+    World.follow): a counter in the world's store, bumped every tenth of
+    HEARTBEAT_TIMEOUT_S until the store goes with the driver."""
+    n = 0
+    while True:
+        n += 1
+        try:
+            store.set(_beat_key(rank), str(n))
+        except Exception:  # the driver and its store are gone
+            return
+        time.sleep(HEARTBEAT_TIMEOUT_S / 10)
+
+
 def _watch(world: World, every_s: float = 0.2) -> None:
-    """Rank 0's watch over its local followers: one that exits non-zero
-    while the world is open breaks it. Under NCCL the driver's next
-    collective would wait on that rank forever, so the process ends."""
-    link = world.link
+    """Rank 0's watch over every follower while the world is open: a local
+    one that exits non-zero breaks the world at once; any follower, local
+    or on another host, whose heartbeat has not moved for
+    HEARTBEAT_TIMEOUT_S (read on rank 0's clock) breaks it too. Under NCCL
+    the driver's next collective would wait on that rank forever, so the
+    process ends."""
+    link, store = world.link, world.store
+    stop = world.mesh.backend == "nccl"
+    start = time.monotonic()
+    beats = {r: (None, start) for r in range(1, world.mesh.size)}  # rank -> (value, seen at)
+    due = start
     while not link.closed:
         for p in list(world.children):
             code = p.poll()
             if code not in (None, 0) and not link.closed:
                 link.broken(RuntimeError(f"mesh: a local rank (pid {p.pid}) exited with "
-                                         f"{code}"), stop=world.mesh.backend == "nccl")
+                                         f"{code}"), stop=stop)
+                return
+        now = time.monotonic()
+        if store is not None and now >= due:
+            due = now + HEARTBEAT_TIMEOUT_S / 10
+            try:
+                for r, (seen, at) in beats.items():
+                    key = _beat_key(r)
+                    value = store.get(key) if store.check([key]) else None
+                    if value != seen:
+                        beats[r] = (value, now)
+                    elif now - at > HEARTBEAT_TIMEOUT_S and not link.closed:
+                        link.broken(RuntimeError(
+                            f"mesh: rank {r}'s heartbeat has not moved for {now - at:.1f} s "
+                            f"(timeout {HEARTBEAT_TIMEOUT_S:g} s)"), stop=stop)
+                        return
+            except Exception as e:  # the store is gone: the world closed meanwhile
+                if not link.closed:
+                    link.broken(RuntimeError(f"mesh: the heartbeat store failed: {e!r}"),
+                                stop=stop)
                 return
         time.sleep(every_s)
 
@@ -722,13 +816,15 @@ def _join(spec: dict) -> World:
     rank, device = spec["rank"], torch.device(spec["device"])
     if device.type == "cuda":
         torch.cuda.set_device(device)
+    if rank:
+        faults.clear()  # a follower's plan is rank 0's, which its messages carry
     dist.init_process_group(spec["backend"], init_method=spec["rendezvous"], rank=rank,
                             world_size=spec["world"], timeout=CHANNEL_TIMEOUT)
     # a group of its own, so a message can never pair with an exchange
     cmd_group = dist.new_group(backend="gloo", timeout=CHANNEL_TIMEOUT)
     groups = make_groups(spec["config"], rank)
     mesh = Mesh(spec["config"], rank, groups.get("tp"), spec["backend"], spec["staged"],
-                groups)
+                groups, host_group=cmd_group)
     if spec["backend"] == "nccl":
         # every communicator exists before any capture records a collective:
         # each rank warms its groups axis by axis, in the order they were made
@@ -741,11 +837,24 @@ def _join(spec: dict) -> World:
     fn = getattr(importlib.import_module(module), name)
     from dllama_tpu_torch.models.formats import LAZY_DECODE
 
+    store = dist.distributed_c10d._get_default_store()
+    if rank:
+        threading.Thread(target=_beat, args=(store, rank), name="mesh-heartbeat",
+                         daemon=True).start()
     LAZY_DECODE.update(bytes=0, seconds=0.0)  # rank_report reads this build's
     t0 = time.perf_counter()
     engine = fn(mesh, device, **spec["kwargs"])
     world = World(mesh, engine, cmd_group)
     world.build_s = time.perf_counter() - t0
+    world.store = store
+    sh = getattr(engine, "shardings", None)
+    if sh is not None and hasattr(engine, "params"):
+        # the unsharded tree's digest (a session's fingerprint): its first
+        # elements may lie on any rank
+        from dllama_tpu_torch.engine.engine import params_digest
+
+        sh.params_digest = params_digest(engine.params, sh, gather=functools.partial(
+            collectives.host_all_gather, mesh))
     return world
 
 

@@ -28,7 +28,11 @@ JAX's ``P(pp?, dp?, "tp", "sp", None)`` (cache_spec): a stage holds its
 layers, a dp replica its block of the batch
 (:meth:`LlamaShardings.batch_block`: replica d the slots
 [d B/dp, (d+1) B/dp) when dp divides B, every slot otherwise), an sp rank
-its block of the rows (:meth:`LlamaShardings.seq_block`).
+its block of the rows (:meth:`LlamaShardings.seq_block`);
+:meth:`LlamaShardings.cache_block` is a rank's whole block, which a
+session's save gathers and its load scatters. :meth:`LlamaShardings.leaf_block`
+is where a rank's parameter leaf lies in the unsharded tree (a session's
+fingerprint hashes the unsharded tree on every rank).
 """
 
 from __future__ import annotations
@@ -102,6 +106,9 @@ class LlamaShardings:
         self.mesh = mesh
         self.cfg = cfg
         self.check(mesh.config, cfg)
+        # the unsharded tree's digest (engine/engine.params_digest), set when
+        # a world builds its engines (parallel/multihost._join)
+        self.params_digest: str | None = None
 
     @staticmethod
     def check(config, cfg: LlamaConfig) -> None:
@@ -164,6 +171,23 @@ class LlamaShardings:
         rows = seq_len // self.sp
         return self.mesh.coords["sp"] * rows, rows
 
+    def cache_block(self, batch: int, seq_len: int, rank: int | None = None
+                    ) -> tuple[slice, ...]:
+        """Rank `rank`'s block (default: this rank's) of the unsharded KV
+        cache [L, batch, Hkv, seq_len, d] of an engine of `batch` rows: its
+        stage's layers (pp), its slots (dp, where dp divides the batch), its
+        kv heads (tp) and its sequence rows (sp). A rank's own cache is this
+        block, with an sp rank's trash row after its rows."""
+        sh = self if rank is None else LlamaShardings(
+            dataclasses.replace(self.mesh, rank=rank), self.cfg)
+        layers = sh.layer_range()
+        lo, hi = sh.batch_block(batch)
+        hk = self.cfg.n_kv_heads // self.tp
+        h0 = sh.mesh.coords["tp"] * hk
+        off, rows = sh.seq_block(seq_len)
+        return (slice(layers.start, layers.stop), slice(lo, hi), slice(h0, h0 + hk),
+                slice(off, off + rows), slice(None))
+
     # ---------------------------------------------------------------- specs
 
     def _sanitize(self, spec: tuple, *shapes) -> tuple:
@@ -217,23 +241,52 @@ class LlamaShardings:
         n = self.cfg.n_layers // self.pp
         return range(self.mesh.coords["pp"] * n, (self.mesh.coords["pp"] + 1) * n)
 
+    def _spec(self, name: str) -> tuple:
+        """The spec of a named leaf before _sanitize."""
+        if name == "embedding":
+            return (None, None)  # replicated; vocab shard lives on wcls
+        if name == "final_norm":
+            return (None,)
+        if name == "wcls":
+            return (None, "tp")
+        spec = LAYER_SPECS[name.split(".")[-1]]
+        if self.pp > 1:
+            # stage-split: the stacked layer axis shards over 'pp'
+            spec = ("pp", *spec[1:])
+        return spec
+
     def param_spec(self, name: str, leaf):
         """Spec for a named param leaf ('embedding', 'wcls', 'layers.<short>').
         A layer leaf's leading axis is on 'pp'; the shard-direct load's
         one-layer leaves (models/formats.load_params ``layer_range``) keep it
         whole, as _sanitize replicates an axis pp does not divide."""
-        if name == "embedding":
-            spec = (None, None)  # replicated; vocab shard lives on wcls
-        elif name == "final_norm":
-            spec = (None,)
-        elif name == "wcls":
-            spec = (None, "tp")
-        else:
-            spec = LAYER_SPECS[name.split(".")[-1]]
-            if self.pp > 1:
-                # stage-split: the stacked layer axis shards over 'pp'
-                spec = ("pp", *spec[1:])
-        return self._expand(spec, leaf)
+        return self._expand(self._spec(name), leaf)
+
+    def _splits(self, name: str, ax: str) -> bool:
+        """Whether axis `ax` of leaf `name`'s spec splits the stacked leaf
+        (what _sanitize decides from the full shapes, told from the model:
+        pp and the heads always divide (check), the FFN and the vocab where
+        tp divides them, the experts where ep does)."""
+        if ax == "ep":
+            return self.splits_experts
+        if ax == "tp" and name == "wcls":
+            return self.logits_sharded
+        if ax == "tp" and name.split(".")[-1] in ("w1", "w2", "w3", "moe_w1", "moe_w2",
+                                                   "moe_w3"):
+            return self.ffn_sharded
+        return True
+
+    def leaf_block(self, name: str, shape) -> tuple[tuple[int, ...], tuple[int, ...]]:
+        """(the unsharded tree's shape, this rank's offset in it) of a leaf
+        of this rank's tree of `shape` (a QTensor's packed bytes and scales
+        alike)."""
+        full, start = list(shape), [0] * len(shape)
+        coords, sizes = self.mesh.coords, self.mesh.shape
+        for i, ax in enumerate(self._spec(name)[: len(shape)]):
+            if ax is not None and sizes[ax] > 1 and self._splits(name, ax):
+                start[i] = coords[ax] * full[i]
+                full[i] *= sizes[ax]
+        return tuple(full), tuple(start)
 
     def param_spec_tree(self, params) -> dict:
         """A tree of specs congruent with the params tree."""

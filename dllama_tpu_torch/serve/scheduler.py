@@ -1471,6 +1471,9 @@ class Scheduler:
             recover.append(req)
         self._inflight.clear()
         self.slot_tokens.clear()
+        # the survivors wait where _fail_all finds them, should the rebuild
+        # raise (a mesh whose world a dead rank broke refuses it)
+        self._recover = recover + self._recover
         self.engine.warm_restart()
         self._radix = self.engine.radix  # rebuilt empty against the reset pool
         pool = self.engine.pool
@@ -1478,7 +1481,6 @@ class Scheduler:
             # a reset pool failing its audit means the rebuild is broken:
             # crash the restart (budget-counted) rather than serve from it
             pool.audit()
-        self._recover = recover + self._recover
         self._busy_worker = False
         self._t_dec_end = None
         self._t_consumed = None

@@ -47,6 +47,21 @@ Injection points (armed sites call :func:`fire` with their point name):
                         and thundering-herd drills)
 ======================  =====================================================
 
+On a mesh (parallel/multihost: one process a rank, rank 0 driving) the plan
+is rank 0's, wherever it came from: ``--faults``, ``$DLLAMA_FAULTS``,
+:func:`install`, :func:`clear`. A follower never arms a plan of its own; it
+takes rank 0's, counters included (:func:`state`, :func:`apply`), with the
+first command after each change (:func:`version`), before the call that
+could fire it. The **engine points** (:data:`ENGINE_POINTS`: ``engine.decode``,
+``engine.prefill``, ``decode.nan`` and the ``pool.*`` points) fire inside
+the engine calls that every rank makes, so they fire on every rank at the
+same call, ``after`` and ``times`` count alike, and a ``raise`` is the same
+:class:`InjectedFault` on every rank before the call's first exchange. The
+**driver points** (every other point: ``loader.read``, ``scheduler.*``,
+``engine.restart``, ``router.proxy``) fire on rank 0 alone, which sends
+nothing for them. Rank 0's counter of fires (dllama_fault_fires_total) counts
+what the JAX package's one controller would: one fire a point a call.
+
 Actions: ``raise`` (throw :class:`InjectedFault`) and ``delay`` (sleep
 ``ms``, e.g. to trip the stall watchdog).  Options: ``after=N`` skips the
 first N hits, ``times=N`` fires at most N times (default: forever).
@@ -66,6 +81,7 @@ from __future__ import annotations
 
 import logging
 import os
+import threading
 import time
 from dataclasses import dataclass, field
 
@@ -94,6 +110,11 @@ POINTS = frozenset({
 })
 
 ACTIONS = frozenset({"raise", "delay"})
+
+#: the points inside engine calls: on a mesh every rank fires them alike; the
+#: others are the driver's (loader, scheduler, restart, router), rank 0's alone
+ENGINE_POINTS = frozenset({"engine.decode", "engine.prefill", "decode.nan", "pool.alloc",
+                           "pool.spill", "pool.restore"})
 
 
 class InjectedFault(RuntimeError):
@@ -134,6 +155,11 @@ class _Fault:
 
 _plan: dict[str, _Fault] = {}
 _plan_lock = locks.make_lock("faults.plan")
+#: held by every change of the plan; a mesh's rank 0 holds it across each
+#: mirrored call (parallel/multihost.Link), so a plan never changes between
+#: the message that carries it and the call it governs
+edit_lock = threading.RLock()
+_version = [0]  # bumped by every change of the plan (version())
 
 
 def parse(spec: str) -> list[_Fault]:
@@ -169,10 +195,11 @@ def parse(spec: str) -> list[_Fault]:
 def configure(spec: str | None) -> None:
     """Replace the active plan from a spec string ('' / None clears)."""
     faults = parse(spec) if spec else []
-    with _plan_lock:
+    with edit_lock, _plan_lock:
         _plan.clear()
         for f in faults:
             _plan[f.point] = f
+        _version[0] += 1
     if faults:
         log.warning("fault injection ARMED: %s",
                     ", ".join(f"{f.point}:{f.action}" for f in faults))
@@ -193,17 +220,44 @@ def install(point: str, action: str = "raise", *, ms: float = 0.0,
         raise ValueError(f"unknown fault point {point!r}; known: {sorted(POINTS)}")
     if action not in ACTIONS:
         raise ValueError(f"unknown fault action {action!r}; known: {sorted(ACTIONS)}")
-    with _plan_lock:
+    with edit_lock, _plan_lock:
         _plan[point] = _Fault(point, action, ms=ms, after=after, times=times)
+        _version[0] += 1
 
 
 def clear(point: str | None = None) -> None:
     """Disarm one point, or everything (tests' teardown)."""
-    with _plan_lock:
+    with edit_lock, _plan_lock:
         if point is None:
             _plan.clear()
         else:
             _plan.pop(point, None)
+        _version[0] += 1
+
+
+def version() -> int:
+    """A number that changes whenever the plan does (configure, install,
+    clear, apply)."""
+    return _version[0]
+
+
+def state() -> tuple:
+    """The plan's engine points as a value a mesh sends its followers: one
+    (point, action, ms, after, times, hits, fired) a point, its counters as
+    they stand. Driver points stay on rank 0."""
+    with _plan_lock:
+        return tuple((f.point, f.action, f.ms, f.after, f.times, f.hits, f.fired)
+                     for f in _plan.values() if f.point in ENGINE_POINTS)
+
+
+def apply(entries: tuple) -> None:
+    """Replace the plan with rank 0's (:func:`state`): a follower's plan."""
+    with edit_lock, _plan_lock:
+        _plan.clear()
+        for point, action, ms, after, times, hits, fired in entries:
+            _plan[point] = _Fault(point, action, ms=ms, after=after, times=times, hits=hits,
+                                  fired=fired)
+        _version[0] += 1
 
 
 def active(point: str) -> bool:

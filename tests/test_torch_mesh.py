@@ -23,9 +23,24 @@ heads); each world is module-scoped and serves every check of its config.
 * The process model: an admission outlives any number of calls on the
   followers (300 hybrid steps), every rank holds the same named objects,
   and a follower that dies breaks the world instead of leaving it to hang.
+* Supervision on the tp=2 world (launched with ``$DLLAMA_FAULTS`` set,
+  which its follower must not arm): an ``engine.decode`` or a
+  ``scheduler.loop`` raise under a Scheduler with a restart budget gives
+  one warm restart and whole streams, and an ``engine.prefill`` raise
+  fails the joiner alone, each exactly as on one device under the same
+  fault; whole streams equal the uninterrupted run's, whose greedy ids
+  equal JAX's unsharded BatchEngine's; the ranks' digests and named
+  objects stay equal. ``decode.nan`` fails one request, ``engine.restart``
+  ends supervision with the world in step, and a plan installed after
+  launch reaches the follower. A session crosses both ways between tp=2
+  and one device (supervision_case and session_case serve the dp, sp, pp
+  and ep files too).
 """
 
 import dataclasses
+import gc
+import os
+import time
 import types
 
 import numpy as np
@@ -42,7 +57,8 @@ from dllama_tpu_torch.models.config import LlamaConfig
 from dllama_tpu_torch.ops.quant import FloatType
 from dllama_tpu_torch.parallel import collectives, mesh as pmesh, multihost, sharding
 from dllama_tpu_torch.serve.scheduler import Scheduler
-from dllama_tpu_torch.utils import profiling
+from dllama_tpu_torch.utils import faults, profiling
+from tests.test_torch_faults import drain_tokens
 
 torch.set_num_threads(1)
 
@@ -330,9 +346,19 @@ def q40(tmp_path_factory):
     unsharded engine, and JAX's tp=2 engine over the same tree."""
     jp, npt = jax_tree(KW)
     tree = params_from_numpy(npt)
-    world = multihost.launch_tree(LlamaConfig(**KW), tree, pmesh.MeshConfig(tp=2),
-                                  str(tmp_path_factory.mktemp("q40")),
-                                  cache_dtype=torch.float32)
+    # the follower starts with a plan in its environment that would break
+    # every decode: it must follow rank 0's (empty) plan instead
+    old = os.environ.get(faults.ENV_VAR)
+    os.environ[faults.ENV_VAR] = "engine.decode:raise"
+    try:
+        world = multihost.launch_tree(LlamaConfig(**KW), tree, pmesh.MeshConfig(tp=2),
+                                      str(tmp_path_factory.mktemp("q40")),
+                                      cache_dtype=torch.float32)
+    finally:
+        if old is None:
+            del os.environ[faults.ENV_VAR]
+        else:
+            os.environ[faults.ENV_VAR] = old
     one = InferenceEngine(LlamaConfig(**KW), tree, cache_dtype=torch.float32)
     yield types.SimpleNamespace(world=world, eng=world.engine, one=one, jp=jp, tree=tree)
     world.close()
@@ -435,13 +461,18 @@ class TestQ40World:
         assert len(out) == 12 and len(ranks) == 2 and ranks[0] == ranks[1] != after[0]
 
     def test_sessions_and_warm_restart_refused_on_a_mesh(self, q40, tmp_path):
-        with pytest.raises(pmesh.NotPorted, match="save_session"):
-            q40.eng.save_session(str(tmp_path / "s.npz"))
-        with pytest.raises(pmesh.NotPorted, match="load_session"):
-            q40.eng.load_session(str(tmp_path / "s.npz"))
+        """Sessions and warm restarts run on a mesh now: a session saved on
+        tp=2 loads into the unsharded engine and the other way round, a
+        warm restart refills every rank in place; the paged layout is still
+        refused on a mesh, and the world is in step after all of it."""
+        session_case(q40.world, q40.one, tmp_path, PROMPT, 24, TOL)
         be = q40.world.make("batch", n_slots=1, cache_dtype=torch.float32)
-        with pytest.raises(pmesh.NotPorted, match="warm_restart"):
-            be.warm_restart()
+        be.add(0, PROMPT, temperature=0.0)
+        be.decode(3)
+        ptrs = {k: t.data_ptr() for k, t in be.device_state().items()}
+        be.warm_restart()
+        assert not be.active.any() and float(be.cache.k.abs().sum()) == 0.0
+        assert {k: t.data_ptr() for k, t in be.device_state().items()} == ptrs
         with pytest.raises(ValueError, match="paged KV cache requires an unsharded engine"):
             q40.world.make("batch", n_slots=1, kv_layout="paged")
         # the world is still in step after the refusals
@@ -450,6 +481,187 @@ class TestQ40World:
         assert greedy(q40.eng, 4) == greedy(q40.one, 4)
         digests = q40.world.call_all("rank_digest")
         assert digests[0] == digests[1]
+
+    @pytest.mark.parametrize("point", ["engine.decode", "scheduler.loop", "engine.prefill"])
+    def test_a_fault_on_the_mesh_runs_as_on_one_device(self, q40, point):
+        """A raise at `point` under a Scheduler with restart_max=2 on tp=2:
+        what one device does under the same fault (one warm restart for a
+        decode or worker crash, the joiner failed alone for a prefill
+        drill), every other stream whole and equal to the uninterrupted
+        run's, whose greedy ids equal JAX's unsharded BatchEngine's."""
+        supervision_case(q40.world, q40.tree, q40.jp, point)
+
+    def test_decode_nan_fails_one_request_on_the_mesh(self, q40):
+        be = q40.world.make("batch", **RESTART_ENGINE)
+        out, health = supervised_streams(be, ("decode.nan", dict(after=2, times=1)))
+        assert [e is None for _, e in out].count(False) == 1
+        assert health["live"] is True and health["restarts"] == 0
+        del be
+        in_step(q40.world)
+
+    def test_a_restart_that_dies_leaves_the_world_in_step(self, q40):
+        """engine.restart kills the restart (rank 0's driver point: nothing
+        is sent): live false, and every rank still answers alike."""
+        be = q40.world.make("batch", **RESTART_ENGINE)
+        faults.install("engine.restart", "raise", times=1)
+        out, health = supervised_streams(be, ("scheduler.loop", dict(after=3, times=1)))
+        assert all(e is not None for _, e in out) and health["restarts"] == 1
+        assert health["live"] is False and "engine.restart" in str(health["crashed"])
+        del be
+        in_step(q40.world)
+        q40.eng.reset(0)
+        q40.one.reset(0)
+        assert greedy(q40.eng, 4) == greedy(q40.one, 4)
+
+    def test_the_plan_is_rank_0s(self, q40):
+        """The follower, started with $DLLAMA_FAULTS set, holds rank 0's plan
+        (empty); a plan installed after launch reaches it with the next
+        message, counters included, and so does clearing it. Driver points
+        stay on rank 0."""
+        assert q40.world.call_all("rank_faults") == [(), ()]
+        be = q40.world.make("batch", n_slots=1, cache_dtype=torch.float32)
+        try:
+            faults.install("engine.decode", "delay", ms=1.0, after=1000)
+            faults.install("scheduler.loop", "raise", after=1000)
+            plans = q40.world.call_all("rank_faults")
+            assert plans[0] == plans[1] == faults.state()
+            assert [p[0] for p in plans[1]] == ["engine.decode"]
+            be.add(0, PROMPT, temperature=0.0)
+            be.decode(2)
+            be.decode(2)  # two dispatches: two hits on every rank
+            plans = q40.world.call_all("rank_faults")
+            assert plans[0] == plans[1] and plans[1][0][5] == 2
+        finally:
+            faults.clear()
+        assert q40.world.call_all("rank_faults") == [(), ()]
+
+
+#: the supervision cases' engines and streams: a greedy, a penalized greedy
+#: and a seeded sampled stream through 3 dense slots
+RESTART_ENGINE = dict(n_slots=3, cache_dtype=torch.float32)
+RESTART_STREAMS = ((PROMPT, dict(temperature=0.0, seed=1)),
+                   ([9, 8, 7], dict(temperature=0.0, seed=2, presence=0.5, frequency=0.3)),
+                   ([3, 4, 5, 6], dict(temperature=0.9, seed=3)))
+RESTART_TOKENS = 14
+#: the fault of each supervision case: after=N skips its first N hits
+RESTART_FAULTS = {"engine.decode": dict(after=2, times=1),
+                  "scheduler.loop": dict(after=3, times=1),
+                  "engine.prefill": dict(after=0, times=1)}
+
+
+def supervised_streams(be, fault=None):
+    """RESTART_STREAMS through a Scheduler over `be` with restart_max=2 and
+    `fault` ((point, install options)) armed before the first submit ->
+    ([(ids, error or None)], the scheduler's health once they ended)."""
+    sched = Scheduler(be, restart_max=2, restart_backoff_s=0.01)
+    try:
+        if fault is not None:
+            faults.install(fault[0], "raise", **fault[1])
+        reqs = [sched.submit(p, kw["temperature"], 0.9, RESTART_TOKENS, frozenset(),
+                             **{k: v for k, v in kw.items() if k != "temperature"})
+                for p, kw in RESTART_STREAMS]
+        out = [drain_tokens(r, timeout=60.0) for r in reqs]
+        deadline = time.monotonic() + 10  # a dying restart settles after the streams
+        while sched.health()["restarts"] and sched.crashed is None and \
+                sched.health()["live"] is False and time.monotonic() < deadline:
+            time.sleep(0.01)
+        return out, sched.health()
+    finally:
+        faults.clear()
+        sched.shutdown()
+
+
+def in_step(world) -> None:
+    """Every rank's digest of its token results is rank 0's, and every rank
+    holds the same named objects."""
+    gc.collect()
+    assert len(set(world.call_all("rank_digest"))) == 1
+    assert len(set(world.call_all("rank_objects"))) == 1
+
+
+_UNINTERRUPTED: dict = {}
+
+
+def supervision_case(world, tree, jp, point, n_slots=3) -> None:
+    """The raise at `point` (RESTART_FAULTS) on an `n_slots` batch engine of
+    `world` and of the unsharded port on `tree`: the same restarts and the
+    same streams, whole streams equal to the uninterrupted run's, whose
+    greedy ids equal JAX's unsharded BatchEngine's on the same tree (`jp`);
+    the world in step. The uninterrupted runs are kept a tree."""
+    import jax.numpy as jnp
+
+    from dllama_tpu.engine.batch import BatchEngine as JaxBatch
+
+    kw = dict(RESTART_ENGINE, n_slots=n_slots)
+    key = (id(jp), n_slots)
+    if key not in _UNINTERRUPTED:
+        want, _ = supervised_streams(world.make("batch", **kw))
+        assert all(e is None and len(t) == RESTART_TOKENS for t, e in want)
+        jeng = JaxBatch(jax_cfg(**KW), jp, n_slots=3, cache_dtype=jnp.float32, kernels="xla")
+        first = jeng.add(0, PROMPT, temperature=0.0, seed=1)
+        jax_ids = [first] + [int(t) for t in jeng.decode(RESTART_TOKENS - 1)[:, 0]]
+        assert want[0][0] == jax_ids
+        _UNINTERRUPTED[key] = want
+    want = _UNINTERRUPTED[key]
+    fault = (point, RESTART_FAULTS[point])
+    got, health = supervised_streams(world.make("batch", **kw), fault)
+    one, one_health = supervised_streams(BatchEngine(LlamaConfig(**KW), tree, **kw), fault)
+    assert health["restarts"] == one_health["restarts"] == (point != "engine.prefill")
+    assert [(t, type(e)) for t, e in got] == [(t, type(e)) for t, e in one]
+    whole = [i for i, (_, e) in enumerate(got) if e is None]
+    assert len(whole) == 3 - (point == "engine.prefill")
+    assert [got[i][0] for i in whole] == [want[i][0] for i in whole]
+    assert health["live"] is True and health["crashed"] is None
+    in_step(world)
+
+
+def session_case(world, one, tmp_path, prompt, n, tol, exact=False, rtol=None) -> None:
+    """A session crosses both ways between `world`'s base engine and `one`
+    (the unsharded port engine): n greedy tokens, save, load on the other
+    side, n more, equal to 2n uninterrupted tokens on one device. The file
+    the mesh writes holds one device's arrays (the cache rows below the
+    position bit-equal with `exact`, within `tol` otherwise); every rank's fingerprint is one device's; a
+    file of another engine raises on every rank and leaves the world in
+    step."""
+    eng, greedy_s = world.engine, Sampler(0.0, 0.9, 1)
+    one.reset(0)
+    full = list(one.generate(prompt, 2 * n, greedy_s))
+    paths = {side: str(tmp_path / f"{side}.npz") for side in ("mesh", "one")}
+    heads = {}
+    for side, e in (("mesh", eng), ("one", one)):
+        e.reset(0)
+        heads[side] = list(e.generate(prompt, n, greedy_s))
+        e.save_session(paths[side])
+    assert heads["mesh"] == heads["one"] == full[:n]
+    with np.load(paths["mesh"]) as a, np.load(paths["one"]) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for name in ("fingerprint", "cache_dtype", "pos"):
+            assert a[name] == b[name], name
+        pos = int(a["pos"])  # the rows past it are stale on either side
+        for name in ("k", "v"):
+            assert a[name].shape == b[name].shape and a[name].dtype == np.uint8
+            x, y = (torch.from_numpy(np.array(f[name])).view(torch.float32)[:, :, :, :pos]
+                    for f in (a, b))
+            if exact:
+                assert torch.equal(x, y), name
+            else:
+                np.testing.assert_allclose(x.numpy(), y.numpy(), atol=tol,
+                                           rtol=tol if rtol is None else rtol)
+    for src, dst in (("mesh", one), ("one", eng)):
+        dst.reset(0)
+        dst.load_session(paths[src])
+        tail = dst.decode_greedy_n(np.array([[heads[src][-1]]]), n)[:, 0].tolist()
+        assert heads[src] + tail == full, src
+    assert world.call_all("rank_fingerprint") == [one.session_fingerprint()] * world.mesh.size
+    bad = str(tmp_path / "bad.npz")
+    with np.load(paths["one"]) as b:
+        np.savez(bad, **dict(b, fingerprint="another engine's"))
+    with pytest.raises(ValueError, match="does not match this engine"):
+        eng.load_session(bad)
+    in_step(world)
+    eng.reset(0)
+    one.reset(0)
+    assert greedy(eng, 4) == greedy(one, 4)
 
 
 #: --sync q80 against the exact exchange: each partial sum is coded at

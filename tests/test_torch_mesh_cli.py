@@ -4,9 +4,10 @@
   ``--no-mesh``, and so do ``--mesh dp=2``, ``sp=2``, ``dp=2,tp=2`` and
   ``sp=2,tp=2``, and two ``--distributed`` processes on localhost;
 * ``--mesh tp=2,pp=2`` / ``tp=2,ep=2`` pass the refusal; ``--faults``,
-  ``$DLLAMA_FAULTS`` or ``--restart-max`` on the mesh that runs (the
-  default ``--mesh auto`` on two cards included) exit 2 naming what is
-  refused, and so does a mesh larger than the cards;
+  ``$DLLAMA_FAULTS`` and ``--restart-max`` on the mesh that runs (the
+  default ``--mesh auto`` on two cards included) pass startup and stop
+  where the same command without a mesh stops; a mesh larger than the
+  cards exits 2;
 * ``serve --mesh tp=2`` answers a chat completion on both tiers, a
   SIGKILLed rank 0 leaves no live worker after 10 s, and a SIGKILLed
   worker ends the server non-zero within 10 s.
@@ -125,25 +126,32 @@ def test_unported_mesh_axes_exit_2_by_name(axis, capsys):
 
 
 def test_faults_and_restarts_on_a_mesh_exit_2(capsys):
+    """Supervision runs on a mesh: ``--faults`` (armed on rank 0, whose
+    plan the followers take) and ``--restart-max`` with ``--mesh tp=2``
+    pass startup and stop where the same command without a mesh stops (the
+    missing tokenizer, exit 1), alone and together."""
     from dllama_tpu_torch.cli.main import main
     from dllama_tpu_torch.utils import faults
 
-    try:
-        assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", "--mesh", "tp=2",
-                     "--faults", "engine.decode:raise:after=1000"]) == 2
-        assert "--faults on a mesh is not yet ported" in capsys.readouterr().err
-    finally:
-        faults.clear()
-    assert main(["serve", "--model", FIXTURE_M, "--device", "cpu", "--mesh", "tp=2",
-                 "--slots", "2", "--restart-max", "1"]) == 2
-    assert "--restart-max (warm restart) on a mesh" in capsys.readouterr().err
+    base = ["serve", "--model", FIXTURE_M, "--device", "cpu", "--slots", "2"]
+    for flags in (["--faults", "engine.decode:raise:after=1000"], ["--restart-max", "1"],
+                  ["--restart-max", "1", "--faults", "engine.decode:raise:after=1000"]):
+        try:
+            assert main(base + flags) == 1
+            want = capsys.readouterr().err.splitlines()[-1]
+            assert main(base + ["--mesh", "tp=2"] + flags) == 1
+            got = capsys.readouterr().err.splitlines()[-1]  # after the ARMED warning
+            assert got == want == "serve mode requires --tokenizer"
+            assert faults.active("engine.decode") == ("--faults" in flags)
+        finally:
+            faults.clear()
 
 
 def test_refusals_follow_the_mesh_that_runs(monkeypatch, capsys):
     """On a machine with two cards the default --mesh auto resolves to tp=2
-    for the fixture (2 kv heads): warm restarts and $DLLAMA_FAULTS are
-    refused at startup, before a rank is spawned, and a mesh of more ranks
-    than cards exits 2 with the device count."""
+    for the fixture (2 kv heads): warm restarts and $DLLAMA_FAULTS pass
+    startup there and stop at the missing tokenizer, as on one device; a
+    mesh of more ranks than cards exits 2 with the device count."""
     import torch
 
     from dllama_tpu_torch.cli.main import main
@@ -151,12 +159,13 @@ def test_refusals_follow_the_mesh_that_runs(monkeypatch, capsys):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    assert main(["serve", "--model", FIXTURE_M, "--slots", "2", "--restart-max", "1"]) == 2
-    assert "--restart-max (warm restart) on a mesh" in capsys.readouterr().err
+    assert main(["serve", "--model", FIXTURE_M, "--slots", "2", "--restart-max", "1"]) == 1
+    assert capsys.readouterr().err == "serve mode requires --tokenizer\n"
     monkeypatch.setenv("DLLAMA_FAULTS", "engine.decode:raise:after=1000")
     try:
-        assert main(["serve", "--model", FIXTURE_M]) == 2
-        assert "$DLLAMA_FAULTS on a mesh is not yet ported" in capsys.readouterr().err
+        assert main(["serve", "--model", FIXTURE_M]) == 1
+        assert capsys.readouterr().err.splitlines()[-1] == "serve mode requires --tokenizer"
+        assert faults.active("engine.decode")
     finally:
         faults.clear()
     monkeypatch.delenv("DLLAMA_FAULTS")

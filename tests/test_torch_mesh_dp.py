@@ -18,6 +18,11 @@ tests/test_torch_mesh.py, tiny shapes.
   penalized streams bit-equal to the unsharded engine's (dp moves no
   Philox stream), on 4 slots and on 3 (replicated over dp), with every
   rank's digest of its token results equal to rank 0's.
+* Supervision: an ``engine.decode`` raise on 4 slots (2 a replica) gives
+  one warm restart, whole streams equal to the uninterrupted run's, as on
+  one device (tests/test_torch_mesh.supervision_case); a session of the
+  single engine (batch 1, replicated) crosses both ways between the mesh
+  and one device (session_case).
 """
 
 import dataclasses
@@ -35,6 +40,7 @@ from dllama_tpu_torch.engine.loader import resolve_mesh
 from dllama_tpu_torch.models.config import LlamaConfig
 from dllama_tpu_torch.parallel import mesh as pmesh, multihost
 from dllama_tpu_torch.serve.scheduler import Scheduler
+from tests.test_torch_mesh import session_case, supervision_case
 
 torch.set_num_threads(1)
 
@@ -204,3 +210,14 @@ def test_scheduler_streams_bit_equal_to_one_device(world, tree, n_slots):
     assert got == want and all(len(s) for s in got)
     after = world.world.call_all("rank_digest")
     assert len(set(after)) == 1 and after != before
+
+
+def test_a_decode_fault_gives_one_warm_restart_on_dp(world, tree):
+    """engine.decode raises on every rank at the same dispatch; each
+    replica refills its block of the slots in place."""
+    supervision_case(world.world, tree[1], tree[0], "engine.decode", n_slots=4)
+
+
+def test_a_session_crosses_between_dp_and_one_device(world, tree, tmp_path):
+    one = InferenceEngine(LlamaConfig(**KW), tree[1], cache_dtype=torch.float32)
+    session_case(world.world, one, tmp_path, PROMPT, 24, TOL)

@@ -20,6 +20,8 @@ active) in f32, the JAX side the test process's virtual CPU devices.
   the bytes of its shapes.
 * The CLI: ``serve --slots 2 --mesh ep=2`` on a MoE file answers a chat
   completion.
+* A session crosses both ways between the mesh and one device
+  (tests/test_torch_mesh.session_case), the cache within 1e-4.
 """
 
 import http.client
@@ -43,6 +45,7 @@ from dllama_tpu_torch.models.config import LlamaConfig
 from dllama_tpu_torch.parallel import mesh as pmesh, multihost
 from dllama_tpu_torch.parallel.sharding import LlamaShardings
 from dllama_tpu_torch.serve.scheduler import Scheduler
+from tests.test_torch_mesh import session_case
 
 torch.set_num_threads(1)
 
@@ -292,3 +295,8 @@ def test_cli_serve_on_ep(tmp_path_factory):
     finally:
         proc.kill()
         proc.wait()
+
+
+def test_a_session_crosses_between_ep_and_one_device(world, tree, tmp_path):
+    one = InferenceEngine(LlamaConfig(**KW), tree[1], cache_dtype=torch.float32)
+    session_case(world.world, one, tmp_path, [1, 5, 9, 33], 12, 1e-4)

@@ -22,6 +22,9 @@ loader case: dim 128, hidden 256, 4 layers, 8/4 heads, vocab 128, seq 64.
   exchange is the bytes of its shapes.
 * The CLI: ``inference --mesh pp=2`` prints the unsharded engine's text;
   ``serve --slots 2 --mesh pp=2`` exits 1 with JAX's BatchEngine message.
+* A session crosses both ways between the mesh and one device
+  (tests/test_torch_mesh.session_case): pure pp=2 writes one device's
+  cache bytes, tp=2 x pp=2 within 3e-3.
 """
 
 import os
@@ -39,6 +42,7 @@ from dllama_tpu_torch.engine.sampling import Sampler
 from dllama_tpu_torch.models import formats
 from dllama_tpu_torch.models.config import LlamaConfig
 from dllama_tpu_torch.ops.quant import FloatType
+from tests.test_torch_mesh import session_case
 
 torch.set_num_threads(1)
 
@@ -304,3 +308,9 @@ def test_cli_on_pp(mode, tmp_path):
                             stop_fn=tok.is_eos)
     want = "".join(piece for piece in map(tok.decode, ids) if piece) + "\n"
     assert got.stdout == want and want.strip()
+
+
+def test_a_session_crosses_between_pp_and_one_device(world, one, tmp_path):
+    """Each stage's layers gathered to rank 0 make one device's file."""
+    session_case(world.world, one, tmp_path, [1, 5, 9, 33, 2, 7, 11, 4], 24, 3e-3,
+                 exact=world.spec == "pp=2")

@@ -15,6 +15,10 @@ devices. f32 weights, seq_len 64 (32 rows a rank), tiny shapes.
   JAX's cache (its kv heads, its sequence rows), and its rows past the
   last position exactly zero.
 * BatchEngine raises on an sp mesh with JAX's message.
+* A session crosses both ways between the mesh and one device
+  (tests/test_torch_mesh.session_case), its 56 rows across the shard
+  boundary: each rank's rows gathered without its trash row, the cache
+  within JAX's bound.
 """
 
 import re
@@ -29,6 +33,7 @@ from dllama_tpu_torch.engine.engine import InferenceEngine
 from dllama_tpu_torch.engine.sampling import Sampler
 from dllama_tpu_torch.models.config import LlamaConfig
 from dllama_tpu_torch.parallel import mesh as pmesh, multihost
+from tests.test_torch_mesh import session_case
 
 torch.set_num_threads(1)
 
@@ -169,3 +174,7 @@ def test_batch_engine_refuses_sp_with_jax_message(world, tree):
     # the refusal sent nothing: the world is still in step
     assert greedy(world.eng, 4) == greedy(world.eng, 4)
     assert len(set(world.world.call_all("rank_digest"))) == 1
+
+
+def test_a_session_crosses_between_sp_and_one_device(world, one, tmp_path):
+    session_case(world.world, one, tmp_path, [1, 5, 9, 33, 2, 7, 11, 4], 24, 2e-4, rtol=1e-3)
