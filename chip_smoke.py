@@ -11,7 +11,9 @@ if every phase passed:
 
 1. card       the card's name and power limit (nvidia-smi), then the CUDA
               kernels built from dllama_tpu_torch/ops/csrc, one nvcc per
-              source, all at once.
+              source, all at once, and the native host library
+              (dllama_tpu_torch/utils/csrc/native.cpp) by the host C++
+              compiler; a failed build fails the run.
 2. kernels    every kernel's wrapper against its plain PyTorch version on the
               card at the 8B shapes of the main path, each error beside its
               stated tolerance; CUDA-event medians of the kernel, the plain
@@ -178,8 +180,9 @@ if every phase passed:
 20. dequantize the Q40 8B file loaded with --dequantize (dense bf16 weights,
               torch.matmul): its forward within TOL_FWD of the kernels', no
               Q40 launch; then the CLI's `inference --dequantize`.
-21. moe       Mixtral-8x7B at its published geometry (random Q40 weights from
-              seed 0, 26.7 GB, context cut to 4096; depth cut only where the
+21. moe       Mixtral-8x7B at its published widths, depth cut to MOE_LAYERS
+              (8 of 32) for the smoke's deadline (random Q40 weights from
+              seed 0, 7.1 GB, context cut to 4096; cut further only where the
               temp filesystem cannot hold the file, and then printed): the
               forward against the plain versions, HTTP serve on the
               single-engine tier, --moe dense against sort and dispatch
@@ -222,6 +225,31 @@ if every phase passed:
               a session saved on one device loaded on pp=2 and continued
               there; the seconds of each save and load; (d) each rank's
               K1/K2/K7 launches.
+26. tools     the port's tools at Llama-3.1-8B's widths (depth cut to 8
+              layers): (a) the native host library built from
+              dllama_tpu_torch/utils/csrc with the host compiler (a failed
+              build fails); (b) an HF `tokenizer.json` in the Llama-3 layout
+              (128,000 regular ids, >= 20,000 of them BPE pieces learned from
+              the repository's Markdown, the 256 specials, the smoke's chat
+              template) converted by `convert_tokenizer hf`, encode timed at
+              2,000 / 8,000 / 32,000 bytes natively and at 2,000 through the
+              Python fallback, the ids equal; (c) a BF16 safetensors
+              checkpoint of Llama-3.1-8B's published config.json at 8 layers
+              (two shards and an index, seed 0) converted to Q40 by
+              `convert_hf`, its header checked and four tensors' bytes equal
+              to the DLLAMA_NATIVE=0 path's; (d) the `.m` cut into two
+              file:// parts behind a zoo entry: `launch download` (bytes
+              equal), then the command `launch run` prints, `inference
+              --steps 8` (K1/K2/K7); (e) the CLI's `serve --slots 8 --warmup
+              auto` on the downloaded files (paged: K1/K2/K9): an
+              8,000-byte system prompt of repository text, one chat alone
+              and 8 at once, the server's tokenization ms, TTFT, every
+              greedy id sequence equal to the single engine's greedy
+              replay or apart at a near tie; (f) the chaos drill
+              (experiments/chaos.run_chaos) on the file: 24 requests, 8
+              paged slots at page 8, the tree and the host tier on,
+              captured programs, seeded faults and warm restarts: ok, no
+              page leaked.
 
 Every path runs its decode and prefill chunks as captured CUDA graphs (the
 engines' default on a card); a replay adds the launches its capture recorded to each
@@ -243,7 +271,8 @@ every kernel the kbench phase launches on kbench's own inputs (each variant
 of its suite rows and of `8 w1 B D`, the tile sweep, the flash rows), since
 the benchmark checks no result. `serve`, `batch`, `hybrid`, `radix`, `obs`, `supervision`, `f8`,
 `q80`, `kbench`, `styles`, `spec`, `spec_batch`, `golden`, `dequantize`, `mesh`, `mesh_dp_sp`,
-`mesh_pp_ep`, `mesh_supervision` and `moe` are the main paths: the launch counters are zeroed
+`mesh_pp_ep`, `mesh_supervision`, `moe` and the tools phase's `tools-inference`,
+`tools-serve` and `tools-chaos` are the main paths: the launch counters are zeroed
 just before each of their runs and read just after it. The `router` phase's kernels run in its
 replica processes, whose counters this process cannot read: its entry in `launches_by_path` is
 null. Not in the default: `profile` adds a torch.profiler pass
@@ -268,7 +297,9 @@ import http.client
 import io
 import json
 import os
+import re
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -1490,6 +1521,11 @@ def write_model(path: str, cfg, device, seed: int = 0, zero_mean: bool = False) 
                 f.write(np.ones(n, np.float32).tobytes())
 
 
+#: the Llama-3 chat template of the smoke's tokenizers
+SMOKE_CHAT_TEMPLATE = ("{% for message in messages %}<|start_header_id|>{{ message['role'] }}"
+                       "<|end_header_id|>\n\n{{ message['content'] }}<|eot_id|>{% endfor %}")
+
+
 def write_tokenizer(path: str, vocab_size: int) -> None:
     """A Llama-3-layout `.t`: 256 byte tokens, inert filler pieces up to the
     128000 regular ids (so every id the random model emits decodes), the 256
@@ -1507,10 +1543,8 @@ def write_tokenizer(path: str, vocab_size: int) -> None:
     named += [f"<|reserved_special_token_{i}|>" for i in range(5, n_special - 5)]
     vocab += [s.encode() for s in named]
     scores = [0.0] * len(vocab)
-    template = ("{% for message in messages %}<|start_header_id|>{{ message['role'] }}"
-                "<|end_header_id|>\n\n{{ message['content'] }}<|eot_id|>{% endfor %}")
     bos = n_regular
-    Tokenizer(vocab, scores, bos, [bos + 1, bos + 9], chat_template=template,
+    Tokenizer(vocab, scores, bos, [bos + 1, bos + 9], chat_template=SMOKE_CHAT_TEMPLATE,
               special_ids=list(range(n_regular, len(vocab)))).save(path)
 
 
@@ -4863,6 +4897,10 @@ GOLDEN_CONTINUATION = [573, 932, 583, 990, 121, 209, 314, 633, 274, 831,
                        499, 615, 643, 349, 143, 357]
 #: moe phase: greedy tokens a scheme, and decode steps of a timed chunk
 MOE_TOKENS = 16
+#: Mixtral's depth in the moe phase: 8 of its 32 layers (widths not cut), so
+#: that the default smoke, the tools phase after it included, ends inside
+#: its deadline on a slow host
+MOE_LAYERS = 8
 MOE_CHUNK = 4
 #: kernel-name fragments of the matmul kernels in the profiler (K1, K2)
 MM_NAMES = K1_NAMES + CHUNK_MATMUL
@@ -5114,7 +5152,7 @@ def phase_moe(device, prompt: str, mesh: set = frozenset()) -> dict:
               "GB beside the checkout", flush=True)
         one, two = _file_bytes(mixtral_8x7b(1)), _file_bytes(mixtral_8x7b(2))
         per_layer, fixed = two - one, 2 * one - two
-        depth = 32 if fixed + 32 * per_layer + 2e9 <= free else int(
+        depth = MOE_LAYERS if fixed + MOE_LAYERS * per_layer + 2e9 <= free else int(
             (free - 2e9 - fixed) // per_layer)
         if depth < 1:
             fail(f"moe: {free / 1e9:.1f} GB free in {tmp} holds no Mixtral layer")
@@ -6642,6 +6680,649 @@ def phase_mesh_supervision(loaded, mpath: str, tpath: str, device, prompt: str) 
     return launches
 
 
+# ------------------------------------------------------------ phase tools
+
+#: merged pieces the tools phase's tokenizer learns from the repository's
+#: text, and the least it must get (the rest of the 128,000 regular ids are
+#: inert filler pieces)
+TOOLS_MERGES = 24_000
+TOOLS_MIN_MERGES = 20_000
+#: prompt sizes timed through the converted tokenizer (the Python fallback
+#: at the first only: it is quadratic in the prompt)
+TOOLS_TOKENIZE_BYTES = (2_000, 8_000, 32_000)
+TOOLS_SYSTEM_BYTES = 8_000  # the served chats' system prompt
+TOOLS_CHATS = 8
+TOOLS_TOKENS = 16  # greedy tokens a served chat
+TOOLS_STEPS = 8  # the launcher's `inference --steps`
+TOOLS_CHAOS_REQUESTS = 24
+#: tensors the conversion's bytes are held against the numpy path on (a
+#: layer's index: first, middle or last)
+TOOLS_SPOT_CHECK = (("first", "wq"), ("first", "wk"), ("middle", "w2"), ("last", "w3"))
+#: the byte-level BPE learner's pre-tokenizer: an optional space and a run
+#: of other bytes, or a run of whitespace
+BPE_SPLIT = re.compile(rb" ?\S+|\s+")
+
+
+def repo_text() -> bytes:
+    """The repository's own prose: every Markdown file at its root, in name
+    order (the corpus the tools phase's BPE vocabulary is learned from, and
+    its prompts are cut from)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    names = sorted(n for n in os.listdir(root) if n.endswith(".md"))
+    return b"\n".join(open(os.path.join(root, n), "rb").read() for n in names)
+
+
+def learn_bpe(text: bytes, n_merges: int) -> list[tuple[bytes, bytes]]:
+    """Byte-level BPE training on `text`, deterministic: the pair of
+    adjacent pieces with the highest count is merged first (ties by the
+    pair's ids), inside the chunks of BPE_SPLIT, until `n_merges` distinct
+    pieces are learned or no pair is left. -> each new piece's (left,
+    right) halves, in merge order (the ids after the 256 bytes)."""
+    import heapq
+    from collections import Counter, defaultdict
+
+    words = Counter(BPE_SPLIT.findall(text))
+    seqs = [list(w) for w in words]
+    counts = list(words.values())
+    pieces = [bytes([i]) for i in range(256)]
+    index = {p: i for i, p in enumerate(pieces)}
+    pair_count: dict = defaultdict(int)
+    where: dict = defaultdict(set)
+    for wi, seq in enumerate(seqs):
+        for p in zip(seq, seq[1:]):
+            pair_count[p] += counts[wi]
+            where[p].add(wi)
+    heap = [(-c, a, b) for (a, b), c in pair_count.items()]
+    heapq.heapify(heap)
+    merged = []
+    while len(merged) < n_merges and heap:
+        negc, a, b = heapq.heappop(heap)
+        if pair_count.get((a, b), 0) != -negc:
+            continue  # a stale entry: the pair's count moved since
+        piece = pieces[a] + pieces[b]
+        nid = index.get(piece)
+        if nid is None:
+            nid = index[piece] = len(pieces)
+            pieces.append(piece)
+            merged.append((pieces[a], pieces[b]))
+        changed = set()
+        for wi in where.pop((a, b)):
+            seq, c = seqs[wi], counts[wi]
+            out, i, n = [], 0, len(seq)
+            while i < n:
+                if i + 1 < n and seq[i] == a and seq[i + 1] == b:
+                    out.append(nid)
+                    i += 2
+                else:
+                    out.append(seq[i])
+                    i += 1
+            if len(out) == n:
+                continue
+            diff = Counter(zip(out, out[1:]))
+            diff.subtract(zip(seq, seq[1:]))
+            for p, d in diff.items():
+                if d:
+                    pair_count[p] += d * c
+                    changed.add(p)
+                    if d > 0:
+                        where[p].add(wi)
+            seqs[wi] = out
+        pair_count.pop((a, b), None)
+        for p in changed:
+            if pair_count[p] > 0:
+                heapq.heappush(heap, (-pair_count[p], *p))
+    return merged
+
+
+def write_hf_tokenizer(model_dir: str, merged: list[tuple[bytes, bytes]],
+                       vocab_size: int) -> None:
+    """An HF fast tokenizer in the Llama-3 layout into `model_dir`:
+    `tokenizer.json` (byte-level BPE: the 256 bytes, the `merged` pieces,
+    inert filler pieces up to the regular ids, then the 256 Llama-3 special
+    tokens as added tokens) and `tokenizer_config.json` (bos, eos and
+    write_tokenizer's chat template). HF scores are -id, so earlier merges
+    win."""
+    from dllama_tpu_torch.tools.convert_tokenizer import (
+        LLAMA3_NAMED_SPECIALS,
+        N_LLAMA3_SPECIALS,
+        byte_decoder,
+    )
+
+    enc = {b: c for c, b in byte_decoder().items()}
+
+    def alias(piece: bytes) -> str:
+        return "".join(enc[b] for b in piece)
+
+    n_regular = vocab_size - N_LLAMA3_SPECIALS
+    vocab: dict[str, int] = {}
+    for piece in [bytes([i]) for i in range(256)] + [a + b for a, b in merged]:
+        vocab[alias(piece)] = len(vocab)
+    merges = [f"{alias(a)} {alias(b)}" for a, b in merged]
+    i = 0
+    while len(vocab) < n_regular:
+        filler = f"<f{i}>"
+        i += 1
+        if filler not in vocab:
+            vocab[filler] = len(vocab)
+    specials = LLAMA3_NAMED_SPECIALS + [f"<|reserved_special_token_{i}|>"
+                                        for i in range(5, N_LLAMA3_SPECIALS - 5)]
+    tok_json = {
+        "version": "1.0",
+        "added_tokens": [{"id": n_regular + j, "content": s, "special": True}
+                         for j, s in enumerate(specials)],
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": BPE_SPLIT.pattern.decode()}},
+            {"type": "ByteLevel", "add_prefix_space": False}]},
+        "decoder": {"type": "ByteLevel"},
+        "model": {"type": "BPE", "vocab": vocab, "merges": merges},
+    }
+    with open(os.path.join(model_dir, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(tok_json, f, ensure_ascii=False)
+    with open(os.path.join(model_dir, "tokenizer_config.json"), "w", encoding="utf-8") as f:
+        json.dump({"bos_token": "<|begin_of_text|>", "eos_token": "<|end_of_text|>",
+                   "chat_template": SMOKE_CHAT_TEMPLATE}, f)
+
+
+def llama31_8b_hf_config(n_layers: int) -> dict:
+    """Llama-3.1-8B's published `config.json` (meta-llama/Llama-3.1-8B) with
+    its depth cut to `n_layers`."""
+    return {
+        "architectures": ["LlamaForCausalLM"], "attention_bias": False,
+        "attention_dropout": 0.0, "bos_token_id": 128000, "eos_token_id": 128001,
+        "hidden_act": "silu", "hidden_size": 4096, "initializer_range": 0.02,
+        "intermediate_size": 14336, "max_position_embeddings": 131072, "mlp_bias": False,
+        "model_type": "llama", "num_attention_heads": 32, "num_hidden_layers": n_layers,
+        "num_key_value_heads": 8, "pretraining_tp": 1, "rms_norm_eps": 1e-05,
+        "rope_scaling": {"factor": 8.0, "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                         "original_max_position_embeddings": 8192, "rope_type": "llama3"},
+        "rope_theta": 500000.0, "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+        "use_cache": True, "vocab_size": 128256,
+    }
+
+
+def hf_tensor_shapes(hf: dict) -> list[tuple[str, tuple[int, ...]]]:
+    """(name, shape) of every tensor of an HF Llama checkpoint of `hf`."""
+    dim, hidden, vocab = hf["hidden_size"], hf["intermediate_size"], hf["vocab_size"]
+    kv = dim * hf["num_key_value_heads"] // hf["num_attention_heads"]
+    out = [("model.embed_tokens.weight", (vocab, dim))]
+    for li in range(hf["num_hidden_layers"]):
+        p = f"model.layers.{li}."
+        out += [(p + "self_attn.q_proj.weight", (dim, dim)),
+                (p + "self_attn.k_proj.weight", (kv, dim)),
+                (p + "self_attn.v_proj.weight", (kv, dim)),
+                (p + "self_attn.o_proj.weight", (dim, dim)),
+                (p + "mlp.gate_proj.weight", (hidden, dim)),
+                (p + "mlp.up_proj.weight", (hidden, dim)),
+                (p + "mlp.down_proj.weight", (dim, hidden)),
+                (p + "input_layernorm.weight", (dim,)),
+                (p + "post_attention_layernorm.weight", (dim,))]
+    return out + [("model.norm.weight", (dim,)), ("lm_head.weight", (vocab, dim))]
+
+
+def write_safetensors(path: str, shapes: list, make) -> int:
+    """A `.safetensors` file of BF16 tensors, in the format's own layout (an
+    8-byte little-endian header length, the JSON header, then each tensor's
+    raw little-endian bytes in order): `make(name, shape)` gives each
+    tensor, bf16, when its turn comes. -> the bytes of data written."""
+    import numpy as np
+    import torch
+
+    header, at = {"__metadata__": {"format": "pt"}}, 0
+    for name, shape in shapes:
+        n = 2 * int(np.prod(shape))
+        header[name] = {"dtype": "BF16", "shape": list(shape), "data_offsets": [at, at + n]}
+        at += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for name, shape in shapes:
+            t = make(name, shape)
+            assert t.dtype == torch.bfloat16 and tuple(t.shape) == tuple(shape), name
+            f.write(t.contiguous().view(torch.int16).cpu().numpy().data)
+    return at
+
+
+def write_hf_checkpoint(model_dir: str, hf: dict, device, seed: int = 0) -> int:
+    """A BF16 HF checkpoint of `hf` into `model_dir` (`config.json`, two
+    shards and their index), random from `seed` on the device. Each 32-wide
+    block of a projection's input dim is codes -8..7 times one bf16 scale
+    of write_model's range, with one code of the block at -8, so its Q40
+    conversion is exactly those codes and that scale: the network
+    write_model's recipe makes, as well conditioned (codes of mean about
+    -s/2, not 0). The embedding is write_model's too; the norms are ones.
+    -> the bytes of tensor data."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def make(name, shape):
+        if len(shape) == 1:
+            return torch.ones(shape, dtype=torch.bfloat16, device=device)
+        if name == "model.embed_tokens.weight":
+            return ((torch.rand(shape, generator=gen, device=device) - 0.5) * 0.04).to(
+                torch.bfloat16)
+        out, k = shape
+        nb = k // 32
+        codes = torch.randint(0, 16, (out, nb, 32), generator=gen, device=device,
+                              dtype=torch.uint8)
+        at = torch.randint(0, 32, (out, nb, 1), generator=gen, device=device)
+        codes.scatter_(2, at, 0)  # a -8 in every block: the block's scale is exact
+        scale = (torch.rand((out, nb, 1), generator=gen, device=device) * 0.02 + 1e-3).to(
+            torch.bfloat16).float()
+        return ((codes.float() - 8.0) * scale).to(torch.bfloat16).reshape(out, k)
+
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump(hf, f, indent=2)
+    shapes = hf_tensor_shapes(hf)
+    half = hf["num_hidden_layers"] // 2
+    first = [s for s in shapes if s[0] == "model.embed_tokens.weight"
+             or (s[0].startswith("model.layers.") and int(s[0].split(".")[2]) < half)]
+    second = [s for s in shapes if s not in first]
+    names = [f"model-0000{i}-of-00002.safetensors" for i in (1, 2)]
+    total = 0
+    weight_map = {}
+    for fn, part in zip(names, (first, second)):
+        total += write_safetensors(os.path.join(model_dir, fn), part, make)
+        weight_map.update({name: fn for name, _ in part})
+    with open(os.path.join(model_dir, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f, indent=2)
+    return total
+
+
+@contextlib.contextmanager
+def native_off():
+    """The port as DLLAMA_NATIVE=0 leaves it: the numpy/Python paths."""
+    from dllama_tpu_torch.utils import native
+
+    saved, before = (native._lib, native._tried), os.environ.get("DLLAMA_NATIVE")
+    os.environ["DLLAMA_NATIVE"] = "0"
+    native._lib, native._tried = None, False
+    try:
+        yield
+    finally:
+        native._lib, native._tried = saved
+        if before is None:
+            os.environ.pop("DLLAMA_NATIVE", None)
+        else:
+            os.environ["DLLAMA_NATIVE"] = before
+
+
+def _same_file(a: str, b: str, chunk: int = 64 << 20) -> bool:
+    if os.path.getsize(a) != os.path.getsize(b):
+        return False
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while True:
+            x = fa.read(chunk)
+            if x != fb.read(chunk):
+                return False
+            if not x:
+                return True
+
+
+def _split_file(path: str, parts: list[str], chunk: int = 64 << 20) -> None:
+    """`path`'s bytes cut into len(parts) files of nearly equal size."""
+    size = os.path.getsize(path)
+    per = -(-size // len(parts))
+    with open(path, "rb") as f:
+        for part in parts:
+            left = min(per, size - f.tell())
+            with open(part, "wb") as g:
+                while left > 0:
+                    buf = f.read(min(chunk, left))
+                    g.write(buf)
+                    left -= len(buf)
+
+
+def _launched(counts: dict) -> dict:
+    """The kernels of a path's counts that launched."""
+    return {k: v for k, v in counts.items() if v}
+
+
+def _timed(fn, reps: int = 3) -> tuple[float, object]:
+    """Median host ms of `reps` calls of fn(), and its last result."""
+    times, out = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def tools_tokenizer(tmp: str, text: bytes) -> dict:
+    """(b): learn the BPE pieces, write the HF tokenizer, convert it with
+    `convert_tokenizer hf`, time encode. -> the numbers, and the `.t` path
+    under "tpath"."""
+    from dllama_tpu_torch.tokenizer.tokenizer import Tokenizer
+    from dllama_tpu_torch.tools import convert_tokenizer
+
+    t0 = time.perf_counter()
+    merged = learn_bpe(text, TOOLS_MERGES)
+    learn_s = time.perf_counter() - t0
+    if len(merged) < TOOLS_MIN_MERGES:
+        fail(f"tools: only {len(merged)} BPE pieces learned from {len(text)} bytes of the "
+             f"repository's text (want >= {TOOLS_MIN_MERGES})")
+    write_hf_tokenizer(tmp, merged, 128256)
+    tpath = os.path.join(tmp, "tok.t")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = convert_tokenizer.main(["hf", tmp, "--output", tpath])
+    convert_s = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"tools: convert_tokenizer hf failed: {out.getvalue()[-500:]}")
+    tok = Tokenizer.load(tpath)
+    if (len(tok.vocab), tok.bos_id, tok.eos_ids, tok.regular_vocab_size) != (
+            128256, 128000, [128001, 128009], 128000):
+        fail(f"tools: the converted tokenizer is not the Llama-3 layout: {len(tok.vocab)} ids, "
+             f"bos {tok.bos_id}, eos {tok.eos_ids}, {tok.regular_vocab_size} regular")
+    res = {"merged_pieces": len(merged), "learn_s": learn_s, "convert_s": convert_s,
+           "tpath": tpath}
+    src = text.decode("utf-8", "replace")
+    for n in TOOLS_TOKENIZE_BYTES:
+        prompt = src.encode()[:n].decode("utf-8", "ignore")
+        ms, ids = _timed(lambda: tok.encode(prompt))
+        res[f"native_ms_{n}"], res[f"tokens_{n}"] = ms, len(ids)
+        if n == TOOLS_TOKENIZE_BYTES[0]:
+            slow = Tokenizer.load(tpath)
+            slow._native_tried = True  # the Python fallback
+            res[f"fallback_ms_{n}"], fb = _timed(lambda: slow.encode(prompt), reps=1)
+            if fb != ids:
+                fail(f"tools: native and fallback ids differ at {n} bytes")
+    if not tok._native:
+        fail("tools: the tokenizer did not run the native BPE")
+    return res
+
+
+def tools_checkpoint(tmp: str, device) -> dict:
+    """(c): write the 8B-wide BF16 checkpoint, convert it to Q40 with
+    `convert_hf`, spot-check bytes against the numpy path, delete the
+    safetensors. -> the numbers, and the `.m` path under "mpath"."""
+    from dllama_tpu_torch.models import formats
+    from dllama_tpu_torch.tools import convert_hf
+    from dllama_tpu_torch.tools.converter_core import hf_tensor_for
+
+    hf = llama31_8b_hf_config(MESH_LAYERS)
+    t0 = time.perf_counter()
+    data = write_hf_checkpoint(tmp, hf, device)
+    write_s = time.perf_counter() - t0
+    mpath = os.path.join(tmp, "llama31_8b_tools_q40.m")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = convert_hf.main([tmp, "q40", "--output", mpath])
+    convert_s = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"tools: convert_hf failed: {out.getvalue()[-500:]}")
+    cfg, hs = formats.read_header(mpath)
+    want = llama31_8b(MESH_LAYERS)
+    for f in ("dim", "hidden_dim", "n_layers", "n_heads", "n_kv_heads", "vocab_size",
+              "seq_len", "rope_theta", "rope_type", "rope_scaling_factor",
+              "rope_scaling_low_freq_factor", "rope_scaling_high_freq_factor",
+              "rope_scaling_orig_max_seq_len", "weight_type"):
+        if getattr(cfg, f) != getattr(want, f):
+            fail(f"tools: the converted header's {f} is {getattr(cfg, f)}, want "
+                 f"{getattr(want, f)}")
+    src = convert_hf.SafetensorsDir(tmp)
+    at = {"first": 0, "middle": cfg.n_layers // 2, "last": cfg.n_layers - 1}
+    spot = [f"layers.{at[which]}.{short}" for which, short in TOOLS_SPOT_CHECK]
+    raws = {name: raw for name, _, _, raw in formats.iter_tensors(mpath, cfg, hs)
+            if name in spot}
+    t0 = time.perf_counter()
+    with native_off():
+        for name in spot:
+            buf = io.BytesIO()
+            formats.write_tensor(buf, hf_tensor_for(name, cfg, src.get), cfg.weight_type)
+            if buf.getvalue() != raws[name].tobytes():
+                fail(f"tools: {name}'s converted bytes differ from the DLLAMA_NATIVE=0 path's")
+    spot_s = time.perf_counter() - t0
+    src.close()
+    del raws
+    for fn in os.listdir(tmp):
+        if fn.endswith(".safetensors"):
+            os.remove(os.path.join(tmp, fn))
+    return {"checkpoint_gb": data / 1e9, "write_s": write_s, "convert_s": convert_s,
+            "file_gb": os.path.getsize(mpath) / 1e9, "spot_check_s": spot_s,
+            "mpath": mpath, "describe": cfg.describe()}
+
+
+def tools_launch(tmp: str, mpath: str, tpath: str) -> dict:
+    """(d): the converted `.m` cut into two `file://` parts behind a zoo
+    entry, `launch download` (the parts concatenated, the bytes equal),
+    then `launch run --mode inference`'s command. -> the numbers, the
+    downloaded files, and the printed command under "argv"."""
+    from dllama_tpu_torch.tools import launch
+
+    zoo, parts = os.path.join(tmp, "zoo"), []
+    for suffix in launch._parts(2):
+        parts.append(f"{mpath}.{suffix}")
+    t0 = time.perf_counter()
+    _split_file(mpath, parts)
+    split_s = time.perf_counter() - t0
+    entry = launch.ZooModel("smoke_llama31_8b_q40", tuple(f"file://{p}" for p in parts),
+                            f"file://{tpath}", os.path.getsize(mpath) / 1e9)
+    launch.MODELS[entry.name] = entry
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rc = launch.main(["download", entry.name, "--dir", zoo])
+        download_s = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"tools: launch download failed: {out.getvalue()[-500:]}")
+        got = os.path.join(zoo, entry.model_file)
+        if not _same_file(got, mpath) or not _same_file(
+                os.path.join(zoo, entry.tokenizer_file), tpath):
+            fail("tools: the downloaded files' bytes differ from the converted ones")
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            launch.main(["run", entry.name, "--dir", zoo, "--mode", "inference"])
+        argv = out.getvalue().split()
+    finally:
+        del launch.MODELS[entry.name]
+    for p in parts + [mpath]:
+        os.remove(p)
+    if argv[:4] != [sys.executable, "-m", "dllama_tpu_torch", "inference"]:
+        fail(f"tools: launch run printed {' '.join(argv)}")
+    return {"split_s": split_s, "download_s": download_s, "parts": len(parts), "argv": argv,
+            "mpath": got, "tpath": os.path.join(zoo, entry.tokenizer_file)}
+
+
+def tools_serve(mpath: str, tpath: str, device, system: str) -> tuple[dict, dict]:
+    """(e): the CLI's `serve --slots 8 --warmup auto` on the converted
+    files, in a thread of this process (its make_server noted, so its
+    scheduler is read and its server stopped): one chat with the system
+    prompt alone, then TOOLS_CHATS at once, greedy; the server's
+    tokenization ms of the chat; every served id sequence against the
+    single engine's greedy replay of its prompt (near_tie). -> (numbers,
+    launch counts of the chats)."""
+    import types
+
+    from dllama_tpu_torch.cli.main import main as cli
+    from dllama_tpu_torch.engine.sampling import Sampler
+    from dllama_tpu_torch.serve import api as api_mod
+
+    made: dict = {}
+    make_server = api_mod.make_server
+
+    def noted(*a, **kw):
+        made["httpd"], made["api"] = out = make_server(*a, **kw)
+        return out
+
+    port = _free_port()
+    argv = ["serve", "--model", mpath, "--tokenizer", tpath, "--slots", "8", "--warmup",
+            "auto", "--port", str(port), "--max-seq-len", "4096", "--no-mesh",
+            "--device", device.type]
+    api_mod.make_server = noted
+    th = threading.Thread(target=lambda: made.setdefault("rc", cli(argv)), name="tools-serve",
+                          daemon=True)
+    t0 = time.perf_counter()
+    th.start()
+
+    def up() -> bool:
+        if not th.is_alive() or time.perf_counter() - t0 > 600:
+            fail(f"tools: serve did not come up (rc {made.get('rc')})")
+        try:
+            return "httpd" in made and _get_json(port, "/health")[0] == 200
+        except OSError:  # not listening yet
+            return False
+
+    try:
+        while not up():
+            time.sleep(0.25)
+    finally:
+        api_mod.make_server = make_server
+    boot_s = time.perf_counter() - t0
+    api = made["api"]
+    if api.build_info["kv_layout"] != "paged":
+        fail(f"tools: serve --slots 8 resolved the {api.build_info['kv_layout']} layout")
+    res: dict = {"boot_s": boot_s,
+                 "captures": (api.scheduler.warmup_report or {}).get("graphs_captured")}
+    idtrace = IdTrace(api.scheduler)
+
+    def chat(i):
+        return {"messages": [{"role": "system", "content": system},
+                             {"role": "user", "content": f"Question {i}: what does the "
+                              f"section above say about the port?"}],
+                "max_tokens": TOOLS_TOKENS, "temperature": 0}
+
+    msgs = [(m["role"], m["content"]) for m in chat(0)["messages"]]
+    res["tokenize_ms"], ptoks = _timed(lambda: api._encode_chat(msgs, add_bos=True))
+    res["prompt_tokens"] = len(ptoks)
+    try:
+        reset_counters()
+        st, raw, sent = _post_timed(port, chat(0))
+        alone_ms = (time.perf_counter() - sent) * 1e3
+        if st != 200:
+            fail(f"tools: serve answered {st}: {raw[:300]!r}")
+        res["ttft_ms_alone"] = json.loads(raw)["timings"]["ttft_ms"]
+        res["e2e_ms_alone"] = alone_ms
+        resps = _concurrently(lambda i: _post_timed(port, chat(i)),
+                              [(i,) for i in range(1, TOOLS_CHATS + 1)])
+        launches = counters()
+    finally:
+        made["httpd"].shutdown()
+        th.join(timeout=120)
+    if th.is_alive() or made.get("rc") != 0:
+        fail(f"tools: serve did not stop cleanly (rc {made.get('rc')})")
+    bad = [st for st, _, _ in resps if st != 200]
+    if bad:
+        fail(f"tools: {len(bad)} of {TOOLS_CHATS} chats failed: {bad}")
+    ttfts = sorted(json.loads(raw)["timings"]["ttft_ms"] for _, raw, _ in resps)
+    res["ttft_ms_p50"], res["ttft_ms_max"] = statistics.median(ttfts), ttfts[-1]
+    eng = api.engine
+    single = types.SimpleNamespace(engine=eng)
+    ties = []
+    for req_id, (prompt, ids) in idtrace.runs.items():
+        eng.reset(0)
+        ref = list(eng.generate(prompt, len(ids), Sampler(0.0, 0.9, 1)))
+        eng.reset(0)
+        msg = near_tie(single, prompt, ids, ref[:len(ids)], f"tools serve {req_id}")
+        if msg:
+            ties.append(msg)
+    if len(idtrace.runs) != TOOLS_CHATS + 1:
+        fail(f"tools: {len(idtrace.runs)} traced requests, want {TOOLS_CHATS + 1}")
+    res["ids_equal"] = len(idtrace.runs) - len(ties)
+    res["near_ties"] = len(ties)
+    made.clear()
+    return res, launches
+
+
+def phase_tools(device, native_s: float | None) -> dict:
+    """The tools on the card: (a) the native host library, (b) an HF
+    Llama-3 tokenizer of 128,256 ids with BPE pieces learned from the
+    repository's text, converted and timed, (c) an HF checkpoint of
+    Llama-3.1-8B's widths at MESH_LAYERS layers converted to Q40, (d) the
+    zoo launcher's download and `inference` command, (e) the CLI's serve on
+    the converted files, (f) the chaos drill on them. -> launch counts by
+    path ("tools-inference", "tools-serve", "tools-chaos"). `native_s`: the
+    seconds the card phase took to build the native library (None: it was
+    built already)."""
+    import gc
+    import logging
+
+    import torch
+
+    from dllama_tpu_torch.experiments import chaos
+    from dllama_tpu_torch.utils import native
+
+    card = card_line()
+    if not native.available():
+        fail("tools: the native host library did not build or load")
+    print(f"tools (a): native library {native.library_path().name} loaded; "
+          f"{'it was built already' if native_s is None else f'built in {native_s:.2f} s'} "
+          f"[{card}]", flush=True)
+
+    paths: dict[str, dict] = {}
+    with tempfile.TemporaryDirectory(prefix="dllama_smoke_tools_") as tmp:
+        text = repo_text()
+        tk = tools_tokenizer(tmp, text)
+        print(f"tools (b): {tk['merged_pieces']} BPE pieces learned from {len(text)} bytes in "
+              f"{tk['learn_s']:.2f} s; convert_tokenizer hf {tk['convert_s']:.2f} s; encode ms "
+              f"native " + ", ".join(f"{n} B {tk[f'native_ms_{n}']:.2f} ({tk[f'tokens_{n}']} "
+                                     f"tokens)" for n in TOOLS_TOKENIZE_BYTES)
+              + f"; Python fallback {TOOLS_TOKENIZE_BYTES[0]} B "
+              f"{tk[f'fallback_ms_{TOOLS_TOKENIZE_BYTES[0]}']:.1f}, ids equal [{card}]",
+              flush=True)
+        ck = tools_checkpoint(tmp, device)
+        print(f"tools (c): {ck['describe']}: BF16 checkpoint {ck['checkpoint_gb']:.2f} GB "
+              f"written in {ck['write_s']:.1f} s; convert_hf q40 {ck['convert_s']:.1f} s -> "
+              f"{ck['file_gb']:.2f} GB; {len(TOOLS_SPOT_CHECK)} tensors byte-equal to the "
+              f"DLLAMA_NATIVE=0 path ({ck['spot_check_s']:.1f} s) [{card}]", flush=True)
+        ln = tools_launch(tmp, ck["mpath"], tk["tpath"])
+        print(f"tools (d): split into {ln['parts']} file:// parts in {ln['split_s']:.1f} s, "
+              f"launch download {ln['download_s']:.1f} s, bytes equal; launch run: "
+              f"{' '.join(ln['argv'][1:])}", flush=True)
+        prompt = text.decode("utf-8", "replace")[:600]
+        reset_counters()
+        rc, out, stats = _cli(ln["argv"][3:] + ["--prompt", prompt, "--steps", str(TOOLS_STEPS),
+                                                 "--temperature", "0", "--device", device.type])
+        paths["tools-inference"] = counters()
+        if rc != 0 or min(paths["tools-inference"][k] for k in SERVE_KERNELS) == 0:
+            fail(f"tools: the launcher's inference failed or skipped a kernel: rc {rc}, "
+                 f"{paths['tools-inference']}")
+        print(f"tools (d): {' | '.join(stats)}; launches {_launched(paths['tools-inference'])}",
+              flush=True)
+
+        system = text.decode("utf-8", "replace").encode()[
+            len(text) // 2:len(text) // 2 + TOOLS_SYSTEM_BYTES].decode("utf-8", "ignore")
+        sv, paths["tools-serve"] = tools_serve(ln["mpath"], ln["tpath"], device, system)
+        if min(paths["tools-serve"][k] for k in ("q40_decode", "q40_prefill",
+                                                  "paged_attention")) == 0:
+            fail(f"tools: serve skipped K1, K2 or K9: {paths['tools-serve']}")
+        print(f"tools (e): serve --slots 8 --warmup auto up in {sv['boot_s']:.1f} s "
+              f"({sv['captures']} captures); a {TOOLS_SYSTEM_BYTES}-byte system prompt, "
+              f"{sv['prompt_tokens']} tokens, tokenized by the server in "
+              f"{sv['tokenize_ms']:.2f} ms; TTFT alone {sv['ttft_ms_alone']:.1f} ms (e2e "
+              f"{sv['e2e_ms_alone']:.1f}), {TOOLS_CHATS} at once p50 {sv['ttft_ms_p50']:.1f} / "
+              f"max {sv['ttft_ms_max']:.1f} ms; greedy ids equal the single engine's on "
+              f"{sv['ids_equal']}, near ties {sv['near_ties']}; launches "
+              f"{_launched(paths['tools-serve'])} [{card}]", flush=True)
+        gc.collect()
+
+        # every injected fault logs a warning or a traceback (the serve CLI
+        # set logging up); the drill's report holds what it found
+        log = logging.getLogger("dllama_tpu_torch")
+        level = log.level
+        log.setLevel(logging.CRITICAL)
+        reset_counters()
+        try:
+            rep = chaos.run_chaos(n_requests=TOOLS_CHAOS_REQUESTS, seed=0, n_slots=8,
+                                  kv_pages=32, page_size=8, kv_host_pages=16, clients=4,
+                                  device=device, model=ln["mpath"], max_seq_len=4096)
+        finally:
+            log.setLevel(level)
+        paths["tools-chaos"] = counters()
+        if not rep["ok"] or rep["pages_leaked"]:
+            fail(f"tools: the chaos drill failed: {rep['problems']}")
+        rc_ = rep["reconcile"]
+        print(f"tools (f): chaos {TOOLS_CHAOS_REQUESTS} requests on 8 paged slots: "
+              f"{rep['faults_injected']} faults, {rc_['restarts']:.0f} restarts, "
+              f"{rc_['recovered']:.0f} recovered, finishes {rep['finish_reasons']}, "
+              f"leaked {rep['pages_leaked']}, spec {rep['spec']}, host {rep.get('host')}, "
+              f"{rep['elapsed_s']} s; launches {_launched(paths['tools-chaos'])} [{card}]",
+              flush=True)
+    torch.cuda.empty_cache()
+    return paths
+
+
 def _launch_tables():
     from dllama_tpu_torch.experiments import kbench
     from dllama_tpu_torch.ops import (
@@ -6676,7 +7357,7 @@ def main(argv=None) -> int:
                     default="card,kernels,golden,kbench,forward,serve,batch,hybrid,radix,obs,"
                             "supervision,router,inference,styles,spec,spec_batch,graphs,"
                             "dequantize,mesh,mesh_dp_sp,mesh_pp_ep,mesh_supervision,f8,q80,"
-                            "moe",
+                            "moe,tools",
                     help="comma list; not in the default: 'profile' adds a "
                          "torch.profiler pass over one decode chunk, single-stream "
                          "and 8-slot; 'chunk' is the prefill-chunk timing alone (Q40 "
@@ -6713,6 +7394,19 @@ def main(argv=None) -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "arning" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    # the host library (BPE encode, Q40/Q80 quantize), built by the host
+    # compiler before any phase encodes a prompt
+    from dllama_tpu_torch.utils import native
+
+    cached = native.library_path().exists()
+    t0 = time.perf_counter()
+    try:
+        native.build()
+    except (RuntimeError, OSError, subprocess.SubprocessError) as e:
+        fail(f"the native host library did not build: {e}")
+    native_s = None if cached else time.perf_counter() - t0
+    print(f"native: {native.library_path().name} "
+          f"{'cached' if cached else f'built in {native_s:.2f} s'}", flush=True)
     phase_done("card")
 
     cfg = llama31_8b(N_LAYERS_8B)
@@ -6925,6 +7619,10 @@ def main(argv=None) -> int:
         paths["moe"] = phase_moe(device, prompt, mesh=phases & {"mesh", "mesh_pp_ep"})
     multihost.keep_warm(0)
     phase_done("moe", phases)
+
+    if "tools" in phases:
+        paths.update(phase_tools(device, native_s))
+    phase_done("tools", phases)
 
     if results:
         line = []

@@ -543,10 +543,14 @@ class HostKVPool:
     def reset(self) -> None:
         """Drop every entry and free every slab row (a warm restart: a
         half-poisoned chunk may have corrupted the very rows a spill kept).
-        The pinned slab stays where it is; the cumulative counts carry over."""
+        The pinned slab stays where it is; the counts start again at zero,
+        as the JAX package's restart starts a new tier, so spilled = used +
+        restored + dropped holds across restarts."""
         with self._mu:
             self._entries.clear()
             self._free = list(range(self.n_pages - 1, -1, -1))
+            self.spilled = self.restored = self.dropped = self.discarded = 0
+            self.spill_s = 0.0
             self._publish()
 
     def stats(self) -> dict:

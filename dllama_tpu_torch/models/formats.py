@@ -41,6 +41,7 @@ from dllama_tpu_torch.ops.quant import (
     quantize_q80_np,
     slice_leaf,
 )
+from dllama_tpu_torch.utils import native
 
 
 class ModelFileError(ValueError):
@@ -128,20 +129,23 @@ def tensor_plan(config: LlamaConfig) -> list[tuple[str, tuple[int, ...], FloatTy
 
 
 def write_tensor(f, x: np.ndarray, float_type: FloatType) -> int:
-    """Serialize a tensor in the reference byte format (writer.py:29-107)."""
+    """Serialize a tensor in the reference byte format (writer.py:29-107).
+
+    Q40 and Q80 quantization run in C++ when the native library is available
+    (bit-identical to quantize_q40_np / quantize_q80_np; tests pin it)."""
     flat = np.ascontiguousarray(x, dtype=np.float32).reshape(-1)
     if float_type == FloatType.F32:
         buf = flat.tobytes()
     elif float_type == FloatType.F16:
         buf = flat.astype(np.float16).tobytes()
     elif float_type == FloatType.Q40:
-        packed, scales = quantize_q40_np(flat)
+        packed, scales = (native.quantize_q40 if native.available() else quantize_q40_np)(flat)
         rec = np.zeros((packed.shape[0], 2 + Q_BLOCK // 2), dtype=np.uint8)
         rec[:, :2] = scales.reshape(-1, 1).view(np.uint8)
         rec[:, 2:] = packed
         buf = rec.tobytes()
     elif float_type == FloatType.Q80:
-        codes, scales = quantize_q80_np(flat)
+        codes, scales = (native.quantize_q80 if native.available() else quantize_q80_np)(flat)
         rec = np.zeros((codes.shape[0], 2 + Q_BLOCK), dtype=np.uint8)
         rec[:, :2] = scales.reshape(-1, 1).view(np.uint8)
         rec[:, 2:] = codes.view(np.uint8)

@@ -57,8 +57,16 @@ class FloatType(IntEnum):
         return (n_elements // Q_BLOCK) * self.bytes_per_block
 
 
+def parse_float_type(name: str) -> FloatType:
+    try:
+        return FloatType[name.upper()]
+    except KeyError:
+        raise ValueError(f"unsupported float type: {name!r}") from None
+
+
 # ---------------------------------------------------------------------------
-# numpy side: file <-> array codecs (used by the .m writer and reader)
+# numpy side: file <-> array codecs (used by the .m writer, the reader and
+# the converters)
 # ---------------------------------------------------------------------------
 
 
@@ -109,6 +117,43 @@ def dequantize_q80_np(codes: np.ndarray, scales: np.ndarray) -> np.ndarray:
     return out.reshape(*codes.shape[:-2], codes.shape[-2] * Q_BLOCK)
 
 
+def q40_to_bytes(packed: np.ndarray, scales: np.ndarray) -> bytes:
+    """Serialize to the reference's on-disk block stream {f16 scale, 16 bytes}."""
+    nb = packed.reshape(-1, Q_BLOCK // 2).shape[0]
+    rec = np.zeros((nb, 2 + Q_BLOCK // 2), dtype=np.uint8)
+    rec[:, :2] = scales.reshape(-1, 1).view(np.uint8).reshape(nb, 2)
+    rec[:, 2:] = packed.reshape(nb, Q_BLOCK // 2)
+    return rec.tobytes()
+
+
+def q40_from_bytes(buf: bytes, n_elements: int) -> tuple[np.ndarray, np.ndarray]:
+    nb = n_elements // Q_BLOCK
+    rec = np.frombuffer(buf, dtype=np.uint8, count=nb * (2 + Q_BLOCK // 2)).reshape(
+        nb, 2 + Q_BLOCK // 2
+    )
+    scales = rec[:, :2].copy().view(np.float16).reshape(nb)
+    packed = rec[:, 2:].copy()
+    return packed, scales
+
+
+def q80_to_bytes(codes: np.ndarray, scales: np.ndarray) -> bytes:
+    nb = codes.reshape(-1, Q_BLOCK).shape[0]
+    rec = np.zeros((nb, 2 + Q_BLOCK), dtype=np.uint8)
+    rec[:, :2] = scales.reshape(-1, 1).view(np.uint8).reshape(nb, 2)
+    rec[:, 2:] = codes.reshape(nb, Q_BLOCK).view(np.uint8)
+    return rec.tobytes()
+
+
+def q80_from_bytes(buf: bytes, n_elements: int) -> tuple[np.ndarray, np.ndarray]:
+    nb = n_elements // Q_BLOCK
+    rec = np.frombuffer(buf, dtype=np.uint8, count=nb * (2 + Q_BLOCK)).reshape(
+        nb, 2 + Q_BLOCK
+    )
+    scales = rec[:, :2].copy().view(np.float16).reshape(nb)
+    codes = rec[:, 2:].copy().view(np.int8)
+    return codes, scales
+
+
 # ---------------------------------------------------------------------------
 # device side: weights resident in device memory
 # ---------------------------------------------------------------------------
@@ -137,6 +182,17 @@ class QTensor:
         """Logical [..., k, n] (leading axes = layer stacking)."""
         *lead, kh, n = self.packed.shape
         return (*lead, kh * 2, n)
+
+    @classmethod
+    def quantize(cls, w, device="cpu") -> "QTensor":
+        """f32[k, n] -> QTensor on ``device`` (numpy quantization; used by
+        tests and converters)."""
+        w = np.asarray(w, dtype=np.float32)
+        packed, scales = quantize_q40_np(np.ascontiguousarray(w.T))  # [n, k/32, 16]
+        k = w.shape[0]
+        packed = np.transpose(packed, (1, 2, 0)).reshape(k // 2, w.shape[1])
+        scales = np.ascontiguousarray(np.transpose(scales, (1, 0)))  # f16
+        return cls(_as_tensor(packed, device), _as_tensor(scales, device))
 
     @classmethod
     def from_file_layout(cls, packed, scales, n_out: int, k_in: int,

@@ -60,6 +60,8 @@ class Tokenizer:
         self.regular_vocab_size = len(vocab) - len(special)
         self._regular_index = {v: i for i, v in enumerate(vocab) if i not in special}
         self._utf8 = codecs.getincrementaldecoder("utf-8")("replace")
+        self._native = None  # lazily-built native BPE handle (utils/native.py)
+        self._native_tried = False
 
     @staticmethod
     def _heuristic_special_ids(vocab_len: int, bos_id: int, eos_ids: list[int]) -> list[int]:
@@ -179,12 +181,28 @@ class Tokenizer:
                 return tid
         return -1
 
+    def _native_bpe(self):
+        if not self._native_tried:
+            self._native_tried = True
+            from dllama_tpu_torch.utils import native
+
+            if native.available():
+                self._native = native.NativeBpe(self.vocab, self.scores, self._special_ids)
+        return self._native
+
     def encode(self, text: str | bytes, add_bos: bool = True, add_special_tokens: bool = True) -> list[int]:
         """Byte-level BPE (tokenizer.cpp:265-330): greedy special-token scan,
         byte-accumulation to seed tokens, then iterative best-scoring pair
-        merges until no mergeable pair remains."""
+        merges until no mergeable pair remains. The hot loop runs in C++ when
+        the native library is available (identical semantics, tests pin it)."""
         data = text.encode("utf-8") if isinstance(text, str) else bytes(text)
         bos = [self.bos_id] if add_bos and self.bos_id >= 0 else []
+        nat = self._native_bpe()
+        if nat is not None:
+            ids = nat.encode(data, add_special_tokens)
+            if ids is None:
+                raise ValueError("cannot tokenize byte sequence (not in vocab)")
+            return bos + ids
         tokens: list[int] = []
         i = 0
         buf = b""

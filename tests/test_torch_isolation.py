@@ -55,6 +55,45 @@ def test_importing_every_module_loads_no_jax():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+#: packages the card's machine does not have: the converters read their
+#: formats themselves (safetensors, the sentencepiece protobuf, tiktoken's
+#: base64 vocabulary)
+CONVERTER_PACKAGES = ("safetensors", "sentencepiece", "tiktoken", "transformers")
+
+
+def test_no_port_module_imports_the_converter_packages():
+    for path in PORT_FILES:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for n in names:
+                assert n.split(".")[0] not in CONVERTER_PACKAGES, f"{path}: imports {n}"
+
+
+def test_the_import_walk_reaches_the_tools_and_the_chaos_drill():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import dllama_tpu_torch\n"
+        "seen = set()\n"
+        "for m in pkgutil.walk_packages(dllama_tpu_torch.__path__, 'dllama_tpu_torch.'):\n"
+        "    if not m.name.endswith('__main__'):\n"
+        "        importlib.import_module(m.name)\n"
+        "        seen.add(m.name)\n"
+        "want = {'dllama_tpu_torch.tools.' + n for n in ('converter_core', 'convert_hf',\n"
+        "        'convert_llama', 'convert_tokenizer', 'launch')}\n"
+        "want |= {'dllama_tpu_torch.experiments.chaos', 'dllama_tpu_torch.utils.native'}\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {CONVERTER_PACKAGES!r}]\n"
+        "print(sorted(want - seen), bad)\n"
+        "sys.exit(1 if want - seen or bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def _tokenizer(tmp_path) -> str:
     from dllama_tpu_torch.tokenizer.tokenizer import Tokenizer
 
