@@ -250,6 +250,19 @@ if every phase passed:
               paged slots at page 8, the tree and the host tier on,
               captured programs, seeded faults and warm restarts: ok, no
               page leaked.
+27. analysis  the port's invariant analyzer (dllama_tpu_torch/analysis): (a)
+              `python -m dllama_tpu_torch.analysis --json` on this checkout
+              in a child process, no finding, its seconds, torch and jax
+              not loaded; (b) its seeded-violation drill
+              (analysis.smoke: the pristine copy passes, four seeded
+              violations caught at their file:line); (c) a child process
+              with DLLAMA_LOCK_AUDIT=1 serving 8 concurrent chats through
+              the 8-slot server with --warmup auto on the Q40 8B file: no
+              LockOrderError, the page pool's lock audited at rank 20,
+              every capture-ledger function in COMPILE_FNS, no capture
+              after the warm-up, every device_state() tensor at its
+              warm-up address to the end (the runtime half of dev-state),
+              K1/K2/K9 launched; beside it the static lock graph's edges.
 
 Every path runs its decode and prefill chunks as captured CUDA graphs (the
 engines' default on a card); a replay adds the launches its capture recorded to each
@@ -272,7 +285,8 @@ of its suite rows and of `8 w1 B D`, the tile sweep, the flash rows), since
 the benchmark checks no result. `serve`, `batch`, `hybrid`, `radix`, `obs`, `supervision`, `f8`,
 `q80`, `kbench`, `styles`, `spec`, `spec_batch`, `golden`, `dequantize`, `mesh`, `mesh_dp_sp`,
 `mesh_pp_ep`, `mesh_supervision`, `moe` and the tools phase's `tools-inference`,
-`tools-serve` and `tools-chaos` are the main paths: the launch counters are zeroed
+`tools-serve`, `tools-chaos` and `analysis` (counted in its audit-armed child) are the
+main paths: the launch counters are zeroed
 just before each of their runs and read just after it. The `router` phase's kernels run in its
 replica processes, whose counters this process cannot read: its entry in `launches_by_path` is
 null. Not in the default: `profile` adds a torch.profiler pass
@@ -7323,6 +7337,172 @@ def phase_tools(device, native_s: float | None) -> dict:
     return paths
 
 
+#: analysis phase: the streams the audit-armed server serves, and their tokens
+AUDIT_STREAMS = 8
+AUDIT_TOKENS = 32
+
+
+def audit_child(mpath: str, tpath: str, device: str = "cuda:0") -> int:
+    """The analysis phase's runtime half, in a process started with
+    DLLAMA_LOCK_AUDIT=1, so that every named lock it makes is audited:
+    make_server with 8 slots and --warmup auto (what `serve --slots 8
+    --warmup auto` runs) serves AUDIT_STREAMS concurrent chats (greedy,
+    sampled, penalized). Prints one JSON line: the LockOrderErrors raised
+    (every audited acquisition is counted), the capture ledger's functions
+    and its captures after the warm-up, whether every device_state() tensor
+    kept its address from the warm-up to the end, the page pool's lock, the
+    kernels' launches while serving, and the responses."""
+    import torch
+
+    from dllama_tpu_torch.engine.loader import load_model
+    from dllama_tpu_torch.obs import compile as compile_obs
+    from dllama_tpu_torch.serve.api import graceful_drain, make_server
+    from dllama_tpu_torch.utils import locks
+
+    if not locks.armed():
+        print(json.dumps({"error": "DLLAMA_LOCK_AUDIT is not armed"}))
+        return 1
+    errors, acquisitions = [], [0]
+    check = locks.AuditedLock._check
+
+    def counted(lock, site):  # counts every audited acquisition, keeps its verdict
+        acquisitions[0] += 1
+        try:
+            check(lock, site)
+        except locks.LockOrderError as e:
+            errors.append(str(e))
+            raise
+
+    locks.AuditedLock._check = counted
+    loaded = load_model(mpath, tpath, max_seq_len=4096, mesh=None, device=torch.device(device))
+    t0 = time.perf_counter()
+    httpd, api = make_server(loaded, host="127.0.0.1", port=0, n_slots=8, warmup="auto")
+    boot_s = time.perf_counter() - t0
+    eng = api.scheduler.engine
+    mu = eng.pool._mu
+    warm = compile_obs.LEDGER.total_compiles()
+    before = {k: t.data_ptr() for k, t in eng.device_state().items()}
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    port = httpd.server_address[1]
+    bodies = [{"messages": [{"role": "user", "content": p}], "temperature": 0,
+               "max_tokens": AUDIT_TOKENS} for p in batch_prompts(AUDIT_STREAMS)]
+    bodies[1].update(temperature=0.8, top_p=0.9, seed=7)
+    bodies[2].update(temperature=0.8, seed=9, frequency_penalty=0.5, presence_penalty=0.3)
+    try:
+        reset_counters()
+        t0 = time.perf_counter()
+        replies = _concurrently(_post, [(port, b) for b in bodies])
+        serve_s = time.perf_counter() - t0
+        launches = counters()
+    finally:
+        clean = graceful_drain(httpd, api, timeout_s=120)
+        httpd.server_close()
+    after = {k: t.data_ptr() for k, t in eng.device_state().items()}
+    ledger = compile_obs.LEDGER.snapshot(entries=256)
+    tokens = [json.loads(raw)["usage"]["completion_tokens"] if st == 200 else None
+              for st, raw in replies]
+    print(json.dumps({
+        "lock_order_errors": errors, "audited_acquisitions": acquisitions[0],
+        "pool_lock": {"audited": isinstance(mu, locks.AuditedLock),
+                      "name": getattr(mu, "name", None), "rank": getattr(mu, "rank", None),
+                      "reentrant": getattr(mu, "reentrant", None)},
+        "captures_warmup": warm, "captures_after_warmup": ledger["compiles"] - warm,
+        "ledger_fns": sorted({e["fn"] for e in ledger["entries"]}),
+        "off_catalog_fns": sorted({e["fn"] for e in ledger["entries"]}
+                                  - set(compile_obs.COMPILE_FNS)),
+        "device_state": len(before), "moved": sorted(k for k in before
+                                                     if after.get(k) != before[k]),
+        "new_state": sorted(set(after) - set(before)),
+        "statuses": [st for st, _ in replies], "tokens": tokens, "drained": clean,
+        "launches": launches, "boot_s": round(boot_s, 3), "serve_s": round(serve_s, 3)}))
+    return 0
+
+
+def phase_analysis(mpath: str, tpath: str) -> dict:
+    """(a) `python -m dllama_tpu_torch.analysis --json` on this checkout in a
+    child process: no finding, and neither torch nor jax loaded; (b) the
+    seeded-violation drill (dllama_tpu_torch.analysis.smoke); (c)
+    audit_child in a process with DLLAMA_LOCK_AUDIT=1: no LockOrderError,
+    only COMPILE_FNS labels, no capture after the warm-up, every
+    device_state() tensor at its address; and the static lock graph's edge
+    count beside it. Returns the child's launch counts."""
+    from dllama_tpu_torch.analysis import smoke
+    from dllama_tpu_torch.analysis.core import Project
+    from dllama_tpu_torch.analysis.rules_locks import build_graph
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "dllama_tpu_torch.analysis", "--json"],
+                         cwd=root, capture_output=True, text=True, timeout=120)
+    wall = time.perf_counter() - t0
+    try:
+        doc = json.loads(out.stdout)
+    except ValueError:
+        fail(f"analysis: the analyzer printed no JSON (exit {out.returncode}): "
+             f"{(out.stdout + out.stderr)[-2000:]}")
+    print(f"analysis (a): {doc['count']} finding(s) over {doc['files']} files, {doc['rules']} "
+          f"rules, {doc['seconds']} s inside the analyzer ({wall:.2f} s with the interpreter); "
+          f"the child loaded {doc['loaded']} of torch, jax, dllama_tpu", flush=True)
+    for d in doc["findings"]:
+        print(f"  {d['path']}:{d['line']}: {d['rule']} {d['message']}")
+    if out.returncode != 0 or doc["count"] != 0 or doc["loaded"] != []:
+        fail(f"analysis (a): exit {out.returncode}, {doc['count']} finding(s), loaded "
+             f"{doc['loaded']}")
+    drill = smoke.drill(root)
+    print(f"analysis (b): pristine copy exit {drill['pristine_rc']} with "
+          f"{drill['pristine_findings']} finding(s); seeded copy exit {drill['seeded_rc']}, "
+          f"reported {drill['reported']} ({drill['seconds']} s)", flush=True)
+    if not drill["ok"]:
+        fail(f"analysis (b): the drill failed: {drill}")
+    edges = build_graph(Project.from_disk(root))[0]
+    env = dict(os.environ, DLLAMA_LOCK_AUDIT="1")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", "import sys, chip_smoke; "
+                          f"sys.exit(chip_smoke.audit_child({mpath!r}, {tpath!r}))"],
+                         cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    lines = out.stdout.strip().splitlines()
+    try:
+        rep = json.loads(lines[-1])
+    except (ValueError, IndexError):
+        fail(f"analysis (c): the audit-armed child failed (exit {out.returncode}): "
+             f"{(out.stdout + out.stderr)[-3000:]}")
+    print(f"analysis (c): DLLAMA_LOCK_AUDIT=1 child, {child_s:.1f} s (boot with --warmup auto "
+          f"{rep.get('boot_s')} s, {AUDIT_STREAMS} streams {rep.get('serve_s')} s): "
+          f"{len(rep.get('lock_order_errors', []))} LockOrderError in "
+          f"{rep.get('audited_acquisitions')} audited acquisitions; pool lock "
+          f"{rep.get('pool_lock')}; {rep.get('captures_warmup')} captures in the warm-up, "
+          f"{rep.get('captures_after_warmup')} after, ledger fns {rep.get('ledger_fns')}; "
+          f"{rep.get('device_state')} device_state() tensors, moved {rep.get('moved')}; "
+          f"tokens {rep.get('tokens')}; launches "
+          f"{ {k: v for k, v in (rep.get('launches') or {}).items() if v} }; static lock "
+          f"graph: {len(edges)} edges ({len(set(edges))} distinct)", flush=True)
+    pool = rep.get("pool_lock", {})
+    problems = [
+        out.returncode != 0 and f"exit {out.returncode}",
+        rep.get("lock_order_errors") and f"LockOrderError {rep['lock_order_errors'][:2]}",
+        not rep.get("audited_acquisitions") and "no audited acquisition",
+        (pool.get("audited"), pool.get("name"), pool.get("rank"), pool.get("reentrant"))
+        != (True, "engine.pool", 20, True) and f"pool lock {pool}",
+        rep.get("off_catalog_fns") and f"ledger fns outside COMPILE_FNS {rep['off_catalog_fns']}",
+        not rep.get("captures_warmup") and "the warm-up captured nothing",
+        rep.get("captures_after_warmup") != 0
+        and f"{rep.get('captures_after_warmup')} capture(s) after the warm-up",
+        (rep.get("moved") or rep.get("new_state")) and
+        f"device_state() tensors moved {rep.get('moved')} or appeared {rep.get('new_state')}",
+        rep.get("statuses") != [200] * AUDIT_STREAMS and f"statuses {rep.get('statuses')}",
+        any(not t for t in rep.get("tokens") or [None]) and f"tokens {rep.get('tokens')}",
+        not rep.get("drained") and "the server did not drain clean",
+    ]
+    problems = [p for p in problems if p]
+    if problems:
+        fail(f"analysis (c): {'; '.join(problems)}; stderr {out.stderr[-1500:]}")
+    for k in ("q40_decode", "q40_prefill", "paged_attention"):
+        if not rep["launches"].get(k):
+            fail(f"analysis (c): {k} was never launched while the audit-armed server served")
+    return rep["launches"]
+
+
 def _launch_tables():
     from dllama_tpu_torch.experiments import kbench
     from dllama_tpu_torch.ops import (
@@ -7357,7 +7537,7 @@ def main(argv=None) -> int:
                     default="card,kernels,golden,kbench,forward,serve,batch,hybrid,radix,obs,"
                             "supervision,router,inference,styles,spec,spec_batch,graphs,"
                             "dequantize,mesh,mesh_dp_sp,mesh_pp_ep,mesh_supervision,f8,q80,"
-                            "moe,tools",
+                            "moe,tools,analysis",
                     help="comma list; not in the default: 'profile' adds a "
                          "torch.profiler pass over one decode chunk, single-stream "
                          "and 8-slot; 'chunk' is the prefill-chunk timing alone (Q40 "
@@ -7436,7 +7616,7 @@ def main(argv=None) -> int:
     if phases & {"forward", "chunk", "serve", "profile", "batch", "hybrid", "radix", "obs",
                   "supervision", "router", "inference", "styles", "spec", "spec_batch",
                   "graphs", "dequantize", "mesh", "mesh_dp_sp", "mesh_pp_ep",
-                  "mesh_supervision", "f8"}:
+                  "mesh_supervision", "f8", "analysis"}:
         from dllama_tpu_torch.engine.loader import load_model
 
         tmp = tempfile.TemporaryDirectory(prefix="dllama_smoke_")
@@ -7584,6 +7764,9 @@ def main(argv=None) -> int:
         if "dequantize" in phases:
             paths["dequantize"] = phase_dequantize(loaded, device, mpath, tpath, prompt)
         phase_done("dequantize", phases)
+        if "analysis" in phases:
+            paths["analysis"] = phase_analysis(mpath, tpath)
+        phase_done("analysis", phases)
         if phases & {"mesh", "mesh_dp_sp", "mesh_pp_ep", "mesh_supervision"}:
             # the mesh worlds (here and at the end of moe) come one after
             # another: each finds its followers' processes started ahead,

@@ -57,7 +57,6 @@ engine's explicit device, and every method that runs device work enters
 from __future__ import annotations
 
 import logging
-import threading
 import time
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -79,7 +78,7 @@ from dllama_tpu_torch.obs import trace
 from dllama_tpu_torch.ops.layers import build_rope_cache
 from dllama_tpu_torch.parallel.collectives import resolve_sync
 from dllama_tpu_torch.parallel.multihost import mirrored
-from dllama_tpu_torch.utils import faults
+from dllama_tpu_torch.utils import faults, locks
 
 log = logging.getLogger("dllama_tpu_torch.engine")
 
@@ -125,7 +124,7 @@ class PagePool:
         self.tables = np.zeros((n_slots, max_blocks), np.int32)
         self.n_blocks = np.zeros(n_slots, np.int32)
         self._free: list[int] = list(range(n_pages - 1, -1, -1))
-        self._mu = threading.RLock()
+        self._mu = locks.make_rlock("engine.pool")
         #: run audit() after every release (tests turn it on)
         self.audit_on_release = False
         #: provider of per-page TREE reference counts and the tree's own
@@ -1638,7 +1637,7 @@ class BatchEngine:
             return [b.clone() for b in bufs], None
         host = [torch.empty(b.shape, dtype=b.dtype, pin_memory=True) for b in bufs]
         for h, b in zip(host, bufs):
-            h.copy_(b, non_blocking=True)
+            h.copy_(b, non_blocking=True)  # dllama: allow[transfer-note] noted where the host reads it: decode_tokens, spec_counts, nan_guard
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(self.device))
         return host, event

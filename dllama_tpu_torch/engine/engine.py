@@ -178,6 +178,22 @@ class InferenceEngine:
         self._dec_samp = torch.zeros((4, batch), dtype=torch.float32, device=self.device)
         self._dec_counts: torch.Tensor | None = None
 
+    def device_state(self) -> dict[str, torch.Tensor]:
+        """Every engine-owned tensor a prefill, decode or spec program reads
+        or writes, by name (BatchEngine.device_state's counterpart). A
+        captured program holds their addresses, so no method may replace
+        one: they are refilled in place, and the lazily made ones (the
+        occurrence counts, the spec tensors) are made once."""
+        out = {"cache.k": self.cache.k, "cache.v": self.cache.v, "token": self._dec_tok,
+               "pos": self._dec_pos, "sampling": self._dec_samp}
+        if self._dec_counts is not None:
+            out["counts"] = self._dec_counts
+        if self._spec_hist is not None:
+            out.update({"spec.history": self._spec_hist, "spec.counters": self._spec_ctr,
+                        "spec.n": self._spec_n})
+        out.update({f"spec.out{k}": t for k, t in self._spec_out.items()})
+        return out
+
     def _logits(self, tokens: torch.Tensor, pos, last_only: bool = True) -> torch.Tensor:
         """One forward at `pos` (an int, or a [B] tensor); returns f32
         logits: the last position's [B, V], or with ``last_only=False``

@@ -47,6 +47,12 @@ from dllama_tpu_torch.ops import flash_attention, paged_attention
 from dllama_tpu_torch.ops.layers import MOE_IMPLS, gqa_attention, paged_gqa_attention
 from dllama_tpu_torch.ops.matmul import engine_matmul, resolve_backend
 
+#: the paged layout's attention routes, the single definition site: the
+#: kernel with its fused KV scatter, and the plain block-table gather (the
+#: analyzer's gate-routes rule holds the README port-route table to it)
+PAGED_ROUTES = ("paged_kernel", "paged_gather")
+KERNEL_ROUTE, GATHER_ROUTE = PAGED_ROUTES
+
 
 @dataclass
 class KernelSelection:
@@ -77,14 +83,14 @@ def resolve_kernels(cfg: LlamaConfig, kernels: str = "auto", device="cpu", paged
         return KernelSelection(mm, sp_attention, backend, "ring")
     if paged:
         if backend == "torch" or not on_cuda:
-            return KernelSelection(mm, paged_gqa_attention, backend, "paged_gather")
+            return KernelSelection(mm, paged_gqa_attention, backend, GATHER_ROUTE)
         if not paged_attention.paged_decode_supported((cfg.n_heads, cfg.head_size), page_size,
                                                       cache_dtype):
             raise NotImplementedError(
                 f"the paged attention kernel does not take page size {page_size}, head "
                 f"size {cfg.head_size} and {cache_dtype} pools (page >= 8, page % 8 == 0, "
                 f"head size in {paged_attention.HEAD_SIZES}, bf16/f32); use --kernels torch")
-        return KernelSelection(mm, _paged_kernel_attn, backend, "paged_kernel",
+        return KernelSelection(mm, _paged_kernel_attn, backend, KERNEL_ROUTE,
                                paged_attention.FUSED_SCATTER_MAX_T)
     if backend == "torch" or (on_cuda and not flash_attention.supported(cfg.head_size)):
         return KernelSelection(mm, gqa_attention, backend, "torch")

@@ -93,7 +93,7 @@ import torch.distributed as dist
 
 from dllama_tpu_torch.parallel import collectives
 from dllama_tpu_torch.parallel.mesh import Mesh, MeshConfig, axis_ranks
-from dllama_tpu_torch.utils import faults
+from dllama_tpu_torch.utils import faults, locks
 
 log = logging.getLogger("dllama_tpu_torch")
 
@@ -207,7 +207,7 @@ class Link:
 
     def __init__(self, group, digest):
         self.group = group
-        self.lock = threading.RLock()
+        self.lock = locks.make_rlock("parallel.link")
         self.local = threading.local()
         self.next_id = 1
         self.closed = False

@@ -81,7 +81,6 @@ from __future__ import annotations
 
 import logging
 import os
-import threading
 import time
 from dataclasses import dataclass, field
 
@@ -158,7 +157,7 @@ _plan_lock = locks.make_lock("faults.plan")
 #: held by every change of the plan; a mesh's rank 0 holds it across each
 #: mirrored call (parallel/multihost.Link), so a plan never changes between
 #: the message that carries it and the call it governs
-edit_lock = threading.RLock()
+edit_lock = locks.make_rlock("faults.edit")
 _version = [0]  # bumped by every change of the plan (version())
 
 

@@ -1,5 +1,7 @@
 """Named locks with an optional runtime lock-order sanitizer: a copy of the
-JAX package's ``utils/locks.py`` (the port imports nothing of that package).
+JAX package's ``utils/locks.py`` (the port imports nothing of that package),
+whose rank table adds three locks of the port's own (``parallel.link``,
+``faults.edit``, ``engine.graphs``).
 
 The serving stack holds a web of small locks across five-plus threads
 (scheduler worker, watchdog, HTTP handlers, drain thread, profiler timer):
@@ -9,8 +11,9 @@ registries (metrics families, tracer ring, compile ledger, perf windows),
 and the fault-injection plan. None of them may ever deadlock a scrape or a
 request thread, so the stack commits to ONE global acquisition order — the
 rank table below, lowest rank acquired first, innermost (leaf) locks
-ranked highest. The JAX package checks the static half with its analyzer
-(``lock-order``/``lock-leaf`` rules, not ported); this module is the
+ranked highest. The static half of the contract is the port's analyzer
+(``python -m dllama_tpu_torch.analysis``: its ``lock-order``/``lock-leaf``
+rules build the cross-module lock graph from the AST); this module is the
 runtime half, the stack's lockdep:
 
 * every lock is created through :func:`make_lock` / :func:`make_rlock`
@@ -64,12 +67,23 @@ LOCK_RANKS = {
     "serve.frontend": 7,
     # the scheduler's completed-request/stall-sample ring
     "scheduler.metrics": 10,
+    # rank 0's command channel on a mesh (parallel/multihost.Link.lock,
+    # reentrant): held across each whole mirrored call, which the engine
+    # then makes under it (the port's own)
+    "parallel.link": 12,
+    # the fault plan's edit lock (utils/faults.edit_lock, reentrant): every
+    # change of the plan, and rank 0 across each mirrored call (the port's)
+    "faults.edit": 14,
     # the paged-KV allocator (PagePool._mu, reentrant: the radix tree
     # shares it and audit() re-enters through the tree's audit hook)
     "engine.pool": 20,
     # fault-injection plan table and per-point firing windows
     "faults.plan": 30,
     "faults.point": 32,
+    # CUDA-graph captures and replays against a profiler's start and stop
+    # (utils/profiling.GRAPH_GATE); a capture records itself in the ledger
+    # under it (the port's own)
+    "engine.graphs": 36,
     # compile ledger + shape contract (obs/compile.py)
     "obs.ledger": 40,
     "obs.contract": 42,

@@ -69,7 +69,7 @@ MAX_PROFILE_SECONDS = 60.0
 #: exit, the replay in ``CUDAGraph.replay``; torch 2.11, CUDA 12.8, an H100,
 #: about one stop in ten under 8-stream decode). A replay waits out a stop
 #: (seconds) as it waits out the stop's hold on the interpreter anyway.
-GRAPH_GATE = threading.Lock()
+GRAPH_GATE = locks.make_lock("engine.graphs")
 
 #: how long POST /debug/profile waits for the capture to start
 START_TIMEOUT_S = 60.0
