@@ -100,9 +100,9 @@ if every phase passed:
 11. q80       after the Q40 files are gone, a synthetic 8B Q80 `.m` loaded
               packed: the forward against the plain versions, the prefill
               chunk's device time (K6 + K7) as in `forward`, HTTP serve on
-              the single-engine tier, the 8-slot batched server with the
-              RMSNorm switch at 'cuda' (K10) and phase-split admission
-              (--prefill-budget 0), and the CLI's `inference
+              the single-engine tier, the 8-slot batched server with
+              phase-split admission (--prefill-budget 0) and K10's device
+              time inside its decode graph, and the CLI's `inference
               --fuse-weights`, whose greedy text must equal the unfused
               engine's; Q80 kernels on every forward and no Q40 launch.
 12. kbench    the kernel benchmark (dllama_tpu_torch.experiments.kbench):
@@ -145,7 +145,15 @@ if every phase passed:
               `serve --slots 8 --warmup auto` in a child process: its boot
               report (full coverage), and its first request's content equal
               to a server's without warmup.
-17. supervision the 8-slot server at its defaults with --warmup auto,
+17. norm      the RMSNorm kernel (K10) against the plain norm
+              (ops/layers.RMS_NORM_IMPL "cuda" and "torch") in the captured
+              programs of the Q40 8B model, in turns (K10, plain, plain,
+              K10): a one-stream decode step, an 8-slot paged decode step
+              and a 256-token prefill chunk at pos 0 and 2048, each with
+              wall, stream and busy ms and device operations; 32 greedy ids
+              under each norm equal or first apart at a near tie; K10's
+              device ms inside the 8-slot decode graph.
+18. supervision the 8-slot server at its defaults with --warmup auto,
               --restart-max 2 and --stall-deadline-s 2: (a) 8 streams of 128
               tokens (5 greedy, 2 sampled, 1 penalized) run once, then again
               with an engine.decode raise armed after 32 frames of the first:
@@ -161,7 +169,7 @@ if every phase passed:
               bit-equal to 64 uninterrupted (K1/K7); (f) a
               --transfer-guard strict server serves 8 streams, and an
               .item() put into its guarded window raises.
-18. router    two CLI `serve --slots 8 --warmup auto` replicas on the card
+19. router    two CLI `serve --slots 8 --warmup auto` replicas on the card
               and the CLI `router --failover-max 2` in front: the handshake,
               4 requests sharing a system prompt on one replica, a greedy and
               a sampled stream through the router, then the same two with
@@ -172,15 +180,15 @@ if every phase passed:
               dllama_router_failovers_total{outcome="resumed"} advanced; the
               survivor's /debug/kv clean; /router/metrics federating both
               replicas, /router/fleet joining them.
-19. golden    tests/fixtures/golden_tiny.m (head size 16, which no attention
+20. golden    tests/fixtures/golden_tiny.m (head size 16, which no attention
               kernel takes) under --kernels auto: the Q40 kernels with the
               plain attention on the single engine and on an 8-slot
               BatchEngine, 16 greedy tokens each equal to the JAX package's
               pinned continuation or first apart at a near tie.
-20. dequantize the Q40 8B file loaded with --dequantize (dense bf16 weights,
+21. dequantize the Q40 8B file loaded with --dequantize (dense bf16 weights,
               torch.matmul): its forward within TOL_FWD of the kernels', no
               Q40 launch; then the CLI's `inference --dequantize`.
-21. moe       Mixtral-8x7B at its published widths, depth cut to MOE_LAYERS
+22. moe       Mixtral-8x7B at its published widths, depth cut to MOE_LAYERS
               (8 of 32) for the smoke's deadline (random Q40 weights from
               seed 0, 7.1 GB, context cut to 4096; cut further only where the
               temp filesystem cannot hold the file, and then printed): the
@@ -193,25 +201,25 @@ if every phase passed:
               at 1 and 8 slots and a 256-token chunk, wall, stream and busy,
               and their device time split by launch order: expert products,
               projections, attention, the MoE FFN's plain operations.
-22. mesh      tensor parallelism at tp=2 on the 8B widths cut to 8 layers, Q40
+23. mesh      tensor parallelism at tp=2 on the 8B widths cut to 8 layers, Q40
               (one card: both ranks on it over gloo, exchanges staged
               through host memory, programs eager; two or more: NCCL,
               captured): logits, ids of
               the single engine and 8 dense slots, each rank's launches and
               exchange bytes, then the checks' power on a 2-layer model of
               codes of mean 0 with two faults planted in the exchange.
-23. mesh_dp_sp the dp and sp axes on the 8B Q40 file, every rank on this
+24. mesh_dp_sp the dp and sp axes on the 8B Q40 file, every rank on this
               card over gloo (a harness): the CLI refusing --mesh dp=2 and
               sp=2 by the device count; dp=2 with 8 dense slots (ids, each
               replica's launches, the ranks' digests); dp=2 x tp=2 logits;
               sp=2 through a 2,000-token prefill, a chunk across the shard
               boundary (the ring) and 8 decode steps (the LSE merge); a
               dropped partial planted in the merge on the power model.
-24. mesh_pp_ep the pp and ep axes on the same file (pp=2, tp=2 x pp=2,
+25. mesh_pp_ep the pp and ep axes on the same file (pp=2, tp=2 x pp=2,
               pp_micro=2; with moe, Mixtral at ep=2 and ep=2 x tp=2), every
               rank on this card over gloo, and two faults planted in the
               stage hop and the expert partials.
-25. mesh_supervision supervision on a mesh, the same file, every rank on this
+26. mesh_supervision supervision on a mesh, the same file, every rank on this
               card over gloo (a harness): (a) a tp=2 4-slot dense Scheduler
               with restart_max=2: 4 greedy streams of 64 tokens, then again
               with engine.decode:raise armed after 16 chunks (rank 0's plan,
@@ -225,7 +233,7 @@ if every phase passed:
               a session saved on one device loaded on pp=2 and continued
               there; the seconds of each save and load; (d) each rank's
               K1/K2/K7 launches.
-26. tools     the port's tools at Llama-3.1-8B's widths (depth cut to 8
+27. tools     the port's tools at Llama-3.1-8B's widths (depth cut to 8
               layers): (a) the native host library built from
               dllama_tpu_torch/utils/csrc with the host compiler (a failed
               build fails); (b) an HF `tokenizer.json` in the Llama-3 layout
@@ -250,7 +258,7 @@ if every phase passed:
               paged slots at page 8, the tree and the host tier on,
               captured programs, seeded faults and warm restarts: ok, no
               page leaked.
-27. analysis  the port's invariant analyzer (dllama_tpu_torch/analysis): (a)
+28. analysis  the port's invariant analyzer (dllama_tpu_torch/analysis): (a)
               `python -m dllama_tpu_torch.analysis --json` on this checkout
               in a child process, no finding, its seconds, torch and jax
               not loaded; (b) its seeded-violation drill
@@ -267,8 +275,9 @@ if every phase passed:
 Every path runs its decode and prefill chunks as captured CUDA graphs (the
 engines' default on a card); a replay adds the launches its capture recorded to each
 wrapper's count, so the launch counts below are counted through replays.
-The q80 phase also profiles one 8-slot chunk with the CUDA RMSNorm (K10's
-device time inside the graph).
+Every forward on a path whose kernels are CUDA runs its 2L+1 norms
+through K10 (ops/rms_norm.kernel_norm), and each path's launch checks count
+them.
 
 The kernels phase also holds K1 and K5 (the decode body csrc/decode.cuh)
 against the plain version of their own arithmetic (exact-code partials,
@@ -283,8 +292,8 @@ K1 at 9 rows and K7 at 9 query rows (the spec verify forward); and
 every kernel the kbench phase launches on kbench's own inputs (each variant
 of its suite rows and of `8 w1 B D`, the tile sweep, the flash rows), since
 the benchmark checks no result. `serve`, `batch`, `hybrid`, `radix`, `obs`, `supervision`, `f8`,
-`q80`, `kbench`, `styles`, `spec`, `spec_batch`, `golden`, `dequantize`, `mesh`, `mesh_dp_sp`,
-`mesh_pp_ep`, `mesh_supervision`, `moe` and the tools phase's `tools-inference`,
+`q80`, `kbench`, `styles`, `spec`, `spec_batch`, `norm`, `golden`, `dequantize`, `mesh`,
+`mesh_dp_sp`, `mesh_pp_ep`, `mesh_supervision`, `moe` and the tools phase's `tools-inference`,
 `tools-serve`, `tools-chaos` and `analysis` (counted in its audit-armed child) are the
 main paths: the launch counters are zeroed
 just before each of their runs and read just after it. The `router` phase's kernels run in its
@@ -340,6 +349,8 @@ SPREAD = [0, 127, 128, 1000, 2047, 2900, 3500, 4095]
 #: batch phase: one request at a time would give exactly 1 live slot a chunk
 MIN_BATCH_SLOTS = 2.0
 SERVE_KERNELS = ("q40_decode", "q40_prefill", "flash_attention")
+#: a mesh rank's kernels whose launches are compared with one device's
+RANK_KERNELS = SERVE_KERNELS + ("rms_norm",)
 Q40_KERNELS = ("q40_decode", "q40_prefill", "q40_maskdot", "q40_loopdot")
 #: kernel of each forced decode style of q40_matmul.STYLE
 STYLE_KERNELS = {"maskdot": "q40_maskdot", "loopdot": "q40_loopdot", "deq": "q40_prefill"}
@@ -378,7 +389,7 @@ KERNEL_ROWS = {
     "q80_prefill": ("w1 4096x14336 m=256", "dllama_tpu_torch/ops/csrc/q80_prefill.cu",
                     "dllama_tpu/ops/pallas/q80_matmul.py:29", "q80"),
     "rms_norm": ("m=1 x 4096", "dllama_tpu_torch/ops/csrc/rms_norm.cu",
-                 "dllama_tpu/ops/pallas/rms_norm.py:23", "q80"),
+                 "dllama_tpu/ops/pallas/rms_norm.py:23", "batch"),
     "flash_attention_f8": ("T=1 pos=4095 S=4096 group=4 f8 cache",
                            "dllama_tpu_torch/ops/csrc/flash_attention.cu",
                            "dllama_tpu/ops/pallas/flash_attention.py:49", "f8"),
@@ -430,6 +441,45 @@ def mm_per_forward(cfg) -> int:
     and the feed-forward's w1, w3, w2 a layer (an MoE layer: each expert's
     three, every expert), then wcls."""
     return (4 + 3 * max(1, cfg.n_experts)) * cfg.n_layers + 1
+
+
+def norm_per_forward(n_layers: int, final: bool = True) -> int:
+    """RMSNorm kernel (K10) launches a forward on an engine whose kernels
+    are CUDA: two a layer and, where `final` (all but a pp stage before the
+    last), the final norm; 0 where ops/layers RMS_NORM_IMPL keeps the plain
+    norm."""
+    from dllama_tpu_torch.ops import layers
+
+    return 2 * n_layers + final if layers.RMS_NORM_IMPL == "cuda" else 0
+
+
+def norm_want(n_layers: int, forwards: int) -> dict:
+    """K10's entry in an exact launch count of `forwards` forwards."""
+    n = norm_per_forward(n_layers) * forwards
+    return {"rms_norm": n} if n else {}
+
+
+def check_norm_launches(launches: dict, forwards: int, n_layers: int, label: str,
+                        final: bool = True, exact: bool = False) -> None:
+    """At least (`exact`: exactly) norm_per_forward K10 launches in each of
+    `forwards` forwards (none where the route is the plain norm)."""
+    per = norm_per_forward(n_layers, final)
+    got = launches.get("rms_norm", 0)
+    if got < per * forwards or ((exact or per == 0) and got != per * forwards):
+        fail(f"{label}: {got} rms_norm launches for {forwards} forwards (want "
+             f"{'' if exact or per == 0 else 'at least '}{per} each)")
+
+
+def check_rank_norms(ranks: list, n_layers: int, label: str, pp: int = 1,
+                     forwards: int = 1, exact: bool = False) -> None:
+    """check_norm_launches on each rank's launches (multihost.rank_launches)
+    of `forwards` forwards: a rank of a tp, dp, sp or ep world runs the
+    norms of all n_layers layers and the final norm; on a pp=`pp` world
+    (one rank a stage, in stage order) a stage runs its n_layers / pp
+    layers' norms, and the last stage the final norm too."""
+    for r, got in enumerate(ranks):
+        check_norm_launches(got, forwards, n_layers // pp, f"{label} rank {r}",
+                            final=pp == 1 or r == pp - 1, exact=exact)
 
 
 def llama31_8b(n_layers: int, weight_type: str = "Q40"):
@@ -615,11 +665,55 @@ def matmul_cases(cfg, device, timer, gen, fmt: str, plan, layer: int = 1, tp: in
     return results
 
 
-def rms_norm_cases(cfg, device, timer) -> dict:
-    """K10 on bf16 rows of the model width, against its plain version."""
+def parent_rms_norm(path: str | None):
+    """The parent tree's K10, for its time beside this tree's in the same
+    call: `path` is that tree's csrc/rms_norm.cu (e.g. written by `git show
+    HEAD~:dllama_tpu_torch/ops/csrc/rms_norm.cu`, outside the package),
+    built by nvcc into a temporary directory with the package's flags, its
+    C entry rms_norm(x, w, out, rows, d, x_stride, eps, dtype, stream).
+    -> fn(x, w, eps) -> out, or None without a path."""
+    import ctypes
+
+    import torch
+
+    from dllama_tpu_torch.ops import build
+
+    if not path:
+        return None
+    if not os.path.exists(path):
+        fail(f"kernels: the parent K10 source {path} does not exist")
+    lib_dir = tempfile.mkdtemp(prefix="dllama_k10_parent_")
+    so = os.path.join(lib_dir, "librms_norm_parent.so")
+    out = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", so, path],
+                         capture_output=True, text=True)
+    if out.returncode:
+        fail(f"kernels: the parent K10 did not build: {out.stdout}{out.stderr}")
+    fn = ctypes.CDLL(so).rms_norm
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                                           ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(x, w, eps):
+        d = x.shape[-1]
+        o = torch.empty_like(x)
+        err = fn(x.data_ptr(), w.data_ptr(), o.data_ptr(), x.numel() // d, d, d, float(eps),
+                 0 if x.dtype == torch.bfloat16 else 1,
+                 torch.cuda.current_stream().cuda_stream)
+        build.check("rms_norm (parent)", err)
+        return o
+
+    return run
+
+
+def rms_norm_cases(cfg, device, timer, parent=None) -> dict:
+    """K10 at the path's shapes (m = 1, 8, 256 rows of the model width in
+    bf16, m = 1 in f32) against its plain version, with the parent tree's
+    kernel (`parent`, parent_rms_norm) timed beside it on the same inputs;
+    one output recomputed bit-equal (the fixed reduction order)."""
     import torch
     import torch.nn.functional as F
 
+    from dllama_tpu_torch.ops import rms_norm as k10
     from dllama_tpu_torch.ops.layers import rms_norm_plain
     from dllama_tpu_torch.ops.rms_norm import rms_norm
 
@@ -627,19 +721,39 @@ def rms_norm_cases(cfg, device, timer) -> dict:
     d, eps = cfg.dim, cfg.norm_epsilon
     w = 1.0 + 0.1 * torch.randn((d,), generator=gen, device=device)
     cases = []
-    for m in (1, 8, 256):
-        x = (torch.randn((m, d), generator=gen, device=device) * 3).to(torch.bfloat16)
+    for m, dt in ((1, torch.bfloat16), (8, torch.bfloat16), (256, torch.bfloat16),
+                  (1, torch.float32)):
+        x = (torch.randn((m, d), generator=gen, device=device) * 3).to(dt)
+        before = k10.LAUNCHES["rms_norm"]
         got, ref = rms_norm(x, w, eps), rms_norm_plain(x, w, eps)
+        if k10.LAUNCHES["rms_norm"] != before + 1:
+            fail(f"rms_norm m={m}: the wrapper did not launch the kernel once")
         torch.cuda.synchronize()
-        wb = w.to(torch.bfloat16)
-        b, by = bound_ms(2 * m * d * 2 + d * 4, 4.0 * m * d)
-        case = dict(case=f"m={m} x {d}", max_abs_err=(got.float() - ref.float()).abs().max().item(),
-                    tol=TOL_K10 * ref.float().abs().max().item(),
+        wl = w.to(dt)
+        es = x.element_size()
+        b, by = bound_ms(2 * m * d * es + d * 4, 4.0 * m * d)
+        tag = "" if dt == torch.bfloat16 else " f32"
+        case = dict(case=f"m={m} x {d}{tag}",
+                    max_abs_err=(got.float() - ref.float()).abs().max().item(),
+                    tol=(1e-5 if dt == torch.float32 else TOL_K10) * ref.float().abs().max().item(),
                     ms=timer(lambda: rms_norm(x, w, eps)),
                     plain_ms=timer(lambda: rms_norm_plain(x, w, eps)),
-                    library_ms=timer(lambda: F.rms_norm(x, (d,), wb, eps)),
-                    library="F.rms_norm with the weight in bf16", bound_ms=b, bound_by=by)
+                    library_ms=timer(lambda: F.rms_norm(x, (d,), wl, eps)),
+                    library=f"F.rms_norm with the weight in {dt}", bound_ms=b, bound_by=by,
+                    geometry=k10.geometry(d))
+        if parent is not None:
+            perr = (parent(x, w, eps).float() - ref.float()).abs().max().item()
+            if not perr <= case["tol"]:
+                fail(f"rms_norm m={m}: the parent kernel is {perr} from the plain version")
+            case["parent_ms"] = timer(lambda: parent(x, w, eps))
         report("rms_norm", case)
+        print(f"    geometry {case['geometry']} (threads, vectors a thread); "
+              f"parent kernel [{case.get('parent_ms', 'not given')}] ms", flush=True)
+        if m == 256:
+            again = rms_norm(x, w, eps)
+            if not torch.equal(got, again):
+                fail("rms_norm m=256: a second run differs from the first")
+            print("    m=256: a second run bit-equal to the first", flush=True)
         cases.append(case)
     return {"rms_norm": cases}
 
@@ -684,9 +798,10 @@ def flash_f8_cases(cfg, device, timer) -> dict:
     return {"flash_attention_f8": cases}
 
 
-def phase_kernels(cfg, device, timer, layer=1):
-    """Each kernel against its plain version at the main path's shapes.
-    Returns {kernel: [case dicts]}."""
+def phase_kernels(cfg, device, timer, layer=1, k10_parent=None):
+    """Each kernel against its plain version at the main path's shapes
+    (`k10_parent`: parent_rms_norm's kernel, timed beside K10). Returns
+    {kernel: [case dicts]}."""
     import torch
     import torch.nn.functional as F
 
@@ -782,7 +897,7 @@ def phase_kernels(cfg, device, timer, layer=1):
                                                       ("wq", 256), ("wk", 256))]
     results.update(matmul_cases(cfg, device, timer, torch.Generator(device=device).manual_seed(3),
                                 "q80", plan, layer))
-    results.update(rms_norm_cases(cfg, device, timer))
+    results.update(rms_norm_cases(cfg, device, timer, k10_parent))
     results.update(flash_f8_cases(cfg, device, timer))
     return results
 
@@ -1065,16 +1180,15 @@ def edges_slice3(device) -> None:
     launching its kernel), a ragged n with and without aligned loads, an odd
     count of 32-row k blocks, 2-D weights; a wide weight's first columns
     bit-equal to the narrow weight's (the fused wqkv/w13 case) at decode and
-    at prefill row counts that split one and not the other; RMSNorm on f32,
-    on a strided row slice and on a width that is no multiple of 1024; the
-    f8 cache at head size 64 with per-row positions and T = 7."""
+    at prefill row counts that split one and not the other; K10's edges
+    (edges_rms_norm); the f8 cache at head size 64 with per-row positions
+    and T = 7."""
     import torch
 
     from dllama_tpu_torch.ops import q80_matmul as q80
     from dllama_tpu_torch.ops.flash_attention import flash_gqa_attention
-    from dllama_tpu_torch.ops.layers import gqa_attention, rms_norm_plain
+    from dllama_tpu_torch.ops.layers import gqa_attention
     from dllama_tpu_torch.ops.quant import Q8Tensor
-    from dllama_tpu_torch.ops.rms_norm import rms_norm
 
     gen = torch.Generator(device=device).manual_seed(6)
     f32 = torch.float32
@@ -1110,20 +1224,7 @@ def edges_slice3(device) -> None:
               f"weight's: {same}", flush=True)
         if not same:
             fail(f"q80 edge m={m}: a column's sum depends on the weight's width")
-    w = 1.0 + 0.1 * torch.randn((4096,), generator=gen, device=device)
-    for label, x, wt in (
-            ("f32 3x5x4096", torch.randn((3, 5, 4096), generator=gen, device=device), w),
-            ("bf16 row slice x[:, -1:] of 2x7x4096",
-             torch.randn((2, 7, 4096), generator=gen, device=device).to(torch.bfloat16)[:, -1:],
-             w),
-            ("bf16 9x264", torch.randn((9, 264), generator=gen, device=device).to(torch.bfloat16),
-             w[:264])):
-        got, ref = rms_norm(x, wt, 1e-5), rms_norm_plain(x, wt, 1e-5)
-        err = (got.float() - ref.float()).abs().max().item()
-        tol = (1e-5 if x.dtype == f32 else TOL_K10) * ref.float().abs().max().item()
-        print(f"  edge rms_norm {label}: err {err:.3e} <= tol {tol:.3e}", flush=True)
-        if not (got.shape == x.shape and err <= tol):
-            fail(f"rms_norm edge {label}: max error {err} over {tol}")
+    edges_rms_norm(device, gen)
     f8 = torch.float8_e4m3fn
     for b, t, hq, hkv, hd, s, pos in ((2, 1, 8, 4, 64, 1000, [5, 900]),
                                       (2, 7, 8, 4, 64, 1000, [0, 990]),
@@ -1139,6 +1240,69 @@ def edges_slice3(device) -> None:
               f"err {err:.3e} <= tol {TOL_K7:.0e}", flush=True)
         if not err <= TOL_K7:
             fail(f"flash f8 edge B={b} T={t} hd={hd} S={s}: max error {err} over {TOL_K7}")
+
+
+def edges_rms_norm(device, gen) -> None:
+    """K10 against its plain version off the 8B shapes, each launching the
+    kernel once: f32 rows; strided row slices x[:, -1:] (the lm-head's) in
+    bf16 and f32; ragged widths (8, 64: the golden fixture's, 264, 5120,
+    14336) and rows (17: a prefill geometry; 300 rows of 64 and of 5120);
+    16,392, past the one-pass instances (the looped one). Then the
+    programmatic dependent launch inside a CUDA graph: a torch kernel and
+    K10 after it, captured and replayed, bit-equal to the same two launched
+    eagerly."""
+    import torch
+
+    from dllama_tpu_torch.ops import rms_norm as k10
+    from dllama_tpu_torch.ops.layers import rms_norm_plain
+    from dllama_tpu_torch.ops.rms_norm import rms_norm
+
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def rnd(*shape, dt=bf16):
+        return (torch.randn(shape, generator=gen, device=device) * 2).to(dt)
+
+    cases = [("f32 3x5x4096", rnd(3, 5, 4096, dt=f32)),
+             ("bf16 row slice x[:, -1:] of 2x7x4096", rnd(2, 7, 4096)[:, -1:]),
+             ("f32 row slice x[:, -1:] of 3x9x4096", rnd(3, 9, 4096, dt=f32)[:, -1:]),
+             ("bf16 17x4096", rnd(17, 4096))]
+    cases += [(f"bf16 {m}x{d}", rnd(m, d)) for m, d in ((2, 8), (5, 64), (300, 64), (9, 264),
+                                                        (3, 5120), (300, 5120), (4, 14336),
+                                                        (2, 16392))]
+    for label, x in cases:
+        d = x.shape[-1]
+        wt = 1.0 + 0.1 * torch.randn((d,), generator=gen, device=device)
+        before = k10.LAUNCHES["rms_norm"]
+        got, ref = rms_norm(x, wt, 1e-5), rms_norm_plain(x, wt, 1e-5)
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = (1e-5 if x.dtype == f32 else TOL_K10) * ref.float().abs().max().item()
+        geom = k10.geometry(d)
+        print(f"  edge rms_norm {label} {geom}: err {err:.3e} <= tol {tol:.3e}", flush=True)
+        if not (got.shape == x.shape and err <= tol and k10.LAUNCHES["rms_norm"] == before + 1):
+            fail(f"rms_norm edge {label}: max error {err} over {tol}, or not one launch")
+    x, wt = rnd(8, 4096), 1.0 + 0.1 * torch.randn((4096,), generator=gen, device=device)
+
+    def pair():
+        return rms_norm(x * 1.5, wt, 1e-5)  # K10 right after a torch kernel
+
+    eager = pair()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        pair()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=s):
+        out = pair()
+    for _ in range(3):
+        g.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(out, eager):
+            fail("rms_norm: the captured launch (programmatic dependent launch in a graph) "
+                 "differs from the eager one")
+    print("  edge rms_norm: K10 after a torch kernel, captured in a CUDA graph and replayed "
+          "3 times, bit-equal to the eager launch", flush=True)
+    del g
 
 
 def style_case(style: str, x, w, layer, label: str):
@@ -1564,7 +1728,7 @@ def write_tokenizer(path: str, vocab_size: int) -> None:
 
 def forward_logits(loaded, device, runs: dict, prefill: int = 256, decode: int = 8,
                    verify: int = 9) -> dict:
-    """Every run of `runs` (label -> (params, mm, attn)) through the whole
+    """Every run of `runs` (label -> (params, mm, attn, norm)) through the whole
     forward on a fresh cache of the engine's cache dtype: a prefill, decode
     steps, then one forward of `verify` tokens with every position's
     logits, the shape of a spec verify forward (k + 1 rows at --spec 8), all
@@ -1579,21 +1743,21 @@ def forward_logits(loaded, device, runs: dict, prefill: int = 256, decode: int =
     toks = torch.randint(0, cfg.vocab_size, (1, prefill + decode + verify), generator=gen,
                          device=device)
     out = {}
-    for label, (params, mm, attn) in runs.items():
+    for label, (params, mm, attn, norm) in runs.items():
         cache = KVCache.create(cfg, 1, eng.cache.k.dtype, eng.seq_len, device)
         outs = []
         with torch.no_grad():
             logits, _ = forward(cfg, params, toks[:, :prefill], 0, cache,
-                                eng.rope_cache, attn, mm, last_only=True)
+                                eng.rope_cache, attn, mm, last_only=True, norm=norm)
             outs.append(logits[:, -1])
             for i in range(decode):
                 p = prefill + i
                 logits, _ = forward(cfg, params, toks[:, p : p + 1], p, cache,
-                                    eng.rope_cache, attn, mm, last_only=True)
+                                    eng.rope_cache, attn, mm, last_only=True, norm=norm)
                 outs.append(logits[:, -1])
             p = prefill + decode
             logits, _ = forward(cfg, params, toks[:, p : p + verify], p, cache,
-                                eng.rope_cache, attn, mm, last_only=False)
+                                eng.rope_cache, attn, mm, last_only=False, norm=norm)
             outs.extend(logits.unbind(1))
         out[label] = torch.stack(outs)
         del cache
@@ -1608,13 +1772,14 @@ def phase_forward(loaded, device, prefill: int = 256, decode: int = 8, verify: i
 
     import torch
 
-    from dllama_tpu_torch.ops.layers import gqa_attention
+    from dllama_tpu_torch.ops.layers import gqa_attention, rms_norm_plain
     from dllama_tpu_torch.ops.matmul import matmul
 
     eng = loaded.engine
     runs = forward_logits(loaded, device, {
-        "kernels": (eng.params, eng.mm, eng.attn_fn),
-        "plain": (eng.params, functools.partial(matmul, backend="torch"), gqa_attention)},
+        "kernels": (eng.params, eng.mm, eng.attn_fn, eng.norm),
+        "plain": (eng.params, functools.partial(matmul, backend="torch"), gqa_attention,
+                  rms_norm_plain)},
         prefill, decode, verify)
     ref = runs["plain"]
     if not torch.isfinite(runs["kernels"]).all():
@@ -1666,7 +1831,7 @@ def prefill_chunk_ms(loaded, device, positions=(0, 2048), chunk: int = 256, reps
 
     def run(pos):
         forward(cfg, eng.params, toks, pos, cache, eng.rope_cache, attn_fn, eng.mm,
-                last_only=True)
+                last_only=True, norm=eng.norm)
 
     # the spin's clock: cycles per ms of torch.cuda._sleep
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2090,7 +2255,7 @@ def phase_batch(loaded, n_slots: int = 8, max_tokens: int = 32,
     drain. The launch counters are zeroed before the requests and read
     after them: every forward launches the model's matmul kernels
     (`mm_kernels`, those of its weight format, and no other format's) at
-    least mm_per_forward times. `server_kw` goes to make_server (e.g.
+    least mm_per_forward times and K10 norm_per_forward times. `server_kw` goes to make_server (e.g.
     warmup="auto"); the captures the server made and those outside its
     warm-up's contract are returned.
     With phase-split admission (budget 0) decode must really run batched:
@@ -2195,6 +2360,7 @@ def phase_batch(loaded, n_slots: int = 8, max_tokens: int = 32,
         fail(f"batch: {launches} for {forwards} batched forwards (want >= "
              f"{loaded.config.n_layers} paged_attention and >= {per_fwd} {mm_kernels} launches "
              f"each, no other matmul kernel, 0 flash_attention)")
+    check_norm_launches(launches, forwards, loaded.config.n_layers, "batch")
     report = eng.pool.audit(raise_on_fail=False)
     if not (clean and report["ok"] and report["free"] == report["total"]):
         fail(f"batch: drain clean {clean}, pool after it {report}")
@@ -2260,6 +2426,21 @@ def phase_profile_batch(loaded, n_slots: int = 8, steps: int = 8, names=K1_NAMES
             "top": [(name[:60], round(us / steps / 1e3, 4)) for us, name in top]}
 
 
+#: kernel-name fragment of K10 in the profiler
+K10_NAMES = ("rms_norm_kernel",)
+
+
+def k10_in_graph(label: str, prof: dict) -> float:
+    """Print K10's device ms inside a captured 8-slot decode step
+    (phase_profile_batch with names=K10_NAMES) -> ms a launch."""
+    per = prof["q40_ms_per_step"] / max(prof["q40_launches_per_step"], 1)
+    print(f"{label}: K10 inside the decode graph {prof['q40_ms_per_step']:.4f} ms in "
+          f"{prof['q40_launches_per_step']:.1f} launches a step ({per:.5f} ms a launch) of "
+          f"{prof['device_ms_per_step']:.3f} ms device time; {prof['wall_ms_per_step']:.3f} "
+          f"ms a step wall", flush=True)
+    return per
+
+
 # ------------------------------------------------------------ phases 7-8
 
 
@@ -2276,8 +2457,9 @@ def check_forward(loaded, device, label: str) -> float:
 def serve_checked(loaded, prompt: str, label: str, mm_kernels: tuple, per_fwd: int,
                   attn: str) -> dict:
     """phase_serve with the launch counters zeroed just before and read just
-    after: at least `per_fwd` launches of `mm_kernels` and n_layers of
-    `attn` per forward, none of the other weight format's kernels."""
+    after: at least `per_fwd` launches of `mm_kernels`, n_layers of `attn`
+    and norm_per_forward of K10 per forward, none of the other weight
+    format's kernels."""
     n_layers = loaded.config.n_layers
     f0 = loaded.engine.forwards
     reset_counters()
@@ -2290,6 +2472,7 @@ def serve_checked(loaded, prompt: str, label: str, mm_kernels: tuple, per_fwd: i
     if mm < per_fwd * fwd or launches[attn] < n_layers * fwd or other:
         fail(f"{label}: {mm} {mm_kernels} / {launches[attn]} {attn} launches for {fwd} "
              f"forwards (want >= {per_fwd} / {n_layers} each and no other matmul kernel)")
+    check_norm_launches(launches, fwd, n_layers, label)
     return launches
 
 
@@ -2345,19 +2528,17 @@ def q80_model(tmp: str, device):
 def phase_q80(device, prompt: str) -> dict:
     """A synthetic Llama-3.1-8B Q80 `.m` at full width and depth, loaded
     packed: the forward through K5/K6 against the plain versions; HTTP on
-    the single-engine tier; `serve --slots 8` (paged, K9) with the RMSNorm
-    switch at 'cuda' (K10 on a served path; restored after); the CLI's
-    `inference --fuse-weights`, whose greedy text must equal the unfused
-    engine's. Every sub-check zeroes the launch counters just before it and
-    reads them just after: Q80 kernels on every forward (>= 7L+1 unfused,
-    >= 4L+1 fused per forward) and no Q40 launch; >= 2L+1 rms_norm launches
-    per forward with the switch on. Returns the launches summed over the
-    sub-checks."""
+    the single-engine tier; `serve --slots 8` (paged, K9, K10) and K10's
+    device time inside its decode graph; the CLI's `inference
+    --fuse-weights`, whose greedy text must equal the unfused engine's.
+    Every sub-check zeroes the launch counters just before it and reads
+    them just after: Q80 kernels on every forward (>= 7L+1 unfused, >= 4L+1
+    fused per forward) and no Q40 launch; 2L+1 rms_norm launches per
+    forward. Returns the launches summed over the sub-checks."""
     import torch
 
     from dllama_tpu_torch.cli.main import main as cli
     from dllama_tpu_torch.engine.sampling import Sampler
-    from dllama_tpu_torch.ops import layers
 
     n_layers = N_LAYERS_8B
     with tempfile.TemporaryDirectory(prefix="dllama_smoke_q80_") as tmp:
@@ -2372,23 +2553,11 @@ def phase_q80(device, prompt: str) -> dict:
 
         add(serve_checked(loaded, prompt, "q80 serve", Q80_KERNELS, 7 * n_layers + 1,
                           "flash_attention"))
-        layers.RMS_NORM_IMPL = "cuda"
-        try:
-            # phase-split admission: the Q80 server keeps the occupancy check
-            batch = phase_batch(loaded, mm_kernels=Q80_KERNELS, prefill_budget=0)
-            k10 = phase_profile_batch(loaded, names=("rms_norm_kernel",))
-        finally:
-            layers.RMS_NORM_IMPL = "torch"
-        k10_per = k10["q40_ms_per_step"] / max(k10["q40_launches_per_step"], 1)
-        print(f"q80 batch K10 inside the decode graph: {k10['q40_ms_per_step']:.4f} ms in "
-              f"{k10['q40_launches_per_step']:.1f} launches a step ({k10_per:.5f} ms a launch) "
-              f"of {k10['device_ms_per_step']:.3f} ms device time; {k10['wall_ms_per_step']:.3f} "
-              f"ms a step wall", flush=True)
+        # phase-split admission: the Q80 server keeps the occupancy check
+        batch = phase_batch(loaded, mm_kernels=Q80_KERNELS, prefill_budget=0)
+        k10_in_graph("q80 batch", phase_profile_batch(loaded, names=K10_NAMES))
         launches = batch.pop("launches")
         print(f"q80 batch: {batch}; launches {launches}", flush=True)
-        if launches["rms_norm"] < (2 * n_layers + 1) * batch["forwards"]:
-            fail(f"q80 batch: {launches['rms_norm']} rms_norm launches for "
-                 f"{batch['forwards']} forwards (want >= {2 * n_layers + 1} each)")
         add(launches)
 
         # the unfused engine's greedy text, as the CLI prints it
@@ -2527,6 +2696,8 @@ def phase_styles(loaded, device, mpath: str, tpath: str, prompt: str,
         if rc or decode < 1 or others or cli_l[kernel] < per_fwd * decode or not cli_l["q40_prefill"]:
             fail(f"styles {style} inference: rc {rc}, {decode} decode forwards, launches {cli_l} "
                  f"(want >= {per_fwd} {kernel} each, K2 on prefill, none of {others})")
+        check_norm_launches(cli_l, decode, n_layers, f"styles {style} inference")
+        check_norm_launches(fwd, 10, n_layers, f"styles {style} forward")
         out[style] = launches
     return out
 
@@ -2566,6 +2737,7 @@ def phase_spec(loaded, mpath: str, tpath: str) -> dict:
     if (rc or not cycles or launches["q40_decode"] < (7 * n_layers + 1) * cycles
             or launches["flash_attention"] < n_layers * cycles):
         fail(f"spec inference: rc {rc}, {cycles} verify forwards, launches {launches}")
+    check_norm_launches(launches, cycles, n_layers, "spec inference")
 
     ptoks = tok.encode(prompt, add_bos=True)
     ids = {}
@@ -2944,14 +3116,16 @@ def phase_spec_batch(loaded) -> dict:
 # ------------------------------------------------------------ phase 12
 
 
-def chunk_timing(run, steps: int, reps: int = 5) -> dict:
+def chunk_timing(run, steps: int, reps: int = 5, profile: bool = True) -> dict:
     """One decode chunk of `steps` steps, `run` (which ends when its tokens
     are on the host), a step's share of: the wall ms (host clock, median of
     `reps` runs); the stream ms (CUDA events around a run that a ~50 ms
     spin kernel holds back until the host has enqueued it, median of
     `reps`: the chunk's device window with the host out of its way); the
     device ms (the device operations torch.profiler saw in one more run,
-    summed); and the busy share device / wall."""
+    summed, and by kernel name: `by_name`, device_ops' dict over the run);
+    and the busy share device / wall. Without `profile`, wall and stream
+    only."""
     import torch
 
     run()  # captures where needed
@@ -2971,6 +3145,8 @@ def chunk_timing(run, steps: int, reps: int = 5) -> dict:
         b.synchronize()
         streams.append(a.elapsed_time(b))
     wall = statistics.median(walls)
+    if not profile:
+        return {"wall_ms": wall / steps * 1e3, "stream_ms": statistics.median(streams) / steps}
     torch.cuda.synchronize()
     with profiled(cuda_only=True) as prof:
         run()
@@ -2979,17 +3155,18 @@ def chunk_timing(run, steps: int, reps: int = 5) -> dict:
     device_s = sum(v[0] for v in ops.values()) / 1e6
     return {"wall_ms": wall / steps * 1e3, "device_ms": device_s / steps * 1e3,
             "busy": device_s / wall, "device_ops": sum(v[1] for v in ops.values()) / steps,
-            "stream_ms": statistics.median(streams) / steps}
+            "stream_ms": statistics.median(streams) / steps, "by_name": ops}
 
 
-def prefill_timing(run, reps: int = 5) -> dict:
+def prefill_timing(run, reps: int = 5, profile: bool = True) -> dict:
     """One prefill chunk, `run` (which returns the chunk's logits on the
     card): the wall ms (host clock around the run and a synchronize, median
     of `reps`), the stream ms (CUDA events around a run that a spin kernel
     holds back until the host has enqueued it, median of `reps`) and the
     host ms of that enqueue (median), then the busy ms (the device
     operations torch.profiler saw in one more run, summed) split into
-    matmul, attention and the rest, and the number of device operations."""
+    matmul, attention and the rest, and the number of device operations
+    (without `profile`: wall, stream and host only)."""
     import torch
 
     run()  # captures where needed
@@ -3012,6 +3189,10 @@ def prefill_timing(run, reps: int = 5) -> dict:
         b.record()
         b.synchronize()
         streams.append(a.elapsed_time(b))
+    times = dict(wall_ms=statistics.median(walls) * 1e3, stream_ms=statistics.median(streams),
+                 host_ms=statistics.median(hosts) * 1e3)
+    if not profile:
+        return times
     torch.cuda.synchronize()
     with profiled(cuda_only=True) as prof:
         run()
@@ -3022,8 +3203,7 @@ def prefill_timing(run, reps: int = 5) -> dict:
                "attention_ms" if any(k in name for k in CHUNK_ATTENTION) else "other_ms")
         split[key] += us / 1e3
         split["ops"] += count
-    return dict(split, wall_ms=statistics.median(walls) * 1e3,
-                stream_ms=statistics.median(streams), host_ms=statistics.median(hosts) * 1e3,
+    return dict(split, **times,
                 busy_ms=split["matmul_ms"] + split["attention_ms"] + split["other_ms"])
 
 
@@ -3253,8 +3433,8 @@ def phase_graphs(loaded, mpath: str, tpath: str, prompt: str) -> dict:
             return e.decode_greedy_n([[last]], n)
 
         timing = chunk_timing(run, n, reps=5 if capture else 2)
-        replay_launches(run, {"q40_decode": per_fwd * n, "flash_attention": cfg.n_layers * n},
-                        f"graphs single-stream {label}")
+        replay_launches(run, {"q40_decode": per_fwd * n, "flash_attention": cfg.n_layers * n,
+                              **norm_want(cfg.n_layers, n)}, f"graphs single-stream {label}")
         stats = e.programs.stats()
         single[label] = dict(ids=ids, host_ms=None, graphs=stats["graphs"],
                              capture_s=stats["capture_s"], **timing)
@@ -3292,8 +3472,8 @@ def phase_graphs(loaded, mpath: str, tpath: str, prompt: str) -> dict:
             return be.decode(n)
 
         timing = chunk_timing(run, n, reps=5 if capture else 2)
-        replay_launches(run, {"q40_decode": per_fwd * n, "paged_attention": cfg.n_layers * n},
-                        f"graphs 8 slots {label}")
+        replay_launches(run, {"q40_decode": per_fwd * n, "paged_attention": cfg.n_layers * n,
+                              **norm_want(cfg.n_layers, n)}, f"graphs 8 slots {label}")
         timing["host_ms"] = host_ms(lambda: be.decode_dispatch(n), be.decode_consume,
                                     reps=5 if capture else 2)
         stats = be.programs.stats()
@@ -3356,6 +3536,127 @@ def phase_graphs(loaded, mpath: str, tpath: str, prompt: str) -> dict:
           f"warmup ({len(got)} characters)", flush=True)
     out["warmup"] = report
     return out
+
+
+#: norm phase: the turns of the RMSNorm route (ops/layers.RMS_NORM_IMPL), the
+#: timed runs of each measurement, and the greedy tokens compared
+NORM_TURNS = ("cuda", "torch", "torch", "cuda")
+NORM_REPS = 3
+NORM_TOKENS = 32
+
+
+def phase_norm(loaded, prompt: str) -> dict:
+    """K10 against the plain norm (ops/layers.RMS_NORM_IMPL "cuda" and
+    "torch") in the captured programs of the Q40 8B model, in turns
+    (NORM_TURNS) in this one process: a one-stream decode step (the loaded
+    engine, GRAPH_CHUNK["single"] steps a chunk), an 8-slot paged decode
+    step (page 128, GRAPH_CHUNK["batch"]) and a 256-token prefill chunk at
+    pos 0 and 2048 (the single engine's `step`); wall and stream ms of the
+    decode steps in every turn and of the prefill chunks, busy ms and device
+    operations (the profiler) in each route's first turn (chunk_timing,
+    prefill_timing), the medians of each route's turns printed side by
+    side, and K10's device ms a launch inside
+    the 8-slot decode graph (its profile). A switch of the
+    route captures new programs (the switch is one of the capture key's
+    knobs). NORM_TOKENS greedy ids of one stream under each route must be
+    equal, or first apart at a near tie. Returns the launches of the K10
+    turns."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from dllama_tpu_torch.engine.batch import BatchEngine
+    from dllama_tpu_torch.engine.sampling import Sampler
+    from dllama_tpu_torch.ops import layers
+
+    cfg, eng, tok = loaded.config, loaded.engine, loaded.tokenizer
+    if eng.norm.__name__ != "kernel_norm":
+        fail(f"norm: the engine's norm is {eng.norm.__name__}, want the kernel's route")
+    route0 = layers.RMS_NORM_IMPL
+    ptoks = tok.encode(prompt, add_bos=True)
+    be = BatchEngine(cfg, eng.params, n_slots=8, cache_dtype=eng.cache.k.dtype,
+                     max_seq_len=eng.seq_len, kv_layout="paged", page_size=128,
+                     device=eng.device)
+    for slot, p in enumerate(batch_prompts(8)):
+        be.add(slot, tok.encode(p), temperature=0.0)
+    chunk = np.random.default_rng(12).integers(0, cfg.vocab_size, (1, 256))
+    n1, n8 = GRAPH_CHUNK["single"], GRAPH_CHUNK["batch"]
+    ids, runs, k10_ms = {}, {}, []
+    launches: dict[str, int] = {}
+    try:
+        for turn, route in enumerate(NORM_TURNS):
+            t0 = time.perf_counter()
+            layers.RMS_NORM_IMPL = route
+            first = route not in ids
+            if first:
+                eng.reset(0)
+                ids[route] = list(eng.generate(ptoks, NORM_TOKENS + 1, Sampler(0.0, 0.9, 0),
+                                               chunk=n1))
+            start, last = len(ptoks), ids[route][0]
+
+            def single(start=start, last=last):
+                eng.reset(start)
+                return eng.decode_greedy_n([[last]], n1)
+
+            def prefill(pos):
+                eng.reset(pos)
+                return eng.step(chunk)
+
+            reset_counters()
+            res = {"1 stream": chunk_timing(single, n1, NORM_REPS, first),
+                   "8 slots": chunk_timing(lambda: be.decode(n8), n8, NORM_REPS, first)}
+            for pos in PROGRAM_POSITIONS if first else ():
+                res[f"chunk 256 pos {pos}"] = prefill_timing(lambda pos=pos: prefill(pos),
+                                                             NORM_REPS)
+            if route == "cuda":
+                for k, v in counters().items():
+                    launches[k] = launches.get(k, 0) + v
+            if route == "cuda" and first:
+                k10 = [v for name, v in res["8 slots"]["by_name"].items()
+                       if any(f in name for f in K10_NAMES)]
+                k10_ms.append(sum(v[0] for v in k10) / 1e3 / max(sum(v[1] for v in k10), 1))
+            replay_launches(single, {"q40_decode": (7 * cfg.n_layers + 1) * n1,
+                                     "flash_attention": cfg.n_layers * n1,
+                                     **norm_want(cfg.n_layers, n1)},
+                            f"norm {route} single-stream")
+            for label, r in res.items():
+                runs.setdefault((label, route), []).append(r)
+                busy = r.get("busy_ms", r.get("device_ms"))
+                ops = r.get("ops", r.get("device_ops"))
+                prof = (f", busy {busy:.3f} ms, {ops:.1f} device ops" if first else "")
+                print(f"norm turn {turn + 1} ({route}) {label}: wall {r['wall_ms']:.3f} ms, "
+                      f"stream {r['stream_ms']:.3f} ms{prof} (a step or a chunk)", flush=True)
+            print(f"norm turn {turn + 1}: {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        layers.RMS_NORM_IMPL = route0
+        eng.reset(0)
+        del be
+        gc.collect()
+        torch.cuda.empty_cache()
+    for label in dict.fromkeys(k for k, _ in runs):
+        row = {}
+        for route in ("cuda", "torch"):
+            rs = runs[(label, route)]
+            row[route] = {m: statistics.median(r[k] for r in rs for k in keys if k in r)
+                          for m, keys in (("wall_ms", ("wall_ms",)), ("stream_ms", ("stream_ms",)),
+                                          ("busy_ms", ("busy_ms", "device_ms")),
+                                          ("ops", ("ops", "device_ops")))}
+        k, t = row["cuda"], row["torch"]
+        n = len(runs[(label, "cuda")])
+        print(f"norm {label}, K10 against the plain norm (wall and stream: "
+              f"{f'medians of {n} turns each' if n > 1 else 'one turn each'}; busy and ops: "
+              "each route's first turn): "
+              f"wall {k['wall_ms']:.3f} / {t['wall_ms']:.3f} ms, stream {k['stream_ms']:.3f} / "
+              f"{t['stream_ms']:.3f} ms, busy {k['busy_ms']:.3f} / {t['busy_ms']:.3f} ms, "
+              f"device ops {k['ops']:.1f} / {t['ops']:.1f}", flush=True)
+    print(f"norm Q40 8 slots: K10 inside the decode graph {k10_ms[0]:.5f} ms a launch (the "
+          "first K10 turn's profile)", flush=True)
+    msg = near_tie(loaded, ptoks, ids["cuda"], ids["torch"], "norm K10 vs plain greedy ids")
+    same = "equal to the plain norm's" if msg is None else f"apart: {msg}"
+    print(f"norm: {NORM_TOKENS} greedy ids of one stream with K10 {same}", flush=True)
+    check_norm_launches(launches, 1, cfg.n_layers, "norm")
+    return launches
 
 
 #: hybrid phase: the budgets compared, the running streams (a free slot of 8
@@ -4942,7 +5243,9 @@ def phase_golden(device) -> dict:
     if (eng.backend, eng.attn_route) != ("cuda", "torch"):
         fail(f"golden: kernels={eng.backend} attention={eng.attn_route}; want cuda, torch")
     reset_counters()
+    f0 = eng.forwards
     single = list(eng.generate(GOLDEN_PROMPT, len(GOLDEN_CONTINUATION), Sampler(0.0, 0.9, 0)))
+    forwards = eng.forwards - f0
     be = BatchEngine(loaded.config, eng.params, n_slots=8, cache_dtype=eng.cache.k.dtype,
                      max_seq_len=eng.seq_len, device=eng.device)
     if (be.backend, be.attn_route, be.kv_layout) != ("cuda", "torch", "dense"):
@@ -4951,6 +5254,8 @@ def phase_golden(device) -> dict:
     first = be.add(3, GOLDEN_PROMPT, temperature=0.0)
     batched = [int(first)] + [int(t) for t in be.decode(len(GOLDEN_CONTINUATION) - 1)[:, 3]]
     launches = counters()
+    check_norm_launches(launches, forwards + be.forwards, loaded.config.n_layers,
+                        "golden (width 64)")
     for label, ids in (("single engine", single), ("8-slot batch", batched)):
         msg = near_tie(loaded, GOLDEN_PROMPT, ids, GOLDEN_CONTINUATION, f"golden {label}")
         print(f"golden {label} (--kernels auto: cuda matmuls, torch attention): "
@@ -4988,10 +5293,10 @@ def phase_dequantize(loaded, device, mpath: str, tpath: str, prompt: str) -> dic
         fail("dequantize: the matmul weights did not load as dense bf16 tensors")
     reset_counters()
     runs = forward_logits(loaded, device, {"dequantized": (dq.engine.params, dq.engine.mm,
-                                                           dq.engine.attn_fn)})
+                                                           dq.engine.attn_fn, dq.engine.norm)})
     launches = counters()
     runs.update(forward_logits(loaded, device, {"kernels": (eng.params, eng.mm,
-                                                            eng.attn_fn)}))
+                                                            eng.attn_fn, eng.norm)}))
     ref = runs["kernels"]
     rel = ((runs["dequantized"] - ref).abs().max() / ref.abs().max()).item()
     print(f"dequantize forward: prefill 256 + 8 decode + a 9-row verify against the Q40 "
@@ -5001,6 +5306,7 @@ def phase_dequantize(loaded, device, mpath: str, tpath: str, prompt: str) -> dic
             not launches["flash_attention"]:
         fail(f"dequantize forward: {rel} of max|logit|, launches {launches} (want no Q40/Q80 "
              "kernel and K7)")
+    check_norm_launches(launches, 10, loaded.config.n_layers, "dequantize forward")
     del dq, runs
     gc.collect()
     torch.cuda.empty_cache()
@@ -5076,7 +5382,7 @@ def moe_split(loaded, t: int, pos: int = 0) -> dict:
 
     def run():
         forward(cfg, eng.params, toks, pos, cache, eng.rope_cache, eng.attn_fn, eng.mm,
-                last_only=True, moe_impl=eng.moe_impl)
+                last_only=True, moe_impl=eng.moe_impl, norm=eng.norm)
         torch.cuda.synchronize()
 
     with torch.no_grad():
@@ -5251,8 +5557,8 @@ def phase_moe(device, prompt: str, mesh: set = frozenset()) -> dict:
             return eng.decode_greedy_n([[first]], n)
 
         times = {"1 slot": chunk_timing(run1, n)}
-        replay_launches(run1, {"q40_decode": per_fwd * n, "flash_attention": depth * n},
-                        "moe single-engine chunk")
+        replay_launches(run1, {"q40_decode": per_fwd * n, "flash_attention": depth * n,
+                               **norm_want(depth, n)}, "moe single-engine chunk")
         be = BatchEngine(cfg, eng.params, n_slots=8, cache_dtype=eng.cache.k.dtype,
                          max_seq_len=eng.seq_len, kv_layout="paged", page_size=128,
                          device=eng.device, moe_impl=eng.moe_impl)
@@ -5263,8 +5569,8 @@ def phase_moe(device, prompt: str, mesh: set = frozenset()) -> dict:
             return be.decode(n)
 
         times["8 slots"] = chunk_timing(run8, n)
-        replay_launches(run8, {"q40_decode": per_fwd * n, "paged_attention": depth * n},
-                        "moe 8-slot chunk")
+        replay_launches(run8, {"q40_decode": per_fwd * n, "paged_attention": depth * n,
+                               **norm_want(depth, n)}, "moe 8-slot chunk")
         del be
         gc.collect()
         torch.cuda.empty_cache()
@@ -5412,8 +5718,9 @@ def mesh_moe(mpath: str, tpath: str, device, ptoks: list[int], ref: list, spec: 
         eng.decode_step([[int(ref[-1].argmax())]])
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3
-        per_rank = [r.get("q40_decode", 0) - (4 * cfg.n_layers + 1)
-                    for r in m.world.call_all("rank_launches", True)]
+        step_ranks = m.world.call_all("rank_launches", True)
+        check_rank_norms(step_ranks, cfg.n_layers, f"moe mesh {spec} decode step", exact=True)
+        per_rank = [r.get("q40_decode", 0) - (4 * cfg.n_layers + 1) for r in step_ranks]
         rep = eng.measured_collective_report()
         for i, (a, b) in enumerate(zip(got, ref)):
             err = _rel(a, b)
@@ -5615,6 +5922,7 @@ def phase_mesh(loaded, mpath: str, tpath: str, device, prompt: str) -> dict:
               f"{[{k: r.get(k, 0) for k in SERVE_KERNELS} for r in ranks]}", flush=True)
         if any(r.get(k, 0) == 0 for r in ranks for k in SERVE_KERNELS):
             fail("mesh: a rank never launched one of K1/K2/K7 on the driven path")
+        check_rank_norms(ranks, cfg.n_layers, "mesh driven path")
         ref_logits, ref, _, ref_streams = drive(
             eng, lambda: BatchEngine(cfg, eng.params, device=eng.device, **kw))
         for i, (a, b) in enumerate(zip(logits, ref_logits)):
@@ -5650,10 +5958,11 @@ def phase_mesh(loaded, mpath: str, tpath: str, device, prompt: str) -> dict:
             ref_n = counted(eng, fn)
             counted(meng, fn)
             per_rank = world.call_all("rank_launches", True)
-            want_n = {k: ref_n.get(k, 0) for k in SERVE_KERNELS}
-            got = [{k: r.get(k, 0) for k in SERVE_KERNELS} for r in per_rank]
-            print(f"mesh: {label}: K1/K2/K7 launches by rank {got}, one device {want_n}",
+            want_n = {k: ref_n.get(k, 0) for k in RANK_KERNELS}
+            got = [{k: r.get(k, 0) for k in RANK_KERNELS} for r in per_rank]
+            print(f"mesh: {label}: K1/K2/K7/K10 launches by rank {got}, one device {want_n}",
                   flush=True)
+            check_rank_norms(per_rank, cfg.n_layers, f"mesh {label}")
             if any(g != want_n for g in got):
                 fail(f"mesh: a rank's launches for a {label} differ from one device's")
         eng.reset(0)
@@ -6004,11 +6313,12 @@ def phase_mesh_dp_sp(loaded, mpath: str, tpath: str, device, prompt: str) -> dic
               f"{[{k: r.get(k, 0) for k in SERVE_KERNELS} for r in ranks]}", flush=True)
         if any(r.get(k, 0) == 0 for r in ranks for k in SERVE_KERNELS):
             fail("mesh_dp_sp: a dp replica never launched one of K1/K2/K7")
+        check_rank_norms(ranks, cfg.n_layers, "mesh_dp_sp dp=2 8 slots")
         be.decode(1)  # the step counted below is not the first of its shape
         reset_counters()
         m.world.call_all("rank_launches", True)
         be.decode(1)
-        per_rank = [{k: r.get(k, 0) for k in SERVE_KERNELS}
+        per_rank = [{k: r.get(k, 0) for k in RANK_KERNELS}
                     for r in m.world.call_all("rank_launches", True)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -6030,13 +6340,13 @@ def phase_mesh_dp_sp(loaded, mpath: str, tpath: str, device, prompt: str) -> dic
     one4.decode(1)
     reset_counters()
     one4.decode(1)
-    want_n = {k: counters().get(k, 0) for k in SERVE_KERNELS}
+    want_n = {k: counters().get(k, 0) for k in RANK_KERNELS}
     del one4
     torch.cuda.empty_cache()
     apart = sum(near_tie(loaded, prompts[s], a, b, f"mesh_dp_sp dp=2 slot {s}") is not None
                 for s, (a, b) in enumerate(zip(streams, ref_streams)))
     print(f"mesh_dp_sp dp=2: 8 dense slots, {MESH_TOKENS} greedy ids each: {8 - apart} equal "
-          f"to one device, {apart} first apart at a near tie; a decode step's K1/K2/K7 by "
+          f"to one device, {apart} first apart at a near tie; a decode step's K1/K2/K7/K10 by "
           f"replica {per_rank}, an unsharded 4-slot engine's {want_n}; a step {step_ms:.3f} "
           f"ms wall; its exchange {dp_bytes} (collective_bytes_per_token has no dp term: "
           f"{collective_bytes_per_token(cfg)['bytes_per_token_per_chip']:.0f} B)", flush=True)
@@ -6131,6 +6441,7 @@ def phase_mesh_dp_sp(loaded, mpath: str, tpath: str, device, prompt: str) -> dic
         fail("mesh_dp_sp: the sp=2 logits are off the unsharded kernels'")
     if any(r.get(k, 0) == 0 for r in ranks for k in ("q40_decode", "q40_prefill")):
         fail("mesh_dp_sp: an sp rank never launched K1 or K2")
+    check_rank_norms(ranks, cfg.n_layers, "mesh_dp_sp sp=2", forwards=2 + SP_DECODE)
     mesh_sp_plant(os.path.dirname(mpath), tpath, device)
     return launches
 
@@ -6265,7 +6576,7 @@ def phase_mesh_pp_ep(loaded, mpath: str, tpath: str, device, prompt: str) -> dic
         return out, ids
 
     def step_launches(e, world=None) -> list[dict]:
-        """K1/K2/K7 launches of one decode step after the prompt (the
+        """K1/K2/K7/K10 launches of one decode step after the prompt (the
         second of its shape): rank 0's alone, or every rank's."""
         for _ in range(2):
             reset_counters()
@@ -6275,7 +6586,7 @@ def phase_mesh_pp_ep(loaded, mpath: str, tpath: str, device, prompt: str) -> dic
             e.decode_step([[toks[0]]])
         e.reset(0)
         got = [counters()] if world is None else world.call_all("rank_launches", True)
-        return [{k: r.get(k, 0) for k in SERVE_KERNELS} for r in got]
+        return [{k: r.get(k, 0) for k in RANK_KERNELS} for r in got]
 
     ref_out, ref_ids = pp_run(eng)
     one_step = step_launches(eng)[0]
@@ -6300,6 +6611,8 @@ def phase_mesh_pp_ep(loaded, mpath: str, tpath: str, device, prompt: str) -> dic
         run_s = time.perf_counter() - t0
         launches = counters()
         ranks = m.world.call_all("rank_launches", True)
+        check_rank_norms(ranks, cfg.n_layers, "mesh_pp_ep pp=2 run", pp=2,
+                         forwards=1 + PP_DECODE)
         per_rank = step_launches(meng, m.world)
         rep = meng.measured_collective_report()
         meng.reset(PP_PREFILL)
@@ -6324,12 +6637,12 @@ def phase_mesh_pp_ep(loaded, mpath: str, tpath: str, device, prompt: str) -> dic
     ids = [int(x.argmax()) for x in out[:-1]]  # each step's own choice of the next id
     msg = _ids_check(ids, ref_ids, _margins(ref_out[:-1]), "mesh_pp_ep pp=2")
     last = cfg.n_layers // 2
-    want = [{"q40_decode": 7 * last + s, "q40_prefill": 0, "flash_attention": last}
-            for s in (0, 1)]
+    want = [{"q40_decode": 7 * last + s, "q40_prefill": 0, "flash_attention": last,
+             "rms_norm": norm_per_forward(last, final=s == 1)} for s in (0, 1)]
     print(f"mesh_pp_ep pp=2: prefill {PP_PREFILL}, {PP_DECODE} decode steps in {run_s:.1f} s; "
           f"logits vs one device {[f'{e:.3e}' for e in errs]} <= TOL_FWD {TOL_FWD}; ids {msg}; "
           f"launches of the run by rank {[{k: r.get(k, 0) for k in SERVE_KERNELS} for r in ranks]}"
-          f"; a decode step's K1/K2/K7 by stage {per_rank} (want {want}; one device "
+          f"; a decode step's K1/K2/K7/K10 by stage {per_rank} (want {want}; one device "
           f"{one_step}); a decode step {step_ms:.3f} ms wall; its exchange on stage 0 "
           f"{rep['per_op']} ({rep['total_bytes']} B), collective_bytes_per_token has no pp "
           f"term: {collective_bytes_per_token(cfg)['bytes_per_token_per_chip']:.0f} B; "
@@ -6337,7 +6650,8 @@ def phase_mesh_pp_ep(loaded, mpath: str, tpath: str, device, prompt: str) -> dic
     if not max(errs) <= TOL_FWD:
         fail("mesh_pp_ep: the pp=2 logits are off the unsharded kernels'")
     if per_rank != want or one_step != {"q40_decode": 7 * cfg.n_layers + 1, "q40_prefill": 0,
-                                        "flash_attention": cfg.n_layers}:
+                                        "flash_attention": cfg.n_layers,
+                                        "rms_norm": norm_per_forward(cfg.n_layers)}:
         fail("mesh_pp_ep: a stage's decode-step launches are not its layers' share")
     if rep["per_op"] != {"pp:send": cfg.dim * eng.params["embedding"].element_size(),
                          "pp:broadcast": cfg.vocab_size * 4}:
@@ -6524,10 +6838,12 @@ def phase_mesh_supervision(loaded, mpath: str, tpath: str, device, prompt: str) 
     launches: dict = {}
     ranks_n: dict = {}
 
-    def add(rank0: dict, ranks: list, label: str) -> None:
+    def add(rank0: dict, ranks: list, label: str, pp: int = 1) -> None:
         for k, v in rank0.items():
             launches[k] = launches.get(k, 0) + v
-        ranks_n[label] = [{k: r.get(k, 0) for k in SERVE_KERNELS} for r in ranks]
+        ranks_n[label] = [{k: r.get(k, 0) for k in RANK_KERNELS} for r in ranks]
+        check_rank_norms(ranks, loaded.config.n_layers, f"mesh_supervision {label}",
+                         pp=pp)
 
     t0 = time.perf_counter()
     m = load_model(mpath, tpath, max_seq_len=4096, mesh="tp=2", device=device,
@@ -6674,7 +6990,7 @@ def phase_mesh_supervision(loaded, mpath: str, tpath: str, device, prompt: str) 
         if len(set(world.call_all("rank_digest"))) != 1:
             fail("mesh_supervision (c): the pp ranks' token results differ")
         meng.reset(0)
-        add(counters(), world.call_all("rank_launches", True), "pp=2")
+        add(counters(), world.call_all("rank_launches", True), "pp=2", pp=2)
     finally:
         _close_world(m)
         del meng, world
@@ -6687,7 +7003,7 @@ def phase_mesh_supervision(loaded, mpath: str, tpath: str, device, prompt: str) 
           f"{', '.join(session_checks)}; seconds "
           f"{ {k: round(v, 3) for k, v in times.items() if k != 'base_s'} }; every rank's "
           "fingerprint one device's", flush=True)
-    print(f"mesh_supervision (d): K1/K2/K7 launches by rank {ranks_n}; rank 0 {launches}",
+    print(f"mesh_supervision (d): K1/K2/K7/K10 launches by rank {ranks_n}; rank 0 {launches}",
           flush=True)
     if any(r.get(k, 0) == 0 for rs in ranks_n.values() for r in rs for k in SERVE_KERNELS):
         fail("mesh_supervision: a rank never launched one of K1/K2/K7")
@@ -7535,13 +7851,17 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20, help="timed runs per case (0: no timing)")
     ap.add_argument("--phases",
                     default="card,kernels,golden,kbench,forward,serve,batch,hybrid,radix,obs,"
-                            "supervision,router,inference,styles,spec,spec_batch,graphs,"
+                            "supervision,router,inference,styles,spec,spec_batch,graphs,norm,"
                             "dequantize,mesh,mesh_dp_sp,mesh_pp_ep,mesh_supervision,f8,q80,"
                             "moe,tools,analysis",
                     help="comma list; not in the default: 'profile' adds a "
                          "torch.profiler pass over one decode chunk, single-stream "
                          "and 8-slot; 'chunk' is the prefill-chunk timing alone (Q40 "
                          "dense and paged, uncaptured and as programs; Q80)")
+    ap.add_argument("--k10-parent", default=None,
+                    help="another tree's csrc/rms_norm.cu (e.g. `git show "
+                         "HEAD~:dllama_tpu_torch/ops/csrc/rms_norm.cu` written outside the "
+                         "package): built and timed beside K10 in the kernels phase")
     ap.add_argument("--deadline-s", type=float, default=1150.0,
                     help="after this many seconds, print every thread's stack and exit 1 "
                          "(the run must end within its 1200 s limit, hung or not)")
@@ -7594,7 +7914,7 @@ def main(argv=None) -> int:
     results = {}
     if "kernels" in phases:
         print("phase kernels (8B shapes, stacked layer 1, bf16 in, f32 compared):", flush=True)
-        results = phase_kernels(cfg, device, timer)
+        results = phase_kernels(cfg, device, timer, k10_parent=parent_rms_norm(args.k10_parent))
         results.update(style_cases(cfg, device, timer))
         results.update(kbench_cases(cfg, device, timer))
         kbench_shape_checks()
@@ -7615,7 +7935,7 @@ def main(argv=None) -> int:
               "a storm, and a ship that never arrives.")
     if phases & {"forward", "chunk", "serve", "profile", "batch", "hybrid", "radix", "obs",
                   "supervision", "router", "inference", "styles", "spec", "spec_batch",
-                  "graphs", "dequantize", "mesh", "mesh_dp_sp", "mesh_pp_ep",
+                  "graphs", "norm", "dequantize", "mesh", "mesh_dp_sp", "mesh_pp_ep",
                   "mesh_supervision", "f8", "analysis"}:
         from dllama_tpu_torch.engine.loader import load_model
 
@@ -7761,6 +8081,9 @@ def main(argv=None) -> int:
         if "graphs" in phases:
             paths["graphs"] = phase_graphs(loaded, mpath, tpath, prompt)["launches"]
         phase_done("graphs", phases)
+        if "norm" in phases:
+            paths["norm"] = phase_norm(loaded, prompt)
+        phase_done("norm", phases)
         if "dequantize" in phases:
             paths["dequantize"] = phase_dequantize(loaded, device, mpath, tpath, prompt)
         phase_done("dequantize", phases)
@@ -7820,7 +8143,8 @@ def main(argv=None) -> int:
                 "max_abs_err": max(x["max_abs_err"] for x in cases),
                 "ms": _r(c["ms"]), "plain_ms": _r(c["plain_ms"]),
                 "bound_ms": _r(c["bound_ms"]), "bound_by": c["bound_by"],
-                "library_ms": _r(c["library_ms"]), "case": c["case"]})
+                "library_ms": _r(c["library_ms"]), "case": c["case"],
+                **({"parent_ms": _r(c["parent_ms"])} if "parent_ms" in c else {})})
         print(json.dumps({"kernels": line}))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card_line())

@@ -783,7 +783,7 @@ class BatchEngine:
         self.moe_impl = resolve_moe_impl(moe_impl, shardings)
         sel = resolve_kernels(cfg, kernels, self.device, paged=self.pool is not None,
                               page_size=self.page_size, cache_dtype=cache_dtype)
-        self.mm, self.attn_fn = sel.mm, sel.attn_fn
+        self.mm, self.attn_fn, self.norm = sel.mm, sel.attn_fn, sel.norm
         self.backend, self.attn_route = sel.backend, sel.attn_route
 
         # host mirrors (the scheduler's view)
@@ -872,7 +872,7 @@ class BatchEngine:
         counts it in ``forwards``."""
         logits, _ = forward(self.cfg, self.params, tokens, pos, cache, self.rope_cache,
                             self.attn_fn, self.mm, last_only=True, active=active,
-                            moe_impl=self.moe_impl, exchange=self.exchange)
+                            moe_impl=self.moe_impl, exchange=self.exchange, norm=self.norm)
         return logits[:, -1]
 
     # ------------------------------------------------------- paged-layout api
@@ -1514,7 +1514,7 @@ class BatchEngine:
                 logits, _ = forward(self.cfg, self.params, toks, p_cl, self.cache,
                                     self.rope_cache, self.attn_fn, self.mm, last_only=False,
                                     active=eff, moe_impl=self.moe_impl,
-                                    exchange=self.exchange)  # [B, K+1, V]
+                                    exchange=self.exchange, norm=self.norm)  # [B, K+1, V]
                 g = torch.argmax(logits, dim=-1)
                 agree = torch.cumprod((draft == g[:, :k]).to(torch.int64), dim=1)
                 a = torch.minimum(agree.sum(dim=1), k_eff)

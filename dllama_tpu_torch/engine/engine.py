@@ -146,10 +146,11 @@ class InferenceEngine:
         self.pos = 0
         self.moe_impl = resolve_moe_impl(moe_impl, shardings)
         sel = resolve_kernels(cfg, kernels, self.device, sp_attention=sp_attn)
-        self.mm, self.attn_fn = sel.mm, sel.attn_fn
+        self.mm, self.attn_fn, self.norm = sel.mm, sel.attn_fn, sel.norm
         self.backend, self.attn_route = sel.backend, sel.attn_route
         self._pp = None if self.exchange is None or self.exchange.pp is None else \
-            make_pp_forward(cfg, self.exchange, pp_micro, self.attn_fn, self.mm, self.moe_impl)
+            make_pp_forward(cfg, self.exchange, pp_micro, self.attn_fn, self.mm, self.moe_impl,
+                            self.norm)
         self.forwards = 0  # forward passes run (each is one token column)
         # speculation (decode_spec_greedy_n): the device history, the
         # (count, cycles) pair a replay leaves, the tokens wanted, and an
@@ -224,7 +225,7 @@ class InferenceEngine:
                             active)
         logits, _ = forward(self.cfg, self.params, tokens, pos, self.cache, self.rope_cache,
                             self.attn_fn, self.mm, last_only=last_only, active=active,
-                            moe_impl=self.moe_impl, exchange=self.exchange)
+                            moe_impl=self.moe_impl, exchange=self.exchange, norm=self.norm)
         return logits
 
     def measured_collective_report(self) -> dict:

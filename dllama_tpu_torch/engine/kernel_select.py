@@ -1,8 +1,13 @@
 """Per-engine kernel selection: the one place the ``--kernels`` flag, the
-device and the KV layout turn into the matmul and attention callables an
-engine runs.
+device and the KV layout turn into the matmul, attention and RMSNorm
+callables an engine runs.
 
 Rules (the unsharded branches of the JAX package's resolve_kernels):
+
+* The RMSNorm follows the matmuls' backend (ops/rms_norm.engine_norm): the
+  RMSNorm kernel (K10) for ``cuda``, unless ``ops/layers.RMS_NORM_IMPL`` is
+  "torch"; the plain norm for ``torch``. The wrapper runs the plain norm
+  for CPU tensors. Every layout, mesh axis and MoE scheme takes it.
 
 * ``auto`` on a CUDA device, or ``cuda``: the Q40/Q80 kernels and flash
   attention, which takes bf16, f32 and e4m3 (``--cache-dtype f8``) dense
@@ -46,6 +51,7 @@ from dllama_tpu_torch.models.config import LlamaConfig
 from dllama_tpu_torch.ops import flash_attention, paged_attention
 from dllama_tpu_torch.ops.layers import MOE_IMPLS, gqa_attention, paged_gqa_attention
 from dllama_tpu_torch.ops.matmul import engine_matmul, resolve_backend
+from dllama_tpu_torch.ops.rms_norm import engine_norm
 
 #: the paged layout's attention routes, the single definition site: the
 #: kernel with its fused KV scatter, and the plain block-table gather (the
@@ -58,6 +64,7 @@ KERNEL_ROUTE, GATHER_ROUTE = PAGED_ROUTES
 class KernelSelection:
     mm: Callable  # (x, w, layer) -> x @ w[layer]
     attn_fn: Callable  # dense: (q, k_cache, v_cache, pos); paged: see ops.paged_attention
+    norm: Callable  # (x, w, eps) -> x * w / rms(x): ops/rms_norm.engine_norm(backend)
     backend: str  # 'cuda' | 'torch': what the quantized matmuls run on
     attn_route: str  # 'flash' | 'torch' | 'ring' | 'paged_kernel' | 'paged_gather'
     fused_scatter_max_t: int | None = None  # paged_kernel only: widest chunk
@@ -77,24 +84,24 @@ def resolve_kernels(cfg: LlamaConfig, kernels: str = "auto", device="cpu", paged
                     page_size: int = 0, cache_dtype=torch.bfloat16,
                     sp_attention=None) -> KernelSelection:
     backend = resolve_backend(kernels, device)
-    mm = engine_matmul(backend)
+    mm, norm = engine_matmul(backend), engine_norm(backend)
     on_cuda = torch.device(device).type == "cuda"
     if sp_attention is not None:
-        return KernelSelection(mm, sp_attention, backend, "ring")
+        return KernelSelection(mm, sp_attention, norm, backend, "ring")
     if paged:
         if backend == "torch" or not on_cuda:
-            return KernelSelection(mm, paged_gqa_attention, backend, GATHER_ROUTE)
+            return KernelSelection(mm, paged_gqa_attention, norm, backend, GATHER_ROUTE)
         if not paged_attention.paged_decode_supported((cfg.n_heads, cfg.head_size), page_size,
                                                       cache_dtype):
             raise NotImplementedError(
                 f"the paged attention kernel does not take page size {page_size}, head "
                 f"size {cfg.head_size} and {cache_dtype} pools (page >= 8, page % 8 == 0, "
                 f"head size in {paged_attention.HEAD_SIZES}, bf16/f32); use --kernels torch")
-        return KernelSelection(mm, _paged_kernel_attn, backend, KERNEL_ROUTE,
+        return KernelSelection(mm, _paged_kernel_attn, norm, backend, KERNEL_ROUTE,
                                paged_attention.FUSED_SCATTER_MAX_T)
     if backend == "torch" or (on_cuda and not flash_attention.supported(cfg.head_size)):
-        return KernelSelection(mm, gqa_attention, backend, "torch")
-    return KernelSelection(mm, flash_attention.flash_gqa_attention, backend, "flash")
+        return KernelSelection(mm, gqa_attention, norm, backend, "torch")
+    return KernelSelection(mm, flash_attention.flash_gqa_attention, norm, backend, "flash")
 
 
 def resolve_moe_impl(moe_impl: str, shardings=None) -> str:

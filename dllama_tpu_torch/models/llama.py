@@ -27,7 +27,7 @@ from dllama_tpu_torch.ops.layers import (
     moe_ffn,
     paged_gqa_attention,
     paged_write_targets,
-    rms_norm,
+    rms_norm_plain,
 )
 from dllama_tpu_torch.ops.matmul import matmul
 from dllama_tpu_torch.ops.quant import Q8Tensor, QTensor, slice_leaf
@@ -155,9 +155,10 @@ def _paged_cache_update(pool: torch.Tensor, new: torch.Tensor, tables: torch.Ten
 
 def _layer(cfg: LlamaConfig, x, layers, li, k_cache, v_cache, rope, pos_base,
            attn_fn, mm, active=None, tables=None, index=None, moe_impl="auto",
-           exchange=None):
+           exchange=None, norm=rms_norm_plain):
     """One decoder layer; `layers` holds the stacked weights and `li` the
-    layer index (the matmul takes the layer's view of each stack). A layer
+    layer index (the matmul takes the layer's view of each stack, `norm`,
+    the engine's RMSNorm, the layer's row of each norm weight). A layer
     with a ``moe_gate`` runs the sparse MoE FFN (ops.layers.moe_ffn, scheme
     `moe_impl`) in place of the dense one. With
     `tables` the caches are one layer's page pools [P, Hkv, page, hd]; an
@@ -174,7 +175,7 @@ def _layer(cfg: LlamaConfig, x, layers, li, k_cache, v_cache, rope, pos_base,
     moe_ffn, before the cast; the tp reduce follows here."""
     b, t, _ = x.shape
     qd, kvd = cfg.n_heads * cfg.head_size, cfg.kv_dim
-    h = rms_norm(x, layers["rms_att"][li], cfg.norm_epsilon)
+    h = norm(x, layers["rms_att"][li], cfg.norm_epsilon)
     if "wqkv" in layers:  # fused launch (fuse_layer_weights)
         qkv = mm(h, layers["wqkv"], li)
         q, k, v = qkv[..., :qd], qkv[..., qd : qd + kvd], qkv[..., qd + kvd :]
@@ -198,7 +199,7 @@ def _layer(cfg: LlamaConfig, x, layers, li, k_cache, v_cache, rope, pos_base,
         att = attn_fn(q, k_cache, v_cache, tables, pos_base)
     o = mm(att.reshape(b, t, qd), layers["wo"], li)
     x = x + (o if exchange is None else exchange.reduce_partial(o))
-    h = rms_norm(x, layers["rms_ffn"][li], cfg.norm_epsilon)
+    h = norm(x, layers["rms_ffn"][li], cfg.norm_epsilon)
     reduce_ffn = exchange is not None and exchange.ffn_sharded
     if "moe_gate" in layers:
         # the rank holds a share of the experts only where ep divides them
@@ -249,17 +250,18 @@ def fuse_layer_weights(layers: dict) -> dict:
 
 def run_layers(cfg: LlamaConfig, layer_params: dict, x, pos_base, cache, rope,
                attn_fn=None, mm=None, active=None, moe_impl: str = "auto",
-               exchange=None) -> torch.Tensor:
+               exchange=None, norm=None) -> torch.Tensor:
     """Walk the decoder layers over a KVCache or a PagedKVCache (whose block
     tables select the paged branch of each layer). `active` [B] bool masks
     the cache writes of frozen rows. The layers are those the weights and
     the cache stack: a pipeline stage's (parallel/pipeline) are its own
     [L/pp, ...] slices, indexed from 0, at global positions and RoPE
-    rows."""
+    rows. ``norm`` is the engine's RMSNorm (default the plain norm)."""
     tables = cache.tables if isinstance(cache, PagedKVCache) else None
     if attn_fn is None:
         attn_fn = gqa_attention if tables is None else paged_gqa_attention
     mm = mm or matmul
+    norm = norm or rms_norm_plain
     index = None
     if tables is None and hasattr(attn_fn, "write_index"):
         # a sequence-sharded cache (parallel/ring_attention.SPAttention): each
@@ -276,7 +278,7 @@ def run_layers(cfg: LlamaConfig, layer_params: dict, x, pos_base, cache, rope,
         index = _dense_write_index(pos_base, b, h, s, x.shape[1])
     for li in range(cache.k.shape[0]):
         x = _layer(cfg, x, layer_params, li, cache.k[li], cache.v[li], rope,
-                   pos_base, attn_fn, mm, active, tables, index, moe_impl, exchange)
+                   pos_base, attn_fn, mm, active, tables, index, moe_impl, exchange, norm)
     return x
 
 
@@ -302,11 +304,13 @@ def forward(
     active: torch.Tensor | None = None,  # [B] bool cache-write mask (batch mode)
     moe_impl: str = "auto",  # MoE compute scheme (ops.layers.moe_ffn)
     exchange=None,  # a tp rank's parallel/collectives.TPExchange
+    norm=None,  # the RMSNorm (x, w, eps); default the plain ops.layers.rms_norm_plain
 ):
     """Returns (logits f32 [B, T or 1, vocab], cache), the cache updated in
-    place. ``mm`` / ``attn_fn`` override the kernels (the plain versions run
-    the same forward on the card for comparison). ``last_only`` slices to
-    the final position before the lm-head, which is all prefill needs. A
+    place. ``mm`` / ``attn_fn`` / ``norm`` override the kernels (the plain
+    versions run the same forward on the card for comparison). ``last_only``
+    slices to the final position before the lm-head, which is all prefill
+    needs. A
     paged attn_fn takes (q, k_pool, v_pool, tables, pos). On a tp rank
     (``exchange``) the logits of the rank's vocab shard are all-gathered,
     so every rank returns the same full f32 logits."""
@@ -315,11 +319,12 @@ def forward(
     x = params["embedding"][tokens]  # [B, T, D]
     t = tokens.shape[1]
     rope = rope_rows(rope_cache, pos_base, t)
+    norm = norm or rms_norm_plain
     x = run_layers(cfg, params["layers"], x, pos_base, cache, rope, attn_fn, mm, active,
-                   moe_impl, exchange)
+                   moe_impl, exchange, norm)
     if last_only:
         x = x[:, -1:]
-    x = rms_norm(x, params["final_norm"], cfg.norm_epsilon)
+    x = norm(x, params["final_norm"], cfg.norm_epsilon)
     logits = (mm or matmul)(x, params["wcls"]).to(torch.float32)
     if exchange is not None:
         if exchange.logits_sharded:

@@ -34,7 +34,7 @@ SIGNATURES = {
     "q40_loopdot": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "q80_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "q80_prefill": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "rms_norm": (_P, _P, _P, _I, _I, _LL, _F, _I, _P),
+    "rms_norm": (_P, _P, _P, _I, _I, _LL, _F, _I, _I, _I, _P),
     "flash_attention": (_P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "paged_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -17,24 +17,18 @@ import torch.nn.functional as F
 from dllama_tpu_torch.models.config import HiddenAct, LlamaConfig, RopeType
 
 
-#: 'torch' (the default) runs the plain norm below; 'cuda' routes through
-#: ops/rms_norm (the CUDA kernel, K10), as the JAX package's 'pallas' switch
-#: routes its Pallas kernel. Off by default there too: flip only with a
-#: recorded win.
-RMS_NORM_IMPL = "torch"
-
-
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
-    """y = x * w / rms(x) with f32 accumulation (nn-cpu-ops.cpp:108-183)."""
-    if RMS_NORM_IMPL == "cuda":
-        from dllama_tpu_torch.ops.rms_norm import rms_norm as cuda_rms_norm
-
-        return cuda_rms_norm(x, weight, eps)
-    return rms_norm_plain(x, weight, eps)
+#: The norm of an engine whose kernels are CUDA (ops/rms_norm.kernel_norm):
+#: 'cuda' (the default) runs the kernel (K10), 'torch' the plain norm
+#: below. Engines with the plain kernels (--kernels torch, the CPU) run the
+#: plain norm either way. The JAX package's switch keeps its jnp norm by
+#: default, since XLA fuses it; nothing fuses the plain chain on the card,
+#: and the kernel's captured steps were faster (PERF.md §6).
+RMS_NORM_IMPL = "cuda"
 
 
 def rms_norm_plain(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
-    """The plain version of the RMSNorm kernel: mean of squares in f32,
+    """y = x * w / rms(x) with f32 accumulation (nn-cpu-ops.cpp:108-183): the
+    plain version of the RMSNorm kernel, the mean of squares in f32,
     rsqrt(+eps), times the f32 weight, one cast to ``x.dtype``."""
     xf = x.to(torch.float32)
     inv = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)

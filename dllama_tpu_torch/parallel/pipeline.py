@@ -29,12 +29,12 @@ import torch
 
 from dllama_tpu_torch.models.config import LlamaConfig
 from dllama_tpu_torch.models.llama import KVCache, rope_rows, run_layers
-from dllama_tpu_torch.ops.layers import rms_norm
+from dllama_tpu_torch.ops.layers import rms_norm_plain
 from dllama_tpu_torch.ops.matmul import matmul
 
 
 def make_pp_forward(cfg: LlamaConfig, exchange, n_micro: int = 1, attn_fn=None, mm=None,
-                    moe_impl: str = "auto"):
+                    moe_impl: str = "auto", norm=None):
     """``fn(params, tokens, pos, cache, rope_cache, last_only=False,
     active=None) -> logits`` f32 [B, T or 1, V], every stage's the same.
 
@@ -43,10 +43,12 @@ def make_pp_forward(cfg: LlamaConfig, exchange, n_micro: int = 1, attn_fn=None, 
     (``exchange.pp`` the hop and broadcast), ``params`` its tree and
     ``cache`` its layers' cache, updated in place. ``tokens`` [B, T] with
     B % n_micro == 0; ``pos`` an int or a [B] tensor; ``active`` [B] masks
-    the cache writes of frozen rows."""
+    the cache writes of frozen rows. ``norm`` is the engine's RMSNorm
+    (default the plain norm), in the stage's layers and the final norm."""
     hop = exchange.pp
     stage, last = hop.index, hop.size - 1
     mm = mm or matmul
+    norm = norm or rms_norm_plain
 
     def fn(params, tokens, pos, cache: KVCache, rope_cache, last_only=False, active=None):
         b, t = tokens.shape
@@ -68,7 +70,7 @@ def make_pp_forward(cfg: LlamaConfig, exchange, n_micro: int = 1, attn_fn=None, 
                 sub = cache if n_micro == 1 else KVCache(cache.k[:, rows], cache.v[:, rows])
                 x = run_layers(cfg, params["layers"], x, p, sub, rope_rows(rope_cache, p, t),
                                attn_fn, mm, None if active is None else active[rows],
-                               moe_impl, exchange)
+                               moe_impl, exchange, norm)
                 if stage == last:
                     out.append(x)
             # the hop: a stage sends what it ran this step, and receives what
@@ -80,7 +82,7 @@ def make_pp_forward(cfg: LlamaConfig, exchange, n_micro: int = 1, attn_fn=None, 
             h = torch.cat(out) if n_micro > 1 else out[0]
             if last_only:
                 h = h[:, -1:]
-            h = rms_norm(h, params["final_norm"], cfg.norm_epsilon)
+            h = norm(h, params["final_norm"], cfg.norm_epsilon)
             logits = mm(h, params["wcls"]).to(torch.float32)
             if exchange.logits_sharded:
                 logits = exchange.gather_logits(logits)

@@ -28,12 +28,16 @@ call. The candidate geometries replace the wrapper's only inside this
 script.
 
 `parity` computes the K2 (Q40 prefill GEMM), K7 (flash attention), K1 (Q40
-decode), K5 (Q80 decode), K3 and K4 (the maskdot and loopdot styles) and K6
-(Q80 prefill GEMM) f32 outputs of seeded inputs at the 8B shapes of
-chip_smoke's kernels phase and saves them, or compares them bit for bit with
-a file saved by another checkout of the package (copy this script and
-chip_smoke.py into it): the proof that a refactor of a kernel's source
-changed no bit of its result.
+decode), K5 (Q80 decode), K3 and K4 (the maskdot and loopdot styles), K6
+(Q80 prefill GEMM) and K10 (RMSNorm) outputs of seeded inputs at the 8B
+shapes of chip_smoke's kernels phase and saves them, or compares them bit
+for bit with a file saved by another checkout of the package (copy this
+script and chip_smoke.py into it; the outputs only one of the two files
+holds are listed, not compared): the proof that a refactor of a kernel's
+source changed no bit of its result. K10's outputs (the path's rows of 4096:
+m = 1, 8, 17 and 256 in bf16, m = 1 in f32, and the lm-head's row slice)
+are also held against its plain version within chip_smoke.TOL_K10 (f32:
+1e-5) of max|ref|, and recomputed bit-equal.
 
 `k11` times the kernel benchmark's two kernels at w1 (4096 x 14336), m = 8
 and 16, on both their routes (the decode body, and the wgmma loop, whose
@@ -165,8 +169,10 @@ def parity(cfg, device, save: str | None, against: str | None) -> None:
     import torch
 
     from dllama_tpu_torch.ops.flash_attention import flash_gqa_attention
+    from dllama_tpu_torch.ops.layers import rms_norm_plain
     from dllama_tpu_torch.ops.q40_matmul import forced_style, q40_matmul
     from dllama_tpu_torch.ops.q80_matmul import q80_matmul
+    from dllama_tpu_torch.ops.rms_norm import rms_norm
 
     gen = torch.Generator(device=device).manual_seed(11)
     outs = {}
@@ -207,19 +213,43 @@ def parity(cfg, device, save: str | None, against: str | None) -> None:
             with forced_style(style):
                 outs[f"{fmt} {name} m={m}"] = fn(x, w, 1, out_dtype=torch.float32)
             del w
+    nw = 1.0 + 0.1 * torch.randn((d,), generator=gen, device=device)
+    for label, x in (("m=1", torch.randn((1, d), generator=gen, device=device)),
+                     ("m=8", torch.randn((8, d), generator=gen, device=device)),
+                     ("m=17", torch.randn((17, d), generator=gen, device=device)),
+                     ("m=256", torch.randn((256, d), generator=gen, device=device)),
+                     ("m=1 f32", torch.randn((1, d), generator=gen, device=device) * 3),
+                     ("x[:, -1:] of 2x9", torch.randn((2, 9, d), generator=gen,
+                                                      device=device)[:, -1:])):
+        x = x if "f32" in label else (x * 3).to(torch.bfloat16)
+        got, ref = rms_norm(x, nw, cfg.norm_epsilon), rms_norm_plain(x, nw, cfg.norm_epsilon)
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = (1e-5 if "f32" in label else cs.TOL_K10) * ref.float().abs().max().item()
+        print(f"parity: rms_norm {label} x {d} against its plain version: err {err:.3e} <= "
+              f"{tol:.3e}", flush=True)
+        if not err <= tol or not torch.equal(got, rms_norm(x, nw, cfg.norm_epsilon)):
+            cs.fail(f"parity: rms_norm {label} is {err} from its plain version, or a second "
+                    "run differs")
+        outs[f"rms_norm {label}"] = got
     outs = {k: v.cpu() for k, v in outs.items()}
     if save:
         torch.save(outs, save)
-        print(f"parity: saved {len(outs)} K2/K7/K1/K5/K3/K4/K6 outputs to {save}", flush=True)
+        print(f"parity: saved {len(outs)} K2/K7/K1/K5/K3/K4/K6/K10 outputs to {save}",
+              flush=True)
     if against:
         ref = torch.load(against)
-        differ = [k for k in outs if not torch.equal(outs[k], ref[k])]
+        alone = sorted(set(outs) ^ set(ref))
+        if alone:
+            print(f"parity: outputs in only one of the two files, not compared: {alone}",
+                  flush=True)
+        both = [k for k in outs if k in ref]
+        differ = [k for k in both if not torch.equal(outs[k], ref[k])]
         groups = {}
-        for key in outs:
+        for key in both:
             kern = key.split()[0]
             groups.setdefault(kern, [0, 0])[0] += key not in differ
             groups[kern][1] += 1
-        print(f"parity: {len(outs) - len(differ)} of {len(outs)} outputs bit-equal to {against} ("
+        print(f"parity: {len(both) - len(differ)} of {len(both)} outputs bit-equal to {against} ("
               + ", ".join(f"{kern} {a} of {b}" for kern, (a, b) in groups.items()) + ")",
               flush=True)
         if differ:
@@ -318,7 +348,8 @@ def main(argv=None) -> int:
     fp = sub.add_parser("profile", help="profiles during 8-stream decode, N rounds, no stall")
     fp.add_argument("--iters", type=int, default=30, help="rounds")
     fp.add_argument("--seconds", type=float, default=0.5, help="each profile's duration")
-    pp = sub.add_parser("parity", help="save or compare K2/K7/K1/K5/K3/K4/K6 outputs bit for bit")
+    pp = sub.add_parser("parity",
+                        help="save or compare K2/K7/K1/K5/K3/K4/K6/K10 outputs bit for bit")
     pp.add_argument("--save", help="save the outputs here")
     pp.add_argument("--against", help="compare the outputs with this file")
     args = ap.parse_args(argv)
